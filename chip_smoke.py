@@ -8,16 +8,17 @@ and PyTorch built for CUDA.  Imports nothing of JAX or ``cxxnet_tpu``.
 Phases; any failure ends the run with a non-zero exit and no result:
 
 1. The card's name and power limit (``nvidia-smi``), then the build of
-   every kernel of the serving path from ``cxxnet_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together) and its wall time.
+   every kernel of the port from ``cxxnet_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together) and its wall time.
 2. Each kernel against its plain PyTorch version on the card, at every
-   shape GoogLeNet's b128 forward gives it (read off the net's shape
-   inference), in float32 and bfloat16: max abs/rel error against the
-   stated tolerance, the kernel's time, the plain version's time, one
-   PyTorch library call's time as a yardstick the port never calls, and
-   the bound: the larger of bytes over 3.35 TB/s and operations over
-   the peak rate for their type (989 TFLOP/s bf16 tensor cores, 67
-   TFLOP/s float32 without them).
+   shape GoogLeNet's b128 training step gives it (read off the net's
+   shape inference and its parameters), in float32 and bfloat16 (the
+   SGD step: float32, over all 116 parameter tensors): max abs/rel
+   error against the stated tolerance, the kernel's time, the plain
+   version's time, one PyTorch library call's time as a yardstick the
+   port never calls, and the bound: the larger of bytes over 3.35 TB/s
+   and operations over the peak rate for their type (989 TFLOP/s bf16
+   tensor cores, 67 TFLOP/s float32 without them).
 3. The serving path at full width: GoogLeNet from
    ``example/ImageNet/googlenet.conf`` (3x224x224, 1000 classes, every
    inception module, ``compute_dtype = bfloat16``) with seeded random
@@ -30,18 +31,42 @@ Phases; any failure ends the run with a non-zero exit and no result:
    the 8-row bucket runs again in float32 with TF32 off and is held
    against the same checkpoint served on the CPU (the plain versions),
    and the bfloat16 answers are held against the float32 ones.
-4. A ``kernels`` JSON line (per kernel: launches on the serving run, max
-   error, and the times of one b128 bf16 forward's launches summed),
-   the ``nvidia-smi`` line again, and last the result line
+4. The training path at full width: ``python -m cxxnet_tpu_torch``'s
+   ``LearnTask`` run in-process, ``task=train`` on a temporary conf (a
+   ``synthetic`` data section of 512 rows with ``threadbuffer``, a
+   256-row eval section, then ``googlenet.conf``'s netconfig and
+   globals with ``dev=gpu``, ``num_round=2``, its learning rates scaled
+   by ``LR_SCALE``): 2 rounds of 4 steps at batch 128 in bfloat16.  The counts are set to 0 just before the run
+   and read just after it; every step must launch K1 13, K4 2, K6 9,
+   K2 4, K3 9, K5 2 times and the SGD kernel once per parameter tensor
+   (116); every loss must be finite; the last round's checkpoint is
+   served by ``Engine`` and answers one ``/predict``.
+5. Training parity on the card, from the run's first checkpoint and one
+   8-row batch, dropout off: one float32 step with TF32 off against the
+   same step on the CPU (plain versions), and one bfloat16 step against
+   the float32 one, each tensor's update compared (limits below).
+6. Three steps at ``googlenet.conf``'s own learning rates from the
+   first checkpoint (their losses, informational).  The training rate:
+   10 ``update()`` steps at b128 bfloat16 on
+   device-resident batches after 3 warm-up steps, timed with CUDA
+   events, with the peak device memory; then one step under
+   ``torch.profiler``: device time by kernel and the busy share.
+7. A ``kernels`` JSON line (per kernel: launches on the training run,
+   and for K1/K4/K6 on the serving run too, max error, and the times
+   of one b128 bf16 training step's launches summed), the
+   ``nvidia-smi`` line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Tolerances (reasons in PERF.md):
 
-* max pool: bit-equal (a max selects one of its inputs);
-* LRN: rtol = atol = 1e-5 in float32 (``powf`` against PyTorch's pow),
-  1e-2 in bfloat16 (one bf16 rounding of the output);
+* max pool forward and both backwards: bit-equal (a max selects one of
+  its inputs; the backwards add in f32 in the plain version's order);
+* LRN forward and backward: rtol = atol = 1e-5 in float32 (``powf``
+  against PyTorch's pow), 1e-2 in bfloat16 (one bf16 rounding of the
+  output);
 * conv-block GEMM: rtol = atol = 1e-4 in float32 (summation order),
   2e-2 in bfloat16 (one bf16 rounding of an f32 accumulator);
+* SGD step: bit-equal (rounded intrinsics in the plain version's order);
 * float32 card vs CPU: probabilities atol 1e-4; ``pool5`` features
   within 1e-4 of their largest magnitude (cuDNN against oneDNN, 57
   convolutions deep);
@@ -52,6 +77,10 @@ Tolerances (reasons in PERF.md):
   the measured logit error plus one logit.  Random weights give logits
   whose largest magnitude is in the hundreds (printed below), so the
   softmax is near one-hot and the probabilities themselves say little.
+* training: float32 card vs CPU, each tensor's update within 1e-2 of
+  its largest CPU update and the median tensor within 1e-3; bfloat16
+  vs float32, each tensor's update at cosine >= 0.9 and the median
+  tensor >= 0.99 (the readings that set these limits: PERF.md).
 """
 
 from __future__ import annotations
@@ -74,6 +103,18 @@ BATCH = 128
 REQUEST_ROWS = (1, 7, 32, 128)
 REPEATS = 2  # each request size is sent this many times
 PER_FORWARD = {"maxpool_fwd": 13, "lrn_fwd": 2, "conv_block_gemm": 9}
+# launches of one training step; the SGD kernel runs once per tensor
+PER_STEP = {**PER_FORWARD, "maxpool_bwd": 4, "maxpool_bwd_s1": 9,
+            "lrn_bwd": 2}
+TRAIN_ROWS, EVAL_ROWS, ROUNDS = 512, 256, 2
+# googlenet.conf's learning rates (eta, wmat:lr, bias:lr) are scaled by
+# this in the training run: from the conf's seeded init on synthetic
+# N(0, 1) images, the activations grow to ~1e3 at pool5 and one step at
+# the conf's rates sends the loss past 1e10 and then to NaN, in the JAX
+# package as in the port (PERF.md); every other updater setting stays
+LR_SCALE = 0.01
+PARITY_ROWS = 8
+RATE_WARMUP, RATE_STEPS = 3, 10
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -86,9 +127,23 @@ TOL = {  # (rtol, atol) of each kernel against its plain version
     ("lrn_fwd", "bfloat16"): (1e-2, 1e-2),
     ("conv_block_gemm", "float32"): (1e-4, 1e-4),
     ("conv_block_gemm", "bfloat16"): (2e-2, 2e-2),
+    ("maxpool_bwd", "float32"): (0.0, 0.0),
+    ("maxpool_bwd", "bfloat16"): (0.0, 0.0),
+    ("maxpool_bwd_s1", "float32"): (0.0, 0.0),
+    ("maxpool_bwd_s1", "bfloat16"): (0.0, 0.0),
+    ("lrn_bwd", "float32"): (1e-5, 1e-5),
+    ("lrn_bwd", "bfloat16"): (1e-2, 1e-2),
+    ("sgd_update", "float32"): (0.0, 0.0),
 }
 F32_PROB_ATOL, F32_FEAT_REL = 1e-4, 1e-4
 BF16_LOGIT_REL, BF16_FEAT_REL = 0.05, 0.05
+# training parity limits, set from the readings in PERF.md: the max-pool
+# backward is discontinuous (an activation whose sign or tie the two
+# sides' rounding decides differently moves a window's gradient), and
+# conv1's update, the deepest, reads 2.2e-3 and cosine 0.923; the median
+# tensor holds the tighter limit
+UPDATE_REL, UPDATE_REL_MEDIAN = 1e-2, 1e-3
+UPDATE_COS, UPDATE_COS_MEDIAN = 0.9, 0.99
 
 
 class SmokeError(RuntimeError):
@@ -144,20 +199,24 @@ def bound(nbytes: float, ops: float, op_kind: str):
 # phase 2: each kernel against its plain version
 
 
-def slice_shapes(batch: int):
-    """The kernel calls of one GoogLeNet forward at ``batch`` rows, read
-    off the port's own shape inference: ``{kernel: {args: count}}``."""
+def step_calls(batch: int):
+    """The kernel calls of one GoogLeNet training step at ``batch`` rows,
+    read off the port's own shape inference and parameters:
+    ``{kernel: {args: count}}``; the SGD kernel's one entry holds every
+    parameter tensor's ``(shape, lr, momentum, wd, clip)`` at step 0."""
     from cxxnet_tpu_torch import config as cfgmod
     from cxxnet_tpu_torch.layers.conv import LRNLayer, MaxPoolingLayer
-    from cxxnet_tpu_torch.nnet.graph import NetGraph
-    from cxxnet_tpu_torch.nnet.net import FunctionalNet
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops.maxpool import same_size_s1
 
-    g = NetGraph()
-    g.configure(cfgmod.parse_file(CONF))
-    net = FunctionalNet(g)
+    tr = NetTrainer()
+    tr.set_params(cfgmod.parse_file(CONF) + [("dev", "cpu"),
+                                             ("batch_size", str(batch))])
+    tr.init_model()
+    net, g = tr.net, tr.graph
     shapes = net.infer_shapes(batch)
     groups, _ = net._sibling_1x1_groups()
-    calls = {k: {} for k in PER_FORWARD}
+    calls = {k: {} for k in PER_STEP}
 
     def add(kernel, key):
         calls[kernel][key] = calls[kernel].get(key, 0) + 1
@@ -167,18 +226,30 @@ def slice_shapes(batch: int):
         xin = shapes[spec.nindex_in[0]]
         if type(lay) is MaxPoolingLayer:
             p = lay.param
-            add("maxpool_fwd", (xin, p.kernel_height, p.kernel_width,
-                                p.stride, p.pad_y, p.pad_x))
+            geom = (p.kernel_height, p.kernel_width, p.stride, p.pad_y,
+                    p.pad_x)
+            add("maxpool_fwd", (xin,) + geom)
+            add("maxpool_bwd_s1" if same_size_s1(*geom) else "maxpool_bwd",
+                (xin,) + geom)
         elif type(lay) is LRNLayer:
-            add("lrn_fwd", (xin, lay.nsize, lay.alpha, lay.beta, lay.knorm))
+            key = (xin, lay.nsize, lay.alpha, lay.beta, lay.knorm)
+            add("lrn_fwd", key)
+            add("lrn_bwd", key)
         elif i in groups:
             n, oh, ow, _ = shapes[spec.nindex_out[0]]
             o = sum(net.layer_objs[j].param.num_channel for j in groups[i])
             add("conv_block_gemm", (n * oh * ow, xin[3], o))
-    for k, n in PER_FORWARD.items():
+    for k, n in PER_STEP.items():
         if sum(calls[k].values()) != n:
-            raise SmokeError(f"GoogLeNet's forward makes "
+            raise SmokeError(f"GoogLeNet's training step makes "
                              f"{sum(calls[k].values())} {k} calls, not {n}")
+    tensors = []
+    for (key, tag), up in tr.updaters.items():
+        pu = up.param
+        tensors.append((tuple(tr.params[key][tag].shape),
+                        float(pu.learning_rate(0)), float(pu.momentum_at(0)),
+                        pu.wd, pu.clip_gradient))
+    calls["sgd_update"] = {tuple(tensors): 1}
     return calls
 
 
@@ -197,11 +268,16 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
     from cxxnet_tpu_torch.ops import lrn, maxpool
     from cxxnet_tpu_torch.ops.kernels import conv_block
 
+    if kernel == "sgd_update":
+        return check_sgd(key, dev, gen)
     esz = torch.empty((), dtype=dtype).element_size()
     op_kind = "bf16_tensor" if dtype == torch.bfloat16 else "f32"
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
+
+    def relu_randn(*shape):  # relu zeros: the ties of a real net
+        return torch.randn(*shape, generator=gen).clamp_min(0).to(dev, dtype)
 
     if kernel == "maxpool_fwd":
         shape, kh, kw, s, py, px = key
@@ -215,18 +291,62 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
         ops_per_out, op_kind = kh * kw, "f32"  # one compare per tap
         nbytes_in = x.numel() * esz
         label = f"x{tuple(shape)} k{kh} s{s} p{py}"
-    elif kernel == "lrn_fwd":
-        shape, n, alpha, beta, knorm = key
-        x = randn(*shape)
-        args = (x, n, alpha, beta, knorm)
-        run = lambda: lrn.lrn_fwd(*args)  # noqa: E731
-        plain = lambda: lrn.lrn_plain(*args)  # noqa: E731
+    elif kernel in ("maxpool_bwd", "maxpool_bwd_s1"):
+        shape, kh, kw, s, py, px = key
+        x = relu_randn(*shape)
+        y = maxpool.maxpool_fwd(x, kh, kw, s, py, px)
+        g = randn(*y.shape)
+        if kernel == "maxpool_bwd":
+            args = (x, y, g, kh, kw, s, py, px)
+            run = lambda: maxpool.maxpool_bwd(*args)  # noqa: E731
+            plain = lambda: maxpool.maxpool_bwd_plain(*args)  # noqa: E731
+            taps = (-(-kh // s)) * (-(-kw // s))
+        else:
+            args = (x, y, g, kh, py)
+            run = lambda: maxpool.maxpool_bwd_s1(*args)  # noqa: E731
+            plain = lambda: maxpool.maxpool_bwd_s1_plain(  # noqa: E731
+                *args)
+            taps = kh * kw
         xc = x.permute(0, 3, 1, 2)
-        library = lambda: F.local_response_norm(  # noqa: E731
-            xc, n, alpha, beta, knorm)
-        # the window's squares and adds, then the scale, pow and product
-        ops_per_out, op_kind = 2 * n + 4, "f32"
-        nbytes_in = x.numel() * esz
+        yt, idx = torch.ops.aten.max_pool2d_with_indices(
+            xc, [kh, kw], [s, s], [py, px], [1, 1], True)
+        gt = torch.randn(yt.shape, generator=gen).to(dev, dtype).contiguous(
+            memory_format=torch.channels_last)
+        library = lambda: (  # noqa: E731
+            torch.ops.aten.max_pool2d_with_indices_backward(
+                gt, xc, [kh, kw], [s, s], [py, px], [1, 1], True, idx))
+        ops_per_out, op_kind = 2 * taps, "f32"  # compare and add per tap
+        nbytes_in = (x.numel() + y.numel() + g.numel()) * esz
+        label = f"x{tuple(shape)} k{kh} s{s} p{py}"
+    elif kernel in ("lrn_fwd", "lrn_bwd"):
+        shape, n, alpha, beta, knorm = key
+        xc_grad = None
+        if kernel == "lrn_fwd":
+            x = randn(*shape)
+            args = (x, n, alpha, beta, knorm)
+            run = lambda: lrn.lrn_fwd(*args)  # noqa: E731
+            plain = lambda: lrn.lrn_plain(*args)  # noqa: E731
+            xc = x.permute(0, 3, 1, 2)
+            library = lambda: F.local_response_norm(  # noqa: E731
+                xc, n, alpha, beta, knorm)
+            # the window's squares and adds, then the scale, pow, product
+            ops_per_out = 2 * n + 4
+            nbytes_in = x.numel() * esz
+        else:
+            x = relu_randn(*shape)
+            g = randn(*shape)
+            args = (x, g, n, alpha, beta, knorm)
+            run = lambda: lrn.lrn_bwd(*args)  # noqa: E731
+            plain = lambda: lrn.lrn_bwd_plain(*args)  # noqa: E731
+            xc_grad = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+            yl = F.local_response_norm(xc_grad, n, alpha, beta, knorm)
+            gc = g.permute(0, 3, 1, 2)
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                yl, xc_grad, gc, retain_graph=True)
+            # two window sums (squares, then t), two pows, ~10 more flops
+            ops_per_out = 4 * n + 12
+            nbytes_in = 2 * x.numel() * esz
+        op_kind = "f32"
         label = f"x{tuple(shape)} n{n}"
     else:
         m, k, o = key
@@ -269,16 +389,75 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
     return row
 
 
+def check_sgd(tensors, dev, gen):
+    """The SGD kernel over every parameter tensor of the step (one launch
+    each), in place: bit-equality with the plain version, and the times
+    of the whole set against ``torch.optim.SGD(fused=True).step()``."""
+    import torch
+
+    from cxxnet_tpu_torch.ops.kernels import update_step
+
+    def make(shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    ws = [make(t[0]) for t in tensors]
+    gs = [make(t[0]) for t in tensors]
+    ms = [make(t[0]) for t in tensors]
+    ws2 = [w.clone() for w in ws]
+    ms2 = [m.clone() for m in ms]
+
+    def run(ws=ws, ms=ms):
+        for w, g, m, (_, lr, mom, wd, clip) in zip(ws, gs, ms, tensors):
+            update_step.sgd_update(w, g, m, lr, mom, wd, clip)
+
+    def plain(ws=ws2, ms=ms2):
+        for w, g, m, (_, lr, mom, wd, clip) in zip(ws, gs, ms, tensors):
+            update_step.sgd_update_plain(w, g, m, lr, mom, wd, clip)
+
+    run()
+    plain()
+    torch.cuda.synchronize()
+    ok = all(torch.equal(a, b) for a, b in zip(ws + ms, ws2 + ms2))
+    ok = ok and all(bool(torch.isfinite(w).all()) for w in ws)
+    abs_err = max(float((a - b).abs().max()) for a, b in
+                  zip(ws + ms, ws2 + ms2))
+    # the library yardstick: one fused SGD step over the same tensors,
+    # grouped by weight decay
+    groups = {}
+    for w, g, (_, lr, mom, wd, _c) in zip(ws, gs, tensors):
+        p = w.clone().requires_grad_(True)
+        p.grad = g
+        groups.setdefault((lr, wd), []).append(p)
+    opt = torch.optim.SGD(
+        [{"params": ps, "lr": lr, "weight_decay": wd}
+         for (lr, wd), ps in groups.items()],
+        lr=tensors[0][1], momentum=tensors[0][2], fused=True)
+    n = sum(w.numel() for w in ws)
+    bound_ms, bound_by = bound(20.0 * n, 5.0 * n, "f32")
+    row = {
+        "kernel": "sgd_update", "dtype": "float32",
+        "shape": f"{len(tensors)} tensors, {n} values",
+        "max_abs_err": abs_err, "max_rel_err": 0.0, "rtol": 0.0,
+        "atol": 0.0, "ok": ok,
+        "ms": time_ms(run), "plain_ms": time_ms(plain),
+        "library_ms": time_ms(opt.step),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    return row
+
+
 def check_kernels(dev):
     import torch
 
     gen = torch.Generator().manual_seed(SEED)
     rows = []
-    for kernel, keys in slice_shapes(BATCH).items():
+    for kernel, keys in step_calls(BATCH).items():
         for key, count in keys.items():
-            for dtype in (torch.float32, torch.bfloat16):
+            dtypes = ((torch.float32,) if kernel == "sgd_update"
+                      else (torch.float32, torch.bfloat16))
+            for dtype in dtypes:
                 r = check_kernel(kernel, key, dtype, dev, gen)
-                r["per_forward"] = count
+                r["per_step"] = count
                 rows.append(r)
                 log(f"kernel {r['kernel']:16s} {r['dtype']:8s} "
                     f"{r['shape']:34s} x{count}  "
@@ -374,7 +553,7 @@ def serve_phase():
                         ans = json.loads(r.read())
                     lat.append((time.perf_counter() - t0) * 1e3)
                     delta = {k.name: k.launches - before[k.name]
-                             for k in KERNELS}
+                             for k in KERNELS if k.name in PER_FORWARD}
                     if delta != PER_FORWARD:
                         raise SmokeError(f"{n}-row request launched {delta}, "
                                          f"expected {PER_FORWARD}")
@@ -391,6 +570,9 @@ def serve_phase():
             launches = {k.name: k.launches for k in KERNELS}
             forwards = len(REQUEST_ROWS) * REPEATS
             log(f"serve: launches {launches} over {forwards} forwards")
+            if any(launches[k] for k in launches if k not in PER_FORWARD):
+                raise SmokeError("serving launched a training kernel")
+            launches = {k: launches[k] for k in PER_FORWARD}
             for name, per in PER_FORWARD.items():
                 if launches[name] != per * forwards:
                     raise SmokeError(f"{name}: {launches[name]} launches"
@@ -493,11 +675,13 @@ def forward_breakdown(tr, bodies):
         log(f"forward: bucket {b:4d} {statistics.median(ts):.2f} ms "
             f"(host clock, synchronised, median of 5)")
     for b in sorted({min(runs), max(runs)}):
-        _profile(runs[b], b)
+        _profile(runs[b], f"bucket {b}", "forward")
 
 
-def _profile(run, bucket: int):
-    """Device time by kernel name over one forward, and the busy share."""
+def _profile(run, what: str, span: str):
+    """Device time by kernel name over one call of ``run`` (a ``span``:
+    forward or step), and the busy share; returns ``{kernel: ms}`` for
+    the port's kernels and the totals."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -515,51 +699,363 @@ def _profile(run, bucket: int):
             t = e.cuda_time_total
         by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3
     busy = sum(by_name.values())
-    tag = f"profile: bucket {bucket}:"
-    log(f"{tag} forward {wall:.2f} ms wall under the profiler, "
+    tag = f"profile: {what}:"
+    log(f"{tag} {span} {wall:.2f} ms wall under the profiler, "
         f"{busy:.2f} ms of device time ({busy / wall if wall else 0:.3f} "
         f"busy)")
     ours = {"maxpool_fwd": ("maxpool_fwd_kernel",),
             "lrn_fwd": ("lrn_fwd_kernel",),
-            "conv_block_gemm": ("gemm_bf16_kernel", "gemm_f32_kernel")}
+            "conv_block_gemm": ("gemm_bf16_kernel", "gemm_f32_kernel"),
+            "maxpool_bwd": ("maxpool_bwd_kernel",),
+            "maxpool_bwd_s1": ("maxpool_bwd_s1_kernel",),
+            "lrn_bwd": ("lrn_bwd_kernel",),
+            "sgd_update": ("sgd_update_kernel",)}
+    out = {"wall_ms": wall, "device_ms": busy}
     for name, frags in ours.items():
         t = sum(v for k, v in by_name.items() if any(f in k for f in frags))
+        out[name] = t
         log(f"{tag} {name} {t:.3f} ms")
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"{tag} {v:8.3f} ms  {k[:100]}")
+    return out
 
 
 # ----------------------------------------------------------------------
 
 
-def kernels_line(rows, launches):
-    """Per kernel: the serving run's launches, the max error over every
-    check, and one b128 bf16 forward's launches' times summed."""
+def kernels_line(rows, serve_launches, train_launches):
+    """Per kernel: the training run's launches (and the serving run's,
+    for the forward kernels), the max error over every check, and one
+    b128 training step's launches' times summed (bf16; the SGD kernel's
+    f32 row covers all its launches)."""
     from cxxnet_tpu_torch.ops import KERNELS
 
     out = []
     for k in KERNELS:
         mine = [r for r in rows if r["kernel"] == k.name]
-        fwd = [r for r in mine if r["dtype"] == "bfloat16"]
+        step_dtype = "float32" if k.name == "sgd_update" else "bfloat16"
+        step = [r for r in mine if r["dtype"] == step_dtype]
 
         def total(field):
-            return sum(r[field] * r["per_forward"] for r in fwd)
+            return sum(r[field] * r["per_step"] for r in step)
 
-        by_bytes = sum(r["per_forward"] * r["bound_ms"] for r in fwd
+        by_bytes = sum(r["per_step"] * r["bound_ms"] for r in step
                        if r["bound_by"] == "bytes")
         by_ops = total("bound_ms") - by_bytes
-        out.append({
+        row = {
             "name": k.name, "route": "cuda",
             "source": os.path.relpath(k.source, REPO),
             "replaces": k.replaces.split()[0],
-            "launches": launches[k.name],
+            "launches": train_launches[k.name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": total("library_ms"),
-        })
+        }
+        if k.name in serve_launches:
+            row["launches_serving"] = serve_launches[k.name]
+        out.append(row)
     return {"kernels": out}
+
+
+# ----------------------------------------------------------------------
+# phases 4-6: the training path
+
+
+def _train_conf(tmp: str) -> str:
+    """A conf file: synthetic data and eval sections, then the
+    netconfig and globals of googlenet.conf (its imgbin sections
+    dropped)."""
+    from cxxnet_tpu_torch import config as cfgmod
+
+    shape = dict(cfgmod.parse_file(CONF))["input_shape"]
+    lines = []
+    for kind, tag, rows, tb in (("data", "train", TRAIN_ROWS, True),
+                                ("eval", "val", EVAL_ROWS, False)):
+        lines += [f"{kind} = {tag}", "iter = synthetic",
+                  f"  nsample = {rows}", f"  input_shape = {shape}",
+                  "  nclass = 1000"]
+        lines += ["iter = threadbuffer"] if tb else []
+        lines += ["iter = end"]
+    split = cfgmod.split_sections(cfgmod.parse_file(CONF))
+    lines += [f"{n} = {v}" for n, v in split.global_entries]
+    lines += [f"{n} = {float(v) * LR_SCALE:g}" for n, v in
+              split.global_entries if n in ("eta", "lr", "wmat:lr",
+                                            "bias:lr")]
+    path = os.path.join(tmp, "googlenet_synthetic.conf")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def train_phase(tmp: str):
+    """Drive ``task=train`` through the CLI's ``LearnTask``; returns the
+    training run's launch counts, its checkpoint directory and conf."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.cli import LearnTask
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.serve import Engine, make_server
+
+    steps, losses, marks = [], [], []
+
+    class RecordingTrainer(NetTrainer):
+        """Records each step's launches, loss and end time."""
+
+        def start_round(self, round_):
+            marks.append(("round", round_, time.perf_counter(), len(steps)))
+            super().start_round(round_)
+
+        def update(self, batch):
+            before = {k.name: k.launches for k in KERNELS}
+            super().update(batch)
+            steps.append({k.name: k.launches - before[k.name]
+                          for k in KERNELS})
+            losses.append(float(self.last_loss))
+            marks.append(("step", None, time.perf_counter(), len(steps)))
+
+    class SmokeTask(LearnTask):
+        def _create_trainer(self):
+            tr = RecordingTrainer()
+            tr.set_params(self.cfg)
+            self.trainer_for_smoke = tr
+            return tr
+
+    conf = _train_conf(tmp)
+    mdir = os.path.join(tmp, "models")
+    argv = [conf, "task=train", "dev=gpu", f"num_round={ROUNDS}",
+            f"max_round={ROUNDS}", f"model_dir={mdir}", f"seed={SEED}",
+            "print_step=0"]
+    task = SmokeTask()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts at 0 just before, read just after
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    task.run(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr = task.trainer_for_smoke
+    n_tensors = sum(len(tags) for tags in tr.params.values())
+    want = {**PER_STEP, "sgd_update": n_tensors}
+    log(f"train: {len(steps)} steps of {tr.batch_size} rows in {wall:.1f}s "
+        f"(CLI run, data set-up included); {n_tensors} parameter tensors; "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"train: launches {launches}")
+    log(f"train: losses {[round(v, 4) for v in losses]}")
+    n_steps = ROUNDS * (TRAIN_ROWS // tr.batch_size)
+    if len(steps) != n_steps:
+        raise SmokeError(f"task=train ran {len(steps)} steps, not {n_steps}")
+    for i, d in enumerate(steps):
+        if d != want:
+            raise SmokeError(f"training step {i} launched {d}, expected "
+                             f"{want}")
+    for name, per in want.items():
+        if launches[name] < per * n_steps:
+            raise SmokeError(f"{name}: {launches[name]} launches in the "
+                             f"training run, fewer than {per * n_steps}")
+    if not all(np.isfinite(losses)):
+        raise SmokeError(f"non-finite training loss: {losses}")
+    # the CLI round's rate: round start to its last step (host feed in)
+    for (_, r, ts, n0), nxt in zip(
+            [m for m in marks if m[0] == "round"],
+            [m for m in marks if m[0] == "round"][1:] + [None]):
+        ends = [m for m in marks if m[0] == "step" and m[3] > n0
+                and (nxt is None or m[3] <= nxt[3])]
+        if ends:
+            dt = ends[-1][2] - ts
+            log(f"train: CLI round {r - 1}: {len(ends)} steps, "
+                f"{len(ends) * tr.batch_size / dt:.1f} img/s (host clock, "
+                "host feed and metric fetch included)")
+    saved = sorted(f for f in os.listdir(mdir) if f.endswith(".model"))
+    want_files = [f"{r:04d}.model" for r in range(ROUNDS + 1)]
+    if saved != want_files:
+        raise SmokeError(f"checkpoints {saved}, expected {want_files}")
+    cfg = cfgmod.parse_file(conf) + [("dev", "gpu"), ("silent", "1")]
+    last = os.path.join(mdir, want_files[-1])
+    with Engine(cfg=cfg, model_in=last) as eng:
+        httpd = make_server(eng, port=0)
+        th = threading.Thread(target=httpd.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+        th.start()
+        try:
+            side = int(dict(cfg)["input_shape"].split(",")[1])
+            ans = _request(httpd.server_port, "/predict",
+                           {"data": _rows(2, side, SEED).tolist(),
+                            "raw": True})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=30)
+    scores = np.asarray(ans["scores"], np.float32)
+    if scores.shape != (2, 1000) or not np.isfinite(scores).all():
+        raise SmokeError(f"trained model's answer: shape {scores.shape}, "
+                         "or values not finite")
+    log(f"train: {want_files[-1]} served by Engine; /predict answered "
+        f"{scores.shape}")
+    return launches, mdir, cfg
+
+
+def _update_of(cfg, ckpt: str, x, y, dev: str, dtype: str):
+    """Each tensor's update by one step of a trainer loaded from
+    ``ckpt``, as f64 numpy (CPU), and where the step's forward was
+    exactly zero (a bool array per node; the out node left out)."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(cfg + [("dev", dev), ("compute_dtype", dtype),
+                         ("batch_size", str(len(x)))])
+    tr.load_model(ckpt)
+    w0 = {(k, t): w.detach().cpu().double().numpy().copy()
+          for k, tags in tr.params.items() for t, w in tags.items()}
+    with torch.no_grad():
+        nodes, _ = tr.net.forward_train(
+            tr.params, torch.as_tensor(x, device=tr.device),
+            torch.as_tensor(y, device=tr.device), None, None)
+    out = tr.net.out_node_index()
+    zeros = [None if v is None or i == out else (v == 0).cpu().numpy()
+             for i, v in enumerate(nodes)]
+    del nodes
+    tr.update_all(x, y)
+    return {kt: tr.params[kt[0]][kt[1]].detach().cpu().double().numpy()
+            - w for kt, w in w0.items()}, zeros
+
+
+def parity_phase(cfg, mdir: str):
+    """One float32 step on the card against the CPU, and one bfloat16
+    step against the float32 one, from the run's first checkpoint."""
+    import numpy as np
+    import torch
+
+    # dropout off: the card's Philox and the CPU's generator draw
+    # different masks
+    cfg = [(n, "0.0" if n == "threshold" else v) for n, v in cfg]
+    ckpt = os.path.join(mdir, "0000.model")
+    side = int(dict(cfg)["input_shape"].split(",")[1])
+    rng = np.random.RandomState(SEED + 11)
+    x = rng.randn(PARITY_ROWS, side, side, 3).astype(np.float32)
+    y = rng.randint(0, 1000, (PARITY_ROWS, 1)).astype(np.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    d_card, z_card = _update_of(cfg, ckpt, x, y, "gpu", "float32")
+    d_cpu, z_cpu = _update_of(cfg, ckpt, x, y, "cpu", "float32")
+    d_bf16, _ = _update_of(cfg, ckpt, x, y, "gpu", "bfloat16")
+    flips = sum(int((a != b).sum()) for a, b in zip(z_card, z_cpu)
+                if a is not None)
+    n_zero = sum(int(a.sum()) for a in z_cpu if a is not None)
+    log(f"parity: f32 forwards, card vs CPU: {flips} activations exactly "
+        f"zero on one side only, of {n_zero} zeros on the CPU")
+    rel = {kt: float(np.abs(d_card[kt] - d).max() / np.abs(d).max())
+           for kt, d in d_cpu.items()}
+    cos = {kt: float((d * d_card[kt]).sum()
+                     / (np.linalg.norm(d) * np.linalg.norm(d_card[kt])))
+           for kt, d in d_bf16.items()}
+    worst_rel = max(rel, key=rel.get)
+    worst_cos = min(cos, key=cos.get)
+    log(f"parity: {PARITY_ROWS}-row steps in {time.perf_counter() - t0:.1f}s")
+    log(f"parity: f32 card vs CPU update, max|d_card - d_cpu| / max|d_cpu|:"
+        f" worst {rel[worst_rel]:.3g} at {'/'.join(worst_rel)} (limit "
+        f"{UPDATE_REL:g}), median {statistics.median(rel.values()):.3g} "
+        f"(limit {UPDATE_REL_MEDIAN:g})")
+    log(f"parity: bf16 vs f32 card update cosine: worst {cos[worst_cos]:.5f}"
+        f" at {'/'.join(worst_cos)} (limit {UPDATE_COS:g}), median "
+        f"{statistics.median(cos.values()):.5f} (limit "
+        f"{UPDATE_COS_MEDIAN:g})")
+    for name, vals, rev in (("f32 card vs CPU rel", rel, True),
+                            ("bf16 vs f32 cosine", cos, False)):
+        worst = sorted(vals.items(), key=lambda kv: kv[1], reverse=rev)[:5]
+        log(f"parity: {name}, worst 5: "
+            + ", ".join(f"{'/'.join(kt)} {v:.4g}" for kt, v in worst))
+    bad = [kt for kt, v in rel.items() if not v <= UPDATE_REL]
+    bad += [kt for kt, v in cos.items() if not v >= UPDATE_COS]
+    if not statistics.median(rel.values()) <= UPDATE_REL_MEDIAN:
+        bad.append(("median", "f32 card vs CPU"))
+    if not statistics.median(cos.values()) >= UPDATE_COS_MEDIAN:
+        bad.append(("median", "bf16 vs f32 cosine"))
+    if bad:
+        raise SmokeError(f"training parity out of tolerance for {len(bad)} "
+                         f"tensor(s): {bad[:8]}")
+
+
+def conf_rates_phase(cfg, mdir: str):
+    """Three b128 bf16 steps at googlenet.conf's own learning rates from
+    the run's first checkpoint, each on a fresh device-resident batch:
+    the losses that made the training run scale the rates
+    (informational)."""
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    rates = [(n, v) for n, v in cfgmod.parse_file(CONF)
+             if n in ("eta", "lr", "wmat:lr", "bias:lr")]
+    tr = NetTrainer()
+    tr.set_params(cfg + rates)
+    tr.load_model(os.path.join(mdir, "0000.model"))
+    shape = tr.net.input_node_shape(tr.batch_size)
+    gen = torch.Generator(device=tr.device).manual_seed(SEED + 1)
+    losses = []
+    for _ in range(3):
+        tr.update(DataBatch(
+            data=torch.randn(shape, generator=gen, device=tr.device),
+            label=torch.randint(0, 1000, (shape[0], 1), generator=gen,
+                                device=tr.device).float()))
+        losses.append(float(tr.last_loss))
+    log(f"rates: at googlenet.conf's own rates {dict(rates)}, three steps "
+        f"from 0000.model on fresh N(0, 1) batches: losses {losses}")
+
+
+def rate_phase(cfg, mdir: str):
+    """``RATE_STEPS`` b128 bf16 steps on device-resident batches after
+    ``RATE_WARMUP`` warm-up steps (CUDA events), the peak memory, then
+    one step under the profiler."""
+    import torch
+
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.load_model(os.path.join(mdir, f"{ROUNDS:04d}.model"))
+    shape = tr.net.input_node_shape(tr.batch_size)
+    gen = torch.Generator(device=tr.device).manual_seed(SEED)
+    batch = DataBatch(
+        data=torch.randn(shape, generator=gen, device=tr.device),
+        label=torch.randint(0, 1000, (shape[0], 1), generator=gen,
+                            device=tr.device).float())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RATE_WARMUP):
+        tr.update(batch)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(RATE_STEPS):
+        tr.update(batch)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / RATE_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"rate: b{tr.batch_size} bf16 training step {ms:.2f} ms, "
+        f"{tr.batch_size / ms * 1e3:.1f} img/s ({RATE_STEPS} steps after "
+        f"{RATE_WARMUP} warm-up, CUDA events, device-resident batches); "
+        f"peak device memory {peak:.2f} GiB")
+
+    def step():
+        tr.update(batch)
+        torch.cuda.synchronize()
+
+    return _profile(step, f"train b{tr.batch_size} bf16", "step")
 
 
 def main() -> int:
@@ -597,8 +1093,13 @@ def main() -> int:
             f"torch {torch.__version__} cuda {torch.version.cuda}")
 
         rows = check_kernels(dev)
-        launches = serve_phase()
-        line = kernels_line(rows, launches)
+        serve_launches = serve_phase()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            train_launches, mdir, cfg = train_phase(tmp)
+            parity_phase(cfg, mdir)
+            conf_rates_phase(cfg, mdir)
+            rate_phase(cfg, mdir)
+        line = kernels_line(rows, serve_launches, train_launches)
         log(card)
         log(json.dumps(line))
     except Exception:  # noqa: BLE001 - every failure ends the run

@@ -7,9 +7,10 @@ runs the JAX package's Pallas kernels as hand-written CUDA kernels
 (``csrc/``, built with ``nvcc`` at first use and loaded with ``ctypes``)
 beside plain PyTorch versions of the same functions for the CPU.
 
-This slice serves CNNs (``task=serve``, :class:`serve.Engine`); training
-and the other tasks are later slices (ROADMAP.md).  The package imports
-neither ``jax`` nor ``cxxnet_tpu``.
+It serves CNNs (``task=serve``, :class:`serve.Engine`) and trains them
+(``task=train``, :meth:`nnet.trainer.NetTrainer.update`, ``updater =
+sgd``); the other tasks are later slices (ROADMAP.md).  The package
+imports neither ``jax`` nor ``cxxnet_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -1,44 +1,75 @@
 """Command-line entry point: ``python -m cxxnet_tpu_torch <conf> [name=val ...]``.
 
-Counterpart of ``cxxnet_tpu/cli.py`` for this slice, which ports
-``task=serve``: the conf (plus ``name=value`` overrides, applied after
-the file's entries) is parsed with the same grammar, a checkpoint is
-loaded from ``model_in`` (or the newest valid one in ``model_dir``) into
-an :class:`~cxxnet_tpu_torch.serve.Engine`, and the JSON endpoint serves
-on ``serve_host:serve_port`` (``serve_port = 0`` picks an ephemeral
-port, printed on startup).  SIGTERM/SIGINT drain: the server stops
-accepting, in-flight requests get up to ``drain_timeout_s`` to finish,
-queued ones fail with 503, and the process exits 0.
+Counterpart of ``cxxnet_tpu/cli.py`` for ``task=train`` and
+``task=serve``.  The conf (plus ``name=value`` overrides, applied after
+the file's entries) is parsed with the same grammar.
+
+``task=train``: a fresh model (``model_in = NULL``, written as
+``0000.model`` before the first round), the model of ``model_in``, or
+with ``continue = 1`` the newest valid checkpoint in ``model_dir``; then
+rounds until ``num_round`` (at most ``max_round`` in this run).  A round
+runs one step per batch of the ``data`` section, prints ``update round
+N`` and a rate line, writes ``[N]\tname-metric:value`` evaluation lines
+(train metrics, then every ``eval`` section) to stderr, and saves
+``%04d.model`` every ``save_model`` rounds.  SIGTERM/SIGINT finish the
+current batch, snapshot and exit 0.  ``scan_steps = N`` (a device
+program of N steps in the JAX package) runs N single steps here, which
+is the same math.
+
+``task=serve``: a checkpoint is loaded from ``model_in`` (or the newest
+valid one in ``model_dir``) into an
+:class:`~cxxnet_tpu_torch.serve.Engine`, and the JSON endpoint serves on
+``serve_host:serve_port`` (``serve_port = 0`` picks an ephemeral port,
+printed on startup).  SIGTERM/SIGINT drain: the server stops accepting,
+in-flight requests get up to ``drain_timeout_s`` to finish, queued ones
+fail with 503, and the process exits 0.
 
 The other tasks, the serving fleet (``replicas >= 2``), hot reload
-(``serve_reload_period``) and the tuner (``controller``) are later
-slices (ROADMAP.md) and raise ``NotImplementedError`` naming the item.
+(``serve_reload_period``), the tuner (``controller``) and the elastic,
+integrity and telemetry planes of training are later slices
+(ROADMAP.md) and raise ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
 
+import os
 import signal
 import sys
 import threading
+import time
 from typing import List, Optional
 
 from . import config as cfgmod
 
 _LATER = {
-    "train": "queue A item 2 (training GoogLeNet)",
-    "finetune": "queue A item 2 (training GoogLeNet)",
+    "finetune": "queue A item 5 (finetune / copy_model_from)",
     "export_quant": "queue A item 3 (quantized serving)",
     "generate": "queue A item 4 (the LM path)",
 }
+# train keys of planes this slice does not port: refused when switched on
+_TRAIN_LATER = ("integrity_every", "integrity_shadow", "integrity_probe",
+                "test_on_server", "telemetry", "elastic", "elastic_join",
+                "test_io")
 
 
 class LearnTask:
-    """The serving subset of the JAX package's ``LearnTask``."""
+    """The ``train`` and ``serve`` tasks of the JAX package's
+    ``LearnTask``."""
 
     def __init__(self) -> None:
         self.task = "train"
         self.name_model_in = "NULL"
         self.name_model_dir = "models"
+        self.num_round = 10
+        self.max_round = 1 << 30
+        self.start_counter = 0
+        self.continue_training = 0
+        self.save_period = 1
+        self.print_step = 100
+        self.net_trainer = None
+        self.itr_train = None
+        self.itr_evals: List = []
+        self.eval_names: List[str] = []
         self.silent = 0
         self.serve_host = "127.0.0.1"
         self.serve_port = 9090
@@ -55,6 +86,22 @@ class LearnTask:
             return
         if name == "task":
             self.task = val
+        elif name == "num_round":
+            self.num_round = int(val)
+        elif name == "max_round":
+            self.max_round = int(val)
+        elif name == "start_counter":
+            self.start_counter = int(val)
+        elif name == "continue":
+            self.continue_training = int(val)
+        elif name == "save_model":
+            self.save_period = int(val)
+        elif name == "print_step":
+            self.print_step = int(val)
+        elif name in _TRAIN_LATER and val not in ("", "0"):
+            raise NotImplementedError(
+                f"{name}={val}: this plane of task=train is not ported yet "
+                "(ROADMAP.md queue A item 5)")
         elif name == "model_in":
             self.name_model_in = val
         elif name == "model_dir":
@@ -101,13 +148,177 @@ class LearnTask:
             self.set_param(name, val)
         for name, val in cfgmod.parse_cli_overrides(argv[1:]):
             self.set_param(name, val)
-        if self.task != "serve":
+        if self.task == "serve":
+            self.task_serve()
+        elif self.task == "train":
+            self.task_train()
+        else:
             later = _LATER.get(self.task, "queue A item 5 (the other tasks)")
             raise NotImplementedError(
                 f"task={self.task} is not ported yet (ROADMAP.md {later}); "
-                "this package serves models (task=serve)")
-        self.task_serve()
+                "this package trains (task=train) and serves (task=serve)")
         return 0
+
+    # ------------------------------------------------------------------
+    # train
+    def _create_trainer(self):
+        from .nnet.trainer import NetTrainer
+
+        tr = NetTrainer()
+        tr.set_params(self.cfg)
+        return tr
+
+    def _net_fingerprint(self) -> Optional[str]:
+        from .nnet.graph import NetGraph
+        from .utils import checkpoint as ckpt
+
+        g = NetGraph()
+        g.configure(self.cfg)
+        return ckpt.net_fingerprint(g.structure_to_json())
+
+    def init_train(self) -> None:
+        """The trainer (fresh, ``model_in``, or resumed) and the
+        iterators of the conf's ``data`` and ``eval`` sections."""
+        from .utils import checkpoint as ckpt
+
+        if self.continue_training:
+            found = ckpt.find_latest_valid(
+                self.name_model_dir, net_fp=self._net_fingerprint(),
+                silent=bool(self.silent))
+            if found is None:
+                raise FileNotFoundError(
+                    "Init: cannot find models for continue training; "
+                    "specify model_in instead")
+            round_, path = found
+            self.net_trainer = self._create_trainer()
+            self.net_trainer.load_model(path)
+            self.start_counter = round_ + 1
+            print(f"Init: Continue training from round {self.start_counter}")
+        elif self.name_model_in == "NULL":
+            self.net_trainer = self._create_trainer()
+            self.net_trainer.init_model()
+        else:
+            stem = os.path.basename(self.name_model_in).split(".")[0]
+            if stem.isdigit():
+                self.start_counter = int(stem)
+            else:
+                print("WARNING: cannot infer start_counter from model name; "
+                      "set it in the config if needed")
+            self.net_trainer = self._create_trainer()
+            self.net_trainer.load_model(self.name_model_in)
+            self.start_counter += 1
+        self._create_iterators()
+
+    def _create_iterators(self) -> None:
+        from .io.data import create_iterator
+
+        split = cfgmod.split_sections(self.cfg)
+        for sec in split.sections:
+            if sec.kind == "data":
+                if self.itr_train is not None:
+                    raise ValueError("can only have one data section")
+                self.itr_train = create_iterator(sec.entries)
+            elif sec.kind == "eval":
+                self.itr_evals.append(create_iterator(sec.entries))
+                self.eval_names.append(sec.tag)
+        for it in [self.itr_train, *self.itr_evals]:
+            if it is not None:
+                for n, v in split.global_entries:
+                    it.set_param(n, v)
+                it.init()
+
+    def _close_iterators(self) -> None:
+        for it in [self.itr_train, *self.itr_evals]:
+            if it is not None:
+                it.close()
+
+    def _save_model(self, force: bool = False) -> bool:
+        """Write ``<start_counter>.model`` (every ``save_model`` rounds,
+        or now when ``force``) and advance the round counter."""
+        round_ = self.start_counter
+        path = os.path.join(self.name_model_dir, f"{round_:04d}.model")
+        self.start_counter += 1
+        if self.save_period == 0 or (
+                not force and self.start_counter % self.save_period != 0):
+            return False
+        os.makedirs(self.name_model_dir, exist_ok=True)
+        self.net_trainer.save_model(path, round_=round_)
+        return True
+
+    def task_train(self) -> None:
+        from .utils.checkpoint import PreemptionHandler
+
+        self.init_train()
+        t_start = time.time()
+        try:
+            if self.continue_training == 0 and self.name_model_in == "NULL":
+                self._save_model()
+            else:
+                for it, nm in zip(self.itr_evals, self.eval_names):
+                    sys.stderr.write(self.net_trainer.evaluate(it, nm))
+                sys.stderr.write("\n")
+                sys.stderr.flush()
+            if self.itr_train is None:
+                return
+            preempt = PreemptionHandler().install()
+            try:
+                budget = self.max_round
+                while self.start_counter <= self.num_round and budget > 0:
+                    budget -= 1
+                    completed = self._train_one_round(preempt, t_start)
+                    if not completed or preempt.requested:
+                        last = self.start_counter - 1
+                        if self._save_model(force=True):
+                            print(f"preemption: state saved through round "
+                                  f"{last} ({last:04d}.model); resume with "
+                                  "continue=1", flush=True)
+                        else:
+                            print("preemption: exiting (checkpointing "
+                                  "disabled, save_model=0)", flush=True)
+                        return
+                    self._save_model()
+            finally:
+                preempt.uninstall()
+            if not self.silent:
+                print(f"\nupdating end, {int(time.time() - t_start)} sec "
+                      "in all")
+        finally:
+            self._close_iterators()
+
+    def _train_one_round(self, preempt, t_start: float) -> bool:
+        """One pass over the data section; False when a preemption
+        request stopped it after a batch."""
+        tr = self.net_trainer
+        round_ = self.start_counter - 1
+        if not self.silent:
+            print(f"update round {round_}", flush=True)
+        tr.start_round(self.start_counter)
+        self.itr_train.before_first()
+        steps = 0
+        t0 = time.perf_counter()
+        while self.itr_train.next():
+            tr.update(self.itr_train.value())
+            steps += 1
+            if (self.print_step > 0 and steps % self.print_step == 0
+                    and not self.silent):
+                print(f"round {round_:8d}:[{steps:8d}] "
+                      f"{int(time.time() - t_start)} sec elapsed", flush=True)
+            if preempt.requested:
+                return False
+        tr.sync()
+        dt = time.perf_counter() - t0
+        if not self.silent and steps:
+            print(f"round {round_:8d}: {steps} steps in {dt:.3f} s, "
+                  f"{steps * tr.batch_size / dt:.1f} samples/sec", flush=True)
+        sys.stderr.write(f"[{self.start_counter}]")
+        text = ""
+        if not self.itr_evals:
+            text += tr.evaluate(None, "train")
+        for it, nm in zip(self.itr_evals, self.eval_names):
+            text += tr.evaluate(it, nm)
+        sys.stderr.write(text + "\n")
+        sys.stderr.flush()
+        return True
 
     def task_serve(self) -> None:
         """Run the online inference server until SIGTERM/SIGINT."""

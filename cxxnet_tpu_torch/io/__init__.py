@@ -1,0 +1,4 @@
+"""Training data: ``DataBatch``, the iterator protocol, and the
+``synthetic`` and ``threadbuffer`` iterators (``create_iterator``)."""
+
+from .data import DataBatch, DataIter, create_iterator  # noqa: F401

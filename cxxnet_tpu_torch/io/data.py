@@ -1,0 +1,95 @@
+"""Data pipeline core: DataBatch, the iterator protocol, the chain factory.
+
+The port's copy of ``cxxnet_tpu/io/data.py`` for this slice: batches are
+NHWC (or flat ``(N, D)``) numpy float32 with ``(N, label_width)``
+labels; ``num_batch_padd`` trailing rows of a batch are padding.  The
+``iter = X`` chain is read in order: a base iterator at the bottom,
+``threadbuffer`` wrapping the iterator below it, and the keys after an
+``iter =`` line configure the current top of the chain, which forwards
+them down.  This slice builds ``synthetic`` and ``threadbuffer``; the
+other iterators raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+ConfigEntry = Tuple[str, str]
+
+_LATER = ("mnist", "imgbin", "imgbinx", "img", "csv", "text", "libsvm",
+          "service", "membuffer", "attachtxt")
+
+
+@dataclasses.dataclass
+class DataBatch:
+    """One mini-batch; ``num_batch_padd`` trailing instances are padding
+    and are left out of evaluation."""
+
+    data: np.ndarray                  # (N, H, W, C) or (N, D)
+    label: np.ndarray                 # (N, label_width) float32
+    inst_index: Optional[np.ndarray] = None
+    num_batch_padd: int = 0
+    extra_data: List[np.ndarray] = dataclasses.field(default_factory=list)
+
+    @property
+    def batch_size(self) -> int:
+        return self.data.shape[0]
+
+
+class DataIter:
+    """Iterator protocol: ``init`` once, then ``before_first`` and
+    ``next``/``value`` per epoch; ``close`` releases threads."""
+
+    def set_param(self, name: str, val: str) -> None:  # noqa: D401
+        pass
+
+    def init(self) -> None:
+        pass
+
+    def before_first(self) -> None:
+        raise NotImplementedError
+
+    def next(self) -> bool:
+        raise NotImplementedError
+
+    def value(self) -> DataBatch:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        """Release resources; idempotent, wrappers delegate down."""
+
+
+def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
+    """Build an iterator chain from an ordered config section."""
+    from .prefetch import ThreadBufferIterator
+    from .synth import SyntheticIterator
+
+    it: Optional[DataIter] = None
+    for name, val in cfg:
+        if name == "iter":
+            if val == "synthetic":
+                if it is not None:
+                    raise ValueError(
+                        "synthetic cannot chain over another iterator")
+                it = SyntheticIterator()
+            elif val == "threadbuffer":
+                if it is None:
+                    raise ValueError("must specify input of threadbuffer")
+                it = ThreadBufferIterator(it)
+            elif val == "end":
+                continue
+            elif val in _LATER:
+                raise NotImplementedError(
+                    f"iter={val} is not ported yet (ROADMAP.md queue A "
+                    "item 5); this slice reads iter=synthetic")
+            else:
+                raise ValueError(f"unknown iterator type {val!r}")
+            continue
+        if it is not None:
+            it.set_param(name, val)
+    if it is None:
+        raise ValueError("must specify iterator by iter=itername")
+    return it

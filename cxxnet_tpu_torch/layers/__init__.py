@@ -1,4 +1,4 @@
-"""The layer types of the serving slice, as eval-forward PyTorch code.
+"""The layer types the port runs, as PyTorch code (predict and train).
 
 Importing this package populates the registry; use ``create_layer(name)``.
 """

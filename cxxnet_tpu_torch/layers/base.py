@@ -3,17 +3,19 @@
 Counterpart of ``cxxnet_tpu/layers/base.py``.  A layer is three
 functions: ``infer_shape`` (shape inference and validation),
 ``init_params`` (a ``torch.Generator`` draws the initial weights) and
-``apply`` (the eval forward over a list of tensors).  Activations are
+``apply`` (the forward over a list of tensors; ``train`` and the step's
+``torch.Generator`` matter only to stochastic layers).  Activations are
 NHWC and conv weights HWIO, as in the JAX package, so parameters and
 checkpoints interchange; ``prepare`` turns a layer's master parameters
-into the form ``apply`` consumes (compute dtype, cuDNN layout) once per
-load.
+into the form ``apply`` consumes (compute dtype, cuDNN layout): once per
+load for predict, and per step under autograd for training, so the
+gradients reach the f32 masters through it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -119,11 +121,12 @@ class Layer:
 
     def prepare(self, params: Params, dtype: torch.dtype) -> Params:
         """Master params -> what ``apply`` consumes: cast to the compute
-        dtype.  Runs once per load, not per forward."""
+        dtype (differentiable)."""
         return {t: v.to(dtype) for t, v in params.items()}
 
-    def apply(self, params: Params,
-              inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def apply(self, params: Params, inputs: Sequence[torch.Tensor],
+              train: bool = False,
+              gen: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         raise NotImplementedError
 
     def _check_arity(self, in_shapes: Sequence[Shape], n_in: int) -> None:
@@ -134,10 +137,28 @@ class Layer:
 
 
 class LossLayer(Layer):
-    """Base of the self-loop loss layers.  At predict time a loss layer
-    only transforms its node (e.g. softmax probabilities); the loss
-    value, its ``target`` field and ``grad_scale`` belong to the
-    training slice."""
+    """Base of the self-loop loss layers.
+
+    A loss layer transforms its node in place (e.g. softmax
+    probabilities) and, in training, adds ``grad_scale / (batch_size *
+    update_period) * loss`` to the step's objective, where ``loss`` is
+    a summed (not averaged) function whose gradient is the one the
+    reference injects (``cxxnet_tpu/layers/base.py:177-243``).  Each
+    subclass defines the per-row loss; ``target`` names the label field
+    it reads."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.target = "label"
+        self.grad_scale = 1.0
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "target":
+            self.target = val
+        elif name == "grad_scale":
+            self.grad_scale = float(val)
+        else:
+            super().set_param(name, val)
 
     def infer_shape(self, in_shapes: Sequence[Shape]) -> List[Shape]:
         self._check_arity(in_shapes, 1)
@@ -146,6 +167,26 @@ class LossLayer(Layer):
     def transform(self, x: torch.Tensor) -> torch.Tensor:
         """Forward transform (prediction output), e.g. softmax probs."""
         return x
+
+    def row_loss(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The loss of each row of ``x`` (f32 logits) against its label
+        columns, shape ``(N,)``."""
+        raise NotImplementedError
+
+    def loss(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Summed (not averaged) loss; the net scales it by
+        ``grad_scale / (batch_size * update_period)``."""
+        return self.row_loss(x, labels).sum()
+
+    def loss_masked(self, x: torch.Tensor, labels: torch.Tensor,
+                    weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``loss`` with an optional per-row weight ``(N,)``: the 0/1 mask
+        of a short final batch padded to the batch size, whose padded
+        rows then contribute exactly zero gradient."""
+        if weight is None:
+            return self.loss(x, labels)
+        per_row = self.row_loss(x, labels)
+        return (per_row * weight.to(per_row.dtype)).sum()
 
 
 # ----------------------------------------------------------------------

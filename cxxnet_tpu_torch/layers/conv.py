@@ -1,4 +1,4 @@
-"""Spatial layers: conv, the pooling family, LRN (eval forward).
+"""Spatial layers: conv, the pooling family, LRN.
 
 Counterpart of ``cxxnet_tpu/layers/conv.py``.  Activations are NHWC and
 conv weights HWIO at every public function and in the params dict, as
@@ -9,9 +9,14 @@ OIHW weight (built once per load by ``prepare``) returns a
 ``channels_last`` result, and ``.permute(0, 2, 3, 1)`` of that is NHWC
 again — no transposes at run time.
 
-Max pooling and LRN go through the slice's hand-written kernels
-(``ops/maxpool.py``, ``ops/lrn.py``); the sum/avg pools are the plain
-shifted-slice sums of the JAX package (no Pallas kernel there).
+Max pooling and LRN go through the port's hand-written kernels
+(``ops/maxpool.py``, ``ops/lrn.py``) as ``torch.autograd.Function``s:
+the forward kernel, and in training the backward kernels (the unpool
+backward of max pooling: the one-pass stride-1 kernel for a same-size
+pool, the general one otherwise; the LRN backward).  The sum/avg pools
+are the plain shifted-slice sums of the JAX package (no Pallas kernel
+there), differentiated by autograd.  ``prepare`` is differentiable, so
+training runs it per step from the f32 masters.
 """
 
 from __future__ import annotations
@@ -92,7 +97,7 @@ class ConvolutionLayer(Layer):
             out["bias"] = params["bias"].to(dtype)
         return out
 
-    def apply(self, params, inputs):
+    def apply(self, params, inputs, train=False, gen=None):
         p = self.param
         y = F.conv2d(inputs[0].permute(0, 3, 1, 2), params["w"],
                      params.get("bias"), stride=p.stride,
@@ -106,7 +111,7 @@ class _PoolBase(Layer):
     def set_param(self, name, val):
         if name == "pool_impl":
             # parsed for conf compatibility; the card always runs the
-            # max-pool kernel (see PERF.md)
+            # max-pool kernels (see PERF.md)
             if val not in ("auto", "pallas", "pallas_bwd", "xla"):
                 raise ValueError(
                     f"pool_impl must be auto|pallas|pallas_bwd|xla, "
@@ -134,8 +139,8 @@ class _PoolBase(Layer):
 
     def _max_pool(self, x: torch.Tensor) -> torch.Tensor:
         p = self.param
-        return ops_mp.maxpool_fwd(x.contiguous(), p.kernel_height,
-                                  p.kernel_width, p.stride, p.pad_y, p.pad_x)
+        return ops_mp.maxpool(x, p.kernel_height, p.kernel_width, p.stride,
+                              p.pad_y, p.pad_x)
 
     def _sum_pool(self, x: torch.Tensor) -> torch.Tensor:
         p = self.param
@@ -153,7 +158,7 @@ class _PoolBase(Layer):
 class MaxPoolingLayer(_PoolBase):
     type_name = "max_pooling"
 
-    def apply(self, params, inputs):
+    def apply(self, params, inputs, train=False, gen=None):
         return [self._max_pool(inputs[0])]
 
 
@@ -161,7 +166,7 @@ class MaxPoolingLayer(_PoolBase):
 class SumPoolingLayer(_PoolBase):
     type_name = "sum_pooling"
 
-    def apply(self, params, inputs):
+    def apply(self, params, inputs, train=False, gen=None):
         return [self._sum_pool(inputs[0])]
 
 
@@ -169,7 +174,7 @@ class SumPoolingLayer(_PoolBase):
 class AvgPoolingLayer(_PoolBase):
     type_name = "avg_pooling"
 
-    def apply(self, params, inputs):
+    def apply(self, params, inputs, train=False, gen=None):
         p = self.param
         # parity: divide by the full k*k even for truncated edge windows
         scale = 1.0 / (p.kernel_height * p.kernel_width)
@@ -180,7 +185,7 @@ class AvgPoolingLayer(_PoolBase):
 class ReluMaxPoolingLayer(_PoolBase):
     type_name = "relu_max_pooling"
 
-    def apply(self, params, inputs):
+    def apply(self, params, inputs, train=False, gen=None):
         return [self._max_pool(torch.relu(inputs[0]))]
 
 
@@ -208,7 +213,7 @@ class LRNLayer(Layer):
             self.knorm = float(val)
         elif name == "lrn_impl":
             # parsed for conf compatibility; the card always runs the
-            # LRN kernel (see PERF.md)
+            # LRN kernels (see PERF.md)
             if val not in ("auto", "pallas", "xla", "matmul"):
                 raise ValueError(
                     f"lrn_impl must be auto|pallas|xla|matmul, got {val!r}")
@@ -219,6 +224,6 @@ class LRNLayer(Layer):
         self._check_arity(in_shapes, 1)
         return [tuple(in_shapes[0])]
 
-    def apply(self, params, inputs):
-        return [ops_lrn.lrn_fwd(inputs[0].contiguous(), self.nsize,
-                                self.alpha, self.beta, self.knorm)]
+    def apply(self, params, inputs, train=False, gen=None):
+        return [ops_lrn.lrn(inputs[0], self.nsize, self.alpha, self.beta,
+                            self.knorm)]

@@ -1,8 +1,9 @@
-"""Elementwise layers at predict time: relu, sigmoid, tanh, dropout.
+"""Elementwise layers: relu, sigmoid, tanh, dropout.
 
-Counterpart of the eval forward of ``cxxnet_tpu/layers/elemwise.py``.
-Dropout is the identity at predict time (inverted dropout scales at
-train time), so its ``threshold`` is only validated here.
+Counterpart of ``cxxnet_tpu/layers/elemwise.py``.  Dropout is inverted
+dropout: in training it keeps each value with probability
+``pkeep = 1 - threshold`` and scales the kept ones by ``1 / pkeep``; at
+predict time, or with ``threshold = 0``, it is the identity.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ class _UnaryLayer(Layer):
 class SigmoidLayer(_UnaryLayer):
     type_name = "sigmoid"
 
-    def apply(self, params, inputs):
+    def apply(self, params, inputs, train=False, gen=None):
         return [torch.sigmoid(inputs[0])]
 
 
@@ -34,7 +35,7 @@ class SigmoidLayer(_UnaryLayer):
 class TanhLayer(_UnaryLayer):
     type_name = "tanh"
 
-    def apply(self, params, inputs):
+    def apply(self, params, inputs, train=False, gen=None):
         return [torch.tanh(inputs[0])]
 
 
@@ -42,7 +43,7 @@ class TanhLayer(_UnaryLayer):
 class ReluLayer(_UnaryLayer):
     type_name = "relu"
 
-    def apply(self, params, inputs):
+    def apply(self, params, inputs, train=False, gen=None):
         return [torch.relu(inputs[0])]
 
 
@@ -50,12 +51,23 @@ class ReluLayer(_UnaryLayer):
 class DropoutLayer(_UnaryLayer):
     type_name = "dropout"
 
+    def __init__(self) -> None:
+        super().__init__()
+        self.threshold = 0.0
+
     def set_param(self, name, val):
         if name == "threshold":
-            if not (0.0 <= float(val) < 1.0):
+            self.threshold = float(val)
+            if not (0.0 <= self.threshold < 1.0):
                 raise ValueError("DropoutLayer: invalid dropout threshold")
         else:
             super().set_param(name, val)
 
-    def apply(self, params, inputs):
-        return [inputs[0]]
+    def apply(self, params, inputs, train=False, gen=None):
+        x = inputs[0]
+        if not train or self.threshold <= 0.0 or gen is None:
+            return [x]
+        pkeep = 1.0 - self.threshold
+        # uniform draws from the step's generator (Philox on a CUDA one)
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < pkeep
+        return [torch.where(keep, x / pkeep, torch.zeros_like(x))]

@@ -1,21 +1,29 @@
-"""FunctionalNet: a parsed NetGraph executed as PyTorch code (eval).
+"""FunctionalNet: a parsed NetGraph executed as PyTorch code.
 
-Counterpart of ``cxxnet_tpu/nnet/net.py``, predict path only:
+Counterpart of ``cxxnet_tpu/nnet/net.py``, the predict and the train
+forward:
 
 * node 0 is the input; ``input_shape = C,H,W`` maps to a flat ``(N, W)``
   node when ``C == H == 1`` else an NHWC image node;
 * layers are configured with the global defaults first, then their own
   section;
 * shared layers reuse the primary layer's parameters;
-* self-loop loss layers transform their node in place in f32;
+* self-loop loss layers transform their node in place in f32, and in
+  training add ``grad_scale / (batch_size * update_period) *
+  loss_masked(...)`` to the step's objective, ``batch_size`` being the
+  conf's batch, not the rows fed;
 * ``compute_dtype = bfloat16`` runs the layers on bf16 parameters and
-  activations; the out node is f32;
+  activations; the out node is f32.  In training the f32 masters are
+  cast under autograd, so their gradients come back in f32;
 * sibling 1x1 convs that read one node at one write-version run as ONE
   GEMM (``_sibling_1x1_groups``), through the hand-written conv-block
-  kernel (``ops/kernels/conv_block.py``).
+  kernel (``ops/kernels/conv_block.py``), in training too: the group's
+  ``(C, O)`` kernel is a ``torch.cat`` of the masters at each step;
+* dropout draws, in layer order, from the one ``torch.Generator`` the
+  trainer hands the step.
 
-Branch-embed fusion (``conv_branch_embed``) and the train forward
-belong to later slices (ROADMAP.md).
+Branch-embed fusion (``conv_branch_embed``) and ``remat`` belong to
+later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ class FunctionalNet:
                 "queue A item 5)")
         self.graph = graph
         self.batch_size = 0
+        self.update_period = 1
         self.compute_dtype = torch.float32
         self.fuse_1x1 = 1
         self._fuse_cache = None
@@ -67,6 +76,12 @@ class FunctionalNet:
         for name, val in g.defcfg:
             if name == "batch_size":
                 self.batch_size = int(val)
+            elif name == "update_period":
+                self.update_period = int(val)
+            elif name == "remat" and int(val):
+                raise NotImplementedError(
+                    "remat=1: activation recompute is not ported yet "
+                    "(ROADMAP.md queue A item 5)")
             elif name == "fuse_1x1":
                 self.fuse_1x1 = int(val)
             elif name == "conv_branch_embed":
@@ -213,11 +228,11 @@ class FunctionalNet:
 
     # ------------------------------------------------------------------
     def prepare(self, params: Dict[str, dict]) -> Dict[str, object]:
-        """Master params -> the forward's operands, once per load: each
-        layer's params in the compute dtype and its kernel's layout, and
-        each sibling-1x1 group's concatenated ``(C, O)`` kernel and
-        ``(O,)`` bias (zeros for members without one; None when no member
-        has one)."""
+        """Master params -> the forward's operands: each layer's params in
+        the compute dtype and its kernel's layout, and each sibling-1x1
+        group's concatenated ``(C, O)`` kernel and ``(O,)`` bias (zeros
+        for members without one; None when no member has one).  Once per
+        load for predict; per step, under autograd, for training."""
         cdt = self.compute_dtype
         layers: Dict[str, dict] = {}
         for i, key in enumerate(self.param_key):
@@ -243,14 +258,40 @@ class FunctionalNet:
 
     def forward(self, prepared: Dict[str, object],
                 data: torch.Tensor) -> List[Optional[torch.Tensor]]:
-        """Execute the graph on ``data`` (the input node's tensor, on the
-        params' device); returns every node's value."""
+        """The predict forward of ``data`` (the input node's tensor, on
+        the params' device); returns every node's value."""
+        return self._run(prepared, data)[0]
+
+    def forward_train(self, params: Dict[str, dict], data: torch.Tensor,
+                      labels: torch.Tensor, mask: Optional[torch.Tensor],
+                      gen: Optional[torch.Generator]):
+        """The train forward from the f32 master ``params``: returns
+        ``(nodes, loss)`` with the summed, scaled f32 loss of every loss
+        layer, differentiable back to the masters.  ``labels`` is the
+        ``(N, label_width)`` label matrix, ``mask`` the ``(N,)`` 0/1 row
+        weight, ``gen`` the step's generator for dropout."""
+        return self._run(self.prepare(params), data, labels=labels,
+                         mask=mask, train=True, gen=gen)
+
+    def _label_field(self, labels: torch.Tensor, target: str) -> torch.Tensor:
+        g = self.graph
+        if target not in g.label_name_map:
+            raise ValueError(f"LossLayer: unknown target={target!r}")
+        a, b = g.label_range[g.label_name_map[target]]
+        if labels.dim() == 1:
+            labels = labels[:, None]
+        return labels[:, a:b]
+
+    def _run(self, prepared, data, labels=None, mask=None, train=False,
+             gen=None):
         g = self.graph
         cdt = self.compute_dtype
         layers, groups = prepared["layers"], prepared["groups"]
         out_idx = self.out_node_index()
         nodes: List[Optional[torch.Tensor]] = [None] * g.num_nodes
         nodes[0] = data.to(cdt)
+        loss = torch.zeros((), dtype=torch.float32, device=data.device)
+        batch = self.batch_size if self.batch_size > 0 else data.shape[0]
         fuse_groups, fuse_member = (
             self._sibling_1x1_groups() if self.fuse_1x1 else ({}, {}))
         for i, spec in enumerate(g.layers):
@@ -272,15 +313,21 @@ class FunctionalNet:
             if any(v is None for v in inputs):
                 raise ValueError(f"layer {i}: unset input node")
             if isinstance(lay, LossLayer):
-                out = lay.transform(inputs[0].float())
+                logits = inputs[0].float()
+                if labels is not None:
+                    scale = lay.grad_scale / (batch * self.update_period)
+                    loss = loss + scale * lay.loss_masked(
+                        logits, self._label_field(labels, lay.target), mask)
+                out = lay.transform(logits)
                 if spec.nindex_out[0] != out_idx:
                     out = out.to(cdt)
                 nodes[spec.nindex_out[0]] = out
                 continue
-            outs = lay.apply(layers.get(self.param_key[i], {}), inputs)
+            outs = lay.apply(layers.get(self.param_key[i], {}), inputs,
+                             train=train, gen=gen)
             for n, v in zip(spec.nindex_out, outs):
                 nodes[n] = v
-        return nodes
+        return nodes, loss
 
     def out_node_index(self) -> int:
         """The final node (prediction output)."""

@@ -1,12 +1,19 @@
-"""NetTrainer, serving subset: conf, model init, checkpoints, predict.
+"""NetTrainer: conf, model init, checkpoints, predict, and training.
 
-Counterpart of ``cxxnet_tpu/nnet/trainer.py`` for what serving needs:
-``set_params``, ``init_model``, ``checkpoint_bytes`` / ``save_model``,
+Counterpart of ``cxxnet_tpu/nnet/trainer.py``: ``set_params``,
+``init_model``, ``checkpoint_bytes`` / ``save_model``,
 ``_read_model_file`` / ``load_model``, ``predict_fn``,
-``predict_from_scores``, ``resolve_feature_node`` and ``net_fp``.  The
+``predict_from_scores``, ``resolve_feature_node``, ``net_fp``, and the
+single-device training subset: ``update`` (one step: forward,
+backward, then the fused SGD kernel on every tensor), ``update_all``,
+``start_round`` and ``evaluate`` with the train and eval metrics.  The
 checkpoint container is the JAX package's, so a model written by one
-package loads into the other.  Training (updaters, the step, metrics)
-belongs to the next slice.
+package loads into the other.
+
+The update writes the f32 masters in place, so it drops the operands
+``predict`` prepared from the old weights (``_invalidate_prepared``).
+``update_period > 1``, ``save_ustate = 1``, the divergence guard and
+multi-device training raise ``NotImplementedError`` (ROADMAP.md).
 
 Device rule: ``dev = cpu`` runs on the CPU, and only when asked; every
 other value (``gpu``, ``cuda``, ``tpu``, ``gpu:0``, the default ``tpu``)
@@ -26,9 +33,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..io.data import DataBatch
 from ..ops import kernels as _klib
+from ..updater import Updater, create_updater
 from ..utils import checkpoint as ckpt
 from ..utils.checkpoint import MODEL_MAGIC
+from ..utils.metric import MetricSet
 from .graph import NetGraph
 from .net import FunctionalNet
 
@@ -76,13 +86,20 @@ class NetTrainer:
         self.net: Optional[FunctionalNet] = None
         self.graph: Optional[NetGraph] = None
         self.params: Optional[Dict[str, dict]] = None
+        self.ustates: Optional[Dict[str, dict]] = None
+        self.updaters: Dict[Tuple[str, str], Updater] = {}
         self.aux: Dict[str, dict] = {}
         self.epoch_counter = 0
         self.round = 0
         self.batch_size = 0
+        self.update_period = 1
+        self.eval_train = 1
         self.seed = 0
         self.dev = "tpu"
         self.device: Optional[torch.device] = None
+        self.metric = MetricSet()
+        self.train_metric = MetricSet()
+        self.last_loss: Optional[torch.Tensor] = None  # of the last step
         self._prep_lock = threading.Lock()
         self._prep_src = None
         self._prepared = None
@@ -91,6 +108,18 @@ class NetTrainer:
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
             self.batch_size = int(val)
+        elif name == "update_period":
+            self.update_period = int(val)
+        elif name == "eval_train":
+            self.eval_train = int(val)
+        elif name == "save_ustate" and int(val):
+            raise NotImplementedError(
+                "save_ustate=1: checkpointing the updater state is not "
+                "ported yet (ROADMAP.md queue A item 5)")
+        elif name == "divergence_policy" and val not in ("", "off"):
+            raise NotImplementedError(
+                f"divergence_policy={val}: the divergence guard is not "
+                "ported yet (ROADMAP.md queue A item 5)")
         elif name == "seed":
             self.seed = int(val)
         elif name == "dev":
@@ -106,6 +135,8 @@ class NetTrainer:
                 raise ValueError(
                     f"quant={val!r}: supported schemes are int8 and "
                     "bf16 (0/off disables)")
+        if self.metric.try_add_from_config(name, val):
+            self.train_metric.try_add_from_config(name, val)
         self.cfg.append((name, val))
 
     def set_params(self, entries: Sequence[Tuple[str, str]]) -> None:
@@ -126,13 +157,58 @@ class NetTrainer:
             self.batch_size = self.net.batch_size
         else:
             self.net.batch_size = self.batch_size
+        self.update_period = max(self.update_period, self.net.update_period)
+        if self.update_period > 1:
+            raise NotImplementedError(
+                f"update_period={self.update_period}: gradient accumulation "
+                "is not ported yet (ROADMAP.md queue A item 5)")
+        self._check_metric_nodes()
+
+    def _check_metric_nodes(self) -> None:
+        """Fail at build time on a ``metric[field,node]`` node name the
+        graph does not have."""
+        for mset in (self.metric, self.train_metric):
+            for node in mset.nodes:
+                if node is None:
+                    continue
+                try:
+                    self.graph.node_index_of(node)
+                except (KeyError, ValueError) as e:
+                    raise ValueError(
+                        f"metric[...,{node}]: cannot find node name "
+                        f"{node!r} in the net graph") from e
 
     def _set_master(self, params: Dict[str, dict]) -> None:
         self.params = {k: {t: w.to(self.device, torch.float32)
                            for t, w in tags.items()}
                        for k, tags in params.items()}
+        self._invalidate_prepared()
+        self._build_updaters()
+
+    def _invalidate_prepared(self) -> None:
+        """Drop the operands prepared from the current weights: after a
+        load, and after every update (which writes the masters in place,
+        so the params dict stays the same object)."""
         with self._prep_lock:
             self._prep_src, self._prepared = None, None
+
+    def _build_updaters(self) -> None:
+        """One updater per ``(param key, tag)``: the conf's global keys
+        first, then the layer's own section; momentum state zeroed."""
+        self.updaters, self.ustates = {}, {}
+        for i, spec in enumerate(self.graph.layers):
+            key = self.net.param_key[i]
+            if spec.type_name == "shared" or key not in self.params:
+                continue
+            self.ustates[key] = {}
+            for tag, w in self.params[key].items():
+                up = create_updater(self.graph.updater_type, tag)
+                for n, v in self.graph.defcfg:
+                    up.set_param(n, v)
+                for n, v in self.graph.layercfg[i]:
+                    up.set_param(n, v)
+                self.updaters[(key, tag)] = up
+                self.ustates[key][tag] = up.init_state(w)
 
     def init_model(self) -> None:
         """Build the net from the conf and draw fresh weights from a
@@ -285,3 +361,146 @@ class NetTrainer:
         """Per-instance prediction for a numpy batch."""
         out = self.predict_fn()(self.params, self.aux, data)
         return self.predict_from_scores(out.cpu().numpy())
+
+    # ------------------------------------------------------------------
+    # training
+    def start_round(self, round_: int) -> None:
+        self.round = round_
+
+    def sync(self) -> None:
+        """Wait for the device's queued work (a no-op on the CPU)."""
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _pad_train_batch(self, batch: DataBatch):
+        """``(data, label, mask, n_real)``: a short batch zero-padded to
+        ``batch_size`` with a 0/1 row mask that keeps the padded rows out
+        of the loss; the trailing ``num_batch_padd`` rows of a full batch
+        are masked the same way.  A batch whose ``data`` and ``label``
+        are already tensors on the device passes through unpadded."""
+        if batch.extra_data:
+            raise NotImplementedError(
+                "nets with extra_data nodes are not ported yet (ROADMAP.md "
+                "queue A item 5)")
+        n = batch.data.shape[0]
+        bs = self.batch_size or n
+        if n > bs:
+            raise ValueError(f"train batch of {n} rows exceeds "
+                             f"batch_size={bs}")
+        n_real = n - int(batch.num_batch_padd or 0) if n == bs else n
+        mask = np.zeros(bs, np.float32)
+        mask[:n_real] = 1.0
+        if isinstance(batch.data, torch.Tensor):
+            if n != bs:
+                raise ValueError(f"a device-resident batch must hold "
+                                 f"batch_size={bs} rows, got {n}")
+            return batch.data, batch.label, mask, n_real
+        data = np.asarray(batch.data, np.float32)
+        label = np.asarray(batch.label, np.float32)
+        if n < bs:
+            pad = bs - n
+            data = np.concatenate(
+                [data, np.zeros((pad,) + data.shape[1:], np.float32)])
+            label = np.concatenate(
+                [label, np.zeros((pad,) + label.shape[1:], np.float32)])
+        return data, label, mask, n_real
+
+    def _step_generator(self) -> torch.Generator:
+        """The step's generator for dropout, on the trainer's device
+        (Philox on a card), seeded from ``(seed, epoch_counter)`` so a
+        resumed run draws what an uninterrupted one drew."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((self.seed * 1000003 + self.epoch_counter)
+                        & 0x7FFFFFFFFFFFFFFF)
+        return gen
+
+    def _node_pred_cache(self, data: np.ndarray, n_real: int) -> dict:
+        """Eval forwards for the train metric's ``metric[field,node]``
+        entries, on the weights before the update."""
+        cache = {}
+        for node in self.train_metric.nodes:
+            if node is not None and node not in cache:
+                f = self._forward_fn(self.graph.node_index_of(node))
+                cache[node] = f(self.params, self.aux,
+                                data).cpu().numpy()[:n_real]
+        return cache
+
+    def update(self, batch: DataBatch) -> None:
+        """One step: the train forward from the f32 masters, the
+        backward, then the updater (the fused SGD kernel on a card) on
+        every tensor in place, and ``epoch_counter += 1``."""
+        if self.net is None:
+            raise RuntimeError("update: init_model or load_model first")
+        data_in, label_in, mask_np, n_real = self._pad_train_batch(batch)
+        dev = self.device
+        data = torch.as_tensor(data_in, dtype=torch.float32, device=dev)
+        labels = torch.as_tensor(label_in, dtype=torch.float32, device=dev)
+        mask = torch.from_numpy(mask_np).to(dev)
+        node_cache = {}
+        if self.eval_train and self.train_metric.need_nodes():
+            node_cache = self._node_pred_cache(data_in, n_real)
+        flat = [(key, tag, w) for key, tags in self.params.items()
+                for tag, w in tags.items()]
+        leaves = {}
+        for key, tag, w in flat:
+            leaves.setdefault(key, {})[tag] = w.detach().requires_grad_(True)
+        with torch.enable_grad():
+            nodes, loss = self.net.forward_train(
+                leaves, data, labels, mask, self._step_generator())
+            out = nodes[self.net.out_node_index()].detach()
+            del nodes  # only the graph keeps what the backward needs
+            grads = torch.autograd.grad(
+                loss, [leaves[k][t] for k, t, _ in flat], allow_unused=True)
+        del leaves
+        with torch.no_grad():
+            for (key, tag, w), g in zip(flat, grads):
+                g = torch.zeros_like(w) if g is None else g.contiguous()
+                self.updaters[(key, tag)].apply(
+                    w, g, self.ustates[key][tag], self.epoch_counter)
+        del grads
+        self._invalidate_prepared()
+        self.last_loss = loss.detach()
+        if self.eval_train:
+            base = out.float().cpu().numpy()[:n_real]
+            cache = {None: base, **node_cache}
+            preds = ([cache[n] for n in self.train_metric.nodes]
+                     if node_cache else base)
+            label_np = (label_in.cpu().numpy()
+                        if isinstance(label_in, torch.Tensor) else label_in)
+            self.train_metric.add_eval(preds, label_np[:n_real],
+                                       self._label_ranges())
+        self.epoch_counter += 1
+
+    def update_all(self, data: np.ndarray, labels: np.ndarray) -> None:
+        """numpy-in convenience (the wrapper API's batch update)."""
+        self.update(DataBatch(data=np.asarray(data), label=np.asarray(labels)))
+
+    def _label_ranges(self) -> Dict[str, Tuple[int, int]]:
+        g = self.graph
+        return {name: g.label_range[i] for name, i in g.label_name_map.items()}
+
+    def evaluate(self, iter_eval, data_name: str) -> str:
+        """Round-end evaluation: the train metrics gathered since the
+        last call (``eval_train``), then every metric over ``iter_eval``
+        (eval forward), as ``\\tname-metric:value`` fields."""
+        ret = ""
+        if self.eval_train:
+            ret += self.train_metric.print("train")
+            self.train_metric.clear()
+        if iter_eval is None or len(self.metric) == 0:
+            return ret
+        self.metric.clear()
+        nodes = [None if n is None else self.graph.node_index_of(n)
+                 for n in self.metric.nodes]
+        fns = {n: self._forward_fn(self.net.out_node_index() if n is None
+                                   else n) for n in set(nodes)}
+        iter_eval.before_first()
+        while iter_eval.next():
+            batch = iter_eval.value()
+            n = batch.batch_size - batch.num_batch_padd
+            outs = {k: f(self.params, self.aux, batch.data).cpu().numpy()[:n]
+                    for k, f in fns.items()}
+            self.metric.add_eval([outs[k] for k in nodes], batch.label[:n],
+                                 self._label_ranges())
+        ret += self.metric.print(data_name)
+        return ret

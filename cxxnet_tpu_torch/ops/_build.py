@@ -61,12 +61,15 @@ class Kernel:
 
     ``launches`` counts successful launches of the CUDA kernel and
     nothing else: a wrapper that takes the plain PyTorch version (for a
-    CPU tensor) does not count."""
+    CPU tensor) does not count.  ``dtypes`` are the C entry suffixes the
+    source exports (``<name>_<suffix>``)."""
 
-    def __init__(self, name: str, replaces: str) -> None:
+    def __init__(self, name: str, replaces: str,
+                 dtypes: Sequence[str] = ("f32", "bf16")) -> None:
         self.name = name
         self.source = os.path.join(CSRC, name + ".cu")
         self.replaces = replaces   # "file:line function" of the TPU kernel
+        self.dtypes = tuple(dtypes)
         self.launches = 0
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None

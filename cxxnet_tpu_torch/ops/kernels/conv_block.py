@@ -70,14 +70,46 @@ def conv_block_gemm(x2d: torch.Tensor, w2d: torch.Tensor,
     return y
 
 
+class _ConvBlockGemm(torch.autograd.Function):
+    """K6 forward; plain GEMMs backward (the JAX package has no backward
+    kernel for the group: its train forward runs the stock conv and XLA
+    differentiates it): ``dX = dY W^T``, ``dW = X^T dY``,
+    ``db = sum_rows dY``, in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x2d, w2d, bias, relu):
+        y = conv_block_gemm(x2d, w2d, bias, relu)
+        ctx.save_for_backward(x2d, w2d, y if relu else None)
+        ctx.relu = relu
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x2d, w2d, y = ctx.saved_tensors
+        if ctx.relu:
+            gy = torch.where(y > 0, gy, torch.zeros_like(gy))
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        gx = gy @ w2d.t() if need_x else None
+        gw = x2d.t() @ gy if need_w else None
+        gb = gy.sum(0) if need_b else None
+        return gx, gw, gb, None
+
+
 def conv1x1_block(x: torch.Tensor, w2d: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, stride: int = 1,
                   relu: bool = False) -> torch.Tensor:
     """The group's 1x1 conv as the fused GEMM: ``x`` NHWC, ``w2d`` the
     concatenated ``(C, O)`` kernel, ``bias`` the concatenated ``(O,)``
-    member biases.  Returns NHWC with ``O`` channels."""
+    member biases.  Returns NHWC with ``O`` channels.  Differentiable in
+    ``x``, ``w2d`` and ``bias`` when any of them takes part in autograd
+    (the gradient of a strided input lands on ``x[:, ::s, ::s]``)."""
     if stride > 1:
         x = x[:, ::stride, ::stride, :]
     n, h, w, c = x.shape
-    y = conv_block_gemm(x.contiguous().reshape(-1, c), w2d, bias, relu)
+    x2d = x.contiguous().reshape(-1, c)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x2d, w2d, bias)):
+        y = _ConvBlockGemm.apply(x2d, w2d, bias, relu)
+    else:
+        y = conv_block_gemm(x2d, w2d, bias, relu)
     return y.reshape(n, h, w, -1)

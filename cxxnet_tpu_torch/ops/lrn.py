@@ -1,16 +1,22 @@
-"""Cross-channel local response normalization forward: the CUDA kernel
-and its plain PyTorch version.
+"""Cross-channel local response normalization, forward and backward:
+the CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``cxxnet_tpu/ops/lrn.py`` (forward only: the backward
-kernel belongs to the training slice).  Semantics:
+Counterpart of ``cxxnet_tpu/ops/lrn.py``.  Semantics:
 ``y = x * (knorm + alpha/n * sum_win(x^2))^-beta`` over the window of
 ``n`` channels ``[c - n//2, c - n//2 + n)`` (asymmetric for even ``n``),
 with zeros past the channel edges, in f32 math whatever the input dtype.
 ``F.local_response_norm`` centres its window differently and pads the
-average, so it is not used.
+average, so it is not used.  The backward recomputes the norm instead
+of saving it (LRN sits on large activations) and sums
+``t = g * x * norm^(-beta-1)`` over the REVERSED window:
 
-``lrn_fwd`` takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches ``csrc/lrn_fwd.cu`` or raises.
+    dx = g * norm^-beta - 2 (alpha/n) beta * x * sum_{d=-hi..-lo} t[c+d]
+
+* ``lrn_fwd`` (K4, ``csrc/lrn_fwd.cu``) and ``lrn_bwd`` (K5,
+  ``csrc/lrn_bwd.cu``) take the plain version only for a tensor on the
+  CPU; for a CUDA tensor they launch their kernel or raise;
+* ``lrn``: the differentiable entry, a ``torch.autograd.Function`` with
+  K4 forward (saving ``x`` only) and K5 backward.
 """
 
 from __future__ import annotations
@@ -24,10 +30,14 @@ import torch.nn.functional as F
 from . import _build
 
 KERNEL = _build.Kernel("lrn_fwd", "cxxnet_tpu/ops/lrn.py:62 _fwd_kernel")
+BWD_KERNEL = _build.Kernel("lrn_bwd", "cxxnet_tpu/ops/lrn.py:70 _bwd_kernel")
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
          ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int] + [ctypes.c_float] * 4 + [
+    ctypes.c_void_p]
 
 
 def window_offsets(nsize: int) -> Tuple[int, int]:
@@ -36,20 +46,50 @@ def window_offsets(nsize: int) -> Tuple[int, int]:
     return -half, nsize - 1 - half
 
 
+def _shifted_sum(v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``sum_{d=lo..hi} v[..., c+d]`` with zeros past the edges, added in
+    offset order."""
+    c = v.shape[-1]
+    vp = F.pad(v, (max(0, -lo), max(0, hi)))
+    off = max(0, -lo)
+    acc = None
+    for d in range(lo, hi + 1):
+        sh = vp[..., off + d:off + d + c]
+        acc = sh if acc is None else acc + sh
+    return acc
+
+
+def _norm(xf: torch.Tensor, nsize: int, alpha: float,
+          knorm: float) -> torch.Tensor:
+    lo, hi = window_offsets(nsize)
+    return knorm + (alpha / nsize) * _shifted_sum(xf * xf, lo, hi)
+
+
 def lrn_plain(x: torch.Tensor, nsize: int, alpha: float, beta: float,
               knorm: float) -> torch.Tensor:
-    """The plain version: f32 squares summed over the zero-padded
+    """The plain forward: f32 squares summed over the zero-padded
     channel window in offset order, then the power and the product."""
-    lo, hi = window_offsets(nsize)
     xf = x.float()
-    sq = F.pad(xf * xf, (-lo, hi))
-    c = x.shape[-1]
-    acc = None
-    for d in range(hi - lo + 1):
-        sh = sq[..., d:d + c]
-        acc = sh if acc is None else acc + sh
-    norm = knorm + (alpha / nsize) * acc
+    norm = _norm(xf, nsize, alpha, knorm)
     return (xf * norm.pow(-beta)).to(x.dtype)
+
+
+def lrn_bwd_plain(x: torch.Tensor, g: torch.Tensor, nsize: int, alpha: float,
+                  beta: float, knorm: float) -> torch.Tensor:
+    """The plain backward, f32 math in the CUDA kernel's order: the norm
+    recomputed, ``t`` summed over the reversed window."""
+    xf, gf = x.float(), g.float()
+    lo, hi = window_offsets(nsize)
+    norm = _norm(xf, nsize, alpha, knorm)
+    t = gf * xf * norm.pow(-beta - 1.0)
+    back = _shifted_sum(t, -hi, -lo)
+    coef = 2.0 * (alpha / nsize) * beta
+    return (gf * norm.pow(-beta) - (coef * xf) * back).to(x.dtype)
+
+
+def _rows(x: torch.Tensor) -> Tuple[int, int]:
+    c = x.shape[-1]
+    return (x.numel() // c if c else 0), c
 
 
 def lrn_fwd(x: torch.Tensor, nsize: int, alpha: float, beta: float,
@@ -61,10 +101,57 @@ def lrn_fwd(x: torch.Tensor, nsize: int, alpha: float, beta: float,
     _build.check_cuda("lrn_fwd", x, x.dim())
     if nsize < 1:
         raise ValueError(f"lrn_fwd: local_size must be >= 1, got {nsize}")
-    c = x.shape[-1]
-    m = x.numel() // c if c else 0
+    m, c = _rows(x)
     y = torch.empty_like(x)
     KERNEL.launch(f"lrn_fwd_{_build.dtype_suffix(x)}", _ARGS,
                   x.data_ptr(), y.data_ptr(), m, c, nsize, alpha / nsize,
                   beta, knorm, _build.stream_of(x))
     return y
+
+
+def lrn_bwd(x: torch.Tensor, g: torch.Tensor, nsize: int, alpha: float,
+            beta: float, knorm: float) -> torch.Tensor:
+    """The input gradient of :func:`lrn_fwd` for the output gradient
+    ``g`` (same shape and dtype as ``x``): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return lrn_bwd_plain(x, g, nsize, alpha, beta, knorm)
+    _build.check_cuda("lrn_bwd x", x, x.dim())
+    _build.check_cuda("lrn_bwd g", g, x.dim(), x.dtype)
+    if g.shape != x.shape:
+        raise ValueError(f"lrn_bwd: g {tuple(g.shape)} vs x {tuple(x.shape)}")
+    if nsize < 1:
+        raise ValueError(f"lrn_bwd: local_size must be >= 1, got {nsize}")
+    m, c = _rows(x)
+    dx = torch.empty_like(x)
+    BWD_KERNEL.launch(f"lrn_bwd_{_build.dtype_suffix(x)}", _BWD_ARGS,
+                      x.data_ptr(), g.data_ptr(), dx.data_ptr(), m, c, nsize,
+                      alpha / nsize, beta, knorm,
+                      2.0 * (alpha / nsize) * beta, _build.stream_of(x))
+    return dx
+
+
+class _LRN(torch.autograd.Function):
+    """K4 forward saving ``x`` only; K5 backward."""
+
+    @staticmethod
+    def forward(ctx, x, nsize, alpha, beta, knorm):
+        ctx.save_for_backward(x)
+        ctx.args = (nsize, alpha, beta, knorm)
+        return lrn_fwd(x, nsize, alpha, beta, knorm)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return (lrn_bwd(x, g.contiguous(), *ctx.args),
+                None, None, None, None)
+
+
+def lrn(x: torch.Tensor, nsize: int, alpha: float, beta: float,
+        knorm: float) -> torch.Tensor:
+    """LRN with the K5 backward when ``x`` takes part in autograd; the
+    forward alone (the same K4 launch) otherwise."""
+    x = x.contiguous()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _LRN.apply(x, nsize, alpha, beta, knorm)
+    return lrn_fwd(x, nsize, alpha, beta, knorm)

@@ -1,15 +1,27 @@
-"""Ceil-shape max pooling forward over NHWC: the CUDA kernel and its
-plain PyTorch version.
+"""Ceil-shape max pooling over NHWC with the reference's unpool
+backward: three CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``cxxnet_tpu/ops/maxpool.py`` (forward only: the
-unpool-equality backward kernels belong to the training slice).
-Semantics: the reference pooling layer's ceil output shape with partial
-edge windows; taps outside the input count as -inf.  ``F.max_pool2d``
-with ``ceil_mode=True`` uses another ceil rule (it never drops the last
-window the way the ``p > 0`` branch below does), so it is not used.
+Counterpart of ``cxxnet_tpu/ops/maxpool.py``.  Semantics: the reference
+pooling layer's ceil output shape with partial edge windows; taps
+outside the input count as -inf.  ``F.max_pool2d`` with
+``ceil_mode=True`` uses another ceil rule (it never drops the last
+window the way the ``p > 0`` branch below does), and its backward gives
+a window's gradient to one winner, so it is not used.  The backward is
+the mshadow ``unpool`` rule: every input equal to a covering window's
+max receives that window's gradient, so ties share it.
 
-``maxpool_fwd`` takes the plain version only for a tensor on the CPU;
-for a CUDA tensor it launches ``csrc/maxpool_fwd.cu`` or raises.
+* ``maxpool_fwd`` (K1, ``csrc/maxpool_fwd.cu``): the forward;
+* ``maxpool_bwd`` (K2, ``csrc/maxpool_bwd.cu``): the backward for any
+  geometry, summed in f32 in (dy, dx) window-offset order;
+* ``maxpool_bwd_s1`` (K3, ``csrc/maxpool_bwd_s1.cu``): the backward of a
+  same-size stride-1 pool, summed in f32 in the order of the Pallas
+  kernel it replaces (over output offsets);
+* ``maxpool``: the differentiable entry, a ``torch.autograd.Function``
+  whose forward is K1 and whose backward is K3 where the pool is
+  eligible and K2 otherwise.
+
+Each wrapper takes the plain version only for a tensor on the CPU; for
+a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,8 +34,14 @@ import torch.nn.functional as F
 from . import _build
 
 KERNEL = _build.Kernel("maxpool_fwd", "cxxnet_tpu/ops/maxpool.py:56 _fwd_kernel")
+BWD_KERNEL = _build.Kernel("maxpool_bwd",
+                           "cxxnet_tpu/ops/maxpool.py:71 _bwd_kernel")
+BWD_S1_KERNEL = _build.Kernel("maxpool_bwd_s1",
+                              "cxxnet_tpu/ops/maxpool.py:149 _bwd_s1_kernel")
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_BWD_S1_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def ceil_pool_shape(in_size: int, k: int, s: int, p: int = 0) -> int:
@@ -47,6 +65,13 @@ def geometry(h: int, w: int, kh: int, kw: int, s: int, py: int, px: int):
     return (py, prh), (px, prw), oh, ow
 
 
+def same_size_s1(kh: int, kw: int, s: int, py: int, px: int) -> bool:
+    """Whether the one-pass stride-1 backward (K3) applies: the
+    eligibility test of the JAX package's ``pool_impl = pallas_bwd``
+    (``cxxnet_tpu/layers/conv.py:688-693``)."""
+    return s == 1 and kh == kw and py == px and 2 * py == kh - 1
+
+
 def shifted_windows(xp: torch.Tensor, kh: int, kw: int, s: int, oh: int,
                     ow: int):
     """The k*k strided slices of a padded NHWC tensor, one per window
@@ -62,9 +87,13 @@ def pad_nhwc(x: torch.Tensor, pads_h, pads_w, value: float) -> torch.Tensor:
                  value=value)
 
 
+# ----------------------------------------------------------------------
+# plain versions
+
+
 def maxpool_plain(x: torch.Tensor, kh: int, kw: int, s: int, py: int = 0,
                   px: int = 0) -> torch.Tensor:
-    """The plain version: pad with -inf, max over the shifted slices."""
+    """The plain forward: pad with -inf, max over the shifted slices."""
     pads_h, pads_w, oh, ow = geometry(x.shape[1], x.shape[2], kh, kw, s,
                                       py, px)
     xp = pad_nhwc(x, pads_h, pads_w, float("-inf"))
@@ -72,6 +101,51 @@ def maxpool_plain(x: torch.Tensor, kh: int, kw: int, s: int, py: int = 0,
     for sl in shifted_windows(xp, kh, kw, s, oh, ow):
         acc = sl if acc is None else torch.maximum(acc, sl)
     return acc.contiguous()
+
+
+def maxpool_bwd_plain(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                      kh: int, kw: int, s: int, py: int = 0,
+                      px: int = 0) -> torch.Tensor:
+    """The plain unpool backward: on the -inf-padded f32 plane, add each
+    window offset's equality-gated gradient at its strided positions, in
+    (dy, dx) order, then crop and round once to ``x``'s dtype."""
+    h, w = x.shape[1], x.shape[2]
+    pads_h, pads_w, oh, ow = geometry(h, w, kh, kw, s, py, px)
+    xp = pad_nhwc(x.float(), pads_h, pads_w, float("-inf"))
+    yf, gf = y.float(), g.float()
+    acc = torch.zeros_like(xp)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    for dy in range(kh):
+        for dx in range(kw):
+            sl = (slice(None), slice(dy, dy + (oh - 1) * s + 1, s),
+                  slice(dx, dx + (ow - 1) * s + 1, s), slice(None))
+            acc[sl] += torch.where(xp[sl] == yf, gf, zero)
+    return acc[:, py:py + h, px:px + w, :].to(x.dtype).contiguous()
+
+
+def maxpool_bwd_s1_plain(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                         k: int, p: int) -> torch.Tensor:
+    """The plain same-size stride-1 backward, in the Pallas kernel's
+    order: pad y with +inf and g with 0 so every window covering an
+    input is a shifted slice, sum the k*k equality-gated reads over
+    OUTPUT offsets (dy, dx) in f32, round once to ``x``'s dtype."""
+    h, w = x.shape[1], x.shape[2]
+    xf = x.float()
+    pads = (k - 1 - p, p)
+    yp = pad_nhwc(y.float(), pads, pads, float("inf"))
+    gp = pad_nhwc(g.float(), pads, pads, 0.0)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    acc = torch.zeros_like(xf)
+    for dy in range(k):
+        for dx in range(k):
+            ys = yp[:, dy:dy + h, dx:dx + w, :]
+            gs = gp[:, dy:dy + h, dx:dx + w, :]
+            acc = acc + torch.where(xf == ys, gs, zero)
+    return acc.to(x.dtype).contiguous()
+
+
+# ----------------------------------------------------------------------
+# wrappers
 
 
 def maxpool_fwd(x: torch.Tensor, kh: int, kw: int, s: int, py: int = 0,
@@ -88,3 +162,83 @@ def maxpool_fwd(x: torch.Tensor, kh: int, kw: int, s: int, py: int = 0,
                   x.data_ptr(), y.data_ptr(), n, h, w, c, oh, ow, kh, kw, s,
                   py, px, _build.stream_of(x))
     return y
+
+
+def _check_bwd(name: str, x, y, g, oh: int, ow: int) -> None:
+    n, _, _, c = x.shape
+    for label, t in (("x", x), ("y", y), ("g", g)):
+        _build.check_cuda(f"{name} {label}", t, 4, x.dtype)
+    if tuple(y.shape) != (n, oh, ow, c) or tuple(g.shape) != tuple(y.shape):
+        raise ValueError(f"{name}: y {tuple(y.shape)} and g "
+                         f"{tuple(g.shape)} must be {(n, oh, ow, c)}")
+
+
+def maxpool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, kh: int,
+                kw: int, s: int, py: int = 0, px: int = 0) -> torch.Tensor:
+    """The unpool backward for any pool geometry: ``x`` the pool's input,
+    ``y`` its output, ``g`` the output's gradient, all NHWC of one
+    dtype; returns ``dx``.  The CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if x.device.type == "cpu":
+        return maxpool_bwd_plain(x, y, g, kh, kw, s, py, px)
+    n, h, w, c = x.shape
+    _, _, oh, ow = geometry(h, w, kh, kw, s, py, px)
+    _check_bwd("maxpool_bwd", x, y, g, oh, ow)
+    dx = torch.empty_like(x)
+    BWD_KERNEL.launch(f"maxpool_bwd_{_build.dtype_suffix(x)}", _BWD_ARGS,
+                      x.data_ptr(), y.data_ptr(), g.data_ptr(),
+                      dx.data_ptr(), n, h, w, c, oh, ow, kh, kw, s, py, px,
+                      _build.stream_of(x))
+    return dx
+
+
+def maxpool_bwd_s1(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, k: int,
+                   p: int) -> torch.Tensor:
+    """The one-pass backward of a same-size stride-1 ``k x k`` pool with
+    pad ``p = (k - 1) / 2``: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if not same_size_s1(k, k, 1, p, p):
+        raise ValueError(f"maxpool_bwd_s1: k={k} p={p} is not a same-size "
+                         "stride-1 pool (needs 2p == k - 1)")
+    if x.device.type == "cpu":
+        return maxpool_bwd_s1_plain(x, y, g, k, p)
+    n, h, w, c = x.shape
+    _check_bwd("maxpool_bwd_s1", x, y, g, h, w)
+    dx = torch.empty_like(x)
+    BWD_S1_KERNEL.launch(f"maxpool_bwd_s1_{_build.dtype_suffix(x)}",
+                         _BWD_S1_ARGS, x.data_ptr(), y.data_ptr(),
+                         g.data_ptr(), dx.data_ptr(), n, h, w, c, k, p,
+                         _build.stream_of(x))
+    return dx
+
+
+class _MaxPool(torch.autograd.Function):
+    """K1 forward saving ``(x, y)``; K3 or K2 backward."""
+
+    @staticmethod
+    def forward(ctx, x, kh, kw, s, py, px):
+        y = maxpool_fwd(x, kh, kw, s, py, px)
+        ctx.save_for_backward(x, y)
+        ctx.geom = (kh, kw, s, py, px)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        kh, kw, s, py, px = ctx.geom
+        g = g.contiguous()
+        if same_size_s1(kh, kw, s, py, px):
+            dx = maxpool_bwd_s1(x, y, g, kh, py)
+        else:
+            dx = maxpool_bwd(x, y, g, kh, kw, s, py, px)
+        return dx, None, None, None, None, None
+
+
+def maxpool(x: torch.Tensor, kh: int, kw: int, s: int, py: int = 0,
+            px: int = 0) -> torch.Tensor:
+    """Max pool with the unpool backward when ``x`` takes part in
+    autograd; the forward alone (the same K1 launch) otherwise."""
+    x = x.contiguous()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _MaxPool.apply(x, kh, kw, s, py, px)
+    return maxpool_fwd(x, kh, kw, s, py, px)

@@ -8,6 +8,8 @@ and ``cxxnet_tpu/nnet/trainer.py``: a model file is the 8-byte magic
 carries the CRC32, byte size, round and net fingerprint, so a reader
 can prove a checkpoint is intact and belongs to its net before loading
 it.  Writes are atomic (temp file, fsync, rename, directory fsync).
+``PreemptionHandler`` turns SIGTERM/SIGINT into a flag the train loop
+checks at each batch, so it can snapshot and exit cleanly.
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ from __future__ import annotations
 import fnmatch
 import json
 import os
+import signal
 import struct
 import time
 import zlib
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 MODEL_MAGIC = b"CXTPU001"
 MANIFEST_SUFFIX = ".manifest.json"
@@ -195,3 +198,37 @@ def find_latest_valid(model_dir: str, net_fp: Optional[str] = None,
         if not silent:
             print(f"checkpoint {path} skipped: {reason}", flush=True)
     return None
+
+
+class PreemptionHandler:
+    """Cooperative SIGTERM/SIGINT handling for the train loop: the first
+    signal sets ``requested`` (the loop finishes its batch, snapshots and
+    exits 0); a second one restores the previous handlers and re-sends
+    itself (force quit)."""
+
+    def __init__(self, signals: Sequence[int] = (signal.SIGTERM,
+                                                 signal.SIGINT)) -> None:
+        self.signals = tuple(signals)
+        self.requested = False
+        self._prev: dict = {}
+
+    def _handle(self, signum, frame):
+        if self.requested:
+            self.uninstall()
+            os.kill(os.getpid(), signum)
+            return
+        self.requested = True
+        print(f"received signal {signal.Signals(signum).name}: finishing the "
+              "current step, then checkpointing and exiting (signal again "
+              "to force quit)", flush=True)
+
+    def install(self) -> "PreemptionHandler":
+        if not self._prev:
+            for s in self.signals:
+                self._prev[s] = signal.signal(s, self._handle)
+        return self
+
+    def uninstall(self) -> None:
+        for s, prev in self._prev.items():
+            signal.signal(s, prev)
+        self._prev.clear()

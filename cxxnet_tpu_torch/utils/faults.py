@@ -1,7 +1,8 @@
 """Fail-fast stall detection for background workers.
 
-The port's copy of ``Watchdog`` from ``cxxnet_tpu/utils/faults.py``
-(the fault-injection registry and the circuit breaker belong to later
+The port's copy of ``Watchdog`` from ``cxxnet_tpu/utils/faults.py``,
+used by the serving batcher and the prefetch thread (the
+fault-injection registry and the circuit breaker belong to later
 slices).
 """
 
@@ -51,6 +52,15 @@ class Watchdog:
                 stack = "".join(traceback.format_stack(frame))
                 msg += f"\nhung thread {t.name!r} stack:\n{stack}"
         return msg
+
+    def check(self) -> None:
+        """Raise :class:`WatchdogError` when no beat has landed for
+        ``timeout_s`` (a consumer polling a queue calls this)."""
+        if not self.enabled:
+            return
+        dt = time.monotonic() - self._last
+        if dt > self.timeout_s:
+            raise WatchdogError(self.diagnostic(dt))
 
     def wait(self, event: threading.Event, poll: float = 0.2,
              since: Optional[float] = None) -> None:

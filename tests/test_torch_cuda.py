@@ -1,4 +1,7 @@
-"""Each CUDA kernel of the port against its plain PyTorch version.
+"""Each CUDA kernel of the port against its plain PyTorch version: the
+forwards of max pool, LRN and the conv block; the two max-pool
+backwards and the SGD step bit for bit (ties, partial windows, NaNs);
+the LRN backward to 1e-5 in float32 and 1e-2 in bfloat16.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -11,7 +14,7 @@ import pytest
 import torch
 
 from cxxnet_tpu_torch.ops import lrn, maxpool
-from cxxnet_tpu_torch.ops.kernels import conv_block
+from cxxnet_tpu_torch.ops.kernels import conv_block, update_step
 
 # (h, w, k, s, p) as in test_torch_ops.py: strides 1 and 2, pads 0 and 1,
 # partial edge windows
@@ -74,6 +77,99 @@ def test_cuda_conv_block_matches_plain(cuda_device, dtype, tol, m, k, o):
                                        atol=tol)
 
 
+def _tied(shape, device, dtype, seed):
+    """Integer-valued inputs with relu zeros: many ties in every window."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(-3, 4, shape, generator=gen).float().clamp_min(0)
+    return x.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,k,s,p", POOL_CASES)
+def test_cuda_maxpool_bwd_bit_equal_to_plain(cuda_device, dtype, h, w, k, s,
+                                             p):
+    x = _tied((3, h, w, 40), cuda_device, dtype, h * 10 + w)
+    y = maxpool.maxpool_fwd(x, k, k, s, p, p)
+    g = torch.randn(y.shape, device=cuda_device).to(dtype)
+    n0 = maxpool.BWD_KERNEL.launches
+    got = maxpool.maxpool_bwd(x, y, g, k, k, s, p, p)
+    torch.cuda.synchronize()
+    assert maxpool.BWD_KERNEL.launches == n0 + 1
+    assert torch.equal(got, maxpool.maxpool_bwd_plain(x, y, g, k, k, s, p, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,k", [(6, 6, 3), (7, 5, 3), (9, 8, 5),
+                                   (14, 14, 3)])
+def test_cuda_maxpool_bwd_s1_bit_equal_to_plain(cuda_device, dtype, h, w, k):
+    p = (k - 1) // 2
+    x = _tied((2, h, w, 72), cuda_device, dtype, h + w + k)
+    x[0, 0, 0, :4] = float("nan")  # a NaN input gets no gradient
+    y = maxpool.maxpool_fwd(x, k, k, 1, p, p)
+    g = torch.randn(y.shape, device=cuda_device).to(dtype)
+    n0 = maxpool.BWD_S1_KERNEL.launches
+    got = maxpool.maxpool_bwd_s1(x, y, g, k, p)
+    torch.cuda.synchronize()
+    assert maxpool.BWD_S1_KERNEL.launches == n0 + 1
+    ref = maxpool.maxpool_bwd_s1_plain(x, y, g, k, p)
+    assert torch.equal(got, ref)
+    assert torch.equal(got[0, 0, 0, :4], torch.zeros_like(got[0, 0, 0, :4]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("nsize", [3, 4, 5])
+def test_cuda_lrn_bwd_matches_plain(cuda_device, dtype, tol, nsize):
+    x = torch.randn(5, 7, 9, 72, device=cuda_device).to(dtype)
+    x[0, 0, 0, :8] = 0.0  # relu zeros
+    g = torch.randn(x.shape, device=cuda_device).to(dtype)
+    n0 = lrn.BWD_KERNEL.launches
+    got = lrn.lrn_bwd(x, g, nsize, 1e-2, 0.75, 1.0)
+    torch.cuda.synchronize()
+    assert lrn.BWD_KERNEL.launches == n0 + 1
+    ref = lrn.lrn_bwd_plain(x, g, nsize, 1e-2, 0.75, 1.0)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [0.0, 0.5])
+@pytest.mark.parametrize("n", [1, 7, 255, 257, 100003])
+def test_cuda_sgd_update_bit_equal_to_plain(cuda_device, clip, n):
+    gen = torch.Generator().manual_seed(n)
+    w, g, m = (torch.randn(n, generator=gen).to(cuda_device)
+               for _ in range(3))
+    g[::5] = float("nan")
+    if clip == 0.0:
+        g = torch.nan_to_num(g)  # no NaN guard without a clip
+    w2, m2 = w.clone(), m.clone()
+    n0 = update_step.KERNEL.launches
+    update_step.sgd_update(w, g, m, 0.01, 0.9, 2e-4, clip)
+    torch.cuda.synchronize()
+    assert update_step.KERNEL.launches == n0 + 1
+    update_step.sgd_update_plain(w2, g, m2, 0.01, 0.9, 2e-4, clip)
+    assert torch.equal(w, w2) and torch.equal(m, m2)
+    assert bool(torch.isfinite(w).all())
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_runs_the_backward_kernels(cuda_device):
+    x = _tied((2, 9, 9, 16), cuda_device, torch.bfloat16, 1)
+    x.requires_grad_(True)
+    before = [k.launches for k in (maxpool.BWD_KERNEL,
+                                   maxpool.BWD_S1_KERNEL, lrn.BWD_KERNEL)]
+    y = maxpool.maxpool(lrn.lrn(x, 5, 1e-4, 0.75, 1.0), 3, 3, 1, 1, 1)
+    y = maxpool.maxpool(y, 3, 3, 2)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    after = [k.launches for k in (maxpool.BWD_KERNEL,
+                                  maxpool.BWD_S1_KERNEL, lrn.BWD_KERNEL)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert x.grad is not None and bool(torch.isfinite(x.grad.float()).all())
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = torch.randn(2, 6, 6, 8, device=cuda_device)
@@ -85,3 +181,8 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         conv_block.conv_block_gemm(
             x.reshape(-1, 8),
             torch.randn(8, 4, device=cuda_device, dtype=torch.bfloat16))
+    wb = torch.zeros(6, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        update_step.sgd_update(wb, wb, wb, 0.1, 0.9)
+    with pytest.raises(ValueError, match="same-size"):
+        maxpool.maxpool_bwd_s1(x, x, x, 3, 0)

@@ -1,9 +1,11 @@
 """The port's kernel modules against the JAX package, on the CPU.
 
-Each of the three kernel modules of ``cxxnet_tpu_torch.ops`` (max pool,
-LRN, the fused 1x1 conv block) has a plain PyTorch version that the
-wrapper runs for a CPU tensor.  Inputs are made with numpy from a seed
-and fed to the JAX function and to the port's counterpart:
+Each kernel of ``cxxnet_tpu_torch.ops`` (max pool forward and its two
+backwards, LRN forward and backward, the fused 1x1 conv block, the SGD
+step) has a plain PyTorch version that the wrapper runs for a CPU
+tensor.  Inputs are made with numpy from a seed (integer values and
+relu zeros where ties matter) and fed to the JAX function and to the
+port's counterpart:
 
 * max pool: bit-equal to ``layers/conv._maxpool_eq`` and to the Pallas
   kernel in interpret mode (a max selects one of its inputs);
@@ -11,7 +13,22 @@ and fed to the JAX function and to the port's counterpart:
   rtol 1e-5 / atol 1e-6 (sums of squares taken in another order);
 * conv block: the stock branch of ``FunctionalNet._apply_fused_1x1`` and
   the Pallas kernel (interpret), to rtol 1e-5 / atol 1e-4 (GEMM
-  accumulation order differs between oneDNN and XLA).
+  accumulation order differs between oneDNN and XLA); its autograd
+  Function's gradients against ``jax.grad`` of the stock branch to
+  rtol = atol = 1e-5;
+* max-pool backward (K2): bit-equal to ``jax.vjp`` of ``_maxpool_eq``
+  and of the Pallas kernel (interpret): both sum in (dy, dx) order;
+* stride-1 backward (K3): bit-equal to ``maxpool_bwd_s1`` (interpret);
+  to rtol = atol = 1e-6 against ``_maxpool_eq``'s vjp, which adds in
+  the other order;
+* LRN backward (K5): rtol 1e-5 / atol 1e-6 against the vjp of the Pallas
+  kernel (interpret), 1e-4 / 1e-6 against the vjp of ``lrn_xla``;
+* SGD step (K8): bit-equal to ``SGDUpdater.apply`` run op by op; against
+  the Pallas kernel (interpret), whose XLA CPU lowering contracts
+  ``mom * m - lr * (...)`` into one FMA, within one rounding of each
+  product plus one of the result;
+* the lr and momentum schedules to rtol 2e-7 over epochs 0..2000;
+* dropout: kept fraction, scale, determinism and the eval identity.
 
 The CUDA kernels themselves run only on a card: ``test_torch_cuda.py``
 holds each against its plain version there.
@@ -23,19 +40,26 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from cxxnet_tpu.layers import conv as jconv
 from cxxnet_tpu.nnet.net import FunctionalNet as JaxNet
 from cxxnet_tpu.ops.kernels import conv_block as jcb
+from cxxnet_tpu.ops.kernels import update_step as jup
+from cxxnet_tpu.updater import SGDUpdater as JaxSGD
+from cxxnet_tpu.updater.param import UpdaterParam as JaxUpdaterParam
 
 # cxxnet_tpu.ops re-exports functions under the modules' names
 jlrn = importlib.import_module("cxxnet_tpu.ops.lrn")
 jmp = importlib.import_module("cxxnet_tpu.ops.maxpool")
 
+from cxxnet_tpu_torch.layers.elemwise import DropoutLayer
 from cxxnet_tpu_torch.ops import KERNELS, lrn, maxpool
 from cxxnet_tpu_torch.ops import _build
-from cxxnet_tpu_torch.ops.kernels import conv_block
+from cxxnet_tpu_torch.ops.kernels import conv_block, update_step
+from cxxnet_tpu_torch.updater import create_updater
+from cxxnet_tpu_torch.updater.param import UpdaterParam
 
 # (h, w, k, s, p): stride 1 and 2, pad 0 and 1, and sizes whose ceil
 # geometry leaves a partial edge window (e.g. 8 at k3 s2 p0: windows
@@ -150,7 +174,258 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     maxpool.maxpool_fwd(x, 3, 3, 2)
     lrn.lrn_fwd(x, 5, 1e-4, 0.75, 1.0)
     conv_block.conv1x1_block(x, torch.randn(4, 6))
+    xg = x.clone().requires_grad_(True)
+    y = maxpool.maxpool(lrn.lrn(xg, 5, 1e-4, 0.75, 1.0), 3, 3, 1, 1, 1)
+    conv_block.conv1x1_block(maxpool.maxpool(y, 3, 3, 2),
+                             torch.randn(4, 6)).sum().backward()
+    w = torch.randn(9)
+    update_step.sgd_update(w, torch.randn(9), torch.zeros(9), 0.1, 0.9)
+    assert xg.grad is not None
     assert [k.launches for k in KERNELS] == before
+
+
+def _tied(rng, shape):
+    """Integer values with relu zeros: ties in most windows."""
+    return np.maximum(rng.randint(-3, 4, shape), 0).astype(np.float32)
+
+
+@pytest.mark.parametrize("h,w,k,s,p", POOL_CASES)
+def test_maxpool_bwd_plain_bit_equal_to_jax(h, w, k, s, p):
+    rng = np.random.RandomState(h * 7 + w + k + s + p)
+    x = _tied(rng, (2, h, w, 5))
+    y, vjp = jax.vjp(lambda v: jconv._maxpool_eq(v, k, k, s, p, p),
+                     jnp.asarray(x))
+    _, vjp_pl = jax.vjp(lambda v: jmp.maxpool_fused(v, k, k, s, p, p,
+                                                    interpret=True),
+                        jnp.asarray(x))
+    g = rng.randn(*y.shape).astype(np.float32)
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    ref_pl = np.asarray(vjp_pl(jnp.asarray(g))[0])
+    got = maxpool.maxpool_bwd(torch.from_numpy(x),
+                              torch.from_numpy(np.array(y)),
+                              torch.from_numpy(g), k, k, s, p, p).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, ref_pl)
+
+
+@pytest.mark.parametrize("h,w,k", [(6, 6, 3), (7, 5, 3), (9, 8, 5),
+                                   (14, 14, 3)])
+def test_maxpool_bwd_s1_plain_matches_jax(h, w, k):
+    p = (k - 1) // 2
+    rng = np.random.RandomState(h + w * 3 + k)
+    x = _tied(rng, (2, h, w, 6))
+    x[0, 0, 0, 0] = np.nan  # a NaN input gets no gradient
+    y, vjp = jax.vjp(lambda v: jconv._maxpool_eq(v, k, k, 1, p, p),
+                     jnp.asarray(x))
+    g = rng.randn(*y.shape).astype(np.float32)
+    ref_pl = np.asarray(jmp.maxpool_bwd_s1(jnp.asarray(x), y, jnp.asarray(g),
+                                           k, p, interpret=True))
+    ref_eq = np.asarray(vjp(jnp.asarray(g))[0])
+    got = maxpool.maxpool_bwd_s1(torch.from_numpy(x),
+                                 torch.from_numpy(np.array(y)),
+                                 torch.from_numpy(g), k, p).numpy()
+    np.testing.assert_array_equal(got, ref_pl)
+    np.testing.assert_allclose(got, ref_eq, rtol=1e-6, atol=1e-6)
+    assert got[0, 0, 0, 0] == 0.0
+
+
+def test_maxpool_function_takes_the_eligible_backward():
+    x = torch.from_numpy(_tied(np.random.RandomState(0), (1, 6, 6, 3)))
+    for geom, kernel in (((3, 3, 1, 1, 1), "s1"), ((3, 3, 2, 0, 0), "any"),
+                         ((3, 3, 1, 0, 0), "any")):
+        xg = x.clone().requires_grad_(True)
+        y = maxpool.maxpool(xg, *geom)
+        g = torch.randn(y.shape)
+        y.backward(g)
+        kh, kw, s, py, px = geom
+        ref = (maxpool.maxpool_bwd_s1_plain(x, y.detach(), g, kh, py)
+               if kernel == "s1" else
+               maxpool.maxpool_bwd_plain(x, y.detach(), g, *geom))
+        assert maxpool.same_size_s1(*geom) == (kernel == "s1")
+        assert torch.equal(xg.grad, ref)
+
+
+@pytest.mark.parametrize("nsize", [3, 4, 5])
+def test_lrn_bwd_plain_matches_jax(nsize):
+    rng = np.random.RandomState(10 + nsize)
+    x = rng.randn(3, 4, 5, 24).astype(np.float32)
+    x[x < -0.5] = 0.0  # relu zeros
+    g = rng.randn(*x.shape).astype(np.float32)
+    kw = dict(nsize=nsize, alpha=0.01, beta=0.75, knorm=1.5)
+    _, vjp_pl = jax.vjp(lambda v: jlrn.lrn(v, interpret=True, **kw),
+                        jnp.asarray(x))
+    _, vjp_xla = jax.vjp(lambda v: jlrn.lrn_xla(v, **kw), jnp.asarray(x))
+    got = lrn.lrn_bwd(torch.from_numpy(x), torch.from_numpy(g), nsize, 0.01,
+                      0.75, 1.5).numpy()
+    np.testing.assert_allclose(got, np.asarray(vjp_pl(jnp.asarray(g))[0]),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(vjp_xla(jnp.asarray(g))[0]),
+                               rtol=1e-4, atol=1e-6)
+    xg = torch.from_numpy(x).requires_grad_(True)
+    lrn.lrn(xg, nsize, 0.01, 0.75, 1.5).backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(xg.grad.numpy(), got)
+
+
+def _sgd_inputs(shape, clip, seed):
+    rng = np.random.RandomState(seed)
+    w = rng.randn(*shape).astype(np.float32)
+    g = (rng.randn(*shape) * 2).astype(np.float32)
+    m = rng.randn(*shape).astype(np.float32)
+    if clip:
+        g.reshape(-1)[::7] = np.nan  # the clip's NaN guard zeroes these
+    return w, g, m
+
+
+@pytest.mark.parametrize("clip", [0.0, 0.5])
+@pytest.mark.parametrize("shape", [(7,), (3, 3, 5, 17), (1000, 1024)])
+def test_sgd_update_plain_matches_jax(shape, clip):
+    w, g, m = _sgd_inputs(shape, clip, len(shape))
+    up = JaxSGD("wmat")
+    for k, v in (("lr", "0.01"), ("wd", "0.0002"),
+                 ("clip_gradient", str(clip))):
+        up.set_param(k, v)
+    epoch = 5
+    w_ref, s_ref = up.apply(jnp.asarray(w), jnp.asarray(g),
+                            {"m": jnp.asarray(m)}, jnp.asarray(epoch))
+    lr = float(np.asarray(up.param.learning_rate(epoch)))
+    mom = float(np.asarray(up.param.momentum_at(epoch)))
+    w_pl, m_pl = jup.sgd_update(jnp.asarray(w), jnp.asarray(g),
+                                jnp.asarray(m), jnp.float32(lr),
+                                jnp.float32(mom), wd=0.0002, clip=clip,
+                                interpret=True)
+    tw, tm = torch.from_numpy(w.copy()), torch.from_numpy(m.copy())
+    update_step.sgd_update(tw, torch.from_numpy(g), tm, lr, mom, 0.0002,
+                           clip)
+    got_w, got_m = tw.numpy(), tm.numpy()
+    # op by op, as the JAX package's SGDUpdater spells it: bit-equal
+    np.testing.assert_array_equal(got_w, np.asarray(w_ref))
+    np.testing.assert_array_equal(got_m, np.asarray(s_ref["m"]))
+    # the Pallas kernel's XLA CPU lowering fuses mom*m - lr*(...) into an
+    # FMA (measured: it differs from the op-by-op rule in the last bits):
+    # it may skip the rounding of either product, so the two agree
+    # within one rounding of each product plus one of the result
+    gc = update_step.nan_clip(torch.from_numpy(g), clip).numpy() if clip \
+        else g
+    step = np.float32(lr) * (gc + np.float32(0.0002) * w)
+    bound_m = (np.spacing(np.abs(np.float32(mom) * m))
+               + np.spacing(np.abs(step)) + np.spacing(np.abs(got_m)))
+    assert (np.abs(got_m - np.asarray(m_pl)) <= bound_m).all()
+    bound_w = bound_m + np.spacing(np.abs(got_w))
+    assert (np.abs(got_w - np.asarray(w_pl)) <= bound_w).all()
+    assert np.isfinite(got_w).all()
+
+
+SCHEDULES = [
+    {},
+    {"lr:schedule": "expdecay", "lr:gamma": "0.9", "lr:step": "7"},
+    {"lr:schedule": "polydecay", "lr:gamma": "0.5", "lr:alpha": "0.5"},
+    {"lr:schedule": "polydecay", "lr:gamma": "0.01", "lr:alpha": "0.75",
+     "lr:step": "3", "lr:minimum_lr": "0.002"},
+    {"lr:schedule": "factor", "lr:factor": "0.5", "lr:step": "100",
+     "lr:start_epoch": "250"},
+    {"momentum_schedule": "1", "base_momentum": "0.5",
+     "final_momentum": "0.95", "saturation_epoch": "700"},
+]
+
+
+@pytest.mark.parametrize("sched", SCHEDULES)
+def test_schedules_match_jax(sched):
+    ours, ref = UpdaterParam("wmat"), JaxUpdaterParam("wmat")
+    for p in (ours, ref):
+        for k, v in {"eta": "0.05", "wmat:lr": "0.02", "bias:lr": "9",
+                     **sched}.items():
+            p.set_param(k, v)
+    assert ours.base_lr == 0.02
+    epochs = np.arange(0, 2001)
+    want_lr = np.asarray(jax.vmap(ref.learning_rate)(jnp.asarray(epochs)))
+    want_m = np.asarray(jax.vmap(ref.momentum_at)(jnp.asarray(epochs)))
+    got_lr = np.array([ours.learning_rate(int(e)) for e in epochs])
+    got_m = np.array([ours.momentum_at(int(e)) for e in epochs])
+    assert got_lr.dtype == got_m.dtype == np.float32
+    np.testing.assert_allclose(got_lr, want_lr, rtol=2e-7, atol=0)
+    np.testing.assert_allclose(got_m, want_m, rtol=2e-7, atol=0)
+
+
+def test_updater_factory_ports_sgd_only():
+    up = create_updater("sgd", "bias")
+    w = torch.ones(3)
+    st = up.init_state(w)
+    up.apply(w, torch.ones(3), st, 0)
+    assert torch.allclose(st["m"], torch.full((3,), -0.01))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_updater("adam", "wmat")
+    with pytest.raises(ValueError):
+        create_updater("sgdd", "wmat")
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("biased", [(True, False, True), (True, True, True)])
+def test_conv_block_function_grads_match_jax(stride, biased):
+    rng = np.random.RandomState(20 + stride)
+    outs = (8, 12, 5)
+    x = rng.randn(2, 7, 6, 16).astype(np.float32)
+    gparams, _, _ = _group(rng, 16, outs, biased)
+    gy = rng.randn(2, -(-7 // stride), -(-6 // stride),
+                   sum(outs)).astype(np.float32)
+
+    def stock(gp, xv):
+        parts = JaxNet._apply_fused_1x1(stride, gp, xv)
+        return jnp.sum(jnp.concatenate(parts, axis=3) * gy)
+
+    jgp = [{t: jnp.asarray(v) for t, v in d.items()} for d in gparams]
+    ref_p, ref_x = jax.grad(stock, argnums=(0, 1))(jgp, jnp.asarray(x))
+
+    tp = [{t: torch.from_numpy(v).requires_grad_(True) for t, v in d.items()}
+          for d in gparams]
+    tx = torch.from_numpy(x).requires_grad_(True)
+    w2d = torch.cat([d["wmat"].reshape(16, -1) for d in tp], dim=1)
+    bias = torch.cat([d["bias"] if "bias" in d else torch.zeros(o)
+                      for d, o in zip(tp, outs)])
+    y = conv_block.conv1x1_block(tx, w2d, bias, stride=stride)
+    (y * torch.from_numpy(gy)).sum().backward()
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(ref_x), **tol)
+    for d, r in zip(tp, ref_p):
+        assert sorted(d) == sorted(r)  # bias-less members get no bias grad
+        for t in d:
+            np.testing.assert_allclose(d[t].grad.numpy(), np.asarray(r[t]),
+                                       **tol)
+
+
+def test_conv_block_function_relu_grads_match_autograd_of_plain():
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(30, 12).astype(np.float32))
+    w = torch.from_numpy(rng.randn(12, 7).astype(np.float32))
+    b = torch.from_numpy(rng.randn(7).astype(np.float32))
+    gy = torch.from_numpy(rng.randn(30, 7).astype(np.float32))
+    grads = []
+    for f in (lambda *a: conv_block._ConvBlockGemm.apply(*a, True),
+              lambda *a: conv_block.conv_block_plain(*a, relu=True)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        (f(*leaves) * gy).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_dropout_keeps_the_expected_fraction():
+    lay = DropoutLayer()
+    lay.set_param("threshold", "0.4")
+    x = torch.full((1000, 1000), 2.0)
+    gen = torch.Generator().manual_seed(11)
+    (y,) = lay.apply({}, [x], train=True, gen=gen)
+    kept = y != 0
+    assert abs(kept.float().mean().item() - 0.6) < 0.01 * 0.6
+    assert torch.equal(y[kept], torch.full_like(y[kept], 2.0 / 0.6))
+    (y2,) = lay.apply({}, [x], train=True,
+                      gen=torch.Generator().manual_seed(11))
+    assert torch.equal(y, y2)
+    (y3,) = lay.apply({}, [x], train=True,
+                      gen=torch.Generator().manual_seed(12))
+    assert not torch.equal(y, y3)
+    assert lay.apply({}, [x], train=False, gen=gen)[0] is x
+    lay.set_param("threshold", "0")
+    assert lay.apply({}, [x], train=True, gen=gen)[0] is x
 
 
 def test_kernel_sources_and_build_keys():
@@ -160,7 +435,7 @@ def test_kernel_sources_and_build_keys():
         # every kernel names the Pallas kernel it replaces and exports
         # one C entry per dtype the wrapper can ask for
         assert k.replaces.split(":")[0] in src
-        for sfx in ("f32", "bf16"):
+        for sfx in k.dtypes:
             assert f'extern "C" int {k.name}_{sfx}(' in src
         path = k.library_path()
         assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")

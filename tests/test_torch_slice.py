@@ -188,6 +188,6 @@ def test_cli_refuses_tasks_of_later_slices(tmp_path):
     conf = tmp_path / "gn64.conf"
     conf.write_text(CONF)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        LearnTask().run([str(conf), "task=train"])
+        LearnTask().run([str(conf), "task=finetune"])
     with pytest.raises(NotImplementedError, match="fleet"):
         LearnTask().run([str(conf), "task=serve", "replicas=2"])
