@@ -51,11 +51,47 @@ Phases; any failure ends the run with a non-zero exit and no result:
    device-resident batches after 3 warm-up steps, timed with CUDA
    events, with the peak device memory; then one step under
    ``torch.profiler``: device time by kernel and the busy share.
-7. A ``kernels`` JSON line (per kernel: launches on the training run,
-   and for K1/K4/K6 on the serving run too, max error, and the times
-   of one b128 bf16 training step's launches summed), the
-   ``nvidia-smi`` line again, and last the result line
-   ``{"ok": true, "device": {...}}``.
+7. The flash-attention kernels (K9 forward, K10 backward) against their
+   plain versions on the card: float32 at (2, 512, 8, 64) causal and
+   not, cross lengths (T 512 / Tk 384 and T 384 / Tk 512), offsets
+   through the LSE entry with fully masked rows (whose output must be 0
+   and LSE -1e30), float32 at (2, 2048, 8, 64) causal, and bfloat16 at
+   the LM step's (8, 2048, 8, 64) causal, these two with q, k and v
+   slices of one fused (B, T, 3, H, D) tensor as the attention layer
+   hands them over; dQ, dK and dV against the plain backward from the
+   same inputs, with an LSE cotangent in the offset cases.  At the LM
+   shape
+   the kernels' times, the plain versions', the library yardstick's
+   (``scaled_dot_product_attention``: forward, its backward through
+   autograd, and both), and the bounds.
+8. The language model at ``bench.py --lm``'s width:
+   ``transformer_lm_conf(seq_len=2048, dim=512, nhead=8, nlayer=4,
+   batch_size=8, compute_dtype=bfloat16)`` (Adam) on a corpus made of
+   ``SURVEY.md`` and ``doc/*.md``, trained ``task=train`` through
+   ``LearnTask`` for 2 rounds; the counts are set to 0 just before the
+   run and read just after it, and every step must launch K9 and K10 4
+   times each (one per block) and no other kernel; the losses must be
+   finite and fall.  Then 10 steps on a device-resident batch with
+   ``eval_train = 0`` (CUDA events: step ms, tokens/s, peak memory) and
+   one step under the profiler (busy share, device ms by kernel, and 4
+   launches each of the forward, dQ and dK/dV kernels).
+9. LM parity from the run's first checkpoint, 1 row: a float32 step on
+   the card with TF32 off against the CPU (the loss; per tensor the Adam
+   moments, and the update where the gradient is resolved), and a
+   bfloat16 step against the float32 one (cosines).
+10. ``task=generate`` from the last checkpoint through ``LearnTask``:
+   the KV-cache path for 256 bytes (no flash launch) and the windowed
+   path for 8 bytes (4 K9 launches a byte), each with the counts set to
+   0 just before and read just after; the bytes per second of each
+   path; and the card's probability rows against the CPU's on the same
+   tokens, in float32, on both paths.
+11. A ``kernels`` JSON line (per kernel: launches on its main path's
+   run — GoogLeNet training for K1-K8, with the serving run's for the
+   forward kernels; the LM training run for K9 and K10, with the
+   windowed generation run's — max error, and the times of one training
+   step's launches summed: GoogLeNet b128 bf16, or the LM step's 4
+   launches of K9 and of K10), the ``nvidia-smi`` line again, and last
+   the result line ``{"ok": true, "device": {...}}``.
 
 Tolerances (reasons in PERF.md):
 
@@ -80,7 +116,19 @@ Tolerances (reasons in PERF.md):
 * training: float32 card vs CPU, each tensor's update within 1e-2 of
   its largest CPU update and the median tensor within 1e-3; bfloat16
   vs float32, each tensor's update at cosine >= 0.9 and the median
-  tensor >= 0.99 (the readings that set these limits: PERF.md).
+  tensor >= 0.99 (the readings that set these limits: PERF.md);
+* flash attention, each row's largest error within a share of that
+  row's largest plain magnitude: the forward 1e-5 in float32 and 1e-2
+  in bfloat16 (P is rounded against the kernel's running max, the
+  plain version's against the row's final max); the backward 1e-6 in
+  float32 and 8e-3 (one bf16 rounding) in bfloat16; the LSE within
+  1e-5;
+* LM training: float32 card vs CPU, each tensor's Adam moments and
+  resolved update within 1e-3 of the tensor's largest and the median
+  tensor within 1e-4, the losses within 1e-4 relatively; bfloat16 vs
+  float32, each tensor's cosines >= 0.98 and the median >= 0.999;
+* generation: float32 probability rows within 1e-5, card against CPU
+  and cached against windowed.
 """
 
 from __future__ import annotations
@@ -137,6 +185,34 @@ TOL = {  # (rtol, atol) of each kernel against its plain version
 }
 F32_PROB_ATOL, F32_FEAT_REL = 1e-4, 1e-4
 BF16_LOGIT_REL, BF16_FEAT_REL = 0.05, 0.05
+# the language model: bench.py --lm's width (transformer_lm_conf at
+# T 2048, d 512, 8 heads, 4 blocks, batch 8, bf16, adam), trained on the
+# repository's own prose for LM_ROUNDS rounds, then sampled
+LM_T, LM_DIM, LM_HEADS, LM_LAYERS, LM_BATCH, LM_ROUNDS = 2048, 512, 8, 4, 8, 2
+LM_PARITY_ROWS = 1
+GEN_PROMPT = "The port runs"
+GEN_CACHED, GEN_WINDOWED, GEN_PARITY = 256, 8, 24
+# flash kernels against their plain versions, per row (``_row_rel_err``:
+# the row's largest error over its largest plain magnitude), set from
+# the readings in PERF.md.  K9 in f32: expf and summation order; in
+# bf16: P rounded to bf16 against the running max (the plain version
+# against the row's final max), then one bf16 rounding of the output.
+# K10 reads bit-equal in both dtypes: held to a few f32 ulps, and in
+# bf16 to one bf16 rounding of the f32 result.  The LSE (f32 in both
+# dtypes) absolutely.
+FLASH_TOL = {("flash_fwd", "float32"): 1e-5,
+             ("flash_fwd", "bfloat16"): 1e-2,
+             ("flash_bwd", "float32"): 1e-6,
+             ("flash_bwd", "bfloat16"): 8e-3}
+LSE_ATOL = 1e-5
+# LM parity limits, set from the readings in PERF.md (f32 worst 7.95e-5,
+# median 1.75e-5; bf16 worst cosine 0.9922, median 0.9997): f32 card vs
+# CPU, the worst of the Adam moments' and the resolved update's error
+# relative to the tensor's largest; bf16 vs f32, the lower of the
+# cosines of m1 and of the resolved update
+LM_UPDATE_REL, LM_UPDATE_REL_MEDIAN = 1e-3, 1e-4
+LM_UPDATE_COS, LM_UPDATE_COS_MEDIAN = 0.98, 0.999
+GEN_PROB_ATOL = 1e-5
 # training parity limits, set from the readings in PERF.md: the max-pool
 # backward is discontinuous (an activation whose sign or tie the two
 # sides' rounding decides differently moves a window's gradient), and
@@ -690,7 +766,7 @@ def _profile(run, what: str, span: str):
         t0 = time.perf_counter()
         run()
         wall = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, counts = {}, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -698,6 +774,7 @@ def _profile(run, what: str, span: str):
         if t is None:
             t = e.cuda_time_total
         by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3
+        counts[e.key] = counts.get(e.key, 0) + e.count
     busy = sum(by_name.values())
     tag = f"profile: {what}:"
     log(f"{tag} {span} {wall:.2f} ms wall under the profiler, "
@@ -709,12 +786,31 @@ def _profile(run, what: str, span: str):
             "maxpool_bwd": ("maxpool_bwd_kernel",),
             "maxpool_bwd_s1": ("maxpool_bwd_s1_kernel",),
             "lrn_bwd": ("lrn_bwd_kernel",),
-            "sgd_update": ("sgd_update_kernel",)}
-    out = {"wall_ms": wall, "device_ms": busy}
+            "sgd_update": ("sgd_update_kernel",),
+            "flash_fwd": ("flash_fwd_kernel",),
+            "flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel")}
+    out = {"wall_ms": wall, "device_ms": busy, "counts": counts}
+    mine = set()
     for name, frags in ours.items():
-        t = sum(v for k, v in by_name.items() if any(f in k for f in frags))
-        out[name] = t
-        log(f"{tag} {name} {t:.3f} ms")
+        hits = {k for k in by_name if any(f in k for f in frags)}
+        mine |= hits
+        out[name] = sum(by_name[k] for k in hits)
+        if out[name]:
+            log(f"{tag} {name} {out[name]:.3f} ms")
+    # the rest by kind: library GEMMs and convs, elementwise, reductions
+    kinds = {"cuBLAS/cuDNN": ("nvjet", "gemm", "xmma", "cutlass", "cudnn",
+                              "fprop", "dgrad", "wgrad", "sm90_", "sm80_"),
+             "elementwise": ("elementwise",), "reduce": ("reduce",),
+             "memcpy": ("Memcpy", "Memset")}
+    rest = {k: v for k, v in by_name.items() if k not in mine}
+    split = {"our kernels": busy - sum(rest.values())}
+    for kind, frags in kinds.items():
+        hits = [k for k in rest if any(f in k for f in frags)]
+        split[kind] = sum(rest.pop(k) for k in hits)
+    split["other"] = sum(rest.values())
+    log(f"{tag} device ms by kind: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    out["by_kind"] = split
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"{tag} {v:8.3f} ms  {k[:100]}")
     return out
@@ -723,15 +819,38 @@ def _profile(run, what: str, span: str):
 # ----------------------------------------------------------------------
 
 
-def kernels_line(rows, serve_launches, train_launches):
-    """Per kernel: the training run's launches (and the serving run's,
-    for the forward kernels), the max error over every check, and one
-    b128 training step's launches' times summed (bf16; the SGD kernel's
-    f32 row covers all its launches)."""
+def kernels_line(rows, serve_launches, train_launches, flash_rows,
+                 lm_launches, gen_launches):
+    """Per kernel: the launches of its main path (GoogLeNet training for
+    K1-K8, with the serving run's for the forward kernels; the LM
+    training run for K9 and K10, with the windowed generation run's),
+    the max error over every check, and one training step's launches'
+    times summed (GoogLeNet b128 bf16; the SGD kernel's f32 row covers
+    all its launches; the LM step's 4 launches of K9 and of K10)."""
     from cxxnet_tpu_torch.ops import KERNELS
 
+    step_flash = next(r for r in flash_rows if r["per_step"])
     out = []
     for k in KERNELS:
+        if k.name in ("flash_fwd", "flash_bwd"):
+            pre = k.name.split("_")[1]
+            names = ("o",) if pre == "fwd" else ("dq", "dk", "dv")
+            n = step_flash["per_step"]
+            b_ms, b_by = step_flash[f"{pre}_bound"]
+            out.append({
+                "name": k.name, "route": "cuda",
+                "source": os.path.relpath(k.source, REPO),
+                "replaces": k.replaces.split()[0],
+                "launches": lm_launches[k.name],
+                "max_abs_err": max(r["errors"][m][0] for r in flash_rows
+                                   for m in names),
+                "ms": n * step_flash[f"{pre}_ms"],
+                "plain_ms": n * step_flash[f"{pre}_plain_ms"],
+                "bound_ms": n * b_ms, "bound_by": b_by,
+                "library_ms": n * step_flash[f"{pre}_library_ms"],
+                "launches_generate": gen_launches[k.name],
+            })
+            continue
         mine = [r for r in rows if r["kernel"] == k.name]
         step_dtype = "float32" if k.name == "sgd_update" else "bfloat16"
         step = [r for r in mine if r["dtype"] == step_dtype]
@@ -789,17 +908,14 @@ def _train_conf(tmp: str) -> str:
     return path
 
 
-def train_phase(tmp: str):
-    """Drive ``task=train`` through the CLI's ``LearnTask``; returns the
-    training run's launch counts, its checkpoint directory and conf."""
-    import numpy as np
-    import torch
-
-    from cxxnet_tpu_torch import config as cfgmod
+def _run_train_task(argv):
+    """Run ``LearnTask`` on ``argv`` in-process with a trainer that
+    records each step's launches, loss and end time; returns ``(task,
+    trainer, steps, losses, marks)``.  The launch counts are set to 0
+    just before the run."""
     from cxxnet_tpu_torch.cli import LearnTask
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     from cxxnet_tpu_torch.ops import KERNELS
-    from cxxnet_tpu_torch.serve import Engine, make_server
 
     steps, losses, marks = [], [], []
 
@@ -825,24 +941,52 @@ def train_phase(tmp: str):
             self.trainer_for_smoke = tr
             return tr
 
+    task = SmokeTask()
+    for k in KERNELS:
+        k.launches = 0
+    task.run(argv)
+    return task, task.trainer_for_smoke, steps, losses, marks
+
+
+def _round_rates(marks, batch: int, unit: str) -> None:
+    """Each CLI round's rate: round start to its last step (host feed,
+    metric fetch included)."""
+    rounds = [m for m in marks if m[0] == "round"]
+    for (_, r, ts, n0), nxt in zip(rounds, rounds[1:] + [None]):
+        ends = [m for m in marks if m[0] == "step" and m[3] > n0
+                and (nxt is None or m[3] <= nxt[3])]
+        if ends:
+            dt = ends[-1][2] - ts
+            log(f"train: CLI round {r - 1}: {len(ends)} steps, "
+                f"{len(ends) * batch / dt:.1f} {unit}/s (host clock, "
+                "host feed and metric fetch included)")
+
+
+def train_phase(tmp: str):
+    """Drive ``task=train`` through the CLI's ``LearnTask``; returns the
+    training run's launch counts, its checkpoint directory and conf."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.serve import Engine, make_server
+
     conf = _train_conf(tmp)
     mdir = os.path.join(tmp, "models")
     argv = [conf, "task=train", "dev=gpu", f"num_round={ROUNDS}",
             f"max_round={ROUNDS}", f"model_dir={mdir}", f"seed={SEED}",
             "print_step=0"]
-    task = SmokeTask()
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts at 0 just before, read just after
-    for k in KERNELS:
-        k.launches = 0
     t0 = time.perf_counter()
-    task.run(argv)
+    _, tr, steps, losses, marks = _run_train_task(argv)
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    tr = task.trainer_for_smoke
     n_tensors = sum(len(tags) for tags in tr.params.values())
-    want = {**PER_STEP, "sgd_update": n_tensors}
+    want = {**{k.name: 0 for k in KERNELS}, **PER_STEP,
+            "sgd_update": n_tensors}
     log(f"train: {len(steps)} steps of {tr.batch_size} rows in {wall:.1f}s "
         f"(CLI run, data set-up included); {n_tensors} parameter tensors; "
         f"peak device memory {peak:.2f} GiB")
@@ -861,17 +1005,7 @@ def train_phase(tmp: str):
                              f"training run, fewer than {per * n_steps}")
     if not all(np.isfinite(losses)):
         raise SmokeError(f"non-finite training loss: {losses}")
-    # the CLI round's rate: round start to its last step (host feed in)
-    for (_, r, ts, n0), nxt in zip(
-            [m for m in marks if m[0] == "round"],
-            [m for m in marks if m[0] == "round"][1:] + [None]):
-        ends = [m for m in marks if m[0] == "step" and m[3] > n0
-                and (nxt is None or m[3] <= nxt[3])]
-        if ends:
-            dt = ends[-1][2] - ts
-            log(f"train: CLI round {r - 1}: {len(ends)} steps, "
-                f"{len(ends) * tr.batch_size / dt:.1f} img/s (host clock, "
-                "host feed and metric fetch included)")
+    _round_rates(marks, tr.batch_size, "img")
     saved = sorted(f for f in os.listdir(mdir) if f.endswith(".model"))
     want_files = [f"{r:04d}.model" for r in range(ROUNDS + 1)]
     if saved != want_files:
@@ -1058,6 +1192,510 @@ def rate_phase(cfg, mdir: str):
     return _profile(step, f"train b{tr.batch_size} bf16", "step")
 
 
+# ----------------------------------------------------------------------
+# phases 8-11: the language model (K9, K10)
+
+
+def _visible_pairs(t: int, tk: int, causal: bool, q_off: int,
+                   k_off: int) -> int:
+    """(query, key) pairs the attention must compute: all of them, or
+    under ``causal`` those with ``q_off + i >= k_off + j``."""
+    if not causal:
+        return t * tk
+    return sum(min(max(q_off + i - k_off + 1, 0), tk) for i in range(t))
+
+
+def flash_cases():
+    """(label, dtype, B, T, Tk, H, D, causal, q_off, k_off, through the
+    LSE entry, q/k/v as slices of one fused (B, T, 3, H, D) tensor,
+    launches per LM training step): the float32 checks at (2, 512, 8,
+    64) and around it, float32 at T 2048 (32 key tiles), and the LM
+    step's own shape and layout last."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    h, d = LM_HEADS, LM_DIM // LM_HEADS
+    return [
+        ("causal", f32, 2, 512, 512, h, d, True, 0, 0, False, False, 0),
+        ("non-causal", f32, 2, 512, 512, h, d, False, 0, 0, False, False,
+         0),
+        ("cross T512 Tk384", f32, 2, 512, 384, h, d, False, 0, 0, False,
+         False, 0),
+        ("cross causal T384 Tk512", f32, 2, 384, 512, h, d, True, 0, 0,
+         False, False, 0),
+        ("lse q_off 0 k_off 200 (200 dead rows)", f32, 2, 512, 512, h, d,
+         True, 0, 200, True, False, 0),
+        ("lse q_off 300 k_off 0", f32, 2, 512, 512, h, d, True, 300, 0,
+         True, False, 0),
+        ("causal T2048, fused qkv", f32, 2, LM_T, LM_T, h, d, True, 0, 0,
+         False, True, 0),
+        ("LM step, fused qkv", bf16, LM_BATCH, LM_T, LM_T, h, d, True, 0, 0,
+         False, True, LM_LAYERS),
+    ]
+
+
+def _row_rel_err(got, ref) -> float:
+    """The worst row's largest error over that row's largest plain
+    magnitude, a row being one (batch, position, head) vector of D: a
+    late causal row's output is ~30x smaller than row 0's, so a limit
+    on the tensor's largest magnitude would not see it.  A row that is
+    0 in the plain result must be 0 in the kernel's."""
+    err = (got.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1)
+    return float((err / scale.clamp_min(1e-30)).max())
+
+
+def check_flash(dev):
+    """K9 and K10 against their plain versions on every case; at the LM
+    step's shape also the times: kernel, plain, the library yardstick
+    (``scaled_dot_product_attention``, forward, and its backward through
+    autograd), and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from cxxnet_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    rows = []
+    for (label, dtype, b, t, tk, h, d, causal, q_off, k_off, lse_path,
+         fused, per_step) in flash_cases():
+        if fused:  # the attention layer's layout: slices of its projection
+            qkv = torch.randn(b, t, 3, h, d, generator=gen).to(dev, dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            do = torch.randn(b, t, h, d, generator=gen).to(dev, dtype)
+        else:
+            q, k, v, do = (torch.randn(b, n, h, d, generator=gen).to(
+                dev, dtype) for n in (t, tk, tk, t))
+        dlse = (torch.randn(b, h, t, generator=gen).to(dev) if lse_path
+                else torch.zeros(b, h, t, device=dev))
+        fwd = lambda: flash.flash_fwd(q, k, v, causal, q_off,  # noqa: E731
+                                      k_off)
+        fwd_plain = lambda: flash.flash_fwd_plain(  # noqa: E731
+            q, k, v, causal, q_off, k_off)
+        o, lse = fwd()
+        o_ref, lse_ref = fwd_plain()
+        # K10 from the same inputs on both sides; dl = delta - dlse
+        dl = ((do.float() * o_ref.float()).sum(-1).permute(0, 2, 1)
+              - dlse).contiguous()
+        bwd = lambda: flash.flash_bwd(q, k, v, do, lse_ref,  # noqa: E731
+                                      dl, causal, q_off, k_off)
+        bwd_plain = lambda: flash.flash_bwd_plain(  # noqa: E731
+            q, k, v, do, lse_ref, dl, causal, q_off, k_off)
+        grads, grads_ref = bwd(), bwd_plain()
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[1]
+        tol = {"o": FLASH_TOL[("flash_fwd", dname)],
+               "dq": FLASH_TOL[("flash_bwd", dname)]}
+        tol["dk"] = tol["dv"] = tol["dq"]
+        errs = {}  # name: (max abs error, worst row-relative error)
+        for name, got, ref in (("o", o, o_ref),
+                               *zip(("dq", "dk", "dv"), grads, grads_ref)):
+            errs[name] = (float((got.float() - ref.float()).abs().max()),
+                          _row_rel_err(got, ref))
+        lse_err = float((lse - lse_ref).abs().max())
+        ok = all(rel <= tol[n] for n, (_, rel) in errs.items())
+        ok = ok and lse_err <= LSE_ATOL and all(
+            bool(torch.isfinite(x.float()).all()) for x in (o, *grads))
+        if lse_path:  # the dead rows: o = 0 and lse = -1e30 exactly
+            dead = (q_off + torch.arange(t, device=dev)) < k_off
+            ok = ok and bool((o[:, dead] == 0).all()) and bool(
+                (lse[:, :, dead] == -1e30).all())
+        esz = torch.empty((), dtype=dtype).element_size()
+        pairs = _visible_pairs(t, tk, causal, q_off, k_off)
+        kind = "bf16_tensor" if dtype == torch.bfloat16 else "f32"
+        bh = b * h
+        # K9 reads q, k, v and writes o and lse; two products (s, P.V)
+        fwd_work = ((2 * t + 2 * tk) * b * h * d * esz + 4 * bh * t,
+                    4.0 * bh * pairs * d)
+        # K10 reads q, k, v, dO, lse and dl and writes dq, dk, dv; the
+        # least work is five products (s, dO.v, dq, dk, dv)
+        bwd_work = ((3 * t + 4 * tk) * b * h * d * esz + 8 * bh * t,
+                    10.0 * bh * pairs * d)
+        fwd_bound = bound(*fwd_work, kind)
+        bwd_bound = bound(*bwd_work, kind)
+        row = {"label": label, "dtype": dname, "shape": (b, t, tk, h, d),
+               "causal": causal, "offsets": (q_off, k_off),
+               "errors": errs, "lse_err": lse_err, "tol": tol, "ok": ok,
+               "per_step": per_step, "fwd_bound": fwd_bound,
+               "bwd_bound": bwd_bound}
+        if per_step:
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            gt = do.transpose(1, 2).contiguous()
+            lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal)
+            with torch.enable_grad():
+                lib_out = lib_fwd()
+            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                lib_out, (qt, kt, vt), gt, retain_graph=True)
+
+            def lib_both():
+                with torch.enable_grad():
+                    out = lib_fwd()
+                    torch.autograd.grad(out, (qt, kt, vt), gt)
+
+            row.update(fwd_ms=time_ms(fwd), fwd_plain_ms=time_ms(fwd_plain),
+                       fwd_library_ms=time_ms(lib_fwd), bwd_ms=time_ms(bwd),
+                       bwd_plain_ms=time_ms(bwd_plain),
+                       bwd_library_ms=time_ms(lib_bwd),
+                       library_fwd_bwd_ms=time_ms(lib_both))
+            del lib_out, qt, kt, vt, gt
+        rows.append(row)
+        err_txt = " ".join(f"{n} {e:.3g}/{rel:.3g}" for n, (e, rel) in
+                           errs.items())
+        log(f"flash: {dname:8s} {label:38s} (B,T,Tk,H,D)={row['shape']} "
+            f"max err/worst row-relative err {err_txt}; lse {lse_err:.3g} "
+            f"(row-relative limits K9 {tol['o']:g}, K10 {tol['dq']:g}; "
+            f"lse {LSE_ATOL:g}) {'ok' if ok else 'MISMATCH'}")
+        if per_step:
+            for name, (nbytes, ops) in (("K9", fwd_work), ("K10", bwd_work)):
+                log(f"flash: {name} bound: {nbytes / 1e6:.1f} MB in "
+                    f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms at 3.35 TB/s, "
+                    f"{ops / 1e9:.1f} GFLOP in "
+                    f"{ops / PEAK_OPS_S[kind] * 1e3:.4f} ms at the {kind} "
+                    "peak")
+            log(f"flash: K9 forward {row['fwd_ms']:.4f} ms (plain "
+                f"{row['fwd_plain_ms']:.4f}, sdpa {row['fwd_library_ms']:.4f}"
+                f", bound {fwd_bound[0]:.4f} {fwd_bound[1]}); K10 backward "
+                f"{row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, "
+                f"sdpa backward {row['bwd_library_ms']:.4f}, bound "
+                f"{bwd_bound[0]:.4f} {bwd_bound[1]}); sdpa forward+backward "
+                f"{row['library_fwd_bwd_ms']:.4f} ms")
+        del q, k, v, do, o, o_ref, grads, grads_ref
+        if fused:
+            del qkv
+    torch.cuda.empty_cache()
+    bad = [r["label"] + " " + r["dtype"] for r in rows if not r["ok"]]
+    if bad:
+        raise SmokeError(f"flash kernel check(s) out of tolerance: {bad}")
+    return rows
+
+
+def _lm_corpus(tmp: str) -> str:
+    """The repository's own prose, ``SURVEY.md`` then ``doc/*.md``, in
+    one file."""
+    path = os.path.join(tmp, "corpus.txt")
+    srcs = [os.path.join(REPO, "SURVEY.md")] + sorted(
+        os.path.join(REPO, "doc", f) for f in os.listdir(
+            os.path.join(REPO, "doc")) if f.endswith(".md"))
+    with open(path, "wb") as out:
+        for src in srcs:
+            with open(src, "rb") as f:
+                out.write(f.read())
+    return path
+
+
+def lm_train_phase(tmp: str):
+    """``task=train`` on the LM conf through ``LearnTask``: every step
+    must launch K9 and K10 once per block and nothing else; returns the
+    run's launch counts, its checkpoint directory and conf."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.models import transformer_lm_conf
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    corpus = _lm_corpus(tmp)
+    conf = os.path.join(tmp, "lm.conf")
+    with open(conf, "w") as f:
+        f.write(transformer_lm_conf(
+            seq_len=LM_T, dim=LM_DIM, nhead=LM_HEADS, nlayer=LM_LAYERS,
+            text_file=corpus, batch_size=LM_BATCH, num_round=LM_ROUNDS,
+            dev="gpu", compute_dtype="bfloat16"))
+    mdir = os.path.join(tmp, "lm_models")
+    argv = [conf, "task=train", "dev=gpu", f"model_dir={mdir}",
+            f"seed={SEED}", "print_step=0", "silent=1"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the main path: counts at 0 just before, read just after
+    _, tr, steps, losses, marks = _run_train_task(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    size = os.path.getsize(corpus)
+    windows = len(range(0, size - LM_T, LM_T))
+    per_round = -(-windows // LM_BATCH)
+    log(f"lm: corpus {size} bytes, {windows} windows of {LM_T + 1} bytes; "
+        f"{len(steps)} steps of {LM_BATCH} x {LM_T} tokens in {wall:.1f}s "
+        f"(CLI run, data set-up included); peak device memory "
+        f"{peak:.2f} GiB")
+    log(f"lm: launches {launches}")
+    log(f"lm: losses {[round(v, 4) for v in losses]}")
+    want = {k.name: 0 for k in KERNELS}
+    want.update(flash_fwd=LM_LAYERS, flash_bwd=LM_LAYERS)
+    if len(steps) != LM_ROUNDS * per_round:
+        raise SmokeError(f"LM task=train ran {len(steps)} steps, not "
+                         f"{LM_ROUNDS * per_round}")
+    for i, d in enumerate(steps):
+        if d != want:
+            raise SmokeError(f"LM training step {i} launched {d}, expected "
+                             f"{want}")
+    if not all(np.isfinite(losses)):
+        raise SmokeError(f"non-finite LM training loss: {losses}")
+    # the last full batch against the first (a round's last batch may be
+    # padded, and padded rows add nothing to the loss)
+    last_full = -2 if windows % LM_BATCH else -1
+    if not losses[last_full] < losses[0]:
+        raise SmokeError(f"the LM's loss did not fall: {losses}")
+    _round_rates(marks, LM_BATCH * LM_T, "token")
+    saved = sorted(f for f in os.listdir(mdir) if f.endswith(".model"))
+    want_files = [f"{r:04d}.model" for r in range(LM_ROUNDS + 1)]
+    if saved != want_files:
+        raise SmokeError(f"LM checkpoints {saved}, expected {want_files}")
+    return launches, mdir, conf, cfgmod.parse_file(conf) + [("dev", "gpu")]
+
+
+def lm_rate_phase(cfg, mdir: str):
+    """``RATE_STEPS`` LM steps on a device-resident batch after
+    ``RATE_WARMUP`` warm-up steps, ``eval_train = 0`` (the metric of
+    ``bench.py --lm``), CUDA events; the peak memory; one step under the
+    profiler, which must show 4 launches each of the forward, dQ and
+    dK/dV kernels."""
+    import torch
+
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(cfg + [("eval_train", "0")])
+    tr.load_model(os.path.join(mdir, f"{LM_ROUNDS:04d}.model"))
+    gen = torch.Generator(device=tr.device).manual_seed(SEED)
+    shape = (LM_BATCH, LM_T)
+    batch = DataBatch(
+        data=torch.randint(0, 256, shape, generator=gen,
+                           device=tr.device).float(),
+        label=torch.randint(0, 256, shape, generator=gen,
+                            device=tr.device).float())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RATE_WARMUP):
+        tr.update(batch)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(RATE_STEPS):
+        tr.update(batch)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / RATE_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"lm rate: b{LM_BATCH} T{LM_T} d{LM_DIM} L{LM_LAYERS} bf16 training "
+        f"step {ms:.2f} ms, {LM_BATCH * LM_T / ms * 1e3:.0f} tokens/s "
+        f"({RATE_STEPS} steps after {RATE_WARMUP} warm-up, CUDA events, "
+        f"device-resident batch, eval_train 0); peak device memory "
+        f"{peak:.2f} GiB")
+
+    def step():
+        tr.update(batch)
+        torch.cuda.synchronize()
+
+    prof = _profile(step, f"lm b{LM_BATCH} bf16", "step")
+    per_kernel = {n: sum(c for k, c in prof["counts"].items() if n in k)
+                  for n in ("flash_fwd_kernel", "flash_dq_kernel",
+                            "flash_dkv_kernel")}
+    log(f"lm rate: launches by kernel name in the profiled step "
+        f"{per_kernel}")
+    if any(c != LM_LAYERS for c in per_kernel.values()):
+        raise SmokeError(f"the profiled LM step ran {per_kernel}, expected "
+                         f"{LM_LAYERS} of each")
+    prof["step_ms"] = ms
+    return prof
+
+
+def _lm_update_of(cfg, ckpt: str, x, y, dev: str, dtype: str):
+    """One LM step from ``ckpt``: per tensor the update and the two Adam
+    moments after it, as f64 numpy."""
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(cfg + [("dev", dev), ("compute_dtype", dtype),
+                         ("batch_size", str(len(x))), ("eval_train", "0")])
+    tr.load_model(ckpt)
+    w0 = {(k, t): w.detach().cpu().double().numpy().copy()
+          for k, tags in tr.params.items() for t, w in tags.items()}
+    tr.update_all(x, y)
+    out = {}
+    for (k, t), w in w0.items():
+        st = tr.ustates[k][t]
+        out[(k, t)] = tuple(
+            a.detach().cpu().double().numpy() for a in
+            (tr.params[k][t], st["m1"], st["m2"]))
+        out[(k, t)] = (out[(k, t)][0] - w,) + out[(k, t)][1:]
+    return out, float(tr.last_loss)
+
+
+def lm_parity_phase(cfg, mdir: str):
+    """One float32 LM step on the card (TF32 off) against the CPU, and
+    one bfloat16 step against the float32 one, from the run's first
+    checkpoint, ``LM_PARITY_ROWS`` rows.  Compared per tensor: the Adam
+    moments (linear in the gradient), and the update over the elements
+    whose gradient is at least 1e-3 of the tensor's largest (Adam's first
+    step ``~ g / (0.032 |g| + 1e-8)`` turns a near-zero gradient's
+    rounding into a change of sign)."""
+    import numpy as np
+    import torch
+
+    ckpt = os.path.join(mdir, "0000.model")
+    rng = np.random.RandomState(SEED + 13)
+    x = rng.randint(0, 256, (LM_PARITY_ROWS, LM_T)).astype(np.float32)
+    y = rng.randint(0, 256, (LM_PARITY_ROWS, LM_T)).astype(np.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    card, loss_card = _lm_update_of(cfg, ckpt, x, y, "gpu", "float32")
+    cpu, loss_cpu = _lm_update_of(cfg, ckpt, x, y, "cpu", "float32")
+    bf16, loss_bf16 = _lm_update_of(cfg, ckpt, x, y, "gpu", "bfloat16")
+    log(f"lm parity: {LM_PARITY_ROWS}-row steps in "
+        f"{time.perf_counter() - t0:.1f}s; losses f32 card {loss_card:.6f}"
+        f" cpu {loss_cpu:.6f} bf16 card {loss_bf16:.6f}")
+
+    def rel(a, b, sel=None):
+        d = np.abs(a - b)
+        return float((d if sel is None else d[sel]).max() / np.abs(b).max())
+
+    def cos(a, b):
+        return float((a * b).sum() / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+    f32 = {}
+    b16 = {}
+    for kt, (d_cpu, m1_cpu, m2_cpu) in cpu.items():
+        d_card, m1_card, m2_card = card[kt]
+        d_b, m1_b, _ = bf16[kt]
+        sel = np.abs(m1_cpu) >= 1e-3 * np.abs(m1_cpu).max()
+        f32[kt] = max(rel(m1_card, m1_cpu), rel(m2_card, m2_cpu),
+                      rel(d_card, d_cpu, sel))
+        sel32 = np.abs(m1_card) >= 1e-3 * np.abs(m1_card).max()
+        b16[kt] = min(cos(m1_b, m1_card), cos(d_b[sel32], d_card[sel32]))
+    for name, vals, rev in (("f32 card vs CPU, worst relative error of "
+                             "m1, m2, resolved update", f32, True),
+                            ("bf16 vs f32 card, worst cosine of m1 and "
+                             "resolved update", b16, False)):
+        worst = sorted(vals.items(), key=lambda kv: kv[1], reverse=rev)[:5]
+        log(f"lm parity: {name}: median "
+            f"{statistics.median(vals.values()):.4g}; worst 5: "
+            + ", ".join(f"{'/'.join(kt)} {v:.4g}" for kt, v in worst))
+    bad = [kt for kt, v in f32.items() if not v <= LM_UPDATE_REL]
+    bad += [kt for kt, v in b16.items() if not v >= LM_UPDATE_COS]
+    if not statistics.median(f32.values()) <= LM_UPDATE_REL_MEDIAN:
+        bad.append(("median", "f32 card vs CPU"))
+    if not statistics.median(b16.values()) >= LM_UPDATE_COS_MEDIAN:
+        bad.append(("median", "bf16 vs f32 cosine"))
+    if abs(loss_card - loss_cpu) > 1e-4 * abs(loss_cpu):
+        bad.append(("loss", "f32 card vs CPU"))
+    if bad:
+        raise SmokeError(f"LM training parity out of tolerance: {bad[:8]}")
+
+
+def lm_generate_phase(conf: str, mdir: str, tmp: str):
+    """``task=generate`` from the trained checkpoint through
+    ``LearnTask``: the KV-cache path for ``GEN_CACHED`` bytes (no flash
+    launch: the decode attention is plain torch) and the windowed path
+    for ``GEN_WINDOWED`` bytes (``LM_LAYERS`` K9 launches a byte); then
+    the card's probability rows against the CPU's on the same tokens, in
+    float32 with TF32 off; returns the windowed run's launch counts."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.cli import LearnTask
+    from cxxnet_tpu_torch.nnet import generate as gen
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    last = os.path.join(mdir, f"{LM_ROUNDS:04d}.model")
+    cwd = os.getcwd()
+    runs = {}
+    os.chdir(tmp)
+    try:
+        for name, n, cache in (("cached", GEN_CACHED, 1),
+                               ("windowed", GEN_WINDOWED, 0)):
+            argv = [conf, "task=generate", f"model_in={last}", "dev=gpu",
+                    f"gen_prompt={GEN_PROMPT}", f"gen_len={n}",
+                    f"gen_cache={cache}", "silent=1"]
+            # each path: counts at 0 just before, read just after
+            for k in KERNELS:
+                k.launches = 0
+            t0 = time.perf_counter()
+            LearnTask().run(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in KERNELS}
+            with open("pred.txt", "rb") as f:
+                text = f.read()
+            runs[name] = launches
+            log(f"lm generate: {name} path, {n} bytes in {wall:.2f}s "
+                f"(CLI run, model load included): {text[:80]!r}")
+            log(f"lm generate: {name} launches {launches}")
+            want = {k.name: 0 for k in KERNELS}
+            if not cache:
+                want["flash_fwd"] = LM_LAYERS * n
+            if launches != want:
+                raise SmokeError(f"{name} generation launched {launches}, "
+                                 f"expected {want}")
+            if not text:
+                raise SmokeError(f"{name} generation wrote nothing")
+    finally:
+        os.chdir(cwd)
+
+    # tokens per second of each path, on a loaded trainer (host clock)
+    cfg = cfgmod.parse_file(conf)
+    tr = NetTrainer()
+    tr.set_params(cfg + [("dev", "gpu"), ("silent", "1")])
+    tr.load_model(last)
+    for name, n, cache in (("cached", GEN_CACHED, True),
+                           ("windowed", GEN_WINDOWED, False)):
+        gen.generate(tr, GEN_PROMPT, gen_len=4, cache=cache)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.generate(tr, GEN_PROMPT, gen_len=n, cache=cache)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"lm generate: {name} path {n / dt:.1f} bytes/s ({n} bytes, "
+            f"bf16, batch 1, host clock)")
+    # one step of each path under the profiler: busy share, device time
+    dec = gen._decode_twin(tr)
+    aux = dec.net.init_aux(1, dec.device)
+    prompt = list(GEN_PROMPT.encode())
+    for pos, tok in enumerate(prompt):
+        gen.decode_step(dec, aux, tok, pos)
+    _profile(lambda: gen.decode_step(dec, aux, ord(" "), len(prompt)),
+             "lm generate cached", "step")
+    _profile(lambda: gen.window_probs(tr, prompt), "lm generate windowed",
+             "step")
+
+    # the card's rows against the CPU's, float32, the same tokens
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens = list(GEN_PROMPT.encode()) + list(
+        gen.generate(tr, GEN_PROMPT, gen_len=GEN_PARITY).encode())
+    tokens = tokens[:len(GEN_PROMPT) + GEN_PARITY]
+    rows = {}
+    for dev in ("gpu", "cpu"):
+        t = NetTrainer()
+        t.set_params(cfg + [("dev", dev), ("compute_dtype", "float32"),
+                            ("silent", "1")])
+        t.load_model(last)
+        dec = gen._decode_twin(t)
+        aux = dec.net.init_aux(1, dec.device)
+        cached = np.stack([gen.decode_step(dec, aux, tok, pos)
+                           for pos, tok in enumerate(tokens)])
+        windowed = np.stack([gen.window_probs(t, tokens[:n])
+                             for n in (1, len(tokens))])
+        rows[dev] = (cached, windowed)
+    err_c = float(np.abs(rows["gpu"][0] - rows["cpu"][0]).max())
+    err_w = float(np.abs(rows["gpu"][1] - rows["cpu"][1]).max())
+    # the windowed rows at the same positions as the cached ones
+    err_cw = float(np.abs(rows["gpu"][1][-1] - rows["gpu"][0][-1]).max())
+    log(f"lm generate: f32 card vs CPU probability rows over "
+        f"{len(tokens)} tokens: cached path max abs {err_c:.3g}, windowed "
+        f"{err_w:.3g} (limit {GEN_PROB_ATOL:g}); card cached vs windowed "
+        f"at the last position {err_cw:.3g}")
+    if not max(err_c, err_w, err_cw) <= GEN_PROB_ATOL:
+        raise SmokeError("generation rows out of tolerance")
+    return runs["windowed"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1099,7 +1737,14 @@ def main() -> int:
             parity_phase(cfg, mdir)
             conf_rates_phase(cfg, mdir)
             rate_phase(cfg, mdir)
-        line = kernels_line(rows, serve_launches, train_launches)
+        flash_rows = check_flash(dev)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+            lm_launches, mdir, conf, cfg = lm_train_phase(tmp)
+            lm_rate_phase(cfg, mdir)
+            lm_parity_phase(cfg, mdir)
+            gen_launches = lm_generate_phase(conf, mdir, tmp)
+        line = kernels_line(rows, serve_launches, train_launches, flash_rows,
+                            lm_launches, gen_launches)
         log(card)
         log(json.dumps(line))
     except Exception:  # noqa: BLE001 - every failure ends the run

@@ -7,10 +7,13 @@ runs the JAX package's Pallas kernels as hand-written CUDA kernels
 (``csrc/``, built with ``nvcc`` at first use and loaded with ``ctypes``)
 beside plain PyTorch versions of the same functions for the CPU.
 
-It serves CNNs (``task=serve``, :class:`serve.Engine`) and trains them
+It serves CNNs (``task=serve``, :class:`serve.Engine`), trains them
 (``task=train``, :meth:`nnet.trainer.NetTrainer.update`, ``updater =
-sgd``); the other tasks are later slices (ROADMAP.md).  The package
-imports neither ``jax`` nor ``cxxnet_tpu``.
+sgd``), trains the byte-level transformer language model (``iter =
+text``, ``updater = adam``, flash attention) and samples from it
+(``task=generate``, :mod:`nnet.generate`); the other tasks are later
+slices (ROADMAP.md).  The package imports neither ``jax`` nor
+``cxxnet_tpu``.
 """
 
 __version__ = "0.1.0"

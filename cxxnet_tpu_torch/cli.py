@@ -1,8 +1,8 @@
 """Command-line entry point: ``python -m cxxnet_tpu_torch <conf> [name=val ...]``.
 
-Counterpart of ``cxxnet_tpu/cli.py`` for ``task=train`` and
-``task=serve``.  The conf (plus ``name=value`` overrides, applied after
-the file's entries) is parsed with the same grammar.
+Counterpart of ``cxxnet_tpu/cli.py`` for ``task=train``, ``task=serve``
+and ``task=generate``.  The conf (plus ``name=value`` overrides,
+applied after the file's entries) is parsed with the same grammar.
 
 ``task=train``: a fresh model (``model_in = NULL``, written as
 ``0000.model`` before the first round), the model of ``model_in``, or
@@ -24,6 +24,15 @@ printed on startup).  SIGTERM/SIGINT drain: the server stops accepting,
 in-flight requests get up to ``drain_timeout_s`` to finish, queued ones
 fail with 503, and the process exits 0.
 
+``task=generate``: samples ``gen_len`` bytes continuing ``gen_prompt``
+(or the bytes of ``gen_prompt_file``, read only by this task) from the
+byte-level language model of ``model_in`` (``nnet/generate.py``): the
+KV-cache decode with ``gen_cache = 1`` (the default) where prompt and
+output fit the training window, else the sliding window; ``gen_temp``
+(0: greedy), ``gen_topk`` and ``gen_topp`` shape the sampling.  The
+text goes to the ``pred`` section's file (default ``pred.txt``) and to
+stdout.
+
 The other tasks, the serving fleet (``replicas >= 2``), hot reload
 (``serve_reload_period``), the tuner (``controller``) and the elastic,
 integrity and telemetry planes of training are later slices
@@ -44,7 +53,6 @@ from . import config as cfgmod
 _LATER = {
     "finetune": "queue A item 5 (finetune / copy_model_from)",
     "export_quant": "queue A item 3 (quantized serving)",
-    "generate": "queue A item 4 (the LM path)",
 }
 # train keys of planes this slice does not port: refused when switched on
 _TRAIN_LATER = ("integrity_every", "integrity_shadow", "integrity_probe",
@@ -53,8 +61,8 @@ _TRAIN_LATER = ("integrity_every", "integrity_shadow", "integrity_probe",
 
 
 class LearnTask:
-    """The ``train`` and ``serve`` tasks of the JAX package's
-    ``LearnTask``."""
+    """The ``train``, ``serve`` and ``generate`` tasks of the JAX
+    package's ``LearnTask``."""
 
     def __init__(self) -> None:
         self.task = "train"
@@ -79,6 +87,13 @@ class LearnTask:
         self.serve_deadline_ms = 0.0
         self.drain_timeout_s = 5.0
         self.watchdog_timeout_s = 600.0
+        self.gen_prompt = ""
+        self.gen_prompt_file = ""
+        self.gen_len = 256
+        self.gen_temp = 0.0
+        self.gen_topk = 0
+        self.gen_topp = 0.0
+        self.gen_cache = 1
         self.cfg: List[tuple] = []
 
     def set_param(self, name: str, val: str) -> None:
@@ -136,6 +151,20 @@ class LearnTask:
             raise NotImplementedError(
                 "controller=1: the serving tuner is not ported yet "
                 "(ROADMAP.md queue A item 1, serving features)")
+        elif name == "gen_prompt":
+            self.gen_prompt = val
+        elif name == "gen_prompt_file":
+            self.gen_prompt_file = val  # read lazily in task_generate
+        elif name == "gen_len":
+            self.gen_len = int(val)
+        elif name == "gen_temp":
+            self.gen_temp = float(val)
+        elif name == "gen_topk":
+            self.gen_topk = int(val)
+        elif name == "gen_topp":
+            self.gen_topp = float(val)
+        elif name == "gen_cache":
+            self.gen_cache = int(val)
         elif name == "wire" and val not in ("binary", "json"):
             raise ValueError(f"wire must be binary or json, got {val!r}")
         self.cfg.append((name, val))
@@ -152,11 +181,14 @@ class LearnTask:
             self.task_serve()
         elif self.task == "train":
             self.task_train()
+        elif self.task == "generate":
+            self.task_generate()
         else:
             later = _LATER.get(self.task, "queue A item 5 (the other tasks)")
             raise NotImplementedError(
                 f"task={self.task} is not ported yet (ROADMAP.md {later}); "
-                "this package trains (task=train) and serves (task=serve)")
+                "this package trains (task=train), serves (task=serve) and "
+                "samples a language model (task=generate)")
         return 0
 
     # ------------------------------------------------------------------
@@ -319,6 +351,32 @@ class LearnTask:
         sys.stderr.write(text + "\n")
         sys.stderr.flush()
         return True
+
+    def task_generate(self) -> None:
+        """Load ``model_in`` and write the generated text to the ``pred``
+        section's file (``pred.txt`` without one) and to stdout."""
+        from .nnet.generate import generate
+
+        if self.name_model_in == "NULL":
+            raise ValueError("task=generate needs model_in (a trained "
+                             "language model's checkpoint)")
+        tr = self._create_trainer()
+        tr.load_model(self.name_model_in)
+        self.net_trainer = tr
+        prompt = self.gen_prompt
+        if self.gen_prompt_file:
+            with open(self.gen_prompt_file, "rb") as f:
+                prompt = f.read().decode("utf-8", "replace")
+        text = generate(tr, prompt, self.gen_len, self.gen_temp,
+                        cache=bool(self.gen_cache), topk=self.gen_topk,
+                        topp=self.gen_topp, silent=bool(self.silent))
+        preds = cfgmod.split_sections(self.cfg).find("pred")
+        name_pred = preds[-1].tag if preds else "pred.txt"
+        with open(name_pred, "w", encoding="utf-8") as fo:
+            fo.write(text)
+        if not self.silent:
+            print(f"generated {len(text.encode())} bytes -> {name_pred}")
+            print(text)
 
     def task_serve(self) -> None:
         """Run the online inference server until SIGTERM/SIGINT."""

@@ -1,4 +1,5 @@
 """Training data: ``DataBatch``, the iterator protocol, and the
-``synthetic`` and ``threadbuffer`` iterators (``create_iterator``)."""
+``synthetic``, ``text`` and ``threadbuffer`` iterators
+(``create_iterator``)."""
 
 from .data import DataBatch, DataIter, create_iterator  # noqa: F401

@@ -6,8 +6,8 @@ labels; ``num_batch_padd`` trailing rows of a batch are padding.  The
 ``iter = X`` chain is read in order: a base iterator at the bottom,
 ``threadbuffer`` wrapping the iterator below it, and the keys after an
 ``iter =`` line configure the current top of the chain, which forwards
-them down.  This slice builds ``synthetic`` and ``threadbuffer``; the
-other iterators raise ``NotImplementedError``.
+them down.  The port builds ``synthetic``, ``text`` and
+``threadbuffer``; the other iterators raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 
 ConfigEntry = Tuple[str, str]
 
-_LATER = ("mnist", "imgbin", "imgbinx", "img", "csv", "text", "libsvm",
+_LATER = ("mnist", "imgbin", "imgbinx", "img", "csv", "libsvm",
           "service", "membuffer", "attachtxt")
 
 
@@ -66,6 +66,7 @@ def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
     """Build an iterator chain from an ordered config section."""
     from .prefetch import ThreadBufferIterator
     from .synth import SyntheticIterator
+    from .text import TextIterator
 
     it: Optional[DataIter] = None
     for name, val in cfg:
@@ -75,6 +76,11 @@ def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
                     raise ValueError(
                         "synthetic cannot chain over another iterator")
                 it = SyntheticIterator()
+            elif val == "text":
+                if it is not None:
+                    raise ValueError(
+                        "text cannot chain over another iterator")
+                it = TextIterator()
             elif val == "threadbuffer":
                 if it is None:
                     raise ValueError("must specify input of threadbuffer")
@@ -84,7 +90,7 @@ def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
             elif val in _LATER:
                 raise NotImplementedError(
                     f"iter={val} is not ported yet (ROADMAP.md queue A "
-                    "item 5); this slice reads iter=synthetic")
+                    "item 5); the port reads iter=synthetic and iter=text")
             else:
                 raise ValueError(f"unknown iterator type {val!r}")
             continue

@@ -12,4 +12,5 @@ from .base import (  # noqa: F401
     create_layer,
     register,
 )
-from . import conv, elemwise, linear, loss, structure  # noqa: F401
+from . import (  # noqa: F401
+    conv, elemwise, embed, linear, loss, sequence, structure)

@@ -126,7 +126,10 @@ class Layer:
 
     def apply(self, params: Params, inputs: Sequence[torch.Tensor],
               train: bool = False,
-              gen: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+              gen: Optional[torch.Generator] = None,
+              step: Optional[int] = None) -> List[torch.Tensor]:
+        """``step``: the decode loop's absolute position, which only
+        position-aware layers read."""
         raise NotImplementedError
 
     def _check_arity(self, in_shapes: Sequence[Shape], n_in: int) -> None:

@@ -97,7 +97,7 @@ class ConvolutionLayer(Layer):
             out["bias"] = params["bias"].to(dtype)
         return out
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         p = self.param
         y = F.conv2d(inputs[0].permute(0, 3, 1, 2), params["w"],
                      params.get("bias"), stride=p.stride,
@@ -158,7 +158,7 @@ class _PoolBase(Layer):
 class MaxPoolingLayer(_PoolBase):
     type_name = "max_pooling"
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         return [self._max_pool(inputs[0])]
 
 
@@ -166,7 +166,7 @@ class MaxPoolingLayer(_PoolBase):
 class SumPoolingLayer(_PoolBase):
     type_name = "sum_pooling"
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         return [self._sum_pool(inputs[0])]
 
 
@@ -174,7 +174,7 @@ class SumPoolingLayer(_PoolBase):
 class AvgPoolingLayer(_PoolBase):
     type_name = "avg_pooling"
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         p = self.param
         # parity: divide by the full k*k even for truncated edge windows
         scale = 1.0 / (p.kernel_height * p.kernel_width)
@@ -185,7 +185,7 @@ class AvgPoolingLayer(_PoolBase):
 class ReluMaxPoolingLayer(_PoolBase):
     type_name = "relu_max_pooling"
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         return [self._max_pool(torch.relu(inputs[0]))]
 
 
@@ -224,6 +224,6 @@ class LRNLayer(Layer):
         self._check_arity(in_shapes, 1)
         return [tuple(in_shapes[0])]
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         return [ops_lrn.lrn(inputs[0], self.nsize, self.alpha, self.beta,
                             self.knorm)]

@@ -1,6 +1,8 @@
-"""Elementwise layers: relu, sigmoid, tanh, dropout.
+"""Elementwise layers: relu, sigmoid, tanh, gelu, dropout.
 
-Counterpart of ``cxxnet_tpu/layers/elemwise.py``.  Dropout is inverted
+Counterpart of ``cxxnet_tpu/layers/elemwise.py``.  ``gelu`` is the tanh
+approximation, which is what ``jax.nn.gelu`` computes by default.
+Dropout is inverted
 dropout: in training it keeps each value with probability
 ``pkeep = 1 - threshold`` and scales the kept ones by ``1 / pkeep``; at
 predict time, or with ``threshold = 0``, it is the identity.
@@ -11,6 +13,7 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from .base import Layer, Shape, register
 
@@ -27,7 +30,7 @@ class _UnaryLayer(Layer):
 class SigmoidLayer(_UnaryLayer):
     type_name = "sigmoid"
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         return [torch.sigmoid(inputs[0])]
 
 
@@ -35,7 +38,7 @@ class SigmoidLayer(_UnaryLayer):
 class TanhLayer(_UnaryLayer):
     type_name = "tanh"
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         return [torch.tanh(inputs[0])]
 
 
@@ -43,8 +46,16 @@ class TanhLayer(_UnaryLayer):
 class ReluLayer(_UnaryLayer):
     type_name = "relu"
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         return [torch.relu(inputs[0])]
+
+
+@register
+class GeluLayer(_UnaryLayer):
+    type_name = "gelu"
+
+    def apply(self, params, inputs, train=False, gen=None, step=None):
+        return [F.gelu(inputs[0], approximate="tanh")]
 
 
 @register
@@ -63,7 +74,7 @@ class DropoutLayer(_UnaryLayer):
         else:
             super().set_param(name, val)
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         x = inputs[0]
         if not train or self.threshold <= 0.0 or gen is None:
             return [x]

@@ -43,7 +43,7 @@ class FullConnectLayer(Layer):
             out["bias"] = torch.full((nout,), p.init_bias)
         return out
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         return [F.linear(inputs[0], params["wmat"], params.get("bias"))]
 
 
@@ -59,6 +59,6 @@ class FlattenLayer(Layer):
             n *= d
         return [(shape[0], n)]
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         x = inputs[0]
         return [x.reshape(x.shape[0], -1)]

@@ -1,0 +1,226 @@
+"""Sequence layers: multi-head attention, layer norm, sequence pooling.
+
+Counterpart of ``cxxnet_tpu/layers/sequence.py``.  Sequence nodes are
+``(N, T, D)``.  ``attention`` config keys:
+
+* ``nhead`` — number of heads (D % nhead == 0)
+* ``causal`` — 1 for autoregressive masking
+* ``attn_impl = auto|pallas|xla`` — parsed and validated.  On a card
+  every full-sequence attention runs the flash kernels (K9 forward, K10
+  backward, ``ops/flash.py``), whatever the value and whatever T: the
+  kernels mask their own ragged edges, so the JAX package's rule of
+  sending short or odd T to the dense ``mha`` has no reason here.  On
+  the CPU ``pallas`` takes the flash kernels' plain versions and
+  ``auto`` / ``xla`` the dense ``mha``, as the JAX package does off a
+  TPU.
+* ``seq_parallel`` — ring and all-to-all attention over a device mesh
+  are ROADMAP.md item A6; any value other than 0 raises.
+* ``decode = 1`` with ``decode_window = W`` — KV-cache incremental
+  decoding for generation: ``init_aux`` gives f32 key and value caches
+  of W positions, and ``apply_stateful`` writes this call's keys and
+  values at ``step`` and attends against the cache under the causal
+  rule, in plain torch (the JAX package computes it outside any kernel
+  too).  The caches are updated IN PLACE and returned (the JAX package
+  returns new arrays).
+
+Parameters use the framework's ``(nout, nin)`` layout: a fused ``wmat``
+``(3D, D)`` and ``bias`` for q, k and v, then ``wproj`` ``(D, D)`` and
+``bproj``.  ``layer_norm`` computes its statistics in f32 and keeps its
+parameters in f32 under a bf16 compute dtype.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import NEG_INF, mha
+from ..ops.flash import flash_mha
+from .base import Layer, Params, Shape, register
+
+
+def _layer_norm(x, w, b, eps: float):
+    """Layer-norm math: statistics in f32 under mixed precision."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
+@register
+class AttentionLayer(Layer):
+    type_name = "attention"
+
+    _SP_MODES = {"0": 0, "1": 1, "2": 2, "off": 0, "ring": 1,
+                 "alltoall": 2, "a2a": 2}
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.nhead = 1
+        self.causal = 0
+        self.attn_impl = "auto"
+        self.decode = 0
+        self.decode_window = 0
+
+    def set_param(self, name, val):
+        if name == "nhead":
+            self.nhead = int(val)
+        elif name == "causal":
+            self.causal = int(val)
+        elif name == "attn_impl":
+            if val not in ("auto", "pallas", "xla"):
+                raise ValueError(
+                    f"attn_impl must be auto|pallas|xla, got {val!r}")
+            self.attn_impl = val
+        elif name == "seq_parallel":
+            if val not in self._SP_MODES:
+                raise ValueError(
+                    f"seq_parallel must be one of {sorted(self._SP_MODES)},"
+                    f" got {val!r}")
+            if self._SP_MODES[val]:
+                raise NotImplementedError(
+                    f"seq_parallel={val}: ring and all-to-all attention "
+                    "over a device mesh are not ported yet (ROADMAP.md "
+                    "item A6)")
+        elif name == "decode":
+            self.decode = int(val)
+        elif name == "decode_window":
+            self.decode_window = int(val)
+        else:
+            super().set_param(name, val)
+
+    def infer_shape(self, in_shapes: Sequence[Shape]) -> List[Shape]:
+        self._check_arity(in_shapes, 1)
+        (shape,) = in_shapes
+        if len(shape) != 3:
+            raise ValueError(
+                "attention: input must be a sequence node (N, T, D); set "
+                "input_layout = seq")
+        d = shape[2]
+        if self.nhead <= 0 or d % self.nhead != 0:
+            raise ValueError(
+                f"attention: nhead={self.nhead} must divide model dim {d}")
+        return [tuple(shape)]
+
+    def init_params(self, gen, in_shapes) -> Params:
+        d = in_shapes[0][2]
+        sigma = self.param.init_sigma
+        return {
+            "wmat": sigma * torch.randn((3 * d, d), generator=gen),
+            "bias": torch.zeros(3 * d),
+            "wproj": sigma * torch.randn((d, d), generator=gen),
+            "bproj": torch.zeros(d),
+        }
+
+    def _qkv(self, params, x):
+        n, t, d = x.shape
+        h = self.nhead
+        qkv = F.linear(x, params["wmat"], params["bias"])
+        qkv = qkv.reshape(n, t, 3, h, d // h)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    def attend(self, q, k, v):
+        """Full-sequence attention ``(q, k, v) -> o`` on ``(B, T, H, Dh)``:
+        the flash kernels on a card; on the CPU their plain versions
+        under ``attn_impl = pallas``, else the dense ``mha``."""
+        causal = bool(self.causal)
+        if q.is_cuda or self.attn_impl == "pallas":
+            return flash_mha(q, k, v, causal)
+        return mha(q, k, v, causal)
+
+    def apply(self, params, inputs, train=False, gen=None, step=None):
+        x = inputs[0]
+        n, t, d = x.shape
+        o = self.attend(*self._qkv(params, x)).reshape(n, t, d)
+        return [F.linear(o, params["wproj"], params["bproj"])]
+
+    def init_aux(self, in_shapes, device=None):
+        """KV cache state for ``decode = 1``."""
+        if not self.decode:
+            return {}
+        if not self.causal:
+            raise ValueError(
+                "attention: decode=1 requires causal=1 — incremental "
+                "decoding cannot reproduce bidirectional attention")
+        if self.decode_window <= 0:
+            raise ValueError(
+                "attention: decode=1 needs decode_window (max positions "
+                "the cache holds — the training T)")
+        n, _, d = in_shapes[0]
+        h = self.nhead
+        shape = (n, self.decode_window, h, d // h)
+        return {"kcache": torch.zeros(shape, device=device),
+                "vcache": torch.zeros(shape, device=device)}
+
+    def apply_stateful(self, params, aux, inputs, train=False, gen=None,
+                       step=None):
+        """Write this call's k/v into the caches at ``step..step+t-1``
+        and attend q against everything up to its own position."""
+        x = inputs[0]
+        n, t, d = x.shape
+        dh = d // self.nhead
+        q, k, v = self._qkv(params, x)
+        kc, vc = aux["kcache"], aux["vcache"]
+        w = kc.shape[1]
+        start = min(max(int(step or 0), 0), w - t)
+        kc[:, start:start + t] = k.float()
+        vc[:, start:start + t] = v.float()
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kc) * (1.0 / dh ** 0.5)
+        q_pos = start + torch.arange(t, device=x.device)[:, None]
+        k_pos = torch.arange(w, device=x.device)[None, :]
+        s = torch.where(k_pos <= q_pos, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, vc).to(x.dtype)
+        out = F.linear(o.reshape(n, t, d), params["wproj"], params["bproj"])
+        return [out], aux
+
+
+@register
+class LayerNormLayer(Layer):
+    type_name = "layer_norm"
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.eps = 1e-6
+
+    def set_param(self, name, val):
+        if name == "eps":
+            self.eps = float(val)
+        else:
+            super().set_param(name, val)
+
+    def infer_shape(self, in_shapes: Sequence[Shape]) -> List[Shape]:
+        self._check_arity(in_shapes, 1)
+        return [tuple(in_shapes[0])]
+
+    def init_params(self, gen, in_shapes) -> Params:
+        d = in_shapes[0][-1]
+        return {"wmat": torch.ones(d), "bias": torch.zeros(d)}
+
+    def prepare(self, params, dtype):
+        """Norm parameters stay f32 under any compute dtype."""
+        return dict(params)
+
+    def apply(self, params, inputs, train=False, gen=None, step=None):
+        return [_layer_norm(inputs[0], params["wmat"], params["bias"],
+                            self.eps)]
+
+
+@register
+class SeqPoolLayer(Layer):
+    """Mean-pool the time axis: (N, T, D) -> (N, D) classification head."""
+
+    type_name = "seq_pool"
+
+    def infer_shape(self, in_shapes: Sequence[Shape]) -> List[Shape]:
+        self._check_arity(in_shapes, 1)
+        (shape,) = in_shapes
+        if len(shape) != 3:
+            raise ValueError("seq_pool: input must be a sequence node")
+        return [(shape[0], shape[2])]
+
+    def apply(self, params, inputs, train=False, gen=None, step=None):
+        return [inputs[0].mean(dim=1)]

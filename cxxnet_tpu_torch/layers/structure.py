@@ -26,7 +26,7 @@ class SplitLayer(Layer):
         self._check_arity(in_shapes, 1)
         return [tuple(in_shapes[0]) for _ in range(self.n_split)]
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         return [inputs[0] for _ in range(self.n_split)]
 
 
@@ -52,7 +52,7 @@ class _ConcatBase(Layer):
         base[ax] = total
         return [tuple(base)]
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         return [torch.cat(list(inputs), dim=self._axis(inputs[0].shape))]
 
 
@@ -94,7 +94,7 @@ class ElemwiseSumLayer(Layer):
                     f"eltwise_sum: shape mismatch {tuple(s)} vs {first}")
         return [first]
 
-    def apply(self, params, inputs, train=False, gen=None):
+    def apply(self, params, inputs, train=False, gen=None, step=None):
         out = inputs[0]
         for x in inputs[1:]:
             out = out + x

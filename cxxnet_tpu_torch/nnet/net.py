@@ -20,7 +20,17 @@ forward:
   kernel (``ops/kernels/conv_block.py``), in training too: the group's
   ``(C, O)`` kernel is a ``torch.cat`` of the masters at each step;
 * dropout draws, in layer order, from the one ``torch.Generator`` the
-  trainer hands the step.
+  trainer hands the step;
+* the input node keeps the f32 ids when a consumer of it declares
+  ``integer_input`` (the embedding), whatever the compute dtype;
+* layer state (``init_aux``: the attention KV caches under
+  ``decode = 1``) is threaded through ``forward(..., aux=, step=)``:
+  a layer with ``apply_stateful`` whose key is in ``aux`` reads its
+  state there and the new state replaces it in the dict (a shared
+  stateful layer's later occurrence reads what the earlier one wrote);
+  ``step`` is the decode loop's absolute position.  No layer moves past
+  another here (the sibling-1x1 groups hold convs only), so the
+  stateful-layer order is the declaration order.
 
 Branch-embed fusion (``conv_branch_embed``) and ``remat`` belong to
 later slices (ROADMAP.md).
@@ -153,6 +163,28 @@ class FunctionalNet:
         self.node_shapes = shapes
         return shapes  # type: ignore[return-value]
 
+    def init_aux(self, batch_size: int, device=None) -> Dict[str, dict]:
+        """Non-gradient layer state on ``device`` (the KV caches of
+        ``decode = 1`` attention); empty when no layer carries any."""
+        shapes = self.infer_shapes(batch_size)
+        aux: Dict[str, dict] = {}
+        for i, spec in enumerate(self.graph.layers):
+            lay = self.layer_objs[i]
+            if spec.type_name == "shared" or not hasattr(lay, "init_aux"):
+                continue
+            st = lay.init_aux([shapes[n] for n in spec.nindex_in], device)
+            if st:
+                aux[self.param_key[i]] = st
+        return aux
+
+    def _node0_wants_ints(self) -> bool:
+        """True when any consumer of the data node declares
+        ``integer_input`` (keyed to the graph, not to declaration
+        order): the ids then stay f32 for every consumer."""
+        return any(0 in spec.nindex_in
+                   and getattr(self.layer_objs[i], "integer_input", False)
+                   for i, spec in enumerate(self.graph.layers))
+
     def init_params(self, gen: torch.Generator,
                     batch_size: int) -> Dict[str, dict]:
         """Fresh f32 master params on the CPU, drawn from ``gen`` layer by
@@ -256,11 +288,14 @@ class FunctionalNet:
                 }
         return {"layers": layers, "groups": groups}
 
-    def forward(self, prepared: Dict[str, object],
-                data: torch.Tensor) -> List[Optional[torch.Tensor]]:
+    def forward(self, prepared: Dict[str, object], data: torch.Tensor,
+                aux: Optional[Dict[str, dict]] = None,
+                step: Optional[int] = None) -> List[Optional[torch.Tensor]]:
         """The predict forward of ``data`` (the input node's tensor, on
-        the params' device); returns every node's value."""
-        return self._run(prepared, data)[0]
+        the params' device); returns every node's value.  ``aux`` (from
+        ``init_aux``) is updated in place; ``step`` is the absolute
+        position of the first token under ``decode = 1``."""
+        return self._run(prepared, data, aux=aux, step=step)[0]
 
     def forward_train(self, params: Dict[str, dict], data: torch.Tensor,
                       labels: torch.Tensor, mask: Optional[torch.Tensor],
@@ -283,13 +318,13 @@ class FunctionalNet:
         return labels[:, a:b]
 
     def _run(self, prepared, data, labels=None, mask=None, train=False,
-             gen=None):
+             gen=None, aux=None, step=None):
         g = self.graph
         cdt = self.compute_dtype
         layers, groups = prepared["layers"], prepared["groups"]
         out_idx = self.out_node_index()
         nodes: List[Optional[torch.Tensor]] = [None] * g.num_nodes
-        nodes[0] = data.to(cdt)
+        nodes[0] = data if self._node0_wants_ints() else data.to(cdt)
         loss = torch.zeros((), dtype=torch.float32, device=data.device)
         batch = self.batch_size if self.batch_size > 0 else data.shape[0]
         fuse_groups, fuse_member = (
@@ -323,8 +358,15 @@ class FunctionalNet:
                     out = out.to(cdt)
                 nodes[spec.nindex_out[0]] = out
                 continue
-            outs = lay.apply(layers.get(self.param_key[i], {}), inputs,
-                             train=train, gen=gen)
+            key = self.param_key[i]
+            lparams = layers.get(key, {})
+            if aux is not None and key in aux and hasattr(lay,
+                                                          "apply_stateful"):
+                outs, aux[key] = lay.apply_stateful(
+                    lparams, aux[key], inputs, train=train, gen=gen, step=step)
+            else:
+                outs = lay.apply(lparams, inputs, train=train, gen=gen,
+                                 step=step)
             for n, v in zip(spec.nindex_out, outs):
                 nodes[n] = v
         return nodes, loss

@@ -3,9 +3,10 @@
 Counterpart of ``cxxnet_tpu/nnet/trainer.py``: ``set_params``,
 ``init_model``, ``checkpoint_bytes`` / ``save_model``,
 ``_read_model_file`` / ``load_model``, ``predict_fn``,
-``predict_from_scores``, ``resolve_feature_node``, ``net_fp``, and the
-single-device training subset: ``update`` (one step: forward,
-backward, then the fused SGD kernel on every tensor), ``update_all``,
+``predict_from_scores``, ``resolve_feature_node``, ``extract_feature``,
+``net_fp``, and the single-device training subset: ``update`` (one
+step: forward, backward, then the updater — the fused SGD kernel, or
+Adam — on every tensor), ``update_all``,
 ``start_round`` and ``evaluate`` with the train and eval metrics.  The
 checkpoint container is the JAX package's, so a model written by one
 package loads into the other.
@@ -356,6 +357,12 @@ class NetTrainer:
         if out2d.shape[1] == 1:
             return out2d[:, 0]
         return out2d.argmax(axis=1).astype(np.float32)
+
+    def extract_feature(self, batch: DataBatch, node_name: str) -> np.ndarray:
+        """The eval-forward value of node ``node_name`` (``top[-k]`` or a
+        node name) for ``batch.data``, as f32 numpy."""
+        f = self._forward_fn(self.resolve_feature_node(node_name))
+        return f(self.params, self.aux, batch.data).cpu().numpy()
 
     def predict(self, data: np.ndarray) -> np.ndarray:
         """Per-instance prediction for a numpy batch."""

@@ -8,7 +8,8 @@ functions that launch on a caller-given stream and return
          -Xcompiler -fPIC -Xptxas=-v
 
 into ``build/kernels/<name>-<hash>.so`` at the repository root (listed
-in ``.gitignore``), keyed by a hash of the source and the flags, and
+in ``.gitignore``), keyed by a hash of the source, the ``csrc/`` headers
+it includes and the flags, and
 loaded with ``ctypes``.  A file with a plain C interface builds in
 seconds; one that includes PyTorch's headers takes minutes, which is
 why the port does not use ``torch.utils.cpp_extension``.
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,6 +33,7 @@ from typing import Dict, List, Optional, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+_LOCAL_INCLUDE = re.compile(rb'#include\s+"([^"]+)"')
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -77,8 +80,14 @@ class Kernel:
         self._lock = threading.Lock()
 
     def library_path(self) -> str:
+        """The library's path, keyed by the source, the local headers it
+        includes (``#include "x.cuh"`` from ``csrc/``) and the flags."""
         with open(self.source, "rb") as f:
-            h = hashlib.sha256(f.read())
+            src = f.read()
+        h = hashlib.sha256(src)
+        for name in _LOCAL_INCLUDE.findall(src):
+            with open(os.path.join(CSRC, name.decode()), "rb") as f:
+                h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR, f"{self.name}-{h.hexdigest()[:12]}.so")
 

@@ -3,23 +3,34 @@
 The port's counterpart of ``cxxnet_tpu/updater/__init__.py``.  Each
 updater is ``init_state(w) -> state`` plus ``apply(w, grad, state,
 epoch)``, which updates ``w`` and ``state`` IN PLACE (the JAX package
-returns new arrays).  This slice ports ``sgd``:
+returns new arrays).  Ported:
 
-    m = mom * m - lr * (clip(g) + wd * w);   w += m
+* ``sgd``: ``m = mom * m - lr * (clip(g) + wd * w);   w += m``, where
+  ``clip`` also zeroes NaNs and applies only when ``clip_gradient != 0``
+  (the reference's built-in NaN guard, ``update_step.nan_clip``).  The
+  step is the fused kernel of ``ops/kernels/update_step.py`` (K8) on a
+  card, its plain version on the CPU.
+* ``adam``, in plain torch ops (the JAX package has no Pallas kernel for
+  it), with the reference's quirks: ``beta1`` and ``beta2`` are the
+  DECAY rates (defaults 0.1 and 0.001), weight decay is SUBTRACTED from
+  the gradient, ``lr_t = base_lr * sqrt(fix2) / fix1`` with ``fix_i = 1
+  - (1 - decay_i) ** (epoch + 1)`` (no lr schedule), and ``eps = 1e-8``
+  outside the square root:
 
-where ``clip`` also zeroes NaNs and applies only when
-``clip_gradient != 0`` (the reference's built-in NaN guard,
-``update_step.nan_clip``).  The step
-itself is the fused kernel of ``ops/kernels/update_step.py`` (K8) on a
-card, its plain version on the CPU.  The other updaters of the JAX
-package (nag, adam, rmsprop, adagrad, lars, lamb) raise
-``NotImplementedError``.
+      m1 += decay1 * (g - m1);  m2 += decay2 * (g*g - m2)
+      w  -= lr_t * m1 / (sqrt(m2) + 1e-8)
+
+  The host scalars are evaluated in ``np.float32``.
+
+The other updaters of the JAX package (nag, rmsprop, adagrad, lars,
+lamb) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..ops.kernels import update_step
@@ -60,15 +71,51 @@ class SGDUpdater(Updater):
             float(p.momentum_at(epoch)), wd=p.wd, clip=p.clip_gradient)
 
 
-_NOT_PORTED = ("nag", "adam", "rmsprop", "adagrad", "lars", "lamb")
+class AdamUpdater(Updater):
+    type_name = "adam"
+
+    def __init__(self, tag: str) -> None:
+        super().__init__(tag)
+        self.decay1 = 0.1
+        self.decay2 = 0.001
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "beta1":
+            self.decay1 = float(val)
+        elif name == "beta2":
+            self.decay2 = float(val)
+        else:
+            super().set_param(name, val)
+
+    def init_state(self, w):
+        return {"m1": torch.zeros_like(w), "m2": torch.zeros_like(w)}
+
+    def apply(self, w, g, state, epoch):
+        p = self.param
+        f32 = np.float32
+        t1 = f32(epoch) + f32(1.0)
+        fix1 = f32(1.0) - np.power(f32(1.0 - self.decay1), t1)
+        fix2 = f32(1.0) - np.power(f32(1.0 - self.decay2), t1)
+        lr_t = float(f32(p.base_lr) * np.sqrt(fix2) / fix1)
+        m1, m2 = state["m1"], state["m2"]
+        with torch.no_grad():
+            if p.wd > 0.0:
+                g = g - p.wd * w
+            m1.add_(self.decay1 * (g - m1))
+            m2.add_(self.decay2 * (g * g - m2))
+            w.sub_(lr_t * (m1 / (torch.sqrt(m2) + 1e-8)))
+
+
+_UPDATERS = {"sgd": SGDUpdater, "adam": AdamUpdater}
+_NOT_PORTED = ("nag", "rmsprop", "adagrad", "lars", "lamb")
 
 
 def create_updater(type_name: str, tag: str) -> Updater:
-    """Factory (``updater = sgd`` in the conf)."""
-    if type_name == "sgd":
-        return SGDUpdater(tag)
+    """Factory (``updater = sgd`` or ``adam`` in the conf)."""
+    if type_name in _UPDATERS:
+        return _UPDATERS[type_name](tag)
     if type_name in _NOT_PORTED:
         raise NotImplementedError(
             f"updater={type_name} is not ported yet (ROADMAP.md queue A "
-            "item 5); this slice trains with updater=sgd")
+            "item 5); the port trains with updater=sgd or adam")
     raise ValueError(f"unknown updater type: {type_name!r}")

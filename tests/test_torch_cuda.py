@@ -1,7 +1,12 @@
 """Each CUDA kernel of the port against its plain PyTorch version: the
 forwards of max pool, LRN and the conv block; the two max-pool
 backwards and the SGD step bit for bit (ties, partial windows, NaNs);
-the LRN backward to 1e-5 in float32 and 1e-2 in bfloat16.
+the LRN backward to 1e-5 in float32 and 1e-2 in bfloat16; the flash
+attention forward (K9) within 1e-5 (float32) and 1e-2 (bfloat16) and
+the backward (K10) within 1e-6 and 8e-3 of each row's largest plain
+magnitude, over ragged and cross lengths, offsets with fully masked
+rows, head dims 16, 32 and 64, and strided q/k/v slices of a fused qkv
+tensor.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -13,7 +18,7 @@ card and no JAX it runs alone, without the suite's ``conftest.py``:
 import pytest
 import torch
 
-from cxxnet_tpu_torch.ops import lrn, maxpool
+from cxxnet_tpu_torch.ops import flash, lrn, maxpool
 from cxxnet_tpu_torch.ops.kernels import conv_block, update_step
 
 # (h, w, k, s, p) as in test_torch_ops.py: strides 1 and 2, pads 0 and 1,
@@ -186,3 +191,106 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         update_step.sgd_update(wb, wb, wb, 0.1, 0.9)
     with pytest.raises(ValueError, match="same-size"):
         maxpool.maxpool_bwd_s1(x, x, x, 3, 0)
+
+
+# (B, T, Tk, H, D, causal, q_off, k_off): ragged T, cross lengths, rows
+# that see no key (k_off > q_off), every head dim the kernels take
+FLASH_CASES = [
+    (2, 64, 64, 2, 16, True, 0, 0),
+    (2, 100, 100, 3, 64, True, 0, 0),
+    (2, 100, 100, 3, 64, False, 0, 0),
+    (1, 130, 70, 2, 32, False, 0, 0),
+    (1, 70, 130, 2, 32, True, 0, 0),
+    (2, 96, 96, 2, 64, True, 0, 50),
+    (2, 96, 96, 2, 64, True, 30, 0),
+]
+# each row's largest error over that row's largest plain magnitude, per
+# kernel and dtype, as chip_smoke.py holds them (reasons there)
+FLASH_TOL = {("fwd", torch.float32): 1e-5, ("fwd", torch.bfloat16): 1e-2,
+             ("bwd", torch.float32): 1e-6, ("bwd", torch.bfloat16): 8e-3}
+LSE_ATOL = 1e-5
+
+
+def _close(got, ref, tol, what):
+    """Row by row (a row is one vector of D): a late causal row is far
+    smaller than row 0, so the tensor's largest magnitude is no scale
+    for it."""
+    err = (got.float() - ref.float()).abs().amax(-1)
+    rel = float((err / ref.float().abs().amax(-1).clamp_min(1e-30)).max())
+    assert rel <= tol, f"{what}: worst row-relative error {rel:.3g}"
+
+
+def _flash_inputs(device, dtype, b, t, tk, h, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, n, h, d, generator=gen).to(device, dtype)
+            for n in (t, tk, tk, t)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_matches_plain(cuda_device, dtype, case):
+    b, t, tk, h, d, causal, q_off, k_off = case
+    q, k, v, do = _flash_inputs(cuda_device, dtype, b, t, tk, h, d, t + tk)
+    n0, n1 = flash.FWD_KERNEL.launches, flash.BWD_KERNEL.launches
+    o, lse = flash.flash_fwd(q, k, v, causal, q_off, k_off)
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, causal, q_off, k_off)
+    _close(o, o_ref, FLASH_TOL[("fwd", dtype)], "o")
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=LSE_ATOL)
+    dl = (do.float() * o_ref.float()).sum(-1).permute(0, 2, 1).contiguous()
+    got = flash.flash_bwd(q, k, v, do, lse_ref, dl, causal, q_off, k_off)
+    ref = flash.flash_bwd_plain(q, k, v, do, lse_ref, dl, causal, q_off,
+                                k_off)
+    torch.cuda.synchronize()
+    assert (flash.FWD_KERNEL.launches, flash.BWD_KERNEL.launches) == (
+        n0 + 1, n1 + 1)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype
+        _close(a, r, FLASH_TOL[("bwd", dtype)], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_autograd_reads_fused_qkv_slices(cuda_device, dtype):
+    """The attention layer's layout: q, k, v are strided slices of one
+    (B, T, 3, H, D) tensor; the LSE takes a cotangent of its own."""
+    gen = torch.Generator().manual_seed(3)
+    qkv = torch.randn(2, 80, 3, 2, 64, generator=gen).to(cuda_device, dtype)
+    g = torch.randn(2, 80, 2, 64, generator=gen).to(cuda_device, dtype)
+    g_lse = torch.randn(2, 80, 2, generator=gen).to(cuda_device)
+    x = qkv.clone().requires_grad_(True)
+    n0, n1 = flash.FWD_KERNEL.launches, flash.BWD_KERNEL.launches
+    o, lse = flash.flash_mha_lse(x[:, :, 0], x[:, :, 1], x[:, :, 2], 0, 0,
+                                 True)
+    torch.autograd.backward([o, lse], [g, g_lse])
+    torch.cuda.synchronize()
+    assert (flash.FWD_KERNEL.launches, flash.BWD_KERNEL.launches) == (
+        n0 + 1, n1 + 1)
+    # the plain versions on the same slices; the backward from the values
+    # the Function hands K10: the kernel's o and lse, dl = delta - dlse
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, True)
+    _close(o, o_ref, FLASH_TOL[("fwd", dtype)], "o")
+    torch.testing.assert_close(lse.detach(), lse_ref.permute(0, 2, 1),
+                               rtol=0, atol=LSE_ATOL)
+    lse_k = lse.detach().permute(0, 2, 1).contiguous()
+    dl = ((g.float() * o.detach().float()).sum(-1).permute(0, 2, 1)
+          - g_lse.float().permute(0, 2, 1)).contiguous()
+    ref = torch.stack(flash.flash_bwd_plain(q, k, v, g, lse_k, dl, True), 2)
+    _close(x.grad, ref, FLASH_TOL[("bwd", dtype)], "dqkv")
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_what_the_kernels_do_not_take(cuda_device):
+    x = torch.randn(1, 8, 1, 24, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        flash.flash_fwd(x, x, x)
+    y = torch.randn(1, 8, 1, 16, device=cuda_device)
+    with pytest.raises(TypeError):
+        flash.flash_fwd(y, y.bfloat16(), y)
+    # a layout the kernels cannot read in place is refused, not copied
+    with pytest.raises(ValueError, match="strides"):
+        flash.flash_fwd(y.transpose(1, 3).contiguous().transpose(1, 3), y, y)
+    with pytest.raises(ValueError, match="strides"):
+        z = torch.randn(1, 8, 1, 17, device=cuda_device)[..., 1:]
+        flash.flash_fwd(z, y, y)

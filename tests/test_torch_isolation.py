@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no ``cxxnet_tpu``, no silent CPU.
 
-* ``import cxxnet_tpu_torch`` (and its serving package) leaves ``jax``
+* ``import cxxnet_tpu_torch`` (with its serving package, its CLI and
+  the language-model modules) leaves ``jax``
   and ``cxxnet_tpu`` out of ``sys.modules``.  Checked in a subprocess,
   because this test process imports jax in ``conftest.py``.
 * No file of the port, nor ``chip_smoke.py``, imports either by name.
@@ -38,7 +39,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = (
         "import sys, json\n"
         "import cxxnet_tpu_torch, cxxnet_tpu_torch.serve, "
-        "cxxnet_tpu_torch.cli\n"
+        "cxxnet_tpu_torch.cli, cxxnet_tpu_torch.models, "
+        "cxxnet_tpu_torch.nnet.generate, cxxnet_tpu_torch.io.text, "
+        "cxxnet_tpu_torch.layers.sequence, cxxnet_tpu_torch.ops.flash\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
         f" in {FORBIDDEN!r})))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -69,6 +72,12 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                       recursive=True)
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 20
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {"cxxnet_tpu_torch/ops/flash.py", "cxxnet_tpu_torch/ops/attention.py",
+            "cxxnet_tpu_torch/layers/sequence.py",
+            "cxxnet_tpu_torch/layers/embed.py", "cxxnet_tpu_torch/io/text.py",
+            "cxxnet_tpu_torch/nnet/generate.py",
+            "cxxnet_tpu_torch/models/builders.py"} <= names
     bad = {f: sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert {f: b for f, b in bad.items() if b} == {}

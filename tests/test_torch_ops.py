@@ -28,7 +28,14 @@ port's counterpart:
   ``mom * m - lr * (...)`` into one FMA, within one rounding of each
   product plus one of the result;
 * the lr and momentum schedules to rtol 2e-7 over epochs 0..2000;
-* dropout: kept fraction, scale, determinism and the eval identity.
+* dropout: kept fraction, scale, determinism and the eval identity;
+* flash attention (K9, K10): the plain forward and the autograd
+  Function's backward against the Pallas kernels in interpret mode at
+  (2, 64, 2, 16): causal and not, uneven and single blocks, cross
+  lengths, offsets with fully masked rows through ``flash_mha_lse``;
+  f32 outputs and LSE within 1e-5, gradients against ``jax.vjp`` within
+  2e-4 (with an LSE cotangent in the offset cases), bf16 within 0.05 of
+  f32; the dense ``mha`` against the JAX package's within 1e-5.
 
 The CUDA kernels themselves run only on a card: ``test_torch_cuda.py``
 holds each against its plain version there.
@@ -44,6 +51,7 @@ import jax
 import jax.numpy as jnp
 
 from cxxnet_tpu.layers import conv as jconv
+from cxxnet_tpu.ops import attention as jattn
 from cxxnet_tpu.nnet.net import FunctionalNet as JaxNet
 from cxxnet_tpu.ops.kernels import conv_block as jcb
 from cxxnet_tpu.ops.kernels import update_step as jup
@@ -53,9 +61,10 @@ from cxxnet_tpu.updater.param import UpdaterParam as JaxUpdaterParam
 # cxxnet_tpu.ops re-exports functions under the modules' names
 jlrn = importlib.import_module("cxxnet_tpu.ops.lrn")
 jmp = importlib.import_module("cxxnet_tpu.ops.maxpool")
+jflash = importlib.import_module("cxxnet_tpu.ops.flash")
 
 from cxxnet_tpu_torch.layers.elemwise import DropoutLayer
-from cxxnet_tpu_torch.ops import KERNELS, lrn, maxpool
+from cxxnet_tpu_torch.ops import KERNELS, attention, flash, lrn, maxpool
 from cxxnet_tpu_torch.ops import _build
 from cxxnet_tpu_torch.ops.kernels import conv_block, update_step
 from cxxnet_tpu_torch.updater import create_updater
@@ -352,8 +361,9 @@ def test_updater_factory_ports_sgd_only():
     st = up.init_state(w)
     up.apply(w, torch.ones(3), st, 0)
     assert torch.allclose(st["m"], torch.full((3,), -0.01))
+    assert create_updater("adam", "wmat").type_name == "adam"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_updater("adam", "wmat")
+        create_updater("nag", "wmat")
     with pytest.raises(ValueError):
         create_updater("sgdd", "wmat")
 
@@ -449,3 +459,146 @@ def test_wrapper_checks_refuse_bad_tensors():
         _build.check_cuda("t", torch.zeros(2), 1)
     with pytest.raises(ValueError, match="K mismatch"):
         conv_block.conv_block_gemm(torch.zeros(3, 4), torch.zeros(5, 2))
+
+
+# ----------------------------------------------------------------------
+# flash attention (K9 forward, K10 backward)
+def _qkv(b=2, t=64, tk=None, h=2, d=16, seed=0):
+    rng = np.random.RandomState(seed)
+    tk = t if tk is None else tk
+    return tuple(rng.randn(b, n, h, d).astype(np.float32)
+                 for n in (t, tk, tk))
+
+
+def _torch_leaves(*arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype).requires_grad_(True)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("blocks", [(512, 512), (16, 32), (32, 16)])
+def test_flash_forward_and_grads_match_the_pallas_kernel(causal, blocks):
+    q, k, v = _qkv(seed=1 + causal)
+    g = np.random.RandomState(9).randn(*q.shape).astype(np.float32)
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: jflash.flash_mha(a, b, c, causal, *blocks, True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads_j = vjp(jnp.asarray(g))
+    tq, tk, tv = _torch_leaves(q, k, v)
+    out = flash.flash_mha(tq, tk, tv, causal)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               rtol=1e-5, atol=1e-5)
+    for name, t, want in zip("qkv", (tq, tk, tv), grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,tk", [(64, 32), (32, 64)])
+def test_flash_cross_lengths_match_the_pallas_kernel(causal, t, tk):
+    q, k, v = _qkv(t=t, tk=tk, seed=3)
+    out_j = jflash.flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal, 16, 16, True)
+    out = flash.flash_mha(*_torch_leaves(q, k, v), causal)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               rtol=1e-5, atol=1e-5)
+
+
+# (q_off, k_off): rows 0..39 see no key; a shifted diagonal; no row
+# sees any key; keys all in the past
+@pytest.mark.parametrize("offs", [(0, 40), (16, 0), (0, 70), (64, 0)])
+def test_flash_lse_offsets_and_dead_rows_match_the_pallas_kernel(offs):
+    q, k, v = _qkv(seed=4)
+    rng = np.random.RandomState(5)
+    g = rng.randn(*q.shape).astype(np.float32)
+    g_lse = rng.randn(2, 64, 2).astype(np.float32)
+    (out_j, lse_j), vjp = jax.vjp(
+        lambda a, b, c: jflash.flash_mha_lse(
+            a, b, c, jnp.int32(offs[0]), jnp.int32(offs[1]), True, 16, 32,
+            True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads_j = vjp((jnp.asarray(g), jnp.asarray(g_lse)))
+    tq, tk, tv = _torch_leaves(q, k, v)
+    out, lse = flash.flash_mha_lse(tq, tk, tv, *offs, causal=True)
+    assert lse.shape == (2, 64, 2)
+    torch.autograd.backward([out, lse],
+                            [torch.from_numpy(g), torch.from_numpy(g_lse)])
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(lse_j),
+                               rtol=1e-5, atol=1e-5)
+    dead = offs[0] + np.arange(64) < offs[1]
+    assert (out.detach().numpy()[:, dead] == 0).all()
+    assert (lse.detach().numpy()[:, dead] == -1e30).all()
+    for name, t, want in zip("qkv", (tq, tk, tv), grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_close_to_f32(causal):
+    q, k, v = _qkv(seed=6)
+    ref = attention.mha(*(torch.from_numpy(a) for a in (q, k, v)), causal)
+    out = flash.flash_mha(*(torch.from_numpy(a).to(torch.bfloat16)
+                            for a in (q, k, v)), causal)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref.numpy(), rtol=0.05,
+                               atol=0.05)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_and_plain_flash_match_the_jax_mha(causal):
+    q, k, v = _qkv(seed=7)
+    want = np.asarray(jattn.mha(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    np.testing.assert_allclose(attention.mha(tq, tk, tv, causal).numpy(),
+                               want, rtol=1e-5, atol=1e-5)
+    o, lse = flash.flash_fwd_plain(tq, tk, tv, causal)
+    np.testing.assert_allclose(o.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert lse.shape == (2, 2, 64) and lse.dtype == torch.float32
+
+
+def test_flash_bwd_plain_is_the_autograd_of_mha():
+    """The explicit backward formulas define the gradient of attention:
+    against autograd of the dense ``mha`` (f32, sums in another
+    order)."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _qkv(t=32, seed=8))
+    g = torch.from_numpy(
+        np.random.RandomState(2).randn(2, 32, 2, 16).astype(np.float32))
+    o = attention.mha(q, k, v, causal=True)
+    o.backward(g)
+    o2, lse = flash.flash_fwd_plain(q.detach(), k.detach(), v.detach(), True)
+    dl = (g * o2).sum(-1).permute(0, 2, 1)
+    got = flash.flash_bwd_plain(q.detach(), k.detach(), v.detach(), g, lse,
+                                dl, True)
+    for t, d in zip((q, k, v), got):
+        torch.testing.assert_close(d, t.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.zeros(1, 4, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash._check("q", x, x)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        flash._geometry(torch.zeros(1, 4, 1, 24), torch.zeros(1, 4, 1, 24),
+                        torch.zeros(1, 4, 1, 24))
+    with pytest.raises(ValueError, match="fit together"):
+        flash._geometry(x, torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2, 16))
+
+
+def test_build_key_covers_the_local_headers(tmp_path, monkeypatch):
+    """A kernel library is rebuilt when a csrc header it includes
+    changes, not only when its own source does."""
+    (tmp_path / "t.cuh").write_text("// one\n")
+    (tmp_path / "k.cu").write_text('#include "t.cuh"\n')
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    k = _build.Kernel("k", "none")
+    before = k.library_path()
+    (tmp_path / "t.cuh").write_text("// two\n")
+    assert k.library_path() != before
+    assert "flash_tiles.cuh" in open(flash.FWD_KERNEL.source).read()
