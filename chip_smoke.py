@@ -31,7 +31,29 @@ Phases; any failure ends the run with a non-zero exit and no result:
    the 8-row bucket runs again in float32 with TF32 off and is held
    against the same checkpoint served on the CPU (the plain versions),
    and the bfloat16 answers are held against the float32 ones.
-4. The training path at full width: ``python -m cxxnet_tpu_torch``'s
+4. Quantized serving from the same checkpoint: the int8 GEMM kernel
+   (K7) against its plain version at the 11 shapes one quantized b128
+   forward gives it (``conv2_reduce``, the 9 pool projections and the
+   classifier, read off the net's shape inference) and at a ragged
+   shape, in float32 and bfloat16, with and without the bias and with
+   relu, and at the forward's shapes its times (kernel, plain, the
+   library yardstick ``F.linear`` over weights dequantized ahead, and
+   the bound); ``task=export_quant`` through ``LearnTask`` on a
+   ``synthetic`` eval section of 2 x 128 rows (``quant_calib_batches =
+   2``; if the 0.99 gate rejects the random-weight model, again with
+   ``quant_min_agreement = 0``), its verdict logged; the artifact
+   served by ``Engine(model_in=..., quant = int8)`` over HTTP at 1, 7,
+   32 and 128 rows, each twice, every forward launching K1 13, K4 2, K6
+   9 and K7 11 times less the layers the gate demoted, and no training
+   kernel (counts at 0 just before, read just after); ``/healthz``
+   naming the ``.quant.model`` and ``int8``, ``/statsz``'s weight bytes
+   at least 3.5 times under dense f32; the int8 model's top-1 against
+   the f32 model's served answers (logged); the int8 model in float32
+   (TF32 off) on the card against the CPU; the b128 bf16 forward of
+   the f32 and the int8 model on device-resident input (synchronised,
+   median of 5) with their device bytes at rest, and one int8 forward
+   under the profiler (K7's device time and share).
+5. The training path at full width: ``python -m cxxnet_tpu_torch``'s
    ``LearnTask`` run in-process, ``task=train`` on a temporary conf (a
    ``synthetic`` data section of 512 rows with ``threadbuffer``, a
    256-row eval section, then ``googlenet.conf``'s netconfig and
@@ -41,17 +63,17 @@ Phases; any failure ends the run with a non-zero exit and no result:
    K2 4, K3 9, K5 2 times and the SGD kernel once per parameter tensor
    (116); every loss must be finite; the last round's checkpoint is
    served by ``Engine`` and answers one ``/predict``.
-5. Training parity on the card, from the run's first checkpoint and one
+6. Training parity on the card, from the run's first checkpoint and one
    8-row batch, dropout off: one float32 step with TF32 off against the
    same step on the CPU (plain versions), and one bfloat16 step against
    the float32 one, each tensor's update compared (limits below).
-6. Three steps at ``googlenet.conf``'s own learning rates from the
+7. Three steps at ``googlenet.conf``'s own learning rates from the
    first checkpoint (their losses, informational).  The training rate:
    10 ``update()`` steps at b128 bfloat16 on
    device-resident batches after 3 warm-up steps, timed with CUDA
    events, with the peak device memory; then one step under
    ``torch.profiler``: device time by kernel and the busy share.
-7. The flash-attention kernels (K9 forward, K10 backward) against their
+8. The flash-attention kernels (K9 forward, K10 backward) against their
    plain versions on the card: float32 at (2, 512, 8, 64) causal and
    not, cross lengths (T 512 / Tk 384 and T 384 / Tk 512), offsets
    through the LSE entry with fully masked rows (whose output must be 0
@@ -64,7 +86,7 @@ Phases; any failure ends the run with a non-zero exit and no result:
    the kernels' times, the plain versions', the library yardstick's
    (``scaled_dot_product_attention``: forward, its backward through
    autograd, and both), and the bounds.
-8. The language model at ``bench.py --lm``'s width:
+9. The language model at ``bench.py --lm``'s width:
    ``transformer_lm_conf(seq_len=2048, dim=512, nhead=8, nlayer=4,
    batch_size=8, compute_dtype=bfloat16)`` (Adam) on a corpus made of
    ``SURVEY.md`` and ``doc/*.md``, trained ``task=train`` through
@@ -75,23 +97,24 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``eval_train = 0`` (CUDA events: step ms, tokens/s, peak memory) and
    one step under the profiler (busy share, device ms by kernel, and 4
    launches each of the forward, dQ and dK/dV kernels).
-9. LM parity from the run's first checkpoint, 1 row: a float32 step on
+10. LM parity from the run's first checkpoint, 1 row: a float32 step on
    the card with TF32 off against the CPU (the loss; per tensor the Adam
    moments, and the update where the gradient is resolved), and a
    bfloat16 step against the float32 one (cosines).
-10. ``task=generate`` from the last checkpoint through ``LearnTask``:
+11. ``task=generate`` from the last checkpoint through ``LearnTask``:
    the KV-cache path for 256 bytes (no flash launch) and the windowed
    path for 8 bytes (4 K9 launches a byte), each with the counts set to
    0 just before and read just after; the bytes per second of each
    path; and the card's probability rows against the CPU's on the same
    tokens, in float32, on both paths.
-11. A ``kernels`` JSON line (per kernel: launches on its main path's
+12. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
    forward kernels; the LM training run for K9 and K10, with the
-   windowed generation run's — max error, and the times of one training
-   step's launches summed: GoogLeNet b128 bf16, or the LM step's 4
-   launches of K9 and of K10), the ``nvidia-smi`` line again, and last
-   the result line ``{"ok": true, "device": {...}}``.
+   windowed generation run's; the int8 serving run for K7 — max error,
+   and the times of one training step's launches summed: GoogLeNet b128
+   bf16, or the LM step's 4 launches of K9 and of K10, or K7's 11
+   launches of one quantized b128 forward), the ``nvidia-smi`` line
+   again, and last the result line ``{"ok": true, "device": {...}}``.
 
 Tolerances (reasons in PERF.md):
 
@@ -103,9 +126,12 @@ Tolerances (reasons in PERF.md):
 * conv-block GEMM: rtol = atol = 1e-4 in float32 (summation order),
   2e-2 in bfloat16 (one bf16 rounding of an f32 accumulator);
 * SGD step: bit-equal (rounded intrinsics in the plain version's order);
-* float32 card vs CPU: probabilities atol 1e-4; ``pool5`` features
-  within 1e-4 of their largest magnitude (cuDNN against oneDNN, 57
-  convolutions deep);
+* int8 GEMM, each row's largest error over that row's largest plain
+  magnitude: 1e-5 in float32 (summation order), 8e-3 in bfloat16 (one
+  bf16 rounding of the output, at most 2**-8 of the row's largest);
+* float32 card vs CPU, the f32 model and the int8 one: probabilities
+  atol 1e-4; ``pool5`` features within 1e-4 of their largest magnitude
+  (cuDNN against oneDNN, 57 convolutions deep);
 * bfloat16 vs float32 on the card: ``pool5`` features, and the logits
   the classifier makes of them, within 0.05 of their largest magnitude
   (bf16 activations through the whole net); the served top-1 class
@@ -162,6 +188,14 @@ TRAIN_ROWS, EVAL_ROWS, ROUNDS = 512, 256, 2
 # package as in the port (PERF.md); every other updater setting stays
 LR_SCALE = 0.01
 PARITY_ROWS = 8
+# quantized serving: K7 runs once per lone 1x1 conv (conv2_reduce and the
+# 9 pool projections) and once for the classifier; the export gate scores
+# QUANT_CALIB_BATCHES eval batches of 128; the served int8 model's weight
+# bytes must be at least QUANT_MIN_RATIO times smaller than dense f32
+INT8_PER_FORWARD = 11
+INT8_RAGGED = (1001, 203, 77)  # M, K, O off the 64x64x32 tiles; K % 8 != 0
+QUANT_CALIB_BATCHES = 2
+QUANT_MIN_RATIO = 3.5
 RATE_WARMUP, RATE_STEPS = 3, 10
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
@@ -183,6 +217,10 @@ TOL = {  # (rtol, atol) of each kernel against its plain version
     ("lrn_bwd", "bfloat16"): (1e-2, 1e-2),
     ("sgd_update", "float32"): (0.0, 0.0),
 }
+# K7 against its plain version, per row (``_row_rel_err``): f32 differs
+# by summation order only; bf16 by one rounding of the output, at most
+# 2**-8 of the row's largest value
+INT8_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 F32_PROB_ATOL, F32_FEAT_REL = 1e-4, 1e-4
 BF16_LOGIT_REL, BF16_FEAT_REL = 0.05, 0.05
 # the language model: bench.py --lm's width (transformer_lm_conf at
@@ -573,110 +611,119 @@ def _rows(n: int, side: int, seed: int):
         np.float32)
 
 
-def serve_phase():
-    """Drive the serving path; returns the kernels' launch counts."""
+def _drive_requests(port: int, bodies, per_forward, tag: str):
+    """The main path of a serving run: ``POST /predict`` with each body,
+    ``REPEATS`` times, the launch counts set to 0 just before and read
+    just after; every request must launch ``per_forward`` and no other
+    kernel.  Returns the answers by size and the launches by kernel."""
+    import numpy as np
+
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    encoded = {n: json.dumps({"data": x.tolist(), "raw": True}).encode()
+               for n, x in bodies.items()}
+    want = {**{k.name: 0 for k in KERNELS}, **per_forward}
+    for k in KERNELS:
+        k.launches = 0
+    answers = {}
+    for n in bodies:
+        lat = []
+        for _ in range(REPEATS):
+            before = {k.name: k.launches for k in KERNELS}
+            t0 = time.perf_counter()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/predict", data=encoded[n],
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                ans = json.loads(r.read())
+            lat.append((time.perf_counter() - t0) * 1e3)
+            delta = {k.name: k.launches - before[k.name] for k in KERNELS}
+            if delta != want:
+                raise SmokeError(f"{tag}: {n}-row request launched {delta}, "
+                                 f"expected {want}")
+        scores = np.asarray(ans["scores"], np.float32)
+        if scores.shape != (n, 1000) or not np.isfinite(scores).all():
+            raise SmokeError(f"{tag}: {n}-row answer: shape {scores.shape}, "
+                             "or values not finite")
+        if np.abs(scores.sum(1) - 1).max() > 1e-2:
+            raise SmokeError(f"{tag}: {n}-row answer rows do not sum to 1")
+        answers[n] = scores
+        log(f"{tag}: POST /predict {n:4d} rows (bucket "
+            f"{1 << (n - 1).bit_length()}): latency ms cold "
+            f"{lat[0]:.1f} warm {statistics.median(lat[1:]):.1f}")
+    launches = {k.name: k.launches for k in KERNELS}
+    forwards = len(bodies) * REPEATS
+    log(f"{tag}: launches {launches} over {forwards} forwards")
+    for name, per in want.items():
+        if launches[name] != per * forwards:
+            raise SmokeError(f"{tag}: {name}: {launches[name]} launches, "
+                             f"expected {per * forwards}")
+    return answers, {k: launches[k] for k in per_forward}
+
+
+def serve_phase(tmp: str):
+    """Drive the serving path from a seeded checkpoint written to
+    ``tmp``; returns the kernels' launch counts, the checkpoint's path
+    and the served answers by request size."""
     import numpy as np
     import torch
 
     from cxxnet_tpu_torch import config as cfgmod
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
-    from cxxnet_tpu_torch.ops import KERNELS
     from cxxnet_tpu_torch.serve import Engine, make_server
 
     cfg = cfgmod.parse_file(CONF) + [("dev", "gpu"), ("seed", str(SEED)),
                                      ("silent", "1")]
     side = int(dict(cfg)["input_shape"].split(",")[1])
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        t0 = time.perf_counter()
-        tr = NetTrainer()
-        tr.set_params(cfg)
-        tr.init_model()
-        path = os.path.join(tmp, "0001.model")
-        tr.save_model(path, round_=1)
-        del tr
-        log(f"serve: init_model + save_model {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.init_model()
+    path = os.path.join(tmp, "0001.model")
+    tr.save_model(path, round_=1)
+    del tr
+    log(f"serve: init_model + save_model {time.perf_counter() - t0:.2f}s")
 
-        eng = Engine(cfg=cfg, model_in=path, max_batch_size=max(REQUEST_ROWS))
-        httpd = make_server(eng, port=0)
-        th = threading.Thread(target=httpd.serve_forever,
-                              kwargs={"poll_interval": 0.05}, daemon=True)
-        th.start()
-        try:
-            port = httpd.server_port
-            h = _request(port, "/healthz")
-            log(f"serve: healthz {json.dumps(h)}")
-            if h["status"] != "ok" or h["round"] != 1:
-                raise SmokeError(f"unhealthy engine: {h}")
-            if not h["device"].startswith("cuda"):
-                raise SmokeError(f"engine runs on {h['device']}")
-            bodies = {n: _rows(n, side, SEED + n) for n in REQUEST_ROWS}
-            encoded = {n: json.dumps({"data": bodies[n].tolist(),
-                                      "raw": True}) for n in REQUEST_ROWS}
-            # the main path: counts at 0 just before, read just after
-            for k in KERNELS:
-                k.launches = 0
-            answers = {}
-            for n in REQUEST_ROWS:
-                lat = []
-                for _ in range(REPEATS):
-                    before = {k.name: k.launches for k in KERNELS}
-                    t0 = time.perf_counter()
-                    req = urllib.request.Request(
-                        f"http://127.0.0.1:{port}/predict",
-                        data=encoded[n].encode(),
-                        headers={"Content-Type": "application/json"})
-                    with urllib.request.urlopen(req, timeout=600) as r:
-                        ans = json.loads(r.read())
-                    lat.append((time.perf_counter() - t0) * 1e3)
-                    delta = {k.name: k.launches - before[k.name]
-                             for k in KERNELS if k.name in PER_FORWARD}
-                    if delta != PER_FORWARD:
-                        raise SmokeError(f"{n}-row request launched {delta}, "
-                                         f"expected {PER_FORWARD}")
-                scores = np.asarray(ans["scores"], np.float32)
-                if scores.shape != (n, 1000) or not np.isfinite(scores).all():
-                    raise SmokeError(f"{n}-row answer: shape {scores.shape}, "
-                                     "or values not finite")
-                if np.abs(scores.sum(1) - 1).max() > 1e-2:
-                    raise SmokeError(f"{n}-row answer rows do not sum to 1")
-                answers[n] = scores
-                log(f"serve: POST /predict {n:4d} rows (bucket "
-                    f"{1 << (n - 1).bit_length()}): latency ms cold "
-                    f"{lat[0]:.1f} warm {statistics.median(lat[1:]):.1f}")
-            launches = {k.name: k.launches for k in KERNELS}
-            forwards = len(REQUEST_ROWS) * REPEATS
-            log(f"serve: launches {launches} over {forwards} forwards")
-            if any(launches[k] for k in launches if k not in PER_FORWARD):
-                raise SmokeError("serving launched a training kernel")
-            launches = {k: launches[k] for k in PER_FORWARD}
-            for name, per in PER_FORWARD.items():
-                if launches[name] != per * forwards:
-                    raise SmokeError(f"{name}: {launches[name]} launches"
-                                     f", expected {per * forwards}")
-            x8 = bodies[REQUEST_ROWS[1]]
-            feats16 = eng.extract(x8, "pool5")
-            probs16 = answers[x8.shape[0]]
-            forward_breakdown(eng.trainer, bodies)
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-            th.join(timeout=30)
-            eng.close()
+    eng = Engine(cfg=cfg, model_in=path, max_batch_size=max(REQUEST_ROWS))
+    httpd = make_server(eng, port=0)
+    th = threading.Thread(target=httpd.serve_forever,
+                          kwargs={"poll_interval": 0.05}, daemon=True)
+    th.start()
+    try:
+        port = httpd.server_port
+        h = _request(port, "/healthz")
+        log(f"serve: healthz {json.dumps(h)}")
+        if h["status"] != "ok" or h["round"] != 1:
+            raise SmokeError(f"unhealthy engine: {h}")
+        if not h["device"].startswith("cuda"):
+            raise SmokeError(f"engine runs on {h['device']}")
+        bodies = {n: _rows(n, side, SEED + n) for n in REQUEST_ROWS}
+        answers, launches = _drive_requests(port, bodies, PER_FORWARD,
+                                            "serve")
+        x8 = bodies[REQUEST_ROWS[1]]
+        feats16 = eng.extract(x8, "pool5")
+        probs16 = answers[x8.shape[0]]
+        forward_breakdown(eng.trainer, bodies)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+        eng.close()
 
-        # the 8-row bucket in float32, TF32 off, against the CPU
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        f32 = [("compute_dtype", "float32")]
-        ref = {}
-        for name, dev in (("card", "gpu"), ("cpu", "cpu")):
-            with Engine(cfg=cfg + f32 + [("dev", dev)], model_in=path,
-                        max_batch_size=max(REQUEST_ROWS)) as e:
-                ref[name] = (e.scores(x8), e.extract(x8, "pool5"))
-                params = e.trainer.params
-        cls = next(v for k, v in params.items()
-                   if k.endswith("_loss3_classifier"))
-        wmat = cls["wmat"].cpu().double().numpy()
-        bias = cls["bias"].cpu().double().numpy()
+    # the 8-row bucket in float32, TF32 off, against the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = [("compute_dtype", "float32")]
+    ref = {}
+    for name, dev in (("card", "gpu"), ("cpu", "cpu")):
+        with Engine(cfg=cfg + f32 + [("dev", dev)], model_in=path,
+                    max_batch_size=max(REQUEST_ROWS)) as e:
+            ref[name] = (e.scores(x8), e.extract(x8, "pool5"))
+            params = e.trainer.params
+    cls = next(v for k, v in params.items()
+               if k.endswith("_loss3_classifier"))
+    wmat = cls["wmat"].cpu().double().numpy()
+    bias = cls["bias"].cpu().double().numpy()
     (p_card, f_card), (p_cpu, f_cpu) = ref["card"], ref["cpu"]
 
     def logits(feats):  # the classifier (fullc, wmat (nout, nin)) in f64
@@ -717,7 +764,7 @@ def serve_phase():
         bad.append("bf16_vs_f32_top1")
     if bad:
         raise SmokeError(f"served scores out of tolerance: {bad}")
-    return launches
+    return launches, path, answers
 
 
 def forward_breakdown(tr, bodies):
@@ -780,7 +827,9 @@ def _profile(run, what: str, span: str):
     log(f"{tag} {span} {wall:.2f} ms wall under the profiler, "
         f"{busy:.2f} ms of device time ({busy / wall if wall else 0:.3f} "
         f"busy)")
-    ours = {"maxpool_fwd": ("maxpool_fwd_kernel",),
+    # K7 first: K6's kernel names are substrings of K7's
+    ours = {"int8_gemm": ("int8_gemm_bf16_kernel", "int8_gemm_f32_kernel"),
+            "maxpool_fwd": ("maxpool_fwd_kernel",),
             "lrn_fwd": ("lrn_fwd_kernel",),
             "conv_block_gemm": ("gemm_bf16_kernel", "gemm_f32_kernel"),
             "maxpool_bwd": ("maxpool_bwd_kernel",),
@@ -792,7 +841,8 @@ def _profile(run, what: str, span: str):
     out = {"wall_ms": wall, "device_ms": busy, "counts": counts}
     mine = set()
     for name, frags in ours.items():
-        hits = {k for k in by_name if any(f in k for f in frags)}
+        hits = {k for k in by_name
+                if k not in mine and any(f in k for f in frags)}
         mine |= hits
         out[name] = sum(by_name[k] for k in hits)
         if out[name]:
@@ -817,21 +867,332 @@ def _profile(run, what: str, span: str):
 
 
 # ----------------------------------------------------------------------
+# phase 4: quantized serving (K7)
+
+
+def int8_calls(tr):
+    """K7's calls in one quantized GoogLeNet forward at ``BATCH`` rows,
+    read off the port's shape inference: ``{param key: (M, K, O)}`` for
+    each 1x1 / pad-0 / ungrouped conv outside a sibling group and each
+    2-D fullc (the layers ``ops/quant.py`` routes to K7)."""
+    from cxxnet_tpu_torch.layers.conv import ConvolutionLayer
+    from cxxnet_tpu_torch.layers.linear import FullConnectLayer
+
+    net = tr.net
+    shapes = net.infer_shapes(BATCH)
+    member = net._sibling_1x1_groups()[1]
+    calls = {}
+    for i, spec in enumerate(tr.graph.layers):
+        lay = net.layer_objs[i]
+        xin, out = shapes[spec.nindex_in[0]], shapes[spec.nindex_out[0]]
+        if type(lay) is ConvolutionLayer and i not in member:
+            p = lay.param
+            if (p.kernel_height, p.kernel_width, p.pad_y, p.pad_x,
+                    p.num_group) == (1, 1, 0, 0, 1):
+                n, oh, ow, o = out
+                calls[net.param_key[i]] = (n * oh * ow, xin[3], o)
+        elif type(lay) is FullConnectLayer and len(xin) == 2:
+            calls[net.param_key[i]] = (xin[0], xin[1], out[1])
+    if len(calls) != INT8_PER_FORWARD:
+        raise SmokeError(f"{len(calls)} K7 layers in GoogLeNet, not "
+                         f"{INT8_PER_FORWARD}: {sorted(calls)}")
+    return calls
+
+
+def check_int8(calls, dev):
+    """K7 against its plain version at every call of the forward and at
+    ``INT8_RAGGED``: float32 (TF32 off) and bfloat16, with and without
+    the bias, with relu; per row (``_row_rel_err``) within
+    ``INT8_TOL``.  At the forward's calls, bf16 with bias (the layers'
+    own case) is timed too: the kernel, the plain version, the library
+    yardstick ``F.linear`` over weights dequantized ahead (a call the
+    port never makes), and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from cxxnet_tpu_torch.ops.kernels import int8_gemm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cases = [(key, mko) for key, mko in calls.items()]
+    cases.append(("ragged", INT8_RAGGED))
+    rows = []
+    for key, (m, k, o) in cases:
+        x32 = torch.randn(m, k, generator=gen, device=dev)
+        q = torch.randint(-127, 128, (o, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand(o, generator=gen, device=dev) * 0.02 / k ** 0.5
+        bias = torch.randn(o, generator=gen, device=dev) * 0.1
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            name = str(dtype).split(".")[1]
+            err = 0.0
+            abs_err = 0.0
+            for b, relu in ((bias, False), (None, True), (bias, True)):
+                got = int8_gemm.int8_gemm_rescale(x, q, scale, b, relu)
+                ref = int8_gemm.int8_gemm_plain(x, q, scale, b, relu)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or got.shape != (m, o) or not bool(
+                        torch.isfinite(got.float()).all()):
+                    raise SmokeError(f"int8_gemm {key} {name}: "
+                                     f"{got.shape}/{got.dtype} or not finite")
+                err = max(err, _row_rel_err(got, ref))
+                abs_err = max(abs_err, float((got.float() - ref.float())
+                                             .abs().max()))
+                del got, ref
+            row = {"kernel": "int8_gemm", "layer": key, "dtype": name,
+                   "shape": f"M{m} K{k} O{o}", "row_rel_err": err,
+                   "max_abs_err": abs_err, "limit": INT8_TOL[name],
+                   "ok": err <= INT8_TOL[name], "timed": False}
+            if dtype == torch.bfloat16 and key != "ragged":
+                w16 = (q.float() * scale[:, None]).to(dtype)
+                b16 = bias.to(dtype)
+                esz = x.element_size()
+                bound_ms, bound_by = bound(
+                    m * k * esz + o * k + 8 * o + m * o * esz,
+                    2.0 * m * k * o, "bf16_tensor")
+                row.update(
+                    timed=True,
+                    ms=time_ms(lambda: int8_gemm.int8_gemm_rescale(
+                        x, q, scale, bias)),
+                    plain_ms=time_ms(lambda: int8_gemm.int8_gemm_plain(
+                        x, q, scale, bias)),
+                    library_ms=time_ms(lambda: F.linear(x, w16, b16)),
+                    bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            log(f"kernel int8_gemm {name:8s} {key:24s} {row['shape']:22s} "
+                f"row rel {err:.3g} (limit {row['limit']:g}) "
+                f"{'ok' if row['ok'] else 'MISMATCH'}"
+                + (f"  ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+                   f"library {row['library_ms']:.4f} bound "
+                   f"{row['bound_ms']:.4f} ({row['bound_by']})"
+                   if row["timed"] else ""))
+        del x32, q
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise SmokeError(f"{len(bad)} int8_gemm check(s) out of tolerance: "
+                         + "; ".join(f"{r['layer']} {r['dtype']}"
+                                     for r in bad))
+    return rows
+
+
+def _export_quant(conf: str, path: str, *extra):
+    """``task=export_quant`` through ``LearnTask``, in-process: returns
+    its exit code and the JSON verdict line it prints."""
+    import contextlib
+    import io
+
+    from cxxnet_tpu_torch.cli import LearnTask
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = LearnTask().run([conf, "task=export_quant", f"model_in={path}",
+                              "dev=gpu", "silent=1",
+                              f"quant_calib_batches={QUANT_CALIB_BATCHES}",
+                              *extra])
+    verdict = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"quant: export {' '.join(extra) or '(gated at 0.99)'}: exit {rc} in "
+        f"{time.perf_counter() - t0:.1f}s; ok {verdict['ok']}, agreement "
+        f"{verdict['agreement']} over {verdict['eval_rows']} rows, "
+        f"{verdict['int8_layers']} int8 + {verdict['bf16_layers']} bf16 "
+        f"layers, fallbacks {verdict['fallbacks']}, bytes ratio "
+        f"{verdict['bytes_ratio']:.3f} ({verdict['weight_bytes']} of "
+        f"{verdict['weight_bytes_f32']} f32 bytes)")
+    if rc != (0 if verdict["ok"] else 3):
+        raise SmokeError(f"task=export_quant exited {rc} on verdict ok="
+                         f"{verdict['ok']}")
+    return verdict
+
+
+def _at_rest(load):
+    """``(trainer, bytes)``: the trainer ``load`` returns, and the device
+    bytes it added (``torch.cuda.memory_allocated``)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tr = load()
+    torch.cuda.synchronize()
+    return tr, torch.cuda.memory_allocated() - before
+
+
+def quant_phase(tmp: str, path: str, f32_answers):
+    """Export the seeded checkpoint at ``path`` with ``task=export_quant``
+    and serve the artifact with ``quant = int8``: K7 against its plain
+    version, the export's verdict, the served main path's launches, the
+    card against the CPU, the forward's time and the bytes at rest.
+    Returns the K7 rows and the serving run's launches."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.quant import quant_artifact_path
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import Engine, make_server
+
+    cfg = cfgmod.parse_file(CONF) + [("dev", "gpu"), ("silent", "1")]
+    qcfg = cfg + [("quant", "int8")]
+    side = int(dict(cfg)["input_shape"].split(",")[1])
+    probe = NetTrainer()
+    probe.set_params(cfg + [("dev", "cpu")])
+    probe.init_model()
+    calls = int8_calls(probe)
+    del probe
+    rows = check_int8(calls, torch.device("cuda:0"))
+
+    conf = _synthetic_conf(tmp, "googlenet_quant.conf",
+                           (("eval", "val", EVAL_ROWS, False),), 1.0)
+    verdict = _export_quant(conf, path)
+    if not verdict["ok"]:
+        log("quant: the gate rejected (random weights; ROADMAP C); "
+            "exporting ungated (quant_min_agreement=0)")
+        verdict = _export_quant(conf, path, "quant_min_agreement=0")
+    qpath = quant_artifact_path(path)
+    if verdict["path"] != qpath or not os.path.exists(qpath):
+        raise SmokeError(f"no artifact at {qpath}: {verdict['path']}")
+    demoted = [key for key in verdict["fallbacks"] if key in calls]
+    per_forward = {**PER_FORWARD,
+                   "int8_gemm": INT8_PER_FORWARD - len(demoted)}
+    log(f"quant: K7 layers demoted to bf16: {demoted}; expecting "
+        f"{per_forward} per forward")
+
+    with Engine(cfg=qcfg, model_in=path,
+                max_batch_size=max(REQUEST_ROWS)) as eng:
+        httpd = make_server(eng, port=0)
+        th = threading.Thread(target=httpd.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+        th.start()
+        try:
+            port = httpd.server_port
+            h = _request(port, "/healthz")
+            log(f"quant: healthz {json.dumps(h)}")
+            if (h["status"] != "ok" or h["quant"] != "int8"
+                    or h["model"] != qpath
+                    or not h["device"].startswith("cuda")):
+                raise SmokeError(f"the engine does not serve {qpath} in "
+                                 f"int8 on the card: {h}")
+            bodies = {n: _rows(n, side, SEED + n) for n in REQUEST_ROWS}
+            answers, launches = _drive_requests(port, bodies, per_forward,
+                                                "quant serve")
+            st = _request(port, "/statsz")["model"]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=30)
+    ratio = st["weight_bytes_f32"] / st["weight_bytes"]
+    log(f"quant: /statsz weight bytes {st['weight_bytes']} of "
+        f"{st['weight_bytes_f32']} f32: ratio {ratio:.3f} (at least "
+        f"{QUANT_MIN_RATIO})")
+    if not ratio >= QUANT_MIN_RATIO:
+        raise SmokeError(f"weight-bytes ratio {ratio:.3f} < "
+                         f"{QUANT_MIN_RATIO}")
+    for n in REQUEST_ROWS:
+        agree = answers[n].argmax(1) == f32_answers[n].argmax(1)
+        log(f"quant: {n}-row request, int8 vs f32 model (both bf16) served "
+            f"top-1 agreement {int(agree.sum())}/{n}")
+
+    # the int8 model in float32 (TF32 off): the card against the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x8 = bodies[REQUEST_ROWS[1]]
+    ref = {}
+    for name, dev in (("card", "gpu"), ("cpu", "cpu")):
+        with Engine(cfg=qcfg + [("compute_dtype", "float32"), ("dev", dev)],
+                    model_in=path, max_batch_size=max(REQUEST_ROWS)) as e:
+            if e.model_path != qpath:
+                raise SmokeError(f"{name}: served {e.model_path}")
+            ref[name] = (e.scores(x8), e.extract(x8, "pool5"))
+    (p_card, f_card), (p_cpu, f_cpu) = ref["card"], ref["cpu"]
+    prob = float(np.abs(p_card - p_cpu).max())
+    feat = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+    log(f"quant: int8 model f32, card vs CPU: probabilities max abs "
+        f"{prob:.3g} (limit {F32_PROB_ATOL:g}), pool5 {feat:.3g} of its "
+        f"largest (limit {F32_FEAT_REL:g})")
+    if not (prob <= F32_PROB_ATOL and feat <= F32_FEAT_REL):
+        raise SmokeError("int8 model: card and CPU disagree in float32")
+
+    # the b128 forward, bf16, device-resident input; the bytes at rest
+    def load(extra, model):
+        def f():
+            tr = NetTrainer()
+            tr.set_params(cfg + extra)
+            tr.load_model(model)
+            return tr
+        return f
+
+    tr32, rest32 = _at_rest(load([], path))
+    tr8, rest8 = _at_rest(load([("quant", "int8")], qpath))
+    if tr8.params[next(iter(calls))]["wmat_q8"].dtype != torch.int8:
+        raise SmokeError("the int8 codes are not int8 on the card")
+    gen = torch.Generator(device=tr8.device).manual_seed(SEED)
+    x = torch.randn(tr8.net.input_node_shape(BATCH), device=tr8.device,
+                    generator=gen)
+    timing = {}
+    for name, tr, rest in (("f32", tr32, rest32), ("int8", tr8, rest8)):
+        f = tr.predict_fn()
+
+        def run(f=f, tr=tr):
+            f(tr.params, tr.aux, x, ())
+            torch.cuda.synchronize()
+
+        before = torch.cuda.memory_allocated()
+        run()
+        prepared = torch.cuda.memory_allocated() - before
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        timing[name] = (statistics.median(ts), run)
+        log(f"quant: {name} model, b{BATCH} bf16 forward "
+            f"{timing[name][0]:.2f} ms (device-resident input, synchronised, "
+            f"median of 5); device bytes at rest {rest} after load, "
+            f"{prepared} more held by the prepared operands")
+    k7 = _profile(timing["int8"][1], f"int8 b{BATCH} bf16", "forward")
+    n_k7 = sum(c for kname, c in k7["counts"].items()
+               if "int8_gemm_bf16_kernel" in kname)
+    log(f"quant: K7 {k7['int8_gemm']:.3f} ms of {k7['device_ms']:.3f} ms "
+        f"device time in one int8 forward ({k7['int8_gemm'] / k7['device_ms']:.3f}"
+        f" share), {n_k7} launches")
+    return rows, launches
+
+
+# ----------------------------------------------------------------------
 
 
 def kernels_line(rows, serve_launches, train_launches, flash_rows,
-                 lm_launches, gen_launches):
+                 lm_launches, gen_launches, int8_rows, quant_launches):
     """Per kernel: the launches of its main path (GoogLeNet training for
     K1-K8, with the serving run's for the forward kernels; the LM
-    training run for K9 and K10, with the windowed generation run's),
-    the max error over every check, and one training step's launches'
-    times summed (GoogLeNet b128 bf16; the SGD kernel's f32 row covers
-    all its launches; the LM step's 4 launches of K9 and of K10)."""
+    training run for K9 and K10, with the windowed generation run's; the
+    int8 serving run for K7), the max error over every check, and one
+    training step's launches' times summed (GoogLeNet b128 bf16; the SGD
+    kernel's f32 row covers all its launches; the LM step's 4 launches of
+    K9 and of K10), or for K7 one b128 bf16 forward's 11 launches."""
     from cxxnet_tpu_torch.ops import KERNELS
 
     step_flash = next(r for r in flash_rows if r["per_step"])
     out = []
     for k in KERNELS:
+        if k.name == "int8_gemm":
+            fwd = [r for r in int8_rows if r["timed"]]
+            by_bytes = sum(r["bound_ms"] for r in fwd
+                           if r["bound_by"] == "bytes")
+            by_ops = sum(r["bound_ms"] for r in fwd) - by_bytes
+            out.append({
+                "name": k.name, "route": "cuda",
+                "source": os.path.relpath(k.source, REPO),
+                "replaces": k.replaces.split()[0],
+                "launches": quant_launches[k.name],
+                "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
+                **{f: sum(r[f] for r in fwd)
+                   for f in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            })
+            continue
         if k.name in ("flash_fwd", "flash_bwd"):
             pre = k.name.split("_")[1]
             names = ("o",) if pre == "fwd" else ("dq", "dk", "dv")
@@ -883,15 +1244,23 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
 
 
 def _train_conf(tmp: str) -> str:
-    """A conf file: synthetic data and eval sections, then the
-    netconfig and globals of googlenet.conf (its imgbin sections
-    dropped)."""
+    """The training run's conf (``_synthetic_conf``), its learning rates
+    scaled by ``LR_SCALE``."""
+    return _synthetic_conf(tmp, "googlenet_synthetic.conf",
+                           (("data", "train", TRAIN_ROWS, True),
+                            ("eval", "val", EVAL_ROWS, False)), LR_SCALE)
+
+
+def _synthetic_conf(tmp: str, name: str, sections, lr_scale: float) -> str:
+    """A conf file: ``synthetic`` sections (kind, tag, rows, with a
+    ``threadbuffer``), then the netconfig and globals of googlenet.conf
+    (its imgbin sections dropped), its learning rates times
+    ``lr_scale``."""
     from cxxnet_tpu_torch import config as cfgmod
 
     shape = dict(cfgmod.parse_file(CONF))["input_shape"]
     lines = []
-    for kind, tag, rows, tb in (("data", "train", TRAIN_ROWS, True),
-                                ("eval", "val", EVAL_ROWS, False)):
+    for kind, tag, rows, tb in sections:
         lines += [f"{kind} = {tag}", "iter = synthetic",
                   f"  nsample = {rows}", f"  input_shape = {shape}",
                   "  nclass = 1000"]
@@ -899,10 +1268,10 @@ def _train_conf(tmp: str) -> str:
         lines += ["iter = end"]
     split = cfgmod.split_sections(cfgmod.parse_file(CONF))
     lines += [f"{n} = {v}" for n, v in split.global_entries]
-    lines += [f"{n} = {float(v) * LR_SCALE:g}" for n, v in
+    lines += [f"{n} = {float(v) * lr_scale:g}" for n, v in
               split.global_entries if n in ("eta", "lr", "wmat:lr",
                                             "bias:lr")]
-    path = os.path.join(tmp, "googlenet_synthetic.conf")
+    path = os.path.join(tmp, name)
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path
@@ -1731,7 +2100,9 @@ def main() -> int:
             f"torch {torch.__version__} cuda {torch.version.cuda}")
 
         rows = check_kernels(dev)
-        serve_launches = serve_phase()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            serve_launches, path, answers = serve_phase(tmp)
+            int8_rows, quant_launches = quant_phase(tmp, path, answers)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
             train_launches, mdir, cfg = train_phase(tmp)
             parity_phase(cfg, mdir)
@@ -1744,7 +2115,8 @@ def main() -> int:
             lm_parity_phase(cfg, mdir)
             gen_launches = lm_generate_phase(conf, mdir, tmp)
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
-                            lm_launches, gen_launches)
+                            lm_launches, gen_launches, int8_rows,
+                            quant_launches)
         log(card)
         log(json.dumps(line))
     except Exception:  # noqa: BLE001 - every failure ends the run

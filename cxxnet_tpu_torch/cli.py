@@ -1,8 +1,9 @@
 """Command-line entry point: ``python -m cxxnet_tpu_torch <conf> [name=val ...]``.
 
-Counterpart of ``cxxnet_tpu/cli.py`` for ``task=train``, ``task=serve``
-and ``task=generate``.  The conf (plus ``name=value`` overrides,
-applied after the file's entries) is parsed with the same grammar.
+Counterpart of ``cxxnet_tpu/cli.py`` for ``task=train``, ``task=serve``,
+``task=generate`` and ``task=export_quant``.  The conf (plus
+``name=value`` overrides, applied after the file's entries) is parsed
+with the same grammar.
 
 ``task=train``: a fresh model (``model_in = NULL``, written as
 ``0000.model`` before the first round), the model of ``model_in``, or
@@ -33,6 +34,16 @@ output fit the training window, else the sliding window; ``gen_temp``
 text goes to the ``pred`` section's file (default ``pred.txt``) and to
 stdout.
 
+``task=export_quant``: quantizes the f32 checkpoint ``model_in`` per
+``quant`` (default int8), gates it on top-1 agreement with the f32 model
+over the conf's first ``eval`` section (``quant_min_agreement``, default
+0.99, 0 to skip the gate; ``quant_calib_batches``, 0 for the whole
+section), falling layers back to bf16 until it passes, and writes
+``<round>.quant.model`` beside the source (or ``quant_out``).  It prints
+one JSON verdict line (also written to ``quant_report`` when set) and
+exits 0 on publish, 3 on reject (nothing written).  ``task=serve
+quant=int8`` then serves the artifact.
+
 The other tasks, the serving fleet (``replicas >= 2``), hot reload
 (``serve_reload_period``), the tuner (``controller``) and the elastic,
 integrity and telemetry planes of training are later slices
@@ -52,7 +63,6 @@ from . import config as cfgmod
 
 _LATER = {
     "finetune": "queue A item 5 (finetune / copy_model_from)",
-    "export_quant": "queue A item 3 (quantized serving)",
 }
 # train keys of planes this slice does not port: refused when switched on
 _TRAIN_LATER = ("integrity_every", "integrity_shadow", "integrity_probe",
@@ -61,8 +71,8 @@ _TRAIN_LATER = ("integrity_every", "integrity_shadow", "integrity_probe",
 
 
 class LearnTask:
-    """The ``train``, ``serve`` and ``generate`` tasks of the JAX
-    package's ``LearnTask``."""
+    """The ``train``, ``serve``, ``generate`` and ``export_quant`` tasks
+    of the JAX package's ``LearnTask``."""
 
     def __init__(self) -> None:
         self.task = "train"
@@ -94,6 +104,11 @@ class LearnTask:
         self.gen_topk = 0
         self.gen_topp = 0.0
         self.gen_cache = 1
+        self.quant = "int8"  # the export scheme (serving reads the raw key)
+        self.quant_min_agreement = 0.99
+        self.quant_calib_batches = 0  # 0: the whole eval section
+        self.quant_out = ""
+        self.quant_report = ""
         self.cfg: List[tuple] = []
 
     def set_param(self, name: str, val: str) -> None:
@@ -165,6 +180,16 @@ class LearnTask:
             self.gen_topp = float(val)
         elif name == "gen_cache":
             self.gen_cache = int(val)
+        elif name == "quant":
+            self.quant = "" if val in ("0", "off", "none") else val
+        elif name == "quant_min_agreement":
+            self.quant_min_agreement = float(val)
+        elif name == "quant_calib_batches":
+            self.quant_calib_batches = int(val)
+        elif name == "quant_out":
+            self.quant_out = val
+        elif name == "quant_report":
+            self.quant_report = val
         elif name == "wire" and val not in ("binary", "json"):
             raise ValueError(f"wire must be binary or json, got {val!r}")
         self.cfg.append((name, val))
@@ -183,12 +208,15 @@ class LearnTask:
             self.task_train()
         elif self.task == "generate":
             self.task_generate()
+        elif self.task == "export_quant":
+            return self.task_export_quant()
         else:
             later = _LATER.get(self.task, "queue A item 5 (the other tasks)")
             raise NotImplementedError(
                 f"task={self.task} is not ported yet (ROADMAP.md {later}); "
-                "this package trains (task=train), serves (task=serve) and "
-                "samples a language model (task=generate)")
+                "this package trains (task=train), serves (task=serve), "
+                "samples a language model (task=generate) and exports a "
+                "quantized model (task=export_quant)")
         return 0
 
     # ------------------------------------------------------------------
@@ -377,6 +405,34 @@ class LearnTask:
         if not self.silent:
             print(f"generated {len(text.encode())} bytes -> {name_pred}")
             print(text)
+
+    def task_export_quant(self) -> int:
+        """The gated quantized export of ``model_in``: prints the JSON
+        verdict; 0 on publish, 3 on reject."""
+        import json
+
+        from .nnet import quant as nquant
+        from .utils.checkpoint import atomic_write_bytes
+
+        if self.name_model_in == "NULL":
+            raise ValueError("task=export_quant needs model_in (the trained "
+                             "f32 checkpoint to quantize)")
+        self._create_iterators()
+        try:
+            verdict = nquant.export_quantized(
+                self.cfg, self.name_model_in,
+                eval_iter=self.itr_evals[0] if self.itr_evals else None,
+                scheme=self.quant or "int8",
+                min_agreement=self.quant_min_agreement,
+                calib_batches=self.quant_calib_batches,
+                out_path=self.quant_out or None, silent=bool(self.silent))
+        finally:
+            self._close_iterators()
+        line = json.dumps(verdict, separators=(",", ":"))
+        print(line, flush=True)
+        if self.quant_report:
+            atomic_write_bytes(self.quant_report, (line + "\n").encode())
+        return 0 if verdict["ok"] else 3
 
     def task_serve(self) -> None:
         """Run the online inference server until SIGTERM/SIGINT."""

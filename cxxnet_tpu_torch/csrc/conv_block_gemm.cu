@@ -15,7 +15,8 @@
 // near the bf16 tensor-core balance and the others on the memory side;
 // in f32 (CUDA-core FMAs, no TF32) every shape is bound by operations.
 //
-// Design (simple and right first; wgmma and TMA come later):
+// Design (simple and right first; wgmma and TMA come later), with the
+// tiles of gemm_tiles.cuh:
 // * bf16: 64x64 output tile per 128-thread block, four warps of 32x32,
 //   each issuing mma.sync.m16n8k16 (bf16 in, f32 accumulate) over
 //   32-deep K slices staged in shared memory.  X is staged row-major
@@ -27,20 +28,9 @@
 //   handled by zero-filling out-of-range tile elements on load and
 //   masking the epilogue's stores.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "gemm_tiles.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <typename T>
 __device__ __forceinline__ void epilogue(T* y, const T* bias, int m, int o,
@@ -53,17 +43,6 @@ __device__ __forceinline__ void epilogue(T* y, const T* bias, int m, int o,
 }
 
 // ---------------------------------------------------------------- bf16
-constexpr int BM = 64, BN = 64, BK = 32, PAD = 8;
-
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __global__ void __launch_bounds__(128)
 gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
@@ -73,20 +52,12 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   __shared__ __align__(16) __nv_bfloat16 As[BM][BK + PAD];  // [row][k]
   __shared__ __align__(16) __nv_bfloat16 Bs[BN][BK + PAD];  // [col][k]
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma groupID / thread-in-group
-  const int wm = warp >> 1, wn = warp & 1;
+  const MmaLane lane;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const __nv_bfloat16 zero = __float2bfloat16(0.0f);
 
   float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
+  zero_acc(acc);
   for (int k0 = 0; k0 < k; k0 += BK) {
     for (int i = tid; i < BM * BK; i += 128) {
       const int r = i / BK, kk = i % BK;
@@ -99,46 +70,15 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       Bs[nn][kk] = (gk < k && gn < o) ? w[(int64_t)gk * o + gn] : zero;
     }
     __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int rb = wm * 32 + mi * 16;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[rb + g][ks + 2 * t]);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[rb + g + 8][ks + 2 * t]);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[rb + g][ks + 2 * t + 8]);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(&As[rb + g + 8][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int cb = wn * 32 + ni * 8;
-        bf[ni][0] = *reinterpret_cast<const uint32_t*>(&Bs[cb + g][ks + 2 * t]);
-        bf[ni][1] = *reinterpret_cast<const uint32_t*>(&Bs[cb + g][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], af[mi], bf[ni]);
-    }
+    mma_tile(As, Bs, acc, lane);
     __syncthreads();
   }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int r = m0 + wm * 32 + mi * 16 + g;
-      const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-      epilogue(y, bias, m, o, r, col, acc[mi][ni][0], relu);
-      epilogue(y, bias, m, o, r, col + 1, acc[mi][ni][1], relu);
-      epilogue(y, bias, m, o, r + 8, col, acc[mi][ni][2], relu);
-      epilogue(y, bias, m, o, r + 8, col + 1, acc[mi][ni][3], relu);
-    }
+  for_each_mma_acc(acc, m0, n0, lane, [&](int r, int col, float v) {
+    epilogue(y, bias, m, o, r, col, v, relu);
+  });
 }
 
 // ----------------------------------------------------------------- f32
-constexpr int FBK = 16;
-
 __global__ void __launch_bounds__(256)
 gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, float* __restrict__ y, int m,
@@ -166,34 +106,13 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       Bs[kk][nn] = (gk < k && gn < o) ? w[(int64_t)gk * o + gn] : 0.0f;
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    fma_tile(As, Bs, acc, tx, ty);
     __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      epilogue(y, bias, m, o, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j],
-               relu);
+  for_each_fma_acc(acc, m0, n0, tx, ty, [&](int r, int col, float v) {
+    epilogue(y, bias, m, o, r, col, v, relu);
+  });
 }
-
-dim3 grid_for(int m, int o) {
-  return dim3((unsigned)((o + BN - 1) / BN), (unsigned)((m + BM - 1) / BM));
-}
-
-// gridDim.y is at most 65535: M up to 65535 * 64 rows in one launch
-bool grid_ok(int m) { return (m + BM - 1) / BM <= 65535; }
 
 }  // namespace
 

@@ -19,6 +19,13 @@ forward:
   GEMM (``_sibling_1x1_groups``), through the hand-written conv-block
   kernel (``ops/kernels/conv_block.py``), in training too: the group's
   ``(C, O)`` kernel is a ``torch.cat`` of the masters at each step;
+* a quantized entry (``wmat_q8`` codes, ``ops/quant.py``) keeps its
+  codes int8 and its scales and bias f32 in the prepared operands and
+  runs ``conv_apply_q`` / ``fc_apply_q`` (the int8 GEMM kernel for a
+  2-D fullc and a 1x1 conv); a sibling group with quantized members
+  builds its kernel per forward from the dequantized codes rounded to
+  the compute dtype (``effective_wmat``), as the JAX package does in its
+  program, so only int8 codes stay at rest;
 * dropout draws, in layer order, from the one ``torch.Generator`` the
   trainer hands the step;
 * the input node keeps the f32 ids when a consumer of it declares
@@ -44,8 +51,10 @@ import torch
 
 from ..layers import Layer, LossLayer, create_layer
 from ..layers.conv import ConvolutionLayer
+from ..layers.linear import FullConnectLayer
 from ..layers.structure import SplitLayer
 from ..ops import kernels as _klib
+from ..ops import quant as opsq
 from ..ops.kernels import conv_block as _kcb
 from .graph import NetGraph
 
@@ -261,32 +270,51 @@ class FunctionalNet:
     # ------------------------------------------------------------------
     def prepare(self, params: Dict[str, dict]) -> Dict[str, object]:
         """Master params -> the forward's operands: each layer's params in
-        the compute dtype and its kernel's layout, and each sibling-1x1
-        group's concatenated ``(C, O)`` kernel and ``(O,)`` bias (zeros
-        for members without one; None when no member has one).  Once per
-        load for predict; per step, under autograd, for training."""
+        the compute dtype and its kernel's layout (none for the members of
+        a sibling-1x1 group, which run as the group; a quantized entry's
+        codes, scales and bias as they are, ``opsq.prepare_q``), and each
+        sibling-1x1 group's concatenated ``(C, O)`` kernel (None when a
+        member is quantized: ``_group_kernel`` builds it per forward from
+        ``members``) and ``(O,)`` bias (zeros for members without one;
+        None when no member has one).  Once per load for predict; per
+        step, under autograd, for training."""
         cdt = self.compute_dtype
+        member = self._sibling_1x1_groups()[1] if self.fuse_1x1 else {}
         layers: Dict[str, dict] = {}
         for i, key in enumerate(self.param_key):
-            if key in params and key not in layers:
-                layers[key] = self.layer_objs[i].prepare(params[key], cdt)
+            if key in params and key not in layers and i not in member:
+                layers[key] = (opsq.prepare_q(params[key])
+                               if opsq.is_quantized(params[key]) else
+                               self.layer_objs[i].prepare(params[key], cdt))
         groups = {}
         if self.fuse_1x1:
             for leader, idxs in self._sibling_1x1_groups()[0].items():
                 ps = [params[self.param_key[j]] for j in idxs]
-                ws = [p["wmat"].reshape(p["wmat"].shape[2], -1) for p in ps]
+                splits = [(p[opsq.QKEY] if opsq.is_quantized(p)
+                           else p["wmat"]).shape[3] for p in ps]
                 bias = None
                 if any("bias" in p for p in ps):
+                    dev = next(p["bias"] for p in ps if "bias" in p).device
                     bias = torch.cat([
-                        p["bias"] if "bias" in p else
-                        torch.zeros(w.shape[1], device=w.device)
-                        for p, w in zip(ps, ws)]).to(cdt)
+                        p["bias"] if "bias" in p else torch.zeros(n, device=dev)
+                        for p, n in zip(ps, splits)]).to(cdt)
+                quant = any(opsq.is_quantized(p) for p in ps)
                 groups[leader] = {
-                    "w2d": torch.cat(ws, dim=1).to(cdt).contiguous(),
+                    "w2d": None if quant else self._group_kernel(ps, cdt),
+                    "members": ps if quant else None,
                     "bias": bias,
-                    "splits": [w.shape[1] for w in ws],
+                    "splits": splits,
                 }
         return {"layers": layers, "groups": groups}
+
+    @staticmethod
+    def _group_kernel(ps: List[dict], cdt: torch.dtype) -> torch.Tensor:
+        """A sibling group's ``(C, O)`` kernel in ``cdt``: each member's
+        1x1 HWIO kernel (dequantized codes for an int8 member), side by
+        side on O."""
+        ws = [opsq.effective_wmat(p, cdt) for p in ps]
+        return torch.cat([w.reshape(w.shape[2], -1) for w in ws],
+                         dim=1).contiguous()
 
     def forward(self, prepared: Dict[str, object], data: torch.Tensor,
                 aux: Optional[Dict[str, dict]] = None,
@@ -337,7 +365,10 @@ class FunctionalNet:
                 if x is None:
                     raise ValueError(f"layer {i}: unset input node")
                 grp = groups[i]
-                y = _kcb.conv1x1_block(x, grp["w2d"], grp["bias"],
+                w2d = grp["w2d"]
+                if w2d is None:
+                    w2d = self._group_kernel(grp["members"], cdt)
+                y = _kcb.conv1x1_block(x, w2d, grp["bias"],
                                        stride=self.layer_objs[i].param.stride)
                 for j, part in zip(fuse_groups[i],
                                    torch.split(y, grp["splits"], dim=3)):
@@ -360,6 +391,10 @@ class FunctionalNet:
                 continue
             key = self.param_key[i]
             lparams = layers.get(key, {})
+            if opsq.is_quantized(lparams):
+                nodes[spec.nindex_out[0]] = self._apply_quant_layer(
+                    lay, lparams, inputs[0])
+                continue
             if aux is not None and key in aux and hasattr(lay,
                                                           "apply_stateful"):
                 outs, aux[key] = lay.apply_stateful(
@@ -370,6 +405,21 @@ class FunctionalNet:
             for n, v in zip(spec.nindex_out, outs):
                 nodes[n] = v
         return nodes, loss
+
+    @staticmethod
+    def _apply_quant_layer(lay: Layer, lparams: dict,
+                           x: torch.Tensor) -> torch.Tensor:
+        """One int8-quantized layer: the exporter quantizes plain conv and
+        fullc layers only, so anything else is a plan fault."""
+        if type(lay) is ConvolutionLayer:
+            p = lay.param
+            return opsq.conv_apply_q(lparams, x, p.stride, p.pad_y, p.pad_x,
+                                     groups=p.num_group)
+        if type(lay) is FullConnectLayer:
+            return opsq.fc_apply_q(lparams, x)
+        raise ValueError(
+            f"quantized params on unsupported layer {type(lay).__name__}: "
+            "the export plan covers conv and fullc only")
 
     def out_node_index(self) -> int:
         """The final node (prediction output)."""

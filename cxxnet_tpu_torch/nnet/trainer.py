@@ -16,6 +16,12 @@ The update writes the f32 masters in place, so it drops the operands
 ``update_period > 1``, ``save_ustate = 1``, the divergence guard and
 multi-device training raise ``NotImplementedError`` (ROADMAP.md).
 
+Quantized models (``nnet/quant.py``): a checkpoint whose header carries
+``quant`` loads as it was exported (int8 codes stay int8, bf16 kernels
+bf16, on the device too) and ``quant = int8|bf16`` on a plain checkpoint
+quantizes it at load, ungated (``_maybe_quantize``).  Such a trainer
+serves only: ``update`` raises.
+
 Device rule: ``dev = cpu`` runs on the CPU, and only when asked; every
 other value (``gpu``, ``cuda``, ``tpu``, ``gpu:0``, the default ``tpu``)
 means ``cuda:0`` and raises when there is no CUDA device.  A device
@@ -44,7 +50,8 @@ from .graph import NetGraph
 from .net import FunctionalNet
 
 _RANGE_RE = re.compile(r"^[a-z]*:(\d+)-(\d+)$")
-_BF16_SUFFIX = "~bf16"  # npz name suffix of a bf16 array (JAX writer)
+_BF16_SUFFIX = "~bf16"  # npz name suffix of a bf16 array, as uint16 words
+_KEEP_DTYPES = (torch.int8, torch.bfloat16)  # a quantized model's leaves
 
 
 def resolve_device(dev: str) -> torch.device:
@@ -68,9 +75,14 @@ def resolve_device(dev: str) -> torch.device:
 def params_from_numpy(raw: Dict[str, Dict[str, np.ndarray]],
                       device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
     """``{key: {tag: ndarray}}`` -> ``{key: {tag: Tensor}}`` on
-    ``device``, same layouts (HWIO conv, (nout, nin) fullc)."""
-    return {key: {tag: torch.from_numpy(np.array(w, copy=True)).to(device)
-                  for tag, w in tags.items()}
+    ``device``, same layouts (HWIO conv, (nout, nin) fullc).  A leaf that
+    is already a tensor (a quantized file's bf16 kernel) moves as is."""
+    def tensor(w):
+        if isinstance(w, torch.Tensor):
+            return w.to(device)
+        return torch.from_numpy(np.array(w, copy=True)).to(device)
+
+    return {key: {tag: tensor(w) for tag, w in tags.items()}
             for key, tags in raw.items()}
 
 
@@ -104,6 +116,9 @@ class NetTrainer:
         self._prep_lock = threading.Lock()
         self._prep_src = None
         self._prepared = None
+        self.quant_scheme = ""  # "int8" / "bf16": inference-only params
+        self.quant_plan: Optional[Dict[str, str]] = None
+        self._quant_requested = ""
 
     # ------------------------------------------------------------------
     def set_param(self, name: str, val: str) -> None:
@@ -128,11 +143,14 @@ class NetTrainer:
         elif name == "kernel_lib":
             _klib.parse_mode(val)
         elif name == "quant":
-            if val in ("int8", "bf16"):
-                raise NotImplementedError(
-                    f"quant={val}: quantized serving is not ported yet "
-                    "(ROADMAP.md queue A item 3)")
-            if val not in ("", "0", "off", "none"):
+            # the inference weight precision; a .quant.model artifact
+            # carries its own, and this key quantizes a plain checkpoint
+            # at load, ungated (task=export_quant gates)
+            if val in ("", "0", "off", "none"):
+                self._quant_requested = ""
+            elif val in ("int8", "bf16"):
+                self._quant_requested = val
+            else:
                 raise ValueError(
                     f"quant={val!r}: supported schemes are int8 and "
                     "bf16 (0/off disables)")
@@ -179,12 +197,34 @@ class NetTrainer:
                         f"metric[...,{node}]: cannot find node name "
                         f"{node!r} in the net graph") from e
 
-    def _set_master(self, params: Dict[str, dict]) -> None:
-        self.params = {k: {t: w.to(self.device, torch.float32)
+    def _set_master(self, params: Dict[str, dict], quant_scheme: str = "",
+                    quant_plan: Optional[Dict[str, str]] = None) -> None:
+        """``params`` on the device: the f32 masters and their updaters,
+        or with ``quant_scheme`` a quantized model's leaves, whose int8
+        codes and bf16 kernels keep their dtype, and no updaters (the
+        trainer is then inference-only)."""
+        self.params = {k: {t: w.to(self.device) if w.dtype in _KEEP_DTYPES
+                           else w.to(self.device, torch.float32)
                            for t, w in tags.items()}
                        for k, tags in params.items()}
+        self.quant_scheme, self.quant_plan = quant_scheme, quant_plan
         self._invalidate_prepared()
-        self._build_updaters()
+        if quant_scheme:
+            self.updaters, self.ustates = {}, {}
+        else:
+            self._build_updaters()
+
+    def _maybe_quantize(self) -> None:
+        """Apply the conf's ``quant`` scheme to freshly loaded or drawn
+        f32 params: the ungated on-load path (a serving process has no
+        held-out data to gate on; ``task=export_quant`` gates)."""
+        if not self._quant_requested or self.quant_scheme:
+            return
+        from . import quant as nquant
+
+        plan = nquant.build_plan(self, self._quant_requested)
+        if plan:
+            nquant.apply_plan(self, plan, self._quant_requested)
 
     def _invalidate_prepared(self) -> None:
         """Drop the operands prepared from the current weights: after a
@@ -219,6 +259,7 @@ class NetTrainer:
         gen = torch.Generator().manual_seed(self.seed)
         self._set_master(self.net.init_params(gen, self.batch_size))
         self.epoch_counter = 0
+        self._maybe_quantize()
 
     # ------------------------------------------------------------------
     # checkpoints: magic | u32 header length | json header | npz params
@@ -226,27 +267,29 @@ class NetTrainer:
     def _read_model_file(cls, path: str):
         """Parse a checkpoint -> ``(header, params, aux)`` with
         ``{key: {tag: ndarray}}`` dicts.  Updater state (``ust:`` entries
-        of ``save_ustate=1`` checkpoints) is training state: skipped."""
+        of ``save_ustate=1`` checkpoints) is training state: skipped.
+        A bf16 leaf (``~bf16`` uint16 words) widens exactly to f32 in a
+        plain checkpoint and stays a ``torch.bfloat16`` tensor in a
+        quantized one, whose fallback kernels are bf16 by design."""
         with open(path, "rb") as f:
             if f.read(8) != MODEL_MAGIC:
                 raise ValueError(f"{path}: not a cxxnet-tpu model file")
             (hlen,) = struct.unpack("<I", f.read(4))
             header = json.loads(f.read(hlen).decode("utf-8"))
             blob = f.read()
-        if header.get("quant"):
-            raise NotImplementedError(
-                f"{path}: quantized checkpoint ({header['quant'].get('scheme')}"
-                "); quantized serving is not ported yet (ROADMAP.md queue A "
-                "item 3)")
+        quant = bool(header.get("quant"))
         npz = np.load(_io.BytesIO(blob))
         params: Dict[str, dict] = {}
         aux: Dict[str, dict] = {}
         for k in npz.files:
             arr = npz[k]
             if k.endswith(_BF16_SUFFIX):
-                # bf16 stored as its uint16 words: widen exactly to f32
                 k = k[:-len(_BF16_SUFFIX)]
-                arr = (arr.astype(np.uint32) << 16).view(np.float32)
+                if quant:
+                    arr = torch.from_numpy(arr.view(np.int16)).view(
+                        torch.bfloat16)
+                else:  # the uint16 words widen exactly to f32
+                    arr = (arr.astype(np.uint32) << 16).view(np.float32)
             key, tag = k.rsplit("/", 1)
             if key.startswith("ust:"):
                 continue
@@ -257,15 +300,27 @@ class NetTrainer:
         return header, params, aux
 
     def checkpoint_bytes(self) -> bytes:
-        """The full checkpoint as one byte string (f32 master params)."""
+        """The full checkpoint as one byte string: the f32 masters, or a
+        quantized model's leaves with the ``quant`` header block and bf16
+        kernels as ``~bf16`` uint16 words."""
         header = {
             "structure": json.loads(self.graph.structure_to_json()),
             "epoch_counter": self.epoch_counter,
         }
+        if self.quant_scheme:
+            header["quant"] = {"scheme": self.quant_scheme,
+                               "scales_dtype": "float32",
+                               "layers": dict(self.quant_plan or {})}
         hjson = json.dumps(header).encode("utf-8")
-        flat = {f"{key}/{tag}": arr
-                for key, tags in params_to_numpy(self.params).items()
-                for tag, arr in tags.items()}
+        flat = {}
+        for key, tags in self.params.items():
+            for tag, w in tags.items():
+                w = w.detach().cpu()
+                if w.dtype == torch.bfloat16:
+                    flat[f"{key}/{tag}{_BF16_SUFFIX}"] = (
+                        w.view(torch.int16).numpy().view(np.uint16))
+                else:
+                    flat[f"{key}/{tag}"] = w.numpy()
         buf = _io.BytesIO()
         np.savez(buf, **flat)
         return (MODEL_MAGIC + struct.pack("<I", len(hjson)) + hjson
@@ -280,9 +335,16 @@ class NetTrainer:
         """Atomic checkpoint write plus the sidecar manifest."""
         blob = self.checkpoint_bytes()
         if manifest:
+            quant = None
+            if self.quant_scheme:
+                kinds = list((self.quant_plan or {}).values())
+                quant = {"scheme": self.quant_scheme,
+                         "scales_dtype": "float32",
+                         "int8_layers": kinds.count("int8"),
+                         "bf16_layers": kinds.count("bf16")}
             ckpt.write_checkpoint(
                 path, blob, round_=self.round if round_ is None else round_,
-                net_fp=self.net_fp())
+                net_fp=self.net_fp(), quant=quant)
         else:
             ckpt.atomic_write_bytes(path, blob)
 
@@ -300,7 +362,14 @@ class NetTrainer:
         graph = NetGraph.structure_from_json(json.dumps(header["structure"]))
         self._build_net(graph)
         self.epoch_counter = int(header["epoch_counter"])
-        self._set_master(params_from_numpy(raw))
+        q = header.get("quant")
+        if q:  # an exported artifact: its leaves ARE the serving params
+            self._set_master(params_from_numpy(raw),
+                             str(q.get("scheme", "int8")),
+                             dict(q.get("layers") or {}))
+        else:
+            self._set_master(params_from_numpy(raw))
+            self._maybe_quantize()
         self.net.infer_shapes(self.batch_size)
 
     # ------------------------------------------------------------------
@@ -438,6 +507,11 @@ class NetTrainer:
         every tensor in place, and ``epoch_counter += 1``."""
         if self.net is None:
             raise RuntimeError("update: init_model or load_model first")
+        if self.quant_scheme:
+            raise ValueError(
+                f"this trainer serves a quantized model ({self.quant_scheme})"
+                " and is inference-only: train on the f32 checkpoint and "
+                "export again")
         data_in, label_in, mask_np, n_real = self._pad_train_batch(batch)
         dev = self.device
         data = torch.as_tensor(data_in, dtype=torch.float32, device=dev)

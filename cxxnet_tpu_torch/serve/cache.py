@@ -8,7 +8,9 @@ the buckets still bound the set of batch shapes the device sees (cuDNN
 picks its algorithms per shape, and a later CUDA-graph capture will be
 one graph per bucket), and they keep the served answers equal to the
 JAX package's for the same request.  Hits and misses are counted by
-``(net_fingerprint, kind, node, bucket, row_shape, dtype)``.
+``(net_fingerprint, kind, node, bucket, row_shape, dtype, quant
+scheme)``: an f32 model and its int8 export share a net fingerprint, so
+the scheme, the last component, keeps their entries apart.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import threading
 from typing import Dict, Optional
 
 import numpy as np
+
+from ..ops import quant as opsq
 
 __all__ = ["bucket_size", "ShapeBucketCache"]
 
@@ -44,6 +48,11 @@ class ShapeBucketCache:
             self._net_fp = self._trainer.net_fp()
         return self._net_fp
 
+    def quant_scheme(self) -> str:
+        """The served weights' scheme: ``"int8"`` / ``"bf16"`` for a
+        quantized model, ``""`` for f32."""
+        return opsq.scheme_of(self._trainer)
+
     def bucket_for(self, n: int) -> int:
         return bucket_size(n)
 
@@ -59,7 +68,7 @@ class ShapeBucketCache:
         n = data.shape[0]
         bucket = self.bucket_for(n)
         key = (self.net_fp(), kind, node_id, bucket, data.shape[1:],
-               str(data.dtype))
+               str(data.dtype), self.quant_scheme())
         with self._lock:
             if key in self._keys:
                 self._keys[key] += 1

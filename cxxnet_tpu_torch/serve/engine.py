@@ -11,15 +11,21 @@ Counterpart of ``cxxnet_tpu/serve/engine.py`` for this slice:
   :class:`~.batcher.MicroBatcher`; ``submit`` is the direct Python API
   (numpy in, numpy out, thread-safe);
 * **metrics** — a :class:`~.metrics.ServingStats` shared with the
-  front-end's ``/statsz``.
+  front-end's ``/statsz``;
+* **quantized serving** — under ``quant = int8|bf16`` the engine loads
+  the ``.quant.model`` sibling of the checkpoint it picked when one
+  exists, validates and carries that scheme; past a sibling that fails
+  to load it serves the round's f32 base; with no sibling the trainer
+  quantizes on load, ungated.  ``/healthz`` and ``/statsz`` report the
+  scheme and the weight bytes at rest against their dense-f32 cost.
 
-Hot reload, the canary, the reload breaker, quantized serving, the
-binary wire, the fleet/router and the tuner are later slices
-(ROADMAP.md).
+Hot reload, the canary, the reload breaker, the binary wire, the
+fleet/router and the tuner are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -28,7 +34,9 @@ import numpy as np
 
 from .. import config as cfgmod
 from ..nnet.graph import NetGraph
+from ..nnet.quant import quant_artifact_path
 from ..nnet.trainer import NetTrainer
+from ..ops import quant as opsq
 from ..utils import checkpoint as ckpt
 from .batcher import ClosedError, MicroBatcher, ServeError
 from .cache import ShapeBucketCache
@@ -77,6 +85,12 @@ class Engine:
         self._cfg = _parse_cfg(cfg)
         self.model_dir = model_dir
         self.silent = silent
+        # the scheme to prefer a .quant.model sibling for; the trainer
+        # validates the value
+        self.quant = ""
+        for n, v in self._cfg:
+            if n == "quant":
+                self.quant = "" if v in ("", "0", "off", "none") else v
         self.default_deadline_ms = float(default_deadline_ms)
         self._model_lock = threading.RLock()
         self._round = -1
@@ -87,6 +101,7 @@ class Engine:
                 raise ValueError("Engine(trainer=...): init/load it first")
             self._trainer = trainer
         elif model_in is not None:
+            model_in = self._prefer_quant(model_in)
             reason = ckpt.validate_checkpoint(model_in,
                                               net_fp=self._conf_net_fp())
             if reason is not None:
@@ -102,6 +117,8 @@ class Engine:
             max_batch_size = self._trainer.batch_size or 64
         self.max_batch_size = max_batch_size
         self.stats = ServingStats()
+        self.stats.set_weights(*opsq.weight_bytes(self._trainer.params),
+                               opsq.scheme_of(self._trainer) or "f32")
         self._cache = ShapeBucketCache(self._trainer)
         self._row_shapes = self._allowed_row_shapes(self._trainer)
         self.batcher = MicroBatcher(
@@ -128,20 +145,54 @@ class Engine:
                 detail = f" (last load failure: {last_err})" if last_err else ""
                 raise ModelLoadError(
                     f"no loadable checkpoint in {model_dir!r}{detail}")
+            path = self._prefer_quant(found[1])
             try:
-                self._trainer = self._load_trainer(found[1])
+                self._trainer = self._load_trainer(path)
             except NotImplementedError:
                 raise
             except Exception as e:  # noqa: BLE001 - fall back past it
                 last_err = e
-                if not self.silent:
-                    print(f"serve: checkpoint {found[1]} failed to load "
-                          f"({type(e).__name__}: {e}); falling back to an "
-                          "older round", flush=True)
-                before = found[0]
-                continue
-            self._set_model(found[1], found[0])
+                if path != found[1]:
+                    # the quant sibling failed: the round's f32 base may
+                    # still load; try it before skipping the round
+                    if not self.silent:
+                        print(f"serve: quant artifact {path} failed to load "
+                              f"({type(e).__name__}: {e}); trying the f32 "
+                              "base", flush=True)
+                    path = found[1]
+                    try:
+                        self._trainer = self._load_trainer(path)
+                    except NotImplementedError:
+                        raise
+                    except Exception as e2:  # noqa: BLE001
+                        last_err = e2
+                        before = found[0]
+                        continue
+                else:
+                    if not self.silent:
+                        print(f"serve: checkpoint {path} failed to load "
+                              f"({type(e).__name__}: {e}); falling back to "
+                              "an older round", flush=True)
+                    before = found[0]
+                    continue
+            self._set_model(path, found[0])
             return
+
+    def _prefer_quant(self, path: str) -> str:
+        """Under ``quant = <scheme>``: the checkpoint's ``.quant.model``
+        sibling when it exists, validates and carries that scheme in its
+        manifest; else ``path`` (whose trainer then quantizes on load)."""
+        if not self.quant:
+            return path
+        qp = quant_artifact_path(path)
+        if qp == path or not os.path.exists(qp):
+            return path
+        if ckpt.validate_checkpoint(qp, net_fp=self._conf_net_fp()) is not None:
+            return path
+        man = ckpt.read_manifest(qp) or {}
+        if (man.get("quant") or {}).get("scheme") != self.quant:
+            return path
+        return qp
 
     def _conf_net_fp(self) -> Optional[str]:
         """Fingerprint of the conf's netconfig for manifest validation
@@ -280,7 +331,7 @@ class Engine:
                 "model": self._model_path,
                 "model_crc32": self._model_crc,
                 "net_fp": self._cache.net_fp(),
-                "quant": "f32",
+                "quant": self._cache.quant_scheme() or "f32",
                 "device": str(self._trainer.device),
                 "reasons": [],
             }
@@ -289,9 +340,12 @@ class Engine:
         out = self.stats.snapshot()
         with self._model_lock:
             out["compile_cache"] = self._cache.stats()
+            wb, wb32 = opsq.weight_bytes(self._trainer.params)
             out["model"] = {"path": self._model_path, "round": self._round,
                             "crc32": self._model_crc,
-                            "net_fp": self._cache.net_fp(), "quant": "f32"}
+                            "net_fp": self._cache.net_fp(),
+                            "quant": self._cache.quant_scheme() or "f32",
+                            "weight_bytes": wb, "weight_bytes_f32": wb32}
         out["batcher"] = {
             "max_batch_size": self.batcher.max_batch_size,
             "batch_timeout_ms": self.batcher.batch_timeout * 1e3,

@@ -2,8 +2,10 @@
 
 The per-engine half of ``cxxnet_tpu/serve/metrics.py``: one
 :class:`ServingStats` per engine, fed by the batcher and the request
-path, rendered by ``GET /statsz``.  The process-wide Prometheus
-registry (``/metricsz``) belongs to a later slice.
+path, rendered by ``GET /statsz``, with the served model's weight
+gauges (``serve_weight_bytes``, ``serve_weight_bytes_f32`` and
+``serve_quant_scheme`` there).  The process-wide Prometheus registry
+(``/metricsz``) belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -32,9 +34,21 @@ class ServingStats:
         self.bucket_rows = 0
         self._latency = collections.deque(maxlen=latency_window)
         self._queue_depth: Optional[Callable[[], int]] = None
+        self.weight_bytes = 0
+        self.weight_bytes_f32 = 0
+        self.quant_scheme = "f32"
 
     def bind_queue_depth(self, fn: Callable[[], int]) -> None:
         self._queue_depth = fn
+
+    def set_weights(self, actual: int, f32_equiv: int, scheme: str) -> None:
+        """The served model's weight bytes at rest as stored, their
+        dense-f32 cost, and its precision scheme (``f32`` / ``int8`` /
+        ``bf16``): the proof that an int8 export shrank what is served."""
+        with self._lock:
+            self.weight_bytes = int(actual)
+            self.weight_bytes_f32 = int(f32_equiv)
+            self.quant_scheme = scheme
 
     def record_request(self, rows: int) -> None:
         with self._lock:
@@ -70,6 +84,9 @@ class ServingStats:
                                      if self.bucket_rows else 0.0),
                 "rows_per_batch": (self.batch_rows / self.batches
                                    if self.batches else 0.0),
+                "weight_bytes": self.weight_bytes,
+                "weight_bytes_f32": self.weight_bytes_f32,
+                "quant_scheme": self.quant_scheme,
             }
         out["latency_ms"] = ({
             "count": int(lat.size),

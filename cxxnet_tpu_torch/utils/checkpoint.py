@@ -81,11 +81,15 @@ def manifest_path(model_path: str) -> str:
 
 def write_manifest(model_path: str, blob: bytes,
                    round_: Optional[int] = None,
-                   net_fp: Optional[str] = None) -> dict:
+                   net_fp: Optional[str] = None,
+                   quant: Optional[dict] = None) -> dict:
     """Write the sidecar manifest for an already-written checkpoint whose
     exact bytes are ``blob``; written after the checkpoint, so a
     manifest's existence implies its checkpoint was fully durable.  The
-    port writes no updater state (``save_ustate`` 0)."""
+    port writes no updater state (``save_ustate`` 0).  ``quant``
+    (``{"scheme", "scales_dtype", "int8_layers", "bf16_layers", ...}``)
+    marks a quantized inference artifact (``nnet/quant.py``); it is
+    absent on f32 checkpoints."""
     man = {
         "format": MANIFEST_FORMAT,
         "crc32": crc32_of(blob),
@@ -95,16 +99,19 @@ def write_manifest(model_path: str, blob: bytes,
         "save_ustate": 0,
         "time": time.time(),
     }
+    if quant is not None:
+        man["quant"] = quant
     atomic_write_bytes(manifest_path(model_path),
                        (json.dumps(man, indent=1) + "\n").encode("utf-8"))
     return man
 
 
 def write_checkpoint(path: str, blob: bytes, round_: Optional[int] = None,
-                     net_fp: Optional[str] = None) -> None:
+                     net_fp: Optional[str] = None,
+                     quant: Optional[dict] = None) -> None:
     """Atomic payload write, then the sidecar manifest."""
     atomic_write_bytes(path, blob)
-    write_manifest(path, blob, round_=round_, net_fp=net_fp)
+    write_manifest(path, blob, round_=round_, net_fp=net_fp, quant=quant)
 
 
 def read_manifest(model_path: str) -> Optional[dict]:

@@ -6,7 +6,10 @@ attention forward (K9) within 1e-5 (float32) and 1e-2 (bfloat16) and
 the backward (K10) within 1e-6 and 8e-3 of each row's largest plain
 magnitude, over ragged and cross lengths, offsets with fully masked
 rows, head dims 16, 32 and 64, and strided q/k/v slices of a fused qkv
-tensor.
+tensor; the int8 GEMM (K7) within 1e-5 (float32) and 8e-3 (bfloat16,
+one rounding) of each row's largest plain magnitude, with and without
+bias and relu, at ragged M, K and O and at K not a multiple of 8 (the
+kernel's scalar loads), and a quantized net's forward on the card.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -19,7 +22,8 @@ import pytest
 import torch
 
 from cxxnet_tpu_torch.ops import flash, lrn, maxpool
-from cxxnet_tpu_torch.ops.kernels import conv_block, update_step
+from cxxnet_tpu_torch.ops import quant as opsq
+from cxxnet_tpu_torch.ops.kernels import conv_block, int8_gemm, update_step
 
 # (h, w, k, s, p) as in test_torch_ops.py: strides 1 and 2, pads 0 and 1,
 # partial edge windows
@@ -294,3 +298,86 @@ def test_cuda_flash_refuses_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="strides"):
         z = torch.randn(1, 8, 1, 17, device=cuda_device)[..., 1:]
         flash.flash_fwd(z, y, y)
+
+
+# (M, K, O): ragged everywhere; K % 8 != 0 takes the scalar loads; one
+# GoogLeNet shape (i4e_pool_proj) and the classifier's
+INT8_CASES = [(5, 17, 9), (100, 64, 64), (257, 528, 128), (130, 1024, 1000),
+              (70, 40, 33), (333, 200, 72)]
+INT8_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def _int8_operands(device, dtype, m, k, o, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=gen).to(device, dtype)
+    q = torch.randint(-127, 128, (o, k), generator=gen,
+                      dtype=torch.int8).to(device)
+    scale = (torch.rand(o, generator=gen) * 0.01 / k ** 0.5).to(device)
+    bias = (torch.randn(o, generator=gen) * 0.1).to(device)
+    return x, q, scale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,o", INT8_CASES)
+def test_cuda_int8_gemm_matches_plain(cuda_device, dtype, m, k, o):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, q, scale, bias = _int8_operands(cuda_device, dtype, m, k, o, m + k)
+    for b in (bias, None):
+        for relu in (False, True):
+            n0 = int8_gemm.KERNEL.launches
+            got = int8_gemm.int8_gemm_rescale(x, q, scale, b, relu)
+            torch.cuda.synchronize()
+            assert int8_gemm.KERNEL.launches == n0 + 1
+            assert got.dtype == dtype and got.shape == (m, o)
+            ref = int8_gemm.int8_gemm_plain(x, q, scale, b, relu)
+            _close(got, ref, INT8_TOL[dtype], f"int8 {m}x{k}x{o} bias "
+                   f"{b is not None} relu {relu}")
+
+
+@pytest.mark.cuda
+def test_cuda_int8_gemm_refuses_what_the_kernel_does_not_take(cuda_device):
+    x, q, scale, bias = _int8_operands(cuda_device, torch.float32, 8, 16,
+                                       4, 0)
+    with pytest.raises(TypeError):
+        int8_gemm.int8_gemm_rescale(x.half(), q, scale)
+    with pytest.raises(TypeError):
+        int8_gemm.int8_gemm_rescale(x, q.float(), scale)
+    with pytest.raises(TypeError):
+        int8_gemm.int8_gemm_rescale(x, q, scale.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_gemm.int8_gemm_rescale(x.t().contiguous().t(), q, scale)
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_gemm.int8_gemm_rescale(x, q.cpu(), scale)
+    with pytest.raises(ValueError, match="entries"):
+        int8_gemm.int8_gemm_rescale(x, q, scale, bias[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantized_layers_launch_k7(cuda_device, dtype):
+    """A 1x1 conv (strided too) and a 2-D fullc run K7 on the card and
+    agree with the same layers on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(1)
+    w = torch.randn(1, 1, 24, 16, generator=gen)
+    q, s = opsq.quantize_weight(w.numpy(), 3)
+    lp = opsq.prepare_q({opsq.QKEY: torch.from_numpy(q),
+                         opsq.SKEY: torch.from_numpy(s),
+                         "bias": torch.randn(16, generator=gen)})
+    x = torch.randn(2, 9, 9, 24, generator=gen)
+    for stride in (1, 2):
+        ref = opsq.conv_apply_q(lp, x.to(dtype), stride, 0, 0)
+        card = {t: v.to(cuda_device) for t, v in lp.items()}
+        n0 = int8_gemm.KERNEL.launches
+        got = opsq.conv_apply_q(card, x.to(cuda_device, dtype), stride, 0, 0)
+        torch.cuda.synchronize()
+        assert int8_gemm.KERNEL.launches == n0 + 1
+        _close(got.cpu(), ref, INT8_TOL[dtype], f"1x1 conv stride {stride}")
+    fq = {opsq.QKEY: torch.from_numpy(q.reshape(24, 16).T.copy()),
+          opsq.SKEY: torch.from_numpy(s)}
+    ref = opsq.fc_apply_q(fq, x.reshape(-1, 24).to(dtype))
+    got = opsq.fc_apply_q({t: v.to(cuda_device) for t, v in fq.items()},
+                          x.reshape(-1, 24).to(cuda_device, dtype))
+    _close(got.cpu(), ref, INT8_TOL[dtype], "fullc")

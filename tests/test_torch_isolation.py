@@ -1,15 +1,15 @@
 """The port stands alone: no JAX, no ``cxxnet_tpu``, no silent CPU.
 
-* ``import cxxnet_tpu_torch`` (with its serving package, its CLI and
-  the language-model modules) leaves ``jax``
+* ``import cxxnet_tpu_torch`` (with its serving package, its CLI, the
+  language-model modules and the quantized ones) leaves ``jax``
   and ``cxxnet_tpu`` out of ``sys.modules``.  Checked in a subprocess,
   because this test process imports jax in ``conftest.py``.
 * No file of the port, nor ``chip_smoke.py``, imports either by name.
 * ``dev`` other than ``cpu`` means the card and raises without one; a
   device range raises ``NotImplementedError``.
 * The conf surfaces the JAX package validates (``pool_impl``,
-  ``lrn_impl``, ``kernel_lib``, quantized checkpoints) are validated or
-  refused the same way.
+  ``lrn_impl``, ``kernel_lib``) are validated the same way, and a
+  quantized checkpoint loads with its int8 and bf16 leaves as stored.
 """
 
 import ast
@@ -41,7 +41,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import cxxnet_tpu_torch, cxxnet_tpu_torch.serve, "
         "cxxnet_tpu_torch.cli, cxxnet_tpu_torch.models, "
         "cxxnet_tpu_torch.nnet.generate, cxxnet_tpu_torch.io.text, "
-        "cxxnet_tpu_torch.layers.sequence, cxxnet_tpu_torch.ops.flash\n"
+        "cxxnet_tpu_torch.layers.sequence, cxxnet_tpu_torch.ops.flash, "
+        "cxxnet_tpu_torch.ops.quant, cxxnet_tpu_torch.nnet.quant\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
         f" in {FORBIDDEN!r})))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -143,15 +144,29 @@ def test_kernel_switches_are_parsed_and_validated(key, good, bad):
 
 
 def test_quantized_checkpoints_name_their_roadmap_item(tmp_path):
+    """Quantized serving is ported (ROADMAP.md queue A item 3): a
+    checkpoint whose header carries ``quant`` loads, its int8 codes stay
+    int8 and its bf16 kernels stay bf16, bit for bit."""
     header = json.dumps({"structure": {}, "epoch_counter": 0,
                          "quant": {"scheme": "int8"}}).encode()
+    codes = np.array([[-127, 0], [5, 127]], np.int8)
+    words = np.array([0x3FC0, 0xC010], np.uint16)  # 1.5, -2.25 in bf16
     buf = io.BytesIO()
-    np.savez(buf, **{"l0_fc/wmat": np.zeros((2, 2), np.float32)})
+    np.savez(buf, **{"l0_fc/wmat_q8": codes,
+                     "l0_fc/wscale": np.ones(2, np.float32),
+                     "l1_fc/wmat~bf16": words})
     path = tmp_path / "q.model"
     path.write_bytes(MODEL_MAGIC + struct.pack("<I", len(header)) + header
                      + buf.getvalue())
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        ttrainer.NetTrainer._read_model_file(str(path))
+    head, params, _ = ttrainer.NetTrainer._read_model_file(str(path))
+    assert head["quant"] == {"scheme": "int8"}
+    np.testing.assert_array_equal(params["l0_fc"]["wmat_q8"], codes)
+    bf = params["l1_fc"]["wmat"]
+    assert bf.dtype == torch.bfloat16
+    assert bf.float().tolist() == [1.5, -2.25]
+    moved = ttrainer.params_from_numpy(params)
+    assert moved["l0_fc"]["wmat_q8"].dtype == torch.int8
+    assert moved["l1_fc"]["wmat"].dtype == torch.bfloat16
 
 
 def test_bf16_checkpoint_entries_widen_exactly(tmp_path):
