@@ -11,15 +11,19 @@ visible to query ``i`` unless ``causal`` and ``q_off + i < k_off + j``:
   probabilities rounded to ``v``'s dtype before the product with ``v``;
   ``o = acc / max(l, 1e-30)`` and ``lse = m + log(max(l, 1e-30))``, so a
   row with no visible key gives ``o = 0`` and ``lse = -1e30``;
-* backward: ``p = exp(s - lse)`` (not rounded), ``ds = p * (dO.v -
-  dl)``, ``dq = scale * ds.k``, ``dk = scale * ds^T.q``, ``dv = p^T.dO``,
-  where ``dl = delta - dlse``, ``delta = rowsum(dO * O)`` in f32 (a torch
-  op here, an XLA op in the JAX package) and ``dlse`` the cotangent of
+* backward: ``p = exp(s - lse)``, ``ds = p * (dO.v - dl)``, ``dq =
+  scale * ds.k``, ``dk = scale * ds^T.q``, ``dv = p^T.dO``, where ``dl =
+  delta - dlse``, ``delta = rowsum(dO * O)`` in f32 (a torch op here, an
+  XLA op in the JAX package) and ``dlse`` the cotangent of
   ``flash_mha_lse``'s LSE, so the same kernels serve both entry points.
+  In bf16, ``p`` and ``ds`` are rounded to bf16 before the three
+  gradient products (the tensor cores' operand type; the JAX package's
+  Pallas kernels keep them f32); in f32 nothing is rounded.
 
 * ``flash_fwd`` (K9, ``csrc/flash_fwd.cu``) and ``flash_bwd`` (K10,
   ``csrc/flash_bwd.cu``: the dQ kernel and the dK/dV kernel, launched
-  together) take the plain version only for tensors on the CPU; for
+  together; bf16 on the tensor cores, f32 on the CUDA cores) take the
+  plain version only for tensors on the CPU; for
   CUDA tensors they launch their kernels or raise.  The kernels read
   strided ``(B, T, H, Dh)`` views in place (the q, k, v slices of a
   fused qkv projection), refuse a layout they cannot read that way, and
@@ -93,7 +97,9 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` by the explicit formulas (not autograd), from
     the forward's ``lse`` and ``dl = delta - dlse``, both ``(B, H, T)``
-    f32; each gradient in its input's dtype."""
+    f32; each gradient in its input's dtype.  ``p`` and ``ds`` are
+    rounded to the input dtype before the three gradient products, as
+    the bf16 kernel's tensor cores take them (a no-op in f32)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
@@ -103,6 +109,7 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.where(vis, p, torch.zeros_like(p))
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - dl[..., None])
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)

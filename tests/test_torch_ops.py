@@ -35,13 +35,18 @@ port's counterpart:
   lengths, offsets with fully masked rows through ``flash_mha_lse``;
   f32 outputs and LSE within 1e-5, gradients against ``jax.vjp`` within
   2e-4 (with an LSE cotangent in the offset cases), bf16 within 0.05 of
-  f32; the dense ``mha`` against the JAX package's within 1e-5.
+  f32; the dense ``mha`` against the JAX package's within 1e-5; the
+  plain backward's rounding of p and dS to the input dtype: bit-equal to
+  the unrounded formulas in f32, in bf16 within 2e-2 of each row's
+  largest against ``jax.vjp`` of the Pallas kernels (interpret) and
+  within 1.5e-2 of the tensor's largest against the f32 backward.
 
 The CUDA kernels themselves run only on a card: ``test_torch_cuda.py``
 holds each against its plain version there.
 """
 
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -578,6 +583,90 @@ def test_flash_bwd_plain_is_the_autograd_of_mha():
                                 dl, True)
     for t, d in zip((q, k, v), got):
         torch.testing.assert_close(d, t.grad, rtol=1e-5, atol=1e-5)
+
+
+def _bwd_inputs(causal, dtype, seed):
+    """q, k, v, dO in ``dtype`` and the forward's lse and dl (f32), the
+    plain forward's, from seeded numpy draws."""
+    q, k, v = _qkv(seed=seed)
+    g = np.random.RandomState(seed + 100).randn(*q.shape).astype(np.float32)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(dtype) for a in (q, k, v, g))
+    o, lse = flash.flash_fwd_plain(tq, tk, tv, causal)
+    dl = (tg.float() * o.float()).sum(-1).permute(0, 2, 1)
+    return tq, tk, tv, tg, lse, dl
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_plain_f32_rounds_nothing(causal):
+    """In f32 the rounding of p and dS to the input dtype is a no-op: the
+    plain backward is bit-equal to the unrounded formulas."""
+    q, k, v, do, lse, dl = _bwd_inputs(causal, torch.float32, 21)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        vis = attention.causal_mask(q.shape[1], k.shape[1], 0, 0, q.device)
+        p = torch.where(vis, p, torch.zeros_like(p))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - dl[..., None])
+    want = (torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", p, do))
+    got = flash.flash_bwd_plain(q, k, v, do, lse, dl, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(a, b), name
+
+
+def _row_rel(got, ref):
+    """The worst row's largest error over that row's largest magnitude
+    (a row: one vector of Dh)."""
+    got, ref = (np.asarray(x, np.float32) for x in (got, ref))
+    err = np.abs(got - ref).max(-1)
+    return float((err / np.maximum(np.abs(ref).max(-1), 1e-30)).max())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_plain_bf16_matches_the_pallas_kernel(causal):
+    """bf16 through the autograd entry (plain forward, plain backward with
+    p and dS rounded to bf16) against ``jax.vjp`` of the Pallas kernels in
+    interpret mode (p and dS kept f32), on the same bf16 inputs.  Each
+    gradient row within 2e-2 of its largest magnitude: both sides round
+    their output to bf16 (one ulp apart reads 2**-7 = 7.8e-3), and the
+    port's p and dS roundings add a little (worst reading 9.05e-3)."""
+    q, k, v = _qkv(seed=22 + causal)
+    g = np.random.RandomState(23).randn(*q.shape).astype(np.float32)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: jflash.flash_mha(a, b, c, causal, 16, 32, True),
+        bf(q), bf(k), bf(v))
+    grads_j = vjp(bf(g))
+    tq, tk, tv = _torch_leaves(q, k, v, dtype=torch.bfloat16)
+    out = flash.flash_mha(tq, tk, tv, causal)
+    out.backward(torch.from_numpy(g).to(torch.bfloat16))
+    assert _row_rel(out.detach().float(), out_j.astype(jnp.float32)) <= 2e-2
+    for name, t, want in zip("qkv", (tq, tk, tv), grads_j):
+        assert t.grad.dtype == torch.bfloat16
+        rel = _row_rel(t.grad.float(), want.astype(jnp.float32))
+        assert rel <= 2e-2, f"d{name}: worst row-relative error {rel:.3g}"
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_plain_bf16_close_to_f32(causal):
+    """The bf16 plain backward against the f32 one on the same
+    bf16-valued inputs: each gradient within 1.5e-2 of the tensor's
+    largest magnitude (p, dS and the outputs rounded to bf16; worst
+    reading 5.7e-3).  Held to the tensor's largest, not per row: an early
+    causal row's dQ cancels to near zero, where bf16 leaves only noise."""
+    bf16 = _bwd_inputs(causal, torch.bfloat16, 24)
+    q, k, v, do = (x.float() for x in bf16[:4])  # the same values in f32
+    o, lse = flash.flash_fwd_plain(q, k, v, causal)
+    dl = (do * o).sum(-1).permute(0, 2, 1)
+    want = flash.flash_bwd_plain(q, k, v, do, lse, dl, causal)
+    got = flash.flash_bwd_plain(*bf16, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        rel = float((a.float() - b).abs().max() / b.abs().max())
+        assert rel <= 1.5e-2, f"{name}: {rel:.3g} of the largest"
 
 
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
