@@ -9,16 +9,28 @@ Phases; any failure ends the run with a non-zero exit and no result:
 
 1. The card's name and power limit (``nvidia-smi``), then the build of
    every kernel of the port from ``cxxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together) and its wall time.
+   ``nvcc`` per source, all started together) and its wall time; the
+   conv block's kernel functions' registers, spills, dynamic shared
+   memory and tensor-core instructions (``conv_block build:`` lines),
+   failing unless the wgmma kernel has HGMMA and no spills at each of
+   its five tile widths.
 2. Each kernel against its plain PyTorch version on the card, at every
    shape GoogLeNet's b128 training step gives it (read off the net's
    shape inference and its parameters), in float32 and bfloat16 (the
-   SGD step: float32, over all 116 parameter tensors): max abs/rel
-   error against the stated tolerance, the kernel's time, the plain
-   version's time, one PyTorch library call's time as a yardstick the
-   port never calls, and the bound: the larger of bytes over 3.35 TB/s
-   and operations over the peak rate for their type (989 TFLOP/s bf16
-   tensor cores, 67 TFLOP/s float32 without them).
+   SGD step: float32, over all 116 parameter tensors in one
+   multi-tensor launch, bit-equal): max abs/rel error against the
+   stated tolerance, the kernel's time, the plain version's time, one
+   PyTorch library call's time as a yardstick the port never calls, and
+   the bound: the larger of bytes over 3.35 TB/s and operations over the
+   peak rate for their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
+   float32 without them).  The conv block in bf16 must take its wgmma
+   kernel at each of the nine shapes, with relu and without the bias
+   too, and its mma.sync edge kernel (reached by its C entry) must agree
+   there as well; the two and ``torch.addmm`` are timed in turns.  The
+   edge path at a ragged shape (K and O off the main path's rule), f32
+   and bf16, with and without bias and relu.  The SGD step's multi
+   launch, the old per-tensor loop of one-tensor launches and the fused
+   ``torch.optim.SGD`` in turns.
 3. The serving path at full width: GoogLeNet from
    ``example/ImageNet/googlenet.conf`` (3x224x224, 1000 classes, every
    inception module, ``compute_dtype = bfloat16``) with seeded random
@@ -26,8 +38,9 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``Engine(model_in=...)`` behind the HTTP server on an ephemeral port:
    ``GET /healthz``, then ``POST /predict`` with 1, 7, 32 and 128 rows,
    each twice.  Every forward must launch the max-pool kernel 13 times,
-   the LRN kernel twice and the conv-block GEMM 9 times; the counts are
-   set to 0 just before these requests and read just after them.  Then
+   the LRN kernel twice and the conv-block GEMM 9 times, all on its
+   wgmma kernel; the counts are set to 0 just before these requests and
+   read just after them.  Then
    the 8-row bucket runs again in float32 with TF32 off and is held
    against the same checkpoint served on the CPU (the plain versions),
    and the bfloat16 answers are held against the float32 ones.
@@ -59,10 +72,11 @@ Phases; any failure ends the run with a non-zero exit and no result:
    256-row eval section, then ``googlenet.conf``'s netconfig and
    globals with ``dev=gpu``, ``num_round=2``, its learning rates scaled
    by ``LR_SCALE``): 2 rounds of 4 steps at batch 128 in bfloat16.  The counts are set to 0 just before the run
-   and read just after it; every step must launch K1 13, K4 2, K6 9,
-   K2 4, K3 9, K5 2 times and the SGD kernel once per parameter tensor
-   (116); every loss must be finite; the last round's checkpoint is
-   served by ``Engine`` and answers one ``/predict``.
+   and read just after it; every step must launch K1 13, K4 2, K6 9
+   (all wgmma, no edge), K2 4, K3 9, K5 2 times and the SGD kernel once
+   (the 116 parameter tensors in one multi-tensor launch); every loss
+   must be finite; the last round's checkpoint is served by ``Engine``
+   and answers one ``/predict``.
 6. Training parity on the card, from the run's first checkpoint and one
    8-row batch, dropout off: one float32 step with TF32 off against the
    same step on the CPU (plain versions), and one bfloat16 step against
@@ -113,14 +127,21 @@ Phases; any failure ends the run with a non-zero exit and no result:
    0 just before and read just after; the bytes per second of each
    path; and the card's probability rows against the CPU's on the same
    tokens, in float32, on both paths.
-12. A ``kernels`` JSON line (per kernel: launches on its main path's
+12. A small LM at head dim 128 (d 256, 2 heads, T 256, 2 blocks, batch
+   4, bf16), which the flash kernels are not built for: 2 training steps
+   under ``attn_impl = auto`` and ``xla`` through the dense ``mha``, no
+   kernel launched (counts at 0 just before, read just after), finite
+   losses; under ``pallas`` the step raises, naming the head dim.
+13. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
    forward kernels; the LM training run for K9 and K10, with the
    windowed generation run's; the int8 serving run for K7 — max error,
    and the times of one training step's launches summed: GoogLeNet b128
    bf16, or the LM step's 4 launches of K9 and of K10, or K7's 11
-   launches of one quantized b128 forward), the ``nvidia-smi`` line
-   again, and last the result line ``{"ok": true, "device": {...}}``.
+   launches of one quantized b128 forward; K6 also the mma.sync design's
+   time at the same shapes, K8 the per-tensor loop's), the
+   ``nvidia-smi`` line again, and last the result line ``{"ok": true,
+   "device": {...}}``.
 
 Tolerances (reasons in PERF.md):
 
@@ -130,7 +151,8 @@ Tolerances (reasons in PERF.md):
   against PyTorch's pow), 1e-2 in bfloat16 (one bf16 rounding of the
   output);
 * conv-block GEMM: rtol = atol = 1e-4 in float32 (summation order),
-  2e-2 in bfloat16 (one bf16 rounding of an f32 accumulator);
+  2e-2 in bfloat16 (one bf16 rounding of an f32 accumulator), both
+  bf16 kernels;
 * SGD step: bit-equal (rounded intrinsics in the plain version's order);
 * int8 GEMM, each row's largest error over that row's largest plain
   magnitude: 1e-5 in float32 (summation order), 8e-3 in bfloat16 (one
@@ -187,9 +209,14 @@ BATCH = 128
 REQUEST_ROWS = (1, 7, 32, 128)
 REPEATS = 2  # each request size is sent this many times
 PER_FORWARD = {"maxpool_fwd": 13, "lrn_fwd": 2, "conv_block_gemm": 9}
-# launches of one training step; the SGD kernel runs once per tensor
+# launches of one training step; the SGD kernel's are the step's tensors
+# over the multi-tensor launch's capacity (one launch for GoogLeNet's 116)
 PER_STEP = {**PER_FORWARD, "maxpool_bwd": 4, "maxpool_bwd_s1": 9,
             "lrn_bwd": 2}
+# K6 in bf16 has two kernels (ops/kernels/conv_block.py): every GoogLeNet
+# group takes the wgmma main path, none the mma.sync edge path, which is
+# checked at a shape off every tile and off the main path's rule
+CONV_RAGGED = (1001, 203, 77)  # M, K, O; K and O not multiples of 8
 TRAIN_ROWS, EVAL_ROWS, ROUNDS = 512, 256, 2
 # googlenet.conf's learning rates (eta, wmat:lr, bias:lr) are scaled by
 # this in the training run: from the conf's seeded init on synthetic
@@ -269,6 +296,9 @@ LSE_ATOL = 1e-5
 LM_UPDATE_REL, LM_UPDATE_REL_MEDIAN = 1e-3, 1e-4
 LM_UPDATE_COS, LM_UPDATE_COS_MEDIAN = 0.98, 0.999
 GEN_PROB_ATOL = 1e-5
+# an LM whose head dim (HD_DIM / HD_HEADS = 128) the flash kernels are
+# not built for: it trains through the dense mha on the card
+HD_T, HD_DIM, HD_HEADS, HD_LAYERS, HD_BATCH, HD_STEPS = 256, 256, 2, 2, 4, 2
 # training parity limits, set from the readings in PERF.md: the max-pool
 # backward is discontinuous (an activation whose sign or tie the two
 # sides' rounding decides differently moves a window's gradient), and
@@ -299,9 +329,18 @@ def gpu_line() -> str:
 # timing and bounds
 
 
-def time_ms(fn, reps: int = 7, inner: int = 3) -> float:
+# cycles of device sleep ahead of a device-time measurement: ~20 ms at
+# 1.98 GHz, longer than the host takes to enqueue the timed calls
+DEVICE_SLEEP = 40_000_000
+
+
+def time_ms(fn, reps: int = 7, inner: int = 3, device: bool = False) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back
-    calls, timed with CUDA events."""
+    calls, timed with CUDA events.  With ``device``, the card first
+    sleeps ``DEVICE_SLEEP`` cycles so that the host enqueues every call
+    before the first event runs: the time of the launched work alone,
+    without the host's cost of the calls (which bounds a call of a few
+    tens of microseconds)."""
     import torch
 
     fn()
@@ -310,6 +349,8 @@ def time_ms(fn, reps: int = 7, inner: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if device:
+            torch.cuda._sleep(DEVICE_SLEEP)
         a.record()
         for _ in range(inner):
             fn()
@@ -319,7 +360,7 @@ def time_ms(fn, reps: int = 7, inner: int = 3) -> float:
     return statistics.median(times)
 
 
-def time_turns(fns, rounds: int = 2):
+def time_turns(fns, rounds: int = 2, device: bool = False):
     """``time_ms`` of each named function in turns, the order reversed
     every round (a, b, b, a), so that a drift of the card's clocks falls
     on all alike; returns each name's times in call order."""
@@ -327,7 +368,7 @@ def time_turns(fns, rounds: int = 2):
     order = list(fns.items())
     for r in range(rounds):
         for n, fn in (order if r % 2 == 0 else order[::-1]):
-            times[n].append(time_ms(fn))
+            times[n].append(time_ms(fn, device=device))
     return times
 
 
@@ -504,9 +545,17 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
         nbytes_in = (x.numel() + w.numel() + b.numel()) * esz
         label = f"M{m} K{k} O{o}"
 
+    symbols = dict(conv_block.KERNEL.by_symbol)
     got = run()
     ref = plain()
     torch.cuda.synchronize()
+    if kernel == "conv_block_gemm" and dtype == torch.bfloat16:
+        took = {n: c - symbols.get(n, 0)
+                for n, c in conv_block.KERNEL.by_symbol.items()
+                if c != symbols.get(n, 0)}
+        if took != {conv_block.WGMMA: 1}:
+            raise SmokeError(f"conv_block_gemm {label} bf16 launched "
+                             f"{took}, not the wgmma main path once")
     if got.shape != ref.shape or got.dtype != ref.dtype:
         raise SmokeError(f"{kernel} {label}: {got.shape}/{got.dtype} vs "
                          f"plain {ref.shape}/{ref.dtype}")
@@ -530,13 +579,86 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     del got, ref
+    if kernel == "conv_block_gemm" and dtype == torch.bfloat16:
+        row["call_ms"], row["library_call_ms"] = row["ms"], row["library_ms"]
+        row.update(_conv_block_turns(x, w, b, run, library, rtol, atol))
+        row["ok"] = row["ok"] and row["relu_ok"] and row["mma_sync_ok"]
     return row
 
 
+def _conv_block_turns(x, w, b, run, library, rtol, atol):
+    """K6 bf16 at one main-path shape, beyond the biased product: the
+    wgmma kernel with relu and no bias, and the mma.sync edge kernel
+    (reached by its C entry) against the plain version; then the wgmma
+    kernel, the edge kernel and ``torch.addmm`` timed in turns, device
+    time (the calls' host cost left out: tens of microseconds a call,
+    which would bound these 10-60 us kernels)."""
+    import torch
+
+    from cxxnet_tpu_torch.ops.kernels import conv_block
+
+    def close(got, ref):
+        return bool(torch.isclose(got.float(), ref.float(), rtol=rtol,
+                                  atol=atol).all()) and bool(
+            torch.isfinite(got.float()).all())
+
+    relu_ok = close(conv_block.conv_block_gemm(x, w, None, True),
+                    conv_block.conv_block_plain(x, w, None, True))
+    edge = lambda: conv_block.launch(  # noqa: E731
+        conv_block.EDGE, x, w, b, False)
+    edge_ok = close(edge(), conv_block.conv_block_plain(x, w, b))
+    times = time_turns({"wgmma": run, "mma_sync": edge, "addmm": library},
+                       device=True)
+    return {"relu_ok": relu_ok, "mma_sync_ok": edge_ok,
+            "ms": statistics.mean(times["wgmma"]),
+            "mma_sync_ms": statistics.mean(times["mma_sync"]),
+            "library_ms": statistics.mean(times["addmm"]),
+            "turns": times}
+
+
+def check_conv_block_edge(dev, gen):
+    """K6's edge path at ``CONV_RAGGED`` (K and O off the main path's
+    rule), float32 and bfloat16, with and without the bias and relu:
+    the mma.sync and f32 kernels against the plain version, and the
+    wrapper's choice of them."""
+    import torch
+
+    from cxxnet_tpu_torch.ops.kernels import conv_block
+
+    m, k, o = CONV_RAGGED
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        x = torch.randn(m, k, generator=gen).to(dev, dtype)
+        w = (torch.randn(k, o, generator=gen) * k ** -0.5).to(dev, dtype)
+        b = (torch.randn(o, generator=gen) * 0.1).to(dev, dtype)
+        rtol, atol = TOL[("conv_block_gemm", name)]
+        abs_err, ok = 0.0, True
+        want = conv_block.EDGE if dtype == torch.bfloat16 else \
+            "conv_block_gemm_f32"
+        for bias, relu in ((b, False), (None, True), (b, True)):
+            before = conv_block.KERNEL.by_symbol.get(want, 0)
+            got = conv_block.conv_block_gemm(x, w, bias, relu)
+            ref = conv_block.conv_block_plain(x, w, bias, relu)
+            torch.cuda.synchronize()
+            ok = ok and conv_block.KERNEL.by_symbol.get(want, 0) == before + 1
+            ok = ok and bool(torch.isclose(got.float(), ref.float(),
+                                           rtol=rtol, atol=atol).all())
+            abs_err = max(abs_err, _err(got, ref)[0])
+        rows.append({"kernel": "conv_block_gemm", "dtype": name,
+                     "shape": f"ragged M{m} K{k} O{o} ({want})",
+                     "max_abs_err": abs_err, "ok": ok, "per_step": 0})
+        log(f"kernel conv_block_gemm  {name:8s} ragged M{m} K{k} O{o} "
+            f"through {want}: abs {abs_err:.3g} (rtol {rtol:g} atol "
+            f"{atol:g}) {'ok' if ok else 'MISMATCH'}")
+    return rows
+
+
 def check_sgd(tensors, dev, gen):
-    """The SGD kernel over every parameter tensor of the step (one launch
-    each), in place: bit-equality with the plain version, and the times
-    of the whole set against ``torch.optim.SGD(fused=True).step()``."""
+    """The SGD kernel over every parameter tensor of the step in one
+    multi-tensor launch, in place: bit-equality with the plain version,
+    and the times of the whole set against the per-tensor loop of
+    one-tensor launches and ``torch.optim.SGD(fused=True).step()``."""
     import torch
 
     from cxxnet_tpu_torch.ops.kernels import update_step
@@ -549,8 +671,12 @@ def check_sgd(tensors, dev, gen):
     ms = [make(t[0]) for t in tensors]
     ws2 = [w.clone() for w in ws]
     ms2 = [m.clone() for m in ms]
+    hyper = list(zip(*(t[1:] for t in tensors)))  # lrs, moms, wds, clips
 
     def run(ws=ws, ms=ms):
+        update_step.sgd_update_multi(ws, gs, ms, *hyper)
+
+    def per_tensor(ws=ws, ms=ms):
         for w, g, m, (_, lr, mom, wd, clip) in zip(ws, gs, ms, tensors):
             update_step.sgd_update(w, g, m, lr, mom, wd, clip)
 
@@ -558,10 +684,14 @@ def check_sgd(tensors, dev, gen):
         for w, g, m, (_, lr, mom, wd, clip) in zip(ws, gs, ms, tensors):
             update_step.sgd_update_plain(w, g, m, lr, mom, wd, clip)
 
+    n0 = update_step.KERNEL.launches
     run()
+    launches = update_step.KERNEL.launches - n0
     plain()
     torch.cuda.synchronize()
-    ok = all(torch.equal(a, b) for a, b in zip(ws + ms, ws2 + ms2))
+    want = -(-len(tensors) // update_step.MAX_TENSORS)
+    ok = launches == want
+    ok = ok and all(torch.equal(a, b) for a, b in zip(ws + ms, ws2 + ms2))
     ok = ok and all(bool(torch.isfinite(w).all()) for w in ws)
     abs_err = max(float((a - b).abs().max()) for a, b in
                   zip(ws + ms, ws2 + ms2))
@@ -578,13 +708,28 @@ def check_sgd(tensors, dev, gen):
         lr=tensors[0][1], momentum=tensors[0][2], fused=True)
     n = sum(w.numel() for w in ws)
     bound_ms, bound_by = bound(20.0 * n, 5.0 * n, "f32")
+    fns = {"multi": run, "per_tensor": per_tensor, "fused_sgd": opt.step}
+    times = time_turns(fns, device=True)
+    calls = time_turns(fns)
+    log(f"sgd: {len(tensors)} tensors in {launches} launch(es) of "
+        f"sgd_update_multi_f32 (want {want}); in turns, device ms: "
+        + ", ".join(f"{k} {[round(v, 4) for v in t]}"
+                    for k, t in times.items())
+        + "; ms a call, host included: "
+        + ", ".join(f"{k} {[round(v, 4) for v in t]}"
+                    for k, t in calls.items()))
     row = {
         "kernel": "sgd_update", "dtype": "float32",
         "shape": f"{len(tensors)} tensors, {n} values",
         "max_abs_err": abs_err, "max_rel_err": 0.0, "rtol": 0.0,
-        "atol": 0.0, "ok": ok,
-        "ms": time_ms(run), "plain_ms": time_ms(plain),
-        "library_ms": time_ms(opt.step),
+        "atol": 0.0, "ok": ok, "launches_per_step": launches,
+        "ms": statistics.mean(times["multi"]),
+        "per_tensor_ms": statistics.mean(times["per_tensor"]),
+        "plain_ms": time_ms(plain),
+        "library_ms": statistics.mean(times["fused_sgd"]),
+        "call_ms": statistics.mean(calls["multi"]),
+        "per_tensor_call_ms": statistics.mean(calls["per_tensor"]),
+        "library_call_ms": statistics.mean(calls["fused_sgd"]),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     return row
@@ -610,7 +755,12 @@ def check_kernels(dev):
                     f"{'ok' if r['ok'] else 'MISMATCH'}  "
                     f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
                     f"library {r['library_ms']:.4f} bound {r['bound_ms']:.4f}"
-                    f" ({r['bound_by']})")
+                    f" ({r['bound_by']})"
+                    + (f" mma_sync {r['mma_sync_ms']:.4f}"
+                       if "mma_sync_ms" in r else "")
+                    + (f" per-tensor loop {r['per_tensor_ms']:.4f}"
+                       if "per_tensor_ms" in r else ""))
+    rows += check_conv_block_edge(dev, gen)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise SmokeError(f"{len(bad)} kernel check(s) out of tolerance: "
@@ -645,21 +795,25 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
     """The main path of a serving run: ``POST /predict`` with each body,
     ``REPEATS`` times, the launch counts set to 0 just before and read
     just after; every request must launch ``per_forward`` and no other
-    kernel.  Returns the answers by size and the launches by kernel."""
+    kernel, K6 on its wgmma kernel only.  Returns the answers by size and
+    the launches by kernel."""
     import numpy as np
 
     from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.ops.kernels import conv_block
 
     encoded = {n: json.dumps({"data": x.tolist(), "raw": True}).encode()
                for n, x in bodies.items()}
     want = {**{k.name: 0 for k in KERNELS}, **per_forward}
+    want_conv = _conv_variants(per_forward.get("conv_block_gemm", 0))
     for k in KERNELS:
-        k.launches = 0
+        k.reset_counts()
     answers = {}
     for n in bodies:
         lat = []
         for _ in range(REPEATS):
             before = {k.name: k.launches for k in KERNELS}
+            conv_before = dict(conv_block.KERNEL.by_symbol)
             t0 = time.perf_counter()
             req = urllib.request.Request(
                 f"http://127.0.0.1:{port}/predict", data=encoded[n],
@@ -671,6 +825,10 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
             if delta != want:
                 raise SmokeError(f"{tag}: {n}-row request launched {delta}, "
                                  f"expected {want}")
+            conv = _symbol_delta(conv_block.KERNEL, conv_before)
+            if conv != want_conv:
+                raise SmokeError(f"{tag}: {n}-row request launched K6 as "
+                                 f"{conv}, expected {want_conv}")
         scores = np.asarray(ans["scores"], np.float32)
         if scores.shape != (n, 1000) or not np.isfinite(scores).all():
             raise SmokeError(f"{tag}: {n}-row answer: shape {scores.shape}, "
@@ -683,12 +841,27 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
             f"{lat[0]:.1f} warm {statistics.median(lat[1:]):.1f}")
     launches = {k.name: k.launches for k in KERNELS}
     forwards = len(bodies) * REPEATS
-    log(f"{tag}: launches {launches} over {forwards} forwards")
+    log(f"{tag}: launches {launches} over {forwards} forwards; K6 by "
+        f"variant {conv_block.KERNEL.by_symbol}")
     for name, per in want.items():
         if launches[name] != per * forwards:
             raise SmokeError(f"{tag}: {name}: {launches[name]} launches, "
                              f"expected {per * forwards}")
     return answers, {k: launches[k] for k in per_forward}
+
+
+def _conv_variants(n: int):
+    """K6's launches by C entry for ``n`` launches on the main path: all
+    on the wgmma kernel, none on the edge path."""
+    from cxxnet_tpu_torch.ops.kernels import conv_block
+
+    return {conv_block.WGMMA: n} if n else {}
+
+
+def _symbol_delta(kernel, before):
+    """A kernel's launches by C entry since ``before``, zeros left out."""
+    return {n: c - before.get(n, 0) for n, c in kernel.by_symbol.items()
+            if c != before.get(n, 0)}
 
 
 def serve_phase(tmp: str):
@@ -861,11 +1034,12 @@ def _profile(run, what: str, span: str):
     ours = {"int8_gemm": ("int8_gemm_bf16_kernel", "int8_gemm_f32_kernel"),
             "maxpool_fwd": ("maxpool_fwd_kernel",),
             "lrn_fwd": ("lrn_fwd_kernel",),
-            "conv_block_gemm": ("gemm_bf16_kernel", "gemm_f32_kernel"),
+            "conv_block_gemm": ("conv_block_wgmma_kernel",
+                                "gemm_bf16_kernel", "gemm_f32_kernel"),
             "maxpool_bwd": ("maxpool_bwd_kernel",),
             "maxpool_bwd_s1": ("maxpool_bwd_s1_kernel",),
             "lrn_bwd": ("lrn_bwd_kernel",),
-            "sgd_update": ("sgd_update_kernel",),
+            "sgd_update": ("sgd_update_multi_kernel",),
             "flash_fwd": ("flash_fwd_",),  # the f32 and the _mma_ kernels
             "flash_bwd": ("flash_dq_", "flash_dkv_")}
     out = {"wall_ms": wall, "device_ms": busy, "counts": counts}
@@ -1244,7 +1418,8 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
             continue
         mine = [r for r in rows if r["kernel"] == k.name]
         step_dtype = "float32" if k.name == "sgd_update" else "bfloat16"
-        step = [r for r in mine if r["dtype"] == step_dtype]
+        step = [r for r in mine if r["dtype"] == step_dtype
+                and r["per_step"]]
 
         def total(field):
             return sum(r[field] * r["per_step"] for r in step)
@@ -1265,6 +1440,14 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
         }
         if k.name in serve_launches:
             row["launches_serving"] = serve_launches[k.name]
+        if k.name == "conv_block_gemm":  # the mma.sync design, same run
+            row["mma_sync_ms"] = total("mma_sync_ms")
+        if k.name == "sgd_update":  # one launch per tensor, same run
+            row["per_tensor_ms"] = total("per_tensor_ms")
+        if k.name in ("conv_block_gemm", "sgd_update"):
+            # "ms" and "library_ms" are device times; a call's, host
+            # included, beside them
+            row.update({f: total(f) for f in ("call_ms", "library_call_ms")})
         out.append(row)
     return {"kernels": out}
 
@@ -1316,10 +1499,13 @@ def _run_train_task(argv):
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     from cxxnet_tpu_torch.ops import KERNELS
 
+    from cxxnet_tpu_torch.ops.kernels import conv_block
+
     steps, losses, marks = [], [], []
 
     class RecordingTrainer(NetTrainer):
-        """Records each step's launches, loss and end time."""
+        """Records each step's launches (K6's also by C entry), loss and
+        end time."""
 
         def start_round(self, round_):
             marks.append(("round", round_, time.perf_counter(), len(steps)))
@@ -1327,22 +1513,26 @@ def _run_train_task(argv):
 
         def update(self, batch):
             before = {k.name: k.launches for k in KERNELS}
+            conv_before = dict(conv_block.KERNEL.by_symbol)
             super().update(batch)
             steps.append({k.name: k.launches - before[k.name]
                           for k in KERNELS})
+            self.conv_variants.append(_symbol_delta(conv_block.KERNEL,
+                                                    conv_before))
             losses.append(float(self.last_loss))
             marks.append(("step", None, time.perf_counter(), len(steps)))
 
     class SmokeTask(LearnTask):
         def _create_trainer(self):
             tr = RecordingTrainer()
+            tr.conv_variants = []
             tr.set_params(self.cfg)
             self.trainer_for_smoke = tr
             return tr
 
     task = SmokeTask()
     for k in KERNELS:
-        k.launches = 0
+        k.reset_counts()
     task.run(argv)
     return task, task.trainer_for_smoke, steps, losses, marks
 
@@ -1369,6 +1559,7 @@ def train_phase(tmp: str):
 
     from cxxnet_tpu_torch import config as cfgmod
     from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.ops.kernels import update_step
     from cxxnet_tpu_torch.serve import Engine, make_server
 
     conf = _train_conf(tmp)
@@ -1385,7 +1576,8 @@ def train_phase(tmp: str):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_tensors = sum(len(tags) for tags in tr.params.values())
     want = {**{k.name: 0 for k in KERNELS}, **PER_STEP,
-            "sgd_update": n_tensors}
+            "sgd_update": -(-n_tensors // update_step.MAX_TENSORS)}
+    want_conv = _conv_variants(PER_STEP["conv_block_gemm"])
     log(f"train: {len(steps)} steps of {tr.batch_size} rows in {wall:.1f}s "
         f"(CLI run, data set-up included); {n_tensors} parameter tensors; "
         f"peak device memory {peak:.2f} GiB")
@@ -1398,6 +1590,11 @@ def train_phase(tmp: str):
         if d != want:
             raise SmokeError(f"training step {i} launched {d}, expected "
                              f"{want}")
+    for i, d in enumerate(tr.conv_variants):
+        if d != want_conv:
+            raise SmokeError(f"training step {i} launched K6 as {d}, "
+                             f"expected {want_conv}")
+    log(f"train: K6 by variant each step {tr.conv_variants[0]}")
     for name, per in want.items():
         if launches[name] < per * n_steps:
             raise SmokeError(f"{name}: {launches[name]} launches in the "
@@ -1662,54 +1859,73 @@ def _flash_smem(name: str, d: int) -> int:
             "flash_dkv_mma_kernel": 6 * tile + 4 * 64 * 4}[name]
 
 
-def flash_build_report():
-    """Per flash kernel function and head dim: registers and spill bytes
-    (``nvcc -Xptxas -v`` of this run's build), the dynamic shared memory
-    its launcher requests, and its HMMA (tensor-core) instructions
-    (``cuobjdump -sass`` of the built library).  Fails if a bf16
-    (tensor-core) flash kernel has no HMMA or spills."""
+def _build_report(k, name_re):
+    """Per kernel function of ``k``'s library whose mangled name
+    ``name_re`` matches (the key: the regex's groups): registers and
+    spill bytes (``nvcc -Xptxas -v`` of this run's build) and the
+    tensor-core instructions in its SASS (``cuobjdump -sass``): HMMA
+    (``mma.sync``) and HGMMA (``wgmma``)."""
     import re
 
-    from cxxnet_tpu_torch.ops import _build, flash
+    from cxxnet_tpu_torch.ops import _build
 
-    name_re = re.compile(r"(flash_[a-z]+(?:_mma)?_kernel)ILi(\d+)E")
+    if not k.build_log:
+        raise SmokeError(f"{k.name} was not built by this run (no ptxas "
+                         "log); remove build/kernels and run again")
+
+    def key_of(mangled):
+        m = name_re.search(mangled)
+        return m and tuple(g for g in m.groups() if g is not None)
+
+    report, fn = {}, None
+    for line in k.build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = key_of(m.group(1))
+            if fn:
+                report[fn] = {"spill": 0, "hmma": 0, "hgmma": 0}
+            continue
+        if not fn:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            report[fn]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[fn]["registers"] = int(m.group(1))
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", k.library_path()],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        raise SmokeError(f"cuobjdump -sass {k.name}: {sass.stderr}")
+    fn = None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = key_of(m.group(1))
+        elif fn in report and "HGMMA" in line:
+            report[fn]["hgmma"] += 1
+        elif fn in report and "HMMA" in line:
+            report[fn]["hmma"] += 1
+    return report
+
+
+def flash_build_report():
+    """Per flash kernel function and head dim: registers and spill bytes,
+    the dynamic shared memory its launcher requests, and its HMMA
+    (tensor-core) instructions.  Fails if a bf16 (tensor-core) flash
+    kernel has no HMMA or spills."""
+    import re
+
+    from cxxnet_tpu_torch.ops import flash
+
+    name_re = re.compile(r"(flash_[a-z]+(?:_mma)?_kernel)ILi(\d+)E")
     report, bad = {}, []
     for k in (flash.FWD_KERNEL, flash.BWD_KERNEL):
-        if not k.build_log:
-            raise SmokeError(f"{k.name} was not built by this run (no ptxas "
-                             "log); remove build/kernels and run again")
-        fn = None
-        for line in k.build_log.splitlines():
-            m = re.search(r"Compiling entry function '([^']+)'", line)
-            if m:
-                fn = name_re.search(m.group(1))
-                fn = fn and (fn.group(1), int(fn.group(2)))
-                if fn:
-                    report[fn] = {"spill": 0, "hmma": 0}
-                continue
-            if not fn:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m:
-                report[fn]["spill"] = int(m.group(1)) + int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                report[fn]["registers"] = int(m.group(1))
-        sass = subprocess.run([cuobjdump, "-sass", k.library_path()],
-                              capture_output=True, text=True, timeout=300)
-        if sass.returncode != 0:
-            raise SmokeError(f"cuobjdump -sass {k.name}: {sass.stderr}")
-        fn = None
-        for line in sass.stdout.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = name_re.search(m.group(1))
-                fn = fn and (fn.group(1), int(fn.group(2)))
-            elif fn in report and "HMMA" in line:
-                report[fn]["hmma"] += 1
+        for (name, d), r in _build_report(k, name_re).items():
+            report[(name, int(d))] = r
     for (name, d), r in sorted(report.items()):
         mma = "_mma_" in name
         log(f"flash build: {name}<{d}> {r.get('registers', '?')} registers, "
@@ -1724,6 +1940,52 @@ def flash_build_report():
                          f"ptxas log, found {sorted(report)}")
     if bad:
         raise SmokeError(f"tensor-core flash kernels without HMMA or with "
+                         f"spills: {bad}")
+    return report
+
+
+def _wgmma_smem(bn: int) -> int:
+    """The dynamic shared memory ``csrc/conv_block_gemm.cu`` requests
+    for its wgmma kernel at tile width ``bn`` (``WTile``): 1024 bytes of
+    alignment slack, the ring (a 128 x 64 X box and ceil(bn / 64)
+    64 x 64 W boxes a stage, up to 6 stages), the output tile's 128 x bn
+    bf16 staging, the two f32 bias rows and the stages' mbarriers."""
+    stage = 128 * 64 * 2 + -(-bn // 64) * 64 * 64 * 2
+    epi, bias = 128 * bn * 2, 2 * bn * 4
+    stages = min(6, (232448 - 1024 - epi - bias - 96) // stage)
+    return 1024 + stages * stage + epi + bias + 16 * stages
+
+
+def conv_block_build_report():
+    """K6's kernel functions: registers, spills, dynamic shared memory and
+    tensor-core instructions.  Fails unless every width of the bf16
+    main-path (wgmma) kernel has HGMMA instructions and no spills."""
+    import re
+
+    from cxxnet_tpu_torch.ops.kernels import conv_block
+
+    name_re = re.compile(r"(conv_block_wgmma_kernel)ILi(\d+)E|"
+                         r"(gemm_bf16_kernel|gemm_f32_kernel)")
+    report = _build_report(conv_block.KERNEL, name_re)
+    bad = []
+    for key, r in sorted(report.items()):
+        wgmma = key[0] == "conv_block_wgmma_kernel"
+        label = f"{key[0]}<{key[1]}>" if wgmma else key[0]
+        smem = (f"{_wgmma_smem(int(key[1]))} bytes dynamic shared memory, "
+                if wgmma else "")
+        log(f"conv_block build: {label} {r.get('registers', '?')} "
+            f"registers, {smem}{r['spill']} bytes spilled, {r['hgmma']} "
+            f"HGMMA and {r['hmma']} HMMA instructions")
+        if wgmma and (r["hgmma"] == 0 or r["spill"]):
+            bad.append(label)
+    widths = sorted(int(key[1]) for key in report
+                    if key[0] == "conv_block_wgmma_kernel")
+    if widths != [128, 160, 192, 224, 256] or len(report) != 7:
+        raise SmokeError(f"expected the wgmma kernel at widths 128 to 256 "
+                         f"by 32 and the two mma.sync/f32 kernels in the "
+                         f"ptxas log, found {sorted(report)}")
+    if bad:
+        raise SmokeError(f"K6 main-path kernels without HGMMA or with "
                          f"spills: {bad}")
     return report
 
@@ -2117,7 +2379,7 @@ def lm_generate_phase(conf: str, mdir: str, tmp: str):
                     f"gen_cache={cache}", "silent=1"]
             # each path: counts at 0 just before, read just after
             for k in KERNELS:
-                k.launches = 0
+                k.reset_counts()
             t0 = time.perf_counter()
             LearnTask().run(argv)
             torch.cuda.synchronize()
@@ -2198,6 +2460,68 @@ def lm_generate_phase(conf: str, mdir: str, tmp: str):
     return runs["windowed"]
 
 
+def lm_head_dim_phase():
+    """A small LM at head dim 128 (outside ``flash.HEAD_DIMS``) on the
+    card: ``HD_STEPS`` bf16 training steps under ``attn_impl = auto``
+    and ``xla``, each through the dense ``mha`` (no K9 or K10 launch,
+    counts at 0 just before and read just after), to finite losses; and
+    under ``attn_impl = pallas`` the step raises, naming the head dim."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.models import transformer_lm_conf
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    def trainer(impl):
+        tr = NetTrainer()
+        tr.set_params(cfgmod.parse_pairs(transformer_lm_conf(
+            seq_len=HD_T, dim=HD_DIM, nhead=HD_HEADS, nlayer=HD_LAYERS,
+            batch_size=HD_BATCH, dev="gpu", compute_dtype="bfloat16",
+            attn_impl=impl)) + [("seed", str(SEED)), ("silent", "1")])
+        tr.init_model()
+        return tr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (HD_BATCH, HD_T)
+    batch = DataBatch(
+        data=torch.randint(0, 256, shape, generator=gen,
+                           device="cuda").float(),
+        label=torch.randint(0, 256, shape, generator=gen,
+                            device="cuda").float())
+    for impl in ("auto", "xla"):
+        tr = trainer(impl)
+        for k in KERNELS:
+            k.reset_counts()
+        losses = []
+        for _ in range(HD_STEPS):
+            tr.update(batch)
+            losses.append(float(tr.last_loss))
+        launches = {k.name: k.launches for k in KERNELS if k.launches}
+        log(f"lm head dim {HD_DIM // HD_HEADS}: attn_impl={impl} "
+            f"{HD_STEPS} steps, losses {[round(v, 4) for v in losses]}, "
+            f"launches {launches}")
+        if launches or not all(np.isfinite(losses)):
+            raise SmokeError(f"head dim {HD_DIM // HD_HEADS} under "
+                             f"attn_impl={impl}: launches {launches}, "
+                             f"losses {losses}")
+        del tr
+    tr = trainer("pallas")
+    try:
+        tr.update(batch)
+    except NotImplementedError as e:
+        if str(HD_DIM // HD_HEADS) not in str(e):
+            raise SmokeError(f"attn_impl=pallas raised without the head "
+                             f"dim: {e}") from e
+        log(f"lm head dim {HD_DIM // HD_HEADS}: attn_impl=pallas raises: "
+            f"{e}")
+    else:
+        raise SmokeError(f"attn_impl=pallas trained at head dim "
+                         f"{HD_DIM // HD_HEADS}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2228,6 +2552,7 @@ def main() -> int:
             for line in k.build_log.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"ptxas {k.name}: {line.strip()}")
+        conv_block_build_report()
         dev = torch.device("cuda:0")
         log(f"device: {torch.cuda.get_device_name(0)} "
             f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2247,6 +2572,7 @@ def main() -> int:
             lm_rate_phase(cfg, mdir)
             lm_parity_phase(cfg, mdir)
             gen_launches = lm_generate_phase(conf, mdir, tmp)
+        lm_head_dim_phase()
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
                             quant_launches)

@@ -6,13 +6,17 @@ Counterpart of ``cxxnet_tpu/layers/sequence.py``.  Sequence nodes are
 * ``nhead`` — number of heads (D % nhead == 0)
 * ``causal`` — 1 for autoregressive masking
 * ``attn_impl = auto|pallas|xla`` — parsed and validated.  On a card
-  every full-sequence attention runs the flash kernels (K9 forward, K10
+  a full-sequence attention whose head dim the flash kernels are built
+  for (``flash.HEAD_DIMS``: 16, 32, 64) runs them (K9 forward, K10
   backward, ``ops/flash.py``), whatever the value and whatever T: the
   kernels mask their own ragged edges, so the JAX package's rule of
-  sending short or odd T to the dense ``mha`` has no reason here.  On
-  the CPU ``pallas`` takes the flash kernels' plain versions and
-  ``auto`` / ``xla`` the dense ``mha``, as the JAX package does off a
-  TPU.
+  sending short or odd T to the dense ``mha`` has no reason here.  Any
+  other head dim takes the dense ``mha`` under ``auto`` and ``xla``
+  and raises under ``pallas``, as the JAX package does when its flash
+  probe fails.  On the CPU ``pallas`` takes the flash kernels' plain
+  versions and ``auto`` / ``xla`` the dense ``mha``, as the JAX package
+  does off a TPU.  The windowed generation path attends through the
+  same rule.
 * ``seq_parallel`` — ring and all-to-all attention over a device mesh
   are ROADMAP.md item A6; any value other than 0 raises.
 * ``decode = 1`` with ``decode_window = W`` — KV-cache incremental
@@ -37,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF, mha
-from ..ops.flash import flash_mha
+from ..ops.flash import HEAD_DIMS, flash_mha
 from .base import Layer, Params, Shape, register
 
 
@@ -122,14 +126,27 @@ class AttentionLayer(Layer):
         qkv = qkv.reshape(n, t, 3, h, d // h)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
+    def attention_fn(self, head_dim: int, on_card: bool):
+        """The full-sequence attention for this head dim and device:
+        ``flash_mha`` on a card for a head dim in ``HEAD_DIMS``, and on
+        the CPU under ``attn_impl = pallas``; else the dense ``mha``.
+        Raises under ``pallas`` on a card for another head dim."""
+        if on_card:
+            if head_dim in HEAD_DIMS:
+                return flash_mha
+            if self.attn_impl == "pallas":
+                raise NotImplementedError(
+                    f"attention: attn_impl=pallas asks for the flash "
+                    f"kernels, which are built for head dims {HEAD_DIMS}, "
+                    f"not {head_dim}; use attn_impl=auto or xla")
+            return mha
+        return flash_mha if self.attn_impl == "pallas" else mha
+
     def attend(self, q, k, v):
-        """Full-sequence attention ``(q, k, v) -> o`` on ``(B, T, H, Dh)``:
-        the flash kernels on a card; on the CPU their plain versions
-        under ``attn_impl = pallas``, else the dense ``mha``."""
-        causal = bool(self.causal)
-        if q.is_cuda or self.attn_impl == "pallas":
-            return flash_mha(q, k, v, causal)
-        return mha(q, k, v, causal)
+        """Full-sequence attention ``(q, k, v) -> o`` on ``(B, T, H, Dh)``
+        through ``attention_fn``."""
+        fn = self.attention_fn(q.shape[-1], q.is_cuda)
+        return fn(q, k, v, bool(self.causal))
 
     def apply(self, params, inputs, train=False, gen=None, step=None):
         x = inputs[0]

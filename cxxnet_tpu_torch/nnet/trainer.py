@@ -42,7 +42,7 @@ import torch
 
 from ..io.data import DataBatch
 from ..ops import kernels as _klib
-from ..updater import Updater, create_updater
+from ..updater import Updater, apply_all, create_updater
 from ..utils import checkpoint as ckpt
 from ..utils.checkpoint import MODEL_MAGIC
 from ..utils.metric import MetricSet
@@ -503,8 +503,9 @@ class NetTrainer:
 
     def update(self, batch: DataBatch) -> None:
         """One step: the train forward from the f32 masters, the
-        backward, then the updater (the fused SGD kernel on a card) on
-        every tensor in place, and ``epoch_counter += 1``."""
+        backward, then the updaters on every tensor in place (all the SGD
+        tensors in one launch of the fused SGD kernel on a card), and
+        ``epoch_counter += 1``."""
         if self.net is None:
             raise RuntimeError("update: init_model or load_model first")
         if self.quant_scheme:
@@ -534,10 +535,11 @@ class NetTrainer:
                 loss, [leaves[k][t] for k, t, _ in flat], allow_unused=True)
         del leaves
         with torch.no_grad():
-            for (key, tag, w), g in zip(flat, grads):
-                g = torch.zeros_like(w) if g is None else g.contiguous()
-                self.updaters[(key, tag)].apply(
-                    w, g, self.ustates[key][tag], self.epoch_counter)
+            apply_all([(self.updaters[(key, tag)], w,
+                        torch.zeros_like(w) if g is None else g.contiguous(),
+                        self.ustates[key][tag])
+                       for (key, tag, w), g in zip(flat, grads)],
+                      self.epoch_counter)
         del grads
         self._invalidate_prepared()
         self.last_loss = loss.detach()

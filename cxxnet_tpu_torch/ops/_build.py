@@ -64,8 +64,9 @@ class Kernel:
 
     ``launches`` counts successful launches of the CUDA kernel and
     nothing else: a wrapper that takes the plain PyTorch version (for a
-    CPU tensor) does not count.  ``dtypes`` are the C entry suffixes the
-    source exports (``<name>_<suffix>``)."""
+    CPU tensor) does not count; ``by_symbol`` splits the count by C
+    entry (a source with several kernel variants).  ``dtypes`` are the C
+    entry suffixes the source exports (``<name>_<suffix>``)."""
 
     def __init__(self, name: str, replaces: str,
                  dtypes: Sequence[str] = ("f32", "bf16")) -> None:
@@ -74,6 +75,7 @@ class Kernel:
         self.replaces = replaces   # "file:line function" of the TPU kernel
         self.dtypes = tuple(dtypes)
         self.launches = 0
+        self.by_symbol: Dict[str, int] = {}
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -117,6 +119,12 @@ class Kernel:
             raise KernelError(
                 f"{self.name}: {symbol} returned CUDA error {rc}")
         self.launches += 1
+        self.by_symbol[symbol] = self.by_symbol.get(symbol, 0) + 1
+
+    def reset_counts(self) -> None:
+        """Set ``launches`` and ``by_symbol`` to 0."""
+        self.launches = 0
+        self.by_symbol = {}
 
 
 def build(kernels: Sequence[Kernel]) -> Dict[str, float]:

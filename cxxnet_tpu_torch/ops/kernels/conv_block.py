@@ -10,6 +10,13 @@ conv: output pixel ``(i, j)`` reads only ``x[i*s, j*s]``).
 
 ``conv_block_gemm`` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches ``csrc/conv_block_gemm.cu`` or raises.
+In bfloat16 the source has two kernels, chosen by ``takes_wgmma``'s
+rule and never by a failure: the main path on ``wgmma`` and TMA for K
+and O multiples of 8 and X and W 16-byte aligned (what a TMA tensor map
+takes; every GoogLeNet group), and the ``mma.sync`` edge path for any
+other shape or alignment.  ``KERNEL.by_symbol`` counts each.  The main
+path reads W's rows at a multiple of 32 bytes: for O % 16 == 8 the
+wrapper hands it a copy of W with its rows padded by 8 zero columns.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 
@@ -26,6 +34,16 @@ KERNEL = _build.Kernel(
     "cxxnet_tpu/ops/kernels/conv_block.py:41 _gemm_bias_kernel")
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+WGMMA = "conv_block_gemm_bf16"  # the bf16 main path's C entry
+EDGE = "conv_block_gemm_bf16_mma"  # the bf16 edge path's
+
+
+def takes_wgmma(x2d: torch.Tensor, w2d: torch.Tensor) -> bool:
+    """The rule for the bf16 main path: K and O multiples of 8 (16-byte
+    rows) and X and W 16-byte aligned; ``Y`` is allocated aligned."""
+    return (x2d.dtype == torch.bfloat16 and x2d.shape[1] % 8 == 0
+            and w2d.shape[1] % 8 == 0 and x2d.data_ptr() % 16 == 0
+            and w2d.data_ptr() % 16 == 0)
 
 
 def conv_block_plain(x2d: torch.Tensor, w2d: torch.Tensor,
@@ -55,16 +73,33 @@ def conv_block_gemm(x2d: torch.Tensor, w2d: torch.Tensor,
         return conv_block_plain(x2d, w2d, bias, relu)
     _build.check_cuda("conv_block_gemm x", x2d, 2)
     _build.check_cuda("conv_block_gemm w", w2d, 2, x2d.dtype)
-    m, k = x2d.shape
     o = w2d.shape[1]
     if bias is not None:
         _build.check_cuda("conv_block_gemm bias", bias, 1, x2d.dtype)
         if bias.shape[0] != o:
             raise ValueError(f"conv_block_gemm: bias has {bias.shape[0]} "
                              f"entries for {o} outputs")
+    if x2d.dtype != torch.bfloat16:
+        symbol = f"conv_block_gemm_{_build.dtype_suffix(x2d)}"
+    elif not takes_wgmma(x2d, w2d):
+        symbol = EDGE
+    else:
+        symbol = WGMMA
+        if o % 16:  # rows of 32 bytes, which TMA reads at its full rate
+            w2d = F.pad(w2d, (0, 16 - o % 16))
+    return launch(symbol, x2d, w2d, bias, relu, o)
+
+
+def launch(symbol: str, x2d: torch.Tensor, w2d: torch.Tensor,
+           bias: Optional[torch.Tensor], relu: bool,
+           o: Optional[int] = None) -> torch.Tensor:
+    """Launch one C entry of the source on checked CUDA operands, ``o``
+    outputs (``w2d``'s columns unless its rows are padded; the smoke test
+    times the edge path at the main path's shapes with it)."""
+    m, k = x2d.shape
+    o = w2d.shape[1] if o is None else o
     y = torch.empty((m, o), dtype=x2d.dtype, device=x2d.device)
-    KERNEL.launch(f"conv_block_gemm_{_build.dtype_suffix(x2d)}", _ARGS,
-                  x2d.data_ptr(), w2d.data_ptr(),
+    KERNEL.launch(symbol, _ARGS, x2d.data_ptr(), w2d.data_ptr(),
                   bias.data_ptr() if bias is not None else None,
                   y.data_ptr(), m, k, o, int(relu), _build.stream_of(x2d))
     return y

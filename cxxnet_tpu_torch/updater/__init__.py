@@ -9,7 +9,8 @@ returns new arrays).  Ported:
   ``clip`` also zeroes NaNs and applies only when ``clip_gradient != 0``
   (the reference's built-in NaN guard, ``update_step.nan_clip``).  The
   step is the fused kernel of ``ops/kernels/update_step.py`` (K8) on a
-  card, its plain version on the CPU.
+  card, its plain version on the CPU; ``apply_all`` runs a step's SGD
+  tensors through one multi-tensor launch.
 * ``adam``, in plain torch ops (the JAX package has no Pallas kernel for
   it), with the reference's quirks: ``beta1`` and ``beta2`` are the
   DECAY rates (defaults 0.1 and 0.001), weight decay is SUBTRACTED from
@@ -28,7 +29,7 @@ lamb) raise ``NotImplementedError``.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,11 +65,15 @@ class SGDUpdater(Updater):
     def init_state(self, w):
         return {"m": torch.zeros_like(w)}
 
-    def apply(self, w, g, state, epoch):
+    def scalars(self, epoch: int) -> Tuple[float, float, float, float]:
+        """``(lr, mom, wd, clip)`` of the step at ``epoch``: the schedule
+        values in ``np.float32``."""
         p = self.param
-        update_step.sgd_update(
-            w, g, state["m"], float(p.learning_rate(epoch)),
-            float(p.momentum_at(epoch)), wd=p.wd, clip=p.clip_gradient)
+        return (float(p.learning_rate(epoch)), float(p.momentum_at(epoch)),
+                p.wd, p.clip_gradient)
+
+    def apply(self, w, g, state, epoch):
+        update_step.sgd_update(w, g, state["m"], *self.scalars(epoch))
 
 
 class AdamUpdater(Updater):
@@ -104,6 +109,26 @@ class AdamUpdater(Updater):
             m1.add_(self.decay1 * (g - m1))
             m2.add_(self.decay2 * (g * g - m2))
             w.sub_(lr_t * (m1 / (torch.sqrt(m2) + 1e-8)))
+
+
+def apply_all(items: Sequence[Tuple[Updater, torch.Tensor, torch.Tensor,
+                                    State]], epoch: int) -> None:
+    """One step's updates over ``(updater, w, grad, state)`` items, in
+    place: every ``SGDUpdater`` tensor in one ``sgd_update_multi`` call,
+    the others by their own ``apply``.  The schedules are evaluated once
+    per distinct set of updater settings (most tensors share one of a
+    few), not once per tensor."""
+    sgd, scalars = [], {}
+    for up, w, g, state in items:
+        if isinstance(up, SGDUpdater):
+            key = tuple(vars(up.param).values())
+            if key not in scalars:
+                scalars[key] = up.scalars(epoch)
+            sgd.append((w, g, state["m"], *scalars[key]))
+        else:
+            up.apply(w, g, state, epoch)
+    if sgd:
+        update_step.sgd_update_multi(*zip(*sgd))
 
 
 _UPDATERS = {"sgd": SGDUpdater, "adam": AdamUpdater}

@@ -12,7 +12,19 @@ q/k/v slices of a fused qkv tensor, and K10 bit-equal from one launch to
 the next (no atomics); the int8 GEMM (K7) within 1e-5 (float32) and 8e-3
 (bfloat16, one rounding) of each row's largest plain magnitude, with and
 without bias and relu, at ragged M, K and O and at K not a multiple of 8
-(the kernel's scalar loads), and a quantized net's forward on the card.
+(the kernel's scalar loads), and a quantized net's forward on the card;
+the conv block's bf16 wgmma kernel at M 1, 127, 129 and 6272 (either
+side of a 128-row tile, and inception 5's rows) with K and O of
+GoogLeNet's groups and O 256 (each tile width), bias and relu on and
+off, within 2e-2, and its
+rule: K 17 and an X view 2 bytes off 16-byte alignment take the
+mma.sync edge kernel, which the per-entry counts show; the SGD step's
+multi-tensor launch over tensors of 1 to 100003 values with their own
+lr, wd and clip, NaNs under a clip and a misaligned view (scalar path),
+bit-equal to the plain version, one launch a set and one more past its
+capacity; the attention layer at head dims 8 and 128 (outside the
+flash kernels' dims) through the dense path on the card, forward and
+gradients against the CPU within 1e-4, no flash launch.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -24,6 +36,7 @@ card and no JAX it runs alone, without the suite's ``conftest.py``:
 import pytest
 import torch
 
+from cxxnet_tpu_torch.layers import create_layer
 from cxxnet_tpu_torch.ops import flash, lrn, maxpool
 from cxxnet_tpu_torch.ops import quant as opsq
 from cxxnet_tpu_torch.ops.kernels import conv_block, int8_gemm, update_step
@@ -425,3 +438,130 @@ def test_cuda_quantized_layers_launch_k7(cuda_device, dtype):
     got = opsq.fc_apply_q({t: v.to(cuda_device) for t, v in fq.items()},
                           x.reshape(-1, 24).to(cuda_device, dtype))
     _close(got.cpu(), ref, INT8_TOL[dtype], "fullc")
+
+
+@pytest.mark.cuda
+# GoogLeNet's K and O (the tile picker takes widths 192, 160, 224 and 128
+# there), and O 256 (width 256)
+@pytest.mark.parametrize("k,o", [(192, 176), (528, 296), (528, 448),
+                                 (832, 624), (832, 256)])
+@pytest.mark.parametrize("m", [1, 127, 129, 6272])
+def test_cuda_conv_block_wgmma_matches_plain(cuda_device, m, k, o):
+    gen = torch.Generator().manual_seed(m + k + o)
+    x = torch.randn(m, k, generator=gen).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(k, o, generator=gen) / k ** 0.5).to(
+        cuda_device, torch.bfloat16)
+    b = torch.randn(o, generator=gen).to(cuda_device, torch.bfloat16)
+    for bias in (b, None):
+        for relu in (False, True):
+            n0 = dict(conv_block.KERNEL.by_symbol)
+            got = conv_block.conv_block_gemm(x, w, bias, relu)
+            torch.cuda.synchronize()
+            by = conv_block.KERNEL.by_symbol
+            assert by.get(conv_block.WGMMA, 0) == n0.get(conv_block.WGMMA,
+                                                         0) + 1
+            assert by.get(conv_block.EDGE, 0) == n0.get(conv_block.EDGE, 0)
+            ref = conv_block.conv_block_plain(x, w, bias, relu)
+            torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                                       atol=2e-2)
+            if relu:
+                assert bool((got >= 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_conv_block_edge_rule(cuda_device):
+    """K 17, and an X view 2 bytes off 16-byte alignment, take the
+    mma.sync edge kernel; the aligned view of the same rows takes the
+    wgmma kernel.  Both agree with the plain version."""
+    gen = torch.Generator().manual_seed(3)
+
+    def take(x, w, b, want):
+        n0 = dict(conv_block.KERNEL.by_symbol)
+        got = conv_block.conv_block_gemm(x, w, b, True)
+        torch.cuda.synchronize()
+        took = {n: c - n0.get(n, 0) for n, c in
+                conv_block.KERNEL.by_symbol.items() if c != n0.get(n, 0)}
+        assert took == {want: 1}
+        torch.testing.assert_close(
+            got.float(), conv_block.conv_block_plain(x, w, b, True).float(),
+            rtol=2e-2, atol=2e-2)
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            cuda_device, torch.bfloat16)
+
+    take(bf16(300, 17), bf16(17, 64, scale=0.25), bf16(64), conv_block.EDGE)
+    m, k, o = 300, 192, 176
+    buf = bf16(m * k + 8)
+    w, b = bf16(k, o, scale=k ** -0.5), bf16(o)
+    off = buf[1:1 + m * k].view(m, k)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    take(off, w, b, conv_block.EDGE)
+    take(buf[8:8 + m * k].view(m, k), w, b, conv_block.WGMMA)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [6, update_step.MAX_TENSORS + 3])
+def test_cuda_sgd_update_multi_bit_equal_to_plain(cuda_device, count):
+    gen = torch.Generator().manual_seed(count)
+    sizes = [(1, 7, 257, 100003, 4096, 12)[i % 6] for i in range(count)]
+    ws, gs, ms, hyper = [], [], [], []
+    for i, n in enumerate(sizes):
+        w, g, m = (torch.randn(n + 1, generator=gen).to(cuda_device)
+                   for _ in range(3))
+        clip = (0.0, 0.5, 1.5)[i % 3]
+        g[::5] = float("nan")
+        if clip == 0.0:
+            g = torch.nan_to_num(g)  # no NaN guard without a clip
+        # every fourth tensor an offset view: 4 bytes off 16, scalar path
+        sl = slice(1, n + 1) if i % 4 == 3 else slice(0, n)
+        ws.append(w[sl])
+        gs.append(g[sl].contiguous() if i % 8 == 7 else g[sl])
+        ms.append(m[sl])
+        hyper.append((0.01 * (1 + i % 5), 0.9, 2e-4 * (i % 2), clip))
+    ws2, ms2 = [w.clone() for w in ws], [m.clone() for m in ms]
+    n0 = update_step.KERNEL.launches
+    update_step.sgd_update_multi(ws, gs, ms, *zip(*hyper))
+    torch.cuda.synchronize()
+    assert update_step.KERNEL.launches == n0 + -(-count //
+                                                update_step.MAX_TENSORS)
+    for w, g, m, h, w2, m2 in zip(ws, gs, ms, hyper, ws2, ms2):
+        update_step.sgd_update_plain(w2, g, m2, *h)
+        assert torch.equal(w, w2) and torch.equal(m, m2)
+        assert bool(torch.isfinite(w).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [8, 128])
+def test_cuda_attention_outside_the_kernel_head_dims(cuda_device, head_dim):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nhead, t = 2, 40
+    d = nhead * head_dim
+    gen = torch.Generator().manual_seed(head_dim)
+    params = {"wmat": torch.randn(3 * d, d, generator=gen) * d ** -0.5,
+              "bias": torch.randn(3 * d, generator=gen) * 0.1,
+              "wproj": torch.randn(d, d, generator=gen) * d ** -0.5,
+              "bproj": torch.randn(d, generator=gen) * 0.1}
+    x = torch.randn(2, t, d, generator=gen)
+    g = torch.randn(2, t, d, generator=gen)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        lay = create_layer("attention")
+        for k, v in (("nhead", nhead), ("causal", 1), ("attn_impl", "auto")):
+            lay.set_param(k, str(v))
+        p = {k: v.to(dev, copy=True).requires_grad_(True)
+             for k, v in params.items()}
+        xt = x.to(dev, copy=True).requires_grad_(True)
+        n0 = flash.FWD_KERNEL.launches + flash.BWD_KERNEL.launches
+        y = lay.apply(p, [xt])[0]
+        y.backward(g.to(dev))
+        torch.cuda.synchronize()
+        assert flash.FWD_KERNEL.launches + flash.BWD_KERNEL.launches == n0
+        out[str(dev)] = [y.detach().cpu(), xt.grad.cpu()] + [
+            p[k].grad.cpu() for k in sorted(p)]
+        if dev != "cpu":
+            lay.set_param("attn_impl", "pallas")
+            with pytest.raises(NotImplementedError, match=str(head_dim)):
+                lay.apply(p, [xt])
+    for got, ref in zip(out[str(cuda_device)], out["cpu"]):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)

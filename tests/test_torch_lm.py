@@ -9,7 +9,12 @@ pallas`` off a TPU), the port's flash wrapper takes its plain versions
   sinusoidal positions, and absolute positions under ``decode = 1``,
   exact), ``layer_norm`` (1e-6), ``attention`` with ``attn_impl =
   pallas`` forward and gradients (1e-5 / 2e-4), the KV-cache decode
-  against the full causal forward (2e-5) in both packages.
+  against the full causal forward (2e-5) in both packages; the routing
+  of a full-sequence attention by head dim, device and ``attn_impl``
+  (flash kernels only for the head dims they are built for on a card,
+  the dense ``mha`` for the others, a raise under ``pallas``), and at
+  head dim 128 the layer under ``auto`` and ``xla`` against the JAX
+  package's, forward and gradients (1e-5 / 2e-4).
 * Adam against ``AdamUpdater.apply`` over 3 epochs, with and without
   weight decay (rtol 1e-5: the host scalars are computed in numpy f32,
   the JAX package's in XLA f32).
@@ -58,6 +63,7 @@ from cxxnet_tpu_torch.layers import create_layer
 from cxxnet_tpu_torch.models import transformer_lm_conf
 from cxxnet_tpu_torch.nnet import generate as tgen
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+from cxxnet_tpu_torch.ops import attention, flash
 from cxxnet_tpu_torch.updater import create_updater
 from cxxnet_tpu_torch.utils.metric import MetricSet
 
@@ -177,6 +183,60 @@ def test_attention_matches_jax_pallas(causal):
     params = _np_params(_ATT_SHAPES, 5, scale=0.2)
     x = np.random.RandomState(6).randn(2, 64, 32).astype(np.float32)
     g = np.random.RandomState(7).randn(2, 64, 32).astype(np.float32)
+
+    def jf(p, xx):
+        return ref.apply(p, [xx])[0]
+
+    want, vjp = jax.vjp(jf, {t: jnp.asarray(v) for t, v in params.items()},
+                        jnp.asarray(x))
+    gp, gx = vjp(jnp.asarray(g))
+    pt = {t: torch.from_numpy(v.copy()).requires_grad_(True)
+          for t, v in params.items()}
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = ours.apply(pt, [xt])[0]
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=2e-4,
+                               atol=2e-4)
+    for t in params:
+        np.testing.assert_allclose(pt[t].grad.numpy(), np.asarray(gp[t]),
+                                   rtol=2e-4, atol=2e-4, err_msg=t)
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+@pytest.mark.parametrize("head_dim", [8, 32, 128])
+@pytest.mark.parametrize("impl", ["auto", "xla", "pallas"])
+def test_attention_routes_by_head_dim_device_and_impl(impl, head_dim,
+                                                      on_card):
+    """On a card the flash kernels take the head dims they are built
+    for under every ``attn_impl``; another head dim takes the dense
+    ``mha`` under ``auto`` and ``xla`` and raises under ``pallas``, as
+    the JAX package does when its flash probe fails.  On the CPU
+    ``pallas`` takes the flash kernels' plain versions, the others
+    ``mha``, whatever the head dim."""
+    lay = create_layer("attention")
+    lay.set_param("attn_impl", impl)
+    built = head_dim in flash.HEAD_DIMS
+    if on_card and impl == "pallas" and not built:
+        with pytest.raises(NotImplementedError, match=f"not {head_dim}"):
+            lay.attention_fn(head_dim, on_card)
+        return
+    flash_path = built if on_card else impl == "pallas"
+    want = flash.flash_mha if flash_path else attention.mha
+    assert lay.attention_fn(head_dim, on_card) is want
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_attention_at_head_dim_128_matches_jax(impl):
+    """Head dim 128 (outside the flash kernels' dims): the dense path of
+    both packages, forward and gradients."""
+    ours, ref = _layers("attention", nhead=2, causal=1, attn_impl=impl)
+    d = 256
+    params = _np_params({"wmat": (3 * d, d), "bias": (3 * d,),
+                         "wproj": (d, d), "bproj": (d,)}, 11, scale=0.05)
+    x = np.random.RandomState(12).randn(2, 24, d).astype(np.float32)
+    g = np.random.RandomState(13).randn(2, 24, d).astype(np.float32)
 
     def jf(p, xx):
         return ref.apply(p, [xx])[0]

@@ -26,7 +26,13 @@ port's counterpart:
 * SGD step (K8): bit-equal to ``SGDUpdater.apply`` run op by op; against
   the Pallas kernel (interpret), whose XLA CPU lowering contracts
   ``mom * m - lr * (...)`` into one FMA, within one rounding of each
-  product plus one of the result;
+  product plus one of the result; the multi-tensor entry over tensors
+  of 1, 7, 257 and 100003 values with their own lr, wd and clip (NaNs
+  where the clip guards them) bit-equal to the one-tensor plain version
+  and to ``SGDUpdater.apply``, its split at the launch's capacity;
+* the conv block's choice of its bf16 kernel: the wgmma main path for K
+  and O multiples of 8 and 16-byte aligned operands (every GoogLeNet
+  group), the mma.sync edge path for the rest;
 * the lr and momentum schedules to rtol 2e-7 over epochs 0..2000;
 * dropout: kept fraction, scale, determinism and the eval identity;
 * flash attention (K9, K10): the plain forward and the autograd
@@ -47,6 +53,8 @@ holds each against its plain version there.
 
 import importlib
 import math
+import os
+import re
 
 import numpy as np
 import pytest
@@ -68,12 +76,16 @@ jlrn = importlib.import_module("cxxnet_tpu.ops.lrn")
 jmp = importlib.import_module("cxxnet_tpu.ops.maxpool")
 jflash = importlib.import_module("cxxnet_tpu.ops.flash")
 
+from cxxnet_tpu_torch import config as tcfg
 from cxxnet_tpu_torch.layers.elemwise import DropoutLayer
+from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 from cxxnet_tpu_torch.ops import KERNELS, attention, flash, lrn, maxpool
 from cxxnet_tpu_torch.ops import _build
 from cxxnet_tpu_torch.ops.kernels import conv_block, update_step
 from cxxnet_tpu_torch.updater import create_updater
 from cxxnet_tpu_torch.updater.param import UpdaterParam
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (h, w, k, s, p): stride 1 and 2, pad 0 and 1, and sizes whose ceil
 # geometry leaves a partial edge window (e.g. 8 at k3 s2 p0: windows
@@ -327,6 +339,97 @@ def test_sgd_update_plain_matches_jax(shape, clip):
     bound_w = bound_m + np.spacing(np.abs(got_w))
     assert (np.abs(got_w - np.asarray(w_pl)) <= bound_w).all()
     assert np.isfinite(got_w).all()
+
+
+# a scalar, sizes off the kernel's 4-wide vectors, one past a 256-value
+# block pass, one over many 2048-value chunks
+MULTI_SIZES = (1, 7, 257, 100003)
+
+
+@pytest.mark.parametrize("epoch", [0, 7])
+def test_sgd_update_multi_plain_matches_per_tensor_and_jax(epoch):
+    clips = (0.0, 0.5, 0.0, 2.0)
+    cases, jax_out = [], []
+    for i, (n, clip) in enumerate(zip(MULTI_SIZES, clips)):
+        w, g, m = _sgd_inputs((n,), clip, 40 + i)
+        up = JaxSGD("wmat" if i % 2 else "bias")
+        for k, v in (("lr", f"{0.01 * (i + 1)}"), ("wd", f"{1e-4 * i}"),
+                     ("clip_gradient", str(clip)), ("lr:schedule",
+                                                    "expdecay")):
+            up.set_param(k, v)
+        w_ref, s_ref = up.apply(jnp.asarray(w), jnp.asarray(g),
+                                {"m": jnp.asarray(m)}, jnp.asarray(epoch))
+        jax_out.append((np.asarray(w_ref), np.asarray(s_ref["m"])))
+        cases.append((w, g, m, float(np.asarray(
+            up.param.learning_rate(epoch))), float(np.asarray(
+                up.param.momentum_at(epoch))), up.param.wd, clip))
+    multi = [[torch.from_numpy(a.copy()) for a in c[:3]] for c in cases]
+    update_step.sgd_update_multi(*zip(*multi), *(
+        [c[j] for c in cases] for j in range(3, 7)))
+    for (w, g, m, *hyper), (tw, _, tm), (jw, jm) in zip(cases, multi,
+                                                        jax_out):
+        pw, pm = torch.from_numpy(w.copy()), torch.from_numpy(m.copy())
+        update_step.sgd_update_plain(pw, torch.from_numpy(g), pm, *hyper)
+        assert torch.equal(tw, pw) and torch.equal(tm, pm)
+        np.testing.assert_array_equal(tw.numpy(), jw)
+        np.testing.assert_array_equal(tm.numpy(), jm)
+        assert np.isfinite(tw.numpy()).all()
+
+
+def test_sgd_update_multi_splits_at_the_launch_capacity():
+    with open(update_step.KERNEL.source) as f:
+        cap = re.search(r"constexpr int MAX_TENSORS = (\d+);", f.read())
+    assert int(cap.group(1)) == update_step.MAX_TENSORS
+    z = torch.zeros(3)
+    with pytest.raises(ValueError, match="length"):
+        update_step.sgd_update_multi([z], [z], [z], [0.1], [0.9], [], [0.0])
+    with pytest.raises(ValueError, match="shapes"):
+        update_step.sgd_update_multi([z], [torch.zeros(4)], [z], [0.1],
+                                     [0.9], [0.0], [0.0])
+    update_step.sgd_update_multi([], [], [], [], [], [], [])  # a no-op
+
+
+@pytest.mark.parametrize("k,o,offset,dtype,wgmma", [
+    (192, 176, 0, torch.bfloat16, True),
+    (832, 624, 0, torch.bfloat16, True),
+    (8, 8, 0, torch.bfloat16, True),
+    (17, 176, 0, torch.bfloat16, False),   # K % 8
+    (192, 77, 0, torch.bfloat16, False),   # O % 8
+    (192, 176, 1, torch.bfloat16, False),  # X 2 bytes off 16
+    (192, 176, 8, torch.bfloat16, True),   # X 16 bytes on
+    (192, 176, 0, torch.float32, False),   # f32 has one kernel
+])
+def test_conv_block_kernel_rule(k, o, offset, dtype, wgmma):
+    buf = torch.zeros(4 * k + 8, dtype=dtype)
+    x = buf[offset:offset + 4 * k].view(4, k)
+    w = torch.zeros(k, o, dtype=dtype)
+    assert x.is_contiguous()
+    assert conv_block.takes_wgmma(x, w) is wgmma
+
+
+def test_every_googlenet_group_takes_the_wgmma_kernel():
+    tr = NetTrainer()
+    tr.set_params(tcfg.parse_file(os.path.join(
+        REPO, "example", "ImageNet", "googlenet.conf")) + [
+            ("dev", "cpu"), ("batch_size", "128")])
+    tr.init_model()
+    net = tr.net
+    shapes = net.infer_shapes(128)
+    groups, _ = net._sibling_1x1_groups()
+    mko = []
+    for i, members in groups.items():
+        spec = tr.graph.layers[i]
+        n, oh, ow, _ = shapes[spec.nindex_out[0]]
+        k = shapes[spec.nindex_in[0]][3]
+        o = sum(net.layer_objs[j].param.num_channel for j in members)
+        mko.append((n * oh * ow, k, o))
+        assert conv_block.takes_wgmma(
+            torch.zeros(8, k, dtype=torch.bfloat16),
+            torch.zeros(k, o, dtype=torch.bfloat16)), (k, o)
+    assert sorted(mko) == sorted([
+        (100352, 192, 176), (100352, 256, 288), (25088, 480, 304),
+        (25088, 512, 296), (25088, 512, 280), (25088, 512, 288),
+        (25088, 528, 448), (6272, 832, 448), (6272, 832, 624)])
 
 
 SCHEDULES = [

@@ -18,6 +18,9 @@
   steps under ``polydecay`` with ``wmat:``/``bias:`` keys and momentum
   carried across steps, the last one a short masked batch, to the same
   tolerance.
+* The step's updates through the grouped path (every SGD tensor in one
+  ``sgd_update_multi`` call a step) equal, bit for bit, weights and
+  momenta updated tensor by tensor through ``SGDUpdater.apply``.
 * ``task=train dev=cpu`` runs 2 rounds on a synthetic conf, writes
   ``0000-0002.model`` and the eval lines; the JAX ``NetTrainer`` loads
   the last checkpoint and scores like the port (atol 1e-5, rtol 1e-4).
@@ -42,7 +45,9 @@ from cxxnet_tpu.nnet.trainer import NetTrainer as JaxTrainer
 from cxxnet_tpu_torch import config as tcfg
 from cxxnet_tpu_torch.cli import LearnTask
 from cxxnet_tpu_torch.io.synth import SyntheticIterator
+from cxxnet_tpu_torch.nnet import trainer as trainer_mod
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+from cxxnet_tpu_torch.ops.kernels import update_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UPDATE_TOL = 1e-3  # of each tensor's largest update
@@ -241,6 +246,45 @@ def test_small_inception_three_steps_match_jax(tmp_path):
     assert tr.epoch_counter == 3
     _assert_updates_match(jt, tr, w0)
     assert tr.evaluate(None, "train") == jt.evaluate(None, "train")
+
+
+def test_grouped_sgd_step_equals_the_per_tensor_updates(monkeypatch):
+    trainers = []
+    for _ in range(2):
+        tr = NetTrainer()
+        tr.set_params(tcfg.parse_pairs(SMALL_CONF))
+        tr.init_model()
+        trainers.append(tr)
+    grouped, per_tensor = trainers
+    x, y = _synth_batch("3,7,7", 4, 16, seed=3)
+    calls = []
+    multi = update_step.sgd_update_multi
+
+    def counted(*args):
+        calls.append(len(args[0]))
+        multi(*args)
+
+    monkeypatch.setattr(update_step, "sgd_update_multi", counted)
+    for lo in (0, 8):
+        grouped.update_all(x[lo:lo + 8], y[lo:lo + 8])
+    n_tensors = sum(len(t) for t in grouped.params.values())
+    assert calls == [n_tensors, n_tensors]  # one call a step, every tensor
+
+    def one_by_one(items, epoch):
+        for up, w, g, state in items:
+            up.apply(w, g, state, epoch)
+
+    monkeypatch.setattr(trainer_mod, "apply_all", one_by_one)
+    for lo in (0, 8):
+        per_tensor.update_all(x[lo:lo + 8], y[lo:lo + 8])
+    assert len(calls) == 2
+    for key, tags in grouped.params.items():
+        for tag, w in tags.items():
+            assert torch.equal(w, per_tensor.params[key][tag]), (key, tag)
+            assert torch.equal(grouped.ustates[key][tag]["m"],
+                               per_tensor.ustates[key][tag]["m"])
+            assert not torch.equal(grouped.ustates[key][tag]["m"],
+                                   torch.zeros_like(w)), (key, tag)
 
 
 TRAIN_CONF = """
