@@ -13,7 +13,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
    conv block's kernel functions' registers, spills, dynamic shared
    memory and tensor-core instructions (``conv_block build:`` lines),
    failing unless the wgmma kernel has HGMMA and no spills at each of
-   its five tile widths.
+   its five tile widths; the same for the int8 GEMM's wgmma kernel at
+   its two widths (``int8_gemm build:`` lines).
 2. Each kernel against its plain PyTorch version on the card, at every
    shape GoogLeNet's b128 training step gives it (read off the net's
    shape inference and its parameters), in float32 and bfloat16 (the
@@ -28,7 +29,12 @@ Phases; any failure ends the run with a non-zero exit and no result:
    too, and its mma.sync edge kernel (reached by its C entry) must agree
    there as well; the two and ``torch.addmm`` are timed in turns.  The
    edge path at a ragged shape (K and O off the main path's rule), f32
-   and bf16, with and without bias and relu.  The SGD step's multi
+   and bf16, with and without bias and relu.  The max-pool backward
+   (K2) must take its channel-vector main path at each of the four
+   stride-2 pools, f32 and bf16; in bf16 its old scalar kernel (the
+   edge path, reached by its C entry) must be bit-equal too, and the
+   main path, the edge kernel and aten's backward are timed in turns,
+   device time.  The SGD step's multi
    launch, the old per-tensor loop of one-tensor launches and the fused
    ``torch.optim.SGD`` in turns.
 3. The serving path at full width: GoogLeNet from
@@ -51,13 +57,22 @@ Phases; any failure ends the run with a non-zero exit and no result:
    shape, in float32 and bfloat16, with and without the bias and with
    relu, and at the forward's shapes its times (kernel, plain, the
    library yardstick ``F.linear`` over weights dequantized ahead, and
-   the bound); ``task=export_quant`` through ``LearnTask`` on a
+   the bound).  In bf16 every forward shape must take the wgmma main
+   path and the ragged one the mma.sync edge path, the edge kernel must
+   agree at the forward's shapes too, and the wgmma kernel, the edge
+   kernel and ``F.linear`` are timed in turns in device time and per
+   call (host included); where a forward shape's output tiles are fewer
+   than the SMs (the classifier and the two (6272, 832, 128) layers)
+   the wgmma kernel with K cut into 1, 2, 4 and 8 parts is held against
+   the plain version and timed in turns, device time;
+   ``task=export_quant`` through ``LearnTask`` on a
    ``synthetic`` eval section of 2 x 128 rows (``quant_calib_batches =
    2``; if the 0.99 gate rejects the random-weight model, again with
    ``quant_min_agreement = 0``), its verdict logged; the artifact
    served by ``Engine(model_in=..., quant = int8)`` over HTTP at 1, 7,
    32 and 128 rows, each twice, every forward launching K1 13, K4 2, K6
-   9 and K7 11 times less the layers the gate demoted, and no training
+   9 and K7 11 times less the layers the gate demoted (K6 and K7 on
+   their wgmma kernels only), and no training
    kernel (counts at 0 just before, read just after); ``/healthz``
    naming the ``.quant.model`` and ``int8``, ``/statsz``'s weight bytes
    at least 3.5 times under dense f32; the int8 model's top-1 against
@@ -65,7 +80,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
    (TF32 off) on the card against the CPU; the b128 bf16 forward of
    the f32 and the int8 model on device-resident input (synchronised,
    median of 5) with their device bytes at rest, and one int8 forward
-   under the profiler (K7's device time and share).
+   under the profiler (K7's device time and share; every K7 launch on
+   the wgmma kernel).
 5. The training path at full width: ``python -m cxxnet_tpu_torch``'s
    ``LearnTask`` run in-process, ``task=train`` on a temporary conf (a
    ``synthetic`` data section of 512 rows with ``threadbuffer``, a
@@ -73,9 +89,9 @@ Phases; any failure ends the run with a non-zero exit and no result:
    globals with ``dev=gpu``, ``num_round=2``, its learning rates scaled
    by ``LR_SCALE``): 2 rounds of 4 steps at batch 128 in bfloat16.  The counts are set to 0 just before the run
    and read just after it; every step must launch K1 13, K4 2, K6 9
-   (all wgmma, no edge), K2 4, K3 9, K5 2 times and the SGD kernel once
-   (the 116 parameter tensors in one multi-tensor launch); every loss
-   must be finite; the last round's checkpoint is served by ``Engine``
+   (all wgmma, no edge), K2 4 (all on the vector gather, no edge), K3
+   9, K5 2 times and the SGD kernel once (the 116 parameter tensors in
+   one multi-tensor launch); every loss must be finite; the last round's checkpoint is served by ``Engine``
    and answers one ``/predict``.
 6. Training parity on the card, from the run's first checkpoint and one
    8-row batch, dropout off: one float32 step with TF32 off against the
@@ -138,8 +154,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
    windowed generation run's; the int8 serving run for K7 — max error,
    and the times of one training step's launches summed: GoogLeNet b128
    bf16, or the LM step's 4 launches of K9 and of K10, or K7's 11
-   launches of one quantized b128 forward; K6 also the mma.sync design's
-   time at the same shapes, K8 the per-tensor loop's), the
+   launches of one quantized b128 forward; K6 and K7 also the mma.sync
+   design's time at the same shapes, K2 its old scalar kernel's, K8 the per-tensor loop's), the
    ``nvidia-smi`` line again, and last the result line ``{"ok": true,
    "device": {...}}``.
 
@@ -545,17 +561,22 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
         nbytes_in = (x.numel() + w.numel() + b.numel()) * esz
         label = f"M{m} K{k} O{o}"
 
-    symbols = dict(conv_block.KERNEL.by_symbol)
+    # K6 in bf16 and K2 must take their main paths (the C entry by name)
+    main = {("conv_block_gemm", torch.bfloat16): conv_block.WGMMA,
+            ("maxpool_bwd", torch.bfloat16): "maxpool_bwd_bf16",
+            ("maxpool_bwd", torch.float32): "maxpool_bwd_f32"}.get(
+                (kernel, dtype))
+    owner = conv_block.KERNEL if kernel == "conv_block_gemm" else \
+        maxpool.BWD_KERNEL
+    symbols = dict(owner.by_symbol)
     got = run()
     ref = plain()
     torch.cuda.synchronize()
-    if kernel == "conv_block_gemm" and dtype == torch.bfloat16:
-        took = {n: c - symbols.get(n, 0)
-                for n, c in conv_block.KERNEL.by_symbol.items()
-                if c != symbols.get(n, 0)}
-        if took != {conv_block.WGMMA: 1}:
-            raise SmokeError(f"conv_block_gemm {label} bf16 launched "
-                             f"{took}, not the wgmma main path once")
+    if main is not None:
+        took = _symbol_delta(owner, symbols)
+        if took != {main: 1}:
+            raise SmokeError(f"{kernel} {label} {dtype} launched {took}, "
+                             f"not the main path ({main}) once")
     if got.shape != ref.shape or got.dtype != ref.dtype:
         raise SmokeError(f"{kernel} {label}: {got.shape}/{got.dtype} vs "
                          f"plain {ref.shape}/{ref.dtype}")
@@ -578,12 +599,37 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
         "library_ms": time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    if kernel == "maxpool_bwd" and dtype == torch.bfloat16:
+        row["call_ms"], row["library_call_ms"] = row["ms"], row["library_ms"]
+        row.update(_maxpool_bwd_turns(args, ref, run, library))
+        row["ok"] = row["ok"] and row["edge_ok"]
     del got, ref
     if kernel == "conv_block_gemm" and dtype == torch.bfloat16:
         row["call_ms"], row["library_call_ms"] = row["ms"], row["library_ms"]
         row.update(_conv_block_turns(x, w, b, run, library, rtol, atol))
         row["ok"] = row["ok"] and row["relu_ok"] and row["mma_sync_ok"]
     return row
+
+
+def _maxpool_bwd_turns(args, ref, run, library):
+    """K2 bf16 at one main-path shape, beyond the wrapper's launch: the
+    old scalar kernel (the edge path), reached by its C entry and
+    bit-equal to the plain version; then the main path, the edge kernel
+    and aten's backward timed in turns, device time."""
+    import torch
+
+    from cxxnet_tpu_torch.ops import maxpool
+
+    edge = lambda: maxpool.launch_bwd(  # noqa: E731
+        "maxpool_bwd_bf16_edge", *args)
+    edge_ok = bool(torch.equal(edge(), ref))
+    times = time_turns({"vector": run, "edge": edge, "aten": library},
+                       device=True)
+    return {"edge_ok": edge_ok,
+            "ms": statistics.mean(times["vector"]),
+            "edge_ms": statistics.mean(times["edge"]),
+            "library_ms": statistics.mean(times["aten"]),
+            "turns": times}
 
 
 def _conv_block_turns(x, w, b, run, library, rtol, atol):
@@ -758,6 +804,8 @@ def check_kernels(dev):
                     f" ({r['bound_by']})"
                     + (f" mma_sync {r['mma_sync_ms']:.4f}"
                        if "mma_sync_ms" in r else "")
+                    + (f" edge {r['edge_ms']:.4f}" if "edge_ms" in r
+                       else "")
                     + (f" per-tensor loop {r['per_tensor_ms']:.4f}"
                        if "per_tensor_ms" in r else ""))
     rows += check_conv_block_edge(dev, gen)
@@ -795,17 +843,16 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
     """The main path of a serving run: ``POST /predict`` with each body,
     ``REPEATS`` times, the launch counts set to 0 just before and read
     just after; every request must launch ``per_forward`` and no other
-    kernel, K6 on its wgmma kernel only.  Returns the answers by size and
-    the launches by kernel."""
+    kernel, K6 and K7 on their wgmma kernels only.  Returns the answers
+    by size and the launches by kernel."""
     import numpy as np
 
     from cxxnet_tpu_torch.ops import KERNELS
-    from cxxnet_tpu_torch.ops.kernels import conv_block
 
     encoded = {n: json.dumps({"data": x.tolist(), "raw": True}).encode()
                for n, x in bodies.items()}
     want = {**{k.name: 0 for k in KERNELS}, **per_forward}
-    want_conv = _conv_variants(per_forward.get("conv_block_gemm", 0))
+    want_paths = _main_paths(per_forward)
     for k in KERNELS:
         k.reset_counts()
     answers = {}
@@ -813,7 +860,7 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
         lat = []
         for _ in range(REPEATS):
             before = {k.name: k.launches for k in KERNELS}
-            conv_before = dict(conv_block.KERNEL.by_symbol)
+            paths_before = _by_symbol()
             t0 = time.perf_counter()
             req = urllib.request.Request(
                 f"http://127.0.0.1:{port}/predict", data=encoded[n],
@@ -825,10 +872,11 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
             if delta != want:
                 raise SmokeError(f"{tag}: {n}-row request launched {delta}, "
                                  f"expected {want}")
-            conv = _symbol_delta(conv_block.KERNEL, conv_before)
-            if conv != want_conv:
-                raise SmokeError(f"{tag}: {n}-row request launched K6 as "
-                                 f"{conv}, expected {want_conv}")
+            paths = _paths_since(paths_before)
+            if paths != want_paths:
+                raise SmokeError(f"{tag}: {n}-row request launched "
+                                 f"{paths} by C entry, expected "
+                                 f"{want_paths}")
         scores = np.asarray(ans["scores"], np.float32)
         if scores.shape != (n, 1000) or not np.isfinite(scores).all():
             raise SmokeError(f"{tag}: {n}-row answer: shape {scores.shape}, "
@@ -841,8 +889,8 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
             f"{lat[0]:.1f} warm {statistics.median(lat[1:]):.1f}")
     launches = {k.name: k.launches for k in KERNELS}
     forwards = len(bodies) * REPEATS
-    log(f"{tag}: launches {launches} over {forwards} forwards; K6 by "
-        f"variant {conv_block.KERNEL.by_symbol}")
+    log(f"{tag}: launches {launches} over {forwards} forwards; by C "
+        f"entry {_by_symbol()}")
     for name, per in want.items():
         if launches[name] != per * forwards:
             raise SmokeError(f"{tag}: {name}: {launches[name]} launches, "
@@ -850,18 +898,39 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
     return answers, {k: launches[k] for k in per_forward}
 
 
-def _conv_variants(n: int):
-    """K6's launches by C entry for ``n`` launches on the main path: all
-    on the wgmma kernel, none on the edge path."""
-    from cxxnet_tpu_torch.ops.kernels import conv_block
+def _routed():
+    """The kernels with a main and an edge path in bf16, each with its
+    main path's C entry: K6 and K7 (wgmma) and K2 (the vector gather)."""
+    from cxxnet_tpu_torch.ops import maxpool
+    from cxxnet_tpu_torch.ops.kernels import conv_block, int8_gemm
 
-    return {conv_block.WGMMA: n} if n else {}
+    return ((conv_block.KERNEL, conv_block.WGMMA),
+            (maxpool.BWD_KERNEL, "maxpool_bwd_bf16"),
+            (int8_gemm.KERNEL, int8_gemm.WGMMA))
+
+
+def _main_paths(per):
+    """The launches by C entry that ``per`` (launches by kernel, of one
+    bf16 forward or step) must make of the routed kernels: all on the
+    main path, none on the edge path."""
+    return {k.name: ({main: per[k.name]} if per.get(k.name) else {})
+            for k, main in _routed()}
 
 
 def _symbol_delta(kernel, before):
     """A kernel's launches by C entry since ``before``, zeros left out."""
     return {n: c - before.get(n, 0) for n, c in kernel.by_symbol.items()
             if c != before.get(n, 0)}
+
+
+def _by_symbol():
+    """The routed kernels' launches by C entry, to diff against."""
+    return {k.name: dict(k.by_symbol) for k, _ in _routed()}
+
+
+def _paths_since(before):
+    """The routed kernels' launches by C entry since ``before``."""
+    return {k.name: _symbol_delta(k, before[k.name]) for k, _ in _routed()}
 
 
 def serve_phase(tmp: str):
@@ -1031,18 +1100,20 @@ def _profile(run, what: str, span: str):
         f"{busy:.2f} ms of device time ({busy / wall if wall else 0:.3f} "
         f"busy)")
     # K7 first: K6's kernel names are substrings of K7's
-    ours = {"int8_gemm": ("int8_gemm_bf16_kernel", "int8_gemm_f32_kernel"),
+    ours = {"int8_gemm": ("int8_gemm_wgmma_kernel", "int8_gemm_bf16_kernel",
+                          "int8_gemm_f32_kernel", "int8_gemm_reduce_kernel"),
             "maxpool_fwd": ("maxpool_fwd_kernel",),
             "lrn_fwd": ("lrn_fwd_kernel",),
             "conv_block_gemm": ("conv_block_wgmma_kernel",
                                 "gemm_bf16_kernel", "gemm_f32_kernel"),
-            "maxpool_bwd": ("maxpool_bwd_kernel",),
+            "maxpool_bwd": ("maxpool_bwd_kernel", "maxpool_bwd_vec_kernel"),
             "maxpool_bwd_s1": ("maxpool_bwd_s1_kernel",),
             "lrn_bwd": ("lrn_bwd_kernel",),
             "sgd_update": ("sgd_update_multi_kernel",),
             "flash_fwd": ("flash_fwd_",),  # the f32 and the _mma_ kernels
             "flash_bwd": ("flash_dq_", "flash_dkv_")}
-    out = {"wall_ms": wall, "device_ms": busy, "counts": counts}
+    out = {"wall_ms": wall, "device_ms": busy, "counts": counts,
+           "by_name": by_name}
     mine = set()
     for name, frags in ours.items():
         hits = {k for k in by_name
@@ -1107,10 +1178,14 @@ def check_int8(calls, dev):
     """K7 against its plain version at every call of the forward and at
     ``INT8_RAGGED``: float32 (TF32 off) and bfloat16, with and without
     the bias, with relu; per row (``_row_rel_err``) within
-    ``INT8_TOL``.  At the forward's calls, bf16 with bias (the layers'
-    own case) is timed too: the kernel, the plain version, the library
-    yardstick ``F.linear`` over weights dequantized ahead (a call the
-    port never makes), and the bound."""
+    ``INT8_TOL``.  In bf16 the forward's calls must take the wgmma main
+    path and the ragged one the mma.sync edge path; at the forward's
+    calls the edge kernel (reached by its C entry) must agree too.
+    There, bf16 with bias (the layers' own case) is timed: the wgmma
+    kernel, the edge kernel and the library yardstick ``F.linear`` over
+    weights dequantized ahead (a call the port never makes) in turns,
+    in device time and per call (host included), the plain version, and
+    the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1131,10 +1206,18 @@ def check_int8(calls, dev):
             name = str(dtype).split(".")[1]
             err = 0.0
             abs_err = 0.0
+            want = {"float32": "int8_gemm_f32",
+                    "bfloat16": int8_gemm.EDGE if key == "ragged"
+                    else int8_gemm.WGMMA}[name]
             for b, relu in ((bias, False), (None, True), (bias, True)):
+                before = dict(int8_gemm.KERNEL.by_symbol)
                 got = int8_gemm.int8_gemm_rescale(x, q, scale, b, relu)
                 ref = int8_gemm.int8_gemm_plain(x, q, scale, b, relu)
                 torch.cuda.synchronize()
+                took = _symbol_delta(int8_gemm.KERNEL, before)
+                if took != {want: 1}:
+                    raise SmokeError(f"int8_gemm {key} {name} launched "
+                                     f"{took}, not {want} once")
                 if got.dtype != dtype or got.shape != (m, o) or not bool(
                         torch.isfinite(got.float()).all()):
                     raise SmokeError(f"int8_gemm {key} {name}: "
@@ -1148,27 +1231,51 @@ def check_int8(calls, dev):
                    "max_abs_err": abs_err, "limit": INT8_TOL[name],
                    "ok": err <= INT8_TOL[name], "timed": False}
             if dtype == torch.bfloat16 and key != "ragged":
+                run = lambda: int8_gemm.int8_gemm_rescale(  # noqa: E731
+                    x, q, scale, bias)
+                edge = lambda: int8_gemm.launch(  # noqa: E731
+                    int8_gemm.EDGE, x, q, scale, bias, False)
+                edge_err = _row_rel_err(
+                    edge(), int8_gemm.int8_gemm_plain(x, q, scale, bias))
                 w16 = (q.float() * scale[:, None]).to(dtype)
                 b16 = bias.to(dtype)
                 esz = x.element_size()
                 bound_ms, bound_by = bound(
                     m * k * esz + o * k + 8 * o + m * o * esz,
                     2.0 * m * k * o, "bf16_tensor")
+                fns = {"wgmma": run, "mma_sync": edge,
+                       "linear": lambda: F.linear(x, w16, b16)}
+                times = time_turns(fns, device=True)
+                calls_ms = time_turns(fns)
                 row.update(
-                    timed=True,
-                    ms=time_ms(lambda: int8_gemm.int8_gemm_rescale(
-                        x, q, scale, bias)),
+                    timed=True, ok=row["ok"] and edge_err <= INT8_TOL[name],
+                    edge_row_rel_err=edge_err,
+                    ms=statistics.mean(times["wgmma"]),
+                    mma_sync_ms=statistics.mean(times["mma_sync"]),
+                    library_ms=statistics.mean(times["linear"]),
+                    call_ms=statistics.mean(calls_ms["wgmma"]),
+                    mma_sync_call_ms=statistics.mean(calls_ms["mma_sync"]),
+                    library_call_ms=statistics.mean(calls_ms["linear"]),
                     plain_ms=time_ms(lambda: int8_gemm.int8_gemm_plain(
                         x, q, scale, bias)),
-                    library_ms=time_ms(lambda: F.linear(x, w16, b16)),
                     bound_ms=bound_ms, bound_by=bound_by)
+                row.update(_int8_splits(x, q, scale, bias))
+                row["ok"] = row["ok"] and row["split_row_rel_err"] <= \
+                    INT8_TOL[name]
             rows.append(row)
             log(f"kernel int8_gemm {name:8s} {key:24s} {row['shape']:22s} "
-                f"row rel {err:.3g} (limit {row['limit']:g}) "
+                f"row rel {err:.3g} (limit {row['limit']:g}) through {want} "
                 f"{'ok' if row['ok'] else 'MISMATCH'}"
-                + (f"  ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
-                   f"library {row['library_ms']:.4f} bound "
-                   f"{row['bound_ms']:.4f} ({row['bound_by']})"
+                + (f"; mma_sync edge row rel {row['edge_row_rel_err']:.3g}; "
+                   f"device ms wgmma {row['ms']:.4f} mma_sync "
+                   f"{row['mma_sync_ms']:.4f} F.linear "
+                   f"{row['library_ms']:.4f}; ms a call, host included, "
+                   f"{row['call_ms']:.4f}, {row['mma_sync_call_ms']:.4f}, "
+                   f"{row['library_call_ms']:.4f}; plain "
+                   f"{row['plain_ms']:.4f} bound {row['bound_ms']:.4f} "
+                   f"({row['bound_by']}); splits of K {row['splits']}"
+                   + "".join(f", device ms at {n} {t:.4f}"
+                             for n, t in row["split_ms"].items())
                    if row["timed"] else ""))
         del x32, q
     bad = [r for r in rows if not r["ok"]]
@@ -1177,6 +1284,37 @@ def check_int8(calls, dev):
                          + "; ".join(f"{r['layer']} {r['dtype']}"
                                      for r in bad))
     return rows
+
+
+def _int8_splits(x, q, scale, bias):
+    """K7's split of K at one forward shape: the count ``k_splits``
+    picks and, where the output tiles are fewer than the SMs (the
+    classifier and the two (6272, 832, 128) layers), the main path
+    forced to 1, 2, 4 and 8 parts (as many as K has 64-deep slices),
+    each held against the plain version and timed in turns, device
+    time: the readings behind the rule."""
+    import torch
+
+    from cxxnet_tpu_torch.ops.kernels import int8_gemm
+
+    (m, k), o = x.shape, q.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    out = {"splits": int8_gemm.k_splits(m, k, o, sms), "split_ms": {},
+           "split_row_rel_err": 0.0}
+    if -(-m // 128) * -(-o // 64) >= sms:
+        return out
+    ref = int8_gemm.int8_gemm_plain(x, q, scale, bias)
+    fns = {}
+    for n in (1, 2, 4, 8):
+        if n > -(-k // 64):
+            continue
+        fns[n] = (lambda n=n: int8_gemm.launch(  # noqa: E731
+            int8_gemm.WGMMA, x, q, scale, bias, False, n))
+        out["split_row_rel_err"] = max(out["split_row_rel_err"],
+                                       _row_rel_err(fns[n](), ref))
+    times = time_turns(fns, device=True)
+    out["split_ms"] = {n: statistics.mean(t) for n, t in times.items()}
+    return out
 
 
 def _export_quant(conf: str, path: str, *extra):
@@ -1235,6 +1373,7 @@ def quant_phase(tmp: str, path: str, f32_answers):
     from cxxnet_tpu_torch import config as cfgmod
     from cxxnet_tpu_torch.nnet.quant import quant_artifact_path
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops.kernels import int8_gemm
     from cxxnet_tpu_torch.serve import Engine, make_server
 
     cfg = cfgmod.parse_file(CONF) + [("dev", "gpu"), ("silent", "1")]
@@ -1355,12 +1494,26 @@ def quant_phase(tmp: str, path: str, f32_answers):
             f"{timing[name][0]:.2f} ms (device-resident input, synchronised, "
             f"median of 5); device bytes at rest {rest} after load, "
             f"{prepared} more held by the prepared operands")
+    before = dict(int8_gemm.KERNEL.by_symbol)
     k7 = _profile(timing["int8"][1], f"int8 b{BATCH} bf16", "forward")
-    n_k7 = sum(c for kname, c in k7["counts"].items()
-               if "int8_gemm_bf16_kernel" in kname)
+    took = _symbol_delta(int8_gemm.KERNEL, before)
+    # the trace's own count beside the wrapper's: a trace can miss
+    # records (one run's held 10 of the 11 launches and a quarter less
+    # device time), so the wrapper's count is the one held to
+    traced = {kind: sum(c for kname, c in k7["counts"].items()
+                        if fn in kname)
+              for kind, fn in (("wgmma", "int8_gemm_wgmma_kernel"),
+                               ("edge", "int8_gemm_bf16_kernel"))}
+    reduce_ms = sum(t for kname, t in k7["by_name"].items()
+                    if "int8_gemm_reduce_kernel" in kname)
     log(f"quant: K7 {k7['int8_gemm']:.3f} ms of {k7['device_ms']:.3f} ms "
         f"device time in one int8 forward ({k7['int8_gemm'] / k7['device_ms']:.3f}"
-        f" share), {n_k7} launches")
+        f" share; its split of K's second pass {reduce_ms:.4f} ms), launches "
+        f"{took} (traced {traced})")
+    want = {int8_gemm.WGMMA: per_forward["int8_gemm"]}
+    if took != want or traced["edge"]:
+        raise SmokeError(f"the profiled int8 forward launched K7 {took} "
+                         f"(traced {traced}), expected {want}")
     return rows, launches
 
 
@@ -1393,7 +1546,9 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
                 "launches": quant_launches[k.name],
                 "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
                 **{f: sum(r[f] for r in fwd)
-                   for f in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                   for f in ("ms", "plain_ms", "bound_ms", "library_ms",
+                             "mma_sync_ms", "call_ms", "mma_sync_call_ms",
+                             "library_call_ms")},
                 "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             })
             continue
@@ -1442,9 +1597,11 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
             row["launches_serving"] = serve_launches[k.name]
         if k.name == "conv_block_gemm":  # the mma.sync design, same run
             row["mma_sync_ms"] = total("mma_sync_ms")
+        if k.name == "maxpool_bwd":  # the old kernel
+            row["edge_ms"] = total("edge_ms")
         if k.name == "sgd_update":  # one launch per tensor, same run
             row["per_tensor_ms"] = total("per_tensor_ms")
-        if k.name in ("conv_block_gemm", "sgd_update"):
+        if k.name in ("conv_block_gemm", "maxpool_bwd", "sgd_update"):
             # "ms" and "library_ms" are device times; a call's, host
             # included, beside them
             row.update({f: total(f) for f in ("call_ms", "library_call_ms")})
@@ -1499,13 +1656,11 @@ def _run_train_task(argv):
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     from cxxnet_tpu_torch.ops import KERNELS
 
-    from cxxnet_tpu_torch.ops.kernels import conv_block
-
     steps, losses, marks = [], [], []
 
     class RecordingTrainer(NetTrainer):
-        """Records each step's launches (K6's also by C entry), loss and
-        end time."""
+        """Records each step's launches (K6's, K2's and K7's also by C
+        entry), loss and end time."""
 
         def start_round(self, round_):
             marks.append(("round", round_, time.perf_counter(), len(steps)))
@@ -1513,19 +1668,18 @@ def _run_train_task(argv):
 
         def update(self, batch):
             before = {k.name: k.launches for k in KERNELS}
-            conv_before = dict(conv_block.KERNEL.by_symbol)
+            paths_before = _by_symbol()
             super().update(batch)
             steps.append({k.name: k.launches - before[k.name]
                           for k in KERNELS})
-            self.conv_variants.append(_symbol_delta(conv_block.KERNEL,
-                                                    conv_before))
+            self.paths.append(_paths_since(paths_before))
             losses.append(float(self.last_loss))
             marks.append(("step", None, time.perf_counter(), len(steps)))
 
     class SmokeTask(LearnTask):
         def _create_trainer(self):
             tr = RecordingTrainer()
-            tr.conv_variants = []
+            tr.paths = []
             tr.set_params(self.cfg)
             self.trainer_for_smoke = tr
             return tr
@@ -1577,7 +1731,7 @@ def train_phase(tmp: str):
     n_tensors = sum(len(tags) for tags in tr.params.values())
     want = {**{k.name: 0 for k in KERNELS}, **PER_STEP,
             "sgd_update": -(-n_tensors // update_step.MAX_TENSORS)}
-    want_conv = _conv_variants(PER_STEP["conv_block_gemm"])
+    want_paths = _main_paths(PER_STEP)
     log(f"train: {len(steps)} steps of {tr.batch_size} rows in {wall:.1f}s "
         f"(CLI run, data set-up included); {n_tensors} parameter tensors; "
         f"peak device memory {peak:.2f} GiB")
@@ -1590,11 +1744,11 @@ def train_phase(tmp: str):
         if d != want:
             raise SmokeError(f"training step {i} launched {d}, expected "
                              f"{want}")
-    for i, d in enumerate(tr.conv_variants):
-        if d != want_conv:
-            raise SmokeError(f"training step {i} launched K6 as {d}, "
-                             f"expected {want_conv}")
-    log(f"train: K6 by variant each step {tr.conv_variants[0]}")
+    for i, d in enumerate(tr.paths):
+        if d != want_paths:
+            raise SmokeError(f"training step {i} launched {d} by C entry, "
+                             f"expected {want_paths}")
+    log(f"train: K6, K2 and K7 by C entry each step {tr.paths[0]}")
     for name, per in want.items():
         if launches[name] < per * n_steps:
             raise SmokeError(f"{name}: {launches[name]} launches in the "
@@ -1986,6 +2140,38 @@ def conv_block_build_report():
                          f"ptxas log, found {sorted(report)}")
     if bad:
         raise SmokeError(f"K6 main-path kernels without HGMMA or with "
+                         f"spills: {bad}")
+    return report
+
+
+def int8_build_report():
+    """K7's kernel functions: registers, spills and tensor-core
+    instructions.  Fails unless the wgmma kernel has HGMMA instructions
+    and no spills at both its tile widths (32 and 64)."""
+    import re
+
+    from cxxnet_tpu_torch.ops.kernels import int8_gemm
+
+    name_re = re.compile(r"(int8_gemm_wgmma_kernel)ILi(\d+)E|"
+                         r"(int8_gemm_bf16_kernel|int8_gemm_f32_kernel)")
+    report = _build_report(int8_gemm.KERNEL, name_re)
+    bad = []
+    for key, r in sorted(report.items()):
+        wgmma = key[0] == "int8_gemm_wgmma_kernel"
+        label = f"{key[0]}<{key[1]}>" if wgmma else key[0]
+        log(f"int8_gemm build: {label} {r.get('registers', '?')} registers, "
+            f"{r['spill']} bytes spilled, {r['hgmma']} HGMMA and "
+            f"{r['hmma']} HMMA instructions")
+        if wgmma and (r["hgmma"] == 0 or r["spill"]):
+            bad.append(label)
+    widths = sorted(int(key[1]) for key in report
+                    if key[0] == "int8_gemm_wgmma_kernel")
+    if widths != [32, 64] or len(report) != 4:
+        raise SmokeError(f"expected the wgmma kernel at widths 32 and 64 "
+                         f"and the mma.sync/f32 kernels in the ptxas log, "
+                         f"found {sorted(report)}")
+    if bad:
+        raise SmokeError(f"K7 main-path kernels without HGMMA or with "
                          f"spills: {bad}")
     return report
 
@@ -2553,6 +2739,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"ptxas {k.name}: {line.strip()}")
         conv_block_build_report()
+        int8_build_report()
         dev = torch.device("cuda:0")
         log(f"device: {torch.cuda.get_device_name(0)} "
             f"torch {torch.__version__} cuda {torch.version.cuda}")

@@ -332,16 +332,6 @@ conv_block_wgmma_kernel(__grid_constant__ const CUtensorMap tx,
   if (tid == 0) wg::tma_store_wait();
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
 // The tile width for a shape: the least of max(bytes at 3.35 TB/s,
 // waves of tiles x a tile's products at 70% of an SM's share of 989
 // TFLOP/s); on a tie (the bytes bound every width alike) the width that
@@ -391,8 +381,6 @@ int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tw,
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 }  // namespace
 
 // bf16, the main path: K % 8 == 0, O % 8 == 0 and X, W, Y 16-byte
@@ -405,8 +393,8 @@ extern "C" int conv_block_gemm_bf16(const void* x, const void* w,
                                     const void* bias, void* y, int m, int k,
                                     int o, int relu, void* stream) {
   if (m == 0 || o == 0) return 0;
-  if (k <= 0 || k % 8 || o % 8 || !aligned16(x) || !aligned16(w) ||
-      !aligned16(y))
+  if (k <= 0 || k % 8 || o % 8 || !wg::aligned16(x) ||
+      !wg::aligned16(w) || !wg::aligned16(y))
     return (int)cudaErrorInvalidValue;
   const int ldw = (o + 15) / 16 * 16;
   CUtensorMap tx, tw, ty;
@@ -414,7 +402,7 @@ extern "C" int conv_block_gemm_bf16(const void* x, const void* w,
       !wg::bf16_box_map(&tw, w, (uint64_t)k, (uint64_t)ldw, WBK) ||
       !wg::bf16_box_map(&ty, y, (uint64_t)m, (uint64_t)o, 64, 32))
     return (int)cudaErrorInvalidValue;
-  const int sms = sm_count();
+  const int sms = wg::sm_count();
   const cudaStream_t s = (cudaStream_t)stream;
   switch (pick_bn(m, k, o, sms)) {
     case 128:

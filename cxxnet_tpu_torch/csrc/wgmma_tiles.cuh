@@ -1,8 +1,8 @@
 // Hopper building blocks for the GEMM kernels that run on wgmma
-// (conv_block_gemm.cu): the mbarrier ring, TMA tile loads, the wgmma
-// shared-memory descriptor and the warpgroup products, and the host-side
-// tensor maps.  The build keys each kernel library by its source AND the
-// local headers it includes.
+// (conv_block_gemm.cu, int8_gemm.cu): the mbarrier ring, TMA tile loads,
+// the wgmma shared-memory descriptor and the warpgroup products, and the
+// host-side tensor maps.  The build keys each kernel library by its
+// source AND the local headers it includes.
 //
 // Layouts (both operands in shared memory with the 128-byte swizzle that
 // a CU_TENSOR_MAP_SWIZZLE_128B load writes; every tile 1024-byte
@@ -15,6 +15,10 @@
 //   128-byte row per K index, 8 K rows an atom (stride offset 1024); the
 //   boxes of one slice side by side along N 8 KB apart (the leading
 //   offset); the k16 steps start 2048 bytes (16 K rows) apart.
+// * B, K-major (int8_gemm.cu's codes, (O, K) with K contiguous, read
+//   untransposed, imm-trans-b = 0): A's layout with N in place of M, one
+//   128-byte row per N index, 8-row atoms 1024 bytes apart; the k16 steps
+//   start 32 bytes apart.
 
 #pragma once
 
@@ -73,6 +77,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
     if (!done && clock64() - t0 > (1LL << 34)) __trap();
   } while (!done);
+}
+
+// a kernel launched with programmatic stream serialization may start
+// before the previous kernel in its stream ends: wait here for that
+// kernel's completion and its memory (a no-op when launched plainly)
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------ TMA
@@ -364,7 +375,64 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
   else wgmma_m64n256k16(d, da, db, scale_d);
 }
 
+// D(64 x N, f32) += A(64 x 16, K-major) * B(16 x N, K-major), bf16 in,
+// for the narrow widths of int8_gemm.cu; D's layout as above
+__device__ __forceinline__ void wgmma_m64n32k16_kb(float (&d)[16],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_kb(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_kb(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 64, "a width of 32 or 64");
+  if constexpr (N == 32) wgmma_m64n32k16_kb(d, da, db, scale_d);
+  else wgmma_m64n64k16_kb(d, da, db, scale_d);
+}
+
 // ------------------------------------------------------------ host side
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*,

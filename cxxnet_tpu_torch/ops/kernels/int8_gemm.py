@@ -13,12 +13,22 @@ fullc layout; the weights stay one byte an element on the card),
 ``scale`` ``(O,)`` float32, ``bias`` ``(O,)`` float32 or None.
 
 ``int8_gemm_rescale`` takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches ``csrc/int8_gemm.cu`` or raises.
+CPU; for CUDA tensors it launches ``csrc/int8_gemm.cu`` or raises.  In
+bfloat16 the source has two kernels, chosen by ``takes_wgmma``'s rule
+and never by a failure: the main path on ``wgmma`` and TMA for K a
+multiple of 16, O a multiple of 8, M, K and O above 0 and X and q
+16-byte aligned (every layer of the quantized GoogLeNet), and the
+``mma.sync`` edge path for any other shape or alignment.
+``KERNEL.by_symbol`` counts each.  Where the main path's output tiles
+are too few to busy the card, ``k_splits`` cuts K into parts summed by
+blocks of their own and added up in a fixed order by a second kernel
+of the same C entry (the classifier's one row tile).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -29,6 +39,45 @@ KERNEL = _build.Kernel(
     "int8_gemm", "cxxnet_tpu/ops/kernels/int8_gemm.py:32 _int8_kernel")
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the main path's entry also takes the split count and its workspace
+_WGMMA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+               + [ctypes.c_void_p] * 2)
+WGMMA = "int8_gemm_bf16"  # the bf16 main path's C entry
+EDGE = "int8_gemm_bf16_mma"  # the bf16 edge path's
+SPLIT_MAX = 8  # parts of K at most, each a (M, O) f32 slab of workspace
+SPLIT_SLICES = 4  # 64-deep K slices a part at least
+
+
+def k_splits(m: int, k: int, o: int, sms: int) -> int:
+    """How many parts the main path cuts K into, a pure function of the
+    shape and the card's SM count: 1 where the output tiles (128 rows by
+    64 columns; 32 where O <= 32, one column tile either way) number
+    more than half the SMs, else as many parts as leave each SM one work
+    item, at most ``SPLIT_MAX`` and with ``SPLIT_SLICES`` 64-deep K
+    slices a part at least.  The classifier (128, 1024, 1000) has 16
+    tiles and 16 slices: 4 parts on 132 SMs, which an H100 ran in 8.2 µs
+    against 10.8 at 1 part, 9.5 at 2 and 8.8 at 8 (PERF.md)."""
+    tiles = -(-m // 128) * -(-o // 64)
+    if 2 * tiles > sms:
+        return 1
+    return max(1, min(SPLIT_MAX, sms // tiles, -(-k // 64) // SPLIT_SLICES))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def takes_wgmma(x2d: torch.Tensor, q: torch.Tensor) -> bool:
+    """The rule for the bf16 main path: K a multiple of 16 (q's rows are
+    read 16 codes at a time), O a multiple of 8 (Y's rows are stored
+    16 bytes at a time), M, K and O above 0, and X and q 16-byte
+    aligned; ``Y`` is allocated aligned."""
+    m, k = x2d.shape
+    o = q.shape[0]
+    return (x2d.dtype == torch.bfloat16 and m > 0 and k > 0 and o > 0
+            and k % 16 == 0 and o % 8 == 0 and x2d.data_ptr() % 16 == 0
+            and q.data_ptr() % 16 == 0)
 
 
 def probe(x=None, q=None) -> Optional[str]:
@@ -78,9 +127,35 @@ def int8_gemm_rescale(x2d: torch.Tensor, q: torch.Tensor,
         if t.shape[0] != o:
             raise ValueError(f"int8_gemm_rescale: {name} has {t.shape[0]} "
                              f"entries for {o} outputs")
+    if x2d.dtype != torch.bfloat16:
+        symbol = f"int8_gemm_{_build.dtype_suffix(x2d)}"
+    else:
+        symbol = WGMMA if takes_wgmma(x2d, q) else EDGE
+    return launch(symbol, x2d, q, scale, bias, relu)
+
+
+def launch(symbol: str, x2d: torch.Tensor, q: torch.Tensor,
+           scale: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
+           splits: Optional[int] = None) -> torch.Tensor:
+    """Launch one C entry of the source on checked CUDA operands (the
+    smoke test times the edge path, and the main path at other split
+    counts than ``k_splits``', at the main path's shapes with it)."""
+    m, k = x2d.shape
+    o = q.shape[0]
     y = torch.empty((m, o), dtype=x2d.dtype, device=x2d.device)
-    KERNEL.launch(f"int8_gemm_{_build.dtype_suffix(x2d)}", _ARGS,
-                  x2d.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                  bias.data_ptr() if bias is not None else None,
-                  y.data_ptr(), m, k, o, int(relu), _build.stream_of(x2d))
+    args = (x2d.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            bias.data_ptr() if bias is not None else None, y.data_ptr(), m,
+            k, o, int(relu))
+    if symbol != WGMMA:
+        KERNEL.launch(symbol, _ARGS, *args, _build.stream_of(x2d))
+        return y
+    if splits is None:
+        splits = k_splits(m, k, o, _sm_count(x2d.device.index))
+    work = None
+    if splits > 1:  # freed at return: the allocator orders its reuse
+        work = torch.empty(splits * m * o, dtype=torch.float32,
+                           device=x2d.device)
+    KERNEL.launch(symbol, _WGMMA_ARGS, *args, splits,
+                  work.data_ptr() if work is not None else None,
+                  _build.stream_of(x2d))
     return y

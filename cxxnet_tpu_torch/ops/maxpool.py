@@ -12,7 +12,9 @@ max receives that window's gradient, so ties share it.
 
 * ``maxpool_fwd`` (K1, ``csrc/maxpool_fwd.cu``): the forward;
 * ``maxpool_bwd`` (K2, ``csrc/maxpool_bwd.cu``): the backward for any
-  geometry, summed in f32 in (dy, dx) window-offset order;
+  geometry, summed in f32 in (dy, dx) window-offset order: a gather over
+  16-byte channel vectors where ``takes_vector`` holds (every GoogLeNet
+  stride-2 pool), the scalar edge kernel elsewhere;
 * ``maxpool_bwd_s1`` (K3, ``csrc/maxpool_bwd_s1.cu``): the backward of a
   same-size stride-1 pool, summed in f32 in the order of the Pallas
   kernel it replaces (over output offsets);
@@ -173,22 +175,58 @@ def _check_bwd(name: str, x, y, g, oh: int, ow: int) -> None:
                          f"{tuple(g.shape)} must be {(n, oh, ow, c)}")
 
 
+# a block's shared memory, which holds K2's band of y and g window rows
+_SMEM_LIMIT = 232448
+
+
+def takes_vector(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, kh: int,
+                 s: int) -> bool:
+    """The rule for K2's main path (the channel-vector gather): C a
+    multiple of the 16-byte vector (8 bf16 or 4 f32 channels), ``x``,
+    ``y`` and ``g`` 16-byte aligned (``dx`` is allocated aligned), fewer
+    than 2**31 elements in ``x`` and in ``y`` (32-bit indices), and a
+    band of window rows that fits in a block's shared memory: the y and
+    g rows of the at most ``(kh - 1) // s + 1`` windows that cover one
+    input row.  Anything else takes the scalar edge kernel."""
+    lanes = 16 // x.element_size()
+    oh, ow, c = y.shape[1], y.shape[2], y.shape[3]
+    band = 2 * min(oh, (kh - 1) // s + 1) * ow * c * x.element_size()
+    return (x.shape[-1] % lanes == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, y, g))
+            and x.numel() < 2 ** 31 and y.numel() < 2 ** 31
+            and band <= _SMEM_LIMIT)
+
+
 def maxpool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, kh: int,
                 kw: int, s: int, py: int = 0, px: int = 0) -> torch.Tensor:
     """The unpool backward for any pool geometry: ``x`` the pool's input,
     ``y`` its output, ``g`` the output's gradient, all NHWC of one
-    dtype; returns ``dx``.  The CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    dtype; returns ``dx``.  The CUDA kernel for CUDA tensors (the
+    vector gather where ``takes_vector`` holds, else the edge kernel),
+    the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return maxpool_bwd_plain(x, y, g, kh, kw, s, py, px)
     n, h, w, c = x.shape
     _, _, oh, ow = geometry(h, w, kh, kw, s, py, px)
     _check_bwd("maxpool_bwd", x, y, g, oh, ow)
+    symbol = f"maxpool_bwd_{_build.dtype_suffix(x)}"
+    if not takes_vector(x, y, g, kh, s):
+        symbol += "_edge"  # the scalar kernel's C entry
+    return launch_bwd(symbol, x, y, g, kh, kw, s, py, px)
+
+
+def launch_bwd(symbol: str, x: torch.Tensor, y: torch.Tensor,
+               g: torch.Tensor, kh: int, kw: int, s: int, py: int,
+               px: int) -> torch.Tensor:
+    """Launch one C entry of K2's source on checked CUDA operands (the
+    smoke test times the edge kernel at the main path's shapes with it);
+    returns ``dx``."""
+    n, h, w, c = x.shape
+    _, _, oh, ow = geometry(h, w, kh, kw, s, py, px)
     dx = torch.empty_like(x)
-    BWD_KERNEL.launch(f"maxpool_bwd_{_build.dtype_suffix(x)}", _BWD_ARGS,
-                      x.data_ptr(), y.data_ptr(), g.data_ptr(),
-                      dx.data_ptr(), n, h, w, c, oh, ow, kh, kw, s, py, px,
-                      _build.stream_of(x))
+    BWD_KERNEL.launch(symbol, _BWD_ARGS, x.data_ptr(), y.data_ptr(),
+                      g.data_ptr(), dx.data_ptr(), n, h, w, c, oh, ow, kh,
+                      kw, s, py, px, _build.stream_of(x))
     return dx
 
 

@@ -124,6 +124,76 @@ def test_cuda_maxpool_bwd_bit_equal_to_plain(cuda_device, dtype, h, w, k, s,
     assert torch.equal(got, maxpool.maxpool_bwd_plain(x, y, g, k, k, s, p, p))
 
 
+# K2's paths, (h, w, c, k, s, p): k3 s2, k2 s2, k3 s1 p0 (not the
+# same-size stride-1 pool K3 takes), padded k3 s2 p1, odd H and W, C 8,
+# 24 and 64 (the vector gather in both dtypes) and 5 (the edge kernel);
+# a row of 1000 x 64 whose band of window rows outgrows shared memory
+# (the edge kernel too)
+POOL_BWD_CASES = [
+    (9, 9, 64, 3, 2, 0),
+    (8, 10, 24, 2, 2, 0),
+    (7, 7, 8, 3, 1, 0),
+    (11, 13, 64, 3, 2, 1),
+    (15, 13, 24, 3, 2, 0),
+    (9, 9, 5, 3, 2, 0),
+    (5, 1000, 64, 3, 2, 0),
+]
+
+
+def _symbols_since(kernel, before):
+    return {n: c - before.get(n, 0) for n, c in kernel.by_symbol.items()
+            if c != before.get(n, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c,k,s,p", POOL_BWD_CASES)
+def test_cuda_maxpool_bwd_paths_bit_equal_to_plain(cuda_device, dtype, h, w,
+                                                   c, k, s, p):
+    """The wrapper's path (the vector gather where ``takes_vector`` holds,
+    else the edge kernel) and the edge kernel by its C entry, each
+    bit-equal to the plain version, with a NaN input that gets no
+    gradient."""
+    x = _tied((3, h, w, c), cuda_device, dtype, h * 31 + c)
+    x[0, 0, 0, :] = float("nan")
+    y = maxpool.maxpool_fwd(x, k, k, s, p, p)
+    g = torch.randn(y.shape, device=cuda_device).to(dtype)
+    ref = maxpool.maxpool_bwd_plain(x, y, g, k, k, s, p, p)
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    main = maxpool.takes_vector(x, y, g, k, s)
+    assert main is (c % (16 // x.element_size()) == 0 and w < 1000)
+    before = dict(maxpool.BWD_KERNEL.by_symbol)
+    got = maxpool.maxpool_bwd(x, y, g, k, k, s, p, p)
+    torch.cuda.synchronize()
+    want = f"maxpool_bwd_{sfx}" + ("" if main else "_edge")
+    assert _symbols_since(maxpool.BWD_KERNEL, before) == {want: 1}
+    assert torch.equal(got, ref)
+    assert not bool(got[0, 0, 0].any())
+    got = maxpool.launch_bwd(f"maxpool_bwd_{sfx}_edge", x, y, g, k, k, s, p,
+                             p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_maxpool_bwd_misaligned_view_takes_the_edge(cuda_device,
+                                                         dtype):
+    n, h, w, c = 2, 9, 9, 16
+    buf = _tied((n * h * w * c + 1,), cuda_device, dtype, 5)
+    x = buf[1:].view(n, h, w, c)
+    y = maxpool.maxpool_fwd(x, 3, 3, 2)
+    g = torch.randn(y.shape, device=cuda_device).to(dtype)
+    assert not maxpool.takes_vector(x, y, g, 3, 2)
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    before = dict(maxpool.BWD_KERNEL.by_symbol)
+    got = maxpool.maxpool_bwd(x, y, g, 3, 3, 2)
+    torch.cuda.synchronize()
+    assert _symbols_since(maxpool.BWD_KERNEL, before) == {
+        f"maxpool_bwd_{sfx}_edge": 1}
+    assert torch.equal(got, maxpool.maxpool_bwd_plain(x, y, g, 3, 3, 2))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,w,k", [(6, 6, 3), (7, 5, 3), (9, 8, 5),
@@ -390,6 +460,125 @@ def test_cuda_int8_gemm_matches_plain(cuda_device, dtype, m, k, o):
             ref = int8_gemm.int8_gemm_plain(x, q, scale, b, relu)
             _close(got, ref, INT8_TOL[dtype], f"int8 {m}x{k}x{o} bias "
                    f"{b is not None} relu {relu}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o", [8, 32, 40, 64, 1000])
+@pytest.mark.parametrize("k", [16, 64, 832, 1024])
+@pytest.mark.parametrize("m", [1, 7, 129, 4096])
+def test_cuda_int8_gemm_wgmma_matches_plain(cuda_device, m, k, o):
+    """K7's bf16 main path either side of a 128-row tile, at one 64-deep
+    slice and at GoogLeNet's deepest K, at tile widths 32 and 64 and the
+    classifier's ragged O, with and without bias and relu."""
+    x, q, scale, bias = _int8_operands(cuda_device, torch.bfloat16, m, k, o,
+                                       m * 7 + k + o)
+    assert int8_gemm.takes_wgmma(x, q)
+    for b in (bias, None):
+        for relu in (False, True):
+            before = dict(int8_gemm.KERNEL.by_symbol)
+            got = int8_gemm.int8_gemm_rescale(x, q, scale, b, relu)
+            torch.cuda.synchronize()
+            assert _symbols_since(int8_gemm.KERNEL, before) == {
+                int8_gemm.WGMMA: 1}
+            assert got.dtype == torch.bfloat16 and got.shape == (m, o)
+            ref = int8_gemm.int8_gemm_plain(x, q, scale, b, relu)
+            _close(got, ref, INT8_TOL[torch.bfloat16],
+                   f"int8 wgmma {m}x{k}x{o} bias {b is not None} relu {relu}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,o", [(300, 4096, 72), (20000, 2304, 200),
+                                   (500, 4096, 24)])
+def test_cuda_int8_gemm_wgmma_long_k_in_chunks(cuda_device, m, k, o):
+    """A K whose B panel does not fit beside the ring (past 1152 at tile
+    width 64, 2432 at 32): the panel is converted in chunks of slices
+    per tile."""
+    x, q, scale, bias = _int8_operands(cuda_device, torch.bfloat16, m, k, o,
+                                       k)
+    before = dict(int8_gemm.KERNEL.by_symbol)
+    got = int8_gemm.int8_gemm_rescale(x, q, scale, bias, True)
+    torch.cuda.synchronize()
+    assert _symbols_since(int8_gemm.KERNEL, before) == {int8_gemm.WGMMA: 1}
+    _close(got, int8_gemm.int8_gemm_plain(x, q, scale, bias, True),
+           INT8_TOL[torch.bfloat16], f"int8 wgmma {m}x{k}x{o}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,o,splits", [
+    (128, 1024, 1000, 1), (128, 1024, 1000, 2), (128, 1024, 1000, 3),
+    (128, 1024, 1000, 4), (128, 1024, 1000, 8), (7, 1024, 40, 5),
+    (300, 192, 32, 3), (6272, 832, 128, 2),
+])
+def test_cuda_int8_gemm_split_k_matches_plain(cuda_device, m, k, o, splits):
+    """K7's main path with K cut into ``splits`` parts (one to eight),
+    with and without bias and relu: within the bf16
+    tolerance of the plain version, and the same bits on a second call
+    (the parts are added in a fixed order)."""
+    x, q, scale, bias = _int8_operands(cuda_device, torch.bfloat16, m, k, o,
+                                       m + k + splits)
+    for b in (bias, None):
+        for relu in (False, True):
+            before = dict(int8_gemm.KERNEL.by_symbol)
+            got = int8_gemm.launch(int8_gemm.WGMMA, x, q, scale, b, relu,
+                                   splits)
+            again = int8_gemm.launch(int8_gemm.WGMMA, x, q, scale, b, relu,
+                                     splits)
+            torch.cuda.synchronize()
+            assert _symbols_since(int8_gemm.KERNEL, before) == {
+                int8_gemm.WGMMA: 2}
+            assert torch.equal(got, again)
+            _close(got, int8_gemm.int8_gemm_plain(x, q, scale, b, relu),
+                   INT8_TOL[torch.bfloat16],
+                   f"int8 {m}x{k}x{o} in {splits} splits")
+
+
+@pytest.mark.cuda
+def test_cuda_int8_gemm_split_k_past_the_slices_raises(cuda_device):
+    """More parts than 64-deep K slices, or than ``SPLIT_MAX``, is
+    refused by the C entry."""
+    from cxxnet_tpu_torch.ops._build import KernelError
+
+    x, q, scale, bias = _int8_operands(cuda_device, torch.bfloat16, 128, 128,
+                                       64, 1)
+    with pytest.raises(KernelError):
+        int8_gemm.launch(int8_gemm.WGMMA, x, q, scale, bias, False, 3)
+    x, q, scale, bias = _int8_operands(cuda_device, torch.bfloat16, 128, 1024,
+                                       64, 2)
+    with pytest.raises(KernelError):
+        int8_gemm.launch(int8_gemm.WGMMA, x, q, scale, bias, False,
+                         int8_gemm.SPLIT_MAX + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_gemm_edge_rule(cuda_device):
+    """K 24, O 36, and X or q views off 16-byte alignment take the
+    mma.sync edge kernel; the aligned operands of the same shape take
+    the wgmma kernel; all agree with the plain version."""
+    def take(x, q, scale, bias, want):
+        before = dict(int8_gemm.KERNEL.by_symbol)
+        got = int8_gemm.int8_gemm_rescale(x, q, scale, bias, True)
+        torch.cuda.synchronize()
+        assert _symbols_since(int8_gemm.KERNEL, before) == {want: 1}
+        _close(got, int8_gemm.int8_gemm_plain(x, q, scale, bias, True),
+               INT8_TOL[torch.bfloat16], f"int8 {tuple(x.shape)} {want}")
+
+    take(*_int8_operands(cuda_device, torch.bfloat16, 300, 24, 64, 1),
+         int8_gemm.EDGE)
+    take(*_int8_operands(cuda_device, torch.bfloat16, 300, 64, 36, 2),
+         int8_gemm.EDGE)
+    m, k, o = 300, 192, 64
+    x, q, scale, bias = _int8_operands(cuda_device, torch.bfloat16, m + 1,
+                                       k, o, 3)
+    flat = x.reshape(-1)
+    off = flat[1:1 + m * k].view(m, k)
+    assert off.data_ptr() % 16 == 2
+    take(off, q, scale, bias, int8_gemm.EDGE)
+    take(flat[8:8 + m * k].view(m, k), q, scale, bias, int8_gemm.WGMMA)
+    qbuf = torch.zeros(o * k + 16, dtype=torch.int8, device=cuda_device)
+    qoff = qbuf[8:8 + o * k].view(o, k)
+    qoff.copy_(q)
+    take(x[:m], qoff, scale, bias, int8_gemm.EDGE)
+    take(x[:m], q, scale, bias, int8_gemm.WGMMA)
 
 
 @pytest.mark.cuda

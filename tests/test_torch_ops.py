@@ -234,6 +234,144 @@ def test_maxpool_bwd_plain_bit_equal_to_jax(h, w, k, s, p):
     np.testing.assert_array_equal(got, ref_pl)
 
 
+# the JAX package's default backward rounds to bf16 after each add (XLA's
+# vjp of _maxpool_eq, and the Pallas _bwd_kernel, bit-equal to it); the
+# port's K2 and K3 sum in f32 and round once (as K3's Pallas kernel
+# _bwd_s1_kernel does), the more accurate choice.  Each bf16 rounding
+# moves a sum by at most 2**-8 of its magnitude, which is at most the sum
+# of the contributions' magnitudes, so the two differ per element by at
+# most (contributions) * 2**-8 * sum |g| over the windows that give the
+# element its gradient, and not at all where one window does.
+BF16_POOL_BWD_CASES = [
+    ((4, 28, 28, 64), 3, 2, 0),
+    ((4, 15, 15, 16), 3, 2, 0),
+    ((2, 11, 11, 8), 3, 2, 1),
+    ((4, 14, 14, 32), 3, 1, 1),  # K3
+    ((2, 9, 8, 16), 5, 1, 2),    # K3
+]
+
+
+@pytest.mark.parametrize("shape,k,s,p", BF16_POOL_BWD_CASES)
+def test_maxpool_bwd_plain_bf16_within_one_rounding_of_jax(shape, k, s, p):
+    rng = np.random.RandomState(0)
+    x = np.maximum(rng.randn(*shape), 0).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    y, vjp = jax.vjp(lambda v: jconv._maxpool_eq(v, k, k, s, p, p), xb)
+    g = jnp.asarray(rng.randn(*y.shape).astype(np.float32), jnp.bfloat16)
+    ref = np.asarray(vjp(g)[0], np.float32)
+    tx, ty, tg = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+                  for a in (x, y, g))
+    if maxpool.same_size_s1(k, k, s, p, p):
+        def bwd(*a):
+            return maxpool.maxpool_bwd_s1(*a, k, p)
+    else:
+        def bwd(*a):
+            return maxpool.maxpool_bwd(*a, k, k, s, p, p)
+        _, vjp_pl = jax.vjp(lambda v: jmp.maxpool_fused(
+            v, k, k, s, p, p, interpret=True), xb)
+        np.testing.assert_array_equal(
+            np.asarray(vjp_pl(g)[0], np.float32), ref)
+    got = bwd(tx, ty, tg)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    xf, yf = tx.float(), ty.float()
+    count = bwd(xf, yf, torch.ones_like(yf)).numpy()
+    mag = bwd(xf, yf, tg.float().abs()).numpy()
+    diff = np.abs(got - ref)
+    assert (diff <= count * 2.0 ** -8 * mag).all()
+    assert (diff[count <= 1] == 0).all()
+    if shape == (4, 28, 28, 64):  # the difference is real, not vacuous
+        assert (diff > 0).sum() > 100
+
+
+@pytest.mark.parametrize("c,dtype,offset,vector", [
+    (64, torch.bfloat16, 0, True),
+    (24, torch.bfloat16, 0, True),
+    (8, torch.bfloat16, 0, True),
+    (12, torch.bfloat16, 0, False),   # not 8 bf16 channels a vector
+    (5, torch.bfloat16, 0, False),
+    (12, torch.float32, 0, True),
+    (6, torch.float32, 0, False),     # not 4 f32 channels a vector
+    (64, torch.bfloat16, 1, False),   # x 2 bytes off 16
+    (64, torch.bfloat16, 8, True),    # x 16 bytes on
+    (64, torch.float32, 2, False),    # x 8 bytes off 16
+])
+def test_maxpool_bwd_kernel_rule(c, dtype, offset, vector):
+    buf = torch.zeros(2 * 9 * 9 * c + offset, dtype=dtype)
+    x = buf[offset:].view(2, 9, 9, c)
+    y = torch.zeros(2, 4, 4, c, dtype=dtype)
+    assert x.is_contiguous()
+    assert maxpool.takes_vector(x, y, torch.zeros_like(y), 3, 2) is vector
+
+
+def test_maxpool_bwd_kernel_rule_sizes_and_gradient_alignment():
+    x = torch.zeros(2, 9, 9, 16, dtype=torch.bfloat16)
+    y = torch.zeros(2, 4, 4, 16, dtype=torch.bfloat16)
+    g = torch.zeros(2 * 4 * 4 * 16 + 1, dtype=torch.bfloat16)[1:].view(
+        y.shape)
+    assert not maxpool.takes_vector(x, y, g, 3, 2)  # g 2 bytes off 16
+    assert maxpool.takes_vector(x, y, y, 3, 2)
+    # 2**31 elements in x or in y need 64-bit indices: the edge kernel's
+    # (a 1-row window, so that the band of window rows stays small)
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+    big, small = meta(2, 32768, 4096, 8), meta(2, 16384, 2048, 8)
+    assert big.numel() == 2 ** 31 and big.data_ptr() % 16 == 0
+    assert maxpool.takes_vector(small, small, small, 1, 1)
+    assert not maxpool.takes_vector(big, small, small, 1, 1)
+    assert not maxpool.takes_vector(small, big, big, 1, 1)
+
+
+@pytest.mark.parametrize("oh,ow,c,dtype,k,s,vector", [
+    (250, 454, 64, torch.bfloat16, 3, 2, True),   # 2 rows: 232448 bytes
+    (250, 455, 64, torch.bfloat16, 3, 2, False),  # 232960
+    (250, 500, 64, torch.bfloat16, 3, 2, False),
+    (250, 227, 64, torch.float32, 3, 2, True),    # 232448
+    (250, 228, 64, torch.float32, 3, 2, False),
+    (250, 302, 64, torch.bfloat16, 3, 1, True),   # 3 rows: 231936
+    (250, 303, 64, torch.bfloat16, 3, 1, False),  # 232704
+    (1, 900, 64, torch.bfloat16, 3, 2, True),     # 1 row: 230400
+])
+def test_maxpool_bwd_kernel_rule_band_within_shared_memory(oh, ow, c, dtype,
+                                                           k, s, vector):
+    """K2's main path stages the y and g rows of the windows covering one
+    input row in a block's shared memory (232448 bytes on the H100); a
+    wider band takes the edge kernel."""
+    x = torch.empty(2, 2 * oh, 2 * ow, c, dtype=dtype, device="meta")
+    y = torch.empty(2, oh, ow, c, dtype=dtype, device="meta")
+    assert maxpool.takes_vector(x, y, y, k, s) is vector
+
+
+def test_every_googlenet_stride2_pool_takes_the_vector_kernel():
+    tr = NetTrainer()
+    tr.set_params(tcfg.parse_file(os.path.join(
+        REPO, "example", "ImageNet", "googlenet.conf")) + [
+            ("dev", "cpu"), ("batch_size", "128")])
+    tr.init_model()
+    net = tr.net
+    shapes = net.infer_shapes(128)
+    pools = []
+    for i, spec in enumerate(tr.graph.layers):
+        lay = net.layer_objs[i]
+        if type(lay).__name__ != "MaxPoolingLayer":
+            continue
+        p = lay.param
+        geom = (p.kernel_height, p.kernel_width, p.stride, p.pad_y, p.pad_x)
+        if maxpool.same_size_s1(*geom):
+            continue
+        xs, ys = shapes[spec.nindex_in[0]], shapes[spec.nindex_out[0]]
+        pools.append(xs)
+        x = torch.empty(xs, dtype=torch.bfloat16, device="meta")
+        y = torch.empty(ys, dtype=torch.bfloat16, device="meta")
+        assert maxpool.takes_vector(x, y, y, p.kernel_height, p.stride), xs
+        x32, y32 = x.float(), y.float()
+        assert maxpool.takes_vector(x32, y32, y32, p.kernel_height,
+                                    p.stride), xs
+    assert pools == [(128, 112, 112, 64), (128, 56, 56, 192),
+                     (128, 28, 28, 480), (128, 14, 14, 832)]
+
+
 @pytest.mark.parametrize("h,w,k", [(6, 6, 3), (7, 5, 3), (9, 8, 5),
                                    (14, 14, 3)])
 def test_maxpool_bwd_s1_plain_matches_jax(h, w, k):

@@ -265,6 +265,91 @@ def test_k7_plain_matches_jax_interpret(dtype, m, k, o, bias, relu):
         assert _row_rel(got.float().numpy(), ref) <= BF16_ULP
 
 
+@pytest.mark.parametrize("m,k,o,x_off,q_off,dtype,wgmma", [
+    (128, 1024, 1000, 0, 0, torch.bfloat16, True),   # the classifier
+    (401408, 64, 64, 0, 0, torch.bfloat16, True),    # conv2_reduce
+    (7, 16, 8, 0, 0, torch.bfloat16, True),
+    (7, 24, 64, 0, 0, torch.bfloat16, False),        # K % 16
+    (7, 200, 64, 0, 0, torch.bfloat16, False),
+    (7, 64, 36, 0, 0, torch.bfloat16, False),        # O % 8
+    (7, 64, 64, 1, 0, torch.bfloat16, False),        # X 2 bytes off 16
+    (7, 64, 64, 8, 0, torch.bfloat16, True),         # X 16 bytes on
+    (7, 64, 64, 0, 8, torch.bfloat16, False),        # q 8 bytes off 16
+    (7, 64, 64, 0, 16, torch.bfloat16, True),
+    (0, 64, 64, 0, 0, torch.bfloat16, False),        # no rows
+    (7, 64, 64, 0, 0, torch.float32, False),         # f32: one kernel
+])
+def test_k7_kernel_rule(m, k, o, x_off, q_off, dtype, wgmma):
+    """K7's choice of its bf16 kernel, a pure function of the operands'
+    shapes, dtype and alignment: the wgmma main path or the mma.sync
+    edge path (``tests/test_torch_cuda.py`` holds both on the card)."""
+    x = torch.empty(m * k + x_off, dtype=dtype, device="meta" if m * k >
+                    1 << 20 else "cpu")[x_off:].view(m, k)
+    q = torch.zeros(o * k + q_off, dtype=torch.int8)[q_off:].view(o, k)
+    assert x.is_contiguous() and q.is_contiguous()
+    assert k7.takes_wgmma(x, q) is wgmma
+
+
+def test_every_quantized_googlenet_layer_takes_the_wgmma_kernel():
+    """The 11 layers a quantized GoogLeNet forward sends to K7 (each
+    1x1 / pad-0 / ungrouped conv outside a sibling group, and the 2-D
+    fullc), at b128: all on the main path."""
+    from cxxnet_tpu_torch.layers.conv import ConvolutionLayer
+    from cxxnet_tpu_torch.layers.linear import FullConnectLayer
+
+    tr = NetTrainer()
+    tr.set_params(tcfg.parse_file(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "example", "ImageNet", "googlenet.conf")) + [("dev", "cpu")])
+    tr.init_model()
+    net = tr.net
+    shapes = net.infer_shapes(128)
+    member = net._sibling_1x1_groups()[1]
+    mko = []
+    for i, spec in enumerate(tr.graph.layers):
+        lay = net.layer_objs[i]
+        xin, out = shapes[spec.nindex_in[0]], shapes[spec.nindex_out[0]]
+        if type(lay) is ConvolutionLayer and i not in member:
+            p = lay.param
+            if (p.kernel_height, p.kernel_width, p.pad_y, p.pad_x,
+                    p.num_group) == (1, 1, 0, 0, 1):
+                mko.append((out[0] * out[1] * out[2], xin[3], out[3]))
+        elif type(lay) is FullConnectLayer and len(xin) == 2:
+            mko.append((xin[0], xin[1], out[1]))
+    for m, k, o in mko:
+        x = torch.empty((m, k), dtype=torch.bfloat16, device="meta")
+        assert k7.takes_wgmma(x, torch.zeros(o, k, dtype=torch.int8)), (
+            m, k, o)
+    assert sorted(mko) == sorted([
+        (401408, 64, 64), (100352, 192, 32), (100352, 256, 64),
+        (25088, 480, 64), (25088, 512, 64), (25088, 512, 64),
+        (25088, 512, 64), (25088, 528, 128), (6272, 832, 128),
+        (6272, 832, 128), (128, 1024, 1000)])
+    # on an H100's 132 SMs only the classifier's one row tile splits K
+    assert {mko: k7.k_splits(*mko, 132) for mko in mko} == {
+        **{mko: 1 for mko in mko}, (128, 1024, 1000): 4}
+
+
+@pytest.mark.parametrize("m,k,o,sms,splits", [
+    (128, 1024, 1000, 132, 4),   # 16 tiles, 16 slices: 4 parts of 4
+    (1, 1024, 1000, 132, 4),     # a served row
+    (256, 1024, 1000, 132, 4),   # 32 tiles
+    (128, 512, 1000, 132, 2),    # 8 slices
+    (784, 192, 32, 132, 1),      # 7 tiles, 3 slices: fewer than 4 a part
+    (784, 2048, 32, 132, 8),     # 7 tiles, 32 slices
+    (128, 64, 64, 132, 1),       # one slice
+    (6272, 832, 128, 132, 1),    # 98 tiles, more than half the SMs
+    (4288, 832, 128, 132, 1),    # 68 tiles
+    (4224, 832, 128, 132, 2),    # 66 tiles, 13 slices
+    (128, 1024, 1000, 16, 1),    # 16 tiles on 16 SMs
+    (128, 1024, 1000, 40, 2),
+])
+def test_k7_split_rule(m, k, o, sms, splits):
+    """How many parts K7's main path cuts K into: a pure function of the
+    shape and the SM count."""
+    assert k7.k_splits(m, k, o, sms) == splits
+
+
 def _route_params(kind, seed):
     rng = np.random.RandomState(seed)
     shape = {"fc": (10, 24), "1x1": (1, 1, 24, 10),
