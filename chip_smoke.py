@@ -29,11 +29,13 @@ Phases; any failure ends the run with a non-zero exit and no result:
    too, and its mma.sync edge kernel (reached by its C entry) must agree
    there as well; the two and ``torch.addmm`` are timed in turns.  The
    edge path at a ragged shape (K and O off the main path's rule), f32
-   and bf16, with and without bias and relu.  The max-pool backward
-   (K2) must take its channel-vector main path at each of the four
-   stride-2 pools, f32 and bf16; in bf16 its old scalar kernel (the
-   edge path, reached by its C entry) must be bit-equal too, and the
-   main path, the edge kernel and aten's backward are timed in turns,
+   and bf16, with and without bias and relu.  The max-pool kernels
+   must take their channel-vector main paths, f32 and bf16: the
+   forward (K1) at all 13 pools, the backward (K2) at the four stride-2
+   pools and the stride-1 backward (K3) at the nine inception pools; in
+   bf16 each old scalar kernel (the edge path, reached by its C entry)
+   must be bit-equal too, and the main path, the edge kernel and the
+   library call (``F.max_pool2d``, aten's backward) are timed in turns,
    device time.  The SGD step's multi
    launch, the old per-tensor loop of one-tensor launches and the fused
    ``torch.optim.SGD`` in turns.
@@ -44,9 +46,9 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``Engine(model_in=...)`` behind the HTTP server on an ephemeral port:
    ``GET /healthz``, then ``POST /predict`` with 1, 7, 32 and 128 rows,
    each twice.  Every forward must launch the max-pool kernel 13 times,
-   the LRN kernel twice and the conv-block GEMM 9 times, all on its
-   wgmma kernel; the counts are set to 0 just before these requests and
-   read just after them.  Then
+   all on its vector kernel, the LRN kernel twice and the conv-block
+   GEMM 9 times, all on its wgmma kernel; the counts are set to 0 just
+   before these requests and read just after them.  Then
    the 8-row bucket runs again in float32 with TF32 off and is held
    against the same checkpoint served on the CPU (the plain versions),
    and the bfloat16 answers are held against the float32 ones.
@@ -71,8 +73,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``quant_min_agreement = 0``), its verdict logged; the artifact
    served by ``Engine(model_in=..., quant = int8)`` over HTTP at 1, 7,
    32 and 128 rows, each twice, every forward launching K1 13, K4 2, K6
-   9 and K7 11 times less the layers the gate demoted (K6 and K7 on
-   their wgmma kernels only), and no training
+   9 and K7 11 times less the layers the gate demoted (K1 on its vector
+   kernel, K6 and K7 on their wgmma kernels only), and no training
    kernel (counts at 0 just before, read just after); ``/healthz``
    naming the ``.quant.model`` and ``int8``, ``/statsz``'s weight bytes
    at least 3.5 times under dense f32; the int8 model's top-1 against
@@ -88,9 +90,10 @@ Phases; any failure ends the run with a non-zero exit and no result:
    256-row eval section, then ``googlenet.conf``'s netconfig and
    globals with ``dev=gpu``, ``num_round=2``, its learning rates scaled
    by ``LR_SCALE``): 2 rounds of 4 steps at batch 128 in bfloat16.  The counts are set to 0 just before the run
-   and read just after it; every step must launch K1 13, K4 2, K6 9
-   (all wgmma, no edge), K2 4 (all on the vector gather, no edge), K3
-   9, K5 2 times and the SGD kernel once (the 116 parameter tensors in
+   and read just after it; every step must launch K1 13 (all on the
+   vector gather, no edge), K4 2, K6 9 (all wgmma, no edge), K2 4 and
+   K3 9 (all on their vector gathers, no edge), K5 2 times and the SGD
+   kernel once (the 116 parameter tensors in
    one multi-tensor launch); every loss must be finite; the last round's checkpoint is served by ``Engine``
    and answers one ``/predict``.
 6. Training parity on the card, from the run's first checkpoint and one
@@ -102,7 +105,9 @@ Phases; any failure ends the run with a non-zero exit and no result:
    10 ``update()`` steps at b128 bfloat16 on
    device-resident batches after 3 warm-up steps, timed with CUDA
    events, with the peak device memory; then one step under
-   ``torch.profiler``: device time by kernel and the busy share.
+   ``torch.profiler``: device time by kernel and the busy share.  Every
+   profiled GoogLeNet forward or step (here, in phase 3 and in phase 4)
+   must launch K1-K3, K6 and K7 on their main paths only.
 8. The flash-attention kernels (K9 forward, K10 backward): first each
    kernel function's registers and spills (this run's ``nvcc -Xptxas
    -v``), the dynamic shared memory its launcher requests and its HMMA
@@ -155,7 +160,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
    and the times of one training step's launches summed: GoogLeNet b128
    bf16, or the LM step's 4 launches of K9 and of K10, or K7's 11
    launches of one quantized b128 forward; K6 and K7 also the mma.sync
-   design's time at the same shapes, K2 its old scalar kernel's, K8 the per-tensor loop's), the
+   design's time at the same shapes, K1-K3 their old scalar kernels',
+   K8 the per-tensor loop's), the
    ``nvidia-smi`` line again, and last the result line ``{"ok": true,
    "device": {...}}``.
 
@@ -561,14 +567,16 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
         nbytes_in = (x.numel() + w.numel() + b.numel()) * esz
         label = f"M{m} K{k} O{o}"
 
-    # K6 in bf16 and K2 must take their main paths (the C entry by name)
-    main = {("conv_block_gemm", torch.bfloat16): conv_block.WGMMA,
-            ("maxpool_bwd", torch.bfloat16): "maxpool_bwd_bf16",
-            ("maxpool_bwd", torch.float32): "maxpool_bwd_f32"}.get(
-                (kernel, dtype))
-    owner = conv_block.KERNEL if kernel == "conv_block_gemm" else \
-        maxpool.BWD_KERNEL
-    symbols = dict(owner.by_symbol)
+    # K6 in bf16 and K1-K3 must take their main paths (the C entry by
+    # name)
+    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    main = f"{kernel}_{sfx}" if kernel.startswith("maxpool") else (
+        conv_block.WGMMA if (kernel, dtype) == ("conv_block_gemm",
+                                                torch.bfloat16) else None)
+    owner = {"conv_block_gemm": conv_block.KERNEL,
+             "maxpool_fwd": maxpool.KERNEL, "maxpool_bwd": maxpool.BWD_KERNEL,
+             "maxpool_bwd_s1": maxpool.BWD_S1_KERNEL}.get(kernel)
+    symbols = dict(owner.by_symbol) if owner else {}
     got = run()
     ref = plain()
     torch.cuda.synchronize()
@@ -599,9 +607,9 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
         "library_ms": time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
-    if kernel == "maxpool_bwd" and dtype == torch.bfloat16:
+    if kernel.startswith("maxpool") and dtype == torch.bfloat16:
         row["call_ms"], row["library_call_ms"] = row["ms"], row["library_ms"]
-        row.update(_maxpool_bwd_turns(args, ref, run, library))
+        row.update(_maxpool_turns(kernel, args, ref, run, library))
         row["ok"] = row["ok"] and row["edge_ok"]
     del got, ref
     if kernel == "conv_block_gemm" and dtype == torch.bfloat16:
@@ -611,17 +619,20 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
     return row
 
 
-def _maxpool_bwd_turns(args, ref, run, library):
-    """K2 bf16 at one main-path shape, beyond the wrapper's launch: the
-    old scalar kernel (the edge path), reached by its C entry and
-    bit-equal to the plain version; then the main path, the edge kernel
-    and aten's backward timed in turns, device time."""
+def _maxpool_turns(kernel, args, ref, run, library):
+    """K1, K2 or K3 bf16 at one main-path shape, beyond the wrapper's
+    launch: the old scalar kernel (the edge path), reached by its C
+    entry and bit-equal to the plain version; then the main path, the
+    edge kernel and the library call (``F.max_pool2d`` or aten's
+    backward) timed in turns, device time."""
     import torch
 
     from cxxnet_tpu_torch.ops import maxpool
 
-    edge = lambda: maxpool.launch_bwd(  # noqa: E731
-        "maxpool_bwd_bf16_edge", *args)
+    launch = {"maxpool_fwd": maxpool.launch_fwd,
+              "maxpool_bwd": maxpool.launch_bwd,
+              "maxpool_bwd_s1": maxpool.launch_bwd_s1}[kernel]
+    edge = lambda: launch(f"{kernel}_bf16_edge", *args)  # noqa: E731
     edge_ok = bool(torch.equal(edge(), ref))
     times = time_turns({"vector": run, "edge": edge, "aten": library},
                        device=True)
@@ -900,12 +911,15 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
 
 def _routed():
     """The kernels with a main and an edge path in bf16, each with its
-    main path's C entry: K6 and K7 (wgmma) and K2 (the vector gather)."""
+    main path's C entry: K6 and K7 (wgmma) and K1-K3 (the vector
+    gathers)."""
     from cxxnet_tpu_torch.ops import maxpool
     from cxxnet_tpu_torch.ops.kernels import conv_block, int8_gemm
 
     return ((conv_block.KERNEL, conv_block.WGMMA),
+            (maxpool.KERNEL, "maxpool_fwd_bf16"),
             (maxpool.BWD_KERNEL, "maxpool_bwd_bf16"),
+            (maxpool.BWD_S1_KERNEL, "maxpool_bwd_s1_bf16"),
             (int8_gemm.KERNEL, int8_gemm.WGMMA))
 
 
@@ -1070,21 +1084,28 @@ def forward_breakdown(tr, bodies):
         log(f"forward: bucket {b:4d} {statistics.median(ts):.2f} ms "
             f"(host clock, synchronised, median of 5)")
     for b in sorted({min(runs), max(runs)}):
-        _profile(runs[b], f"bucket {b}", "forward")
+        _profile(runs[b], f"bucket {b}", "forward", PER_FORWARD)
 
 
-def _profile(run, what: str, span: str):
+def _profile(run, what: str, span: str, per=None):
     """Device time by kernel name over one call of ``run`` (a ``span``:
     forward or step), and the busy share; returns ``{kernel: ms}`` for
-    the port's kernels and the totals."""
+    the port's kernels and the totals.  With ``per`` (launches by
+    kernel of one bf16 forward or step), the routed kernels' launches
+    in the call must be ``_main_paths(per)``: all on the main path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    paths_before = _by_symbol()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         wall = (time.perf_counter() - t0) * 1e3
+    if per is not None and _paths_since(paths_before) != _main_paths(per):
+        raise SmokeError(f"profile: {what}: {span} launched "
+                         f"{_paths_since(paths_before)} by C entry, "
+                         f"expected {_main_paths(per)}")
     by_name, counts = {}, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1102,12 +1123,13 @@ def _profile(run, what: str, span: str):
     # K7 first: K6's kernel names are substrings of K7's
     ours = {"int8_gemm": ("int8_gemm_wgmma_kernel", "int8_gemm_bf16_kernel",
                           "int8_gemm_f32_kernel", "int8_gemm_reduce_kernel"),
-            "maxpool_fwd": ("maxpool_fwd_kernel",),
+            "maxpool_fwd": ("maxpool_fwd_kernel", "maxpool_fwd_vec_kernel"),
             "lrn_fwd": ("lrn_fwd_kernel",),
             "conv_block_gemm": ("conv_block_wgmma_kernel",
                                 "gemm_bf16_kernel", "gemm_f32_kernel"),
             "maxpool_bwd": ("maxpool_bwd_kernel", "maxpool_bwd_vec_kernel"),
-            "maxpool_bwd_s1": ("maxpool_bwd_s1_kernel",),
+            "maxpool_bwd_s1": ("maxpool_bwd_s1_kernel",
+                               "maxpool_bwd_s1_vec_kernel"),
             "lrn_bwd": ("lrn_bwd_kernel",),
             "sgd_update": ("sgd_update_multi_kernel",),
             "flash_fwd": ("flash_fwd_",),  # the f32 and the _mma_ kernels
@@ -1495,7 +1517,8 @@ def quant_phase(tmp: str, path: str, f32_answers):
             f"median of 5); device bytes at rest {rest} after load, "
             f"{prepared} more held by the prepared operands")
     before = dict(int8_gemm.KERNEL.by_symbol)
-    k7 = _profile(timing["int8"][1], f"int8 b{BATCH} bf16", "forward")
+    k7 = _profile(timing["int8"][1], f"int8 b{BATCH} bf16", "forward",
+                  per_forward)
     took = _symbol_delta(int8_gemm.KERNEL, before)
     # the trace's own count beside the wrapper's: a trace can miss
     # records (one run's held 10 of the 11 launches and a quarter less
@@ -1597,11 +1620,12 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
             row["launches_serving"] = serve_launches[k.name]
         if k.name == "conv_block_gemm":  # the mma.sync design, same run
             row["mma_sync_ms"] = total("mma_sync_ms")
-        if k.name == "maxpool_bwd":  # the old kernel
+        if k.name.startswith("maxpool"):  # the old kernel
             row["edge_ms"] = total("edge_ms")
         if k.name == "sgd_update":  # one launch per tensor, same run
             row["per_tensor_ms"] = total("per_tensor_ms")
-        if k.name in ("conv_block_gemm", "maxpool_bwd", "sgd_update"):
+        if k.name.startswith("maxpool") or k.name in ("conv_block_gemm",
+                                                      "sgd_update"):
             # "ms" and "library_ms" are device times; a call's, host
             # included, beside them
             row.update({f: total(f) for f in ("call_ms", "library_call_ms")})
@@ -1659,7 +1683,7 @@ def _run_train_task(argv):
     steps, losses, marks = [], [], []
 
     class RecordingTrainer(NetTrainer):
-        """Records each step's launches (K6's, K2's and K7's also by C
+        """Records each step's launches (the routed kernels' also by C
         entry), loss and end time."""
 
         def start_round(self, round_):
@@ -1748,7 +1772,7 @@ def train_phase(tmp: str):
         if d != want_paths:
             raise SmokeError(f"training step {i} launched {d} by C entry, "
                              f"expected {want_paths}")
-    log(f"train: K6, K2 and K7 by C entry each step {tr.paths[0]}")
+    log(f"train: the routed kernels by C entry each step {tr.paths[0]}")
     for name, per in want.items():
         if launches[name] < per * n_steps:
             raise SmokeError(f"{name}: {launches[name]} launches in the "
@@ -1939,7 +1963,7 @@ def rate_phase(cfg, mdir: str):
         tr.update(batch)
         torch.cuda.synchronize()
 
-    return _profile(step, f"train b{tr.batch_size} bf16", "step")
+    return _profile(step, f"train b{tr.batch_size} bf16", "step", PER_STEP)
 
 
 # ----------------------------------------------------------------------

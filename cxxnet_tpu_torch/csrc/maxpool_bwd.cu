@@ -55,6 +55,8 @@
 
 #include <algorithm>
 
+#include "channel_vec.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -109,42 +111,6 @@ __global__ void maxpool_bwd_kernel(const T* __restrict__ x,
 }
 
 // ------------------------------------------------------------ main path
-// a 16-byte vector as f32 lanes, and back (one rounding to the dtype)
-template <typename T>
-struct Lanes {
-  static constexpr int V = 16 / sizeof(T);
-};
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(p[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                    __float_as_uint(f[2]), __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
-  uint4 u;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    w[i] = *reinterpret_cast<uint32_t*>(&v);
-  }
-  return u;
-}
-
 // windows covering padded coordinate pp: from lo to hi (empty if lo > hi)
 __device__ __forceinline__ void covering(int pp, int k, int s, int out,
                                          int& lo, int& hi) {
@@ -207,8 +173,6 @@ maxpool_bwd_vec_kernel(const uint4* __restrict__ x,
   }
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 template <typename T>
 int launch_edge(const T* x, const T* y, const T* g, T* dx, int n, int h,
                 int w, int c, int oh, int ow, int kh, int kw, int s, int py,
@@ -222,8 +186,6 @@ int launch_edge(const T* x, const T* y, const T* g, T* dx, int n, int h,
       x, y, g, dx, n, h, w, c, oh, ow, kh, kw, s, py, px);
   return (int)cudaGetLastError();
 }
-
-constexpr int SMEM_LIMIT = 232448;  // a block's shared memory
 
 // the band of y and g rows a block stages: the most window rows that
 // cover one input row, times two
@@ -252,13 +214,8 @@ int launch_vec(const void* x, const void* y, const void* g, void* dx, int n,
   if ((int64_t)n * h * w * c == 0) return 0;
   const int cv = c / Lanes<T>::V;
   static bool sized = false;
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        maxpool_bwd_vec_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (err != cudaSuccess) return (int)err;
-    sized = true;
-  }
+  const cudaError_t err = allow_smem(maxpool_bwd_vec_kernel<T>, sized);
+  if (err != cudaSuccess) return (int)err;
   // one block of 256 threads a row
   maxpool_bwd_vec_kernel<T><<<(unsigned)(n * h), 256,
                               (size_t)band_bytes(oh, ow, cv, kh, s),

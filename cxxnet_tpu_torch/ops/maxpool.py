@@ -10,14 +10,18 @@ a window's gradient to one winner, so it is not used.  The backward is
 the mshadow ``unpool`` rule: every input equal to a covering window's
 max receives that window's gradient, so ties share it.
 
-* ``maxpool_fwd`` (K1, ``csrc/maxpool_fwd.cu``): the forward;
+* ``maxpool_fwd`` (K1, ``csrc/maxpool_fwd.cu``): the forward, a gather
+  over 16-byte channel vectors where ``takes_vector_fwd`` holds (every
+  GoogLeNet pool), the scalar edge kernel elsewhere;
 * ``maxpool_bwd`` (K2, ``csrc/maxpool_bwd.cu``): the backward for any
   geometry, summed in f32 in (dy, dx) window-offset order: a gather over
   16-byte channel vectors where ``takes_vector`` holds (every GoogLeNet
   stride-2 pool), the scalar edge kernel elsewhere;
 * ``maxpool_bwd_s1`` (K3, ``csrc/maxpool_bwd_s1.cu``): the backward of a
   same-size stride-1 pool, summed in f32 in the order of the Pallas
-  kernel it replaces (over output offsets);
+  kernel it replaces (over output offsets): a gather over 16-byte
+  channel vectors where ``takes_vector_s1`` holds (every GoogLeNet
+  inception pool), the scalar edge kernel elsewhere;
 * ``maxpool``: the differentiable entry, a ``torch.autograd.Function``
   whose forward is K1 and whose backward is K3 where the pool is
   eligible and K2 otherwise.
@@ -150,19 +154,63 @@ def maxpool_bwd_s1_plain(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
 # wrappers
 
 
+# a block's shared memory, which holds a main path's band of window rows
+_SMEM_LIMIT = 232448
+# K1's and K3's blocks each stage one channel slice of at most 128 bytes
+# a position (``SLICE`` vectors in ``csrc/channel_vec.cuh``)
+_SLICE_BYTES = 128
+
+
+def _vector_operands(x: torch.Tensor, *others: torch.Tensor) -> bool:
+    """``x``'s C a multiple of the 16-byte vector (8 bf16 or 4 f32
+    channels), ``x`` and ``others`` 16-byte aligned and under 2**31
+    elements (32-bit indices): what the three channel-vector kernels
+    share."""
+    return (x.shape[-1] % (16 // x.element_size()) == 0
+            and all(t.data_ptr() % 16 == 0 and t.numel() < 2 ** 31
+                    for t in (x, *others)))
+
+
+def takes_vector_fwd(x: torch.Tensor, kh: int, kw: int, s: int, py: int = 0,
+                     px: int = 0) -> bool:
+    """The rule for K1's main path (the channel-vector gather): C a
+    multiple of the 16-byte vector, ``x`` 16-byte aligned (``y`` is
+    allocated aligned), ``x`` and ``y`` under 2**31 elements, and a band
+    of window rows that fits in a block's shared memory: the at most
+    ``kh`` input rows that one output row's windows cover, one channel
+    slice (128 bytes a position) wide.  Anything else takes the scalar
+    edge kernel."""
+    n, h, w, c = x.shape
+    _, _, oh, ow = geometry(h, w, kh, kw, s, py, px)
+    band = min(h, kh) * w * min(c * x.element_size(), _SLICE_BYTES)
+    return (_vector_operands(x) and n * oh * ow * c < 2 ** 31
+            and band <= _SMEM_LIMIT)
+
+
 def maxpool_fwd(x: torch.Tensor, kh: int, kw: int, s: int, py: int = 0,
                 px: int = 0) -> torch.Tensor:
     """Max pool an NHWC tensor with the ceil geometry: the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
+    for a CUDA tensor (the vector gather where ``takes_vector_fwd``
+    holds, else the edge kernel), the plain version for a CPU tensor."""
     if x.device.type == "cpu":
         return maxpool_plain(x, kh, kw, s, py, px)
     _build.check_cuda("maxpool_fwd", x, 4)
+    symbol = f"maxpool_fwd_{_build.dtype_suffix(x)}"
+    if not takes_vector_fwd(x, kh, kw, s, py, px):
+        symbol += "_edge"  # the scalar kernel's C entry
+    return launch_fwd(symbol, x, kh, kw, s, py, px)
+
+
+def launch_fwd(symbol: str, x: torch.Tensor, kh: int, kw: int, s: int,
+               py: int, px: int) -> torch.Tensor:
+    """Launch one C entry of K1's source on a checked CUDA ``x`` (the
+    smoke test times the edge kernel at the main path's shapes with it);
+    returns ``y``."""
     n, h, w, c = x.shape
     _, _, oh, ow = geometry(h, w, kh, kw, s, py, px)
     y = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
-    KERNEL.launch(f"maxpool_fwd_{_build.dtype_suffix(x)}", _ARGS,
-                  x.data_ptr(), y.data_ptr(), n, h, w, c, oh, ow, kh, kw, s,
-                  py, px, _build.stream_of(x))
+    KERNEL.launch(symbol, _ARGS, x.data_ptr(), y.data_ptr(), n, h, w, c, oh,
+                  ow, kh, kw, s, py, px, _build.stream_of(x))
     return y
 
 
@@ -175,10 +223,6 @@ def _check_bwd(name: str, x, y, g, oh: int, ow: int) -> None:
                          f"{tuple(g.shape)} must be {(n, oh, ow, c)}")
 
 
-# a block's shared memory, which holds K2's band of y and g window rows
-_SMEM_LIMIT = 232448
-
-
 def takes_vector(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, kh: int,
                  s: int) -> bool:
     """The rule for K2's main path (the channel-vector gather): C a
@@ -188,13 +232,9 @@ def takes_vector(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, kh: int,
     band of window rows that fits in a block's shared memory: the y and
     g rows of the at most ``(kh - 1) // s + 1`` windows that cover one
     input row.  Anything else takes the scalar edge kernel."""
-    lanes = 16 // x.element_size()
     oh, ow, c = y.shape[1], y.shape[2], y.shape[3]
     band = 2 * min(oh, (kh - 1) // s + 1) * ow * c * x.element_size()
-    return (x.shape[-1] % lanes == 0
-            and all(t.data_ptr() % 16 == 0 for t in (x, y, g))
-            and x.numel() < 2 ** 31 and y.numel() < 2 ** 31
-            and band <= _SMEM_LIMIT)
+    return _vector_operands(x, y, g) and band <= _SMEM_LIMIT
 
 
 def maxpool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, kh: int,
@@ -233,18 +273,42 @@ def launch_bwd(symbol: str, x: torch.Tensor, y: torch.Tensor,
 def maxpool_bwd_s1(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, k: int,
                    p: int) -> torch.Tensor:
     """The one-pass backward of a same-size stride-1 ``k x k`` pool with
-    pad ``p = (k - 1) / 2``: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    pad ``p = (k - 1) / 2``: the CUDA kernel for CUDA tensors (the vector
+    gather where ``takes_vector_s1`` holds, else the edge kernel), the
+    plain version for CPU tensors."""
     if not same_size_s1(k, k, 1, p, p):
         raise ValueError(f"maxpool_bwd_s1: k={k} p={p} is not a same-size "
                          "stride-1 pool (needs 2p == k - 1)")
     if x.device.type == "cpu":
         return maxpool_bwd_s1_plain(x, y, g, k, p)
+    _check_bwd("maxpool_bwd_s1", x, y, g, x.shape[1], x.shape[2])
+    symbol = f"maxpool_bwd_s1_{_build.dtype_suffix(x)}"
+    if not takes_vector_s1(x, y, g, k):
+        symbol += "_edge"  # the scalar kernel's C entry
+    return launch_bwd_s1(symbol, x, y, g, k, p)
+
+
+def takes_vector_s1(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                    k: int) -> bool:
+    """The rule for K3's main path (the channel-vector gather): C a
+    multiple of the 16-byte vector, ``x``, ``y`` and ``g`` 16-byte
+    aligned and under 2**31 elements, and a band that fits in a block's
+    shared memory: the y and g rows of the at most ``k`` window rows
+    that cover one input row, one channel slice (128 bytes a position)
+    wide.  Anything else takes the scalar edge kernel."""
+    h, w, c = x.shape[1], x.shape[2], x.shape[3]
+    band = 2 * min(h, k) * w * min(c * x.element_size(), _SLICE_BYTES)
+    return _vector_operands(x, y, g) and band <= _SMEM_LIMIT
+
+
+def launch_bwd_s1(symbol: str, x: torch.Tensor, y: torch.Tensor,
+                  g: torch.Tensor, k: int, p: int) -> torch.Tensor:
+    """Launch one C entry of K3's source on checked CUDA operands (the
+    smoke test times the edge kernel at the main path's shapes with it);
+    returns ``dx``."""
     n, h, w, c = x.shape
-    _check_bwd("maxpool_bwd_s1", x, y, g, h, w)
     dx = torch.empty_like(x)
-    BWD_S1_KERNEL.launch(f"maxpool_bwd_s1_{_build.dtype_suffix(x)}",
-                         _BWD_S1_ARGS, x.data_ptr(), y.data_ptr(),
+    BWD_S1_KERNEL.launch(symbol, _BWD_S1_ARGS, x.data_ptr(), y.data_ptr(),
                          g.data_ptr(), dx.data_ptr(), n, h, w, c, k, p,
                          _build.stream_of(x))
     return dx

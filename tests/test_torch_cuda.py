@@ -213,6 +213,142 @@ def test_cuda_maxpool_bwd_s1_bit_equal_to_plain(cuda_device, dtype, h, w, k):
     assert torch.equal(got[0, 0, 0, :4], torch.zeros_like(got[0, 0, 0, :4]))
 
 
+# K1's paths, (h, w, c, k, s, p): every POOL_CASES geometry at C 40 (the
+# vector gather in both dtypes), 12 (bf16: the edge kernel; f32: the
+# gather) and 6 (the edge kernel in both); C 104, whose channel slices
+# of 8 vectors leave a shorter last one; images whose rows the blocks
+# share unevenly (23 output rows in blocks of 12 and 11, 11 in 6 and 5,
+# 51 in 5s and a 1); and a row of 1000 x 64 whose band outgrows shared
+# memory (the edge kernel)
+POOL_FWD_CASES = [(h, w, c, k, s, p) for h, w, k, s, p in POOL_CASES
+                  for c in (40, 12, 6)] + [
+    (9, 120, 104, 3, 2, 0),
+    (9, 120, 104, 3, 1, 1),
+    (23, 20, 64, 3, 1, 1),
+    (23, 20, 64, 3, 2, 0),
+    (51, 50, 64, 3, 1, 1),
+    (5, 1000, 64, 3, 2, 0),
+]
+
+
+def _equal_with_nans(got, ref) -> bool:
+    """Bit-equal where the reference is a number, NaN where it is NaN
+    (``torch.equal`` is false on any NaN)."""
+    nan = torch.isnan(ref.float())
+    return (torch.equal(torch.isnan(got.float()), nan)
+            and torch.equal(got[~nan], ref[~nan]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c,k,s,p", POOL_FWD_CASES)
+def test_cuda_maxpool_fwd_paths_bit_equal_to_plain(cuda_device, dtype, h, w,
+                                                   c, k, s, p):
+    """The wrapper's path (the vector gather where ``takes_vector_fwd``
+    holds, else the edge kernel) and the edge kernel by its C entry,
+    each bit-equal to the plain version, NaN where it has a NaN."""
+    x = _tied((3, h, w, c), cuda_device, dtype, h * 31 + w + c)
+    x[0, 0, 0, :] = float("nan")
+    x[2, h - 1, w - 1, : c // 2] = float("nan")
+    ref = maxpool.maxpool_plain(x, k, k, s, p, p)
+    assert bool(torch.isnan(ref.float()).any())
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    main = maxpool.takes_vector_fwd(x, k, k, s, p, p)
+    assert main is (c % (16 // x.element_size()) == 0 and w < 1000)
+    before = dict(maxpool.KERNEL.by_symbol)
+    got = maxpool.maxpool_fwd(x, k, k, s, p, p)
+    torch.cuda.synchronize()
+    want = f"maxpool_fwd_{sfx}" + ("" if main else "_edge")
+    assert _symbols_since(maxpool.KERNEL, before) == {want: 1}
+    assert got.shape == ref.shape and _equal_with_nans(got, ref)
+    got = maxpool.launch_fwd(f"maxpool_fwd_{sfx}_edge", x, k, k, s, p, p)
+    torch.cuda.synchronize()
+    assert _equal_with_nans(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_maxpool_fwd_misaligned_view_takes_the_edge(cuda_device,
+                                                         dtype):
+    n, h, w, c = 2, 9, 9, 16
+    buf = _tied((n * h * w * c + 1,), cuda_device, dtype, 6)
+    x = buf[1:].view(n, h, w, c)
+    ref = maxpool.maxpool_plain(x, 3, 3, 2)
+    assert not maxpool.takes_vector_fwd(x, 3, 3, 2)
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    before = dict(maxpool.KERNEL.by_symbol)
+    got = maxpool.maxpool_fwd(x, 3, 3, 2)
+    torch.cuda.synchronize()
+    assert _symbols_since(maxpool.KERNEL, before) == {
+        f"maxpool_fwd_{sfx}_edge": 1}
+    assert torch.equal(got, ref)
+
+
+# K3's paths, (h, w, c, k): k3 and k5 with odd h != w, C 72 (the vector
+# gather in both dtypes), 12 (bf16: the edge kernel) and 6 (the edge
+# kernel in both); C 104, whose channel slices of 8 vectors leave a
+# shorter last one; an image whose rows the blocks share unevenly (23
+# rows in blocks of 6, 6, 6 and 5 in bf16); a row of 400 x 64 whose band
+# outgrows shared memory (the edge kernel)
+POOL_S1_CASES = [(h, w, c, k) for h, w, k in ((7, 5, 3), (5, 9, 3),
+                                              (9, 7, 5), (14, 14, 3))
+                 for c in (72, 12, 6)] + [
+    (7, 60, 104, 3),
+    (23, 20, 64, 3),
+    (3, 400, 64, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c,k", POOL_S1_CASES)
+def test_cuda_maxpool_bwd_s1_paths_bit_equal_to_plain(cuda_device, dtype, h,
+                                                      w, c, k):
+    """The wrapper's path (the vector gather where ``takes_vector_s1``
+    holds, else the edge kernel) and the edge kernel by its C entry,
+    each bit-equal to the plain version; a NaN input gets no gradient."""
+    p = (k - 1) // 2
+    x = _tied((3, h, w, c), cuda_device, dtype, h * 17 + w + c)
+    x[0, 0, 0, :] = float("nan")
+    x[1, h // 2, w // 2, : c // 2] = float("nan")
+    y = maxpool.maxpool_fwd(x, k, k, 1, p, p)
+    g = torch.randn(y.shape, device=cuda_device).to(dtype)
+    ref = maxpool.maxpool_bwd_s1_plain(x, y, g, k, p)
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    main = maxpool.takes_vector_s1(x, y, g, k)
+    assert main is (c % (16 // x.element_size()) == 0 and w < 400)
+    before = dict(maxpool.BWD_S1_KERNEL.by_symbol)
+    got = maxpool.maxpool_bwd_s1(x, y, g, k, p)
+    torch.cuda.synchronize()
+    want = f"maxpool_bwd_s1_{sfx}" + ("" if main else "_edge")
+    assert _symbols_since(maxpool.BWD_S1_KERNEL, before) == {want: 1}
+    assert torch.equal(got, ref)
+    assert not bool(got[0, 0, 0].any())
+    assert not bool(got[1, h // 2, w // 2, : c // 2].any())
+    got = maxpool.launch_bwd_s1(f"maxpool_bwd_s1_{sfx}_edge", x, y, g, k, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_maxpool_bwd_s1_misaligned_view_takes_the_edge(cuda_device,
+                                                            dtype):
+    n, h, w, c = 2, 9, 9, 16
+    x = _tied((n, h, w, c), cuda_device, dtype, 7)
+    y = maxpool.maxpool_fwd(x, 3, 3, 1, 1, 1)
+    buf = torch.randn(n * h * w * c + 1, device=cuda_device).to(dtype)
+    g = buf[1:].view(n, h, w, c)
+    assert not maxpool.takes_vector_s1(x, y, g, 3)
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    before = dict(maxpool.BWD_S1_KERNEL.by_symbol)
+    got = maxpool.maxpool_bwd_s1(x, y, g, 3, 1)
+    torch.cuda.synchronize()
+    assert _symbols_since(maxpool.BWD_S1_KERNEL, before) == {
+        f"maxpool_bwd_s1_{sfx}_edge": 1}
+    assert torch.equal(got, maxpool.maxpool_bwd_s1_plain(x, y, g, 3, 1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])

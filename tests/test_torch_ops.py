@@ -343,7 +343,9 @@ def test_maxpool_bwd_kernel_rule_band_within_shared_memory(oh, ow, c, dtype,
     assert maxpool.takes_vector(x, y, y, k, s) is vector
 
 
-def test_every_googlenet_stride2_pool_takes_the_vector_kernel():
+def _googlenet_pools():
+    """``(x shape, y shape, (kh, kw, s, py, px))`` of every max pool of
+    GoogLeNet's b128 forward, in order, from the port's shape inference."""
     tr = NetTrainer()
     tr.set_params(tcfg.parse_file(os.path.join(
         REPO, "example", "ImageNet", "googlenet.conf")) + [
@@ -354,22 +356,159 @@ def test_every_googlenet_stride2_pool_takes_the_vector_kernel():
     pools = []
     for i, spec in enumerate(tr.graph.layers):
         lay = net.layer_objs[i]
-        if type(lay).__name__ != "MaxPoolingLayer":
+        if type(lay).__name__ == "MaxPoolingLayer":
+            p = lay.param
+            pools.append((shapes[spec.nindex_in[0]],
+                          shapes[spec.nindex_out[0]],
+                          (p.kernel_height, p.kernel_width, p.stride,
+                           p.pad_y, p.pad_x)))
+    return pools
+
+
+def test_every_googlenet_stride2_pool_takes_the_vector_kernel():
+    pools = []
+    for xs, ys, (kh, _, s, py, px) in _googlenet_pools():
+        if maxpool.same_size_s1(kh, kh, s, py, px):
             continue
-        p = lay.param
-        geom = (p.kernel_height, p.kernel_width, p.stride, p.pad_y, p.pad_x)
-        if maxpool.same_size_s1(*geom):
-            continue
-        xs, ys = shapes[spec.nindex_in[0]], shapes[spec.nindex_out[0]]
         pools.append(xs)
         x = torch.empty(xs, dtype=torch.bfloat16, device="meta")
         y = torch.empty(ys, dtype=torch.bfloat16, device="meta")
-        assert maxpool.takes_vector(x, y, y, p.kernel_height, p.stride), xs
+        assert maxpool.takes_vector(x, y, y, kh, s), xs
         x32, y32 = x.float(), y.float()
-        assert maxpool.takes_vector(x32, y32, y32, p.kernel_height,
-                                    p.stride), xs
+        assert maxpool.takes_vector(x32, y32, y32, kh, s), xs
     assert pools == [(128, 112, 112, 64), (128, 56, 56, 192),
                      (128, 28, 28, 480), (128, 14, 14, 832)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_googlenet_pool_takes_the_forward_vector_kernel(dtype):
+    """K1's main path at all 13 pools of a b128 forward (4 stride-2, 9
+    stride-1), on meta tensors of the port's inferred shapes."""
+    pools = _googlenet_pools()
+    assert len(pools) == 13
+    for xs, _, geom in pools:
+        x = torch.empty(xs, dtype=dtype, device="meta")
+        assert maxpool.takes_vector_fwd(x, *geom), xs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_googlenet_inception_pool_takes_the_s1_vector_kernel(dtype):
+    """K3's main path at the 9 same-size stride-1 pools of a b128 step."""
+    pools = []
+    for xs, ys, geom in _googlenet_pools():
+        if not maxpool.same_size_s1(*geom):
+            continue
+        pools.append(xs)
+        x = torch.empty(xs, dtype=dtype, device="meta")
+        y = torch.empty(ys, dtype=dtype, device="meta")
+        assert maxpool.takes_vector_s1(x, y, y, geom[0]), xs
+    assert pools == [(128, 28, 28, 192), (128, 28, 28, 256),
+                     (128, 14, 14, 480), (128, 14, 14, 512),
+                     (128, 14, 14, 512), (128, 14, 14, 512),
+                     (128, 14, 14, 528), (128, 7, 7, 832), (128, 7, 7, 832)]
+
+
+@pytest.mark.parametrize("c,dtype,offset,vector", [
+    (64, torch.bfloat16, 0, True),
+    (40, torch.bfloat16, 0, True),
+    (8, torch.bfloat16, 0, True),
+    (12, torch.bfloat16, 0, False),   # not 8 bf16 channels a vector
+    (5, torch.bfloat16, 0, False),
+    (12, torch.float32, 0, True),
+    (6, torch.float32, 0, False),     # not 4 f32 channels a vector
+    (64, torch.bfloat16, 1, False),   # x 2 bytes off 16
+    (64, torch.bfloat16, 8, True),    # x 16 bytes on
+    (64, torch.float32, 2, False),    # x 8 bytes off 16
+])
+def test_maxpool_fwd_kernel_rule(c, dtype, offset, vector):
+    buf = torch.zeros(2 * 9 * 9 * c + offset, dtype=dtype)
+    x = buf[offset:].view(2, 9, 9, c)
+    assert x.is_contiguous()
+    assert maxpool.takes_vector_fwd(x, 3, 3, 2) is vector
+
+
+@pytest.mark.parametrize("c,dtype,offset,operand,vector", [
+    (64, torch.bfloat16, 0, "x", True),
+    (24, torch.bfloat16, 0, "x", True),
+    (12, torch.bfloat16, 0, "x", False),  # not 8 bf16 channels a vector
+    (12, torch.float32, 0, "x", True),
+    (6, torch.float32, 0, "x", False),    # not 4 f32 channels a vector
+    (64, torch.bfloat16, 1, "x", False),  # x 2 bytes off 16
+    (64, torch.bfloat16, 1, "y", False),  # y 2 bytes off 16
+    (64, torch.bfloat16, 1, "g", False),  # g 2 bytes off 16
+    (64, torch.bfloat16, 8, "g", True),   # g 16 bytes on
+    (64, torch.float32, 2, "y", False),   # y 8 bytes off 16
+])
+def test_maxpool_bwd_s1_kernel_rule(c, dtype, offset, operand, vector):
+    def make(name):
+        at = offset if name == operand else 0
+        return torch.zeros(2 * 9 * 9 * c + at, dtype=dtype)[at:].view(
+            2, 9, 9, c)
+
+    assert maxpool.takes_vector_s1(make("x"), make("y"), make("g"),
+                                   3) is vector
+
+
+def test_maxpool_fwd_and_s1_kernel_rules_need_32bit_indices():
+    """2**31 elements in x or in y need 64-bit indices: the edge kernels'
+    (a 1-row window, so that the band of window rows stays small)."""
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+    big, small = meta(2, 32768, 4096, 8), meta(2, 16384, 2048, 8)
+    assert big.numel() == 2 ** 31 and big.data_ptr() % 16 == 0
+    assert maxpool.takes_vector_fwd(small, 1, 1, 1)
+    assert not maxpool.takes_vector_fwd(big, 1, 1, 1)
+    # an output of 2**31 elements from an input under it (pad 1, 1x1)
+    assert not maxpool.takes_vector_fwd(meta(2, 32767, 4095, 8), 1, 1, 1,
+                                        1, 1)
+    assert maxpool.takes_vector_s1(small, small, small, 1)
+    assert not maxpool.takes_vector_s1(big, big, big, 1)
+    assert not maxpool.takes_vector_s1(small, small, big, 1)
+
+
+@pytest.mark.parametrize("h,w,c,dtype,k,vector", [
+    (250, 605, 64, torch.bfloat16, 3, True),   # 3 rows: 232320 bytes
+    (250, 606, 64, torch.bfloat16, 3, False),  # 232704
+    (250, 605, 32, torch.float32, 3, True),    # 232320
+    (250, 606, 32, torch.float32, 3, False),   # 232704
+    (250, 605, 1024, torch.bfloat16, 3, True),  # one 128-byte slice wide
+    (250, 606, 1024, torch.float32, 3, False),
+    (250, 302, 8, torch.bfloat16, 3, True),    # 16 bytes a position
+    (250, 1816, 64, torch.bfloat16, 1, True),  # 1 row: 232448
+    (250, 1817, 64, torch.bfloat16, 1, False),
+    (2, 908, 64, torch.float32, 3, True),      # 2 rows (h < k): 232448
+    (2, 909, 64, torch.float32, 3, False),
+])
+def test_maxpool_fwd_kernel_rule_band_within_shared_memory(h, w, c, dtype, k,
+                                                           vector):
+    """K1's main path stages the input rows one output row's windows
+    cover, one channel slice of 128 bytes a position wide, in a block's
+    shared memory (232448 bytes on the H100); a wider band takes the
+    edge kernel."""
+    x = torch.empty(2, h, w, c, dtype=dtype, device="meta")
+    assert maxpool.takes_vector_fwd(x, k, k, 2) is vector
+
+
+@pytest.mark.parametrize("h,w,c,dtype,k,vector", [
+    (250, 302, 64, torch.bfloat16, 3, True),    # 2 x 3 rows: 231936 bytes
+    (250, 303, 64, torch.bfloat16, 3, False),   # 232704
+    (250, 302, 32, torch.float32, 3, True),     # 231936
+    (250, 303, 32, torch.float32, 3, False),
+    (250, 302, 832, torch.bfloat16, 3, True),   # one 128-byte slice wide
+    (250, 303, 832, torch.float32, 3, False),
+    (250, 1452, 8, torch.bfloat16, 5, True),    # 2 x 5 rows: 232320
+    (250, 1453, 8, torch.bfloat16, 5, False),   # 232480
+    (1, 908, 64, torch.bfloat16, 3, True),      # 2 x 1 row (h < k): 232448
+    (1, 909, 64, torch.bfloat16, 3, False),
+])
+def test_maxpool_bwd_s1_kernel_rule_band_within_shared_memory(h, w, c, dtype,
+                                                              k, vector):
+    """K3's main path stages the y and g rows of the windows covering one
+    input row, one channel slice of 128 bytes a position wide, in a
+    block's shared memory; a wider band takes the edge kernel."""
+    x = torch.empty(2, h, w, c, dtype=dtype, device="meta")
+    assert maxpool.takes_vector_s1(x, x, x, k) is vector
 
 
 @pytest.mark.parametrize("h,w,k", [(6, 6, 3), (7, 5, 3), (9, 8, 5),
