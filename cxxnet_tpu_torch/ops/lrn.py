@@ -14,7 +14,9 @@ of saving it (LRN sits on large activations) and sums
 
 * ``lrn_fwd`` (K4, ``csrc/lrn_fwd.cu``) and ``lrn_bwd`` (K5,
   ``csrc/lrn_bwd.cu``) take the plain version only for a tensor on the
-  CPU; for a CUDA tensor they launch their kernel or raise;
+  CPU; for a CUDA tensor they launch their kernel or raise: the one-pass
+  kernel over 16-byte channel vectors where ``takes_vector`` holds
+  (both GoogLeNet LRNs), the scalar edge kernel elsewhere;
 * ``lrn``: the differentiable entry, a ``torch.autograd.Function`` with
   K4 forward (saving ``x`` only) and K5 backward.
 """
@@ -92,20 +94,56 @@ def _rows(x: torch.Tensor) -> Tuple[int, int]:
     return (x.numel() // c if c else 0), c
 
 
+# the main path's largest window (its C source is instantiated for each
+# nsize up to this: a halo of at most 4 channels a side, which one
+# neighbouring 16-byte vector holds in both dtypes)
+VECTOR_NSIZE = 9
+# the main path's block holds whole positions of at most this many
+# 16-byte vectors (``BLOCK_VECTORS`` in ``csrc/lrn_vec.cuh``)
+_BLOCK_VECTORS = 256
+
+
+def takes_vector(x: torch.Tensor, *others: torch.Tensor, nsize: int) -> bool:
+    """The rule for K4's and K5's main path (the one-pass kernels over
+    16-byte channel vectors): C a multiple of the vector (4 f32 or 8
+    bf16 channels) and at most 256 vectors, ``x`` and ``others`` (K5's
+    ``g``; outputs are allocated aligned) 16-byte aligned and under
+    2**31 elements, and ``1 <= nsize <= VECTOR_NSIZE``.  Anything else
+    takes the scalar edge kernel."""
+    lanes = 16 // x.element_size()
+    c = x.shape[-1]
+    return (c % lanes == 0 and c // lanes <= _BLOCK_VECTORS
+            and 1 <= nsize <= VECTOR_NSIZE
+            and all(t.data_ptr() % 16 == 0 and t.numel() < 2 ** 31
+                    for t in (x, *others)))
+
+
 def lrn_fwd(x: torch.Tensor, nsize: int, alpha: float, beta: float,
             knorm: float) -> torch.Tensor:
     """LRN over the last (channel) axis of an NHWC or (N, C) tensor: the
-    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    CUDA kernel for a CUDA tensor (the vector kernel where
+    ``takes_vector`` holds, else the edge kernel), the plain version for
+    a CPU tensor."""
     if x.device.type == "cpu":
         return lrn_plain(x, nsize, alpha, beta, knorm)
     _build.check_cuda("lrn_fwd", x, x.dim())
     if nsize < 1:
         raise ValueError(f"lrn_fwd: local_size must be >= 1, got {nsize}")
+    symbol = f"lrn_fwd_{_build.dtype_suffix(x)}"
+    if not takes_vector(x, nsize=nsize):
+        symbol += "_edge"  # the scalar kernel's C entry
+    return launch_fwd(symbol, x, nsize, alpha, beta, knorm)
+
+
+def launch_fwd(symbol: str, x: torch.Tensor, nsize: int, alpha: float,
+               beta: float, knorm: float) -> torch.Tensor:
+    """Launch one C entry of K4's source on a checked CUDA ``x`` (the
+    smoke test times the edge kernel at the main path's shapes with it);
+    returns ``y``."""
     m, c = _rows(x)
     y = torch.empty_like(x)
-    KERNEL.launch(f"lrn_fwd_{_build.dtype_suffix(x)}", _ARGS,
-                  x.data_ptr(), y.data_ptr(), m, c, nsize, alpha / nsize,
-                  beta, knorm, _build.stream_of(x))
+    KERNEL.launch(symbol, _ARGS, x.data_ptr(), y.data_ptr(), m, c, nsize,
+                  alpha / nsize, beta, knorm, _build.stream_of(x))
     return y
 
 
@@ -113,7 +151,8 @@ def lrn_bwd(x: torch.Tensor, g: torch.Tensor, nsize: int, alpha: float,
             beta: float, knorm: float) -> torch.Tensor:
     """The input gradient of :func:`lrn_fwd` for the output gradient
     ``g`` (same shape and dtype as ``x``): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors (the vector kernel where ``takes_vector`` holds, else the
+    edge kernel), the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return lrn_bwd_plain(x, g, nsize, alpha, beta, knorm)
     _build.check_cuda("lrn_bwd x", x, x.dim())
@@ -122,11 +161,21 @@ def lrn_bwd(x: torch.Tensor, g: torch.Tensor, nsize: int, alpha: float,
         raise ValueError(f"lrn_bwd: g {tuple(g.shape)} vs x {tuple(x.shape)}")
     if nsize < 1:
         raise ValueError(f"lrn_bwd: local_size must be >= 1, got {nsize}")
+    symbol = f"lrn_bwd_{_build.dtype_suffix(x)}"
+    if not takes_vector(x, g, nsize=nsize):
+        symbol += "_edge"  # the scalar kernel's C entry
+    return launch_bwd(symbol, x, g, nsize, alpha, beta, knorm)
+
+
+def launch_bwd(symbol: str, x: torch.Tensor, g: torch.Tensor, nsize: int,
+               alpha: float, beta: float, knorm: float) -> torch.Tensor:
+    """Launch one C entry of K5's source on checked CUDA operands (the
+    smoke test times the edge kernel at the main path's shapes with it);
+    returns ``dx``."""
     m, c = _rows(x)
     dx = torch.empty_like(x)
-    BWD_KERNEL.launch(f"lrn_bwd_{_build.dtype_suffix(x)}", _BWD_ARGS,
-                      x.data_ptr(), g.data_ptr(), dx.data_ptr(), m, c, nsize,
-                      alpha / nsize, beta, knorm,
+    BWD_KERNEL.launch(symbol, _BWD_ARGS, x.data_ptr(), g.data_ptr(),
+                      dx.data_ptr(), m, c, nsize, alpha / nsize, beta, knorm,
                       2.0 * (alpha / nsize) * beta, _build.stream_of(x))
     return dx
 

@@ -1,7 +1,11 @@
 """Each CUDA kernel of the port against its plain PyTorch version: the
 forwards of max pool, LRN and the conv block; the two max-pool
 backwards and the SGD step bit for bit (ties, partial windows, NaNs);
-the LRN backward to 1e-5 in float32 and 1e-2 in bfloat16; the flash
+the LRN forward and backward to 1e-5 in float32 and 1e-2 in bfloat16 on
+both paths, with the C entry each call took (the vector kernels at C 8
+to 1024, the edge kernels at C 70, a misaligned view and nsize 11;
+nsize 1 to 11, beta 0.5 to 1.5), NaN and inf at knorm 0 where the plain
+version has them; the flash
 attention forward (K9) within 1e-5 (float32) and 1e-2 (bfloat16) and
 the backward (K10) within 1e-6 and 2e-2 of each row's largest plain
 magnitude (in bfloat16 at least 1e-3 of the tensor's largest), over
@@ -74,14 +78,56 @@ def test_cuda_maxpool_bit_equal_to_plain(cuda_device, dtype, h, w, k, s, p):
     assert torch.equal(got, maxpool.maxpool_plain(x, k, k, s, p, p))
 
 
+# LRN's paths, (c, offset): C 8, 64, 72, 192 and 1024 (the vector kernel
+# in both dtypes: 1 to 256 vectors a position), 70 (the edge kernel in
+# both) and a view one element off 16-byte alignment (the edge kernel);
+# nsize 11 is past the vector kernel's largest window (the edge kernel)
+LRN_CASES = [(8, 0), (64, 0), (72, 0), (192, 0), (1024, 0), (70, 0),
+             (64, 1)]
+LRN_NSIZES = [1, 3, 4, 5, 9, 11]
+LRN_TOL = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
+# beta 1.5 is past the vector kernels' log2/exp2 route: powf there
+LRN_BETAS = [0.5, 0.75, 1.0, 1.5]
+
+
+def _lrn_input(c, offset, device, dtype, seed):
+    """A (5, 7, 9, c) input, ``offset`` elements into its buffer."""
+    gen = torch.Generator().manual_seed(seed)
+    buf = torch.randn(5 * 7 * 9 * c + offset, generator=gen)
+    return buf.to(device, dtype)[offset:].view(5, 7, 9, c)
+
+
+def _lrn_main(x, nsize, offset):
+    """Whether the rule sends ``x`` to the vector kernel, held to the
+    cases' own reading of it."""
+    main = lrn.takes_vector(x, nsize=nsize)
+    assert main is (offset == 0 and x.shape[-1] % (16 // x.element_size())
+                    == 0 and nsize <= lrn.VECTOR_NSIZE)
+    return main
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("nsize", [3, 4, 5])
-def test_cuda_lrn_matches_plain(cuda_device, dtype, tol, nsize):
-    x = torch.randn(5, 7, 9, 72, device=cuda_device).to(dtype)
-    got = lrn.lrn_fwd(x, nsize, 1e-2, 0.75, 1.0)
-    ref = lrn.lrn_plain(x, nsize, 1e-2, 0.75, 1.0)
+@pytest.mark.parametrize("dtype,tol", LRN_TOL)
+@pytest.mark.parametrize("nsize", LRN_NSIZES)
+@pytest.mark.parametrize("c,offset", LRN_CASES)
+@pytest.mark.parametrize("beta", LRN_BETAS)
+def test_cuda_lrn_matches_plain(cuda_device, dtype, tol, nsize, c, offset,
+                                beta):
+    """The wrapper's path (the vector kernel where ``takes_vector``
+    holds, else the edge kernel), which the per-entry count shows, and
+    the edge kernel by its C entry, each against the plain version."""
+    x = _lrn_input(c, offset, cuda_device, dtype, c + nsize)
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    main = _lrn_main(x, nsize, offset)
+    ref = lrn.lrn_plain(x, nsize, 1e-2, beta, 1.0)
+    before = dict(lrn.KERNEL.by_symbol)
+    got = lrn.lrn_fwd(x, nsize, 1e-2, beta, 1.0)
+    torch.cuda.synchronize()
+    want = f"lrn_fwd_{sfx}" + ("" if main else "_edge")
+    assert _symbols_since(lrn.KERNEL, before) == {want: 1}
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    got = lrn.launch_fwd(f"lrn_fwd_{sfx}_edge", x, nsize, 1e-2, beta, 1.0)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
 
@@ -350,19 +396,76 @@ def test_cuda_maxpool_bwd_s1_misaligned_view_takes_the_edge(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("nsize", [3, 4, 5])
-def test_cuda_lrn_bwd_matches_plain(cuda_device, dtype, tol, nsize):
-    x = torch.randn(5, 7, 9, 72, device=cuda_device).to(dtype)
+@pytest.mark.parametrize("dtype,tol", LRN_TOL)
+@pytest.mark.parametrize("nsize", LRN_NSIZES)
+@pytest.mark.parametrize("c,offset", LRN_CASES)
+@pytest.mark.parametrize("beta", LRN_BETAS)
+def test_cuda_lrn_bwd_matches_plain(cuda_device, dtype, tol, nsize, c,
+                                    offset, beta):
+    """As the forward: the wrapper's path by its per-entry count, then
+    the edge kernel by its C entry, each against the plain version."""
+    x = _lrn_input(c, offset, cuda_device, dtype, c + nsize)
     x[0, 0, 0, :8] = 0.0  # relu zeros
     g = torch.randn(x.shape, device=cuda_device).to(dtype)
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    main = _lrn_main(x, nsize, offset)
+    before = dict(lrn.BWD_KERNEL.by_symbol)
     n0 = lrn.BWD_KERNEL.launches
-    got = lrn.lrn_bwd(x, g, nsize, 1e-2, 0.75, 1.0)
+    got = lrn.lrn_bwd(x, g, nsize, 1e-2, beta, 1.0)
     torch.cuda.synchronize()
     assert lrn.BWD_KERNEL.launches == n0 + 1
-    ref = lrn.lrn_bwd_plain(x, g, nsize, 1e-2, 0.75, 1.0)
+    want = f"lrn_bwd_{sfx}" + ("" if main else "_edge")
+    assert _symbols_since(lrn.BWD_KERNEL, before) == {want: 1}
+    ref = lrn.lrn_bwd_plain(x, g, nsize, 1e-2, beta, 1.0)
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    got = lrn.launch_bwd(f"lrn_bwd_{sfx}_edge", x, g, nsize, 1e-2, beta, 1.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", LRN_TOL)
+@pytest.mark.parametrize("c,offset", [(64, 0), (70, 0), (64, 1)])
+def test_cuda_lrn_zero_norm_places_nan_and_inf_as_plain(cuda_device, dtype,
+                                                        tol, c, offset):
+    """knorm = 0: an all-zero position has norm 0 (y = 0 * inf, NaN), and
+    one whose only nonzero values (+-1e-30) square to 0 has y = +-inf
+    there; both directions on both paths put NaN and inf where the plain
+    version does, and hold the rest to the tolerance.  alpha = nsize
+    keeps the other norms near 5: at alpha 1e-2 a window of small inputs
+    has a norm near 1e-4 and p near 1e3, where dx cancels two terms of
+    that size and the plain version itself lies past the 1e-5 atol from
+    float64 (``check_lrn_power`` in ``chip_smoke.py`` reads it), so only
+    a pow bit-equal to the plain version's would pass."""
+    x = _lrn_input(c, offset, cuda_device, dtype, 5)
+    x[0, 0, 0, :] = 0.0
+    x[1, 2, 3, :] = 0.0
+    x[1, 2, 3, 5], x[1, 2, 3, 6] = 1e-30, -1e-30
+    g = torch.randn(x.shape, device=cuda_device).to(dtype)
+    args = (5, 5.0, 0.75, 0.0)
+    ref = lrn.lrn_plain(x, *args)
+    assert bool(torch.isnan(ref[0, 0, 0]).all())
+    assert ref[1, 2, 3, 5] == float("inf") and ref[1, 2, 3, 6] == -float(
+        "inf")
+    ref_bwd = lrn.lrn_bwd_plain(x, g, *args)
+    assert bool(torch.isnan(ref_bwd[0, 0, 0]).all())
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    edge = "" if _lrn_main(x, 5, offset) else "_edge"
+    before = (dict(lrn.KERNEL.by_symbol), dict(lrn.BWD_KERNEL.by_symbol))
+    for got, want in ((lrn.lrn_fwd(x, *args), ref),
+                      (lrn.launch_fwd(f"lrn_fwd_{sfx}_edge", x, *args), ref),
+                      (lrn.lrn_bwd(x, g, *args), ref_bwd),
+                      (lrn.launch_bwd(f"lrn_bwd_{sfx}_edge", x, g, *args),
+                       ref_bwd)):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, equal_nan=True)
+    assert _symbols_since(lrn.KERNEL, before[0]) == (
+        {f"lrn_fwd_{sfx}_edge": 2} if edge else
+        {f"lrn_fwd_{sfx}": 1, f"lrn_fwd_{sfx}_edge": 1})
+    assert _symbols_since(lrn.BWD_KERNEL, before[1]) == (
+        {f"lrn_bwd_{sfx}_edge": 2} if edge else
+        {f"lrn_bwd_{sfx}": 1, f"lrn_bwd_{sfx}_edge": 1})
 
 
 @pytest.mark.cuda
