@@ -165,7 +165,50 @@ Phases; any failure ends the run with a non-zero exit and no result:
    under ``attn_impl = auto`` and ``xla`` through the dense ``mha``, no
    kernel launched (counts at 0 just before, read just after), finite
    losses; under ``pallas`` the step raises, naming the head dim.
-13. A ``kernels`` JSON line (per kernel: launches on its main path's
+13. ResNet-50's kernels at its shapes: K6 at its four bias-free
+   sibling-1x1 groups at b128 ((M, K, O) = (401408, 64, 320), (100352,
+   256, 640), (25088, 512, 1280), (6272, 1024, 2560); three of them
+   stride 2 in the net) in bf16, on its wgmma kernel, against the plain
+   version, the edge kernel beside it, timed in turns with ``torch.mm``;
+   K8 over its 161 f32 parameter tensors in one launch, bit-equal, timed
+   against fused ``torch.optim.SGD``.  K1 and K2 at its stem pool are
+   GoogLeNet's (128, 112, 112, 64) k3 s2 pool, held and timed in phase 2.
+14. Serving ResNet-50 at full width from ``example/ImageNet/resnet50.conf``
+   (3x224x224, 1000 classes, 53 ``batch_norm`` layers under ``bn_eval =
+   batch``, bf16) with seeded random weights: ``task=serve``'s
+   ``Engine`` behind the HTTP server, 1, 7, 32 and 128 rows each twice;
+   every forward launches K1 once and K6 four times on their main paths
+   and nothing else (counts at 0 just before, read just after); warm
+   latency per bucket, the forward alone per bucket and the device time
+   of the smallest and largest bucket's forward by kind (our kernels,
+   cuBLAS/cuDNN, elementwise, reductions); then the 7-row request's
+   bucket (8) in float32 with TF32 off against the CPU at that bucket,
+   and the bf16 answers against the float32 ones (the limits of phase
+   3; ``pool`` features).  Under ``bn_eval = batch`` a bucket's padded
+   rows enter the statistics, so answers are compared at equal buckets.
+15. Training ResNet-50: ``task=train`` on ``resnet50.conf`` as it stands
+   (its 512 synthetic rows, 2 rounds, batch 128, bf16, ``bn_stats =
+   onepass``, ``scan_steps = 8``, at the conf's own rates, which do not
+   diverge) through ``LearnTask``; counts at 0 just before, read just
+   after; every step launches K1, K2 and K8 once (the 161 tensors in one
+   multi-tensor launch) and K6 four times, the routed ones on their main
+   paths, and nothing else; every loss finite.  Then parity from the
+   run's first checkpoint at ``PARITY_ROWS`` rows under ``bn_eval =
+   batch`` and ``running``: a float32 step on the card (TF32 off)
+   against the CPU and a bf16 step against the float32 one, each
+   tensor's update and (``running``) each running statistic; then the
+   rate: 10 steps on device-resident batches (CUDA events), img/s, peak
+   memory, their launches by C entry (K1, K2 and K8 once, K6 four times
+   a step; GoogLeNet's rate in phase 7 holds its own counts the same
+   way), and one profiled step (device time by kind, busy share).
+16. One step of each of ``nag``, ``rmsprop``, ``adagrad``, ``lars`` and
+   ``lamb`` over ResNet-50's 161 tensors on the card against the CPU.
+17. A ``resnet50_kernels`` JSON line: K1, K2, K6 and K8 with the ResNet
+   training run's launches (the serving run's beside K1 and K6), one
+   step's launches, the max error at ResNet's shapes and one step's
+   launches' times summed (K1 and K2 timed at GoogLeNet's identical
+   stem pool).
+18. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
    forward kernels; the LM training run for K9 and K10, with the
    windowed generation run's; the int8 serving run for K7 — max error,
@@ -220,7 +263,18 @@ Tolerances (reasons in PERF.md):
   tensor within 1e-4, the losses within 1e-4 relatively; bfloat16 vs
   float32, each tensor's cosines >= 0.98 and the median >= 0.999;
 * generation: float32 probability rows within 1e-5, card against CPU
-  and cached against windowed.
+  and cached against windowed;
+* ResNet-50 (``RESNET_*`` below, from the readings in PERF.md): served
+  float32 as GoogLeNet; bf16 features within ``RESNET_BF16_FEAT_REL``
+  and logits within ``RESNET_BF16_LOGIT_REL`` of their largest float32
+  magnitude.  Training parity, float32 card vs CPU: each tensor's update
+  at cosine >= ``RESNET_F32_COS``, the median >=
+  ``RESNET_F32_COS_MEDIAN``, the loss within ``RESNET_F32_LOSS_REL``,
+  each running statistic within ``RESNET_AUX_REL`` of its largest; bf16
+  vs float32: the loss within ``RESNET_BF16_LOSS_REL``, the classifier's
+  update at cosine >= ``RESNET_BF16_CLS_COS``, the running statistics
+  within ``RESNET_AUX_BF16_REL``.  The updaters on the card within
+  ``RESNET_UPDATER_REL`` of each tensor's largest CPU value.
 """
 
 from __future__ import annotations
@@ -349,6 +403,37 @@ HD_T, HD_DIM, HD_HEADS, HD_LAYERS, HD_BATCH, HD_STEPS = 256, 256, 2, 2, 4, 2
 # tensor holds the tighter limit
 UPDATE_REL, UPDATE_REL_MEDIAN = 1e-2, 1e-3
 UPDATE_COS, UPDATE_COS_MEDIAN = 0.9, 0.99
+# ResNet-50 (phases 13-17): resnet50.conf as it stands; one forward
+# launches K1 once and K6 four times (its bias-free sibling groups, at
+# RESNET_GROUPS' (M, K, O) at b128), a step also K2 once and K8 once
+RESNET_CONF = os.path.join(REPO, "example", "ImageNet", "resnet50.conf")
+RESNET_PER_FORWARD = {"maxpool_fwd": 1, "conv_block_gemm": 4}
+RESNET_PER_STEP = {**RESNET_PER_FORWARD, "maxpool_bwd": 1, "sgd_update": 1}
+RESNET_GROUPS = ((401408, 64, 320, False), (100352, 256, 640, False),
+                 (25088, 512, 1280, False), (6272, 1024, 2560, False))
+RESNET_TENSORS, RESNET_TRAIN_ROWS = 161, 512
+RESNET_STEM_POOL = "x(128, 112, 112, 64) k3 s2 p0"
+RESNET_UPDATERS = ("nag", "rmsprop", "adagrad", "lars", "lamb")
+# ResNet-50 parity limits, set from the readings in PERF.md.  From the
+# random init at 8 rows a step's updates are ill-conditioned in both
+# packages (tools/resnet_conditioning.py, CPU, 64x64): the port's float32
+# updates move by up to 0.40 of a tensor's largest (median 0.04; cosine
+# >= 0.9983) when the input moves by 1e-6, and the JAX package's bf16
+# step's updates have a median cosine of 0.24 with its own float32
+# step's.  So the float32 card-vs-CPU step is held by each tensor's
+# cosine, and the bf16 step by its loss, its classifier's update and its
+# running statistics; the bf16 forward's pool features read 0.44 of
+# their largest off float32 in both packages there.  Card readings at
+# 224x224, 8 rows: update
+# cosine worst 0.99943, median 0.9997; loss 7.1e-8; running statistics
+# 1.5e-5; bf16: loss 5.8e-3, classifier cosine 0.9943, running
+# statistics 0.087; served bf16 features 0.246, logits 0.118
+RESNET_F32_COS, RESNET_F32_COS_MEDIAN = 0.995, 0.999
+RESNET_F32_LOSS_REL, RESNET_BF16_LOSS_REL = 1e-5, 2e-2
+RESNET_BF16_CLS_COS = 0.98
+RESNET_AUX_REL, RESNET_AUX_BF16_REL = 1e-4, 0.2
+RESNET_BF16_FEAT_REL, RESNET_BF16_LOGIT_REL = 0.5, 0.25
+RESNET_UPDATER_REL = 1e-5
 
 
 class SmokeError(RuntimeError):
@@ -576,17 +661,19 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
             nbytes_in = 2 * x.numel() * esz
         op_kind = "f32"
         label = f"x{tuple(shape)} n{n}"
-    else:
-        m, k, o = key
+    else:  # (M, K, O), or (M, K, O, False) for a bias-free group
+        m, k, o, *biased = key
         x = randn(m, k)
         w = randn(k, o, scale=k ** -0.5)
-        b = randn(o, scale=0.1)
+        b = randn(o, scale=0.1) if biased in ([], [True]) else None
         run = lambda: conv_block.conv_block_gemm(x, w, b)  # noqa: E731
         plain = lambda: conv_block.conv_block_plain(x, w, b)  # noqa: E731
-        library = lambda: torch.addmm(b, x, w)  # noqa: E731
+        library = ((lambda: torch.addmm(b, x, w)) if b is not None
+                   else (lambda: torch.mm(x, w)))
         ops_per_out = 2 * k
-        nbytes_in = (x.numel() + w.numel() + b.numel()) * esz
-        label = f"M{m} K{k} O{o}"
+        nbytes_in = (x.numel() + w.numel() + (o if b is not None else 0)
+                     ) * esz
+        label = f"M{m} K{k} O{o}" + ("" if b is not None else " no bias")
 
     # K6 in bf16 and K1-K5 must take their main paths (the C entry by
     # name)
@@ -677,12 +764,13 @@ def _edge_turns(kernel, args, ref, run, library, rtol, atol):
 
 
 def _conv_block_turns(x, w, b, run, library, rtol, atol):
-    """K6 bf16 at one main-path shape, beyond the biased product: the
-    wgmma kernel with relu and no bias, and the mma.sync edge kernel
-    (reached by its C entry) against the plain version; then the wgmma
-    kernel, the edge kernel and ``torch.addmm`` timed in turns, device
-    time (the calls' host cost left out: tens of microseconds a call,
-    which would bound these 10-60 us kernels)."""
+    """K6 bf16 at one main-path shape, beyond the product the wrapper
+    ran: the wgmma kernel with relu and no bias, and the mma.sync edge
+    kernel (reached by its C entry) against the plain version; then the
+    wgmma kernel, the edge kernel and ``torch.addmm`` (``torch.mm`` for
+    a bias-free group) timed in turns, device time (the calls' host cost
+    left out: tens of microseconds a call, which would bound these 10-60
+    us kernels)."""
     import torch
 
     from cxxnet_tpu_torch.ops.kernels import conv_block
@@ -697,12 +785,12 @@ def _conv_block_turns(x, w, b, run, library, rtol, atol):
     edge = lambda: conv_block.launch(  # noqa: E731
         conv_block.EDGE, x, w, b, False)
     edge_ok = close(edge(), conv_block.conv_block_plain(x, w, b))
-    times = time_turns({"wgmma": run, "mma_sync": edge, "addmm": library},
+    times = time_turns({"wgmma": run, "mma_sync": edge, "library": library},
                        device=True)
     return {"relu_ok": relu_ok, "mma_sync_ok": edge_ok,
             "ms": statistics.mean(times["wgmma"]),
             "mma_sync_ms": statistics.mean(times["mma_sync"]),
-            "library_ms": statistics.mean(times["addmm"]),
+            "library_ms": statistics.mean(times["library"]),
             "turns": times}
 
 
@@ -1144,6 +1232,20 @@ def serve_phase(tmp: str):
             params = e.trainer.params
     cls = next(v for k, v in params.items()
                if k.endswith("_loss3_classifier"))
+    _hold_served("serve", ref, feats16, probs16, cls, "pool5")
+    return launches, path, answers
+
+
+def _hold_served(tag, ref, feats16, probs16, cls, node,
+                 bf16_limits=(BF16_FEAT_REL, BF16_LOGIT_REL)):
+    """The served answers of one bucket held as the module docstring
+    states: ``ref`` the float32 ``(scores, node features)`` of the card
+    (``card``) and the CPU (``cpu``), ``feats16``/``probs16`` the bf16
+    model's, ``cls`` the classifier's f32 params (fullc, wmat (nout,
+    nin)) that make logits of the features, ``bf16_limits`` the bf16
+    features' and logits' limits."""
+    import numpy as np
+
     wmat = cls["wmat"].cpu().double().numpy()
     bias = cls["bias"].cpu().double().numpy()
     (p_card, f_card), (p_cpu, f_cpu) = ref["card"], ref["cpu"]
@@ -1164,13 +1266,13 @@ def serve_phase(tmp: str):
     limits = {
         "f32_card_vs_cpu_prob_abs": F32_PROB_ATOL,
         "f32_card_vs_cpu_feat_rel": F32_FEAT_REL,
-        "bf16_vs_f32_feat_rel": BF16_FEAT_REL,
-        "bf16_vs_f32_logit_rel": BF16_LOGIT_REL,
+        "bf16_vs_f32_feat_rel": bf16_limits[0],
+        "bf16_vs_f32_logit_rel": bf16_limits[1],
     }
     for key, val in checks.items():
-        log(f"serve: {key} {val:.3g} (limit {limits[key]:g})")
-    log(f"serve: f32 logits max |l| {np.abs(l32).max():.3f}, bf16 max abs "
-        f"logit error {np.abs(l16 - l32).max():.3f}")
+        log(f"{tag}: {key} {val:.3g} (limit {limits[key]:g})")
+    log(f"{tag}: f32 logits max |l| {np.abs(l32).max():.3f}, bf16 max abs "
+        f"logit error {np.abs(l16 - l32).max():.3f} ({node} features)")
     # the served top-1 class must hold on every row whose f32 top-2 gap
     # is wider than twice the measured logit error plus one logit for the
     # bf16 rounding of the served classifier itself (half an ulp is at
@@ -1178,22 +1280,21 @@ def serve_phase(tmp: str):
     top2 = np.sort(l32, axis=1)[:, -2:]
     wide = (top2[:, 1] - top2[:, 0]) > 2 * np.abs(l16 - l32).max() + 1
     agree = probs16.argmax(1) == p_card.argmax(1)
-    log(f"serve: bf16/f32 top-1 agreement {int(agree.sum())}/{len(agree)} "
+    log(f"{tag}: bf16/f32 top-1 agreement {int(agree.sum())}/{len(agree)} "
         f"rows; {int(wide.sum())} rows with a top-2 gap wider than the "
         f"margin, {int(agree[wide].sum())} of them agree")
     bad = [k for k, v in checks.items() if not v <= limits[k]]
     if not agree[wide].all():
         bad.append("bf16_vs_f32_top1")
     if bad:
-        raise SmokeError(f"served scores out of tolerance: {bad}")
-    return launches, path, answers
+        raise SmokeError(f"{tag}: served scores out of tolerance: {bad}")
 
 
-def forward_breakdown(tr, bodies):
+def forward_breakdown(tr, bodies, per=PER_FORWARD, model="GoogLeNet"):
     """The forward alone per bucket (no HTTP, no JSON; host clock around
     a synchronised call, median of 5), and where the device time of the
     smallest and the largest bucket's forward goes (``torch.profiler``,
-    one forward each)."""
+    one forward each, launching ``per`` on the main paths)."""
     import numpy as np
     import torch
 
@@ -1217,10 +1318,10 @@ def forward_breakdown(tr, bodies):
             run()
             ts.append((time.perf_counter() - t0) * 1e3)
         runs[b] = run
-        log(f"forward: bucket {b:4d} {statistics.median(ts):.2f} ms "
+        log(f"forward: {model} bucket {b:4d} {statistics.median(ts):.2f} ms "
             f"(host clock, synchronised, median of 5)")
     for b in sorted({min(runs), max(runs)}):
-        _profile(runs[b], f"bucket {b}", "forward", PER_FORWARD)
+        _profile(runs[b], f"{model} bucket {b}", "forward", per)
 
 
 def _profile(run, what: str, span: str, per=None):
@@ -1947,8 +2048,9 @@ def train_phase(tmp: str):
 
 def _update_of(cfg, ckpt: str, x, y, dev: str, dtype: str):
     """Each tensor's update by one step of a trainer loaded from
-    ``ckpt``, as f64 numpy (CPU), and where the step's forward was
-    exactly zero (a bool array per node; the out node left out)."""
+    ``ckpt``, as f64 numpy (CPU), where the step's forward was exactly
+    zero (a bool array per node; the out node left out), the layer state
+    after the step (f64 numpy) and the step's loss."""
     import numpy as np
     import torch
 
@@ -1969,8 +2071,10 @@ def _update_of(cfg, ckpt: str, x, y, dev: str, dtype: str):
              for i, v in enumerate(nodes)]
     del nodes
     tr.update_all(x, y)
-    return {kt: tr.params[kt[0]][kt[1]].detach().cpu().double().numpy()
-            - w for kt, w in w0.items()}, zeros
+    aux = {(k, t): a.cpu().double().numpy() for k, tags in tr.aux.items()
+           for t, a in tags.items()}
+    return ({kt: tr.params[kt[0]][kt[1]].detach().cpu().double().numpy()
+             - w for kt, w in w0.items()}, zeros, aux, float(tr.last_loss))
 
 
 def parity_phase(cfg, mdir: str):
@@ -1990,9 +2094,9 @@ def parity_phase(cfg, mdir: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    d_card, z_card = _update_of(cfg, ckpt, x, y, "gpu", "float32")
-    d_cpu, z_cpu = _update_of(cfg, ckpt, x, y, "cpu", "float32")
-    d_bf16, _ = _update_of(cfg, ckpt, x, y, "gpu", "bfloat16")
+    d_card, z_card, _, _ = _update_of(cfg, ckpt, x, y, "gpu", "float32")
+    d_cpu, z_cpu, _, _ = _update_of(cfg, ckpt, x, y, "cpu", "float32")
+    d_bf16, _, _, _ = _update_of(cfg, ckpt, x, y, "gpu", "bfloat16")
     flips = sum(int((a != b).sum()) for a, b in zip(z_card, z_cpu)
                 if a is not None)
     n_zero = sum(int(a.sum()) for a in z_cpu if a is not None)
@@ -2059,14 +2163,15 @@ def conf_rates_phase(cfg, mdir: str):
         f"from 0000.model on fresh N(0, 1) batches: losses {losses}")
 
 
-def rate_phase(cfg, mdir: str):
+def rate_phase(cfg, mdir: str, per=PER_STEP, model="GoogLeNet"):
     """``RATE_STEPS`` b128 bf16 steps on device-resident batches after
     ``RATE_WARMUP`` warm-up steps (CUDA events), the peak memory, then
-    one step under the profiler."""
+    one step under the profiler (launching ``per`` on the main paths)."""
     import torch
 
     from cxxnet_tpu_torch.io import DataBatch
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
 
     tr = NetTrainer()
     tr.set_params(cfg)
@@ -2083,6 +2188,8 @@ def rate_phase(cfg, mdir: str):
         tr.update(batch)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    kernels = [k for k in KERNELS if k.name in per]
+    before = {k.name: dict(k.by_symbol) for k in kernels}
     a.record()
     for _ in range(RATE_STEPS):
         tr.update(batch)
@@ -2090,16 +2197,24 @@ def rate_phase(cfg, mdir: str):
     b.synchronize()
     ms = a.elapsed_time(b) / RATE_STEPS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"rate: b{tr.batch_size} bf16 training step {ms:.2f} ms, "
+    took = {k.name: _symbol_delta(k, before[k.name]) for k in kernels}
+    log(f"rate: {model} b{tr.batch_size} bf16 training step {ms:.2f} ms, "
         f"{tr.batch_size / ms * 1e3:.1f} img/s ({RATE_STEPS} steps after "
         f"{RATE_WARMUP} warm-up, CUDA events, device-resident batches); "
-        f"peak device memory {peak:.2f} GiB")
+        f"peak device memory {peak:.2f} GiB; launches by C entry over the "
+        f"{RATE_STEPS} steps {json.dumps(took)}")
+    for k in kernels:
+        if sum(took[k.name].values()) != per[k.name] * RATE_STEPS:
+            raise SmokeError(f"rate: {model}: {k.name} launched "
+                             f"{took[k.name]} in {RATE_STEPS} steps, not "
+                             f"{per[k.name]} a step")
 
     def step():
         tr.update(batch)
         torch.cuda.synchronize()
 
-    return _profile(step, f"train b{tr.batch_size} bf16", "step", PER_STEP)
+    return _profile(step, f"{model} train b{tr.batch_size} bf16", "step",
+                    per)
 
 
 # ----------------------------------------------------------------------
@@ -2878,6 +2993,368 @@ def lm_head_dim_phase():
                          f"{HD_DIM // HD_HEADS}")
 
 
+# ----------------------------------------------------------------------
+# phases 13-17: ResNet-50 (batch_norm; K1, K2, K6 and K8 at its shapes)
+
+
+def resnet_kernels(dev, rows):
+    """K6 at ResNet-50's four bias-free sibling groups (bf16, b128) and
+    K8 over its 161 parameter tensors, each against its plain version
+    and timed against its library call (``check_kernel``); K1 and K2 at
+    the stem pool are GoogLeNet's (128, 112, 112, 64) k3 s2 pool, held
+    and timed there (their rows in ``rows``).  Returns the rows."""
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(cfgmod.parse_file(RESNET_CONF) + [("dev", "cpu"),
+                                                    ("batch_size", "1")])
+    tr.init_model()
+    net = tr.net
+    shapes = net.infer_shapes(BATCH)
+    groups, _ = net._sibling_1x1_groups()
+    keys = []
+    for leader, idxs in groups.items():
+        spec = net.graph.layers[leader]
+        n, oh, ow, _ = shapes[spec.nindex_out[0]]
+        o = sum(net.layer_objs[j].param.num_channel for j in idxs)
+        keys.append((n * oh * ow, shapes[spec.nindex_in[0]][3], o, False))
+    if sorted(keys) != sorted(RESNET_GROUPS):
+        raise SmokeError(f"ResNet-50's sibling groups are {keys}, not "
+                         f"{RESNET_GROUPS}")
+    tensors = []
+    for (key, tag), up in tr.updaters.items():
+        pu = up.param
+        tensors.append((tuple(tr.params[key][tag].shape),
+                        float(pu.learning_rate(0)), float(pu.momentum_at(0)),
+                        pu.wd, pu.clip_gradient))
+    if len(tensors) != RESNET_TENSORS:
+        raise SmokeError(f"ResNet-50 has {len(tensors)} parameter tensors, "
+                         f"not {RESNET_TENSORS}")
+    gen = torch.Generator().manual_seed(SEED + 50)
+    out = [check_kernel("conv_block_gemm", k, torch.bfloat16, dev, gen)
+           for k in keys]
+    out.append(check_kernel("sgd_update", tuple(tensors), torch.float32, dev,
+                            gen))
+    for r in out:
+        r["per_step"] = 1
+        log(f"resnet kernel {r['kernel']:16s} {r['dtype']:8s} "
+            f"{r['shape']:34s} abs {r['max_abs_err']:.3g} rel "
+            f"{r['max_rel_err']:.3g} (rtol {r['rtol']:g} atol {r['atol']:g})"
+            f" {'ok' if r['ok'] else 'MISMATCH'}  ms {r['ms']:.4f} plain "
+            f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})"
+            + (f" mma_sync {r['mma_sync_ms']:.4f}" if "mma_sync_ms" in r
+               else "")
+            + (f" per-tensor loop {r['per_tensor_ms']:.4f}"
+               if "per_tensor_ms" in r else ""))
+    bad = [r["shape"] for r in out if not r["ok"]]
+    if bad:
+        raise SmokeError(f"ResNet kernel check(s) out of tolerance: {bad}")
+    stem = [r for r in rows if r["kernel"] in ("maxpool_fwd", "maxpool_bwd")
+            and r["dtype"] == "bfloat16" and r["shape"] == RESNET_STEM_POOL]
+    if len(stem) != 2:
+        raise SmokeError(f"GoogLeNet's checks hold no bf16 row of the stem "
+                         f"pool {RESNET_STEM_POOL} for K1 and K2")
+    log(f"resnet kernel K1, K2 at the stem pool {RESNET_STEM_POOL}: held "
+        "and timed in GoogLeNet's checks (the same shape)")
+    return out + [dict(r, per_step=1) for r in stem]
+
+
+def resnet_serve_phase(tmp: str):
+    """Serve ResNet-50 from a seeded checkpoint of ``resnet50.conf`` over
+    HTTP (1, 7, 32 and 128 rows, each twice: K1 once and K6 four times a
+    forward, on their main paths, nothing else), the forward's device
+    time by kind per bucket, then the 7-row request's bucket (8) in
+    float32 on the card against the CPU and in bf16 against float32.
+    Returns the launches by kernel."""
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import Engine, make_server
+
+    cfg = cfgmod.parse_file(RESNET_CONF) + [("dev", "gpu"),
+                                            ("seed", str(SEED)),
+                                            ("silent", "1")]
+    side = int(dict(cfg)["input_shape"].split(",")[1])
+    t0 = time.perf_counter()
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.init_model()
+    path = os.path.join(tmp, "0001.model")
+    tr.save_model(path, round_=1)
+    del tr
+    log(f"resnet serve: init_model + save_model "
+        f"{time.perf_counter() - t0:.2f}s")
+    eng = Engine(cfg=cfg, model_in=path, max_batch_size=max(REQUEST_ROWS))
+    httpd = make_server(eng, port=0)
+    th = threading.Thread(target=httpd.serve_forever,
+                          kwargs={"poll_interval": 0.05}, daemon=True)
+    th.start()
+    try:
+        port = httpd.server_port
+        h = _request(port, "/healthz")
+        if h["status"] != "ok" or not h["device"].startswith("cuda"):
+            raise SmokeError(f"resnet serve: unhealthy engine: {h}")
+        bodies = {n: _rows(n, side, SEED + 100 + n) for n in REQUEST_ROWS}
+        answers, launches = _drive_requests(port, bodies, RESNET_PER_FORWARD,
+                                            "resnet serve")
+        x8 = bodies[REQUEST_ROWS[1]]
+        feats16 = eng.extract(x8, "pool")
+        probs16 = answers[x8.shape[0]]
+        forward_breakdown(eng.trainer, bodies, RESNET_PER_FORWARD,
+                          "ResNet-50")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+        eng.close()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = {}
+    for name, dev in (("card", "gpu"), ("cpu", "cpu")):
+        with Engine(cfg=cfg + [("compute_dtype", "float32"), ("dev", dev)],
+                    model_in=path, max_batch_size=max(REQUEST_ROWS)) as e:
+            ref[name] = (e.scores(x8), e.extract(x8, "pool"))
+            params = e.trainer.params
+    cls = next(v for k, v in params.items() if k.endswith("_fc1000"))
+    _hold_served("resnet serve", ref, feats16, probs16, cls, "pool",
+                 (RESNET_BF16_FEAT_REL, RESNET_BF16_LOGIT_REL))
+    return launches
+
+
+def resnet_train_phase(tmp: str):
+    """``task=train`` on ``resnet50.conf`` through ``LearnTask``: 2
+    rounds of its 512 synthetic rows at batch 128, bf16, at the conf's
+    own rates, ``scan_steps = 8`` taken as it stands.  Every step must
+    launch K1, K2 and K8 once and K6 four times (the routed ones on
+    their main paths) and nothing else, and every loss be finite.
+    Returns the run's launches, its model directory and conf."""
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    mdir = os.path.join(tmp, "models")
+    argv = [RESNET_CONF, "task=train", f"num_round={ROUNDS}",
+            f"max_round={ROUNDS}", f"model_dir={mdir}", f"seed={SEED}",
+            "print_step=0"]
+    t0 = time.perf_counter()
+    _, tr, steps, losses, marks = _run_train_task(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    n_tensors = sum(len(tags) for tags in tr.params.values())
+    want = {**{k.name: 0 for k in KERNELS}, **RESNET_PER_STEP}
+    log(f"resnet train: {len(steps)} steps of {tr.batch_size} rows in "
+        f"{wall:.1f}s (CLI run, data set-up and 3 checkpoints included); "
+        f"{n_tensors} parameter tensors; device {tr.device}")
+    log(f"resnet train: launches {launches}; by C entry "
+        + json.dumps({k.name: dict(k.by_symbol) for k in KERNELS
+                      if k.name in RESNET_PER_STEP}))
+    log(f"resnet train: losses {[round(v, 4) for v in losses]}")
+    n_steps = ROUNDS * (RESNET_TRAIN_ROWS // tr.batch_size)
+    if len(steps) != n_steps or n_tensors != RESNET_TENSORS:
+        raise SmokeError(f"resnet task=train ran {len(steps)} steps over "
+                         f"{n_tensors} tensors, not {n_steps} over "
+                         f"{RESNET_TENSORS}")
+    for i, (d, paths) in enumerate(zip(steps, tr.paths)):
+        if d != want or paths != _main_paths(RESNET_PER_STEP):
+            raise SmokeError(f"resnet training step {i} launched {d}, by C "
+                             f"entry {paths}; expected {want}, "
+                             f"{_main_paths(RESNET_PER_STEP)}")
+    if not all(np.isfinite(losses)):
+        raise SmokeError(f"resnet: non-finite training loss: {losses}")
+    _round_rates(marks, tr.batch_size, "img")
+    cfg = cfgmod.parse_file(RESNET_CONF) + [("dev", "gpu"), ("silent", "1")]
+    return launches, mdir, cfg
+
+
+def resnet_parity_phase(cfg, mdir: str):
+    """From the run's first checkpoint, ``PARITY_ROWS`` rows, under
+    ``bn_eval = batch`` and ``running``: one float32 step on the card
+    (TF32 off) against the CPU (each tensor's update by cosine, the
+    loss, the running statistics), and one bf16 step against the float32
+    one (the loss, the classifier's update, the running statistics; the
+    other tensors' cosines are logged: from ResNet-50's random init a
+    bf16 step's updates are not the float32 step's in the JAX package
+    either, see ``RESNET_*`` above)."""
+    import numpy as np
+    import torch
+
+    ckpt = os.path.join(mdir, "0000.model")
+    side = int(dict(cfg)["input_shape"].split(",")[1])
+    rng = np.random.RandomState(SEED + 12)
+    x = rng.randn(PARITY_ROWS, side, side, 3).astype(np.float32)
+    y = rng.randint(0, 1000, (PARITY_ROWS, 1)).astype(np.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def cosines(a, b):
+        return {kt: float((d * a[kt]).sum() / (np.linalg.norm(d)
+                                               * np.linalg.norm(a[kt])))
+                for kt, d in b.items()}
+
+    def rels(a, b):
+        return {kt: float(np.abs(a[kt] - d).max() / np.abs(d).max())
+                for kt, d in b.items()}
+
+    bad = []
+    for mode in ("batch", "running"):
+        mcfg = cfg + [("bn_eval", mode)]
+        t0 = time.perf_counter()
+        d_card, z_card, a_card, l_card = _update_of(mcfg, ckpt, x, y, "gpu",
+                                                    "float32")
+        d_cpu, z_cpu, a_cpu, l_cpu = _update_of(mcfg, ckpt, x, y, "cpu",
+                                                "float32")
+        d_bf16, _, a_bf16, l_bf16 = _update_of(mcfg, ckpt, x, y, "gpu",
+                                               "bfloat16")
+        tag = f"resnet parity bn_eval={mode}:"
+        flips = sum(int((a != b).sum()) for a, b in zip(z_card, z_cpu)
+                    if a is not None)
+        log(f"{tag} {PARITY_ROWS}-row steps in "
+            f"{time.perf_counter() - t0:.1f}s; losses f32 card {l_card!r}, "
+            f"CPU {l_cpu!r}, bf16 card {l_bf16!r}; {flips} activations "
+            "exactly zero on one side only (f32 card vs CPU)")
+        cls = [kt for kt in d_cpu if kt[0].endswith("_fc1000")]
+        cos16 = cosines(d_bf16, d_card)
+        checks = [  # (name, values, lower is better, limit, median limit)
+            ("f32 card vs CPU update cosine", cosines(d_card, d_cpu),
+             False, RESNET_F32_COS, RESNET_F32_COS_MEDIAN),
+            ("f32 card vs CPU update rel (logged)", rels(d_card, d_cpu),
+             True, None, None),
+            ("f32 card vs CPU loss rel",
+             {("loss",): abs(l_card - l_cpu) / abs(l_cpu)}, True,
+             RESNET_F32_LOSS_REL, None),
+            ("aux f32 card vs CPU rel", rels(a_card, a_cpu), True,
+             RESNET_AUX_REL, None),
+            ("bf16 vs f32 loss rel",
+             {("loss",): abs(l_bf16 - l_card) / abs(l_card)}, True,
+             RESNET_BF16_LOSS_REL, None),
+            ("bf16 vs f32 classifier update cosine",
+             {kt: cos16[kt] for kt in cls}, False, RESNET_BF16_CLS_COS,
+             None),
+            ("bf16 vs f32 update cosine (logged)", cos16, False, None,
+             None),
+            ("aux bf16 vs f32 rel", rels(a_bf16, a_card), True,
+             RESNET_AUX_BF16_REL, None),
+        ]
+        for name, vals, lower, lim, lim_med in checks:
+            if not vals:
+                continue
+            worst = sorted(vals.items(), key=lambda kv: kv[1],
+                           reverse=lower)[:5]
+            med = statistics.median(vals.values())
+            log(f"{tag} {name}: worst {worst[0][1]:.5g}"
+                + (f" (limit {lim:g})" if lim is not None else "")
+                + f", median {med:.5g}"
+                + (f" (limit {lim_med:g})" if lim_med is not None else "")
+                + "; worst 5: " + ", ".join(f"{'/'.join(kt)} {v:.4g}"
+                                           for kt, v in worst))
+            if lim is None:
+                continue
+            over = [kt for kt, v in vals.items()
+                    if not (v <= lim if lower else v >= lim)]
+            if lim_med is not None and not (med <= lim_med if lower
+                                            else med >= lim_med):
+                over.append(("median",))
+            bad += [(mode, name) + tuple(kt) for kt in over]
+        if (mode == "running") != bool(a_cpu):
+            bad.append((mode, "running statistics present"))
+    if bad:
+        raise SmokeError(f"resnet training parity out of tolerance: "
+                         f"{bad[:8]}")
+
+
+def resnet_updater_phase(dev):
+    """One step of each of ``nag``, ``rmsprop``, ``adagrad``, ``lars``
+    and ``lamb`` over ResNet-50's 161 tensors (the conf's updater keys,
+    seeded weights and gradients), on the card against the CPU; the
+    card's step time (CUDA events)."""
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.updater import apply_all
+
+    base = cfgmod.parse_file(RESNET_CONF) + [("batch_size", "1")]
+    bad = []
+    for name in RESNET_UPDATERS:
+        trs = {}
+        for where, dev_key in (("card", "gpu"), ("cpu", "cpu")):
+            tr = NetTrainer()
+            tr.set_params(base + [("updater", name), ("dev", dev_key)])
+            tr.init_model()
+            trs[where] = tr
+        gen = torch.Generator().manual_seed(SEED + 60)
+        grads = {kt: torch.randn(tuple(trs["cpu"].params[kt[0]][kt[1]].shape),
+                                 generator=gen) * 1e-2
+                 for kt in trs["cpu"].updaters}
+        for tr in trs.values():
+            items = [(up, tr.params[k][t], grads[(k, t)].to(tr.device),
+                      tr.ustates[k][t]) for (k, t), up in tr.updaters.items()]
+            apply_all(items, 0)
+        card, cpu = trs["card"], trs["cpu"]
+        worst = 0.0
+        for (k, t) in cpu.updaters:
+            pairs = [(card.params[k][t], cpu.params[k][t])]
+            pairs += [(card.ustates[k][t][sl], s)
+                      for sl, s in cpu.ustates[k][t].items()]
+            for a, b in pairs:
+                scale = float(b.abs().max()) or 1.0
+                worst = max(worst, float((a.cpu() - b).abs().max()) / scale)
+        items = [(up, card.params[k][t], grads[(k, t)].to(dev),
+                  card.ustates[k][t]) for (k, t), up in card.updaters.items()]
+        ms = time_ms(lambda: apply_all(items, 1), reps=3, inner=1)
+        log(f"resnet updater {name}: {len(items)} tensors, card vs CPU "
+            f"worst error {worst:.3g} of the tensor's largest (limit "
+            f"{RESNET_UPDATER_REL:g}); a step on the card {ms:.3f} ms "
+            "(CUDA events, host included)")
+        if not worst <= RESNET_UPDATER_REL:
+            bad.append(name)
+        del trs, card, cpu, items
+    if bad:
+        raise SmokeError(f"updaters out of tolerance on the card: {bad}")
+
+
+def resnet_line(krows, serve_launches, train_launches):
+    """ResNet-50's line: per kernel of its path (K1, K2, K6, K8) the
+    launches of the ResNet training run (and of the ResNet serving run),
+    one step's launches, the max error at ResNet's shapes, and one
+    training step's launches' times summed (bf16 b128; K8 the f32
+    multi-tensor launch over the 161 tensors)."""
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    out = []
+    for k in KERNELS:
+        if k.name not in RESNET_PER_STEP:
+            continue
+        mine = [r for r in krows if r["kernel"] == k.name]
+        by_bytes = sum(r["bound_ms"] for r in mine
+                       if r["bound_by"] == "bytes")
+        row = {
+            "name": k.name, "route": "cuda",
+            "source": os.path.relpath(k.source, REPO),
+            "replaces": k.replaces.split()[0],
+            "launches": train_launches[k.name],
+            "launches_per_step": RESNET_PER_STEP[k.name],
+            "shapes": [r["shape"] for r in mine],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            **{f: sum(r[f] for r in mine)
+               for f in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": ("bytes" if 2 * by_bytes >= sum(
+                r["bound_ms"] for r in mine) else "operations"),
+        }
+        if k.name in serve_launches:
+            row["launches_serving"] = serve_launches[k.name]
+        if k.name.startswith("maxpool"):
+            row["timed_at"] = "GoogLeNet's identical stem pool"
+        out.append(row)
+    return {"resnet50_kernels": out}
+
+
 def main() -> int:
     try:
         import torch
@@ -2889,10 +3366,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if not (os.path.isdir(os.path.join(REPO, "cxxnet_tpu_torch"))
-            and os.path.exists(CONF)):
+            and os.path.exists(CONF) and os.path.exists(RESNET_CONF)):
         print("chip_smoke: run it from the root of a cxxnet-tpu checkout "
-              "(cxxnet_tpu_torch/ and example/ImageNet/googlenet.conf)",
-              file=sys.stderr)
+              "(cxxnet_tpu_torch/ and example/ImageNet/{googlenet,resnet50}"
+              ".conf)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     try:
@@ -2930,6 +3407,14 @@ def main() -> int:
             lm_parity_phase(cfg, mdir)
             gen_launches = lm_generate_phase(conf, mdir, tmp)
         lm_head_dim_phase()
+        rrows = resnet_kernels(dev, rows)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_rn_") as tmp:
+            r_serve = resnet_serve_phase(tmp)
+            r_train, mdir, cfg = resnet_train_phase(tmp)
+            resnet_parity_phase(cfg, mdir)
+            rate_phase(cfg, mdir, RESNET_PER_STEP, "ResNet-50")
+        resnet_updater_phase(dev)
+        log(json.dumps(resnet_line(rrows, r_serve, r_train)))
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
                             quant_launches)

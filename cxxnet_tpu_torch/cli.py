@@ -15,7 +15,12 @@ N`` and a rate line, writes ``[N]\tname-metric:value`` evaluation lines
 ``%04d.model`` every ``save_model`` rounds.  SIGTERM/SIGINT finish the
 current batch, snapshot and exit 0.  ``scan_steps = N`` (a device
 program of N steps in the JAX package) runs N single steps here, which
-is the same math.
+is the same math.  ``save_ustate = 1`` writes the updater state into
+each checkpoint, so ``continue = 1`` (or ``model_in``) resumes exactly.
+``example/ImageNet/resnet{50,101,152}.conf`` train as they stand
+(``batch_norm`` with ``bn_stats`` / ``bn_eval`` / ``bn_momentum``, the
+``synthetic`` sections, ``metric = rec@1`` / ``rec@5``); ``dev = tpu``
+means the card.
 
 ``task=serve``: a checkpoint is loaded from ``model_in`` (or the newest
 valid one in ``model_dir``) into an
@@ -45,8 +50,9 @@ exits 0 on publish, 3 on reject (nothing written).  ``task=serve
 quant=int8`` then serves the artifact.
 
 The other tasks, the serving fleet (``replicas >= 2``), hot reload
-(``serve_reload_period``), the tuner (``controller``) and the elastic,
-integrity and telemetry planes of training are later slices
+(``serve_reload_period``), the tuner (``controller``), gradient
+accumulation (``update_period > 1``), the divergence guard and the
+elastic, integrity and telemetry planes of training are later slices
 (ROADMAP.md) and raise ``NotImplementedError`` naming the item.
 """
 

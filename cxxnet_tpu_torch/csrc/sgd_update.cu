@@ -16,8 +16,10 @@
 // them leaves the bytes.
 //
 // Design: the host passes a table of tensors by value (a
-// __grid_constant__ struct, up to MAX_TENSORS entries, 8 KB: CUDA 12.1
-// and later take 32,764 bytes of kernel parameters), each entry with
+// __grid_constant__ struct, up to MAX_TENSORS entries of 64 bytes,
+// 30,736 bytes in all: CUDA 12.1 and later take 32,764 bytes of kernel
+// parameters; GoogLeNet's 116 tensors, ResNet-50's 161 and ResNet-152's
+// 467 each fit one table), each entry with
 // its pointers, size, its four scalars and the index of its first
 // chunk.  The grid walks a flat list of CHUNK-value chunks; a block
 // finds the tensor of its chunk by a binary search over the entries'
@@ -35,12 +37,12 @@
 #include <stdint.h>
 
 #if CUDART_VERSION < 12010
-#error "sgd_update.cu passes its tensor table as a kernel parameter of 8 KB, which needs CUDA 12.1 or later"
+#error "sgd_update.cu passes its tensor table as a kernel parameter of 30 KB, which needs CUDA 12.1 or later"
 #endif
 
 namespace {
 
-constexpr int MAX_TENSORS = 128;  // update_step.MAX_TENSORS
+constexpr int MAX_TENSORS = 480;  // update_step.MAX_TENSORS
 constexpr int THREADS = 256;
 constexpr int CHUNK = THREADS * 8;  // values a block takes at a time
 
@@ -109,6 +111,9 @@ sgd_update_multi_kernel(__grid_constant__ const Table tab) {
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+static_assert(sizeof(Entry) == 64 && sizeof(Table) <= 32764,
+              "the tensor table must fit the kernel parameter space");
 
 }  // namespace
 

@@ -1,4 +1,4 @@
-"""Spatial layers: conv, the pooling family, LRN.
+"""Spatial layers: conv, the pooling family, LRN, batch norm.
 
 Counterpart of ``cxxnet_tpu/layers/conv.py``.  Activations are NHWC and
 conv weights HWIO at every public function and in the params dict, as
@@ -17,12 +17,24 @@ pool, the general one otherwise; the LRN backward).  The sum/avg pools
 are the plain shifted-slice sums of the JAX package (no Pallas kernel
 there), differentiated by autograd.  ``prepare`` is differentiable, so
 training runs it per step from the f32 masters.
+
+``batch_norm`` is plain PyTorch, on the card too (the JAX package
+computes it in XLA, with no Pallas kernel): statistics in f32 over every
+axis but the channel, ``bn_stats = onepass`` as ``max(E[x^2] - E[x]^2,
+0)``, then ``((x - mean) * rsqrt(var + eps) * slope + bias)`` in f32,
+cast to x's dtype.  Its ``wmat`` (slope) and ``bias`` stay f32 under a
+bf16 compute dtype.  ``bn_eval = running`` adds ``rmean``/``rvar`` layer
+state (``init_aux``): training updates it as ``aux * mom + (1 - mom) *
+batch_stat`` with the biased variance, from detached statistics, and
+eval normalises with it.  ``F.batch_norm`` is not used: its running
+variance is unbiased, its momentum the batch's share, and its eps 1e-5.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -227,3 +239,96 @@ class LRNLayer(Layer):
     def apply(self, params, inputs, train=False, gen=None, step=None):
         return [ops_lrn.lrn(inputs[0], self.nsize, self.alpha, self.beta,
                             self.knorm)]
+
+
+@register
+class BatchNormLayer(Layer):
+    type_name = "batch_norm"
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.init_slope = 1.0
+        self.init_bias_bn = 0.0
+        self.eps = 1e-10
+        self.bn_eval = "batch"  # the reference's; "running" for EMA stats
+        self.bn_momentum = 0.9
+        self.bn_stats = "twopass"
+
+    def set_param(self, name, val):
+        if name == "init_slope":
+            self.init_slope = float(val)
+        elif name == "init_bias":
+            self.init_bias_bn = float(val)
+        elif name == "eps":
+            self.eps = float(val)
+        elif name == "bn_eval":
+            if val not in ("batch", "running"):
+                raise ValueError("bn_eval must be batch or running")
+            self.bn_eval = val
+        elif name == "bn_momentum":
+            self.bn_momentum = float(val)
+        elif name == "bn_stats":
+            if val not in ("twopass", "onepass"):
+                raise ValueError("bn_stats must be twopass or onepass")
+            self.bn_stats = val
+        else:
+            super().set_param(name, val)
+
+    def infer_shape(self, in_shapes: Sequence[Shape]) -> List[Shape]:
+        self._check_arity(in_shapes, 1)
+        return [tuple(in_shapes[0])]
+
+    def init_params(self, gen, in_shapes) -> Params:
+        ch = in_shapes[0][-1]
+        return {"wmat": torch.full((ch,), self.init_slope),
+                "bias": torch.full((ch,), self.init_bias_bn)}
+
+    def init_aux(self, in_shapes, device=None):
+        """The running statistics, only under ``bn_eval = running``."""
+        if self.bn_eval != "running":
+            return {}
+        ch = in_shapes[0][-1]
+        return {"rmean": torch.zeros(ch, device=device),
+                "rvar": torch.ones(ch, device=device)}
+
+    def prepare(self, params, dtype):
+        """Slope and bias stay f32 under any compute dtype."""
+        return dict(params)
+
+    def _normalize(self, x, mean, var, params):
+        inv = torch.rsqrt(var + self.eps)
+        return ((x.float() - mean) * inv * params["wmat"].float()
+                + params["bias"].float()).to(x.dtype)
+
+    def _batch_stats(self, x):
+        dims = tuple(range(x.dim() - 1))
+        xf = x.float()
+        mean = xf.mean(dim=dims)
+        if self.bn_stats == "onepass":
+            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean,
+                                  0.0)
+        else:
+            var = ((xf - mean) ** 2).mean(dim=dims)
+        return mean, var
+
+    def apply(self, params, inputs, train=False, gen=None, step=None):
+        x = inputs[0]
+        return [self._normalize(x, *self._batch_stats(x), params)]
+
+    def apply_stateful(self, params, aux, inputs, train=False, gen=None,
+                       step=None):
+        """``(outs, new_aux)``: batch statistics and the EMA update in
+        training, the running statistics at eval."""
+        x = inputs[0]
+        if not train:
+            return [self._normalize(x, aux["rmean"], aux["rvar"],
+                                    params)], aux
+        mean, var = self._batch_stats(x)
+        # the JAX package's f32 scalars: mom, and 1 - mom rounded in f32
+        mom = np.float32(self.bn_momentum)
+        rest = float(np.float32(1.0) - mom)
+        with torch.no_grad():
+            new_aux = {"rmean": aux["rmean"] * float(mom)
+                       + rest * mean.detach(),
+                       "rvar": aux["rvar"] * float(mom) + rest * var.detach()}
+        return [self._normalize(x, mean, var, params)], new_aux

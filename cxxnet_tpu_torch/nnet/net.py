@@ -30,14 +30,17 @@ forward:
   trainer hands the step;
 * the input node keeps the f32 ids when a consumer of it declares
   ``integer_input`` (the embedding), whatever the compute dtype;
+* norm layers (``batch_norm``, ``layer_norm``) keep their parameters
+  f32 under a bf16 compute dtype: their ``prepare`` does not cast;
 * layer state (``init_aux``: the attention KV caches under
-  ``decode = 1``) is threaded through ``forward(..., aux=, step=)``:
-  a layer with ``apply_stateful`` whose key is in ``aux`` reads its
-  state there and the new state replaces it in the dict (a shared
-  stateful layer's later occurrence reads what the earlier one wrote);
-  ``step`` is the decode loop's absolute position.  No layer moves past
-  another here (the sibling-1x1 groups hold convs only), so the
-  stateful-layer order is the declaration order.
+  ``decode = 1``, batch norm's running statistics under ``bn_eval =
+  running``) is threaded through ``forward(..., aux=, step=)`` and
+  ``forward_train(..., aux=)``: a layer with ``apply_stateful`` whose
+  key is in ``aux`` reads its state there and the new state replaces it
+  in the dict (a shared stateful layer's later occurrence reads what the
+  earlier one wrote); ``step`` is the decode loop's absolute position.
+  No layer moves past another here (the sibling-1x1 groups hold convs
+  only), so the stateful-layer order is the declaration order.
 
 Branch-embed fusion (``conv_branch_embed``) and ``remat`` belong to
 later slices (ROADMAP.md).
@@ -174,7 +177,8 @@ class FunctionalNet:
 
     def init_aux(self, batch_size: int, device=None) -> Dict[str, dict]:
         """Non-gradient layer state on ``device`` (the KV caches of
-        ``decode = 1`` attention); empty when no layer carries any."""
+        ``decode = 1`` attention, batch norm's running statistics);
+        empty when no layer carries any."""
         shapes = self.infer_shapes(batch_size)
         aux: Dict[str, dict] = {}
         for i, spec in enumerate(self.graph.layers):
@@ -327,14 +331,16 @@ class FunctionalNet:
 
     def forward_train(self, params: Dict[str, dict], data: torch.Tensor,
                       labels: torch.Tensor, mask: Optional[torch.Tensor],
-                      gen: Optional[torch.Generator]):
+                      gen: Optional[torch.Generator],
+                      aux: Optional[Dict[str, dict]] = None):
         """The train forward from the f32 master ``params``: returns
         ``(nodes, loss)`` with the summed, scaled f32 loss of every loss
         layer, differentiable back to the masters.  ``labels`` is the
         ``(N, label_width)`` label matrix, ``mask`` the ``(N,)`` 0/1 row
-        weight, ``gen`` the step's generator for dropout."""
+        weight, ``gen`` the step's generator for dropout; ``aux`` (from
+        ``init_aux``) takes each stateful layer's new state in place."""
         return self._run(self.prepare(params), data, labels=labels,
-                         mask=mask, train=True, gen=gen)
+                         mask=mask, train=True, gen=gen, aux=aux)
 
     def _label_field(self, labels: torch.Tensor, target: str) -> torch.Tensor:
         g = self.graph

@@ -6,15 +6,22 @@ Counterpart of ``cxxnet_tpu/nnet/trainer.py``: ``set_params``,
 ``predict_from_scores``, ``resolve_feature_node``, ``extract_feature``,
 ``net_fp``, and the single-device training subset: ``update`` (one
 step: forward, backward, then the updater — the fused SGD kernel, or
-Adam — on every tensor), ``update_all``,
+one of the plain-PyTorch updaters — on every tensor), ``update_all``,
 ``start_round`` and ``evaluate`` with the train and eval metrics.  The
 checkpoint container is the JAX package's, so a model written by one
-package loads into the other.
+package loads into the other: the parameters, the layer state
+(``aux:{key}/{tag}`` entries, batch norm's running statistics) and,
+with ``save_ustate = 1``, the updater state (``ust:{key}/{tag}@{slot}``
+entries), which ``load_model`` restores where the shapes match the
+rebuilt updaters, so a resumed run continues exactly.
 
-The update writes the f32 masters in place, so it drops the operands
-``predict`` prepared from the old weights (``_invalidate_prepared``).
-``update_period > 1``, ``save_ustate = 1``, the divergence guard and
-multi-device training raise ``NotImplementedError`` (ROADMAP.md).
+The layer state (``aux``, from ``FunctionalNet.init_aux``) is threaded
+through every forward: the train forward replaces it with the step's
+new state, the eval forwards read it.  The update writes the f32
+masters in place, so it drops the operands ``predict`` prepared from
+the old weights (``_invalidate_prepared``).  ``update_period > 1``, the
+divergence guard and multi-device training raise
+``NotImplementedError`` (ROADMAP.md).
 
 Quantized models (``nnet/quant.py``): a checkpoint whose header carries
 ``quant`` loads as it was exported (int8 codes stay int8, bf16 kernels
@@ -107,6 +114,7 @@ class NetTrainer:
         self.batch_size = 0
         self.update_period = 1
         self.eval_train = 1
+        self.save_ustate = 0
         self.seed = 0
         self.dev = "tpu"
         self.device: Optional[torch.device] = None
@@ -128,10 +136,8 @@ class NetTrainer:
             self.update_period = int(val)
         elif name == "eval_train":
             self.eval_train = int(val)
-        elif name == "save_ustate" and int(val):
-            raise NotImplementedError(
-                "save_ustate=1: checkpointing the updater state is not "
-                "ported yet (ROADMAP.md queue A item 5)")
+        elif name == "save_ustate":
+            self.save_ustate = int(val)
         elif name == "divergence_policy" and val not in ("", "off"):
             raise NotImplementedError(
                 f"divergence_policy={val}: the divergence guard is not "
@@ -258,6 +264,7 @@ class NetTrainer:
         self._build_net()
         gen = torch.Generator().manual_seed(self.seed)
         self._set_master(self.net.init_params(gen, self.batch_size))
+        self.aux = self.net.init_aux(self.batch_size, self.device)
         self.epoch_counter = 0
         self._maybe_quantize()
 
@@ -265,12 +272,13 @@ class NetTrainer:
     # checkpoints: magic | u32 header length | json header | npz params
     @classmethod
     def _read_model_file(cls, path: str):
-        """Parse a checkpoint -> ``(header, params, aux)`` with
-        ``{key: {tag: ndarray}}`` dicts.  Updater state (``ust:`` entries
-        of ``save_ustate=1`` checkpoints) is training state: skipped.
-        A bf16 leaf (``~bf16`` uint16 words) widens exactly to f32 in a
-        plain checkpoint and stays a ``torch.bfloat16`` tensor in a
-        quantized one, whose fallback kernels are bf16 by design."""
+        """Parse a checkpoint -> ``(header, params, aux, ust)``: params
+        and aux ``{key: {tag: ndarray}}``, and ust (the ``ust:`` entries
+        of ``save_ustate=1`` checkpoints) ``{key: {tag: {slot:
+        ndarray}}}``.  A bf16 leaf (``~bf16`` uint16 words) widens
+        exactly to f32 in a plain checkpoint and stays a
+        ``torch.bfloat16`` tensor in a quantized one, whose fallback
+        kernels are bf16 by design."""
         with open(path, "rb") as f:
             if f.read(8) != MODEL_MAGIC:
                 raise ValueError(f"{path}: not a cxxnet-tpu model file")
@@ -281,6 +289,7 @@ class NetTrainer:
         npz = np.load(_io.BytesIO(blob))
         params: Dict[str, dict] = {}
         aux: Dict[str, dict] = {}
+        ust: Dict[str, dict] = {}
         for k in npz.files:
             arr = npz[k]
             if k.endswith(_BF16_SUFFIX):
@@ -292,17 +301,19 @@ class NetTrainer:
                     arr = (arr.astype(np.uint32) << 16).view(np.float32)
             key, tag = k.rsplit("/", 1)
             if key.startswith("ust:"):
-                continue
-            if key.startswith("aux:"):
+                tag, slot = tag.split("@", 1)
+                ust.setdefault(key[4:], {}).setdefault(tag, {})[slot] = arr
+            elif key.startswith("aux:"):
                 aux.setdefault(key[4:], {})[tag] = arr
             else:
                 params.setdefault(key, {})[tag] = arr
-        return header, params, aux
+        return header, params, aux, ust
 
     def checkpoint_bytes(self) -> bytes:
         """The full checkpoint as one byte string: the f32 masters, or a
         quantized model's leaves with the ``quant`` header block and bf16
-        kernels as ``~bf16`` uint16 words."""
+        kernels as ``~bf16`` uint16 words; then the layer state, and with
+        ``save_ustate`` the updater state."""
         header = {
             "structure": json.loads(self.graph.structure_to_json()),
             "epoch_counter": self.epoch_counter,
@@ -313,14 +324,26 @@ class NetTrainer:
                                "layers": dict(self.quant_plan or {})}
         hjson = json.dumps(header).encode("utf-8")
         flat = {}
+
+        def store(name: str, w: torch.Tensor) -> None:
+            w = w.detach().cpu()
+            if w.dtype == torch.bfloat16:
+                flat[name + _BF16_SUFFIX] = (
+                    w.view(torch.int16).numpy().view(np.uint16))
+            else:
+                flat[name] = w.numpy()
+
         for key, tags in self.params.items():
             for tag, w in tags.items():
-                w = w.detach().cpu()
-                if w.dtype == torch.bfloat16:
-                    flat[f"{key}/{tag}{_BF16_SUFFIX}"] = (
-                        w.view(torch.int16).numpy().view(np.uint16))
-                else:
-                    flat[f"{key}/{tag}"] = w.numpy()
+                store(f"{key}/{tag}", w)
+        for key, tags in self.aux.items():
+            for tag, w in tags.items():
+                store(f"aux:{key}/{tag}", w)
+        if self.save_ustate:
+            for key, tags in self.ustates.items():
+                for tag, slots in tags.items():
+                    for slot, w in slots.items():
+                        store(f"ust:{key}/{tag}@{slot}", w)
         buf = _io.BytesIO()
         np.savez(buf, **flat)
         return (MODEL_MAGIC + struct.pack("<I", len(hjson)) + hjson
@@ -353,12 +376,7 @@ class NetTrainer:
             raise ValueError(
                 "load_model: set the model conf first (checkpoints store "
                 "the net STRUCTURE; layer settings come from the conf)")
-        header, raw, raw_aux = self._read_model_file(path)
-        if raw_aux:
-            raise NotImplementedError(
-                f"{path}: carries layer state {sorted(raw_aux)} (batch_norm "
-                "running statistics), whose layer is not ported yet "
-                "(ROADMAP.md queue A item 5)")
+        header, raw, raw_aux, raw_ust = self._read_model_file(path)
         graph = NetGraph.structure_from_json(json.dumps(header["structure"]))
         self._build_net(graph)
         self.epoch_counter = int(header["epoch_counter"])
@@ -369,8 +387,29 @@ class NetTrainer:
                              dict(q.get("layers") or {}))
         else:
             self._set_master(params_from_numpy(raw))
+            self._restore_ustates(raw_ust)
+        self.aux = self.net.init_aux(self.batch_size, self.device)
+        for key, tags in raw_aux.items():
+            if key in self.aux:
+                self.aux[key] = {t: torch.from_numpy(np.array(w)).to(
+                    self.device) for t, w in tags.items()}
+        if not q:
             self._maybe_quantize()
         self.net.infer_shapes(self.batch_size)
+
+    def _restore_ustates(self, raw_ust: Dict[str, dict]) -> None:
+        """The updater state of a ``save_ustate=1`` checkpoint, where its
+        slots and shapes match the rebuilt updaters' (the rest stays
+        zero, as in the JAX package)."""
+        for key, tags in raw_ust.items():
+            for tag, slots in tags.items():
+                cur = self.ustates.get(key, {}).get(tag)
+                if cur is None or set(slots) != set(cur) or any(
+                        tuple(slots[sl].shape) != tuple(cur[sl].shape)
+                        for sl in slots):
+                    continue
+                for sl, w in slots.items():
+                    cur[sl].copy_(torch.from_numpy(np.asarray(w, np.float32)))
 
     # ------------------------------------------------------------------
     # predict
@@ -392,7 +431,9 @@ class NetTrainer:
             x = torch.as_tensor(data, dtype=torch.float32).to(dev)
             prepared = self._prepared_for(params)
             with torch.inference_mode():
-                return net.forward(prepared, x)[node_id].float()
+                # the eval forward reads the layer state, never keeps it
+                return net.forward(prepared, x, aux=dict(aux) if aux
+                                   else None)[node_id].float()
 
         return f
 
@@ -528,7 +569,8 @@ class NetTrainer:
             leaves.setdefault(key, {})[tag] = w.detach().requires_grad_(True)
         with torch.enable_grad():
             nodes, loss = self.net.forward_train(
-                leaves, data, labels, mask, self._step_generator())
+                leaves, data, labels, mask, self._step_generator(),
+                aux=self.aux)
             out = nodes[self.net.out_node_index()].detach()
             del nodes  # only the graph keeps what the backward needs
             grads = torch.autograd.grad(

@@ -34,7 +34,7 @@ KERNEL = _build.Kernel(
     "sgd_update", "cxxnet_tpu/ops/kernels/update_step.py:38 _sgd_kernel",
     dtypes=("f32", "multi_f32"))
 
-MAX_TENSORS = 128  # the tensor table's capacity (csrc/sgd_update.cu)
+MAX_TENSORS = 480  # the tensor table's capacity (csrc/sgd_update.cu)
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_float] * 4 + [
     ctypes.c_void_p]

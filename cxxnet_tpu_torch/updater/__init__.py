@@ -22,9 +22,24 @@ returns new arrays).  Ported:
       w  -= lr_t * m1 / (sqrt(m2) + 1e-8)
 
   The host scalars are evaluated in ``np.float32``.
+* ``nag``: ``m' = mom * m - lr * (g + wd * w);  w += (1 + mom) * m' -
+  mom * m`` (no clip, as in the JAX package).
+* ``rmsprop`` (``rho`` 0.95, ``eps`` 1e-8) and ``adagrad`` (``eps``
+  1e-8): the clip of ``sgd``, then ``g += wd * w``; ``v = rho * v + (1 -
+  rho) * g * g`` or ``v += g * g``; ``w -= lr * g / (sqrt(v) + eps)``.
+* ``lars`` (``trust_coeff`` 0.001, ``eps`` 1e-9): the clip, ``g += wd *
+  w``, the trust ratio ``trust_coeff * ||w|| / (||g|| + eps)`` (1 where
+  either norm is not positive), ``m = mom * m - lr * trust * g; w += m``.
+* ``lamb`` (conventional ``beta1`` 0.9, ``beta2`` 0.999, ``eps`` 1e-6):
+  the clip, Adam moments with bias correction, ``u = m1_hat /
+  (sqrt(m2_hat) + eps) + wd * w``, trust ``||w|| / ||u||`` (1 where
+  either norm is not positive), ``w -= lr * trust * u``.
 
-The other updaters of the JAX package (nag, rmsprop, adagrad, lars,
-lamb) raise ``NotImplementedError``.
+These five have no kernel in the JAX package either: they are plain
+PyTorch on the card, in the JAX updaters' operation order, their
+schedule scalars evaluated on the host in ``np.float32``.  The norms of
+``lars`` and ``lamb`` stay on the device (no host sync).  A global
+``eps`` reaches every updater that takes one, and batch norm's too.
 """
 
 from __future__ import annotations
@@ -111,6 +126,167 @@ class AdamUpdater(Updater):
             w.sub_(lr_t * (m1 / (torch.sqrt(m2) + 1e-8)))
 
 
+class NAGUpdater(Updater):
+    type_name = "nag"
+
+    def init_state(self, w):
+        return {"m": torch.zeros_like(w)}
+
+    def apply(self, w, g, state, epoch):
+        p = self.param
+        lr, mom = float(p.learning_rate(epoch)), float(p.momentum_at(epoch))
+        old_m = state["m"]
+        with torch.no_grad():
+            m = mom * old_m - lr * (g + p.wd * w)
+            w.copy_(w + (1.0 + mom) * m - mom * old_m)
+            old_m.copy_(m)
+
+
+class RMSPropUpdater(Updater):
+    type_name = "rmsprop"
+
+    def __init__(self, tag: str) -> None:
+        super().__init__(tag)
+        self.rho = 0.95
+        self.eps = 1e-8
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "rho":
+            self.rho = float(val)
+        elif name == "eps":
+            self.eps = float(val)
+        else:
+            super().set_param(name, val)
+
+    def init_state(self, w):
+        return {"v": torch.zeros_like(w)}
+
+    def apply(self, w, g, state, epoch):
+        p = self.param
+        lr = float(p.learning_rate(epoch))
+        v = state["v"]
+        with torch.no_grad():
+            if p.clip_gradient != 0.0:
+                g = update_step.nan_clip(g, p.clip_gradient)
+            g = g + p.wd * w
+            v.copy_(self.rho * v + (1.0 - self.rho) * g * g)
+            w.sub_(lr * g / (torch.sqrt(v) + self.eps))
+
+
+class AdagradUpdater(Updater):
+    type_name = "adagrad"
+
+    def __init__(self, tag: str) -> None:
+        super().__init__(tag)
+        self.eps = 1e-8
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "eps":
+            self.eps = float(val)
+        else:
+            super().set_param(name, val)
+
+    def init_state(self, w):
+        return {"v": torch.zeros_like(w)}
+
+    def apply(self, w, g, state, epoch):
+        p = self.param
+        lr = float(p.learning_rate(epoch))
+        v = state["v"]
+        with torch.no_grad():
+            if p.clip_gradient != 0.0:
+                g = update_step.nan_clip(g, p.clip_gradient)
+            g = g + p.wd * w
+            v.add_(g * g)
+            w.sub_(lr * g / (torch.sqrt(v) + self.eps))
+
+
+def _norm(t: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((t.float() ** 2).sum())
+
+
+def _trust(num: torch.Tensor, den: torch.Tensor,
+           ratio: torch.Tensor) -> torch.Tensor:
+    """``ratio`` where both norms are positive, else 1 (a device
+    scalar)."""
+    return torch.where((num > 0) & (den > 0), ratio, torch.ones_like(ratio))
+
+
+class LARSUpdater(Updater):
+    type_name = "lars"
+
+    def __init__(self, tag: str) -> None:
+        super().__init__(tag)
+        self.trust_coeff = 0.001
+        self.eps = 1e-9
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "trust_coeff":
+            self.trust_coeff = float(val)
+        elif name == "eps":
+            self.eps = float(val)
+        else:
+            super().set_param(name, val)
+
+    def init_state(self, w):
+        return {"m": torch.zeros_like(w)}
+
+    def apply(self, w, g, state, epoch):
+        p = self.param
+        lr, mom = float(p.learning_rate(epoch)), float(p.momentum_at(epoch))
+        m = state["m"]
+        with torch.no_grad():
+            if p.clip_gradient != 0.0:
+                g = update_step.nan_clip(g, p.clip_gradient)
+            g = g + p.wd * w
+            wn, gn = _norm(w), _norm(g)
+            trust = _trust(wn, gn, self.trust_coeff * wn / (gn + self.eps))
+            m.copy_(mom * m - lr * trust * g)
+            w.add_(m)
+
+
+class LAMBUpdater(Updater):
+    type_name = "lamb"
+
+    def __init__(self, tag: str) -> None:
+        super().__init__(tag)
+        self.beta1 = 0.9
+        self.beta2 = 0.999
+        self.eps = 1e-6
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "beta1":
+            self.beta1 = float(val)
+        elif name == "beta2":
+            self.beta2 = float(val)
+        elif name == "eps":
+            self.eps = float(val)
+        else:
+            super().set_param(name, val)
+
+    def init_state(self, w):
+        return {"m1": torch.zeros_like(w), "m2": torch.zeros_like(w)}
+
+    def apply(self, w, g, state, epoch):
+        p = self.param
+        f32 = np.float32
+        lr = float(p.learning_rate(epoch))
+        t = f32(epoch) + f32(1.0)
+        fix1 = float(f32(1.0) - np.power(f32(self.beta1), t))
+        fix2 = float(f32(1.0) - np.power(f32(self.beta2), t))
+        m1, m2 = state["m1"], state["m2"]
+        with torch.no_grad():
+            if p.clip_gradient != 0.0:
+                g = update_step.nan_clip(g, p.clip_gradient)
+            m1.copy_(self.beta1 * m1 + (1.0 - self.beta1) * g)
+            m2.copy_(self.beta2 * m2 + (1.0 - self.beta2) * g * g)
+            u = (m1 / fix1) / (torch.sqrt(m2 / fix2) + self.eps)
+            u = u + p.wd * w
+            wn, un = _norm(w), _norm(u)
+            trust = _trust(wn, un, wn / un)
+            w.sub_(lr * trust * u)
+
+
 def apply_all(items: Sequence[Tuple[Updater, torch.Tensor, torch.Tensor,
                                     State]], epoch: int) -> None:
     """One step's updates over ``(updater, w, grad, state)`` items, in
@@ -131,16 +307,13 @@ def apply_all(items: Sequence[Tuple[Updater, torch.Tensor, torch.Tensor,
         update_step.sgd_update_multi(*zip(*sgd))
 
 
-_UPDATERS = {"sgd": SGDUpdater, "adam": AdamUpdater}
-_NOT_PORTED = ("nag", "rmsprop", "adagrad", "lars", "lamb")
+_UPDATERS = {"sgd": SGDUpdater, "nag": NAGUpdater, "adam": AdamUpdater,
+             "rmsprop": RMSPropUpdater, "adagrad": AdagradUpdater,
+             "lars": LARSUpdater, "lamb": LAMBUpdater}
 
 
 def create_updater(type_name: str, tag: str) -> Updater:
-    """Factory (``updater = sgd`` or ``adam`` in the conf)."""
-    if type_name in _UPDATERS:
-        return _UPDATERS[type_name](tag)
-    if type_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"updater={type_name} is not ported yet (ROADMAP.md queue A "
-            "item 5); the port trains with updater=sgd or adam")
-    raise ValueError(f"unknown updater type: {type_name!r}")
+    """Factory (``updater = ...`` in the conf)."""
+    if type_name not in _UPDATERS:
+        raise ValueError(f"unknown updater type: {type_name!r}")
+    return _UPDATERS[type_name](tag)

@@ -28,7 +28,16 @@ lr, wd and clip, NaNs under a clip and a misaligned view (scalar path),
 bit-equal to the plain version, one launch a set and one more past its
 capacity; the attention layer at head dims 8 and 128 (outside the
 flash kernels' dims) through the dense path on the card, forward and
-gradients against the CPU within 1e-4, no flash launch.
+gradients against the CPU within 1e-4, no flash launch; ResNet-50's
+sibling-1x1 groups (K 64 to 1024, O 320 to 2560, stride 1 and 2,
+bias-free) on the wgmma kernel through ``conv1x1_block``, the strided
+input's gradient only on ``x[:, ::s, ::s]``, both within 2e-2 of the
+plain conv; ``batch_norm`` on the card against the CPU (f32 within
+1e-5, bf16 within 2e-2 of the largest, gradients too); a small
+bottleneck net's f32 step (TF32 off) against the CPU under ``bn_eval =
+batch`` and ``running`` (updates within 1e-3 of each tensor's largest,
+running statistics within 1e-5); and one step of ``nag``, ``rmsprop``,
+``adagrad``, ``lars`` and ``lamb`` against the CPU within 1e-5.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -993,3 +1002,154 @@ def test_cuda_attention_outside_the_kernel_head_dims(cuda_device, head_dim):
                 lay.apply(p, [xt])
     for got, ref in zip(out[str(cuda_device)], out["cpu"]):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# ResNet-50's sibling groups at batch 2: (H, C, O, stride)
+RESNET_GROUPS = [(56, 64, 320, 1), (56, 256, 640, 2), (28, 512, 1280, 2),
+                 (14, 1024, 2560, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c,o,stride", RESNET_GROUPS)
+def test_cuda_resnet_group_wgmma_and_strided_grad(cuda_device, h, c, o,
+                                                  stride):
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(h + c)
+    x = torch.randn(2, h, h, c, generator=gen).to(cuda_device,
+                                                  torch.bfloat16)
+    w = (torch.randn(c, o, generator=gen) / c ** 0.5).to(cuda_device,
+                                                        torch.bfloat16)
+    g = torch.randn(2, -(-h // stride), -(-h // stride), o,
+                    generator=gen).to(cuda_device, torch.bfloat16)
+    xk = x.clone().requires_grad_(True)
+    n0 = dict(conv_block.KERNEL.by_symbol)
+    y = conv_block.conv1x1_block(xk, w, None, stride=stride)
+    torch.cuda.synchronize()
+    took = {n: v - n0.get(n, 0) for n, v in
+            conv_block.KERNEL.by_symbol.items() if v != n0.get(n, 0)}
+    assert took == {conv_block.WGMMA: 1}
+    y.backward(g)
+    xr = x.float().requires_grad_(True)
+    yr = F.conv2d(xr.permute(0, 3, 1, 2), w.float().t()[:, :, None, None],
+                  stride=stride).permute(0, 2, 3, 1)
+    yr.backward(g.float())
+    scale = yr.abs().max()
+    assert (y.float() - yr).abs().max() <= 2e-2 * scale
+    dx = xk.grad.float()
+    on = dx[:, ::stride, ::stride]
+    assert (on - xr.grad[:, ::stride, ::stride]).abs().max() <= (
+        2e-2 * xr.grad.abs().max())
+    off = dx.clone()
+    off[:, ::stride, ::stride] = 0
+    assert not bool(off.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stats", ["twopass", "onepass"])
+def test_cuda_batch_norm_matches_cpu(cuda_device, stats, dtype):
+    lay = create_layer("batch_norm")
+    lay.set_param("bn_stats", stats)
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.randn(8, 14, 14, 64, generator=gen) * 3 + 1).to(dtype)
+    p = {"wmat": torch.rand(64, generator=gen) + 0.5,
+         "bias": torch.randn(64, generator=gen)}
+    g = torch.randn(x.shape, generator=gen).to(dtype)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        xs = x.to(dev).detach().requires_grad_(True)
+        ps = {k: v.to(dev).detach().requires_grad_(True)
+              for k, v in p.items()}
+        (y,) = lay.apply(lay.prepare(ps, dtype), [xs], train=True)
+        y.backward(g.to(dev))
+        out[str(dev)[:3]] = [t.float().cpu() for t in
+                             (y, xs.grad, ps["wmat"].grad, ps["bias"].grad)]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, ref in zip(out["cud"], out["cpu"]):
+        assert (got - ref).abs().max() <= tol * ref.abs().max()
+
+
+def _bottleneck_conf(bn_eval):
+    from cxxnet_tpu_torch.models.builders import _res_bottleneck
+
+    return (
+        "netconfig = start\n"
+        "layer[0->c1] = conv:conv1\n  kernel_size = 3\n  pad = 1\n"
+        "  nchannel = 16\n  no_bias = 1\n  random_type = kaiming\n"
+        "layer[c1->b1] = batch_norm:bn1\nlayer[b1->b1] = relu\n"
+        "layer[b1->p1] = max_pooling\n  kernel_size = 3\n  stride = 2\n"
+        + _res_bottleneck("p1", "s0b0", 16, 8, 32, 1)
+        + _res_bottleneck("s0b0", "s1b0", 32, 16, 64, 2)
+        + "layer[s1b0->pool] = avg_pooling\n  kernel_size = 4\n"
+        "  stride = 1\nlayer[pool->flat] = flatten\n"
+        "layer[flat->fc] = fullc:fc\n  nhidden = 10\n"
+        "layer[fc->fc] = softmax\nnetconfig = end\n"
+        "input_shape = 3,16,16\nbatch_size = 16\nupdater = sgd\n"
+        "eta = 0.1\nmomentum = 0.9\nwd = 0.0005\nbn_stats = onepass\n"
+        f"bn_eval = {bn_eval}\ncompute_dtype = float32\nseed = 5\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn_eval", ["batch", "running"])
+def test_cuda_bottleneck_step_matches_cpu(cuda_device, bn_eval, tmp_path):
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    conf = cfgmod.parse_pairs(_bottleneck_conf(bn_eval))
+    src = NetTrainer()
+    src.set_params(conf + [("dev", "cpu")])
+    src.init_model()
+    path = str(tmp_path / "0000.model")
+    src.save_model(path)
+    rng = np.random.RandomState(3)
+    x = rng.randn(16, 16, 16, 3).astype(np.float32)
+    y = rng.randint(0, 10, (16, 1)).astype(np.float32)
+    trs = {}
+    for dev in ("cpu", "gpu"):
+        tr = NetTrainer()
+        tr.set_params(conf + [("dev", dev)])
+        tr.load_model(path)
+        tr.update_all(x, y)
+        trs[dev] = tr
+    cpu, card = trs["cpu"], trs["gpu"]
+    for key, tags in src.params.items():
+        for tag, w0 in tags.items():
+            d_cpu = cpu.params[key][tag] - w0
+            d_card = card.params[key][tag].cpu() - w0
+            assert ((d_card - d_cpu).abs().max()
+                    <= 1e-3 * d_cpu.abs().max()), (key, tag)
+    assert len(card.aux) == (9 if bn_eval == "running" else 0)
+    for key, tags in cpu.aux.items():
+        for tag, a in tags.items():
+            assert ((card.aux[key][tag].cpu() - a).abs().max()
+                    <= 1e-5 * a.abs().max()), (key, tag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["nag", "rmsprop", "adagrad", "lars",
+                                  "lamb"])
+def test_cuda_new_updaters_match_cpu(cuda_device, name):
+    from cxxnet_tpu_torch.updater import create_updater
+
+    gen = torch.Generator().manual_seed(11)
+    w = torch.randn(64, 3, 3, 32, generator=gen)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        up = create_updater(name, "wmat")
+        for k, v in (("lr", "0.05"), ("wd", "0.001"),
+                     ("clip_gradient", "1.0")):
+            up.set_param(k, v)
+        wd = w.clone().to(dev)
+        st = up.init_state(wd)
+        g_gen = torch.Generator().manual_seed(12)
+        for epoch in range(3):
+            g = torch.randn(w.shape, generator=g_gen).to(dev)
+            up.apply(wd, g, st, epoch)
+        out[str(dev)[:3]] = [wd.cpu()] + [v.cpu() for v in st.values()]
+    for got, ref in zip(out["cud"], out["cpu"]):
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()

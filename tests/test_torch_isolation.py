@@ -158,7 +158,7 @@ def test_quantized_checkpoints_name_their_roadmap_item(tmp_path):
     path = tmp_path / "q.model"
     path.write_bytes(MODEL_MAGIC + struct.pack("<I", len(header)) + header
                      + buf.getvalue())
-    head, params, _ = ttrainer.NetTrainer._read_model_file(str(path))
+    head, params, _, _ = ttrainer.NetTrainer._read_model_file(str(path))
     assert head["quant"] == {"scheme": "int8"}
     np.testing.assert_array_equal(params["l0_fc"]["wmat_q8"], codes)
     bf = params["l1_fc"]["wmat"]
@@ -178,7 +178,7 @@ def test_bf16_checkpoint_entries_widen_exactly(tmp_path):
     path = tmp_path / "b.model"
     path.write_bytes(MODEL_MAGIC + struct.pack("<I", len(header)) + header
                      + buf.getvalue())
-    _, params, _ = ttrainer.NetTrainer._read_model_file(str(path))
+    _, params, _, _ = ttrainer.NetTrainer._read_model_file(str(path))
     want = (words.astype(np.uint32) << 16).view(np.float32)
     np.testing.assert_array_equal(params["l0_fc"]["wmat"], want)
 

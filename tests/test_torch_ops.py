@@ -746,9 +746,8 @@ def test_updater_factory_ports_sgd_only():
     st = up.init_state(w)
     up.apply(w, torch.ones(3), st, 0)
     assert torch.allclose(st["m"], torch.full((3,), -0.01))
-    assert create_updater("adam", "wmat").type_name == "adam"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_updater("nag", "wmat")
+    for name in ("adam", "nag", "rmsprop", "adagrad", "lars", "lamb"):
+        assert create_updater(name, "wmat").type_name == name
     with pytest.raises(ValueError):
         create_updater("sgdd", "wmat")
 

@@ -394,15 +394,10 @@ def test_cli_sigterm_snapshots_and_exits_clean(tmp_path):
 
 def test_train_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        NetTrainer().set_param("save_ustate", "1")
+        NetTrainer().set_param("divergence_policy", "rollback")
     tr = NetTrainer()
     tr.set_params(tcfg.parse_pairs(SMALL_CONF + "update_period = 2\n"))
     with pytest.raises(NotImplementedError, match="update_period"):
-        tr.init_model()
-    tr = NetTrainer()
-    tr.set_params(tcfg.parse_pairs(SMALL_CONF.replace("updater = sgd",
-                                                      "updater = nag")))
-    with pytest.raises(NotImplementedError, match="nag"):
         tr.init_model()
     conf = tmp_path / "t.conf"
     conf.write_text(TRAIN_CONF.replace("iter = synthetic", "iter = mnist", 1))
