@@ -57,7 +57,17 @@ Phases; any failure ends the run with a non-zero exit and no result:
    all on its vector kernel, the LRN kernel twice, on its vector kernel,
    and the conv-block GEMM 9 times, all on its wgmma kernel; the counts
    are set to 0 just before these requests and read just after them.
-   Then
+   Then the binary wire beside JSON on kept-alive connections: ``CXB1``
+   scores frames of 1, 7, 32 and 64 rows and the same rows as JSON,
+   twice each, every request launching what a forward launches, each
+   binary reply bit-equal to the JSON one; 128 rows as two 64-row frames
+   on two connections, the second sent once the first has reached the
+   engine, which must run as one b128 forward
+   and be bit-equal to the 128-row JSON reply; one 128-row frame
+   (77,070,336 payload bytes, over the 64 MiB cap) answered 400
+   ``oversize_shape`` with no launch; the warm latency of each row count
+   on both wires, with the card's name and power limit, and the
+   engine's wire counters.  Then
    the 8-row bucket runs again in float32 with TF32 off and is held
    against the same checkpoint served on the CPU (the plain versions),
    and the bfloat16 answers are held against the float32 ones.
@@ -178,8 +188,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
    batch``, bf16) with seeded random weights: ``task=serve``'s
    ``Engine`` behind the HTTP server, 1, 7, 32 and 128 rows each twice;
    every forward launches K1 once and K6 four times on their main paths
-   and nothing else (counts at 0 just before, read just after); warm
-   latency per bucket, the forward alone per bucket and the device time
+   and nothing else (counts at 0 just before, read just after); the
+   binary wire as in phase 3; warm latency per bucket, the forward alone per bucket and the device time
    of the smallest and largest bucket's forward by kind (our kernels,
    cuBLAS/cuDNN, elementwise, reductions); then the 7-row request's
    bucket (8) in float32 with TF32 off against the CPU at that bucket,
@@ -208,7 +218,35 @@ Phases; any failure ends the run with a non-zero exit and no result:
    step's launches, the max error at ResNet's shapes and one step's
    launches' times summed (K1 and K2 timed at GoogLeNet's identical
    stem pool).
-18. A ``kernels`` JSON line (per kernel: launches on its main path's
+18. The MNIST nets' kernels: K1 and K2 at ``MNIST_CONV.conf``'s pool
+   (100, 14, 14, 32) k3 s2 (7x7 out, the last window partial) and
+   ``digits_conv.conf``'s (50, 8, 8, 32) and (50, 4, 4, 64) k2 s2, in
+   float32 and bfloat16, on their vector entries and bit-equal to their
+   plain versions; K8 over the two nets' 6 and 8 tensors in one launch,
+   bit-equal; each timed against its plain version and library call,
+   with its bound.
+19. ``MNIST_CONV.conf`` as it stands (batch 100, 28x28, float32, ``dev
+   = tpu``) through ``LearnTask`` on seeded idx files the port writes
+   (6000 train and 1000 test rows drawn around ten class templates):
+   ``task=train`` 2 rounds, every step launching K1, K2 and K8 once on
+   their f32 entries and nothing else, each evaluation forward K1 once;
+   then from the round-2 model ``task=pred``, ``pred_raw``, ``extract``
+   (fc1's node) and ``summary``, each forward K1 once (counts at 0 just
+   before each task, read just after), the outputs' shapes, ``pred`` the
+   argmax of ``pred_raw``, and ``pred_raw`` on the card against the
+   CPU; ``task=finetune`` one round (every layer copied; K1, K2, K8
+   once a step); one round at ``update_period = 2`` (K8 on every second
+   step, half as many launches as steps); 20 batches at ``update_period
+   = 2`` with dropout off, the card's weights against the CPU's.
+20. ``digits_conv.conf`` as it stands with ``dev = tpu``, on the UCI
+   digits that ``cxxnet_tpu_torch/tools/make_digits_idx.py`` writes, cuDNN
+   deterministic: 15 rounds, every step launching K1 and K2 twice and K8
+   once on their f32 entries, each round's test error printed; the last
+   at most 5 %.  An
+   ``mnist_kernels`` JSON line (the launches of phases 19 and 20, the
+   rows of phase 18) and a ``wire_warm_latency_ms`` line (phases 3 and
+   14).
+21. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
    forward kernels; the LM training run for K9 and K10, with the
    windowed generation run's; the int8 serving run for K7 — max error,
@@ -264,6 +302,12 @@ Tolerances (reasons in PERF.md):
   float32, each tensor's cosines >= 0.98 and the median >= 0.999;
 * generation: float32 probability rows within 1e-5, card against CPU
   and cached against windowed;
+* the binary wire: each reply bit-equal to the JSON reply of the same
+  rows at the same bucket;
+* MNIST (``MNIST_*`` below): ``pred_raw``'s printed probabilities, card
+  (TF32 off) against CPU, within ``MNIST_PROB_ATOL``; the weights after
+  ``update_period = 2`` batches within ``MNIST_PERIOD_REL`` of each
+  tensor's largest CPU weight;
 * ResNet-50 (``RESNET_*`` below, from the readings in PERF.md): served
   float32 as GoogLeNet; bf16 features within ``RESNET_BF16_FEAT_REL``
   and logits within ``RESNET_BF16_LOGIT_REL`` of their largest float32
@@ -434,6 +478,43 @@ RESNET_BF16_CLS_COS = 0.98
 RESNET_AUX_REL, RESNET_AUX_BF16_REL = 1e-4, 0.2
 RESNET_BF16_FEAT_REL, RESNET_BF16_LOGIT_REL = 0.5, 0.25
 RESNET_UPDATER_REL = 1e-5
+# the binary wire (CXB1/CXR1) beside JSON on the serving engines: frames
+# of these row counts, each bit-equal to the JSON reply; 128 rows go as
+# two 64-row frames on two kept-alive connections at once, which the
+# micro-batcher coalesces into one b128 forward (its window held at
+# WIRE_PAIR_WINDOW_S so that the second frame's body is read in time; a
+# full batch runs at once); one frame of 128 rows at 3x224x224 is
+# 77,070,336 payload bytes, over the 64 MiB cap: 400 oversize_shape
+WIRE_ROWS = (1, 7, 32, 64)
+WIRE_PAIR_WINDOW_S = 1.0
+# MNIST at full width: example/MNIST/MNIST_CONV.conf as it stands (batch
+# 100, 28x28, f32) on seeded idx files the port writes (6000 train,
+# 1000 test rows drawn around ten class templates), 2 rounds, then the
+# other tasks from the round-2 model, a finetune round and a round at
+# update_period = 2; digits_conv.conf for 15 rounds on the UCI digits
+MNIST_CONF = os.path.join(REPO, "example", "MNIST", "MNIST_CONV.conf")
+DIGITS_CONF = os.path.join(REPO, "example", "MNIST", "digits_conv.conf")
+MNIST_TRAIN_ROWS, MNIST_TEST_ROWS, MNIST_BATCH = 6000, 1000, 100
+MNIST_PER_STEP = {"maxpool_fwd": 1, "maxpool_bwd": 1, "sgd_update": 1}
+DIGITS_PER_STEP = {"maxpool_fwd": 2, "maxpool_bwd": 2, "sgd_update": 1}
+MNIST_TENSORS, DIGITS_TENSORS = 6, 8
+# MNIST_CONV.conf numbers its nodes: fc1 writes node "4" (the JAX
+# package resolves extract_node_name the same way)
+MNIST_FEATURE_NODE = "4"
+# (x, kh, kw, s, py, px): MNIST_CONV's pool (7x7 out, its last window
+# partial) and digits_conv's two
+MNIST_POOLS = (((100, 14, 14, 32), 3, 3, 2, 0, 0),
+               ((50, 8, 8, 32), 2, 2, 2, 0, 0),
+               ((50, 4, 4, 64), 2, 2, 2, 0, 0))
+# the digits fixture's bar (example/README.md)
+DIGITS_MAX_TEST_ERROR = 0.05
+# pred_raw's printed probabilities ({v:g}), card (TF32 off) vs CPU
+MNIST_PROB_ATOL = 1e-5
+# update_period = 2 from the round-2 model over MNIST_PERIOD_BATCHES
+# batches, dropout off, f32 with TF32 off: each tensor of the card's
+# weights within this share of the CPU weights' largest magnitude
+MNIST_PERIOD_BATCHES = 20
+MNIST_PERIOD_REL = 1e-5
 
 
 class SmokeError(RuntimeError):
@@ -572,9 +653,11 @@ def _err(got, ref):
     return float(d.max()), float(rel.max())
 
 
-def check_kernel(kernel: str, key, dtype, dev, gen):
+def check_kernel(kernel: str, key, dtype, dev, gen,
+                 device_times: bool = False):
     """One kernel at one shape and dtype: agreement with its plain
-    version, and the four times."""
+    version, and the four times (with ``device_times``, in device time,
+    the calls' times beside)."""
     import torch
     import torch.nn.functional as F
 
@@ -713,10 +796,14 @@ def check_kernel(kernel: str, key, dtype, dev, gen):
         "kernel": kernel, "shape": label, "dtype": str(dtype).split(".")[1],
         "max_abs_err": abs_err, "max_rel_err": rel_err, "rtol": rtol,
         "atol": atol, "ok": ok,
-        "ms": time_ms(run), "plain_ms": time_ms(plain),
-        "library_ms": time_ms(library),
+        "ms": time_ms(run, device=device_times),
+        "plain_ms": time_ms(plain, device=device_times),
+        "library_ms": time_ms(library, device=device_times),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    if device_times:
+        row["call_ms"] = time_ms(run)
+        row["library_call_ms"] = time_ms(library)
     if vector and dtype == torch.bfloat16:
         row["call_ms"], row["library_call_ms"] = row["ms"], row["library_ms"]
         row.update(_edge_turns(kernel, args, ref, run, library, rtol, atol))
@@ -1171,10 +1258,173 @@ def _paths_since(before):
     return {k.name: _symbol_delta(k, before[k.name]) for k, _ in _routed()}
 
 
+def _post_on(conn, path: str, body: bytes, ctype: str):
+    """POST ``body`` on a kept-alive ``http.client`` connection:
+    ``(status, reply bytes)``; the connection must stay open."""
+    conn.request("POST", path, body=body, headers={"Content-Type": ctype})
+    r = conn.getresponse()
+    data = r.read()
+    if r.will_close:
+        raise SmokeError(f"the server closed a kept-alive connection "
+                         f"after a {ctype} request ({r.status})")
+    return r.status, data
+
+
+def drive_wire(port: int, eng, bodies, json_answers, per_forward, tag: str,
+               side: int, card: str):
+    """The binary wire beside JSON on the engine of a serving phase, on
+    kept-alive connections: for each of ``WIRE_ROWS`` a ``CXB1`` scores
+    frame and the same rows as JSON, ``REPEATS`` times each, every
+    request launching ``per_forward`` on the main paths and nothing
+    else, the binary reply bit-equal to the JSON one; 128 rows as two
+    concurrent 64-row frames on two connections (the second sent once
+    the first has reached the engine), coalesced into one b128 forward
+    and bit-equal to the JSON reply of 128 rows
+    (``json_answers[128]``); one 128-row frame refused 400
+    ``oversize_shape`` with no launch.  Logs the warm latency per row
+    count on both wires and the engine's wire counters; returns
+    ``{rows: {"json": ms, "binary": ms}}``."""
+    import http.client
+
+    import numpy as np
+
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.serve import wire
+
+    want = {**{k.name: 0 for k in KERNELS}, **per_forward}
+    want_paths = _main_paths(per_forward)
+
+    def checked(n, send):
+        before = {k.name: k.launches for k in KERNELS}
+        paths_before = _by_symbol()
+        t0 = time.perf_counter()
+        out = send()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k.name: k.launches - before[k.name] for k in KERNELS}
+        paths = _paths_since(paths_before)
+        if delta != want or paths != want_paths:
+            raise SmokeError(f"{tag}: {n}-row wire request launched {delta}"
+                             f" by C entry {paths}; expected {want}, "
+                             f"{want_paths}")
+        return out, ms
+
+    rows = {n: bodies[n] if n in bodies else _rows(n, side, SEED + 300 + n)
+            for n in WIRE_ROWS}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    lat = {}
+    try:
+        for n, x in rows.items():
+            sends = {"json": (json.dumps({"data": x.tolist(), "raw": True}
+                                         ).encode(), "application/json"),
+                     "binary": (bytes(wire.encode_request(x, kind="scores")),
+                                wire.CONTENT_TYPE)}
+            replies, times = {}, {}
+            for w, (body, ctype) in sends.items():
+                times[w] = []
+                for _ in range(REPEATS):
+                    (status, data), ms = checked(
+                        n, lambda: _post_on(conn, "/predict", body, ctype))
+                    if status != 200:
+                        raise SmokeError(f"{tag}: {n}-row {w} request: "
+                                         f"{status} {data[:200]!r}")
+                    times[w].append(ms)
+                replies[w] = data
+            j = np.asarray(json.loads(replies["json"])["scores"], np.float32)
+            kind, _rid, b = wire.decode_response(replies["binary"])
+            if kind != "scores" or b.shape != j.shape or \
+                    b.tobytes() != j.tobytes():
+                raise SmokeError(f"{tag}: {n}-row binary reply {b.shape} is "
+                                 f"not bit-equal to the JSON reply {j.shape}")
+            lat[n] = {w: statistics.median(t[1:]) for w, t in times.items()}
+            log(f"{tag}: wire {n:4d} rows: warm latency ms JSON "
+                f"{lat[n]['json']:.1f} binary {lat[n]['binary']:.1f} "
+                f"(cold {times['json'][0]:.1f} / {times['binary'][0]:.1f}); "
+                f"binary bit-equal to JSON ({card})")
+        # 128 rows: two 64-row frames at once on two kept-alive sockets
+        x = bodies[128]
+        frames = [bytes(wire.encode_request(h, kind="scores"))
+                  for h in (x[:64], x[64:])]
+        conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+                 for _ in frames]
+        window = eng.batcher.batch_timeout
+        eng.batcher.batch_timeout = WIRE_PAIR_WINDOW_S
+        try:
+            times = []
+            for _ in range(REPEATS):
+                got = [None] * len(frames)
+
+                def send(i):
+                    got[i] = _post_on(conns[i], "/predict", frames[i],
+                                      wire.CONTENT_TYPE)
+
+                def pair():
+                    # the second frame goes once the first has reached the
+                    # engine, so the batch holds the rows in x's order
+                    # (batch norm's statistics sum them in that order)
+                    ths = [threading.Thread(target=send, args=(i,))
+                           for i in range(len(frames))]
+                    n0 = eng.stats.requests
+                    ths[0].start()
+                    while eng.stats.requests == n0 and ths[0].is_alive():
+                        time.sleep(0.0005)
+                    ths[1].start()
+                    for t in ths:
+                        t.join(timeout=600)
+                    return list(got)
+
+                b0, r0 = eng.stats.batches, eng.stats.bucket_rows
+                replies, ms = checked(128, pair)
+                if (eng.stats.batches - b0, eng.stats.bucket_rows - r0) != (
+                        1, 128):
+                    raise SmokeError(
+                        f"{tag}: the two 64-row frames ran as "
+                        f"{eng.stats.batches - b0} batch(es) of "
+                        f"{eng.stats.bucket_rows - r0} bucket rows, not one "
+                        "b128 forward")
+                times.append(ms)
+        finally:
+            eng.batcher.batch_timeout = window
+            for c in conns:
+                c.close()
+        parts = []
+        for status, data in replies:
+            if status != 200:
+                raise SmokeError(f"{tag}: 64-row frame: {status} {data[:200]!r}")
+            parts.append(wire.decode_response(data)[2])
+        both = np.concatenate(parts)
+        if both.tobytes() != np.asarray(json_answers[128], np.float32
+                                        ).tobytes():
+            raise SmokeError(f"{tag}: two 64-row frames are not bit-equal "
+                             "to the 128-row JSON reply")
+        lat[128] = {"binary": statistics.median(times[1:])}
+        log(f"{tag}: wire 128 rows as two concurrent 64-row frames: one "
+            f"b128 forward, warm latency ms {lat[128]['binary']:.1f} (cold "
+            f"{times[0]:.1f}), bit-equal to the 128-row JSON reply ({card})")
+        # one 128-row frame: over the 64 MiB payload cap
+        big = bytes(wire.encode_request(x, kind="scores"))
+        before = {k.name: k.launches for k in KERNELS}
+        status, data = _post_on(conn, "/predict", big, wire.CONTENT_TYPE)
+        reason = json.loads(data).get("reason") if status == 400 else None
+        if reason != "oversize_shape" or any(
+                k.launches != before[k.name] for k in KERNELS):
+            raise SmokeError(f"{tag}: a 128-row frame ({len(big)} bytes) "
+                             f"got {status} {data[:200]!r}, not 400 "
+                             "oversize_shape without a launch")
+        log(f"{tag}: wire 128-row frame ({len(big)} bytes, payload over "
+            f"{wire.MAX_PAYLOAD_BYTES}): 400 oversize_shape")
+    finally:
+        conn.close()
+    st = eng.snapshot_stats()
+    log(f"{tag}: wire counters requests {json.dumps(st['wire_requests'])} "
+        f"bytes {json.dumps(st['wire_bytes'])}")
+    return lat
+
+
 def serve_phase(tmp: str):
     """Drive the serving path from a seeded checkpoint written to
-    ``tmp``; returns the kernels' launch counts, the checkpoint's path
-    and the served answers by request size."""
+    ``tmp``, on both wires; returns the kernels' launch counts, the
+    checkpoint's path, the served answers by request size and the warm
+    latencies of ``drive_wire``."""
     import numpy as np
     import torch
 
@@ -1210,6 +1460,8 @@ def serve_phase(tmp: str):
         bodies = {n: _rows(n, side, SEED + n) for n in REQUEST_ROWS}
         answers, launches = _drive_requests(port, bodies, PER_FORWARD,
                                             "serve")
+        wire_lat = drive_wire(port, eng, bodies, answers, PER_FORWARD,
+                              "serve", side, gpu_line())
         x8 = bodies[REQUEST_ROWS[1]]
         feats16 = eng.extract(x8, "pool5")
         probs16 = answers[x8.shape[0]]
@@ -1233,7 +1485,7 @@ def serve_phase(tmp: str):
     cls = next(v for k, v in params.items()
                if k.endswith("_loss3_classifier"))
     _hold_served("serve", ref, feats16, probs16, cls, "pool5")
-    return launches, path, answers
+    return launches, path, answers, wire_lat
 
 
 def _hold_served(tag, ref, feats16, probs16, cls, node,
@@ -3068,8 +3320,9 @@ def resnet_serve_phase(tmp: str):
     HTTP (1, 7, 32 and 128 rows, each twice: K1 once and K6 four times a
     forward, on their main paths, nothing else), the forward's device
     time by kind per bucket, then the 7-row request's bucket (8) in
-    float32 on the card against the CPU and in bf16 against float32.
-    Returns the launches by kernel."""
+    float32 on the card against the CPU and in bf16 against float32;
+    the binary wire beside JSON (``drive_wire``).  Returns the launches
+    by kernel and the wire's warm latencies."""
     import torch
 
     from cxxnet_tpu_torch import config as cfgmod
@@ -3102,6 +3355,8 @@ def resnet_serve_phase(tmp: str):
         bodies = {n: _rows(n, side, SEED + 100 + n) for n in REQUEST_ROWS}
         answers, launches = _drive_requests(port, bodies, RESNET_PER_FORWARD,
                                             "resnet serve")
+        wire_lat = drive_wire(port, eng, bodies, answers, RESNET_PER_FORWARD,
+                              "resnet serve", side, gpu_line())
         x8 = bodies[REQUEST_ROWS[1]]
         feats16 = eng.extract(x8, "pool")
         probs16 = answers[x8.shape[0]]
@@ -3123,7 +3378,7 @@ def resnet_serve_phase(tmp: str):
     cls = next(v for k, v in params.items() if k.endswith("_fc1000"))
     _hold_served("resnet serve", ref, feats16, probs16, cls, "pool",
                  (RESNET_BF16_FEAT_REL, RESNET_BF16_LOGIT_REL))
-    return launches
+    return launches, wire_lat
 
 
 def resnet_train_phase(tmp: str):
@@ -3319,6 +3574,424 @@ def resnet_updater_phase(dev):
         raise SmokeError(f"updaters out of tolerance on the card: {bad}")
 
 
+# ----------------------------------------------------------------------
+# MNIST: MNIST_CONV.conf at full width, its tasks, digits to accuracy
+
+
+def _mnist_digits(n: int, seed: int):
+    """``n`` seeded 28x28 uint8 images drawn around ten class templates
+    (a learnable stand-in for the absent MNIST files) and their labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    templates = np.random.RandomState(SEED + 99).randint(0, 256,
+                                                         (10, 28, 28))
+    labels = rng.randint(0, 10, n)
+    noise = rng.randint(-60, 61, (n, 28, 28))
+    return (np.clip(templates[labels] + noise, 0, 255).astype(np.uint8),
+            labels)
+
+
+def _f32_paths(per):
+    """The launches by C entry of the routed kernels that ``per``
+    (launches by kernel of one f32 step or forward) must make: all on
+    the f32 vector entries."""
+    return {k.name: ({f"{k.name}_f32": per[k.name]} if per.get(k.name)
+                     else {}) for k, _ in _routed()}
+
+
+def _hold_steps(tag, steps, paths, per, pattern=None):
+    """Every step of a recorded run launched ``per`` (the SGD kernel by
+    ``pattern[i % len(pattern)]`` where given) on the f32 entries."""
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    want = {**{k.name: 0 for k in KERNELS}, **per}
+    for i, (d, p) in enumerate(zip(steps, paths)):
+        w = dict(want)
+        if pattern is not None:
+            w["sgd_update"] = pattern[i % len(pattern)]
+        if d != w or p != _f32_paths(per):
+            raise SmokeError(f"{tag}: step {i} launched {d}, by C entry {p};"
+                             f" expected {w}, {_f32_paths(per)}")
+
+
+def _counted(run):
+    """``run()`` with every count at 0 just before; returns its result
+    and the launches by kernel and by C entry just after."""
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    for k in KERNELS:
+        k.reset_counts()
+    out = run()
+    return out, ({k.name: k.launches for k in KERNELS if k.launches},
+                 {k.name: dict(k.by_symbol) for k in KERNELS if k.launches})
+
+
+def _sgd_tensors(conf: str):
+    """The SGD kernel's tensors of a conf's net at step 0: ``(shape, lr,
+    momentum, wd, clip)`` each, as ``step_calls`` reads them."""
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(cfgmod.parse_file(conf) + [("dev", "cpu")])
+    tr.init_model()
+    return tuple((tuple(tr.params[key][tag].shape),
+                  float(up.param.learning_rate(0)),
+                  float(up.param.momentum_at(0)), up.param.wd,
+                  up.param.clip_gradient)
+                 for (key, tag), up in tr.updaters.items())
+
+
+def mnist_kernels(dev):
+    """K1 and K2 at the MNIST nets' pools (``MNIST_POOLS``), float32 and
+    bfloat16, on their vector entries and bit-equal to their plain
+    versions, and K8 over MNIST_CONV's 6 and digits_conv's 8 tensors in
+    one launch each (``check_kernel``: device times against the plain
+    version and the library call, the calls' times beside, and the
+    bound).  Returns the rows."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 70)
+    rows = []
+    for key in MNIST_POOLS:
+        for kernel in ("maxpool_fwd", "maxpool_bwd"):
+            for dtype in (torch.float32, torch.bfloat16):
+                # bf16 takes device times from _edge_turns
+                rows.append(check_kernel(
+                    kernel, key, dtype, dev, gen,
+                    device_times=dtype == torch.float32))
+    for conf, n in ((MNIST_CONF, MNIST_TENSORS), (DIGITS_CONF, DIGITS_TENSORS)):
+        tensors = _sgd_tensors(conf)
+        if len(tensors) != n:
+            raise SmokeError(f"{os.path.basename(conf)} has {len(tensors)} "
+                             f"parameter tensors, not {n}")
+        rows.append(check_kernel("sgd_update", tensors, torch.float32, dev,
+                                 gen))
+        rows[-1]["conf"] = os.path.basename(conf)
+    for r in rows:
+        log(f"mnist kernel {r['kernel']:16s} {r['dtype']:8s} "
+            f"{r['shape']:34s} abs {r['max_abs_err']:.3g} "
+            f"{'ok' if r['ok'] else 'MISMATCH'}  ms {r['ms']:.4f} plain "
+            f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}); device time"
+            + (f", calls {r['call_ms']:.4f} / library "
+               f"{r['library_call_ms']:.4f}" if "call_ms" in r else "")
+            + (f" edge {r['edge_ms']:.4f}" if "edge_ms" in r else ""))
+    bad = [f"{r['kernel']} {r['dtype']} {r['shape']}" for r in rows
+           if not r["ok"]]
+    if bad:
+        raise SmokeError(f"MNIST kernel check(s) out of tolerance: {bad}")
+    return rows
+
+
+_PRED_SECTION = """
+pred = {out}
+iter = mnist
+  path_img = ./data/t10k-images-idx3-ubyte
+  path_label = ./data/t10k-labels-idx1-ubyte
+  input_flat = 0
+iter = end
+"""
+
+
+class _TeeStderr:
+    """``sys.stderr`` and a copy of what is written to it (the CLI's
+    evaluation lines)."""
+
+    def __init__(self):
+        self.text = []
+        self._err = sys.stderr
+
+    def write(self, s):
+        self.text.append(s)
+        return self._err.write(s)
+
+    def flush(self):
+        self._err.flush()
+
+    def __enter__(self):
+        sys.stderr = self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stderr = self._err
+
+
+def _eval_errors(text: str):
+    """``[(round, test-error)]`` from the CLI's ``[N]\t...`` lines."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("[") and "test-error:" in line:
+            out.append((int(line[1:line.index("]")]),
+                        float(line.split("test-error:")[1].split()[0])))
+    return out
+
+
+def mnist_phase(tmp: str, card: str):
+    """``MNIST_CONV.conf`` as it stands through ``LearnTask`` on seeded
+    idx files, in ``tmp``: ``task=train`` 2 rounds (every step K1, K2
+    and K8 once, on the f32 vector entries), then from the round-2 model
+    ``pred``, ``pred_raw``, ``extract`` (node ``MNIST_FEATURE_NODE``,
+    fc1), ``summary`` (each forward K1 once, nothing else) and a
+    ``finetune`` round (every layer copied; K1, K2, K8 a step); the
+    card's ``pred_raw`` against the CPU's; a round at ``update_period =
+    2`` (K8 on every second step), and ``MNIST_PERIOD_BATCHES`` batches at
+    ``update_period = 2`` with dropout off on the card against the CPU.
+    Returns the launch counts for the ``mnist_kernels`` line."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.cli import LearnTask
+    from cxxnet_tpu_torch.io.data import DataBatch, create_iterator
+    from cxxnet_tpu_torch.io.mnist import write_idx_images, write_idx_labels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(os.path.join(tmp, "data"))
+    for name, n, seed in (("train", MNIST_TRAIN_ROWS, SEED + 1),
+                          ("t10k", MNIST_TEST_ROWS, SEED + 2)):
+        imgs, labels = _mnist_digits(n, seed)
+        write_idx_images(os.path.join(tmp, "data",
+                                      f"{name}-images-idx3-ubyte"), imgs)
+        write_idx_labels(os.path.join(tmp, "data",
+                                      f"{name}-labels-idx1-ubyte"), labels)
+    text = open(MNIST_CONF).read()
+
+    def conf(out):
+        path = os.path.join(tmp, f"mnist_conv_{out}.conf")
+        with open(path, "w") as f:
+            f.write(text + _PRED_SECTION.format(out=out))
+        return path
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        counts = {}
+        steps_per_round = MNIST_TRAIN_ROWS // MNIST_BATCH
+        forwards = MNIST_TEST_ROWS // MNIST_BATCH
+        t0 = time.perf_counter()
+        _, tr, steps, losses, marks = _run_train_task(
+            [conf("pred.txt"), "task=train", "num_round=2", "max_round=2",
+             "model_dir=models", "print_step=0"])
+        launches = {k.name: k.launches for k in KERNELS if k.launches}
+        log(f"mnist train: {len(steps)} steps of {tr.batch_size} rows in "
+            f"{time.perf_counter() - t0:.1f}s (CLI run, evaluation and 3 "
+            f"checkpoints included) on {tr.device}; launches {launches}; "
+            f"losses first {losses[0]:.4f} last {losses[-1]:.4f}")
+        if len(steps) != 2 * steps_per_round or not all(np.isfinite(losses)):
+            raise SmokeError(f"mnist: {len(steps)} steps, losses finite "
+                             f"{bool(np.isfinite(losses).all())}")
+        _hold_steps("mnist train", steps, tr.paths, MNIST_PER_STEP)
+        # each round's evaluation: one K1 launch a test batch
+        if launches.get("maxpool_fwd") != len(steps) + 2 * forwards:
+            raise SmokeError(f"mnist train: {launches} (K1 {len(steps)} "
+                             f"steps + {2 * forwards} eval forwards)")
+        _round_rates(marks, tr.batch_size, "img")
+        counts["train"] = {"steps": len(steps), "launches": launches,
+                           "per_step": _f32_paths(MNIST_PER_STEP)}
+        model = os.path.join("models", f"{2:04d}.model")
+
+        outs = {}
+        for task, extra, out in (
+                ("pred", [], "pred.txt"), ("pred_raw", [], "raw.txt"),
+                ("extract", [f"extract_node_name={MNIST_FEATURE_NODE}"],
+                 "fc1.txt"), ("summary", [], "unused.txt")):
+            buf = io.StringIO()
+
+            def run():
+                with contextlib.redirect_stdout(buf):
+                    return LearnTask().run([conf(out), f"task={task}",
+                                            f"model_in={model}", *extra])
+
+            rc, (got, by) = _counted(run)
+            want = {} if task == "summary" else {"maxpool_fwd": forwards}
+            want_by = ({} if task == "summary" else
+                       {"maxpool_fwd": {"maxpool_fwd_f32": forwards}})
+            if rc != 0 or got != want or by != want_by:
+                raise SmokeError(f"mnist task={task}: rc {rc}, launches "
+                                 f"{got} by C entry {by}; expected {want}")
+            outs[task] = (out, buf.getvalue())
+            counts[task] = {"launches": got, "by_c_entry": by}
+            log(f"mnist task={task}: launches {got} by C entry {by}")
+        preds = open("pred.txt").read().split("\n")[:-1]
+        raw = np.array([[float(v) for v in line.split()]
+                        for line in open("raw.txt")])
+        feats = np.array([[float(v) for v in line.split()]
+                          for line in open("fc1.txt")])
+        meta = open("fc1.txt.meta").read()
+        summary = outs["summary"][1]
+        log("mnist task=summary:\n" + summary.rstrip())
+        if (len(preds) != MNIST_TEST_ROWS or raw.shape != (MNIST_TEST_ROWS, 10)
+                or feats.shape != (MNIST_TEST_ROWS, 100)
+                or meta != f"{MNIST_TEST_ROWS},100,1,1\n"
+                or not np.isfinite(raw).all() or not np.isfinite(feats).all()
+                or np.abs(raw.sum(1) - 1).max() > 1e-4
+                or "total parameters: 158,230" not in summary):
+            raise SmokeError(f"mnist tasks wrote {len(preds)} preds, raw "
+                             f"{raw.shape}, features {feats.shape}, meta "
+                             f"{meta!r}")
+        if [f"{v:g}" for v in raw.argmax(1)] != preds:
+            raise SmokeError("mnist: task=pred is not pred_raw's argmax")
+        # the same checkpoint's pred_raw on the CPU
+        with contextlib.redirect_stdout(io.StringIO()):
+            LearnTask().run([conf("raw_cpu.txt"), "task=pred_raw",
+                             f"model_in={model}", "dev=cpu"])
+        raw_cpu = np.array([[float(v) for v in line.split()]
+                            for line in open("raw_cpu.txt")])
+        labels = np.array(
+            [int(b) for b in open("data/t10k-labels-idx1-ubyte", "rb"
+                                  ).read()[8:]])
+        err = float(np.abs(raw - raw_cpu).max())
+        acc = float((raw.argmax(1) == labels).mean())
+        log(f"mnist pred_raw card vs CPU: max abs {err:.3g} (limit "
+            f"{MNIST_PROB_ATOL:g}); test accuracy of the round-2 model "
+            f"{acc:.4f}; extract node {MNIST_FEATURE_NODE} (fc1) features "
+            f"{feats.shape}, meta {meta.strip()} ({card})")
+        if not err <= MNIST_PROB_ATOL:
+            raise SmokeError(f"mnist pred_raw card vs CPU {err:.3g}")
+
+        # finetune one round from the round-2 model
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, ft, fsteps, flosses, _ = _run_train_task(
+                [conf("pred.txt"), "task=finetune", f"model_in={model}",
+                 "num_round=0", "model_dir=models_ft", "print_step=0"])
+        copied = [l for l in buf.getvalue().splitlines()
+                  if l.startswith("Copying layer")]
+        if copied != ["Copying layer cv1", "Copying layer fc1",
+                      "Copying layer fc2"] or len(fsteps) != steps_per_round \
+                or ft.epoch_counter != steps_per_round \
+                or not all(np.isfinite(flosses)):
+            raise SmokeError(f"mnist finetune: {copied}, {len(fsteps)} "
+                             f"steps, epoch {ft.epoch_counter}")
+        _hold_steps("mnist finetune", fsteps, ft.paths, MNIST_PER_STEP)
+        counts["finetune"] = {"steps": len(fsteps), "copied": len(copied)}
+        log(f"mnist task=finetune: {copied}; {len(fsteps)} steps, K1, K2, "
+            "K8 once a step on the f32 entries")
+
+        # a round at update_period = 2
+        _, up, usteps, ulosses, _ = _run_train_task(
+            [conf("pred.txt"), "task=train", f"model_in={model}",
+             "num_round=3", "max_round=1", "update_period=2",
+             "model_dir=models_up", "print_step=0"])
+        k8 = sum(d["sgd_update"] for d in usteps)
+        _hold_steps("mnist update_period=2", usteps, up.paths,
+                    MNIST_PER_STEP, pattern=(0, 1))
+        if len(usteps) != steps_per_round or 2 * k8 != len(usteps) \
+                or up.epoch_counter != 2 * steps_per_round + k8:
+            raise SmokeError(f"mnist update_period=2: {len(usteps)} steps, "
+                             f"{k8} K8 launches, epoch {up.epoch_counter}")
+        counts["update_period_2"] = {"steps": len(usteps),
+                                     "sgd_update": k8}
+        log(f"mnist update_period=2: {len(usteps)} steps, {k8} K8 launches "
+            "(one a second step), K1 and K2 every step")
+
+        # update_period = 2, dropout off: the card against the CPU
+        base = cfgmod.parse_pairs(text.replace("threshold = 0.5",
+                                               "threshold = 0.0"))
+        trs = {}
+        for name, d in (("card", "gpu"), ("cpu", "cpu")):
+            t = NetTrainer()
+            t.set_params(base + [("update_period", "2"), ("dev", d),
+                                 ("silent", "1")])
+            t.load_model(model)
+            trs[name] = t
+        it = create_iterator(cfgmod.split_sections(cfgmod.parse_file(
+            conf("pred.txt"))).find("data")[0].entries + [
+                ("batch_size", str(MNIST_BATCH)), ("silent", "1")])
+        it.init()
+        it.before_first()
+        for _ in range(MNIST_PERIOD_BATCHES):
+            if not it.next():
+                raise SmokeError("mnist: the data section ran out")
+            b = it.value()
+            for t in trs.values():
+                t.update(DataBatch(data=b.data.copy(), label=b.label.copy()))
+        worst = 0.0
+        for key, tags in trs["cpu"].params.items():
+            for tag, w in tags.items():
+                a = trs["card"].params[key][tag].cpu()
+                worst = max(worst, float((a - w).abs().max())
+                            / float(w.abs().max()))
+        log(f"mnist update_period=2 card vs CPU after "
+            f"{MNIST_PERIOD_BATCHES} batches ({MNIST_PERIOD_BATCHES // 2} "
+            f"updates, dropout off, TF32 off): worst tensor {worst:.3g} of "
+            f"its largest weight (limit {MNIST_PERIOD_REL:g})")
+        if not worst <= MNIST_PERIOD_REL or any(
+                t.epoch_counter != 2 * steps_per_round
+                + MNIST_PERIOD_BATCHES // 2 for t in trs.values()):
+            raise SmokeError(f"mnist update_period=2 parity {worst:.3g}")
+    finally:
+        os.chdir(cwd)
+    return counts
+
+
+def digits_phase(tmp: str, card: str):
+    """``digits_conv.conf`` as it stands (15 rounds, batch 50, f32) with
+    ``dev = tpu`` on the UCI digits the port's tool writes, cuDNN in its
+    deterministic mode (so the figure repeats from run to run): every step
+    launches K1 and K2 twice and K8 once on the f32 entries, and the last
+    round's test error is at most ``DIGITS_MAX_TEST_ERROR``.  Returns
+    each round's test error and the run's counts."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.tools.make_digits_idx import write_digits_idx
+
+    write_digits_idx(os.path.join(tmp, "data"))
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    # with TF32 off (phase 3 on) cuDNN picks backward algorithms that
+    # add with atomics, and 15 rounds carry their last bits into the
+    # test error (1.2-4.0 % over six runs); deterministic ones make the
+    # figure reproducible
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        with _TeeStderr() as tee:
+            _, tr, steps, losses, marks = _run_train_task(
+                [DIGITS_CONF, "dev=tpu", "print_step=0"])
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        os.chdir(cwd)
+    errors = _eval_errors("".join(tee.text))
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    _hold_steps("digits_conv", steps, tr.paths, DIGITS_PER_STEP)
+    log(f"digits_conv: {len(steps)} steps in {wall:.1f}s on {tr.device}; "
+        f"launches {launches}; test error by round "
+        + ", ".join(f"[{r}] {e:g}" for r, e in errors) + f" ({card})")
+    if (len(errors) != 15 or not all(np.isfinite(losses))
+            or not errors[-1][1] <= DIGITS_MAX_TEST_ERROR):
+        raise SmokeError(f"digits_conv: test errors {errors} (bar "
+                         f"{DIGITS_MAX_TEST_ERROR})")
+    return {"steps": len(steps), "launches": launches,
+            "per_step": _f32_paths(DIGITS_PER_STEP),
+            "test_error": [e for _, e in errors]}
+
+
+def mnist_line(rows, mnist_counts, digits_counts, card: str):
+    """The MNIST nets' line: MNIST_CONV's launches (training, the tasks,
+    finetune, update_period = 2), digits_conv's, and K1, K2 and K8 at
+    their shapes (max error, kernel, plain and library times, bound)."""
+    keep = ("kernel", "dtype", "shape", "max_abs_err", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "call_ms",
+            "library_call_ms", "conf")
+    return {"mnist_kernels": {
+        "card": card, "MNIST_CONV": mnist_counts,
+        "digits_conv": digits_counts,
+        "rows": [{k: r[k] for k in keep if k in r} for r in rows]}}
+
+
 def resnet_line(krows, serve_launches, train_launches):
     """ResNet-50's line: per kernel of its path (K1, K2, K6, K8) the
     launches of the ResNet training run (and of the ResNet serving run),
@@ -3366,10 +4039,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if not (os.path.isdir(os.path.join(REPO, "cxxnet_tpu_torch"))
-            and os.path.exists(CONF) and os.path.exists(RESNET_CONF)):
+            and all(os.path.exists(c) for c in (CONF, RESNET_CONF,
+                                                MNIST_CONF, DIGITS_CONF))):
         print("chip_smoke: run it from the root of a cxxnet-tpu checkout "
-              "(cxxnet_tpu_torch/ and example/ImageNet/{googlenet,resnet50}"
-              ".conf)", file=sys.stderr)
+              "(cxxnet_tpu_torch/, example/ImageNet/{googlenet,resnet50}"
+              ".conf and example/MNIST/{MNIST_CONV,digits_conv}.conf)",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     try:
@@ -3393,7 +4068,7 @@ def main() -> int:
 
         rows = check_kernels(dev)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            serve_launches, path, answers = serve_phase(tmp)
+            serve_launches, path, answers, wire_gn = serve_phase(tmp)
             int8_rows, quant_launches = quant_phase(tmp, path, answers)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
             train_launches, mdir, cfg = train_phase(tmp)
@@ -3409,12 +4084,20 @@ def main() -> int:
         lm_head_dim_phase()
         rrows = resnet_kernels(dev, rows)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_rn_") as tmp:
-            r_serve = resnet_serve_phase(tmp)
+            r_serve, wire_rn = resnet_serve_phase(tmp)
             r_train, mdir, cfg = resnet_train_phase(tmp)
             resnet_parity_phase(cfg, mdir)
             rate_phase(cfg, mdir, RESNET_PER_STEP, "ResNet-50")
         resnet_updater_phase(dev)
         log(json.dumps(resnet_line(rrows, r_serve, r_train)))
+        mrows = mnist_kernels(dev)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_") as tmp:
+            m_counts = mnist_phase(tmp, card)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_digits_") as tmp:
+            d_counts = digits_phase(tmp, card)
+        log(json.dumps(mnist_line(mrows, m_counts, d_counts, card)))
+        log(json.dumps({"wire_warm_latency_ms": {
+            "card": card, "GoogLeNet": wire_gn, "ResNet-50": wire_rn}}))
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
                             quant_launches)

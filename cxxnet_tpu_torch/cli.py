@@ -1,9 +1,10 @@
 """Command-line entry point: ``python -m cxxnet_tpu_torch <conf> [name=val ...]``.
 
-Counterpart of ``cxxnet_tpu/cli.py`` for ``task=train``, ``task=serve``,
-``task=generate`` and ``task=export_quant``.  The conf (plus
-``name=value`` overrides, applied after the file's entries) is parsed
-with the same grammar.
+Counterpart of ``cxxnet_tpu/cli.py`` for ``task=train``, ``finetune``,
+``pred``, ``pred_raw``, ``extract``, ``summary``, ``serve``,
+``generate`` and ``export_quant``.  The conf (plus ``name=value``
+overrides, applied after the file's entries) is parsed with the same
+grammar.
 
 ``task=train``: a fresh model (``model_in = NULL``, written as
 ``0000.model`` before the first round), the model of ``model_in``, or
@@ -19,8 +20,26 @@ is the same math.  ``save_ustate = 1`` writes the updater state into
 each checkpoint, so ``continue = 1`` (or ``model_in``) resumes exactly.
 ``example/ImageNet/resnet{50,101,152}.conf`` train as they stand
 (``batch_norm`` with ``bn_stats`` / ``bn_eval`` / ``bn_momentum``, the
-``synthetic`` sections, ``metric = rec@1`` / ``rec@5``); ``dev = tpu``
-means the card.
+``synthetic`` sections, ``metric = rec@1`` / ``rec@5``), and so do the
+``iter = mnist`` confs of ``example/MNIST`` once their idx files exist;
+``dev = tpu`` means the card.  ``update_period = N`` applies the
+updaters once per N batches, to their summed gradients.
+
+``task=finetune``: as ``train``, from a fresh init into which every
+layer of ``model_in`` (a checkpoint of either package) whose name and
+tag shapes match is copied (``Copying layer <name>``); the round counter
+starts at 0.
+
+``task=pred`` / ``pred_raw`` / ``extract`` run the model of
+``model_in`` over the iterator of the conf's ``pred = <file>`` section
+and write ``<file>``: ``pred`` one prediction a line (``{v:g}``),
+``pred_raw`` each output row space-separated with a trailing ``" \n"``,
+``extract`` the features of node ``extract_node_name`` as txt rows
+(the default) or ``<f4`` binary (``output_format = bin``), plus a
+``<file>.meta`` line ``n,d0,d1,d2``.  ``task=summary`` prints the
+layer table (type, name, output shape, parameters) of the conf's net,
+or of ``model_in``'s.  These tasks build no ``data`` or ``eval``
+iterator (``extract`` builds them, as the JAX package does).
 
 ``task=serve``: a checkpoint is loaded from ``model_in`` (or the newest
 valid one in ``model_dir``) into an
@@ -49,10 +68,10 @@ one JSON verdict line (also written to ``quant_report`` when set) and
 exits 0 on publish, 3 on reject (nothing written).  ``task=serve
 quant=int8`` then serves the artifact.
 
-The other tasks, the serving fleet (``replicas >= 2``), hot reload
-(``serve_reload_period``), the tuner (``controller``), gradient
-accumulation (``update_period > 1``), the divergence guard and the
-elastic, integrity and telemetry planes of training are later slices
+The tasks ``serve_train``, ``loop_fleet`` and ``data_service``, the
+serving fleet (``replicas >= 2``), hot reload (``serve_reload_period``),
+the tuner (``controller``), the divergence guard and the elastic,
+integrity and telemetry planes of training are later slices
 (ROADMAP.md) and raise ``NotImplementedError`` naming the item.
 """
 
@@ -68,8 +87,12 @@ from typing import List, Optional
 from . import config as cfgmod
 
 _LATER = {
-    "finetune": "queue A item 5 (finetune / copy_model_from)",
+    "serve_train": "queue A item 5 (the closed loop, task=serve_train)",
+    "loop_fleet": "queue A item 5 (the closed loop, task=loop_fleet)",
+    "data_service": "queue A item 5 (the data service)",
 }
+_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "summary",
+          "serve", "generate", "export_quant")
 # train keys of planes this slice does not port: refused when switched on
 _TRAIN_LATER = ("integrity_every", "integrity_shadow", "integrity_probe",
                 "test_on_server", "telemetry", "elastic", "elastic_join",
@@ -77,8 +100,9 @@ _TRAIN_LATER = ("integrity_every", "integrity_shadow", "integrity_probe",
 
 
 class LearnTask:
-    """The ``train``, ``serve``, ``generate`` and ``export_quant`` tasks
-    of the JAX package's ``LearnTask``."""
+    """The ``train``, ``finetune``, ``pred``, ``pred_raw``, ``extract``,
+    ``summary``, ``serve``, ``generate`` and ``export_quant`` tasks of
+    the JAX package's ``LearnTask``."""
 
     def __init__(self) -> None:
         self.task = "train"
@@ -92,6 +116,7 @@ class LearnTask:
         self.print_step = 100
         self.net_trainer = None
         self.itr_train = None
+        self.itr_pred = None
         self.itr_evals: List = []
         self.eval_names: List[str] = []
         self.silent = 0
@@ -115,6 +140,9 @@ class LearnTask:
         self.quant_calib_batches = 0  # 0: the whole eval section
         self.quant_out = ""
         self.quant_report = ""
+        self.name_pred = "pred.txt"
+        self.extract_node_name = ""
+        self.output_format = 1  # 1: txt rows (the default), 0: <f4 binary
         self.cfg: List[tuple] = []
 
     def set_param(self, name: str, val: str) -> None:
@@ -196,6 +224,10 @@ class LearnTask:
             self.quant_out = val
         elif name == "quant_report":
             self.quant_report = val
+        elif name == "extract_node_name":
+            self.extract_node_name = val
+        elif name == "output_format":
+            self.output_format = 1 if val == "txt" else 0
         elif name == "wire" and val not in ("binary", "json"):
             raise ValueError(f"wire must be binary or json, got {val!r}")
         self.cfg.append((name, val))
@@ -208,21 +240,30 @@ class LearnTask:
             self.set_param(name, val)
         for name, val in cfgmod.parse_cli_overrides(argv[1:]):
             self.set_param(name, val)
+        if self.task in _LATER:
+            raise NotImplementedError(
+                f"task={self.task} is not ported yet (ROADMAP.md "
+                f"{_LATER[self.task]}); this package runs task="
+                + ", ".join(_TASKS))
+        if self.task not in _TASKS:
+            raise ValueError(f"unknown task {self.task!r}")
         if self.task == "serve":
             self.task_serve()
-        elif self.task == "train":
+        elif self.task in ("train", "finetune"):
             self.task_train()
+        elif self.task in ("pred", "pred_raw"):
+            self.init_model_task()
+            self.task_predict(raw=self.task == "pred_raw")
+        elif self.task == "extract":
+            self.init_model_task()
+            self.task_extract()
+        elif self.task == "summary":
+            self.init_model_task()
+            self.task_summary()
         elif self.task == "generate":
             self.task_generate()
-        elif self.task == "export_quant":
-            return self.task_export_quant()
         else:
-            later = _LATER.get(self.task, "queue A item 5 (the other tasks)")
-            raise NotImplementedError(
-                f"task={self.task} is not ported yet (ROADMAP.md {later}); "
-                "this package trains (task=train), serves (task=serve), "
-                "samples a language model (task=generate) and exports a "
-                "quantized model (task=export_quant)")
+            return self.task_export_quant()
         return 0
 
     # ------------------------------------------------------------------
@@ -247,6 +288,8 @@ class LearnTask:
         iterators of the conf's ``data`` and ``eval`` sections."""
         from .utils import checkpoint as ckpt
 
+        if self.task != "train":
+            self.continue_training = 0
         if self.continue_training:
             found = ckpt.find_latest_valid(
                 self.name_model_dir, net_fp=self._net_fingerprint(),
@@ -263,6 +306,9 @@ class LearnTask:
         elif self.name_model_in == "NULL":
             self.net_trainer = self._create_trainer()
             self.net_trainer.init_model()
+        elif self.task == "finetune":
+            self.net_trainer = self._create_trainer()
+            self.net_trainer.copy_model_from(self.name_model_in)
         else:
             stem = os.path.basename(self.name_model_in).split(".")[0]
             if stem.isdigit():
@@ -275,26 +321,51 @@ class LearnTask:
             self.start_counter += 1
         self._create_iterators()
 
+    def init_model_task(self) -> None:
+        """The model of ``model_in`` (``summary`` may go without one: a
+        fresh init from the conf) and the task's iterators."""
+        if self.name_model_in == "NULL" and self.task != "summary":
+            raise ValueError(f"task={self.task} needs model_in")
+        self.net_trainer = self._create_trainer()
+        if self.name_model_in == "NULL":
+            self.net_trainer.init_model()
+        else:
+            self.net_trainer.load_model(self.name_model_in)
+        self._create_iterators()
+
     def _create_iterators(self) -> None:
+        """The iterators of the conf's sections that the task reads:
+        ``data`` and ``eval`` but for the predicting tasks, ``pred``
+        (whose tag names the output file) for ``pred``, ``pred_raw`` and
+        ``extract``."""
         from .io.data import create_iterator
 
         split = cfgmod.split_sections(self.cfg)
         for sec in split.sections:
-            if sec.kind == "data":
+            if sec.kind == "data" and self.task not in (
+                    "pred", "pred_raw", "generate", "summary",
+                    "export_quant"):
                 if self.itr_train is not None:
                     raise ValueError("can only have one data section")
                 self.itr_train = create_iterator(sec.entries)
-            elif sec.kind == "eval":
+            elif sec.kind == "eval" and self.task not in (
+                    "pred", "pred_raw", "generate", "summary"):
                 self.itr_evals.append(create_iterator(sec.entries))
                 self.eval_names.append(sec.tag)
-        for it in [self.itr_train, *self.itr_evals]:
+            elif sec.kind == "pred":
+                self.name_pred = sec.tag
+                if self.task in ("pred", "pred_raw", "extract"):
+                    if self.itr_pred is not None:
+                        raise ValueError("can only have one pred section")
+                    self.itr_pred = create_iterator(sec.entries)
+        for it in [self.itr_train, self.itr_pred, *self.itr_evals]:
             if it is not None:
                 for n, v in split.global_entries:
                     it.set_param(n, v)
                 it.init()
 
     def _close_iterators(self) -> None:
-        for it in [self.itr_train, *self.itr_evals]:
+        for it in [self.itr_train, self.itr_pred, *self.itr_evals]:
             if it is not None:
                 it.close()
 
@@ -385,6 +456,103 @@ class LearnTask:
         sys.stderr.write(text + "\n")
         sys.stderr.flush()
         return True
+
+    def task_predict(self, raw: bool = False) -> None:
+        """``task=pred``: one prediction a line.  ``task=pred_raw``: each
+        output row space-separated, with the reference's trailing
+        separator.  Written batch by batch, so memory stays one batch."""
+        import numpy as np
+
+        if self.itr_pred is None:
+            raise ValueError(
+                "must specify a pred iterator to generate predictions")
+        print("start predicting...")
+        t0 = time.perf_counter()
+        nrow = 0
+        try:
+            with open(self.name_pred, "w", encoding="utf-8") as fo:
+                self.itr_pred.before_first()
+                while self.itr_pred.next():
+                    batch = self.itr_pred.value()
+                    n = batch.batch_size - batch.num_batch_padd
+                    if raw:
+                        rows = self.net_trainer.extract_feature(batch,
+                                                                "top[-1]")
+                        for r in rows.reshape(rows.shape[0], -1)[:n]:
+                            fo.write(" ".join(f"{v:g}" for v in r) + " \n")
+                    else:
+                        for v in self.net_trainer.predict(batch.data)[:n]:
+                            if np.ndim(v):  # sequence models: (T,) ids
+                                fo.write(" ".join(f"{t:g}" for t in v) + "\n")
+                            else:
+                                fo.write(f"{v:g}\n")
+                    fo.flush()
+                    nrow += n
+        finally:
+            self._close_iterators()
+        dt = time.perf_counter() - t0
+        print(f"finished prediction, write into {self.name_pred} "
+              f"({nrow} rows, {nrow / dt if dt > 0 else 0.0:.1f} rows/sec)")
+
+    def task_extract(self) -> None:
+        """``task=extract``: the features of node ``extract_node_name``
+        for every row of the pred iterator, as ``<f4`` binary or txt
+        rows, and the ``.meta`` line ``n,d0,d1,d2``."""
+        if self.itr_pred is None:
+            raise ValueError(
+                "must specify a pred iterator for feature extraction")
+        if not self.extract_node_name:
+            raise ValueError(
+                "extract_node_name must be specified in task extract")
+        print("start predicting...")
+        nrow, dshape = 0, None
+        try:
+            with open(self.name_pred,
+                      "w" if self.output_format else "wb") as fo:
+                self.itr_pred.before_first()
+                while self.itr_pred.next():
+                    batch = self.itr_pred.value()
+                    n = batch.batch_size - batch.num_batch_padd
+                    feats = self.net_trainer.extract_feature(
+                        batch, self.extract_node_name)[:n]
+                    nrow += n
+                    flat = feats.reshape(feats.shape[0], -1)
+                    if self.output_format:
+                        for row in flat:
+                            fo.write(" ".join(f"{v:g}" for v in row) + " \n")
+                    else:
+                        flat.astype("<f4").tofile(fo)
+                    if n:
+                        dshape = feats.shape[1:]
+        finally:
+            self._close_iterators()
+        shp = list(dshape) if dshape else []
+        shp += [1] * (3 - len(shp))
+        with open(self.name_pred + ".meta", "w", encoding="utf-8") as fm:
+            fm.write(f"{nrow},{shp[0]},{shp[1]},{shp[2]}\n")
+        print(f"finished prediction, write into {self.name_pred}")
+
+    def task_summary(self) -> None:
+        """``task=summary``: the layer table (type, name, output node
+        shape, parameter count) and the total, the JAX package's table
+        without its mesh line (one device here)."""
+        tr = self.net_trainer
+        g = tr.graph
+        shapes = tr.net.node_shapes
+        total = 0
+        print(f"{'#':>3} {'layer':22s} {'type':18s} {'out shape':20s} "
+              f"{'params':>12}")
+        for i, spec in enumerate(g.layers):
+            key = tr.net.param_key[i]
+            n_par = 0
+            if spec.type_name != "shared" and key in tr.params:
+                n_par = int(sum(w.numel() for w in tr.params[key].values()))
+                total += n_par
+            out = shapes[spec.nindex_out[0]] if spec.nindex_out else ()
+            print(f"{i:>3} {spec.name or '':22s} {spec.type_name:18s} "
+                  f"{str(tuple(out)):20s} {n_par:>12,}")
+        print(f"{'':66s}{'-' * 12}")
+        print(f"total parameters: {total:,} ({total * 4 / 1e6:.1f} MB f32)")
 
     def task_generate(self) -> None:
         """Load ``model_in`` and write the generated text to the ``pred``

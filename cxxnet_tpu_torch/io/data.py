@@ -6,7 +6,7 @@ labels; ``num_batch_padd`` trailing rows of a batch are padding.  The
 ``iter = X`` chain is read in order: a base iterator at the bottom,
 ``threadbuffer`` wrapping the iterator below it, and the keys after an
 ``iter =`` line configure the current top of the chain, which forwards
-them down.  The port builds ``synthetic``, ``text`` and
+them down.  The port builds ``synthetic``, ``text``, ``mnist`` and
 ``threadbuffer``; the other iterators raise ``NotImplementedError``.
 """
 
@@ -19,7 +19,7 @@ import numpy as np
 
 ConfigEntry = Tuple[str, str]
 
-_LATER = ("mnist", "imgbin", "imgbinx", "img", "csv", "libsvm",
+_LATER = ("imgbin", "imgbinx", "img", "csv", "libsvm",
           "service", "membuffer", "attachtxt")
 
 
@@ -64,6 +64,7 @@ class DataIter:
 
 def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
     """Build an iterator chain from an ordered config section."""
+    from .mnist import MNISTIterator
     from .prefetch import ThreadBufferIterator
     from .synth import SyntheticIterator
     from .text import TextIterator
@@ -81,6 +82,11 @@ def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
                     raise ValueError(
                         "text cannot chain over another iterator")
                 it = TextIterator()
+            elif val == "mnist":
+                if it is not None:
+                    raise ValueError(
+                        "mnist cannot chain over another iterator")
+                it = MNISTIterator()
             elif val == "threadbuffer":
                 if it is None:
                     raise ValueError("must specify input of threadbuffer")
@@ -90,7 +96,8 @@ def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
             elif val in _LATER:
                 raise NotImplementedError(
                     f"iter={val} is not ported yet (ROADMAP.md queue A "
-                    "item 5); the port reads iter=synthetic and iter=text")
+                    "item 5); the port reads iter=synthetic, iter=text and "
+                    "iter=mnist")
             else:
                 raise ValueError(f"unknown iterator type {val!r}")
             continue

@@ -4,10 +4,11 @@ Counterpart of ``cxxnet_tpu/nnet/trainer.py``: ``set_params``,
 ``init_model``, ``checkpoint_bytes`` / ``save_model``,
 ``_read_model_file`` / ``load_model``, ``predict_fn``,
 ``predict_from_scores``, ``resolve_feature_node``, ``extract_feature``,
-``net_fp``, and the single-device training subset: ``update`` (one
-step: forward, backward, then the updater — the fused SGD kernel, or
-one of the plain-PyTorch updaters — on every tensor), ``update_all``,
-``start_round`` and ``evaluate`` with the train and eval metrics.  The
+``net_fp``, ``copy_model_from`` (finetune), and the single-device
+training subset: ``update`` (one micro-batch: forward, backward, then
+the updater — the fused SGD kernel, or one of the plain-PyTorch
+updaters — on every tensor), ``update_all``, ``start_round`` and
+``evaluate`` with the train and eval metrics.  The
 checkpoint container is the JAX package's, so a model written by one
 package loads into the other: the parameters, the layer state
 (``aux:{key}/{tag}`` entries, batch norm's running statistics) and,
@@ -19,9 +20,15 @@ The layer state (``aux``, from ``FunctionalNet.init_aux``) is threaded
 through every forward: the train forward replaces it with the step's
 new state, the eval forwards read it.  The update writes the f32
 masters in place, so it drops the operands ``predict`` prepared from
-the old weights (``_invalidate_prepared``).  ``update_period > 1``, the
-divergence guard and multi-device training raise
-``NotImplementedError`` (ROADMAP.md).
+the old weights (``_invalidate_prepared``).
+
+``update_period = N > 1`` accumulates N micro-batches' f32 gradients
+(the loss already carries ``1 / (batch_size * N)``) and applies the
+updaters once per N micro-batches, to the sum; ``epoch_counter``, the
+updaters' schedule clock, advances only then, while the layer state
+(batch norm's running statistics) and the train metrics update on every
+micro-batch, as in the JAX package.  The divergence guard and
+multi-device training raise ``NotImplementedError`` (ROADMAP.md).
 
 Quantized models (``nnet/quant.py``): a checkpoint whose header carries
 ``quant`` loads as it was exported (int8 codes stay int8, bf16 kernels
@@ -110,9 +117,12 @@ class NetTrainer:
         self.updaters: Dict[Tuple[str, str], Updater] = {}
         self.aux: Dict[str, dict] = {}
         self.epoch_counter = 0
+        self.sample_counter = 0  # micro-batches into this update period
+        self._grad_accum: Optional[List[torch.Tensor]] = None
         self.round = 0
         self.batch_size = 0
         self.update_period = 1
+        self.silent = 0
         self.eval_train = 1
         self.save_ustate = 0
         self.seed = 0
@@ -138,6 +148,8 @@ class NetTrainer:
             self.eval_train = int(val)
         elif name == "save_ustate":
             self.save_ustate = int(val)
+        elif name == "silent":
+            self.silent = int(val)
         elif name == "divergence_policy" and val not in ("", "off"):
             raise NotImplementedError(
                 f"divergence_policy={val}: the divergence guard is not "
@@ -183,10 +195,7 @@ class NetTrainer:
         else:
             self.net.batch_size = self.batch_size
         self.update_period = max(self.update_period, self.net.update_period)
-        if self.update_period > 1:
-            raise NotImplementedError(
-                f"update_period={self.update_period}: gradient accumulation "
-                "is not ported yet (ROADMAP.md queue A item 5)")
+        self.net.update_period = self.update_period
         self._check_metric_nodes()
 
     def _check_metric_nodes(self) -> None:
@@ -214,6 +223,7 @@ class NetTrainer:
                            for t, w in tags.items()}
                        for k, tags in params.items()}
         self.quant_scheme, self.quant_plan = quant_scheme, quant_plan
+        self.sample_counter, self._grad_accum = 0, None
         self._invalidate_prepared()
         if quant_scheme:
             self.updaters, self.ustates = {}, {}
@@ -411,6 +421,31 @@ class NetTrainer:
                 for sl, w in slots.items():
                     cur[sl].copy_(torch.from_numpy(np.asarray(w, np.float32)))
 
+    def copy_model_from(self, path: str) -> None:
+        """Finetune: a fresh init from the conf, then the weights of every
+        layer of the checkpoint at ``path`` (written by either package)
+        whose name matches a layer of this net and whose every tag has
+        the same shape; ``epoch_counter`` starts again at 0."""
+        self.init_model()
+        header, old_params, _aux, _ust = self._read_model_file(path)
+        old = NetGraph.structure_from_json(json.dumps(header["structure"]))
+        old_keys = {spec.name: f"l{i}_{spec.name}"
+                    for i, spec in enumerate(old.layers) if spec.name}
+        for j, spec in enumerate(self.graph.layers):
+            okey = old_keys.get(spec.name)
+            nkey = self.net.param_key[j]
+            if okey not in old_params or nkey not in self.params:
+                continue
+            src, dst = old_params[okey], self.params[nkey]
+            if all(tag in src and tuple(np.shape(src[tag])) == tuple(w.shape)
+                   for tag, w in dst.items()):
+                if not self.silent:
+                    print(f"Copying layer {spec.name}")
+                for tag, w in dst.items():
+                    w.copy_(torch.as_tensor(np.asarray(src[tag], np.float32)))
+        self._invalidate_prepared()
+        self.epoch_counter = 0
+
     # ------------------------------------------------------------------
     # predict
     def _prepared_for(self, params) -> dict:
@@ -523,12 +558,13 @@ class NetTrainer:
         return data, label, mask, n_real
 
     def _step_generator(self) -> torch.Generator:
-        """The step's generator for dropout, on the trainer's device
-        (Philox on a card), seeded from ``(seed, epoch_counter)`` so a
-        resumed run draws what an uninterrupted one drew."""
+        """The micro-batch's generator for dropout, on the trainer's
+        device (Philox on a card), seeded from ``(seed, epoch_counter,
+        sample_counter)`` so a resumed run draws what an uninterrupted
+        one drew."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed((self.seed * 1000003 + self.epoch_counter)
-                        & 0x7FFFFFFFFFFFFFFF)
+        micro = self.epoch_counter * self.update_period + self.sample_counter
+        gen.manual_seed((self.seed * 1000003 + micro) & 0x7FFFFFFFFFFFFFFF)
         return gen
 
     def _node_pred_cache(self, data: np.ndarray, n_real: int) -> dict:
@@ -543,10 +579,11 @@ class NetTrainer:
         return cache
 
     def update(self, batch: DataBatch) -> None:
-        """One step: the train forward from the f32 masters, the
-        backward, then the updaters on every tensor in place (all the SGD
-        tensors in one launch of the fused SGD kernel on a card), and
-        ``epoch_counter += 1``."""
+        """One micro-batch: the train forward from the f32 masters and
+        the backward; then, on every ``update_period``-th micro-batch,
+        the updaters on every tensor in place (all the SGD tensors in one
+        launch of the fused SGD kernel on a card) from the summed f32
+        gradients, and ``epoch_counter += 1``."""
         if self.net is None:
             raise RuntimeError("update: init_model or load_model first")
         if self.quant_scheme:
@@ -576,15 +613,28 @@ class NetTrainer:
             grads = torch.autograd.grad(
                 loss, [leaves[k][t] for k, t, _ in flat], allow_unused=True)
         del leaves
-        with torch.no_grad():
-            apply_all([(self.updaters[(key, tag)], w,
-                        torch.zeros_like(w) if g is None else g.contiguous(),
-                        self.ustates[key][tag])
-                       for (key, tag, w), g in zip(flat, grads)],
-                      self.epoch_counter)
-        del grads
-        self._invalidate_prepared()
+        grads = [torch.zeros_like(w) if g is None else g.contiguous()
+                 for (_k, _t, w), g in zip(flat, grads)]
         self.last_loss = loss.detach()
+        apply = True
+        if self.update_period > 1:
+            with torch.no_grad():
+                if self._grad_accum is None:
+                    self._grad_accum = grads
+                else:
+                    for acc, g in zip(self._grad_accum, grads):
+                        acc.add_(g)
+            self.sample_counter += 1
+            apply = self.sample_counter >= self.update_period
+            grads = self._grad_accum
+        if apply:
+            with torch.no_grad():
+                apply_all([(self.updaters[(key, tag)], w, g,
+                            self.ustates[key][tag])
+                           for (key, tag, w), g in zip(flat, grads)],
+                          self.epoch_counter)
+            self._invalidate_prepared()
+            self._grad_accum, self.sample_counter = None, 0
         if self.eval_train:
             base = out.float().cpu().numpy()[:n_real]
             cache = {None: base, **node_cache}
@@ -594,7 +644,8 @@ class NetTrainer:
                         if isinstance(label_in, torch.Tensor) else label_in)
             self.train_metric.add_eval(preds, label_np[:n_real],
                                        self._label_ranges())
-        self.epoch_counter += 1
+        if apply:
+            self.epoch_counter += 1
 
     def update_all(self, data: np.ndarray, labels: np.ndarray) -> None:
         """numpy-in convenience (the wrapper API's batch update)."""

@@ -1,4 +1,4 @@
-"""Online inference: micro-batched engine + JSON HTTP front-end.
+"""Online inference: micro-batched engine + JSON and binary HTTP front-end.
 
 Counterpart of ``cxxnet_tpu/serve/`` for the serving slice; see
 ``engine.py`` for what is ported and what waits.
@@ -15,6 +15,8 @@ from .cache import ShapeBucketCache, bucket_size  # noqa: F401
 from .engine import Engine, ModelLoadError  # noqa: F401
 from .metrics import ServingStats  # noqa: F401
 from .server import make_server, serve_forever  # noqa: F401
+from . import wire  # noqa: F401
+from .wire import WireError, WireRequest  # noqa: F401
 
 __all__ = [
     "Engine",
@@ -29,4 +31,7 @@ __all__ = [
     "bucket_size",
     "make_server",
     "serve_forever",
+    "wire",
+    "WireError",
+    "WireRequest",
 ]

@@ -80,6 +80,10 @@ class ShapeBucketCache:
             data = np.concatenate(
                 [data, np.zeros((bucket - n,) + data.shape[1:], data.dtype)],
                 axis=0)
+        elif not data.flags.writeable:
+            # a binary frame's rows alias the request body (read-only);
+            # torch must never wrap that buffer
+            data = data.copy()
         # a flat (N, D) request is the wrapper spelling of the native row
         data = data.reshape((bucket,) + tr.net.input_node_shape(1)[1:])
         out = tr.predict_fn(node_id)(tr.params, tr.aux, data, ())

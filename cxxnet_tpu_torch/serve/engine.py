@@ -19,8 +19,13 @@ Counterpart of ``cxxnet_tpu/serve/engine.py`` for this slice:
   quantizes on load, ungated.  ``/healthz`` and ``/statsz`` report the
   scheme and the weight bytes at rest against their dense-f32 cost.
 
-Hot reload, the canary, the reload breaker, the binary wire, the
-fleet/router and the tuner are later slices (ROADMAP.md).
+* **the wire** — ``wire = binary`` (the default) lets the server
+  negotiate the ``application/x-cxb`` frames of ``wire.py`` per request
+  by Content-Type, beside JSON; ``wire = json`` turns the binary path
+  off (such frames get 400 ``wire_disabled``).
+
+Hot reload, the canary, the reload breaker, the fleet/router and the
+tuner are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -88,9 +93,15 @@ class Engine:
         # the scheme to prefer a .quant.model sibling for; the trainer
         # validates the value
         self.quant = ""
+        self.wire = "binary"
         for n, v in self._cfg:
             if n == "quant":
                 self.quant = "" if v in ("", "0", "off", "none") else v
+            elif n == "wire":
+                if v not in ("binary", "json"):
+                    raise ValueError(
+                        f"wire must be binary or json, got {v!r}")
+                self.wire = v
         self.default_deadline_ms = float(default_deadline_ms)
         self._model_lock = threading.RLock()
         self._round = -1

@@ -4,8 +4,10 @@ The per-engine half of ``cxxnet_tpu/serve/metrics.py``: one
 :class:`ServingStats` per engine, fed by the batcher and the request
 path, rendered by ``GET /statsz``, with the served model's weight
 gauges (``serve_weight_bytes``, ``serve_weight_bytes_f32`` and
-``serve_quant_scheme`` there).  The process-wide Prometheus registry
-(``/metricsz``) belongs to a later slice.
+``serve_quant_scheme`` there) and the two wire counters
+(``serve_wire_requests_total`` by wire, ``serve_wire_bytes_total`` by
+direction there).  The process-wide Prometheus registry (``/metricsz``)
+belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ class ServingStats:
         self.weight_bytes = 0
         self.weight_bytes_f32 = 0
         self.quant_scheme = "f32"
+        # data-plane requests by wire, and binary-frame bytes by
+        # direction: the share of traffic the zero-copy path carries
+        self.wire_requests = {"json": 0, "binary": 0}
+        self.wire_bytes = {"in": 0, "out": 0}
 
     def bind_queue_depth(self, fn: Callable[[], int]) -> None:
         self._queue_depth = fn
@@ -54,6 +60,18 @@ class ServingStats:
         with self._lock:
             self.requests += 1
             self.rows_in += rows
+
+    def record_wire(self, wire: str, nbytes_in: int = 0) -> None:
+        """One data-plane request on ``wire`` (``json`` / ``binary``),
+        with a binary frame's bytes in."""
+        with self._lock:
+            self.wire_requests[wire] += 1
+            self.wire_bytes["in"] += nbytes_in
+
+    def record_wire_out(self, nbytes: int) -> None:
+        """A binary reply's bytes out."""
+        with self._lock:
+            self.wire_bytes["out"] += nbytes
 
     def record_outcome(self, outcome: str,
                        latency_s: Optional[float] = None) -> None:
@@ -87,6 +105,8 @@ class ServingStats:
                 "weight_bytes": self.weight_bytes,
                 "weight_bytes_f32": self.weight_bytes_f32,
                 "quant_scheme": self.quant_scheme,
+                "wire_requests": dict(self.wire_requests),
+                "wire_bytes": dict(self.wire_bytes),
             }
         out["latency_ms"] = ({
             "count": int(lat.size),

@@ -1,9 +1,10 @@
-"""HTTP front-end: a stdlib JSON endpoint over :class:`Engine`.
+"""HTTP front-end: a stdlib JSON and binary endpoint over :class:`Engine`.
 
 Counterpart of ``cxxnet_tpu/serve/server.py`` for this slice.
 ``ThreadingHTTPServer`` gives one thread per connection; every handler
 thread blocks in ``Engine.submit`` while the micro-batcher coalesces
-concurrent requests into shared forwards.  Endpoints:
+concurrent requests into shared forwards.  The handler speaks HTTP/1.1,
+so a client keeps its connection alive across requests.  Endpoints:
 
 * ``POST /predict``  — ``{"data": [[...], ...]}`` → ``{"pred": [...]}``
   (add ``"raw": true`` for the full score rows, ``{"scores": ...}``)
@@ -12,10 +13,18 @@ concurrent requests into shared forwards.  Endpoints:
 * ``GET  /healthz``  — liveness + model identity (round, fingerprint)
 * ``GET  /statsz``   — serving metrics (``metrics.py``)
 
+Both data routes also take the binary wire (``wire.py``): a request with
+``Content-Type: application/x-cxb`` carries a ``CXB1`` frame whose
+payload is decoded with ``np.frombuffer`` over the request body (no
+copy) and handed to the micro-batcher, and the reply streams the raw
+f32 rows back as a ``CXR1`` frame: no ``tolist()``, no ``json.dumps``.
+JSON requests are unchanged.  A malformed frame gets 400 with the
+frame's ``reason`` token, never a 500, and error bodies stay JSON.
+
 Errors map to JSON bodies: 400 malformed request, 404 unknown route,
 429 load shed, 503 shutting down, 504 deadline expired, 500 model
-failure.  The binary ``application/x-cxb`` wire, ``/feedback``,
-``/reloadz``, ``/metricsz`` and ``/alertz`` are later slices.
+failure.  ``/feedback``, ``/reloadz``, ``/metricsz`` and ``/alertz``
+are later slices.
 
 Shutdown drains: after ``httpd.shutdown()`` stops the accept loop,
 in-flight requests get up to ``drain_timeout_s`` to finish writing their
@@ -34,14 +43,15 @@ from typing import Optional
 
 import numpy as np
 
+from . import wire
 from .batcher import ServeError
 from .engine import Engine
 
 __all__ = ["make_server", "serve_forever"]
 
 # A full-width JSON request (128 rows of 3x224x224 floats) is ~100-200 MB
-# of text until the binary wire is ported; the JAX server's 64 MiB cap
-# would refuse it.
+# of text; the JAX server's 64 MiB cap would refuse it.  A binary frame
+# is held to wire.MAX_PAYLOAD_BYTES (64 MiB) by its own decoder.
 MAX_BODY_BYTES = 512 << 20
 
 
@@ -79,6 +89,10 @@ class _InflightGauge:
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
+    # TCP_NODELAY: a binary reply leaves in three writes (HTTP headers,
+    # CXR1 header, payload); with Nagle's algorithm the second waits for
+    # the client's delayed ACK of the first, about 40 ms a reply
+    disable_nagle_algorithm = True
     engine: Engine = None  # bound by make_server via subclassing
     inflight: _InflightGauge = None
     verbose = False
@@ -97,9 +111,9 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def _read_json(self, rid: str) -> Optional[dict]:
-        """The request body as a ``{"data": ...}`` object, or reply 400
-        and return None.  A reject that leaves bytes unread closes the
+    def _read_body(self, rid: str) -> Optional[bytes]:
+        """The request body under the size bound, or reply 400 and
+        return None.  A reject that leaves bytes unread closes the
         connection, so they cannot desync a kept-alive socket."""
         if self.headers.get("Transfer-Encoding"):
             self.close_connection = True
@@ -117,13 +131,13 @@ class _Handler(BaseHTTPRequestHandler):
         if length <= 0:
             self._reply(400, {"error": "missing body", "rid": rid})
             return None
-        body = self.rfile.read(length)
-        ctype = (self.headers.get("Content-Type") or "").split(";")[0]
-        if ctype.strip().lower() == "application/x-cxb":
-            self._reply(400, {
-                "error": "the binary wire is not ported yet (ROADMAP.md "
-                         "queue A item 1, serving features); send JSON",
-                "reason": "wire_disabled", "rid": rid})
+        return self.rfile.read(length)
+
+    def _read_json(self, rid: str) -> Optional[dict]:
+        """The request body as a ``{"data": ...}`` object, or reply 400
+        and return None."""
+        body = self._read_body(rid)
+        if body is None:
             return None
         try:
             obj = json.loads(body.decode("utf-8"))
@@ -156,9 +170,14 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(404, {"error": f"unknown route {self.path}",
                               "rid": rid})
             return
+        ctype = (self.headers.get("Content-Type") or "").split(";")[0]
+        if ctype.strip().lower() == wire.CONTENT_TYPE:
+            self._do_post_wire(rid)
+            return
         obj = self._read_json(rid)
         if obj is None:
             return
+        self.engine.stats.record_wire("json")
         deadline = obj.get("deadline_ms")
         try:
             if self.path == "/extract":
@@ -176,6 +195,69 @@ class _Handler(BaseHTTPRequestHandler):
                                          deadline_ms=deadline)
                 key = "scores" if kind == "scores" else "pred"
                 self._reply(200, {key: np.asarray(out).tolist(), "rid": rid})
+        except ServeError as e:
+            self._reply(e.http_status, {"error": str(e), "rid": rid})
+        except (ValueError, TypeError) as e:
+            self._reply(400, {"error": str(e), "rid": rid})
+        except Exception as e:  # noqa: BLE001 - served as a 500
+            self._reply(500, {"error": f"{type(e).__name__}: {e}",
+                              "rid": rid})
+
+    def _do_post_wire(self, rid: str) -> None:
+        """The ``application/x-cxb`` data plane: decode the frame with
+        ``np.frombuffer`` over the request body (the batcher's staging
+        copy is the first copy), stream the raw f32 rows back."""
+        engine = self.engine
+        # drain the body before any reject: unread bytes would desync
+        # the next request on this kept-alive socket
+        body = self._read_body(rid)
+        if body is None:
+            return
+        engine.stats.record_wire("binary", len(body))
+        try:
+            req = wire.decode_request(body)
+        except wire.WireError as e:
+            self._reply(400, {"error": str(e), "reason": e.reason,
+                              "rid": rid})
+            return
+        if engine.wire != "binary":
+            self._reply(400, {
+                "error": "binary wire is disabled (wire = json)",
+                "reason": "wire_disabled", "rid": rid})
+            return
+        try:
+            if self.path == "/extract":
+                if req.kind != "extract" or not req.node:
+                    self._reply(400, {
+                        "error": "extract frames need kind=extract and "
+                                 "a node name", "reason": "bad_kind",
+                        "rid": rid})
+                    return
+                kind = "extract"
+                out = engine.extract(req.data, req.node,
+                                     deadline_ms=req.deadline_ms)
+            else:
+                if req.kind not in ("predict", "scores"):
+                    self._reply(400, {
+                        "error": f"/predict frames carry kind predict "
+                                 f"or scores, not {req.kind}",
+                        "reason": "bad_kind", "rid": rid})
+                    return
+                kind = req.kind
+                out = engine.submit(req.data, kind=kind,
+                                    deadline_ms=req.deadline_ms)
+            head, payload = wire.encode_response_header(
+                np.asarray(out), kind, rid)
+            self.send_response(200)
+            self.send_header("Content-Type", wire.CONTENT_TYPE)
+            self.send_header("Content-Length",
+                             str(len(head) + payload.nbytes))
+            self.end_headers()
+            # the header, then the array's own buffer: the rows leave
+            # the process without a tolist() or a joined-body copy
+            self.wfile.write(head)
+            self.wfile.write(memoryview(payload).cast("B"))
+            engine.stats.record_wire_out(len(head) + payload.nbytes)
         except ServeError as e:
             self._reply(e.http_status, {"error": str(e), "rid": rid})
         except (ValueError, TypeError) as e:

@@ -1,2 +1,3 @@
-"""Measurement tools of the port that run on a card (not imported by the
-package)."""
+"""Tools of the port, not imported by the package: measurement tools
+that run on a card, and ``make_digits_idx`` (the digits fixture's idx
+files)."""

@@ -36,8 +36,11 @@ plain conv; ``batch_norm`` on the card against the CPU (f32 within
 1e-5, bf16 within 2e-2 of the largest, gradients too); a small
 bottleneck net's f32 step (TF32 off) against the CPU under ``bn_eval =
 batch`` and ``running`` (updates within 1e-3 of each tensor's largest,
-running statistics within 1e-5); and one step of ``nag``, ``rmsprop``,
-``adagrad``, ``lars`` and ``lamb`` against the CPU within 1e-5.
+running statistics within 1e-5); one step of ``nag``, ``rmsprop``,
+``adagrad``, ``lars`` and ``lamb`` against the CPU within 1e-5; K1 and
+K2 at the MNIST nets' pools (a partial last window, 2x2 outputs) on
+their vector entries, bit-equal; and ``update_period = 2`` on the card
+(K8 on every second micro-batch, the weights within 1e-5 of the CPU's).
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -1153,3 +1156,103 @@ def test_cuda_new_updaters_match_cpu(cuda_device, name):
         out[str(dev)[:3]] = [wd.cpu()] + [v.cpu() for v in st.values()]
     for got, ref in zip(out["cud"], out["cpu"]):
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# ----------------------------------------------------------------------
+# the MNIST nets: K1 and K2 at their pools, K8 under update_period
+
+# (x, k, s): MNIST_CONV.conf's pool (7x7 out, its last window partial)
+# and digits_conv.conf's two (4x4 and 2x2 out)
+MNIST_POOLS = [((100, 14, 14, 32), 3, 2), ((50, 8, 8, 32), 2, 2),
+               ((50, 4, 4, 64), 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k,s", MNIST_POOLS)
+def test_cuda_maxpool_at_the_mnist_pools(cuda_device, shape, k, s, dtype):
+    """K1 and K2 take their channel-vector entries at the MNIST nets'
+    pools and are bit-equal to their plain versions (relu zeros: ties)."""
+    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(*shape, generator=gen).clamp_min(0).to(cuda_device,
+                                                            dtype)
+    fwd0 = dict(maxpool.KERNEL.by_symbol)
+    y = maxpool.maxpool_fwd(x, k, k, s)
+    assert {n: c - fwd0.get(n, 0) for n, c in maxpool.KERNEL.by_symbol.items()
+            if c != fwd0.get(n, 0)} == {f"maxpool_fwd_{sfx}": 1}
+    assert torch.equal(y, maxpool.maxpool_plain(x, k, k, s))
+    g = torch.randn(y.shape, generator=gen).to(cuda_device, dtype)
+    bwd0 = dict(maxpool.BWD_KERNEL.by_symbol)
+    dx = maxpool.maxpool_bwd(x, y, g, k, k, s)
+    assert {n: c - bwd0.get(n, 0)
+            for n, c in maxpool.BWD_KERNEL.by_symbol.items()
+            if c != bwd0.get(n, 0)} == {f"maxpool_bwd_{sfx}": 1}
+    assert torch.equal(dx, maxpool.maxpool_bwd_plain(x, y, g, k, k, s))
+
+
+PERIOD_CONF = """
+netconfig = start
+layer[0->1] = conv:cv1
+  kernel_size = 3
+  pad = 1
+  nchannel = 32
+  init_sigma = 0.1
+layer[1->1] = relu
+layer[1->2] = max_pooling
+  kernel_size = 3
+  stride = 2
+layer[2->3] = flatten
+layer[3->4] = fullc:fc1
+  nhidden = 10
+  init_sigma = 0.1
+layer[4->4] = softmax
+netconfig = end
+input_shape = 1,14,14
+batch_size = 20
+update_period = 2
+eta = 0.1
+momentum = 0.9
+wd = 0.0001
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_update_period_two_matches_cpu(cuda_device, tmp_path):
+    """``update_period = 2`` on the card: K8 once per two micro-batches
+    over the summed f32 gradients, the weights within 1e-5 of each
+    tensor's largest CPU weight (f32, TF32 off) after four."""
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    conf = cfgmod.parse_pairs(PERIOD_CONF)
+    src = NetTrainer()
+    src.set_params(conf + [("dev", "cpu")])
+    src.init_model()
+    path = str(tmp_path / "0000.model")
+    src.save_model(path)
+    trs = {}
+    for dev in ("cpu", "gpu"):
+        tr = NetTrainer()
+        tr.set_params(conf + [("dev", dev)])
+        tr.load_model(path)
+        trs[dev] = tr
+    rng = np.random.RandomState(5)
+    launches = []
+    for _ in range(4):
+        x = rng.rand(20, 14, 14, 1).astype(np.float32)
+        y = rng.randint(0, 10, (20, 1)).astype(np.float32)
+        n0 = update_step.KERNEL.launches
+        for tr in trs.values():
+            tr.update_all(x, y)
+        launches.append(update_step.KERNEL.launches - n0)
+    assert launches == [0, 1, 0, 1]
+    assert trs["gpu"].epoch_counter == trs["cpu"].epoch_counter == 2
+    for key, tags in trs["cpu"].params.items():
+        for tag, w in tags.items():
+            got = trs["gpu"].params[key][tag].cpu()
+            assert (got - w).abs().max() <= 1e-5 * w.abs().max(), (key, tag)

@@ -187,7 +187,8 @@ def test_cli_refuses_tasks_of_later_slices(tmp_path):
 
     conf = tmp_path / "gn64.conf"
     conf.write_text(CONF)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        LearnTask().run([str(conf), "task=finetune"])
+    for task in ("serve_train", "loop_fleet"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+            LearnTask().run([str(conf), f"task={task}"])
     with pytest.raises(NotImplementedError, match="fleet"):
         LearnTask().run([str(conf), "task=serve", "replicas=2"])

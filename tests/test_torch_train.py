@@ -396,11 +396,11 @@ def test_train_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         NetTrainer().set_param("divergence_policy", "rollback")
     tr = NetTrainer()
-    tr.set_params(tcfg.parse_pairs(SMALL_CONF + "update_period = 2\n"))
-    with pytest.raises(NotImplementedError, match="update_period"):
+    tr.set_params(tcfg.parse_pairs(SMALL_CONF + "dev = gpu:0-1\n"))
+    with pytest.raises(NotImplementedError, match="item 6"):
         tr.init_model()
     conf = tmp_path / "t.conf"
-    conf.write_text(TRAIN_CONF.replace("iter = synthetic", "iter = mnist", 1))
-    with pytest.raises(NotImplementedError, match="iter=mnist"):
+    conf.write_text(TRAIN_CONF.replace("iter = synthetic", "iter = imgbin", 1))
+    with pytest.raises(NotImplementedError, match="iter=imgbin"):
         LearnTask().run([str(conf), "task=train",
                          f"model_dir={tmp_path / 'm'}"])
