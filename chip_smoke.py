@@ -128,6 +128,21 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``torch.profiler``: device time by kernel and the busy share.  Every
    profiled GoogLeNet forward or step (here, in phase 3 and in phase 4)
    must launch K1-K7 on their main paths only.
+   Before the rate, the divergence guard at googlenet.conf's own rates:
+   ``task=train continue=1`` through ``LearnTask`` from a copy of the
+   training run's seeded ``0000.model`` (from its later rounds the
+   conf's rates train), one round of 8 b128 bf16 steps on
+   synthetic rows, ``divergence_policy = rollback`` with
+   ``divergence_lr_backoff = 0.1``, ``divergence_max_retries = 3`` and
+   ``divergence_loss_ratio = 50``, nothing injected: at least one trip
+   on a loss the card computed; each rollback's fresh trainer holding
+   that round's checkpoint bit for bit, with zero momentum; every
+   completed step launching K1-K6 and K8 as in phase 5; the run ending
+   with finite weights, a new checkpoint and an lr scale of at most 0.1.
+   Then ``abort`` at the same rates: ``LearnTask.run`` raises (the CLI
+   exits 1) on a non-finite loss or a spike, and no checkpoint follows
+   the last good round.  Then the guard's cost: b128 bf16 steps with
+   the guard on and off, in turns (host clock).
 8. The flash-attention kernels (K9 forward, K10 backward): first each
    kernel function's registers and spills (this run's ``nvcc -Xptxas
    -v``), the dynamic shared memory its launcher requests and its HMMA
@@ -218,6 +233,39 @@ Phases; any failure ends the run with a non-zero exit and no result:
    step's launches, the max error at ResNet's shapes and one step's
    launches' times summed (K1 and K2 timed at GoogLeNet's identical
    stem pool).
+17a. Hot reload at ResNet-50's full width: ``resnet50.conf`` with
+   ``bn_eval = running`` and ``integrity_probe = 1`` (TF32 off, cuDNN
+   deterministic, restored after), round 1 written by a card trainer
+   through the CLI's ``_save_model`` (its manifest's probe block), served
+   by ``Engine(model_dir=...)`` behind ``serve_forever`` with a 0.5 s
+   reload poll; buckets 1, 32 and 128 warmed on the binary wire (65
+   rows for bucket 128, whose 128-row frame passes the 64 MiB cap).
+   While a client thread sends 1- and 32-row frames (``pool``
+   features), the trainer writes round 2: no request fails, each answer
+   is bit-equal to round 1's or round 2's, and after the swap buckets 1,
+   32 and 128 are bit-equal to a fresh ``Engine(model_in=0002.model)``
+   and take no cache miss; the reload's load and warm time and the
+   slowest request of the swap against the steady p50.  Three more
+   rounds swap in and ``torch.cuda.memory_allocated`` stays within one
+   model's weight bytes.  A CRC-valid garbage round 6 fails two polls,
+   the breaker opens, ``/healthz`` reports ``degraded`` with
+   ``reload_breaker_open`` and round 5 answers as before; round 7 swaps
+   through the half-open trial (``last_reload_ok`` true after every good
+   round) and ``POST /reloadz`` answers ``swapped: false``.  The canary
+   runs 20 times under traffic, all clean (the golden's source logged);
+   an injected drift degrades ``/healthz`` with ``integrity_failed`` and
+   the next run clears it.  A ``quant = int8`` engine serves round 7
+   quantized on load; ``task=export_quant`` (gate at 0.99 over 2 x 128
+   rows under ``bn_eval = running``, else ungated) writes
+   ``0007.quant.model`` and the next poll swaps onto it in the same
+   round; one b128 forward (counts at 0 just before, read just after)
+   launches K1 once, K6 four times and K7 once per int8 1x1 layer
+   (29 less the demoted), all on their main paths, each K7 launch
+   named by its (M, K, O); top-1 agreement with the f32 engine at b128
+   (at least 0.9 when the gate passed) and weight bytes at rest at
+   least 3.5 times under f32.  Then K7 at each distinct shape of that
+   forward, held and timed as in phase 4 (``check_int8``), and a
+   ``reload`` and a ``resnet50_int8_k7`` JSON line.
 18. The MNIST nets' kernels: K1 and K2 at ``MNIST_CONV.conf``'s pool
    (100, 14, 14, 32) k3 s2 (7x7 out, the last window partial) and
    ``digits_conv.conf``'s (50, 8, 8, 32) and (50, 4, 4, 64) k2 s2, in
@@ -238,6 +286,11 @@ Phases; any failure ends the run with a non-zero exit and no result:
    once a step); one round at ``update_period = 2`` (K8 on every second
    step, half as many launches as steps); 20 batches at ``update_period
    = 2`` with dropout off, the card's weights against the CPU's.
+19a. The guard's injected faults on ``MNIST_CONV.conf`` (2 rounds,
+   ``divergence_policy = rollback``): ``inject_nan_step = 70`` and,
+   with ``divergence_loss_ratio = 1000``, ``inject_spike_step = 70``, on
+   the card and on the CPU; the printed rollback round and lr scale
+   equal.  A ``guard`` JSON line (this and phase 7's).
 20. ``digits_conv.conf`` as it stands with ``dev = tpu``, on the UCI
    digits that ``cxxnet_tpu_torch/tools/make_digits_idx.py`` writes, cuDNN
    deterministic: 15 rounds, every step launching K1 and K2 twice and K8
@@ -365,6 +418,18 @@ TRAIN_ROWS, EVAL_ROWS, ROUNDS = 512, 256, 2
 # the conf's rates sends the loss past 1e10 and then to NaN, in the JAX
 # package as in the port (PERF.md); every other updater setting stays
 LR_SCALE = 0.01
+# the divergence guard at googlenet.conf's own rates: one round of 8 b128
+# steps from the training run's seeded 0000.model, its back-off, retries and
+# spike ratio; the guard's cost in turns (blocks of steps each way); the
+# update at which MNIST_CONV's injected faults land (60 updates a round)
+GUARD_ROWS = 1024
+GUARD_BACKOFF, GUARD_RETRIES, GUARD_RATIO = 0.1, 3, 50
+GUARD_COST_BLOCKS, GUARD_COST_STEPS = 4, 5
+MNIST_GUARD_STEP = 70
+# the spike gate's ratio there: far above the real losses' spread once
+# the net has learnt (a batch at 50x the median of losses near 0.01 is
+# ordinary), far below the injected spike (1e6 x max(loss, 1))
+MNIST_GUARD_RATIO = 1000
 PARITY_ROWS = 8
 # quantized serving: K7 runs once per lone 1x1 conv (conv2_reduce and the
 # 9 pool projections) and once for the classifier; the export gate scores
@@ -485,6 +550,22 @@ RESNET_UPDATER_REL = 1e-5
 # WIRE_PAIR_WINDOW_S so that the second frame's body is read in time; a
 # full batch runs at once); one frame of 128 rows at 3x224x224 is
 # 77,070,336 payload bytes, over the 64 MiB cap: 400 oversize_shape
+# hot reload: ResNet-50 served by bucket (rows a frame: 65 rows pad to
+# bucket 128, whose 128-row frame would pass the 64 MiB frame cap), the
+# traffic's buckets, the poll period, the steady time around a swap, the
+# canary runs under traffic, K7's layers in an int8 forward, and the top-1
+# agreement a gated int8 model must keep with the f32 one at b128
+RESNET_BATCH = 128
+RELOAD_BUCKETS = {1: 1, 32: 32, 128: 65}
+RELOAD_TRAFFIC = (1, 32)
+# the answers held bit-equal through a swap: the pooled features (from
+# a random init the classifier's softmax saturates, so two rounds can
+# give the same probabilities)
+RELOAD_NODE = "pool"
+RELOAD_PERIOD_S, RELOAD_STEADY_S = 0.5, 1.0
+CANARY_RUNS = 20
+RESNET_INT8_LAYERS = 29
+RESNET_INT8_MIN_AGREE = 0.9
 WIRE_ROWS = (1, 7, 32, 64)
 WIRE_PAIR_WINDOW_S = 1.0
 # MNIST at full width: example/MNIST/MNIST_CONV.conf as it stands (batch
@@ -1656,11 +1737,12 @@ def _profile(run, what: str, span: str, per=None):
 # phase 4: quantized serving (K7)
 
 
-def int8_calls(tr):
-    """K7's calls in one quantized GoogLeNet forward at ``BATCH`` rows,
-    read off the port's shape inference: ``{param key: (M, K, O)}`` for
-    each 1x1 / pad-0 / ungrouped conv outside a sibling group and each
-    2-D fullc (the layers ``ops/quant.py`` routes to K7)."""
+def int8_calls(tr, want=INT8_PER_FORWARD, model="GoogLeNet"):
+    """K7's calls in one quantized forward of ``model`` at ``BATCH``
+    rows, read off the port's shape inference: ``{param key: (M, K,
+    O)}`` for each 1x1 / pad-0 / ungrouped conv outside a sibling group
+    and each 2-D fullc (the layers ``ops/quant.py`` routes to K7); there
+    must be ``want``."""
     from cxxnet_tpu_torch.layers.conv import ConvolutionLayer
     from cxxnet_tpu_torch.layers.linear import FullConnectLayer
 
@@ -1679,15 +1761,15 @@ def int8_calls(tr):
                 calls[net.param_key[i]] = (n * oh * ow, xin[3], o)
         elif type(lay) is FullConnectLayer and len(xin) == 2:
             calls[net.param_key[i]] = (xin[0], xin[1], out[1])
-    if len(calls) != INT8_PER_FORWARD:
-        raise SmokeError(f"{len(calls)} K7 layers in GoogLeNet, not "
-                         f"{INT8_PER_FORWARD}: {sorted(calls)}")
+    if len(calls) != want:
+        raise SmokeError(f"{len(calls)} K7 layers in {model}, not "
+                         f"{want}: {sorted(calls)}")
     return calls
 
 
-def check_int8(calls, dev):
-    """K7 against its plain version at every call of the forward and at
-    ``INT8_RAGGED``: float32 (TF32 off) and bfloat16, with and without
+def check_int8(calls, dev, ragged=True):
+    """K7 against its plain version at every call of the forward and
+    (with ``ragged``) at ``INT8_RAGGED``: float32 (TF32 off) and bfloat16, with and without
     the bias, with relu; per row (``_row_rel_err``) within
     ``INT8_TOL``.  In bf16 the forward's calls must take the wgmma main
     path and the ragged one the mma.sync edge path; at the forward's
@@ -1704,7 +1786,8 @@ def check_int8(calls, dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     cases = [(key, mko) for key, mko in calls.items()]
-    cases.append(("ragged", INT8_RAGGED))
+    if ragged:
+        cases.append(("ragged", INT8_RAGGED))
     rows = []
     for key, (m, k, o) in cases:
         x32 = torch.randn(m, k, generator=gen, device=dev)
@@ -2160,16 +2243,18 @@ def _synthetic_conf(tmp: str, name: str, sections, lr_scale: float) -> str:
     return path
 
 
-def _run_train_task(argv):
+def _run_train_task(argv, on_divergence=None):
     """Run ``LearnTask`` on ``argv`` in-process with a trainer that
     records each step's launches, loss and end time; returns ``(task,
     trainer, steps, losses, marks)``.  The launch counts are set to 0
-    just before the run."""
+    just before the run.  ``on_divergence(task, error, resumed)`` is
+    called after each response to a divergence-guard trip; a rollback's
+    fresh trainer records into the same lists (``trainer.paths`` too)."""
     from cxxnet_tpu_torch.cli import LearnTask
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     from cxxnet_tpu_torch.ops import KERNELS
 
-    steps, losses, marks = [], [], []
+    steps, losses, marks, paths = [], [], [], []
 
     class RecordingTrainer(NetTrainer):
         """Records each step's launches (the routed kernels' also by C
@@ -2192,10 +2277,16 @@ def _run_train_task(argv):
     class SmokeTask(LearnTask):
         def _create_trainer(self):
             tr = RecordingTrainer()
-            tr.paths = []
+            tr.paths = paths
             tr.set_params(self.cfg)
             self.trainer_for_smoke = tr
             return tr
+
+        def _handle_divergence(self, e):
+            resumed = super()._handle_divergence(e)
+            if on_divergence is not None:
+                on_divergence(self, e, resumed)
+            return resumed
 
     task = SmokeTask()
     for k in KERNELS:
@@ -2413,6 +2504,197 @@ def conf_rates_phase(cfg, mdir: str):
         losses.append(float(tr.last_loss))
     log(f"rates: at googlenet.conf's own rates {dict(rates)}, three steps "
         f"from 0000.model on fresh N(0, 1) batches: losses {losses}")
+
+
+def _guard_run(tmp: str, mdir: str, name: str, policy: str):
+    """``task=train continue=1`` through ``LearnTask`` at googlenet.conf's
+    own rates, one round of ``GUARD_ROWS`` synthetic rows from a copy of
+    the training run's ``0000.model`` (the seeded init: from the run's
+    later rounds those rates train), under ``policy``.  Returns the
+    run's model directory, exit code, trips, rollbacks, task, steps,
+    losses and the printed text."""
+    import shutil
+
+    import numpy as np
+
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.checkpoint import DivergenceError
+
+    conf = _synthetic_conf(tmp, "googlenet_guard.conf",
+                           (("data", "train", GUARD_ROWS, True),), 1.0)
+    gdir = os.path.join(tmp, name)
+    os.makedirs(gdir)
+    for f in ("0000.model", "0000.model.manifest.json"):
+        shutil.copy(os.path.join(mdir, f), gdir)
+    trips, rollbacks = [], []
+
+    def on_divergence(task, e, resumed):
+        trips.append(str(e))
+        if not resumed:
+            return
+        # the fresh trainer holds the checkpoint's weights bit for bit,
+        # zero momentum and the backed-off rates
+        path = os.path.join(gdir, f"{task.start_counter - 1:04d}.model")
+        _, raw, _, _ = NetTrainer._read_model_file(path)
+        tr = task.net_trainer
+        same = all(np.array_equal(tr.params[k][t].cpu().numpy(), w)
+                   for k, tags in raw.items() for t, w in tags.items())
+        zero = all(not bool(s.any()) for tags in tr.ustates.values()
+                   for slots in tags.values() for s in slots.values())
+        rollbacks.append({"round": task.start_counter - 1,
+                          "lr_scale": task._lr_scale,
+                          "bit_equal": same, "momentum_zero": zero})
+
+    argv = [conf, "task=train", "dev=gpu", "continue=1", "num_round=1",
+            "max_round=1",
+            f"model_dir={gdir}", f"seed={SEED}", "print_step=0",
+            f"divergence_policy={policy}",
+            f"divergence_lr_backoff={GUARD_BACKOFF}",
+            f"divergence_max_retries={GUARD_RETRIES}",
+            f"divergence_loss_ratio={GUARD_RATIO}"]
+    t0 = time.perf_counter()
+    rc, task, tr, steps, losses = 0, None, None, [], []
+    with _Tee("stdout") as tee:
+        try:
+            task, tr, steps, losses, _ = _run_train_task(argv, on_divergence)
+        except DivergenceError as e:
+            # what python -m cxxnet_tpu_torch does with it: exit 1
+            rc = 1
+            log(f"guard: {name}: LearnTask.run raised {type(e).__name__}: "
+                f"{e}")
+    log(f"guard: {name}: {time.perf_counter() - t0:.1f}s, exit {rc}, "
+        f"{len(trips)} trip(s), rollbacks {rollbacks}")
+    return gdir, rc, trips, rollbacks, task, tr, steps, losses, \
+        "".join(tee.text)
+
+
+def guard_phase(tmp: str, mdir: str, cfg):
+    """The divergence guard on GoogLeNet at its own rates, from the
+    training run's checkpoints: ``rollback`` must trip on a loss the
+    card computed (nothing injected), reload each round's checkpoint bit
+    for bit, end with finite weights at an lr scale of at most
+    ``GUARD_BACKOFF``; ``abort`` must stop with a non-finite loss or a
+    spike and write nothing after the last good round.  Then the guard's
+    cost: b128 bf16 steps with the guard on and off, in turns.  Returns
+    the ``guard`` line's numbers."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.ops.kernels import update_step
+
+    out = {}
+    gdir, rc, trips, rollbacks, task, tr, steps, losses, text = _guard_run(
+        tmp, mdir, "guard_rollback", "rollback")
+    n_tensors = sum(len(tags) for tags in tr.params.values())
+    want = {**{k.name: 0 for k in KERNELS}, **PER_STEP,
+            "sgd_update": -(-n_tensors // update_step.MAX_TENSORS)}
+    for i, (d, p) in enumerate(zip(steps, tr.paths)):
+        if d != want or p != _main_paths(PER_STEP):
+            raise SmokeError(f"guard: step {i} launched {d}, by C entry {p}")
+    finite = tr.weights_finite()
+    log(f"guard: rollback: {len(steps)} completed steps, each launching "
+        f"{ {k: v for k, v in want.items() if v} } on the main paths; "
+        f"losses {[f'{v:.4g}' for v in losses]}; trips {trips}")
+    saved = sorted(f for f in os.listdir(gdir) if f.endswith(".model"))
+    if (rc != 0 or not trips or not rollbacks or not finite
+            or not all(r["bit_equal"] and r["momentum_zero"]
+                       for r in rollbacks)
+            or task._lr_scale > GUARD_BACKOFF
+            or "inject_" in " ".join(n for n, _ in task.cfg)
+            or saved != ["0000.model", "0001.model"]):
+        raise SmokeError(f"guard: rollback run: exit {rc}, trips {trips}, "
+                         f"rollbacks {rollbacks}, weights finite {finite}, "
+                         f"lr scale {task._lr_scale}, checkpoints {saved}")
+    log(f"guard: rollback recovered after {len(rollbacks)} rollback(s) to "
+        f"an lr scale of {task._lr_scale:g} (GoogLeNet trains at "
+        f"{LR_SCALE:g} in the training run); {saved[-1]} written, weights "
+        "finite")
+    out.update(trips=trips, rollbacks=rollbacks, lr_scale=task._lr_scale,
+               guarded_steps=len(steps))
+    del task, tr
+
+    gdir, rc, trips, _, _, _, _, _, text = _guard_run(
+        tmp, mdir, "guard_abort", "abort")
+    saved = sorted(f for f in os.listdir(gdir) if f.endswith(".model"))
+    if (rc == 0 or saved != ["0000.model"] or not any(
+            w in text for w in ("non-finite loss", "finite loss spike"))):
+        raise SmokeError(f"guard: abort run: exit {rc}, checkpoints {saved}")
+    log(f"guard: abort: exit {rc} on {trips}; checkpoints {saved}")
+    out["abort_trip"] = trips[-1]
+
+    # the guard's cost: its one read-back a step, on and off in turns
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.load_model(os.path.join(mdir, f"{ROUNDS:04d}.model"))
+    shape = tr.net.input_node_shape(tr.batch_size)
+    gen = torch.Generator(device=tr.device).manual_seed(SEED + 5)
+    batch = DataBatch(
+        data=torch.randn(shape, generator=gen, device=tr.device),
+        label=torch.randint(0, 1000, (shape[0], 1), generator=gen,
+                            device=tr.device).float())
+    for _ in range(RATE_WARMUP):
+        tr.update(batch)
+    times = {"off": [], "on": []}
+    for i in range(GUARD_COST_BLOCKS):
+        for policy in (("", "abort") if i % 2 == 0 else ("abort", "")):
+            tr.divergence_policy = policy
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GUARD_COST_STEPS):
+                tr.update(batch)
+            torch.cuda.synchronize()
+            times["on" if policy else "off"].append(
+                (time.perf_counter() - t0) * 1e3 / GUARD_COST_STEPS)
+    if not np.isfinite(float(tr.last_loss)):
+        raise SmokeError("guard: the cost run's loss is not finite")
+    out["step_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    out["step_ms_blocks"] = times
+    log(f"guard: GoogLeNet b{tr.batch_size} bf16 step, host clock over "
+        f"{GUARD_COST_BLOCKS} blocks of {GUARD_COST_STEPS} each way in "
+        f"turns (synchronised at each block's ends): guard off "
+        f"{out['step_ms']['off']:.2f} ms, on {out['step_ms']['on']:.2f} ms "
+        f"(median of blocks; all {json.dumps(times)})")
+    return out
+
+
+def mnist_guard_phase(tmp: str, card: str):
+    """``MNIST_CONV.conf`` on the MNIST phase's idx files (in ``tmp``),
+    2 rounds under ``divergence_policy = rollback`` with an injected NaN
+    and, with ``divergence_loss_ratio = MNIST_GUARD_RATIO``, an injected
+    spike at update ``MNIST_GUARD_STEP``, on the card and on the CPU: the
+    printed rollback round and lr scale must be equal."""
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    lines = {}
+    try:
+        for inject in ("inject_nan_step", "inject_spike_step"):
+            for dev in ("gpu", "cpu"):
+                mdir = f"guard_{inject}_{dev}"
+                argv = [MNIST_CONF, "task=train", f"dev={dev}", "num_round=2",
+                        "max_round=2", f"model_dir={mdir}", "print_step=0",
+                        "divergence_policy=rollback",
+                        f"{inject}={MNIST_GUARD_STEP}"]
+                if inject == "inject_spike_step":
+                    argv.append(f"divergence_loss_ratio={MNIST_GUARD_RATIO}")
+                with _Tee("stdout") as tee:
+                    _run_train_task(argv)
+                lines[(inject, dev)] = [
+                    line.replace(mdir, "<dir>")
+                    for line in "".join(tee.text).splitlines()
+                    if line.startswith("divergence: rolled back")]
+    finally:
+        os.chdir(cwd)
+    for inject in ("inject_nan_step", "inject_spike_step"):
+        card_l, cpu_l = lines[(inject, "gpu")], lines[(inject, "cpu")]
+        log(f"guard: MNIST_CONV {inject}={MNIST_GUARD_STEP}: card {card_l}, "
+            f"CPU {cpu_l} ({card})")
+        if card_l != cpu_l or len(card_l) != 1:
+            raise SmokeError(f"guard: MNIST_CONV {inject}: the card printed "
+                             f"{card_l}, the CPU {cpu_l}")
+    return lines
 
 
 def rate_phase(cfg, mdir: str, per=PER_STEP, model="GoogLeNet"):
@@ -3575,6 +3857,475 @@ def resnet_updater_phase(dev):
 
 
 # ----------------------------------------------------------------------
+# hot reload: ResNet-50 at full width behind the poll thread
+
+
+def _wire_scores(conn, rows, node: str = ""):
+    """One ``CXB1`` frame of ``rows`` on a kept-alive connection, scores
+    (``/predict``) or with ``node`` that node's features (``/extract``):
+    the reply's rows (any failure raises)."""
+    from cxxnet_tpu_torch.serve import wire
+
+    frame = (wire.encode_request(rows, kind="extract", node=node) if node
+             else wire.encode_request(rows, kind="scores"))
+    st, data = _post_on(conn, "/extract" if node else "/predict",
+                        bytes(frame), wire.CONTENT_TYPE)
+    if st != 200:
+        raise SmokeError(f"reload: a {rows.shape[0]}-row frame got {st}: "
+                         f"{data[:200]!r}")
+    return wire.decode_response(data)[2]
+
+
+def _wait(cond, what: str, timeout: float = 120.0, poll: float = 0.02):
+    """Poll ``cond()`` until it holds; raise after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise SmokeError(f"reload: timed out waiting for {what}")
+        time.sleep(poll)
+
+
+def _swapped(eng, n: int):
+    """Wait until ``eng``'s poll thread has completed its ``n``-th swap
+    (the old model released, the canary rebased)."""
+    _wait(lambda: eng.snapshot_stats()["reload_swaps"] >= n,
+          f"swap {n} to complete")
+    if eng.snapshot_stats()["reload_swaps"] != n:
+        raise SmokeError(f"reload: more than {n} swaps")
+
+
+class _Traffic:
+    """A client thread sending ``CXB1`` frames of each of ``bodies`` in
+    turn (``RELOAD_NODE``'s features) on its own kept-alive connection
+    until stopped: each request's start, latency, bucket and answer, and
+    every failure."""
+
+    def __init__(self, port: int, bodies):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=600)
+        self.bodies = bodies
+        self.log, self.errors = [], []
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            for n, x in self.bodies.items():
+                t0 = time.perf_counter()
+                try:
+                    out = _wire_scores(self.conn, x, RELOAD_NODE)
+                except Exception as e:  # noqa: BLE001 - counted, reported
+                    self.errors.append(f"{type(e).__name__}: {e}")
+                    return
+                self.log.append((t0, (time.perf_counter() - t0) * 1e3, n,
+                                 out))
+
+    def __enter__(self):
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join(timeout=600)
+        self.conn.close()
+        if self._th.is_alive():
+            raise SmokeError("reload: the traffic thread did not stop")
+
+
+def _publish(task, tr, round_: int, steps: int, gen):
+    """``steps`` b128 training steps of ``tr`` on fresh device-resident
+    N(0, 1) batches, then ``round_`` written through the CLI's own
+    ``_save_model`` (its manifest carrying the canary's probe block)."""
+    import torch
+
+    from cxxnet_tpu_torch.io import DataBatch
+
+    shape = tr.net.input_node_shape(tr.batch_size)
+    for _ in range(steps):
+        tr.update(DataBatch(
+            data=torch.randn(shape, generator=gen, device=tr.device),
+            label=torch.randint(0, 1000, (shape[0], 1), generator=gen,
+                                device=tr.device).float()))
+    task.net_trainer, task.start_counter = tr, round_
+    if not task._save_model():
+        raise SmokeError(f"reload: round {round_} was not written")
+    return os.path.join(task.name_model_dir, f"{round_:04d}.model")
+
+
+def _serving(eng, period: float):
+    """``serve_forever(eng, reload_period_s=period)`` on a thread:
+    ``(httpd, thread, box)``; ``box["ret"]`` holds its return value."""
+    from cxxnet_tpu_torch.serve import serve_forever
+
+    box = {}
+    th = threading.Thread(target=lambda: box.update(ret=serve_forever(
+        eng, port=0, reload_period_s=period, drain_timeout_s=10.0,
+        ready_fn=lambda h: box.update(httpd=h))), daemon=True)
+    th.start()
+    _wait(lambda: "httpd" in box, "the server to bind", 60)
+    return box["httpd"], th, box
+
+
+def _stop_serving(httpd, th, box, eng):
+    """Shut the server of ``_serving`` down, its poll thread with it."""
+    httpd.shutdown()
+    th.join(timeout=120)
+    eng.close()
+    reloader = box.get("ret", (None, None))[1]
+    if th.is_alive() or (reloader is not None and reloader.is_alive()):
+        raise SmokeError("reload: the server or its poll thread did not stop")
+
+
+def reload_phase(tmp: str, card: str):
+    """Hot reload of ResNet-50 (``resnet50.conf`` with ``bn_eval =
+    running`` and ``integrity_probe = 1``) behind ``serve_forever``'s
+    poll thread: the swap under traffic, warm and memory, the breaker,
+    the canary, the same-round int8 sibling swap and K7 at ResNet-50's
+    int8 shapes.  Returns the ``reload`` line's numbers and K7's rows.
+    A ``serve: warmup failed`` line fails the phase."""
+    import torch
+
+    # the canary holds a forward to its bits: fix the math before the
+    # golden is recorded and leave it alone until the phase ends
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with _Tee("stdout") as tee:
+            out = _reload_phase(tmp, card)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    printed = "".join(tee.text)
+    if "serve: warmup failed" in printed:
+        raise SmokeError("reload: a warmup failed (the serve: warmup failed "
+                         "line above)")
+    return out
+
+
+def _reload_phase(tmp: str, card: str):
+    """The body of ``reload_phase``, under its math settings."""
+    import gc
+    import http.client
+
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.cli import LearnTask
+    from cxxnet_tpu_torch.nnet.quant import quant_artifact_path
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.ops.kernels import int8_gemm
+    from cxxnet_tpu_torch.serve import Engine
+    from cxxnet_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = cfgmod.parse_file(RESNET_CONF) + [
+        ("bn_eval", "running"), ("integrity_probe", "1"), ("dev", "gpu"),
+        ("seed", str(SEED)), ("silent", "1")]
+    side = int(dict(cfg)["input_shape"].split(",")[1])
+    mdir = os.path.join(tmp, "models")
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.init_model()
+    gen = torch.Generator(device=tr.device).manual_seed(SEED + 300)
+    task = LearnTask()
+    task.integrity_probe, task.name_model_dir, task.silent = 1, mdir, 1
+    _publish(task, tr, 1, 1, gen)
+    man = ckpt.read_manifest(os.path.join(mdir, "0001.model"))
+    log(f"reload: round 1 written with the probe block {man['probe']}")
+
+    eng = Engine(cfg=cfg, model_dir=mdir, max_batch_size=RESNET_BATCH,
+                 silent=False, reload_breaker_threshold=2,
+                 reload_breaker_cooldown_s=3600.0)
+    httpd, th, box = _serving(eng, RELOAD_PERIOD_S)
+    out = {"card": card}
+    try:
+        port = httpd.server_port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        bodies = {b: _rows(n, side, SEED + 400 + n)
+                  for b, n in RELOAD_BUCKETS.items()}
+        big = max(bodies)
+
+        def answers():
+            return {b: _wire_scores(conn, x, RELOAD_NODE)
+                    for b, x in bodies.items()}
+
+        ans1 = answers()  # the warm-up of buckets 1, 32 and 128
+        ans1 = answers()
+        # traffic through the swap: round 2 lands while 1- and 32-row
+        # frames keep coming
+        traffic = {b: bodies[b] for b in RELOAD_TRAFFIC}
+        with _Traffic(port, traffic) as cl:
+            time.sleep(RELOAD_STEADY_S)
+            t_pub = time.perf_counter()
+            _publish(task, tr, 2, 2, gen)
+            _wait(lambda: eng.round == 2, "round 2 to swap in")
+            t_swap = time.perf_counter()
+            _swapped(eng, 1)
+            time.sleep(RELOAD_STEADY_S)
+        if cl.errors:
+            raise SmokeError(f"reload: requests failed through the swap: "
+                             f"{cl.errors}")
+        ans2 = answers()
+        if not all(np.isfinite(a).all() for a in (*ans1.values(),
+                                                   *ans2.values())):
+            raise SmokeError("reload: rounds 1 and 2 answer non-finite scores")
+        olds = news = 0
+        for _, _, b, got in cl.log:
+            if np.array_equal(got, ans1[b]):
+                olds += 1
+            elif np.array_equal(got, ans2[b]):
+                news += 1
+            else:
+                raise SmokeError(
+                    f"reload: a {b}-bucket answer through the swap is neither"
+                    f" round 1's nor round 2's (max abs difference "
+                    f"{float(np.abs(got - ans1[b]).max()):.3g} and "
+                    f"{float(np.abs(got - ans2[b]).max()):.3g})")
+        steady = [ms for t0, ms, _, _ in cl.log if t0 < t_pub]
+        window = [ms for t0, ms, _, _ in cl.log
+                  if t_pub <= t0 <= t_swap + RELOAD_PERIOD_S]
+        out.update(reload_s=eng.last_reload_s, requests=len(cl.log),
+                   answers_round1=olds, answers_round2=news,
+                   steady_p50_ms=statistics.median(steady),
+                   swap_max_ms=max(window) if window else None,
+                   publish_to_swap_s=t_swap - t_pub)
+        log(f"reload: round 2 swapped in {t_swap - t_pub:.3f}s after its "
+            f"write (load and warm {eng.last_reload_s:.3f}s); "
+            f"{len(cl.log)} requests through it, none failed, {olds} "
+            f"answered by round 1 and {news} by round 2, bit-equal; steady "
+            f"p50 {out['steady_p50_ms']:.2f} ms, slowest in the swap window "
+            f"{out['swap_max_ms']} ms ({card})")
+        if not (olds and news):
+            raise SmokeError("reload: the traffic did not straddle the swap")
+        with Engine(cfg=cfg, model_in=os.path.join(mdir, "0002.model"),
+                    max_batch_size=RESNET_BATCH) as fresh:
+            for b, x in bodies.items():
+                if not np.array_equal(fresh.extract(x, RELOAD_NODE), ans2[b]):
+                    raise SmokeError(f"reload: bucket {b} after the swap is "
+                                     "not bit-equal to Engine(model_in="
+                                     "0002.model)")
+        log("reload: buckets 1, 32 and 128 after the swap bit-equal to a "
+            "fresh Engine(model_in=0002.model)")
+        cc = eng.snapshot_stats()["compile_cache"]
+        answers()
+        cc2 = eng.snapshot_stats()["compile_cache"]
+        log(f"reload: the cache after the swap {cc}, after one request a "
+            f"bucket {cc2}")
+        if cc2["misses"] != cc["misses"]:
+            raise SmokeError("reload: a warmed bucket missed after the swap")
+
+        # memory: three more reloads, each releasing its predecessor; read
+        # under the engine's reload lock, so that no canary forward on the
+        # poll thread (its activations, cuDNN's workspace) is in flight
+        def resident():
+            with eng._reload_lock:
+                gc.collect()
+                torch.cuda.synchronize()
+                return torch.cuda.memory_allocated()
+
+        model_bytes = eng.snapshot_stats()["model"]["weight_bytes"]
+        mem = [resident()]
+        for r in (3, 4, 5):
+            _publish(task, tr, r, 1, gen)
+            _swapped(eng, r - 1)
+            mem.append(resident())
+        out.update(memory_bytes=mem, model_bytes=model_bytes)
+        log(f"reload: torch.cuda.memory_allocated after rounds 2-5 {mem} "
+            f"(one model's weights {model_bytes} bytes)")
+        if max(abs(m - mem[0]) for m in mem) > model_bytes:
+            raise SmokeError("reload: device memory grew by more than one "
+                             "model over three reloads")
+        st = eng.snapshot_stats()
+        if not (st["last_reload_ok"] is True and st["reload_swaps"] == 4):
+            raise SmokeError(f"reload: /statsz after the good rounds "
+                             f"{ {k: st[k] for k in ('reload_attempts', 'reload_failures', 'reload_swaps', 'last_reload_ok')} }")
+
+        # the breaker: a CRC-valid garbage round fails two polls
+        ans5 = answers()
+        if not all(np.isfinite(a).all() for a in ans5.values()):
+            raise SmokeError("reload: round 5 answers non-finite features")
+        ckpt.write_checkpoint(os.path.join(mdir, "0006.model"),
+                              b"not a model" * 4096, round_=6)
+        _wait(lambda: eng.reload_breaker.state == "open",
+              "the breaker to open")
+        h = _request(port, "/healthz")
+        st = _request(port, "/statsz")
+        log(f"reload: garbage round 6: healthz {h['status']} "
+            f"{h['reasons']}, breaker {st['reload_breaker']}, "
+            f"reload_failures {st['reload_failures']}")
+        if (h["status"] != "degraded" or h["reasons"] != [
+                "reload_breaker_open"] or h["round"] != 5
+                or st["reload_failures"] != 2):
+            raise SmokeError(f"reload: the breaker did not open as "
+                             f"expected: {h}")
+        diff = {b: float(np.abs(a - ans5[b]).max())
+                for b, a in answers().items()}
+        if any(diff.values()):
+            raise SmokeError(f"reload: round 5 changed its answers while the "
+                             f"breaker was open (max abs difference by "
+                             f"bucket {diff})")
+        _publish(task, tr, 7, 1, gen)
+        eng.reload_breaker.cooldown_s = 0.0
+        _swapped(eng, 5)
+        h = _request(port, "/healthz")
+        st = _request(port, "/statsz")
+        z = json.loads(_post_on(conn, "/reloadz", b"", "application/json")[1])
+        log(f"reload: round 7 through the half-open trial: healthz "
+            f"{h['status']} {h['reasons']}, last_reload_ok "
+            f"{st['last_reload_ok']}; POST /reloadz {z}")
+        if (h["status"] != "ok" or h["reasons"] or st["last_reload_ok"]
+                is not True or z["swapped"] or z["round"] != 7
+                or z["breaker"] != "closed"):
+            raise SmokeError("reload: no recovery through the half-open trial")
+
+        # the canary under traffic
+        with _Traffic(port, traffic) as cl:
+            clean = [eng.check_canary() for _ in range(CANARY_RUNS)]
+        integ = eng.snapshot_stats()["integrity"]
+        if cl.errors or not all(clean) or integ["failed"]:
+            raise SmokeError(f"reload: canary under traffic {clean}, "
+                             f"{integ}, errors {cl.errors}")
+        # the poll thread runs the canary too: hold the reload lock so it
+        # cannot take the injected fault or clear the latch in between
+        with eng._reload_lock:
+            eng.inject_canary_mismatch = 1
+            tripped = eng.check_canary()
+            h_bad = _request(port, "/healthz")
+        cleared = eng.check_canary()
+        h_ok = _request(port, "/healthz")
+        out.update(canary_src=integ["golden_src"], canary_runs=integ["runs"])
+        log(f"reload: canary {CANARY_RUNS} runs under {len(cl.log)} "
+            f"requests, all clean; golden {integ['golden_crc32']:#010x} "
+            f"src {integ['golden_src']}; injected drift -> {h_bad['status']}"
+            f" {h_bad['reasons']}; next run clean -> {h_ok['status']}")
+        if (tripped or h_bad["reasons"] != ["integrity_failed"]
+                or h_bad["status"] != "degraded" or not cleared
+                or h_ok["status"] != "ok"):
+            raise SmokeError("reload: the canary's drift did not degrade and "
+                             "clear /healthz")
+        f32_big = eng.scores(bodies[big])
+        conn.close()
+    finally:
+        _stop_serving(httpd, th, box, eng)
+
+    # the same-round int8 sibling swap
+    path7 = os.path.join(mdir, "0007.model")
+    qeng = Engine(cfg=cfg + [("quant", "int8")], model_dir=mdir,
+                  max_batch_size=RESNET_BATCH, silent=False)
+    httpd, th, box = _serving(qeng, RELOAD_PERIOD_S)
+    try:
+        if (qeng.model_path, qeng.quant_scheme) != (path7, "int8"):
+            raise SmokeError(f"reload: the int8 engine serves "
+                             f"{qeng.model_path} {qeng.quant_scheme}")
+        port = httpd.server_port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        _wire_scores(conn, bodies[big])  # the largest bucket, quantized
+        verdict = _export_quant(RESNET_CONF, path7, "bn_eval=running")
+        if not verdict["ok"]:
+            log("reload: the gate rejected (random weights); exporting "
+                "ungated (quant_min_agreement=0)")
+            verdict = _export_quant(RESNET_CONF, path7, "bn_eval=running",
+                                    "quant_min_agreement=0")
+        qpath = quant_artifact_path(path7)
+        _wait(lambda: qeng.model_path == qpath, "the int8 sibling to swap in")
+        if qeng.round != 7:
+            raise SmokeError(f"reload: the sibling swap moved the round to "
+                             f"{qeng.round}")
+        probe = NetTrainer()
+        probe.set_params(cfg + [("dev", "cpu"), ("batch_size", "1")])
+        probe.init_model()
+        calls = int8_calls(probe, RESNET_INT8_LAYERS, "ResNet-50")
+        del probe
+        demoted = [k for k in verdict["fallbacks"] if k in calls]
+        want = sorted(mko for k, mko in calls.items() if k not in demoted)
+        per = {**RESNET_PER_FORWARD, "int8_gemm": len(want)}
+        seen = []
+        rescale = int8_gemm.int8_gemm_rescale
+
+        def named(x, q, *a, **k):
+            seen.append((x.shape[0], x.shape[1], q.shape[0]))
+            return rescale(x, q, *a, **k)
+
+        # the main path: counts at 0 just before, read just after
+        int8_gemm.int8_gemm_rescale = named
+        try:
+            for k in KERNELS:
+                k.reset_counts()
+            paths0 = _by_symbol()
+            q_big = _wire_scores(conn, bodies[big])
+            launches = {k.name: k.launches for k in KERNELS}
+            paths = _paths_since(paths0)
+        finally:
+            int8_gemm.int8_gemm_rescale = rescale
+        log(f"reload: int8 b{big} forward after the sibling swap: launches "
+            f"{launches}; by C entry {paths}; K7 by shape (M, K, O) "
+            f"{sorted(seen)}")
+        if (launches != {**{k.name: 0 for k in KERNELS}, **per}
+                or paths != _main_paths(per) or sorted(seen) != want):
+            raise SmokeError(f"reload: the int8 forward launched {launches} "
+                             f"{paths}, K7 at {sorted(seen)}; expected "
+                             f"{per}, K7 at {want}")
+        agree = float((q_big.argmax(1) == f32_big.argmax(1)).mean())
+        st = _request(port, "/statsz")["model"]
+        ratio = st["weight_bytes_f32"] / st["weight_bytes"]
+        out.update(int8_top1_agreement=agree, int8_bytes_ratio=ratio,
+                   int8_k7_launches=len(seen), int8_gated=verdict["ok"])
+        log(f"reload: int8 sibling of round 7 ({verdict['int8_layers']} int8"
+            f" + {verdict['bf16_layers']} bf16 layers): top-1 agreement with "
+            f"the f32 engine at b{big} {agree:.4f}; weight bytes at rest "
+            f"{st['weight_bytes']} of {st['weight_bytes_f32']} f32, ratio "
+            f"{ratio:.3f}; /statsz last_reload_ok "
+            f"{_request(port, '/statsz')['last_reload_ok']}")
+        if not (ratio >= QUANT_MIN_RATIO and np.isfinite(q_big).all()
+                and q_big.shape == (RELOAD_BUCKETS[big], 1000)):
+            raise SmokeError(f"reload: int8 bytes ratio {ratio:.3f} or "
+                             "answers out of shape")
+        if verdict["ok"] and agree < RESNET_INT8_MIN_AGREE:
+            raise SmokeError(f"reload: a gated int8 model agrees {agree} with "
+                             f"the f32 one, under {RESNET_INT8_MIN_AGREE}")
+        conn.close()
+    finally:
+        _stop_serving(httpd, th, box, qeng)
+
+    # K7 at ResNet-50's int8 shapes, each distinct shape once
+    distinct = {}
+    for key, mko in calls.items():
+        distinct.setdefault(mko, key)
+    rows = check_int8({key: mko for mko, key in distinct.items()},
+                      torch.device("cuda:0"), ragged=False)
+    k7 = []
+    for r in rows:
+        if r["dtype"] != "bfloat16":
+            continue
+        m, k, o = (int(v[1:]) for v in r["shape"].split())
+        n = sum(1 for mko in want if mko == (m, k, o))
+        k7.append({"shape": r["shape"], "layers": n,
+                   "launches_per_forward": n, "ms": r["ms"],
+                   "library_ms": r["library_ms"], "plain_ms": r["plain_ms"],
+                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                   "max_abs_err": r["max_abs_err"],
+                   "mma_sync_ms": r["mma_sync_ms"], "splits": r["splits"]})
+    out["k7_forward_ms"] = sum(r["ms"] * r["layers"] for r in k7)
+    out["k7_library_ms"] = sum(r["library_ms"] * r["layers"] for r in k7)
+    out["k7_bound_ms"] = sum(r["bound_ms"] * r["layers"] for r in k7)
+    log(f"reload: K7 over one int8 b{BATCH} forward's {len(want)} launches "
+        f"{out['k7_forward_ms']:.4f} ms (F.linear {out['k7_library_ms']:.4f}"
+        f", bound {out['k7_bound_ms']:.4f}) ({card})")
+    return out, k7
+
+
+# ----------------------------------------------------------------------
 # MNIST: MNIST_CONV.conf at full width, its tasks, digits to accuracy
 
 
@@ -3695,27 +4446,29 @@ iter = end
 """
 
 
-class _TeeStderr:
-    """``sys.stderr`` and a copy of what is written to it (the CLI's
-    evaluation lines)."""
+class _Tee:
+    """``sys.stderr`` (the CLI's evaluation lines) or ``sys.stdout`` (the
+    engine's and the CLI's printed lines) and a copy of what is written
+    to it."""
 
-    def __init__(self):
+    def __init__(self, stream: str = "stderr"):
         self.text = []
-        self._err = sys.stderr
+        self._name = stream
+        self._orig = getattr(sys, stream)
 
     def write(self, s):
         self.text.append(s)
-        return self._err.write(s)
+        return self._orig.write(s)
 
     def flush(self):
-        self._err.flush()
+        self._orig.flush()
 
     def __enter__(self):
-        sys.stderr = self
+        setattr(sys, self._name, self)
         return self
 
     def __exit__(self, *exc):
-        sys.stderr = self._err
+        setattr(sys, self._name, self._orig)
 
 
 def _eval_errors(text: str):
@@ -3957,7 +4710,7 @@ def digits_phase(tmp: str, card: str):
     torch.backends.cudnn.deterministic = True
     try:
         t0 = time.perf_counter()
-        with _TeeStderr() as tee:
+        with _Tee() as tee:
             _, tr, steps, losses, marks = _run_train_task(
                 [DIGITS_CONF, "dev=tpu", "print_step=0"])
         wall = time.perf_counter() - t0
@@ -4074,6 +4827,7 @@ def main() -> int:
             train_launches, mdir, cfg = train_phase(tmp)
             parity_phase(cfg, mdir)
             conf_rates_phase(cfg, mdir)
+            guard = guard_phase(tmp, mdir, cfg)
             rate_phase(cfg, mdir)
         flash_rows = check_flash(dev)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
@@ -4090,9 +4844,17 @@ def main() -> int:
             rate_phase(cfg, mdir, RESNET_PER_STEP, "ResNet-50")
         resnet_updater_phase(dev)
         log(json.dumps(resnet_line(rrows, r_serve, r_train)))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_reload_") as tmp:
+            reload_out, k7_rows = reload_phase(tmp, card)
+        log(json.dumps({"reload": reload_out}))
+        log(json.dumps({"resnet50_int8_k7": {"card": card, "rows": k7_rows}}))
         mrows = mnist_kernels(dev)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_") as tmp:
             m_counts = mnist_phase(tmp, card)
+            guard["mnist_rollbacks"] = {
+                k: v for (k, where), v in mnist_guard_phase(tmp, card).items()
+                if where == "gpu"}
+        log(json.dumps({"guard": dict(guard, card=card)}))
         with tempfile.TemporaryDirectory(prefix="chip_smoke_digits_") as tmp:
             d_counts = digits_phase(tmp, card)
         log(json.dumps(mnist_line(mrows, m_counts, d_counts, card)))

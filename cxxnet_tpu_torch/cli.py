@@ -18,6 +18,15 @@ current batch, snapshot and exit 0.  ``scan_steps = N`` (a device
 program of N steps in the JAX package) runs N single steps here, which
 is the same math.  ``save_ustate = 1`` writes the updater state into
 each checkpoint, so ``continue = 1`` (or ``model_in``) resumes exactly.
+``integrity_probe = 1`` commits the serving canary's probe batch and its
+golden score CRC into each checkpoint's manifest (``probe``).
+``divergence_policy = abort|rollback`` arms the trainer's loss guard
+(``divergence_loss_ratio`` adds the finite spike gate): ``abort`` stops
+the run on a trip (``DIVERGENCE: ...``, a non-zero exit); ``rollback``
+reloads the newest valid checkpoint whose weights are finite, multiplies
+the learning rates by ``divergence_lr_backoff`` (0.5) once more, and
+runs the round again, at most ``divergence_max_retries`` (3) times in a
+row.
 ``example/ImageNet/resnet{50,101,152}.conf`` train as they stand
 (``batch_norm`` with ``bn_stats`` / ``bn_eval`` / ``bn_momentum``, the
 ``synthetic`` sections, ``metric = rec@1`` / ``rec@5``), and so do the
@@ -47,7 +56,12 @@ valid one in ``model_dir``) into an
 ``serve_host:serve_port`` (``serve_port = 0`` picks an ephemeral port,
 printed on startup).  SIGTERM/SIGINT drain: the server stops accepting,
 in-flight requests get up to ``drain_timeout_s`` to finish, queued ones
-fail with 503, and the process exits 0.
+fail with 503, and the process exits 0.  ``serve_reload_period = S > 0``
+polls ``model_dir`` every S seconds and hot-reloads a newer round
+behind the reload breaker (``reload_breaker_threshold``,
+``reload_breaker_cooldown_s``); ``POST /reloadz`` makes one attempt on
+demand; ``integrity_probe = 1`` runs the golden canary on the same
+period.
 
 ``task=generate``: samples ``gen_len`` bytes continuing ``gen_prompt``
 (or the bytes of ``gen_prompt_file``, read only by this task) from the
@@ -69,10 +83,10 @@ exits 0 on publish, 3 on reject (nothing written).  ``task=serve
 quant=int8`` then serves the artifact.
 
 The tasks ``serve_train``, ``loop_fleet`` and ``data_service``, the
-serving fleet (``replicas >= 2``), hot reload (``serve_reload_period``),
-the tuner (``controller``), the divergence guard and the elastic,
-integrity and telemetry planes of training are later slices
-(ROADMAP.md) and raise ``NotImplementedError`` naming the item.
+serving fleet (``replicas >= 2``), the tuner (``controller``) and the
+elastic, telemetry and integrity planes of training (but the probe) are
+later slices (ROADMAP.md) and raise ``NotImplementedError`` naming the
+item.
 """
 
 from __future__ import annotations
@@ -94,8 +108,7 @@ _LATER = {
 _TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "summary",
           "serve", "generate", "export_quant")
 # train keys of planes this slice does not port: refused when switched on
-_TRAIN_LATER = ("integrity_every", "integrity_shadow", "integrity_probe",
-                "test_on_server", "telemetry", "elastic", "elastic_join",
+_TRAIN_LATER = ("integrity_every", "integrity_shadow", "test_on_server", "telemetry", "elastic", "elastic_join",
                 "test_io")
 
 
@@ -113,6 +126,12 @@ class LearnTask:
         self.start_counter = 0
         self.continue_training = 0
         self.save_period = 1
+        self.divergence_policy = ""  # "" off | abort | rollback
+        self.divergence_lr_backoff = 0.5
+        self.divergence_max_retries = 3
+        self._divergence_retries = 0
+        self._lr_scale = 1.0
+        self.integrity_probe = 0  # 1: commit the canary's probe at save
         self.print_step = 100
         self.net_trainer = None
         self.itr_train = None
@@ -127,6 +146,9 @@ class LearnTask:
         self.queue_limit = 128
         self.serve_deadline_ms = 0.0
         self.drain_timeout_s = 5.0
+        self.serve_reload_period = 0.0  # seconds; 0: no hot reload
+        self.reload_breaker_threshold = 3
+        self.reload_breaker_cooldown_s = 30.0
         self.watchdog_timeout_s = 600.0
         self.gen_prompt = ""
         self.gen_prompt_file = ""
@@ -162,6 +184,14 @@ class LearnTask:
             self.save_period = int(val)
         elif name == "print_step":
             self.print_step = int(val)
+        elif name == "divergence_policy":
+            self.divergence_policy = "" if val == "off" else val
+        elif name == "divergence_lr_backoff":
+            self.divergence_lr_backoff = float(val)
+        elif name == "divergence_max_retries":
+            self.divergence_max_retries = int(val)
+        elif name == "integrity_probe":
+            self.integrity_probe = int(val)
         elif name in _TRAIN_LATER and val not in ("", "0"):
             raise NotImplementedError(
                 f"{name}={val}: this plane of task=train is not ported yet "
@@ -192,10 +222,12 @@ class LearnTask:
             raise NotImplementedError(
                 "replicas >= 2: the serving fleet is not ported yet "
                 "(ROADMAP.md queue A item 1, serving features)")
-        elif name == "serve_reload_period" and float(val) > 0:
-            raise NotImplementedError(
-                "serve_reload_period > 0: hot reload is not ported yet "
-                "(ROADMAP.md queue A item 1, serving features)")
+        elif name == "serve_reload_period":
+            self.serve_reload_period = float(val)
+        elif name == "reload_breaker_threshold":
+            self.reload_breaker_threshold = int(val)
+        elif name == "reload_breaker_cooldown_s":
+            self.reload_breaker_cooldown_s = float(val)
         elif name == "controller" and int(val):
             raise NotImplementedError(
                 "controller=1: the serving tuner is not ported yet "
@@ -273,6 +305,17 @@ class LearnTask:
 
         tr = NetTrainer()
         tr.set_params(self.cfg)
+        return tr
+
+    def _load_trainer(self, path: str):
+        """A fresh trainer with ``path`` loaded, transient I/O retried
+        under the ``retry_*`` keys (the serving engine's policy)."""
+        from .utils.faults import RetryPolicy
+
+        tr = self._create_trainer()
+        RetryPolicy.from_cfg(self.cfg).run(
+            lambda: tr.load_model(path), what=f"loading {path}",
+            silent=bool(self.silent))
         return tr
 
     def _net_fingerprint(self) -> Optional[str]:
@@ -369,6 +412,28 @@ class LearnTask:
             if it is not None:
                 it.close()
 
+    def _probe_block(self) -> Optional[dict]:
+        """The canary's manifest ``probe`` block (``integrity_probe =
+        1``): the probe batch's spec and, for an unquantized model, the
+        CRC of its scores, padded to its bucket and scored as the
+        serving engine scores it, so the golden binds an engine on the
+        same backend."""
+        if not self.integrity_probe or self.net_trainer is None:
+            return None
+        from .integrity import canary
+        from .serve.cache import ShapeBucketCache
+
+        tr = self.net_trainer
+        rows = max(1, min(int(tr.batch_size) or 8, 8))
+        shape = tuple(tr.net.input_node_shape(tr.batch_size))[1:]
+        seed = 0xC0FFEE ^ int(tr.seed or 0)
+        crc = None
+        if not tr.quant_scheme:
+            probe = canary.probe_batch(seed, rows, shape)
+            crc = canary.scores_crc(ShapeBucketCache(tr).scores(probe))
+        return canary.make_probe_block(seed, rows, shape, crc,
+                                       canary.backend_of(tr.device))
+
     def _save_model(self, force: bool = False) -> bool:
         """Write ``<start_counter>.model`` (every ``save_model`` rounds,
         or now when ``force``) and advance the round counter."""
@@ -379,11 +444,12 @@ class LearnTask:
                 not force and self.start_counter % self.save_period != 0):
             return False
         os.makedirs(self.name_model_dir, exist_ok=True)
-        self.net_trainer.save_model(path, round_=round_)
+        self.net_trainer.save_model(path, round_=round_,
+                                    probe=self._probe_block())
         return True
 
     def task_train(self) -> None:
-        from .utils.checkpoint import PreemptionHandler
+        from .utils.checkpoint import DivergenceError, PreemptionHandler
 
         self.init_train()
         t_start = time.time()
@@ -398,11 +464,19 @@ class LearnTask:
             if self.itr_train is None:
                 return
             preempt = PreemptionHandler().install()
+            self._divergence_retries, self._lr_scale = 0, 1.0
             try:
                 budget = self.max_round
                 while self.start_counter <= self.num_round and budget > 0:
                     budget -= 1
-                    completed = self._train_one_round(preempt, t_start)
+                    try:
+                        completed = self._train_one_round(preempt, t_start)
+                    except DivergenceError as e:
+                        if self._handle_divergence(e):
+                            budget += 1  # the aborted attempt keeps its budget
+                            continue
+                        raise
+                    self._divergence_retries = 0  # a round completed
                     if not completed or preempt.requested:
                         last = self.start_counter - 1
                         if self._save_model(force=True):
@@ -421,6 +495,55 @@ class LearnTask:
                       "in all")
         finally:
             self._close_iterators()
+
+    def _handle_divergence(self, e) -> bool:
+        """The response to a guard trip under ``divergence_policy``.
+        ``rollback``: a fresh trainer from the newest valid checkpoint
+        whose weights are finite (falling back past poisoned ones), its
+        rates times the cumulative back-off, the round counter after
+        that checkpoint's round; at most ``divergence_max_retries``
+        times in a row.  True to go on training; False aborts (the
+        ``abort`` policy, or nothing left to try)."""
+        from .utils import checkpoint as ckpt
+
+        print(f"DIVERGENCE: {e}", flush=True)
+        if self.divergence_policy != "rollback":
+            return False
+        if self._divergence_retries >= self.divergence_max_retries:
+            print(f"divergence: giving up after {self._divergence_retries} "
+                  "consecutive rollbacks", flush=True)
+            return False
+        # an injected fault is one-shot: the rebuilt trainer must not
+        # arm it again
+        self.cfg = [(n, v) for n, v in self.cfg
+                    if n not in ("inject_nan_step", "inject_spike_step")]
+        bound = None  # exclusive upper round bound while falling back
+        while True:
+            found = ckpt.find_latest_valid(
+                self.name_model_dir, net_fp=self._net_fingerprint(),
+                silent=bool(self.silent), before=bound)
+            if found is None:
+                print("divergence: no valid checkpoint to roll back to",
+                      flush=True)
+                return False
+            round_, path = found
+            tr = self._load_trainer(path)
+            if tr.weights_finite():
+                break
+            print(f"divergence: checkpoint {path} carries non-finite "
+                  "weights; falling back past it", flush=True)
+            bound = round_
+        self._divergence_retries += 1
+        if self.divergence_lr_backoff != 1.0:
+            self._lr_scale *= self.divergence_lr_backoff
+            tr.scale_learning_rate(self._lr_scale)
+        self.net_trainer = tr
+        self.start_counter = round_ + 1
+        print(f"divergence: rolled back to round {round_} ({path}), "
+              f"lr scale now {self._lr_scale:g} "
+              f"(retry {self._divergence_retries}/"
+              f"{self.divergence_max_retries})", flush=True)
+        return True
 
     def _train_one_round(self, preempt, t_start: float) -> bool:
         """One pass over the data section; False when a preemption
@@ -624,6 +747,8 @@ class LearnTask:
             queue_limit=self.queue_limit,
             default_deadline_ms=self.serve_deadline_ms,
             silent=bool(self.silent),
+            reload_breaker_threshold=self.reload_breaker_threshold,
+            reload_breaker_cooldown_s=self.reload_breaker_cooldown_s,
             watchdog_timeout_s=self.watchdog_timeout_s,
         )
         httpd_box = {}
@@ -649,6 +774,7 @@ class LearnTask:
                 for s in (signal.SIGTERM, signal.SIGINT)}
         try:
             serve_forever(engine, host=self.serve_host, port=self.serve_port,
+                          reload_period_s=self.serve_reload_period,
                           drain_timeout_s=self.drain_timeout_s,
                           verbose=not self.silent, ready_fn=_ready)
         finally:

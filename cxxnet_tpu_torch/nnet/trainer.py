@@ -27,8 +27,21 @@ the old weights (``_invalidate_prepared``).
 updaters once per N micro-batches, to the sum; ``epoch_counter``, the
 updaters' schedule clock, advances only then, while the layer state
 (batch norm's running statistics) and the train metrics update on every
-micro-batch, as in the JAX package.  The divergence guard and
-multi-device training raise ``NotImplementedError`` (ROADMAP.md).
+micro-batch, as in the JAX package.  Multi-device training raises
+``NotImplementedError`` (ROADMAP.md).
+
+The divergence guard (``divergence_policy = abort|rollback``; off by
+default) reads each micro-batch's loss back to the host, one sync a
+step, and raises :class:`~..utils.checkpoint.DivergenceError` on a
+non-finite loss or, with ``divergence_loss_ratio``, on a finite loss
+past that ratio times the median of the last 32 (armed after 8).  As in
+the JAX package it reads the loss after the update when
+``update_period == 1`` (so the weights a trip leaves are poisoned, and
+the CLI's rollback reloads), and before the micro-batch's gradient
+joins the sum on the accumulation path.  ``inject_nan_step`` /
+``inject_spike_step`` turn the loss at that update into a NaN or a
+finite spike once.  The response (abort, or rollback with a learning
+rate back-off) is the CLI's (``cli.py``).
 
 Quantized models (``nnet/quant.py``): a checkpoint whose header carries
 ``quant`` loads as it was exported (int8 codes stay int8, bf16 kernels
@@ -58,7 +71,7 @@ from ..io.data import DataBatch
 from ..ops import kernels as _klib
 from ..updater import Updater, apply_all, create_updater
 from ..utils import checkpoint as ckpt
-from ..utils.checkpoint import MODEL_MAGIC
+from ..utils.checkpoint import MODEL_MAGIC, DivergenceError
 from ..utils.metric import MetricSet
 from .graph import NetGraph
 from .net import FunctionalNet
@@ -137,6 +150,11 @@ class NetTrainer:
         self.quant_scheme = ""  # "int8" / "bf16": inference-only params
         self.quant_plan: Optional[Dict[str, str]] = None
         self._quant_requested = ""
+        self.divergence_policy = ""  # "" off | "abort" | "rollback"
+        self.divergence_loss_ratio = 0.0  # the finite spike gate; 0 off
+        self.inject_nan_step = -1  # fault injection (tests): NaN once
+        self.inject_spike_step = -1  # fault injection (tests): spike once
+        self._loss_window: List[float] = []  # recent finite losses
 
     # ------------------------------------------------------------------
     def set_param(self, name: str, val: str) -> None:
@@ -150,10 +168,23 @@ class NetTrainer:
             self.save_ustate = int(val)
         elif name == "silent":
             self.silent = int(val)
-        elif name == "divergence_policy" and val not in ("", "off"):
-            raise NotImplementedError(
-                f"divergence_policy={val}: the divergence guard is not "
-                "ported yet (ROADMAP.md queue A item 5)")
+        elif name == "divergence_policy":
+            # the loss guard; the response lives in the CLI,
+            # which catches DivergenceError
+            if val not in ("", "off", "abort", "rollback"):
+                raise ValueError(
+                    f"divergence_policy={val!r}: must be abort or rollback")
+            self.divergence_policy = "" if val == "off" else val
+        elif name == "divergence_loss_ratio":
+            r = float(val)
+            if r and r <= 1.0:
+                raise ValueError(f"divergence_loss_ratio={val}: must be > 1 "
+                                 "(or 0 to disable)")
+            self.divergence_loss_ratio = r
+        elif name == "inject_nan_step":
+            self.inject_nan_step = int(val)
+        elif name == "inject_spike_step":
+            self.inject_spike_step = int(val)
         elif name == "seed":
             self.seed = int(val)
         elif name == "dev":
@@ -364,8 +395,9 @@ class NetTrainer:
         return ckpt.net_fingerprint(self.graph.structure_to_json())
 
     def save_model(self, path: str, round_: Optional[int] = None,
-                   manifest: bool = True) -> None:
-        """Atomic checkpoint write plus the sidecar manifest."""
+                   manifest: bool = True, probe: Optional[dict] = None) -> None:
+        """Atomic checkpoint write plus the sidecar manifest (with the
+        canary's ``probe`` block when given)."""
         blob = self.checkpoint_bytes()
         if manifest:
             quant = None
@@ -377,7 +409,7 @@ class NetTrainer:
                          "bf16_layers": kinds.count("bf16")}
             ckpt.write_checkpoint(
                 path, blob, round_=self.round if round_ is None else round_,
-                net_fp=self.net_fp(), quant=quant)
+                net_fp=self.net_fp(), quant=quant, probe=probe)
         else:
             ckpt.atomic_write_bytes(path, blob)
 
@@ -618,6 +650,10 @@ class NetTrainer:
         self.last_loss = loss.detach()
         apply = True
         if self.update_period > 1:
+            if self.divergence_policy:
+                # the accumulation path: a tripped micro-batch's gradient
+                # never joins the sum
+                self._guard_loss(self.last_loss, self.epoch_counter)
             with torch.no_grad():
                 if self._grad_accum is None:
                     self._grad_accum = grads
@@ -635,6 +671,9 @@ class NetTrainer:
                           self.epoch_counter)
             self._invalidate_prepared()
             self._grad_accum, self.sample_counter = None, 0
+        if self.update_period == 1 and self.divergence_policy:
+            # after the update, as the JAX package's fused step reads it
+            self._guard_loss(self.last_loss, self.epoch_counter)
         if self.eval_train:
             base = out.float().cpu().numpy()[:n_real]
             cache = {None: base, **node_cache}
@@ -646,6 +685,70 @@ class NetTrainer:
                                        self._label_ranges())
         if apply:
             self.epoch_counter += 1
+
+    # ------------------------------------------------------------------
+    # the divergence guard
+    def _guard_loss(self, loss: torch.Tensor, epoch: int) -> None:
+        """Read the step's loss back (the guard's one host sync) and raise
+        :class:`DivergenceError` on a non-finite value, then run the
+        spike gate.  ``inject_nan_step`` / ``inject_spike_step`` make the
+        loss at that update read as NaN / a finite spike, once."""
+        v = np.float64(float(loss))
+        if self.inject_nan_step == epoch:
+            self.inject_nan_step = -1  # one-shot: a transient fault
+            v = np.float64(np.nan)
+        if self.inject_spike_step == epoch:
+            self.inject_spike_step = -1  # one-shot: a transient spike
+            v = max(abs(v), 1.0) * 1e6  # finite, past any ratio gate
+        arr = np.asarray([v])
+        if not np.isfinite(v):
+            raise DivergenceError(
+                f"divergence guard: non-finite loss {v!r} at update {epoch} "
+                f"(round {self.round}, policy "
+                f"{self.divergence_policy or 'abort'})", loss=arr, epoch=epoch)
+        self._guard_loss_ratio(arr, epoch)
+
+    _SPIKE_WINDOW = 32  # rolling finite-loss history length
+    _SPIKE_MIN_SAMPLES = 8  # the gate stays disarmed until this many
+
+    def _guard_loss_ratio(self, arr: np.ndarray, first_epoch: int) -> None:
+        """``divergence_loss_ratio``: a finite loss above ratio x the
+        rolling median of recent finite losses trips too.  The step is
+        the unit.  A spike never enters the history (a blow-up must not
+        raise the median that judges it); the window rides the trainer,
+        so a rollback's fresh trainer starts disarmed."""
+        ratio = self.divergence_loss_ratio
+        if not ratio:
+            return
+        hist = self._loss_window
+        for i, v in enumerate(arr):
+            v = float(v)
+            if len(hist) >= self._SPIKE_MIN_SAMPLES:
+                med = float(np.median(hist))
+                if abs(v) > ratio * max(abs(med), 1e-12):
+                    epoch = first_epoch + i
+                    raise DivergenceError(
+                        f"divergence guard: finite loss spike {v:g} > "
+                        f"{ratio:g} x rolling median {med:g} at update "
+                        f"{epoch} (round {self.round}, policy "
+                        f"{self.divergence_policy or 'abort'})",
+                        loss=arr, epoch=epoch)
+            hist.append(v)
+            if len(hist) > self._SPIKE_WINDOW:
+                del hist[0]
+
+    def weights_finite(self) -> bool:
+        """True when no parameter holds a NaN or an Inf: a CRC-valid
+        checkpoint can still carry a blow-up (the last update of its
+        round went non-finite after that round's losses were read)."""
+        return all(bool(torch.isfinite(w).all())
+                   for tags in self.params.values() for w in tags.values())
+
+    def scale_learning_rate(self, factor: float) -> None:
+        """Multiply every updater's base learning rate by ``factor`` (the
+        rollback's back-off)."""
+        for up in self.updaters.values():
+            up.param.base_lr *= factor
 
     def update_all(self, data: np.ndarray, labels: np.ndarray) -> None:
         """numpy-in convenience (the wrapper API's batch update)."""

@@ -101,6 +101,12 @@ class ShapeBucketCache:
         node_id = self._trainer.resolve_feature_node(node_name)
         return self._run("extract", node_id, data)
 
+    def keys_snapshot(self) -> list:
+        """A copy of the keys served so far (the reload's warm list;
+        request threads keep adding keys while it is read)."""
+        with self._lock:
+            return list(self._keys)
+
     def stats(self) -> Dict[str, object]:
         with self._lock:
             return {"buckets": len(self._keys), "hits": self.hits,

@@ -22,10 +22,28 @@ Counterpart of ``cxxnet_tpu/serve/engine.py`` for this slice:
 * **the wire** — ``wire = binary`` (the default) lets the server
   negotiate the ``application/x-cxb`` frames of ``wire.py`` per request
   by Content-Type, beside JSON; ``wire = json`` turns the binary path
-  off (such frames get 400 ``wire_disabled``).
+  off (such frames get 400 ``wire_disabled``);
+* **hot reload** — :meth:`reload_if_newer` loads a newer valid
+  checkpoint of ``model_dir`` (or, under ``quant``, the gated
+  ``.quant.model`` sibling that appears for the round already serving)
+  into a fresh trainer, warms it at every bucket the old one served,
+  then swaps it in under the model lock: a batch in flight finishes on
+  the old model, the next runs on the new one, and nothing keeps the
+  old trainer alive.  :meth:`try_reload` puts it behind a
+  :class:`~..utils.faults.CircuitBreaker`: ``reload_breaker_threshold``
+  consecutive failures open it, the old model keeps serving and
+  ``/healthz`` turns ``degraded`` (``reload_breaker_open``) until a
+  trial after ``reload_breaker_cooldown_s`` succeeds;
+* **the golden canary** — under ``integrity_probe = 1`` the engine
+  scores the probe batch of the checkpoint's manifest at load
+  (``integrity/canary.py``) and :meth:`check_canary` holds every later
+  score of it to that CRC bit for bit; a drift degrades ``/healthz``
+  (``integrity_failed``) until a clean score or a reload.
 
-Hot reload, the canary, the reload breaker, the fleet/router and the
-tuner are later slices (ROADMAP.md).
+Where the JAX engine emits ``obs`` events (a reload, a rebased golden,
+a canary verdict), the port prints a line unless ``silent``, and the
+state shows in ``/statsz``; the events wait for the observability
+plane.  The fleet/router and the tuner are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,11 +56,13 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from .. import config as cfgmod
+from ..integrity import canary
 from ..nnet.graph import NetGraph
 from ..nnet.quant import quant_artifact_path
 from ..nnet.trainer import NetTrainer
 from ..ops import quant as opsq
 from ..utils import checkpoint as ckpt
+from ..utils.faults import CircuitBreaker, RetryPolicy
 from .batcher import ClosedError, MicroBatcher, ServeError
 from .cache import ShapeBucketCache
 from .metrics import ServingStats
@@ -71,7 +91,8 @@ class Engine:
 
     ``cfg`` carries the netconfig (checkpoints store structure; layer
     settings come from the conf) plus trainer globals (``dev`` etc.).
-    Exactly one model source: ``model_in``, ``model_dir`` or
+    Exactly one model source: ``model_in``, ``model_dir`` (the newest
+    valid checkpoint; also the hot-reload watch directory) or
     ``trainer``."""
 
     def __init__(
@@ -85,6 +106,8 @@ class Engine:
         queue_limit: int = 128,
         default_deadline_ms: float = 0.0,
         silent: bool = True,
+        reload_breaker_threshold: int = 3,
+        reload_breaker_cooldown_s: float = 30.0,
         watchdog_timeout_s: float = 600.0,
     ) -> None:
         self._cfg = _parse_cfg(cfg)
@@ -94,6 +117,8 @@ class Engine:
         # validates the value
         self.quant = ""
         self.wire = "binary"
+        # integrity_probe = 1: the golden canary (check_canary)
+        self.integrity_probe = 0
         for n, v in self._cfg:
             if n == "quant":
                 self.quant = "" if v in ("", "0", "off", "none") else v
@@ -102,8 +127,23 @@ class Engine:
                     raise ValueError(
                         f"wire must be binary or json, got {v!r}")
                 self.wire = v
+            elif n == "integrity_probe":
+                try:
+                    self.integrity_probe = int(v)
+                except ValueError:
+                    pass
         self.default_deadline_ms = float(default_deadline_ms)
+        # transient I/O on a checkpoint load is retried (retry_* keys)
+        self._retry = RetryPolicy.from_cfg(self._cfg)
+        self.reload_breaker = CircuitBreaker(
+            failure_threshold=reload_breaker_threshold,
+            cooldown_s=reload_breaker_cooldown_s)
         self._model_lock = threading.RLock()
+        # one reload or canary check at a time: /reloadz and the poll
+        # thread may both call in, and a canary must never score a model
+        # against the golden of the one it replaced
+        self._reload_lock = threading.RLock()
+        self.last_reload_s: Optional[float] = None  # the last swap's load + warm
         self._round = -1
         self._model_path: Optional[str] = None
         self._model_crc: Optional[int] = None
@@ -141,6 +181,15 @@ class Engine:
             watchdog_timeout_s=watchdog_timeout_s,
         )
         self._closed = False
+        # golden canary state: the probe batch, the CRC it must keep
+        # reproducing, and the latch /healthz reports
+        self.inject_canary_mismatch = 0  # tests: corrupt the next N CRCs
+        self._canary_probe: Optional[np.ndarray] = None
+        self._canary_golden: Optional[int] = None
+        self._canary_src = ""
+        self._canary_failed = False
+        self._canary_runs = 0
+        self._canary_setup()
 
     # ------------------------------------------------------------------
     # loading
@@ -218,7 +267,8 @@ class Engine:
     def _load_trainer(self, path: str) -> NetTrainer:
         tr = NetTrainer()
         tr.set_params(self._cfg)
-        tr.load_model(path)
+        self._retry.run(lambda: tr.load_model(path), what=f"loading {path}",
+                        silent=self.silent)
         return tr
 
     def _set_model(self, path: str, round_: Optional[int] = None) -> None:
@@ -321,6 +371,184 @@ class Engine:
                            deadline_ms=deadline_ms)
 
     # ------------------------------------------------------------------
+    # hot reload
+    def reload_if_newer(self) -> bool:
+        """Swap to a newer valid checkpoint of ``model_dir``; False when
+        there is none, when the engine has no watch directory, or when
+        the newest round already serves from its preferred artifact.
+        Under ``quant`` a gated ``.quant.model`` sibling that appears for
+        the round already serving does swap in; rounds never move
+        backward.  A load failure raises (``try_reload`` counts it).
+
+        The fresh trainer is warmed at every key the old cache served
+        before the swap, which is a pointer flip under the model lock."""
+        if self.model_dir is None:
+            return False
+        with self._reload_lock:
+            found = ckpt.find_latest_valid(
+                self.model_dir, net_fp=self._conf_net_fp(),
+                silent=self.silent)
+            if found is None or found[0] < self._round:
+                return False
+            round_, path = found
+            path = self._prefer_quant(path)
+            if round_ == self._round and path == self._model_path:
+                return False
+            t0 = time.perf_counter()
+            tr = self._load_trainer(path)
+            cache = ShapeBucketCache(tr)
+            self._warm(cache)
+            with self._model_lock:
+                old_round = self._round
+                self._trainer = tr
+                self._cache = cache
+                self._row_shapes = self._allowed_row_shapes(tr)
+                self._set_model(path, round_)
+                self.stats.set_weights(*opsq.weight_bytes(tr.params),
+                                       opsq.scheme_of(tr) or "f32")
+            del tr, cache
+            # new weights: rebase the golden (and clear its latch)
+            self._canary_setup()
+            self.last_reload_s = time.perf_counter() - t0
+        if not self.silent:
+            print(f"serve: hot-reloaded round {round_} from {path} (was "
+                  f"round {old_round}; load and warm "
+                  f"{self.last_reload_s:.3f}s)", flush=True)
+        return True
+
+    def try_reload(self) -> bool:
+        """:meth:`reload_if_newer` behind the circuit breaker: the poll
+        thread's and ``POST /reloadz``'s entry point.  Never raises: a
+        failure is counted (``reload_failures`` in ``/statsz``), opens
+        the breaker after ``reload_breaker_threshold`` in a row, and the
+        old model keeps serving; while the breaker is open the attempt
+        is skipped.  True only when a model was swapped in."""
+        if not self.reload_breaker.allow():
+            return False
+        try:
+            swapped = self.reload_if_newer()
+        except Exception as e:  # noqa: BLE001 - degrade, don't die
+            self.reload_breaker.record_failure()
+            self.stats.record_reload(ok=False)
+            if not self.silent:
+                print(f"serve: reload failed ({type(e).__name__}: {e}); "
+                      f"breaker {self.reload_breaker.state}, serving round "
+                      f"{self._round}", flush=True)
+            return False
+        self.reload_breaker.record_success()
+        self.stats.record_reload(ok=True, swapped=swapped)
+        return swapped
+
+    def reload_degraded(self) -> bool:
+        """True while the reload breaker is not closed: the model still
+        serves but may be stale.  One failure under the threshold does
+        not degrade health (``last_reload_ok`` in ``/statsz`` shows
+        it)."""
+        return self.reload_breaker.state != "closed"
+
+    def _warm(self, cache: ShapeBucketCache) -> None:
+        """Run zeros through ``cache`` at every (kind, node, bucket, row
+        shape, dtype) the current cache has served: the prepared
+        operands, cuDNN's algorithm picks and the kernels' first
+        launches happen here, not in the first requests after the
+        swap."""
+        with self._model_lock:
+            keys = self._cache.keys_snapshot()
+        for _fp, kind, node_id, bucket, row_shape, dtype, _q in keys:
+            zeros = np.zeros((bucket,) + tuple(row_shape), dtype)
+            try:
+                cache._run(kind, node_id, zeros)
+            except Exception as e:  # noqa: BLE001 - the request pays later
+                if not self.silent:
+                    print(f"serve: warmup failed for bucket {bucket} shape "
+                          f"{row_shape} ({type(e).__name__}: {e})",
+                          flush=True)
+
+    # ------------------------------------------------------------------
+    # golden canary
+    def _score_probe(self, probe: np.ndarray) -> int:
+        with self._model_lock:
+            cache = self._cache
+        return canary.scores_crc(cache._run("out", None, probe))
+
+    def _canary_setup(self) -> None:
+        """(Re)base the golden at model load.  The manifest's ``probe``
+        block commits the probe batch; its CRC binds only when this
+        engine scores through the same pipeline class (backend,
+        unquantized) and reproduces it.  Otherwise the golden is this
+        engine's own load-time score (``src`` ``rebased``, or ``local``
+        when the manifest has no CRC or no block)."""
+        if not self.integrity_probe:
+            return
+        self._canary_failed = False
+        backend = canary.backend_of(self._trainer.device)
+        block = None
+        if self._model_path is not None:
+            block = (ckpt.read_manifest(self._model_path) or {}).get("probe")
+        if not isinstance(block, dict):
+            rows = max(1, min(8, self.max_batch_size))
+            block = canary.make_probe_block(
+                0xC0FFEE, rows, tuple(self._row_shapes[0]), None, backend)
+        try:
+            probe = canary.probe_batch(block["seed"], block["rows"],
+                                       tuple(block["shape"]))
+            crc_now = self._score_probe(probe)
+        except Exception as e:  # noqa: BLE001 - the canary must not block serve
+            if not self.silent:
+                print(f"serve: canary setup failed for {self._model_path} "
+                      f"({type(e).__name__}: {e}); canary off", flush=True)
+            self._canary_probe = None
+            self._canary_golden = None
+            return
+        binding = canary.block_matches_pipeline(
+            block, backend=backend, quant=bool(self.quant_scheme))
+        if binding and int(block["crc32"]) == crc_now:
+            src = "manifest"
+        else:
+            src = "local" if block.get("crc32") is None else "rebased"
+            if src == "rebased" and not self.silent:
+                print(f"serve: canary golden rebased for round {self._round}"
+                      f" (manifest {block.get('crc32'):#010x} on "
+                      f"{block.get('backend')}, local {crc_now:#010x} on "
+                      f"{backend}, binding {binding})", flush=True)
+        self._canary_probe = probe
+        self._canary_golden = crc_now
+        self._canary_src = src
+
+    def check_canary(self) -> bool:
+        """Score the probe batch again and compare its CRC with the
+        golden, bit for bit.  A mismatch latches ``integrity_failed`` in
+        ``/healthz`` (status ``degraded``) until the next clean score or
+        reload.  True when clean or off; never raises."""
+        with self._reload_lock:
+            if self._canary_golden is None or self._canary_probe is None:
+                return True
+            try:
+                crc = self._score_probe(self._canary_probe)
+            except Exception as e:  # noqa: BLE001 - degrade, don't die
+                if not self.silent:
+                    print(f"serve: canary run failed ({type(e).__name__}: "
+                          f"{e})", flush=True)
+                return True
+            if self.inject_canary_mismatch > 0:
+                self.inject_canary_mismatch -= 1
+                crc ^= 0x1
+            self._canary_runs += 1
+            if crc == self._canary_golden:
+                if self._canary_failed and not self.silent:
+                    print(f"serve: integrity canary clean again (round "
+                          f"{self._round})", flush=True)
+                self._canary_failed = False
+                return True
+            first = not self._canary_failed
+            self._canary_failed = True
+            if first and not self.silent:
+                print(f"serve: integrity canary FAILED (golden "
+                      f"{self._canary_golden:#010x} != {crc:#010x}); "
+                      "/healthz degraded integrity_failed", flush=True)
+            return False
+
+    # ------------------------------------------------------------------
     # introspection
     @property
     def round(self) -> int:
@@ -332,19 +560,38 @@ class Engine:
 
     @property
     def trainer(self) -> NetTrainer:
-        return self._trainer
+        """The live trainer (hot reload swaps it: hold no reference
+        across requests)."""
+        with self._model_lock:
+            return self._trainer
+
+    @property
+    def quant_scheme(self) -> str:
+        """The served weights' scheme (``""`` for plain f32)."""
+        with self._model_lock:
+            return self._cache.quant_scheme()
 
     def healthz(self) -> Dict[str, object]:
+        # every degrade condition as a stable token (the fleet's probe
+        # reads them): the model still serves, but may be stale or its
+        # compute untrusted
+        reasons: List[str] = []
+        if self.reload_degraded():
+            reasons.append("reload_breaker_open")
+        if self._canary_failed:
+            reasons.append("integrity_failed")
         with self._model_lock:
             return {
-                "status": "closed" if self._closed else "ok",
+                "status": ("closed" if self._closed
+                           else "degraded" if reasons else "ok"),
                 "round": self._round,
                 "model": self._model_path,
                 "model_crc32": self._model_crc,
                 "net_fp": self._cache.net_fp(),
                 "quant": self._cache.quant_scheme() or "f32",
                 "device": str(self._trainer.device),
-                "reasons": [],
+                "reload_breaker": self.reload_breaker.state,
+                "reasons": reasons,
             }
 
     def snapshot_stats(self) -> Dict[str, object]:
@@ -362,6 +609,15 @@ class Engine:
             "batch_timeout_ms": self.batcher.batch_timeout * 1e3,
             "queue_limit": self.batcher.queue_limit,
         }
+        out["reload_breaker"] = self.reload_breaker.snapshot()
+        if self.integrity_probe:
+            out["integrity"] = {
+                "probe": 1,
+                "golden_crc32": self._canary_golden,
+                "golden_src": self._canary_src,
+                "runs": self._canary_runs,
+                "failed": self._canary_failed,
+            }
         return out
 
     # ------------------------------------------------------------------

@@ -6,8 +6,10 @@ path, rendered by ``GET /statsz``, with the served model's weight
 gauges (``serve_weight_bytes``, ``serve_weight_bytes_f32`` and
 ``serve_quant_scheme`` there) and the two wire counters
 (``serve_wire_requests_total`` by wire, ``serve_wire_bytes_total`` by
-direction there).  The process-wide Prometheus registry (``/metricsz``)
-belongs to a later slice.
+direction there), and the hot-reload lifecycle (``reload_attempts``,
+``reload_failures``, ``reload_swaps``, ``last_reload_ok``).  The
+process-wide Prometheus registry (``/metricsz``, with its
+``serve_model_reloads_total``) belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -43,6 +45,12 @@ class ServingStats:
         # direction: the share of traffic the zero-copy path carries
         self.wire_requests = {"json": 0, "binary": 0}
         self.wire_bytes = {"in": 0, "out": 0}
+        # hot reload (the poll thread / try_reload): attempts, failures,
+        # completed swaps, and the last poll's verdict
+        self.reload_attempts = 0
+        self.reload_failures = 0
+        self.reload_swaps = 0
+        self.last_reload_ok: Optional[bool] = None
 
     def bind_queue_depth(self, fn: Callable[[], int]) -> None:
         self._queue_depth = fn
@@ -87,6 +95,16 @@ class ServingStats:
             self.batch_rows += rows
             self.bucket_rows += bucket_rows
 
+    def record_reload(self, ok: bool, swapped: bool = False) -> None:
+        """One breaker-gated reload attempt: failed, a swap, or a no-op."""
+        with self._lock:
+            self.reload_attempts += 1
+            self.last_reload_ok = ok
+            if not ok:
+                self.reload_failures += 1
+            elif swapped:
+                self.reload_swaps += 1
+
     def snapshot(self) -> Dict[str, object]:
         with self._lock:
             lat = np.asarray(self._latency, np.float64) * 1e3
@@ -107,6 +125,10 @@ class ServingStats:
                 "quant_scheme": self.quant_scheme,
                 "wire_requests": dict(self.wire_requests),
                 "wire_bytes": dict(self.wire_bytes),
+                "reload_attempts": self.reload_attempts,
+                "reload_failures": self.reload_failures,
+                "reload_swaps": self.reload_swaps,
+                "last_reload_ok": self.last_reload_ok,
             }
         out["latency_ms"] = ({
             "count": int(lat.size),

@@ -12,6 +12,9 @@ so a client keeps its connection alive across requests.  Endpoints:
   ``{"features": [[...], ...]}``
 * ``GET  /healthz``  — liveness + model identity (round, fingerprint)
 * ``GET  /statsz``   — serving metrics (``metrics.py``)
+* ``POST /reloadz``  — one breaker-gated hot-reload attempt →
+  ``{"ok", "swapped", "round", "breaker", "rid"}`` (any body is read and
+  ignored: the ``{"model": ...}`` body belongs to the fleet's router)
 
 Both data routes also take the binary wire (``wire.py``): a request with
 ``Content-Type: application/x-cxb`` carries a ``CXB1`` frame whose
@@ -23,8 +26,13 @@ frame's ``reason`` token, never a 500, and error bodies stay JSON.
 
 Errors map to JSON bodies: 400 malformed request, 404 unknown route,
 429 load shed, 503 shutting down, 504 deadline expired, 500 model
-failure.  ``/feedback``, ``/reloadz``, ``/metricsz`` and ``/alertz``
-are later slices.
+failure.  ``/feedback``, ``/metricsz`` and ``/alertz`` are later
+slices.
+
+``serve_forever(reload_period_s > 0)`` runs a poll thread beside the
+server: every period it calls ``Engine.try_reload`` (when the engine
+watches a ``model_dir``) and ``Engine.check_canary`` (under
+``integrity_probe = 1``), neither of which raises.
 
 Shutdown drains: after ``httpd.shutdown()`` stops the accept loop,
 in-flight requests get up to ``drain_timeout_s`` to finish writing their
@@ -39,7 +47,7 @@ import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -165,6 +173,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _do_post(self) -> None:
         rid = f"{self.rid_token}-{next(self.rid_counter)}"
+        if self.path == "/reloadz":
+            self._do_reload(rid)
+            return
         if self.path not in ("/predict", "/extract"):
             self.close_connection = True
             self._reply(404, {"error": f"unknown route {self.path}",
@@ -202,6 +213,32 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 - served as a 500
             self._reply(500, {"error": f"{type(e).__name__}: {e}",
                               "rid": rid})
+
+    def _do_reload(self, rid: str) -> None:
+        """``POST /reloadz``: one breaker-gated reload attempt.  A body
+        is optional, but whatever is sent is read first, so its bytes
+        cannot desync the next request on a kept-alive connection."""
+        try:
+            length = int(self.headers.get("Content-Length", 0) or 0)
+        except ValueError:
+            length = 0
+        if self.headers.get("Transfer-Encoding") or length > MAX_BODY_BYTES:
+            # cannot drain it: close so the unread bytes go with the socket
+            self.close_connection = True
+            self._reply(400, {"error": "chunked or oversized body",
+                              "rid": rid})
+            return
+        if length > 0:
+            self.rfile.read(length)
+        engine = self.engine
+        swapped = engine.try_reload()
+        self._reply(200, {
+            "ok": engine.stats.last_reload_ok is not False,
+            "swapped": bool(swapped),
+            "round": engine.round,
+            "breaker": engine.reload_breaker.state,
+            "rid": rid,
+        })
 
     def _do_post_wire(self, rid: str) -> None:
         """The ``application/x-cxb`` data plane: decode the frame with
@@ -289,20 +326,46 @@ def make_server(engine: Engine, host: str = "127.0.0.1", port: int = 0,
 
 
 def serve_forever(engine: Engine, host: str = "127.0.0.1", port: int = 0,
-                  drain_timeout_s: float = 5.0, verbose: bool = False,
-                  ready_fn=None) -> ThreadingHTTPServer:
+                  reload_period_s: float = 0.0, drain_timeout_s: float = 5.0,
+                  verbose: bool = False, ready_fn=None
+                  ) -> Tuple[ThreadingHTTPServer, Optional[threading.Thread]]:
     """Run the server until ``httpd.shutdown()`` (blocking), then drain.
-    ``ready_fn(httpd)`` is called once the socket is bound."""
+
+    ``reload_period_s > 0`` starts a poll thread that calls
+    ``engine.try_reload()`` (hot reload behind the breaker, when the
+    engine watches a ``model_dir``) and ``engine.check_canary()`` (when
+    ``integrity_probe`` is on) once a period; it stops with the server.
+    ``ready_fn(httpd)`` is called once the socket is bound.  Returns
+    ``(httpd, reloader)``, the poll thread or None."""
     httpd = make_server(engine, host, port, verbose=verbose)
+    stop = threading.Event()
+    reloader = None
+    poll = engine.model_dir is not None
+    probe = bool(engine.integrity_probe)
+    if reload_period_s > 0 and (poll or probe):
+        def _poll():
+            while not stop.wait(reload_period_s):
+                if poll:
+                    engine.try_reload()  # breaker-gated; never raises
+                if probe:
+                    engine.check_canary()  # latches /healthz; never raises
+
+        reloader = threading.Thread(target=_poll, name="cxxnet-serve-reload",
+                                    daemon=True)
+        reloader.start()
     if ready_fn is not None:
         ready_fn(httpd)
     try:
         httpd.serve_forever(poll_interval=0.2)
     finally:
+        stop.set()
+        if reloader is not None:
+            # a reload in progress finishes before the engine closes
+            reloader.join()
         if drain_timeout_s > 0 and not httpd.inflight.wait_idle(
                 drain_timeout_s):
             print(f"serve: drain timed out after {drain_timeout_s:g}s with "
                   f"{httpd.inflight.count} request(s) still in flight",
                   flush=True)
         httpd.server_close()
-    return httpd
+    return httpd, reloader

@@ -32,6 +32,20 @@ class CheckpointError(RuntimeError):
     """A checkpoint failed validation or could not be written/read."""
 
 
+class DivergenceError(RuntimeError):
+    """A training step's loss tripped the divergence guard (non-finite,
+    or a finite spike past ``divergence_loss_ratio``).
+
+    Raised by ``NetTrainer`` when ``divergence_policy`` is set; carries
+    the loss value(s) read and the update they tripped at, for the task
+    CLI's report."""
+
+    def __init__(self, message: str, loss=None, epoch: Optional[int] = None):
+        super().__init__(message)
+        self.loss = loss
+        self.epoch = epoch
+
+
 def atomic_write_bytes(path: str, data: bytes) -> None:
     """Write ``data`` to ``path`` atomically: a crash at any point leaves
     either the old file or the new one, never a truncation."""
@@ -82,14 +96,18 @@ def manifest_path(model_path: str) -> str:
 def write_manifest(model_path: str, blob: bytes,
                    round_: Optional[int] = None,
                    net_fp: Optional[str] = None,
-                   quant: Optional[dict] = None) -> dict:
+                   quant: Optional[dict] = None,
+                   probe: Optional[dict] = None) -> dict:
     """Write the sidecar manifest for an already-written checkpoint whose
     exact bytes are ``blob``; written after the checkpoint, so a
     manifest's existence implies its checkpoint was fully durable.  The
     port writes no updater state (``save_ustate`` 0).  ``quant``
     (``{"scheme", "scales_dtype", "int8_layers", "bf16_layers", ...}``)
     marks a quantized inference artifact (``nnet/quant.py``); it is
-    absent on f32 checkpoints."""
+    absent on f32 checkpoints.  ``probe`` (``{"seed", "rows", "shape",
+    "backend", "crc32"?}``, ``integrity/canary.py``) commits the serving
+    canary's probe batch and, when the writer scored it, its golden
+    score CRC."""
     man = {
         "format": MANIFEST_FORMAT,
         "crc32": crc32_of(blob),
@@ -101,6 +119,8 @@ def write_manifest(model_path: str, blob: bytes,
     }
     if quant is not None:
         man["quant"] = quant
+    if probe is not None:
+        man["probe"] = probe
     atomic_write_bytes(manifest_path(model_path),
                        (json.dumps(man, indent=1) + "\n").encode("utf-8"))
     return man
@@ -108,10 +128,12 @@ def write_manifest(model_path: str, blob: bytes,
 
 def write_checkpoint(path: str, blob: bytes, round_: Optional[int] = None,
                      net_fp: Optional[str] = None,
-                     quant: Optional[dict] = None) -> None:
+                     quant: Optional[dict] = None,
+                     probe: Optional[dict] = None) -> None:
     """Atomic payload write, then the sidecar manifest."""
     atomic_write_bytes(path, blob)
-    write_manifest(path, blob, round_=round_, net_fp=net_fp, quant=quant)
+    write_manifest(path, blob, round_=round_, net_fp=net_fp, quant=quant,
+                   probe=probe)
 
 
 def read_manifest(model_path: str) -> Optional[dict]:

@@ -393,8 +393,11 @@ def test_cli_sigterm_snapshots_and_exits_clean(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
+    # the divergence guard is ported; the integrity plane's vote is not
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        NetTrainer().set_param("divergence_policy", "rollback")
+        LearnTask().set_param("integrity_every", "1")
+    with pytest.raises(ValueError, match="abort or rollback"):
+        NetTrainer().set_param("divergence_policy", "retry")
     tr = NetTrainer()
     tr.set_params(tcfg.parse_pairs(SMALL_CONF + "dev = gpu:0-1\n"))
     with pytest.raises(NotImplementedError, match="item 6"):
