@@ -299,6 +299,34 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``mnist_kernels`` JSON line (the launches of phases 19 and 20, the
    rows of phase 18) and a ``wire_warm_latency_ms`` line (phases 3 and
    14).
+20a. The imgbin chain (``iter = imgbin``): 300 raw-pixel records of
+   3x256x256 float32 (128 + N(0, 1), labels in 0..999) written from a
+   seed, 160 in a CXBP shard and 140 in the reference's 64 MiB
+   ``BinaryPage`` layout, and 128 eval records in CXBP (~360 MB, removed
+   at the end); ``task=train`` through ``LearnTask`` on
+   ``googlenet.conf``'s own train and eval sections with only the paths
+   changed (the eval section reads the mean image the train section
+   makes, under the ``.npz`` name ``np.savez`` gives it), ``raw_pixels =
+   1`` on both and ``num_decode_workers = 4`` on the train section, its
+   ``rand_crop``, ``rand_mirror``, ``image_mean`` and ``threadbuffer``
+   kept, ``dev=gpu``, 2 rounds, phase 5's ``LR_SCALE``: each round three
+   steps (the third with 84 rows of padding), each launching K1 13, K2 4,
+   K3 9, K4 2, K5 2, K6 9 on their main paths and K8 once (counts at 0
+   just before, read just after), every loss finite, the mean image
+   made once, both rounds evaluated; each round's samples/s beside phase
+   5's synthetic rounds.  The chain against itself: round 1's batches
+   bit-equal at 1 and 4 decode workers, with and without
+   ``threadbuffer`` and after a mid-epoch rewind, and a resumed round 2
+   equal to the uninterrupted one.  The chain alone at 1 and 4 workers,
+   img/s (median of 3 passes, host clock).  ``task=pred_raw`` with
+   ``bowl.conf``'s net and ``pred.conf``'s section (``imgbin`` +
+   ``threadbuffer``, batch 64) over 200 raw 3x40x40 records from a
+   seeded ``save_model`` checkpoint, float32 with TF32 off: 200 rows of
+   121 probabilities, the padding trimmed, K1 three times a forward on
+   its f32 vector entry and nothing else, within ``F32_PROB_ATOL`` of
+   the CPU.  JPEG records: without PIL a ``raw_pixels = 0`` chain must
+   refuse at ``init()`` naming ``raw_pixels``; with PIL, 32 JPEG records
+   go through the chain.  An ``imgbin`` JSON line.
 21. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
    forward kernels; the LM training run for K9 and K10, with the
@@ -596,6 +624,32 @@ MNIST_PROB_ATOL = 1e-5
 # weights within this share of the CPU weights' largest magnitude
 MNIST_PERIOD_BATCHES = 20
 MNIST_PERIOD_REL = 1e-5
+# the imgbin chain (phase 20a): googlenet.conf's own data sections over
+# raw-pixel pages written from a seed: the train set's records in a CXBP
+# shard and a BinaryPage shard, the eval set's in one CXBP shard; the
+# pixels are 128 + N(0, 1), so that after the conf's mean image the net
+# sees phase 5's N(0, 1) inputs (the conf sets no divideby)
+IMGBIN_TRAIN = (160, 140)
+IMGBIN_EVAL = 128
+IMGBIN_SIDE = 256
+IMGBIN_WORKERS = 4
+IMGBIN_PADD = 84  # the third batch of a round: 300 = 2 x 128 + 44
+IMGBIN_PASSES = 3
+IMGBIN_PER_STEP = {**PER_STEP, "sgd_update": 1}  # K8: 116 tensors, 1 launch
+BOWL_CONF = os.path.join(REPO, "example", "kaggle_bowl", "bowl.conf")
+BOWL_PRED_CONF = os.path.join(REPO, "example", "kaggle_bowl", "pred.conf")
+BOWL_ROWS, BOWL_SIDE, BOWL_CLASSES = 200, 40, 121
+BOWL_PER_FORWARD = {"maxpool_fwd": 3}
+# (x, kh, kw, s, py, px): bowl.conf's three pools at pred.conf's batch,
+# the shapes its pred_raw forward gives K1 (f32)
+BOWL_POOLS = (((64, 40, 40, 32), 3, 3, 2, 0, 0),
+              ((64, 20, 20, 64), 3, 3, 2, 0, 0),
+              ((64, 10, 10, 128), 3, 3, 2, 0, 0))
+# the JPEG shard: as many 3x256x256 records as the raw train set, each a
+# smooth picture (8x8 random colours, bilinear) with N(0, JPEG_NOISE)
+# pixel noise, quality 90
+JPEG_NOISE = 16.0
+CONF_SIDE = 224
 
 
 class SmokeError(RuntimeError):
@@ -2295,18 +2349,21 @@ def _run_train_task(argv, on_divergence=None):
     return task, task.trainer_for_smoke, steps, losses, marks
 
 
-def _round_rates(marks, batch: int, unit: str) -> None:
+def _round_rates(marks, batch: int, unit: str):
     """Each CLI round's rate: round start to its last step (host feed,
-    metric fetch included)."""
+    metric fetch included); returns them in round order."""
     rounds = [m for m in marks if m[0] == "round"]
+    rates = []
     for (_, r, ts, n0), nxt in zip(rounds, rounds[1:] + [None]):
         ends = [m for m in marks if m[0] == "step" and m[3] > n0
                 and (nxt is None or m[3] <= nxt[3])]
         if ends:
             dt = ends[-1][2] - ts
+            rates.append(len(ends) * batch / dt)
             log(f"train: CLI round {r - 1}: {len(ends)} steps, "
-                f"{len(ends) * batch / dt:.1f} {unit}/s (host clock, "
+                f"{rates[-1]:.1f} {unit}/s (host clock, "
                 "host feed and metric fetch included)")
+    return rates
 
 
 def train_phase(tmp: str):
@@ -2359,7 +2416,7 @@ def train_phase(tmp: str):
                              f"training run, fewer than {per * n_steps}")
     if not all(np.isfinite(losses)):
         raise SmokeError(f"non-finite training loss: {losses}")
-    _round_rates(marks, tr.batch_size, "img")
+    rates = _round_rates(marks, tr.batch_size, "img")
     saved = sorted(f for f in os.listdir(mdir) if f.endswith(".model"))
     want_files = [f"{r:04d}.model" for r in range(ROUNDS + 1)]
     if saved != want_files:
@@ -2386,7 +2443,7 @@ def train_phase(tmp: str):
                          "or values not finite")
     log(f"train: {want_files[-1]} served by Engine; /predict answered "
         f"{scores.shape}")
-    return launches, mdir, cfg
+    return launches, mdir, cfg, rates
 
 
 def _update_of(cfg, ckpt: str, x, y, dev: str, dtype: str):
@@ -4400,7 +4457,7 @@ def mnist_kernels(dev):
     versions, and K8 over MNIST_CONV's 6 and digits_conv's 8 tensors in
     one launch each (``check_kernel``: device times against the plain
     version and the library call, the calls' times beside, and the
-    bound).  Returns the rows."""
+    bound; ``_held``).  Returns the rows."""
     import torch
 
     gen = torch.Generator().manual_seed(SEED + 70)
@@ -4420,8 +4477,14 @@ def mnist_kernels(dev):
         rows.append(check_kernel("sgd_update", tensors, torch.float32, dev,
                                  gen))
         rows[-1]["conf"] = os.path.basename(conf)
+    return _held("MNIST", rows)
+
+
+def _held(tag: str, rows):
+    """Log ``check_kernel``'s rows and fail if one is out of tolerance;
+    returns the rows."""
     for r in rows:
-        log(f"mnist kernel {r['kernel']:16s} {r['dtype']:8s} "
+        log(f"{tag} kernel {r['kernel']:16s} {r['dtype']:8s} "
             f"{r['shape']:34s} abs {r['max_abs_err']:.3g} "
             f"{'ok' if r['ok'] else 'MISMATCH'}  ms {r['ms']:.4f} plain "
             f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound "
@@ -4432,8 +4495,21 @@ def mnist_kernels(dev):
     bad = [f"{r['kernel']} {r['dtype']} {r['shape']}" for r in rows
            if not r["ok"]]
     if bad:
-        raise SmokeError(f"MNIST kernel check(s) out of tolerance: {bad}")
+        raise SmokeError(f"{tag} kernel check(s) out of tolerance: {bad}")
     return rows
+
+
+def bowl_kernels(dev):
+    """K1 at bowl.conf's three pools (``BOWL_POOLS``), float32 as its
+    ``pred_raw`` forward runs them: on the f32 vector entry, bit-equal
+    to the plain version, device times against the plain version and
+    ``F.max_pool2d``, the calls' times beside, and the bound."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 71)
+    return _held("bowl", [
+        check_kernel("maxpool_fwd", key, torch.float32, dev, gen,
+                     device_times=True) for key in BOWL_POOLS])
 
 
 _PRED_SECTION = """
@@ -4781,6 +4857,496 @@ def resnet_line(krows, serve_launches, train_launches):
     return {"resnet50_kernels": out}
 
 
+# ----------------------------------------------------------------------
+# phase 20a: the imgbin chain
+
+
+def _write_raw_shard(path: str, n: int, side: int, seed: int, first: int,
+                     nclass: int, ref: bool = False) -> None:
+    """``path``.bin (CXBP, or the reference's BinaryPage with ``ref``) and
+    ``path``.lst: ``n`` raw-pixel records of ``side`` x ``side`` x 3
+    float32, 128 + N(0, 1), seeded labels in 0..nclass-1, indices from
+    ``first``."""
+    import numpy as np
+
+    from cxxnet_tpu_torch.io.imgbin import (BinPageWriter, RefBinPageWriter,
+                                            encode_raw)
+
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, nclass, n)
+    w = RefBinPageWriter(path + ".bin") if ref else BinPageWriter(
+        path + ".bin")
+    with open(path + ".lst", "w") as f:
+        for i in range(n):
+            img = (128.0 + rng.standard_normal((side, side, 3))).astype(
+                np.float32)
+            w.push(encode_raw(img))
+            f.write(f"{first + i}\t{labels[i]}\trec{first + i}.raw\n")
+    w.close()
+
+
+def _imgbin_conf(tmp: str) -> str:
+    """googlenet.conf with its own data sections: the paths change (the
+    train set in two shards), plus ``raw_pixels = 1`` on both sections
+    and ``num_decode_workers`` on the train section; then its learning
+    rates times ``LR_SCALE``.  One path edit changes behaviour: the eval
+    section's ``image_mean`` names the file the train section saves
+    (``np.savez`` appends ``.npz``), so the eval set is normalised with
+    the train set's mean.  As the conf is written, the eval section
+    would not find that file and would make a second mean image over
+    the eval data (ROADMAP.md §C); the smoke does not drive that pass."""
+    from cxxnet_tpu_torch import config as cfgmod
+
+    a, b, v = (os.path.join(tmp, n) for n in ("train_a", "train_b", "val"))
+    mean = os.path.join(tmp, "image_mean.bin")
+    text = open(CONF).read()
+    edits = (
+        ("  image_list = ./shards/train_001.lst\n"
+         "  image_bin = ./shards/train_001.bin\n",
+         f"  image_list = {a}.lst\n  image_bin = {a}.bin\n"
+         f"  image_list = {b}.lst\n  image_bin = {b}.bin\n"
+         f"  raw_pixels = 1\n  num_decode_workers = {IMGBIN_WORKERS}\n"),
+        ("  image_list = ./shards/val_001.lst\n"
+         "  image_bin = ./shards/val_001.bin\n",
+         f"  image_list = {v}.lst\n  image_bin = {v}.bin\n"
+         "  raw_pixels = 1\n"),
+        ("image_mean = ./models/image_mean.bin", f"image_mean = {mean}"),
+        ("image_mean = ./models/image_mean.bin",
+         f"image_mean = {mean}.npz"))
+    for old, new in edits:
+        if old not in text:
+            raise SmokeError(f"googlenet.conf: {old.strip()!r} not found")
+        text = text.replace(old, new, 1)
+    split = cfgmod.split_sections(cfgmod.parse_file(CONF))
+    text += "\n" + "".join(
+        f"{n} = {float(val) * LR_SCALE:g}\n" for n, val in
+        split.global_entries if n in ("eta", "lr", "wmat:lr", "bias:lr"))
+    path = os.path.join(tmp, "googlenet_imgbin.conf")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _train_chain(conf: str, workers: int, buffered: bool,
+                 shard: str = ""):
+    """The conf's data section as ``create_iterator`` builds it, at
+    ``workers`` decode workers, with or without its ``threadbuffer``,
+    reading the mean image the training run made; with ``shard``, that
+    shard's ``.lst``/``.bin`` in place of the train set and
+    ``raw_pixels`` left at 0 (encoded images); ``init`` done."""
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.io.data import create_iterator
+
+    split = cfgmod.split_sections(cfgmod.parse_file(conf))
+    entries = []
+    for n, val in split.find("data")[0].entries:
+        if n == "num_decode_workers":
+            val = str(workers)
+        elif n == "image_mean":
+            val += ".npz"
+        elif (n, val) == ("iter", "threadbuffer") and not buffered:
+            continue
+        elif shard and n in ("image_list", "image_bin", "raw_pixels"):
+            continue
+        entries.append((n, val))
+        if shard and (n, val) == ("iter", "imgbin"):
+            entries += [("image_list", shard + ".lst"),
+                        ("image_bin", shard + ".bin")]
+    it = create_iterator(entries)
+    for n, val in split.global_entries + [("silent", "1")]:
+        it.set_param(n, val)
+    try:
+        it.init()
+    except BaseException:
+        it.close()
+        raise
+    return it
+
+
+def _chain_round(it, round_: int, stop: int = 0):
+    """One round as the CLI drives it (the epoch anchored to the round,
+    then the rewind): each batch's digest and padding, at most ``stop``
+    batches; each batch must be finite, of the conf's shape."""
+    import hashlib
+
+    import numpy as np
+
+    it.set_param("augment_epoch_next", str(round_))
+    it.before_first()
+    out = []
+    while it.next():
+        b = it.value()
+        if (b.data.shape != (BATCH, CONF_SIDE, CONF_SIDE, 3)
+                or not np.isfinite(b.data).all()):
+            raise SmokeError(f"imgbin chain: a batch of shape "
+                             f"{b.data.shape}, or not finite")
+        h = hashlib.sha256(b.data.tobytes())
+        h.update(b.label.tobytes())
+        out.append((h.hexdigest(), b.num_batch_padd))
+        if stop and len(out) == stop:
+            break
+    return out
+
+
+def _chain_checks(conf: str) -> None:
+    """Round 1's batches bit-equal at 1 and 4 workers, with and without
+    threadbuffer, and after a mid-epoch rewind; a resumed round 2 equal
+    to the uninterrupted one."""
+    ref = _train_chain(conf, 1, False)
+    try:
+        r1, r2 = _chain_round(ref, 1), _chain_round(ref, 2)
+    finally:
+        ref.close()
+    if [p for _, p in r1] != [0, 0, IMGBIN_PADD] or r1 == r2:
+        raise SmokeError(f"imgbin chain: round 1 padding "
+                         f"{[p for _, p in r1]}, round 2 equal to round 1: "
+                         f"{r1 == r2}")
+    cases = []
+    for workers, buffered in ((IMGBIN_WORKERS, False), (1, True),
+                              (IMGBIN_WORKERS, True)):
+        it = _train_chain(conf, workers, buffered)
+        try:
+            got = [_chain_round(it, 1)]
+            if workers > 1 and buffered:
+                _chain_round(it, 1, stop=1)  # rewound mid-epoch
+                got += [_chain_round(it, 1), _chain_round(it, 2)]
+        finally:
+            it.close()
+        cases.append((f"{workers} workers, threadbuffer {buffered}", got))
+    it = _train_chain(conf, IMGBIN_WORKERS, True)
+    try:
+        resumed = _chain_round(it, 2)
+    finally:
+        it.close()
+    for tag, got in cases:
+        want = [r1, r1, r2][:len(got)]
+        if got != want:
+            raise SmokeError(f"imgbin chain at {tag}: batches differ from "
+                             "the serial chain's")
+    if resumed != r2:
+        raise SmokeError("imgbin chain: a resumed round 2 differs from the "
+                         "uninterrupted round 2")
+    log(f"imgbin chain: round 1 bit-equal at 1 and {IMGBIN_WORKERS} workers,"
+        " with and without threadbuffer and after a mid-epoch rewind; a "
+        "resumed round 2 equal to the uninterrupted one; padding "
+        f"{[p for _, p in r1]}")
+
+
+def _rate(fn, rows: int) -> float:
+    """``rows`` over the median of ``IMGBIN_PASSES`` timings of ``fn``,
+    host clock."""
+    times = []
+    for _ in range(IMGBIN_PASSES):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return rows / statistics.median(times)
+
+
+def _drain(it) -> None:
+    """One pass of an iterator (rewound first), its values untouched."""
+    it.before_first()
+    while it.next():
+        pass
+
+
+def _chain_rates(conf: str, card: str):
+    """The chain alone (no step, no threadbuffer): records per second of
+    one pass over the train set, median of ``IMGBIN_PASSES``, host
+    clock: at 1 worker each stage added in turn (the page reader, the
+    raw decode, the augmenter, the batch layer), then the whole chain at
+    ``IMGBIN_WORKERS`` workers."""
+    rows = sum(IMGBIN_TRAIN)
+
+    def rate(fn):
+        return _rate(fn, rows)
+
+    def read(src):
+        src.before_first()
+        while src.next_raw() is not None:
+            pass
+
+    out = {}
+    it = _train_chain(conf, 1, False)
+    try:
+        aug = it.base.aug
+        stages = {"reader": lambda: read(aug.base),
+                  "reader+decode": lambda: _drain(aug.base),
+                  "reader+decode+augment": lambda: _drain(aug),
+                  "1": lambda: _drain(it)}
+        for name, fn in stages.items():
+            out[name] = rate(fn)
+    finally:
+        it.close()
+    it = _train_chain(conf, IMGBIN_WORKERS, False)
+    try:
+        out[str(IMGBIN_WORKERS)] = rate(lambda: _drain(it))
+    finally:
+        it.close()
+    log(f"imgbin chain alone, img/s (median of {IMGBIN_PASSES} passes over "
+        f"{rows} 3x{IMGBIN_SIDE}x{IMGBIN_SIDE} raw records, crop "
+        f"{CONF_SIDE}, mirror, mean image; host clock; '1' and "
+        f"'{IMGBIN_WORKERS}' the whole chain at that many workers, the "
+        f"others its first stages at 1): "
+        f"{json.dumps({k: round(v, 1) for k, v in out.items()})}; {card}")
+    return out
+
+
+def _bowl_pred_raw(tmp: str):
+    """``task=pred_raw`` with bowl.conf's net and pred.conf's section
+    (``imgbin`` + ``threadbuffer``, batch 64) over ``BOWL_ROWS`` raw
+    records, float32 with TF32 off, on the card (counted: K1 three times
+    a forward on its f32 vector entry, nothing else) and on the CPU;
+    returns the largest difference."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.cli import LearnTask
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    d = os.path.join(tmp, "bowl")
+    os.makedirs(d)
+    _write_raw_shard(os.path.join(d, "test"), BOWL_ROWS, BOWL_SIDE, SEED + 23,
+                     0, BOWL_CLASSES)
+    pred = open(BOWL_PRED_CONF).read()
+    pred = pred[pred.index("pred = "):]
+    for old, new in (("./data/test.lst", os.path.join(d, "test.lst")),
+                     ("./data/test.bin\n",
+                      os.path.join(d, "test.bin") + "\n  raw_pixels = 1\n"),
+                     ("./models/0100.model", os.path.join(d, "0000.model"))):
+        if old not in pred:
+            raise SmokeError(f"pred.conf: {old.strip()!r} not found")
+        pred = pred.replace(old, new)
+    text = open(BOWL_CONF).read() + "\n" + pred + f"seed = {SEED}\n"
+    confs = {}
+    for where, out in (("gpu", "test.txt"), ("cpu", "test_cpu.txt")):
+        confs[where] = os.path.join(d, f"pred_{where}.conf")
+        with open(confs[where], "w") as f:
+            f.write(text.replace("pred = test.txt", f"pred = {out}"))
+    tr = NetTrainer()
+    tr.set_params(cfgmod.parse_file(confs["cpu"]) + [("dev", "cpu")])
+    tr.init_model()
+    tr.save_model(os.path.join(d, "0000.model"))
+    forwards = -(-BOWL_ROWS // tr.batch_size)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        def run():
+            with contextlib.redirect_stdout(io.StringIO()):
+                return LearnTask().run([confs["gpu"]])
+
+        rc, (got, by) = _counted(run)
+        with contextlib.redirect_stdout(io.StringIO()):
+            LearnTask().run([confs["cpu"], "dev=cpu"])
+    finally:
+        os.chdir(cwd)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    want = {k: v * forwards for k, v in BOWL_PER_FORWARD.items()}
+    want_by = {k: v for k, v in _f32_paths(want).items() if v}
+    if rc != 0 or got != want or by != want_by:
+        raise SmokeError(f"bowl pred_raw: rc {rc}, launches {got} by C "
+                         f"entry {by}; expected {want}, {want_by}")
+    rows = {}
+    for where, out in (("gpu", "test.txt"), ("cpu", "test_cpu.txt")):
+        lines = open(os.path.join(d, out)).read().split("\n")[:-1]
+        if not all(line.endswith(" ") for line in lines):
+            raise SmokeError(f"bowl pred_raw ({where}): a row without the "
+                             "trailing separator")
+        rows[where] = np.array([[float(v) for v in line.split()]
+                                for line in lines])
+    card, cpu = rows["gpu"], rows["cpu"]
+    err = float(np.abs(card - cpu).max()) if card.shape == cpu.shape else None
+    log(f"bowl pred_raw: {card.shape[0]} rows of {card.shape[1]} on the card "
+        f"({forwards} forwards of {tr.batch_size}, the last padded; "
+        f"launches {got}, by C entry {by}); card vs CPU max abs {err}")
+    if (card.shape != (BOWL_ROWS, BOWL_CLASSES) or err is None
+            or not np.isfinite(card).all() or err > F32_PROB_ATOL
+            or np.abs(card.sum(1) - 1).max() > 1e-4):
+        raise SmokeError(f"bowl pred_raw: shape {card.shape}, card vs CPU "
+                         f"{err} (limit {F32_PROB_ATOL})")
+    return err, got
+
+
+def _jpeg_check(tmp: str, conf: str, card: str):
+    """JPEG records through the train section's chain.  Without PIL a
+    ``raw_pixels = 0`` chain must refuse at ``init()`` naming the key.
+    With PIL, as many JPEG records as the raw train set (``JPEG_NOISE``)
+    go through it: round 1 bit-equal at 1 and ``IMGBIN_WORKERS``
+    workers, then records per second of a pass at each, median of
+    ``IMGBIN_PASSES``, host clock, as ``_chain_rates`` times raw pages."""
+    import io
+
+    import numpy as np
+
+    from cxxnet_tpu_torch.io.imgbin import BinPageWriter
+
+    path = os.path.join(tmp, "jpeg")
+    rows = sum(IMGBIN_TRAIN)
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    rng = np.random.RandomState(SEED + 29)
+    nbytes = 0
+    w = BinPageWriter(path + ".bin")
+    with open(path + ".lst", "w") as f:
+        for i in range(rows):
+            if Image is None:
+                blob = b"\xff\xd8 not decoded here"
+            else:
+                low = Image.fromarray(rng.randint(0, 256, (8, 8, 3),
+                                                  dtype=np.uint8))
+                img = np.asarray(low.resize((IMGBIN_SIDE, IMGBIN_SIDE),
+                                            Image.BILINEAR), np.float32)
+                img += rng.standard_normal(img.shape) * JPEG_NOISE
+                buf = io.BytesIO()
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    buf, "JPEG", quality=90)
+                blob = buf.getvalue()
+            nbytes += len(blob)
+            w.push(blob)
+            f.write(f"{i}\t{rng.randint(0, 1000)}\trec{i}.jpg\n")
+    w.close()
+    if Image is None:
+        try:
+            _train_chain(conf, IMGBIN_WORKERS, False, shard=path).close()
+        except RuntimeError as e:
+            if "raw_pixels" not in str(e):
+                raise SmokeError(f"jpeg: the refusal does not name "
+                                 f"raw_pixels: {e}") from e
+            log(f"imgbin jpeg: no PIL on this machine; a raw_pixels = 0 "
+                f"chain refused at init(): {e}")
+            return {"pil": None, "refused_at_init": True}
+        raise SmokeError("jpeg: no PIL here, yet a raw_pixels = 0 chain "
+                         "initialised")
+    import PIL
+
+    digests, rates = {}, {}
+    for workers in (1, IMGBIN_WORKERS):
+        it = _train_chain(conf, workers, False, shard=path)
+        try:
+            digests[workers] = _chain_round(it, 1)
+            rates[str(workers)] = _rate(lambda: _drain(it), rows)
+        finally:
+            it.close()
+    pads = [p for _, p in digests[1]]
+    if pads != [0, 0, IMGBIN_PADD]:
+        raise SmokeError(f"jpeg: paddings {pads}")
+    if digests[1] != digests[IMGBIN_WORKERS]:
+        raise SmokeError(f"jpeg: round 1 differs between 1 and "
+                         f"{IMGBIN_WORKERS} workers")
+    log(f"imgbin jpeg: PIL {PIL.__version__} here; {rows} JPEG records "
+        f"(3x{IMGBIN_SIDE}x{IMGBIN_SIDE}, quality 90, {nbytes / rows:.0f} "
+        f"bytes each) through the train section's chain (crop "
+        f"{CONF_SIDE}, mirror, mean image), round 1 bit-equal at 1 and "
+        f"{IMGBIN_WORKERS} workers, paddings {pads}; img/s (median of "
+        f"{IMGBIN_PASSES} passes, host clock) "
+        f"{json.dumps({k: round(v, 1) for k, v in rates.items()})}; {card}")
+    return {"pil": PIL.__version__, "records": rows,
+            "bytes_per_record": nbytes / rows, "img_s": rates}
+
+
+def imgbin_phase(tmp: str, card: str, synthetic_rates):
+    """Phase 20a: ``task=train`` on googlenet.conf's own data sections
+    over raw-pixel pages in both layouts, the chain against itself, its
+    rate alone, K1 at bowl.conf's pools, ``pred_raw`` through imgbin on
+    bowl.conf's net, JPEG records through the chain and their rate.
+    Returns the ``imgbin`` JSON line's object."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch.io.augment import AugmentIterator
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    t0 = time.perf_counter()
+    na, nb = IMGBIN_TRAIN
+    _write_raw_shard(os.path.join(tmp, "train_a"), na, IMGBIN_SIDE, SEED + 20,
+                     0, 1000)
+    _write_raw_shard(os.path.join(tmp, "train_b"), nb, IMGBIN_SIDE, SEED + 21,
+                     na, 1000, ref=True)
+    _write_raw_shard(os.path.join(tmp, "val"), IMGBIN_EVAL, IMGBIN_SIDE,
+                     SEED + 22, 0, 1000)
+    nbytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in
+                 os.listdir(tmp) if f.endswith(".bin"))
+    log(f"imgbin: pages written in {time.perf_counter() - t0:.1f}s, "
+        f"{nbytes / 1e6:.1f} MB ({na} records CXBP + {nb} BinaryPage train, "
+        f"{IMGBIN_EVAL} CXBP eval)")
+    conf = _imgbin_conf(tmp)
+    mdir = os.path.join(tmp, "models")
+    argv = [conf, "task=train", "dev=gpu", f"num_round={ROUNDS}",
+            f"max_round={ROUNDS}", f"model_dir={mdir}", f"seed={SEED}",
+            "print_step=0"]
+    made = []
+    create = AugmentIterator._create_mean_img
+
+    def counted_mean(self):
+        made.append(self.name_meanimg)
+        return create(self)
+
+    AugmentIterator._create_mean_img = counted_mean
+    t0 = time.perf_counter()
+    try:
+        # the main path: counts at 0 just before, read just after
+        with _Tee() as err:
+            _, tr, steps, losses, marks = _run_train_task(argv)
+    finally:
+        AugmentIterator._create_mean_img = create
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    want = {**{k.name: 0 for k in KERNELS}, **IMGBIN_PER_STEP}
+    want_paths = _main_paths(IMGBIN_PER_STEP)
+    log(f"imgbin train: {len(steps)} steps of {tr.batch_size} rows in "
+        f"{wall:.1f}s (CLI run, mean image and evaluation included); "
+        f"launches {launches}; losses {[round(v, 4) for v in losses]}")
+    n_steps = ROUNDS * -(-sum(IMGBIN_TRAIN) // BATCH)
+    if len(steps) != n_steps:
+        raise SmokeError(f"imgbin train ran {len(steps)} steps, not {n_steps}")
+    for i, (d, p) in enumerate(zip(steps, tr.paths)):
+        if d != want or p != want_paths:
+            raise SmokeError(f"imgbin training step {i} launched {d}, by C "
+                             f"entry {p}; expected {want}")
+    if not all(np.isfinite(losses)):
+        raise SmokeError(f"imgbin train: non-finite loss {losses}")
+    if made != [os.path.join(tmp, "image_mean.bin")]:
+        raise SmokeError(f"imgbin train: mean images made {made}, not one")
+    evals = [line for line in "".join(err.text).splitlines()
+             if line.startswith("[") and "val-" in line]
+    if len(evals) != ROUNDS:
+        raise SmokeError(f"imgbin train: eval lines {evals}")
+    log(f"imgbin train: mean image made once ({made[0]}.npz), read by the "
+        f"eval section; eval lines {evals}")
+    rates = _round_rates(marks, tr.batch_size, "img")
+    log(f"imgbin train: CLI round rates {[round(r, 1) for r in rates]} "
+        f"samples/s beside phase 5's synthetic "
+        f"{[round(r, 1) for r in synthetic_rates]}; {card}")
+    _chain_checks(conf)
+    chain = _chain_rates(conf, card)
+    bowl_rows = bowl_kernels(torch.device("cuda:0"))
+    err_bowl, bowl_launches = _bowl_pred_raw(tmp)
+    jpeg = _jpeg_check(tmp, conf, card)
+    return {"card": card, "steps": len(steps),
+            "launches": {k: v for k, v in launches.items() if v},
+            "per_step": want_paths,
+            "cli_round_samples_s": rates,
+            "synthetic_round_samples_s": synthetic_rates,
+            "chain_img_s": chain, "pred_raw_max_abs_err": err_bowl,
+            "pred_raw_launches": bowl_launches,
+            "bowl_kernels": [{k: r[k] for k in (
+                "kernel", "dtype", "shape", "max_abs_err", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "call_ms",
+                "library_call_ms")} for r in bowl_rows],
+            "jpeg": jpeg}
+
+
 def main() -> int:
     try:
         import torch
@@ -4793,11 +5359,12 @@ def main() -> int:
         return 2
     if not (os.path.isdir(os.path.join(REPO, "cxxnet_tpu_torch"))
             and all(os.path.exists(c) for c in (CONF, RESNET_CONF,
-                                                MNIST_CONF, DIGITS_CONF))):
+                                                MNIST_CONF, DIGITS_CONF,
+                                                BOWL_CONF, BOWL_PRED_CONF))):
         print("chip_smoke: run it from the root of a cxxnet-tpu checkout "
               "(cxxnet_tpu_torch/, example/ImageNet/{googlenet,resnet50}"
-              ".conf and example/MNIST/{MNIST_CONV,digits_conv}.conf)",
-              file=sys.stderr)
+              ".conf, example/MNIST/{MNIST_CONV,digits_conv}.conf and "
+              "example/kaggle_bowl/{bowl,pred}.conf)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     try:
@@ -4824,7 +5391,7 @@ def main() -> int:
             serve_launches, path, answers, wire_gn = serve_phase(tmp)
             int8_rows, quant_launches = quant_phase(tmp, path, answers)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-            train_launches, mdir, cfg = train_phase(tmp)
+            train_launches, mdir, cfg, synthetic_rates = train_phase(tmp)
             parity_phase(cfg, mdir)
             conf_rates_phase(cfg, mdir)
             guard = guard_phase(tmp, mdir, cfg)
@@ -4860,6 +5427,9 @@ def main() -> int:
         log(json.dumps(mnist_line(mrows, m_counts, d_counts, card)))
         log(json.dumps({"wire_warm_latency_ms": {
             "card": card, "GoogLeNet": wire_gn, "ResNet-50": wire_rn}}))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_imgbin_") as tmp:
+            imgbin_out = imgbin_phase(tmp, card, synthetic_rates)
+        log(json.dumps({"imgbin": imgbin_out}))
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
                             quant_launches)

@@ -30,9 +30,16 @@ row.
 ``example/ImageNet/resnet{50,101,152}.conf`` train as they stand
 (``batch_norm`` with ``bn_stats`` / ``bn_eval`` / ``bn_momentum``, the
 ``synthetic`` sections, ``metric = rec@1`` / ``rec@5``), and so do the
-``iter = mnist`` confs of ``example/MNIST`` once their idx files exist;
-``dev = tpu`` means the card.  ``update_period = N`` applies the
-updaters once per N batches, to their summed gradients.
+``iter = mnist`` confs of ``example/MNIST`` once their idx files exist,
+and the ``iter = imgbin`` confs of ``example/ImageNet`` and
+``example/kaggle_bowl`` once their pages exist (raw-pixel pages where
+PIL is missing); ``dev = tpu`` means the card.  ``update_period = N``
+applies the updaters once per N batches, to their summed gradients.
+Each round anchors the data chain's augmentation epoch to the round
+counter before it rewinds (``augment_epoch_next``), so a resumed round
+draws the augmentation an uninterrupted run draws, with or without
+``threadbuffer``.  ``fault_inject`` / ``fault_seed`` arm the fault sites
+of the data chain (``utils/faults.py``) for every task.
 
 ``task=finetune``: as ``train``, from a fresh init into which every
 layer of ``model_in`` (a checkpoint of either package) whose name and
@@ -279,6 +286,9 @@ class LearnTask:
                 + ", ".join(_TASKS))
         if self.task not in _TASKS:
             raise ValueError(f"unknown task {self.task!r}")
+        from .utils import faults
+
+        faults.configure(self.cfg)
         if self.task == "serve":
             self.task_serve()
         elif self.task in ("train", "finetune"):
@@ -548,11 +558,16 @@ class LearnTask:
     def _train_one_round(self, preempt, t_start: float) -> bool:
         """One pass over the data section; False when a preemption
         request stopped it after a batch."""
+        from .io.augment import ANCHOR_KEY
+
         tr = self.net_trainer
         round_ = self.start_counter - 1
         if not self.silent:
             print(f"update round {round_}", flush=True)
         tr.start_round(self.start_counter)
+        # the round's augmentation epoch is its counter, set before the
+        # rewind so that threadbuffer's producer takes it with the rewind
+        self.itr_train.set_param(ANCHOR_KEY, str(self.start_counter))
         self.itr_train.before_first()
         steps = 0
         t0 = time.perf_counter()

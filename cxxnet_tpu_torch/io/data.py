@@ -6,8 +6,10 @@ labels; ``num_batch_padd`` trailing rows of a batch are padding.  The
 ``iter = X`` chain is read in order: a base iterator at the bottom,
 ``threadbuffer`` wrapping the iterator below it, and the keys after an
 ``iter =`` line configure the current top of the chain, which forwards
-them down.  The port builds ``synthetic``, ``text``, ``mnist`` and
-``threadbuffer``; the other iterators raise ``NotImplementedError``.
+them down.  The port builds ``synthetic``, ``text``, ``mnist``,
+``imgbin``/``imgbinx`` and ``img`` (each as ``BatchAdapt(ParallelAugment(
+Augment(source)))``) and ``threadbuffer``; the other iterators raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,14 @@ import numpy as np
 
 ConfigEntry = Tuple[str, str]
 
-_LATER = ("imgbin", "imgbinx", "img", "csv", "libsvm",
-          "service", "membuffer", "attachtxt")
+_LATER = ("csv", "libsvm", "service", "membuffer", "attachtxt")
+
+#: Keys that take effect at the chain's next rewind, not when they are
+#: set.  A stage that rewinds the chain below it on another thread
+#: (``threadbuffer``) holds them and passes them down just before that
+#: rewind.  What each means is its reader's: ``augment_epoch_next`` is
+#: the augmenter's epoch anchor (io/augment.py).
+DEFERRED_KEYS = ("augment_epoch_next",)
 
 
 @dataclasses.dataclass
@@ -64,7 +72,12 @@ class DataIter:
 
 def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
     """Build an iterator chain from an ordered config section."""
+    from .augment import AugmentIterator
+    from .batch import BatchAdaptIterator
+    from .img import ImageIterator
+    from .imgbin import ImageBinIterator
     from .mnist import MNISTIterator
+    from .pipeline import ParallelAugmentIterator
     from .prefetch import ThreadBufferIterator
     from .synth import SyntheticIterator
     from .text import TextIterator
@@ -87,6 +100,14 @@ def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
                     raise ValueError(
                         "mnist cannot chain over another iterator")
                 it = MNISTIterator()
+            elif val in ("imgbin", "imgbinx", "img"):
+                if it is not None:
+                    raise ValueError(
+                        f"{val} cannot chain over another iterator")
+                source = (ImageIterator() if val == "img"
+                          else ImageBinIterator())
+                it = BatchAdaptIterator(ParallelAugmentIterator(
+                    AugmentIterator(source)))
             elif val == "threadbuffer":
                 if it is None:
                     raise ValueError("must specify input of threadbuffer")
@@ -96,8 +117,8 @@ def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
             elif val in _LATER:
                 raise NotImplementedError(
                     f"iter={val} is not ported yet (ROADMAP.md queue A "
-                    "item 5); the port reads iter=synthetic, iter=text and "
-                    "iter=mnist")
+                    "item 5); the port reads iter=synthetic, text, mnist, "
+                    "imgbin, imgbinx, img and threadbuffer")
             else:
                 raise ValueError(f"unknown iterator type {val!r}")
             continue

@@ -1,9 +1,9 @@
 """Threaded batch prefetch (``iter = threadbuffer``).
 
-The port's copy of ``cxxnet_tpu/io/prefetch.py`` (without its
-fault-injection site): a producer thread pulls batches from the wrapped
-iterator into a bounded queue, so host-side batch assembly overlaps the
-device's step.
+The port's copy of ``cxxnet_tpu/io/prefetch.py``: a producer thread
+pulls batches from the wrapped iterator into a bounded queue, so
+host-side batch assembly overlaps the device's step.  The producer
+visits the ``prefetch.producer`` fault site before each batch.
 
 Epoch restarts use a generation counter: ``before_first`` bumps it, the
 producer restarts the wrapped iterator when it sees a new generation,
@@ -13,6 +13,13 @@ exception in the wrapped iterator is relayed to the consumer's
 :class:`~cxxnet_tpu_torch.utils.faults.Watchdog` after
 ``watchdog_timeout_s`` (default 600, 0 disables).  ``close()`` stops and
 joins the producer.
+
+A key of ``DEFERRED_KEYS`` (io/data.py) is not passed down when it is
+set: it travels with the next rewind's generation, and the producer
+hands it to the wrapped chain just before that generation's
+``before_first()``.  A rewind on the producer's thread can thus never
+race it: round r draws the augmentation epoch the CLI anchored, as the
+plain chain does.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ import queue
 import threading
 from typing import Optional
 
+from ..utils import faults
 from ..utils.faults import Watchdog, WatchdogError
-from .data import DataBatch, DataIter
+from .data import DEFERRED_KEYS, DataBatch, DataIter
 
 _END = object()
 
@@ -48,8 +56,13 @@ class ThreadBufferIterator(DataIter):
         self._gen_lock = threading.Condition()
         self._stop = False
         self._closed = False
+        self._deferred = {}   # DEFERRED_KEYS set since the last rewind
+        self._by_gen = {}     # generation -> the keys it passes down
 
     def set_param(self, name, val):
+        if name in DEFERRED_KEYS:
+            self._deferred[name] = val
+            return
         self.base.set_param(name, val)
         if name == "buffer_size":
             self.buffer_size = int(val)
@@ -85,7 +98,12 @@ class ThreadBufferIterator(DataIter):
                 if self._stop:
                     return
                 gen = self._gen
+                deferred = self._by_gen.pop(gen, {})
+                self._by_gen = {g: d for g, d in self._by_gen.items()
+                                if g > gen}
             try:
+                for name, val in deferred.items():
+                    self.base.set_param(name, val)
                 self.base.before_first()
                 while True:
                     with self._gen_lock:
@@ -94,6 +112,7 @@ class ThreadBufferIterator(DataIter):
                         if self._gen != gen:
                             break  # consumer rewound; restart epoch
                     wd.beat()
+                    faults.fault_point("prefetch.producer")
                     if not self.base.next():
                         self._put((gen, _END))
                         break
@@ -122,6 +141,9 @@ class ThreadBufferIterator(DataIter):
             raise RuntimeError("ThreadBufferIterator: init() not called")
         with self._gen_lock:
             self._gen += 1
+            if self._deferred:
+                self._by_gen[self._gen] = self._deferred
+                self._deferred = {}
             self._gen_lock.notify_all()
 
     def next(self) -> bool:

@@ -1,26 +1,251 @@
-"""Fault handling: the stall watchdog, the retry policy, the breaker.
+"""Fault handling: injection, the bad-record budget, the stall watchdog,
+the retry policy, the breaker.
 
-The port's copy of three pieces of ``cxxnet_tpu/utils/faults.py``:
-``Watchdog`` (the serving batcher and the prefetch thread),
-``RetryPolicy`` (transient I/O retried with backoff: the serving
-engine's checkpoint loads) and ``CircuitBreaker`` (the hot-reload
-breaker).  The fault-injection registry (``fault_point``) and the
-bad-record budget wait for the imgbin chain (ROADMAP.md).
+The port's copy of these pieces of ``cxxnet_tpu/utils/faults.py``:
+
+* the fault-injection registry (``FaultInjector``, ``fault_point``,
+  ``install``, ``configure``, ``reset``): ``fault_inject =
+  site:kind:prob[:limit]`` arms a site, ``fault_seed`` seeds its draws
+  (one RNG per site and kind, so a schedule replays).  The port visits
+  the sites of its data chain (``imgbin.page``, ``imgbin.record``,
+  ``pipeline.worker``, ``prefetch.producer``); a spec naming any other
+  site of the JAX package raises ``NotImplementedError``, so nothing is
+  armed that would never fire;
+* ``BadRecordBudget``: skip-and-quarantine accounting with its
+  ``.quarantine`` sidecar (the imgbin chain's ``max_bad_records``);
+* ``Watchdog`` (the serving batcher, the prefetch thread, the decode
+  pool), ``RetryPolicy`` (transient I/O retried with backoff: the
+  serving engine's checkpoint loads) and ``CircuitBreaker`` (the
+  hot-reload breaker).
+
+The JAX package also emits obs events and counters here
+(``fault.injected``, ``data.quarantined``); they wait for ``obs/``
+(ROADMAP.md item (h)).
 """
 
 from __future__ import annotations
 
+import os
 import random
 import sys
 import threading
 import time
 import traceback
 import zlib
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+#: Every injection site of the JAX package and the fault kinds it takes.
+SITES: Dict[str, Tuple[str, ...]] = {
+    "imgbin.page": ("ioerror", "corrupt", "latency", "hang"),
+    "imgbin.record": ("corrupt",),
+    "csv.read": ("ioerror", "latency"),
+    "csv.row": ("corrupt",),
+    "libsvm.read": ("ioerror", "latency"),
+    "libsvm.row": ("corrupt",),
+    "text.read": ("ioerror", "latency"),
+    "prefetch.producer": ("latency", "hang"),
+    "pipeline.worker": ("latency", "hang"),
+    "checkpoint.write": ("ioerror", "latency", "enospc", "short"),
+    "checkpoint.read": ("ioerror", "latency"),
+    "serve.reload": ("ioerror", "latency"),
+    "serve.batch": ("ioerror", "latency", "hang"),
+    "loop.append": ("ioerror", "latency", "enospc"),
+    "loop.commit": ("ioerror", "enospc", "short"),
+    "obs.append": ("ioerror", "enospc"),
+    "mesh.replica": ("hang", "ioerror", "latency"),
+    "serve.replica": ("hang", "ioerror"),
+    "dataservice.rpc": ("ioerror", "latency", "hang"),
+    "device.state": ("bitflip",),
+}
+
+#: The sites the port visits.  The others raise at ``install``, naming
+#: the ROADMAP item that brings them (``_SITE_ITEM``).
+PORTED_SITES = ("imgbin.page", "imgbin.record", "pipeline.worker",
+                "prefetch.producer")
+_SITE_ITEM = {"serve.replica": "(i), the serving fleet"}
+
+
+class InjectedFault(OSError):
+    """An injected transient I/O failure (an ``OSError``, so retries and
+    the bad-record budget treat it as a real one)."""
+
+
+class InjectedCorruption(ValueError):
+    """Injected corruption at a site with no byte payload to mutate."""
 
 
 class WatchdogError(RuntimeError):
     """A monitored worker made no progress within the watchdog timeout."""
+
+
+class BadDataError(RuntimeError):
+    """The ``max_bad_records`` skip budget was exceeded; ``__cause__`` is
+    the error of the record that broke it."""
+
+
+# ----------------------------------------------------------------------
+# fault injection
+class FaultSpec:
+    """One armed fault: ``site:kind:prob[:limit]``."""
+
+    def __init__(self, site: str, kind: str, prob: float,
+                 limit: int = 0) -> None:
+        self.site = site
+        self.kind = kind
+        self.prob = float(prob)
+        self.limit = int(limit)  # 0: no limit
+        self.fired = 0
+        self.visits = 0
+
+
+def _corrupt_bytes(blob: bytes, rng: random.Random) -> bytes:
+    """Flip byte 0 (it kills format magics and raw headers) and up to
+    three bytes at the RNG's positions."""
+    b = bytearray(blob)
+    if not b:
+        return bytes(b)
+    b[0] ^= 0xFF
+    for _ in range(min(3, len(b) - 1)):
+        b[rng.randrange(len(b))] ^= 0xFF
+    return bytes(b)
+
+
+class FaultInjector:
+    """The process-wide registry of armed faults.  Draws are serialized
+    under a lock; each (site, kind) has its own RNG seeded from
+    ``(fault_seed, site, kind)``, so a site's firings depend only on its
+    own visits."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._by_site: Dict[str, List[FaultSpec]] = {}
+        self._rngs: Dict[Tuple[str, str], random.Random] = {}
+        self.seed = 0
+        self.latency_s = 0.05
+        self.hang_s = 3600.0
+        self._release = threading.Event()
+
+    def install(self, spec: str) -> FaultSpec:
+        """Arm one ``site:kind:prob[:limit]`` spec."""
+        parts = spec.split(":")
+        if len(parts) not in (3, 4):
+            raise ValueError(
+                f"fault_inject spec {spec!r}: want site:kind:prob[:limit]")
+        site, kind = parts[0], parts[1]
+        if site not in SITES:
+            raise ValueError(f"fault_inject: unknown site {site!r}; known: "
+                             f"{', '.join(sorted(SITES))}")
+        if kind not in SITES[site]:
+            raise ValueError(f"fault_inject: site {site!r} supports kinds "
+                             f"{SITES[site]}, not {kind!r}")
+        if site not in PORTED_SITES:
+            item = _SITE_ITEM.get(site, "(h), the trainer-bound planes")
+            raise NotImplementedError(
+                f"fault_inject: the port does not visit site {site!r} yet "
+                f"(ROADMAP.md item {item}); it injects at "
+                + ", ".join(PORTED_SITES))
+        prob = float(parts[2])
+        if not 0.0 <= prob <= 1.0:
+            raise ValueError(f"fault_inject: prob must be in [0,1], got {prob}")
+        fs = FaultSpec(site, kind, prob, int(parts[3]) if len(parts) == 4
+                       else 0)
+        with self._lock:
+            self._by_site.setdefault(site, []).append(fs)
+            self._rngs[(site, kind)] = random.Random(
+                (self.seed << 16) ^ zlib.crc32(f"{site}:{kind}".encode()))
+        return fs
+
+    def configure(self, cfg: Sequence[Tuple[str, str]]) -> None:
+        """Arm the specs of an ordered config stream: ``fault_seed``
+        (read before the specs it seeds), ``fault_latency_ms``,
+        ``fault_hang_s`` and any number of ``fault_inject``."""
+        for name, val in cfg:
+            if name == "fault_seed":
+                self.seed = int(val)
+            elif name == "fault_latency_ms":
+                self.latency_s = float(val) / 1e3
+            elif name == "fault_hang_s":
+                self.hang_s = float(val)
+            elif name == "fault_inject":
+                self.install(val)
+
+    def reset(self) -> None:
+        """Disarm everything and release the threads held at a hang."""
+        with self._lock:
+            self._by_site.clear()
+            self._rngs.clear()
+            self.seed = 0
+            self.latency_s = 0.05
+            self.hang_s = 3600.0
+            self._release.set()
+            self._release = threading.Event()
+
+    def specs(self) -> List[FaultSpec]:
+        with self._lock:
+            return [s for specs in self._by_site.values() for s in specs]
+
+    def fire_counts(self) -> Dict[str, int]:
+        return {f"{s.site}:{s.kind}": s.fired for s in self.specs()}
+
+    def fault_point(self, site: str, payload=None):
+        """The hook at a named site, given the record's bytes where there
+        are some; returns them (corrupted when a ``corrupt`` spec fires),
+        or sleeps, hangs or raises."""
+        if not self._by_site:
+            return payload
+        with self._lock:
+            firing: List[Tuple[FaultSpec, random.Random]] = []
+            for fs in self._by_site.get(site, ()):
+                fs.visits += 1
+                if fs.limit and fs.fired >= fs.limit:
+                    continue
+                rng = self._rngs[(site, fs.kind)]
+                if fs.prob >= 1.0 or rng.random() < fs.prob:
+                    fs.fired += 1
+                    firing.append((fs, rng))
+            release = self._release
+        for fs, rng in firing:
+            if fs.kind == "latency":
+                time.sleep(self.latency_s)
+            elif fs.kind == "hang":
+                release.wait(self.hang_s)  # reset() lets it go
+            elif fs.kind == "corrupt":
+                if isinstance(payload, (bytes, bytearray, memoryview)):
+                    payload = _corrupt_bytes(bytes(payload), rng)
+                else:
+                    raise InjectedCorruption(f"injected corruption at {site}")
+            else:  # ioerror
+                raise InjectedFault(f"injected I/O error at {site}")
+        return payload
+
+
+_INJECTOR = FaultInjector()
+
+
+def injector() -> FaultInjector:
+    return _INJECTOR
+
+
+def fault_point(site: str, payload=None):
+    """The hook the instrumented sites call (a dict lookup while nothing
+    is armed)."""
+    return _INJECTOR.fault_point(site, payload)
+
+
+def install(spec: str) -> FaultSpec:
+    return _INJECTOR.install(spec)
+
+
+def configure(cfg: Sequence[Tuple[str, str]]) -> None:
+    _INJECTOR.configure(cfg)
+
+
+def reset() -> None:
+    _INJECTOR.reset()
+
+
+# ----------------------------------------------------------------------
+# watchdog
 
 
 class Watchdog:
@@ -42,6 +267,10 @@ class Watchdog:
 
     def beat(self) -> None:
         self._last = time.monotonic()
+
+    def stalled_for(self) -> float:
+        """Seconds since the last beat."""
+        return time.monotonic() - self._last
 
     def diagnostic(self, dt: float) -> str:
         msg = (f"{self.what} made no progress for {dt:.1f}s "
@@ -238,3 +467,80 @@ class CircuitBreaker:
             "total_successes": self.total_successes,
             "times_opened": self.times_opened,
         }
+
+
+# ----------------------------------------------------------------------
+# skip-and-quarantine
+class BadRecordBudget:
+    """Skip-and-quarantine accounting for one data source.
+
+    ``max_bad_records`` bounds the skips of one epoch (``start_epoch``
+    resets the count).  Each skipped record appends ``offset\treason`` to
+    a ``<source>.quarantine`` sidecar (in ``quarantine_dir`` when set),
+    once per (source, offset) across epochs.  ``max_bad_records = 0`` is
+    strict: the first bad record raises :class:`BadDataError` and writes
+    no sidecar."""
+
+    def __init__(self, max_bad_records: int = 0, what: str = "data",
+                 silent: bool = False,
+                 quarantine_dir: Optional[str] = None) -> None:
+        self.max_bad_records = int(max_bad_records)
+        self.what = what
+        self.silent = silent
+        self.quarantine_dir = quarantine_dir
+        self.epoch_count = 0
+        self.total_count = 0
+        self.events: List[Tuple[str, object, str]] = []
+        self._seen: set = set()
+        self._sidecar_warned = False
+
+    def start_epoch(self) -> None:
+        self.epoch_count = 0
+
+    def _sidecar_path(self, source: str) -> str:
+        if self.quarantine_dir:
+            os.makedirs(self.quarantine_dir, exist_ok=True)
+            return os.path.join(self.quarantine_dir,
+                                os.path.basename(source) + ".quarantine")
+        return source + ".quarantine"
+
+    def record(self, source: str, offset, exc: BaseException,
+               note: str = "") -> None:
+        """Count one bad record or page; raise :class:`BadDataError` past
+        the budget.  ``note`` says what else the skip drops."""
+        reason = f"{type(exc).__name__}: {exc}"
+        if note:
+            reason += f" [{note}]"
+        self.epoch_count += 1
+        self.total_count += 1
+        key = (source, offset)
+        if key not in self._seen:
+            self._seen.add(key)
+            self.events.append((source, offset, reason))
+            if self.max_bad_records > 0:
+                try:
+                    with open(self._sidecar_path(source), "a",
+                              encoding="utf-8") as f:
+                        f.write(f"{offset}\t{reason}\n")
+                except OSError as e:
+                    if not self._sidecar_warned:
+                        self._sidecar_warned = True
+                        print(f"{self.what}: cannot write quarantine "
+                              f"sidecar ({e}); continuing without it",
+                              flush=True)
+        if self.epoch_count > self.max_bad_records:
+            raise BadDataError(
+                f"{self.what}: bad-record budget exceeded "
+                f"({self.epoch_count} bad records this epoch > "
+                f"max_bad_records={self.max_bad_records}); last: "
+                f"{source} @ {offset}: {reason}\n{self.summary()}") from exc
+        if not self.silent:
+            print(f"{self.what}: skipped bad record {source} @ {offset} "
+                  f"({reason}) [{self.epoch_count}/"
+                  f"{self.max_bad_records} this epoch]", flush=True)
+
+    def summary(self) -> str:
+        srcs = sorted({s for s, _, _ in self.events})
+        return (f"{self.what}: {self.total_count} bad record(s) skipped "
+                f"({len(self.events)} distinct) across "
+                f"{len(srcs)} source(s): {', '.join(srcs) or '-'}")

@@ -42,7 +42,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "cxxnet_tpu_torch.cli, cxxnet_tpu_torch.models, "
         "cxxnet_tpu_torch.nnet.generate, cxxnet_tpu_torch.io.text, "
         "cxxnet_tpu_torch.layers.sequence, cxxnet_tpu_torch.ops.flash, "
-        "cxxnet_tpu_torch.ops.quant, cxxnet_tpu_torch.nnet.quant\n"
+        "cxxnet_tpu_torch.ops.quant, cxxnet_tpu_torch.nnet.quant, "
+        "cxxnet_tpu_torch.io.pipeline, cxxnet_tpu_torch.io.img\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
         f" in {FORBIDDEN!r})))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
