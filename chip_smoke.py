@@ -324,9 +324,45 @@ Phases; any failure ends the run with a non-zero exit and no result:
    seeded ``save_model`` checkpoint, float32 with TF32 off: 200 rows of
    121 probabilities, the padding trimmed, K1 three times a forward on
    its f32 vector entry and nothing else, within ``F32_PROB_ATOL`` of
-   the CPU.  JPEG records: without PIL a ``raw_pixels = 0`` chain must
+   the CPU; K1 and K2 (phase 22c trains this net) at its three pools
+   against their plain versions, bit-equal, timed (``bowl_kernels``).  JPEG records: without PIL a ``raw_pixels = 0`` chain must
    refuse at ``init()`` naming ``raw_pixels``; with PIL, 32 JPEG records
    go through the chain.  An ``imgbin`` JSON line.
+22a. The conv rewrites at full width (run before phase 21's closing
+   lines): ``googlenet.conf``'s net, b128 bf16, ``dev=gpu``, phase 5's
+   ``LR_SCALE``, through ``LearnTask`` ``task=train`` on one synthetic
+   batch cached by ``iter = membuffer`` (``max_nbatch = 1``), three
+   steps each direct, ``conv_s2d = 1``, ``conv_wino = 1`` (F(4x4)) and
+   ``conv_wino = 2`` (F(2x2)): every step K1 13, K2 4, K3 9, K4 2, K5 2,
+   K6 9 on their main paths and K8 once (counts at 0 just before each
+   run), the rewrites' uses (``layers.conv.REWRITE_USES``) exactly the
+   sites shape inference gives once a step (s2d the stem alone;
+   Winograd each 3x3 stride-1 ungrouped conv over at least 8 channels),
+   every loss finite.  Each rewritten conv against the direct conv on
+   its own input from an f32 forward of 8 rows on the direct run's
+   weights (limits below); the four trainers' b128 steps in turns.
+22b. ``digits_conv.conf`` under ``compute_dtype = bfloat16`` with
+   ``conv_wino = 1`` and ``2``, 15 rounds each on the UCI digits, cuDNN
+   deterministic: every step K1 2 and K2 2 on their bf16 main paths and
+   K8 once, Winograd on ``cv2`` (32 channels in) only; round 15's test
+   error at most 6 % and the best of rounds 13-15 at most 4 % (the JAX
+   test's bounds), printed beside the CPU A/B log's figures.
+22c. ``bowl.conf``'s net at full width (3x40x40, batch 64, 121
+   classes) with its relus replaced by ``xelu`` (b 5.5; a ``torch:``
+   ``Conv2d`` in place of conv4), ``prelu`` (slope jitter 0.1; the last
+   pool a ``pairtest-max_pooling-insanity_max_pooling``) and
+   ``insanity`` (lb 3, ub 8, its calm window inside the run; the pools
+   ``insanity_max_pooling``, keep 0.9), a 2-wide side feature per row
+   (``extra_data_num = 1``) through ``fixconn`` -> ``bias`` ->
+   ``softplus`` joined to the flatten output before fc1; 640 seeded rows
+   through ``iter = csv`` -> ``attachtxt`` -> ``membuffer``, two rounds:
+   every step K1 3 and K2 3 on the f32 vector entries and K8 once, every
+   loss finite; each random layer in training on the card bit-equal to
+   its plain formula on the same on-card draws; each variant's eval
+   forward (f32, TF32 off) card against CPU within ``F32_PROB_ATOL``;
+   the ``torch:`` layer's ``blob`` tags trained and through
+   ``save_model``; the pairtest's ``compare`` 0 in eval.  A ``layers``
+   JSON line.
 21. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
    forward kernels; the LM training run for K9 and K10, with the
@@ -385,6 +421,12 @@ Tolerances (reasons in PERF.md):
   and cached against windowed;
 * the binary wire: each reply bit-equal to the JSON reply of the same
   rows at the same bucket;
+* the conv rewrites, per layer: f32 (TF32 off) s2d within
+  ``S2D_F32_REL`` of the layer's largest output (summation order),
+  Winograd within ``WINO_F32_ATOL`` of max(1, that largest)
+  (``tests/test_layers.py:533``); bf16 Winograd's error against the f32
+  direct conv within ``WINO_BF16_FACTOR`` times the bf16 direct conv's
+  plus 1e-3 of max(1, that largest) (``tests/test_layers.py:578``);
 * MNIST (``MNIST_*`` below): ``pred_raw``'s printed probabilities, card
   (TF32 off) against CPU, within ``MNIST_PROB_ATOL``; the weights after
   ``update_period = 2`` batches within ``MNIST_PERIOD_REL`` of each
@@ -4501,15 +4543,18 @@ def _held(tag: str, rows):
 
 def bowl_kernels(dev):
     """K1 at bowl.conf's three pools (``BOWL_POOLS``), float32 as its
-    ``pred_raw`` forward runs them: on the f32 vector entry, bit-equal
-    to the plain version, device times against the plain version and
-    ``F.max_pool2d``, the calls' times beside, and the bound."""
+    ``pred_raw`` forward runs them, and K2 there as phase 22c's training
+    steps run it: on the f32 vector entries, bit-equal to the plain
+    versions, device times against the plain versions and
+    ``F.max_pool2d`` (aten's backward), the calls' times beside, and the
+    bound."""
     import torch
 
     gen = torch.Generator().manual_seed(SEED + 71)
     return _held("bowl", [
-        check_kernel("maxpool_fwd", key, torch.float32, dev, gen,
-                     device_times=True) for key in BOWL_POOLS])
+        check_kernel(kernel, key, torch.float32, dev, gen,
+                     device_times=True)
+        for kernel in ("maxpool_fwd", "maxpool_bwd") for key in BOWL_POOLS])
 
 
 _PRED_SECTION = """
@@ -5347,6 +5392,558 @@ def imgbin_phase(tmp: str, card: str, synthetic_rates):
             "jpeg": jpeg}
 
 
+# ----------------------------------------------------------------------
+# phase 22: the rest of the layer zoo, the conv rewrites and the text
+# iterators (ROADMAP.md items (f) and (g))
+
+# 22a: googlenet.conf's net (b128 bf16) under each conv rewrite, three
+# SGD steps from one synthetic batch cached by membuffer; the rewrite's
+# own check per conv layer on the direct run's weights and PARITY_ROWS
+# rows: f32 (TF32 off) s2d within S2D_F32_REL of the layer's largest
+# output (summation order), Winograd within WINO_F32_ATOL of max(1, that
+# largest) (tests/test_layers.py:533); bf16 Winograd's error against the
+# f32 direct conv within WINO_BF16_FACTOR x the direct bf16 conv's plus
+# 1e-3 of max(1, that largest) (tests/test_layers.py:578)
+REWRITES = {"direct": (), "conv_s2d": ("conv_s2d=1",),
+            "wino_f4": ("conv_wino=1",), "wino_f2": ("conv_wino=2",)}
+REWRITE_STEPS = 3
+REWRITE_TIMED = 5  # steps a turn in the step-time turns
+S2D_F32_REL = 1e-5
+WINO_F32_ATOL = 2e-4
+WINO_BF16_FACTOR = {1: 25.0, 2: 3.0}
+# 22b: digits_conv.conf in bf16 under conv_wino = 1 and 2, held to the
+# JAX test's bounds (tests/test_accuracy.py:97-99): the best of rounds
+# 13-15 at most 4 %, round 15 at most 6 %; beside the CPU figures of
+# example/MNIST/wino_bf16_ab.log (round 15: F(4x4) 2.8 %, F(2x2) 2.0 %,
+# direct 0.8 %)
+WINO_TAIL_ERROR, WINO_LAST_ERROR = 0.04, 0.06
+WINO_AB_CPU = {"1": 0.028, "2": 0.020, "direct": 0.008}
+# 22c: bowl.conf's net (3x40x40, batch 64, 121 classes) with its relus
+# replaced, a 2-wide side feature per row (csv -> attachtxt -> membuffer)
+# through fixconn -> bias -> softplus beside the flatten output; two
+# rounds of the NDSB_ROWS rows; each step K1 3, K2 3 on the f32 vector
+# entries and K8 once
+NDSB_ROWS, NDSB_ROUNDS = 640, 2
+NDSB_PER_STEP = {"maxpool_fwd": 3, "maxpool_bwd": 3, "sgd_update": 1}
+NDSB_CALM = (5, 15)  # insanity's calm window, inside the run's 20 updates
+NDSB_FIXCONN = "4 2 5\n0 0 1.5\n1 1 -0.5\n2 0 0.25\n2 1 2\n3 1 1\n"
+NDSB_SIDE = """layer[in_1->side] = fixconn:side
+  nhidden = 4
+  fixconn_weight = {fix}
+layer[side->side] = bias:side_bias
+  init_bias = 0.1
+layer[side->side] = softplus
+layer[12,side->cat] = concat
+layer[cat->13] = fullc:fc1"""
+NDSB_VARIANTS = {
+    # relu -> xelu, and a torch: layer in place of conv4
+    "xelu": ((("= relu\n", "= xelu\n  b = 5.5\n"),
+              ("layer[8->9] = conv:conv4\n",
+               "layer[8->9] = torch:conv4\n  torch_op = \"torch.nn.Conv2d"
+               "(128, 128, 3, padding=1)\"\n")), ()),
+    # relu -> prelu (slope jitter 0.1), the last pool a pairtest
+    "prelu": ((("= relu\n", "= prelu\n  random = 0.1\n"),
+               ("layer[10->11] = max_pooling\n",
+                "layer[10->11] = pairtest-max_pooling-insanity_max_pooling\n"
+                "  keep = 0.9\n")), ()),
+    # relu -> insanity (its interval closing over NDSB_CALM), the pools
+    # -> insanity_max_pooling
+    "insanity": ((("= relu\n", "= insanity\n  lb = 3\n  ub = 8\n"
+                   f"  calm_start = {NDSB_CALM[0]}\n"
+                   f"  calm_end = {NDSB_CALM[1]}\n"),
+                  ("= max_pooling\n", "= insanity_max_pooling\n"
+                   "  keep = 0.9\n")), ()),
+}
+
+
+def _rewrite_sites(tr):
+    """``(s2d, wino)``: the conv layers each rewrite takes, read off the
+    net's shape inference (s2d: stride > 1 and ngroup 1; Winograd: 3x3,
+    stride 1, ngroup 1 and at least 8 input channels)."""
+    shapes = tr.net.node_shapes
+    s2d, wino = [], []
+    for i, spec in enumerate(tr.graph.layers):
+        if spec.type_name != "conv":
+            continue
+        p = tr.net.layer_objs[i].param
+        cin = shapes[spec.nindex_in[0]][3]
+        if p.stride > 1 and p.num_group == 1:
+            s2d.append(i)
+        if ((p.kernel_height, p.kernel_width, p.stride, p.num_group)
+                == (3, 3, 1, 1) and cin >= 8):
+            wino.append(i)
+    return s2d, wino
+
+
+def _set_rewrite(lay, how: str, variant: int = 0) -> None:
+    lay.conv_s2d = int(how == "conv_s2d")
+    lay.conv_wino = variant if how == "conv_wino" else 0
+
+
+def _rewrite_parity(tr, dev, s2d, wino):
+    """Each rewritten conv against the direct conv on its own input from
+    an f32 forward of ``PARITY_ROWS`` rows on the direct run's weights
+    (TF32 off): the f32 and bf16 errors, held to the limits above;
+    returns the worst share of each limit used."""
+    import torch
+
+    net = tr.net
+    side = net.input_node_shape(1)[1]
+    x = torch.randn(PARITY_ROWS, side, side, 3,
+                    generator=torch.Generator().manual_seed(SEED + 31)).to(dev)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cdt = net.compute_dtype
+    worst = {}
+    try:
+        net.compute_dtype = torch.float32
+        with torch.inference_mode():
+            prep32 = net.prepare(tr.params)
+            nodes = net.forward(prep32, x)
+            for i in s2d + wino:
+                lay, spec = net.layer_objs[i], tr.graph.layers[i]
+                key = net.param_key[i]
+                xin = nodes[spec.nindex_in[0]]
+                p32 = prep32["layers"][key]
+                p16 = lay.prepare(tr.params[key], torch.bfloat16)
+                _set_rewrite(lay, "")
+                ref = lay.apply(p32, [xin])[0]
+                d16 = lay.apply(p16, [xin.bfloat16()])[0]
+                scale = float(ref.abs().max())
+                e_direct = float((d16.float() - ref).abs().max())
+                cases = ([("conv_s2d", 0)] if i in s2d else [])
+                cases += ([("conv_wino", 1), ("conv_wino", 2)]
+                          if i in wino else [])
+                for how, v in cases:
+                    _set_rewrite(lay, how, v)
+                    e32 = float((lay.apply(p32, [xin])[0] - ref).abs().max())
+                    e16 = float((lay.apply(p16, [xin.bfloat16()])[0].float()
+                                 - ref).abs().max())
+                    _set_rewrite(lay, "")
+                    if how == "conv_s2d":
+                        tag, lim32 = "s2d", S2D_F32_REL * scale
+                        lim16 = None
+                    else:
+                        tag = f"wino_f{4 if v == 1 else 2}"
+                        lim32 = WINO_F32_ATOL * max(1.0, scale)
+                        lim16 = (WINO_BF16_FACTOR[v] * e_direct
+                                 + 1e-3 * max(1.0, scale))
+                    name = tr.graph.layers[i].name
+                    if e32 > lim32 or (lim16 is not None and e16 > lim16):
+                        raise SmokeError(
+                            f"{tag} at {name}: f32 error {e32:.3g} (limit "
+                            f"{lim32:.3g}), bf16 {e16:.3g} (limit "
+                            f"{lim16}; direct bf16 {e_direct:.3g}), largest "
+                            f"output {scale:.3g}")
+                    w = worst.setdefault(tag, {"f32": 0.0, "bf16": 0.0})
+                    w["f32"] = max(w["f32"], e32 / lim32)
+                    if lim16 is not None:
+                        w["bf16"] = max(w["bf16"], e16 / lim16)
+    finally:
+        net.compute_dtype = cdt
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return worst
+
+
+def _step_turns(trainers, batch, dev):
+    """Each trainer's ``update`` step on one device-resident batch, in
+    turns (the order reversed every round): host clock around
+    ``REWRITE_TIMED`` steps, after a synchronised warm-up step; ms a
+    step per round."""
+    import torch
+
+    times = {n: [] for n in trainers}
+    order = list(trainers.items())
+    for r in range(2):
+        for n, tr in (order if r % 2 == 0 else order[::-1]):
+            tr.update(batch)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(REWRITE_TIMED):
+                tr.update(batch)
+            torch.cuda.synchronize(dev)
+            times[n].append((time.perf_counter() - t0) * 1e3 / REWRITE_TIMED)
+    return times
+
+
+def rewrite_phase(tmp: str, card: str):
+    """22a: ``task=train`` on googlenet.conf's net, one synthetic batch
+    of ``BATCH`` rows cached by ``membuffer`` (``max_nbatch = 1``), bf16,
+    ``dev=gpu``, phase 5's ``LR_SCALE``, ``REWRITE_STEPS`` steps each:
+    direct, ``conv_s2d = 1``, ``conv_wino = 1`` and ``conv_wino = 2``.
+    Every step launches K1-K6 as in phase 5 on their main paths and K8
+    once; the rewrites' uses are the sites shape inference gives (s2d
+    the stem alone) once a step; every loss finite.  Then the rewrites'
+    parity on the direct run's weights and the four trainers' step
+    times in turns."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.layers import conv as tconv
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    conf = _synthetic_conf(tmp, "googlenet_membuffer.conf",
+                           (("data", "train", BATCH, False),), LR_SCALE)
+    with open(conf) as f:
+        text = f.read()
+    with open(conf, "w") as f:
+        f.write(text.replace("iter = end", "iter = membuffer\n"
+                             "  max_nbatch = 1\niter = end", 1))
+    want = {**{k.name: 0 for k in KERNELS}, **IMGBIN_PER_STEP}
+    want_paths = _main_paths(PER_STEP)
+    trainers, out = {}, {"losses": {}, "uses_per_step": {}, "wall_s": {}}
+    for name, extra in REWRITES.items():
+        tconv.REWRITE_USES.clear()
+        t0 = time.perf_counter()
+        _, tr, steps, losses, _ = _run_train_task(
+            [conf, "task=train", "dev=gpu", f"num_round={REWRITE_STEPS}",
+             f"max_round={REWRITE_STEPS}", "save_model=0",
+             f"model_dir={os.path.join(tmp, name)}", f"seed={SEED}",
+             "print_step=0", *extra])
+        out["wall_s"][name] = round(time.perf_counter() - t0, 2)
+        uses = dict(tconv.REWRITE_USES)
+        s2d, wino = _rewrite_sites(tr)
+        sites = {"direct": {}, "conv_s2d": {"conv_s2d": len(s2d)},
+                 "wino_f4": {"conv_wino": len(wino)},
+                 "wino_f2": {"conv_wino": len(wino)}}[name]
+        if ([tr.graph.layers[i].name for i in s2d] != ["conv1"]
+                or not wino):
+            raise SmokeError(f"rewrite sites: s2d {s2d}, wino {wino}")
+        if len(steps) != REWRITE_STEPS or any(d != want for d in steps) or any(
+                p != want_paths for p in tr.paths):
+            raise SmokeError(f"rewrites {name}: steps {steps}, by C entry "
+                             f"{tr.paths}; expected {want}, {want_paths}")
+        if uses != {k: v * REWRITE_STEPS for k, v in sites.items()}:
+            raise SmokeError(f"rewrites {name}: uses {uses}, expected "
+                             f"{sites} a step over {REWRITE_STEPS} steps")
+        if not all(np.isfinite(losses)):
+            raise SmokeError(f"rewrites {name}: losses {losses}")
+        out["losses"][name] = list(losses)
+        out["uses_per_step"][name] = sites
+        trainers[name] = tr
+        log(f"rewrites {name}: {len(steps)} steps, launches a step "
+            f"{steps[0]}, rewrite uses {uses}, losses "
+            f"{[round(v, 4) for v in losses]}")
+    out["parity"] = _rewrite_parity(trainers["direct"], trainers[
+        "direct"].device, *_rewrite_sites(trainers["direct"]))
+    log(f"rewrites: parity, the worst share of each limit {out['parity']}")
+    dev = trainers["direct"].device
+    side = trainers["direct"].net.input_node_shape(1)[1]
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    batch = DataBatch(
+        data=torch.randn(BATCH, side, side, 3, device=dev, generator=g),
+        label=torch.randint(0, 1000, (BATCH, 1), device=dev,
+                            generator=g).float())
+    out["step_ms"] = _step_turns(trainers, batch, dev)
+    log("rewrites: b128 bf16 step ms in turns (host clock, update() on a "
+        f"device-resident batch) {json.dumps(out['step_ms'])} ({card})")
+    return out
+
+
+def wino_digits_phase(tmp: str, card: str):
+    """22b: ``digits_conv.conf`` under ``compute_dtype = bfloat16`` with
+    ``conv_wino = 1`` and ``2`` on the card, 15 rounds each, cuDNN in its
+    deterministic mode: every step K1 2 and K2 2 on the bf16 main
+    paths and K8 once; cv2 (32 channels in) takes Winograd, cv1 (1 in)
+    does not; the test error held to the JAX test's bounds."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch.layers import conv as tconv
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.tools.make_digits_idx import write_digits_idx
+
+    write_digits_idx(os.path.join(tmp, "data"))
+    want = {**{k.name: 0 for k in KERNELS}, **DIGITS_PER_STEP}
+    want_paths = _main_paths(DIGITS_PER_STEP)
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for wino in ("1", "2"):
+            tconv.REWRITE_USES.clear()
+            t0 = time.perf_counter()
+            with _Tee() as tee:
+                _, tr, steps, losses, _ = _run_train_task(
+                    [DIGITS_CONF, "dev=tpu", "print_step=0",
+                     "compute_dtype=bfloat16", f"conv_wino={wino}"])
+            wall = time.perf_counter() - t0
+            errors = dict(_eval_errors("".join(tee.text)))
+            uses = dict(tconv.REWRITE_USES)
+            if (any(d != want for d in steps)
+                    or any(p != want_paths for p in tr.paths)):
+                raise SmokeError(f"digits wino {wino}: launches {steps[0]}, "
+                                 f"by C entry {tr.paths[0]}; expected {want}")
+            wino_layers = [tr.graph.layers[i].name for i in
+                           _rewrite_sites(tr)[1]]
+            if wino_layers != ["cv2"] or uses.get("conv_wino", 0) < len(steps):
+                raise SmokeError(f"digits wino {wino}: sites {wino_layers}, "
+                                 f"uses {uses} over {len(steps)} steps")
+            tail = [errors.get(r, np.inf) for r in (13, 14, 15)]
+            log(f"digits_conv bf16 conv_wino={wino}: {len(steps)} steps in "
+                f"{wall:.1f}s; test error by round "
+                + ", ".join(f"[{r}] {e:g}" for r, e in sorted(errors.items()))
+                + f"; round 15 {tail[-1]:g} beside the CPU A/B's "
+                f"{WINO_AB_CPU[wino]:g} (direct {WINO_AB_CPU['direct']:g}) "
+                f"({card})")
+            if (len(errors) != 15 or not all(np.isfinite(losses))
+                    or min(tail) > WINO_TAIL_ERROR
+                    or tail[-1] > WINO_LAST_ERROR):
+                raise SmokeError(f"digits wino {wino}: test errors {errors}")
+            out[f"conv_wino={wino}"] = {
+                "steps": len(steps), "test_error": [
+                    errors[r] for r in sorted(errors)],
+                "cpu_round15": WINO_AB_CPU[wino], "wall_s": round(wall, 2)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        os.chdir(cwd)
+    return out
+
+
+def _ndsb_data(d: str):
+    """``NDSB_ROWS`` seeded rows of bowl.conf's shape as csv (label, then
+    the CHW pixels), a 2-wide side feature per row (attachtxt's file),
+    and fixconn's sparse 4x2 weight; returns the rows and features."""
+    import numpy as np
+
+    rs = np.random.RandomState(SEED + 40)
+    x = rs.randn(NDSB_ROWS, 3 * BOWL_SIDE * BOWL_SIDE).astype(np.float32)
+    y = rs.randint(0, BOWL_CLASSES, NDSB_ROWS)
+    side = rs.randn(NDSB_ROWS, 2).astype(np.float32)
+    np.savetxt(os.path.join(d, "train.csv"),
+               np.concatenate([y[:, None].astype(np.float32), x], 1),
+               fmt="%.5g", delimiter=",")
+    with open(os.path.join(d, "side.txt"), "w") as f:
+        f.writelines(f"{i} {a:.6g} {b:.6g}\n" for i, (a, b) in
+                     enumerate(side))
+    with open(os.path.join(d, "fix.txt"), "w") as f:
+        f.write(NDSB_FIXCONN)
+    rows = np.loadtxt(os.path.join(d, "train.csv"), delimiter=",",
+                      dtype=np.float32)
+    feats = np.loadtxt(os.path.join(d, "side.txt"), dtype=np.float32)[:, 1:]
+    return rows, feats
+
+
+def _ndsb_conf(d: str, variant: str) -> str:
+    """bowl.conf's net and globals with the variant's substitutions and
+    the side branch, over csv -> attachtxt -> membuffer."""
+    text = open(BOWL_CONF).read()
+    net = text[text.index("netconfig = start"):]
+    for old, new in NDSB_VARIANTS[variant][0]:
+        if old not in net:
+            raise SmokeError(f"bowl.conf: {old.strip()!r} not found")
+        net = net.replace(old, new)
+    fc1 = "layer[12->13] = fullc:fc1"
+    if fc1 not in net:
+        raise SmokeError(f"bowl.conf: {fc1!r} not found")
+    net = net.replace(fc1, NDSB_SIDE.format(fix=os.path.join(d, "fix.txt")))
+    head = f"""extra_data_num = 1
+extra_data_shape[0] = 1,1,2
+data = train
+iter = csv
+  filename = {os.path.join(d, "train.csv")}
+  silent = 1
+iter = attachtxt
+  attach_file = {os.path.join(d, "side.txt")}
+  silent = 1
+iter = membuffer
+  silent = 1
+iter = end
+"""
+    path = os.path.join(d, f"ndsb_{variant}.conf")
+    with open(path, "w") as f:
+        f.write(head + net + f"seed = {SEED}\n")
+    return path
+
+
+def _plain_random(lay, params, x, u, step):
+    """The plain formula of a random layer in training on draws ``u``."""
+    import torch
+
+    from cxxnet_tpu_torch.ops import maxpool as ops_mp
+
+    kind = lay.type_name
+    if kind == "insanity":
+        lb, ub = lay.interval(step)
+        return torch.where(x > 0, x, x / (u * (ub - lb) + lb))
+    if kind == "prelu":
+        mask = torch.clamp(params["bias"] * (1.0 + (u * 2.0 - 1.0)
+                                             * lay.random), 0.0, 1.0)
+        return torch.where(x > 0, x, x * mask)
+    n, h, w, c = x.shape
+    i = torch.arange(h, device=x.device)
+    j = torch.arange(w, device=x.device)
+    up = x[:, (i - 1).clamp(min=0)]
+    down = x[:, (i + 1).clamp(max=h - 1)]
+    left = x[:, :, (j - 1).clamp(min=0)]
+    right = x[:, :, (j + 1).clamp(max=w - 1)]
+    k, d = lay.p_keep, (1.0 - lay.p_keep) / 4.0
+    xj = torch.where(u < k, x, torch.where(u < k + d, up, torch.where(
+        u < k + 2 * d, down, torch.where(u < k + 3 * d, left, right))))
+    p = lay.param
+    return ops_mp.maxpool_plain(xj, p.kernel_height, p.kernel_width,
+                                p.stride, p.pad_y, p.pad_x)
+
+
+def _random_checks(tr, dev):
+    """Each random layer of ``tr``'s net in training on the card against
+    its plain formula fed the same on-card draws (a generator of one
+    seed twice); returns ``{layer: max abs error}``, each required 0."""
+    import torch
+
+    errs = {}
+    for i, spec in enumerate(tr.graph.layers):
+        lay = tr.net.layer_objs[i]
+        kind = getattr(lay, "type_name", "")
+        if kind not in ("insanity", "prelu", "insanity_max_pooling"):
+            continue
+        if kind == "prelu" and not lay.random:
+            continue
+        shape = tr.net.node_shapes[spec.nindex_in[0]]
+        x = torch.randn(shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(i))
+        key = tr.net.param_key[i]
+        params = lay.prepare(tr.params[key], torch.float32) if (
+            key in tr.params) else {}
+        step = 0  # insanity's full interval (past the calm window the
+        # slope is the midpoint's, as at eval)
+        with torch.no_grad():
+            got = lay.apply(params, [x], train=True, gen=torch.Generator(
+                device=dev).manual_seed(SEED + i), step=step)[0]
+            u = torch.rand(x.shape, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(SEED + i))
+            plain = _plain_random(lay, params, x, u, step)
+            still = lay.apply(params, [x], train=False, step=step)[0]
+        name = f"{spec.name or kind}@{i}"
+        errs[name] = float((got - plain).abs().max())
+        if errs[name] != 0.0 or torch.equal(got, still):
+            raise SmokeError(f"{name}: training output against its plain "
+                             f"formula {errs[name]} (must be 0), or equal "
+                             "to the eval output")
+    return errs
+
+
+def ndsb_phase(tmp: str, card: str):
+    """22c: bowl.conf's net, relu replaced by xelu (b 5.5; a ``torch:``
+    Conv2d for conv4), prelu (slope jitter 0.1; the last pool a
+    ``pairtest-max_pooling-insanity_max_pooling``) and insanity (lb 3,
+    ub 8, calm window inside the run; the pools insanity_max_pooling,
+    keep 0.9); the side feature through fixconn -> bias -> softplus
+    beside the flatten output; ``task=train`` 2 rounds of 10 steps from
+    csv -> attachtxt -> membuffer.  Every step K1 3 and K2 3 on the f32
+    vector entries and K8 once (counts at 0 just before each run); every
+    loss finite; the random layers on the card against their plain
+    formulas on the same draws; each variant's eval forward (f32, TF32
+    off) card against CPU within ``F32_PROB_ATOL``; the torch: layer's
+    blobs through ``save_model``; the pairtest's ``compare`` 0."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    d = os.path.join(tmp, "ndsb")
+    os.makedirs(d)
+    rows, feats = _ndsb_data(d)
+    x = rows[:64, 1:].reshape(64, 3, BOWL_SIDE, BOWL_SIDE).transpose(
+        0, 2, 3, 1).copy()
+    extras = [feats[:64]]
+    out = {}
+    for variant in NDSB_VARIANTS:
+        conf = _ndsb_conf(d, variant)
+        mdir = os.path.join(d, f"m_{variant}")
+        t0 = time.perf_counter()
+        _, tr, steps, losses, marks = _run_train_task(
+            [conf, "task=train", "dev=gpu", f"num_round={NDSB_ROUNDS}",
+             f"max_round={NDSB_ROUNDS}", f"model_dir={mdir}",
+             "print_step=0"])
+        wall = time.perf_counter() - t0
+        n_steps = NDSB_ROUNDS * NDSB_ROWS // tr.batch_size
+        if len(steps) != n_steps or not all(np.isfinite(losses)):
+            raise SmokeError(f"ndsb {variant}: {len(steps)} steps (want "
+                             f"{n_steps}), losses {losses}")
+        _hold_steps(f"ndsb {variant}", steps, tr.paths, NDSB_PER_STEP)
+        dev = tr.device
+        ends = [m[2] for m in marks if m[0] == "step"]
+        step_ms = statistics.median(np.diff(ends)) * 1e3
+        row = {"steps": len(steps), "per_step": steps[0],
+               "loss_first_last": [losses[0], losses[-1]],
+               "median_step_ms": step_ms, "wall_s": round(wall, 2),
+               "random_layers": _random_checks(tr, dev)}
+        last = os.path.join(mdir, f"{NDSB_ROUNDS:04d}.model")
+        cfg = cfgmod.parse_file(conf)
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            probs = {}
+            for where in ("gpu", "cpu"):
+                ev = NetTrainer()
+                ev.set_params(cfg + [("dev", where), ("silent", "1")])
+                ev.load_model(last)
+                probs[where] = ev.predict_fn()(ev.params, ev.aux, x,
+                                               extras).cpu().numpy()
+                if where == "gpu":
+                    card_tr = ev
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        err = float(np.abs(probs["gpu"] - probs["cpu"]).max())
+        row["card_vs_cpu_prob_abs"] = err
+        if (probs["gpu"].shape != (64, BOWL_CLASSES) or err > F32_PROB_ATOL
+                or not np.isfinite(probs["gpu"]).all()):
+            raise SmokeError(f"ndsb {variant}: eval card vs CPU {err} "
+                             f"(limit {F32_PROB_ATOL}), shape "
+                             f"{probs['gpu'].shape}")
+        if variant == "xelu":
+            key = next(tr.net.param_key[i] for i, spec in
+                       enumerate(tr.graph.layers) if spec.name == "conv4")
+            blobs = tr.params[key]
+            back = card_tr.params[key]
+            first = NetTrainer._read_model_file(
+                os.path.join(mdir, "0000.model"))[1][key]
+            if (sorted(blobs) != ["blob0", "blob1"] or any(
+                    not torch.equal(blobs[t], back[t]) for t in blobs)
+                    or np.array_equal(first["blob0"],
+                                      blobs["blob0"].cpu().numpy())):
+                raise SmokeError("ndsb xelu: the torch: layer's blobs did not "
+                                 "train or did not round-trip save_model")
+            row["torch_blobs"] = {t: list(w.shape) for t, w in blobs.items()}
+        if variant == "prelu":
+            i = next(i for i, spec in enumerate(card_tr.graph.layers)
+                     if spec.type_name.startswith("pairtest-"))
+            net = card_tr.net
+            with torch.inference_mode():
+                nodes = net.forward(card_tr._prepared_for(card_tr.params),
+                                    torch.from_numpy(x).to(dev),
+                                    extras=[torch.from_numpy(e).to(dev)
+                                            for e in extras])
+                cmp = float(net.layer_objs[i].compare(
+                    {}, [nodes[card_tr.graph.layers[i].nindex_in[0]]]))
+            row["pairtest_compare"] = cmp
+            if cmp != 0.0:
+                raise SmokeError(f"ndsb prelu: pairtest compare {cmp}")
+        if variant == "insanity":
+            ins = next(lay for lay in tr.net.layer_objs
+                       if getattr(lay, "type_name", "") == "insanity")
+            row["insanity_interval"] = {
+                s: ins.interval(s) for s in (0, 10, tr.epoch_counter)}
+            if (ins.interval(0) != (3.0, 8.0)
+                    or ins.interval(tr.epoch_counter) != (5.5, 5.5)):
+                raise SmokeError(f"ndsb insanity: interval "
+                                 f"{row['insanity_interval']}")
+        log(f"ndsb {variant}: {json.dumps(row)}")
+        out[variant] = row
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5430,6 +6027,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_imgbin_") as tmp:
             imgbin_out = imgbin_phase(tmp, card, synthetic_rates)
         log(json.dumps({"imgbin": imgbin_out}))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+            zoo = {"card": card, "googlenet_rewrites": rewrite_phase(tmp, card),
+                   "digits_wino_bf16": wino_digits_phase(tmp, card),
+                   "ndsb": ndsb_phase(tmp, card)}
+        log(json.dumps({"layers": zoo}))
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
                             quant_launches)

@@ -619,7 +619,8 @@ class LearnTask:
                         for r in rows.reshape(rows.shape[0], -1)[:n]:
                             fo.write(" ".join(f"{v:g}" for v in r) + " \n")
                     else:
-                        for v in self.net_trainer.predict(batch.data)[:n]:
+                        for v in self.net_trainer.predict(
+                                batch.data, batch.extra_data)[:n]:
                             if np.ndim(v):  # sequence models: (T,) ids
                                 fo.write(" ".join(f"{t:g}" for t in v) + "\n")
                             else:

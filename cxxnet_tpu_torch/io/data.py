@@ -8,8 +8,13 @@ labels; ``num_batch_padd`` trailing rows of a batch are padding.  The
 ``iter =`` line configure the current top of the chain, which forwards
 them down.  The port builds ``synthetic``, ``text``, ``mnist``,
 ``imgbin``/``imgbinx`` and ``img`` (each as ``BatchAdapt(ParallelAugment(
-Augment(source)))``) and ``threadbuffer``; the other iterators raise
-``NotImplementedError``.
+Augment(source)))``), ``csv`` (``BatchAdapt(CSV)``), ``libsvm``, and the
+wrappers ``threadbuffer``, ``membuffer`` and ``attachtxt``; ``service``
+(the data service) raises ``NotImplementedError``.
+
+A batch may carry the CSR form of sparse rows (``sparse_row_ptr``,
+``sparse_index``, ``sparse_value``; ``iter = libsvm`` fills them) and
+side inputs (``extra_data``; ``iter = attachtxt`` appends one).
 """
 
 from __future__ import annotations
@@ -20,8 +25,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 ConfigEntry = Tuple[str, str]
-
-_LATER = ("csv", "libsvm", "service", "membuffer", "attachtxt")
 
 #: Keys that take effect at the chain's next rewind, not when they are
 #: set.  A stage that rewinds the chain below it on another thread
@@ -41,10 +44,26 @@ class DataBatch:
     inst_index: Optional[np.ndarray] = None
     num_batch_padd: int = 0
     extra_data: List[np.ndarray] = dataclasses.field(default_factory=list)
+    #: CSR row pointer, shape (N+1,), int64; None for a dense batch
+    sparse_row_ptr: Optional[np.ndarray] = None
+    #: CSR column indices, shape (nnz,), int32
+    sparse_index: Optional[np.ndarray] = None
+    #: CSR values, shape (nnz,), float32
+    sparse_value: Optional[np.ndarray] = None
 
     @property
     def batch_size(self) -> int:
         return self.data.shape[0]
+
+    def is_sparse(self) -> bool:
+        return self.sparse_row_ptr is not None
+
+    def get_row_sparse(self, rid: int):
+        """Row ``rid`` of the CSR part as ``(indices, values)``."""
+        if not self.is_sparse():
+            raise ValueError("GetRowSparse on a dense batch")
+        lo, hi = self.sparse_row_ptr[rid], self.sparse_row_ptr[rid + 1]
+        return self.sparse_index[lo:hi], self.sparse_value[lo:hi]
 
 
 class DataIter:
@@ -72,10 +91,14 @@ class DataIter:
 
 def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
     """Build an iterator chain from an ordered config section."""
+    from .attach_txt import AttachTxtIterator
     from .augment import AugmentIterator
     from .batch import BatchAdaptIterator
+    from .csv import CSVIterator
     from .img import ImageIterator
     from .imgbin import ImageBinIterator
+    from .libsvm import LibSVMIterator
+    from .membuffer import MemBufferIterator
     from .mnist import MNISTIterator
     from .pipeline import ParallelAugmentIterator
     from .prefetch import ThreadBufferIterator
@@ -108,17 +131,35 @@ def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
                           else ImageBinIterator())
                 it = BatchAdaptIterator(ParallelAugmentIterator(
                     AugmentIterator(source)))
+            elif val == "csv":
+                if it is not None:
+                    raise ValueError("csv cannot chain over another iterator")
+                it = BatchAdaptIterator(CSVIterator())
+            elif val == "libsvm":
+                if it is not None:
+                    raise ValueError(
+                        "libsvm cannot chain over another iterator")
+                it = LibSVMIterator()
             elif val == "threadbuffer":
                 if it is None:
                     raise ValueError("must specify input of threadbuffer")
                 it = ThreadBufferIterator(it)
+            elif val == "membuffer":
+                if it is None:
+                    raise ValueError("must specify input of membuffer")
+                it = MemBufferIterator(it)
+            elif val == "attachtxt":
+                if it is None:
+                    raise ValueError("must specify input of attachtxt")
+                it = AttachTxtIterator(it)
             elif val == "end":
                 continue
-            elif val in _LATER:
+            elif val == "service":
                 raise NotImplementedError(
-                    f"iter={val} is not ported yet (ROADMAP.md queue A "
-                    "item 5); the port reads iter=synthetic, text, mnist, "
-                    "imgbin, imgbinx, img and threadbuffer")
+                    f"iter={val} is not ported yet (ROADMAP.md item (h), "
+                    "the data service); the port reads iter=synthetic, "
+                    "text, mnist, imgbin, imgbinx, img, csv, libsvm, "
+                    "threadbuffer, membuffer and attachtxt")
             else:
                 raise ValueError(f"unknown iterator type {val!r}")
             continue

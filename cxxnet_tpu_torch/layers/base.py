@@ -206,7 +206,23 @@ def register(cls):
 
 
 def create_layer(type_name: str) -> Layer:
-    """Factory by config name; ``shared[...]`` is resolved by the net."""
+    """Factory by config name; ``pairtest-<master>-<slave>`` composes two
+    layer types (``layers/pairtest.py``), ``torch`` is the plugin layer
+    (``plugin/torch_adapter.py``, loaded on demand); ``shared[...]`` is
+    resolved by the net."""
+    if type_name.startswith("pairtest-"):
+        from .pairtest import PairTestLayer
+
+        rest = type_name[len("pairtest-"):]
+        if "-" not in rest:
+            raise ValueError(
+                f'unknown layer type: "{type_name}" (pairtest needs '
+                "pairtest-<master>-<slave>)")
+        master_name, slave_name = rest.split("-", 1)
+        return PairTestLayer(create_layer(master_name),
+                             create_layer(slave_name))
+    if type_name == "torch" and type_name not in _REGISTRY:
+        from ..plugin import torch_adapter  # noqa: F401 - registers "torch"
     if type_name not in _REGISTRY:
         raise ValueError(
             f'unknown layer type: "{type_name}" (ROADMAP.md queue A lists '

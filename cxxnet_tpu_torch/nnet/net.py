@@ -4,7 +4,10 @@ Counterpart of ``cxxnet_tpu/nnet/net.py``, the predict and the train
 forward:
 
 * node 0 is the input; ``input_shape = C,H,W`` maps to a flat ``(N, W)``
-  node when ``C == H == 1`` else an NHWC image node;
+  node when ``C == H == 1`` else an NHWC image node; ``extra_data_num =
+  k`` adds the side-input nodes ``in_1..in_k`` (nodes 1..k), shaped from
+  ``extra_data_shape[i]`` by the same rule and fed from the batch's
+  ``extra_data`` (``forward(..., extras=)``), cast to the compute dtype;
 * layers are configured with the global defaults first, then their own
   section;
 * shared layers reuse the primary layer's parameters;
@@ -38,7 +41,9 @@ forward:
   ``forward_train(..., aux=)``: a layer with ``apply_stateful`` whose
   key is in ``aux`` reads its state there and the new state replaces it
   in the dict (a shared stateful layer's later occurrence reads what the
-  earlier one wrote); ``step`` is the decode loop's absolute position.
+  earlier one wrote); ``step`` is the decode loop's absolute position
+  at predict time and the update counter in training (``insanity``'s
+  anneal reads it).
   No layer moves past another here (the sibling-1x1 groups hold convs
   only), so the stateful-layer order is the declaration order.
 
@@ -48,13 +53,14 @@ later slices (ROADMAP.md).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..layers import Layer, LossLayer, create_layer
 from ..layers.conv import ConvolutionLayer
 from ..layers.linear import FullConnectLayer
+from ..layers.pairtest import PairTestLayer
 from ..layers.structure import SplitLayer
 from ..ops import kernels as _klib
 from ..ops import quant as opsq
@@ -66,10 +72,6 @@ class FunctionalNet:
     """Executable (eval) form of a NetGraph."""
 
     def __init__(self, graph: NetGraph) -> None:
-        if graph.extra_data_num:
-            raise NotImplementedError(
-                "nets with extra_data nodes are not ported yet (ROADMAP.md "
-                "queue A item 5)")
         self.graph = graph
         self.batch_size = 0
         self.update_period = 1
@@ -152,11 +154,20 @@ class FunctionalNet:
             return (batch_size, w)
         return (batch_size, h, w, c)
 
+    def extra_node_shape(self, k: int, batch_size: int) -> Tuple[int, ...]:
+        """The shape of side-input node ``in_{k+1}``."""
+        c, h, w = self.graph.extra_shape[k]
+        if c == 1 and h == 1:
+            return (batch_size, w)
+        return (batch_size, h, w, c)
+
     def infer_shapes(self, batch_size: int) -> List[Tuple[int, ...]]:
         """Run shape inference over the DAG; returns per-node shapes."""
         g = self.graph
         shapes: List[Optional[Tuple[int, ...]]] = [None] * g.num_nodes
         shapes[0] = self.input_node_shape(batch_size)
+        for k in range(g.extra_data_num):
+            shapes[k + 1] = self.extra_node_shape(k, batch_size)
         for i, spec in enumerate(g.layers):
             in_shapes = []
             for n in spec.nindex_in:
@@ -322,25 +333,33 @@ class FunctionalNet:
 
     def forward(self, prepared: Dict[str, object], data: torch.Tensor,
                 aux: Optional[Dict[str, dict]] = None,
-                step: Optional[int] = None) -> List[Optional[torch.Tensor]]:
+                step: Optional[int] = None,
+                extras: Sequence[torch.Tensor] = ()
+                ) -> List[Optional[torch.Tensor]]:
         """The predict forward of ``data`` (the input node's tensor, on
-        the params' device); returns every node's value.  ``aux`` (from
-        ``init_aux``) is updated in place; ``step`` is the absolute
-        position of the first token under ``decode = 1``."""
-        return self._run(prepared, data, aux=aux, step=step)[0]
+        the params' device) and the side inputs ``extras``; returns every
+        node's value.  ``aux`` (from ``init_aux``) is updated in place;
+        ``step`` is the absolute position of the first token under
+        ``decode = 1``."""
+        return self._run(prepared, data, aux=aux, step=step,
+                         extras=extras)[0]
 
     def forward_train(self, params: Dict[str, dict], data: torch.Tensor,
                       labels: torch.Tensor, mask: Optional[torch.Tensor],
                       gen: Optional[torch.Generator],
-                      aux: Optional[Dict[str, dict]] = None):
+                      aux: Optional[Dict[str, dict]] = None,
+                      step: Optional[int] = None,
+                      extras: Sequence[torch.Tensor] = ()):
         """The train forward from the f32 master ``params``: returns
         ``(nodes, loss)`` with the summed, scaled f32 loss of every loss
         layer, differentiable back to the masters.  ``labels`` is the
         ``(N, label_width)`` label matrix, ``mask`` the ``(N,)`` 0/1 row
-        weight, ``gen`` the step's generator for dropout; ``aux`` (from
-        ``init_aux``) takes each stateful layer's new state in place."""
+        weight, ``gen`` the step's generator for the random layers,
+        ``step`` the update counter; ``aux`` (from ``init_aux``) takes
+        each stateful layer's new state in place."""
         return self._run(self.prepare(params), data, labels=labels,
-                         mask=mask, train=True, gen=gen, aux=aux)
+                         mask=mask, train=True, gen=gen, aux=aux, step=step,
+                         extras=extras)
 
     def _label_field(self, labels: torch.Tensor, target: str) -> torch.Tensor:
         g = self.graph
@@ -352,13 +371,18 @@ class FunctionalNet:
         return labels[:, a:b]
 
     def _run(self, prepared, data, labels=None, mask=None, train=False,
-             gen=None, aux=None, step=None):
+             gen=None, aux=None, step=None, extras=()):
         g = self.graph
         cdt = self.compute_dtype
         layers, groups = prepared["layers"], prepared["groups"]
         out_idx = self.out_node_index()
         nodes: List[Optional[torch.Tensor]] = [None] * g.num_nodes
         nodes[0] = data if self._node0_wants_ints() else data.to(cdt)
+        if len(extras) != g.extra_data_num:
+            raise ValueError(f"the net has {g.extra_data_num} extra_data "
+                             f"node(s); {len(extras)} side input(s) given")
+        for k, e in enumerate(extras):
+            nodes[k + 1] = e.to(cdt)
         loss = torch.zeros((), dtype=torch.float32, device=data.device)
         batch = self.batch_size if self.batch_size > 0 else data.shape[0]
         fuse_groups, fuse_member = (
@@ -384,6 +408,9 @@ class FunctionalNet:
             inputs = [nodes[n] for n in spec.nindex_in]
             if any(v is None for v in inputs):
                 raise ValueError(f"layer {i}: unset input node")
+            if isinstance(lay, PairTestLayer) and isinstance(lay.master,
+                                                             LossLayer):
+                lay = lay.master
             if isinstance(lay, LossLayer):
                 logits = inputs[0].float()
                 if labels is not None:

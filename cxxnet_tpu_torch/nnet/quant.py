@@ -80,12 +80,22 @@ def _layer_kinds(net) -> Dict[str, str]:
 
 def build_plan(trainer, scheme: str = "int8") -> Dict[str, str]:
     """``param_key -> "int8" | "bf16"`` for every quantizable layer of
-    ``trainer``'s net: all ``scheme``."""
+    ``trainer``'s net: all ``scheme``, but a conv that opted into a
+    rewrite (``conv_wino`` / ``conv_s2d``) stays bf16 under ``int8``: the
+    quantized apply is the direct conv, which would override the
+    rewrite."""
     if scheme not in SCHEMES:
         raise ValueError(f"quant scheme must be one of {SCHEMES}, "
                          f"got {scheme!r}")
-    return {key: scheme for key in _layer_kinds(trainer.net)
-            if key in (trainer.params or {})}
+    net = trainer.net
+    kinds = _layer_kinds(net)
+    plan = {}
+    for key, lay in zip(net.param_key, net.layer_objs):
+        if key not in kinds or key not in (trainer.params or {}):
+            continue
+        rewritten = kinds[key] == "conv" and (lay.conv_wino or lay.conv_s2d)
+        plan[key] = "bf16" if rewritten else scheme
+    return plan
 
 
 def _out_axis(kind: str) -> int:
@@ -132,8 +142,10 @@ def top1_agreement(tr_ref, tr_cand, eval_iter,
     while eval_iter.next():
         batch = eval_iter.value()
         n = batch.batch_size - batch.num_batch_padd
-        pr = np.asarray(tr_ref.predict(batch.data))[:n]
-        pc = np.asarray(tr_cand.predict(batch.data))[:n]
+        pr = np.asarray(tr_ref.predict(batch.data,
+                                       batch.extra_data))[:n]
+        pc = np.asarray(tr_cand.predict(batch.data,
+                                       batch.extra_data))[:n]
         eq = pr.reshape(n, -1) == pc.reshape(n, -1)
         agree += int(eq.all(axis=1).sum())
         total += n

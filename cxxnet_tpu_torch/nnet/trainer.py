@@ -28,7 +28,12 @@ updaters once per N micro-batches, to the sum; ``epoch_counter``, the
 updaters' schedule clock, advances only then, while the layer state
 (batch norm's running statistics) and the train metrics update on every
 micro-batch, as in the JAX package.  Multi-device training raises
-``NotImplementedError`` (ROADMAP.md).
+``NotImplementedError`` (ROADMAP.md).  The training forward gets the
+update counter as ``step`` (``insanity``'s anneal).
+
+A net with ``extra_data`` nodes takes the batch's ``extra_data`` in
+``update`` (padded like ``data`` for a short batch), ``predict``,
+``extract_feature`` and ``evaluate``.
 
 The divergence guard (``divergence_policy = abort|rollback``; off by
 default) reads each micro-batch's loss back to the host, one sync a
@@ -493,14 +498,14 @@ class NetTrainer:
         net, dev = self.net, self.device
 
         def f(params, aux, data, extras=()):
-            if extras:
-                raise ValueError("nets with extra_data nodes are not ported yet")
             x = torch.as_tensor(data, dtype=torch.float32).to(dev)
+            ex = [torch.as_tensor(e, dtype=torch.float32).to(dev)
+                  for e in extras]
             prepared = self._prepared_for(params)
             with torch.inference_mode():
                 # the eval forward reads the layer state, never keeps it
                 return net.forward(prepared, x, aux=dict(aux) if aux
-                                   else None)[node_id].float()
+                                   else None, extras=ex)[node_id].float()
 
         return f
 
@@ -537,13 +542,16 @@ class NetTrainer:
 
     def extract_feature(self, batch: DataBatch, node_name: str) -> np.ndarray:
         """The eval-forward value of node ``node_name`` (``top[-k]`` or a
-        node name) for ``batch.data``, as f32 numpy."""
+        node name) for ``batch.data`` and its ``extra_data``, as f32
+        numpy."""
         f = self._forward_fn(self.resolve_feature_node(node_name))
-        return f(self.params, self.aux, batch.data).cpu().numpy()
+        return f(self.params, self.aux, batch.data,
+                 batch.extra_data).cpu().numpy()
 
-    def predict(self, data: np.ndarray) -> np.ndarray:
-        """Per-instance prediction for a numpy batch."""
-        out = self.predict_fn()(self.params, self.aux, data)
+    def predict(self, data: np.ndarray, extras: Sequence = ()) -> np.ndarray:
+        """Per-instance prediction for a numpy batch (and its side
+        inputs, for a net with ``extra_data`` nodes)."""
+        out = self.predict_fn()(self.params, self.aux, data, extras)
         return self.predict_from_scores(out.cpu().numpy())
 
     # ------------------------------------------------------------------
@@ -557,15 +565,12 @@ class NetTrainer:
             torch.cuda.synchronize(self.device)
 
     def _pad_train_batch(self, batch: DataBatch):
-        """``(data, label, mask, n_real)``: a short batch zero-padded to
-        ``batch_size`` with a 0/1 row mask that keeps the padded rows out
-        of the loss; the trailing ``num_batch_padd`` rows of a full batch
-        are masked the same way.  A batch whose ``data`` and ``label``
-        are already tensors on the device passes through unpadded."""
-        if batch.extra_data:
-            raise NotImplementedError(
-                "nets with extra_data nodes are not ported yet (ROADMAP.md "
-                "queue A item 5)")
+        """``(data, label, extras, mask, n_real)``: a short batch (its
+        ``extra_data`` too) zero-padded to ``batch_size`` with a 0/1 row
+        mask that keeps the padded rows out of the loss; the trailing
+        ``num_batch_padd`` rows of a full batch are masked the same way.
+        A batch whose ``data`` and ``label`` are already tensors on the
+        device passes through unpadded."""
         n = batch.data.shape[0]
         bs = self.batch_size or n
         if n > bs:
@@ -578,19 +583,23 @@ class NetTrainer:
             if n != bs:
                 raise ValueError(f"a device-resident batch must hold "
                                  f"batch_size={bs} rows, got {n}")
-            return batch.data, batch.label, mask, n_real
-        data = np.asarray(batch.data, np.float32)
-        label = np.asarray(batch.label, np.float32)
-        if n < bs:
-            pad = bs - n
-            data = np.concatenate(
-                [data, np.zeros((pad,) + data.shape[1:], np.float32)])
-            label = np.concatenate(
-                [label, np.zeros((pad,) + label.shape[1:], np.float32)])
-        return data, label, mask, n_real
+            return (batch.data, batch.label, list(batch.extra_data), mask,
+                    n_real)
+
+        def padded(a):
+            a = np.asarray(a, np.float32)
+            if n == bs:
+                return a
+            return np.concatenate(
+                [a, np.zeros((bs - n,) + a.shape[1:], np.float32)])
+
+        return (padded(batch.data), padded(batch.label),
+                [padded(e) for e in batch.extra_data], mask, n_real)
 
     def _step_generator(self) -> torch.Generator:
-        """The micro-batch's generator for dropout, on the trainer's
+        """The micro-batch's generator for the random layers (dropout,
+        ``prelu``'s jitter, ``insanity``, ``insanity_max_pooling``), on
+        the trainer's
         device (Philox on a card), seeded from ``(seed, epoch_counter,
         sample_counter)`` so a resumed run draws what an uninterrupted
         one drew."""
@@ -599,15 +608,15 @@ class NetTrainer:
         gen.manual_seed((self.seed * 1000003 + micro) & 0x7FFFFFFFFFFFFFFF)
         return gen
 
-    def _node_pred_cache(self, data: np.ndarray, n_real: int) -> dict:
+    def _node_pred_cache(self, data: np.ndarray, extras, n_real: int) -> dict:
         """Eval forwards for the train metric's ``metric[field,node]``
         entries, on the weights before the update."""
         cache = {}
         for node in self.train_metric.nodes:
             if node is not None and node not in cache:
                 f = self._forward_fn(self.graph.node_index_of(node))
-                cache[node] = f(self.params, self.aux,
-                                data).cpu().numpy()[:n_real]
+                cache[node] = f(self.params, self.aux, data,
+                                extras).cpu().numpy()[:n_real]
         return cache
 
     def update(self, batch: DataBatch) -> None:
@@ -623,14 +632,17 @@ class NetTrainer:
                 f"this trainer serves a quantized model ({self.quant_scheme})"
                 " and is inference-only: train on the f32 checkpoint and "
                 "export again")
-        data_in, label_in, mask_np, n_real = self._pad_train_batch(batch)
+        data_in, label_in, extras_in, mask_np, n_real = (
+            self._pad_train_batch(batch))
         dev = self.device
         data = torch.as_tensor(data_in, dtype=torch.float32, device=dev)
         labels = torch.as_tensor(label_in, dtype=torch.float32, device=dev)
+        extras = [torch.as_tensor(e, dtype=torch.float32, device=dev)
+                  for e in extras_in]
         mask = torch.from_numpy(mask_np).to(dev)
         node_cache = {}
         if self.eval_train and self.train_metric.need_nodes():
-            node_cache = self._node_pred_cache(data_in, n_real)
+            node_cache = self._node_pred_cache(data_in, extras_in, n_real)
         flat = [(key, tag, w) for key, tags in self.params.items()
                 for tag, w in tags.items()]
         leaves = {}
@@ -639,7 +651,7 @@ class NetTrainer:
         with torch.enable_grad():
             nodes, loss = self.net.forward_train(
                 leaves, data, labels, mask, self._step_generator(),
-                aux=self.aux)
+                aux=self.aux, step=self.epoch_counter, extras=extras)
             out = nodes[self.net.out_node_index()].detach()
             del nodes  # only the graph keeps what the backward needs
             grads = torch.autograd.grad(
@@ -777,7 +789,8 @@ class NetTrainer:
         while iter_eval.next():
             batch = iter_eval.value()
             n = batch.batch_size - batch.num_batch_padd
-            outs = {k: f(self.params, self.aux, batch.data).cpu().numpy()[:n]
+            outs = {k: f(self.params, self.aux, batch.data,
+                         batch.extra_data).cpu().numpy()[:n]
                     for k, f in fns.items()}
             self.metric.add_eval([outs[k] for k in nodes], batch.label[:n],
                                  self._label_ranges())

@@ -8,15 +8,18 @@ The port's copy of these pieces of ``cxxnet_tpu/utils/faults.py``:
   site:kind:prob[:limit]`` arms a site, ``fault_seed`` seeds its draws
   (one RNG per site and kind, so a schedule replays).  The port visits
   the sites of its data chain (``imgbin.page``, ``imgbin.record``,
-  ``pipeline.worker``, ``prefetch.producer``); a spec naming any other
-  site of the JAX package raises ``NotImplementedError``, so nothing is
-  armed that would never fire;
+  ``pipeline.worker``, ``prefetch.producer``, ``csv.read``, ``csv.row``,
+  ``libsvm.read``, ``libsvm.row``); a spec naming any other site of the
+  JAX package raises ``NotImplementedError``, so nothing is armed that
+  would never fire;
 * ``BadRecordBudget``: skip-and-quarantine accounting with its
-  ``.quarantine`` sidecar (the imgbin chain's ``max_bad_records``);
+  ``.quarantine`` sidecar (``max_bad_records`` of the imgbin chain and
+  the text readers);
 * ``Watchdog`` (the serving batcher, the prefetch thread, the decode
   pool), ``RetryPolicy`` (transient I/O retried with backoff: the
-  serving engine's checkpoint loads) and ``CircuitBreaker`` (the
-  hot-reload breaker).
+  serving engine's checkpoint loads, the text readers' file reads,
+  ``retried_read_lines``) and ``CircuitBreaker`` (the hot-reload
+  breaker).
 
 The JAX package also emits obs events and counters here
 (``fault.injected``, ``data.quarantined``); they wait for ``obs/``
@@ -61,7 +64,8 @@ SITES: Dict[str, Tuple[str, ...]] = {
 #: The sites the port visits.  The others raise at ``install``, naming
 #: the ROADMAP item that brings them (``_SITE_ITEM``).
 PORTED_SITES = ("imgbin.page", "imgbin.record", "pipeline.worker",
-                "prefetch.producer")
+                "prefetch.producer", "csv.read", "csv.row", "libsvm.read",
+                "libsvm.row")
 _SITE_ITEM = {"serve.replica": "(i), the serving fleet"}
 
 
@@ -108,6 +112,20 @@ def _corrupt_bytes(blob: bytes, rng: random.Random) -> bytes:
     for _ in range(min(3, len(b) - 1)):
         b[rng.randrange(len(b))] ^= 0xFF
     return bytes(b)
+
+
+def _corrupt_text(text: str, rng: random.Random) -> str:
+    """A text record with its leading field made unparseable: ``~`` at
+    position 0 and at up to two of the RNG's positions (``~`` starts no
+    comment in any text format read here, so the row is parsed and
+    fails)."""
+    chars = list(text)
+    if not chars:
+        return "~"
+    chars[0] = "~"
+    for _ in range(min(2, len(chars) - 1)):
+        chars[rng.randrange(len(chars))] = "~"
+    return "".join(chars)
 
 
 class FaultInjector:
@@ -180,6 +198,11 @@ class FaultInjector:
             self._release.set()
             self._release = threading.Event()
 
+    def armed(self, *sites: str) -> bool:
+        """Is a spec armed at one of ``sites``?  (A reader's fast path
+        that skips the per-record hooks asks this.)"""
+        return any(self._by_site.get(s) for s in sites)
+
     def specs(self) -> List[FaultSpec]:
         with self._lock:
             return [s for specs in self._by_site.values() for s in specs]
@@ -188,9 +211,9 @@ class FaultInjector:
         return {f"{s.site}:{s.kind}": s.fired for s in self.specs()}
 
     def fault_point(self, site: str, payload=None):
-        """The hook at a named site, given the record's bytes where there
-        are some; returns them (corrupted when a ``corrupt`` spec fires),
-        or sleeps, hangs or raises."""
+        """The hook at a named site, given the record's bytes or text
+        where there are some; returns them (corrupted when a ``corrupt``
+        spec fires), or sleeps, hangs or raises."""
         if not self._by_site:
             return payload
         with self._lock:
@@ -212,6 +235,8 @@ class FaultInjector:
             elif fs.kind == "corrupt":
                 if isinstance(payload, (bytes, bytearray, memoryview)):
                     payload = _corrupt_bytes(bytes(payload), rng)
+                elif isinstance(payload, str):
+                    payload = _corrupt_text(payload, rng)
                 else:
                     raise InjectedCorruption(f"injected corruption at {site}")
             else:  # ioerror
@@ -331,6 +356,10 @@ class RetryPolicy:
     from an RNG seeded per policy and call site, so a schedule
     replays."""
 
+    #: the keys :meth:`from_cfg` reads; the readers pass exactly these on
+    CONFIG_KEYS = ("retry_attempts", "retry_base_delay", "retry_max_delay",
+                   "retry_jitter", "retry_deadline_s")
+
     def __init__(self, attempts: int = 4, base_delay: float = 0.05,
                  max_delay: float = 2.0, jitter: float = 0.25,
                  deadline_s: float = 0.0,
@@ -393,6 +422,21 @@ class RetryPolicy:
                           f"retry {k}/{self.attempts - 1} in {delay:.2f}s",
                           flush=True)
                 _sleep(delay)
+
+
+def retried_read_lines(path: str, site: str, retry_cfg,
+                       silent: bool = False) -> List[str]:
+    """The lines of ``path`` under the configured :class:`RetryPolicy`,
+    through the fault site ``site``.  A byte that is not UTF-8 becomes
+    U+FFFD, so it spoils one row (which a budget can skip), not the
+    read."""
+    def _read():
+        fault_point(site)
+        with open(path, "r", encoding="utf-8", errors="replace") as f:
+            return f.readlines()
+
+    return RetryPolicy.from_cfg(retry_cfg).run(
+        _read, what=f"reading {path}", silent=silent)
 
 
 # ----------------------------------------------------------------------

@@ -40,7 +40,17 @@ running statistics within 1e-5); one step of ``nag``, ``rmsprop``,
 ``adagrad``, ``lars`` and ``lamb`` against the CPU within 1e-5; K1 and
 K2 at the MNIST nets' pools (a partial last window, 2x2 outputs) on
 their vector entries, bit-equal; and ``update_period = 2`` on the card
-(K8 on every second micro-batch, the weights within 1e-5 of the CPU's).
+(K8 on every second micro-batch, the weights within 1e-5 of the CPU's);
+the conv rewrites (``conv_s2d``, Winograd F(4x4) and F(2x2)) on the
+card against the CPU, forward and gradients in f32 with TF32 off
+(within 1e-5 of the largest), and in bf16 the forward's error against
+the f32 direct conv within the JAX tests' bf16 profile; ``prelu``'s
+jitter,
+``insanity`` and ``insanity_max_pooling`` in training on the card
+bit-equal to their formulas on the same on-card draws; a side-input
+net (csv + attachtxt, ``fixconn``, ``bias``, ``softplus``, a ``torch:``
+conv) stepped on the card against the CPU (f32, TF32 off, updates
+within 1e-4 of each tensor's largest).
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -1256,3 +1266,192 @@ def test_cuda_update_period_two_matches_cpu(cuda_device, tmp_path):
         for tag, w in tags.items():
             got = trs["gpu"].params[key][tag].cpu()
             assert (got - w).abs().max() <= 1e-5 * w.abs().max(), (key, tag)
+
+
+def _no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return saved
+
+
+def _restore_tf32(saved):
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+# bf16: a rewrite's error against the f32 direct conv within this many
+# times the bf16 direct conv's, plus 1e-3 of max(1, the largest output)
+# (tests/test_layers.py:578 for Winograd; s2d sums the same products in
+# another order)
+BF16_REWRITE_FACTOR = {"conv_s2d": 2.0, "1": 25.0, "2": 3.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg,uses", [
+    ((("kernel_size", "7"), ("stride", "2"), ("pad", "3"),
+      ("conv_s2d", "1")), "conv_s2d"),
+    ((("kernel_size", "3"), ("pad", "1"), ("conv_wino", "1")), "conv_wino"),
+    ((("kernel_size", "3"), ("pad", "1"), ("conv_wino", "2")), "conv_wino"),
+])
+def test_cuda_conv_rewrites_match_cpu(cuda_device, cfg, uses, dtype):
+    """f32 (TF32 off): the card against the CPU, forward and gradients,
+    within 1e-5 of each tensor's largest.  bf16 on the card: the
+    rewrite's forward error against the f32 direct conv within the
+    bf16 profile above."""
+    from cxxnet_tpu_torch.layers import conv as tconv
+
+    lay = create_layer("conv")
+    for k, v in cfg + (("nchannel", "24"),):
+        lay.set_param(k, v)
+    gen = torch.Generator().manual_seed(3)
+    shape = (4, 30, 29, 16)
+    lay.infer_shape([shape])
+    p = {t: torch.randn(v.shape, generator=gen) * 0.2
+         for t, v in lay.init_params(gen, [shape]).items()}
+    x = torch.randn(shape, generator=gen)
+    g = torch.randn((4,) + tuple(lay.infer_shape([shape])[0][1:]),
+                    generator=gen)
+
+    def run(dev, dt, how=uses):
+        xs = x.to(dev, dt).detach().requires_grad_(True)
+        ps = {k: v.to(dev).detach().requires_grad_(True)
+              for k, v in p.items()}
+        lay.conv_s2d = int(dict(cfg).get("conv_s2d", 0)) if how else 0
+        lay.conv_wino = int(dict(cfg).get("conv_wino", 0)) if how else 0
+        tconv.REWRITE_USES.clear()
+        (y,) = lay.apply(lay.prepare(ps, dt), [xs])
+        assert tconv.REWRITE_USES == ({how: 1} if how else {})
+        y.backward(g.to(dev, dt))
+        return [t.detach().float().cpu() for t in
+                (y, xs.grad, ps["wmat"].grad, ps["bias"].grad)]
+
+    saved = _no_tf32()
+    try:
+        if dtype == torch.float32:
+            for got, ref in zip(run(cuda_device, dtype), run("cpu", dtype)):
+                assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+            return
+        ref = run(cuda_device, torch.float32, how="")[0]
+        e_direct = (run(cuda_device, dtype, how="")[0] - ref).abs().max()
+        e_rewrite = (run(cuda_device, dtype)[0] - ref).abs().max()
+    finally:
+        _restore_tf32(saved)
+    factor = BF16_REWRITE_FACTOR[dict(cfg).get("conv_wino", "conv_s2d")]
+    scale = max(1.0, float(ref.abs().max()))
+    assert e_rewrite <= factor * e_direct + 1e-3 * scale, (
+        float(e_rewrite), float(e_direct))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg,shape", [
+    ("prelu", (("random", "0.3"),), (8, 12, 11, 16)),
+    ("insanity", (("lb", "3"), ("ub", "8")), (8, 12, 11, 16)),
+    ("insanity_max_pooling", (("kernel_size", "3"), ("stride", "2"),
+                              ("keep", "0.7")), (8, 12, 11, 16)),
+])
+def test_cuda_random_layers_match_their_formula(cuda_device, name, cfg,
+                                                shape):
+    lay = create_layer(name)
+    for k, v in cfg:
+        lay.set_param(k, v)
+    lay.infer_shape([shape])
+    params = {t: (v + 0.1).to(cuda_device) for t, v in
+              lay.init_params(torch.Generator(), [shape]).items()}
+    x = torch.randn(shape, device=cuda_device)
+    got = lay.apply(params, [x], train=True, gen=torch.Generator(
+        device=cuda_device).manual_seed(11))[0]
+    u = torch.rand(shape, device=cuda_device,
+                   generator=torch.Generator(device=cuda_device)
+                   .manual_seed(11))
+    if name == "prelu":
+        mask = torch.clamp(params["bias"] * (1 + (2 * u - 1) * 0.3), 0, 1)
+        ref = torch.where(x > 0, x, x * mask)
+    elif name == "insanity":
+        ref = torch.where(x > 0, x, x / (u * 5.0 + 3.0))
+    else:
+        h, w = shape[1], shape[2]
+        i = torch.arange(h, device=cuda_device)
+        j = torch.arange(w, device=cuda_device)
+        nb = [x[:, (i - 1).clamp(min=0)], x[:, (i + 1).clamp(max=h - 1)],
+              x[:, :, (j - 1).clamp(min=0)], x[:, :, (j + 1).clamp(max=w - 1)]]
+        d = (1.0 - 0.7) / 4.0
+        xj = nb[3]
+        for k in range(2, -1, -1):
+            xj = torch.where(u < 0.7 + (k + 1) * d, nb[k], xj)
+        xj = torch.where(u < 0.7, x, xj)
+        ref = maxpool.maxpool_plain(xj, 3, 3, 2)
+    assert torch.equal(got, ref)
+    assert not torch.equal(got, lay.apply(params, [x])[0])
+
+
+SIDE_CUDA = """
+extra_data_num = 1
+extra_data_shape[0] = 1,1,2
+netconfig = start
+layer[0->1] = conv:c1
+  kernel_size = 3
+  pad = 1
+  nchannel = 8
+layer[1->1] = xelu
+layer[1->2] = torch:t1
+  torch_op = "torch.nn.Conv2d(8, 8, 3, padding=1)"
+layer[2->3] = max_pooling
+  kernel_size = 2
+  stride = 2
+layer[3->4] = flatten
+layer[in_1->5] = fixconn:fx
+  nhidden = 3
+  fixconn_weight = {fix}
+layer[5->5] = bias
+layer[5->5] = softplus
+layer[4,5->6] = concat
+layer[6->7] = fullc:fc
+  nhidden = 4
+layer[7->7] = softmax
+netconfig = end
+input_shape = 3,8,8
+batch_size = 4
+eta = 0.1
+momentum = 0.9
+compute_dtype = float32
+seed = 3
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_side_input_net_step_matches_cpu(cuda_device, tmp_path):
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as tcfg
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    (tmp_path / "fix.txt").write_text("3 2 3\n0 0 1.5\n1 1 -0.5\n2 0 2\n")
+    conf = SIDE_CUDA.format(fix=tmp_path / "fix.txt")
+    rs = np.random.RandomState(0)
+    batch = DataBatch(data=rs.randn(4, 8, 8, 3).astype(np.float32),
+                      label=rs.randint(0, 4, (4, 1)).astype(np.float32),
+                      extra_data=[rs.randn(4, 2).astype(np.float32)])
+    init = NetTrainer()
+    init.set_params(tcfg.parse_pairs(conf) + [("dev", "cpu")])
+    init.init_model()
+    init.save_model(str(tmp_path / "0.model"))
+    saved = _no_tf32()
+    trainers = {}
+    try:
+        for dev in ("cpu", "gpu"):
+            tr = NetTrainer()
+            tr.set_params(tcfg.parse_pairs(conf) + [("dev", dev)])
+            tr.load_model(str(tmp_path / "0.model"))
+            tr.update(batch)
+            trainers[dev] = tr
+    finally:
+        _restore_tf32(saved)
+    for key, tags in init.params.items():
+        for tag, w0 in tags.items():
+            ref = trainers["cpu"].params[key][tag] - w0
+            got = trainers["gpu"].params[key][tag].cpu() - w0
+            assert (got - ref).abs().max() <= 1e-4 * ref.abs().max(), key

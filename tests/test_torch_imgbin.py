@@ -521,7 +521,7 @@ def test_injected_record_corruption_matches_jax(tmp_path, workers):
 
 
 def test_fault_sites_the_port_does_not_visit_raise():
-    for spec in ("csv.row:corrupt:0.5", "text.read:ioerror:1",
+    for spec in ("obs.append:ioerror:1", "text.read:ioerror:1",
                  "device.state:bitflip:1", "mesh.replica:hang:1",
                  "loop.append:ioerror:1", "serve.batch:hang:1",
                  "checkpoint.read:ioerror:1"):

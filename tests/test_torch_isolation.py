@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ``cxxnet_tpu``, no silent CPU.
 
 * ``import cxxnet_tpu_torch`` (with its serving package, its CLI, the
-  language-model modules and the quantized ones) leaves ``jax``
+  language-model modules, the quantized ones, the layer zoo with its
+  ``torch:`` plugin and the text iterators) leaves ``jax``
   and ``cxxnet_tpu`` out of ``sys.modules``.  Checked in a subprocess,
   because this test process imports jax in ``conftest.py``.
 * No file of the port, nor ``chip_smoke.py``, imports either by name.
@@ -43,7 +44,12 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "cxxnet_tpu_torch.nnet.generate, cxxnet_tpu_torch.io.text, "
         "cxxnet_tpu_torch.layers.sequence, cxxnet_tpu_torch.ops.flash, "
         "cxxnet_tpu_torch.ops.quant, cxxnet_tpu_torch.nnet.quant, "
-        "cxxnet_tpu_torch.io.pipeline, cxxnet_tpu_torch.io.img\n"
+        "cxxnet_tpu_torch.io.pipeline, cxxnet_tpu_torch.io.img, "
+        "cxxnet_tpu_torch.layers.pairtest, cxxnet_tpu_torch.plugin, "
+        "cxxnet_tpu_torch.io.csv, cxxnet_tpu_torch.io.libsvm, "
+        "cxxnet_tpu_torch.io.membuffer, cxxnet_tpu_torch.io.attach_txt\n"
+        "from cxxnet_tpu_torch.layers import create_layer\n"
+        "create_layer('torch'); create_layer('pairtest-conv-conv')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
         f" in {FORBIDDEN!r})))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -79,7 +85,12 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
             "cxxnet_tpu_torch/layers/sequence.py",
             "cxxnet_tpu_torch/layers/embed.py", "cxxnet_tpu_torch/io/text.py",
             "cxxnet_tpu_torch/nnet/generate.py",
-            "cxxnet_tpu_torch/models/builders.py"} <= names
+            "cxxnet_tpu_torch/models/builders.py",
+            "cxxnet_tpu_torch/layers/pairtest.py",
+            "cxxnet_tpu_torch/plugin/torch_adapter.py",
+            "cxxnet_tpu_torch/io/csv.py", "cxxnet_tpu_torch/io/libsvm.py",
+            "cxxnet_tpu_torch/io/membuffer.py",
+            "cxxnet_tpu_torch/io/attach_txt.py"} <= names
     bad = {f: sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert {f: b for f, b in bad.items() if b} == {}

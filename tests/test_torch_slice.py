@@ -37,6 +37,25 @@ CONF = googlenet_conf(input_size=64, batch_size=4, compute_dtype="float32",
 ATOL, RTOL = 1e-5, 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_obs_registry_as_found():
+    """As in ``test_torch_train.py``: drop the empty device-plane
+    histogram the JAX trainer's compile listener registers, which an
+    exposition check later in the same process rejects."""
+    from cxxnet_tpu.obs import device as obs_device
+    from cxxnet_tpu.obs import registry
+
+    name = "train_step_device_seconds"
+    had = any(m.name == name for m in registry().metrics())
+    yield
+    reg = registry()
+    fam = next((m for m in reg.metrics() if m.name == name), None)
+    if not had and fam is not None and not fam.samples():
+        with reg._lock:
+            reg._metrics.pop(name, None)
+        obs_device.reset()
+
+
 def _batch(n, seed=0):
     return np.random.RandomState(seed).rand(n, 64, 64, 3).astype(np.float32)
 

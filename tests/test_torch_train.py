@@ -403,7 +403,8 @@ def test_train_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="item 6"):
         tr.init_model()
     conf = tmp_path / "t.conf"
-    conf.write_text(TRAIN_CONF.replace("iter = synthetic", "iter = csv", 1))
-    with pytest.raises(NotImplementedError, match="iter=csv"):
+    conf.write_text(TRAIN_CONF.replace("iter = synthetic", "iter = service",
+                                       1))
+    with pytest.raises(NotImplementedError, match="iter=service"):
         LearnTask().run([str(conf), "task=train",
                          f"model_dir={tmp_path / 'm'}"])
