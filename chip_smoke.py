@@ -363,6 +363,46 @@ Phases; any failure ends the run with a non-zero exit and no result:
    the ``torch:`` layer's ``blob`` tags trained and through
    ``save_model``; the pairtest's ``compare`` 0 in eval.  A ``layers``
    JSON line.
+23. The library API, the C ABI and the observability plane (run
+   before phase 21's closing lines).  The port's host sources
+   (``csrc/host``, g++/gcc) build into ``build/host/``: the C ABI's
+   library and C host must build; the native page reader builds, or
+   fails for want of ``jpeglib.h`` and nothing else (each outcome
+   printed).
+23a. ``wrapper.DataIter`` over 512 JPEG records (256^2, made with PIL,
+   low contrast: ``LIB_JPEG_AMP``) from googlenet.conf's own data
+   section with ``native_decoder = 1`` (the reader it runs printed, with
+   why where it is the Python one); ``wrapper.train(cfg, data, 1, ...,
+   dev="gpu")`` at GoogLeNet's full width (b128 bf16, ``LR_SCALE``):
+   every step K1 13, K2 4, K3 9, K4 2, K5 2, K6 9 on the main paths and
+   K8 once (counts at 0 just before); ``Net.predict`` on 100 raw rows
+   (bucket 128) equal to ``trainer.predict``; conv1's ``wmat`` view and
+   its ``set_weight``/``get_weight`` round trip bit-equal;
+   ``update_scan`` with K = 4 against four ``update()`` steps from one
+   checkpoint (cuDNN deterministic), losses and every tensor within
+   ``LIB_SCAN_REL``; the wrapper's step against the CLI's
+   (``trainer.update``) in turns; the chain's img/s by reader.
+23b. ResNet-50 at full width (b128 bf16) through the port's C ABI
+   loaded by ``ctypes`` into this process: ``CXNNetCreate("gpu")``,
+   init, three ``CXNNetUpdateBatch`` (each K1 1, K2 1, K6 4 on the main
+   paths, K8 1), ``CXNNetPredictBatch`` bit-equal to ``Net.predict`` on
+   the saved weights, a conv1 ``wmat`` round trip, the error path
+   through ``CXNGetLastError``, ``CXNNetUpdateBatch`` (a 77 MB f32
+   batch marshalled) against ``trainer.update`` in turns; then the C
+   host (``capi_smoke gpu``) in a subprocess: ``all checks passed``.
+23c. ResNet-50 served with ``event_log``, ``trace_dir`` and two
+   ``alert=`` rules on ``xla_device_memory_bytes`` (one must fire, one
+   must not): JSON and ``CXB1`` requests, ``/metricsz`` parsed as
+   Prometheus text, its request counters equal to the requests sent,
+   its ``peak_bytes_in_use`` equal to ``torch.cuda.max_memory_allocated()``
+   read at the same moment, ``/alertz`` and ``/healthz`` showing the
+   firing rule, a ``/reloadz`` swap writing ``serve.reload``; a short
+   GoogLeNet ``task=train`` with ``device_sample_every = 1`` and
+   ``save_model``: ``train.start``, ``checkpoint.save`` and ``train.end``
+   in the event log, ``train_step_device_seconds`` counting the steps,
+   the trace JSON's spans under ``train.round``; the step with obs armed
+   against unarmed in turns; the time to render ``/metricsz``.  A
+   ``library_obs`` JSON line.
 21. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
    forward kernels; the LM training run for K9 and K10, with the
@@ -5944,6 +5984,742 @@ def ndsb_phase(tmp: str, card: str):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 23: the library API, the C ABI and the observability plane
+
+LIB_PER_STEP = IMGBIN_PER_STEP  # one GoogLeNet step: K1-K6 and K8 once
+LIB_JPEG_ROWS = 4 * BATCH  # JPEG records of 23a: four steps a round
+# the records' contrast: 128 + U{-2..2} upsampled, plus N(0, 1) noise.
+# googlenet.conf's section subtracts the mean image and scales nothing,
+# and from the seeded init at 0.01x the conf's rates an input of std ~50
+# (the JPEG check's records) takes the loss to 1e12 and NaN in two steps
+LIB_JPEG_AMP, LIB_JPEG_NOISE = 2, 1.0
+LIB_PREDICT_ROWS = 100  # a raw array, bucket 128
+LIB_SCAN_K = 4
+# update_scan against K update() steps from one state (cuDNN
+# deterministic): each tensor within LIB_SCAN_REL of its largest update,
+# the losses within LIB_SCAN_REL relatively; both are the same calls
+LIB_SCAN_REL = 1e-6
+LIB_TIMED_STEPS = 3  # steps a turn in the step-time turns
+CAPI_STEPS = 3  # CXNNetUpdateBatch steps on ResNet-50, counted
+CAPI_HOST_DEV = "gpu"  # the C host's device (argv[1])
+OBS_JSON_ROWS = (1, 7)
+OBS_BINARY_ROWS = (1, 32)
+OBS_TIMED_STEPS = 5
+OBS_RENDERS = 20
+
+
+def _jpeg_pages(path: str, rows: int, side: int, seed: int) -> float:
+    """``path``.bin/.lst: ``rows`` JPEG records made with PIL (a seeded
+    8x8 image of 128 + U{-LIB_JPEG_AMP..LIB_JPEG_AMP} upsampled to
+    ``side``, plus N(0, LIB_JPEG_NOISE), quality 90), seeded labels;
+    returns the mean bytes a record."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from cxxnet_tpu_torch.io.imgbin import BinPageWriter
+
+    rng = np.random.RandomState(seed)
+    nbytes = 0
+    w = BinPageWriter(path + ".bin")
+    with open(path + ".lst", "w") as f:
+        for i in range(rows):
+            low = Image.fromarray((128 + rng.randint(
+                -LIB_JPEG_AMP, LIB_JPEG_AMP + 1, (8, 8, 3))).astype(np.uint8))
+            img = np.asarray(low.resize((side, side), Image.BILINEAR),
+                             np.float32)
+            img += rng.standard_normal(img.shape) * LIB_JPEG_NOISE
+            buf = io.BytesIO()
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                buf, "JPEG", quality=90)
+            nbytes += len(buf.getvalue())
+            w.push(buf.getvalue())
+            f.write(f"{i}\t{rng.randint(0, 1000)}\trec{i}.jpg\n")
+    w.close()
+    return nbytes / rows
+
+
+def _data_section(shard: str, mean: str, native: int = 1) -> str:
+    """googlenet.conf's own data section as text, its shard and mean
+    image paths changed and ``native_decoder`` set, with the globals a
+    ``DataIter`` reads."""
+    text = open(CONF).read()
+    start = text.index("data = train")
+    sec = text[start:text.index("iter = end", start) + len("iter = end")]
+    for old, new in (
+            ("  image_list = ./shards/train_001.lst\n"
+             "  image_bin = ./shards/train_001.bin\n",
+             f"  image_list = {shard}.lst\n  image_bin = {shard}.bin\n"
+             f"  native_decoder = {native}\n"),
+            ("./models/image_mean.bin", mean)):
+        if old not in sec:
+            raise SmokeError(f"googlenet.conf: {old.strip()!r} not found")
+        sec = sec.replace(old, new, 1)
+    return (sec + f"\ninput_shape = 3,{CONF_SIDE},{CONF_SIDE}\n"
+            f"batch_size = {BATCH}\nsilent = 1\n")
+
+
+def _net_text(conf: str, lr_scale: float = 1.0) -> str:
+    """The conf's netconfig and globals as text, its data sections
+    dropped, its learning rates times ``lr_scale``."""
+    from cxxnet_tpu_torch import config as cfgmod
+
+    split = cfgmod.split_sections(cfgmod.parse_file(conf))
+    lines = [f"{n} = {v}" for n, v in split.global_entries]
+    if lr_scale != 1.0:
+        lines += [f"{n} = {float(v) * lr_scale:g}" for n, v in
+                  split.global_entries if n in ("eta", "lr", "wmat:lr",
+                                                "bias:lr")]
+    return "\n".join(lines) + "\n"
+
+
+def _imgbin_source(it):
+    """The imgbin reader at the bottom of a chain."""
+    while not hasattr(it, "reader"):
+        it = it.aug if hasattr(it, "aug") else it.base
+    return it
+
+
+def host_builds():
+    """Build the port's host sources (``csrc/host``, g++/gcc, no nvcc):
+    the C ABI's library and C host must build; the native page reader
+    builds, or fails for want of ``jpeglib.h`` and for nothing else.
+    Prints each outcome; returns ``{target: path or reason}``."""
+    from cxxnet_tpu_torch.ops import _build
+
+    out = {}
+    for name in ("libcxxnet_capi", "capi_smoke", "libcxxnet_io"):
+        t0 = time.perf_counter()
+        try:
+            out[name] = _build.build_host(name)
+            log(f"host build: {name} ok in {time.perf_counter() - t0:.2f}s "
+                f"({os.path.relpath(out[name], REPO)})")
+        except _build.HostBuildError as e:
+            errors = [ln for ln in e.log.splitlines() if "error" in ln]
+            only_jpeg = (name == "libcxxnet_io" and errors
+                         and all("jpeglib.h" in ln for ln in errors))
+            log(f"host build: {name} FAILED: {e}")
+            if not only_jpeg:
+                raise SmokeError(f"host build of {name} failed:\n{e.log}")
+            out[name] = str(e)
+            log("host build: libcxxnet_io fails for want of jpeglib.h "
+                "alone (no libjpeg headers on this machine): imgbin reads "
+                "JPEG pages with the Python reader here")
+    return out
+
+
+def _recording_update(net_cls, steps, paths):
+    """A ``Net.update`` that records each step's launches by kernel and
+    the routed kernels' by C entry."""
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    orig = net_cls.update
+
+    def update(self, data, label=None):
+        before = {k.name: k.launches for k in KERNELS}
+        pb = _by_symbol()
+        orig(self, data, label)
+        steps.append({k.name: k.launches - before[k.name] for k in KERNELS})
+        paths.append(_paths_since(pb))
+
+    return orig, update
+
+
+def _hold_main_steps(tag, steps, paths, per):
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    want = {**{k.name: 0 for k in KERNELS}, **per}
+    for i, (d, p) in enumerate(zip(steps, paths)):
+        if d != want or p != _main_paths(per):
+            raise SmokeError(f"{tag}: step {i} launched {d}, by C entry {p};"
+                             f" expected {want}, {_main_paths(per)}")
+
+
+def _turn_ms(fns, steps: int, sync, rounds: int = 2):
+    """Each function run ``steps`` times then ``sync()``, in turns (a, b,
+    b, a), host clock, after one untimed call of each: ms a call, per
+    function in call order."""
+    out = {n: [] for n in fns}
+    order = list(fns.items())
+    for _, fn in order:
+        fn()
+    sync()
+    for r in range(rounds):
+        for n, fn in (order if r % 2 == 0 else order[::-1]):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            sync()
+            out[n].append((time.perf_counter() - t0) / steps * 1e3)
+    return out
+
+
+def library_phase(tmp: str, card: str, builds):
+    """23a: ``wrapper.DataIter`` over JPEG pages from googlenet.conf's own
+    data section (``native_decoder = 1``), ``wrapper.train`` at GoogLeNet's
+    full width (b128 bf16, the conf's rates times ``LR_SCALE``), every
+    step K1 13, K2 4, K3 9, K4 2, K5 2, K6 9 on the main paths and K8
+    once; ``Net.predict`` on a raw array of 100 rows against
+    ``trainer.predict``; a conv ``wmat`` round trip; ``update_scan``
+    (K = 4) against four ``update`` steps; the wrapper's step against
+    the CLI's, and the chain's img/s by reader."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import wrapper
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    shard = os.path.join(tmp, "jpeg")
+    t0 = time.perf_counter()
+    per_rec = _jpeg_pages(shard, LIB_JPEG_ROWS, IMGBIN_SIDE, SEED + 31)
+    log(f"library: {LIB_JPEG_ROWS} JPEG records ({IMGBIN_SIDE}^2, "
+        f"{per_rec:.0f} bytes each) made with PIL in "
+        f"{time.perf_counter() - t0:.1f}s")
+    mean = os.path.join(tmp, "image_mean.bin")
+    data = wrapper.DataIter(_data_section(shard, mean))
+    src = _imgbin_source(data._iter)
+    log(f"library: DataIter reader = {src.reader}"
+        + (f" ({src.reader_why})" if src.reader_why else ""))
+    native_ok = not str(builds["libcxxnet_io"]).startswith("host build")
+    if (src.reader == "native") != native_ok:
+        raise SmokeError(f"library: the reader is {src.reader}, but the "
+                         f"native build gave {builds['libcxxnet_io']}")
+    cfg = _net_text(CONF, LR_SCALE)
+    steps, paths = [], []
+    orig, update = _recording_update(wrapper.Net, steps, paths)
+    wrapper.Net.update = update
+    try:
+        for k in KERNELS:
+            k.reset_counts()
+        t0 = time.perf_counter()
+        net = wrapper.train(cfg, data, 1, {"seed": str(SEED)}, dev="gpu",
+                            print_step=0)
+        wall = time.perf_counter() - t0
+    finally:
+        wrapper.Net.update = orig
+    totals = {k.name: k.launches for k in KERNELS if k.launches}
+    log(f"library: wrapper.train 1 round, {len(steps)} steps of {BATCH} "
+        f"JPEG rows in {wall:.1f}s (mean image pass included); launches "
+        f"{totals}")
+    if len(steps) != LIB_JPEG_ROWS // BATCH:
+        raise SmokeError(f"library: train ran {len(steps)} steps")
+    _hold_main_steps("library train", steps, paths, LIB_PER_STEP)
+    tr = net.trainer
+    if not np.isfinite(float(tr.last_loss)):
+        raise SmokeError(f"library: loss {tr.last_loss}")
+    # a raw array through the bucket cache against trainer.predict
+    data.before_first()
+    data.next()
+    x = np.array(data.get_data()[:LIB_PREDICT_ROWS])
+    got = net.predict(x)
+    pad = np.concatenate([x, np.zeros((BATCH - len(x),) + x.shape[1:],
+                                      np.float32)])
+    ref = tr.predict(pad)[:LIB_PREDICT_ROWS]
+    if got.shape != (LIB_PREDICT_ROWS,) or not np.array_equal(got, ref):
+        raise SmokeError("library: Net.predict on 100 rows differs from "
+                         "trainer.predict")
+    # the conv wmat view, round trip
+    w = net.get_weight("conv1", "wmat")
+    hwio = tr.params[tr.net.param_key[0]]["wmat"].cpu().numpy()
+    if w.shape != (64, 147) or not np.array_equal(
+            w, hwio.transpose(3, 2, 0, 1).reshape(64, 147)):
+        raise SmokeError(f"library: conv1 wmat view {w.shape}")
+    net.set_weight(w * 0.5, "conv1", "wmat")
+    back = net.get_weight("conv1", "wmat")
+    net.set_weight(w, "conv1", "wmat")
+    if not (np.array_equal(back, w * 0.5)
+            and np.array_equal(net.get_weight("conv1", "wmat"), w)):
+        raise SmokeError("library: conv1 wmat set/get round trip differs")
+    log(f"library: Net.predict on {LIB_PREDICT_ROWS} raw rows (bucket "
+        f"{BATCH}) equal to trainer.predict; conv1 wmat (64, 147) set/get "
+        "bit-equal")
+    # update_scan (K = 4) against four update() steps from one state
+    xs, ys = [], []
+    data.before_first()
+    while data.next() and len(xs) < LIB_SCAN_K:
+        xs.append(np.array(data.get_data()))
+        ys.append(np.array(data.get_label()))
+    stack, lstack = np.stack(xs), np.stack(ys)
+    path = os.path.join(tmp, "lib.model")
+    net.save_model(path)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        nets = []
+        for _ in range(2):
+            n = wrapper.Net(dev="gpu", cfg=cfg + "eval_train = 0\n")
+            n.load_model(path)
+            nets.append(n)
+        scan, loop = nets
+        w0 = {(k, t): v.clone() for k, tags in loop.trainer.params.items()
+              for t, v in tags.items()}
+        sl = scan.update_scan(stack, lstack)
+        ll = []
+        for i in range(LIB_SCAN_K):
+            loop.update(stack[i], lstack[i])
+            ll.append(float(loop.trainer.last_loss))
+        ll = np.asarray(ll, np.float32)
+        worst = 0.0
+        for (k, t), v0 in w0.items():
+            a = scan.trainer.params[k][t].float()
+            b = loop.trainer.params[k][t].float()
+            upd = float((b - v0).abs().max()) or 1.0
+            worst = max(worst, float((a - b).abs().max()) / upd)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    loss_rel = float(np.max(np.abs(sl - ll) / np.maximum(np.abs(ll), 1e-12)))
+    log(f"library: update_scan K={LIB_SCAN_K} losses "
+        f"{[round(float(v), 5) for v in sl]} vs update() {ll.tolist()}: "
+        f"loss rel {loss_rel:.3g}, weights {worst:.3g} of each tensor's "
+        f"largest update (limit {LIB_SCAN_REL:g})")
+    if loss_rel > LIB_SCAN_REL or worst > LIB_SCAN_REL:
+        raise SmokeError("library: update_scan differs from update()")
+    # the wrapper's step against the CLI's (trainer.update on a batch)
+    lt = loop.trainer
+    bx, by = stack[0], lstack[0]
+    times = _turn_ms({"wrapper": lambda: loop.update(bx, by),
+                      "cli": lambda: lt.update(DataBatch(data=bx, label=by))},
+                     LIB_TIMED_STEPS, lt.sync)
+    log(f"library: step ms (b{BATCH}, {LIB_TIMED_STEPS} a turn, host clock)"
+        f" {json.dumps({k: [round(v, 2) for v in t] for k, t in times.items()})}"
+        f"; {card}")
+    del scan, loop, nets
+    # the chain's rate by reader: one pass, median of IMGBIN_PASSES
+    rates = {src.reader: _rate(lambda: _drain(data), LIB_JPEG_ROWS)}
+    data.close()
+    if src.reader == "native":
+        py = wrapper.DataIter(_data_section(shard, mean + ".npz", native=0))
+        rates["python"] = _rate(lambda: _drain(py), LIB_JPEG_ROWS)
+        py.close()
+    log(f"library: chain img/s by reader (googlenet.conf's section, 1 "
+        f"decode worker, host clock) "
+        f"{json.dumps({k: round(v, 1) for k, v in rates.items()})}; {card}")
+    return {"steps": len(steps), "launches": totals,
+            "per_step": LIB_PER_STEP, "reader": src.reader,
+            "reader_why": src.reader_why, "step_ms": times,
+            "scan_loss_rel": loss_rel, "scan_weight_rel": worst,
+            "chain_img_s": rates}
+
+
+def _capi(path: str):
+    """The port's C ABI library loaded into this process by ``ctypes``
+    (it takes the Python C API from this interpreter), argtypes set."""
+    import ctypes as C
+
+    lib = C.CDLL(path)
+    P, F, U = C.c_void_p, C.POINTER(C.c_float), C.c_uint
+    sig = {
+        "CXNGetLastError": (C.c_char_p, []),
+        "CXNNetCreate": (P, [C.c_char_p, C.c_char_p]),
+        "CXNNetSetParam": (C.c_int, [P, C.c_char_p, C.c_char_p]),
+        "CXNNetInitModel": (C.c_int, [P]),
+        "CXNNetSaveModel": (C.c_int, [P, C.c_char_p]),
+        "CXNNetUpdateBatch": (C.c_int, [P, F, U * 4, F, U * 2]),
+        "CXNNetPredictBatch": (F, [P, F, U * 4, C.POINTER(U)]),
+        "CXNNetGetWeight": (F, [P, C.c_char_p, C.c_char_p, U * 2]),
+        "CXNNetSetWeight": (C.c_int, [P, F, U, C.c_char_p, C.c_char_p]),
+        "CXNNetFree": (None, [P]),
+    }
+    for name, (res, args) in sig.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def capi_phase(tmp: str, card: str, builds):
+    """23b: ResNet-50 at full width through the C ABI in this process:
+    ``CXNNetCreate("gpu")``, init, three ``CXNNetUpdateBatch`` (each K1 1,
+    K2 1, K6 4 on the main paths, K8 1), ``CXNNetPredictBatch`` bit-equal
+    to ``Net.predict`` on the same weights, a weight round trip, the
+    error path, ``CXNNetUpdateBatch`` against ``trainer.update`` in turns;
+    then the C host in a subprocess on the card."""
+    import ctypes as C
+
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import wrapper
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    from cxxnet_tpu_torch import config as cfgmod
+
+    lib = _capi(builds["libcxxnet_capi"])
+    F = C.POINTER(C.c_float)
+    cfg = _net_text(RESNET_CONF)
+    side = int(dict(cfgmod.parse_file(RESNET_CONF))["input_shape"].split(
+        ",")[1])
+    h = lib.CXNNetCreate(b"gpu", cfg.encode())
+    if not h or lib.CXNNetSetParam(h, b"seed", str(SEED).encode()) != 0 \
+            or lib.CXNNetInitModel(h) != 0:
+        raise SmokeError(f"capi: create/init failed: {lib.CXNGetLastError()}")
+    rng = np.random.RandomState(SEED + 41)
+    x = rng.standard_normal((RESNET_BATCH, side, side, 3)).astype(np.float32)
+    y = rng.randint(0, 1000, (RESNET_BATCH, 1)).astype(np.float32)
+    xs, ys = (C.c_uint * 4)(*x.shape), (C.c_uint * 2)(*y.shape)
+    xp, yp = x.ctypes.data_as(F), y.ctypes.data_as(F)
+
+    def c_step():
+        if lib.CXNNetUpdateBatch(h, xp, xs, yp, ys) != 0:
+            raise SmokeError(f"capi: update failed: {lib.CXNGetLastError()}")
+
+    steps, paths = [], []
+    for k in KERNELS:
+        k.reset_counts()
+    for _ in range(CAPI_STEPS):
+        before = {k.name: k.launches for k in KERNELS}
+        pb = _by_symbol()
+        c_step()
+        steps.append({k.name: k.launches - before[k.name] for k in KERNELS})
+        paths.append(_paths_since(pb))
+    torch.cuda.synchronize()
+    totals = {k.name: k.launches for k in KERNELS if k.launches}
+    _hold_main_steps("capi", steps, paths, RESNET_PER_STEP)
+    log(f"capi: {CAPI_STEPS} CXNNetUpdateBatch steps of ResNet-50 b"
+        f"{RESNET_BATCH} bf16 on the card; launches {totals}")
+    path = os.path.join(tmp, "capi.model")
+    if lib.CXNNetSaveModel(h, path.encode()) != 0:
+        raise SmokeError(f"capi: save failed: {lib.CXNGetLastError()}")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        inet = wrapper.Net(dev="gpu", cfg=cfg)
+        inet.load_model(path)
+        n = C.c_uint()
+        out = lib.CXNNetPredictBatch(h, xp, xs, C.byref(n))
+        if not out:
+            raise SmokeError(f"capi: predict: {lib.CXNGetLastError()}")
+        got = np.ctypeslib.as_array(out, (n.value,)).copy()
+        ref = inet.predict(x)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    if not np.array_equal(got, ref):
+        raise SmokeError(f"capi: CXNNetPredictBatch differs from Net.predict"
+                         f" on {int((got != ref).sum())} of {len(ref)} rows")
+    ws = (C.c_uint * 2)()
+    w = lib.CXNNetGetWeight(h, b"conv1", b"wmat", ws)
+    wv = np.ctypeslib.as_array(w, (ws[0], ws[1])).copy()
+    new = wv * 0.5
+    if lib.CXNNetSetWeight(h, new.ctypes.data_as(F), new.size, b"conv1",
+                           b"wmat") != 0:
+        raise SmokeError(f"capi: set weight: {lib.CXNGetLastError()}")
+    w2 = lib.CXNNetGetWeight(h, b"conv1", b"wmat", ws)
+    if (tuple(ws) != (64, 147) or not np.array_equal(
+            np.ctypeslib.as_array(w2, (ws[0], ws[1])), new)
+            or not np.array_equal(inet.get_weight("conv1", "wmat"), wv)):
+        raise SmokeError("capi: conv1 wmat set/get round trip differs")
+    miss = lib.CXNNetGetWeight(h, b"no_such_layer", b"wmat", ws)
+    err1 = lib.CXNGetLastError().decode()
+    bad = (C.c_uint * 4)(2, 8, 8, 3)
+    small = np.zeros((2, 8, 8, 3), np.float32)
+    out = lib.CXNNetPredictBatch(h, small.ctypes.data_as(F), bad, C.byref(n))
+    err2 = lib.CXNGetLastError().decode()
+    if miss or out or "no_such_layer" not in err1 \
+            or not err2.startswith("net_predict_batch: "):
+        raise SmokeError(f"capi: error path: {bool(miss)} {err1!r}, "
+                         f"{bool(out)} {err2!r}")
+    log(f"capi: CXNNetPredictBatch bit-equal to Net.predict ({len(ref)} "
+        f"rows); conv1 wmat set/get bit-equal; errors {err1!r}, {err2!r}")
+    it = inet.trainer
+    from cxxnet_tpu_torch.io.data import DataBatch
+
+    times = _turn_ms({"capi": c_step,
+                      "trainer": lambda: it.update(DataBatch(data=x,
+                                                             label=y))},
+                     LIB_TIMED_STEPS, torch.cuda.synchronize)
+    lib.CXNNetFree(h)
+    del inet, it
+    log(f"capi: step ms, CXNNetUpdateBatch ({x.nbytes} bytes f32 marshalled)"
+        f" against trainer.update, {LIB_TIMED_STEPS} a turn, host clock "
+        f"{json.dumps({k: [round(v, 2) for v in t] for k, t in times.items()})}"
+        f"; {card}")
+    env = dict(os.environ, CXXNET_TPU_HOME=REPO, TMPDIR=tmp,
+               PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    t0 = time.perf_counter()
+    r = subprocess.run([builds["capi_smoke"], CAPI_HOST_DEV],
+                       capture_output=True,
+                       text=True, timeout=600, env=env, cwd=tmp)
+    if r.returncode != 0 or "all checks passed" not in r.stderr:
+        raise SmokeError(f"capi: C host failed ({r.returncode}):\n"
+                         f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    log(f"capi: C host on the card in {time.perf_counter() - t0:.1f}s: "
+        + " | ".join(ln for ln in r.stderr.splitlines()
+                     if ln.startswith(("capi_smoke", "eval"))))
+    return {"steps": CAPI_STEPS, "launches": totals,
+            "per_step": RESNET_PER_STEP, "step_ms": times,
+            "batch_bytes": x.nbytes}
+
+
+def _prometheus(text: str):
+    """Parse Prometheus text (0.0.4): ``{sample: value}``; raises on a
+    sample before its family's TYPE line, a bad name, label set or
+    value, or a histogram whose buckets fall or whose +Inf bucket is not
+    its count."""
+    import re
+
+    types, samples = {}, {}
+    line_re = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+                         r'(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+                         r',?)*\})? (\S+)$')
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split(" ", 3)
+            types[name] = kind
+            continue
+        if not ln or ln.startswith("# HELP "):
+            continue
+        m = line_re.match(ln)
+        if not m:
+            raise SmokeError(f"/metricsz: bad line {ln!r}")
+        name = m.group(1)
+        fam = next((f for f in (name, re.sub(r"_(bucket|sum|count)$", "",
+                                             name)) if f in types), None)
+        if fam is None:
+            raise SmokeError(f"/metricsz: {name} before its TYPE line")
+        samples[name + (m.group(2) or "")] = float(m.group(3))
+    for fam, kind in types.items():
+        if kind != "histogram":
+            continue
+        groups = {}
+        for key, v in samples.items():
+            if key.startswith(fam + "_bucket{"):
+                inner = key[len(fam) + len("_bucket{"):-1]
+                le = re.search(r'le="([^"]+)"', inner).group(1)
+                rest = re.sub(r',?le="[^"]+"', "", inner).strip(",")
+                groups.setdefault(rest, []).append(
+                    (float("inf") if le == "+Inf" else float(le), v))
+        for rest, b in groups.items():
+            vals = [v for _, v in sorted(b)]
+            count = samples.get(fam + "_count"
+                                + (f"{{{rest}}}" if rest else ""))
+            if vals != sorted(vals) or vals[-1] != count:
+                raise SmokeError(f"/metricsz: histogram {fam} buckets "
+                                 f"{vals}, count {count}")
+    return samples
+
+
+def _get_text(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.read().decode(), r.headers.get("Content-Type", "")
+
+
+def _events(path: str):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def obs_phase(tmp: str, card: str):
+    """23c: ResNet-50 served at full width with ``event_log``,
+    ``trace_dir`` and two ``alert=`` rules on ``xla_device_memory_bytes``
+    (one must fire, one must not): JSON and CXB1 requests, ``/metricsz``
+    parsed and its request counters, peak memory against
+    ``torch.cuda.max_memory_allocated()``, ``/alertz`` and ``/healthz``,
+    a ``/reloadz`` swap writing ``serve.reload``; a short GoogLeNet
+    ``task=train`` with ``device_sample_every = 1``; the step with obs
+    armed against unarmed; the time to render ``/metricsz``."""
+    import http.client
+
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch import obs
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import Engine, make_server, wire
+
+    evlog = os.path.join(tmp, "serve_events.jsonl")
+    rules = [("alert", 'hbm_peak:xla_device_memory_bytes{device="cuda:0",'
+                       'stat="peak_bytes_in_use"}:>:1'),
+             ("alert", 'hbm_full:xla_device_memory_bytes{device="cuda:0",'
+                       'stat="bytes_in_use"}:>:1e15'),
+             ("alert_period_s", "0.2")]
+    cfg = cfgmod.parse_file(RESNET_CONF) + [
+        ("dev", "gpu"), ("seed", str(SEED)), ("silent", "1"),
+        ("event_log", evlog), ("trace_dir", os.path.join(tmp, "strace")),
+        ("trace_steps", "1000")] + rules
+    obs.configure(cfg)  # as the CLI does at startup
+    mdir = os.path.join(tmp, "models")
+    os.makedirs(mdir)
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.init_model()
+    tr.save_model(os.path.join(mdir, "0001.model"), round_=1)
+    eng = Engine(cfg=cfg, model_dir=mdir, max_batch_size=RESNET_BATCH)
+    httpd = make_server(eng, port=0)
+    th = threading.Thread(target=httpd.serve_forever,
+                          kwargs={"poll_interval": 0.05}, daemon=True)
+    th.start()
+    side = int(dict(cfg)["input_shape"].split(",")[1])
+    try:
+        port = httpd.server_port
+        before = _prometheus(_get_text(port, "/metricsz")[0])
+        for n in OBS_JSON_ROWS:
+            out = _request(port, "/predict",
+                           {"data": _rows(n, side, SEED + n).tolist()})
+            if len(out["pred"]) != n:
+                raise SmokeError(f"obs: JSON reply of {len(out['pred'])}")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        for n in OBS_BINARY_ROWS:
+            x = _rows(n, side, SEED + 50 + n).reshape(n, side, side, 3)
+            st, body = _post_on(conn, "/predict",
+                                bytes(wire.encode_request(x, kind="scores")),
+                                wire.CONTENT_TYPE)
+            if st != 200 or wire.decode_response(body)[2].shape[0] != n:
+                raise SmokeError(f"obs: binary reply {st}")
+        conn.close()
+        text, ctype = _get_text(port, "/metricsz")
+        peak_now = torch.cuda.max_memory_allocated(0)
+        after = _prometheus(text)
+        n_req = len(OBS_JSON_ROWS) + len(OBS_BINARY_ROWS)
+
+        def delta(key):
+            return after.get(key, 0.0) - before.get(key, 0.0)
+
+        got = {"requests": delta("serve_requests_total"),
+               "rows": delta("serve_request_rows_total"),
+               "ok": delta('serve_request_outcomes_total{outcome="ok"}'),
+               "json": delta('serve_wire_requests_total{wire="json"}'),
+               "binary": delta('serve_wire_requests_total{wire="binary"}')}
+        want = {"requests": n_req,
+                "rows": sum(OBS_JSON_ROWS) + sum(OBS_BINARY_ROWS),
+                "ok": n_req, "json": len(OBS_JSON_ROWS),
+                "binary": len(OBS_BINARY_ROWS)}
+        peak = after.get('xla_device_memory_bytes{device="cuda:0",'
+                         'stat="peak_bytes_in_use"}')
+        if (got != want or peak != peak_now
+                or ctype != "text/plain; version=0.0.4; charset=utf-8"):
+            raise SmokeError(f"obs: /metricsz counters {got} (want {want}),"
+                             f" peak {peak} vs max_memory_allocated "
+                             f"{peak_now}, Content-Type {ctype!r}")
+        in_use = after.get('xla_device_memory_bytes{device="cuda:0",'
+                           'stat="bytes_in_use"}')
+        log(f"obs: /metricsz parses ({len(after)} samples), request "
+            f"counters {got}, peak_bytes_in_use {peak:.0f} == "
+            f"torch.cuda.max_memory_allocated(); bytes_in_use {in_use:.0f}")
+        _wait(lambda: "hbm_peak" in obs.alerts.evaluator().firing(),
+              "the hbm_peak alert", timeout=30)
+        alertz = _request(port, "/alertz")
+        health = _request(port, "/healthz")
+        states = {r["name"]: r["state"] for r in alertz["rules"]}
+        if (states != {"hbm_peak": "firing", "hbm_full": "ok"}
+                or alertz["firing"] != ["hbm_peak"]
+                or health["status"] != "degraded"
+                or "alert:hbm_peak" not in health["reasons"]):
+            raise SmokeError(f"obs: /alertz {alertz}, /healthz {health}")
+        log(f"obs: /alertz {states}, {alertz['evaluations']} evaluations; "
+            f"/healthz {health['status']} {health['reasons']}")
+        tr.save_model(os.path.join(mdir, "0002.model"), round_=2)
+        del tr
+        rel = _request(port, "/reloadz", {})
+        reloads = [e for e in _events(evlog) if e["kind"] == "serve.reload"]
+        if not (rel["swapped"] and rel["round"] == 2 and reloads
+                and reloads[-1]["ok"] and reloads[-1]["round"] == 2):
+            raise SmokeError(f"obs: /reloadz {rel}, events {reloads}")
+        render = []
+        for _ in range(OBS_RENDERS):
+            t0 = time.perf_counter()
+            obs.registry().render_prometheus()
+            render.append((time.perf_counter() - t0) * 1e3)
+        scrape = []
+        for _ in range(OBS_RENDERS // 2):
+            t0 = time.perf_counter()
+            _get_text(port, "/metricsz")
+            scrape.append((time.perf_counter() - t0) * 1e3)
+        spans = [s for s in obs.tracer().spans() if s.name == "serve.batch"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+        eng.close()
+    serve_kinds = [e["kind"] for e in _events(evlog)]
+    if not {"serve.start", "alert.firing", "serve.reload"} <= set(
+            serve_kinds) or len(spans) < n_req:
+        raise SmokeError(f"obs: serve events {serve_kinds}, {len(spans)} "
+                         "serve.batch spans")
+    log(f"obs: serve events {serve_kinds}; {len(spans)} serve.batch spans; "
+        f"render {statistics.median(render):.3f} ms, GET /metricsz "
+        f"{statistics.median(scrape):.3f} ms (medians, host clock, "
+        f"{len(text)} bytes); {card}")
+    obs.alerts.reset()
+    obs.tracer().reset()
+    # a short GoogLeNet task=train with obs armed
+    tdir, evtrain = os.path.join(tmp, "trace"), os.path.join(tmp, "ev.jsonl")
+    conf = _synthetic_conf(tmp, "googlenet_obs.conf",
+                           (("data", "train", LIB_JPEG_ROWS, True),),
+                           LR_SCALE)
+    hist = "train_step_device_seconds"
+
+    def sampled():
+        return obs.registry().snapshot().get(hist, {}).get(hist + "_count",
+                                                           0.0)
+
+    n0 = sampled()
+    argv = [conf, "task=train", "num_round=1", "max_round=1",
+            f"model_dir={os.path.join(tmp, 'gmodels')}", "save_model=1",
+            f"seed={SEED}", "print_step=0", f"event_log={evtrain}",
+            f"trace_dir={tdir}", "trace_steps=1000",
+            "device_sample_every=1"]
+    _, gtr, steps, losses, _marks = _run_train_task(argv)
+    n_steps = len(steps)  # the timed steps below record into it too
+    kinds = [e["kind"] for e in _events(evtrain)]
+    files = os.listdir(tdir) if os.path.isdir(tdir) else []
+    events = (json.load(open(os.path.join(tdir, files[0])))["traceEvents"]
+              if files else [])
+    xs = [e for e in events if e.get("ph") == "X"]
+    rounds = {e["args"]["span_id"] for e in xs if e["name"] == "train.round"}
+    parents = {e["args"].get("parent_id") for e in xs
+               if e["name"] in ("train.dispatch", "train.device_wait")}
+    order = [k for k in kinds if k in ("train.start", "checkpoint.save",
+                                       "train.end")]
+    if (order[-3:] != ["train.start", "checkpoint.save", "train.end"]
+            or sampled() - n0 != n_steps or not rounds
+            or parents != rounds or not all(np.isfinite(losses))):
+        raise SmokeError(f"obs: train events {kinds}, sampled "
+                         f"{sampled() - n0} of {n_steps} steps, trace "
+                         f"{files} rounds {rounds} parents {parents}")
+    log(f"obs: task=train {n_steps} steps, events {kinds}; "
+        f"{hist} counts {sampled() - n0:.0f}; trace {files[0]}: "
+        f"{len(xs)} spans, {len(rounds)} train.round parent(s)")
+    # a step with obs armed (a span a step, the sampled wait) or not
+    rng = np.random.RandomState(SEED + 43)
+    batch = DataBatch(
+        data=rng.standard_normal((BATCH, CONF_SIDE, CONF_SIDE, 3)).astype(
+            np.float32),
+        label=rng.randint(0, 1000, (BATCH, 1)).astype(np.float32))
+
+    def armed():
+        obs.device.configure([("device_sample_every", "1")])
+        obs.tracer().enable()
+        with obs.span("train.dispatch", steps=1):
+            gtr.update(batch)
+
+    def unarmed():
+        obs.device.configure([("device_sample_every", "0")])
+        obs.tracer().enabled = False
+        with obs.span("train.dispatch", steps=1):
+            gtr.update(batch)
+
+    times = _turn_ms({"armed": armed, "unarmed": unarmed}, OBS_TIMED_STEPS,
+                     gtr.sync)
+    obs.device.configure([("device_sample_every", "0")])
+    obs.tracer().reset()
+    obs.events.event_log().reset()
+    log(f"obs: GoogLeNet b{BATCH} step ms, obs armed against unarmed, "
+        f"{OBS_TIMED_STEPS} a turn, host clock "
+        f"{json.dumps({k: [round(v, 2) for v in t] for k, t in times.items()})}"
+        f"; {card}")
+    return {"metricsz_render_ms": statistics.median(render),
+            "metricsz_get_ms": statistics.median(scrape),
+            "metricsz_bytes": len(text), "peak_bytes_in_use": peak,
+            "serve_events": serve_kinds, "train_events": kinds,
+            "train_steps": n_steps, "step_ms": times}
+
+
 def main() -> int:
     try:
         import torch
@@ -6032,6 +6808,15 @@ def main() -> int:
                    "digits_wino_bf16": wino_digits_phase(tmp, card),
                    "ndsb": ndsb_phase(tmp, card)}
         log(json.dumps({"layers": zoo}))
+        t23 = time.perf_counter()
+        builds = host_builds()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_lib_") as tmp:
+            lib_out = {"card": card, "host_builds": builds,
+                       "wrapper": library_phase(tmp, card, builds),
+                       "capi": capi_phase(tmp, card, builds),
+                       "obs": obs_phase(tmp, card)}
+        lib_out["phase_s"] = time.perf_counter() - t23
+        log(json.dumps({"library_obs": lib_out}))
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
                             quant_launches)

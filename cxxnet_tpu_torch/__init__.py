@@ -12,8 +12,11 @@ It serves CNNs (``task=serve``, :class:`serve.Engine`), trains them
 sgd``), trains the byte-level transformer language model (``iter =
 text``, ``updater = adam``, flash attention) and samples from it
 (``task=generate``, :mod:`nnet.generate`); the other tasks are later
-slices (ROADMAP.md).  The package imports neither ``jax`` nor
-``cxxnet_tpu``.
+slices (ROADMAP.md).  Its library API is :mod:`wrapper` (``DataIter``,
+``Net``, ``train``), its C ABI the ``CXN*`` functions of
+``csrc/host/cxxnet_capi.h`` over :mod:`capi_shim`, and its
+observability plane :mod:`obs` (``/metricsz``, ``/alertz``, the event
+log, spans).  The package imports neither ``jax`` nor ``cxxnet_tpu``.
 """
 
 __version__ = "0.1.0"

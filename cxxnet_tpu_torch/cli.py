@@ -41,6 +41,18 @@ draws the augmentation an uninterrupted run draws, with or without
 ``threadbuffer``.  ``fault_inject`` / ``fault_seed`` arm the fault sites
 of the data chain (``utils/faults.py``) for every task.
 
+Every task arms the observability plane (``obs/``) from the conf at
+startup: ``event_log`` writes the lifecycle events (``train.start``,
+``train.end``, ``train.preempted``, ``checkpoint.restore``,
+``checkpoint.save``, ``divergence.trip``, ``divergence.rollback``, the
+serving and data events), ``trace_dir`` / ``trace_steps`` write the
+host spans of the first steps (``train.round``, ``train.dispatch`` a
+step, ``train.device_wait`` at the round's end, ``checkpoint.write``)
+as Chrome trace JSON, ``device_sample_every = N`` times every Nth
+update's wait for the card into ``train_step_device_seconds``, and
+``alert = name:metric:op:threshold[:for_s]`` rules are evaluated every
+``alert_period_s`` (``/alertz``, ``/healthz`` under ``task=serve``).
+
 ``task=finetune``: as ``train``, from a fresh init into which every
 layer of ``model_in`` (a checkpoint of either package) whose name and
 tag shapes match is copied (``Copying layer <name>``); the round counter
@@ -286,9 +298,13 @@ class LearnTask:
                 + ", ".join(_TASKS))
         if self.task not in _TASKS:
             raise ValueError(f"unknown task {self.task!r}")
+        from . import obs
         from .utils import faults
 
         faults.configure(self.cfg)
+        # the observability plane: spans, the event log, the device
+        # samples and the alert rules, all off unless their keys are set
+        obs.configure(self.cfg)
         if self.task == "serve":
             self.task_serve()
         elif self.task in ("train", "finetune"):
@@ -355,6 +371,9 @@ class LearnTask:
             self.net_trainer = self._create_trainer()
             self.net_trainer.load_model(path)
             self.start_counter = round_ + 1
+            from .obs import emit as obs_emit
+
+            obs_emit("checkpoint.restore", round=round_, path=path)
             print(f"Init: Continue training from round {self.start_counter}")
         elif self.name_model_in == "NULL":
             self.net_trainer = self._create_trainer()
@@ -459,6 +478,8 @@ class LearnTask:
         return True
 
     def task_train(self) -> None:
+        from .obs import emit as obs_emit
+        from .obs import trace as obs_trace
         from .utils.checkpoint import DivergenceError, PreemptionHandler
 
         self.init_train()
@@ -473,14 +494,20 @@ class LearnTask:
                 sys.stderr.flush()
             if self.itr_train is None:
                 return
+            obs_emit("train.start", task=self.task, round=self.start_counter,
+                     num_round=self.num_round)
             preempt = PreemptionHandler().install()
             self._divergence_retries, self._lr_scale = 0, 1.0
+            self._global_step = 0
             try:
                 budget = self.max_round
                 while self.start_counter <= self.num_round and budget > 0:
                     budget -= 1
                     try:
-                        completed = self._train_one_round(preempt, t_start)
+                        with obs_trace.span("train.round",
+                                            round=self.start_counter):
+                            completed = self._train_one_round(preempt,
+                                                              t_start)
                     except DivergenceError as e:
                         if self._handle_divergence(e):
                             budget += 1  # the aborted attempt keeps its budget
@@ -489,7 +516,10 @@ class LearnTask:
                     self._divergence_retries = 0  # a round completed
                     if not completed or preempt.requested:
                         last = self.start_counter - 1
-                        if self._save_model(force=True):
+                        snapshotted = self._save_model(force=True)
+                        obs_emit("train.preempted", round=last,
+                                 snapshotted=snapshotted)
+                        if snapshotted:
                             print(f"preemption: state saved through round "
                                   f"{last} ({last:04d}.model); resume with "
                                   "continue=1", flush=True)
@@ -500,6 +530,9 @@ class LearnTask:
                     self._save_model()
             finally:
                 preempt.uninstall()
+                obs_trace.tracer().flush_window(self._global_step)
+            obs_emit("train.end", rounds=self.start_counter - 1,
+                     elapsed_s=time.time() - t_start)
             if not self.silent:
                 print(f"\nupdating end, {int(time.time() - t_start)} sec "
                       "in all")
@@ -514,8 +547,12 @@ class LearnTask:
         that checkpoint's round; at most ``divergence_max_retries``
         times in a row.  True to go on training; False aborts (the
         ``abort`` policy, or nothing left to try)."""
+        from .obs import emit as obs_emit
         from .utils import checkpoint as ckpt
 
+        obs_emit("divergence.trip", error=str(e),
+                 policy=self.divergence_policy or "abort",
+                 retries=self._divergence_retries)
         print(f"DIVERGENCE: {e}", flush=True)
         if self.divergence_policy != "rollback":
             return False
@@ -549,6 +586,8 @@ class LearnTask:
             tr.scale_learning_rate(self._lr_scale)
         self.net_trainer = tr
         self.start_counter = round_ + 1
+        obs_emit("divergence.rollback", round=round_, path=path,
+                 lr_scale=self._lr_scale, retry=self._divergence_retries)
         print(f"divergence: rolled back to round {round_} ({path}), "
               f"lr scale now {self._lr_scale:g} "
               f"(retry {self._divergence_retries}/"
@@ -559,6 +598,7 @@ class LearnTask:
         """One pass over the data section; False when a preemption
         request stopped it after a batch."""
         from .io.augment import ANCHOR_KEY
+        from .obs import trace as obs_trace
 
         tr = self.net_trainer
         round_ = self.start_counter - 1
@@ -572,7 +612,10 @@ class LearnTask:
         steps = 0
         t0 = time.perf_counter()
         while self.itr_train.next():
-            tr.update(self.itr_train.value())
+            obs_trace.step(self._global_step)
+            with obs_trace.span("train.dispatch", steps=1):
+                tr.update(self.itr_train.value())
+            self._global_step += 1
             steps += 1
             if (self.print_step > 0 and steps % self.print_step == 0
                     and not self.silent):
@@ -580,7 +623,8 @@ class LearnTask:
                       f"{int(time.time() - t_start)} sec elapsed", flush=True)
             if preempt.requested:
                 return False
-        tr.sync()
+        with obs_trace.span("train.device_wait", steps=steps):
+            tr.sync()
         dt = time.perf_counter() - t0
         if not self.silent and steps:
             print(f"round {round_:8d}: {steps} steps in {dt:.3f} s, "

@@ -25,9 +25,20 @@ fault sites ``imgbin.page`` and ``imgbin.record`` are visited on the
 reading thread, in record order.  ``image_conf_prefix`` (a printf
 pattern) with ``image_conf_ids = lb-ub`` names the shards.
 ``shuffle_bin`` is read and, as in the JAX package, does nothing.
-``native_decoder`` asks for the JAX package's C++ reader, which the port
-does not have (ROADMAP.md item (g)): the Python reader runs, as the JAX
-package does where its library is not built.  ``dist_num_worker > 1``
+
+``native_decoder = 1`` (the default) reads encoded pages with the native
+reader (``io/native.py``: a C++ page thread and a libjpeg decode pool of
+``decode_thread`` workers, 0 = the cores less two) when it can be built,
+as the JAX package does; a non-JPEG blob comes back raw and PIL decodes
+it.  Raw-pixel pages, ``max_bad_records > 0`` (which needs the Python
+reader's record-level isolation) and ``native_decoder = 0`` take the
+Python reader, and so does a machine where the native reader does not
+build.  The iterator says which reader it runs (``reader``:
+``native`` or ``python``) and, for the Python reader, why
+(``reader_why``; the build's error line where the build failed).  The
+native reader visits no fault site and keeps no bad-record budget; the
+decode pool (``io/pipeline.py``) then augments its decoded instances.
+``dist_num_worker > 1``
 (or ``PS_RANK`` with more than one worker) raises: sharding the data
 over processes is ROADMAP.md queue A item 6.
 """
@@ -304,6 +315,12 @@ class ImageBinIterator(InstIterator):
         self.silent = 0
         self.raw = 0
         self.native_decoder = 1
+        self.decode_thread = 0  # native decode workers; 0: cores less two
+        self.reader = "python"  # the reader init() picked, and why
+        self.reader_why = ""
+        self._native = None  # NativePageReader
+        self._native_labels: List[Tuple[int, np.ndarray]] = []
+        self._native_pos = 0
         self.dist_num_worker = 1
         self.max_bad_records = 0
         self.quarantine_dir = ""
@@ -332,6 +349,8 @@ class ImageBinIterator(InstIterator):
             self.raw = int(val)
         elif name == "native_decoder":
             self.native_decoder = int(val)
+        elif name == "decode_thread":
+            self.decode_thread = int(val)
         elif name == "dist_num_worker":
             self.dist_num_worker = int(val)
         elif name == "max_bad_records":
@@ -381,17 +400,60 @@ class ImageBinIterator(InstIterator):
         if not self.image_bin:
             raise ValueError("imgbin: must set image_bin and image_list")
         self._shards = list(zip(self.image_bin, self.image_list))
-        if self.native_decoder and not self.raw and not self.silent:
-            print("imgbin: native_decoder = 1, but the port has no native "
-                  "reader (ROADMAP.md item (g)); reading with the Python "
-                  "reader", flush=True)
+        self._open_native()
         self._budget = BadRecordBudget(
             self.max_bad_records, what="imgbin", silent=bool(self.silent),
             quarantine_dir=self.quarantine_dir or None)
         self.before_first()
 
+    def _open_native(self) -> None:
+        """Pick the reader: the native one for encoded pages when it
+        builds, as the JAX package does, else the Python one."""
+        if self.raw:
+            self.reader_why = "raw_pixels = 1"
+        elif not self.native_decoder:
+            self.reader_why = "native_decoder = 0"
+        elif self.max_bad_records > 0:
+            # skip-and-quarantine needs record-level error isolation,
+            # which only the Python reader has: the native pool decodes
+            # ahead across threads and a corrupt record aborts it
+            self.reader_why = "max_bad_records > 0"
+            if not self.silent:
+                print("imgbin: max_bad_records set; using the pure-Python "
+                      "reader for skip-and-quarantine", flush=True)
+        else:
+            from . import native
+
+            if not native.available():
+                self.reader_why = native.unavailable_reason()
+                if not self.silent:
+                    print(f"imgbin: native reader unavailable "
+                          f"({self.reader_why}); reading with the Python "
+                          "reader", flush=True)
+                return
+            self._native = native.NativePageReader(
+                [b for b, _ in self._shards], self.decode_thread)
+            self._native_labels = []
+            for _, lst in self._shards:
+                self._native_labels.extend(_load_labels(lst))
+            self.reader, self.reader_why = "native", ""
+
+    def raw_available(self) -> bool:
+        """Can :meth:`next_raw` feed the decode pool?  Not under the
+        native reader, which decodes on its own pool."""
+        return self._native is None
+
+    def close(self) -> None:
+        if self._native is not None:
+            self._native.close()  # stops the reader and decode threads
+            self._native = None
+
     def before_first(self):
         self._budget.start_epoch()
+        if self._native is not None:
+            self._native.reset()
+            self._native_pos = 0
+            return
         self._shard_pos = 0
         self._open_shard(0)
 
@@ -423,6 +485,8 @@ class ImageBinIterator(InstIterator):
         self._page_iter = None
 
     def next(self) -> bool:
+        if self._native is not None:
+            return self._next_native()
         while True:
             rec = self.next_raw()
             if rec is None:
@@ -438,6 +502,18 @@ class ImageBinIterator(InstIterator):
             self._out = DataInst(rec.index, data.astype(np.float32, copy=False),
                                  rec.labels)
             return True
+
+    def _next_native(self) -> bool:
+        rec = self._native.next()
+        if rec is None:
+            return False
+        kind, payload = rec
+        # kind 1: decoded HWC uint8; kind 0: a non-JPEG blob for PIL
+        data = payload if kind == 1 else decode_image_u8(payload)
+        idx, labels = self._native_labels[self._native_pos]
+        self._native_pos += 1
+        self._out = DataInst(idx, data.astype(np.float32), labels)
+        return True
 
     # ------------------------------------------------------------------
     # the raw-record API of the decode pool (io/pipeline.py)

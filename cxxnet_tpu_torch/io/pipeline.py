@@ -39,6 +39,7 @@ import time
 import traceback
 from typing import List, Optional
 
+from ..obs import events as obs_events
 from ..utils import faults
 from ..utils.faults import Watchdog, WatchdogError
 from .augment import AugmentIterator
@@ -116,7 +117,8 @@ class ParallelAugmentIterator(InstIterator):
 
     def _start_pool(self):
         src = self.aug.base
-        if getattr(src, "next_raw", None) is not None:
+        if (getattr(src, "next_raw", None) is not None
+                and src.raw_available()):
             self._raw_source = src
         self._pil_mode = (self._raw_source is not None
                           and src.pil_available()
@@ -246,6 +248,8 @@ class ParallelAugmentIterator(InstIterator):
                 if wd.enabled:
                     dt = min(wd.stalled_for(), time.monotonic() - since)
                     if dt > wd.timeout_s:
+                        obs_events.emit("watchdog.fire", what=wd.what,
+                                        stalled_s=dt, timeout_s=wd.timeout_s)
                         raise WatchdogError(self._stall_diagnostic(dt))
             return self._results.pop(seq)
 

@@ -22,12 +22,11 @@ kernels as ``~bf16`` uint16 words, in the normal checkpoint container,
 so an artifact exported by either package serves in both.  ``quant =
 int8`` on a plain checkpoint quantizes on load instead, ungated.
 
-The JAX package also emits ``quant.export`` / ``quant.reject`` events
-and counts ``quant_export_total``; the port has no observability plane
-yet, so those wait with it (ROADMAP.md queue A item 5, planes).
-``conv_wino`` / ``conv_s2d`` convs, which the JAX plan starts at bf16,
-are refused by the port's conv layer (not ported), so they never reach
-the plan.
+A publish emits ``quant.export`` and a reject ``quant.reject``
+(``obs/events.py``), and both count in
+``quant_export_total{decision}`` (``published`` / ``rejected``), as in
+the JAX package.  ``conv_wino`` / ``conv_s2d`` convs start the plan at
+bf16 (``build_plan``), as the JAX plan does.
 """
 
 from __future__ import annotations
@@ -39,6 +38,8 @@ import torch
 
 from ..layers.conv import ConvolutionLayer
 from ..layers.linear import FullConnectLayer
+from ..obs import events as obs_events
+from ..obs.registry import registry as obs_registry
 from ..ops import quant as opsq
 from ..utils import checkpoint as ckpt
 
@@ -260,6 +261,11 @@ def export_quantized(
         "path": None,
     }
     if not ok:
+        # reject: nothing reaches disk, the f32 artifact keeps serving
+        obs_events.emit("quant.reject", source=model_path, scheme=scheme,
+                        agreement=agreement, min_agreement=min_agreement,
+                        fallbacks=len(fallbacks))
+        _count("rejected")
         if not silent:
             print(f"quant: REJECTED, agreement {agreement:.4f} < "
                   f"{min_agreement:g} even with every layer at bf16",
@@ -283,9 +289,22 @@ def export_quantized(
         },
     )
     verdict["path"] = path
+    obs_events.emit("quant.export", source=model_path, path=path,
+                    scheme=scheme, agreement=(agreement if gate else None),
+                    int8_layers=n_int8, bf16_layers=n_bf16,
+                    bytes_ratio=verdict["bytes_ratio"])
+    _count("published")
     if not silent:
         ag = f"{agreement:.4f}" if gate else "ungated"
         print(f"quant: exported {path} (scheme {scheme}, agreement {ag}, "
               f"{n_int8} int8 + {n_bf16} bf16 layers, "
               f"{verdict['bytes_ratio']:.2f}x smaller weights)", flush=True)
     return verdict
+
+
+def _count(decision: str) -> None:
+    obs_registry().counter(
+        "quant_export_total",
+        "Gated quantized exports by decision: published / rejected.",
+        labelnames=("decision",),
+    ).labels(decision=decision).inc()

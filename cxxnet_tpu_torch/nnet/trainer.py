@@ -35,6 +35,18 @@ A net with ``extra_data`` nodes takes the batch's ``extra_data`` in
 ``update`` (padded like ``data`` for a short batch), ``predict``,
 ``extract_feature`` and ``evaluate``.
 
+The library API's surface (``wrapper.py``): ``get_weight`` /
+``set_weight`` in the reference visitor's 2-D views (a conv ``wmat`` is
+``(cout, cin*kh*kw)``, ``(cin, kh, kw)`` minor), ``set_weight`` writing
+in place and dropping the prepared operands; ``update_scan`` runs K
+``update`` steps on batches staged on the device once (the JAX package
+runs them as one device program) and refuses what the JAX trainer
+refuses.  The observability plane (``obs/``): ``device_sample_every =
+N`` makes every Nth update wait for the card into
+``train_step_device_seconds``; placing the state publishes
+``train_state_shard_bytes`` and plugs the card's memory watermarks into
+``/metricsz``; an ungated quantize on load emits ``quant.on_load``.
+
 The divergence guard (``divergence_policy = abort|rollback``; off by
 default) reads each micro-batch's loss back to the host, one sync a
 step, and raises :class:`~..utils.checkpoint.DivergenceError` on a
@@ -73,6 +85,8 @@ import numpy as np
 import torch
 
 from ..io.data import DataBatch
+from ..obs import device as obs_device
+from ..obs import events as obs_events
 from ..ops import kernels as _klib
 from ..updater import Updater, apply_all, create_updater
 from ..utils import checkpoint as ckpt
@@ -265,6 +279,23 @@ class NetTrainer:
             self.updaters, self.ustates = {}, {}
         else:
             self._build_updaters()
+        self._export_state_bytes()
+
+    def _export_state_bytes(self) -> None:
+        """Publish ``train_state_shard_bytes{device}`` and
+        ``train_state_total_bytes`` (params + updater state, one device)
+        and plug the card's memory watermarks into ``/metricsz``, as the
+        JAX trainer does when it places its state."""
+        total = sum(int(w.nbytes) for tree in (self.params, self.ustates)
+                    for tags in (tree or {}).values()
+                    for leaf in tags.values()
+                    for w in (leaf.values() if isinstance(leaf, dict)
+                              else (leaf,)))
+        dev = self.device
+        obs_device.set_train_state_bytes(
+            {f"{dev.type}:{dev.index or 0}": total}, total)
+        if obs_device.enabled():
+            obs_device.register_memory_collector()
 
     def _maybe_quantize(self) -> None:
         """Apply the conf's ``quant`` scheme to freshly loaded or drawn
@@ -275,8 +306,11 @@ class NetTrainer:
         from . import quant as nquant
 
         plan = nquant.build_plan(self, self._quant_requested)
-        if plan:
-            nquant.apply_plan(self, plan, self._quant_requested)
+        if not plan:
+            return
+        nquant.apply_plan(self, plan, self._quant_requested)
+        obs_events.emit("quant.on_load", scheme=self.quant_scheme,
+                        layers=len(plan), gated=False)
 
     def _invalidate_prepared(self) -> None:
         """Drop the operands prepared from the current weights: after a
@@ -619,12 +653,7 @@ class NetTrainer:
                                 extras).cpu().numpy()[:n_real]
         return cache
 
-    def update(self, batch: DataBatch) -> None:
-        """One micro-batch: the train forward from the f32 masters and
-        the backward; then, on every ``update_period``-th micro-batch,
-        the updaters on every tensor in place (all the SGD tensors in one
-        launch of the fused SGD kernel on a card) from the summed f32
-        gradients, and ``epoch_counter += 1``."""
+    def _check_trainable(self) -> None:
         if self.net is None:
             raise RuntimeError("update: init_model or load_model first")
         if self.quant_scheme:
@@ -632,6 +661,16 @@ class NetTrainer:
                 f"this trainer serves a quantized model ({self.quant_scheme})"
                 " and is inference-only: train on the f32 checkpoint and "
                 "export again")
+
+    def update(self, batch: DataBatch) -> None:
+        """One micro-batch: the train forward from the f32 masters and
+        the backward; then, on every ``update_period``-th micro-batch,
+        the updaters on every tensor in place (all the SGD tensors in one
+        launch of the fused SGD kernel on a card) from the summed f32
+        gradients, and ``epoch_counter += 1``.  With
+        ``device_sample_every = N`` every Nth update then waits for the
+        card and the wait lands in ``train_step_device_seconds``."""
+        self._check_trainable()
         data_in, label_in, extras_in, mask_np, n_real = (
             self._pad_train_batch(batch))
         dev = self.device
@@ -697,6 +736,61 @@ class NetTrainer:
                                        self._label_ranges())
         if apply:
             self.epoch_counter += 1
+            obs_device.maybe_sample_step(self.epoch_counter, self.sync)
+
+    def update_scan(self, data, labels, n_steps: Optional[int] = None,
+                    sync: bool = True):
+        """K training steps: ``data`` of shape ``[K, B, ...]`` (a
+        micro-batch a step) or one ``[B, ...]`` batch reused
+        ``n_steps = K`` times, each step a full ``batch_size`` batch.  The
+        JAX package runs the K steps as one device program; here they are
+        K :meth:`update` calls on batches staged on the device once, which
+        is the same math.  Returns the K f32 losses: a numpy array, or
+        with ``sync=False`` a tensor on the device, the card's queue not
+        drained (``eval_train`` must be off: the train metrics read the
+        outputs back).  Refuses what the JAX trainer refuses, with its
+        messages."""
+        self._check_trainable()
+        if not sync and self.eval_train:
+            raise ValueError(
+                "update_scan(sync=False) cannot overlap with eval_train: "
+                "per-step train metrics fetch the scan outputs (a full "
+                "sync); pass sync=True or set eval_train = 0")
+        if self.update_period != 1:
+            raise ValueError("update_scan requires update_period == 1")
+        if self.graph.extra_data_num:
+            raise ValueError(
+                "update_scan does not support extra_data nodes; use update()")
+        if self.eval_train and self.train_metric.need_nodes():
+            raise ValueError(
+                "update_scan cannot score node-bound train metrics "
+                "(metric[field,node] with eval_train); use update()")
+        in_ndim = len(self.net.input_node_shape(self.batch_size))
+        dev = self.device
+        x = torch.as_tensor(np.asarray(data, np.float32), device=dev)
+        y = torch.as_tensor(np.asarray(labels, np.float32), device=dev)
+        per_step = x.dim() == in_ndim + 1
+        if per_step:
+            k = int(x.shape[0])
+            if n_steps is not None and n_steps != k:
+                raise ValueError(
+                    f"n_steps={n_steps} != leading data axis {k}")
+        else:
+            if n_steps is None:
+                raise ValueError(
+                    "single-batch mode needs n_steps (or pass [K,B,...])")
+            k = int(n_steps)
+        if y.dim() == (2 if per_step else 1):
+            y = y.unsqueeze(-1)  # one label column
+        losses = []
+        for i in range(k):
+            self.update(DataBatch(data=x[i] if per_step else x,
+                                  label=y[i] if per_step else y))
+            losses.append(self.last_loss.float())
+        out = torch.stack(losses)
+        if not sync:
+            return out
+        return out.cpu().numpy()
 
     # ------------------------------------------------------------------
     # the divergence guard
@@ -765,6 +859,54 @@ class NetTrainer:
     def update_all(self, data: np.ndarray, labels: np.ndarray) -> None:
         """numpy-in convenience (the wrapper API's batch update)."""
         self.update(DataBatch(data=np.asarray(data), label=np.asarray(labels)))
+
+    # ------------------------------------------------------------------
+    # weight access (the wrapper API: 2-D views, the visitor's tags)
+    def get_weight(self, layer_name: str, tag: str) -> np.ndarray:
+        """The weight ``tag`` of layer ``layer_name`` as the reference
+        visitor's 2-D f32 view (:meth:`_to_2d`); a ``(0, 0)`` array when
+        the layer has no such weight."""
+        i = self.graph.layer_index_of(layer_name)
+        key = self.net.param_key[i]
+        if key not in self.params or tag not in self.params[key]:
+            return np.zeros((0, 0), np.float32)
+        w = self.params[key][tag].detach().float().cpu().numpy()
+        return self._to_2d(w, self.graph.layers[i].type_name, tag)
+
+    def set_weight(self, weight: np.ndarray, layer_name: str, tag: str) -> None:
+        """Write a 2-D view (:meth:`get_weight`'s layout, or anything of
+        the same size) into the weight in place, on the trainer's device,
+        and drop the operands prepared from the old weights, as
+        :meth:`update` does.  ``tag`` is ``wmat`` or ``bias``."""
+        if tag not in ("wmat", "bias"):
+            raise ValueError("tag must be wmat or bias")
+        i = self.graph.layer_index_of(layer_name)
+        key = self.net.param_key[i]
+        cur = self.params[key][tag]
+        new = self._from_2d(np.asarray(weight, np.float32), tuple(cur.shape),
+                            self.graph.layers[i].type_name, tag)
+        with torch.no_grad():
+            cur.copy_(torch.from_numpy(np.ascontiguousarray(new)))
+        self._invalidate_prepared()
+
+    @staticmethod
+    def _to_2d(w: np.ndarray, type_name: str, tag: str) -> np.ndarray:
+        """The reference visitor's 2-D view: a conv ``wmat`` (HWIO)
+        becomes ``(cout, cin_g*kh*kw)`` in ``(cin, kh, kw)`` minor order
+        (the unpack_patch2col layout); anything else row-major."""
+        if type_name == "conv" and tag == "wmat" and w.ndim == 4:
+            kh, kw, ci, co = w.shape
+            return w.transpose(3, 2, 0, 1).reshape(co, ci * kh * kw)
+        if w.ndim == 1:
+            return w[None, :]
+        return w.reshape(w.shape[0], -1)
+
+    @staticmethod
+    def _from_2d(w2: np.ndarray, shape, type_name: str, tag: str) -> np.ndarray:
+        if type_name == "conv" and tag == "wmat" and len(shape) == 4:
+            kh, kw, ci, co = shape
+            return w2.reshape(co, ci, kh, kw).transpose(2, 3, 1, 0)
+        return w2.reshape(shape)
 
     def _label_ranges(self) -> Dict[str, Tuple[int, int]]:
         g = self.graph

@@ -16,6 +16,13 @@ why the port does not use ``torch.utils.cpp_extension``.
 
 Nothing is built or loaded at import: the CPU tests import every module
 on machines without ``nvcc`` or a card.
+
+Host sources (``csrc/host/``: the C ABI's library and its C host, the
+native page reader) are built by :func:`build_host` with ``g++`` /
+``gcc`` into ``build/host/<name>-<hash>``, under the same hash key
+(source, local headers, flags) and the same write-then-rename, and
+serialised across processes by an ``fcntl`` lock.  They need no
+``nvcc``, so they build wherever a C++ toolchain is.
 """
 
 from __future__ import annotations
@@ -26,9 +33,10 @@ import os
 import re
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -107,13 +115,18 @@ class Kernel:
 
     def launch(self, symbol: str, argtypes: Sequence, *args) -> None:
         """Call ``symbol`` (C return type int = cudaError_t) and raise
-        unless it returned 0; count the launch."""
+        unless it returned 0; count the launch.  Binding an entry (its
+        first call) sets ``kernel_selected{name=symbol,backend=cuda}``
+        in ``/metricsz``."""
         fn = self._fns.get(symbol)
         if fn is None:
             fn = getattr(self._load(), symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             self._fns[symbol] = fn
+            from ..obs import device as obs_device
+
+            obs_device.mark_kernel_selected(symbol, "cuda", True)
         rc = fn(*args)
         if rc != 0:
             raise KernelError(
@@ -194,3 +207,109 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ----------------------------------------------------------------------
+# host sources: csrc/host/*.cc|*.c built with g++ / gcc
+HOST_SRC = os.path.join(CSRC, "host")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
+HOST_CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-pthread")
+
+
+class HostBuildError(RuntimeError):
+    """A host source failed to build; ``log`` holds the compiler's
+    output, and the message its first ``error`` line (else its last
+    line): the reason, where g++ ends with "compilation terminated."."""
+
+    def __init__(self, name: str, log: str) -> None:
+        self.name, self.log = name, log
+        lines = log.strip().splitlines() or ["no output"]
+        why = next((ln for ln in lines if "error" in ln), lines[-1])
+        super().__init__(f"host build of {name} failed: {why.strip()}")
+
+
+def python_build_flags() -> Tuple[List[str], List[str]]:
+    """``(include flags, link flags)`` of this interpreter's C API, from
+    ``sysconfig`` (the C host links ``libpython``; the library does
+    not)."""
+    paths = sysconfig.get_paths()
+    inc = []
+    for d in (paths["include"], paths.get("platinclude")):
+        if d and f"-I{d}" not in inc:
+            inc.append(f"-I{d}")
+    var = sysconfig.get_config_var
+    libdir = var("LIBDIR") or ""
+    link = [f"-L{libdir}", f"-Wl,-rpath,{libdir}",
+            f"-lpython{var('LDVERSION') or var('VERSION')}"]
+    link += (var("LIBS") or "").split() + (var("SYSLIBS") or "").split()
+    return inc, link
+
+
+def _host_spec(name: str) -> Tuple[str, List[str], List[str]]:
+    """``(source, compiler and flags before -o, flags after the
+    source)`` of one host target."""
+    if name == "libcxxnet_io":
+        return ("cxxnet_io.cc", ["g++", *HOST_CXXFLAGS, "-shared"],
+                ["-ljpeg"])
+    if name == "libcxxnet_capi":
+        inc, _ = python_build_flags()
+        return ("cxxnet_capi.cc", ["g++", *HOST_CXXFLAGS, *inc, "-shared"],
+                [])
+    if name == "capi_smoke":
+        lib = host_path("libcxxnet_capi")
+        _, link = python_build_flags()
+        return ("capi_smoke.c", ["gcc", "-O2", "-Wall", f"-I{HOST_SRC}"],
+                [lib, "-Wl,-rpath,$ORIGIN", "-Wl,--no-as-needed", *link])
+    raise ValueError(f"unknown host target {name!r}")
+
+
+def host_path(name: str) -> str:
+    """The target's path under ``build/host/``, keyed by its source, the
+    local headers it includes and its flags (for the C host, the
+    library's path, itself keyed)."""
+    src, pre, post = _host_spec(name)
+    path = os.path.join(HOST_SRC, src)
+    with open(path, "rb") as f:
+        text = f.read()
+    h = hashlib.sha256(text)
+    for inc in _LOCAL_INCLUDE.findall(text):
+        with open(os.path.join(HOST_SRC, inc.decode()), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(pre + post).encode())
+    ext = ".so" if name.startswith("lib") else ""
+    return os.path.join(HOST_BUILD_DIR, f"{name}-{h.hexdigest()[:12]}{ext}")
+
+
+def build_host(name: str) -> str:
+    """Build one host target if its keyed path is missing and return
+    the path.  Raises :class:`HostBuildError` with the compiler's log.
+    The C host builds its library first."""
+    import fcntl
+
+    if name == "capi_smoke":
+        build_host("libcxxnet_capi")
+    out = host_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+    src, pre, post = _host_spec(name)
+    with open(os.path.join(HOST_BUILD_DIR, ".lock"), "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if os.path.exists(out):  # another process built it meanwhile
+            return out
+        tmp = f"{out}.{os.getpid()}.tmp"
+        soname = ([f"-Wl,-soname,{os.path.basename(out)}"]
+                  if name.startswith("lib") else [])
+        cmd = [*pre, "-o", tmp, os.path.join(HOST_SRC, src), *soname, *post]
+        try:
+            r = subprocess.run(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True,
+                               timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise HostBuildError(name, f"{type(e).__name__}: {e}") from e
+        if r.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise HostBuildError(name, r.stdout)
+        os.replace(tmp, out)
+    return out

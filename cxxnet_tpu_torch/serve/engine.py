@@ -40,10 +40,18 @@ Counterpart of ``cxxnet_tpu/serve/engine.py`` for this slice:
   score of it to that CRC bit for bit; a drift degrades ``/healthz``
   (``integrity_failed``) until a clean score or a reload.
 
-Where the JAX engine emits ``obs`` events (a reload, a rebased golden,
-a canary verdict), the port prints a line unless ``silent``, and the
-state shows in ``/statsz``; the events wait for the observability
-plane.  The fleet/router and the tuner are later slices (ROADMAP.md).
+* **observability** (``obs/``) — the JAX engine's events
+  (``serve.start``, ``serve.reload`` on a swap and on a failure,
+  ``integrity.detect`` / ``integrity.clean`` / ``integrity.golden_rebased``),
+  the ``serve.batch`` span around each coalesced forward, the served
+  model's ``serve_model_round`` / ``serve_model_crc32`` gauges, the
+  canary's ``integrity_checks_total{kind,verdict}`` /
+  ``integrity_failures_total{kind}`` counters, and the alert rules that
+  fire (``alert=``) named in ``/healthz`` (``alert:<name>`` reasons,
+  status ``degraded``); beside them the port still prints a line per
+  reload or canary verdict unless ``silent``.
+
+The fleet/router and the tuner are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,12 +68,16 @@ from ..integrity import canary
 from ..nnet.graph import NetGraph
 from ..nnet.quant import quant_artifact_path
 from ..nnet.trainer import NetTrainer
+from ..obs import alerts as obs_alerts
+from ..obs import events as obs_events
+from ..obs import trace as obs_trace
+from ..obs.registry import registry as obs_registry
 from ..ops import quant as opsq
 from ..utils import checkpoint as ckpt
 from ..utils.faults import CircuitBreaker, RetryPolicy
 from .batcher import ClosedError, MicroBatcher, ServeError
 from .cache import ShapeBucketCache
-from .metrics import ServingStats
+from .metrics import ServingStats, serve_metrics
 
 __all__ = ["Engine", "ModelLoadError"]
 
@@ -190,6 +202,9 @@ class Engine:
         self._canary_failed = False
         self._canary_runs = 0
         self._canary_setup()
+        obs_events.emit("serve.start", round=self._round,
+                        model=self._model_path,
+                        max_batch_size=self.max_batch_size)
 
     # ------------------------------------------------------------------
     # loading
@@ -281,6 +296,11 @@ class Engine:
         self._round = round_ if round_ is not None else -1
         self._model_crc = (int(man["crc32"]) if man is not None
                            and man.get("crc32") is not None else None)
+        # the served weights' identity, scrapeable: a publish landing
+        m = serve_metrics()
+        m.model_round.set(self._round)
+        m.model_crc.set(self._model_crc if self._model_crc is not None
+                        else -1)
 
     @staticmethod
     def _allowed_row_shapes(tr: NetTrainer) -> List[Tuple[int, ...]]:
@@ -319,12 +339,14 @@ class Engine:
         """Batcher callback: one coalesced batch through the model."""
         with self._model_lock:
             cache = self._cache
-        self.stats.record_batch(data.shape[0], cache.bucket_for(data.shape[0]))
-        if kind == "extract":
-            return cache.extract(data, node)
-        if kind == "scores":
-            return cache.scores(data)
-        return cache.predict(data)
+        n = data.shape[0]
+        self.stats.record_batch(n, cache.bucket_for(n))
+        with obs_trace.span("serve.batch", kind=kind, rows=n):
+            if kind == "extract":
+                return cache.extract(data, node)
+            if kind == "scores":
+                return cache.scores(data)
+            return cache.predict(data)
 
     def submit(self, data, kind: str = "predict", node: Optional[str] = None,
                deadline_ms: Optional[float] = None) -> np.ndarray:
@@ -341,7 +363,8 @@ class Engine:
         if kind == "extract" and not node:
             raise ValueError("extract requests need a node name")
         arr = self._validate(data)
-        self.stats.record_request(arr.shape[0])
+        self.stats.record_request(
+            arr.shape[0], bucket=self._cache.bucket_for(arr.shape[0]))
         if deadline_ms is None:
             deadline_ms = self.default_deadline_ms
         t0 = time.monotonic()
@@ -410,6 +433,8 @@ class Engine:
             # new weights: rebase the golden (and clear its latch)
             self._canary_setup()
             self.last_reload_s = time.perf_counter() - t0
+        obs_events.emit("serve.reload", ok=True, swapped=True, round=round_,
+                        old_round=old_round, path=path)
         if not self.silent:
             print(f"serve: hot-reloaded round {round_} from {path} (was "
                   f"round {old_round}; load and warm "
@@ -430,6 +455,10 @@ class Engine:
         except Exception as e:  # noqa: BLE001 - degrade, don't die
             self.reload_breaker.record_failure()
             self.stats.record_reload(ok=False)
+            obs_events.emit("serve.reload", ok=False,
+                            error=f"{type(e).__name__}: {e}",
+                            breaker=self.reload_breaker.state,
+                            serving_round=self._round)
             if not self.silent:
                 print(f"serve: reload failed ({type(e).__name__}: {e}); "
                       f"breaker {self.reload_breaker.state}, serving round "
@@ -494,6 +523,9 @@ class Engine:
                                        tuple(block["shape"]))
             crc_now = self._score_probe(probe)
         except Exception as e:  # noqa: BLE001 - the canary must not block serve
+            obs_events.log_exception_once(
+                "serve.canary_setup", e, kind="integrity.error",
+                model=self._model_path)
             if not self.silent:
                 print(f"serve: canary setup failed for {self._model_path} "
                       f"({type(e).__name__}: {e}); canary off", flush=True)
@@ -506,6 +538,13 @@ class Engine:
             src = "manifest"
         else:
             src = "local" if block.get("crc32") is None else "rebased"
+            if src == "rebased":
+                obs_events.emit(
+                    "integrity.golden_rebased", round=self._round,
+                    model=self._model_path,
+                    manifest_crc32=block.get("crc32"), local_crc32=crc_now,
+                    binding=binding, backend=backend,
+                    quant=self.quant_scheme or "f32")
             if src == "rebased" and not self.silent:
                 print(f"serve: canary golden rebased for round {self._round}"
                       f" (manifest {block.get('crc32'):#010x} on "
@@ -526,6 +565,9 @@ class Engine:
             try:
                 crc = self._score_probe(self._canary_probe)
             except Exception as e:  # noqa: BLE001 - degrade, don't die
+                obs_events.log_exception_once(
+                    "serve.canary", e, kind="integrity.error",
+                    model=self._model_path)
                 if not self.silent:
                     print(f"serve: canary run failed ({type(e).__name__}: "
                           f"{e})", flush=True)
@@ -534,14 +576,32 @@ class Engine:
                 self.inject_canary_mismatch -= 1
                 crc ^= 0x1
             self._canary_runs += 1
-            if crc == self._canary_golden:
-                if self._canary_failed and not self.silent:
-                    print(f"serve: integrity canary clean again (round "
-                          f"{self._round})", flush=True)
+            clean = crc == self._canary_golden
+            obs_registry().counter(
+                "integrity_checks_total",
+                "Integrity-plane checks by kind and verdict.",
+                labelnames=("kind", "verdict"),
+            ).labels(kind="canary",
+                     verdict="clean" if clean else "corrupt").inc()
+            if clean:
+                if self._canary_failed:
+                    obs_events.emit("integrity.clean", kind="canary",
+                                    round=self._round, crc32=crc)
+                    if not self.silent:
+                        print(f"serve: integrity canary clean again (round "
+                              f"{self._round})", flush=True)
                 self._canary_failed = False
                 return True
             first = not self._canary_failed
             self._canary_failed = True
+            obs_registry().counter(
+                "integrity_failures_total",
+                "Integrity-plane corruption verdicts.",
+                labelnames=("kind",),
+            ).labels(kind="canary").inc()
+            obs_events.emit("integrity.detect", kind="canary",
+                            round=self._round, model=self._model_path,
+                            golden_crc32=self._canary_golden, crc32=crc)
             if first and not self.silent:
                 print(f"serve: integrity canary FAILED (golden "
                       f"{self._canary_golden:#010x} != {crc:#010x}); "
@@ -575,13 +635,16 @@ class Engine:
         # every degrade condition as a stable token (the fleet's probe
         # reads them): the model still serves, but may be stale or its
         # compute untrusted
+        # firing alert rules degrade health as an open breaker does
+        firing = obs_alerts.evaluator().firing()
         reasons: List[str] = []
         if self.reload_degraded():
             reasons.append("reload_breaker_open")
         if self._canary_failed:
             reasons.append("integrity_failed")
+        reasons.extend(f"alert:{name}" for name in firing)
         with self._model_lock:
-            return {
+            out = {
                 "status": ("closed" if self._closed
                            else "degraded" if reasons else "ok"),
                 "round": self._round,
@@ -593,6 +656,9 @@ class Engine:
                 "reload_breaker": self.reload_breaker.state,
                 "reasons": reasons,
             }
+        if firing:
+            out["alerts"] = firing
+        return out
 
     def snapshot_stats(self) -> Dict[str, object]:
         out = self.stats.snapshot()

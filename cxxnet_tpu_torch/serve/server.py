@@ -12,6 +12,13 @@ so a client keeps its connection alive across requests.  Endpoints:
   ``{"features": [[...], ...]}``
 * ``GET  /healthz``  — liveness + model identity (round, fingerprint)
 * ``GET  /statsz``   — serving metrics (``metrics.py``)
+* ``GET  /metricsz`` — Prometheus text (version 0.0.4) of the
+  process-wide metrics registry (``obs/registry.py``): request outcomes
+  and latency buckets, batches, reloads, the wire split, the served
+  weights, the card's memory watermarks (``xla_device_memory_bytes``),
+  events and alert transitions
+* ``GET  /alertz``   — the alert evaluator's rules and their live state
+  as JSON (``alert=`` rules; ``obs/alerts.py``)
 * ``POST /reloadz``  — one breaker-gated hot-reload attempt →
   ``{"ok", "swapped", "round", "breaker", "rid"}`` (any body is read and
   ignored: the ``{"model": ...}`` body belongs to the fleet's router)
@@ -26,8 +33,8 @@ frame's ``reason`` token, never a 500, and error bodies stay JSON.
 
 Errors map to JSON bodies: 400 malformed request, 404 unknown route,
 429 load shed, 503 shutting down, 504 deadline expired, 500 model
-failure.  ``/feedback``, ``/metricsz`` and ``/alertz`` are later
-slices.
+failure.  ``/feedback`` belongs to the closed loop (``loop/``), a later
+slice (ROADMAP.md item (h)).
 
 ``serve_forever(reload_period_s > 0)`` runs a poll thread beside the
 server: every period it calls ``Engine.try_reload`` (when the engine
@@ -51,6 +58,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..obs import alerts as obs_alerts
+from ..obs.registry import registry as obs_registry
 from . import wire
 from .batcher import ServeError
 from .engine import Engine
@@ -112,9 +121,12 @@ class _Handler(BaseHTTPRequestHandler):
             BaseHTTPRequestHandler.log_message(self, fmt, *args)
 
     def _reply(self, status: int, payload: dict) -> None:
-        body = json.dumps(payload).encode("utf-8")
+        self._reply_text(status, json.dumps(payload), "application/json")
+
+    def _reply_text(self, status: int, text: str, ctype: str) -> None:
+        body = text.encode("utf-8")
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
@@ -164,6 +176,12 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(200, self.engine.healthz())
             elif self.path == "/statsz":
                 self._reply(200, self.engine.snapshot_stats())
+            elif self.path == "/metricsz":
+                self._reply_text(
+                    200, obs_registry().render_prometheus(),
+                    "text/plain; version=0.0.4; charset=utf-8")
+            elif self.path == "/alertz":
+                self._reply(200, obs_alerts.evaluator().status())
             else:
                 self._reply(404, {"error": f"unknown route {self.path}"})
 

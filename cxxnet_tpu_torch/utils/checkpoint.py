@@ -130,10 +130,23 @@ def write_checkpoint(path: str, blob: bytes, round_: Optional[int] = None,
                      net_fp: Optional[str] = None,
                      quant: Optional[dict] = None,
                      probe: Optional[dict] = None) -> None:
-    """Atomic payload write, then the sidecar manifest."""
-    atomic_write_bytes(path, blob)
-    write_manifest(path, blob, round_=round_, net_fp=net_fp, quant=quant,
-                   probe=probe)
+    """Atomic payload write, then the sidecar manifest, inside the
+    ``checkpoint.write`` span; a ``checkpoint.save`` event either way
+    (``ok`` false, with the error, when a write raised)."""
+    from ..obs import events as obs_events
+    from ..obs import trace as obs_trace
+
+    try:
+        with obs_trace.span("checkpoint.write", path=path, bytes=len(blob)):
+            atomic_write_bytes(path, blob)
+            write_manifest(path, blob, round_=round_, net_fp=net_fp,
+                           quant=quant, probe=probe)
+    except Exception as e:
+        obs_events.emit("checkpoint.save", ok=False, path=path, round=round_,
+                        error=f"{type(e).__name__}: {e}")
+        raise
+    obs_events.emit("checkpoint.save", ok=True, path=path, round=round_,
+                    bytes=len(blob))
 
 
 def read_manifest(model_path: str) -> Optional[dict]:

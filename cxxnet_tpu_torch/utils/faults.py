@@ -21,9 +21,11 @@ The port's copy of these pieces of ``cxxnet_tpu/utils/faults.py``:
   ``retried_read_lines``) and ``CircuitBreaker`` (the hot-reload
   breaker).
 
-The JAX package also emits obs events and counters here
-(``fault.injected``, ``data.quarantined``); they wait for ``obs/``
-(ROADMAP.md item (h)).
+Each fault that fires emits ``fault.injected`` and counts in
+``faults_injected_total{site,kind}``; a quarantined record emits
+``data.quarantined``, a budget past its limit ``data.budget_exceeded``
+and a stall ``watchdog.fire`` (``obs/events.py``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -36,6 +38,9 @@ import time
 import traceback
 import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..obs import events as obs_events
+from ..obs.registry import registry as obs_registry
 
 #: Every injection site of the JAX package and the fault kinds it takes.
 SITES: Dict[str, Tuple[str, ...]] = {
@@ -227,6 +232,16 @@ class FaultInjector:
                     fs.fired += 1
                     firing.append((fs, rng))
             release = self._release
+        for fs, _rng in firing:
+            # every injection is a lifecycle fact: a chaos run can be
+            # audited afterwards from the event log and /metricsz
+            obs_events.emit("fault.injected", site=fs.site,
+                            fault_kind=fs.kind, fired=fs.fired,
+                            visits=fs.visits)
+            obs_registry().counter(
+                "faults_injected_total", "Chaos-harness fault firings.",
+                labelnames=("site", "kind"),
+            ).labels(site=fs.site, kind=fs.kind).inc()
         for fs, rng in firing:
             if fs.kind == "latency":
                 time.sleep(self.latency_s)
@@ -311,6 +326,11 @@ class Watchdog:
                 msg += f"\nhung thread {t.name!r} stack:\n{stack}"
         return msg
 
+    def _fire(self, dt: float) -> WatchdogError:
+        obs_events.emit("watchdog.fire", what=self.what, stalled_s=dt,
+                        timeout_s=self.timeout_s)
+        return WatchdogError(self.diagnostic(dt))
+
     def check(self) -> None:
         """Raise :class:`WatchdogError` when no beat has landed for
         ``timeout_s`` (a consumer polling a queue calls this)."""
@@ -318,7 +338,7 @@ class Watchdog:
             return
         dt = time.monotonic() - self._last
         if dt > self.timeout_s:
-            raise WatchdogError(self.diagnostic(dt))
+            raise self._fire(dt)
 
     def wait(self, event: threading.Event, poll: float = 0.2,
              since: Optional[float] = None) -> None:
@@ -333,7 +353,7 @@ class Watchdog:
         while not event.wait(min(poll, self.timeout_s)):
             dt = time.monotonic() - max(self._last, since)
             if dt > self.timeout_s:
-                raise WatchdogError(self.diagnostic(dt))
+                raise self._fire(dt)
 
 
 # ----------------------------------------------------------------------
@@ -557,6 +577,9 @@ class BadRecordBudget:
             reason += f" [{note}]"
         self.epoch_count += 1
         self.total_count += 1
+        obs_events.emit("data.quarantined", what=self.what, source=source,
+                        offset=offset, reason=reason,
+                        epoch_count=self.epoch_count)
         key = (source, offset)
         if key not in self._seen:
             self._seen.add(key)
@@ -573,6 +596,10 @@ class BadRecordBudget:
                               f"sidecar ({e}); continuing without it",
                               flush=True)
         if self.epoch_count > self.max_bad_records:
+            obs_events.emit("data.budget_exceeded", what=self.what,
+                            epoch_count=self.epoch_count,
+                            max_bad_records=self.max_bad_records,
+                            source=source, offset=offset)
             raise BadDataError(
                 f"{self.what}: bad-record budget exceeded "
                 f"({self.epoch_count} bad records this epoch > "

@@ -50,7 +50,12 @@ jitter,
 bit-equal to their formulas on the same on-card draws; a side-input
 net (csv + attachtxt, ``fixconn``, ``bias``, ``softplus``, a ``torch:``
 conv) stepped on the card against the CPU (f32, TF32 off, updates
-within 1e-4 of each tensor's largest).
+within 1e-4 of each tensor's largest); the library API's raw-array
+predict (``wrapper.Net``, through the bucket cache) and the C ABI's
+``CXNNetPredictBatch`` (the port's library loaded by ``ctypes`` into
+this process) bit-equal to ``trainer.predict`` on the card, and the
+``xla_device_memory_bytes`` series of ``/metricsz`` equal to
+``torch.cuda.memory_stats()`` read at the same moment.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -1455,3 +1460,99 @@ def test_cuda_side_input_net_step_matches_cpu(cuda_device, tmp_path):
             ref = trainers["cpu"].params[key][tag] - w0
             got = trainers["gpu"].params[key][tag].cpu() - w0
             assert (got - ref).abs().max() <= 1e-4 * ref.abs().max(), key
+
+
+WRAP_NET = """
+netconfig = start
+layer[0->1] = conv:c1
+  kernel_size = 3
+  nchannel = 16
+  pad = 1
+layer[1->2] = max_pooling
+  kernel_size = 3
+  stride = 2
+layer[2->3] = relu
+layer[3->4] = flatten
+layer[4->5] = fullc:fc
+  nhidden = 10
+layer[5->5] = softmax
+netconfig = end
+input_shape = 3,16,16
+batch_size = 32
+eta = 0.01
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_and_c_abi_predict_equal_trainer_predict(cuda_device,
+                                                              tmp_path):
+    import ctypes
+
+    import numpy as np
+
+    from cxxnet_tpu_torch import wrapper
+    from cxxnet_tpu_torch.ops import _build
+
+    net = wrapper.Net(dev="gpu", cfg=WRAP_NET)
+    net.init_model()
+    rs = np.random.RandomState(0)
+    x = rs.randn(20, 16, 16, 3).astype(np.float32)
+    net.update(rs.randn(32, 16, 16, 3).astype(np.float32),
+               rs.randint(0, 10, 32).astype(np.float32))
+    ref = net.trainer.predict(np.concatenate(
+        [x, np.zeros((12, 16, 16, 3), np.float32)]))[:20]
+    n0 = maxpool.KERNEL.launches
+    got = net.predict(x)  # bucket 32: the same batch shape as ref's
+    assert maxpool.KERNEL.launches == n0 + 1
+    np.testing.assert_array_equal(got, ref)
+    path = str(tmp_path / "w.model")
+    net.save_model(path)
+    (tmp_path / "net.conf").write_text(WRAP_NET)
+    lib = ctypes.CDLL(_build.build_host("libcxxnet_capi"))
+    lib.CXNNetCreate.restype = ctypes.c_void_p
+    lib.CXNNetCreate.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.CXNNetLoadModel.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.CXNNetPredictBatch.restype = ctypes.POINTER(ctypes.c_float)
+    lib.CXNNetPredictBatch.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+        ctypes.c_uint * 4, ctypes.POINTER(ctypes.c_uint)]
+    lib.CXNNetFree.argtypes = [ctypes.c_void_p]
+    lib.CXNGetLastError.restype = ctypes.c_char_p
+    h = lib.CXNNetCreate(b"gpu", WRAP_NET.encode())
+    assert h, lib.CXNGetLastError()
+    assert lib.CXNNetLoadModel(h, path.encode()) == 0, lib.CXNGetLastError()
+    shape = (ctypes.c_uint * 4)(*x.shape)
+    n = ctypes.c_uint()
+    out = lib.CXNNetPredictBatch(
+        h, x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), shape,
+        ctypes.byref(n))
+    assert out, lib.CXNGetLastError()
+    np.testing.assert_array_equal(np.ctypeslib.as_array(out, (n.value,)),
+                                  ref)
+    lib.CXNNetFree(h)
+
+
+@pytest.mark.cuda
+def test_cuda_memory_series_equal_memory_stats(cuda_device):
+    from cxxnet_tpu_torch import obs
+    from cxxnet_tpu_torch.obs import device as obs_device
+
+    keep = torch.randn(1 << 20, device=cuda_device)
+    obs_device.register_memory_collector()
+    text = obs.registry().render_prometheus()
+    stats = torch.cuda.memory_stats(0)
+    got = {}
+    for line in text.splitlines():
+        if line.startswith("xla_device_memory_bytes{"):
+            key, val = line.rsplit(" ", 1)
+            got[key] = float(val)
+    want = {
+        'xla_device_memory_bytes{device="cuda:0",stat="bytes_in_use"}':
+            stats["allocated_bytes.all.current"],
+        'xla_device_memory_bytes{device="cuda:0",stat="peak_bytes_in_use"}':
+            stats["allocated_bytes.all.peak"],
+        'xla_device_memory_bytes{device="cuda:0",stat="bytes_limit"}':
+            torch.cuda.get_device_properties(0).total_memory,
+    }
+    assert {k: got[k] for k in want} == {k: float(v) for k, v in want.items()}
+    del keep

@@ -973,17 +973,44 @@ def test_distributed_sharding_refuses(shards, tmp_path, monkeypatch,
             it.init()
 
 
-def test_native_decoder_says_it_reads_in_python(shards, capsys):
+def _reader_of(it):
+    """The imgbin source at the bottom of a chain."""
+    while not hasattr(it, "reader"):
+        it = it.aug if hasattr(it, "aug") else it.base
+    return it
+
+
+def test_native_decoder_says_it_reads_in_python(shards, capsys,
+                                                monkeypatch):
+    """Where the native reader cannot be built, ``native_decoder = 1``
+    reads with the Python reader and says why (once, unless silent);
+    the iterator names the reader it runs either way."""
+    from cxxnet_tpu_torch.io import native as tnative
+
+    why = ("host build of libcxxnet_io failed: fatal error: jpeglib.h: "
+           "No such file or directory")
+    monkeypatch.setattr(tnative, "_tried", True)
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_reason", why)
     for silent in ("0", "1"):
         it = tdata.create_iterator([e for e in _entries(shards["jpeg"])
                                     if e[0] not in ("silent",
                                                     "native_decoder")]
                                    + [("silent", silent)])
         it.init()
+        assert (_reader_of(it).reader, _reader_of(it).reader_why) == (
+            "python", why)
         it.close()
     out = capsys.readouterr().out
-    assert out.count("the port has no native reader") == 1
-    assert "ROADMAP.md item (g)" in out
+    assert out.count("native reader unavailable") == 1
+    assert why in out
+    for entries, reason in ((_entries(shards["jpeg"]), "native_decoder = 0"),
+                            (_entries(shards["raw"], RAW), "raw_pixels = 1")):
+        it = tdata.create_iterator(entries)
+        it.init()
+        assert (_reader_of(it).reader, _reader_of(it).reader_why) == (
+            "python", reason)
+        it.close()
 
 
 def test_raw_header_matches_struct():

@@ -18,6 +18,7 @@ import glob
 import io
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -47,7 +48,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "cxxnet_tpu_torch.io.pipeline, cxxnet_tpu_torch.io.img, "
         "cxxnet_tpu_torch.layers.pairtest, cxxnet_tpu_torch.plugin, "
         "cxxnet_tpu_torch.io.csv, cxxnet_tpu_torch.io.libsvm, "
-        "cxxnet_tpu_torch.io.membuffer, cxxnet_tpu_torch.io.attach_txt\n"
+        "cxxnet_tpu_torch.io.membuffer, cxxnet_tpu_torch.io.attach_txt, "
+        "cxxnet_tpu_torch.wrapper, cxxnet_tpu_torch.capi_shim, "
+        "cxxnet_tpu_torch.io.native, cxxnet_tpu_torch.obs\n"
         "from cxxnet_tpu_torch.layers import create_layer\n"
         "create_layer('torch'); create_layer('pairtest-conv-conv')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
@@ -90,10 +93,37 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
             "cxxnet_tpu_torch/plugin/torch_adapter.py",
             "cxxnet_tpu_torch/io/csv.py", "cxxnet_tpu_torch/io/libsvm.py",
             "cxxnet_tpu_torch/io/membuffer.py",
-            "cxxnet_tpu_torch/io/attach_txt.py"} <= names
+            "cxxnet_tpu_torch/io/attach_txt.py",
+            "cxxnet_tpu_torch/wrapper.py", "cxxnet_tpu_torch/capi_shim.py",
+            "cxxnet_tpu_torch/io/native.py",
+            "cxxnet_tpu_torch/obs/registry.py",
+            "cxxnet_tpu_torch/obs/device.py"} <= names
     bad = {f: sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert {f: b for f, b in bad.items() if b} == {}
+
+
+def test_host_sources_import_only_the_port():
+    """The C ABI's library embeds Python: every module its source
+    imports (``PyImport_ImportModule``, the bootstrap's ``import``
+    lines) is the port's or the standard library's."""
+    srcs = glob.glob(os.path.join(REPO, "cxxnet_tpu_torch", "csrc", "host",
+                                  "*.c*"))
+    assert {os.path.basename(f) for f in srcs} == {
+        "cxxnet_capi.cc", "capi_smoke.c", "cxxnet_io.cc"}
+    found = set()
+    for path in srcs:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        found |= set(re.findall(r'PyImport_ImportModule\("([\w.]+)"\)',
+                                text))
+        found |= set(re.findall(r'"\s*import ([\w., ]+?)\s*(?:#[^"]*)?'
+                                r'(?:\\n)?"', text))
+    mods = {m.strip().split(".")[0] for item in found
+            for m in item.split(",")}
+    assert "cxxnet_tpu_torch" in mods
+    assert mods <= {"cxxnet_tpu_torch", "numpy", "os", "sys"}, mods
+    assert "cxxnet_tpu_torch.capi_shim" in found
 
 
 @pytest.mark.parametrize("dev", ["gpu", "cuda", "tpu", "gpu:0", "cuda:0"])
