@@ -403,6 +403,45 @@ Phases; any failure ends the run with a non-zero exit and no result:
    the trace JSON's spans under ``train.round``; the step with obs armed
    against unarmed in turns; the time to render ``/metricsz``.  A
    ``library_obs`` JSON line.
+24. The utilities beside the trainer, the integrity plane and the tuner
+   (run before phase 21's closing lines):
+24a. ``task=train`` on googlenet.conf's own data sections (b128 bf16,
+   256 raw-pixel records in two shards, 4 decode workers, two rounds of
+   two steps) with ``telemetry``, ``profile`` (steps 2 and 3),
+   ``compile_cache_dir``, ``integrity_every = 1``, ``integrity_shadow =
+   1``, ``event_log``, ``controller = 1`` and a seeded ``device.state``
+   bitflip: every step K1 13, K2 4, K3 9, K4 2, K5 2, K6 9 (main paths)
+   and K8 1, every shadow leg the same without K8, ``integrity.clean``
+   each round (the legs bitwise equal), the flipped element one bit
+   off its old value and the leaf's digest changed and equal to the
+   host oracle's, the vote clean (one process), one telemetry record a
+   round with every key and non-zero stage timers, the JAX package's
+   round and ``pipeline:`` lines, the kernels' symbols (K1-K6, K8) in
+   the Chrome trace; the ten kernels built under ``<dir>/kernels`` by one
+   fresh process and loaded by a second without a build; then
+   ``inject_shadow_mismatch = 1`` must stop the run with
+   ``IntegrityError`` (kind ``shadow``) before the round is saved.  The
+   digest sweep, the shadow audit against a step and the step with the
+   profiler window open against closed, in turns.
+24b. ResNet-50 served at full width (b128 bf16) with ``controller = 1``
+   (``tune_period_s = 0.25``), ``serve.batch`` latency and
+   ``serve.reload`` I/O errors armed at low probability and a reload
+   attempt every 0.25 s: ~10 s of JSON (1-2 rows) and ``CXB1`` (1-64
+   rows) traffic from four client threads; every request answered,
+   each answer the slice of its coalesced batch's output, sampled
+   batches equal to ``trainer.predict`` on the same rows at the same
+   bucket; ``tune_effective`` in ``/metricsz`` equal to the engine's
+   live knobs; a ``tune.adjust``; every ``tune.prewarm`` naming a
+   bucket; the reload breaker counting the injected failures; the
+   first batch after a prewarm within 1.1x a warm batch's median, and
+   a cold first batch at least 1.5x the prewarmed one.
+24c. ResNet-50's checkpoint (f32 and ``ust:``) saved under
+   ``diskio.recording``: every prefix of the journal replayed in the
+   ``sync`` variant loads round 0 or round 1 through
+   ``find_latest_valid``, never a torn model; ``checkpoint.write``
+   ENOSPC aborts the save atomically; the save through ``diskio``
+   against a plain-``os`` atomic write, in turns; ResNet-50's digest
+   sweep.  A ``utilities`` JSON line.
 21. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
    forward kernels; the LM training run for K9 and K10, with the
@@ -486,6 +525,7 @@ Tolerances (reasons in PERF.md):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -6720,6 +6760,813 @@ def obs_phase(tmp: str, card: str):
             "train_steps": n_steps, "step_ms": times}
 
 
+# ----------------------------------------------------------------------
+# phase 24: the utilities beside the trainer (diskio, profiler, the
+# build cache, telemetry), the integrity plane and the tuner (ROADMAP.md
+# items (h1) and (h2))
+
+UTIL_TRAIN = (128, 128)  # two shards: two b128 steps a round
+UTIL_EVAL = 128
+UTIL_ROUNDS = 2
+UTIL_PROFILE = (2, 2)  # profile_start, profile_steps: the second round
+UTIL_FAULT_SEED = 1  # device.state's draw: a mantissa bit of a weight
+UTIL_TIMED = 3  # steps a turn in the armed/unarmed turns
+UTIL_PER_LEG = PER_STEP  # a shadow leg: the step's launches but K8
+UTIL_KEYS = ("ts", "round", "steps", "batches", "elapsed_s", "lr", "eval",
+             "step", "stages", "device", "integrity")
+UTIL_STAGES = ("decode", "augment", "batch", "h2d", "device_wait")
+# K1-K6 and K8 by their CUDA kernel functions' names in a trace
+UTIL_SYMBOLS = {"maxpool_fwd": "maxpool_fwd_vec_kernel",
+                "maxpool_bwd": "maxpool_bwd_vec_kernel",
+                "maxpool_bwd_s1": "maxpool_bwd_s1_vec_kernel",
+                "lrn_fwd": "lrn_fwd_vec_kernel",
+                "lrn_bwd": "lrn_bwd_vec_kernel",
+                "conv_block_gemm": "conv_block_wgmma_kernel",
+                "sgd_update": "sgd_update_multi_kernel"}
+TUNE_TRAFFIC_S = 10.0
+TUNE_CLIENTS = 4
+TUNE_JSON_ROWS = (1, 2)
+TUNE_BINARY_ROWS = (1, 7, 16, 32, 64)
+TUNE_VERIFY = 6  # coalesced batches recomputed through trainer.predict
+TUNE_FAULTS = ("serve.batch:latency:0.05", "serve.reload:ioerror:0.3")
+TUNE_WARM_REPS = 9
+TUNE_FIRST_ROWS = 24  # the prewarm check's request: bucket 32
+# fresh engines a mode for the first-batch check, run in turns (cold,
+# prewarmed, prewarmed, cold, ...).  One batch on the host clock of the
+# card's shared host spreads by 10-30 % either way, first or warm (on
+# the H100 single prewarmed first batches took 0.77x to 1.72x their
+# engine's warm median), so the check compares best-of-engines times:
+# the fastest first batch over the engines against the median, over the
+# warm batches' positions, of the fastest batch at each position.  A
+# prewarm that leaves a cost on every first batch still shows in full.
+TUNE_FIRST_TRIALS = 5
+# that first batch after a prewarm may take at most this many times the
+# warm one, and the fastest cold first batch must take at least this
+# many times the fastest prewarmed one (2.2x to 2.4x), so that a prewarm
+# that does nothing cannot pass
+TUNE_PREWARMED_MAX = 1.1
+TUNE_COLD_MIN = 1.5
+DURABLE_TURNS = 2
+
+
+def _cache_builds(cdir: str):
+    """The ten kernels built by a fresh process with ``compile_cache_dir
+    = cdir``, then loaded by a second fresh process from there: ``{"build_s",
+    "built", "load_s", "rebuilt"}``; fails unless the first built every
+    kernel under ``cdir/kernels`` and the second built none."""
+    code = (
+        "import json, sys, time\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "from cxxnet_tpu_torch.utils import compile_cache\n"
+        "from cxxnet_tpu_torch.ops import KERNELS, _build\n"
+        "compile_cache.configure([('compile_cache_dir', sys.argv[2])])\n"
+        "t0 = time.perf_counter()\n"
+        "built = _build.build(KERNELS)\n"
+        "for k in KERNELS:\n"
+        "    k._load()\n"
+        "print(json.dumps({'s': time.perf_counter() - t0,\n"
+        "                  'built': sorted(built),\n"
+        "                  'dir': _build.BUILD_DIR,\n"
+        "                  'loaded': len(_build.LOADED)}))\n")
+    out = []
+    for _ in range(2):
+        r = subprocess.run([sys.executable, "-c", code, REPO, cdir],
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            raise SmokeError(f"compile cache: {r.stderr[-2000:]}")
+        out.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    names = sorted(k.name for k in KERNELS)
+    libs = sorted(f.rsplit("-", 1)[0] for f in
+                  os.listdir(os.path.join(cdir, "kernels"))
+                  if f.endswith(".so"))
+    first, second = out
+    if (first["built"] != names or second["built"] != []
+            or libs != names or second["loaded"] != len(names)
+            or first["dir"] != os.path.join(cdir, "kernels")):
+        raise SmokeError(f"compile cache: first process {first}, second "
+                         f"{second}, libraries {libs}")
+    log(f"compile cache: {len(names)} kernels built under {cdir}/kernels "
+        f"in {first['s']:.1f}s by a fresh process; a second process "
+        f"loaded them in {second['s']:.2f}s without a build")
+    return {"build_s": first["s"], "load_s": second["s"],
+            "kernels": len(names)}
+
+
+def _util_argv(conf: str, tmp: str, mdir: str, *extra):
+    return [conf, "task=train", "dev=gpu", f"num_round={UTIL_ROUNDS}",
+            f"max_round={UTIL_ROUNDS}", f"model_dir={mdir}", f"seed={SEED}",
+            "print_step=0", "integrity_every=1", "integrity_shadow=1",
+            *extra]
+
+
+def utilities_train_phase(tmp: str, card: str):
+    """24a (see the module docstring); returns its part of the
+    ``utilities`` line."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import obs
+    from cxxnet_tpu_torch.integrity import (IntegrityError, digest_array,
+                                            digest_tensor)
+    from cxxnet_tpu_torch.integrity.plane import check_state
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS, _build
+    from cxxnet_tpu_torch.utils import compile_cache, faults
+    from cxxnet_tpu_torch.utils.profiler import TraceController
+
+    cdir = os.path.join(tmp, "cache")
+    cache = _cache_builds(cdir)
+    na, nb = UTIL_TRAIN
+    _write_raw_shard(os.path.join(tmp, "train_a"), na, IMGBIN_SIDE,
+                     SEED + 60, 0, 1000)
+    _write_raw_shard(os.path.join(tmp, "train_b"), nb, IMGBIN_SIDE,
+                     SEED + 61, na, 1000, ref=True)
+    _write_raw_shard(os.path.join(tmp, "val"), UTIL_EVAL, IMGBIN_SIDE,
+                     SEED + 62, 0, 1000)
+    conf = _imgbin_conf(tmp)
+    tel, ev = os.path.join(tmp, "telemetry.jsonl"), os.path.join(
+        tmp, "events.jsonl")
+    pdir = os.path.join(tmp, "profile")
+    argv = _util_argv(conf, tmp, os.path.join(tmp, "models"),
+                      "telemetry=1", f"telemetry_path={tel}", "profile=1",
+                      f"profile_dir={pdir}",
+                      f"profile_start={UTIL_PROFILE[0]}",
+                      f"profile_steps={UTIL_PROFILE[1]}",
+                      f"compile_cache_dir={cdir}", f"event_log={ev}",
+                      f"fault_seed={UTIL_FAULT_SEED}",
+                      "fault_inject=device.state:bitflip:1:1", "controller=1",
+                      "tune_period_s=0.25")
+    legs, flips = [], []
+    leg, flip = NetTrainer._shadow_leg, NetTrainer.inject_bitflip
+
+    def counted_leg(self, *a):
+        before = {k.name: k.launches for k in KERNELS}
+        paths = _by_symbol()
+        out = leg(self, *a)
+        legs.append(({k.name: k.launches - before[k.name] for k in KERNELS},
+                     _paths_since(paths)))
+        return out
+
+    def watched_flip(self, rng):
+        old = {f"{k}/{t}": w.clone() for k, tags in self.params.items()
+               for t, w in tags.items()}
+        d = flip(self, rng)
+        key, tag = d["tensor"].rsplit("/", 1)
+        w, was = self.params[key][tag], old[d["tensor"]]
+        x = (w.reshape(-1).view(torch.int32)
+             ^ was.reshape(-1).view(torch.int32))
+        nz = x.nonzero().reshape(-1).tolist()
+        flips.append(dict(d, changed=nz, xor=int(x[d["elem"]]) & 0xFFFFFFFF,
+                          old=float(was.reshape(-1)[d["elem"]]),
+                          new=float(w.reshape(-1)[d["elem"]]),
+                          digest_old=digest_tensor(was),
+                          digest_new=digest_tensor(w),
+                          digest_host=digest_array(w.cpu().numpy())))
+        return d
+
+    NetTrainer._shadow_leg, NetTrainer.inject_bitflip = counted_leg, \
+        watched_flip
+    t0 = time.perf_counter()
+    try:
+        # the main path: counts at 0 just before, read just after
+        with _Tee("stdout") as out:
+            task, tr, steps, losses, _marks = _run_train_task(argv)
+    finally:
+        NetTrainer._shadow_leg, NetTrainer.inject_bitflip = leg, flip
+        _build.set_cache_root(_build.DEFAULT_CACHE_ROOT)
+        compile_cache._enabled_dir = None
+        faults.reset()
+    wall = time.perf_counter() - t0
+    eff = obs.registry().snapshot().get("tune_effective", {})
+    want_step = {**{k.name: 0 for k in KERNELS}, **IMGBIN_PER_STEP}
+    want_leg = {**{k.name: 0 for k in KERNELS}, **UTIL_PER_LEG}
+    n_steps = UTIL_ROUNDS * -(-sum(UTIL_TRAIN) // BATCH)
+    if len(steps) != n_steps or len(legs) != 2 * UTIL_ROUNDS:
+        raise SmokeError(f"utilities: {len(steps)} steps, {len(legs)} "
+                         f"shadow legs")
+    for i, (d, p) in enumerate(zip(steps, tr.paths)):
+        if d != want_step or p != _main_paths(IMGBIN_PER_STEP):
+            raise SmokeError(f"utilities: step {i} launched {d}, by C entry"
+                             f" {p}; expected {want_step}")
+    for i, (d, p) in enumerate(legs):
+        if d != want_leg or p != _main_paths(UTIL_PER_LEG):
+            raise SmokeError(f"utilities: shadow leg {i} launched {d}, by "
+                             f"C entry {p}; expected {want_leg}")
+    log(f"utilities: {len(steps)} steps in {wall:.1f}s (CLI run), each "
+        f"{ {k: v for k, v in want_step.items() if v} } on the main paths;"
+        f" {len(legs)} shadow legs, each "
+        f"{ {k: v for k, v in want_leg.items() if v} }")
+    events = _events(ev)
+    clean = [e["round"] for e in events if e["kind"] == "integrity.clean"]
+    if clean != list(range(UTIL_ROUNDS)) or any(
+            e["kind"] == "integrity.detect" for e in events):
+        raise SmokeError(f"utilities: integrity events "
+                         f"{[e['kind'] for e in events]}")
+    if len(flips) != 1:
+        raise SmokeError(f"utilities: {len(flips)} bitflips")
+    f = flips[0]
+    if (f["changed"] != [f["elem"]] or f["xor"] != 1 << f["bit"]
+            or f["digest_new"] == f["digest_old"]
+            or f["digest_new"] != f["digest_host"]):
+        raise SmokeError(f"utilities: bitflip {f}")
+    log(f"utilities: bitflip {f['tensor']} elem {f['elem']} bit {f['bit']}:"
+        f" {f['old']!r} -> {f['new']!r}, one bit; digest_tensor "
+        f"{f['digest_old']} -> {f['digest_new']} == digest_array of the "
+        "host copy; the vote stayed clean (one process: single-replica "
+        f"groups, as in the JAX package); integrity.clean rounds {clean}, "
+        "each shadow audit's two legs bitwise equal")
+    recs = [json.loads(x) for x in open(tel)]
+    if len(recs) != UTIL_ROUNDS or any(
+            set(r) != set(UTIL_KEYS) for r in recs) or any(
+            not r["stages"][s]["count"] or not r["stages"][s]["total_s"]
+            for r in recs for s in UTIL_STAGES):
+        raise SmokeError(f"utilities: telemetry {recs}")
+    text = "".join(out.text)
+    import re
+
+    plines = [ln for ln in text.splitlines()
+              if re.match(r"round +\d+ pipeline: decode ", ln)]
+    slines = [ln for ln in text.splitlines()
+              if re.match(r"round +\d+: step [\d.]+ ms avg \(p50 [\d.]+, "
+                          r"p99 [\d.]+\), [\d.]+ samples/sec$", ln)]
+    if len(plines) != UTIL_ROUNDS or len(slines) != UTIL_ROUNDS:
+        raise SmokeError(f"utilities: round lines {plines} {slines}")
+    log(f"utilities: telemetry {len(recs)} records, keys {sorted(recs[0])};"
+        f" stages ms {({s: round(recs[-1]['stages'][s]['total_s'] * 1e3, 2) for s in UTIL_STAGES})}")
+    for ln in plines + slines:
+        log(f"utilities: {ln}")
+    traces = sorted(os.listdir(pdir)) if os.path.isdir(pdir) else []
+    if len(traces) != 1:
+        raise SmokeError(f"utilities: profile_dir holds {traces}")
+    trace = json.load(open(os.path.join(pdir, traces[0])))
+    knames = [e.get("name", "") for e in trace["traceEvents"]
+              if e.get("cat") == "kernel"]
+    seen = {k: sum(sym in n for n in knames)
+            for k, sym in UTIL_SYMBOLS.items()}
+    if not all(seen.values()):
+        raise SmokeError(f"utilities: trace kernels {seen}")
+    log(f"utilities: Chrome trace {traces[0]}: {len(knames)} CUDA kernel "
+        f"events; the port's by symbol {seen}")
+    tuned = {k: v for k, v in eff.items() if "decode" in k}
+    adjusts = [e for e in events if e["kind"] == "tune.adjust"]
+    log(f"utilities: tuner (train) settled {tuned}, "
+        f"{len(adjusts)} tune.adjust")
+    # the costs: the digest sweep, the shadow audit, the profiler window
+    dev = tr.device
+    tr.sync()
+    sweep = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        v = check_state(tr)
+        tr.sync()
+        sweep.append((time.perf_counter() - t1) * 1e3)
+    n_vals = sum(w.numel() for tags in tr.params.values()
+                 for w in tags.values())
+    rng = np.random.RandomState(SEED + 63)
+    batch = DataBatch(
+        data=torch.as_tensor(rng.standard_normal(
+            (BATCH, CONF_SIDE, CONF_SIDE, 3)).astype(np.float32), device=dev),
+        label=torch.as_tensor(rng.randint(0, 1000, (BATCH, 1)).astype(
+            np.float32), device=dev))
+    turns = _turn_ms({"step": lambda: tr.update(batch),
+                      "shadow_audit": lambda: tr.shadow_step(7)}, 1,
+                     tr.sync)
+    armed = {"profiled": [], "plain": []}
+    for r in range(2):
+        for mode in (("plain", "profiled") if r % 2 else
+                     ("profiled", "plain")):
+            tc = TraceController()
+            tc.configure([("profile", "1" if mode == "profiled" else "0"),
+                          ("profile_dir", os.path.join(tmp, "p2")),
+                          ("profile_start", "0"),
+                          ("profile_steps", "1000")])
+            tc.step(0)
+            tr.sync()
+            t1 = time.perf_counter()
+            for _ in range(UTIL_TIMED):
+                tr.update(batch)
+            tr.sync()
+            armed[mode].append((time.perf_counter() - t1) / UTIL_TIMED * 1e3)
+            tc.close()
+    log(f"utilities: digest sweep of GoogLeNet ({len(v['findings'])} "
+        f"findings, {sum(1 for _ in tr.params for _ in tr.params[_])} "
+        f"tensors, {n_vals} values) {[round(x, 3) for x in sweep]} ms; "
+        f"shadow audit against a step, ms, in turns "
+        f"{json.dumps({k: [round(x, 2) for x in t] for k, t in turns.items()})};"
+        f" a step with the profiler window open against closed, ms "
+        f"{json.dumps({k: [round(x, 2) for x in t] for k, t in armed.items()})}"
+        f"; {card}")
+    # a shadow mismatch stops the run before the round is saved
+    mdir2 = os.path.join(tmp, "models_mismatch")
+    try:
+        _run_train_task(_util_argv(conf, tmp, mdir2,
+                                   "inject_shadow_mismatch=1"))
+    except IntegrityError as e:
+        if e.kind != "shadow":
+            raise SmokeError(f"utilities: IntegrityError of kind {e.kind}")
+        err = e
+    else:
+        raise SmokeError("utilities: inject_shadow_mismatch did not stop "
+                         "the run")
+    saved = sorted(n for n in os.listdir(mdir2) if n.endswith(".model"))
+    if saved != ["0000.model"]:
+        raise SmokeError(f"utilities: the failing round was saved: {saved}")
+    log(f"utilities: inject_shadow_mismatch=1 stopped the run ({err}); "
+        f"saved {saved}")
+    obs.events.event_log().reset()
+    return {"steps": n_steps, "shadow_legs": 2 * UTIL_ROUNDS,
+            "per_step": _main_paths(IMGBIN_PER_STEP),
+            "per_leg": _main_paths(UTIL_PER_LEG),
+            "bitflip": {k: f[k] for k in ("tensor", "elem", "bit")},
+            "telemetry_stage_ms": {s: recs[-1]["stages"][s]["total_s"] * 1e3
+                                   for s in UTIL_STAGES},
+            "trace_kernels": seen, "tuned": tuned,
+            "digest_sweep_ms": sweep, "digest_values": n_vals,
+            "shadow_vs_step_ms": turns, "profiled_vs_plain_ms": armed,
+            "compile_cache": cache}
+
+
+class _TuneClient:
+    """A client thread on its own kept-alive connection, sending JSON
+    requests of ``TUNE_JSON_ROWS`` rows and ``CXB1`` frames of
+    ``TUNE_BINARY_ROWS`` rows in turn until stopped: each request's kind,
+    rows and answer, and every failure."""
+
+    def __init__(self, port: int, side: int, seed: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=600)
+        self.side, self.seed = side, seed
+        self.log, self.errors = [], []
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+
+    def _one(self, i: int):
+        from cxxnet_tpu_torch.serve import wire
+
+        kinds = [("json", n) for n in TUNE_JSON_ROWS] + [
+            ("binary", n) for n in TUNE_BINARY_ROWS]
+        kind, n = kinds[i % len(kinds)]
+        x = _rows(n, self.side, self.seed * 100003 + i)
+        if kind == "json":
+            body = json.dumps({"data": x.tolist()}).encode()
+            st, raw = _post_on(self.conn, "/predict", body,
+                               "application/json")
+            ans = json.loads(raw)["pred"] if st == 200 else None
+        else:
+            st, raw = _post_on(self.conn, "/predict", bytes(
+                wire.encode_request(x.reshape(n, self.side, self.side, 3),
+                                    kind="scores")), wire.CONTENT_TYPE)
+            ans = wire.decode_response(raw)[2] if st == 200 else None
+        if st != 200:
+            raise SmokeError(f"status {st}: {raw[:200]!r}")
+        return kind, x, ans
+
+    def _run(self):
+        i = 0
+        while not self._stop.is_set():
+            try:
+                self.log.append(self._one(i))
+            except Exception as e:  # noqa: BLE001 - counted, reported
+                self.errors.append(f"{type(e).__name__}: {e}")
+                return
+            i += 1
+
+    def __enter__(self):
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join(timeout=600)
+        self.conn.close()
+
+
+def _row_key(row) -> bytes:
+    """A request row's identity: its first 32 values (of 17 levels)."""
+    return row.reshape(-1)[:32].tobytes()
+
+
+def tuner_serve_phase(tmp: str, card: str):
+    """24b (see the module docstring); returns its part of the
+    ``utilities`` line."""
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch import obs
+    from cxxnet_tpu_torch.cli import LearnTask
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.serve import Engine, make_server
+    from cxxnet_tpu_torch.serve.cache import ShapeBucketCache, bucket_size
+    from cxxnet_tpu_torch.utils import faults
+
+    ev = os.path.join(tmp, "serve_events.jsonl")
+    cfg = cfgmod.parse_file(RESNET_CONF) + [
+        ("dev", "gpu"), ("seed", str(SEED)), ("silent", "1"),
+        ("event_log", ev), ("controller", "1"), ("tune_period_s", "0.25"),
+        ("fault_seed", str(SEED + 70))] + [
+        ("fault_inject", spec) for spec in TUNE_FAULTS]
+    obs.configure(cfg)  # as the CLI does at startup
+    faults.configure(cfg)
+    mdir = os.path.join(tmp, "models")
+    os.makedirs(mdir)
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.init_model()
+    tr.save_model(os.path.join(mdir, "0001.model"), round_=1)
+    batches, kept, forwards = [], [], [0]
+    run = ShapeBucketCache._run
+
+    def recorded(self, kind, node_id, data):
+        out = run(self, kind, node_id, data)
+        forwards[0] += 1
+        if kind == "out" and data.shape[0] and data.any():
+            batches.append(([_row_key(r) for r in data], out))
+            if len(kept) < TUNE_VERIFY and data.shape[0] > 1:
+                kept.append((np.array(data), out))
+        return out
+
+    ShapeBucketCache._run = recorded
+    eng = Engine(cfg=cfg, model_dir=mdir, max_batch_size=RESNET_BATCH,
+                 reload_breaker_cooldown_s=0.5)
+    task = LearnTask()
+    for n, v in cfg:
+        task.set_param(n, v)
+    side = int(dict(cfg)["input_shape"].split(",")[1])
+    httpd = make_server(eng, port=0)
+    th = threading.Thread(target=httpd.serve_forever,
+                          kwargs={"poll_interval": 0.05}, daemon=True)
+    th.start()
+    stop = threading.Event()
+
+    def reloads():
+        while not stop.wait(0.25):
+            eng.try_reload()
+
+    rth = threading.Thread(target=reloads, daemon=True)
+    rth.start()
+    ctrl, clients = None, []
+    try:
+        ctrl = task._start_serve_controller(eng)
+        if ctrl is None:
+            raise SmokeError("tuner: controller = 1 started no controller")
+        marks = []
+        # the main path: counts at 0 just before, read just after
+        for k in KERNELS:
+            k.reset_counts()
+        forwards[0] = 0
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            clients += [stack.enter_context(_TuneClient(
+                httpd.server_port, side, SEED + 71 + c))
+                for c in range(TUNE_CLIENTS)]
+            while time.perf_counter() - t0 < TUNE_TRAFFIC_S:
+                marks.append((time.perf_counter(),
+                              eng.stats.snapshot()["batch_rows"]))
+                time.sleep(0.25)
+        marks.append((time.perf_counter(),
+                      eng.stats.snapshot()["batch_rows"]))
+        ctrl.stop()
+        launches = {k.name: k.launches for k in KERNELS}
+        paths = _paths_since({k.name: {} for k, _ in _routed()})
+        n_fwd = forwards[0]
+        live = {"max_batch_size": eng.batcher.max_batch_size,
+                "batch_timeout_ms": eng.batcher.batch_timeout * 1e3}
+        metricsz = _prometheus(_get_text(httpd.server_port,
+                                         "/metricsz")[0])
+    finally:
+        stop.set()
+        rth.join(timeout=60)
+        if ctrl is not None:
+            ctrl.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+        eng.close()
+        ShapeBucketCache._run = run
+        fired = faults.injector().fire_counts()
+        faults.reset()
+    errors = [e for c in clients for e in c.errors]
+    reqs = [r for c in clients for r in c.log]
+    if errors or len(reqs) < 20:
+        raise SmokeError(f"tuner: {len(reqs)} requests, errors {errors[:5]}")
+    per = {k: v * n_fwd for k, v in RESNET_PER_FORWARD.items()}
+    if (launches != {**{k.name: 0 for k in KERNELS}, **per}
+            or paths != _main_paths(per)):
+        raise SmokeError(f"tuner: {n_fwd} forwards launched {launches}, "
+                         f"by C entry {paths}; expected {per}")
+    index = {}
+    for b, (keys, _out) in enumerate(batches):
+        for j, k in enumerate(keys):
+            index.setdefault(k, (b, j))
+    kinds = {"json": 0, "binary": 0}
+    for kind, x, ans in reqs:
+        b, j = index[_row_key(x[0])]
+        keys, out = batches[b]
+        n = x.shape[0]
+        if [_row_key(r) for r in x] != keys[j:j + n]:
+            raise SmokeError("tuner: a request's rows are not contiguous "
+                             "in its batch")
+        part = out[j:j + n]
+        ok = (np.array_equal(np.asarray(ans, np.float32),
+                             tr.predict_from_scores(part)) if kind == "json"
+              else np.array_equal(ans, part))
+        if not ok:
+            raise SmokeError(f"tuner: a {kind} answer of {n} rows is not "
+                             "its batch's output")
+        kinds[kind] += 1
+    worst = 0.0
+    for data, out in kept:
+        n = data.shape[0]
+        b = bucket_size(n)
+        pad = np.concatenate([data, np.zeros((b - n,) + data.shape[1:],
+                                             np.float32)])
+        ref = tr.predict_fn()(tr.params, tr.aux, pad.reshape(
+            (b,) + tr.net.input_node_shape(1)[1:]), ()).cpu().numpy()[:n]
+        worst = max(worst, float(np.abs(ref - out).max()))
+    if worst != 0.0 or len(kept) < 2:
+        raise SmokeError(f"tuner: {len(kept)} batches against "
+                         f"trainer.predict at their buckets: max abs err "
+                         f"{worst}")
+    log(f"tuner: {n_fwd} ResNet-50 forwards launched {per} on the main "
+        f"paths; {len(reqs)} requests {kinds} from {TUNE_CLIENTS} clients "
+        f"in {TUNE_TRAFFIC_S:g}s, every one answered with its slice of its"
+        f" coalesced batch ({len(batches)} batches); {len(kept)} batches "
+        f"equal to trainer.predict at their buckets (max abs err {worst})")
+    gauges = {k: metricsz.get(f'tune_effective{{knob="{k}"}}')
+              for k in live}
+    events = _events(ev)
+    adjusts = [e for e in events if e["kind"] == "tune.adjust"]
+    prewarms = [e for e in events if e["kind"] == "tune.prewarm"]
+    if (gauges != {k: float(v) for k, v in live.items()} or not adjusts
+            or any(not isinstance(e.get("bucket"), int) for e in prewarms)):
+        raise SmokeError(f"tuner: gauges {gauges} vs live {live}, "
+                         f"{len(adjusts)} tune.adjust, prewarms {prewarms}")
+    st = eng.stats.snapshot()
+    if (st["reload_failures"] != fired.get("serve.reload:ioerror", 0)
+            or not st["reload_failures"]):
+        raise SmokeError(f"tuner: reload failures {st['reload_failures']},"
+                         f" injected {fired}")
+
+    def rate(a, b):
+        return (b[1] - a[1]) / (b[0] - a[0])
+
+    q = max(1, len(marks) // 5)
+    before, after = rate(marks[0], marks[q]), rate(marks[-1 - q], marks[-1])
+    log(f"tuner: /metricsz tune_effective {gauges} == the engine's live "
+        f"knobs; {len(adjusts)} tune.adjust "
+        f"{[(e['knob'], e['prev'], e['to']) for e in adjusts]}; "
+        f"{len(prewarms)} tune.prewarm buckets "
+        f"{[e['bucket'] for e in prewarms]}; served rows/s first "
+        f"{before:.1f}, last {after:.1f} (host clock); faults fired "
+        f"{fired}, reload failures {st['reload_failures']}; {card}")
+    # the first batch after a prewarm, against a warm one and a cold one
+    times = _first_batch_times(cfg, mdir, side)
+    best = {m: min(times[m]) for m in ("cold", "prewarmed")}
+    warm = statistics.median(min(reps) for reps in zip(
+        *times["prewarmed_warm"]))
+    if (best["prewarmed"] > TUNE_PREWARMED_MAX * warm
+            or best["cold"] < TUNE_COLD_MIN * best["prewarmed"]):
+        raise SmokeError(
+            f"tuner: over {TUNE_FIRST_TRIALS} engines the fastest first "
+            f"batch after a prewarm must take at most {TUNE_PREWARMED_MAX}x "
+            f"the warm one and the fastest cold one at least "
+            f"{TUNE_COLD_MIN}x the prewarmed one: prewarmed "
+            f"{best['prewarmed']:.2f} ms, warm {warm:.2f}, cold "
+            f"{best['cold']:.2f}: {times}")
+    medians = {m: statistics.median(times[m]) for m in ("cold", "prewarmed")}
+    log(f"tuner: the first batch of bucket {bucket_size(TUNE_FIRST_ROWS)} "
+        f"(ms, host clock, {TUNE_FIRST_TRIALS} fresh engines a mode in "
+        f"turns): fastest prewarmed {best['prewarmed']:.2f} against warm "
+        f"{warm:.2f} ({best['prewarmed'] / warm:.3f}x), fastest cold "
+        f"{best['cold']:.2f} ({best['cold'] / best['prewarmed']:.2f}x "
+        f"prewarmed); medians prewarmed {medians['prewarmed']:.2f}, cold "
+        f"{medians['cold']:.2f}; first batches "
+        f"{json.dumps({m: [round(v, 2) for v in times[m]] for m in medians})}")
+    obs.events.event_log().reset()
+    return {"requests": kinds, "batches": len(batches), "forwards": n_fwd,
+            "launches": {k: v for k, v in launches.items() if v},
+            "verified_batches": len(kept), "tune_effective": live,
+            "adjusts": [(e["knob"], e["prev"], e["to"]) for e in adjusts],
+            "prewarm_buckets": [e["bucket"] for e in prewarms],
+            "rows_s_first": before, "rows_s_last": after,
+            "faults_fired": fired, "reload_failures": st["reload_failures"],
+            "first_batch_ms": {"best": best, "warm": warm,
+                               "median": medians,
+                               "cold": times["cold"],
+                               "prewarmed": times["prewarmed"]}}
+
+
+def _first_batch_times(cfg, mdir: str, side: int) -> dict:
+    """24b's first-batch check: ``TUNE_FIRST_TRIALS`` fresh engines a
+    mode, each over a fresh trainer loaded from ``mdir`` and a fresh
+    batcher thread, in turns (cold, prewarmed, prewarmed, cold, ...).
+    Each engine first serves one row (a serving engine: its batcher's
+    thread has run a batch); a ``prewarmed`` one then warms bucket
+    ``bucket_size(TUNE_FIRST_ROWS)``; then one request of
+    ``TUNE_FIRST_ROWS`` rows is timed, then ``TUNE_WARM_REPS`` more.
+    Returns, by mode, the first batches' ms and each engine's warm
+    batches' ms (host clock), in run order."""
+    import torch
+
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import Engine
+    from cxxnet_tpu_torch.serve.cache import bucket_size
+
+    x = _rows(TUNE_FIRST_ROWS, side, SEED + 90)
+    times = {k: [] for k in ("cold", "cold_warm", "prewarmed",
+                             "prewarmed_warm")}
+    for i in range(TUNE_FIRST_TRIALS):
+        for mode in (("cold", "prewarmed") if i % 2 == 0
+                     else ("prewarmed", "cold")):
+            t2 = NetTrainer()
+            t2.set_params(cfg)
+            t2.load_model(os.path.join(mdir, "0001.model"))
+            e2 = Engine(cfg=[(n, v) for n, v in cfg if n != "fault_inject"],
+                        trainer=t2, max_batch_size=RESNET_BATCH)
+            try:
+                e2.scores(_rows(1, side, SEED + 91))
+                if mode == "prewarmed":
+                    if not e2._warm_bucket(bucket_size(TUNE_FIRST_ROWS),
+                                           (side * side * 3,)):
+                        raise SmokeError("tuner: the prewarm found the "
+                                         "bucket warm")
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                e2.scores(x)
+                times[mode].append((time.perf_counter() - t1) * 1e3)
+                warm = []
+                for _ in range(TUNE_WARM_REPS):
+                    t1 = time.perf_counter()
+                    e2.scores(x)
+                    warm.append((time.perf_counter() - t1) * 1e3)
+                times[mode + "_warm"].append(warm)
+            finally:
+                e2.close()
+    return times
+
+
+def _plain_atomic_write(path: str, data: bytes) -> None:
+    """The atomic write the port's checkpoints took before ``diskio``
+    (plain ``os`` calls: temp file, fsync, rename, directory fsync), as
+    the yardstick of the save's time through ``diskio``."""
+    d = os.path.dirname(os.path.abspath(path))
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    fd = os.open(d, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _fingerprints_of(cfg, path: str):
+    """The digests of every leaf of the checkpoint ``path`` loaded into a
+    fresh trainer on the card."""
+    from cxxnet_tpu_torch.integrity.plane import local_fingerprints
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.load_model(path)
+    return local_fingerprints(tr)[0]
+
+
+def durable_phase(tmp: str, card: str):
+    """24c (see the module docstring); returns its part of the
+    ``utilities`` line."""
+    import errno
+    import shutil
+
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.integrity.plane import _leaves, check_state
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils import checkpoint as ckpt
+    from cxxnet_tpu_torch.utils import diskio, faults
+
+    cfg = cfgmod.parse_file(RESNET_CONF) + [
+        ("dev", "gpu"), ("seed", str(SEED)), ("silent", "1"),
+        ("save_ustate", "1")]
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.init_model()
+    mdir = os.path.join(tmp, "models")
+    os.makedirs(mdir)
+    p0, p1 = (os.path.join(mdir, f"{r:04d}.model") for r in (0, 1))
+    tr.save_model(p0, round_=0)
+    gen = torch.Generator(device=tr.device).manual_seed(SEED + 80)
+    shape = tr.net.input_node_shape(tr.batch_size)
+    tr.update(DataBatch(
+        data=torch.randn(shape, generator=gen, device=tr.device),
+        label=torch.randint(0, 1000, (shape[0], 1), generator=gen,
+                            device=tr.device).float()))
+    sweep = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not check_state(tr)["clean"]:
+            raise SmokeError("durable: the vote was not clean")
+        sweep.append((time.perf_counter() - t0) * 1e3)
+    n_leaves = len(list(_leaves(tr)))
+    with diskio.recording(mdir) as rec:
+        for p in (p0, ckpt.manifest_path(p0)):
+            rec.ensure_known(p)
+        t0 = time.perf_counter()
+        tr.save_model(p1, round_=1)
+        save_s = time.perf_counter() - t0
+    ops = rec.ops
+    nbytes = os.path.getsize(p1)
+    picks, loaded = [], {}
+    for k in range(len(ops) + 1):
+        tree = diskio.simulate_crash(ops, k, "sync")
+        state = os.path.join(tmp, f"state{k}")
+        os.makedirs(state)
+        diskio.write_tree(tree, state)
+        found = ckpt.find_latest_valid(state, silent=True)
+        if found is None or found[0] not in (0, 1):
+            raise SmokeError(f"durable: crash state {k} of {len(ops)} "
+                             f"holds no loadable round: {found}")
+        picks.append(found[0])
+        if found[0] not in loaded:
+            loaded[found[0]] = _fingerprints_of(cfg, found[1])
+        shutil.rmtree(state)
+    ref = {r: _fingerprints_of(cfg, path) for r, path in ((0, p0), (1, p1))}
+    if set(picks) != {0, 1} or any(loaded[r] != ref[r] for r in loaded):
+        raise SmokeError(f"durable: crash states pick {picks}")
+    log(f"durable: ResNet-50 checkpoint {nbytes} bytes (f32 and ust:) saved"
+        f" in {save_s:.3f}s under diskio.recording, {len(ops)} ops; every "
+        f"one of {len(ops) + 1} sync crash states loads round 0 or 1 "
+        f"(picks {picks}), each equal to its round's digests")
+    faults.install("checkpoint.write:enospc:1:1")
+    try:
+        tr.save_model(os.path.join(mdir, "0002.model"), round_=2)
+    except OSError as e:
+        if e.errno != errno.ENOSPC:
+            raise
+    else:
+        raise SmokeError("durable: the ENOSPC save did not raise")
+    finally:
+        faults.reset()
+    left = sorted(os.listdir(mdir))
+    found = ckpt.find_latest_valid(mdir, silent=True)
+    if any(n.startswith(("0002", ".0002")) for n in left) or found[0] != 1:
+        raise SmokeError(f"durable: after ENOSPC {left}, latest {found}")
+    log(f"durable: checkpoint.write ENOSPC aborted the save atomically "
+        f"(directory {left}; latest valid round {found[0]})")
+    turns = {"diskio": [], "plain_os": []}
+    plain = ckpt.atomic_write_bytes
+    for r in range(DURABLE_TURNS):
+        for mode in (("diskio", "plain_os") if r % 2 == 0
+                     else ("plain_os", "diskio")):
+            if mode == "plain_os":
+                ckpt.atomic_write_bytes = _plain_atomic_write
+            try:
+                t0 = time.perf_counter()
+                tr.save_model(os.path.join(mdir, f"t{r}{mode}.model"),
+                              round_=3)
+                turns[mode].append(time.perf_counter() - t0)
+            finally:
+                ckpt.atomic_write_bytes = plain
+    log(f"durable: ResNet-50 save, s, through diskio against plain os "
+        f"calls in turns {json.dumps(turns)}; digest sweep of ResNet-50 "
+        f"({n_leaves} leaves with ust:) {[round(x, 3) for x in sweep]} ms;"
+        f" {card}")
+    return {"checkpoint_bytes": nbytes, "journal_ops": len(ops),
+            "crash_states": len(ops) + 1, "picks": picks,
+            "save_s": turns, "digest_sweep_ms": sweep,
+            "digest_leaves": n_leaves}
+
+
+def utilities_phase(card: str):
+    """Phase 24: 24a, 24b and 24c; returns the ``utilities`` line."""
+    t0 = time.perf_counter()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_util_") as tmp:
+        out["train"] = utilities_train_phase(tmp, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        out["serve"] = tuner_serve_phase(tmp, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dur_") as tmp:
+        out["durable"] = durable_phase(tmp, card)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6817,6 +7664,7 @@ def main() -> int:
                        "obs": obs_phase(tmp, card)}
         lib_out["phase_s"] = time.perf_counter() - t23
         log(json.dumps({"library_obs": lib_out}))
+        log(json.dumps({"utilities": utilities_phase(card)}))
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
                             quant_launches)

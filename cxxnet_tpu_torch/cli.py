@@ -101,11 +101,39 @@ one JSON verdict line (also written to ``quant_report`` when set) and
 exits 0 on publish, 3 on reject (nothing written).  ``task=serve
 quant=int8`` then serves the artifact.
 
+The round loop times each step with ``StepTimer`` on laps that tile
+the round's wall time (the batch's fetch, the step and the wait for the
+card) and prints the JAX package's lines: ``round N pipeline: decode
+... | augment ... | batch ... | h2d ... | device_wait ...`` (the
+per-stage breakdown of ``utils.profiler.pipeline_stats()``) and ``round
+N: step X ms avg (p50 .., p99 ..), Y samples/sec``.  ``test_io = 1``
+iterates the data section without training (``start I/O test``, then
+the ``pipeline:`` line a round).  ``telemetry = 1`` appends one JSON
+record a round to ``telemetry_path`` (``telemetry.jsonl``): ``ts``,
+``round``, ``steps``, ``batches``, ``elapsed_s``, ``lr``, ``eval``,
+``step``, ``stages``, ``device`` and, with the integrity plane,
+``integrity``; a failed write is counted and logged once, and training
+goes on.  ``profile = 1`` (``profile_dir``, ``profile_start``,
+``profile_steps``) writes a ``torch.profiler`` Chrome trace of a window
+of steps.  ``compile_cache_dir`` (any task) moves the kernel and host
+build cache (``utils/compile_cache.py``).  ``integrity_every = N`` digests
+and votes the train state every N rounds before the checkpoint, and
+``integrity_shadow = 1`` adds the shadow-step audit; a failure prints
+``INTEGRITY: ...`` and stops the run before the round is saved.  On one
+process every vote group has one replica, so the vote is always clean
+and a flipped bit in the state (``fault_inject = device.state:bitflip``)
+is not detected, as in the JAX package; there only the shadow audit can
+stop a run, and the sweep's cost buys detection once several processes
+run (ROADMAP item A6).
+``controller = 1`` runs the tuner (``tune/``): under ``task=train`` over
+the decode pool's workers and window, under ``task=serve`` over the
+batcher's limit and window, with the bucket prewarm each tick.
+
 The tasks ``serve_train``, ``loop_fleet`` and ``data_service``, the
-serving fleet (``replicas >= 2``), the tuner (``controller``) and the
-elastic, telemetry and integrity planes of training (but the probe) are
-later slices (ROADMAP.md) and raise ``NotImplementedError`` naming the
-item.
+serving fleet (``replicas >= 2``) and the elastic and cross-process
+planes of training (``elastic``, ``elastic_join``, ``test_on_server``)
+are later slices (ROADMAP.md) and raise ``NotImplementedError`` naming
+the item.
 """
 
 from __future__ import annotations
@@ -127,8 +155,7 @@ _LATER = {
 _TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "summary",
           "serve", "generate", "export_quant")
 # train keys of planes this slice does not port: refused when switched on
-_TRAIN_LATER = ("integrity_every", "integrity_shadow", "test_on_server", "telemetry", "elastic", "elastic_join",
-                "test_io")
+_TRAIN_LATER = ("test_on_server", "elastic", "elastic_join")
 
 
 class LearnTask:
@@ -151,6 +178,14 @@ class LearnTask:
         self._divergence_retries = 0
         self._lr_scale = 1.0
         self.integrity_probe = 0  # 1: commit the canary's probe at save
+        self.integrity_every = 0  # rounds between votes; 0: off
+        self.integrity_shadow = 0  # 1: the shadow-step audit at cadence
+        self._integrity = None
+        self.test_io = 0
+        self.telemetry = 0  # per-round JSONL records
+        self.telemetry_path = "telemetry.jsonl"
+        self.controller = 0  # 1: the tuner (tune/)
+        self._train_start = 0.0
         self.print_step = 100
         self.net_trainer = None
         self.itr_train = None
@@ -211,10 +246,20 @@ class LearnTask:
             self.divergence_max_retries = int(val)
         elif name == "integrity_probe":
             self.integrity_probe = int(val)
+        elif name == "integrity_every":
+            self.integrity_every = int(val)
+        elif name == "integrity_shadow":
+            self.integrity_shadow = int(val)
+        elif name == "test_io":
+            self.test_io = int(val)
+        elif name == "telemetry":
+            self.telemetry = int(val)
+        elif name == "telemetry_path":
+            self.telemetry_path = val
         elif name in _TRAIN_LATER and val not in ("", "0"):
             raise NotImplementedError(
                 f"{name}={val}: this plane of task=train is not ported yet "
-                "(ROADMAP.md queue A item 5)")
+                "(ROADMAP.md queue A item 6, (k): multi-device)")
         elif name == "model_in":
             self.name_model_in = val
         elif name == "model_dir":
@@ -247,10 +292,8 @@ class LearnTask:
             self.reload_breaker_threshold = int(val)
         elif name == "reload_breaker_cooldown_s":
             self.reload_breaker_cooldown_s = float(val)
-        elif name == "controller" and int(val):
-            raise NotImplementedError(
-                "controller=1: the serving tuner is not ported yet "
-                "(ROADMAP.md queue A item 1, serving features)")
+        elif name == "controller":
+            self.controller = int(val)
         elif name == "gen_prompt":
             self.gen_prompt = val
         elif name == "gen_prompt_file":
@@ -478,12 +521,16 @@ class LearnTask:
         return True
 
     def task_train(self) -> None:
+        from .integrity.plane import IntegrityError
         from .obs import emit as obs_emit
         from .obs import trace as obs_trace
         from .utils.checkpoint import DivergenceError, PreemptionHandler
+        from .utils.profiler import StepTimer, TraceController
 
         self.init_train()
-        t_start = time.time()
+        self._train_start = time.time()
+        tracer = TraceController()
+        tracer.configure(self.cfg)
         try:
             if self.continue_training == 0 and self.name_model_in == "NULL":
                 self._save_model()
@@ -494,11 +541,23 @@ class LearnTask:
                 sys.stderr.flush()
             if self.itr_train is None:
                 return
+            if self.test_io:
+                print("start I/O test")
+            timer = StepTimer()
             obs_emit("train.start", task=self.task, round=self.start_counter,
                      num_round=self.num_round)
             preempt = PreemptionHandler().install()
             self._divergence_retries, self._lr_scale = 0, 1.0
             self._global_step = 0
+            # the integrity plane: the state loaded or initialized before
+            # the loop is the clean baseline
+            if self.integrity_every > 0 and self._integrity is None:
+                from .integrity import IntegrityPlane
+
+                self._integrity = IntegrityPlane(self.integrity_every,
+                                                 self.integrity_shadow)
+                self._integrity.last_clean_round = self.start_counter - 1
+            tuner = self._start_train_controller()
             try:
                 budget = self.max_round
                 while self.start_counter <= self.num_round and budget > 0:
@@ -506,14 +565,25 @@ class LearnTask:
                     try:
                         with obs_trace.span("train.round",
                                             round=self.start_counter):
-                            completed = self._train_one_round(preempt,
-                                                              t_start)
+                            completed = self._train_one_round(
+                                preempt, timer, tracer)
                     except DivergenceError as e:
                         if self._handle_divergence(e):
                             budget += 1  # the aborted attempt keeps its budget
                             continue
                         raise
                     self._divergence_retries = 0  # a round completed
+                    if (completed and self._integrity is not None
+                            and self._integrity.due(self.start_counter - 1)):
+                        # the vote (and the shadow audit) at the round
+                        # boundary, BEFORE the checkpoint: a state that
+                        # failed is never saved
+                        try:
+                            self._integrity.check_round(
+                                self.net_trainer, self.start_counter - 1)
+                        except IntegrityError as e:
+                            if not self._handle_integrity(e):
+                                raise
                     if not completed or preempt.requested:
                         last = self.start_counter - 1
                         snapshotted = self._save_model(force=True)
@@ -529,15 +599,101 @@ class LearnTask:
                         return
                     self._save_model()
             finally:
+                if tuner is not None:
+                    tuner.stop()
                 preempt.uninstall()
                 obs_trace.tracer().flush_window(self._global_step)
             obs_emit("train.end", rounds=self.start_counter - 1,
-                     elapsed_s=time.time() - t_start)
+                     elapsed_s=time.time() - self._train_start)
             if not self.silent:
-                print(f"\nupdating end, {int(time.time() - t_start)} sec "
-                      "in all")
+                print(f"\nupdating end, "
+                      f"{int(time.time() - self._train_start)} sec in all")
         finally:
+            tracer.close()
             self._close_iterators()
+
+    def _handle_integrity(self, e) -> bool:
+        """The response to an integrity verdict.  On one process (or a
+        vote that named no replica) there is no healthy majority to
+        rebuild onto: print ``INTEGRITY: ...`` and return False, so the
+        error stops the run before the round is saved.  The JAX
+        package's elastic quarantine (evict the named rank, rebuild on
+        the last verified round) waits for multi-device support."""
+        print(f"INTEGRITY: {e}", flush=True)
+        from .integrity.plane import _world_size
+
+        if e.rank is None or _world_size() == 1:
+            return False
+        raise NotImplementedError(
+            "integrity quarantine across processes: the elastic rebuild "
+            "waits for multi-device support (ROADMAP.md item A6)")
+
+    # ------------------------------------------------------------------
+    # the tuner (tune/): controller = 1
+    def _start_controller(self, knobs, objective, on_tick=None,
+                          name="tune"):
+        from .tune import KnobController, options_from_cfg
+
+        opts = options_from_cfg(self.cfg)
+        ctrl = KnobController(
+            objective, knobs,
+            period_s=opts.period_s, band=opts.band,
+            measure_ticks=opts.measure_ticks,
+            settle_ticks=opts.settle_ticks,
+            cooldown_ticks=opts.cooldown_ticks,
+            name=name, on_tick=on_tick,
+        )
+        ctrl.start()
+        if not self.silent:
+            print(f"controller: tuning {[k.name for k in knobs]} "
+                  f"every {opts.period_s:g}s (band {opts.band:g})",
+                  flush=True)
+        return ctrl
+
+    def _start_train_controller(self):
+        """``controller = 1`` under training: tune the decode pool
+        (workers and in-flight window) against the rows the round loop
+        dispatches.  None without the key or without a decode pool."""
+        if not self.controller or self.itr_train is None:
+            return None
+        from .tune import find_pipeline, options_from_cfg, pipeline_knobs
+
+        opts = options_from_cfg(self.cfg)
+        knobs = []
+        if opts.wants("pipeline"):
+            pipe = find_pipeline(self.itr_train)
+            if pipe is not None:
+                knobs.extend(pipeline_knobs(pipe))
+        if not knobs:
+            if not self.silent:
+                print("controller=1: no tunable pipeline stage in this "
+                      "iterator chain; controller idle", flush=True)
+            return None
+        bs = float(self.net_trainer.batch_size or 1)
+        return self._start_controller(
+            knobs,
+            objective=lambda: float(getattr(self, "_global_step", 0)) * bs,
+            name="train",
+        )
+
+    def _start_serve_controller(self, engine):
+        """``controller = 1`` under serving: tune the micro-batcher
+        (limit and window) against the rows its batches ran, with the
+        bucket prewarm every tick."""
+        if not self.controller:
+            return None
+        from .tune import batcher_knobs, options_from_cfg
+
+        opts = options_from_cfg(self.cfg)
+        knobs = batcher_knobs(engine) if opts.wants("batcher") else []
+        if not knobs:
+            return None
+        return self._start_controller(
+            knobs,
+            objective=lambda: float(engine.stats.batch_rows),
+            on_tick=engine.prewarm_buckets,
+            name="serve",
+        )
 
     def _handle_divergence(self, e) -> bool:
         """The response to a guard trip under ``divergence_policy``.
@@ -594,11 +750,15 @@ class LearnTask:
               f"{self.divergence_max_retries})", flush=True)
         return True
 
-    def _train_one_round(self, preempt, t_start: float) -> bool:
+    def _train_one_round(self, preempt, timer, tracer) -> bool:
         """One pass over the data section; False when a preemption
-        request stopped it after a batch."""
+        request stopped it after a batch.  Each step's lap runs from the
+        previous fence to the end of this step's wait for the card (the
+        batch's fetch, the step, the wait), so the laps tile the round's
+        wall time and the rate is the pipeline's."""
         from .io.augment import ANCHOR_KEY
         from .obs import trace as obs_trace
+        from .utils.profiler import pipeline_stats
 
         tr = self.net_trainer
         round_ = self.start_counter - 1
@@ -609,26 +769,41 @@ class LearnTask:
         # rewind so that threadbuffer's producer takes it with the rewind
         self.itr_train.set_param(ANCHOR_KEY, str(self.start_counter))
         self.itr_train.before_first()
-        steps = 0
-        t0 = time.perf_counter()
+        timer.clear()
+        pipeline_stats().reset()  # the round's stage breakdown
+        pipe_mark = time.perf_counter()  # the last fence: a lap's start
+        batches = 0
         while self.itr_train.next():
-            obs_trace.step(self._global_step)
-            with obs_trace.span("train.dispatch", steps=1):
-                tr.update(self.itr_train.value())
-            self._global_step += 1
-            steps += 1
-            if (self.print_step > 0 and steps % self.print_step == 0
+            batches += 1
+            if self.test_io == 0:
+                tracer.step(self._global_step)
+                obs_trace.step(self._global_step)
+                with obs_trace.span("train.dispatch", steps=1):
+                    tr.update(self.itr_train.value())
+                t0 = time.perf_counter()
+                with obs_trace.span("train.device_wait", steps=1):
+                    tr.sync()
+                now = time.perf_counter()
+                pipeline_stats().add("device_wait", now - t0,
+                                     rows=tr.batch_size)
+                timer.add(now - pipe_mark)
+                pipe_mark = now
+                self._global_step += 1
+            if (self.print_step > 0 and batches % self.print_step == 0
                     and not self.silent):
-                print(f"round {round_:8d}:[{steps:8d}] "
-                      f"{int(time.time() - t_start)} sec elapsed", flush=True)
+                print(f"round {round_:8d}:[{batches:8d}] "
+                      f"{int(time.time() - self._train_start)} sec elapsed",
+                      flush=True)
             if preempt.requested:
                 return False
-        with obs_trace.span("train.device_wait", steps=steps):
-            tr.sync()
-        dt = time.perf_counter() - t0
-        if not self.silent and steps:
-            print(f"round {round_:8d}: {steps} steps in {dt:.3f} s, "
-                  f"{steps * tr.batch_size / dt:.1f} samples/sec", flush=True)
+        stage_line = pipeline_stats().report()
+        if not self.silent and stage_line:
+            print(f"round {round_:8d} pipeline: " + stage_line, flush=True)
+        if self.test_io:
+            return True
+        if not self.silent and timer.count:
+            print(f"round {round_:8d}: " + timer.report(tr.batch_size),
+                  flush=True)
         sys.stderr.write(f"[{self.start_counter}]")
         text = ""
         if not self.itr_evals:
@@ -637,7 +812,67 @@ class LearnTask:
             text += tr.evaluate(it, nm)
         sys.stderr.write(text + "\n")
         sys.stderr.flush()
+        self._write_telemetry(timer, text, batches)
         return True
+
+    def _write_telemetry(self, timer, eval_text: str,
+                         n_batches: int) -> None:
+        """Append one JSON record a round to ``telemetry_path``
+        (``telemetry = 1``) through ``diskio.append_bytes`` at the
+        ``obs.append`` site: what the round's lines print (the eval
+        metrics, the step timing, the learning rate, the stage timers),
+        the card's counters (``obs.device.summary()``) and the integrity
+        plane's block.  Never raises: a failed write is counted
+        (``events_dropped_total{sink="telemetry"}``), logged once, and
+        training goes on."""
+        if not self.telemetry:
+            return
+        import errno
+        import json
+        import re
+
+        from .obs import device as obs_device
+        from .obs import events as obs_events
+        from .utils import diskio
+        from .utils.profiler import pipeline_stats
+
+        metrics = {
+            m.group(1): float(m.group(2))
+            for m in re.finditer(
+                r"(\S+?):([-+]?[0-9]*\.?[0-9]+(?:[eE][-+]?[0-9]+)?)",
+                eval_text or "")
+        }
+        lr = None
+        try:
+            up = next(iter(self.net_trainer.updaters.values()))
+            lr = float(up.param.base_lr)
+        except (StopIteration, AttributeError):
+            pass
+        record = {
+            "ts": time.time(),
+            "round": self.start_counter - 1,
+            "steps": timer.count,
+            "batches": n_batches,
+            "elapsed_s": time.time() - self._train_start,
+            "lr": lr,
+            "eval": metrics,
+            "step": timer.summary(self.net_trainer.batch_size),
+            "stages": pipeline_stats().snapshot(),
+            "device": obs_device.summary(),
+        }
+        if self._integrity is not None:
+            record["integrity"] = self._integrity.snapshot()
+        try:
+            line = json.dumps(record, separators=(",", ":")) + "\n"
+            diskio.append_bytes(self.telemetry_path, line.encode("utf-8"),
+                                site="obs.append")
+        except (OSError, ValueError, TypeError) as e:
+            reason = ("disk" if getattr(e, "errno", None) == errno.ENOSPC
+                      else "io")
+            obs_events.record_drop("telemetry", reason)
+            obs_events.log_exception_once(
+                "cli.telemetry", e, kind="telemetry.error",
+                path=self.telemetry_path)
 
     def task_predict(self, raw: bool = False) -> None:
         """``task=pred``: one prediction a line.  ``task=pred_raw``: each
@@ -832,12 +1067,15 @@ class LearnTask:
 
         prev = {s: signal.signal(s, _stop)
                 for s in (signal.SIGTERM, signal.SIGINT)}
+        tuner = self._start_serve_controller(engine)
         try:
             serve_forever(engine, host=self.serve_host, port=self.serve_port,
                           reload_period_s=self.serve_reload_period,
                           drain_timeout_s=self.drain_timeout_s,
                           verbose=not self.silent, ready_fn=_ready)
         finally:
+            if tuner is not None:
+                tuner.stop()
             for s, p in prev.items():
                 signal.signal(s, p)
             engine.close()

@@ -39,10 +39,12 @@ from __future__ import annotations
 
 import math
 import os
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..utils.profiler import pipeline_stats
 from .batch import DataInst, InstIterator
 from .imgbin import pil_image
 
@@ -359,9 +361,11 @@ class AugmentIterator(InstIterator):
         if not self.base.next():
             return False
         d = self.base.value()
+        t0 = time.perf_counter()
         rng = (self.record_rng(self._epoch, d.index)
                if self._stochastic() else None)
         self._out = self._augmented(d, apply_mean=True, rng=rng)
+        pipeline_stats().add("augment", time.perf_counter() - t0)
         return True
 
     def value(self) -> DataInst:

@@ -21,10 +21,12 @@ augmenter takes a pending epoch anchor there (``io/augment.py``).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 
+from ..utils.profiler import pipeline_stats
 from .data import DataBatch, DataIter
 
 
@@ -72,6 +74,7 @@ class BatchAdaptIterator(DataIter):
         self.test_skipread = 0
         self._shape: Optional[tuple] = None  # (C, H, W)
         self._num_overflow = 0
+        self._t_build = 0.0
         self._head = 1
         self._out: Optional[DataBatch] = None
 
@@ -126,9 +129,14 @@ class BatchAdaptIterator(DataIter):
         self._head = 0
         if self._num_overflow:
             return False
+        # the batch stage's time: collating instances into the buffers
+        # and the batch's copy, not the pulls below (decode/augment)
+        self._t_build = 0.0
         top = 0
         while self.base.next():
+            t0 = time.perf_counter()
             self._store(top, self.base.value())
+            self._t_build += time.perf_counter() - t0
             top += 1
             if top >= self.batch_size:
                 self._emit(0)
@@ -142,7 +150,9 @@ class BatchAdaptIterator(DataIter):
                 if not self.base.next():
                     raise ValueError(
                         "number of instances must exceed batch size")
+                t0 = time.perf_counter()
                 self._store(top, self.base.value())
+                self._t_build += time.perf_counter() - t0
                 top += 1
                 self._num_overflow += 1
             self._emit(self._num_overflow)
@@ -151,10 +161,14 @@ class BatchAdaptIterator(DataIter):
         return True
 
     def _emit(self, padd: int) -> None:
+        t0 = time.perf_counter()
         self._out = DataBatch(data=self._data.copy(),
                               label=self._label.copy(),
                               inst_index=self._inst.copy(),
                               num_batch_padd=padd)
+        pipeline_stats().add(
+            "batch", self._t_build + (time.perf_counter() - t0),
+            rows=self.batch_size)
 
     def value(self) -> DataBatch:
         if self._head != 0 or self._out is None:

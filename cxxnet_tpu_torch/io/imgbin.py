@@ -49,12 +49,14 @@ import io as _io
 import os
 import re
 import struct
+import time
 from typing import IO, List, Optional, Tuple
 
 import numpy as np
 
 from ..utils import faults
 from ..utils.faults import BadRecordBudget
+from ..utils.profiler import pipeline_stats
 from .batch import DataInst, InstIterator
 
 PAGE_MAGIC = 0x43584250  # "CXBP"
@@ -573,10 +575,13 @@ class ImageBinIterator(InstIterator):
 
     def decode_record(self, rec: RawRecord) -> np.ndarray:
         """One record's pixels (float32 raw, uint8 decoded); a pure
-        function of the payload, safe on the pool's threads."""
-        if self.raw:
-            return decode_raw(rec.payload)
-        return decode_image_u8(rec.payload)
+        function of the payload, safe on the pool's threads; timed as
+        the ``decode`` stage."""
+        t0 = time.perf_counter()
+        data = (decode_raw(rec.payload) if self.raw
+                else decode_image_u8(rec.payload))
+        pipeline_stats().add("decode", time.perf_counter() - t0)
+        return data
 
     def pil_available(self) -> bool:
         """Are the records encoded images that :meth:`decode_pil` reads?"""

@@ -24,9 +24,14 @@ fault site is visited once a chunk.  ``close()`` stops and joins the
 workers.  With ``num_decode_workers <= 1`` (the default) the stage passes
 the serial chain through.
 
-The JAX package's live resize of the pool (``request_workers``,
-``set_queue_depth``, driven by ``tune.controller``) waits for ``tune/``
-(ROADMAP.md item (h)).
+The pool resizes live (``request_workers``, ``set_queue_depth``, the
+knobs ``tune/`` turns under ``controller = 1``): new workers start at
+once and surplus ones retire on a token, so the record order and the
+augmentation stream stay bit-equal across a resize; a serial chain grows
+its pool at the next ``before_first``.  The stages time themselves into
+``utils.profiler.pipeline_stats()``: ``decode`` (the PIL workers' chunk,
+or each record's ``decode_record``) and ``augment`` (a chunk's augment
+or the consumer's float tail).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import List, Optional
 from ..obs import events as obs_events
 from ..utils import faults
 from ..utils.faults import Watchdog, WatchdogError
+from ..utils.profiler import pipeline_stats
 from .augment import AugmentIterator
 from .batch import DataInst, InstIterator
 
@@ -96,6 +102,11 @@ class ParallelAugmentIterator(InstIterator):
         self._watchdog: Optional[Watchdog] = None
         self._out: Optional[DataInst] = None
         self._closed = False
+        self._init_done = False
+        self._pool_started = False
+        self._pool_lock = threading.Lock()  # guards _threads membership
+        self._worker_seq = 0                # worker name ids
+        self._poison_pending = 0            # retire tokens in flight
 
     def set_param(self, name, val):
         self.aug.set_param(name, val)
@@ -112,8 +123,72 @@ class ParallelAugmentIterator(InstIterator):
 
     def init(self):
         self.aug.init()
+        self._init_done = True
         if self.num_workers > 1:
             self._start_pool()
+
+    # ------------------------------------------------------------------
+    # live resize (the tuner's knobs)
+    def request_workers(self, n: int) -> int:
+        """Set the pool's worker target (thread-safe).  A running pool
+        resizes at once: new threads start, surplus ones retire on a
+        token; the record order and the stream do not change (chunks
+        are consumed by sequence number, draws are per record).  A
+        serial chain grows its pool at the next :meth:`before_first`
+        (mid-epoch the consumer owns the source's cursor).  A pool never
+        goes back to the serial path: a target of 1 runs one worker,
+        which is bit-equal to it."""
+        n = max(1, int(n))
+        self.num_workers = n
+        if self._closed:
+            return n
+        if self._pool_started:
+            self._reconcile_pool()
+        from ..tune.controller import set_effective
+
+        set_effective("num_decode_workers", n)
+        return n
+
+    def set_queue_depth(self, n: int) -> int:
+        """Set the in-flight chunk window (read at every refill; a
+        window below the chunks in flight pauses handing out work until
+        they are consumed)."""
+        n = max(1, int(n))
+        self.queue_depth = n
+        from ..tune.controller import set_effective
+
+        set_effective("decode_queue_depth", n)
+        return n
+
+    def effective_workers(self) -> int:
+        """Worker threads alive now."""
+        with self._pool_lock:
+            return sum(1 for t in self._threads if t.is_alive())
+
+    def _spawn_worker(self) -> None:
+        t = threading.Thread(target=self._worker, daemon=True,
+                             name=f"decode-worker-{self._worker_seq}")
+        self._worker_seq += 1
+        t.start()
+        self._threads.append(t)
+
+    def _reconcile_pool(self) -> None:
+        """Bring the live workers to ``num_workers``: start the
+        shortfall, send a retire token for each surplus one.  Tokens in
+        flight count against the surplus (back-to-back shrinks would
+        otherwise retire every worker), and tokens a rewind drained are
+        credited back there."""
+        with self._pool_lock:
+            self._threads = [t for t in self._threads if t.is_alive()]
+            target = max(1, self.num_workers)
+            effective = len(self._threads) - self._poison_pending
+            if effective < target:
+                for _ in range(target - effective):
+                    self._spawn_worker()
+            else:
+                for _ in range(effective - target):
+                    self._in_q.put(None)
+                    self._poison_pending += 1
 
     def _start_pool(self):
         src = self.aug.base
@@ -129,11 +204,14 @@ class ParallelAugmentIterator(InstIterator):
         self._in_q = queue.Queue()
         self._watchdog = Watchdog(what="decode pool",
                                   timeout_s=self.watchdog_timeout_s)
-        for i in range(self.num_workers):
-            t = threading.Thread(target=self._worker, daemon=True,
-                                 name=f"decode-worker-{i}")
-            t.start()
-            self._threads.append(t)
+        with self._pool_lock:
+            for _ in range(self.num_workers):
+                self._spawn_worker()
+        self._pool_started = True
+        from ..tune.controller import set_effective
+
+        set_effective("num_decode_workers", self.num_workers)
+        set_effective("decode_queue_depth", self.queue_depth)
         if not self.silent:
             mode = ("decode+crop (split float tail)" if self._pil_mode
                     else "decode+augment" if self._raw_source
@@ -148,6 +226,15 @@ class ParallelAugmentIterator(InstIterator):
         while True:
             task = self._in_q.get()
             if task is None:
+                # a retire token (or close()): the count and this
+                # thread's membership change together under the lock,
+                # so a concurrent reconcile never over-retires
+                with self._pool_lock:
+                    self._poison_pending = max(0, self._poison_pending - 1)
+                    try:
+                        self._threads.remove(threading.current_thread())
+                    except ValueError:
+                        pass
                 return
             gen, seq, epoch, mode, items = task
             try:
@@ -168,6 +255,7 @@ class ParallelAugmentIterator(InstIterator):
         src = self._raw_source
         if mode == "pil":
             out: List[object] = []
+            t0 = time.perf_counter()
             for rec in items:
                 try:
                     im = src.decode_pil(rec)
@@ -176,6 +264,8 @@ class ParallelAugmentIterator(InstIterator):
                     continue
                 out.append(self.aug.augment_pil(im, rec.index, rec.labels,
                                                 epoch))
+            pipeline_stats().add("decode", time.perf_counter() - t0,
+                                 rows=len(items))
             return ("tail", epoch, out)
         if mode == "raw":
             decoded: List[object] = []
@@ -188,7 +278,10 @@ class ParallelAugmentIterator(InstIterator):
         else:
             decoded = list(items)
         ok = [d for d in decoded if isinstance(d, DataInst)]
+        t0 = time.perf_counter()
         augmented = iter(self.aug.augment_insts(ok, epoch, apply_mean=True))
+        pipeline_stats().add("augment", time.perf_counter() - t0,
+                             rows=len(ok))
         return ("final", epoch,
                 [next(augmented) if isinstance(d, DataInst) else d
                  for d in decoded])
@@ -254,31 +347,45 @@ class ParallelAugmentIterator(InstIterator):
             return self._results.pop(seq)
 
     def _reset_pool(self) -> None:
-        """Forget the chunks of the old epoch, done or queued."""
+        """Forget the chunks of the old epoch, done or queued; credit
+        back the retire tokens drained with them, then apply a pending
+        resize."""
         with self._cond:
             self._gen += 1
             self._results.clear()
+        drained_tokens = 0
         try:
             while True:
-                self._in_q.get_nowait()
+                if self._in_q.get_nowait() is None:
+                    drained_tokens += 1
         except queue.Empty:
             pass
+        if drained_tokens:
+            with self._pool_lock:
+                self._poison_pending = max(
+                    0, self._poison_pending - drained_tokens)
+        self._reconcile_pool()
         self._seq_submit = self._seq_take = 0
         self._exhausted = False
         self._pending, self._pending_pos = [], 0
 
     def before_first(self):
-        if self._threads:
+        if (not self._pool_started and self.num_workers > 1
+                and self._init_done and not self._closed):
+            # a request_workers() on a serial chain: the epoch boundary
+            # is where the pool can take over the source's cursor
+            self._start_pool()
+        if self._pool_started:
             self._reset_pool()
         self.aug.before_first()
-        if self._threads:
+        if self._pool_started:
             self._watchdog.beat()
 
     def resume_epoch(self):
         self.aug.resume_epoch()
 
     def next(self) -> bool:
-        if not self._threads:
+        if not self._pool_started:
             if not self.aug.next():
                 return False
             self._out = self.aug.value()
@@ -307,7 +414,10 @@ class ParallelAugmentIterator(InstIterator):
             kind, chunk_epoch, records = result
             if kind == "tail":
                 ok = [d for d in records if isinstance(d, DataInst)]
+                t0 = time.perf_counter()
                 done = iter(self.aug.augment_tail(ok, chunk_epoch))
+                pipeline_stats().add("augment", time.perf_counter() - t0,
+                                     rows=len(ok))
                 records = [next(done) if isinstance(d, DataInst) else d
                            for d in records]
             self._pending, self._pending_pos = records, 0
@@ -326,9 +436,11 @@ class ParallelAugmentIterator(InstIterator):
         with self._cond:
             self._stop = True
             self._cond.notify_all()
-        for _ in self._threads:
+        with self._pool_lock:
+            threads = list(self._threads)
+        for _ in threads:
             self._in_q.put(None)
-        for t in self._threads:
+        for t in threads:
             t.join(timeout=2.0)
         self._threads = []
         self.aug.close()

@@ -16,9 +16,9 @@ Counterpart of ``cxxnet_tpu/io/text.py``.  ``iter = text`` config keys:
 * ``round_batch`` — the final partial batch wraps to the leading
   windows and flags them as padding (``num_batch_padd``); 0 drops it
 
-Emits ``data (N, T)`` and ``label (N, T)`` float32 byte ids.  The JAX
-package's retry policy and chaos-injection hook on the read are not
-ported: the file is read once.
+Emits ``data (N, T)`` and ``label (N, T)`` float32 byte ids.  The file
+is read through ``RetryPolicy`` (the ``retry_*`` keys) and the
+``text.read`` fault site, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils import faults
+from ..utils.faults import RetryPolicy
 from .data import DataBatch, DataIter
 
 
@@ -46,6 +48,7 @@ class TextIterator(DataIter):
         self._starts: Optional[np.ndarray] = None
         self._loc = 0
         self._padd = 0
+        self._retry_cfg: list = []
 
     def set_param(self, name, val):
         if name == "filename":
@@ -68,12 +71,21 @@ class TextIterator(DataIter):
             self.dist_worker_rank = int(val)
         elif name == "round_batch":
             self.round_batch = int(val)
+        elif name in RetryPolicy.CONFIG_KEYS:
+            self._retry_cfg.append((name, val))
 
     def init(self):
         if self.seq_len <= 0 or self.batch_size <= 0:
             raise ValueError("text: set seq_len and batch_size")
-        with open(self.filename, "rb") as f:
-            raw = np.frombuffer(f.read(), np.uint8)
+
+        def _read():
+            faults.fault_point("text.read")
+            with open(self.filename, "rb") as f:
+                return np.frombuffer(f.read(), np.uint8)
+
+        raw = RetryPolicy.from_cfg(self._retry_cfg).run(
+            _read, what=f"reading {self.filename}",
+            silent=bool(self.silent))
         t = self.seq_len
         stride = self.stride or t
         starts = np.arange(0, len(raw) - t, stride, dtype=np.int64)

@@ -79,6 +79,7 @@ import json
 import re
 import struct
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -92,6 +93,7 @@ from ..updater import Updater, apply_all, create_updater
 from ..utils import checkpoint as ckpt
 from ..utils.checkpoint import MODEL_MAGIC, DivergenceError
 from ..utils.metric import MetricSet
+from ..utils.profiler import pipeline_stats
 from .graph import NetGraph
 from .net import FunctionalNet
 
@@ -173,6 +175,7 @@ class NetTrainer:
         self.divergence_loss_ratio = 0.0  # the finite spike gate; 0 off
         self.inject_nan_step = -1  # fault injection (tests): NaN once
         self.inject_spike_step = -1  # fault injection (tests): spike once
+        self.inject_shadow_mismatch = 0  # one-shot shadow-audit hook
         self._loss_window: List[float] = []  # recent finite losses
 
     # ------------------------------------------------------------------
@@ -204,6 +207,15 @@ class NetTrainer:
             self.inject_nan_step = int(val)
         elif name == "inject_spike_step":
             self.inject_spike_step = int(val)
+        elif name == "inject_shadow_mismatch":
+            # perturb the shadow audit's next comparison (one-shot)
+            self.inject_shadow_mismatch = int(val)
+        elif name == "compile_cache_dir":
+            # the kernel build cache moves before this trainer's first
+            # kernel loads (utils/compile_cache.py)
+            from ..utils import compile_cache
+
+            compile_cache.enable(val, silent=bool(self.silent))
         elif name == "seed":
             self.seed = int(val)
         elif name == "dev":
@@ -531,10 +543,22 @@ class NetTrainer:
     def _forward_fn(self, node_id: int):
         net, dev = self.net, self.device
 
-        def f(params, aux, data, extras=()):
-            x = torch.as_tensor(data, dtype=torch.float32).to(dev)
+        def f(params, aux, data, extras=(), pad_to=None):
+            t0 = time.perf_counter()  # the h2d stage, as the update's
+            x = torch.as_tensor(data, dtype=torch.float32)
+            if pad_to is not None and pad_to > x.shape[0]:
+                # zero rows up to ``pad_to`` on the device: the host
+                # copies the request's rows and allocates nothing
+                xp = torch.zeros((pad_to,) + tuple(x.shape[1:]),
+                                 dtype=torch.float32, device=dev)
+                xp[:x.shape[0]].copy_(x)
+                x = xp
+            else:
+                x = x.to(dev)
             ex = [torch.as_tensor(e, dtype=torch.float32).to(dev)
                   for e in extras]
+            pipeline_stats().add("h2d", time.perf_counter() - t0,
+                                 rows=int(x.shape[0]))
             prepared = self._prepared_for(params)
             with torch.inference_mode():
                 # the eval forward reads the layer state, never keeps it
@@ -545,10 +569,11 @@ class NetTrainer:
 
     def predict_fn(self, node_id: Optional[int] = None):
         """The pure inference function the serving cache calls:
-        ``f(params, aux, data, extras) -> f32 out rows`` (a tensor on the
-        trainer's device) with eval forward semantics.  ``node_id``
-        selects a feature node (``resolve_feature_node``); ``None`` is
-        the final output."""
+        ``f(params, aux, data, extras, pad_to=None) -> f32 out rows`` (a
+        tensor on the trainer's device) with eval forward semantics;
+        ``pad_to`` zero-pads ``data`` (not ``extras``) to that many rows
+        on the device.  ``node_id`` selects a feature node
+        (``resolve_feature_node``); ``None`` is the final output."""
         return self._forward_fn(self.net.out_node_index()
                                 if node_id is None else node_id)
 
@@ -592,6 +617,131 @@ class NetTrainer:
     # training
     def start_round(self, round_: int) -> None:
         self.round = round_
+        # the live-state fault site: a ``device.state:bitflip`` armed
+        # here flips a real bit of a live parameter (inject_bitflip),
+        # the corruption the integrity plane's digests must see
+        from ..utils.faults import fault_point
+
+        fault_point("device.state", self)
+
+    def inject_bitflip(self, rng) -> dict:
+        """Flip one bit of one element of one live parameter tensor, in
+        place (the ``device.state:bitflip`` payload hook).  From ``rng``
+        (the spec's seeded stream), in the JAX package's order: the leaf
+        over the sorted param tree, then the element, then the bit, so
+        one seed flips the same bit in both packages."""
+        assert self.params is not None, "init_model/load_model first"
+        leaves = [(f"{k}/{t}", k, t)
+                  for k in sorted(self.params)
+                  for t in sorted(self.params[k])]
+        name, key, tag = leaves[rng.randrange(len(leaves))]
+        w = self.params[key][tag]
+        elem = rng.randrange(max(1, w.numel()))
+        itembits = w.element_size() * 8
+        bit = rng.randrange(min(itembits, 32))
+        if not w.is_contiguous():
+            raise ValueError(f"inject_bitflip: {name} is not contiguous")
+        words = w.detach().view(-1).view(
+            {8: torch.int64, 4: torch.int32, 2: torch.int16,
+             1: torch.int8}[w.element_size()])
+        mask = 1 << bit
+        if bit == itembits - 1:
+            mask -= 1 << itembits  # the sign bit, as a signed word
+        with torch.no_grad():
+            words[elem:elem + 1].bitwise_xor_(
+                torch.tensor([mask], dtype=words.dtype, device=w.device))
+        self._invalidate_prepared()
+        detail = {"tensor": name, "elem": int(elem), "bit": int(bit),
+                  "process": 0, "device": str(w.device)}
+        if not self.silent:
+            print(f"[faults] bitflip injected: tensor={name} "
+                  f"elem={elem} bit={bit} device={detail['device']} "
+                  f"process=0", flush=True)
+        return detail
+
+    def _shadow_leg(self, data, labels, mask, round_: int):
+        """One leg of the shadow audit: the train forward from the f32
+        masters (``forward_train`` prepares the compute-dtype operands
+        afresh), a copy of the layer state (the audit keeps nothing),
+        the round's generator, and the gradients of every leaf."""
+        flat = [(k, t, w) for k in sorted(self.params)
+                for t, w in sorted(self.params[k].items())]
+        leaves = {}
+        for k, t, w in flat:
+            leaves.setdefault(k, {})[t] = w.detach().requires_grad_(True)
+        aux = {k: dict(v) for k, v in self.aux.items()} if self.aux else None
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(round_ & 0x7FFFFFFF)
+        with torch.enable_grad():
+            _nodes, loss = self.net.forward_train(
+                leaves, data, labels, mask, gen, aux=aux,
+                step=self.epoch_counter, extras=[])
+            del _nodes
+            grads = torch.autograd.grad(
+                loss, [leaves[k][t] for k, t, _ in flat], allow_unused=True)
+        return loss.detach(), [(f"{k}/{t}", g) for (k, t, _), g
+                               in zip(flat, grads)]
+
+    @staticmethod
+    def _bits(t: torch.Tensor) -> torch.Tensor:
+        """``t``'s bytes as integers (a bitwise compare, NaN included)."""
+        t = t.detach().contiguous()
+        return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                       1: torch.int8}[t.element_size()])
+
+    def shadow_step(self, round_: int):
+        """Run a sampled grad step twice on one probe batch and compare
+        the loss and every gradient bitwise.  None when both legs agree,
+        else a ``{"tensor", "detail"}`` record.  Skipped (None) for nets
+        with extra input nodes, as in the JAX package.
+
+        The probe batch is the JAX package's: ``random_sample`` from
+        ``RandomState((0x5AD0 ^ (round * 2654435761)) & 0x7FFFFFFF)``,
+        zero labels, every row weighted.  Each leg builds its forward
+        and its prepared operands from the f32 masters, and both run
+        with cuDNN deterministic and its autotuner off (the caller's
+        settings come back afterwards), so a clean card gives equal
+        bytes; no tolerance."""
+        assert self.net is not None, "init_model/load_model first"
+        if self.graph.extra_data_num:
+            return None
+        in_shape = self.net.input_node_shape(self.batch_size)
+        rows = self.batch_size
+        rng_np = np.random.RandomState(
+            (0x5AD0 ^ (round_ * 2654435761)) & 0x7FFFFFFF)
+        data_np = rng_np.random_sample(
+            (rows,) + tuple(in_shape[1:])).astype(np.float32)
+        width = max([1] + [b for _a, b in self._label_ranges().values()])
+        dev = self.device
+        data = torch.as_tensor(data_np, device=dev)
+        labels = torch.zeros((rows, width), dtype=torch.float32, device=dev)
+        mask = torch.ones(rows, dtype=torch.float32, device=dev)
+        cudnn = torch.backends.cudnn
+        saved = (cudnn.deterministic, cudnn.benchmark)
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            loss_a, grads_a = self._shadow_leg(data, labels, mask, round_)
+            loss_b, grads_b = self._shadow_leg(data, labels, mask, round_)
+        finally:
+            cudnn.deterministic, cudnn.benchmark = saved
+        la = loss_a.float().cpu().numpy().tobytes()
+        lb = loss_b.float().cpu().numpy().tobytes()
+        if self.inject_shadow_mismatch:
+            self.inject_shadow_mismatch = 0  # one-shot
+            lb = bytes([lb[0] ^ 0x10]) + lb[1:]
+        if la != lb:
+            return {"tensor": "loss",
+                    "detail": (f"shadow loss mismatch at round {round_}: "
+                               f"{la.hex()} vs {lb.hex()}")}
+        for (name, ga), (_n, gb) in zip(grads_a, grads_b):
+            if ga is None and gb is None:
+                continue
+            if (ga is None or gb is None
+                    or not torch.equal(self._bits(ga), self._bits(gb))):
+                return {"tensor": name,
+                        "detail": (f"shadow grad mismatch at round "
+                                   f"{round_}: {name}")}
+        return None
 
     def sync(self) -> None:
         """Wait for the device's queued work (a no-op on the CPU)."""
@@ -674,11 +824,15 @@ class NetTrainer:
         data_in, label_in, extras_in, mask_np, n_real = (
             self._pad_train_batch(batch))
         dev = self.device
+        # the h2d stage: the host's time inside the batch's copy calls
+        t0 = time.perf_counter()
         data = torch.as_tensor(data_in, dtype=torch.float32, device=dev)
         labels = torch.as_tensor(label_in, dtype=torch.float32, device=dev)
         extras = [torch.as_tensor(e, dtype=torch.float32, device=dev)
                   for e in extras_in]
         mask = torch.from_numpy(mask_np).to(dev)
+        pipeline_stats().add("h2d", time.perf_counter() - t0,
+                             rows=int(data.shape[0]))
         node_cache = {}
         if self.eval_train and self.train_metric.need_nodes():
             node_cache = self._node_pred_cache(data_in, extras_in, n_real)

@@ -24,9 +24,9 @@ Behavior:
 * :func:`log_exception_once` deduplicates noisy failure sites: the
   first exception per key is logged in full, repeats only count.
 
-The file operations are plain ``os`` calls: the JAX package routes them
-through its disk layer (crash recording and the ``obs.append`` fault
-site), which the port does not have yet (ROADMAP.md item (h)).
+The file operations go through ``utils/diskio.py``: the append at the
+``obs.append`` fault site, the rotation through ``diskio.truncate``,
+``unlink`` and ``replace``, so a recording sees every one of them.
 """
 
 from __future__ import annotations
@@ -77,8 +77,8 @@ class EventLog:
     """One rotating JSONL sink + in-memory ring (see module docstring)."""
 
     def __init__(self, ring: int = 512) -> None:
-        # reentrant: a nested emit from inside a file write (the
-        # re-entrancy guard below) must not deadlock
+        # reentrant: a failing file write reports through the diskio
+        # layer, whose disk-full accounting emits right back here
         self._lock = threading.RLock()
         self._ring: Deque[dict] = collections.deque(maxlen=max(1, int(ring)))
         self.path: Optional[str] = None
@@ -95,9 +95,10 @@ class EventLog:
         self._once_counts: Dict[str, int] = {}
         self._counter = None  # obs_events_total, created lazily
         self._drop_counter = None  # events_dropped_total, lazy
-        # file-sink re-entrancy guard: a nested event goes to the ring
-        # only, never back into the file write that is already on this
-        # thread's stack
+        # file-sink re-entrancy guard: writing an event can itself emit
+        # (a fault firing at the obs.append site, disk-full accounting
+        # in diskio) — nested events go to the ring only, never back
+        # into the file write that is already on this thread's stack
         self._tls = threading.local()
 
     # config -------------------------------------------------------------
@@ -164,6 +165,8 @@ class EventLog:
     def _rotate_locked(self, need: int) -> None:
         """Rotate ``path`` when appending ``need`` bytes would cross
         ``max_bytes``.  Caller holds the lock."""
+        from ..utils import diskio
+
         try:
             size = os.path.getsize(self.path)
         except OSError:
@@ -172,16 +175,16 @@ class EventLog:
             return
         if self.backups <= 0:
             # no backups: truncate in place
-            os.truncate(self.path, 0)
+            diskio.truncate(self.path, 0)
             return
         oldest = f"{self.path}.{self.backups}"
         if os.path.exists(oldest):
-            os.unlink(oldest)
+            diskio.unlink(oldest)
         for i in range(self.backups - 1, 0, -1):
             src = f"{self.path}.{i}"
             if os.path.exists(src):
-                os.replace(src, f"{self.path}.{i + 1}")
-        os.replace(self.path, f"{self.path}.1")
+                diskio.replace(src, f"{self.path}.{i + 1}")
+        diskio.replace(self.path, f"{self.path}.1")
 
     def emit(self, kind: str, /, **fields) -> dict:
         """Record one event; returns the record.  Never raises.
@@ -219,8 +222,11 @@ class EventLog:
                         if d:
                             os.makedirs(d, exist_ok=True)
                         self._rotate_locked(len(line) + 1)
-                        with open(self.path, "ab") as f:
-                            f.write((line + "\n").encode("utf-8"))
+                        from ..utils import diskio
+
+                        diskio.append_bytes(
+                            self.path, (line + "\n").encode("utf-8"),
+                            site="obs.append")
                     except OSError as e:
                         self.dropped += 1
                         reason = ("disk" if getattr(e, "errno", None)
@@ -301,6 +307,6 @@ def log_exception_once(key: str, exc: BaseException,
 
 
 def record_drop(sink: str, reason: str) -> None:
-    """Count one dropped observability record (the event sink counts
-    its own drops internally)."""
+    """Count one dropped observability record (telemetry.jsonl uses
+    this; the event sink counts its own drops internally)."""
     _LOG.record_drop(sink, reason)

@@ -245,13 +245,11 @@ class Tracer:
         """Write the ring as Chrome trace JSON; returns the path.
         Atomic, so a crash mid-export can't leave a half-written trace
         that chrome://tracing rejects."""
-        from ..utils.checkpoint import atomic_write_bytes
+        from ..utils import diskio
 
-        d = os.path.dirname(path)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        atomic_write_bytes(
-            path, json.dumps(self.to_chrome_trace()).encode("utf-8"))
+        diskio.write_atomic(
+            path, json.dumps(self.to_chrome_trace()).encode("utf-8"),
+            site=None)
         return path
 
     # train-loop capture window ------------------------------------------

@@ -8,9 +8,12 @@ functions that launch on a caller-given stream and return
          -Xcompiler -fPIC -Xptxas=-v
 
 into ``build/kernels/<name>-<hash>.so`` at the repository root (listed
-in ``.gitignore``), keyed by a hash of the source, the ``csrc/`` headers
-it includes and the flags, and
-loaded with ``ctypes``.  A file with a plain C interface builds in
+in ``.gitignore``; ``compile_cache_dir`` moves it, see
+``utils/compile_cache.py``), keyed by a hash of the source, the
+``csrc/`` headers it includes, the flags and the toolchain (the
+compiler's ``--version`` and ``platform.machine()``: a library built by
+another toolchain or for another machine is never loaded), and loaded
+with ``ctypes``.  A file with a plain C interface builds in
 seconds; one that includes PyTorch's headers takes minutes, which is
 why the port does not use ``torch.utils.cpp_extension``.
 
@@ -20,16 +23,19 @@ on machines without ``nvcc`` or a card.
 Host sources (``csrc/host/``: the C ABI's library and its C host, the
 native page reader) are built by :func:`build_host` with ``g++`` /
 ``gcc`` into ``build/host/<name>-<hash>``, under the same hash key
-(source, local headers, flags) and the same write-then-rename, and
-serialised across processes by an ``fcntl`` lock.  They need no
+(source, local headers, flags, toolchain and machine, plus the Python
+ABI from ``sysconfig``) and the same write-then-rename, and serialised
+across processes by an ``fcntl`` lock.  They need no
 ``nvcc``, so they build wherever a C++ toolchain is.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -40,7 +46,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+DEFAULT_CACHE_ROOT = os.path.join(os.path.dirname(_PKG), "build")
+BUILD_DIR = os.path.join(DEFAULT_CACHE_ROOT, "kernels")
+#: the kernel libraries this process has loaded (a library once loaded
+#: is never reloaded, wherever the cache moves)
+LOADED: List[str] = []
 _LOCAL_INCLUDE = re.compile(rb'#include\s+"([^"]+)"')
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +74,30 @@ def nvcc_path() -> str:
         if os.path.exists(cand):
             return cand
     raise KernelError("nvcc not found on PATH or under CUDA_HOME")
+
+
+@functools.lru_cache(maxsize=None)
+def toolchain_id(compiler: str) -> str:
+    """The compiler's identity: its ``--version`` output (nvcc's first
+    line names no release, so the whole output is taken) and the
+    machine.  A compiler that is not on this machine gives
+    ``"<compiler>: not found"``, a key no build here can have made."""
+    try:
+        exe = nvcc_path() if compiler == "nvcc" else compiler
+        out = subprocess.run([exe, "--version"], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             timeout=60).stdout
+    except (KernelError, OSError, subprocess.TimeoutExpired):
+        out = f"{compiler}: not found"
+    return f"{out.strip()}\n{platform.machine()}"
+
+
+def set_cache_root(root: str) -> None:
+    """Build and load kernels under ``<root>/kernels`` and host sources
+    under ``<root>/host`` from now on (``compile_cache_dir``)."""
+    global BUILD_DIR, HOST_BUILD_DIR
+    BUILD_DIR = os.path.join(root, "kernels")
+    HOST_BUILD_DIR = os.path.join(root, "host")
 
 
 class Kernel:
@@ -91,7 +125,8 @@ class Kernel:
 
     def library_path(self) -> str:
         """The library's path, keyed by the source, the local headers it
-        includes (``#include "x.cuh"`` from ``csrc/``) and the flags."""
+        includes (``#include "x.cuh"`` from ``csrc/``), the flags, and
+        nvcc's identity and the machine (:func:`toolchain_id`)."""
         with open(self.source, "rb") as f:
             src = f.read()
         h = hashlib.sha256(src)
@@ -99,6 +134,7 @@ class Kernel:
             with open(os.path.join(CSRC, name.decode()), "rb") as f:
                 h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(toolchain_id("nvcc").encode())
         return os.path.join(BUILD_DIR, f"{self.name}-{h.hexdigest()[:12]}.so")
 
     def _compile_cmd(self, out: str) -> List[str]:
@@ -110,7 +146,12 @@ class Kernel:
                 path = self.library_path()
                 if not os.path.exists(path):
                     build([self])
-                self._lib = ctypes.CDLL(path)
+                try:
+                    self._lib = ctypes.CDLL(path)
+                except OSError as e:
+                    raise KernelError(
+                        f"{self.name}: cannot load {path}: {e}") from e
+                LOADED.append(path)
             return self._lib
 
     def launch(self, symbol: str, argtypes: Sequence, *args) -> None:
@@ -212,7 +253,7 @@ def stream_of(t) -> int:
 # ----------------------------------------------------------------------
 # host sources: csrc/host/*.cc|*.c built with g++ / gcc
 HOST_SRC = os.path.join(CSRC, "host")
-HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
+HOST_BUILD_DIR = os.path.join(DEFAULT_CACHE_ROOT, "host")
 HOST_CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-pthread")
 
 
@@ -265,8 +306,10 @@ def _host_spec(name: str) -> Tuple[str, List[str], List[str]]:
 
 def host_path(name: str) -> str:
     """The target's path under ``build/host/``, keyed by its source, the
-    local headers it includes and its flags (for the C host, the
-    library's path, itself keyed)."""
+    local headers it includes, its flags (for the C host, the library's
+    path, itself keyed), the compiler's identity and the machine
+    (:func:`toolchain_id`) and the Python ABI (``sysconfig``'s
+    ``SOABI``), so a target built elsewhere is never loaded here."""
     src, pre, post = _host_spec(name)
     path = os.path.join(HOST_SRC, src)
     with open(path, "rb") as f:
@@ -276,6 +319,8 @@ def host_path(name: str) -> str:
         with open(os.path.join(HOST_SRC, inc.decode()), "rb") as f:
             h.update(f.read())
     h.update(" ".join(pre + post).encode())
+    h.update(toolchain_id(pre[0]).encode())
+    h.update(str(sysconfig.get_config_var("SOABI")).encode())
     ext = ".so" if name.startswith("lib") else ""
     return os.path.join(HOST_BUILD_DIR, f"{name}-{h.hexdigest()[:12]}{ext}")
 

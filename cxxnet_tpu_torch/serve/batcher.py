@@ -147,6 +147,20 @@ class MicroBatcher:
         self._worker.start()
 
     # ------------------------------------------------------------------
+    # live knobs (the tuner's setters): the worker reads both at the top
+    # of every coalesced batch, so a change applies from the next batch
+    def set_max_batch_size(self, n: int) -> int:
+        """Set the coalescing limit.  The batch in progress finishes
+        under the old limit; a request larger than the new limit still
+        runs alone (the oldest request is always taken)."""
+        self.max_batch_size = max(1, int(n))
+        return self.max_batch_size
+
+    def set_batch_timeout_ms(self, ms: float) -> float:
+        """Set the batch-open window (from the next batch on)."""
+        self.batch_timeout = max(0.0, float(ms)) / 1e3
+        return self.batch_timeout * 1e3
+
     def pending_count(self) -> int:
         with self._lock:
             return len(self._queue)
@@ -208,6 +222,8 @@ class MicroBatcher:
         batch = [first]
         key = first.group_key()
         rows = first.data.shape[0]
+        # the live knobs, read once a batch: a concurrent change applies
+        # whole at the next batch
         limit = self.max_batch_size
         window_end = time.monotonic() + self.batch_timeout
         while rows < limit:

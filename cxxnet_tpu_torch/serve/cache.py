@@ -58,7 +58,10 @@ class ShapeBucketCache:
 
     def _run(self, kind: str, node_id: Optional[int],
              data: np.ndarray) -> np.ndarray:
-        """Pad ``data`` to its bucket, run the predict fn, trim."""
+        """Pad ``data`` to its bucket, run the predict fn, trim.  The
+        pad rows are made on the device (``predict_fn``'s ``pad_to``):
+        a padded array on the host would cost a fresh bucket-sized
+        allocation, and its first touch, on every batch."""
         tr = self._trainer
         data = np.ascontiguousarray(data, np.float32)
         if data.ndim < 2:
@@ -76,17 +79,14 @@ class ShapeBucketCache:
             else:
                 self._keys[key] = 1
                 self.misses += 1
-        if bucket > n:
-            data = np.concatenate(
-                [data, np.zeros((bucket - n,) + data.shape[1:], data.dtype)],
-                axis=0)
-        elif not data.flags.writeable:
+        if not data.flags.writeable:
             # a binary frame's rows alias the request body (read-only);
             # torch must never wrap that buffer
             data = data.copy()
         # a flat (N, D) request is the wrapper spelling of the native row
-        data = data.reshape((bucket,) + tr.net.input_node_shape(1)[1:])
-        out = tr.predict_fn(node_id)(tr.params, tr.aux, data, ())
+        data = data.reshape((n,) + tr.net.input_node_shape(1)[1:])
+        out = tr.predict_fn(node_id)(tr.params, tr.aux, data, (),
+                                     pad_to=bucket)
         return out.cpu().numpy()[:n]
 
     def scores(self, data: np.ndarray) -> np.ndarray:

@@ -51,7 +51,14 @@ Counterpart of ``cxxnet_tpu/serve/engine.py`` for this slice:
   status ``degraded``); beside them the port still prints a line per
   reload or canary verdict unless ``silent``.
 
-The fleet/router and the tuner are later slices (ROADMAP.md).
+* **the tuner's surface** — :meth:`set_max_batch_size` (the new
+  limit's bucket warmed first), :meth:`set_batch_timeout_ms`, and
+  :meth:`prewarm_buckets` over the request histogram by bucket and row
+  shape (``request_buckets`` and ``tune_effective`` in ``/statsz``),
+  which ``controller = 1`` turns (``tune/``); the ``serve.batch`` and
+  ``serve.reload`` fault sites.
+
+The fleet/router is a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from ..obs import trace as obs_trace
 from ..obs.registry import registry as obs_registry
 from ..ops import quant as opsq
 from ..utils import checkpoint as ckpt
+from ..utils import faults
 from ..utils.faults import CircuitBreaker, RetryPolicy
 from .batcher import ClosedError, MicroBatcher, ServeError
 from .cache import ShapeBucketCache
@@ -82,6 +90,9 @@ from .metrics import ServingStats, serve_metrics
 __all__ = ["Engine", "ModelLoadError"]
 
 ConfigEntry = Tuple[str, str]
+
+# keys ``prewarm_buckets`` warms a call (the tuner calls it every tick)
+PREWARM_PER_CALL = 2
 
 
 class ModelLoadError(ServeError):
@@ -184,6 +195,11 @@ class Engine:
                                opsq.scheme_of(self._trainer) or "f32")
         self._cache = ShapeBucketCache(self._trainer)
         self._row_shapes = self._allowed_row_shapes(self._trainer)
+        # request histogram: (bucket, row shape) -> requests, fed by
+        # submit(); the tuner's prewarm (prewarm_buckets) reads it to
+        # warm a bucket before its first coalesced batch
+        self._req_buckets: Dict[tuple, int] = {}
+        self._req_lock = threading.Lock()
         self.batcher = MicroBatcher(
             self._run_batch,
             max_batch_size=max_batch_size,
@@ -336,9 +352,14 @@ class Engine:
 
     def _run_batch(self, kind: str, node: Optional[str],
                    data: np.ndarray) -> np.ndarray:
-        """Batcher callback: one coalesced batch through the model."""
+        """Batcher callback: one coalesced batch through the model (the
+        ``serve.batch`` fault site first).  Kind ``warm`` is a prewarm
+        (:meth:`_warm_bucket`): the forward alone, unrecorded."""
         with self._model_lock:
             cache = self._cache
+        if kind == "warm":
+            return cache._run("out", None, data)
+        faults.fault_point("serve.batch")
         n = data.shape[0]
         self.stats.record_batch(n, cache.bucket_for(n))
         with obs_trace.span("serve.batch", kind=kind, rows=n):
@@ -363,8 +384,12 @@ class Engine:
         if kind == "extract" and not node:
             raise ValueError("extract requests need a node name")
         arr = self._validate(data)
-        self.stats.record_request(
-            arr.shape[0], bucket=self._cache.bucket_for(arr.shape[0]))
+        with self._model_lock:
+            bucket = self._cache.bucket_for(arr.shape[0])
+        hkey = (bucket, tuple(arr.shape[1:]))
+        with self._req_lock:
+            self._req_buckets[hkey] = self._req_buckets.get(hkey, 0) + 1
+        self.stats.record_request(arr.shape[0], bucket=bucket)
         if deadline_ms is None:
             deadline_ms = self.default_deadline_ms
         t0 = time.monotonic()
@@ -404,9 +429,11 @@ class Engine:
         backward.  A load failure raises (``try_reload`` counts it).
 
         The fresh trainer is warmed at every key the old cache served
-        before the swap, which is a pointer flip under the model lock."""
+        before the swap, which is a pointer flip under the model lock.
+        The ``serve.reload`` fault site is visited first."""
         if self.model_dir is None:
             return False
+        faults.fault_point("serve.reload")
         with self._reload_lock:
             found = ckpt.find_latest_valid(
                 self.model_dir, net_fp=self._conf_net_fp(),
@@ -492,6 +519,91 @@ class Engine:
                     print(f"serve: warmup failed for bucket {bucket} shape "
                           f"{row_shape} ({type(e).__name__}: {e})",
                           flush=True)
+
+    # ------------------------------------------------------------------
+    # live knobs and the speculative prewarm (the tuner's surface)
+    def set_max_batch_size(self, n: int, prewarm: bool = True) -> int:
+        """Set the micro-batcher's coalescing limit, clamped to the
+        engine's ``max_batch_size``.  With ``prewarm`` the new limit's
+        bucket is warmed (one forward through ``ShapeBucketCache`` at the
+        most requested row shape) on the calling thread BEFORE the limit
+        applies, so the first larger batch finds cuDNN's algorithms
+        picked and the prepared operands built."""
+        n = max(1, min(int(n), self.max_batch_size))
+        if prewarm:
+            self._warm_bucket(self._bucket_for(n),
+                              self._dominant_row_shape())
+        self.batcher.set_max_batch_size(n)
+        from ..tune.controller import set_effective
+
+        set_effective("max_batch_size", n)
+        return n
+
+    def set_batch_timeout_ms(self, ms: float) -> float:
+        """Set the micro-batcher's batch-open window."""
+        out = self.batcher.set_batch_timeout_ms(ms)
+        from ..tune.controller import set_effective
+
+        set_effective("batch_timeout_ms", out)
+        return out
+
+    def _bucket_for(self, n: int) -> int:
+        with self._model_lock:
+            return self._cache.bucket_for(n)
+
+    def _dominant_row_shape(self) -> Tuple[int, ...]:
+        """The most requested row shape so far (the native shape before
+        any traffic)."""
+        with self._req_lock:
+            if self._req_buckets:
+                (_b, shape), _ = max(self._req_buckets.items(),
+                                     key=lambda kv: kv[1])
+                return tuple(shape)
+        return tuple(self._row_shapes[0])
+
+    def _warm_bucket(self, bucket: int,
+                     row_shape: Tuple[int, ...]) -> bool:
+        """Run ``bucket`` rows of zeros of ``row_shape`` through the
+        cache once, on the batcher's thread: the thread that will run
+        the bucket (PyTorch keeps the cuBLAS and cuDNN handles, and
+        cuDNN's execution plans, per thread), as a ``warm`` request
+        that never coalesces with traffic.  False when that exact key is
+        already warm or the warm failed (the request pays it later)."""
+        row_shape = tuple(row_shape)
+        with self._model_lock:
+            cache = self._cache
+        if any(k[1] == "out" and k[3] == bucket
+               and tuple(k[4]) == row_shape
+               for k in cache.keys_snapshot()):
+            return False
+        zeros = np.zeros((bucket,) + row_shape, np.float32)
+        try:
+            self.batcher.submit(zeros, kind="warm")
+        except Exception as e:  # noqa: BLE001 - a failed warm only costs
+            obs_events.log_exception_once(   # the request's first forward
+                "serve.prewarm", e, kind="tune.error", bucket=bucket)
+            return False
+        return True
+
+    def prewarm_buckets(self) -> list:
+        """Warm the most requested not-yet-warm (bucket, row shape)
+        keys of the request histogram, up to the live batch limit and
+        at most ``PREWARM_PER_CALL`` a call (the tuner runs it every tick);
+        each warm emits ``tune.prewarm``."""
+        with self._req_lock:
+            hist = sorted(self._req_buckets.items(), key=lambda kv: -kv[1])
+        ceiling = self._bucket_for(self.batcher.max_batch_size)
+        warmed = []
+        for (bucket, shape), count in hist:
+            if len(warmed) >= PREWARM_PER_CALL:
+                break
+            if bucket > ceiling:
+                continue
+            if self._warm_bucket(bucket, shape):
+                warmed.append(bucket)
+                obs_events.emit("tune.prewarm", bucket=bucket,
+                                row_shape=list(shape), requests=count)
+        return warmed
 
     # ------------------------------------------------------------------
     # golden canary
@@ -675,6 +787,16 @@ class Engine:
             "batch_timeout_ms": self.batcher.batch_timeout * 1e3,
             "queue_limit": self.batcher.queue_limit,
         }
+        # what the tuner chose (the tune_effective{knob} gauges)
+        out["tune_effective"] = {
+            "max_batch_size": self.batcher.max_batch_size,
+            "batch_timeout_ms": self.batcher.batch_timeout * 1e3,
+        }
+        agg: Dict[int, int] = {}
+        with self._req_lock:
+            for (b, _shape), c in self._req_buckets.items():
+                agg[b] = agg.get(b, 0) + c
+        out["request_buckets"] = {str(k): v for k, v in sorted(agg.items())}
         out["reload_breaker"] = self.reload_breaker.snapshot()
         if self.integrity_probe:
             out["integrity"] = {

@@ -7,7 +7,9 @@ and ``cxxnet_tpu/nnet/trainer.py``: a model file is the 8-byte magic
 ``<param key>/<tag>`` names.  Beside it, ``<file>.manifest.json``
 carries the CRC32, byte size, round and net fingerprint, so a reader
 can prove a checkpoint is intact and belongs to its net before loading
-it.  Writes are atomic (temp file, fsync, rename, directory fsync).
+it.  Writes are atomic (temp file, fsync, rename, directory fsync)
+and go through ``utils/diskio.py`` (site ``checkpoint.write``); the
+validation visits ``checkpoint.read``.
 ``PreemptionHandler`` turns SIGTERM/SIGINT into a flag the train loop
 checks at each batch, so it can snapshot and exit cleanly.
 """
@@ -22,6 +24,8 @@ import struct
 import time
 import zlib
 from typing import List, Optional, Sequence, Tuple
+
+from . import diskio, faults
 
 MODEL_MAGIC = b"CXTPU001"
 MANIFEST_SUFFIX = ".manifest.json"
@@ -48,23 +52,11 @@ class DivergenceError(RuntimeError):
 
 def atomic_write_bytes(path: str, data: bytes) -> None:
     """Write ``data`` to ``path`` atomically: a crash at any point leaves
-    either the old file or the new one, never a truncation."""
-    d = os.path.dirname(os.path.abspath(path))
-    tmp = f"{path}.tmp.{os.getpid()}"
-    try:
-        with open(tmp, "wb") as f:
-            f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    fd = os.open(d, os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
+    either the old file or the new one, never a truncation.  The write
+    goes through :func:`~cxxnet_tpu_torch.utils.diskio.write_atomic` at
+    the ``checkpoint.write`` fault site (recorded under
+    ``diskio.recording``)."""
+    diskio.write_atomic(path, data, site="checkpoint.write")
 
 
 def crc32_of(data: bytes) -> int:
@@ -167,6 +159,7 @@ def validate_checkpoint(model_path: str,
     sides carry one — the net fingerprint too.  Without a manifest:
     structural checks only (magic, parseable header)."""
     try:
+        faults.fault_point("checkpoint.read")
         size = os.path.getsize(model_path)
     except OSError as e:
         return f"unreadable: {e}"

@@ -9,9 +9,12 @@ The port's copy of these pieces of ``cxxnet_tpu/utils/faults.py``:
   (one RNG per site and kind, so a schedule replays).  The port visits
   the sites of its data chain (``imgbin.page``, ``imgbin.record``,
   ``pipeline.worker``, ``prefetch.producer``, ``csv.read``, ``csv.row``,
-  ``libsvm.read``, ``libsvm.row``); a spec naming any other site of the
-  JAX package raises ``NotImplementedError``, so nothing is armed that
-  would never fire;
+  ``libsvm.read``, ``libsvm.row``, ``text.read``), of its durable
+  writers (``checkpoint.write``, ``checkpoint.read``, ``obs.append``,
+  through ``utils/diskio.py``), of the server (``serve.batch``,
+  ``serve.reload``) and of the live train state (``device.state``); a
+  spec naming any other site of the JAX package raises
+  ``NotImplementedError``, so nothing is armed that would never fire;
 * ``BadRecordBudget``: skip-and-quarantine accounting with its
   ``.quarantine`` sidecar (``max_bad_records`` of the imgbin chain and
   the text readers);
@@ -30,6 +33,7 @@ package.
 
 from __future__ import annotations
 
+import errno
 import os
 import random
 import sys
@@ -70,13 +74,40 @@ SITES: Dict[str, Tuple[str, ...]] = {
 #: the ROADMAP item that brings them (``_SITE_ITEM``).
 PORTED_SITES = ("imgbin.page", "imgbin.record", "pipeline.worker",
                 "prefetch.producer", "csv.read", "csv.row", "libsvm.read",
-                "libsvm.row")
-_SITE_ITEM = {"serve.replica": "(i), the serving fleet"}
+                "libsvm.row", "text.read", "checkpoint.write",
+                "checkpoint.read", "obs.append", "serve.batch",
+                "serve.reload", "device.state")
+_SITE_ITEM = {"loop.append": "(h3), the closed loop",
+              "loop.commit": "(h3), the closed loop",
+              "dataservice.rpc": "(h4), the data service",
+              "serve.replica": "(i), the serving fleet",
+              "mesh.replica": "(k), multi-device"}
 
 
 class InjectedFault(OSError):
     """An injected transient I/O failure (an ``OSError``, so retries and
     the bad-record budget treat it as a real one)."""
+
+
+class InjectedDiskFull(InjectedFault):
+    """An injected ENOSPC, with ``errno`` set, so callers that treat a
+    full disk apart (``disk_full_total``) see the real thing."""
+
+    def __init__(self, site: str) -> None:
+        super().__init__(errno.ENOSPC,
+                         f"injected ENOSPC (disk full) at {site}")
+
+
+class InjectedShortWrite(InjectedDiskFull):
+    """An injected short write: the disk filled up mid-write after
+    ``keep`` bytes of the payload landed.  ``utils/diskio.py`` writes
+    exactly that prefix and re-raises."""
+
+    def __init__(self, site: str, keep: int) -> None:
+        OSError.__init__(self, errno.ENOSPC,
+                         f"injected short write at {site} "
+                         f"({keep} bytes landed)")
+        self.keep = keep
 
 
 class InjectedCorruption(ValueError):
@@ -162,7 +193,7 @@ class FaultInjector:
             raise ValueError(f"fault_inject: site {site!r} supports kinds "
                              f"{SITES[site]}, not {kind!r}")
         if site not in PORTED_SITES:
-            item = _SITE_ITEM.get(site, "(h), the trainer-bound planes")
+            item = _SITE_ITEM[site]
             raise NotImplementedError(
                 f"fault_inject: the port does not visit site {site!r} yet "
                 f"(ROADMAP.md item {item}); it injects at "
@@ -254,6 +285,22 @@ class FaultInjector:
                     payload = _corrupt_text(payload, rng)
                 else:
                     raise InjectedCorruption(f"injected corruption at {site}")
+            elif fs.kind == "bitflip":
+                # the payload (a NetTrainer) flips a real bit in one of
+                # its live tensors, chosen by this spec's RNG
+                if payload is None or not hasattr(payload, "inject_bitflip"):
+                    raise InjectedCorruption(
+                        f"bitflip at {site}: payload has no "
+                        "inject_bitflip hook")
+                payload.inject_bitflip(rng)
+            elif fs.kind == "enospc":
+                raise InjectedDiskFull(site)
+            elif fs.kind == "short":
+                keep = 0
+                if isinstance(payload, (bytes, bytearray, memoryview)):
+                    n = len(payload)
+                    keep = max(1, n // 2) if n else 0
+                raise InjectedShortWrite(site, keep)
             else:  # ioerror
                 raise InjectedFault(f"injected I/O error at {site}")
         return payload

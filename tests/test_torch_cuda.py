@@ -55,7 +55,11 @@ predict (``wrapper.Net``, through the bucket cache) and the C ABI's
 ``CXNNetPredictBatch`` (the port's library loaded by ``ctypes`` into
 this process) bit-equal to ``trainer.predict`` on the card, and the
 ``xla_device_memory_bytes`` series of ``/metricsz`` equal to
-``torch.cuda.memory_stats()`` read at the same moment.
+``torch.cuda.memory_stats()`` read at the same moment; the integrity
+digest computed on the card (f32 and bf16, whole and as a block whose
+word index passes 2^31) equal to the host oracle's, a bf16 net's
+shadow step bitwise clean on the card (cuDNN's settings restored), and
+a ``torch.profiler`` window around one K1 launch showing its symbol.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -1556,3 +1560,103 @@ def test_cuda_memory_series_equal_memory_stats(cuda_device):
     }
     assert {k: got[k] for k in want} == {k: float(v) for k, v in want.items()}
     del keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_digest_equals_the_host_oracle(cuda_device, dtype):
+    import numpy as np
+
+    from cxxnet_tpu_torch.integrity import digest_array, digest_tensor
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    t = (torch.randn(1 << 20, 7, generator=gen, device=cuda_device)
+         * 1e3).to(dtype)
+    host = t.cpu()
+    words = (host.view(torch.int16).numpy() if dtype == torch.bfloat16
+             else host.numpy())
+    assert digest_tensor(t) == digest_array(words)
+    block = t[:3, :]
+    index = (slice(1 << 30, (1 << 30) + 3), slice(0, 7))
+    assert digest_tensor(block, index=index, shape=(1 << 31, 7)) == \
+        digest_array(words[:3], index=index, shape=(1 << 31, 7))
+    t.view(-1)[5:6].view(torch.int16 if dtype == torch.bfloat16
+                         else torch.int32).bitwise_xor_(
+        torch.tensor([4], dtype=torch.int16 if dtype == torch.bfloat16
+                     else torch.int32, device=cuda_device))
+    assert digest_tensor(t) != digest_array(words)
+    assert np.array_equal(words, host.view(torch.int16).numpy()
+                          if dtype == torch.bfloat16 else host.numpy())
+
+
+SHADOW_NET = """
+netconfig = start
+layer[0->1] = conv:c1
+  kernel_size = 3
+  pad = 1
+  nchannel = 16
+  init_sigma = 0.1
+layer[1->2] = max_pooling
+  kernel_size = 3
+  stride = 2
+layer[2->3] = lrn
+  local_size = 5
+layer[3->4] = flatten
+layer[4->4] = dropout
+  threshold = 0.3
+layer[4->5] = fullc:fc
+  nhidden = 10
+  init_sigma = 0.1
+layer[5->5] = softmax
+netconfig = end
+input_shape = 3,16,16
+batch_size = 32
+updater = sgd
+eta = 0.1
+momentum = 0.9
+compute_dtype = bfloat16
+dev = gpu
+seed = 2
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_shadow_step_is_bitwise_clean(cuda_device):
+    from cxxnet_tpu_torch import config as tcfg
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(tcfg.parse_pairs(SHADOW_NET))
+    tr.init_model()
+    k1 = maxpool.KERNEL.launches
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    for r in range(3):
+        assert tr.shadow_step(r) is None
+    assert maxpool.KERNEL.launches == k1 + 6  # one a leg
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == saved
+    tr.set_param("inject_shadow_mismatch", "1")
+    assert tr.shadow_step(3)["tensor"] == "loss"
+
+
+@pytest.mark.cuda
+def test_cuda_profiler_window_shows_the_kernel_symbol(cuda_device,
+                                                      tmp_path):
+    import json
+
+    from cxxnet_tpu_torch.utils.profiler import TraceController
+
+    x = torch.randn(8, 28, 28, 64, device=cuda_device).to(torch.bfloat16)
+    maxpool.maxpool_fwd(x, 3, 3, 2, 0, 0)  # built and bound outside
+    torch.cuda.synchronize()
+    tc = TraceController()
+    tc.configure([("profile", "1"), ("profile_dir", str(tmp_path)),
+                  ("profile_start", "0"), ("profile_steps", "1")])
+    tc.step(0)
+    maxpool.maxpool_fwd(x, 3, 3, 2, 0, 0)
+    tc.step(1)
+    trace = json.load(open(tc.trace_path))
+    kernels = [e["name"] for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert any("maxpool_fwd_vec_kernel" in n for n in kernels), kernels

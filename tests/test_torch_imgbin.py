@@ -521,11 +521,11 @@ def test_injected_record_corruption_matches_jax(tmp_path, workers):
 
 
 def test_fault_sites_the_port_does_not_visit_raise():
-    for spec in ("obs.append:ioerror:1", "text.read:ioerror:1",
-                 "device.state:bitflip:1", "mesh.replica:hang:1",
-                 "loop.append:ioerror:1", "serve.batch:hang:1",
-                 "checkpoint.read:ioerror:1"):
-        with pytest.raises(NotImplementedError, match=r"item \(h\)"):
+    for spec, item in (("loop.append:ioerror:1", r"item \(h3\)"),
+                       ("loop.commit:enospc:1", r"item \(h3\)"),
+                       ("dataservice.rpc:hang:1", r"item \(h4\)"),
+                       ("mesh.replica:hang:1", r"item \(k\)")):
+        with pytest.raises(NotImplementedError, match=item):
             tfaults.install(spec)
     with pytest.raises(NotImplementedError, match=r"item \(i\)"):
         tfaults.configure([("fault_inject", "serve.replica:hang:1")])
@@ -904,7 +904,7 @@ def test_cli_arms_the_fault_sites(tmp_path):
     assert side and fired >= len(side)
     with pytest.raises(NotImplementedError, match="the port does not visit"):
         _run_port_cli(tmp_path, ["t.conf", "num_round=1", "model_dir=m2",
-                                 "fault_inject=serve.batch:hang:1"])
+                                 "fault_inject=loop.append:latency:1"])
 
 
 # ----------------------------------------------------------------------

@@ -50,7 +50,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "cxxnet_tpu_torch.io.csv, cxxnet_tpu_torch.io.libsvm, "
         "cxxnet_tpu_torch.io.membuffer, cxxnet_tpu_torch.io.attach_txt, "
         "cxxnet_tpu_torch.wrapper, cxxnet_tpu_torch.capi_shim, "
-        "cxxnet_tpu_torch.io.native, cxxnet_tpu_torch.obs\n"
+        "cxxnet_tpu_torch.io.native, cxxnet_tpu_torch.obs, "
+        "cxxnet_tpu_torch.utils.diskio, cxxnet_tpu_torch.utils.profiler, "
+        "cxxnet_tpu_torch.utils.compile_cache, cxxnet_tpu_torch.integrity, "
+        "cxxnet_tpu_torch.integrity.plane, cxxnet_tpu_torch.tune\n"
         "from cxxnet_tpu_torch.layers import create_layer\n"
         "create_layer('torch'); create_layer('pairtest-conv-conv')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
@@ -97,10 +100,36 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
             "cxxnet_tpu_torch/wrapper.py", "cxxnet_tpu_torch/capi_shim.py",
             "cxxnet_tpu_torch/io/native.py",
             "cxxnet_tpu_torch/obs/registry.py",
-            "cxxnet_tpu_torch/obs/device.py"} <= names
+            "cxxnet_tpu_torch/obs/device.py",
+            "cxxnet_tpu_torch/utils/diskio.py",
+            "cxxnet_tpu_torch/utils/profiler.py",
+            "cxxnet_tpu_torch/utils/compile_cache.py",
+            "cxxnet_tpu_torch/integrity/fingerprint.py",
+            "cxxnet_tpu_torch/integrity/plane.py",
+            "cxxnet_tpu_torch/tune/controller.py",
+            "cxxnet_tpu_torch/tune/targets.py"} <= names
     bad = {f: sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert {f: b for f, b in bad.items() if b} == {}
+
+
+@pytest.mark.parametrize("mod", [
+    "utils/diskio.py", "utils/profiler.py", "utils/compile_cache.py",
+    "integrity/fingerprint.py", "integrity/plane.py", "tune/controller.py",
+    "tune/targets.py"])
+def test_ported_utilities_sit_at_the_jax_path_and_need_no_device(mod):
+    """Each module of the utilities, the integrity plane and the tuner
+    keeps its JAX counterpart's path, and importing it builds nothing
+    and touches no card (their device work starts inside a call)."""
+    assert os.path.exists(os.path.join(REPO, "cxxnet_tpu", mod))
+    path = os.path.join(REPO, "cxxnet_tpu_torch", mod)
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN)
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    top = {a.name.split(".")[0] for n in tree.body
+           if isinstance(n, ast.Import) for a in n.names}
+    assert "torch" not in top and "triton" not in top
 
 
 def test_host_sources_import_only_the_port():

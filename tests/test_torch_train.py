@@ -393,9 +393,10 @@ def test_cli_sigterm_snapshots_and_exits_clean(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
-    # the divergence guard is ported; the integrity plane's vote is not
+    # the divergence guard and the integrity plane are ported; the
+    # cross-process weight check is not
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        LearnTask().set_param("integrity_every", "1")
+        LearnTask().set_param("test_on_server", "1")
     with pytest.raises(ValueError, match="abort or rollback"):
         NetTrainer().set_param("divergence_policy", "retry")
     tr = NetTrainer()
