@@ -2,7 +2,8 @@
 
 Counterpart of ``cxxnet_tpu/cli.py`` for ``task=train``, ``finetune``,
 ``pred``, ``pred_raw``, ``extract``, ``summary``, ``serve``,
-``generate`` and ``export_quant``.  The conf (plus ``name=value``
+``generate``, ``export_quant``, ``serve_train``, ``loop_fleet`` and
+``data_service``.  The conf (plus ``name=value``
 overrides, applied after the file's entries) is parsed with the same
 grammar.
 
@@ -129,8 +130,41 @@ run (ROADMAP item A6).
 the decode pool's workers and window, under ``task=serve`` over the
 batcher's limit and window, with the bucket prewarm each tick.
 
-The tasks ``serve_train``, ``loop_fleet`` and ``data_service``, the
-serving fleet (``replicas >= 2``) and the elastic and cross-process
+``task=serve_train``: the closed loop (``loop/``).  The engine serves
+the newest valid round of ``model_dir`` as under ``task=serve``, with
+``POST /feedback`` appending labelled rows to the feedback log under
+``loop_dir`` (and, with ``capture_predict = 1``, every answered
+``/predict`` logging its rows and predictions); a thread beside the
+server runs the continuous loop: every ``loop_cycle_period_s`` it tails
+the log and, with at least ``loop_min_records`` new records (at most
+``loop_max_records`` a cycle), fine-tunes a fresh trainer loaded from
+the served checkpoint for ``loop_rounds_per_cycle`` passes, each batch
+padded with ``loop_replay_ratio`` rows of the ``data`` section, then
+gates it on the first ``eval`` section against the serving model's
+recorded metric (``publish_min_delta``, ``publish_metric``, the cohort
+gate ``publish_slice_floor``): a pass is written as the next round with
+``PUBLISHED.json`` and hot-reloaded, a reject rolls the trainer back.
+``loop_max_cycles = N`` stops fine-tuning after N trained cycles
+(serving goes on); ``feedback_retain_shards`` arms retention.  The tuner
+runs as under ``task=serve``.  ``task=loop_fleet``: one engine, feedback
+log and loop per ``tenant = <name>`` .. ``tenant = end`` section (each
+with its own ``model_dir``) behind one server that routes by the
+request's ``model``; one scheduler thread runs the tenants' cycles in
+turn and sheds them all while an ``alert=`` rule fires.  Both refuse a
+quantized model, ``replicas > 1`` and a conf with no ``eval`` section,
+as the JAX package does, and drain on SIGTERM/SIGINT.
+
+``task=data_service``: serves the conf's ``data`` section (decoded and
+augmented once) as ``CXD1`` batch streams on
+``data_service_host:data_service_port`` (``io/dataservice/``), with a
+``/healthz``, ``/statsz``, ``/metricsz`` sidecar on
+``data_service_http_port``, at most ``data_service_max_sessions``
+clients, a ``data_service_cache_mb`` block cache and a
+``data_service_window`` pipelining bound; the bound address goes to
+``data_service_ready_file``.  A trainer reads it with ``iter = service``
+and ``data_service_addr = host:port``.
+
+The serving fleet (``replicas >= 2``) and the elastic and cross-process
 planes of training (``elastic``, ``elastic_join``, ``test_on_server``)
 are later slices (ROADMAP.md) and raise ``NotImplementedError`` naming
 the item.
@@ -147,21 +181,15 @@ from typing import List, Optional
 
 from . import config as cfgmod
 
-_LATER = {
-    "serve_train": "queue A item 5 (the closed loop, task=serve_train)",
-    "loop_fleet": "queue A item 5 (the closed loop, task=loop_fleet)",
-    "data_service": "queue A item 5 (the data service)",
-}
 _TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "summary",
-          "serve", "generate", "export_quant")
+          "serve", "generate", "export_quant", "serve_train", "loop_fleet",
+          "data_service")
 # train keys of planes this slice does not port: refused when switched on
 _TRAIN_LATER = ("test_on_server", "elastic", "elastic_join")
 
 
 class LearnTask:
-    """The ``train``, ``finetune``, ``pred``, ``pred_raw``, ``extract``,
-    ``summary``, ``serve``, ``generate`` and ``export_quant`` tasks of
-    the JAX package's ``LearnTask``."""
+    """The tasks of the JAX package's ``LearnTask`` (``_TASKS``)."""
 
     def __init__(self) -> None:
         self.task = "train"
@@ -216,12 +244,44 @@ class LearnTask:
         self.quant_calib_batches = 0  # 0: the whole eval section
         self.quant_out = ""
         self.quant_report = ""
+        self.replicas = 1
+        # the closed loop: the loop_*/publish_*/feedback_* defaults are
+        # the one table task=loop_fleet's tenants read too
+        from .loop.tenant import TenantOptions
+
+        for key, default in TenantOptions.DEFAULTS.items():
+            setattr(self, key, default)
+        self.loop_dir = "loop"
+        self.loop_cycle_period_s = 2.0
+        self.loop_max_cycles = 0  # stop fine-tuning after N trained cycles
+        self.capture_predict = 0  # log /predict rows and predictions too
+        # keys inside 'tenant = <name>' .. 'tenant = end' belong to that
+        # tenant (task=loop_fleet), not to this task
+        self._in_tenant_section = False
+        # the data service (task=data_service)
+        self.data_service_host = "127.0.0.1"
+        self.data_service_port = 0  # 0 picks an ephemeral port
+        self.data_service_http_port = 0
+        self.data_service_max_sessions = 64
+        self.data_service_cache_mb = 256.0
+        self.data_service_window = 4
+        self.data_service_ready_file = ""
         self.name_pred = "pred.txt"
         self.extract_node_name = ""
         self.output_format = 1  # 1: txt rows (the default), 0: <f4 binary
         self.cfg: List[tuple] = []
 
     def set_param(self, name: str, val: str) -> None:
+        # a tenant section passes through untouched: its model_dir (or
+        # any key) must not clobber this task's; loop/tenant.py splits
+        # the sections out of the stream again
+        if name == "tenant":
+            self._in_tenant_section = val != "end"
+            self.cfg.append((name, val))
+            return
+        if self._in_tenant_section:
+            self.cfg.append((name, val))
+            return
         if val == "default":
             return
         if name == "task":
@@ -282,10 +342,10 @@ class LearnTask:
             self.drain_timeout_s = float(val)
         elif name == "watchdog_timeout_s":
             self.watchdog_timeout_s = float(val)
-        elif name == "replicas" and int(val) > 1:
-            raise NotImplementedError(
-                "replicas >= 2: the serving fleet is not ported yet "
-                "(ROADMAP.md queue A item 1, serving features)")
+        elif name == "replicas":
+            self.replicas = int(val)
+        elif name in self._LOOP_KEYS:
+            setattr(self, name, type(getattr(self, name))(val))
         elif name == "serve_reload_period":
             self.serve_reload_period = float(val)
         elif name == "reload_breaker_threshold":
@@ -326,6 +386,20 @@ class LearnTask:
             raise ValueError(f"wire must be binary or json, got {val!r}")
         self.cfg.append((name, val))
 
+    #: closed-loop and data-service keys, parsed to the type of their
+    #: default
+    _LOOP_KEYS = (
+        "loop_dir", "loop_rounds_per_cycle", "loop_replay_ratio",
+        "loop_min_records", "loop_max_records", "loop_cycle_period_s",
+        "loop_max_cycles", "publish_min_delta", "publish_metric",
+        "publish_slice_floor", "publish_slice_min_count",
+        "publish_source_field", "capture_predict", "feedback_page_bytes",
+        "feedback_rotate_bytes", "feedback_retain_shards",
+        "feedback_retain_bytes", "data_service_host", "data_service_port",
+        "data_service_http_port", "data_service_max_sessions",
+        "data_service_cache_mb", "data_service_window",
+        "data_service_ready_file")
+
     def run(self, argv: List[str]) -> int:
         if len(argv) < 1:
             print("Usage: <config> [name=val ...]")
@@ -334,13 +408,13 @@ class LearnTask:
             self.set_param(name, val)
         for name, val in cfgmod.parse_cli_overrides(argv[1:]):
             self.set_param(name, val)
-        if self.task in _LATER:
-            raise NotImplementedError(
-                f"task={self.task} is not ported yet (ROADMAP.md "
-                f"{_LATER[self.task]}); this package runs task="
-                + ", ".join(_TASKS))
         if self.task not in _TASKS:
             raise ValueError(f"unknown task {self.task!r}")
+        if self.replicas > 1 and self.task not in ("serve_train",
+                                                   "loop_fleet"):
+            raise NotImplementedError(
+                "replicas >= 2: the serving fleet is not ported yet "
+                "(ROADMAP.md queue A item 1, serving features)")
         from . import obs
         from .utils import faults
 
@@ -350,6 +424,12 @@ class LearnTask:
         obs.configure(self.cfg)
         if self.task == "serve":
             self.task_serve()
+        elif self.task == "serve_train":
+            self.task_serve_train()
+        elif self.task == "loop_fleet":
+            self.task_loop_fleet()
+        elif self.task == "data_service":
+            self.task_data_service()
         elif self.task in ("train", "finetune"):
             self.task_train()
         elif self.task in ("pred", "pred_raw"):
@@ -1028,15 +1108,40 @@ class LearnTask:
 
     def task_serve(self) -> None:
         """Run the online inference server until SIGTERM/SIGINT."""
-        from .serve import Engine
-        from .serve.server import serve_forever
-
         model_in = (None if self.name_model_in == "NULL"
                     else self.name_model_in)
-        engine = Engine(
-            cfg=self.cfg,
+        engine = self._engine(self.cfg,
+                              None if model_in else self.name_model_dir,
+                              model_in=model_in)
+
+        def _ready(httpd):
+            h = engine.healthz()
+            print(f"serving model round {h['round']} (fp {h['net_fp']}) on "
+                  f"{h['device']} at "
+                  f"http://{httpd.server_address[0]}:{httpd.server_port}",
+                  flush=True)
+
+        tuner = self._start_serve_controller(engine)
+        try:
+            self._serve_until_signal(engine, "serve", _ready, lambda: None)
+        finally:
+            if tuner is not None:
+                tuner.stop()
+            engine.close()
+        print("serve: shutdown complete", flush=True)
+
+    # ------------------------------------------------------------------
+    # the closed loop and the data service
+    def _engine(self, cfg, model_dir: Optional[str],
+                model_in: Optional[str] = None):
+        """A serving engine over ``model_in``, or the newest valid round
+        of ``model_dir``, under this task's serving keys."""
+        from .serve import Engine
+
+        return Engine(
+            cfg=cfg,
             model_in=model_in,
-            model_dir=None if model_in else self.name_model_dir,
+            model_dir=model_dir,
             max_batch_size=self.serve_max_batch,
             batch_timeout_ms=self.batch_timeout_ms,
             queue_limit=self.queue_limit,
@@ -1046,19 +1151,29 @@ class LearnTask:
             reload_breaker_cooldown_s=self.reload_breaker_cooldown_s,
             watchdog_timeout_s=self.watchdog_timeout_s,
         )
+
+    def _refuse_quantized(self, task: str, why: str) -> None:
+        if any(n == "quant" and v not in ("", "0", "off", "none")
+               for n, v in self.cfg):
+            raise ValueError(f"task={task} {why}")
+
+    def _serve_until_signal(self, engine, tag: str, on_ready, on_stop,
+                            **serve_kw) -> None:
+        """``serve_forever`` until SIGTERM/SIGINT: ``on_ready(httpd)``
+        once bound, ``on_stop()`` from the signal (it must not join
+        anything), then the drain."""
+        from .serve.server import serve_forever
+
         httpd_box = {}
 
         def _ready(httpd):
             httpd_box["httpd"] = httpd
-            h = engine.healthz()
-            print(f"serving model round {h['round']} (fp {h['net_fp']}) on "
-                  f"{h['device']} at "
-                  f"http://{httpd.server_address[0]}:{httpd.server_port}",
-                  flush=True)
+            on_ready(httpd)
 
         def _stop(signum, frame):
-            print(f"serve: shutdown requested, draining in-flight requests "
-                  f"(up to {self.drain_timeout_s:g}s)", flush=True)
+            print(f"{tag}: shutdown requested, draining (up to "
+                  f"{self.drain_timeout_s:g}s)", flush=True)
+            on_stop()
             h = httpd_box.get("httpd")
             if h is not None:
                 # shutdown() blocks until serve_forever returns: it must
@@ -1067,19 +1182,208 @@ class LearnTask:
 
         prev = {s: signal.signal(s, _stop)
                 for s in (signal.SIGTERM, signal.SIGINT)}
-        tuner = self._start_serve_controller(engine)
         try:
             serve_forever(engine, host=self.serve_host, port=self.serve_port,
                           reload_period_s=self.serve_reload_period,
                           drain_timeout_s=self.drain_timeout_s,
-                          verbose=not self.silent, ready_fn=_ready)
+                          verbose=not self.silent, ready_fn=_ready,
+                          **serve_kw)
+        finally:
+            for s, p in prev.items():
+                signal.signal(s, p)
+
+    def task_serve_train(self) -> None:
+        """``task=serve_train``: serve, collect feedback, fine-tune,
+        publish behind the eval gate (the module docstring)."""
+        from .loop import ContinuousLoop, FeedbackWriter
+
+        if self.replicas > 1:
+            raise ValueError(
+                "task=serve_train is single-replica (the fine-tune loop "
+                "rides beside one engine); run the fleet with task=serve "
+                "and a separate serve_train process if both are needed")
+        if not cfgmod.split_sections(self.cfg).find("eval"):
+            raise ValueError(
+                "task=serve_train needs an eval section — the publish "
+                "gate scores candidates on held-out data")
+        self._refuse_quantized(
+            "serve_train",
+            "cannot serve a quantized model: the fine-tune loop trains on "
+            "the served weights, and quantized trainers are "
+            "inference-only — serve the f32 checkpoints and run "
+            "task=export_quant offline")
+        # the data section feeds the replay rows, the first eval section
+        # the publish gate
+        self._create_iterators()
+        engine = self._engine(self.cfg, self.name_model_dir)
+        feedback = FeedbackWriter(os.path.join(self.loop_dir, "feedback"),
+                                  page_bytes=self.feedback_page_bytes,
+                                  rotate_bytes=self.feedback_rotate_bytes)
+        retention = None
+        if self.feedback_retain_shards >= 0:
+            from .loop.retention import RetentionOptions, Sweeper
+
+            retention = Sweeper(
+                feedback.dir,
+                RetentionOptions(self.feedback_retain_shards,
+                                 self.feedback_retain_bytes),
+                silent=bool(self.silent))
+        loop = ContinuousLoop(
+            engine, self.cfg, feedback_dir=feedback.dir,
+            base_iter=self.itr_train, eval_iter=self.itr_evals[0],
+            eval_name=self.eval_names[0] or "eval",
+            rounds_per_cycle=self.loop_rounds_per_cycle,
+            replay_ratio=self.loop_replay_ratio,
+            min_records=self.loop_min_records,
+            max_records_per_cycle=self.loop_max_records,
+            cycle_period_s=self.loop_cycle_period_s,
+            publish_min_delta=self.publish_min_delta,
+            publish_metric=self.publish_metric,
+            publish_slice_floor=(self.publish_slice_floor
+                                 if self.publish_slice_floor >= 0 else None),
+            publish_slice_min_count=self.publish_slice_min_count,
+            publish_source_field=(self.publish_source_field
+                                  if self.publish_source_field >= 0
+                                  else None),
+            feedback_writer=feedback, retention=retention,
+            silent=bool(self.silent))
+        loop_thread = threading.Thread(
+            target=loop.run, kwargs={"max_cycles": self.loop_max_cycles},
+            name="cxxnet-serve-train-loop", daemon=True)
+
+        def _ready(httpd):
+            h = engine.healthz()
+            print(f"serve_train: serving model round {h['round']} "
+                  f"(fp {h['net_fp']}) on {h['device']} at "
+                  f"http://{httpd.server_address[0]}:{httpd.server_port}; "
+                  f"feedback log at {feedback.dir}", flush=True)
+            loop_thread.start()
+
+        tuner = self._start_serve_controller(engine)
+        try:
+            self._serve_until_signal(
+                engine, "serve_train", _ready, loop.stop,
+                feedback=feedback,
+                capture_predict=bool(self.capture_predict))
         finally:
             if tuner is not None:
                 tuner.stop()
+            loop.stop()
+            if loop_thread.is_alive():
+                loop_thread.join(timeout=max(self.drain_timeout_s, 5.0))
+            engine.close()
+            feedback.close()
+            self._close_iterators()
+        print("serve_train: shutdown complete", flush=True)
+
+    def task_loop_fleet(self) -> None:
+        """``task=loop_fleet``: one engine, feedback log and loop per
+        tenant section behind one routed server (the module
+        docstring)."""
+        from .io.data import create_iterator
+        from .loop.tenant import TenantManager
+        from .tune import options_from_cfg
+
+        if self.replicas > 1:
+            raise ValueError(
+                "task=loop_fleet is single-replica per tenant engine; "
+                "front a replica fleet with task=serve separately")
+        self._refuse_quantized(
+            "loop_fleet", "cannot serve quantized models: the fine-tune "
+            "loops train on the served weights")
+        shared_cfg, tenant_secs = cfgmod.split_tenant_sections(self.cfg)
+        if not tenant_secs:
+            raise ValueError(
+                "task=loop_fleet needs at least one tenant section "
+                "(tenant = <name> .. tenant = end)")
+        if not cfgmod.split_sections(shared_cfg).find("eval"):
+            raise ValueError(
+                "task=loop_fleet needs an eval section — every "
+                "tenant's publish gate scores on held-out data")
+
+        def make_iters(tenant_cfg):
+            # a tenant's own iterators over the shared data and eval
+            # sections, its overrides (e.g. seed_data) applied last
+            tsplit = cfgmod.split_sections(tenant_cfg)
+            data = tsplit.find("data")
+            evals = tsplit.find("eval")
+            base = create_iterator(data[0].entries) if data else None
+            ev = create_iterator(evals[0].entries)
+            for it in (base, ev):
+                if it is None:
+                    continue
+                for n, v in tsplit.global_entries:
+                    it.set_param(n, v)
+                it.init()
+            return base, ev, evals[0].tag or "eval"
+
+        manager = TenantManager(
+            shared_cfg, tenant_secs, engine_factory=self._engine,
+            make_iters=make_iters, loop_dir=self.loop_dir,
+            period_s=self.loop_cycle_period_s,
+            # the arbiter reads the shared stream: a tune_* key inside a
+            # tenant section never retunes the shared controller
+            tune_opts=options_from_cfg(shared_cfg),
+            silent=bool(self.silent))
+
+        def _ready(httpd):
+            names = ", ".join(t.name for t in manager.tenants)
+            print(f"loop_fleet: serving {len(manager.tenants)} tenant(s) "
+                  f"[{names}] on "
+                  f"http://{httpd.server_address[0]}:{httpd.server_port}",
+                  flush=True)
+            manager.start()
+
+        try:
+            # the signal only asks the scheduler to stop: joining it
+            # there would stall the accept loop for up to a whole cycle
+            self._serve_until_signal(
+                manager.tenants[0].engine, "loop_fleet", _ready,
+                manager.request_stop,
+                capture_predict=bool(self.capture_predict),
+                router=manager.router())
+        finally:
+            manager.close()
+        print("loop_fleet: shutdown complete", flush=True)
+
+    def task_data_service(self) -> None:
+        """``task=data_service``: the conf's ``data`` section behind the
+        ``CXD1`` protocol until SIGTERM/SIGINT (the module docstring)."""
+        from .io.dataservice.server import DataServiceServer
+
+        split = cfgmod.split_sections(self.cfg)
+        data_secs = split.find("data")
+        if not data_secs:
+            raise ValueError(
+                "task=data_service needs a 'data = train ... iter = "
+                "end' section (the chain this server deals)")
+        if len(data_secs) > 1:
+            raise ValueError("task=data_service serves exactly one "
+                             "data section")
+        server = DataServiceServer(
+            data_secs[0].entries, split.global_entries,
+            host=self.data_service_host, port=self.data_service_port,
+            http_port=self.data_service_http_port,
+            max_sessions=self.data_service_max_sessions,
+            cache_bytes=int(self.data_service_cache_mb * (1 << 20)),
+            window=self.data_service_window,
+            ready_file=self.data_service_ready_file,
+            silent=bool(self.silent))
+
+        def _stop(signum, frame):
+            print("data_service: shutdown requested", flush=True)
+            # shutdown() joins the serve loops: never on their thread
+            threading.Thread(target=server.shutdown, daemon=True).start()
+
+        prev = {s: signal.signal(s, _stop)
+                for s in (signal.SIGTERM, signal.SIGINT)}
+        try:
+            server.serve_forever()
+        finally:
             for s, p in prev.items():
                 signal.signal(s, p)
-            engine.close()
-        print("serve: shutdown complete", flush=True)
+            server.close()
+        print("data_service: shutdown complete", flush=True)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

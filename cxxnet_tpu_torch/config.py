@@ -10,6 +10,8 @@ file plus CLI overrides.  Order is semantic:
   iterator chain.
 * ``netconfig = start`` .. ``netconfig = end`` delimits the layer graph;
   inside it, keys following a ``layer[...] = ...`` line bind to that layer.
+* ``tenant = <name>`` .. ``tenant = end`` blocks hold one tenant's keys
+  (``task=loop_fleet``; :func:`split_tenant_sections`).
 * everything else is a global default applied to every layer / updater /
   iterator.
 
@@ -223,3 +225,60 @@ def cfg_get(cfg: Sequence[ConfigEntry], name: str, default: str | None = None) -
         if n == name:
             out = v
     return out
+
+
+@dataclasses.dataclass
+class TenantSection:
+    """One ``tenant = <name>`` .. ``tenant = end`` block: the tenant's
+    ``model_dir``, feedback-log location and overrides of the shared
+    loop, publish and iterator keys (applied after the shared entries,
+    so the last entry wins)."""
+
+    name: str
+    entries: List[ConfigEntry]
+
+
+def split_tenant_sections(
+    cfg: Sequence[ConfigEntry],
+) -> Tuple[List[ConfigEntry], List[TenantSection]]:
+    """Take the ``tenant = <name>`` .. ``tenant = end`` blocks out of the
+    ordered stream: ``(remaining_entries, tenant_sections)``.  A tenant's
+    effective config is ``remaining + section.entries``
+    (``loop/tenant.py``); an iterator or netconfig section may not open
+    inside a tenant block.  The errors are the JAX package's."""
+    rest: List[ConfigEntry] = []
+    tenants: List[TenantSection] = []
+    cur: List[ConfigEntry] | None = None
+    cur_name = ""
+    seen = set()
+    for name, val in cfg:
+        if name == "tenant":
+            if val == "end":
+                if cur is None:
+                    raise ConfigError("'tenant = end' outside a tenant section")
+                tenants.append(TenantSection(cur_name, cur))
+                cur, cur_name = None, ""
+            else:
+                if cur is not None:
+                    raise ConfigError(
+                        f"'tenant = {val}' opens a new tenant section while "
+                        f"[tenant:{cur_name}] is missing 'tenant = end'")
+                if not val or val in seen:
+                    raise ConfigError(
+                        f"tenant name {val!r} is empty or duplicated")
+                seen.add(val)
+                cur, cur_name = [], val
+            continue
+        if cur is not None:
+            if name in ("data", "eval", "pred", "netconfig"):
+                raise ConfigError(
+                    f"'{name} = {val}' inside [tenant:{cur_name}]: tenants "
+                    "override the shared sections' keys, they do not open "
+                    "their own sections")
+            cur.append((name, val))
+        else:
+            rest.append((name, val))
+    if cur is not None:
+        raise ConfigError(
+            f"tenant section [tenant:{cur_name}] not closed by 'tenant = end'")
+    return rest, tenants

@@ -8,9 +8,10 @@ labels; ``num_batch_padd`` trailing rows of a batch are padding.  The
 ``iter =`` line configure the current top of the chain, which forwards
 them down.  The port builds ``synthetic``, ``text``, ``mnist``,
 ``imgbin``/``imgbinx`` and ``img`` (each as ``BatchAdapt(ParallelAugment(
-Augment(source)))``), ``csv`` (``BatchAdapt(CSV)``), ``libsvm``, and the
-wrappers ``threadbuffer``, ``membuffer`` and ``attachtxt``; ``service``
-(the data service) raises ``NotImplementedError``.
+Augment(source)))``), ``csv`` (``BatchAdapt(CSV)``), ``libsvm``, ``service``
+(blocks streamed from a ``task=data_service`` server,
+``io/dataservice/client.py``), and the wrappers ``threadbuffer``,
+``membuffer`` and ``attachtxt``.
 
 A batch may carry the CSR form of sparse rows (``sparse_row_ptr``,
 ``sparse_index``, ``sparse_value``; ``iter = libsvm`` fills them) and
@@ -155,11 +156,14 @@ def create_iterator(cfg: Sequence[ConfigEntry]) -> DataIter:
             elif val == "end":
                 continue
             elif val == "service":
-                raise NotImplementedError(
-                    f"iter={val} is not ported yet (ROADMAP.md item (h), "
-                    "the data service); the port reads iter=synthetic, "
-                    "text, mnist, imgbin, imgbinx, img, csv, libsvm, "
-                    "threadbuffer, membuffer and attachtxt")
+                if it is not None:
+                    raise ValueError(
+                        "service cannot chain over another iterator")
+                # the network base: blocks streamed from a
+                # task=data_service server (io/dataservice/)
+                from .dataservice.client import ServiceIterator
+
+                it = ServiceIterator()
             else:
                 raise ValueError(f"unknown iterator type {val!r}")
             continue

@@ -14,6 +14,7 @@ from .batcher import (  # noqa: F401
 from .cache import ShapeBucketCache, bucket_size  # noqa: F401
 from .engine import Engine, ModelLoadError  # noqa: F401
 from .metrics import ServingStats  # noqa: F401
+from .router import ModelRouter, UnknownModelError  # noqa: F401
 from .server import make_server, serve_forever  # noqa: F401
 from . import wire  # noqa: F401
 from .wire import WireError, WireRequest  # noqa: F401
@@ -28,6 +29,8 @@ __all__ = [
     "DeadlineError",
     "ClosedError",
     "ModelLoadError",
+    "ModelRouter",
+    "UnknownModelError",
     "bucket_size",
     "make_server",
     "serve_forever",

@@ -20,8 +20,26 @@ so a client keeps its connection alive across requests.  Endpoints:
 * ``GET  /alertz``   — the alert evaluator's rules and their live state
   as JSON (``alert=`` rules; ``obs/alerts.py``)
 * ``POST /reloadz``  — one breaker-gated hot-reload attempt →
-  ``{"ok", "swapped", "round", "breaker", "rid"}`` (any body is read and
-  ignored: the ``{"model": ...}`` body belongs to the fleet's router)
+  ``{"ok", "swapped", "round", "breaker", "rid"}`` (an empty body is
+  allowed; under a router a ``{"model": ...}`` body picks the engine)
+* ``POST /feedback`` — ``{"data": [[...], ...], "label": [...]}`` →
+  ``{"appended", "dropped", "seq": [first, last], "rid"}``: labelled
+  rows into the closed loop's feedback log (``loop/feedback_log.py``,
+  armed by ``task=serve_train`` and ``task=loop_fleet``; 404 when no
+  log is armed).  A failed append drops and counts the rows
+  (``loop_feedback_dropped_total``) and the request still succeeds.
+  ``/feedback`` stays JSON: a ``CXB1`` frame to it gets 400
+  ``wire_unsupported_route``.  With ``capture_predict = 1`` every
+  answered ``/predict`` (JSON or binary) also logs its rows with the
+  model's own predictions as labels, after the reply is written.
+
+A ``router`` (``router.ModelRouter``) arms per-model dispatch: the
+request's ``model`` field (JSON, or the ``CXB1`` frame's model) picks
+the engine and feedback log of ``/predict``, ``/extract``, ``/feedback``
+and ``/reloadz``; a model-less request takes the default route, an
+unknown one gets 404 with reason ``unknown_model`` and the list of
+models; ``/healthz`` gains ``models`` (each one's status, round, CRC,
+default flag) and ``/statsz`` the model names.
 
 Both data routes also take the binary wire (``wire.py``): a request with
 ``Content-Type: application/x-cxb`` carries a ``CXB1`` frame whose
@@ -33,13 +51,13 @@ frame's ``reason`` token, never a 500, and error bodies stay JSON.
 
 Errors map to JSON bodies: 400 malformed request, 404 unknown route,
 429 load shed, 503 shutting down, 504 deadline expired, 500 model
-failure.  ``/feedback`` belongs to the closed loop (``loop/``), a later
-slice (ROADMAP.md item (h)).
+failure.
 
 ``serve_forever(reload_period_s > 0)`` runs a poll thread beside the
 server: every period it calls ``Engine.try_reload`` (when the engine
 watches a ``model_dir``) and ``Engine.check_canary`` (under
-``integrity_probe = 1``), neither of which raises.
+``integrity_probe = 1``), neither of which raises, over every routed
+engine.
 
 Shutdown drains: after ``httpd.shutdown()`` stops the accept loop,
 in-flight requests get up to ``drain_timeout_s`` to finish writing their
@@ -59,10 +77,12 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..obs import alerts as obs_alerts
+from ..obs import events as obs_events
 from ..obs.registry import registry as obs_registry
 from . import wire
 from .batcher import ServeError
 from .engine import Engine
+from .router import UnknownModelError
 
 __all__ = ["make_server", "serve_forever"]
 
@@ -113,6 +133,9 @@ class _Handler(BaseHTTPRequestHandler):
     engine: Engine = None  # bound by make_server via subclassing
     inflight: _InflightGauge = None
     verbose = False
+    feedback = None  # FeedbackWriter when the closed loop is armed
+    capture_predict = False  # log /predict rows with their predictions
+    router = None  # ModelRouter: per-model dispatch when set
     rid_token = "srv"
     rid_counter = None  # itertools.count, bound by make_server
 
@@ -173,9 +196,15 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self) -> None:  # noqa: N802 - stdlib name
         with self.inflight:
             if self.path == "/healthz":
-                self._reply(200, self.engine.healthz())
+                h = self.engine.healthz()
+                if self.router is not None:
+                    h["models"] = self.router.healthz_models()
+                self._reply(200, h)
             elif self.path == "/statsz":
-                self._reply(200, self.engine.snapshot_stats())
+                st = self.engine.snapshot_stats()
+                if self.router is not None:
+                    st["models"] = self.router.models()
+                self._reply(200, st)
             elif self.path == "/metricsz":
                 self._reply_text(
                     200, obs_registry().render_prometheus(),
@@ -194,7 +223,7 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/reloadz":
             self._do_reload(rid)
             return
-        if self.path not in ("/predict", "/extract"):
+        if self.path not in ("/predict", "/extract", "/feedback"):
             self.close_connection = True
             self._reply(404, {"error": f"unknown route {self.path}",
                               "rid": rid})
@@ -206,24 +235,35 @@ class _Handler(BaseHTTPRequestHandler):
         obj = self._read_json(rid)
         if obj is None:
             return
-        self.engine.stats.record_wire("json")
+        routed = self._route(obj.get("model"), rid)
+        if routed is None:
+            return
+        engine, feedback = routed
+        if self.path != "/feedback":
+            engine.stats.record_wire("json")
         deadline = obj.get("deadline_ms")
         try:
-            if self.path == "/extract":
+            if self.path == "/feedback":
+                self._do_feedback(obj, rid, feedback)
+            elif self.path == "/extract":
                 node = obj.get("node")
                 if not node:
                     self._reply(400, {"error": "extract needs a node name",
                                       "rid": rid})
                     return
-                out = self.engine.extract(obj["data"], node,
-                                          deadline_ms=deadline)
+                out = engine.extract(obj["data"], node, deadline_ms=deadline)
                 self._reply(200, {"features": out.tolist(), "rid": rid})
             else:
                 kind = "scores" if obj.get("raw") else "predict"
-                out = self.engine.submit(obj["data"], kind=kind,
-                                         deadline_ms=deadline)
+                out = engine.submit(obj["data"], kind=kind,
+                                    deadline_ms=deadline)
                 key = "scores" if kind == "scores" else "pred"
                 self._reply(200, {key: np.asarray(out).tolist(), "rid": rid})
+                # capture after the reply: a page commit's fsyncs must
+                # never sit inside the client's latency
+                if (self.capture_predict and feedback is not None
+                        and kind == "predict"):
+                    self._capture(obj["data"], out, feedback)
         except ServeError as e:
             self._reply(e.http_status, {"error": str(e), "rid": rid})
         except (ValueError, TypeError) as e:
@@ -231,6 +271,20 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 - served as a 500
             self._reply(500, {"error": f"{type(e).__name__}: {e}",
                               "rid": rid})
+
+    def _route(self, model, rid: str):
+        """``(engine, feedback)`` for a request's ``model`` field: the
+        router's route when one is armed, else this server's; None after
+        replying 404 ``unknown_model``."""
+        if self.router is None:
+            return self.engine, self.feedback
+        try:
+            _name, engine, feedback = self.router.resolve(model)
+        except UnknownModelError as e:
+            self._reply(404, {"error": str(e), "reason": e.reason,
+                              "models": e.known, "rid": rid})
+            return None
+        return engine, feedback
 
     def _do_reload(self, rid: str) -> None:
         """``POST /reloadz``: one breaker-gated reload attempt.  A body
@@ -246,9 +300,19 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(400, {"error": "chunked or oversized body",
                               "rid": rid})
             return
-        if length > 0:
-            self.rfile.read(length)
+        body = self.rfile.read(length) if length > 0 else b""
         engine = self.engine
+        if self.router is not None and body:
+            # {"model": <name>} picks the tenant whose engine reloads
+            try:
+                req = json.loads(body.decode("utf-8"))
+            except (ValueError, UnicodeDecodeError):
+                req = {}
+            if isinstance(req, dict) and req.get("model"):
+                routed = self._route(req["model"], rid)
+                if routed is None:
+                    return
+                engine = routed[0]
         swapped = engine.try_reload()
         self._reply(200, {
             "ok": engine.stats.last_reload_ok is not False,
@@ -262,19 +326,28 @@ class _Handler(BaseHTTPRequestHandler):
         """The ``application/x-cxb`` data plane: decode the frame with
         ``np.frombuffer`` over the request body (the batcher's staging
         copy is the first copy), stream the raw f32 rows back."""
-        engine = self.engine
         # drain the body before any reject: unread bytes would desync
         # the next request on this kept-alive socket
         body = self._read_body(rid)
         if body is None:
             return
-        engine.stats.record_wire("binary", len(body))
+        self.engine.stats.record_wire("binary", len(body))
+        if self.path == "/feedback":
+            self._reply(400, {
+                "error": "binary wire covers /predict and /extract; "
+                         "/feedback stays JSON",
+                "reason": "wire_unsupported_route", "rid": rid})
+            return
         try:
             req = wire.decode_request(body)
         except wire.WireError as e:
             self._reply(400, {"error": str(e), "reason": e.reason,
                               "rid": rid})
             return
+        routed = self._route(req.model or None, rid)
+        if routed is None:
+            return
+        engine, feedback = routed
         if engine.wire != "binary":
             self._reply(400, {
                 "error": "binary wire is disabled (wire = json)",
@@ -313,6 +386,9 @@ class _Handler(BaseHTTPRequestHandler):
             self.wfile.write(head)
             self.wfile.write(memoryview(payload).cast("B"))
             engine.stats.record_wire_out(len(head) + payload.nbytes)
+            if (self.capture_predict and feedback is not None
+                    and kind == "predict"):
+                self._capture(req.data, out, feedback)
         except ServeError as e:
             self._reply(e.http_status, {"error": str(e), "rid": rid})
         except (ValueError, TypeError) as e:
@@ -322,19 +398,73 @@ class _Handler(BaseHTTPRequestHandler):
                               "rid": rid})
 
 
+    @staticmethod
+    def _feedback_arrays(obj: dict):
+        """A feedback body as ``(data (N, ...), label (N, L))``."""
+        data = np.ascontiguousarray(obj["data"], np.float32)
+        if data.ndim == 1:
+            data = data[None, :]
+        if "label" not in obj:
+            raise ValueError('feedback needs {"data": ..., "label": ...}')
+        label = np.atleast_1d(np.ascontiguousarray(obj["label"], np.float32))
+        if label.ndim == 1:
+            label = label[:, None]
+        if label.shape[0] != data.shape[0]:
+            raise ValueError(f"feedback: {data.shape[0]} data rows vs "
+                             f"{label.shape[0]} labels")
+        return data, label
+
+    def _do_feedback(self, obj: dict, rid: str, feedback) -> None:
+        if feedback is None:
+            self._reply(404, {
+                "error": "no feedback log armed (run task=serve_train "
+                         "or task=loop_fleet)",
+                "rid": rid})
+            return
+        data, label = self._feedback_arrays(obj)
+        n, first, last = feedback.append_batch_ids(data, label)
+        self._reply(200, {"appended": n, "dropped": data.shape[0] - n,
+                          "seq": [first, last] if first is not None else None,
+                          "rid": rid})
+
+    @staticmethod
+    def _capture(data, preds, feedback) -> None:
+        """``capture_predict``: a request's rows with the model's
+        predictions as labels, into the feedback log.  Never fails the
+        request; the log's drop-and-count rule applies."""
+        try:
+            arr = np.ascontiguousarray(data, np.float32)
+            if arr.ndim == 1:
+                arr = arr[None, :]
+            feedback.append_batch(
+                arr, np.asarray(preds, np.float32).reshape(arr.shape[0], -1))
+        except Exception as e:  # noqa: BLE001 - capture is best-effort
+            obs_events.log_exception_once("serve.capture", e,
+                                          kind="loop.append_error",
+                                          capture=True)
+
+
 class _ServeHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
     request_queue_size = 128  # the stdlib backlog of 5 refuses bursts
 
 
 def make_server(engine: Engine, host: str = "127.0.0.1", port: int = 0,
-                verbose: bool = False) -> ThreadingHTTPServer:
+                verbose: bool = False, feedback=None,
+                capture_predict: bool = False,
+                router=None) -> ThreadingHTTPServer:
     """Bind (but do not run) the HTTP server; ``port=0`` picks an
     ephemeral port — read it back from ``server.server_port``.  The
-    in-flight gauge hangs off the server as ``httpd.inflight``."""
+    in-flight gauge hangs off the server as ``httpd.inflight``.
+    ``feedback`` (a ``loop.FeedbackWriter``) arms ``/feedback``;
+    ``capture_predict`` also logs every answered ``/predict``;
+    ``router`` (a :class:`~.router.ModelRouter`) arms per-model
+    dispatch, with ``engine`` the identity and default route."""
     gauge = _InflightGauge()
     handler = type("BoundHandler", (_Handler,), {
         "engine": engine, "verbose": verbose, "inflight": gauge,
+        "feedback": feedback, "capture_predict": capture_predict,
+        "router": router,
         "rid_token": os.urandom(3).hex(),
         "rid_counter": itertools.count(1),
     })
@@ -345,7 +475,8 @@ def make_server(engine: Engine, host: str = "127.0.0.1", port: int = 0,
 
 def serve_forever(engine: Engine, host: str = "127.0.0.1", port: int = 0,
                   reload_period_s: float = 0.0, drain_timeout_s: float = 5.0,
-                  verbose: bool = False, ready_fn=None
+                  verbose: bool = False, ready_fn=None, feedback=None,
+                  capture_predict: bool = False, router=None
                   ) -> Tuple[ThreadingHTTPServer, Optional[threading.Thread]]:
     """Run the server until ``httpd.shutdown()`` (blocking), then drain.
 
@@ -353,20 +484,25 @@ def serve_forever(engine: Engine, host: str = "127.0.0.1", port: int = 0,
     ``engine.try_reload()`` (hot reload behind the breaker, when the
     engine watches a ``model_dir``) and ``engine.check_canary()`` (when
     ``integrity_probe`` is on) once a period; it stops with the server.
-    ``ready_fn(httpd)`` is called once the socket is bound.  Returns
-    ``(httpd, reloader)``, the poll thread or None."""
-    httpd = make_server(engine, host, port, verbose=verbose)
+    ``ready_fn(httpd)`` is called once the socket is bound.  The poll
+    covers every routed engine under a ``router``.  ``feedback``,
+    ``capture_predict`` and ``router`` go to :func:`make_server`.
+    Returns ``(httpd, reloader)``, the poll thread or None."""
+    httpd = make_server(engine, host, port, verbose=verbose,
+                        feedback=feedback, capture_predict=capture_predict,
+                        router=router)
     stop = threading.Event()
     reloader = None
-    poll = engine.model_dir is not None
-    probe = bool(engine.integrity_probe)
-    if reload_period_s > 0 and (poll or probe):
+    engines = router.engines() if router is not None else [engine]
+    polled = [e for e in engines if e.model_dir is not None]
+    probed = [e for e in engines if e.integrity_probe]
+    if reload_period_s > 0 and (polled or probed):
         def _poll():
             while not stop.wait(reload_period_s):
-                if poll:
-                    engine.try_reload()  # breaker-gated; never raises
-                if probe:
-                    engine.check_canary()  # latches /healthz; never raises
+                for e in polled:
+                    e.try_reload()  # breaker-gated; never raises
+                for e in probed:
+                    e.check_canary()  # latches /healthz; never raises
 
         reloader = threading.Thread(target=_poll, name="cxxnet-serve-reload",
                                     daemon=True)

@@ -5,7 +5,8 @@
 hill-climbing the runtime-adjustable knobs (decode-pool workers/window
 for train, micro-batcher size/timeout + speculative bucket prewarm for
 serve) toward the balance point where the host pipeline and the device
-step fully overlap.  The port's copy of ``cxxnet_tpu/tune/``: the
+step fully overlap; ``task=loop_fleet``'s arbiter climbs each tenant's
+fine-tune rounds.  The port's copy of ``cxxnet_tpu/tune/``: the
 same decisions, events and gauges under the same ``tune_*`` keys.
 """
 
@@ -17,7 +18,8 @@ from .controller import (
     options_from_cfg,
     set_effective,
 )
-from .targets import batcher_knobs, find_pipeline, pipeline_knobs
+from .targets import (batcher_knobs, find_pipeline, pipeline_knobs,
+                      tenant_round_knobs)
 
 __all__ = [
     "Knob",
@@ -29,4 +31,5 @@ __all__ = [
     "batcher_knobs",
     "find_pipeline",
     "pipeline_knobs",
+    "tenant_round_knobs",
 ]

@@ -3,7 +3,8 @@
 The controller itself is generic (``controller.py``); this module knows
 where the live knobs actually live — the decode pool's worker/window
 resize API (``io/pipeline.py``), the serve engine's micro-batcher
-setters (``serve/engine.py``) — and what sane bounds look like on the
+setters (``serve/engine.py``), the closed loop's fine-tune rounds
+(``loop/continuous.py``) — and what sane bounds look like on the
 current host.  Imports of io/serve stay inside the factory functions so
 ``cxxnet_tpu_torch.tune`` itself remains import-cheap for every layer.
 """
@@ -15,9 +16,8 @@ from typing import List
 
 from .controller import Knob
 
-# ``tenant_round_knobs`` of the JAX package turns the closed loop's
-# tenants (``loop/``), which the port has not yet (ROADMAP.md (h3)).
-__all__ = ["find_pipeline", "pipeline_knobs", "batcher_knobs"]
+__all__ = ["find_pipeline", "pipeline_knobs", "batcher_knobs",
+           "tenant_round_knobs"]
 
 
 def find_pipeline(it):
@@ -71,3 +71,19 @@ def batcher_knobs(engine) -> List[Knob]:
              lo=0.25, hi=50.0, integer=False),
     ]
 
+
+
+def tenant_round_knobs(loops, max_rounds: int = 8) -> List[Knob]:
+    """One knob per tenant loop: its fine-tune ``rounds_per_cycle``
+    (live setter — the next cycle reads the new value).  These are the
+    units the multi-tenant arbiter trades against the shared card
+    (``loop/tenant.py``): more rounds for a tenant whose extra passes
+    keep turning into published improvements, fewer for one whose
+    feedback has gone stale."""
+    return [
+        Knob(f"tenant_rounds:{loop.name or i}",
+             getter=(lambda lp=loop: lp.rounds_per_cycle),
+             setter=(lambda v, lp=loop: lp.set_rounds_per_cycle(v)),
+             lo=1, hi=max(2, int(max_rounds)))
+        for i, loop in enumerate(loops)
+    ]

@@ -10,6 +10,10 @@ can prove a checkpoint is intact and belongs to its net before loading
 it.  Writes are atomic (temp file, fsync, rename, directory fsync)
 and go through ``utils/diskio.py`` (site ``checkpoint.write``); the
 validation visits ``checkpoint.read``.
+The publish pointer (``PUBLISHED.json``) names the round the closed
+loop (``loop/``) last published, with its gate metric, the round before
+it and the feedback lineage it was fine-tuned on; its bytes and keys are
+the JAX package's, so either package reads the other's ``model_dir``.
 ``PreemptionHandler`` turns SIGTERM/SIGINT into a flag the train loop
 checks at each batch, so it can snapshot and exit cleanly.
 """
@@ -232,6 +236,59 @@ def find_latest_valid(model_dir: str, net_fp: Optional[str] = None,
             return round_, path
         if not silent:
             print(f"checkpoint {path} skipped: {reason}", flush=True)
+    return None
+
+
+# ----------------------------------------------------------------------
+# the publish pointer (the closed loop, loop/publisher.py)
+PUBLISH_POINTER = "PUBLISHED.json"
+
+
+def publish_path(model_dir: str, round_: int) -> str:
+    """The checkpoint path of a published round (``NNNN.model``, the
+    name the trainer and the serving engine's discovery use)."""
+    return os.path.join(model_dir, f"{round_:04d}.model")
+
+
+def pointer_path(model_dir: str) -> str:
+    return os.path.join(model_dir, PUBLISH_POINTER)
+
+
+def write_publish_pointer(model_dir: str, round_: int, path: str,
+                          net_fp: Optional[str] = None,
+                          metric: Optional[dict] = None,
+                          prev_round: Optional[int] = None,
+                          lineage: Optional[dict] = None) -> dict:
+    """Flip the publish pointer to ``round_``/``path`` atomically (site
+    ``checkpoint.write``).  ``metric`` is the gate's ``{"name", "value",
+    "cohorts"?}``, ``prev`` keeps the round served before, and
+    ``lineage`` the feedback-log id range (and record and cycle counts)
+    the published weights were fine-tuned on."""
+    ptr = {
+        "format": MANIFEST_FORMAT,
+        "round": int(round_),
+        "path": path,
+        "net_fingerprint": net_fp,
+        "metric": metric,
+        "prev": ({"round": int(prev_round)}
+                 if prev_round is not None else None),
+        "lineage": lineage,
+        "time": time.time(),
+    }
+    atomic_write_bytes(pointer_path(model_dir),
+                       (json.dumps(ptr, indent=1) + "\n").encode("utf-8"))
+    return ptr
+
+
+def read_publish_pointer(model_dir: str) -> Optional[dict]:
+    """The current publish pointer, or None if absent or unparseable."""
+    try:
+        with open(pointer_path(model_dir), "r", encoding="utf-8") as f:
+            ptr = json.load(f)
+        if isinstance(ptr, dict) and "round" in ptr and "path" in ptr:
+            return ptr
+    except (OSError, ValueError):
+        pass
     return None
 
 

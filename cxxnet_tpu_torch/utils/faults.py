@@ -12,7 +12,9 @@ The port's copy of these pieces of ``cxxnet_tpu/utils/faults.py``:
   ``libsvm.read``, ``libsvm.row``, ``text.read``), of its durable
   writers (``checkpoint.write``, ``checkpoint.read``, ``obs.append``,
   through ``utils/diskio.py``), of the server (``serve.batch``,
-  ``serve.reload``) and of the live train state (``device.state``); a
+  ``serve.reload``), of the live train state (``device.state``), of the
+  closed loop's feedback log (``loop.append``, ``loop.commit``) and of
+  the data service's client (``dataservice.rpc``); a
   spec naming any other site of the JAX package raises
   ``NotImplementedError``, so nothing is armed that would never fire;
 * ``BadRecordBudget``: skip-and-quarantine accounting with its
@@ -76,11 +78,9 @@ PORTED_SITES = ("imgbin.page", "imgbin.record", "pipeline.worker",
                 "prefetch.producer", "csv.read", "csv.row", "libsvm.read",
                 "libsvm.row", "text.read", "checkpoint.write",
                 "checkpoint.read", "obs.append", "serve.batch",
-                "serve.reload", "device.state")
-_SITE_ITEM = {"loop.append": "(h3), the closed loop",
-              "loop.commit": "(h3), the closed loop",
-              "dataservice.rpc": "(h4), the data service",
-              "serve.replica": "(i), the serving fleet",
+                "serve.reload", "device.state", "loop.append",
+                "loop.commit", "dataservice.rpc")
+_SITE_ITEM = {"serve.replica": "(i), the serving fleet",
               "mesh.replica": "(k), multi-device"}
 
 

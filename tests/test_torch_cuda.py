@@ -58,8 +58,12 @@ this process) bit-equal to ``trainer.predict`` on the card, and the
 ``torch.cuda.memory_stats()`` read at the same moment; the integrity
 digest computed on the card (f32 and bf16, whole and as a block whose
 word index passes 2^31) equal to the host oracle's, a bf16 net's
-shadow step bitwise clean on the card (cuDNN's settings restored), and
-a ``torch.profiler`` window around one K1 launch showing its symbol.
+shadow step bitwise clean on the card (cuDNN's settings restored), a
+``torch.profiler`` window around one K1 launch showing its symbol; one
+closed-loop cycle on the card (``loop.ContinuousLoop``) whose published,
+hot-reloaded round answers at bucket 32 bit-equal to ``trainer.predict``
+of the published checkpoint, and a step from a block the data service
+deals bit-equal to the step from the local chain's batch.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -1660,3 +1664,136 @@ def test_cuda_profiler_window_shows_the_kernel_symbol(cuda_device,
     kernels = [e["name"] for e in trace["traceEvents"]
                if e.get("cat") == "kernel"]
     assert any("maxpool_fwd_vec_kernel" in n for n in kernels), kernels
+
+
+class _Rows:
+    """A fixed (data, label) set in whole batches of ``bs`` (the closed
+    loop's replay and eval iterators)."""
+
+    def __init__(self, x, y, bs):
+        self.x, self.y, self.bs, self.pos, self.cur = x, y, bs, 0, None
+
+    def before_first(self):
+        self.pos = 0
+
+    def next(self):
+        from cxxnet_tpu_torch.io.data import DataBatch
+
+        if self.pos + self.bs > len(self.x):
+            return False
+        sl = slice(self.pos, self.pos + self.bs)
+        self.cur = DataBatch(data=self.x[sl], label=self.y[sl])
+        self.pos += self.bs
+        return True
+
+    def value(self):
+        return self.cur
+
+
+@pytest.mark.cuda
+def test_cuda_published_round_answers_equal_trainer_predict(cuda_device,
+                                                            tmp_path):
+    """One closed-loop cycle on the card: a bf16 net fine-tuned on
+    feedback, published and hot-reloaded; the engine's answers at bucket
+    32 bit-equal to ``trainer.predict`` of the published checkpoint."""
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as tcfg
+    from cxxnet_tpu_torch.loop import ContinuousLoop, FeedbackWriter
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import Engine
+    from cxxnet_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = tcfg.parse_pairs(SHADOW_NET + "metric = error\n")
+    mdir = str(tmp_path / "m")
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.init_model()
+    tr.save_model(ckpt.publish_path(mdir, 0), round_=0)
+    rs = np.random.RandomState(1)
+    x = rs.randn(96, 16, 16, 3).astype(np.float32)
+    y = rs.randint(0, 10, (96, 1)).astype(np.float32)
+    eng = Engine(cfg=cfg, model_dir=mdir, max_batch_size=32,
+                 batch_timeout_ms=0)
+    w = FeedbackWriter(str(tmp_path / "fb"))
+    try:
+        loop = ContinuousLoop(eng, cfg, feedback_dir=w.dir,
+                              base_iter=_Rows(x, y, 32),
+                              eval_iter=_Rows(x[:64], y[:64], 32),
+                              rounds_per_cycle=1, min_records=32,
+                              publish_min_delta=-1.0, feedback_writer=w)
+        w.append_batch(x[32:], y[32:])
+        k1 = maxpool.KERNEL.launches
+        assert loop.run_cycle() == "published" and eng.round == 1
+        assert maxpool.KERNEL.launches > k1
+        got = eng.scores(x[:32])
+        ref = NetTrainer()
+        ref.set_params(cfg)
+        ref.load_model(ckpt.publish_path(mdir, 1))
+        want = ref.predict_fn()(ref.params, ref.aux, x[:32], ()).cpu()
+        np.testing.assert_array_equal(got, want.numpy())
+    finally:
+        w.close()
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_cuda_service_fed_step_equals_a_local_one(cuda_device, tmp_path):
+    """A step on the card from a block the data service deals equals
+    the step from the local chain's batch, bit for bit."""
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as tcfg
+    from cxxnet_tpu_torch.io.augment import ANCHOR_KEY
+    from cxxnet_tpu_torch.io.data import create_iterator
+    from cxxnet_tpu_torch.io.dataservice import DataServiceServer
+    from cxxnet_tpu_torch.io.imgbin import BinPageWriter, encode_raw
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    rs = np.random.RandomState(3)
+    path = str(tmp_path / "d")
+    w = BinPageWriter(path + ".bin")
+    with open(path + ".lst", "w") as f:
+        for i in range(64):
+            w.push(encode_raw(rs.randint(0, 255, (18, 18, 3)).astype(
+                np.float32)))
+            f.write(f"{i}\t{i % 10}\tr{i}\n")
+    w.close()
+    sec = [("iter", "imgbin"), ("image_bin", path + ".bin"),
+           ("image_list", path + ".lst"), ("raw_pixels", "1"),
+           ("rand_crop", "1"), ("rand_mirror", "1"), ("silent", "1")]
+    glob = [("input_shape", "3,16,16"), ("batch_size", "32"),
+            ("silent", "1")]
+    srv = DataServiceServer(sec, glob, silent=True)
+    srv.start()
+    chains = [create_iterator(sec), create_iterator(
+        [("iter", "service"), ("data_service_addr", f"127.0.0.1:{srv.port}")])]
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    weights = []
+    try:
+        for it in chains:
+            for n, v in glob:
+                it.set_param(n, v)
+            it.init()
+            it.set_param(ANCHOR_KEY, "1")
+            it.before_first()
+            assert it.next()
+            tr = NetTrainer()
+            tr.set_params(tcfg.parse_pairs(SHADOW_NET))
+            tr.init_model()
+            k8 = update_step.KERNEL.launches
+            tr.update(it.value())
+            assert update_step.KERNEL.launches == k8 + 1
+            weights.append([tr.get_weight(n, t) for n in ("c1", "fc")
+                            for t in ("wmat", "bias")])
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+        for it in chains:
+            it.close()
+        srv.close()
+    for a, b in zip(*weights):
+        np.testing.assert_array_equal(a, b)

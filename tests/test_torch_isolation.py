@@ -2,7 +2,8 @@
 
 * ``import cxxnet_tpu_torch`` (with its serving package, its CLI, the
   language-model modules, the quantized ones, the layer zoo with its
-  ``torch:`` plugin and the text iterators) leaves ``jax``
+  ``torch:`` plugin, the text iterators, the closed loop and the data
+  service) leaves ``jax``
   and ``cxxnet_tpu`` out of ``sys.modules``.  Checked in a subprocess,
   because this test process imports jax in ``conftest.py``.
 * No file of the port, nor ``chip_smoke.py``, imports either by name.
@@ -53,7 +54,11 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "cxxnet_tpu_torch.io.native, cxxnet_tpu_torch.obs, "
         "cxxnet_tpu_torch.utils.diskio, cxxnet_tpu_torch.utils.profiler, "
         "cxxnet_tpu_torch.utils.compile_cache, cxxnet_tpu_torch.integrity, "
-        "cxxnet_tpu_torch.integrity.plane, cxxnet_tpu_torch.tune\n"
+        "cxxnet_tpu_torch.integrity.plane, cxxnet_tpu_torch.tune, "
+        "cxxnet_tpu_torch.loop, cxxnet_tpu_torch.loop.tenant, "
+        "cxxnet_tpu_torch.loop.retention, cxxnet_tpu_torch.serve.router, "
+        "cxxnet_tpu_torch.io.dataservice, "
+        "cxxnet_tpu_torch.io.dataservice.client\n"
         "from cxxnet_tpu_torch.layers import create_layer\n"
         "create_layer('torch'); create_layer('pairtest-conv-conv')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
@@ -107,7 +112,8 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
             "cxxnet_tpu_torch/integrity/fingerprint.py",
             "cxxnet_tpu_torch/integrity/plane.py",
             "cxxnet_tpu_torch/tune/controller.py",
-            "cxxnet_tpu_torch/tune/targets.py"} <= names
+            "cxxnet_tpu_torch/tune/targets.py",
+            *(f"cxxnet_tpu_torch/{m}" for m in _LOOP_AND_SERVICE)} <= names
     bad = {f: sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert {f: b for f, b in bad.items() if b} == {}
@@ -130,6 +136,33 @@ def test_ported_utilities_sit_at_the_jax_path_and_need_no_device(mod):
     top = {a.name.split(".")[0] for n in tree.body
            if isinstance(n, ast.Import) for a in n.names}
     assert "torch" not in top and "triton" not in top
+
+
+_LOOP_AND_SERVICE = (
+    "loop/__init__.py", "loop/feedback_log.py", "loop/publisher.py",
+    "loop/retention.py", "loop/continuous.py", "loop/tenant.py",
+    "serve/router.py", "io/dataservice/__init__.py",
+    "io/dataservice/wire.py", "io/dataservice/cache.py",
+    "io/dataservice/server.py", "io/dataservice/client.py")
+
+
+@pytest.mark.parametrize("mod", _LOOP_AND_SERVICE)
+def test_loop_and_service_modules_sit_at_the_jax_path(mod):
+    """Each module of the closed loop and the data service keeps its JAX
+    counterpart's path, imports neither JAX nor the JAX package (not
+    even its JAX-free modules: it keeps its own copy), and imports no
+    torch at module level (host code; the card is reached through the
+    trainer and the engine)."""
+    assert os.path.exists(os.path.join(REPO, "cxxnet_tpu", mod))
+    path = os.path.join(REPO, "cxxnet_tpu_torch", mod)
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    top = {a.name.split(".")[0] for n in tree.body
+           if isinstance(n, ast.Import) for a in n.names}
+    top |= {n.module.split(".")[0] for n in tree.body
+            if isinstance(n, ast.ImportFrom) and n.level == 0}
+    assert "torch" not in top
 
 
 def test_host_sources_import_only_the_port():

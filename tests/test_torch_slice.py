@@ -202,12 +202,15 @@ def test_cli_serves_and_drains_on_sigterm(jax_ckpt, tmp_path):
 
 
 def test_cli_refuses_tasks_of_later_slices(tmp_path):
+    """The serving fleet is a later slice; the closed loop's tasks run
+    and refuse what the JAX package refuses."""
     from cxxnet_tpu_torch.cli import LearnTask
 
     conf = tmp_path / "gn64.conf"
     conf.write_text(CONF)
-    for task in ("serve_train", "loop_fleet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-            LearnTask().run([str(conf), f"task={task}"])
+    with pytest.raises(ValueError, match="single-replica"):
+        LearnTask().run([str(conf), "task=serve_train", "replicas=2"])
+    with pytest.raises(ValueError, match="at least one tenant section"):
+        LearnTask().run([str(conf), "task=loop_fleet"])
     with pytest.raises(NotImplementedError, match="fleet"):
         LearnTask().run([str(conf), "task=serve", "replicas=2"])

@@ -262,8 +262,10 @@ batch_size = 3
         np.testing.assert_array_equal(tb[0].extra_data[0][2], [1, -2])
     with pytest.raises(ValueError, match="must specify input of membuffer"):
         tdata.create_iterator([("iter", "membuffer")])
-    with pytest.raises(NotImplementedError, match="iter=service"):
-        tdata.create_iterator([("iter", "service")])
+    with pytest.raises(ValueError, match="data_service_addr"):
+        tdata.create_iterator([("iter", "service")]).init()
+    with pytest.raises(ValueError, match="service cannot chain"):
+        tdata.create_iterator([("iter", "synthetic"), ("iter", "service")])
 
 
 @pytest.mark.parametrize("site,section", [

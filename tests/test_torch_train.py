@@ -406,6 +406,7 @@ def test_train_refuses_what_is_not_ported(tmp_path):
     conf = tmp_path / "t.conf"
     conf.write_text(TRAIN_CONF.replace("iter = synthetic", "iter = service",
                                        1))
-    with pytest.raises(NotImplementedError, match="iter=service"):
+    # the data service is ported: a service section needs its address
+    with pytest.raises(ValueError, match="data_service_addr"):
         LearnTask().run([str(conf), "task=train",
                          f"model_dir={tmp_path / 'm'}"])
