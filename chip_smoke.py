@@ -485,13 +485,72 @@ Phases; any failure ends the run with a non-zero exit and no result:
    K1-K6 and K8 on the main paths.  Printed: img/s of the training
    rounds and of one epoch read alone (service misses, hits, local
    chain).  A ``closed_loop`` JSON line.
+26. The serving fleet and branch-embed fusion (run before phase 21's
+   closing lines), over one seeded GoogLeNet (googlenet.conf, full
+   width, bf16) saved as round 1; the smoke's allocator cache is
+   emptied before each fleet starts.  A replica's launch counts live in
+   its own process, which exports them in its ``/metricsz``
+   (``kernel_launches_total{kernel,name}``, by C entry); the smoke
+   reads every replica's around each checked frame and around each
+   run of traffic.  Each frame must launch one forward's K1 13, K4 2,
+   K6 9 (and on the int8 canary K7 11), all on the main C entries, in
+   one replica, and answer bit-equal, at the same bucket, to an
+   in-process ``Engine`` on the same checkpoint (its own counts held to
+   the same); each replica's launches under traffic must be a whole
+   number (>= 1) of such forwards and nothing else:
+26a. ``python -m cxxnet_tpu_torch googlenet.conf task=serve replicas=3
+   serve_reload_period=1`` in a process of its own: its start to
+   ``fleet: serving 3/3``; ``CXB1`` frames of 1, 8 and 32 rows to the
+   router and to each replica, the fleet idle, each one forward in one
+   replica and bit-equal to the in-process engine; four clients' JSON (1-4 rows) and ``CXB1`` (1-32
+   rows) ``/predict`` requests, ``priority`` interactive and batch, for
+   ``FLEET_TRAFFIC_S``; replica 1 SIGKILLed (its pid from ``/statsz``)
+   ``FLEET_KILL_AT_S`` in (its launches read just before): ``/healthz``
+   must degrade, the replica restart and probe healthy and ``/healthz``
+   return to ``ok`` (all read from the front door's ``/statsz`` and
+   ``/healthz``, sampled every 0.1 s); then a
+   perturbed round 2 written under the traffic: every replica on round
+   2, reached one at a time in rotation order (``/statsz`` sampled
+   every 0.1 s); every answer a 200 or an admission 429; the buckets
+   again at round 2 against an engine on round 2; rows/s through the
+   router against replica 0 directly, in turns, and the router's added
+   latency at bucket 1 over ``FLEET_PAIRS`` pairs (host clock); each
+   replica's caching allocator from its ``/metricsz``.  SIGTERM must end
+   the fleet with exit 0.
+26b. Round 1 again in a second ``model_dir``, its classifier centred
+   (``_centre_classifier``: a random net's mean features alone set every
+   image's class); ``task=export_quant`` (ungated) writes its
+   ``.quant.model``; ``replicas=2 canary=int8
+   canary_replicas=1``: the canary's buckets bit-equal to an in-process
+   int8 engine, the baseline's to a bf16 one on the same checkpoint; JSON traffic of
+   ``CANARY_ROWS`` rows a request, every request fresh seeded rows (so
+   every compared row a distinct image), until the controller decides
+   (the classes the answers predict counted): promoted at or above
+   ``canary_min_agreement``,
+   rolled back below, with ``PUBLISHED.json`` naming the canary's
+   artifact or the baseline's model (a rolled-back canary relaunched as
+   a serving member); the agreement and the latency ratio.
+26c. GoogLeNet's b128 bf16 forward with ``conv_branch_embed`` 0 and 1
+   (nine fused groups): K1 13, K4 2, K6 9 a forward both ways, the
+   probabilities within ``EMBED_PROB_ATOL``, the features before the
+   classifier within ``BF16_FEAT_REL`` of their largest and the logits
+   the classifier makes of them within ``BF16_LOGIT_REL``, the two timed
+   in turns (device time); two b128 steps under each from round 1
+   (dropout off): each step K1-K6 and K8 on their main paths, the
+   losses within ``EMBED_LOSS_REL``, each tensor's update at cosine >=
+   ``UPDATE_COS``, the median >= ``UPDATE_COS_MEDIAN``.  A ``fleet``
+   JSON line.
    Then a ``phase_s`` JSON line: the seconds of every phase.
 21. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
    forward kernels; the LM training run for K9 and K10, with the
    windowed generation run's; the int8 serving run for K7; beside them
    phase 25's, ``launches_closed_loop`` (25a's two runs and 25b's) and
-   ``launches_data_service`` (25c's service-fed run) — max error,
+   ``launches_data_service`` (25c's service-fed run), and phase 26's,
+   ``launches_fleet`` (26a's and 26b's replicas, from their own
+   ``/metricsz``: the checked frames and the traffic),
+   ``launches_fleet_reference`` (the in-process engines those frames
+   were held against) and ``launches_branch_embed`` (26c) — max error,
    and the times of one training step's launches summed: GoogLeNet b128
    bf16, or the LM step's 4 launches of K9 and of K10, or K7's 11
    launches of one quantized b128 forward; K6 and K7 also the mma.sync
@@ -574,6 +633,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -2339,13 +2400,14 @@ def quant_phase(tmp: str, path: str, f32_answers):
 
 def kernels_line(rows, serve_launches, train_launches, flash_rows,
                  lm_launches, gen_launches, int8_rows, quant_launches,
-                 loop_out):
+                 loop_out, fleet_out):
     """Per kernel: the launches of its main path (GoogLeNet training for
     K1-K8, with the serving run's for the forward kernels; the LM
     training run for K9 and K10, with the windowed generation run's; the
     int8 serving run for K7; beside them phase 25's: the closed loop's
     two ``serve_train`` runs and its ``loop_fleet`` run summed, and the
-    service-fed training run), the max error over every check, and one
+    service-fed training run; phase 26's: the in-process engines of 26a
+    and 26b, and 26c), the max error over every check, and one
     training step's launches' times summed (GoogLeNet b128 bf16; the SGD
     kernel's f32 row covers all its launches; the LM step's 4 launches of
     K9 and of K10), or for K7 one b128 bf16 forward's 11 launches."""
@@ -2433,6 +2495,16 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
                                           for r in loop_runs)
         row["launches_data_service"] = loop_out["data_service"][
             "launches"].get(row["name"], 0)
+        # phase 26: the replicas' own launches (their /metricsz), the
+        # in-process engines their frames were held against, and 26c's
+        # forwards and steps
+        for col, src in (("launches_fleet", "fleet"),
+                         ("launches_fleet_reference", "reference")):
+            row[col] = sum(fleet_out[p]["launches"][src].get(row["name"], 0)
+                           for p in ("serve", "canary"))
+        row["launches_branch_embed"] = sum(
+            d.get(row["name"], 0)
+            for d in fleet_out["branch_embed"]["launches"].values())
     return {"kernels": out}
 
 
@@ -8468,6 +8540,1035 @@ def closed_loop_phase(card):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 26: the serving fleet and branch-embed fusion
+
+FLEET_REPLICAS = 3
+FLEET_CLIENTS = 4
+FLEET_JSON_ROWS = (1, 2, 4)  # JSON /predict rows (the router re-encodes)
+FLEET_WIRE_ROWS = (1, 7, 16, 32)  # CXB1 /predict rows, relayed opaquely
+FLEET_TRAFFIC_S = 20.0  # the clients' run before round 2 is written
+FLEET_KILL_AT_S = 5.0  # SIGKILL of replica 1, this far into the traffic
+FLEET_CHECK_ROWS = (1, 8, 32)  # buckets held bit for bit, quiet fleet
+FLEET_START_S = 180.0  # the fleet must serve k/k within this
+FLEET_RECOVER_S = 120.0  # a killed replica must be healthy within this
+FLEET_ROLLOUT_S = 120.0  # round 2 must reach every replica within this
+FLEET_KEYS = ("silent=1", "fleet_probe_period_s=0.25",
+              "fleet_probe_timeout_s=5", "fleet_restart_backoff_s=0.5",
+              f"fleet_start_timeout_s={FLEET_START_S:g}",
+              "batch_timeout_ms=2")
+FLEET_DEV = "gpu"  # the fleets' (and so their replicas') dev: the card
+FLEET_PAIRS = 40  # router vs direct bucket-1 pairs (host clock)
+FLEET_RATE_S = 1.5  # each turn of the rows/s comparison
+FLEET_RATE_ROWS = 32  # CXB1 frame rows of the rows/s comparison
+FLEET_PERTURB = 0.01  # round 2: each weight + 0.01 x its std x N(0, 1)
+CANARY_KEYS = ("canary=int8", "canary_replicas=1", "canary_slice=0.1",
+               "canary_sample=1.0", "canary_min_requests=32",
+               "canary_min_agreement=0.99", "canary_decision_period_s=0.5")
+CANARY_ROWS = 4  # JSON rows a canary-phase request
+CANARY_CENTRE_ROWS = 64  # rows whose mean features leave the classifier
+CANARY_DECIDE_S = 120.0
+# 26c: one bf16 path against another; the limits of bf16 against f32
+# (BF16_FEAT_REL, BF16_LOGIT_REL, UPDATE_COS) hold here too.  The
+# other two were set from two runs on
+# the card (PERF.md): the softmax is saturated (max |diff| 1.19e-7, the
+# f32 ulp at 1), and the worst step's loss differed by 1.18e-3
+EMBED_PROB_ATOL = 1e-5  # the b128 forward's probabilities, fused vs plain
+EMBED_LOSS_REL = 4e-3  # each step's loss, fused vs plain
+EMBED_STEPS = 2
+
+
+def _fleet_proc(conf, tmp, name, *keys):
+    """``python -m cxxnet_tpu_torch <conf> task=serve`` with ``keys`` in a
+    process of its own (its output in ``<tmp>/<name>.log``); returns
+    ``(proc, front-door port, seconds to "fleet: serving k/k", log)``."""
+    from cxxnet_tpu_torch.serve.fleet import free_port
+
+    port = free_port()
+    logf = os.path.join(tmp, f"{name}.log")
+    n = next(int(k.split("=", 1)[1]) for k in keys
+             if k.startswith("replicas="))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    with open(logf, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cxxnet_tpu_torch", conf, "task=serve",
+             f"dev={FLEET_DEV}", f"serve_port={port}", *FLEET_KEYS, *keys],
+            cwd=tmp, env=env, stdout=out, stderr=subprocess.STDOUT)
+    want = f"fleet: serving {n}/{n} replica(s)"
+    while True:
+        with open(logf) as f:
+            text = f.read()
+        if want in text:
+            return proc, port, time.perf_counter() - t0, logf
+        if proc.poll() is not None or time.perf_counter() - t0 > \
+                FLEET_START_S + 30:
+            _stop_fleet(proc, logf, "start", quiet=True)
+            raise SmokeError(f"fleet {name}: no '{want}' (exit "
+                             f"{proc.poll()}): {text[-3000:]}; "
+                             f"{_fleet_logs(logf)}")
+        time.sleep(0.2)
+
+
+def _fleet_logs(logf):
+    """The tails of the fleet's replica logs (``<model_dir>/fleet_logs``
+    beside the fleet's own), for a failure's message."""
+    import glob
+
+    tails = []
+    for f in sorted(glob.glob(os.path.join(os.path.dirname(logf),
+                                           "models_*", "fleet_logs",
+                                           "*.log"))):
+        with open(f, errors="replace") as fh:
+            tails.append(f"{os.path.basename(f)}: {fh.read()[-1500:]}")
+    return " | ".join(tails)
+
+
+def _stop_fleet(proc, logf, tag, quiet=False):
+    """SIGTERM the fleet, which stops its replicas; must exit 0 with
+    ``fleet: shutdown complete`` (unless ``quiet``: a failure is already
+    on its way)."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise SmokeError(f"fleet {tag}: no exit 60 s after SIGTERM")
+    with open(logf) as f:
+        text = f.read()
+    if quiet:
+        return
+    if proc.returncode != 0 or "fleet: shutdown complete" not in text:
+        raise SmokeError(f"fleet {tag}: exit {proc.returncode}: "
+                         f"{text[-3000:]}")
+
+
+def _statsz(port):
+    return json.loads(_get_text(port, "/statsz")[0])
+
+
+def _healthz(port):
+    return json.loads(_get_text(port, "/healthz")[0])
+
+
+def _wire_scores_at(port, rows):
+    """One ``CXB1`` scores frame of ``rows`` on a fresh connection:
+    the reply's f32 rows."""
+    import http.client
+
+    from cxxnet_tpu_torch.serve import wire
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        st, raw = _post_on(conn, "/predict", bytes(wire.encode_request(
+            rows, kind="scores")), wire.CONTENT_TYPE)
+    finally:
+        conn.close()
+    if st != 200:
+        raise SmokeError(f"fleet: a CXB1 frame to port {port} got {st} "
+                         f"{raw[:200]!r}")
+    return wire.decode_response(raw)[2]
+
+
+def _engine_counted(eng, x, per, tag):
+    """``eng.submit(x, kind="scores")`` with every launch counted: the
+    one forward must launch ``per`` on the main paths and nothing else.
+    Returns the scores and the launches."""
+    import numpy as np
+
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    before = {k.name: k.launches for k in KERNELS}
+    paths = _by_symbol()
+    out = np.asarray(eng.submit(x, kind="scores"))
+    got = {k.name: k.launches - before[k.name] for k in KERNELS}
+    want = {**{k.name: 0 for k in KERNELS}, **per}
+    if got != want or _paths_since(paths) != _main_paths(per):
+        raise SmokeError(f"{tag}: one forward launched {got}, by C entry "
+                         f"{_paths_since(paths)}; expected {want}")
+    return out, {k: v for k, v in got.items() if v}
+
+
+def _replica_launches(port):
+    """A replica's launches by kernel and C entry since its process
+    began, from its own ``/metricsz`` (``kernel_launches_total``)."""
+    out = {}
+    for ln in _get_text(port, "/metricsz")[0].splitlines():
+        if ln.startswith("kernel_launches_total{"):
+            labels = dict(re.findall(r'(\w+)="([^"]*)"',
+                                     ln[:ln.index("}")]))
+            out.setdefault(labels["kernel"], {})[labels["name"]] = int(
+                float(ln.split()[-1]))
+    return out
+
+
+def _launch_delta(after, before):
+    """``after`` less ``before``, by kernel and C entry, zeros left out."""
+    out = {}
+    for k, syms in after.items():
+        d = {s: n - before.get(k, {}).get(s, 0) for s, n in syms.items()}
+        if any(d.values()):
+            out[k] = {s: n for s, n in d.items() if n}
+    return out
+
+
+def _launch_sum(a, b):
+    """Two launch readings by kernel and C entry, added."""
+    out = {k: dict(v) for k, v in a.items()}
+    for k, syms in b.items():
+        for s, n in syms.items():
+            out.setdefault(k, {})[s] = out.get(k, {}).get(s, 0) + n
+    return out
+
+
+def _whole_forwards(tag, delta, per, partial=False):
+    """How many forwards (at least one) a replica's launches ``delta``
+    are: every kernel of ``per`` on its main C entry at ``per[k]`` times
+    one count, and nothing else launched; raises otherwise.  With
+    ``partial`` (a reading taken under traffic) the last forward may be
+    cut short, and the whole ones are counted."""
+    want = {k: next(iter(v)) for k, v in _main_paths(per).items() if v}
+    ratio = {delta.get(k, {}).get(s, 0) / per[k] for k, s in want.items()}
+    f = min(ratio)
+    whole = (max(ratio) - f < 1 if partial
+             else len(ratio) == 1 and f.is_integer())
+    if (not whole or f < 1 or set(delta) != set(want)
+            or any(set(delta[k]) != {s} for k, s in want.items())):
+        raise SmokeError(f"{tag}: the replica launched {delta}: not a "
+                         f"whole number of forwards of {_main_paths(per)}")
+    return int(f)
+
+
+def _quiet_launches(reps, tag):
+    """Each replica's launches (``reps``: name -> port) once two
+    readings 0.2 s apart agree: no forward in flight."""
+    prev, t0 = None, time.perf_counter()
+    while True:
+        now = {r: _replica_launches(p) for r, p in reps.items()}
+        if now == prev:
+            return now
+        if time.perf_counter() - t0 > 30:
+            raise SmokeError(f"{tag}: the replicas' launches still moving "
+                             f"30 s after the traffic stopped: {now}")
+        prev = now
+        time.sleep(0.2)
+
+
+def _add_launches(total, delta):
+    """Add a reading by kernel and C entry into ``total`` by kernel."""
+    for k, syms in delta.items():
+        total[k] = total.get(k, 0) + sum(syms.values())
+
+
+def _hold_buckets(tag, ports, eng, side, per, seed, launches, replicas):
+    """At each of ``FLEET_CHECK_ROWS``: a ``CXB1`` scores frame of that
+    many rows to every port in ``ports`` (the router or a replica, one
+    at a time, the fleet otherwise idle: one batch at that bucket)
+    bit-equal to the in-process engine's forward of the same rows (its
+    launches counted into ``launches["reference"]``).  Each frame must
+    launch one forward's kernels on their main C entries in one of
+    ``replicas`` (name -> port: every replica of the fleet), read from
+    the replicas' own ``/metricsz`` before and after it (in the one it
+    was sent to, where that is a replica), into ``launches["fleet"]``."""
+    import numpy as np
+
+    for n in FLEET_CHECK_ROWS:
+        x = _rows(n, side, seed + n).reshape(n, side, side, 3)
+        ref, got = _engine_counted(eng, x, per, tag)
+        for k, v in got.items():
+            launches["reference"][k] = launches["reference"].get(k, 0) + v
+        for name, port in ports.items():
+            before = {r: _replica_launches(p) for r, p in replicas.items()}
+            ans = _wire_scores_at(port, x)
+            moved = {r: d for r, p in replicas.items()
+                     if (d := _launch_delta(_replica_launches(p), before[r]))}
+            where = f"{tag}: bucket {n} to {name}"
+            if len(moved) != 1 or (name in replicas and name not in moved) \
+                    or _whole_forwards(where, *moved.values(), per) != 1:
+                raise SmokeError(f"{where} launched {moved} in the "
+                                 f"replicas: not one forward in one replica")
+            _add_launches(launches["fleet"], *moved.values())
+            ref32 = ref.astype(np.float32)
+            if ans.shape != ref32.shape:
+                raise SmokeError(f"{where}: shape {ans.shape}, expected "
+                                 f"{ref32.shape}")
+            if not np.array_equal(ans.view(np.uint32), ref32.view(np.uint32)):
+                raise SmokeError(
+                    f"{where} is not bit-equal to the in-process engine "
+                    f"(max |diff| {float(np.abs(ans - ref32).max()):.3g})")
+    log(f"{tag}: buckets {FLEET_CHECK_ROWS} from {sorted(ports)} bit-equal "
+        f"to the in-process engine, each one forward on the main paths in "
+        f"one replica (its /metricsz)")
+
+
+_EIGHTHS = [repr(k / 8) for k in range(-8, 9)]
+_PIXELS = [f"[{a},{b},{c}]" for a in _EIGHTHS for b in _EIGHTHS
+           for c in _EIGHTHS]
+
+
+def _json_rows(n, side, seed, prio):
+    """A JSON ``/predict`` body of ``_rows(n, side, seed)`` as [n][side]
+    [side][3] lists, the text of each pixel taken from a table of the
+    17^3 pixels there are (``json.dumps`` of the lists takes ~0.5 s a
+    4-row body; this ~50 ms)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    k = rng.randint(-8, 9, size=(n, side * side * 3)).reshape(
+        n, side, side, 3) + 8
+    idx = (k[..., 0] * 17 + k[..., 1]) * 17 + k[..., 2]
+    rows = ",".join("[" + ",".join(
+        "[" + ",".join(map(_PIXELS.__getitem__, line)) + "]"
+        for line in img) + "]" for img in idx.tolist())
+    return f'{{"data": [{rows}], "priority": "{prio}"}}'.encode()
+
+
+class _FleetClient(threading.Thread):
+    """A client on its own kept-alive connection to the front door: JSON
+    (``FLEET_JSON_ROWS``) and ``CXB1`` (``FLEET_WIRE_ROWS``) ``/predict``
+    requests in a seeded mix, ``priority`` interactive or batch.  With
+    ``fresh``, JSON requests of ``CANARY_ROWS`` rows only, each of new
+    seeded rows (the canary's comparisons are all of distinct images),
+    and each answer's ``pred`` kept in ``preds``.  Every answer is
+    recorded as (status, kind, rows, seconds, why); a failure at the
+    network layer as status 0."""
+
+    def __init__(self, port, side, seed, stop, fresh=False):
+        super().__init__(daemon=True, name=f"fleet-client-{seed}")
+        import random
+
+        from cxxnet_tpu_torch.serve import wire
+
+        self.port, self.stop, self.side, self.seed = port, stop, side, seed
+        self.fresh = fresh
+        self.rng = random.Random(seed)
+        self.results, self.preds = [], []
+        self.bodies = []
+        if fresh:
+            return
+        for n in FLEET_JSON_ROWS:
+            for prio in ("interactive", "batch"):
+                self.bodies.append(("json", n, _json_rows(
+                    n, side, seed * 100 + n, prio), "application/json"))
+        for n in FLEET_WIRE_ROWS:
+            x = _rows(n, side, seed * 100 + 50 + n).reshape(n, side, side, 3)
+            for prio in ("interactive", "batch"):
+                self.bodies.append(("wire", n, bytes(wire.encode_request(
+                    x, kind="scores", priority=prio)), wire.CONTENT_TYPE))
+
+    def _next(self):
+        if not self.fresh:
+            return self.rng.choice(self.bodies)
+        i = len(self.results)
+        return ("json", CANARY_ROWS, _json_rows(
+            CANARY_ROWS, self.side, self.seed * 1000 + i,
+            ("interactive", "batch")[i % 2]), "application/json")
+
+    def run(self):
+        import http.client
+
+        conn = None
+        while not self.stop.is_set():
+            kind, n, body, ctype = self._next()
+            t0 = time.perf_counter()
+            try:
+                if conn is None:
+                    conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                                      timeout=600)
+                conn.request("POST", "/predict", body=body,
+                             headers={"Content-Type": ctype})
+                r = conn.getresponse()
+                raw = r.read()
+                st = r.status
+                if r.will_close:
+                    conn.close()
+                    conn = None
+            except (OSError, http.client.HTTPException) as e:
+                st, raw = 0, repr(e).encode()
+                if conn is not None:
+                    conn.close()
+                conn = None
+            shed = st == 429 and b"load shed" in raw
+            self.results.append((st, kind, n, time.perf_counter() - t0,
+                                 None if st == 200 or shed else raw[:200]))
+            if self.fresh and st == 200:
+                self.preds.extend(json.loads(raw)["pred"])
+        if conn is not None:
+            conn.close()
+
+
+def _failures(clients):
+    """Every answer that is neither a 200 nor an admission 429."""
+    return [(st, kind, n, why) for c in clients
+            for st, kind, n, _dt, why in c.results
+            if st != 200 and not (st == 429 and why is None)]
+
+
+class _FleetWatch(threading.Thread):
+    """Samples the front door's ``/statsz`` and ``/healthz`` every 0.1 s,
+    and once more when stopped (a change just before the stop is seen):
+    ``(t, health status, [(idx, state, round, restarts, pid)])``."""
+
+    def __init__(self, port):
+        super().__init__(daemon=True, name="fleet-watch")
+        self.port, self.samples = port, []
+        self.stop = threading.Event()
+
+    def run(self):
+        import http.client
+
+        stopping = False
+        while not stopping:
+            stopping = self.stop.wait(0.1)
+            try:
+                st, h = _statsz(self.port), _healthz(self.port)
+            except (OSError, ValueError, http.client.HTTPException):
+                continue
+            self.samples.append((time.perf_counter(), h["status"], [
+                (r["idx"], r["state"], r["round"], r["restarts"], r["pid"])
+                for r in st["replicas"]]))
+
+
+def _round2(cfg, src, dst):
+    """Round 2: round 1's weights, each tensor plus ``FLEET_PERTURB`` of
+    its standard deviation times seeded normal noise, saved as round 2."""
+    import torch
+
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.load_model(src)
+    gen = torch.Generator(device=tr.device).manual_seed(SEED + 260)
+    with torch.no_grad():
+        for tags in tr.params.values():
+            for w in tags.values():
+                if w.is_floating_point() and w.numel() > 1:
+                    w.add_(torch.randn(w.shape, generator=gen,
+                                       device=w.device, dtype=w.dtype)
+                           * (FLEET_PERTURB * float(w.float().std())))
+    tr.save_model(dst, round_=2)
+    del tr
+
+
+def _turns_rate(ports, side):
+    """Rows/s of ``FLEET_CLIENTS`` threads of ``FLEET_RATE_ROWS``-row
+    ``CXB1`` frames for ``FLEET_RATE_S`` through each port in turns
+    (a, b, b, a); returns each name's rows/s in call order."""
+    import http.client
+
+    from cxxnet_tpu_torch.serve import wire
+
+    x = _rows(FLEET_RATE_ROWS, side, SEED + 261).reshape(
+        FLEET_RATE_ROWS, side, side, 3)
+    frame = bytes(wire.encode_request(x, kind="scores"))
+    out = {n: [] for n in ports}
+    order = list(ports.items())
+    for turn in (order, order[::-1]):
+        for name, port in turn:
+            done, stop = [], threading.Event()
+
+            def client():
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=600)
+                try:
+                    while not stop.is_set():
+                        st, _raw = _post_on(conn, "/predict", frame,
+                                            wire.CONTENT_TYPE)
+                        if st != 200:
+                            raise SmokeError(f"fleet rate: {name} got {st}")
+                        done.append(FLEET_RATE_ROWS)
+                finally:
+                    conn.close()
+
+            ths = [threading.Thread(target=client, daemon=True)
+                   for _ in range(FLEET_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in ths:
+                t.start()
+            time.sleep(FLEET_RATE_S)
+            stop.set()
+            for t in ths:
+                t.join(timeout=120)
+            out[name].append(sum(done) / (time.perf_counter() - t0))
+    return out
+
+
+def _latency_pairs(router, direct, side):
+    """``FLEET_PAIRS`` pairs of bucket-1 ``CXB1`` requests, one through the
+    router and one to a replica directly, the order alternating; returns
+    (median router ms, median direct ms, median of the pairs' router -
+    direct ms, median of their ratios)."""
+    import http.client
+
+    from cxxnet_tpu_torch.serve import wire
+
+    x = _rows(1, side, SEED + 262).reshape(1, side, side, 3)
+    frame = bytes(wire.encode_request(x, kind="scores"))
+    conns = {p: http.client.HTTPConnection("127.0.0.1", p, timeout=600)
+             for p in (router, direct)}
+    ms = {router: [], direct: []}
+    try:
+        for p in (router, direct):  # warm both connections
+            _post_on(conns[p], "/predict", frame, wire.CONTENT_TYPE)
+        for i in range(FLEET_PAIRS):
+            for p in ((router, direct) if i % 2 == 0 else (direct, router)):
+                t0 = time.perf_counter()
+                st, _raw = _post_on(conns[p], "/predict", frame,
+                                    wire.CONTENT_TYPE)
+                ms[p].append((time.perf_counter() - t0) * 1e3)
+                if st != 200:
+                    raise SmokeError(f"fleet pairs: {st} from port {p}")
+    finally:
+        for c in conns.values():
+            c.close()
+    diffs = [a - b for a, b in zip(ms[router], ms[direct])]
+    ratios = [a / b for a, b in zip(ms[router], ms[direct])]
+    return (statistics.median(ms[router]), statistics.median(ms[direct]),
+            statistics.median(diffs), statistics.median(ratios))
+
+
+def _replica_memory(replicas):
+    """Each replica's caching allocator as its own ``/metricsz`` reports
+    it (``xla_device_memory_bytes``: in use, peak, the card's total).
+    ``nvidia-smi --query-compute-apps`` cannot say this in a container:
+    it lists every process as pid 1 with the card's whole use."""
+    alloc = {}
+    for rep in replicas:
+        text = _get_text(rep["port"], "/metricsz")[0]
+        alloc[f"replica{rep['idx']}"] = {
+            ln.split('stat="')[1].split('"')[0]: float(ln.split()[-1])
+            for ln in text.splitlines()
+            if ln.startswith("xla_device_memory_bytes{")}
+    return alloc
+
+
+def fleet_serve_phase(tmp, card, mdir, eng1, side, cfg):
+    """26a (see the module docstring); returns its part of the ``fleet``
+    line."""
+    import torch
+
+    from cxxnet_tpu_torch.serve import Engine
+
+    torch.cuda.empty_cache()
+    out = {"launches": {"fleet": {}, "reference": {}}}
+    proc, port, start_s, logf = _fleet_proc(
+        CONF, tmp, "fleet_a", f"replicas={FLEET_REPLICAS}",
+        f"model_dir={mdir}", "serve_reload_period=1")
+    clients, watch, stop = [], None, threading.Event()
+    try:
+        st = _statsz(port)
+        reps = {f"replica{r['idx']}": r["port"] for r in st["replicas"]}
+        log(f"fleet: serving {FLEET_REPLICAS}/{FLEET_REPLICAS} in "
+            f"{start_s:.1f}s (process start to the front door, replicas "
+            f"{[(r['idx'], r['pid'], r['port']) for r in st['replicas']]});"
+            f" {card}")
+        _hold_buckets("fleet round 1", {"router": port, **reps}, eng1, side,
+                      PER_FORWARD, SEED + 270, out["launches"], reps)
+        clients = [_FleetClient(port, side, SEED + 271 + i, stop)
+                   for i in range(FLEET_CLIENTS)]
+        base = {r: _replica_launches(p) for r, p in reps.items()}
+        watch = _FleetWatch(port)
+        watch.start()
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        time.sleep(FLEET_KILL_AT_S)
+        victim = _statsz(port)["replicas"][1]
+        # the victim's last reading: what it launches between this and
+        # the kill (one scrape's time) is not counted
+        killed = _launch_delta(_replica_launches(victim["port"]),
+                               base["replica1"])
+        os.kill(victim["pid"], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        degraded = back = None
+        seen = 0
+        while back is None and time.perf_counter() - t_kill < FLEET_RECOVER_S:
+            time.sleep(0.1)
+            for t, h, reps_ in watch.samples[seen:]:
+                r = next(x for x in reps_ if x[0] == 1)
+                if t < t_kill:
+                    continue
+                if degraded is None and h != "ok":
+                    degraded = t - t_kill
+                if (degraded is not None and r[3] >= 1
+                        and r[1] == "healthy" and h == "ok"):
+                    back = t - t_kill
+                    break
+            seen = len(watch.samples)
+        if degraded is None or back is None:
+            raise SmokeError(f"fleet: replica 1 (pid {victim['pid']}) "
+                             f"killed: degraded after {degraded}, healthy "
+                             f"again after {back}; {_statsz(port)}")
+        states = {s for _t, _h, reps_ in watch.samples
+                  for i, s, *_r in reps_ if i == 1}
+        log(f"fleet: SIGKILL of replica 1 (pid {victim['pid']}) "
+            f"{FLEET_KILL_AT_S:g}s into the traffic: /healthz degraded after "
+            f"{degraded:.2f}s, replica 1 through states {sorted(states)}, "
+            f"healthy again and /healthz ok {back:.2f}s after the kill (the "
+            f"front door sampled every 0.1 s); {card}")
+        rest = FLEET_TRAFFIC_S - (time.perf_counter() - t0)
+        if rest > 0:
+            time.sleep(rest)
+        t_write = time.perf_counter()
+        _round2(cfg, os.path.join(mdir, "0001.model"),
+                os.path.join(mdir, "0002.model"))
+        write_s = time.perf_counter() - t_write
+        while True:
+            st = _statsz(port)
+            if all(r["round"] == 2 and r["state"] == "healthy"
+                   for r in st["replicas"]):
+                break
+            if time.perf_counter() - t_write > FLEET_ROLLOUT_S:
+                raise SmokeError(f"fleet: round 2 not on every replica "
+                                 f"{FLEET_ROLLOUT_S:g}s after its write: "
+                                 f"{st['replicas']}")
+            time.sleep(0.1)
+        rollout_s = time.perf_counter() - t_write
+        stop.set()
+        for c in clients:
+            c.join(timeout=600)
+        watch.stop.set()
+        watch.join(timeout=10)
+        # the replicas' own launches under the traffic, the kill and the
+        # rollout: replica 1's killed process to its last reading, then
+        # its new process from its start
+        reps = {f"replica{r['idx']}": r["port"]
+                for r in _statsz(port)["replicas"]}
+        window = {}
+        for name, now in _quiet_launches(reps, "fleet traffic").items():
+            window[name] = (_launch_sum(killed, now) if name == "replica1"
+                            else _launch_delta(now, base[name]))
+        served = {r: _whole_forwards(f"fleet traffic: {r}", d, PER_FORWARD)
+                  for r, d in window.items()}
+        for d in window.values():
+            _add_launches(out["launches"]["fleet"], d)
+        # one replica at a time: in the watch's samples, each replica
+        # first shows round 2 in index order, never two in one sample
+        firsts = {}
+        for t, _h, reps_ in watch.samples:
+            for i, _s, rnd, *_r in reps_:
+                if rnd == 2 and i not in firsts:
+                    firsts[i] = t
+        order = sorted(firsts, key=firsts.get)
+        if (order != list(range(FLEET_REPLICAS))
+                or len(set(firsts.values())) != FLEET_REPLICAS):
+            raise SmokeError(f"fleet: the rollout reached the replicas in "
+                             f"the order {order} at {firsts}: not one at a "
+                             "time in rotation order")
+        bad = _failures(clients)
+        answered = [r for c in clients for r in c.results]
+        by_kind = {}
+        for st_, kind, n, _dt, _why in answered:
+            by_kind.setdefault(f"{kind} {st_}", 0)
+            by_kind[f"{kind} {st_}"] += 1
+        if bad or len(answered) < 50:
+            raise SmokeError(f"fleet: {len(bad)} non-shed failures of "
+                             f"{len(answered)} answers: {bad[:5]}")
+        metrics = _get_text(port, "/metricsz")[0]
+        swapped = [ln for ln in metrics.splitlines()
+                   if ln.startswith("fleet_reloads_total{")]
+        failovers = [ln for ln in metrics.splitlines()
+                     if ln.startswith("fleet_failovers_total")]
+        log(f"fleet: {len(answered)} answers under the kill and the rollout"
+            f" ({by_kind}), 0 non-shed failures; round 2 written in "
+            f"{write_s:.2f}s, on all {FLEET_REPLICAS} replicas one at a time"
+            f" (order {order}) {rollout_s:.2f}s after the write began; "
+            f"{swapped}; {failovers}; {card}")
+        log(f"fleet: forwards the replicas ran under the traffic, the kill "
+            f"and the rollout, each a forward's K1 13, K4 2, K6 9 on the "
+            f"main paths (their /metricsz; replica 1 its killed process and "
+            f"its new one) {served}; {card}")
+        with Engine(cfg=cfg, model_in=os.path.join(mdir, "0002.model"),
+                    silent=True) as eng2:
+            _hold_buckets("fleet round 2", {"router": port, **reps}, eng2,
+                          side, PER_FORWARD, SEED + 280, out["launches"],
+                          reps)
+        rates = _turns_rate({"router": port, "replica0": reps["replica0"]},
+                            side)
+        r_ms, d_ms, diff_ms, ratio = _latency_pairs(port, reps["replica0"],
+                                                    side)
+        mem = _replica_memory(_statsz(port)["replicas"])
+        log(f"fleet: rows/s of {FLEET_CLIENTS} clients of "
+            f"{FLEET_RATE_ROWS}-row CXB1 frames, in turns: through the "
+            f"router (3 replicas) {[round(v, 1) for v in rates['router']]}, "
+            f"replica 0 directly "
+            f"{[round(v, 1) for v in rates['replica0']]}; bucket 1 over "
+            f"{FLEET_PAIRS} pairs (host clock): router {r_ms:.2f} ms, direct "
+            f"{d_ms:.2f} ms, router's added latency (median of the pairs) "
+            f"{diff_ms:.2f} ms, ratio {ratio:.3f}; {card}")
+        log(f"fleet: each replica's allocator (bytes, its /metricsz) "
+            f"{mem}; {card}")
+        out.update({
+            "start_s": start_s, "kill_degraded_s": degraded,
+            "kill_to_healthy_s": back, "rollout_s": rollout_s,
+            "answers": len(answered), "by_kind": by_kind,
+            "rows_per_s": rates, "router_ms": r_ms, "direct_ms": d_ms,
+            "router_added_ms": diff_ms, "router_ratio": ratio,
+            "memory": mem, "forwards": served})
+    except BaseException:
+        stop.set()
+        _stop_fleet(proc, logf, "a", quiet=True)
+        raise
+    stop.set()
+    if watch is not None:
+        watch.stop.set()
+    t_stop = time.perf_counter()
+    _stop_fleet(proc, logf, "a")
+    out["stop_s"] = time.perf_counter() - t_stop
+    return out
+
+
+def fleet_canary_phase(tmp, card, mdir, eng1, side, cfg):
+    """26b (see the module docstring); returns its part of the ``fleet``
+    line."""
+    import torch
+
+    from cxxnet_tpu_torch.nnet.quant import quant_artifact_path
+    from cxxnet_tpu_torch.serve import Engine
+    from cxxnet_tpu_torch.utils import checkpoint as ckpt
+
+    path = os.path.join(mdir, "0001.model")
+    conf = _synthetic_conf(tmp, "googlenet_canary.conf",
+                           (("eval", "val", EVAL_ROWS, False),), 1.0)
+    verdict = _export_quant(conf, path, "quant_min_agreement=0")
+    qpath = quant_artifact_path(path)
+    if not os.path.exists(qpath):
+        raise SmokeError(f"fleet canary: no artifact at {qpath}")
+    if verdict["fallbacks"]:
+        raise SmokeError(f"fleet canary: the ungated export demoted "
+                         f"{verdict['fallbacks']}")
+    per_q = {**PER_FORWARD, "int8_gemm": INT8_PER_FORWARD}
+    torch.cuda.empty_cache()
+    out = {"launches": {"fleet": {}, "reference": {}}}
+    proc, port, start_s, logf = _fleet_proc(
+        CONF, tmp, "fleet_b", "replicas=2", f"model_dir={mdir}",
+        *CANARY_KEYS)
+    stop = threading.Event()
+    clients = []
+    try:
+        st = _statsz(port)
+        roles = {r["role"]: r for r in st["replicas"]}
+        log(f"fleet canary: serving 2/2 in {start_s:.1f}s, roles "
+            f"{[(r['idx'], r['role'], r['port']) for r in st['replicas']]}"
+            f"; {card}")
+        reps = {"canary": roles["canary"]["port"],
+                "baseline": roles["serve"]["port"]}
+        with Engine(cfg=cfg + [("quant", "int8")], model_in=path,
+                    silent=True) as engq:
+            _hold_buckets("fleet canary int8", {"canary": reps["canary"]},
+                          engq, side, per_q, SEED + 290, out["launches"],
+                          reps)
+        _hold_buckets("fleet canary baseline", {
+            "baseline": reps["baseline"]}, eng1, side, PER_FORWARD,
+            SEED + 291, out["launches"], reps)
+        clients = [_FleetClient(port, side, SEED + 292 + i, stop, fresh=True)
+                   for i in range(2)]
+        base = last = {r: _replica_launches(p) for r, p in reps.items()}
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        while True:
+            can = _statsz(port)["canary"]
+            if can["state"] != "evaluating":
+                break
+            # the last readings before the decision (a rollback
+            # relaunches the canary, and its count with it)
+            last = {r: _replica_launches(p) for r, p in reps.items()}
+            bad = _failures(clients)
+            if bad:
+                raise SmokeError(f"fleet canary: non-shed failures while "
+                                 f"evaluating: {bad[:5]}")
+            if time.perf_counter() - t0 > CANARY_DECIDE_S:
+                raise SmokeError(f"fleet canary: no decision "
+                                 f"{CANARY_DECIDE_S:g}s in: {can}")
+            time.sleep(0.1)
+        decide_s = time.perf_counter() - t0
+        stop.set()
+        for c in clients:
+            c.join(timeout=600)
+        # the decision's state is set first; its pointer (and, on a
+        # rollback, the canary's relaunch) follow on the controller's
+        # thread
+        _wait(lambda: ckpt.read_publish_pointer(mdir) is not None and (
+            can["state"] == "promoted" or _statsz(port)["replicas"][
+                roles["canary"]["idx"]]["restarts"] >= 1),
+            "fleet canary: the decision's pointer", timeout=60.0)
+        # promoted: every mirror answered, read the quiet replicas;
+        # rolled back: the readings under traffic, the last forward of
+        # each perhaps cut short
+        partial = can["state"] != "promoted"
+        if not partial:
+            last = _quiet_launches(reps, "fleet canary")
+        window = {r: _launch_delta(last[r], base[r]) for r in reps}
+        served = {r: _whole_forwards(f"fleet canary traffic: {r}", window[r],
+                                     per_q if r == "canary" else PER_FORWARD,
+                                     partial) for r in reps}
+        for d in window.values():
+            _add_launches(out["launches"]["fleet"], d)
+        bad = _failures(clients)
+        answered = sum(len(c.results) for c in clients)
+        if bad:
+            raise SmokeError(f"fleet canary: {len(bad)} non-shed failures "
+                             f"of {answered}: {bad[:5]}")
+        sent = sum(n for c in clients for _s, _k, n, _d, _w in c.results)
+        classes = len({p for c in clients for p in c.preds})
+        metrics = _get_text(port, "/metricsz")[0]
+        gauges = {ln.split()[0]: float(ln.split()[1])
+                  for ln in metrics.splitlines()
+                  if ln.startswith(("canary_agreement ",
+                                    "canary_latency_ratio "))}
+        ptr = ckpt.read_publish_pointer(mdir)
+        agreement, want = can["agreement"], (
+            "promoted" if can["agreement"] >= can["min_agreement"]
+            else "rolled_back")
+        st = _statsz(port)
+        min_req = int(dict(k.split("=", 1) for k in CANARY_KEYS)[
+            "canary_min_requests"])
+        if can["compared"] < min_req or can["state"] != want or ptr is None \
+                or ptr["round"] != 1:
+            raise SmokeError(f"fleet canary: {can}, pointer {ptr}: the "
+                             f"decision does not follow its rule ({want})")
+        if want == "promoted" and ptr["path"] != qpath:
+            raise SmokeError(f"fleet canary: promoted, but the pointer "
+                             f"names {ptr['path']}, not {qpath}")
+        if want == "rolled_back":
+            r = st["replicas"][roles["canary"]["idx"]]
+            if ptr["path"] != path or r["role"] != "serve" \
+                    or r["restarts"] < 1:
+                raise SmokeError(f"fleet canary: rolled back, but the "
+                                 f"pointer names {ptr['path']} and the "
+                                 f"canary replica is {r}")
+        log(f"fleet canary: {can['compared']} rows compared over "
+            f"{answered} JSON requests of fresh rows ({sent} distinct rows "
+            f"sent, so every compared row a distinct image; the answered "
+            f"rows' predictions cover {classes} classes) in "
+            f"{decide_s:.1f}s; agreement {agreement:.4f} against "
+            f"{can['min_agreement']:g}: {can['state']} ({can['reason']}), "
+            f"the pointer names {ptr['path']}; gauges {gauges}; forwards "
+            f"under the traffic (the replicas' /metricsz, to the decision) "
+            f"{served}; {card}")
+        out.update({"start_s": start_s, "state": can["state"],
+                    "agreement": agreement, "compared": can["compared"],
+                    "rows_sent": sent, "classes": classes,
+                    "latency_ratio": gauges.get("canary_latency_ratio"),
+                    "pointer": ptr["path"], "decide_s": decide_s,
+                    "forwards": served, "int8_per_forward": per_q})
+    except BaseException:
+        stop.set()
+        _stop_fleet(proc, logf, "b", quiet=True)
+        raise
+    stop.set()
+    t_stop = time.perf_counter()
+    _stop_fleet(proc, logf, "b")
+    out["stop_s"] = time.perf_counter() - t_stop
+    return out
+
+
+def branch_embed_phase(tmp, card, mdir, side):
+    """26c (see the module docstring); returns its part of the ``fleet``
+    line."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    conf = _synthetic_conf(tmp, "googlenet_embed.conf", (), LR_SCALE)
+    # dropout off: the two nets' steps must see the same activations
+    cfg = [(n, "0.0" if n == "threshold" else v)
+           for n, v in cfgmod.parse_file(conf)] + [("dev", "gpu")]
+    path = os.path.join(mdir, "0001.model")
+    trs = {}
+    for v in (0, 1):
+        tr = NetTrainer()
+        tr.set_params(cfg + [("conv_branch_embed", str(v))])
+        tr.load_model(path)
+        trs[v] = tr
+    preps = {v: tr._prepared_for(tr.params) for v, tr in trs.items()}
+    if (len(trs[1].net._branch_embed_plan()[1]) != 9
+            or len(preps[1]["embed"]) != 9 or preps[0]["embed"]):
+        raise SmokeError("branch-embed: = 1 does not prepare GoogLeNet's "
+                         "nine block kernels, or = 0 prepares some")
+    dev = trs[0].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 300)
+    x = torch.randn((BATCH, side, side, 3), generator=gen, device=dev)
+    fc = max(i for i, s in enumerate(trs[0].graph.layers)
+             if s.type_name == "fullc")
+    feat_node = trs[0].graph.layers[fc].nindex_in[0]
+    # the softmax runs in place on the classifier's node: the logits are
+    # the classifier over each forward's features, in f32
+    cls = trs[0].params[trs[0].net.param_key[fc]]
+    cls = (cls["wmat"].float(), cls["bias"].float())
+    outs, launches = {}, {}
+    for v, tr in trs.items():
+        prep = tr._prepared_for(tr.params)
+        with torch.no_grad():
+            for k in KERNELS:
+                k.reset_counts()
+            paths = _by_symbol()
+            nodes = tr.net.forward(prep, x)
+            torch.cuda.synchronize()
+            got = {k.name: k.launches for k in KERNELS if k.launches}
+            if got != PER_FORWARD or _paths_since(paths) != \
+                    _main_paths(PER_FORWARD):
+                raise SmokeError(f"branch-embed = {v}: a forward launched "
+                                 f"{got}, by C entry {_paths_since(paths)}")
+            launches[f"forward_{v}"] = got
+        feat = nodes[feat_node].float()
+        outs[v] = (nodes[tr.net.out_node_index()].float(), feat,
+                   torch.nn.functional.linear(feat.flatten(1), *cls))
+        del nodes
+    prob_err = float((outs[1][0] - outs[0][0]).abs().max())
+    feat_rel, logit_rel = (float((outs[1][i] - outs[0][i]).abs().max()
+                                 / outs[0][i].abs().max()) for i in (1, 2))
+    top1 = float((outs[1][0].argmax(1) == outs[0][0].argmax(1)).float()
+                 .mean())
+    if not (prob_err <= EMBED_PROB_ATOL and feat_rel <= BF16_FEAT_REL
+            and logit_rel <= BF16_LOGIT_REL):
+        raise SmokeError(f"branch-embed: the fused b{BATCH} forward against "
+                         f"the plain one: probabilities max |diff| "
+                         f"{prob_err:.3g} (limit {EMBED_PROB_ATOL:g}), "
+                         f"features {feat_rel:.3g} and logits "
+                         f"{logit_rel:.3g} of their largest (limits "
+                         f"{BF16_FEAT_REL:g}, {BF16_LOGIT_REL:g})")
+
+    def fwd(tr):
+        prep = tr._prepared_for(tr.params)
+
+        def run():
+            with torch.no_grad():
+                tr.net.forward(prep, x)
+        return run
+
+    times = time_turns({"plain": fwd(trs[0]), "fused": fwd(trs[1])},
+                       device=True)
+    log(f"branch-embed: GoogLeNet b{BATCH} bf16 forward, conv_branch_embed "
+        f"0 against 1 in turns (device time, ms): plain "
+        f"{[round(t, 3) for t in times['plain']]}, fused "
+        f"{[round(t, 3) for t in times['fused']]}; fused vs plain: "
+        f"probabilities max |diff| {prob_err:.3g}, features {feat_rel:.3g} "
+        f"and logits {logit_rel:.3g} of their largest, top-1 agreement "
+        f"{top1:.4f}; launches "
+        f"{launches}; {card}")
+    del outs
+
+    rng = np.random.RandomState(SEED + 301)
+    batches = [(rng.randn(BATCH, side, side, 3).astype(np.float32),
+                rng.randint(0, 1000, (BATCH, 1)).astype(np.float32))
+               for _ in range(EMBED_STEPS)]
+    w0 = {(k, t): w.detach().float().clone()
+          for k, tags in trs[0].params.items() for t, w in tags.items()}
+    losses = {0: [], 1: []}
+    step_per = IMGBIN_PER_STEP  # K1-K6, and K8 once over the 116 tensors
+    for v, tr in trs.items():
+        tr._invalidate_prepared()
+        for k in KERNELS:
+            k.reset_counts()
+        paths = _by_symbol()
+        for bx, by in batches:
+            tr.update_all(bx, by)
+            losses[v].append(float(tr.last_loss))
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in KERNELS if k.launches}
+        want = {k: n * EMBED_STEPS for k, n in step_per.items()}
+        if got != want or _paths_since(paths) != _main_paths(want):
+            raise SmokeError(f"branch-embed = {v}: {EMBED_STEPS} steps "
+                             f"launched {got}, by C entry "
+                             f"{_paths_since(paths)}; expected {want}")
+        launches[f"steps_{v}"] = got
+    cos = {}
+    for kt, w in w0.items():
+        d0 = trs[0].params[kt[0]][kt[1]].float() - w
+        d1 = trs[1].params[kt[0]][kt[1]].float() - w
+        cos[kt] = float((d0 * d1).sum() / (d0.norm() * d1.norm()))
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(losses[0], losses[1]))
+    worst = min(cos, key=cos.get)
+    med = statistics.median(cos.values())
+    log(f"branch-embed: {EMBED_STEPS} b{BATCH} bf16 steps under 1 against "
+        f"0 from round 1: losses {losses[1]} against {losses[0]} (worst "
+        f"rel {loss_rel:.3g}, limit {EMBED_LOSS_REL:g}); update cosine "
+        f"worst {cos[worst]:.5f} at {'/'.join(worst)} (limit "
+        f"{UPDATE_COS:g}), median {med:.5f} (limit {UPDATE_COS_MEDIAN:g}); "
+        f"{card}")
+    if not (loss_rel <= EMBED_LOSS_REL and cos[worst] >= UPDATE_COS
+            and med >= UPDATE_COS_MEDIAN):
+        raise SmokeError("branch-embed: training under = 1 is out of "
+                         "tolerance against = 0 (above)")
+    del trs
+    torch.cuda.empty_cache()
+    return {"forward_ms": times, "prob_max_diff": prob_err,
+            "feat_rel": feat_rel, "logit_rel": logit_rel, "top1": top1, "loss_rel": loss_rel,
+            "update_cos_worst": cos[worst], "update_cos_median": med,
+            "launches": launches}
+
+
+def _centre_classifier(tr, side):
+    """26b's round 1: ``tr``'s classifier with the direction of the mean
+    pool features over ``CANARY_CENTRE_ROWS`` rows like the clients'
+    taken out of every class's weights.  A random GoogLeNet's features
+    share one large mean, which alone sets the top-1 class (every image
+    one class: a canary's top-1 agreement is then 1 whatever int8 does);
+    centred, each image's class follows what sets it apart."""
+    import torch
+
+    fc = max(i for i, s in enumerate(tr.graph.layers)
+             if s.type_name == "fullc")
+    x = torch.as_tensor(_rows(CANARY_CENTRE_ROWS, side, SEED + 266).reshape(
+        CANARY_CENTRE_ROWS, side, side, 3), device=tr.device)
+    with torch.no_grad():
+        f = tr.net.forward(tr._prepared_for(tr.params), x)[
+            tr.graph.layers[fc].nindex_in[0]].float().flatten(1)
+        m = f.mean(0)
+        w = tr.params[tr.net.param_key[fc]]["wmat"]
+        w.sub_(((w.float() @ m)[:, None] * m[None, :] / (m @ m)).to(w.dtype))
+    tr._invalidate_prepared()
+
+
+def fleet_phase(card):
+    """Phase 26: 26a, 26b and 26c over one seeded GoogLeNet (round 1);
+    returns the ``fleet`` line."""
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.serve import Engine
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    cfg = cfgmod.parse_file(CONF) + [("dev", "gpu"), ("silent", "1")]
+    side = CONF_SIDE
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        mdirs = {n: os.path.join(tmp, f"models_{n}") for n in "ab"}
+        for d in mdirs.values():
+            os.makedirs(d)
+        from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+        tr = NetTrainer()
+        tr.set_params(cfg + [("seed", str(SEED + 265))])
+        tr.init_model()
+        tr.save_model(os.path.join(mdirs["a"], "0001.model"), round_=1)
+        _centre_classifier(tr, side)
+        tr.save_model(os.path.join(mdirs["b"], "0001.model"), round_=1)
+        del tr
+        for name, fn in (("serve", fleet_serve_phase),
+                         ("canary", fleet_canary_phase)):
+            mdir = mdirs["a" if name == "serve" else "b"]
+            with Engine(cfg=cfg, model_in=os.path.join(mdir, "0001.model"),
+                        silent=True) as eng1:
+                t1 = time.perf_counter()
+                out[name] = fn(tmp, card, mdir, eng1, side, cfg)
+                out[f"{name}_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out["branch_embed"] = branch_embed_phase(tmp, card, mdirs["a"], side)
+        out["branch_embed_s"] = time.perf_counter() - t1
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8590,9 +9691,12 @@ def main() -> int:
         loop_out = closed_loop_phase(card)
         log(json.dumps({"closed_loop": loop_out}))
         lap("25 closed loop, data service")
+        fleet_out = fleet_phase(card)
+        log(json.dumps({"fleet": fleet_out}))
+        lap("26 fleet, branch-embed")
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
-                            quant_launches, loop_out)
+                            quant_launches, loop_out, fleet_out)
         log(json.dumps({"phase_s": phase_s, "total_s": round(sum(
             phase_s.values()), 1), "card": card}))
         log(card)

@@ -83,6 +83,24 @@ behind the reload breaker (``reload_breaker_threshold``,
 demand; ``integrity_probe = 1`` runs the golden canary on the same
 period.
 
+``task=serve`` with ``replicas = N >= 2``: the serving fleet
+(``serve/fleet.py``, ``serve/router.py``).  N single-engine
+``task=serve`` children (``python -m cxxnet_tpu_torch`` on this conf
+and these overrides, the fleet keys pinned, each on its own free port,
+its output in ``fleet_log_dir`` or ``<model_dir>/fleet_logs``) are
+probed on ``/healthz``, restarted with backoff when they exit or wedge,
+and served behind one front door on ``serve_host:serve_port``: priority
+admission (``batch`` sheds first), least-loaded dispatch with failover,
+one deadline budget for route and execute.  ``fleet: serving k/N
+replica(s)`` is printed once the front door is bound.  With
+``serve_reload_period > 0`` a newer round in ``model_dir`` rolls out one
+replica at a time behind a fleet-level breaker; ``canary = int8
+canary_replicas = k`` runs k replicas on the ``.quant.model`` sibling,
+mirrors ``canary_sample`` of the baseline's traffic to them and promotes
+or rolls back through the publish pointer (``PUBLISHED.json``).  A fleet
+with no healthy replica after ``fleet_start_timeout_s`` raises (non-zero
+exit); SIGTERM/SIGINT during the boot aborts it and reaps the children.
+
 ``task=generate``: samples ``gen_len`` bytes continuing ``gen_prompt``
 (or the bytes of ``gen_prompt_file``, read only by this task) from the
 byte-level language model of ``model_in`` (``nnet/generate.py``): the
@@ -164,10 +182,9 @@ clients, a ``data_service_cache_mb`` block cache and a
 ``data_service_ready_file``.  A trainer reads it with ``iter = service``
 and ``data_service_addr = host:port``.
 
-The serving fleet (``replicas >= 2``) and the elastic and cross-process
-planes of training (``elastic``, ``elastic_join``, ``test_on_server``)
-are later slices (ROADMAP.md) and raise ``NotImplementedError`` naming
-the item.
+The elastic and cross-process planes of training (``elastic``,
+``elastic_join``, ``test_on_server``) are later slices (ROADMAP.md) and
+raise ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -245,6 +262,8 @@ class LearnTask:
         self.quant_out = ""
         self.quant_report = ""
         self.replicas = 1
+        self.conf_path = ""
+        self.cli_overrides: List[str] = []
         # the closed loop: the loop_*/publish_*/feedback_* defaults are
         # the one table task=loop_fleet's tenants read too
         from .loop.tenant import TenantOptions
@@ -404,17 +423,16 @@ class LearnTask:
         if len(argv) < 1:
             print("Usage: <config> [name=val ...]")
             return 0
+        # the fleet re-launches this invocation per replica (conf and
+        # overrides, the fleet keys pinned): serve.fleet.cli_spawn_fn
+        self.conf_path = argv[0]
+        self.cli_overrides = list(argv[1:])
         for name, val in cfgmod.parse_file(argv[0]):
             self.set_param(name, val)
         for name, val in cfgmod.parse_cli_overrides(argv[1:]):
             self.set_param(name, val)
         if self.task not in _TASKS:
             raise ValueError(f"unknown task {self.task!r}")
-        if self.replicas > 1 and self.task not in ("serve_train",
-                                                   "loop_fleet"):
-            raise NotImplementedError(
-                "replicas >= 2: the serving fleet is not ported yet "
-                "(ROADMAP.md queue A item 1, serving features)")
         from . import obs
         from .utils import faults
 
@@ -1106,8 +1124,65 @@ class LearnTask:
             atomic_write_bytes(self.quant_report, (line + "\n").encode())
         return 0 if verdict["ok"] else 3
 
+    def task_serve_fleet(self) -> None:
+        """``task=serve`` with ``replicas >= 2``: the serving fleet (the
+        module docstring).  A signal while replicas boot aborts the boot
+        (the ``SystemExit`` lands in ``fleet.start()`` on this thread and
+        the ``finally`` reaps the children); once bound, it drains."""
+        import signal as _signal
+        import threading
+
+        from .serve.fleet import FleetOptions, ServingFleet, cli_spawn_fn
+
+        opts = FleetOptions.from_cfg(self.cfg)
+        model_dir = (self.name_model_dir
+                     if self.name_model_in == "NULL" else None)
+        log_dir = opts.log_dir or (
+            os.path.join(model_dir, "fleet_logs") if model_dir
+            else "fleet_logs")
+        spawn = cli_spawn_fn(self.conf_path, self.cli_overrides,
+                             host=self.serve_host, opts=opts,
+                             log_dir=log_dir)
+        fleet = ServingFleet(
+            opts, spawn_fn=spawn, host=self.serve_host,
+            port=self.serve_port, model_dir=model_dir,
+            default_deadline_ms=self.serve_deadline_ms,
+            reload_period_s=self.serve_reload_period,
+            silent=bool(self.silent),
+        )
+        httpd_box = {}
+
+        def _stop(signum, frame):
+            print(f"fleet: shutdown requested, draining (up to "
+                  f"{self.drain_timeout_s:g}s)", flush=True)
+            h = httpd_box.get("httpd")
+            if h is not None:
+                threading.Thread(target=h.shutdown, daemon=True).start()
+            else:
+                raise SystemExit(0)
+
+        prev = {s: _signal.signal(s, _stop)
+                for s in (_signal.SIGTERM, _signal.SIGINT)}
+        try:
+            httpd = fleet.start()
+            httpd_box["httpd"] = httpd
+            h = fleet.healthz()
+            print(f"fleet: serving {h['rotation']}/{opts.replicas} "
+                  f"replica(s) (round {h['round']}) on "
+                  f"http://{self.serve_host}:{httpd.server_port}",
+                  flush=True)
+            httpd.serve_forever(poll_interval=0.2)
+        finally:
+            for s, p in prev.items():
+                _signal.signal(s, p)
+            fleet.close(self.drain_timeout_s)
+        print("fleet: shutdown complete", flush=True)
+
     def task_serve(self) -> None:
-        """Run the online inference server until SIGTERM/SIGINT."""
+        """Run the online inference server until SIGTERM/SIGINT;
+        ``replicas >= 2`` runs :meth:`task_serve_fleet` instead."""
+        if self.replicas > 1:
+            return self.task_serve_fleet()
         model_in = (None if self.name_model_in == "NULL"
                     else self.name_model_in)
         engine = self._engine(self.cfg,

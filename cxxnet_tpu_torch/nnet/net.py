@@ -44,11 +44,24 @@ forward:
   earlier one wrote); ``step`` is the decode loop's absolute position
   at predict time and the update counter in training (``insanity``'s
   anneal reads it).
-  No layer moves past another here (the sibling-1x1 groups hold convs
-  only), so the stateful-layer order is the declaration order.
+  Only branch-embed groups (below) move a layer past another, and they
+  never defer a shared stateful layer, so the stateful-layer order is
+  the declaration order;
+* branch-embed fusion (``conv_branch_embed = 1``): inception-style
+  sibling branch convs (odd k, stride 1, SAME padding) whose inputs
+  trace back, through elementwise layers and 1x1/s1 convs, to one
+  (node, write-version) run as ONE zero-padded block conv through
+  ``F.conv2d`` (cuDNN), each member's kernel centre-embedded in its own
+  (cin, cout) block (``_branch_embed_plan``, ``_apply_branch_embed``).
+  The block kernel is built in ``prepare`` (per forward when a member is
+  int8, from ``effective_wmat``) and is dropped with the other prepared
+  operands; training runs through autograd.  The auto value (-1) is off:
+  off for training and on the CPU as in the JAX package, and off on the
+  card too, where the JAX package turns it on for inference (its ~3.6x
+  larger products were measured to pay on the TPU's MXU only; ROADMAP.md
+  section C).
 
-Branch-embed fusion (``conv_branch_embed``) and ``remat`` belong to
-later slices (ROADMAP.md).
+``remat`` belongs to a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -56,6 +69,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..layers import Layer, LossLayer, create_layer
 from ..layers.conv import ConvolutionLayer
@@ -78,6 +92,8 @@ class FunctionalNet:
         self.compute_dtype = torch.float32
         self.fuse_1x1 = 1
         self._fuse_cache = None
+        self.conv_branch_embed = -1  # -1 auto (off), 0 off, 1 on
+        self._embed_cache = None
         self.layer_objs: List[Layer] = []
         self.param_key: List[Optional[str]] = []
         for i, spec in enumerate(graph.layers):
@@ -109,10 +125,7 @@ class FunctionalNet:
             elif name == "fuse_1x1":
                 self.fuse_1x1 = int(val)
             elif name == "conv_branch_embed":
-                if int(val) == 1:
-                    raise NotImplementedError(
-                        "conv_branch_embed=1: branch-embed fusion is not "
-                        "ported yet (ROADMAP.md queue A item 1)")
+                self.conv_branch_embed = int(val)
             elif name == "kernel_lib":
                 _klib.parse_mode(val)
             elif name == "compute_dtype":
@@ -226,20 +239,24 @@ class FunctionalNet:
 
     # ------------------------------------------------------------------
     def _graph_versions(self):
-        """Declaration-order dataflow scan: per-node write counts and
-        per-layer read keys ``(node, version-at-read)``."""
+        """Declaration-order dataflow scan shared by the two fusion
+        planners: per-node write counts, per-layer read keys ``(node,
+        version-at-read)``, and ``writers[n][v]`` = the layer whose write
+        created version ``v+1`` of node ``n`` (version 0 = graph input)."""
         g = self.graph
         writes = [0] * g.num_nodes
         for spec in g.layers:
             for n in spec.nindex_out:
                 writes[n] += 1
         version = [0] * g.num_nodes
+        writers: Dict[int, List[int]] = {}
         in_keys: List[List[Tuple[int, int]]] = []
-        for spec in g.layers:
+        for i, spec in enumerate(g.layers):
             in_keys.append([(n, version[n]) for n in spec.nindex_in])
             for n in spec.nindex_out:  # reads happen before writes
+                writers.setdefault(n, []).append(i)
                 version[n] += 1
-        return writes, in_keys
+        return writes, in_keys, writers
 
     def _sibling_1x1_groups(self):
         """Groups of distinct 1x1/p0/ungrouped conv layers with one
@@ -254,7 +271,7 @@ class FunctionalNet:
         path."""
         if self._fuse_cache is not None:
             return self._fuse_cache
-        writes, in_keys = self._graph_versions()
+        writes, in_keys, _writers = self._graph_versions()
         by_input: Dict[Tuple[int, int, int], List[int]] = {}
         for i, spec in enumerate(self.graph.layers):
             if spec.type_name == "shared":
@@ -283,44 +300,238 @@ class FunctionalNet:
         return self._fuse_cache
 
     # ------------------------------------------------------------------
+    # branch-embed fusion: with SAME padding and stride 1, the k_max conv
+    # of a centre-embedded smaller kernel equals the smaller conv, so the
+    # group's convs are one conv over the concatenated inputs with a
+    # block kernel (zeros off the diagonal blocks)
+
+    #: elementwise single-in/single-out layers a provenance walk may step
+    #: through: they keep (H, W), so two convs whose walks meet at one
+    #: (node, version) see the same spatial dims
+    _EMBED_WALK_TYPES = frozenset({
+        "relu", "sigmoid", "tanh", "softplus", "xelu", "insanity",
+        "prelu", "bias", "batch_norm", "dropout",
+    })
+
+    def use_branch_embed(self) -> bool:
+        """Whether the forward fuses inception branches: only under
+        ``conv_branch_embed = 1``.  The JAX package's auto value (-1) is
+        off for training and on the CPU, and on for inference on an
+        accelerator; the port keeps it off on the card too, where the
+        fused GoogLeNet forward measured slower (ROADMAP.md section C),
+        so in training and serving alike only an explicit 1 fuses."""
+        return self.conv_branch_embed == 1
+
+    def _branch_embed_plan(self):
+        """``(items, groups)``: the execution plan, a list of ``("L",
+        layer)`` / ``("E", leader)`` items (None when nothing groups),
+        and ``leader -> member indices``.
+
+        Members are odd-k (3/5/7) stride-1 SAME ungrouped convs whose
+        inputs trace back, through ``_EMBED_WALK_TYPES`` layers and
+        1x1/s1/p0 convs, to one (node, write-version).  Declaration order
+        interleaves the branches (the 5x5 reduce sits between the 3x3 and
+        the 5x5 conv), so a group runs at its LAST member's position and
+        the layers in that window that consume member outputs move after
+        it; a group is kept only when every node written in the window
+        has one writer (any dependency-respecting order is then the
+        same), no moved layer leads a sibling-1x1 group, and no moved
+        layer is a shared stateful one.  The JAX package's planner, rule
+        for rule."""
+        if self._embed_cache is not None:
+            return self._embed_cache
+        g = self.graph
+        writes, in_keys, writers = self._graph_versions()
+
+        def walkable(p: int) -> bool:
+            ps = g.layers[p]
+            if len(ps.nindex_in) != 1 or len(ps.nindex_out) != 1:
+                return False
+            if ps.type_name in self._EMBED_WALK_TYPES:
+                return True
+            if ps.type_name == "conv":
+                lp = self.layer_objs[p].param
+                return ((lp.kernel_height, lp.kernel_width, lp.stride,
+                         lp.pad_y, lp.pad_x, lp.num_group)
+                        == (1, 1, 1, 0, 0, 1))
+            return False
+
+        def root_of(i: int) -> Tuple[int, int]:
+            n, v = in_keys[i][0]
+            while v > 0:
+                p = writers[n][v - 1]
+                if not walkable(p):
+                    break
+                n, v = in_keys[p][0]
+            return n, v
+
+        by_root: Dict[Tuple[int, int], List[int]] = {}
+        for i, spec in enumerate(g.layers):
+            if spec.type_name == "shared":
+                continue
+            lay = self.layer_objs[i]
+            if type(lay) is not ConvolutionLayer:
+                continue
+            p = lay.param
+            if not (p.stride == 1 and p.num_group == 1
+                    and p.kernel_height == p.kernel_width
+                    and p.kernel_height in (3, 5, 7)
+                    and p.pad_y == (p.kernel_height - 1) // 2
+                    and p.pad_x == (p.kernel_width - 1) // 2
+                    and len(spec.nindex_in) == 1
+                    and len(spec.nindex_out) == 1
+                    and spec.nindex_out[0] != spec.nindex_in[0]
+                    and writes[spec.nindex_out[0]] == 1):
+                continue
+            by_root.setdefault(root_of(i), []).append(i)
+
+        fuse_groups = self._sibling_1x1_groups()[0] if self.fuse_1x1 else {}
+        key_counts: Dict[Optional[str], int] = {}
+        for k in self.param_key:
+            key_counts[k] = key_counts.get(k, 0) + 1
+        found: List[Tuple[List[int], List[int]]] = []  # (members, moved)
+        for idxs in by_root.values():
+            if len(idxs) < 2:
+                continue
+            idxs = sorted(idxs)
+            first, last = idxs[0], idxs[-1]
+            iset = set(idxs)
+            dep_nodes: set = set()
+            moved: List[int] = []
+            for j in range(first, last + 1):
+                sj = g.layers[j]
+                if j in iset:
+                    dep_nodes.update(sj.nindex_out)
+                elif any(n in dep_nodes for n in sj.nindex_in):
+                    moved.append(j)
+                    dep_nodes.update(sj.nindex_out)
+            # (<= 1: a member may read the never-written input node)
+            ok = (all(writes[n] == 1 for j in range(first, last + 1)
+                      for n in g.layers[j].nindex_out)
+                  and all(writes[in_keys[j][0][0]] <= 1 for j in idxs)
+                  and not any(j in fuse_groups for j in moved)
+                  and not any(
+                      hasattr(self.layer_objs[j], "apply_stateful")
+                      and key_counts[self.param_key[j]] > 1
+                      for j in moved))
+            if ok:
+                found.append((idxs, moved))
+        found.sort(key=lambda t: t[0][0])
+        if not found:
+            self._embed_cache = (None, {})
+            return self._embed_cache
+        items: List[Tuple[str, int]] = []
+        gmap: Dict[int, List[int]] = {}
+        pos = 0
+        for idxs, moved in found:
+            first, last = idxs[0], idxs[-1]
+            if first < pos:  # overlapping window: drop this group
+                continue
+            skip = set(idxs) | set(moved)
+            items.extend(("L", j) for j in range(pos, first))
+            items.extend(("L", j) for j in range(first, last + 1)
+                         if j not in skip)
+            items.append(("E", idxs[0]))
+            items.extend(("L", j) for j in moved)
+            gmap[idxs[0]] = idxs
+            pos = last + 1
+        items.extend(("L", j) for j in range(pos, len(g.layers)))
+        self._embed_cache = (items, gmap)
+        return self._embed_cache
+
+    @staticmethod
+    def _embed_kernel(ps: List[dict], cdt: torch.dtype) -> torch.Tensor:
+        """A branch group's block kernel, OIHW ``(sum cout, sum cin,
+        kmax, kmax)`` in ``cdt`` and ``channels_last`` as the conv layer
+        keeps its own: each member's kernel (dequantized codes for an
+        int8 member) centre-embedded in its diagonal block, zeros
+        elsewhere.  Built by slice assignment, so autograd carries each
+        member's gradient back to its master."""
+        ws = [opsq.effective_wmat(p, cdt) for p in ps]
+        kmax = max(w.shape[0] for w in ws)
+        cin = sum(w.shape[2] for w in ws)
+        cout = sum(w.shape[3] for w in ws)
+        wk = torch.zeros((cout, cin, kmax, kmax), dtype=cdt,
+                         device=ws[0].device)
+        ci = co = 0
+        for w in ws:
+            k, _, c, o = w.shape
+            d0 = (kmax - k) // 2
+            wk[co:co + o, ci:ci + c, d0:d0 + k, d0:d0 + k] = \
+                w.permute(3, 2, 0, 1)
+            ci += c
+            co += o
+        return wk.contiguous(memory_format=torch.channels_last)
+
+    @staticmethod
+    def _apply_branch_embed(grp: dict, xs: Sequence[torch.Tensor],
+                            cdt: Optional[torch.dtype] = None
+                            ) -> List[torch.Tensor]:
+        """One block-kernel conv for a branch group (NHWC inputs, one per
+        member); per-member NHWC outputs.  ``grp`` holds the prepared
+        ``wk`` (or the int8 ``members`` to build it from), the ``(O,)``
+        ``bias`` (zeros for members without one; None when none has one)
+        and the per-member output ``splits``."""
+        if not all(x.shape[:3] == xs[0].shape[:3] for x in xs):
+            raise ValueError(
+                "branch-embed members must share input spatial dims: "
+                f"{[tuple(x.shape) for x in xs]}")
+        wk = grp["wk"]
+        if wk is None:
+            wk = FunctionalNet._embed_kernel(grp["members"],
+                                             cdt or xs[0].dtype)
+        pad = (wk.shape[2] - 1) // 2
+        x = torch.cat(list(xs), dim=3)
+        y = F.conv2d(x.permute(0, 3, 1, 2), wk, grp["bias"],
+                     padding=(pad, pad)).permute(0, 2, 3, 1)
+        return list(torch.split(y, grp["splits"], dim=3))
+
+    # ------------------------------------------------------------------
     def prepare(self, params: Dict[str, dict]) -> Dict[str, object]:
         """Master params -> the forward's operands: each layer's params in
         the compute dtype and its kernel's layout (none for the members of
-        a sibling-1x1 group, which run as the group; a quantized entry's
-        codes, scales and bias as they are, ``opsq.prepare_q``), and each
-        sibling-1x1 group's concatenated ``(C, O)`` kernel (None when a
-        member is quantized: ``_group_kernel`` builds it per forward from
-        ``members``) and ``(O,)`` bias (zeros for members without one;
-        None when no member has one).  Once per load for predict; per
-        step, under autograd, for training."""
+        a sibling-1x1 or branch-embed group, which run as the group; a
+        quantized entry's codes, scales and bias as they are,
+        ``opsq.prepare_q``), each sibling-1x1 group's concatenated ``(C,
+        O)`` kernel (``_group_kernel``) and each branch-embed group's
+        block kernel (``_embed_kernel``, under ``use_branch_embed()``),
+        with the group's ``(O,)`` bias (zeros for members without one;
+        None when no member has one).  A group with an int8 member keeps
+        ``members`` instead of a kernel and builds it per forward.  Once
+        per load for predict; per step, under autograd, for training."""
         cdt = self.compute_dtype
-        member = self._sibling_1x1_groups()[1] if self.fuse_1x1 else {}
+        fuse = self._sibling_1x1_groups()[0] if self.fuse_1x1 else {}
+        embed = self._branch_embed_plan()[1] if self.use_branch_embed() \
+            else {}
+        member = {j for idxs in (*fuse.values(), *embed.values())
+                  for j in idxs}
         layers: Dict[str, dict] = {}
         for i, key in enumerate(self.param_key):
             if key in params and key not in layers and i not in member:
                 layers[key] = (opsq.prepare_q(params[key])
                                if opsq.is_quantized(params[key]) else
                                self.layer_objs[i].prepare(params[key], cdt))
-        groups = {}
-        if self.fuse_1x1:
-            for leader, idxs in self._sibling_1x1_groups()[0].items():
-                ps = [params[self.param_key[j]] for j in idxs]
-                splits = [(p[opsq.QKEY] if opsq.is_quantized(p)
-                           else p["wmat"]).shape[3] for p in ps]
-                bias = None
-                if any("bias" in p for p in ps):
-                    dev = next(p["bias"] for p in ps if "bias" in p).device
-                    bias = torch.cat([
-                        p["bias"] if "bias" in p else torch.zeros(n, device=dev)
-                        for p, n in zip(ps, splits)]).to(cdt)
-                quant = any(opsq.is_quantized(p) for p in ps)
-                groups[leader] = {
-                    "w2d": None if quant else self._group_kernel(ps, cdt),
+
+        def group(idxs, build, key):
+            ps = [params[self.param_key[j]] for j in idxs]
+            splits = [(p[opsq.QKEY] if opsq.is_quantized(p)
+                       else p["wmat"]).shape[3] for p in ps]
+            bias = None
+            if any("bias" in p for p in ps):
+                dev = next(p["bias"] for p in ps if "bias" in p).device
+                bias = torch.cat([
+                    p["bias"] if "bias" in p else torch.zeros(n, device=dev)
+                    for p, n in zip(ps, splits)]).to(cdt)
+            quant = any(opsq.is_quantized(p) for p in ps)
+            return {key: None if quant else build(ps, cdt),
                     "members": ps if quant else None,
-                    "bias": bias,
-                    "splits": splits,
-                }
-        return {"layers": layers, "groups": groups}
+                    "bias": bias, "splits": splits}
+
+        return {"layers": layers,
+                "groups": {leader: group(idxs, self._group_kernel, "w2d")
+                           for leader, idxs in fuse.items()},
+                "embed": {leader: group(idxs, self._embed_kernel, "wk")
+                          for leader, idxs in embed.items()}}
 
     @staticmethod
     def _group_kernel(ps: List[dict], cdt: torch.dtype) -> torch.Tensor:
@@ -387,7 +598,23 @@ class FunctionalNet:
         batch = self.batch_size if self.batch_size > 0 else data.shape[0]
         fuse_groups, fuse_member = (
             self._sibling_1x1_groups() if self.fuse_1x1 else ({}, {}))
-        for i, spec in enumerate(g.layers):
+        embed_items, embed_groups = (
+            self._branch_embed_plan() if self.use_branch_embed()
+            else (None, {}))
+        items = (embed_items if embed_items is not None
+                 else [("L", i) for i in range(len(g.layers))])
+        for kind, i in items:
+            spec = g.layers[i]
+            if kind == "E":
+                idxs = embed_groups[i]
+                xs = [nodes[g.layers[j].nindex_in[0]] for j in idxs]
+                if any(v is None for v in xs):
+                    raise ValueError(
+                        f"branch-embed group at layer {i}: unset input node")
+                outs = self._apply_branch_embed(prepared["embed"][i], xs, cdt)
+                for j, out in zip(idxs, outs):
+                    nodes[g.layers[j].nindex_out[0]] = out
+                continue
             if i in fuse_member:
                 if fuse_member[i] != i:
                     continue  # output produced by its group leader

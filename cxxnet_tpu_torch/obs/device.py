@@ -20,7 +20,9 @@ JAX package's names (one ``alert=`` rule reads both packages):
   it is an opt-in diagnostic;
 * ``kernel_selected{name,backend}`` — 1 for each C entry of the
   hand-written kernels (K1–K10, ``ops/_build.py``) this process has
-  launched on the card (``backend = cuda``);
+  launched on the card (``backend = cuda``), and beside it
+  ``kernel_launches_total{kernel,name}``, each entry's launches in this
+  process (a port-only family, collected in ``ops/_build.py``);
 * ``train_state_shard_bytes{device}`` / ``train_state_total_bytes`` —
   the trainer's params and updater state, as placed.
 

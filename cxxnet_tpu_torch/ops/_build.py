@@ -51,6 +51,8 @@ BUILD_DIR = os.path.join(DEFAULT_CACHE_ROOT, "kernels")
 #: the kernel libraries this process has loaded (a library once loaded
 #: is never reloaded, wherever the cache moves)
 LOADED: List[str] = []
+#: every :class:`Kernel` made in this process, for the launch collector
+INSTANCES: List["Kernel"] = []
 _LOCAL_INCLUDE = re.compile(rb'#include\s+"([^"]+)"')
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -107,7 +109,11 @@ class Kernel:
     ``launches`` counts successful launches of the CUDA kernel and
     nothing else: a wrapper that takes the plain PyTorch version (for a
     CPU tensor) does not count; ``by_symbol`` splits the count by C
-    entry (a source with several kernel variants).  ``dtypes`` are the C
+    entry (a source with several kernel variants); ``lifetime`` is
+    ``by_symbol`` since the process began, which :meth:`reset_counts`
+    leaves alone and ``/metricsz`` exports as
+    ``kernel_launches_total{kernel,name}`` (one serving replica's
+    launches, read from outside its process).  ``dtypes`` are the C
     entry suffixes the source exports (``<name>_<suffix>``)."""
 
     def __init__(self, name: str, replaces: str,
@@ -118,10 +124,12 @@ class Kernel:
         self.dtypes = tuple(dtypes)
         self.launches = 0
         self.by_symbol: Dict[str, int] = {}
+        self.lifetime: Dict[str, int] = {}
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._fns: Dict[str, ctypes._CFuncPtr] = {}
         self._lock = threading.Lock()
+        INSTANCES.append(self)
 
     def library_path(self) -> str:
         """The library's path, keyed by the source, the local headers it
@@ -158,7 +166,7 @@ class Kernel:
         """Call ``symbol`` (C return type int = cudaError_t) and raise
         unless it returned 0; count the launch.  Binding an entry (its
         first call) sets ``kernel_selected{name=symbol,backend=cuda}``
-        in ``/metricsz``."""
+        in ``/metricsz`` and plugs in :func:`launch_collector`."""
         fn = self._fns.get(symbol)
         if fn is None:
             fn = getattr(self._load(), symbol)
@@ -167,18 +175,35 @@ class Kernel:
             self._fns[symbol] = fn
             from ..obs import device as obs_device
 
+            from ..obs.registry import registry as obs_registry
+
             obs_device.mark_kernel_selected(symbol, "cuda", True)
+            obs_registry().register_collector(launch_collector)
         rc = fn(*args)
         if rc != 0:
             raise KernelError(
                 f"{self.name}: {symbol} returned CUDA error {rc}")
         self.launches += 1
         self.by_symbol[symbol] = self.by_symbol.get(symbol, 0) + 1
+        self.lifetime[symbol] = self.lifetime.get(symbol, 0) + 1
 
     def reset_counts(self) -> None:
-        """Set ``launches`` and ``by_symbol`` to 0."""
+        """Set ``launches`` and ``by_symbol`` to 0 (not ``lifetime``)."""
         self.launches = 0
         self.by_symbol = {}
+
+
+def launch_collector():
+    """Collector: ``kernel_launches_total{kernel,name}``, each C entry's
+    launches in this process (:attr:`Kernel.lifetime`), read at scrape
+    time, so a launch costs no registry lookup."""
+    samples = [({"kernel": k.name, "name": sym}, float(n))
+               for k in INSTANCES for sym, n in sorted(k.lifetime.items())]
+    if not samples:
+        return []
+    return [("kernel_launches_total", "counter",
+             "Launches of each C entry of the hand-written kernels in "
+             "this process.", samples)]
 
 
 def build(kernels: Sequence[Kernel]) -> Dict[str, float]:

@@ -58,7 +58,8 @@ Counterpart of ``cxxnet_tpu/serve/engine.py`` for this slice:
   which ``controller = 1`` turns (``tune/``); the ``serve.batch`` and
   ``serve.reload`` fault sites.
 
-The fleet/router is a later slice (ROADMAP.md).
+N engines in N processes behind one front door are the serving fleet
+(``fleet.py``, ``router.py``; ``task=serve replicas = N``).
 """
 
 from __future__ import annotations

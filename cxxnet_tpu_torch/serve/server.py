@@ -10,7 +10,8 @@ so a client keeps its connection alive across requests.  Endpoints:
   (add ``"raw": true`` for the full score rows, ``{"scores": ...}``)
 * ``POST /extract``  — ``{"data": ..., "node": "fc1"}`` →
   ``{"features": [[...], ...]}``
-* ``GET  /healthz``  — liveness + model identity (round, fingerprint)
+* ``GET  /healthz``  — liveness + model identity (round, fingerprint);
+  the ``serve.replica`` fault site fires here (``replica_fault_probe``)
 * ``GET  /statsz``   — serving metrics (``metrics.py``)
 * ``GET  /metricsz`` — Prometheus text (version 0.0.4) of the
   process-wide metrics registry (``obs/registry.py``): request outcomes
@@ -79,17 +80,39 @@ import numpy as np
 from ..obs import alerts as obs_alerts
 from ..obs import events as obs_events
 from ..obs.registry import registry as obs_registry
+from ..utils import faults
 from . import wire
 from .batcher import ServeError
 from .engine import Engine
 from .router import UnknownModelError
 
-__all__ = ["make_server", "serve_forever"]
+__all__ = ["make_server", "serve_forever", "replica_fault_probe"]
 
 # A full-width JSON request (128 rows of 3x224x224 floats) is ~100-200 MB
 # of text; the JAX server's 64 MiB cap would refuse it.  A binary frame
 # is held to wire.MAX_PAYLOAD_BYTES (64 MiB) by its own decoder.
 MAX_BODY_BYTES = 512 << 20
+
+
+def replica_fault_probe() -> None:
+    """The ``serve.replica`` chaos site, fired on every ``/healthz``
+    probe of this replica:
+
+    * ``hang`` — the probe response blocks: this replica is WEDGED.
+      The fleet supervisor's probe deadline classifies it SLOW, then
+      ejects it from rotation; a standalone server just looks unhealthy
+      to its load balancer.
+    * ``ioerror`` — the replica CRASHES (exit code 13, after a
+      ``serve.replica_crash`` event), the abrupt process loss a real
+      fault produces; the fleet supervisor must restart it with
+      backoff.
+
+    No-op while the site is disarmed (the common case)."""
+    try:
+        faults.fault_point("serve.replica")
+    except faults.InjectedFault:
+        obs_events.emit("serve.replica_crash", injected=True)
+        os._exit(13)
 
 
 class _InflightGauge:
@@ -196,6 +219,7 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self) -> None:  # noqa: N802 - stdlib name
         with self.inflight:
             if self.path == "/healthz":
+                replica_fault_probe()  # the serve.replica chaos site
                 h = self.engine.healthz()
                 if self.router is not None:
                     h["models"] = self.router.healthz_models()

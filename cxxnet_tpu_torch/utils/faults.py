@@ -79,9 +79,8 @@ PORTED_SITES = ("imgbin.page", "imgbin.record", "pipeline.worker",
                 "libsvm.row", "text.read", "checkpoint.write",
                 "checkpoint.read", "obs.append", "serve.batch",
                 "serve.reload", "device.state", "loop.append",
-                "loop.commit", "dataservice.rpc")
-_SITE_ITEM = {"serve.replica": "(i), the serving fleet",
-              "mesh.replica": "(k), multi-device"}
+                "loop.commit", "dataservice.rpc", "serve.replica")
+_SITE_ITEM = {"mesh.replica": "(k), multi-device"}
 
 
 class InjectedFault(OSError):

@@ -521,15 +521,18 @@ def test_injected_record_corruption_matches_jax(tmp_path, workers):
 
 
 def test_fault_sites_the_port_does_not_visit_raise():
-    # the closed loop's and the data service's sites are armable now
+    # the closed loop's, the data service's and the fleet's sites are
+    # armable now
     for spec in ("loop.append:ioerror:1", "loop.commit:enospc:1",
-                 "dataservice.rpc:hang:1"):
+                 "dataservice.rpc:hang:1", "serve.replica:hang:1"):
         assert tfaults.install(spec).site == spec.split(":")[0]
+    tfaults.reset()
+    tfaults.configure([("fault_inject", "serve.replica:ioerror:1")])
     tfaults.reset()
     with pytest.raises(NotImplementedError, match=r"item \(k\)"):
         tfaults.install("mesh.replica:hang:1")
-    with pytest.raises(NotImplementedError, match=r"item \(i\)"):
-        tfaults.configure([("fault_inject", "serve.replica:hang:1")])
+    with pytest.raises(NotImplementedError, match=r"item \(k\)"):
+        tfaults.configure([("fault_inject", "mesh.replica:ioerror:1")])
     with pytest.raises(ValueError, match="unknown site"):
         tfaults.install("imgbin.nope:corrupt:1")
     with pytest.raises(ValueError, match="supports kinds"):

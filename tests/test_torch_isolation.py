@@ -2,8 +2,8 @@
 
 * ``import cxxnet_tpu_torch`` (with its serving package, its CLI, the
   language-model modules, the quantized ones, the layer zoo with its
-  ``torch:`` plugin, the text iterators, the closed loop and the data
-  service) leaves ``jax``
+  ``torch:`` plugin, the text iterators, the closed loop, the data
+  service and the serving fleet with its stub) leaves ``jax``
   and ``cxxnet_tpu`` out of ``sys.modules``.  Checked in a subprocess,
   because this test process imports jax in ``conftest.py``.
 * No file of the port, nor ``chip_smoke.py``, imports either by name.
@@ -57,6 +57,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "cxxnet_tpu_torch.integrity.plane, cxxnet_tpu_torch.tune, "
         "cxxnet_tpu_torch.loop, cxxnet_tpu_torch.loop.tenant, "
         "cxxnet_tpu_torch.loop.retention, cxxnet_tpu_torch.serve.router, "
+        "cxxnet_tpu_torch.serve.fleet, cxxnet_tpu_torch.serve.stub, "
         "cxxnet_tpu_torch.io.dataservice, "
         "cxxnet_tpu_torch.io.dataservice.client\n"
         "from cxxnet_tpu_torch.layers import create_layer\n"

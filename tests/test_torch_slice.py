@@ -202,8 +202,9 @@ def test_cli_serves_and_drains_on_sigterm(jax_ckpt, tmp_path):
 
 
 def test_cli_refuses_tasks_of_later_slices(tmp_path):
-    """The serving fleet is a later slice; the closed loop's tasks run
-    and refuse what the JAX package refuses."""
+    """The closed loop's tasks run and refuse what the JAX package
+    refuses; ``task=serve replicas=2`` reaches the serving fleet's
+    options (its canary check, before any replica is spawned)."""
     from cxxnet_tpu_torch.cli import LearnTask
 
     conf = tmp_path / "gn64.conf"
@@ -212,5 +213,7 @@ def test_cli_refuses_tasks_of_later_slices(tmp_path):
         LearnTask().run([str(conf), "task=serve_train", "replicas=2"])
     with pytest.raises(ValueError, match="at least one tenant section"):
         LearnTask().run([str(conf), "task=loop_fleet"])
-    with pytest.raises(NotImplementedError, match="fleet"):
-        LearnTask().run([str(conf), "task=serve", "replicas=2"])
+    with pytest.raises(ValueError, match="canary_replicas must leave at "
+                       "least one baseline replica"):
+        LearnTask().run([str(conf), "task=serve", "replicas=2",
+                         "canary=int8", "canary_replicas=2"])
