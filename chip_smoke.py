@@ -540,6 +540,38 @@ Phases; any failure ends the run with a non-zero exit and no result:
    losses within ``EMBED_LOSS_REL``, each tensor's update at cosine >=
    ``UPDATE_COS``, the median >= ``UPDATE_COS_MEDIAN``.  A ``fleet``
    JSON line.
+27. MoE, the block stacks and ``remat`` (run before phase 21's closing
+   lines), each part in a temporary directory of its own:
+27a. The LM at ``LM_*`` widths (bf16, ``attn_impl = pallas``) through
+   ``task=train`` on a generated text file (``P27_WINDOWS`` windows,
+   two steps a round, ``LM_ROUNDS`` rounds) under ``remat = 0`` and
+   ``1``, seeded alike (their ``0000.model`` must hold equal params):
+   each step K9 ``2 x LM_LAYERS`` times and K10 ``LM_LAYERS`` under
+   remat, both ``LM_LAYERS`` without, nothing else; the two runs'
+   updates within ``LM_UPDATE_REL`` of each tensor's largest (median
+   ``LM_UPDATE_REL_MEDIAN``), bit-equality reported; one step's device
+   time both ways in turns (CUDA events) and its peak memory.
+27b. The same LM with each block's ``fullc:b{i}_fc1`` swapped for
+   ``moe:b{i}_moe`` (``MOE_EXPERTS`` experts of the fc1's width,
+   top-``MOE_TOPK``), ``remat = 1``, one round through ``task=train``
+   (K9 twice, K10 once per block a step); from its ``0000.model`` one
+   f32 step on the card against the CPU's by the LM rule's relative
+   error, and bf16 against f32 on the card by its cosines with the gates
+   unmasked (``topk = 0``; under top-2, bf16 against f32 moves whole
+   tokens between experts where a gate rounds past its neighbour:
+   logged, not held).
+27c. ``transformer_conf(pipeline_parallel=1)`` at the LM's widths
+   (causal, b8): the stack's forward (dense ``mha``, no kernel) against
+   the per-block net (K9 once a block) on the same weights restacked,
+   f32 (TF32 off) within ``PIPE_F32_REL`` and bf16 within
+   ``PIPE_BF16_REL`` of the largest change the stack makes to its input;
+   ``REMAT_STEPS`` bf16 steps under ``remat = 0`` and ``1`` (K8 once a
+   step, nothing else), their updates by the LM rule, the peak memory.
+27d. ``REMAT_STEPS`` b128 bf16 steps of googlenet.conf (rates times
+   ``LR_SCALE``, dropout on) from one seeded checkpoint under ``remat =
+   0`` (``PER_STEP`` and K8 once) and ``1`` (K1, K4 and K6 again in the
+   recompute, K2, K3, K5 at least as often, K8 once): each update at
+   cosine >= ``REMAT_COS``.  A ``moe_pipe_remat`` JSON line.
    Then a ``phase_s`` JSON line: the seconds of every phase.
 21. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
@@ -550,7 +582,11 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``launches_fleet`` (26a's and 26b's replicas, from their own
    ``/metricsz``: the checked frames and the traffic),
    ``launches_fleet_reference`` (the in-process engines those frames
-   were held against) and ``launches_branch_embed`` (26c) — max error,
+   were held against) and ``launches_branch_embed`` (26c), and phase
+   27's, ``launches_remat_lm`` (27a's ``remat = 1`` run),
+   ``launches_moe_lm`` (27b), ``launches_pipe`` (27c's ``remat = 1``
+   steps) and ``launches_remat_googlenet`` (27d's ``remat = 1`` steps) —
+   max error,
    and the times of one training step's launches summed: GoogLeNet b128
    bf16, or the LM step's 4 launches of K9 and of K10, or K7's 11
    launches of one quantized b128 forward; K6 and K7 also the mma.sync
@@ -2400,14 +2436,16 @@ def quant_phase(tmp: str, path: str, f32_answers):
 
 def kernels_line(rows, serve_launches, train_launches, flash_rows,
                  lm_launches, gen_launches, int8_rows, quant_launches,
-                 loop_out, fleet_out):
+                 loop_out, fleet_out, p27):
     """Per kernel: the launches of its main path (GoogLeNet training for
     K1-K8, with the serving run's for the forward kernels; the LM
     training run for K9 and K10, with the windowed generation run's; the
     int8 serving run for K7; beside them phase 25's: the closed loop's
     two ``serve_train`` runs and its ``loop_fleet`` run summed, and the
     service-fed training run; phase 26's: the in-process engines of 26a
-    and 26b, and 26c), the max error over every check, and one
+    and 26b, and 26c; phase 27's: 27a's ``remat = 1`` LM run, 27b's MoE
+    LM run, 27c's ``remat = 1`` pipe steps and 27d's ``remat = 1``
+    GoogLeNet steps), the max error over every check, and one
     training step's launches' times summed (GoogLeNet b128 bf16; the SGD
     kernel's f32 row covers all its launches; the LM step's 4 launches of
     K9 and of K10), or for K7 one b128 bf16 forward's 11 launches."""
@@ -2505,6 +2543,14 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
         row["launches_branch_embed"] = sum(
             d.get(row["name"], 0)
             for d in fleet_out["branch_embed"]["launches"].values())
+        row["launches_remat_lm"] = p27["remat_lm"]["launches"][1][
+            row["name"]]
+        row["launches_moe_lm"] = p27["moe_lm"]["launches"][row["name"]]
+        row["launches_pipe"] = sum(
+            d.get(row["name"], 0)
+            for d in p27["pipe"]["train"][1]["launches"])
+        row["launches_remat_googlenet"] = REMAT_STEPS * p27[
+            "remat_googlenet"]["remat"][1]["launches"][row["name"]]
     return {"kernels": out}
 
 
@@ -3603,15 +3649,26 @@ def _lm_update_of(cfg, ckpt: str, x, y, dev: str, dtype: str):
 def lm_parity_phase(cfg, mdir: str):
     """One float32 LM step on the card (TF32 off) against the CPU, and
     one bfloat16 step against the float32 one, from the run's first
-    checkpoint, ``LM_PARITY_ROWS`` rows.  Compared per tensor: the Adam
-    moments (linear in the gradient), and the update over the elements
-    whose gradient is at least 1e-3 of the tensor's largest (Adam's first
-    step ``~ g / (0.032 |g| + 1e-8)`` turns a near-zero gradient's
-    rounding into a change of sign)."""
+    checkpoint, ``LM_PARITY_ROWS`` rows (``_lm_parity``)."""
+    _lm_parity(cfg, os.path.join(mdir, "0000.model"), "lm parity")
+
+
+def _lm_parity(cfg, ckpt: str, tag: str, bf16_cfg=None):
+    """One float32 LM step from ``ckpt`` on the card (TF32 off) against
+    the CPU, and one bfloat16 step against the float32 one, on the card,
+    ``LM_PARITY_ROWS`` rows.  With ``bf16_cfg`` (a MoE net's conf with
+    ``topk = 0``) the bf16-vs-f32 pair runs that conf and the pair under
+    ``cfg`` is logged, not held: top-k routing is discontinuous, so a
+    gate that bf16 rounds past its neighbour sends a token to another
+    expert, and bf16 against f32 moves whole tokens.  Compared per
+    tensor: the Adam moments (linear in the gradient), and the update
+    over the elements whose gradient is at least 1e-3 of the tensor's
+    largest (Adam's first step ``~ g / (0.032 |g| + 1e-8)`` turns a
+    near-zero gradient's rounding into a change of sign).  Returns the
+    worst readings."""
     import numpy as np
     import torch
 
-    ckpt = os.path.join(mdir, "0000.model")
     rng = np.random.RandomState(SEED + 13)
     x = rng.randint(0, 256, (LM_PARITY_ROWS, LM_T)).astype(np.float32)
     y = rng.randint(0, 256, (LM_PARITY_ROWS, LM_T)).astype(np.float32)
@@ -3621,7 +3678,12 @@ def lm_parity_phase(cfg, mdir: str):
     card, loss_card = _lm_update_of(cfg, ckpt, x, y, "gpu", "float32")
     cpu, loss_cpu = _lm_update_of(cfg, ckpt, x, y, "cpu", "float32")
     bf16, loss_bf16 = _lm_update_of(cfg, ckpt, x, y, "gpu", "bfloat16")
-    log(f"lm parity: {LM_PARITY_ROWS}-row steps in "
+    pairs = [(bf16, card)]
+    if bf16_cfg is not None:
+        pairs.insert(0, tuple(
+            _lm_update_of(bf16_cfg, ckpt, x, y, "gpu", dt)[0]
+            for dt in ("bfloat16", "float32")))
+    log(f"{tag}: {LM_PARITY_ROWS}-row steps in "
         f"{time.perf_counter() - t0:.1f}s; losses f32 card {loss_card:.6f}"
         f" cpu {loss_cpu:.6f} bf16 card {loss_bf16:.6f}")
 
@@ -3632,22 +3694,31 @@ def lm_parity_phase(cfg, mdir: str):
     def cos(a, b):
         return float((a * b).sum() / (np.linalg.norm(a) * np.linalg.norm(b)))
 
+    def cosines(b16_run, f32_run):
+        out = {}
+        for kt, (d_r, m1_r, _) in f32_run.items():
+            d_b, m1_b, _ = b16_run[kt]
+            sel = np.abs(m1_r) >= 1e-3 * np.abs(m1_r).max()
+            out[kt] = min(cos(m1_b, m1_r), cos(d_b[sel], d_r[sel]))
+        return out
+
     f32 = {}
-    b16 = {}
     for kt, (d_cpu, m1_cpu, m2_cpu) in cpu.items():
         d_card, m1_card, m2_card = card[kt]
-        d_b, m1_b, _ = bf16[kt]
         sel = np.abs(m1_cpu) >= 1e-3 * np.abs(m1_cpu).max()
         f32[kt] = max(rel(m1_card, m1_cpu), rel(m2_card, m2_cpu),
                       rel(d_card, d_cpu, sel))
-        sel32 = np.abs(m1_card) >= 1e-3 * np.abs(m1_card).max()
-        b16[kt] = min(cos(m1_b, m1_card), cos(d_b[sel32], d_card[sel32]))
-    for name, vals, rev in (("f32 card vs CPU, worst relative error of "
-                             "m1, m2, resolved update", f32, True),
-                            ("bf16 vs f32 card, worst cosine of m1 and "
-                             "resolved update", b16, False)):
+    b16 = cosines(*pairs[0])
+    shown = [("f32 card vs CPU, worst relative error of m1, m2, resolved "
+              "update", f32, True),
+             ("bf16 vs f32 card" + (", topk = 0" if bf16_cfg else "")
+              + ", worst cosine of m1 and resolved update", b16, False)]
+    if bf16_cfg is not None:
+        shown.append(("bf16 vs f32 card (not held), worst cosine",
+                      cosines(*pairs[1]), False))
+    for name, vals, rev in shown:
         worst = sorted(vals.items(), key=lambda kv: kv[1], reverse=rev)[:5]
-        log(f"lm parity: {name}: median "
+        log(f"{tag}: {name}: median "
             f"{statistics.median(vals.values()):.4g}; worst 5: "
             + ", ".join(f"{'/'.join(kt)} {v:.4g}" for kt, v in worst))
     bad = [kt for kt, v in f32.items() if not v <= LM_UPDATE_REL]
@@ -3659,7 +3730,13 @@ def lm_parity_phase(cfg, mdir: str):
     if abs(loss_card - loss_cpu) > 1e-4 * abs(loss_cpu):
         bad.append(("loss", "f32 card vs CPU"))
     if bad:
-        raise SmokeError(f"LM training parity out of tolerance: {bad[:8]}")
+        raise SmokeError(f"{tag}: LM training parity out of tolerance: "
+                         f"{bad[:8]}")
+    return {"f32_worst_rel": max(f32.values()),
+            "f32_median_rel": statistics.median(f32.values()),
+            "bf16_worst_cos": min(b16.values()),
+            "bf16_median_cos": statistics.median(b16.values()),
+            "loss_f32_card": loss_card, "loss_f32_cpu": loss_cpu}
 
 
 def lm_generate_phase(conf: str, mdir: str, tmp: str):
@@ -9569,6 +9646,506 @@ def fleet_phase(card):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 27: moe, pipe stacks, remat
+#
+# 27a and 27b train on a generated text file of P27_WINDOWS windows (two
+# steps a round at LM_BATCH); 27b's LM swaps each block's fc1 for a MoE
+# layer of MOE_EXPERTS experts of the fc1's width, top-MOE_TOPK routed;
+# 27c's stack is transformer_conf at the LM's widths with a
+# PIPE_CLASSES-way head; 27d takes REMAT_STEPS b128 steps of GoogLeNet
+P27_WINDOWS = 2 * LM_BATCH
+MOE_EXPERTS, MOE_TOPK = 8, 2
+PIPE_CLASSES = 16
+REMAT_STEPS = 2
+REMAT_TIMED = 5  # steps a turn in 27a's remat 0/1 turns (2 turns each)
+# 27c: the pipe stack (dense mha) against the per-block net (K9) on the
+# same weights, the largest difference of the stack's output: in f32
+# (TF32 off) over the largest change the stack makes to its input (the
+# two attentions differ by exp and summation order, 1e-5 of a row each,
+# FLASH_TOL, through four blocks); in bf16 over the output's largest
+# magnitude, since the residual stream is rounded to bf16 at the scale
+# of the input after every block (one ulp, 2^-8 of it, where the two
+# sides' sums fall either side of a rounding boundary, up to four
+# blocks' worth, and K9's P rounded against the running max)
+PIPE_F32_REL, PIPE_BF16_REL = 1e-4, 2e-2
+REMAT_COS = 0.99  # 27d: each update, remat 1 against remat 0
+
+
+def _text_file(tmp: str, name: str, windows: int, seed: int) -> str:
+    """``windows`` LM windows of seeded printable bytes."""
+    import numpy as np
+
+    path = os.path.join(tmp, name)
+    data = np.random.RandomState(seed).randint(32, 127, windows * LM_T + 1)
+    with open(path, "wb") as f:
+        f.write(data.astype(np.uint8).tobytes())
+    return path
+
+
+def _lm_text(corpus: str, remat: int, rounds: int, moe: bool = False) -> str:
+    """The smoke's LM conf (``LM_*`` widths, bf16, ``attn_impl =
+    pallas``) on ``corpus`` with ``remat``; under ``moe`` each block's
+    ``fullc:b{i}_fc1`` becomes ``moe:b{i}_moe`` of the same width."""
+    from cxxnet_tpu_torch.models import transformer_lm_conf
+
+    text = transformer_lm_conf(
+        seq_len=LM_T, dim=LM_DIM, nhead=LM_HEADS, nlayer=LM_LAYERS,
+        text_file=corpus, batch_size=LM_BATCH, num_round=rounds,
+        dev="gpu", compute_dtype="bfloat16", attn_impl="pallas")
+    for i in range(LM_LAYERS if moe else 0):
+        old = f"= fullc:b{i}_fc1\n"
+        if old not in text:
+            raise SmokeError(f"the LM conf has no {old.strip()}")
+        text = text.replace(old, f"= moe:b{i}_moe\n  nexpert = {MOE_EXPERTS}"
+                            f"\n  topk = {MOE_TOPK}\n")
+    return text + f"remat = {remat}\n"
+
+
+def _lm_run(tmp: str, name: str, text: str, want: dict, rounds: int):
+    """``task=train`` on ``text`` through ``LearnTask``: every step must
+    launch ``want`` (zeros elsewhere); returns the run's launches, its
+    checkpoint directory, conf pairs and losses."""
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    conf = os.path.join(tmp, f"{name}.conf")
+    with open(conf, "w") as f:
+        f.write(text)
+    mdir = os.path.join(tmp, name)
+    argv = [conf, "task=train", "dev=gpu", f"model_dir={mdir}",
+            f"seed={SEED}", "print_step=0", "silent=1"]
+    # the main path: counts at 0 just before, read just after
+    _, _, steps, losses, _ = _run_train_task(argv)
+    launches = {k.name: k.launches for k in KERNELS}
+    per_step = {k.name: 0 for k in KERNELS}
+    per_step.update(want)
+    n = rounds * (P27_WINDOWS // LM_BATCH)
+    if len(steps) != n or any(d != per_step for d in steps):
+        raise SmokeError(f"{name}: {len(steps)} steps (expected {n}) "
+                         f"launched {steps}, expected {per_step} each")
+    if not all(np.isfinite(losses)):
+        raise SmokeError(f"{name}: non-finite loss {losses}")
+    return launches, mdir, cfgmod.parse_file(conf), losses
+
+
+def _params_of(path: str):
+    """A checkpoint's params as f64 numpy, ``{(key, tag): array}``."""
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    _, params, _, _ = NetTrainer._read_model_file(path)
+    return {(k, t): w.astype("float64") for k, tags in params.items()
+            for t, w in tags.items()}
+
+
+def _rel_err(got, ref) -> float:
+    import numpy as np
+
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def _lm_turns(cfg, ckpt: str):
+    """Step time and peak memory of one LM step under ``remat = 0`` and
+    ``1``, from ``ckpt``, on one device-resident batch, ``eval_train =
+    0``: two turns of ``REMAT_TIMED`` steps each way (CUDA events, after
+    ``RATE_WARMUP`` warm-up steps), the peak over the resident state
+    beside the absolute one, then one step each way under the profiler
+    (device time, K9's and K10's share)."""
+    import torch
+
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    out, batch = {}, None
+    for remat in (0, 1):
+        tr = NetTrainer()
+        tr.set_params(cfg + [("eval_train", "0"), ("remat", str(remat))])
+        tr.load_model(ckpt)
+        if batch is None:
+            gen = torch.Generator(device=tr.device).manual_seed(SEED)
+            shape = (LM_BATCH, LM_T)
+            batch = DataBatch(
+                data=torch.randint(0, 256, shape, generator=gen,
+                                   device=tr.device).float(),
+                label=torch.randint(0, 256, shape, generator=gen,
+                                    device=tr.device).float())
+        for _ in range(RATE_WARMUP):
+            tr.update(batch)
+        torch.cuda.synchronize()
+        rest = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr.update(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out[remat] = {"trainer": tr, "ms": [],
+                      "peak_gib": peak / 2 ** 30,
+                      "step_peak_over_rest_gib": (peak - rest) / 2 ** 30}
+    for _ in range(2):
+        for remat in (0, 1):
+            tr = out[remat]["trainer"]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(REMAT_TIMED):
+                tr.update(batch)
+            b.record()
+            b.synchronize()
+            out[remat]["ms"].append(a.elapsed_time(b) / REMAT_TIMED)
+    for remat in (0, 1):
+        tr = out[remat]["trainer"]
+
+        def step(tr=tr):
+            tr.update(batch)
+            torch.cuda.synchronize()
+
+        prof = _profile(step, f"27a remat {remat}", "step")
+        out[remat].update(device_ms=prof["device_ms"],
+                          wall_ms=prof["wall_ms"],
+                          flash_fwd_ms=prof["flash_fwd"],
+                          flash_bwd_ms=prof["flash_bwd"],
+                          by_kind=prof["by_kind"])
+        del out[remat]["trainer"]
+    return out
+
+
+def remat_lm_phase(tmp: str, card: str):
+    """27a: the LM at ``LM_*`` widths through ``task=train`` under
+    ``remat = 0`` and ``1`` from one seeded checkpoint: K9 twice and K10
+    once per block a step under remat, K9 and K10 once without; the two
+    runs' updates by the LM rule; step device time and peak memory both
+    ways, in turns."""
+    import numpy as np
+
+    corpus = _text_file(tmp, "remat.txt", P27_WINDOWS, SEED + 27)
+    runs = {}
+    for remat in (0, 1):
+        want = {"flash_fwd": LM_LAYERS * (2 if remat else 1),
+                "flash_bwd": LM_LAYERS}
+        runs[remat] = _lm_run(tmp, f"lm_remat{remat}",
+                              _lm_text(corpus, remat, LM_ROUNDS), want,
+                              LM_ROUNDS)
+    first = [_params_of(os.path.join(runs[r][1], "0000.model"))
+             for r in (0, 1)]
+    if any(not np.array_equal(first[0][kt], first[1][kt]) for kt in first[0]):
+        raise SmokeError("27a: the two runs did not start from one "
+                         "checkpoint")
+    last = [_params_of(os.path.join(runs[r][1], f"{LM_ROUNDS:04d}.model"))
+            for r in (0, 1)]
+    d = [{kt: last[r][kt] - first[0][kt] for kt in first[0]} for r in (0, 1)]
+    rel = {kt: _rel_err(d[1][kt], d[0][kt]) for kt in d[0]}
+    equal = all(np.array_equal(last[0][kt], last[1][kt]) for kt in last[0])
+    med = statistics.median(rel.values())
+    log(f"27a remat: {len(d[0])} tensors' updates after {LM_ROUNDS} rounds, "
+        f"remat 1 vs 0: bit-equal {equal}; worst rel "
+        f"{max(rel.values()):.3g} (limit {LM_UPDATE_REL:g}), median "
+        f"{med:.3g} (limit {LM_UPDATE_REL_MEDIAN:g}); losses remat 0 "
+        f"{[round(v, 4) for v in runs[0][3]]}, remat 1 "
+        f"{[round(v, 4) for v in runs[1][3]]}")
+    if max(rel.values()) > LM_UPDATE_REL or med > LM_UPDATE_REL_MEDIAN:
+        raise SmokeError(f"27a: remat changed the LM's updates: "
+                         f"{sorted(rel.items(), key=lambda kv: -kv[1])[:5]}")
+    turns = _lm_turns(runs[0][2] + [("dev", "gpu")],
+                      os.path.join(runs[0][1], f"{LM_ROUNDS:04d}.model"))
+    for remat, t in turns.items():
+        log(f"27a remat {remat}: b{LM_BATCH} T{LM_T} d{LM_DIM} L{LM_LAYERS} "
+            f"bf16 step {t['ms']} ms (CUDA events, {REMAT_TIMED} steps a "
+            f"turn), {t['device_ms']:.3f} ms of device time (K9 "
+            f"{t['flash_fwd_ms']:.3f}, K10 {t['flash_bwd_ms']:.3f}); peak "
+            f"{t['peak_gib']:.3f} GiB, {t['step_peak_over_rest_gib']:.3f} "
+            f"GiB over the resident state; {card}")
+    return {"launches": {r: runs[r][0] for r in (0, 1)},
+            "bit_equal": equal, "worst_rel": max(rel.values()),
+            "median_rel": med, "turns": turns}
+
+
+def moe_lm_phase(tmp: str, card: str):
+    """27b: the LM with a MoE layer for each block's fc1, ``remat = 1``,
+    one round through ``task=train`` (K9 twice and K10 once per block a
+    step), then one f32 step from its first checkpoint on the card
+    against the CPU, and bf16 against f32 on the card with the gates
+    unmasked (``topk = 0``: ``_lm_parity``; top-2 routing moves whole
+    tokens between bf16 and f32, logged beside it)."""
+    corpus = _text_file(tmp, "moe.txt", P27_WINDOWS, SEED + 28)
+    want = {"flash_fwd": 2 * LM_LAYERS, "flash_bwd": LM_LAYERS}
+    launches, mdir, cfg, losses = _lm_run(
+        tmp, "lm_moe", _lm_text(corpus, 1, 1, moe=True), want, 1)
+    params = _params_of(os.path.join(mdir, "0001.model"))
+    shapes = {kt: w.shape for kt, w in params.items() if "_moe" in kt[0]}
+    if len(shapes) != 3 * LM_LAYERS or any(
+            s != (MOE_EXPERTS, 4 * LM_DIM, LM_DIM)
+            for (k, t), s in shapes.items() if t == "wmat"):
+        raise SmokeError(f"27b: the MoE tensors are {shapes}")
+    log(f"27b moe: {LM_LAYERS} MoE layers of {MOE_EXPERTS} x "
+        f"({4 * LM_DIM}, {LM_DIM}), top-{MOE_TOPK}; losses "
+        f"{[round(v, 4) for v in losses]}")
+    dense = [(n, "0" if n == "topk" else v) for n, v in cfg]
+    parity = _lm_parity(cfg + [("dev", "gpu")],
+                        os.path.join(mdir, "0000.model"), "27b moe parity",
+                        bf16_cfg=dense + [("dev", "gpu")])
+    return {"launches": launches, "parity": parity}
+
+
+def _restack(src, dst):
+    """The pipe stack's ``(L, ...)`` params into the per-block net's
+    layers (``transformer_conf``'s names), and the head, in place."""
+    import torch
+
+    blocks = src.params[src.net.param_key[src.graph.layer_index_of(
+        "blocks")]]
+
+    def key(tr, name):
+        return tr.net.param_key[tr.graph.layer_index_of(name)]
+
+    with torch.no_grad():
+        for j in range(LM_LAYERS):
+            for name, tags in ((f"b{j}_ln1", {"wmat": "ln1_w",
+                                               "bias": "ln1_b"}),
+                               (f"b{j}_attn", {"wmat": "wqkv",
+                                               "bias": "bqkv",
+                                               "wproj": "wproj",
+                                               "bproj": "bproj"}),
+                               (f"b{j}_ln2", {"wmat": "ln2_w",
+                                              "bias": "ln2_b"}),
+                               (f"b{j}_fc1", {"wmat": "wff1",
+                                              "bias": "bff1"}),
+                               (f"b{j}_fc2", {"wmat": "wff2",
+                                              "bias": "bff2"})):
+                for t, st in tags.items():
+                    dst.params[key(dst, name)][t].copy_(blocks[st][j])
+        for t, w in src.params[key(src, "head")].items():
+            dst.params[key(dst, "head")][t].copy_(w)
+    dst._invalidate_prepared()
+
+
+def pipe_phase(tmp: str, card: str):
+    """27c: ``transformer_conf(pipeline_parallel=1)`` at the LM's widths
+    (causal, b8): its stack's forward (dense ``mha``, no kernel) against
+    the per-block net (K9 once per block) on the same weights restacked,
+    f32 (TF32 off) and bf16; then ``REMAT_STEPS`` steps under ``remat =
+    0`` and ``1`` from one checkpoint, K8 once a step and nothing else,
+    their updates equal by the LM rule, the peak memory both ways."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.models import transformer_conf
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    kw = dict(batch_size=LM_BATCH, seq_len=LM_T, dim=LM_DIM,
+              nhead=LM_HEADS, nlayer=LM_LAYERS, num_class=PIPE_CLASSES,
+              causal=1, dev="gpu", compute_dtype="float32")
+    pipe_cfg = cfgmod.parse_pairs(transformer_conf(pipeline_parallel=1, **kw))
+    ref_cfg = cfgmod.parse_pairs(transformer_conf(attn_impl="pallas", **kw))
+    trp, trb = NetTrainer(), NetTrainer()
+    trp.set_params(pipe_cfg + [("seed", str(SEED))])
+    trp.init_model()
+    trb.set_params(ref_cfg)
+    trb.init_model()
+    _restack(trp, trb)
+    gen = torch.Generator(device=trp.device).manual_seed(SEED + 29)
+    x = torch.randn((LM_BATCH, LM_T, LM_DIM), generator=gen,
+                    device=trp.device)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fwd = {}
+    try:
+        for dtype, limit in (("float32", PIPE_F32_REL),
+                             ("bfloat16", PIPE_BF16_REL)):
+            ys, counts = [], []
+            for tr, node in ((trp, "blocks"), (trb, f"b{LM_LAYERS - 1}_r2")):
+                tr.net.compute_dtype = getattr(torch, dtype)
+                for k in KERNELS:
+                    k.reset_counts()
+                with torch.no_grad():
+                    nodes = tr.net.forward(tr.net.prepare(tr.params), x)
+                    ys.append(nodes[tr.graph.node_index_of(node)].double())
+                torch.cuda.synchronize()
+                counts.append({k.name: k.launches for k in KERNELS
+                               if k.launches})
+                del nodes
+            scale = ((ys[1] - x.double()) if dtype == "float32"
+                     else ys[1]).abs().max()
+            err = float((ys[0] - ys[1]).abs().max() / scale)
+            fwd[dtype] = {"rel": err, "limit": limit, "launches": counts}
+            log(f"27c pipe: {dtype} stack forward (dense mha) vs per-block "
+                f"net (K9): max diff over the "
+                f"{'stack' + chr(39) + 's largest change' if dtype == 'float32' else 'largest output'}"
+                f" {err:.3g} (limit {limit:g}); launches pipe {counts[0]}, "
+                f"per-block {counts[1]}")
+            if not (counts[0] == {} and counts[1] == {"flash_fwd": LM_LAYERS}):
+                raise SmokeError(f"27c: forward launches {counts}")
+            if not err <= limit:
+                raise SmokeError(f"27c: the pipe stack's {dtype} forward is "
+                                 f"{err:.3g} off the per-block net's")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    del trb
+    ckpt = os.path.join(tmp, "pipe.model")
+    trp.save_model(ckpt)
+    del trp
+    rng = np.random.RandomState(SEED + 30)
+    batches = [(rng.randn(LM_BATCH, LM_T, LM_DIM).astype(np.float32),
+                rng.randint(0, PIPE_CLASSES, (LM_BATCH, 1)).astype(
+                    np.float32)) for _ in range(REMAT_STEPS)]
+    w0 = _params_of(ckpt)
+    bf16_cfg = cfgmod.parse_pairs(transformer_conf(
+        pipeline_parallel=1, **dict(kw, compute_dtype="bfloat16")))
+    train = {}
+    for remat in (0, 1):
+        tr = NetTrainer()
+        tr.set_params(bf16_cfg + [("remat", str(remat))])
+        tr.load_model(ckpt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rest = torch.cuda.memory_allocated()
+        steps, losses = [], []
+        for xb, yb in batches:
+            before = {k.name: k.launches for k in KERNELS}
+            tr.update_all(xb, yb)
+            losses.append(float(tr.last_loss))
+            steps.append({k.name: k.launches - before[k.name]
+                          for k in KERNELS if k.launches - before[k.name]})
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        d = {kt: tr.params[kt[0]][kt[1]].detach().double().cpu().numpy()
+             - w for kt, w in w0.items()}
+        train[remat] = {"launches": steps, "losses": losses, "d": d,
+                        "peak_gib": peak / 2 ** 30,
+                        "peak_over_rest_gib": (peak - rest) / 2 ** 30}
+        del tr
+        if steps != [{"sgd_update": 1}] * REMAT_STEPS:
+            raise SmokeError(f"27c: remat {remat} steps launched {steps}")
+        if not np.isfinite(losses).all():
+            raise SmokeError(f"27c: remat {remat} losses {losses}")
+        log(f"27c pipe: remat {remat}: {REMAT_STEPS} bf16 steps, losses "
+            f"{[round(v, 4) for v in losses]}, launches {steps[0]} a step; "
+            f"peak {peak / 2 ** 30:.3f} GiB, "
+            f"{(peak - rest) / 2 ** 30:.3f} GiB over the resident state; "
+            f"{card}")
+    rel = {kt: _rel_err(train[1]["d"][kt], d0)
+           for kt, d0 in train[0]["d"].items()}
+    log(f"27c pipe: updates remat 1 vs 0: worst rel {max(rel.values()):.3g}"
+        f" (limit {LM_UPDATE_REL:g})")
+    if max(rel.values()) > LM_UPDATE_REL:
+        raise SmokeError(f"27c: remat changed the pipe stack's updates: "
+                         f"{sorted(rel.items(), key=lambda kv: -kv[1])[:5]}")
+    for r in train.values():
+        del r["d"]
+    return {"forward": fwd, "train": train, "worst_rel": max(rel.values())}
+
+
+def remat_googlenet_phase(tmp: str, card: str):
+    """27d: ``REMAT_STEPS`` b128 bf16 steps of googlenet.conf (rates times
+    ``LR_SCALE``, dropout on) from one seeded checkpoint under ``remat =
+    0`` and ``1``: without remat each step launches ``PER_STEP`` and K8
+    once; under remat the forward kernels (K1, K4, K6) run again in the
+    backward's recompute and the others as often; each update at cosine
+    >= ``REMAT_COS``; the peak memory both ways."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    cfg = cfgmod.parse_pairs(_net_text(CONF, LR_SCALE)) + [
+        ("dev", "gpu"), ("silent", "1"), ("eval_train", "0")]
+    side = int(dict(cfg)["input_shape"].split(",")[1])
+    src = NetTrainer()
+    src.set_params(cfg + [("seed", str(SEED))])
+    src.init_model()
+    ckpt = os.path.join(tmp, "googlenet.model")
+    src.save_model(ckpt)
+    del src
+    w0 = _params_of(ckpt)
+    rng = np.random.RandomState(SEED + 31)
+    batches = [(rng.randn(BATCH, side, side, 3).astype(np.float32),
+                rng.randint(0, 1000, (BATCH, 1)).astype(np.float32))
+               for _ in range(REMAT_STEPS)]
+    plain = {**{k.name: 0 for k in KERNELS}, **PER_STEP, "sgd_update": 1}
+    out = {}
+    for remat in (0, 1):
+        tr = NetTrainer()
+        tr.set_params(cfg + [("remat", str(remat))])
+        tr.load_model(ckpt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rest = torch.cuda.memory_allocated()
+        steps, losses = [], []
+        for xb, yb in batches:
+            before = {k.name: k.launches for k in KERNELS}
+            tr.update_all(xb, yb)
+            losses.append(float(tr.last_loss))
+            steps.append({k.name: k.launches - before[k.name]
+                          for k in KERNELS})
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        d = {kt: tr.params[kt[0]][kt[1]].detach().double().cpu().numpy()
+             - w for kt, w in w0.items()}
+        del tr
+        out[remat] = {"launches": steps[0], "losses": losses, "d": d,
+                      "peak_gib": peak / 2 ** 30,
+                      "peak_over_rest_gib": (peak - rest) / 2 ** 30}
+        log(f"27d googlenet: remat {remat}: {REMAT_STEPS} b{BATCH} bf16 "
+            f"steps, losses {[round(v, 4) for v in losses]}, launches a "
+            f"step {steps[0]}; peak {peak / 2 ** 30:.3f} GiB, "
+            f"{(peak - rest) / 2 ** 30:.3f} GiB over the resident state; "
+            f"{card}")
+        if any(s != steps[0] for s in steps):
+            raise SmokeError(f"27d: remat {remat} steps differ: {steps}")
+        if not np.isfinite(losses).all():
+            raise SmokeError(f"27d: remat {remat} losses {losses}")
+    if out[0]["launches"] != plain:
+        raise SmokeError(f"27d: a step launched {out[0]['launches']}, "
+                         f"expected {plain}")
+    rerun = {n: out[1]["launches"][n] - c for n, c in plain.items()}
+    if not (all(v >= 0 for v in rerun.values())
+            and all(rerun[n] > 0 for n in PER_FORWARD)
+            and out[1]["launches"]["sgd_update"] == 1):
+        raise SmokeError(f"27d: under remat a step launched "
+                         f"{out[1]['launches']}, against {plain} without")
+    cos = {kt: float((a * out[1]["d"][kt]).sum()
+                     / (np.linalg.norm(a) * np.linalg.norm(out[1]["d"][kt])))
+           for kt, a in out[0]["d"].items()}
+    equal = all(np.array_equal(a, out[1]["d"][kt])
+                for kt, a in out[0]["d"].items())
+    worst = min(cos, key=cos.get)
+    log(f"27d googlenet: updates remat 1 vs 0: bit-equal {equal}; worst "
+        f"cosine {cos[worst]:.6f} at {'/'.join(worst)} (limit "
+        f"{REMAT_COS:g}); launches rerun by the recompute {rerun}")
+    if cos[worst] < REMAT_COS:
+        raise SmokeError(f"27d: remat changed GoogLeNet's updates: "
+                         f"{sorted(cos.items(), key=lambda kv: kv[1])[:5]}")
+    for r in out.values():
+        del r["d"]
+    return {"remat": out, "bit_equal": equal, "worst_cos": cos[worst]}
+
+
+def moe_pipe_remat_phase(card: str):
+    """Phase 27: 27a-27d, each in one temporary directory, the device's
+    allocator cache emptied between them; returns their readings."""
+    import torch
+
+    out = {"card": card}
+    t0 = time.perf_counter()
+    for name, fn in (("remat_lm", remat_lm_phase), ("moe_lm", moe_lm_phase),
+                     ("pipe", pipe_phase),
+                     ("remat_googlenet", remat_googlenet_phase)):
+        t1 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
+            out[name] = fn(tmp, card)
+        torch.cuda.empty_cache()
+        out[name]["phase_s"] = time.perf_counter() - t1
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -9694,9 +10271,12 @@ def main() -> int:
         fleet_out = fleet_phase(card)
         log(json.dumps({"fleet": fleet_out}))
         lap("26 fleet, branch-embed")
+        p27 = moe_pipe_remat_phase(card)
+        log(json.dumps({"moe_pipe_remat": p27}))
+        lap("27 moe, pipe, remat")
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
-                            quant_launches, loop_out, fleet_out)
+                            quant_launches, loop_out, fleet_out, p27)
         log(json.dumps({"phase_s": phase_s, "total_s": round(sum(
             phase_s.values()), 1), "card": card}))
         log(card)

@@ -224,7 +224,5 @@ def create_layer(type_name: str) -> Layer:
     if type_name == "torch" and type_name not in _REGISTRY:
         from ..plugin import torch_adapter  # noqa: F401 - registers "torch"
     if type_name not in _REGISTRY:
-        raise ValueError(
-            f'unknown layer type: "{type_name}" (ROADMAP.md queue A lists '
-            "the layer types the port has yet to take over)")
+        raise ValueError(f'unknown layer type: "{type_name}"')
     return _REGISTRY[type_name]()

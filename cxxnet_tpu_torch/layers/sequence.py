@@ -1,4 +1,5 @@
-"""Sequence layers: multi-head attention, layer norm, sequence pooling.
+"""Sequence layers: multi-head attention, layer norm, sequence pooling,
+mixture of experts and the block stacks.
 
 Counterpart of ``cxxnet_tpu/layers/sequence.py``.  Sequence nodes are
 ``(N, T, D)``.  ``attention`` config keys:
@@ -31,6 +32,12 @@ Parameters use the framework's ``(nout, nin)`` layout: a fused ``wmat``
 ``(3D, D)`` and ``bias`` for q, k and v, then ``wproj`` ``(D, D)`` and
 ``bproj``.  ``layer_norm`` computes its statistics in f32 and keeps its
 parameters in f32 under a bf16 compute dtype.
+
+``moe`` (``nexpert``, ``topk``, ``nhidden``) and the block stacks
+``pipe_transformer`` and ``pipe_mlp`` (``nblock``, ``pipeline_parallel``,
+``n_microbatch``; the transformer also ``nhead``, ``causal``,
+``ffn_hidden``, ``eps``) keep the JAX package's params and tags; the
+stacks run through ``ops/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF, mha
 from ..ops.flash import HEAD_DIMS, flash_mha
+from ..ops.pipeline import _stage_apply
 from .base import Layer, Params, Shape, register
 
 
@@ -241,3 +249,209 @@ class SeqPoolLayer(Layer):
 
     def apply(self, params, inputs, train=False, gen=None, step=None):
         return [inputs[0].mean(dim=1)]
+
+
+def topk_mask(gate: torch.Tensor, k: int) -> torch.Tensor:
+    """A 0/1 mask of exactly ``k`` entries per row of ``gate``: its ``k``
+    largest, the lower index first among ties (``jax.lax.top_k``'s
+    order; ``torch.topk`` promises none among ties, and its CUDA order
+    differs from its CPU one)."""
+    idx = torch.sort(gate, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.zeros_like(gate).scatter(-1, idx, 1.0)
+
+
+@register
+class MoELayer(Layer):
+    """Mixture-of-experts projection: ``nexpert`` expert projections
+    ``(nhidden, D)`` in one ``(E, nhidden, D)`` tensor, routed by a
+    softmax gate, optionally masked to exactly ``topk`` experts and
+    renormalised (``topk = 0`` keeps the dense soft mixture).  Every
+    expert's product runs (dense dispatch), in the compute dtype; the
+    gate is computed in f32 and cast to it.  Works on flat ``(N, D)``
+    and sequence ``(N, T, D)`` nodes.  The expert sharding over a model
+    axis is multi-device (ROADMAP.md queue A item 6)."""
+
+    type_name = "moe"
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.nexpert = 4
+        self.topk = 0
+
+    def set_param(self, name, val):
+        if name == "nexpert":
+            self.nexpert = int(val)
+        elif name == "topk":
+            self.topk = int(val)
+        else:
+            super().set_param(name, val)
+
+    def infer_shape(self, in_shapes: Sequence[Shape]) -> List[Shape]:
+        self._check_arity(in_shapes, 1)
+        (shape,) = in_shapes
+        if len(shape) not in (2, 3):
+            raise ValueError("moe: input must be a matrix or sequence node")
+        if self.param.num_hidden <= 0:
+            raise ValueError("moe: must set nhidden correctly")
+        if self.nexpert < 1 or not (0 <= self.topk <= self.nexpert):
+            raise ValueError("moe: need nexpert >= 1 and 0 <= topk <= nexpert")
+        return [tuple(shape[:-1]) + (self.param.num_hidden,)]
+
+    def init_params(self, gen, in_shapes) -> Params:
+        d = in_shapes[0][-1]
+        nh = self.param.num_hidden
+        e = self.nexpert
+        sigma = self.param.init_sigma
+        return {
+            "wgate": sigma * torch.randn((e, d), generator=gen),
+            "wmat": sigma * torch.randn((e, nh, d), generator=gen),
+            "bias": torch.zeros((e, nh)),
+        }
+
+    def apply(self, params, inputs, train=False, gen=None, step=None):
+        x = inputs[0]
+        logits = torch.einsum("...d,ed->...e", x, params["wgate"]).float()
+        gate = torch.softmax(logits, dim=-1)
+        if self.topk:
+            gate = gate * topk_mask(gate, self.topk)
+            gate = gate / torch.clamp_min(gate.sum(dim=-1, keepdim=True),
+                                          1e-30)
+        gate = gate.to(x.dtype)
+        h = torch.einsum("...d,eod->...eo", x, params["wmat"]) + params["bias"]
+        return [torch.einsum("...e,...eo->...o", gate, h)]
+
+
+class _PipelineStackLayer(Layer):
+    """Homogeneous block-stack layers: the ``nblock``,
+    ``pipeline_parallel`` and ``n_microbatch`` keys, and the stack run
+    in order (``ops/pipeline.py``).  On one device the stack runs plain
+    whatever ``pipeline_parallel`` says, as the JAX package does on a
+    model axis of one; more than one stage takes ``model_parallel > 1``,
+    which the trainer refuses (ROADMAP.md queue A item 6).  Subclasses
+    define ``_block(p, x)`` and their params stack."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.nblock = 2
+        self.pipeline_parallel = 0
+        self.n_microbatch = 4
+
+    def set_param(self, name, val):
+        if name == "nblock":
+            self.nblock = int(val)
+        elif name == "pipeline_parallel":
+            self.pipeline_parallel = int(val)
+        elif name == "n_microbatch":
+            self.n_microbatch = int(val)
+        else:
+            super().set_param(name, val)
+
+    def apply(self, params, inputs, train=False, gen=None, step=None):
+        return [_stage_apply(self._block, params, inputs[0])]
+
+
+@register
+class PipeTransformerLayer(_PipelineStackLayer):
+    """A stack of ``nblock`` identical pre-LN transformer blocks, their
+    params in stacked ``(L, ...)`` tensors: layer_norm -> multi-head
+    attention (the dense ``mha``, as in the JAX package) -> residual ->
+    layer_norm -> gelu-MLP -> residual, ``transformer_conf``'s block.
+    The four LN tags stay f32 under a bf16 compute dtype."""
+
+    type_name = "pipe_transformer"
+    f32_tags = frozenset({"ln1_w", "ln1_b", "ln2_w", "ln2_b"})
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.nhead = 1
+        self.causal = 0
+        self.ffn_hidden = 0  # default 4*D
+        self.eps = 1e-6
+
+    def set_param(self, name, val):
+        if name == "nhead":
+            self.nhead = int(val)
+        elif name == "causal":
+            self.causal = int(val)
+        elif name == "ffn_hidden":
+            self.ffn_hidden = int(val)
+        elif name == "eps":
+            self.eps = float(val)
+        else:
+            super().set_param(name, val)
+
+    def infer_shape(self, in_shapes: Sequence[Shape]) -> List[Shape]:
+        self._check_arity(in_shapes, 1)
+        (shape,) = in_shapes
+        if len(shape) != 3:
+            raise ValueError(
+                "pipe_transformer: input must be a sequence node (N, T, D)")
+        d = shape[2]
+        if self.nhead <= 0 or d % self.nhead != 0:
+            raise ValueError(
+                f"pipe_transformer: nhead={self.nhead} must divide dim {d}")
+        return [tuple(shape)]
+
+    def init_params(self, gen, in_shapes) -> Params:
+        d = in_shapes[0][2]
+        h = self.ffn_hidden or 4 * d
+        n = self.nblock
+        sigma = self.param.init_sigma
+        return {
+            "ln1_w": torch.ones((n, d)),
+            "ln1_b": torch.zeros((n, d)),
+            "ln2_w": torch.ones((n, d)),
+            "ln2_b": torch.zeros((n, d)),
+            "wqkv": sigma * torch.randn((n, 3 * d, d), generator=gen),
+            "bqkv": torch.zeros((n, 3 * d)),
+            "wproj": sigma * torch.randn((n, d, d), generator=gen),
+            "bproj": torch.zeros((n, d)),
+            "wff1": sigma * torch.randn((n, h, d), generator=gen),
+            "bff1": torch.zeros((n, h)),
+            "wff2": sigma * torch.randn((n, d, h), generator=gen),
+            "bff2": torch.zeros((n, d)),
+        }
+
+    def prepare(self, params, dtype):
+        return {t: v if t in self.f32_tags else v.to(dtype)
+                for t, v in params.items()}
+
+    def _block(self, p, x):
+        n, t, d = x.shape
+        nh = self.nhead
+        h = _layer_norm(x, p["ln1_w"], p["ln1_b"], self.eps)
+        qkv = F.linear(h, p["wqkv"], p["bqkv"]).reshape(n, t, 3, nh, d // nh)
+        o = mha(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                causal=bool(self.causal))
+        x = x + F.linear(o.reshape(n, t, d), p["wproj"], p["bproj"])
+        h2 = _layer_norm(x, p["ln2_w"], p["ln2_b"], self.eps)
+        f = F.linear(F.gelu(F.linear(h2, p["wff1"], p["bff1"]),
+                            approximate="tanh"), p["wff2"], p["bff2"])
+        return x + f
+
+
+@register
+class PipeMLPLayer(_PipelineStackLayer):
+    """A stack of ``nblock`` identical relu-MLP blocks ``y = relu(x W_i +
+    b_i)`` (width = input dim), their params one ``(L, D, D)`` stack."""
+
+    type_name = "pipe_mlp"
+
+    def infer_shape(self, in_shapes: Sequence[Shape]) -> List[Shape]:
+        self._check_arity(in_shapes, 1)
+        (shape,) = in_shapes
+        if len(shape) != 2:
+            raise ValueError("pipe_mlp: input must be a matrix node")
+        return [tuple(shape)]
+
+    def init_params(self, gen, in_shapes) -> Params:
+        d = in_shapes[0][1]
+        return {
+            "wmat": self.param.init_sigma * torch.randn(
+                (self.nblock, d, d), generator=gen),
+            "bias": torch.zeros((self.nblock, d)),
+        }
+
+    @staticmethod
+    def _block(p, x):
+        return torch.relu(x @ p["wmat"] + p["bias"])

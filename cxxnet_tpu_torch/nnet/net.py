@@ -61,15 +61,27 @@ forward:
   larger products were measured to pay on the TPU's MXU only; ROADMAP.md
   section C).
 
-``remat`` belongs to a later slice (ROADMAP.md).
+* ``remat = 1`` recomputes activations in the backward instead of
+  keeping them: in training each unit the JAX package wraps in
+  ``jax.checkpoint`` (a plain layer, a stateful layer, a sibling-1x1
+  group, a branch-embed group; not a loss layer or an int8 entry) runs
+  under ``torch.utils.checkpoint`` (``_recomputed``).  The flash
+  attention runs inside its layer's unit, so K9 runs again in the
+  backward and its O and LSE are not kept.  A unit's recompute replays
+  the step generator's draws (``torch.utils.checkpoint`` restores only
+  the global generators) and leaves the generator where the step left
+  it; a stateful layer's new state is taken from the first run only, so
+  batch norm's running statistics move once a step.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..layers import Layer, LossLayer, create_layer
 from ..layers.conv import ConvolutionLayer
@@ -82,6 +94,30 @@ from ..ops.kernels import conv_block as _kcb
 from .graph import NetGraph
 
 
+def _recomputed(fn, gen: Optional[torch.Generator], *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its activations
+    are recomputed in the backward.  The recompute draws what the first
+    run drew from ``gen`` (its state is set back to the first run's
+    start) and leaves ``gen`` where it found it."""
+    if gen is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    start = gen.get_state()
+    runs = []
+
+    def run(*a):
+        if not runs:
+            runs.append(1)
+            return fn(*a)
+        now = gen.get_state()
+        gen.set_state(start)
+        try:
+            return fn(*a)
+        finally:
+            gen.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class FunctionalNet:
     """Executable (eval) form of a NetGraph."""
 
@@ -89,6 +125,7 @@ class FunctionalNet:
         self.graph = graph
         self.batch_size = 0
         self.update_period = 1
+        self.remat = 0
         self.compute_dtype = torch.float32
         self.fuse_1x1 = 1
         self._fuse_cache = None
@@ -118,10 +155,8 @@ class FunctionalNet:
                 self.batch_size = int(val)
             elif name == "update_period":
                 self.update_period = int(val)
-            elif name == "remat" and int(val):
-                raise NotImplementedError(
-                    "remat=1: activation recompute is not ported yet "
-                    "(ROADMAP.md queue A item 5)")
+            elif name == "remat":
+                self.remat = int(val)
             elif name == "fuse_1x1":
                 self.fuse_1x1 = int(val)
             elif name == "conv_branch_embed":
@@ -603,6 +638,11 @@ class FunctionalNet:
             else (None, {}))
         items = (embed_items if embed_items is not None
                  else [("L", i) for i in range(len(g.layers))])
+        remat = bool(self.remat and train)
+
+        def unit(fn, *args):
+            return _recomputed(fn, gen, *args) if remat else fn(*args)
+
         for kind, i in items:
             spec = g.layers[i]
             if kind == "E":
@@ -611,7 +651,8 @@ class FunctionalNet:
                 if any(v is None for v in xs):
                     raise ValueError(
                         f"branch-embed group at layer {i}: unset input node")
-                outs = self._apply_branch_embed(prepared["embed"][i], xs, cdt)
+                outs = unit(self._apply_branch_embed, prepared["embed"][i],
+                            xs, cdt)
                 for j, out in zip(idxs, outs):
                     nodes[g.layers[j].nindex_out[0]] = out
                 continue
@@ -625,8 +666,10 @@ class FunctionalNet:
                 w2d = grp["w2d"]
                 if w2d is None:
                     w2d = self._group_kernel(grp["members"], cdt)
-                y = _kcb.conv1x1_block(x, w2d, grp["bias"],
-                                       stride=self.layer_objs[i].param.stride)
+                y = unit(functools.partial(
+                    _kcb.conv1x1_block,
+                    stride=self.layer_objs[i].param.stride), x, w2d,
+                    grp["bias"])
                 for j, part in zip(fuse_groups[i],
                                    torch.split(y, grp["splits"], dim=3)):
                     nodes[g.layers[j].nindex_out[0]] = part
@@ -657,11 +700,13 @@ class FunctionalNet:
                 continue
             if aux is not None and key in aux and hasattr(lay,
                                                           "apply_stateful"):
-                outs, aux[key] = lay.apply_stateful(
-                    lparams, aux[key], inputs, train=train, gen=gen, step=step)
+                outs, aux[key] = unit(functools.partial(
+                    lay.apply_stateful, train=train, gen=gen, step=step),
+                    lparams, aux[key], inputs)
             else:
-                outs = lay.apply(lparams, inputs, train=train, gen=gen,
-                                 step=step)
+                outs = unit(functools.partial(
+                    lay.apply, train=train, gen=gen, step=step),
+                    lparams, inputs)
             for n, v in zip(spec.nindex_out, outs):
                 nodes[n] = v
         return nodes, loss

@@ -69,7 +69,8 @@ serves only: ``update`` raises.
 Device rule: ``dev = cpu`` runs on the CPU, and only when asked; every
 other value (``gpu``, ``cuda``, ``tpu``, ``gpu:0``, the default ``tpu``)
 means ``cuda:0`` and raises when there is no CUDA device.  A device
-range (``tpu:0-7``) raises: multi-device is a later slice.
+range (``tpu:0-7``) and ``model_parallel > 1`` raise: multi-device is
+a later slice.
 """
 
 from __future__ import annotations
@@ -220,6 +221,14 @@ class NetTrainer:
             self.seed = int(val)
         elif name == "dev":
             self.dev = val
+        elif name == "model_parallel":
+            if int(val) < 1:
+                raise ValueError(f"model_parallel={val} must be >= 1")
+            if int(val) > 1:
+                raise NotImplementedError(
+                    f"model_parallel={val}: model, expert and pipeline "
+                    "parallelism over a device mesh are not ported yet "
+                    "(ROADMAP.md queue A item 6)")
         elif name == "kernel_lib":
             _klib.parse_mode(val)
         elif name == "quant":

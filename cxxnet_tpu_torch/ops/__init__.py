@@ -3,7 +3,7 @@ versions: ``maxpool`` (forward and two backwards), ``lrn`` (forward and
 backward), ``kernels.conv_block``, ``kernels.update_step``, ``flash``
 (attention forward and backward) and ``kernels.int8_gemm``;
 ``attention.mha`` is the dense golden function, ``quant`` the int8
-weight scheme.
+weight scheme, ``pipeline`` the block stacks' runner.
 
 ``KERNELS`` lists every kernel of the port, for builds and launch
 counts (``chip_smoke.py``): GoogLeNet serving's K1, K4 and K6, then its

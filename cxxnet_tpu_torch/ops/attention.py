@@ -6,10 +6,11 @@ to ``v``'s dtype before the product with ``v``, f32 accumulation, the
 result in ``v``'s dtype.  Layouts are the JAX package's: ``q, k, v`` are
 ``(B, T, H, Dh)``.
 
-The port runs this only on the CPU (``attn_impl = xla`` or ``auto``);
-on a card every full-sequence attention is the flash kernel
-(``ops/flash.py``).  The ring and all-to-all variants are multi-device
-(ROADMAP.md item A6).
+The attention layer runs this on the CPU (``attn_impl = xla`` or
+``auto``) and, on a card, for the head dims the flash kernels
+(``ops/flash.py``) are not built for; ``pipe_transformer``'s blocks run
+it everywhere, as the JAX package's do.  The ring and all-to-all
+variants are multi-device (ROADMAP.md item A6).
 """
 
 from __future__ import annotations

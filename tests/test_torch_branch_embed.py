@@ -17,8 +17,8 @@ JAX package, on the CPU.
 * A checkpoint trained under ``= 1`` loads into the JAX package and into
   the port under ``= 0`` with the same predictions.
 * The auto value (-1) is off in training, on the CPU and (a deliberate
-  deviation, ROADMAP.md section C) on the card; ``remat = 1`` still
-  raises.
+  deviation, ROADMAP.md section C) on the card; ``remat = 1`` is read
+  beside it (``tests/test_torch_remat.py`` trains the two together).
 """
 
 import os
@@ -164,8 +164,8 @@ def test_plan_matches_jax(which):
 
 
 def test_plan_off_domain_and_config():
-    """ResNet-shaped strided convs never group; the conf key is read and
-    ``remat`` still refuses."""
+    """ResNet-shaped strided convs never group; the conf key is read, and
+    ``remat`` is read beside it."""
     from cxxnet_tpu_torch.models import resnet50_conf
 
     cfg = tcfg.parse_pairs(resnet50_conf(batch_size=2, input_size=32,
@@ -178,8 +178,8 @@ def test_plan_off_domain_and_config():
     assert FunctionalNet(g).conv_branch_embed == 1
     g = NetGraph()
     g.configure(_cfg(1, [("remat", "1")]))
-    with pytest.raises(NotImplementedError, match="remat"):
-        FunctionalNet(g)
+    net = FunctionalNet(g)
+    assert net.remat == 1 and net.use_branch_embed()
 
 
 def test_auto_rule():

@@ -63,7 +63,10 @@ shadow step bitwise clean on the card (cuDNN's settings restored), a
 closed-loop cycle on the card (``loop.ContinuousLoop``) whose published,
 hot-reloaded round answers at bucket 32 bit-equal to ``trainer.predict``
 of the published checkpoint, and a step from a block the data service
-deals bit-equal to the step from the local chain's batch.
+deals bit-equal to the step from the local chain's batch; ``moe``'s
+top-k routing under tied gates on the card equal to the CPU's, and a
+small flash LM under ``remat = 1`` on the card equal to ``remat = 0``,
+K9 launched twice per attention layer a step.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -1797,3 +1800,86 @@ def test_cuda_service_fed_step_equals_a_local_one(cuda_device, tmp_path):
         srv.close()
     for a, b in zip(*weights):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_moe_topk_under_tied_gates_matches_cpu(cuda_device, dtype):
+    """``moe``'s exactly-k routing on the card: rows of tied gates (x = 0,
+    and gates from a 3-value set) keep the same k experts as on the CPU,
+    the lower index first; the layer's output matches the CPU's (f32
+    within 1e-5, bf16 within 2e-2 of the largest)."""
+    import numpy as np
+
+    from cxxnet_tpu_torch.layers.sequence import topk_mask
+
+    rng = np.random.RandomState(0)
+    gate = torch.from_numpy(rng.choice([0.0, 0.25, 0.5], size=(4096, 8))
+                            .astype(np.float32))
+    for k in (1, 2, 3):
+        cpu = topk_mask(gate, k)
+        assert torch.equal(topk_mask(gate.to(cuda_device), k).cpu(), cpu)
+        assert (cpu.sum(-1) == k).all()
+    lay = create_layer("moe")
+    for name, val in (("nexpert", "8"), ("nhidden", "16"), ("topk", "2")):
+        lay.set_param(name, val)
+    gen = torch.Generator().manual_seed(1)
+    p = lay.init_params(gen, [(64, 32)])
+    p["bias"] = torch.randn(p["bias"].shape, generator=gen)
+    x = torch.zeros(3, 64, 32)
+    x[1] = torch.randn(64, 32, generator=gen)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        pd = lay.prepare({t: v.to(dev) for t, v in p.items()}, dtype)
+        (outs[str(dev)],) = lay.apply(pd, [x.to(dev).to(dtype)])
+    ref, got = outs["cpu"].float(), outs[str(cuda_device)].float().cpu()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (got - ref).abs().max() <= tol * ref.abs().max()
+    want = p["bias"][:2].mean(0).to(dtype).float()  # x = 0: experts 0, 1
+    assert torch.allclose(got[0], want.expand(64, -1), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_remat_lm_matches_no_remat(cuda_device, tmp_path):
+    """A small LM (T 64, d 64, 2 heads, 2 blocks, bf16, flash) trained 3
+    steps on the card under ``remat = 1`` and ``= 0`` from one
+    checkpoint: the weights equal within 1e-2 of each tensor's largest
+    update (they read bit-equal where cuBLAS picks the same kernels),
+    K9 launched twice per attention layer a step under remat and once
+    without, K10 once either way."""
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.models import transformer_lm_conf
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    conf = cfgmod.parse_pairs(transformer_lm_conf(
+        seq_len=64, dim=64, nhead=2, nlayer=2, batch_size=4, dev="gpu",
+        compute_dtype="bfloat16", attn_impl="pallas"))
+    src = NetTrainer()
+    src.set_params(conf)
+    src.init_model()
+    path = str(tmp_path / "0000.model")
+    src.save_model(path)
+    w0 = {(k, t): v.detach().cpu().clone() for k, tags in src.params.items()
+          for t, v in tags.items()}
+    rng = np.random.RandomState(3)
+    x = rng.randint(0, 256, (4, 64)).astype(np.float32)
+    y = rng.randint(0, 256, (4, 64)).astype(np.float32)
+    out = {}
+    for remat in ("0", "1"):
+        tr = NetTrainer()
+        tr.set_params(conf + [("remat", remat)])
+        tr.load_model(path)
+        n0, n1 = flash.FWD_KERNEL.launches, flash.BWD_KERNEL.launches
+        for _ in range(3):
+            tr.update_all(x, y)
+        torch.cuda.synchronize()
+        per = 2 if remat == "1" else 1
+        assert (flash.FWD_KERNEL.launches - n0,
+                flash.BWD_KERNEL.launches - n1) == (3 * 2 * per, 3 * 2)
+        out[remat] = {(k, t): v.detach().cpu() for k, tags in
+                      tr.params.items() for t, v in tags.items()}
+    for kt, w in out["0"].items():
+        d = (w - w0[kt]).abs().max()
+        assert (out["1"][kt] - w).abs().max() <= 1e-2 * d, kt

@@ -485,16 +485,14 @@ def test_pairtest_runs_the_master_and_compares_as_jax():
 
 
 def test_create_layer_knows_every_jax_layer_type():
-    """All of the JAX registry but the pipeline and MoE layers (ROADMAP
-    item (j))."""
+    """The whole JAX registry, the MoE and block-stack layers included."""
     from cxxnet_tpu.layers.base import layer_types
     from cxxnet_tpu_torch.layers.base import _REGISTRY
 
     JL.create_layer("torch")  # the plugin registers on demand
     TL.create_layer("torch")
-    later = {"moe", "pipe_transformer", "pipe_mlp"}
-    assert set(layer_types()) - later <= set(_REGISTRY)
-    assert later.isdisjoint(_REGISTRY)
+    assert {"moe", "pipe_transformer", "pipe_mlp"} <= set(_REGISTRY)
+    assert set(layer_types()) <= set(_REGISTRY)
 
 
 def test_prelu_slope_is_a_bias_tag_for_the_updater():
