@@ -572,6 +572,42 @@ Phases; any failure ends the run with a non-zero exit and no result:
    0`` (``PER_STEP`` and K8 once) and ``1`` (K1, K4 and K6 again in the
    recompute, K2, K3, K5 at least as often, K8 once): each update at
    cosine >= ``REMAT_COS``.  A ``moe_pipe_remat`` JSON line.
+28. Data parallelism (``parallel/``, ``data_parallel_phase``): two rank
+   processes (``python chip_smoke.py --dp-rank SPEC R``) share the card
+   over gloo (``dev = gpu:0`` on both).  28a: googlenet.conf (rates
+   times ``LR_SCALE``, dropout on: the ranks draw the global batch's
+   mask) from one seeded checkpoint, ``DP_STEPS`` steps of 128 seeded
+   rows, 64 a rank, against the one-rank run of the same batches, cuDNN
+   deterministic on both sides: f32 (TF32 off) each tensor's first
+   update within ``UPDATE_REL`` (median ``UPDATE_REL_MEDIAN``) and the
+   ``DP_STEPS`` steps' within ``DP_F32_REL`` (``DP_F32_REL_MEDIAN``),
+   bf16 each update at cosine >= ``UPDATE_COS`` (median
+   ``UPDATE_COS_MEDIAN``); the ranks' weights bit-equal; every step of
+   every rank launches K1-K6 and K8 as one rank does
+   (``IMGBIN_PER_STEP``); each rank's step ms, img/s against one rank,
+   and host ms inside the collectives; ``det_reduce = 1`` (the dropout
+   layers out) twice: the same bits; then ``task=train`` through the
+   CLI (``dist_num_proc = 2``, ``test_on_server = 1``, ``DP_CLI_ROWS``
+   rows): both ranks' weight-sync lines, the ranks' checkpoint CRCs
+   compared before rank 0 writes.  28b: resnet50.conf (``zero = 3``,
+   ``bn_eval = running``), one step in f32 (the updates' cosines at
+   ``RESNET_F32_COS``, median ``RESNET_F32_COS_MEDIAN``, the running
+   statistics within ``DP_AUX_REL``) and one in bf16 (the loss within
+   ``DP_RN_LOSS_REL``, the classifier's update cosines at
+   ``RESNET_BF16_CLS_COS``, the running statistics within
+   ``DP_AUX_BF16_REL``, median ``DP_AUX_BF16_REL_MEDIAN``, the other
+   cosines logged), each rank's
+   train-state bytes <= ``DP_SHARD_LIMIT`` of one replica, K8 over
+   slices (fewer elements than one rank's).  28c:
+   ``example/MNIST/dist.conf`` (``update_on_server = 1``) with a test
+   section on the UCI digits (``input_shape = 1,1,64``),
+   ``DP_DIGITS_ROUNDS`` rounds, two ranks started by hand
+   (``CXN_PROC_ID``) against one: the weights after every round within
+   ``DP_DIGITS_REL`` of the one-rank update's size, the rank-summed
+   test error within one image, the one-rank error off chance
+   (< ``DP_DIGITS_LEARNED``); then a bit flipped on rank 1 only: both ranks stop with
+   ``INTEGRITY:`` before the round is saved.  NCCL runs where the host
+   has two cards (not on one: logged).  A ``data_parallel`` JSON line.
    Then a ``phase_s`` JSON line: the seconds of every phase.
 21. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
@@ -585,7 +621,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
    were held against) and ``launches_branch_embed`` (26c), and phase
    27's, ``launches_remat_lm`` (27a's ``remat = 1`` run),
    ``launches_moe_lm`` (27b), ``launches_pipe`` (27c's ``remat = 1``
-   steps) and ``launches_remat_googlenet`` (27d's ``remat = 1`` steps) —
+   steps) and ``launches_remat_googlenet`` (27d's ``remat = 1`` steps),
+   and phase 28's ``launches_dp`` (28a's and 28b's ranks, summed) —
    max error,
    and the times of one training step's launches summed: GoogLeNet b128
    bf16, or the LM step's 4 launches of K9 and of K10, or K7's 11
@@ -2436,7 +2473,7 @@ def quant_phase(tmp: str, path: str, f32_answers):
 
 def kernels_line(rows, serve_launches, train_launches, flash_rows,
                  lm_launches, gen_launches, int8_rows, quant_launches,
-                 loop_out, fleet_out, p27):
+                 loop_out, fleet_out, p27, p28):
     """Per kernel: the launches of its main path (GoogLeNet training for
     K1-K8, with the serving run's for the forward kernels; the LM
     training run for K9 and K10, with the windowed generation run's; the
@@ -2445,7 +2482,8 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
     service-fed training run; phase 26's: the in-process engines of 26a
     and 26b, and 26c; phase 27's: 27a's ``remat = 1`` LM run, 27b's MoE
     LM run, 27c's ``remat = 1`` pipe steps and 27d's ``remat = 1``
-    GoogLeNet steps), the max error over every check, and one
+    GoogLeNet steps; phase 28's two ranks), the max error over every
+    check, and one
     training step's launches' times summed (GoogLeNet b128 bf16; the SGD
     kernel's f32 row covers all its launches; the LM step's 4 launches of
     K9 and of K10), or for K7 one b128 bf16 forward's 11 launches."""
@@ -2551,6 +2589,10 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
             for d in p27["pipe"]["train"][1]["launches"])
         row["launches_remat_googlenet"] = REMAT_STEPS * p27[
             "remat_googlenet"]["remat"][1]["launches"][row["name"]]
+        # phase 28: the two ranks' launches summed (28a's GoogLeNet steps
+        # in f32 and bf16 and 28b's ResNet-50 step, each rank's own)
+        row["launches_dp"] = p28["googlenet_resnet"]["launches_dp"].get(
+            row["name"], 0)
     return {"kernels": out}
 
 
@@ -6987,7 +7029,7 @@ UTIL_SYMBOLS = {"maxpool_fwd": "maxpool_fwd_vec_kernel",
                 "lrn_bwd": "lrn_bwd_vec_kernel",
                 "conv_block_gemm": "conv_block_wgmma_kernel",
                 "sgd_update": "sgd_update_multi_kernel"}
-TUNE_TRAFFIC_S = 10.0
+TUNE_TRAFFIC_S = 6.0  # 10 until PR 20 (its phase 28 needed the time)
 TUNE_CLIENTS = 4
 TUNE_JSON_ROWS = (1, 2)
 TUNE_BINARY_ROWS = (1, 7, 16, 32, 64)
@@ -8624,7 +8666,7 @@ FLEET_REPLICAS = 3
 FLEET_CLIENTS = 4
 FLEET_JSON_ROWS = (1, 2, 4)  # JSON /predict rows (the router re-encodes)
 FLEET_WIRE_ROWS = (1, 7, 16, 32)  # CXB1 /predict rows, relayed opaquely
-FLEET_TRAFFIC_S = 20.0  # the clients' run before round 2 is written
+FLEET_TRAFFIC_S = 14.0  # the clients' run before round 2 is written (20 until PR 20)
 FLEET_KILL_AT_S = 5.0  # SIGKILL of replica 1, this far into the traffic
 FLEET_CHECK_ROWS = (1, 8, 32)  # buckets held bit for bit, quiet fleet
 FLEET_START_S = 180.0  # the fleet must serve k/k within this
@@ -10146,6 +10188,757 @@ def moe_pipe_remat_phase(card: str):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 28: data parallelism (parallel/): two ranks on the card
+DP_RANKS = 2
+DP_DEV = "gpu:0"  # every rank's dev: the ranks share the card (gloo)
+DP_STEPS = 3  # 28a's compared steps, each rank on its 64 of 128 rows
+DP_TIMED = 3  # steps timed after them, each way
+DP_RESNET_STEPS = 1
+DP_DEADLINE_S = 420  # each rank process, start-up included
+DP_SHARD_LIMIT = 0.55  # 28b: a rank's train-state bytes / one replica
+DP_DET_STEPS = 2
+DP_CLI_ROWS = 256  # 28a's CLI run: 2 global steps of 128 rows
+# cuDNN's deterministic algorithms in 28a/28b's compared runs (both
+# sides), so a difference is the batch split's, not an atomic add's
+DP_DETERMINISTIC = True
+# 28a's f32 updates after DP_STEPS steps, two ranks vs one, per tensor
+# max|d2 - d1| / max|d1| and its median: from the conf's init GoogLeNet's
+# first steps amplify rounding (loss 345 -> 118 -> 72), so that one rank
+# against its own rerun with cuDNN's atomics read 8.8e-4 and 2.8e-4
+# after 3 steps (3.2e-5 and 2.1e-7 after 1), and two ranks against one
+# 4.7e-3 and 1.4e-3 (my chip runs, PR 20); after the first step the
+# two-rank update is held at UPDATE_REL, UPDATE_REL_MEDIAN
+DP_F32_REL, DP_F32_REL_MEDIAN = 2e-2, 5e-3
+# 28b's batch norm running statistics (bn_eval = running), two ranks vs
+# one, per tensor max|a2 - a1| / max|a1|: f32 (held with the updates'
+# cosines at RESNET_F32_COS, RESNET_F32_COS_MEDIAN) and bf16 (with the
+# loss and the classifier's update cosine at RESNET_BF16_CLS_COS; the
+# other bf16 updates' cosines are logged: ResNet-50's bf16 step from its
+# random init is ill-conditioned, ROADMAP.md section C, and read worst
+# 0.142, median 0.486).  The bf16 statistics read worst 9.7e-3, median
+# 1.4e-4 at b128 (my chip runs, PR 20)
+DP_AUX_REL, DP_AUX_REL_MEDIAN = 1e-3, 1e-4
+DP_AUX_BF16_REL, DP_AUX_BF16_REL_MEDIAN = 5e-2, 1e-3
+DP_RN_LOSS_REL = 1e-3
+# 28c: dist.conf's rounds (round 5 is the first off chance: the test
+# error reads 0.94 for 4 rounds, then 0.79 and 0.535 on the CPU), the
+# weights two ranks vs one after each round as max|w2 - w1| over the
+# one-rank update's max|w1 - w0| (1.8e-6 on the CPU over 15 rounds), the
+# test error within one image of the 200 evaluated (the test iterator
+# drops the last partial batch of the 297), and the one-rank run's last
+# test error, which must lie under chance (0.9) for the error check to
+# see anything
+DP_DIGITS_ROUNDS = 6
+DP_DIGITS_REL = 1e-4
+DP_DIGITS_ERR = 1 / 200
+DP_DIGITS_LEARNED = 0.8
+# seed 25 flips the sign bit of a weight of fc2 on rank 1; the flip run
+# keeps the weights' updates whole (update_on_server = 0): under ZeRO-1
+# each step rebuilds every weight from its owner's slice, which heals a
+# flip in another rank's slice and copies one in rank 1's to every rank
+DP_FLIP = ("fault_seed=25", "fault_inject=device.state:bitflip:1:1")
+DIST_CONF = os.path.join(REPO, "example", "MNIST", "dist.conf")
+# the digits' 8x8 images and their test set for dist.conf (written for
+# the 28x28 MNIST files): the only keys 28c adds to the conf
+DP_DIGITS_KEYS = ("input_shape=1,1,64", f"num_round={DP_DIGITS_ROUNDS}",
+                  f"dev={DP_DEV}", "print_step=0")
+DP_DIGITS_EVAL = """
+eval = test
+iter = mnist
+    path_img = "./data/digits-t10k-images-idx3-ubyte"
+    path_label = "./data/digits-t10k-labels-idx1-ubyte"
+iter = end
+"""
+
+
+def _dp_batch(k: int, rows: int, side: int):
+    """28a/28b's k-th global batch: seeded N(0, 1) images and labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 28 + k)
+    return (rng.randn(rows, side, side, 3).astype(np.float32),
+            rng.randint(0, 1000, (rows, 1)).astype(np.float32))
+
+
+def _dp_steps(tr, steps: int, rows: slice, side: int, counted: bool):
+    """``steps`` updates of ``tr`` on its ``rows`` of the global batches;
+    with ``counted`` each step's launches (counts at 0 just before),
+    host ms in the collectives, the losses, K8's elements a launch and
+    the weights after the first step (``first``) are recorded."""
+    import torch
+
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.ops.kernels import update_step
+    from cxxnet_tpu_torch.parallel import distributed as pdist
+
+    k8 = []
+    multi = update_step.sgd_update_multi
+
+    def watched(ws, *args):
+        k8.append(sum(w.numel() for w in ws))
+        return multi(ws, *args)
+
+    update_step.sgd_update_multi = watched
+    out = {"launches": [], "collective_ms": [], "losses": [], "k8_elems": k8}
+    try:
+        for k in range(steps):
+            x, y = _dp_batch(k, tr.batch_size, side)
+            if counted:
+                for kern in KERNELS:
+                    kern.reset_counts()
+            c0 = pdist.STATS["seconds"]
+            tr.update_all(x[rows], y[rows])
+            tr.sync()
+            if counted:
+                out["launches"].append({kern.name: kern.launches
+                                        for kern in KERNELS})
+            out["collective_ms"].append(
+                (pdist.STATS["seconds"] - c0) * 1e3)
+            out["losses"].append(float(tr.last_loss))
+            if k == 0 and counted:
+                out["first"] = _dp_params(tr)[0]
+    finally:
+        update_step.sgd_update_multi = multi
+    return out
+
+
+def _dp_time(tr, rows: slice, side: int):
+    """Median ms of ``DP_TIMED`` steps on one device-resident batch (the
+    host clock around a synchronized step) and the host ms a step spent
+    inside the collectives."""
+    import torch
+
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.parallel import distributed as pdist
+
+    x, y = _dp_batch(0, tr.batch_size, side)
+    batch = DataBatch(data=torch.as_tensor(x[rows], device=tr.device),
+                      label=torch.as_tensor(y[rows], device=tr.device))
+    tr.update(batch)
+    tr.sync()
+    times, coll = [], []
+    for _ in range(DP_TIMED):
+        c0, t0 = pdist.STATS["seconds"], time.perf_counter()
+        tr.update(batch)
+        tr.sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        coll.append((pdist.STATS["seconds"] - c0) * 1e3)
+    return statistics.median(times), statistics.median(coll)
+
+
+def _dp_params(tr):
+    """The whole weights and layer state as f64 numpy (collective under
+    ``zero = 3``)."""
+    return ({(k, t): w.detach().double().cpu().numpy()
+             for k, tags in tr._full_params().items()
+             for t, w in tags.items()},
+            {(k, t): a.detach().double().cpu().numpy()
+             for k, tags in tr.aux.items() for t, a in tags.items()})
+
+
+def _dp_trainer(cfg, ckpt, dtype: str, dev: str):
+    """A trainer of ``cfg`` on ``dev`` in ``dtype``, loaded from
+    ``ckpt`` (None: drawn from the conf's seed)."""
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(cfg + [("dev", dev), ("compute_dtype", dtype),
+                         ("print_step", "0"), ("seed", str(SEED))])
+    if ckpt is None:
+        tr.init_model()
+    else:
+        tr.load_model(ckpt)
+    return tr
+
+
+def _dp_runs(spec):
+    """The runs of 28a and 28b, each ``(name, cfg, checkpoint, dtype,
+    steps, timed)``, in the order every process takes them (the NCCL
+    job: ``spec["only"]``)."""
+    runs = [("gn_f32", spec["gn_cfg"], spec["gn_ckpt"], "float32",
+             DP_STEPS, False),
+            ("gn_bf16", spec["gn_cfg"], spec["gn_ckpt"], "bfloat16",
+             DP_STEPS, True),
+            ("rn_f32", spec["rn_cfg"] + [["zero", "3"],
+                                         ["bn_eval", "running"]],
+             spec["rn_ckpt"], "float32", DP_RESNET_STEPS, False),
+            ("rn_zero3", spec["rn_cfg"] + [["zero", "3"],
+                                           ["bn_eval", "running"]],
+             spec["rn_ckpt"], "bfloat16", DP_RESNET_STEPS, True)]
+    return [r for r in runs if r[0] in spec.get("only", [r[0]])]
+
+
+def _dp_run_all(spec, rank: int, world: int, out_dir: str):
+    """Every run of :func:`_dp_runs` on this process's rows (rank
+    ``rank`` of ``world``), then 28a's ``det_reduce = 1`` pair; writes
+    ``<out_dir>/<name>.r<rank>.npz`` (the weights, rank 0 only, and
+    their CRCs) and returns the readings."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = DP_DETERMINISTIC
+    res = {}
+    for name, cfg, ckpt, dtype, steps, timed in _dp_runs(spec):
+        cfg = [tuple(p) for p in cfg]
+        tr = _dp_trainer(cfg, ckpt, dtype, spec["dev"])
+        side = int(dict(cfg)["input_shape"].split(",")[1])
+        local = tr.batch_size // world
+        rows = slice(rank * local, (rank + 1) * local)
+        per, total = tr.state_shard_bytes()
+        r = _dp_steps(tr, steps, rows, side, counted=True)
+        r.update(shard_bytes=sum(per.values()), total_bytes=total)
+        first = r.pop("first")
+        params, aux = _dp_params(tr)
+        r["crc"] = {"/".join(kt): zlib.crc32(w.tobytes())
+                    for kt, w in sorted(params.items())}
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"{name}.npz"),
+                     **{"p:" + "/".join(kt): w for kt, w in params.items()},
+                     **{"a:" + "/".join(kt): a for kt, a in aux.items()},
+                     **{"f:" + "/".join(kt): w for kt, w in first.items()})
+        if timed:
+            r["step_ms"], r["timed_collective_ms"] = _dp_time(tr, rows, side)
+        del tr, params, aux
+        torch.cuda.empty_cache()
+        res[name] = r
+    if "only" in spec:
+        return res
+    # det_reduce = 1 on the net without its dropout layers (the JAX
+    # package refuses random layers there), twice from the seed: the
+    # same bits
+    det_cfg, skip = [], False
+    for n, v in (tuple(p) for p in spec["gn_cfg"]):
+        if n.startswith("layer["):
+            skip = v == "dropout"
+        if not skip:
+            det_cfg.append((n, v))
+    det_cfg += [("det_reduce", "1")]
+    crcs = []
+    for _ in range(2):
+        tr = _dp_trainer(det_cfg, None, "bfloat16", spec["dev"])
+        side = int(dict(det_cfg)["input_shape"].split(",")[1])
+        local = tr.batch_size // world
+        _dp_steps(tr, DP_DET_STEPS, slice(rank * local, (rank + 1) * local),
+                  side, counted=False)
+        crcs.append(zlib.crc32(b"".join(
+            w.tobytes() for _kt, w in sorted(_dp_params(tr)[0].items()))))
+        del tr
+        torch.cuda.empty_cache()
+    res["det_crcs"] = crcs
+    return res
+
+
+def dp_rank_main(spec_path: str, rank: int) -> int:
+    """One rank process of phase 28 (``python chip_smoke.py --dp-rank
+    SPEC RANK``): joins the group, takes the runs, writes
+    ``<out>/rank<rank>.json``."""
+    sys.path.insert(0, REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    # the parent's step counts (one module, one set of constants)
+    globals().update(spec["consts"])
+    from cxxnet_tpu_torch.parallel import distributed as pdist
+
+    world = spec["world"]
+    t0 = time.perf_counter()
+    pdist.init_distributed(spec["coord"], world, rank, dev=spec["dev"],
+                           timeout_s=spec["timeout_s"])
+    join_s = time.perf_counter() - t0
+    res = _dp_run_all(spec, rank, world, spec["out"])
+    res.update(backend=pdist.backend(), join_s=join_s)
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    pdist.shutdown_distributed()
+    return 0
+
+
+def _dp_start(argvs, cwd, tag, envs=None):
+    """Start rank processes (their output in ``<cwd>/<tag>.r<i>.log``);
+    returns ``(procs, logs)`` for :func:`_dp_finish`."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs, logs = [], []
+    for i, argv in enumerate(argvs):
+        logs.append(os.path.join(cwd, f"{tag}.r{i}.log"))
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen(
+                argv, cwd=cwd, env=dict(env, **(envs[i] if envs else {})),
+                stdout=out, stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def _dp_finish(job, t0):
+    """Wait for a :func:`_dp_start` job until ``DP_DEADLINE_S`` after
+    ``t0``; every process still running then is killed.  Returns
+    ``(codes, outputs)``."""
+    procs, logs = job
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + DP_DEADLINE_S - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for lf in logs:
+        with open(lf, errors="replace") as f:
+            outs.append(f.read())
+    return [p.returncode for p in procs], outs
+
+
+def _dp_spawn(argvs, cwd, tag, envs=None):
+    """:func:`_dp_start` and :func:`_dp_finish`."""
+    t0 = time.perf_counter()
+    return _dp_finish(_dp_start(argvs, cwd, tag, envs), t0)
+
+
+def _rel_updates(a, b, w0):
+    """Per tensor ``max|da - db| / max|db|`` of the updates from ``w0``."""
+    import numpy as np
+
+    out = {}
+    for kt, w in w0.items():
+        da, db = a[kt] - w, b[kt] - w
+        out[kt] = float(np.abs(da - db).max() / max(np.abs(db).max(), 1e-30))
+    return out
+
+
+def _cos_updates(a, b, w0):
+    import numpy as np
+
+    out = {}
+    for kt, w in w0.items():
+        da, db = (a[kt] - w).ravel(), (b[kt] - w).ravel()
+        n = np.linalg.norm(da) * np.linalg.norm(db)
+        out[kt] = float(da @ db / n) if n > 0 else 1.0
+    return out
+
+
+def _dp_check(tag, vals, limit, median_limit, lower_is_better):
+    """Log the worst five and fail past a limit."""
+    ordered = sorted(vals.items(), key=lambda kv: kv[1],
+                     reverse=lower_is_better)
+    med = statistics.median(vals.values())
+    log(f"28 {tag}: worst {ordered[0][1]:.4g} at {'/'.join(ordered[0][0])} "
+        f"(limit {limit:g}), median {med:.4g} (limit {median_limit:g}); "
+        "worst 5: " + ", ".join(f"{'/'.join(kt)} {v:.4g}"
+                                for kt, v in ordered[:5]))
+    worse = ((lambda v, lim: not v <= lim) if lower_is_better
+             else (lambda v, lim: not v >= lim))
+    bad = [kt for kt, v in vals.items() if worse(v, limit)]
+    if bad or worse(med, median_limit):
+        raise SmokeError(f"28 {tag}: {len(bad)} tensor(s) past {limit:g} "
+                         f"{bad[:6]} or median {med:.4g}")
+    return ordered[0][1], med
+
+
+def _dp_reference(spec):
+    """28a/28b's one-rank runs in this process, on the card alone: each
+    run's weights and layer state after its steps, its launches, and
+    its timed step."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = DP_DETERMINISTIC
+    ref = {}
+    for name, cfg, ckpt, dtype, steps, timed in _dp_runs(spec):
+        cfg = [tuple(p) for p in cfg]
+        tr = _dp_trainer(cfg, ckpt, dtype, spec["dev"])
+        side = int(dict(cfg)["input_shape"].split(",")[1])
+        w0 = _dp_params(tr)[0]
+        r = _dp_steps(tr, steps, slice(None), side, counted=True)
+        r["params"], r["aux"] = _dp_params(tr)
+        r["w0"] = w0
+        if timed:
+            r["step_ms"], _ = _dp_time(tr, slice(None), side)
+        r["batch"] = tr.batch_size
+        del tr
+        torch.cuda.empty_cache()
+        ref[name] = r
+    return ref
+
+
+def dp_googlenet_resnet_phase(tmp: str, card: str):
+    """28a (GoogLeNet, bf16 and f32) and 28b (ResNet-50, bf16, ``zero =
+    3``): the one-rank runs here, then two rank processes sharing the
+    card over gloo (``dev = gpu:0`` on both), each on its 64 of every
+    128-row global batch, from the same checkpoints; returns the
+    readings."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve.fleet import free_port
+
+    gn_cfg = cfgmod.parse_file(_train_conf(tmp))
+    rn_cfg = cfgmod.parse_file(RESNET_CONF)
+    ckpts = {}
+    for name, cfg in (("gn", gn_cfg), ("rn", rn_cfg)):
+        tr = NetTrainer()
+        tr.set_params(cfg + [("dev", DP_DEV), ("seed", str(SEED))])
+        tr.init_model()
+        ckpts[name] = os.path.join(tmp, f"dp_{name}.model")
+        tr.save_model(ckpts[name])
+        del tr
+    out_dir = os.path.join(tmp, "dp_out")
+    os.makedirs(out_dir, exist_ok=True)
+    spec = {"gn_cfg": gn_cfg, "gn_ckpt": ckpts["gn"], "rn_cfg": rn_cfg,
+            "rn_ckpt": ckpts["rn"], "world": DP_RANKS,
+            "coord": f"127.0.0.1:{free_port()}", "timeout_s": 120.0,
+            "out": out_dir, "dev": DP_DEV,
+            "consts": {k: globals()[k] for k in (
+                "DP_STEPS", "DP_TIMED", "DP_RESNET_STEPS", "DP_DET_STEPS",
+                "DP_DETERMINISTIC", "SEED")}}
+    t0 = time.perf_counter()
+    ref = _dp_reference(spec)
+    ref_s = time.perf_counter() - t0
+    spec_path = os.path.join(tmp, "dp_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    codes, outs = _dp_spawn(
+        [[sys.executable, os.path.abspath(__file__), "--dp-rank", spec_path,
+          str(r)] for r in range(DP_RANKS)], tmp, "dp_rank")
+    ranks_s = time.perf_counter() - t0
+    if any(c != 0 for c in codes):
+        raise SmokeError(f"28a/b: rank exits {codes}: "
+                         + " | ".join(o[-2500:] for o in outs))
+    got = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    log(f"28a/b: one-rank runs {ref_s:.1f}s; {DP_RANKS} ranks {ranks_s:.1f}s"
+        f" (join {[round(g['join_s'], 1) for g in got]} s); backend "
+        f"{got[0]['backend']}, collectives on the card's tensors")
+    if got[0]["backend"] != "gloo":
+        raise SmokeError(f"28: two ranks on one card ran {got[0]['backend']}")
+    per_rank = {}
+    for name, want in (("gn_f32", IMGBIN_PER_STEP),
+                       ("gn_bf16", IMGBIN_PER_STEP),
+                       ("rn_f32", RESNET_PER_STEP),
+                       ("rn_zero3", RESNET_PER_STEP)):
+        d = np.load(os.path.join(out_dir, f"{name}.npz"))
+
+        def part(pre):
+            return {tuple(k[2:].split("/")): d[k].astype(np.float64)
+                    for k in d.files if k.startswith(pre)}
+
+        two_p, two_a, two_f = part("p:"), part("a:"), part("f:")
+        r1 = ref[name]
+        for r, g in enumerate(got):
+            if g[name]["crc"] != got[0][name]["crc"]:
+                diff = [k for k, v in g[name]["crc"].items()
+                        if got[0][name]["crc"][k] != v]
+                raise SmokeError(f"28 {name}: rank {r}'s weights differ from "
+                                 f"rank 0's: {diff[:6]}")
+            for s, launches in enumerate(g[name]["launches"]):
+                miss = {k: v for k, v in want.items()
+                        if launches.get(k, 0) != v}
+                if miss:
+                    raise SmokeError(f"28 {name}: rank {r} step {s} launched "
+                                     f"{launches}, want {want}")
+        cos = _cos_updates(two_p, r1["params"], r1["w0"])
+        if name == "gn_f32":
+            _dp_check("gn f32 2 ranks vs 1, first step's update rel",
+                      _rel_updates(two_f, r1["first"], r1["w0"]),
+                      UPDATE_REL, UPDATE_REL_MEDIAN, True)
+            _dp_check(f"gn f32 2 ranks vs 1, {DP_STEPS} steps' update rel",
+                      _rel_updates(two_p, r1["params"], r1["w0"]),
+                      DP_F32_REL, DP_F32_REL_MEDIAN, True)
+        elif name == "gn_bf16":
+            _dp_check("gn bf16 2 ranks vs 1, update cosine", cos,
+                      UPDATE_COS, UPDATE_COS_MEDIAN, False)
+        elif name == "rn_f32":
+            _dp_check("rn zero3 f32 2 ranks vs 1, update cosine", cos,
+                      RESNET_F32_COS, RESNET_F32_COS_MEDIAN, False)
+        else:
+            _dp_check("rn zero3 bf16 2 ranks vs 1, classifier update cosine",
+                      {kt: c for kt, c in cos.items()
+                       if kt[0].endswith("_fc1000")},
+                      RESNET_BF16_CLS_COS, RESNET_BF16_CLS_COS, False)
+            _dp_check("rn zero3 bf16 2 ranks vs 1, update cosine (logged)",
+                      cos, -1.0, -1.0, False)
+            rel = abs(got[0][name]["losses"][0] - r1["losses"][0]) / abs(
+                r1["losses"][0])
+            log(f"28b bf16 loss 2 ranks vs 1: rel {rel:.3g} (limit "
+                f"{DP_RN_LOSS_REL:g})")
+            if not rel <= DP_RN_LOSS_REL:
+                raise SmokeError(f"28b: bf16 loss rel {rel:g}")
+        if two_a:
+            aux_rel = {kt: float(np.abs(a - r1["aux"][kt]).max()
+                                 / max(np.abs(r1["aux"][kt]).max(), 1e-30))
+                       for kt, a in two_a.items()}
+            lim = ((DP_AUX_REL, DP_AUX_REL_MEDIAN) if name == "rn_f32"
+                   else (DP_AUX_BF16_REL, DP_AUX_BF16_REL_MEDIAN))
+            _dp_check(f"{name} running statistics 2 ranks vs 1, rel",
+                      aux_rel, *lim, True)
+        g0 = got[0][name]
+        row = {"launches_a_step": g0["launches"][0],
+               "losses_2": g0["losses"], "losses_1": r1["losses"],
+               "collective_ms_a_step": [g[name]["collective_ms"]
+                                        for g in got],
+               "k8_elements": [g[name]["k8_elems"][0] for g in got],
+               "k8_elements_1": r1["k8_elems"][0],
+               "shard_bytes": [g[name]["shard_bytes"] for g in got],
+               "total_bytes": g0["total_bytes"]}
+        if "step_ms" in g0:
+            row.update(step_ms=[g[name]["step_ms"] for g in got],
+                       timed_collective_ms=[g[name]["timed_collective_ms"]
+                                            for g in got],
+                       step_ms_1=r1["step_ms"],
+                       img_s=r1["batch"] / max(
+                           g[name]["step_ms"] for g in got) * 1e3,
+                       img_s_1=r1["batch"] / r1["step_ms"] * 1e3)
+        per_rank[name] = row
+        log(f"28 {name}: per rank a step launches {g0['launches'][0]}; "
+            f"K8 elements {row['k8_elements']} (one rank: "
+            f"{row['k8_elements_1']}); losses 2 ranks {g0['losses']}, 1 rank"
+            f" {r1['losses']}; collectives host ms a step "
+            f"{[[round(v, 1) for v in c] for c in row['collective_ms_a_step']]}"
+            + (f"; step ms {[round(v, 1) for v in row['step_ms']]} vs "
+               f"{r1['step_ms']:.1f} one rank: {row['img_s']:.0f} img/s vs "
+               f"{row['img_s_1']:.0f} ({card})" if "step_ms" in row else ""))
+    rn = per_rank["rn_zero3"]
+    frac = max(rn["shard_bytes"]) / rn["total_bytes"]
+    log(f"28b: zero=3 train-state bytes a rank {rn['shard_bytes']} of "
+        f"{rn['total_bytes']} ({frac:.3f}, limit {DP_SHARD_LIMIT}); K8 on "
+        f"slices: {rn['k8_elements']} elements a rank against "
+        f"{rn['k8_elements_1']} on one")
+    if frac > DP_SHARD_LIMIT or not all(
+            e < rn["k8_elements_1"] for e in rn["k8_elements"]):
+        raise SmokeError(f"28b: zero=3 bytes {frac:.3f} or K8 elements "
+                         f"{rn['k8_elements']} of {rn['k8_elements_1']}")
+    dets = [g["det_crcs"] for g in got]
+    log(f"28a: det_reduce=1, dropout layers out, two runs' weight CRCs by "
+        "rank "
+        f"{dets}")
+    if any(d[0] != d[1] for d in dets) or len({d[0] for d in dets}) != 1:
+        raise SmokeError(f"28a: det_reduce runs differ: {dets}")
+    launches_dp = {}
+    for g in got:
+        for name in ("gn_f32", "gn_bf16", "rn_f32", "rn_zero3"):
+            for step in g[name]["launches"]:
+                for k, v in step.items():
+                    launches_dp[k] = launches_dp.get(k, 0) + v
+    nccl = "not run: 1 card"
+    if torch.cuda.device_count() >= DP_RANKS:
+        nccl = _dp_nccl(spec, tmp, ref)
+    log(f"28a: NCCL over {DP_RANKS} cards: {nccl}")
+    return {"per_run": per_rank, "launches_dp": launches_dp,
+            "backend": got[0]["backend"],
+            "ranks_s": ranks_s, "reference_s": ref_s, "nccl": nccl}
+
+
+def _dp_nccl(spec, tmp: str, ref):
+    """The bf16 GoogLeNet run again with rank r on card r (``dev =
+    gpu:0-1``: NCCL): the ranks agree bit for bit and the updates hold
+    the one-rank run's cosines."""
+    import numpy as np
+
+    from cxxnet_tpu_torch.serve.fleet import free_port
+
+    out_dir = os.path.join(tmp, "dp_nccl")
+    os.makedirs(out_dir, exist_ok=True)
+    spec = dict(spec, dev=f"gpu:0-{DP_RANKS - 1}", only=["gn_bf16"],
+                coord=f"127.0.0.1:{free_port()}", out=out_dir)
+    path = os.path.join(tmp, "dp_nccl.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    codes, outs = _dp_spawn(
+        [[sys.executable, os.path.abspath(__file__), "--dp-rank", path,
+          str(r)] for r in range(DP_RANKS)], tmp, "dp_nccl")
+    if any(c != 0 for c in codes):
+        raise SmokeError(f"28 NCCL: rank exits {codes}: "
+                         + " | ".join(o[-2500:] for o in outs))
+    got = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    if got[0]["backend"] != "nccl" or any(
+            g["gn_bf16"]["crc"] != got[0]["gn_bf16"]["crc"] for g in got):
+        raise SmokeError(f"28 NCCL: backend {got[0]['backend']} or the "
+                         "ranks' weights differ")
+    d = np.load(os.path.join(out_dir, "gn_bf16.npz"))
+    two = {tuple(k[2:].split("/")): d[k].astype(np.float64)
+           for k in d.files if k.startswith("p:")}
+    r1 = ref["gn_bf16"]
+    worst, med = _dp_check("gn bf16 NCCL 2 cards vs 1, update cosine",
+                           _cos_updates(two, r1["params"], r1["w0"]),
+                           UPDATE_COS, UPDATE_COS_MEDIAN, False)
+    return {"backend": "nccl", "worst_cos": worst, "median_cos": med,
+            "step_ms": [g["gn_bf16"]["step_ms"] for g in got]}
+
+
+def dp_cli_digits_phase(tmp: str, card: str):
+    """28a's ``task=train`` through the CLI and 28c, their rank processes
+    started together (the card shared; none of their readings is a
+    time).  28a's CLI run: two ranks (``dist_num_proc = 2``, ``dev =
+    gpu:0``, ``test_on_server = 1``), 1 round of GoogLeNet on
+    ``DP_CLI_ROWS`` rows: both ranks print the weight-sync line and the
+    ``mesh:`` line naming gloo, and rank 0 writes the checkpoints after
+    the ranks' CRCs agree.  28c: ``example/MNIST/dist.conf``
+    (``update_on_server = 1``) with a test section on the UCI digits,
+    ``DP_DIGITS_ROUNDS`` rounds, two ranks by hand (``CXN_PROC_ID``)
+    against this process's one-rank run of the conf without its
+    ``dist_*`` lines: the weights within ``DP_DIGITS_REL`` of the
+    one-rank update's size, the rank-summed test error within
+    ``DP_DIGITS_ERR``, the one-rank run off chance; and a bit flipped on rank 1 only: the vote finds
+    it and both ranks stop with ``INTEGRITY:`` before the round is
+    saved."""
+    import numpy as np
+
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve.fleet import free_port
+    from cxxnet_tpu_torch.tools.make_digits_idx import write_digits_idx
+
+    conf = _synthetic_conf(tmp, "dp_cli.conf",
+                           (("data", "train", DP_CLI_ROWS, True),
+                            ("eval", "val", BATCH, False)), LR_SCALE)
+    write_digits_idx(os.path.join(tmp, "data"))
+    with open(DIST_CONF) as f:
+        text = f.read() + DP_DIGITS_EVAL
+    two = os.path.join(tmp, "dist_eval.conf")
+    one = os.path.join(tmp, "one_eval.conf")
+    with open(two, "w") as f:
+        f.write(text)
+    with open(one, "w") as f:
+        f.write("\n".join(l for l in text.splitlines()
+                          if not l.startswith("dist_")) + "\n")
+    ports = [free_port() for _ in range(3)]
+    by_hand = [{"CXN_PROC_ID": str(r)} for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    cli = _dp_start(
+        [[sys.executable, "-m", "cxxnet_tpu_torch", conf, "task=train",
+          f"dev={DP_DEV}", "num_round=1", "max_round=1", f"seed={SEED}",
+          "print_step=0", "test_on_server=1", "dist_num_proc=2",
+          f"dist_proc_id={r}", f"dist_coordinator=127.0.0.1:{ports[0]}",
+          "dist_timeout_s=120", f"model_dir={tmp}/dp_cli_models"]
+         for r in range(DP_RANKS)], tmp, "dp_cli")
+    digits = _dp_start(
+        [[sys.executable, "-m", "cxxnet_tpu_torch", two, *DP_DIGITS_KEYS,
+          f"dist_coordinator=127.0.0.1:{ports[1]}", "dist_timeout_s=120",
+          "model_dir=m2"]] * DP_RANKS, tmp, "dp_digits", envs=by_hand)
+    flip = _dp_start(
+        [[sys.executable, "-m", "cxxnet_tpu_torch", two, *DP_DIGITS_KEYS,
+          "num_round=1", "integrity_every=1", "update_on_server=0",
+          f"dist_coordinator=127.0.0.1:{ports[2]}", "dist_timeout_s=120",
+          "model_dir=m3", *(DP_FLIP if r == 1 else ())]
+         for r in range(DP_RANKS)], tmp, "dp_flip", envs=by_hand)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        with _Tee() as tee:
+            _run_train_task([one, *DP_DIGITS_KEYS, "model_dir=m1"])
+        one_out = "".join(tee.text)
+    finally:
+        os.chdir(cwd)
+    results = {name: _dp_finish(job, t0)
+               for name, job in (("cli", cli), ("digits", digits),
+                                 ("flip", flip))}
+    wall = time.perf_counter() - t0
+    for name in ("cli", "digits"):
+        codes, outs = results[name]
+        if any(c != 0 for c in codes):
+            raise SmokeError(f"28 {name}: exits {codes}: "
+                             + " | ".join(o[-2500:] for o in outs))
+    # 28a's CLI run
+    outs = results["cli"][1]
+    for r, o in enumerate(outs):
+        if ("weight-sync:max_dev=0 ok" not in o
+                or "mesh: data=2 model=1 zero=0 processes=2 backend=gloo"
+                not in o):
+            raise SmokeError(f"28a CLI: rank {r} output {o[-2500:]}")
+    saved = sorted(os.listdir(os.path.join(tmp, "dp_cli_models")))
+    mesh = [line for line in outs[0].splitlines() if line.startswith("mesh:")]
+    log(f"28a CLI: 2 ranks, 1 round: {mesh}; saved {saved}; weight-sync ok "
+        f"on both ranks ({card})")
+    # 28c
+
+    def errs(o):
+        return [float(l.split("test-error:")[1].split()[0])
+                for l in o.splitlines() if "test-error:" in l]
+
+    e1, e2 = errs(one_out), [errs(o) for o in results["digits"][1]]
+
+    def params(run, r):
+        return NetTrainer._read_model_file(
+            os.path.join(tmp, run, f"{r:04d}.model"))[1]
+
+    w0 = params("m1", 0)
+    worst, upd = 0.0, {}
+    for r in range(1, DP_DIGITS_ROUNDS + 1):
+        a, b = params("m2", r), params("m1", r)
+        for k in b:
+            for t in b[k]:
+                d1 = float(np.abs(b[k][t] - w0[k][t]).max())
+                upd[f"{k}/{t}"] = d1
+                worst = max(worst, float(np.abs(a[k][t] - b[k][t]).max())
+                            / max(d1, 1e-30))
+    log(f"28c dist.conf on the digits, {DP_DIGITS_ROUNDS} rounds: test error "
+        f"by round, ranks {e2}, one rank {e1}; weights two ranks vs one "
+        f"max|w2 - w1| / max|w1 - w0| {worst:.3g} (limit {DP_DIGITS_REL:g});"
+        " the one-rank update max|w1 - w0| after the last round "
+        + ", ".join(f"{k} {v:.3g}" for k, v in upd.items()))
+    if (e2[0] != e2[1] or len(e1) != DP_DIGITS_ROUNDS
+            or len(e2[0]) != DP_DIGITS_ROUNDS or worst > DP_DIGITS_REL
+            or any(abs(a - b) > DP_DIGITS_ERR + 1e-12
+                   for a, b in zip(e2[0], e1))):
+        raise SmokeError(f"28c: 2 ranks vs 1: errors {e2} vs {e1}, weights "
+                         f"rel {worst:g}")
+    if not e1[-1] < DP_DIGITS_LEARNED:
+        raise SmokeError(f"28c: the one-rank run stayed at chance: test "
+                         f"errors {e1}")
+    codes, outs = results["flip"]
+    saved_flip = sorted(os.listdir(os.path.join(tmp, "m3")))
+    verdicts = [next((l for l in o.splitlines() if l.startswith("INTEGRITY:")),
+                     None) for o in outs]
+    log(f"28c bitflip on rank 1: exits {codes}; {verdicts}; saved "
+        f"{saved_flip}; the three jobs together {wall:.1f}s")
+    if (any(c == 0 for c in codes) or None in verdicts
+            or "0001.model" in saved_flip):
+        raise SmokeError(f"28c: the flip was not stopped: {codes} "
+                         f"{verdicts} {saved_flip}")
+    return {"cli_saved": saved, "errors_2": e2[0], "errors_1": e1,
+            "weights_rel": worst, "update_max_abs": upd, "wall_s": wall,
+            "flip_verdict": verdicts[0]}
+
+
+def data_parallel_phase(card: str):
+    """Phase 28: 28a/28b (with NCCL over two cards where the host has
+    them: logged as not run on one card), then the CLI's 28a run and 28c
+    together, each part in a temporary directory."""
+    import torch
+
+    out = {"card": card}
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        for name, fn in (("googlenet_resnet", dp_googlenet_resnet_phase),
+                         ("cli_digits", dp_cli_digits_phase)):
+            t1 = time.perf_counter()
+            with tempfile.TemporaryDirectory(
+                    prefix=f"chip_smoke_dp_{name}_") as tmp:
+                out[name] = fn(tmp, card)
+            torch.cuda.empty_cache()
+            out[name]["phase_s"] = time.perf_counter() - t1
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -10159,7 +10952,8 @@ def main() -> int:
     if not (os.path.isdir(os.path.join(REPO, "cxxnet_tpu_torch"))
             and all(os.path.exists(c) for c in (CONF, RESNET_CONF,
                                                 MNIST_CONF, DIGITS_CONF,
-                                                BOWL_CONF, BOWL_PRED_CONF))):
+                                                BOWL_CONF, BOWL_PRED_CONF,
+                                                DIST_CONF))):
         print("chip_smoke: run it from the root of a cxxnet-tpu checkout "
               "(cxxnet_tpu_torch/, example/ImageNet/{googlenet,resnet50}"
               ".conf, example/MNIST/{MNIST_CONV,digits_conv}.conf and "
@@ -10274,9 +11068,12 @@ def main() -> int:
         p27 = moe_pipe_remat_phase(card)
         log(json.dumps({"moe_pipe_remat": p27}))
         lap("27 moe, pipe, remat")
+        p28 = data_parallel_phase(card)
+        log(json.dumps({"data_parallel": p28}))
+        lap("28 data parallel")
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
-                            quant_launches, loop_out, fleet_out, p27)
+                            quant_launches, loop_out, fleet_out, p27, p28)
         log(json.dumps({"phase_s": phase_s, "total_s": round(sum(
             phase_s.values()), 1), "card": card}))
         log(card)
@@ -10292,4 +11089,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
+        sys.exit(dp_rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

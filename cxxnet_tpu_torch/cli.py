@@ -142,8 +142,11 @@ and votes the train state every N rounds before the checkpoint, and
 process every vote group has one replica, so the vote is always clean
 and a flipped bit in the state (``fault_inject = device.state:bitflip``)
 is not detected, as in the JAX package; there only the shadow audit can
-stop a run, and the sweep's cost buys detection once several processes
-run (ROADMAP item A6).
+stop a run.  Across the ranks of a data-parallel job the digests are
+all-gathered and voted (``integrity/plane.py``): a flipped bit on one
+of three ranks is named, on one of two it is found but not named, and
+either stops the run (the quarantine of the named rank is the elastic
+pod's, ROADMAP.md item (k4)).
 ``controller = 1`` runs the tuner (``tune/``): under ``task=train`` over
 the decode pool's workers and window, under ``task=serve`` over the
 batcher's limit and window, with the bucket prewarm each tick.
@@ -182,9 +185,26 @@ clients, a ``data_service_cache_mb`` block cache and a
 ``data_service_ready_file``.  A trainer reads it with ``iter = service``
 and ``data_service_addr = host:port``.
 
-The elastic and cross-process planes of training (``elastic``,
-``elastic_join``, ``test_on_server``) are later slices (ROADMAP.md) and
-raise ``NotImplementedError`` naming the item.
+Data parallelism (``parallel/``): ``dist_num_proc``, ``dist_proc_id``
+and ``dist_coordinator`` (or ``CXN_NUM_PROC``, ``CXN_PROC_ID``,
+``CXN_COORDINATOR``) join a ``torch.distributed`` group before anything
+touches the card.  ``task=train``/``finetune`` with a device range
+(``dev = cpu:0-1``, ``dev = gpu:0-3``) and no ``dist_*`` keys starts
+one rank process per listed device (the conf and the overrides, then
+``dev = X:i`` and the ``dist_*`` keys of a free loopback coordinator),
+waits for them within ``dist_launch_timeout_s`` (default a week), ends
+them all when one fails, and exits with the first failing code.  In a
+group the conf's ``batch_size`` is global: each rank's ``data`` and
+``eval`` chains read ``batch_size / N`` rows of their own worker shard
+(``dist_num_worker``, ``dist_worker_rank``; a train chain that cannot
+shard is refused), the resume round is the newest every rank holds,
+rank 0 writes the checkpoints, the train and eval metrics are summed
+over the ranks, and the ``mesh:`` line states the layout, the backend
+and the state's bytes per rank.  ``test_on_server = 1`` checks after
+every round that the ranks' weights agree (``check_weight_sync``,
+``weight-sync:`` on stderr).  ``elastic`` and ``elastic_join`` (the
+elastic pod, ROADMAP.md item (k4)) raise ``NotImplementedError``; the
+tasks other than ``train`` and ``finetune`` run on one process.
 """
 
 from __future__ import annotations
@@ -202,7 +222,9 @@ _TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "summary",
           "serve", "generate", "export_quant", "serve_train", "loop_fleet",
           "data_service")
 # train keys of planes this slice does not port: refused when switched on
-_TRAIN_LATER = ("test_on_server", "elastic", "elastic_join")
+_TRAIN_LATER = ("elastic", "elastic_join")
+# the tasks a data-parallel group runs (the others are one process)
+_GROUP_TASKS = ("train", "finetune")
 
 
 class LearnTask:
@@ -230,6 +252,8 @@ class LearnTask:
         self.telemetry = 0  # per-round JSONL records
         self.telemetry_path = "telemetry.jsonl"
         self.controller = 0  # 1: the tuner (tune/)
+        self.test_on_server = 0  # 1: the ranks' weights compared a round
+        self.dist_launch_timeout_s = 7 * 86400.0  # the range launcher's
         self._train_start = 0.0
         self.print_step = 100
         self.net_trainer = None
@@ -337,8 +361,12 @@ class LearnTask:
             self.telemetry_path = val
         elif name in _TRAIN_LATER and val not in ("", "0"):
             raise NotImplementedError(
-                f"{name}={val}: this plane of task=train is not ported yet "
-                "(ROADMAP.md queue A item 6, (k): multi-device)")
+                f"{name}={val}: the elastic pod is not ported yet "
+                "(ROADMAP.md queue A item 6, (k4))")
+        elif name == "test_on_server":
+            self.test_on_server = int(val)
+        elif name == "dist_launch_timeout_s":
+            self.dist_launch_timeout_s = float(val)
         elif name == "model_in":
             self.name_model_in = val
         elif name == "model_dir":
@@ -433,6 +461,27 @@ class LearnTask:
             self.set_param(name, val)
         if self.task not in _TASKS:
             raise ValueError(f"unknown task {self.task!r}")
+        launched = self._launch_device_range()
+        if launched is not None:
+            return launched
+        # join the data-parallel group (if any) before anything touches
+        # the card: it binds this rank's device
+        from .parallel import distributed
+
+        joined = distributed.maybe_init_distributed(self.cfg)
+        if joined and self.task not in _GROUP_TASKS:
+            raise ValueError(
+                f"task={self.task} is single-process; a data-parallel "
+                f"group runs {' and '.join(_GROUP_TASKS)}")
+        code = self._run_task()
+        if joined:
+            # every rank is done: leave the group together (its threads
+            # torn down at interpreter exit can abort the process)
+            distributed.barrier("exit")
+            distributed.shutdown_distributed()
+        return code
+
+    def _run_task(self) -> int:
         from . import obs
         from .utils import faults
 
@@ -464,6 +513,58 @@ class LearnTask:
         else:
             return self.task_export_quant()
         return 0
+
+    # ------------------------------------------------------------------
+    # the device-range launcher
+    def _launch_device_range(self) -> Optional[int]:
+        """A device range (``dev = X:0-3``) with no ``dist_*`` keys: one
+        rank process per listed device, each this invocation plus ``dev
+        = X:i`` and the ``dist_*`` keys of a free loopback coordinator;
+        returns the job's exit code (None when there is no range to
+        launch).  The JAX package runs the range as one program over
+        the devices; each rank here is one process on one device."""
+        from .parallel import distributed
+        from .parallel import mesh
+
+        if distributed.distributed_spec(self.cfg) is not None:
+            return None
+        dev = "tpu"
+        for name, val in self.cfg:
+            if name == "dev":
+                dev = val
+        plat, ids = mesh.parse_device(dev.strip().lower())
+        if len(ids) < 2:
+            return None
+        if self.task not in _GROUP_TASKS:
+            raise NotImplementedError(
+                f"dev={dev.strip()}: task={self.task} runs on one device; "
+                f"a device range runs {' and '.join(_GROUP_TASKS)}, one "
+                "process per device")
+        if plat != "cpu":
+            mesh.check_ordinals(dev, ids)
+        import socket
+        import subprocess
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        procs = []
+        for rank, ordinal in enumerate(ids):
+            argv = [sys.executable, "-m", "cxxnet_tpu_torch", self.conf_path,
+                    *self.cli_overrides, f"dev={plat}:{ordinal}",
+                    f"dist_num_proc={len(ids)}", f"dist_proc_id={rank}",
+                    f"dist_coordinator=127.0.0.1:{port}"]
+            procs.append(subprocess.Popen(argv, env=env))
+        if not self.silent:
+            print(f"dev={dev.strip()}: {len(ids)} rank processes "
+                  f"(pids {[p.pid for p in procs]}), coordinator "
+                  f"127.0.0.1:{port}", flush=True)
+        return wait_ranks(procs, self.dist_launch_timeout_s)
 
     # ------------------------------------------------------------------
     # train
@@ -501,14 +602,11 @@ class LearnTask:
         if self.task != "train":
             self.continue_training = 0
         if self.continue_training:
-            found = ckpt.find_latest_valid(
-                self.name_model_dir, net_fp=self._net_fingerprint(),
-                silent=bool(self.silent))
-            if found is None:
+            round_, path = self._locate_agreed_checkpoint()
+            if path is None:
                 raise FileNotFoundError(
                     "Init: cannot find models for continue training; "
                     "specify model_in instead")
-            round_, path = found
             self.net_trainer = self._create_trainer()
             self.net_trainer.load_model(path)
             self.start_counter = round_ + 1
@@ -533,6 +631,35 @@ class LearnTask:
             self.net_trainer.load_model(self.name_model_in)
             self.start_counter += 1
         self._create_iterators()
+
+    def _locate_agreed_checkpoint(self):
+        """``(round, path)`` of the newest valid checkpoint of
+        ``model_dir`` that every rank holds (``agree_on_round``; ``(-1,
+        None)`` when any has none).  An agreed round older than a rank's
+        newest is validated there, and a rank that cannot use it stops
+        every rank (collective)."""
+        from .parallel.distributed import agree_on_round, any_process_flag
+        from .utils import checkpoint as ckpt
+
+        net_fp = self._net_fingerprint()
+        found = ckpt.find_latest_valid(self.name_model_dir, net_fp=net_fp,
+                                       silent=bool(self.silent))
+        local = found[0] if found else -1
+        round_ = agree_on_round(local)
+        if round_ < 0:
+            return -1, None
+        path, reason = (found[1], None) if round_ == local else (
+            os.path.join(self.name_model_dir, f"{round_:04d}.model"), None)
+        if round_ != local:
+            if not self.silent:
+                print(f"resume: agreed on round {round_} across processes "
+                      f"(local newest was {local})")
+            reason = ckpt.validate_checkpoint(path, net_fp=net_fp)
+        if any_process_flag(reason is not None):
+            raise ckpt.CheckpointError(
+                f"resume: processes agreed on round {round_} but {path} is "
+                f"unusable: {reason or 'unusable on a peer process'}")
+        return round_, path
 
     def init_model_task(self) -> None:
         """The model of ``model_in`` (``summary`` may go without one: a
@@ -571,11 +698,39 @@ class LearnTask:
                     if self.itr_pred is not None:
                         raise ValueError("can only have one pred section")
                     self.itr_pred = create_iterator(sec.entries)
+        from .parallel.distributed import process_info
+
+        pid, nproc = process_info()
         for it in [self.itr_train, self.itr_pred, *self.itr_evals]:
             if it is not None:
                 for n, v in split.global_entries:
                     it.set_param(n, v)
+                if nproc > 1 and (it is self.itr_train
+                                  or it in self.itr_evals):
+                    self._shard_iterator(it, pid, nproc)
                 it.init()
+
+    def _shard_iterator(self, it, pid: int, nproc: int) -> None:
+        """A data-parallel group's chain: this rank's worker shard, at
+        ``batch_size / nproc`` rows a batch (the conf's ``batch_size``
+        is global).  An eval chain that cannot shard scores the whole
+        set on every rank (the summed metric is the same); a train
+        chain that cannot is refused."""
+        gbs = self.net_trainer.batch_size
+        if gbs % nproc != 0:
+            raise ValueError(f"batch_size={gbs} must divide by the "
+                             f"process count ({nproc})")
+        if not it.supports_dist_shard():
+            if it is self.itr_train:
+                raise ValueError(
+                    "multi-process training needs a train iterator that "
+                    "honors dist_num_worker (mnist/imgbin/img/csv/"
+                    "synthetic/text); this chain would silently feed every "
+                    "process identical data")
+            return
+        it.set_param("batch_size", str(gbs // nproc))
+        it.set_param("dist_num_worker", str(nproc))
+        it.set_param("dist_worker_rank", str(pid))
 
     def _close_iterators(self) -> None:
         for it in [self.itr_train, self.itr_pred, *self.itr_evals]:
@@ -598,7 +753,11 @@ class LearnTask:
         shape = tuple(tr.net.input_node_shape(tr.batch_size))[1:]
         seed = 0xC0FFEE ^ int(tr.seed or 0)
         crc = None
-        if not tr.quant_scheme:
+        # a group commits the spec only, as the JAX package does: the
+        # engine that loads the round records its own golden
+        from .parallel.distributed import process_info
+
+        if not tr.quant_scheme and process_info()[1] == 1:
             probe = canary.probe_batch(seed, rows, shape)
             crc = canary.scores_crc(ShapeBucketCache(tr).scores(probe))
         return canary.make_probe_block(seed, rows, shape, crc,
@@ -606,7 +765,10 @@ class LearnTask:
 
     def _save_model(self, force: bool = False) -> bool:
         """Write ``<start_counter>.model`` (every ``save_model`` rounds,
-        or now when ``force``) and advance the round counter."""
+        or now when ``force``) and advance the round counter.  In a
+        data-parallel group every rank calls it (collective:
+        ``NetTrainer.save_model`` checks the ranks' bytes agree and rank
+        0 writes)."""
         round_ = self.start_counter
         path = os.path.join(self.name_model_dir, f"{round_:04d}.model")
         self.start_counter += 1
@@ -622,10 +784,12 @@ class LearnTask:
         from .integrity.plane import IntegrityError
         from .obs import emit as obs_emit
         from .obs import trace as obs_trace
+        from .parallel.distributed import any_process_flag, process_info
         from .utils.checkpoint import DivergenceError, PreemptionHandler
         from .utils.profiler import StepTimer, TraceController
 
         self.init_train()
+        self._print_mesh_summary()
         self._train_start = time.time()
         tracer = TraceController()
         tracer.configure(self.cfg)
@@ -682,6 +846,11 @@ class LearnTask:
                         except IntegrityError as e:
                             if not self._handle_integrity(e):
                                 raise
+                    if process_info()[1] > 1:
+                        # one rank's signal stops every rank, at the
+                        # round boundary (collective)
+                        completed = completed and not any_process_flag(
+                            preempt.requested)
                     if not completed or preempt.requested:
                         last = self.start_counter - 1
                         snapshotted = self._save_model(force=True)
@@ -711,20 +880,20 @@ class LearnTask:
             self._close_iterators()
 
     def _handle_integrity(self, e) -> bool:
-        """The response to an integrity verdict.  On one process (or a
-        vote that named no replica) there is no healthy majority to
-        rebuild onto: print ``INTEGRITY: ...`` and return False, so the
-        error stops the run before the round is saved.  The JAX
-        package's elastic quarantine (evict the named rank, rebuild on
-        the last verified round) waits for multi-device support."""
+        """The response to an integrity verdict: print ``INTEGRITY: ...``.
+        On one process (or a vote that named no replica) there is no
+        healthy majority to rebuild onto: return False, so the error
+        stops the run before the round is saved.  The JAX package's
+        elastic quarantine of a named rank (evict it, rebuild on the
+        last verified round) is the elastic pod's and raises."""
         print(f"INTEGRITY: {e}", flush=True)
-        from .integrity.plane import _world_size
+        from .parallel.distributed import process_info
 
-        if e.rank is None or _world_size() == 1:
+        if e.rank is None or process_info()[1] == 1:
             return False
         raise NotImplementedError(
-            "integrity quarantine across processes: the elastic rebuild "
-            "waits for multi-device support (ROADMAP.md item A6)")
+            f"integrity quarantine of rank {e.rank}: the elastic rebuild is "
+            "not ported yet (ROADMAP.md queue A item 6, (k4))")
 
     # ------------------------------------------------------------------
     # the tuner (tune/): controller = 1
@@ -858,7 +1027,10 @@ class LearnTask:
         from .obs import trace as obs_trace
         from .utils.profiler import pipeline_stats
 
+        from .parallel.distributed import process_info
+
         tr = self.net_trainer
+        multi = process_info()[1] > 1
         round_ = self.start_counter - 1
         if not self.silent:
             print(f"update round {round_}", flush=True)
@@ -892,8 +1064,8 @@ class LearnTask:
                 print(f"round {round_:8d}:[{batches:8d}] "
                       f"{int(time.time() - self._train_start)} sec elapsed",
                       flush=True)
-            if preempt.requested:
-                return False
+            if preempt.requested and not multi:
+                return False  # a group stops at the round boundary
         stage_line = pipeline_stats().report()
         if not self.silent and stage_line:
             print(f"round {round_:8d} pipeline: " + stage_line, flush=True)
@@ -911,7 +1083,28 @@ class LearnTask:
         sys.stderr.write(text + "\n")
         sys.stderr.flush()
         self._write_telemetry(timer, text, batches)
+        if self.test_on_server:
+            dev = tr.check_weight_sync()
+            sys.stderr.write(f"[{self.start_counter}]\tweight-sync:"
+                             f"max_dev={dev:g} ok\n")
+            sys.stderr.flush()
         return True
+
+    def _print_mesh_summary(self) -> None:
+        """One line of layout at train start in a data-parallel group:
+        the mesh, the backend, and this rank's train-state bytes against
+        one whole replica (``train_state_shard_bytes`` in
+        ``/metricsz``)."""
+        tr = self.net_trainer
+        plan = tr.mesh_plan if tr is not None else None
+        if self.silent or plan is None or plan.n_devices <= 1:
+            return
+        per_device, total = tr.state_shard_bytes()
+        held = max(per_device.values()) if per_device else total
+        print(f"mesh: {plan.describe(zero=tr._zero_level())} | train state "
+              f"{total / 1e6:.2f} MB replicated -> {held / 1e6:.2f} MB/device "
+              f"({held / total if total else 1:.2%} of a full copy)",
+              flush=True)
 
     def _write_telemetry(self, timer, eval_text: str,
                          n_batches: int) -> None:
@@ -1459,6 +1652,57 @@ class LearnTask:
                 signal.signal(s, p)
             server.close()
         print("data_service: shutdown complete", flush=True)
+
+
+def wait_ranks(procs, timeout_s: float) -> int:
+    """Wait for the rank processes of a device range: 0 when every rank
+    exits 0; else, as soon as one fails (or ``timeout_s`` passes: 124),
+    the others are ended (SIGTERM, then SIGKILL after 10 s) and the
+    first failing exit code is returned (128 + N for a rank killed by
+    signal N).  SIGTERM and SIGINT to this process are passed on to the
+    ranks (each snapshots its state as a single-process run does)."""
+    def forward(signum, frame):
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    prev = {}
+    if threading.current_thread() is threading.main_thread():
+        prev = {s: signal.signal(s, forward)
+                for s in (signal.SIGTERM, signal.SIGINT)}
+    deadline = time.monotonic() + timeout_s
+    code = 0
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed:
+                code = failed[0] if failed[0] > 0 else 128 - failed[0]
+                print(f"rank {codes.index(failed[0])} exited {failed[0]}: "
+                      "ending the others", file=sys.stderr, flush=True)
+                break
+            if all(c == 0 for c in codes):
+                return 0
+            if time.monotonic() >= deadline:
+                code = 124
+                print(f"ranks still running after {timeout_s:g} s "
+                      "(dist_launch_timeout_s): ending them",
+                      file=sys.stderr, flush=True)
+                break
+            time.sleep(0.05)
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except Exception:  # noqa: BLE001 - a rank ignoring SIGTERM
+                p.kill()
+                p.wait()
+    return code
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -11,9 +11,13 @@ knob: any disagreement is corruption.
 
 One process holds one replica of every leaf, so its groups are
 single-replica and the vote is always clean, as in the JAX package on
-one process.  The cross-process allgather of the JAX package (its
-``multihost_utils.process_allgather``) waits for multi-device support
-(ROADMAP.md item A6) and raises ``NotImplementedError`` naming it.
+one process.  In a data-parallel group the digest blocks are
+all-gathered (the JAX package's ``process_allgather``; every rank holds
+the same leaves in the same order), and every rank recomputes its
+peers' (leaf, slice) keys from the trainer's placement
+(``NetTrainer.placement``: under ``zero`` a sharded leaf is digested as
+the rank's slice), so a flipped bit on one of three replicas names its
+rank.
 
 The **shadow-step audit** guards compute rather than state: the
 trainer's ``shadow_step`` runs the sampled round's grad step twice on
@@ -74,10 +78,24 @@ def _leaves(trainer):
                     yield f"ust:{key}/{tag}@{slot}", slots[slot]
 
 
-def local_fingerprints(trainer) -> Tuple[List[Digest], List[tuple]]:
+def _leaf_key(trainer, name: str, shape, rank: int) -> tuple:
+    """``(leaf_name, slice_key)`` of rank ``rank``'s copy of a leaf: the
+    full extent, or under ``zero`` the rank's slice of a sharded one."""
+    place = getattr(trainer, "placement", lambda _n: None)(name)
+    if place is None:
+        return name, _slice_key(tuple(slice(0, s, None) for s in shape))
+    whole, dim = place
+    n = whole[dim] // trainer.mesh_plan.n_data
+    return name, _slice_key(tuple(
+        slice(rank * n, (rank + 1) * n, None) if d == dim
+        else slice(0, s, None) for d, s in enumerate(whole)))
+
+
+def local_fingerprints(trainer, rank: int = 0
+                       ) -> Tuple[List[Digest], List[tuple]]:
     """Digest every leaf on its device.  Returns (rows, keys) where
-    ``keys[i] = (leaf_name, slice_key)``, the full-extent slice of the
-    leaf (one process holds whole tensors)."""
+    ``keys[i] = (leaf_name, slice_key)``: the slice of the whole leaf
+    that rank ``rank`` holds."""
     rows: List[Digest] = []
     keys: List[tuple] = []
     for name, arr in _leaves(trainer):
@@ -88,19 +106,8 @@ def local_fingerprints(trainer) -> Tuple[List[Digest], List[tuple]]:
             a = np.asarray(arr)
             rows.append(digest_array(a))
             shape = a.shape
-        keys.append((name, _slice_key(tuple(
-            slice(0, s, None) for s in shape))))
+        keys.append(_leaf_key(trainer, name, shape, rank))
     return rows, keys
-
-
-def _world_size() -> int:
-    """The processes of an initialized ``torch.distributed`` group (1
-    without one)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
 
 
 def vote(groups: Dict[tuple, List[Tuple[int, Digest]]]) -> List[dict]:
@@ -141,15 +148,22 @@ def check_state(trainer) -> dict:
     """One fingerprint sweep + vote.  Returns the verdict dict
     ``{"clean": bool, "findings": [...], "replicas": int,
     "elapsed_s": float}``."""
+    from ..parallel import distributed
+
     t0 = time.perf_counter()
-    rows, keys = local_fingerprints(trainer)
-    if _world_size() > 1:
-        raise NotImplementedError(
-            "integrity vote across processes: the allgather of the "
-            "digests waits for multi-device support (ROADMAP.md item A6)")
+    rank, world = distributed.process_info()
+    rows, keys = local_fingerprints(trainer, rank)
     groups: Dict[tuple, List[Tuple[int, Digest]]] = {}
-    for k, d in zip(keys, rows):
-        groups.setdefault(k, []).append((0, d))
+    if world > 1:
+        block = distributed.gather_host(np.asarray(rows, np.int64))
+        names = [(name, tuple(arr.shape)) for name, arr in _leaves(trainer)]
+        for p in range(world):
+            for (name, shape), d in zip(names, block[p]):
+                groups.setdefault(_leaf_key(trainer, name, shape, p),
+                                  []).append((p, (int(d[0]), int(d[1]))))
+    else:
+        for k, d in zip(keys, rows):
+            groups.setdefault(k, []).append((rank, d))
     findings = vote(groups)
     return {
         "clean": not findings,

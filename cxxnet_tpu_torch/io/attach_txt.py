@@ -19,6 +19,9 @@ from .data import DataBatch, DataIter
 
 
 class AttachTxtIterator(DataIter):
+    def supports_dist_shard(self) -> bool:
+        return self.base.supports_dist_shard()
+
     def __init__(self, base: DataIter) -> None:
         self.base = base
         self.filename = ""

@@ -170,6 +170,9 @@ _AFFINE_KEYS = (
 
 
 class AugmentIterator(InstIterator):
+    def supports_dist_shard(self) -> bool:
+        return self.base.supports_dist_shard()
+
     def __init__(self, base: InstIterator) -> None:
         self.base = base
         self.shape = (0, 0, 0)           # (C,H,W) net convention

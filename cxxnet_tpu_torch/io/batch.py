@@ -42,6 +42,10 @@ class DataInst:
 class InstIterator:
     """The instance-level iterator protocol."""
 
+    def supports_dist_shard(self) -> bool:
+        """See ``data.DataIter.supports_dist_shard``."""
+        return False
+
     def set_param(self, name: str, val: str) -> None:
         pass
 
@@ -66,6 +70,9 @@ class InstIterator:
 
 
 class BatchAdaptIterator(DataIter):
+    def supports_dist_shard(self) -> bool:
+        return self.base.supports_dist_shard()
+
     def __init__(self, base: InstIterator) -> None:
         self.base = base
         self.batch_size = 0

@@ -11,7 +11,8 @@ The file read is retried under :class:`~..utils.faults.RetryPolicy`
 not parse (a bad number, the wrong column count) is skipped and written
 to the ``.quarantine`` sidecar, and more than that many abort the read;
 the default 0 reads with ``np.loadtxt``, and the first bad row aborts.
-``dist_num_worker > 1`` raises (ROADMAP.md queue A item 6).
+``dist_num_worker`` / ``dist_worker_rank`` keep this worker's equal
+share of the rows (``rank::n``, ``data.shard_rows``).
 """
 
 from __future__ import annotations
@@ -23,10 +24,16 @@ import numpy as np
 from ..utils import faults
 from ..utils.faults import BadRecordBudget, RetryPolicy
 from .batch import DataInst, InstIterator
+from .data import shard_rows
 
 
 class CSVIterator(InstIterator):
+    def supports_dist_shard(self) -> bool:
+        return True
+
     def __init__(self) -> None:
+        self.dist_num_worker = 1
+        self.dist_worker_rank = 0
         self.filename = ""
         self.label_width = 1
         self.has_header = 0
@@ -51,10 +58,10 @@ class CSVIterator(InstIterator):
         elif name == "input_shape":
             c, h, w = (int(t) for t in val.split(","))
             self.input_shape = (c, h, w)
-        elif name == "dist_num_worker" and int(val) > 1:
-            raise NotImplementedError(
-                "dist_num_worker > 1: multi-process data sharding is not "
-                "ported yet (ROADMAP.md queue A item 6)")
+        elif name == "dist_num_worker":
+            self.dist_num_worker = int(val)
+        elif name == "dist_worker_rank":
+            self.dist_worker_rank = int(val)
         elif name == "max_bad_records":
             self.max_bad_records = int(val)
         elif name == "quarantine_dir":
@@ -121,6 +128,10 @@ class CSVIterator(InstIterator):
             self._rows = self._load_strict(want)
         else:
             self._rows = self._load_tolerant(want)
+        if self.dist_num_worker > 1:
+            self._rows = self._rows[shard_rows(
+                len(self._rows), self.dist_worker_rank,
+                self.dist_num_worker)]
         if not self.silent:
             print(f"CSVIterator: filename={self.filename}, "
                   f"{len(self._rows)} rows")

@@ -67,9 +67,48 @@ class DataBatch:
         return self.sparse_index[lo:hi], self.sparse_value[lo:hi]
 
 
+def shard_rows(n_rows: int, rank: int, nworker: int, block: int = 1):
+    """Equal-length row shard of a data-parallel job (the JAX package's
+    ``io.data.shard_rows``).
+
+    ``block = 1``: worker ``rank`` takes rows ``rank::nworker``
+    truncated to ``n_rows // nworker``, disjoint and class-mixed even on
+    unshuffled data.  Shards are always the same length: a worker with
+    one batch more would issue a collective the others never join.
+    ``block > 1`` (``dist_shard = block`` with the LOCAL batch size):
+    rows dealt out in contiguous blocks of ``block`` round-robin, so
+    worker ``rank``'s k-th batch is rows ``[k*B*nworker + rank*B, ... +
+    B)`` of the whole stream and the workers' batches together are a
+    single-process run's global batch, row for row.  Returns an index
+    array."""
+    if block <= 1:
+        per = n_rows // nworker
+        if per == 0:
+            raise ValueError(
+                f"cannot shard {n_rows} rows over {nworker} workers"
+            )
+        return np.arange(rank, n_rows, nworker)[:per]
+    nblocks = n_rows // (block * nworker)
+    if nblocks == 0:
+        raise ValueError(
+            f"cannot shard {n_rows} rows over {nworker} workers in "
+            f"blocks of {block}"
+        )
+    starts = (np.arange(nblocks) * nworker + rank) * block
+    return (starts[:, None] + np.arange(block)[None, :]).reshape(-1)
+
+
 class DataIter:
     """Iterator protocol: ``init`` once, then ``before_first`` and
-    ``next``/``value`` per epoch; ``close`` releases threads."""
+    ``next``/``value`` per epoch; ``close`` releases threads.
+
+    ``supports_dist_shard`` is True for the source iterators that honour
+    ``dist_num_worker`` / ``dist_worker_rank`` (the wrappers ask their
+    base): the CLI refuses a data-parallel run whose train chain would
+    feed every process the same rows."""
+
+    def supports_dist_shard(self) -> bool:
+        return False
 
     def set_param(self, name: str, val: str) -> None:  # noqa: D401
         pass

@@ -38,9 +38,13 @@ build.  The iterator says which reader it runs (``reader``:
 (``reader_why``; the build's error line where the build failed).  The
 native reader visits no fault site and keeps no bad-record budget; the
 decode pool (``io/pipeline.py``) then augments its decoded instances.
-``dist_num_worker > 1``
-(or ``PS_RANK`` with more than one worker) raises: sharding the data
-over processes is ROADMAP.md queue A item 6.
+The worker shard of a data-parallel job (``dist_num_worker`` /
+``dist_worker_rank``, or the ``PS_RANK`` / ``PS_NUM_WORKER``
+environment, as in the reference): whole shard files, worker ``r``
+taking the files ``i % n == r`` (``image_conf_prefix``: contiguous
+blocks of ids), every worker's epoch capped at the smallest worker's
+row count (``epoch_cap``; the decode pool counts the cap on decoded
+records), so every worker runs the same number of batches.
 """
 
 from __future__ import annotations
@@ -309,6 +313,9 @@ class ImageBinIterator(InstIterator):
     """Instance iterator over one or more page shards and their .lst
     files."""
 
+    def supports_dist_shard(self) -> bool:
+        return True
+
     def __init__(self) -> None:
         self.image_bin: List[str] = []
         self.image_list: List[str] = []
@@ -324,6 +331,9 @@ class ImageBinIterator(InstIterator):
         self._native_labels: List[Tuple[int, np.ndarray]] = []
         self._native_pos = 0
         self.dist_num_worker = 1
+        self.dist_worker_rank = 0
+        self.epoch_cap = 0  # records an epoch, 0: all (worker shards)
+        self._served = 0
         self.max_bad_records = 0
         self.quarantine_dir = ""
         self._records: List[Tuple[int, np.ndarray]] = []
@@ -355,6 +365,8 @@ class ImageBinIterator(InstIterator):
             self.decode_thread = int(val)
         elif name == "dist_num_worker":
             self.dist_num_worker = int(val)
+        elif name == "dist_worker_rank":
+            self.dist_worker_rank = int(val)
         elif name == "max_bad_records":
             self.max_bad_records = int(val)
         elif name == "quarantine_dir":
@@ -385,28 +397,62 @@ class ImageBinIterator(InstIterator):
         self.image_list = [n + ".lst" for n in names]
 
     def init(self):
-        workers = self.dist_num_worker
-        if os.environ.get("PS_RANK") and workers == 1:
-            workers = int(os.environ.get("PS_NUM_WORKER", "1") or 1)
-        if workers > 1:
-            raise NotImplementedError(
-                "dist_num_worker > 1: multi-process data sharding is not "
-                "ported yet (ROADMAP.md queue A item 6)")
+        if os.environ.get("PS_RANK"):
+            # as the reference: the env's rank wins, unconditionally
+            self.dist_worker_rank = int(os.environ["PS_RANK"])
+            if self.dist_num_worker == 1:
+                self.dist_num_worker = int(
+                    os.environ.get("PS_NUM_WORKER", "1") or 1)
         if not self.raw:
             pil_image("raw_pixels = 0")
-        if self.image_conf_prefix:
+        conf_mode = bool(self.image_conf_prefix)
+        if conf_mode:
             self._conf_shards()
         if len(self.image_bin) != len(self.image_list):
             raise ValueError(
                 "imgbin: need matching image_bin / image_list counts")
         if not self.image_bin:
             raise ValueError("imgbin: must set image_bin and image_list")
-        self._shards = list(zip(self.image_bin, self.image_list))
+        self._shards = self._worker_shards(
+            list(zip(self.image_bin, self.image_list)), conf_mode)
         self._open_native()
         self._budget = BadRecordBudget(
             self.max_bad_records, what="imgbin", silent=bool(self.silent),
             quarantine_dir=self.quarantine_dir or None)
         self.before_first()
+
+    def _worker_shards(self, shards, conf_mode: bool):
+        """This worker's whole shard files, and ``epoch_cap``: the
+        smallest worker's row count (every worker counts every file's
+        rows from the ``.lst`` files of the conf)."""
+        self.epoch_cap = 0
+        n = self.dist_num_worker
+        if n <= 1:
+            return shards
+        if len(shards) < n:
+            raise ValueError(
+                f"imgbin: {len(shards)} shard file(s) cannot feed {n} "
+                "workers distinct data — repack with "
+                "tools/imgbin_partition_maker.py (>= one shard per worker)")
+        if conf_mode:
+            step = -(-len(shards) // n)  # contiguous blocks of ids
+            owner = lambda i: i // step  # noqa: E731
+            if (n - 1) * step >= len(shards):
+                raise ValueError(
+                    "imgbin: too many workers — the image_conf_ids range "
+                    "cannot be divided into non-empty contiguous blocks")
+        else:
+            owner = lambda i: i % n  # noqa: E731
+        per_worker = [0] * n
+        for i, (_b, lst) in enumerate(shards):
+            per_worker[owner(i)] += len(_load_labels(lst))
+        self.epoch_cap = min(per_worker)
+        if self.epoch_cap == 0:
+            raise ValueError(
+                f"imgbin: worker {per_worker.index(0)}'s shard files "
+                "contain 0 rows — repack so every worker gets data")
+        return [s for i, s in enumerate(shards)
+                if owner(i) == self.dist_worker_rank]
 
     def _open_native(self) -> None:
         """Pick the reader: the native one for encoded pages when it
@@ -452,6 +498,7 @@ class ImageBinIterator(InstIterator):
 
     def before_first(self):
         self._budget.start_epoch()
+        self._served = 0
         if self._native is not None:
             self._native.reset()
             self._native_pos = 0
@@ -487,6 +534,9 @@ class ImageBinIterator(InstIterator):
         self._page_iter = None
 
     def next(self) -> bool:
+        if self.epoch_cap and self._served >= self.epoch_cap:
+            return False
+        self._served += 1
         if self._native is not None:
             return self._next_native()
         while True:

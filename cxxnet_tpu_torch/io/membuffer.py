@@ -13,6 +13,9 @@ from .data import DataBatch, DataIter
 
 
 class MemBufferIterator(DataIter):
+    def supports_dist_shard(self) -> bool:
+        return self.base.supports_dist_shard()
+
     def __init__(self, base: DataIter) -> None:
         self.base = base
         self.max_nbatch = 0  # 0 = cache everything

@@ -10,9 +10,12 @@ tools and tests make their own files.
 
 Config keys: ``path_img``, ``path_label``, ``batch_size`` (required),
 ``input_flat`` (default 1), ``shuffle``, ``seed_data``,
-``index_offset``, ``silent``.  ``dist_num_worker > 1`` raises: sharding
-the data over processes is multi-device work (ROADMAP.md queue A item
-6).
+``index_offset``, ``silent``, and the worker shard of a data-parallel
+job: ``dist_num_worker`` / ``dist_worker_rank`` take this worker's
+equal share of the rows after the shuffle (``data.shard_rows``),
+``dist_shard = interleave`` (rows ``rank::n``) or ``block`` (whole local
+batches dealt round-robin, so the ranks' batches together are the
+single-process run's global batch, row for row).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import struct
 
 import numpy as np
 
-from .data import DataBatch, DataIter
+from .data import DataBatch, DataIter, shard_rows
 
 _IDX_IMAGES = 0x803
 _IDX_LABELS = 0x801
@@ -59,6 +62,9 @@ def write_idx_labels(path: str, labels: np.ndarray) -> None:
 
 
 class MNISTIterator(DataIter):
+    def supports_dist_shard(self) -> bool:
+        return True
+
     def __init__(self) -> None:
         self.batch_size = 0
         self.input_flat = 1
@@ -68,6 +74,9 @@ class MNISTIterator(DataIter):
         self.path_img = ""
         self.path_label = ""
         self.seed = 0
+        self.dist_num_worker = 1
+        self.dist_worker_rank = 0
+        self.dist_shard = "interleave"  # or "block": contiguous batches
         self._loc = 0
         self._img: np.ndarray | None = None
         self._label: np.ndarray | None = None
@@ -90,10 +99,15 @@ class MNISTIterator(DataIter):
             self.path_label = val
         elif name == "seed_data":
             self.seed = int(val)
-        elif name == "dist_num_worker" and int(val) > 1:
-            raise NotImplementedError(
-                "dist_num_worker > 1: multi-process data sharding is not "
-                "ported yet (ROADMAP.md queue A item 6)")
+        elif name == "dist_num_worker":
+            self.dist_num_worker = int(val)
+        elif name == "dist_worker_rank":
+            self.dist_worker_rank = int(val)
+        elif name == "dist_shard":
+            if val not in ("interleave", "block"):
+                raise ValueError(
+                    f"dist_shard={val!r}: must be interleave or block")
+            self.dist_shard = val
 
     def init(self):
         if self.batch_size <= 0:
@@ -105,6 +119,12 @@ class MNISTIterator(DataIter):
             perm = np.random.RandomState(42 + self.seed).permutation(
                 len(labels))
             imgs, labels, inst = imgs[perm], labels[perm], inst[perm]
+        if self.dist_num_worker > 1:
+            sl = shard_rows(
+                len(labels), self.dist_worker_rank, self.dist_num_worker,
+                block=(self.batch_size if self.dist_shard == "block"
+                       else 1))
+            imgs, labels, inst = imgs[sl], labels[sl], inst[sl]
         if self.input_flat:
             self._img = imgs.reshape(len(labels), -1)
         else:

@@ -79,8 +79,12 @@ class ParallelAugmentIterator(InstIterator):
     workers decode and augment.  Instance mode (any other base, such as
     ``iter = img``): records come decoded and workers augment them."""
 
+    def supports_dist_shard(self) -> bool:
+        return self.aug.supports_dist_shard()
+
     def __init__(self, aug: AugmentIterator) -> None:
         self.aug = aug
+        self._yielded = 0  # decoded records this epoch (epoch_cap)
         self.num_workers = 0
         self.chunk_size = 24
         self.queue_depth = 0
@@ -368,6 +372,7 @@ class ParallelAugmentIterator(InstIterator):
         self._seq_submit = self._seq_take = 0
         self._exhausted = False
         self._pending, self._pending_pos = [], 0
+        self._yielded = 0  # decoded records this epoch (epoch_cap)
 
     def before_first(self):
         if (not self._pool_started and self.num_workers > 1
@@ -390,7 +395,10 @@ class ParallelAugmentIterator(InstIterator):
                 return False
             self._out = self.aug.value()
             return True
+        cap = getattr(self._raw_source, "epoch_cap", 0)
         while True:
+            if cap and self._yielded >= cap:
+                return False  # a worker shard's equal-steps cap
             if self._pending_pos < len(self._pending):
                 item = self._pending[self._pending_pos]
                 self._pending_pos += 1
@@ -399,6 +407,7 @@ class ParallelAugmentIterator(InstIterator):
                                                 item.exc)
                     continue
                 self._out = item
+                self._yielded += 1
                 return True
             self._refill()
             if self._seq_take >= self._seq_submit:

@@ -43,6 +43,9 @@ class _ProducerError:
 
 
 class ThreadBufferIterator(DataIter):
+    def supports_dist_shard(self) -> bool:
+        return self.base.supports_dist_shard()
+
     def __init__(self, base: DataIter) -> None:
         self.base = base
         self.buffer_size = 2

@@ -9,7 +9,10 @@ teacher), so both packages train on the same rows.
 Config keys: ``nsample`` (default 512), ``input_shape`` (``C,H,W``),
 ``nclass`` (default 10), ``label_width`` (default 1; class id in column
 0), ``batch_size`` (required), ``seed_data``, ``layout`` (``seq`` for
-``(N, T, D)`` batches).
+``(N, T, D)`` batches), ``dist_num_worker`` / ``dist_worker_rank``:
+worker ``r > 0`` draws its own rows from ``RandomState(1234 + seed_data
++ 7919 r)`` labelled by the same teacher, and worker 0 keeps the
+single-process stream.
 """
 
 from __future__ import annotations
@@ -20,8 +23,13 @@ from .data import DataBatch, DataIter
 
 
 class SyntheticIterator(DataIter):
+    def supports_dist_shard(self) -> bool:
+        return True
+
     def __init__(self) -> None:
         self.nsample = 512
+        self.dist_num_worker = 1
+        self.dist_worker_rank = 0
         self.input_shape = (1, 1, 16)
         self.nclass = 10
         self.label_width = 1
@@ -48,10 +56,10 @@ class SyntheticIterator(DataIter):
             self.seed = int(val)
         elif name == "layout":
             self.layout = val
-        elif name == "dist_num_worker" and int(val) > 1:
-            raise NotImplementedError(
-                "dist_num_worker > 1: multi-process data sharding is not "
-                "ported yet (ROADMAP.md queue A item 6)")
+        elif name == "dist_num_worker":
+            self.dist_num_worker = int(val)
+        elif name == "dist_worker_rank":
+            self.dist_worker_rank = int(val)
 
     def init(self):
         if self.batch_size <= 0:
@@ -67,6 +75,11 @@ class SyntheticIterator(DataIter):
         self._data = rng.randn(*shape).astype(np.float32)
         flat = self._data.reshape(self.nsample, -1)
         teacher = rng.randn(flat.shape[1], self.nclass).astype(np.float32)
+        if self.dist_num_worker > 1 and self.dist_worker_rank > 0:
+            rng_k = np.random.RandomState(
+                1234 + self.seed + 7919 * self.dist_worker_rank)
+            self._data = rng_k.randn(*shape).astype(np.float32)
+            flat = self._data.reshape(self.nsample, -1)
         cls = (flat @ teacher).argmax(-1).astype(np.float32)
         lab = np.zeros((self.nsample, self.label_width), np.float32)
         lab[:, 0] = cls

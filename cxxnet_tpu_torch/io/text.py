@@ -33,6 +33,9 @@ from .data import DataBatch, DataIter
 
 
 class TextIterator(DataIter):
+    def supports_dist_shard(self) -> bool:
+        return True
+
     def __init__(self) -> None:
         self.filename = ""
         self.seq_len = 0

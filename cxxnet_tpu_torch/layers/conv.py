@@ -63,6 +63,7 @@ import torch.nn.functional as F
 
 from ..ops import lrn as ops_lrn
 from ..ops import maxpool as ops_mp
+from ..parallel import distributed as pdist
 from .base import Layer, Params, Shape, register
 from .elemwise import uniform
 
@@ -508,12 +509,30 @@ class BatchNormLayer(Layer):
     def _batch_stats(self, x):
         dims = tuple(range(x.dim() - 1))
         xf = x.float()
+        if pdist.batch_shard() is not None:
+            return self._global_stats(xf, dims)
         mean = xf.mean(dim=dims)
         if self.bn_stats == "onepass":
             var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean,
                                   0.0)
         else:
             var = ((xf - mean) ** 2).mean(dim=dims)
+        return mean, var
+
+    def _global_stats(self, xf, dims):
+        """The statistics of the group's global batch (every rank holds
+        an equal share): f32 sums all-reduced with their gradient,
+        ``twopass`` with a second reduction after the mean, ``onepass``
+        as ``max(E[x^2] - E[x]^2, 0)`` from one reduction of both
+        sums."""
+        count = float(xf[..., 0].numel() * pdist.batch_shard()[1])
+        if self.bn_stats == "onepass":
+            sums = pdist.all_reduce_sum(
+                torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
+            mean = sums[0] / count
+            return mean, torch.clamp_min(sums[1] / count - mean * mean, 0.0)
+        mean = pdist.all_reduce_sum(xf.sum(dim=dims)) / count
+        var = pdist.all_reduce_sum(((xf - mean) ** 2).sum(dim=dims)) / count
         return mean, var
 
     def apply(self, params, inputs, train=False, gen=None, step=None):

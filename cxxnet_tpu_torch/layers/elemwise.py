@@ -24,7 +24,11 @@ a flat node's feature):
 Each random layer is a plain function of ``(x, u)`` (``prelu_fn``,
 ``insanity_fn``), the uniform draws ``u`` taken by :func:`uniform` from
 the step's ``torch.Generator`` on the input's device, so a test can feed
-another implementation the same draws.
+another implementation the same draws.  In a data-parallel group (under
+``parallel.distributed.sharded_batch``) every draw, dropout's too, is of
+the GLOBAL batch's shape and each rank takes its own rows
+(:func:`batch_rand`), as the JAX package's SPMD step draws one mask for
+the global batch: ``world`` times the draws of one rank's rows.
 """
 
 from __future__ import annotations
@@ -35,13 +39,31 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import distributed as pdist
 from .base import Layer, Params, Shape, register
+
+
+def draw(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """``U[0, 1)`` f32 draws of ``shape`` from ``gen`` on ``device``."""
+    return torch.rand(shape, generator=gen, device=device)
+
+
+def batch_rand(x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """:func:`draw` for ``x``'s shape; in a group, this rank's rows of
+    the draws of the global batch's shape (batch-major ``x``)."""
+    shard = pdist.batch_shard()
+    if shard is None:
+        return draw(x.shape, gen, x.device)
+    rank, world = shard
+    n = x.shape[0]
+    u = draw((n * world,) + tuple(x.shape[1:]), gen, x.device)
+    return u[rank * n:(rank + 1) * n]
 
 
 def uniform(x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     """``U[0, 1)`` draws of ``x``'s shape, f32, on ``x``'s device, from
     ``gen`` (the random layers' one source of draws)."""
-    return torch.rand(x.shape, generator=gen, device=x.device)
+    return batch_rand(x, gen)
 
 
 class _UnaryLayer(Layer):
@@ -114,7 +136,7 @@ class DropoutLayer(_UnaryLayer):
             return [x]
         pkeep = 1.0 - self.threshold
         # uniform draws from the step's generator (Philox on a CUDA one)
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < pkeep
+        keep = batch_rand(x, gen) < pkeep
         return [torch.where(keep, x / pkeep, torch.zeros_like(x))]
 
 

@@ -4,8 +4,8 @@ Counterpart of ``cxxnet_tpu/nnet/trainer.py``: ``set_params``,
 ``init_model``, ``checkpoint_bytes`` / ``save_model``,
 ``_read_model_file`` / ``load_model``, ``predict_fn``,
 ``predict_from_scores``, ``resolve_feature_node``, ``extract_feature``,
-``net_fp``, ``copy_model_from`` (finetune), and the single-device
-training subset: ``update`` (one micro-batch: forward, backward, then
+``net_fp``, ``copy_model_from`` (finetune), and training: ``update``
+(one micro-batch: forward, backward, then
 the updater — the fused SGD kernel, or one of the plain-PyTorch
 updaters — on every tensor), ``update_all``, ``start_round`` and
 ``evaluate`` with the train and eval metrics.  The
@@ -27,9 +27,29 @@ the old weights (``_invalidate_prepared``).
 updaters once per N micro-batches, to the sum; ``epoch_counter``, the
 updaters' schedule clock, advances only then, while the layer state
 (batch norm's running statistics) and the train metrics update on every
-micro-batch, as in the JAX package.  Multi-device training raises
-``NotImplementedError`` (ROADMAP.md).  The training forward gets the
+micro-batch, as in the JAX package.  The training forward gets the
 update counter as ``step`` (``insanity``'s anneal).
+
+Data parallelism (``parallel/``): in a ``torch.distributed`` group of N
+ranks, one per device, each rank feeds ``batch_size / N`` rows (the
+conf's ``batch_size`` is global, and the loss still carries ``1 /
+(batch_size * update_period)``), and the f32 gradients are summed over
+the ranks with one all-reduce a step, after the local accumulation of
+``update_period`` micro-batches.  The forwards run under
+``distributed.sharded_batch``, so batch norm's statistics are the global
+batch's and a random layer's mask is drawn for the global shape.
+``zero = 1`` (``update_on_server``, ``shard_weight_update``) keeps each
+rank's slice of the updater state only (``MeshPlan.owner_dim``): each
+rank updates its slice of every weight (the fused SGD kernel over the
+slices) and the ranks all-gather the weights; ``zero = 3`` (``fsdp``)
+keeps the weights as slices too, gathered at a step's start and dropped
+at its end.  A tensor with no dimension divisible by N, or whose
+updater reads whole-tensor norms (``lars``, ``lamb``), stays whole.
+``det_reduce = 1`` all-gathers the ranks' gradients and adds them in
+rank order, so the sum's bits do not depend on the backend.
+Checkpoints hold gathered full arrays (every rank calls
+``checkpoint_bytes``) and load onto any number of ranks;
+``check_weight_sync`` compares the ranks' weights.
 
 A net with ``extra_data`` nodes takes the batch's ``extra_data`` in
 ``update`` (padded like ``data`` for a short batch), ``predict``,
@@ -66,18 +86,18 @@ bf16, on the device too) and ``quant = int8|bf16`` on a plain checkpoint
 quantizes it at load, ungated (``_maybe_quantize``).  Such a trainer
 serves only: ``update`` raises.
 
-Device rule: ``dev = cpu`` runs on the CPU, and only when asked; every
-other value (``gpu``, ``cuda``, ``tpu``, ``gpu:0``, the default ``tpu``)
-means ``cuda:0`` and raises when there is no CUDA device.  A device
-range (``tpu:0-7``) and ``model_parallel > 1`` raise: multi-device is
-a later slice.
+Device rule (``parallel/mesh.py``): ``dev = cpu`` runs on the CPU, and
+only when asked; every other value means the card: ``gpu``, ``cuda``,
+``tpu`` (the default) ``cuda:0``, ``gpu:k`` ``cuda:k``, raising when
+there is no CUDA device or no card ``k``.  A device range in one process
+raises, naming ``dist_num_proc``; ``model_parallel > 1`` raises (ROADMAP.md
+item (k2)).
 """
 
 from __future__ import annotations
 
 import io as _io
 import json
-import re
 import struct
 import threading
 import time
@@ -90,6 +110,8 @@ from ..io.data import DataBatch
 from ..obs import device as obs_device
 from ..obs import events as obs_events
 from ..ops import kernels as _klib
+from ..parallel import distributed as pdist
+from ..parallel.mesh import MeshPlan, rank_device
 from ..updater import Updater, apply_all, create_updater
 from ..utils import checkpoint as ckpt
 from ..utils.checkpoint import MODEL_MAGIC, DivergenceError
@@ -98,27 +120,15 @@ from ..utils.profiler import pipeline_stats
 from .graph import NetGraph
 from .net import FunctionalNet
 
-_RANGE_RE = re.compile(r"^[a-z]*:(\d+)-(\d+)$")
 _BF16_SUFFIX = "~bf16"  # npz name suffix of a bf16 array, as uint16 words
 _KEEP_DTYPES = (torch.int8, torch.bfloat16)  # a quantized model's leaves
 
 
 def resolve_device(dev: str) -> torch.device:
-    """The ``dev`` conf value as a ``torch.device`` (see the module
-    docstring); never falls back to the CPU."""
-    dev = dev.strip().lower()
-    if dev == "cpu":
-        return torch.device("cpu")
-    m = _RANGE_RE.match(dev)
-    if (m and m.group(1) != m.group(2)) or "," in dev:
-        raise NotImplementedError(
-            f"dev={dev}: one device per process for now; multi-device "
-            "serving and training are ROADMAP.md queue A item 6")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            f"dev={dev} needs a CUDA device and none is available "
-            "(set dev=cpu to run on the CPU)")
-    return torch.device("cuda:0")
+    """The ``dev`` conf value as this rank's ``torch.device`` (see the
+    module docstring); never falls back to the CPU."""
+    rank, world = pdist.process_info()
+    return rank_device(dev, rank, world)
 
 
 def params_from_numpy(raw: Dict[str, Dict[str, np.ndarray]],
@@ -163,6 +173,21 @@ class NetTrainer:
         self.seed = 0
         self.dev = "tpu"
         self.device: Optional[torch.device] = None
+        self.mesh_plan: Optional[MeshPlan] = None
+        self.model_parallel = 1
+        self.update_on_server = 0
+        self.zero = 0
+        self.det_reduce = 0
+        # the async data-parallel keys (parallel/async_ps in the JAX
+        # package): parsed and validated; over more than one rank they
+        # raise (ROADMAP.md item (k3))
+        self.async_overlap = 0
+        self.async_groups = 0
+        self.staleness = 0
+        self.async_resync_period = 1
+        # (key, tag) -> the dimension cut over the ranks (zero >= 1)
+        self._dims: Dict[Tuple[str, str], int] = {}
+        self._gathered: Optional[Dict[str, dict]] = None  # zero = 3
         self.metric = MetricSet()
         self.train_metric = MetricSet()
         self.last_loss: Optional[torch.Tensor] = None  # of the last step
@@ -228,7 +253,56 @@ class NetTrainer:
                 raise NotImplementedError(
                     f"model_parallel={val}: model, expert and pipeline "
                     "parallelism over a device mesh are not ported yet "
-                    "(ROADMAP.md queue A item 6)")
+                    "(ROADMAP.md queue A item 6, (k2))")
+            self.model_parallel = int(val)
+        elif name == "update_on_server":
+            # the reference's SGD on the parameter server: the updater
+            # state sharded over the ranks (zero = 1)
+            self.update_on_server = int(val)
+        elif name == "det_reduce":
+            if int(val) not in (0, 1):
+                raise ValueError(f"det_reduce={val}: must be 0 or 1")
+            self.det_reduce = int(val)
+        elif name == "async_overlap":
+            if int(val) not in (0, 1):
+                raise ValueError(f"async_overlap={val}: must be 0 or 1")
+            self.async_overlap = int(val)
+        elif name == "async_groups":
+            if int(val) < 0:
+                raise ValueError(
+                    f"async_groups={val}: must be >= 0 (0 = auto)")
+            self.async_groups = int(val)
+        elif name == "staleness":
+            if int(val) < 0:
+                raise ValueError(f"staleness={val}: must be >= 0")
+            self.staleness = int(val)
+        elif name == "async_resync_period":
+            if int(val) < 1:
+                raise ValueError(
+                    f"async_resync_period={val}: must be >= 1")
+            self.async_resync_period = int(val)
+        elif name in ("zero", "fsdp", "shard_weight_update"):
+            # zero = 1: the updater state sharded over the ranks; zero =
+            # 3 / fsdp = 1: the weights too; shard_weight_update = 1 is
+            # zero = 1's conf name.  ZeRO-2 has no distinct meaning here
+            # (the gradients live only inside a step), so 2 is refused
+            if name == "fsdp":
+                if int(val) not in (0, 1):
+                    raise ValueError(f"fsdp={val}: must be 0 or 1")
+                z = 3 if int(val) else 0
+            elif name == "shard_weight_update":
+                if int(val) not in (0, 1):
+                    raise ValueError(
+                        f"shard_weight_update={val}: must be 0 or 1")
+                z = 1 if int(val) else 0
+            else:
+                z = int(val)
+            if z not in (0, 1, 3):
+                raise ValueError(
+                    f"{name}={val}: supported levels are 0, 1 "
+                    "(state sharding) and 3 (FSDP param sharding)"
+                )
+            self.zero = z
         elif name == "kernel_lib":
             _klib.parse_mode(val)
         elif name == "quant":
@@ -256,6 +330,10 @@ class NetTrainer:
     # ------------------------------------------------------------------
     def _build_net(self, graph: Optional[NetGraph] = None) -> None:
         self.device = resolve_device(self.dev)
+        rank, world = pdist.process_info()
+        self.mesh_plan = MeshPlan(device=self.device, n_data=world,
+                                  rank=rank, backend=pdist.backend())
+        self._gathered = None
         if graph is None:
             graph = NetGraph()
         graph.configure(self.cfg)
@@ -267,6 +345,8 @@ class NetTrainer:
             self.net.batch_size = self.batch_size
         self.update_period = max(self.update_period, self.net.update_period)
         self.net.update_period = self.update_period
+        if self.batch_size:
+            self.mesh_plan.check_batch(self.batch_size)
         self._check_metric_nodes()
 
     def _check_metric_nodes(self) -> None:
@@ -284,11 +364,16 @@ class NetTrainer:
                         f"{node!r} in the net graph") from e
 
     def _set_master(self, params: Dict[str, dict], quant_scheme: str = "",
-                    quant_plan: Optional[Dict[str, str]] = None) -> None:
-        """``params`` on the device: the f32 masters and their updaters,
-        or with ``quant_scheme`` a quantized model's leaves, whose int8
-        codes and bf16 kernels keep their dtype, and no updaters (the
-        trainer is then inference-only)."""
+                    quant_plan: Optional[Dict[str, str]] = None,
+                    ust: Optional[Dict[str, dict]] = None,
+                    place: bool = True) -> None:
+        """``params`` on the device: the f32 masters and their updaters
+        (the state of ``ust``, a checkpoint's ``ust:`` entries, restored
+        where it fits), or with ``quant_scheme`` a quantized model's
+        leaves, whose int8 codes and bf16 kernels keep their dtype, and
+        no updaters (the trainer is then inference-only).  With
+        ``place`` the state then takes its place over the ranks
+        (:meth:`_place_state`)."""
         self.params = {k: {t: w.to(self.device) if w.dtype in _KEEP_DTYPES
                            else w.to(self.device, torch.float32)
                            for t, w in tags.items()}
@@ -300,23 +385,220 @@ class NetTrainer:
             self.updaters, self.ustates = {}, {}
         else:
             self._build_updaters()
+            if ust:
+                self._restore_ustates(ust)
+        self._dims = {}
+        if place:
+            self._place_state()
+
+    # ------------------------------------------------------------------
+    # data parallelism over the process group (parallel/)
+    def _zero_level(self) -> int:
+        return max(self.zero, 1 if self.update_on_server else 0)
+
+    def _place_state(self) -> None:
+        """Under ``zero >= 1`` on more than one rank, keep this rank's
+        slice of each shardable tensor's updater state (and under ``zero
+        = 3`` of the weight itself), cut along ``MeshPlan.owner_dim``;
+        then publish the state's bytes.  Placement only: the training
+        math is the same bits."""
+        plan = self.mesh_plan
+        self._gathered = None
+        if (not self._dims and plan is not None and plan.n_data > 1 and self._zero_level()
+                and not self.quant_scheme):
+            for key, tags in self.params.items():
+                for tag, w in tags.items():
+                    up = self.updaters.get((key, tag))
+                    d = plan.owner_dim(tuple(w.shape))
+                    if up is None or not up.elementwise or d is None:
+                        continue
+                    self._dims[(key, tag)] = d
+                    state = self.ustates[key][tag]
+                    for slot, v in state.items():
+                        state[slot] = self._my_slice(v, d)
+                    if self.zero >= 3:
+                        tags[tag] = self._my_slice(w, d)
         self._export_state_bytes()
+
+    def _my_slice(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """A contiguous copy of this rank's slice of ``t`` along ``dim``
+        (a copy, so the whole tensor's storage is freed)."""
+        start, n = self.mesh_plan.slice_bounds(tuple(t.shape), dim)
+        return t.narrow(dim, start, n).clone(
+            memory_format=torch.contiguous_format)
+
+    def _gather_slices(self, slices: Sequence[torch.Tensor],
+                       dims: Sequence[int]) -> List[torch.Tensor]:
+        """The whole tensors of every rank's equal ``slices`` (cut along
+        ``dims``): one all-gather of all of them packed flat."""
+        if not slices:
+            return []
+        flat = torch.cat([s.reshape(-1) for s in slices])
+        parts = pdist.all_gather(flat)
+        out, off = [], 0
+        for s, d in zip(slices, dims):
+            n = s.numel()
+            out.append(torch.cat([p[off:off + n].view(s.shape)
+                                  for p in parts], dim=d))
+            off += n
+        return out
+
+    def _full_params(self) -> Dict[str, dict]:
+        """The whole weights: ``self.params``, or under ``zero = 3`` on
+        more than one rank the slices gathered (collective; kept until
+        :meth:`_invalidate_prepared`)."""
+        if self.zero < 3 or not self._dims:
+            return self.params
+        if self._gathered is None:
+            names = list(self._dims)
+            full = self._gather_slices([self.params[k][t] for k, t in names],
+                                       [self._dims[n] for n in names])
+            gathered = {k: dict(tags) for k, tags in self.params.items()}
+            for (k, t), w in zip(names, full):
+                gathered[k][t] = w
+            self._gathered = gathered
+        return self._gathered
+
+    def _full_ustate(self, key: str, tag: str) -> dict:
+        """The updater state of ``(key, tag)``, gathered when sharded
+        (collective)."""
+        state = self.ustates[key][tag]
+        d = self._dims.get((key, tag))
+        if d is None:
+            return state
+        slots = sorted(state)
+        full = self._gather_slices([state[sl] for sl in slots],
+                                   [d] * len(slots))
+        return dict(zip(slots, full))
+
+    def placement(self, name: str) -> Optional[Tuple[tuple, int]]:
+        """``(whole shape, dim)`` of a sharded leaf named as the
+        integrity plane names it (``key/tag`` or ``ust:key/tag@slot``),
+        None for a whole one."""
+        base = name[4:].split("@", 1)[0] if name.startswith("ust:") else name
+        key, tag = base.rsplit("/", 1)
+        d = self._dims.get((key, tag))
+        if d is None or (self.zero < 3 and not name.startswith("ust:")):
+            return None
+        shape = list(self.params[key][tag].shape)
+        if self.zero >= 3:
+            shape[d] *= self.mesh_plan.n_data
+        return tuple(shape), d
+
+    def state_shard_bytes(self) -> Tuple[Dict[str, int], int]:
+        """``(per_device, total)``: the bytes of params + updater state
+        this rank holds (under its mesh position, ``type:rank`` in a
+        group), and what one whole replica costs."""
+        held = total = 0
+        for tree in (self.params, self.ustates):
+            for key, tags in (tree or {}).items():
+                for tag, leaf in tags.items():
+                    for w in (leaf.values() if isinstance(leaf, dict)
+                              else (leaf,)):
+                        held += int(w.nbytes)
+                        grow = (self.mesh_plan.n_data
+                                if (key, tag) in self._dims and (
+                                    isinstance(leaf, dict) or self.zero >= 3)
+                                else 1)
+                        total += int(w.nbytes) * grow
+        dev = self.device
+        plan = self.mesh_plan
+        pos = plan.rank if plan is not None and plan.n_data > 1 else (
+            dev.index or 0)
+        return {f"{dev.type}:{pos}": held}, total
 
     def _export_state_bytes(self) -> None:
         """Publish ``train_state_shard_bytes{device}`` and
-        ``train_state_total_bytes`` (params + updater state, one device)
-        and plug the card's memory watermarks into ``/metricsz``, as the
-        JAX trainer does when it places its state."""
-        total = sum(int(w.nbytes) for tree in (self.params, self.ustates)
-                    for tags in (tree or {}).values()
-                    for leaf in tags.values()
-                    for w in (leaf.values() if isinstance(leaf, dict)
-                              else (leaf,)))
-        dev = self.device
-        obs_device.set_train_state_bytes(
-            {f"{dev.type}:{dev.index or 0}": total}, total)
+        ``train_state_total_bytes`` (params + updater state) and plug the
+        card's memory watermarks into ``/metricsz``, as the JAX trainer
+        does when it places its state."""
+        per_device, total = self.state_shard_bytes()
+        obs_device.set_train_state_bytes(per_device, total)
         if obs_device.enabled():
             obs_device.register_memory_collector()
+
+    def mesh_manifest(self) -> Optional[dict]:
+        """The layout that writes checkpoints (the manifest's ``mesh``
+        field): informational, since the payload always holds gathered
+        whole arrays and a load places them on the current group."""
+        if self.mesh_plan is None:
+            return None
+        return {"n_data": self.mesh_plan.n_data,
+                "n_model": self.mesh_plan.n_model,
+                "zero": self._zero_level(),
+                "processes": self.mesh_plan.n_data}
+
+    def _det_active(self) -> bool:
+        """Is the rank-order gradient fold in effect?  On one rank there
+        is no reduction to pin: the key is a no-op there."""
+        return bool(self.det_reduce and self.mesh_plan is not None
+                    and self.mesh_plan.n_data > 1)
+
+    def _async_active(self) -> bool:
+        """``async_overlap = 1`` over more than one rank (the same
+        one-rank no-op as ``det_reduce``)."""
+        return bool(self.async_overlap and self.mesh_plan is not None
+                    and self.mesh_plan.n_data > 1
+                    and not self.quant_scheme)
+
+    def _row_separable_problems(self) -> list:
+        """What ``det_reduce`` (and ``async_overlap``) cannot take, with
+        the JAX package's words: the per-rank gradient of the rank's
+        rows' summed loss must be the whole step's share."""
+        problems = []
+        if self.model_parallel != 1:
+            problems.append(f"model_parallel={self.model_parallel} "
+                            "(needs pure data parallelism)")
+        if self.zero or self.update_on_server:
+            problems.append(f"zero={self.zero} (needs replicated state)")
+        if self.update_period != 1:
+            problems.append(f"update_period={self.update_period} "
+                            "(needs the fused single-update step)")
+        if self.graph.extra_data_num:
+            problems.append("extra data nodes")
+        if self.aux:
+            problems.append("aux (batch-norm style) layer state — "
+                            "per-shard batch statistics would diverge")
+        stochastic = sorted({
+            spec.type_name for spec in self.graph.layers
+            if spec.type_name in ("dropout", "insanity",
+                                  "insanity_max_pooling")
+        })
+        if stochastic:
+            problems.append(
+                f"stochastic layers {stochastic} (per-shard rng would "
+                "correlate noise masks across data shards)")
+        return problems
+
+    def _validate_parallel(self) -> None:
+        """The ``det_reduce`` and ``async_overlap`` constraints, checked
+        when the model is built, as the JAX package does.  The
+        overlapped exchange itself over more than one rank is ROADMAP.md
+        item (k3) and raises."""
+        if self._det_active():
+            problems = self._row_separable_problems()
+            if problems:
+                raise ValueError(
+                    "det_reduce=1 is incompatible with: "
+                    + "; ".join(problems)
+                    + " (doc/parallel.md 'Determinism contract')")
+        if self.staleness and not self.async_overlap:
+            raise ValueError(
+                f"staleness={self.staleness} requires async_overlap=1 "
+                "(the synchronous step has no aggregate buffer to "
+                "delay; doc/parallel.md 'Async data-parallel')")
+        if not self._async_active():
+            return
+        problems = self._row_separable_problems()
+        if problems:
+            raise ValueError(
+                "async_overlap=1 is incompatible with: "
+                + "; ".join(problems)
+                + " (doc/parallel.md 'Async data-parallel')")
+        raise NotImplementedError(
+            "async_overlap=1 over more than one process: the overlapped "
+            "per-group exchange is not ported yet (ROADMAP.md queue A "
+            "item 6, (k3)); set async_overlap=0 for the synchronous step")
 
     def _maybe_quantize(self) -> None:
         """Apply the conf's ``quant`` scheme to freshly loaded or drawn
@@ -339,6 +621,7 @@ class NetTrainer:
         so the params dict stays the same object)."""
         with self._prep_lock:
             self._prep_src, self._prepared = None, None
+        self._gathered = None
 
     def _build_updaters(self) -> None:
         """One updater per ``(param key, tag)``: the conf's global keys
@@ -362,11 +645,17 @@ class NetTrainer:
         """Build the net from the conf and draw fresh weights from a
         ``torch.Generator`` seeded with ``seed`` (on the CPU, so a seed
         gives the same weights whatever the device)."""
+        self._init_unplaced()
+        self._place_state()
+
+    def _init_unplaced(self) -> None:
         self._build_net()
         gen = torch.Generator().manual_seed(self.seed)
-        self._set_master(self.net.init_params(gen, self.batch_size))
+        self._set_master(self.net.init_params(gen, self.batch_size),
+                         place=False)
         self.aux = self.net.init_aux(self.batch_size, self.device)
         self.epoch_counter = 0
+        self._validate_parallel()
         self._maybe_quantize()
 
     # ------------------------------------------------------------------
@@ -434,7 +723,7 @@ class NetTrainer:
             else:
                 flat[name] = w.numpy()
 
-        for key, tags in self.params.items():
+        for key, tags in self._full_params().items():
             for tag, w in tags.items():
                 store(f"{key}/{tag}", w)
         for key, tags in self.aux.items():
@@ -442,8 +731,8 @@ class NetTrainer:
                 store(f"aux:{key}/{tag}", w)
         if self.save_ustate:
             for key, tags in self.ustates.items():
-                for tag, slots in tags.items():
-                    for slot, w in slots.items():
+                for tag in tags:
+                    for slot, w in self._full_ustate(key, tag).items():
                         store(f"ust:{key}/{tag}@{slot}", w)
         buf = _io.BytesIO()
         np.savez(buf, **flat)
@@ -457,21 +746,55 @@ class NetTrainer:
     def save_model(self, path: str, round_: Optional[int] = None,
                    manifest: bool = True, probe: Optional[dict] = None) -> None:
         """Atomic checkpoint write plus the sidecar manifest (with the
-        canary's ``probe`` block when given)."""
+        canary's ``probe`` block when given).
+
+        In a data-parallel group every rank calls it (collective): each
+        assembles the checkpoint (gathering any sharded state), the
+        ranks' CRCs must agree, and rank 0 alone writes it.  Rank 0's
+        outcome is shared before the closing barrier, so a raise there
+        raises on every rank instead of stranding the others in it."""
         blob = self.checkpoint_bytes()
-        if manifest:
-            quant = None
-            if self.quant_scheme:
-                kinds = list((self.quant_plan or {}).values())
-                quant = {"scheme": self.quant_scheme,
-                         "scales_dtype": "float32",
-                         "int8_layers": kinds.count("int8"),
-                         "bf16_layers": kinds.count("bf16")}
-            ckpt.write_checkpoint(
-                path, blob, round_=self.round if round_ is None else round_,
-                net_fp=self.net_fp(), quant=quant, probe=probe)
-        else:
+        group = pdist.process_info()[1] > 1
+        if group:
+            crcs = pdist.gather_host(
+                np.asarray([ckpt.crc32_of(blob)], np.int64)).reshape(-1)
+            if len(set(crcs.tolist())) != 1:
+                raise ckpt.CheckpointError(
+                    f"checkpoint {path}: the ranks' bytes differ (CRC32 by "
+                    f"rank {[f'{int(c):#010x}' for c in crcs]})")
+        err = None
+        if pdist.is_primary():
+            try:
+                self._write_model(path, blob, round_, manifest, probe)
+            except Exception as e:  # noqa: BLE001 - shared with the ranks
+                if not group:
+                    raise
+                err = e
+        if group:
+            if pdist.any_process_flag(err is not None):
+                if err is not None:
+                    raise err
+                raise ckpt.CheckpointError(
+                    f"checkpoint {path} failed to write on the primary "
+                    "process")
+            pdist.barrier("save_model")
+
+    def _write_model(self, path: str, blob: bytes, round_: Optional[int],
+                     manifest: bool, probe: Optional[dict]) -> None:
+        if not manifest:
             ckpt.atomic_write_bytes(path, blob)
+            return
+        quant = None
+        if self.quant_scheme:
+            kinds = list((self.quant_plan or {}).values())
+            quant = {"scheme": self.quant_scheme,
+                     "scales_dtype": "float32",
+                     "int8_layers": kinds.count("int8"),
+                     "bf16_layers": kinds.count("bf16")}
+        ckpt.write_checkpoint(
+            path, blob, round_=self.round if round_ is None else round_,
+            net_fp=self.net_fp(), quant=quant, probe=probe,
+            mesh=self.mesh_manifest())
 
     def load_model(self, path: str) -> None:
         if not any(n == "netconfig" for n, _ in self.cfg):
@@ -488,15 +811,17 @@ class NetTrainer:
                              str(q.get("scheme", "int8")),
                              dict(q.get("layers") or {}))
         else:
-            self._set_master(params_from_numpy(raw))
-            self._restore_ustates(raw_ust)
+            self._set_master(params_from_numpy(raw), ust=raw_ust,
+                             place=False)
         self.aux = self.net.init_aux(self.batch_size, self.device)
         for key, tags in raw_aux.items():
             if key in self.aux:
                 self.aux[key] = {t: torch.from_numpy(np.array(w)).to(
                     self.device) for t, w in tags.items()}
+        self._validate_parallel()
         if not q:
             self._maybe_quantize()
+        self._place_state()
         self.net.infer_shapes(self.batch_size)
 
     def _restore_ustates(self, raw_ust: Dict[str, dict]) -> None:
@@ -518,7 +843,7 @@ class NetTrainer:
         layer of the checkpoint at ``path`` (written by either package)
         whose name matches a layer of this net and whose every tag has
         the same shape; ``epoch_counter`` starts again at 0."""
-        self.init_model()
+        self._init_unplaced()
         header, old_params, _aux, _ust = self._read_model_file(path)
         old = NetGraph.structure_from_json(json.dumps(header["structure"]))
         old_keys = {spec.name: f"l{i}_{spec.name}"
@@ -537,6 +862,7 @@ class NetTrainer:
                     w.copy_(torch.as_tensor(np.asarray(src[tag], np.float32)))
         self._invalidate_prepared()
         self.epoch_counter = 0
+        self._place_state()
 
     # ------------------------------------------------------------------
     # predict
@@ -613,13 +939,13 @@ class NetTrainer:
         node name) for ``batch.data`` and its ``extra_data``, as f32
         numpy."""
         f = self._forward_fn(self.resolve_feature_node(node_name))
-        return f(self.params, self.aux, batch.data,
+        return f(self._full_params(), self.aux, batch.data,
                  batch.extra_data).cpu().numpy()
 
     def predict(self, data: np.ndarray, extras: Sequence = ()) -> np.ndarray:
         """Per-instance prediction for a numpy batch (and its side
         inputs, for a net with ``extra_data`` nodes)."""
-        out = self.predict_fn()(self.params, self.aux, data, extras)
+        out = self.predict_fn()(self._full_params(), self.aux, data, extras)
         return self.predict_from_scores(out.cpu().numpy())
 
     # ------------------------------------------------------------------
@@ -660,12 +986,13 @@ class NetTrainer:
             words[elem:elem + 1].bitwise_xor_(
                 torch.tensor([mask], dtype=words.dtype, device=w.device))
         self._invalidate_prepared()
+        rank = pdist.process_info()[0]
         detail = {"tensor": name, "elem": int(elem), "bit": int(bit),
-                  "process": 0, "device": str(w.device)}
+                  "process": rank, "device": str(w.device)}
         if not self.silent:
             print(f"[faults] bitflip injected: tensor={name} "
                   f"elem={elem} bit={bit} device={detail['device']} "
-                  f"process=0", flush=True)
+                  f"process={rank}", flush=True)
         return detail
 
     def _shadow_leg(self, data, labels, mask, round_: int):
@@ -673,8 +1000,9 @@ class NetTrainer:
         masters (``forward_train`` prepares the compute-dtype operands
         afresh), a copy of the layer state (the audit keeps nothing),
         the round's generator, and the gradients of every leaf."""
-        flat = [(k, t, w) for k in sorted(self.params)
-                for t, w in sorted(self.params[k].items())]
+        params = self._full_params()
+        flat = [(k, t, w) for k in sorted(params)
+                for t, w in sorted(params[k].items())]
         leaves = {}
         for k, t, w in flat:
             leaves.setdefault(k, {})[t] = w.detach().requires_grad_(True)
@@ -715,7 +1043,7 @@ class NetTrainer:
         if self.graph.extra_data_num:
             return None
         in_shape = self.net.input_node_shape(self.batch_size)
-        rows = self.batch_size
+        rows = self.batch_size // self.mesh_plan.n_data
         rng_np = np.random.RandomState(
             (0x5AD0 ^ (round_ * 2654435761)) & 0x7FFFFFFF)
         data_np = rng_np.random_sample(
@@ -757,6 +1085,40 @@ class NetTrainer:
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def check_weight_sync(self, tol: float = 0.0) -> float:
+        """The reference's ``test_on_server = 1`` discipline across the
+        ranks: each rank fingerprints every weight it holds (a float64
+        sum and sum of squares per leaf; under ``zero = 3`` per slice),
+        the fingerprints are all-gathered, and every replica of a leaf
+        (or of a slice) must agree within ``tol``.  A slice held by one
+        rank only has nothing to compare.  Returns the largest deviation
+        (0.0 on one rank); raises ``RuntimeError`` past ``tol``.
+        Collective."""
+        assert self.params is not None, "init_model/load_model first"
+        world = self.mesh_plan.n_data
+        if world == 1:
+            return 0.0
+        names = [(k, t) for k in sorted(self.params)
+                 for t in sorted(self.params[k])]
+        with torch.no_grad():
+            fps = torch.stack([
+                torch.stack([w.double().sum(), w.double().square().sum()])
+                for w in (self.params[k][t] for k, t in names)])
+        every = pdist.gather_host(fps.cpu().numpy())  # [world, leaves, 2]
+        worst, where = 0.0, None
+        for i, (k, t) in enumerate(names):
+            if self.zero >= 3 and (k, t) in self._dims:
+                continue  # one replica of each slice: nothing to compare
+            d = float(np.abs(every[:, i] - every[0, i]).max())
+            if d > worst:
+                worst, where = d, f"{k}/{t}"
+        if worst > tol:
+            raise RuntimeError(
+                f"weight-sync check failed: max fingerprint deviation "
+                f"{worst:g} across {world} processes (tol {tol:g}), largest "
+                f"at {where} — replicated weights have diverged")
+        return worst
+
     def _pad_train_batch(self, batch: DataBatch):
         """``(data, label, extras, mask, n_real)``: a short batch (its
         ``extra_data`` too) zero-padded to ``batch_size`` with a 0/1 row
@@ -766,6 +1128,16 @@ class NetTrainer:
         device passes through unpadded."""
         n = batch.data.shape[0]
         bs = self.batch_size or n
+        world = self.mesh_plan.n_data if self.mesh_plan else 1
+        if world > 1:
+            # each rank feeds its own batch_size / N rows of the global
+            # batch; its iterator pads its own tail
+            bs //= world
+            if n != bs:
+                raise ValueError(
+                    f"distributed run: each process must feed exactly "
+                    f"batch_size/process_count = {bs} rows, got {n}; "
+                    "use round_batch=1 in the data iterator")
         if n > bs:
             raise ValueError(f"train batch of {n} rows exceeds "
                              f"batch_size={bs}")
@@ -808,7 +1180,7 @@ class NetTrainer:
         for node in self.train_metric.nodes:
             if node is not None and node not in cache:
                 f = self._forward_fn(self.graph.node_index_of(node))
-                cache[node] = f(self.params, self.aux, data,
+                cache[node] = f(self._full_params(), self.aux, data,
                                 extras).cpu().numpy()[:n_real]
         return cache
 
@@ -824,6 +1196,7 @@ class NetTrainer:
     def update(self, batch: DataBatch) -> None:
         """One micro-batch: the train forward from the f32 masters and
         the backward; then, on every ``update_period``-th micro-batch,
+        the gradients summed over the ranks (:meth:`_reduce_grads`) and
         the updaters on every tensor in place (all the SGD tensors in one
         launch of the fused SGD kernel on a card) from the summed f32
         gradients, and ``epoch_counter += 1``.  With
@@ -842,22 +1215,30 @@ class NetTrainer:
         mask = torch.from_numpy(mask_np).to(dev)
         pipeline_stats().add("h2d", time.perf_counter() - t0,
                              rows=int(data.shape[0]))
-        node_cache = {}
-        if self.eval_train and self.train_metric.need_nodes():
-            node_cache = self._node_pred_cache(data_in, extras_in, n_real)
-        flat = [(key, tag, w) for key, tags in self.params.items()
-                for tag, w in tags.items()]
-        leaves = {}
-        for key, tag, w in flat:
-            leaves.setdefault(key, {})[tag] = w.detach().requires_grad_(True)
-        with torch.enable_grad():
-            nodes, loss = self.net.forward_train(
-                leaves, data, labels, mask, self._step_generator(),
-                aux=self.aux, step=self.epoch_counter, extras=extras)
-            out = nodes[self.net.out_node_index()].detach()
-            del nodes  # only the graph keeps what the backward needs
-            grads = torch.autograd.grad(
-                loss, [leaves[k][t] for k, t, _ in flat], allow_unused=True)
+        # batch norm's sums and the random layers' draws see the group's
+        # global batch; the rank-order fold keeps the JAX package's
+        # per-shard forward
+        with pdist.sharded_batch(not self._det_active()):
+            params = self._full_params()
+            node_cache = {}
+            if self.eval_train and self.train_metric.need_nodes():
+                node_cache = self._node_pred_cache(data_in, extras_in,
+                                                   n_real)
+            flat = [(key, tag, w) for key, tags in params.items()
+                    for tag, w in tags.items()]
+            leaves = {}
+            for key, tag, w in flat:
+                leaves.setdefault(key, {})[tag] = (
+                    w.detach().requires_grad_(True))
+            with torch.enable_grad():
+                nodes, loss = self.net.forward_train(
+                    leaves, data, labels, mask, self._step_generator(),
+                    aux=self.aux, step=self.epoch_counter, extras=extras)
+                out = nodes[self.net.out_node_index()].detach()
+                del nodes  # only the graph keeps what the backward needs
+                grads = torch.autograd.grad(
+                    loss, [leaves[k][t] for k, t, _ in flat],
+                    allow_unused=True)
         del leaves
         grads = [torch.zeros_like(w) if g is None else g.contiguous()
                  for (_k, _t, w), g in zip(flat, grads)]
@@ -867,7 +1248,8 @@ class NetTrainer:
             if self.divergence_policy:
                 # the accumulation path: a tripped micro-batch's gradient
                 # never joins the sum
-                self._guard_loss(self.last_loss, self.epoch_counter)
+                self._guard_loss(self._global_loss(self.last_loss),
+                                 self.epoch_counter)
             with torch.no_grad():
                 if self._grad_accum is None:
                     self._grad_accum = grads
@@ -878,11 +1260,9 @@ class NetTrainer:
             apply = self.sample_counter >= self.update_period
             grads = self._grad_accum
         if apply:
+            grads, self.last_loss = self._reduce_grads(grads, self.last_loss)
             with torch.no_grad():
-                apply_all([(self.updaters[(key, tag)], w, g,
-                            self.ustates[key][tag])
-                           for (key, tag, w), g in zip(flat, grads)],
-                          self.epoch_counter)
+                self._apply_updates([(k, t) for k, t, _w in flat], grads)
             self._invalidate_prepared()
             self._grad_accum, self.sample_counter = None, 0
         if self.update_period == 1 and self.divergence_policy:
@@ -900,6 +1280,67 @@ class NetTrainer:
         if apply:
             self.epoch_counter += 1
             obs_device.maybe_sample_step(self.epoch_counter, self.sync)
+
+    def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The group's loss (the sum of the ranks' shares; collective)."""
+        if self.mesh_plan.n_data == 1:
+            return loss
+        return pdist.all_reduce_(loss.float().reshape(1).clone())[0]
+
+    def _reduce_grads(self, grads: List[torch.Tensor], loss: torch.Tensor):
+        """``(grads, loss)`` summed over the ranks: the gradients and the
+        loss packed into one flat f32 buffer and all-reduced, or under
+        ``det_reduce`` all-gathered and added in rank order (``((g0 +
+        g1) + g2) + ...``), which no backend can reorder.  A no-op on
+        one rank."""
+        if self.mesh_plan.n_data == 1:
+            return grads, loss
+        buf = torch.cat([g.reshape(-1) for g in grads]
+                        + [loss.float().reshape(1)])
+        if self._det_active():
+            parts = pdist.all_gather(buf)
+            buf = parts[0].clone()
+            for p in parts[1:]:
+                buf.add_(p)
+        else:
+            pdist.all_reduce_(buf)
+        out, off = [], 0
+        for g in grads:
+            out.append(buf[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        return out, buf[off]
+
+    def _apply_updates(self, names: Sequence[Tuple[str, str]],
+                       grads: Sequence[torch.Tensor]) -> None:
+        """The updaters over the masters in place, one ``apply_all``.  A
+        tensor sharded under ``zero >= 1`` is updated on this rank's
+        slice only: its gradient's slice (contiguous, the fused SGD
+        kernel's table takes it as it is), its state slice, and the
+        master's slice (``zero = 3``: the master IS the slice) or a
+        contiguous slice of the whole master, whose ranks' slices are
+        then all-gathered back into it (``zero = 1``)."""
+        items, back = [], []
+        plan = self.mesh_plan
+        for (key, tag), g in zip(names, grads):
+            up, state = self.updaters[(key, tag)], self.ustates[key][tag]
+            master = self.params[key][tag]
+            d = self._dims.get((key, tag))
+            if d is None:
+                items.append((up, master, g, state))
+                continue
+            start, n = plan.slice_bounds(tuple(g.shape), d)
+            g_mine = g.narrow(d, start, n).contiguous()
+            if self.zero >= 3:
+                items.append((up, master, g_mine, state))
+                continue
+            w_mine = master.narrow(d, start, n).contiguous()
+            items.append((up, w_mine, g_mine, state))
+            back.append((master, w_mine, d))
+        apply_all(items, self.epoch_counter)
+        whole = self._gather_slices([w for _m, w, _d in back],
+                                    [d for _m, _w, d in back])
+        for (master, _w, _d), full in zip(back, whole):
+            master.copy_(full)
 
     def update_scan(self, data, labels, n_steps: Optional[int] = None,
                     sync: bool = True):
@@ -943,6 +1384,23 @@ class NetTrainer:
                 raise ValueError(
                     "single-batch mode needs n_steps (or pass [K,B,...])")
             k = int(n_steps)
+        world = self.mesh_plan.n_data
+        if world > 1:
+            # each rank feeds its own [K, B/N, ...] rows; K must match on
+            # every rank (a mismatched tail would leave a collective
+            # that the others never join)
+            local = self.batch_size // world
+            got = int(x.shape[1] if per_step else x.shape[0])
+            if got != local:
+                raise ValueError(
+                    f"distributed update_scan: each process must feed "
+                    f"batch_size/process_count = {local} rows, got {got}")
+            ks = pdist.gather_host(np.asarray([k], np.int64)).reshape(-1)
+            if not (ks == k).all():
+                raise ValueError(
+                    f"distributed update_scan: step counts differ across "
+                    f"processes ({sorted(set(int(v) for v in ks))}); every "
+                    "process must scan the same K")
         if y.dim() == (2 if per_step else 1):
             y = y.unsqueeze(-1)  # one label column
         losses = []
@@ -1010,8 +1468,9 @@ class NetTrainer:
         """True when no parameter holds a NaN or an Inf: a CRC-valid
         checkpoint can still carry a blow-up (the last update of its
         round went non-finite after that round's losses were read)."""
-        return all(bool(torch.isfinite(w).all())
-                   for tags in self.params.values() for w in tags.values())
+        ok = all(bool(torch.isfinite(w).all())
+                 for tags in self.params.values() for w in tags.values())
+        return not pdist.any_process_flag(not ok)
 
     def scale_learning_rate(self, factor: float) -> None:
         """Multiply every updater's base learning rate by ``factor`` (the
@@ -1033,7 +1492,7 @@ class NetTrainer:
         key = self.net.param_key[i]
         if key not in self.params or tag not in self.params[key]:
             return np.zeros((0, 0), np.float32)
-        w = self.params[key][tag].detach().float().cpu().numpy()
+        w = self._full_params()[key][tag].detach().float().cpu().numpy()
         return self._to_2d(w, self.graph.layers[i].type_name, tag)
 
     def set_weight(self, weight: np.ndarray, layer_name: str, tag: str) -> None:
@@ -1045,11 +1504,15 @@ class NetTrainer:
             raise ValueError("tag must be wmat or bias")
         i = self.graph.layer_index_of(layer_name)
         key = self.net.param_key[i]
-        cur = self.params[key][tag]
+        cur = self._full_params()[key][tag]
         new = self._from_2d(np.asarray(weight, np.float32), tuple(cur.shape),
                             self.graph.layers[i].type_name, tag)
+        new = torch.from_numpy(np.ascontiguousarray(new))
+        d = self._dims.get((key, tag))
+        if self.zero >= 3 and d is not None:
+            new, cur = self._my_slice(new, d), self.params[key][tag]
         with torch.no_grad():
-            cur.copy_(torch.from_numpy(np.ascontiguousarray(new)))
+            cur.copy_(new)
         self._invalidate_prepared()
 
     @staticmethod
@@ -1081,6 +1544,7 @@ class NetTrainer:
         (eval forward), as ``\\tname-metric:value`` fields."""
         ret = ""
         if self.eval_train:
+            self.train_metric.reduce_across_processes()
             ret += self.train_metric.print("train")
             self.train_metric.clear()
         if iter_eval is None or len(self.metric) == 0:
@@ -1090,14 +1554,21 @@ class NetTrainer:
                  for n in self.metric.nodes]
         fns = {n: self._forward_fn(self.net.out_node_index() if n is None
                                    else n) for n in set(nodes)}
+        params = self._full_params()
         iter_eval.before_first()
-        while iter_eval.next():
-            batch = iter_eval.value()
-            n = batch.batch_size - batch.num_batch_padd
-            outs = {k: f(self.params, self.aux, batch.data,
-                         batch.extra_data).cpu().numpy()[:n]
-                    for k, f in fns.items()}
-            self.metric.add_eval([outs[k] for k in nodes], batch.label[:n],
-                                 self._label_ranges())
+        # in a group each rank scores its own rows (a sharded iterator)
+        # and batch norm's batch statistics are the global batch's
+        with pdist.sharded_batch():
+            while iter_eval.next():
+                batch = iter_eval.value()
+                n = batch.batch_size - batch.num_batch_padd
+                outs = {k: f(params, self.aux, batch.data,
+                             batch.extra_data).cpu().numpy()[:n]
+                        for k, f in fns.items()}
+                self.metric.add_eval([outs[k] for k in nodes],
+                                     batch.label[:n], self._label_ranges())
+        if self._gathered is not None:
+            self._invalidate_prepared()  # zero = 3: drop the whole weights
+        self.metric.reduce_across_processes()
         ret += self.metric.print(data_name)
         return ret

@@ -1,0 +1,160 @@
+"""The device rule and the data-parallel mesh of ``dev=`` strings.
+
+The port's ``cxxnet_tpu/parallel/mesh.py``.  Grammar parity with the
+reference device parser: ``dev=gpu`` / ``dev=cpu`` is one device,
+``dev=gpu:0-3`` devices 0..3 inclusive, ``dev=gpu:0,2,5`` a list.  The
+platform word ``tpu`` / ``gpu`` / ``cuda`` means the card here, ``cpu``
+the CPU (never taken unless asked).
+
+The JAX package runs a device range as one SPMD program in one process;
+the port runs one process per device (``parallel/distributed.py``), so
+a :class:`MeshPlan` is this rank's device plus the group's shape:
+``n_data`` ranks, ``n_model = 1`` (``model_parallel > 1`` is ROADMAP.md
+item (k2)).  :func:`rank_device` maps a ``dev`` value and the rank to
+the rank's ``torch.device``: a single ordinal is every rank's (ranks
+may share a card), a list as long as the group gives rank ``r`` its
+``r``-th entry, a bare platform word gives rank ``r`` the card ``r``
+modulo the cards present.  Each ordinal is checked against
+``torch.cuda.device_count()`` with the JAX package's message.  In one
+process a range raises, naming ``dist_num_proc``: the CLI's
+``task=train`` starts one rank per listed device (``cli.py``).
+
+:meth:`MeshPlan.owner_dim` is the JAX package's ``state_sharding`` /
+``fsdp_sharding`` placement rule as an ownership rule over ranks: a
+tensor's largest dimension divisible by ``n_data`` is cut into
+``n_data`` equal slices, rank ``r`` owning the ``r``-th; a tensor with
+no such dimension stays whole on every rank.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+
+def parse_device(dev: str) -> Tuple[str, List[int]]:
+    """``"tpu:0-3"`` → ``("tpu", [0,1,2,3])``; bare platform → ``[0]``."""
+    dev = dev.strip()
+    if ":" not in dev:
+        return dev, [0]
+    plat, spec = dev.split(":", 1)
+    ids: List[int] = []
+    for part in spec.split(","):
+        part = part.strip()
+        if "-" in part:
+            lo, hi = part.split("-", 1)
+            if int(hi) < int(lo):
+                raise ValueError(f"dev={dev!r}: reversed range {part!r}")
+            ids.extend(range(int(lo), int(hi) + 1))
+        elif part:
+            ids.append(int(part))
+    if not ids:
+        raise ValueError(f"dev={dev!r}: empty device list")
+    return plat, ids
+
+
+def check_ordinals(dev: str, ids: Sequence[int]) -> None:
+    """Raise as the JAX package does when an ordinal names a card this
+    host does not have (a CUDA device must be present)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"dev={dev.strip()} needs a CUDA device and none is available "
+            "(set dev=cpu to run on the CPU)")
+    n = torch.cuda.device_count()
+    if any(i >= n for i in ids):
+        raise ValueError(
+            f"dev={dev!r} requests device ordinals {list(ids)} but only "
+            f"{n} devices are available")
+
+
+def rank_device(dev: str, rank: int = 0, world: int = 1) -> torch.device:
+    """This rank's ``torch.device`` for the conf value ``dev`` (see the
+    module docstring); never falls back to the CPU."""
+    plat, ids = parse_device(dev.strip().lower())
+    bare = ":" not in dev
+    if world == 1 and len(ids) > 1:
+        raise NotImplementedError(
+            f"dev={dev.strip()}: one device per process; a device range "
+            "runs as one process per device with dist_num_proc, "
+            "dist_proc_id and dist_coordinator on each (the CLI's "
+            "task=train starts them for a range)")
+    if world > 1 and len(ids) not in (1, world):
+        raise ValueError(
+            f"dev={dev.strip()}: {len(ids)} devices for {world} processes "
+            "(give one device, or one per process)")
+    if plat == "cpu":
+        return torch.device("cpu")
+    if bare and world > 1:
+        check_ordinals(dev, [0])
+        return torch.device(f"cuda:{rank % torch.cuda.device_count()}")
+    ordinal = ids[rank] if len(ids) == world > 1 else ids[0]
+    check_ordinals(dev, ids if len(ids) == world else [ordinal])
+    return torch.device(f"cuda:{ordinal}")
+
+
+@dataclasses.dataclass
+class MeshPlan:
+    """This rank's device and the data-parallel group's shape."""
+
+    device: torch.device
+    n_data: int = 1
+    n_model: int = 1
+    rank: int = 0
+    backend: str = ""
+
+    @property
+    def n_devices(self) -> int:
+        return self.n_data * self.n_model
+
+    def owner_dim(self, shape: Sequence[int]) -> Optional[int]:
+        """The dimension cut over the ranks for a sharded tensor of
+        ``shape`` (the JAX ``state_sharding`` rule: the largest dim
+        divisible by ``n_data``, the first on a tie), or None: whole on
+        every rank."""
+        if self.n_data == 1 or not shape:
+            return None
+        best, best_size = None, 0
+        for d, size in enumerate(shape):
+            if size % self.n_data == 0 and size > best_size:
+                best, best_size = d, size
+        return best
+
+    def slice_bounds(self, shape: Sequence[int], dim: int,
+                     rank: Optional[int] = None) -> Tuple[int, int]:
+        """``(start, length)`` of rank ``rank``'s slice along ``dim``."""
+        n = int(shape[dim]) // self.n_data
+        return (self.rank if rank is None else rank) * n, n
+
+    def describe(self, zero: int = 0) -> str:
+        """One-line layout summary shared by the CLI's train-start line
+        and ``task=summary``."""
+        line = (f"data={self.n_data} model={self.n_model} zero={zero} "
+                f"processes={self.n_data}")
+        if self.backend:
+            line += f" backend={self.backend}"
+        return line
+
+    def check_batch(self, batch_size: int) -> None:
+        if batch_size % self.n_data != 0:
+            raise ValueError(
+                f"batch_size={batch_size} must be divisible by the number of "
+                f"data-parallel devices ({self.n_data}), as in the reference "
+                f"(nnet_impl-inl.hpp:146-151)"
+            )
+
+
+def make_mesh(dev: str = "tpu", model_parallel: int = 1) -> MeshPlan:
+    """This rank's :class:`MeshPlan` for a ``dev=`` string, in the
+    process group when one was joined (``distributed.py``)."""
+    from . import distributed
+
+    if model_parallel != 1:
+        raise NotImplementedError(
+            f"model_parallel={model_parallel}: model, expert and pipeline "
+            "parallelism over a device mesh are not ported yet "
+            "(ROADMAP.md queue A item 6, (k2))")
+    rank, world = distributed.process_info()
+    return MeshPlan(device=rank_device(dev, rank, world), n_data=world,
+                    rank=rank, backend=distributed.backend())

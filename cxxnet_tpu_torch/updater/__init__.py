@@ -59,6 +59,10 @@ class Updater:
     """Base: one instance per weight tensor, carrying its UpdaterParam."""
 
     type_name = ""
+    #: the rule reads each element of (w, grad, state) alone, so a slice
+    #: of the tensor updates as the whole would (ZeRO's sharded update);
+    #: False for the rules that read whole-tensor norms
+    elementwise = True
 
     def __init__(self, tag: str) -> None:
         self.param = UpdaterParam(tag)
@@ -214,6 +218,7 @@ def _trust(num: torch.Tensor, den: torch.Tensor,
 
 class LARSUpdater(Updater):
     type_name = "lars"
+    elementwise = False  # the trust ratio reads ||w|| and ||g||
 
     def __init__(self, tag: str) -> None:
         super().__init__(tag)
@@ -247,6 +252,7 @@ class LARSUpdater(Updater):
 
 class LAMBUpdater(Updater):
     type_name = "lamb"
+    elementwise = False  # the trust ratio reads ||w|| and ||u||
 
     def __init__(self, tag: str) -> None:
         super().__init__(tag)

@@ -93,7 +93,8 @@ def write_manifest(model_path: str, blob: bytes,
                    round_: Optional[int] = None,
                    net_fp: Optional[str] = None,
                    quant: Optional[dict] = None,
-                   probe: Optional[dict] = None) -> dict:
+                   probe: Optional[dict] = None,
+                   mesh: Optional[dict] = None) -> dict:
     """Write the sidecar manifest for an already-written checkpoint whose
     exact bytes are ``blob``; written after the checkpoint, so a
     manifest's existence implies its checkpoint was fully durable.  The
@@ -103,7 +104,9 @@ def write_manifest(model_path: str, blob: bytes,
     absent on f32 checkpoints.  ``probe`` (``{"seed", "rows", "shape",
     "backend", "crc32"?}``, ``integrity/canary.py``) commits the serving
     canary's probe batch and, when the writer scored it, its golden
-    score CRC."""
+    score CRC.  ``mesh`` (``{"n_data", "n_model", "zero", "processes"}``)
+    records the layout that wrote it, informational only: the payload
+    holds gathered whole arrays, which load onto any number of ranks."""
     man = {
         "format": MANIFEST_FORMAT,
         "crc32": crc32_of(blob),
@@ -113,6 +116,8 @@ def write_manifest(model_path: str, blob: bytes,
         "save_ustate": 0,
         "time": time.time(),
     }
+    if mesh is not None:
+        man["mesh"] = mesh
     if quant is not None:
         man["quant"] = quant
     if probe is not None:
@@ -125,7 +130,8 @@ def write_manifest(model_path: str, blob: bytes,
 def write_checkpoint(path: str, blob: bytes, round_: Optional[int] = None,
                      net_fp: Optional[str] = None,
                      quant: Optional[dict] = None,
-                     probe: Optional[dict] = None) -> None:
+                     probe: Optional[dict] = None,
+                     mesh: Optional[dict] = None) -> None:
     """Atomic payload write, then the sidecar manifest, inside the
     ``checkpoint.write`` span; a ``checkpoint.save`` event either way
     (``ok`` false, with the error, when a write raised)."""
@@ -136,7 +142,7 @@ def write_checkpoint(path: str, blob: bytes, round_: Optional[int] = None,
         with obs_trace.span("checkpoint.write", path=path, bytes=len(blob)):
             atomic_write_bytes(path, blob)
             write_manifest(path, blob, round_=round_, net_fp=net_fp,
-                           quant=quant, probe=probe)
+                           quant=quant, probe=probe, mesh=mesh)
     except Exception as e:
         obs_events.emit("checkpoint.save", ok=False, path=path, round=round_,
                         error=f"{type(e).__name__}: {e}")

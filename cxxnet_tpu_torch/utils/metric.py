@@ -231,6 +231,22 @@ class MetricSet:
             else:
                 mt.add_eval(pred, labels[:, a:b])
 
+    def reduce_across_processes(self) -> None:
+        """Sum ``(sum_metric, cnt_inst)`` over the ranks of the process
+        group (``parallel/distributed.py``): each rank scored its own
+        rows, so the sums are the global metric's.  Collective: every
+        rank calls.  A no-op on one process.  The counters travel as
+        float64 words, exactly."""
+        from ..parallel import distributed
+
+        if distributed.process_info()[1] == 1 or not self.metrics:
+            return
+        rows = np.asarray([[m.sum_metric, m.cnt_inst] for m in self.metrics],
+                          np.float64)
+        total = distributed.gather_host(rows).sum(axis=0)
+        for m, (s, c) in zip(self.metrics, total):
+            m.sum_metric, m.cnt_inst = float(s), int(c)
+
     def print(self, evname: str) -> str:
         out = []
         for mt, field in zip(self.metrics, self.fields):

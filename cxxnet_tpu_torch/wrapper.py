@@ -12,10 +12,10 @@ tensor is (it is reshaped to ``(N, 1, 1, D)``).
 Devices: ``Net(dev=...)`` follows the trainer's rule — ``cpu`` runs on
 the CPU, only when asked; any other value (the default ``gpu``, ``tpu``,
 ``cuda``) means the card and raises at ``init_model`` / ``load_model``
-without one.  The JAX wrapper joins a multi-process job from the
-``dist_*`` keys; the port runs one process, and ``dist_num_worker > 1``
-(or ``dist_num_proc > 1``) raises ``NotImplementedError`` (ROADMAP.md
-queue A item 6).
+without one.  As the JAX wrapper, :meth:`Net.init_model` and
+:meth:`Net.load_model` join the data-parallel job the ``dist_*`` keys
+(or the ``CXN_*`` environment) name (``parallel/distributed.py``); each
+process then feeds its ``batch_size / dist_num_proc`` rows.
 
 Raw arrays given to :meth:`Net.predict` / :meth:`Net.extract` go through
 the serving path's :class:`~.serve.cache.ShapeBucketCache` (power-of-two
@@ -33,6 +33,7 @@ import numpy as np
 from . import config as cfgmod
 from .io.data import DataBatch, create_iterator
 from .nnet.trainer import NetTrainer
+from .parallel import maybe_init_distributed
 
 __all__ = ["DataIter", "Net", "train"]
 
@@ -114,16 +115,6 @@ def _as_batch(data: np.ndarray, label: Optional[np.ndarray]) -> DataBatch:
     return DataBatch(data=data, label=label)
 
 
-def _refuse_distributed(cfg) -> None:
-    """The JAX wrapper's ``maybe_init_distributed`` has no counterpart:
-    one process, one card."""
-    for name, val in cfg:
-        if name in ("dist_num_worker", "dist_num_proc") and int(val) > 1:
-            raise NotImplementedError(
-                f"{name} > 1: multi-process training is not ported yet "
-                "(ROADMAP.md queue A item 6)")
-
-
 ParamSpec = Union[Dict[str, object], Iterable[Tuple[str, object]]]
 
 
@@ -153,11 +144,13 @@ class Net:
         self._trainer.set_param(str(name), str(value))
 
     def init_model(self) -> None:
-        _refuse_distributed(self._trainer.cfg)
+        # join the job the dist_* keys name, as the CLI does (a no-op
+        # for one process)
+        maybe_init_distributed(self._trainer.cfg)
         self._trainer.init_model()
 
     def load_model(self, fname: str) -> None:
-        _refuse_distributed(self._trainer.cfg)
+        maybe_init_distributed(self._trainer.cfg)
         self._trainer.load_model(fname)
 
     def save_model(self, fname: str) -> None:

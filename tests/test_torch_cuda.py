@@ -66,7 +66,13 @@ of the published checkpoint, and a step from a block the data service
 deals bit-equal to the step from the local chain's batch; ``moe``'s
 top-k routing under tied gates on the card equal to the CPU's, and a
 small flash LM under ``remat = 1`` on the card equal to ``remat = 0``,
-K9 launched twice per attention layer a step.
+K9 launched twice per attention layer a step; data parallelism: two gloo
+rank processes on ``cuda:0`` sum, gather and broadcast CUDA tensors
+through ``parallel.distributed`` with the tensors left on the card (a
+collective gloo cannot run on them raises), ``dev = gpu:k`` is the card ``k`` and a card past
+the host's raises the JAX package's message, and the SGD kernel over the
+ZeRO slices of each tensor (cut along ``MeshPlan.owner_dim`` for 2 and 3
+ranks) equals it over the whole tensors bit for bit.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports nothing of JAX, so on a machine with a
@@ -1883,3 +1889,112 @@ def test_cuda_remat_lm_matches_no_remat(cuda_device, tmp_path):
     for kt, w in out["0"].items():
         d = (w - w0[kt]).abs().max()
         assert (out["1"][kt] - w).abs().max() <= 1e-2 * d, kt
+
+
+_GLOO_RANK = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[3])
+from cxxnet_tpu_torch.parallel import distributed as pdist
+rank = int(sys.argv[2])
+pdist.init_distributed(sys.argv[1], 2, rank, dev="gpu:0", timeout_s=60)
+dev = torch.device("cuda:0")
+t = torch.arange(6, dtype=torch.float32, device=dev) * (rank + 1)
+s = pdist.all_reduce_(t.clone())
+g = pdist.all_gather(t)
+b = pdist.broadcast_(t.clone(), src=1)
+assert s.device == dev and all(p.device == dev for p in g)
+print(json.dumps({"sum": s.tolist(), "gather": [p.tolist() for p in g],
+                  "bcast": b.tolist(), "backend": pdist.backend(),
+                  "calls": pdist.STATS["calls"]}))
+pdist.shutdown_distributed()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_collectives_between_two_ranks_on_one_card(cuda_device,
+                                                              tmp_path):
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GLOO_RANK, f"127.0.0.1:{port}", str(r),
+         repo], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    got = [json.loads(out.strip().splitlines()[-1]) for out, _err in outs]
+    base = list(range(6))
+    for g in got:
+        assert g["backend"] == "gloo"
+        assert g["sum"] == [3.0 * v for v in base]
+        assert g["gather"] == [[1.0 * v for v in base],
+                               [2.0 * v for v in base]]
+        assert g["bcast"] == [2.0 * v for v in base]
+        assert g["calls"] == 3
+
+
+@pytest.mark.cuda
+def test_cuda_gpu_k_is_card_k(cuda_device):
+    from cxxnet_tpu_torch.nnet.trainer import resolve_device
+    from cxxnet_tpu_torch.parallel.mesh import rank_device
+
+    n = torch.cuda.device_count()
+    for k in range(n):
+        assert rank_device(f"gpu:{k}") == torch.device(f"cuda:{k}")
+    assert resolve_device("tpu") == torch.device("cuda:0")
+    with pytest.raises(ValueError,
+                       match=rf"ordinals \[{n}\] but only {n} devices"):
+        resolve_device(f"gpu:{n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_cuda_k8_on_zero_slices_bit_equal_to_whole(cuda_device, ranks):
+    from cxxnet_tpu_torch.parallel.mesh import MeshPlan
+
+    shapes = [(7, 7, 192, 64), (1024, 832), (96,), (6, 10, 9), (5, 7)]
+    gen = torch.Generator(device=cuda_device).manual_seed(ranks)
+    whole = [[torch.randn(s, generator=gen, device=cuda_device)
+              for _ in range(3)] for s in shapes]
+    hyper = ([0.01] * len(shapes), [0.9] * len(shapes),
+             [5e-4] * len(shapes), [1.0] * len(shapes))
+    ref = [[t.clone() for t in wgm] for wgm in whole]
+    update_step.sgd_update_multi(*zip(*ref), *hyper)
+    sliced = 0
+    for r in range(ranks):
+        plan = MeshPlan(device=cuda_device, n_data=ranks, rank=r)
+        mine, where = [], []
+        for (w, g, m), s in zip(whole, shapes):
+            d = plan.owner_dim(s)
+            if d is None:
+                continue
+            start, n = plan.slice_bounds(s, d)
+            mine.append([t.narrow(d, start, n).contiguous() for t in (w, g, m)])
+            where.append((s, d, start, n))
+        n0 = update_step.KERNEL.launches
+        update_step.sgd_update_multi(*zip(*mine),
+                                     *(h[:len(mine)] for h in hyper))
+        torch.cuda.synchronize()
+        assert update_step.KERNEL.launches == n0 + 1
+        for (wm, _g, mm), (s, d, start, n) in zip(mine, where):
+            i = shapes.index(s)
+            assert torch.equal(wm, ref[i][0].narrow(d, start, n))
+            assert torch.equal(mm, ref[i][2].narrow(d, start, n))
+            sliced += 1
+    assert sliced >= 3 * ranks  # three or more shapes cut at 2 and 3 ranks

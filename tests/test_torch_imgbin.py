@@ -26,8 +26,9 @@
   ``bowl.conf`` with ``pred.conf``'s section: checkpoints and outputs
   within the limits of ``tests/test_torch_mnist.py``.
 * Without PIL each PIL path refuses at ``init()`` naming its key, and raw
-  pages still run; ``dist_num_worker > 1`` and a fault site the port
-  does not visit raise.
+  pages still run; a fault site the port does not visit raises; with
+  ``dist_num_worker = 2`` (or ``PS_RANK``) each worker's shard files and
+  equal-steps cap give the JAX package's batches.
 """
 
 import contextlib
@@ -964,17 +965,42 @@ def test_without_pil_raw_pages_still_run(shards, no_pil):
 @pytest.mark.parametrize("it_name", ["imgbin", "img"])
 def test_distributed_sharding_refuses(shards, tmp_path, monkeypatch,
                                       it_name):
-    src = shards["raw"] if it_name == "imgbin" else [(None, "x.lst")]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        it = tdata.create_iterator(_entries(src, RAW + (
-            ("dist_num_worker", "2"),), it=it_name))
+    """Once refused; now each worker of ``dist_num_worker = 2`` reads
+    the JAX package's rows (imgbin: whole shard files, capped at the
+    smaller worker's rows; img: records ``rank::2``), also through the
+    decode pool and from the ``PS_RANK`` environment."""
+    src, extra = shards["raw"], RAW
+    if it_name == "img":
+        from PIL import Image
+
+        root = tmp_path / "imgs"
+        root.mkdir()
+        lst = tmp_path / "img.lst"
+        with open(lst, "w") as f:
+            for i, img in enumerate(shards["imgs"][:13]):
+                Image.fromarray(img.astype(np.uint8)).save(root / f"{i}.png")
+                f.write(f"{i}\t{i % 5}\t{i}.png\n")
+        src, extra = [(None, str(lst))], (("image_root", str(root) + "/"),)
+    counts = []
+    for rank in range(2):
+        entries = _entries(src, extra + (
+            ("dist_num_worker", "2"), ("dist_worker_rank", str(rank))),
+            it=it_name)
+        for workers in (1, 3):
+            a, b = _pair(entries, (("num_decode_workers", str(workers)),))
+            assert b.supports_dist_shard()
+            _three_epochs_equal(a, b)
+        it = tdata.create_iterator(entries)
         it.init()
+        try:
+            counts.append(len(_epoch(it)))
+        finally:
+            it.close()
+    assert counts[0] == counts[1] > 0
     if it_name == "imgbin":
         monkeypatch.setenv("PS_RANK", "1")
         monkeypatch.setenv("PS_NUM_WORKER", "2")
-        it = tdata.create_iterator(_entries(src, RAW))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            it.init()
+        _three_epochs_equal(*_pair(_entries(src, RAW)))
 
 
 def _reader_of(it):

@@ -7,8 +7,10 @@
   and ``cxxnet_tpu`` out of ``sys.modules``.  Checked in a subprocess,
   because this test process imports jax in ``conftest.py``.
 * No file of the port, nor ``chip_smoke.py``, imports either by name.
-* ``dev`` other than ``cpu`` means the card and raises without one; a
-  device range raises ``NotImplementedError``.
+* ``dev`` other than ``cpu`` means the card and raises without one,
+  ``gpu:k`` the card ``k`` (raising with the JAX message when there is
+  no card ``k``); a device range in one process raises
+  ``NotImplementedError`` naming ``dist_num_proc``.
 * The conf surfaces the JAX package validates (``pool_impl``,
   ``lrn_impl``, ``kernel_lib``) are validated the same way, and a
   quantized checkpoint loads with its int8 and bf16 leaves as stored.
@@ -59,7 +61,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "cxxnet_tpu_torch.loop.retention, cxxnet_tpu_torch.serve.router, "
         "cxxnet_tpu_torch.serve.fleet, cxxnet_tpu_torch.serve.stub, "
         "cxxnet_tpu_torch.io.dataservice, "
-        "cxxnet_tpu_torch.io.dataservice.client\n"
+        "cxxnet_tpu_torch.io.dataservice.client, "
+        "cxxnet_tpu_torch.parallel, cxxnet_tpu_torch.parallel.mesh, "
+        "cxxnet_tpu_torch.parallel.distributed, "
+        "cxxnet_tpu_torch.tools.mesh_parity\n"
         "from cxxnet_tpu_torch.layers import create_layer\n"
         "create_layer('torch'); create_layer('pairtest-conv-conv')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
@@ -114,6 +119,10 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
             "cxxnet_tpu_torch/integrity/plane.py",
             "cxxnet_tpu_torch/tune/controller.py",
             "cxxnet_tpu_torch/tune/targets.py",
+            "cxxnet_tpu_torch/parallel/__init__.py",
+            "cxxnet_tpu_torch/parallel/mesh.py",
+            "cxxnet_tpu_torch/parallel/distributed.py",
+            "cxxnet_tpu_torch/tools/mesh_parity.py",
             *(f"cxxnet_tpu_torch/{m}" for m in _LOOP_AND_SERVICE)} <= names
     bad = {f: sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
@@ -195,12 +204,15 @@ def test_dev_other_than_cpu_needs_a_card(monkeypatch, dev):
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         ttrainer.resolve_device(dev)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert ttrainer.resolve_device(dev) == torch.device("cuda:0")
 
 
 @pytest.mark.parametrize("dev", ["tpu:0-7", "gpu:0-1", "gpu:0,1"])
 def test_device_ranges_are_a_later_slice(dev):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+    """A range in one process names the way to run it: a process per
+    device (``dist_num_proc``; the CLI starts them)."""
+    with pytest.raises(NotImplementedError, match="dist_num_proc"):
         ttrainer.resolve_device(dev)
 
 

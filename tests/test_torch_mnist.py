@@ -146,9 +146,40 @@ def test_mnist_iterator_batches_equal_jax(tmp_path, shuffle, input_flat,
     assert a.data.shape == want
 
 
-def test_mnist_iterator_refuses_data_sharding():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tmnist.MNISTIterator().set_param("dist_num_worker", "2")
+def test_mnist_iterator_refuses_data_sharding(tmp_path):
+    """Once refused; now ``dist_num_worker`` shards as the JAX iterator
+    does (both ``dist_shard`` rules), and a bad rule is refused."""
+    from cxxnet_tpu.io.mnist import MNISTIterator as JaxMNIST
+
+    rng = np.random.RandomState(4)
+    img, lab = str(tmp_path / "i.idx"), str(tmp_path / "l.idx")
+    tmnist.write_idx_images(img, rng.randint(0, 256, (50, 4, 4)))
+    tmnist.write_idx_labels(lab, rng.randint(0, 10, 50))
+    for shard in ("interleave", "block"):
+        for rank in range(3):
+            rows = []
+            for it in (tmnist.MNISTIterator(), JaxMNIST()):
+                for k, v in (("path_img", img), ("path_label", lab),
+                             ("batch_size", "4"), ("shuffle", "1"),
+                             ("silent", "1"), ("dist_num_worker", "3"),
+                             ("dist_worker_rank", str(rank)),
+                             ("dist_shard", shard)):
+                    it.set_param(k, v)
+                it.init()
+                it.before_first()
+                got = []
+                while it.next():
+                    v = it.value()
+                    got.append((v.data.copy(), v.label.copy(),
+                                np.asarray(v.inst_index).copy()))
+                rows.append(got)
+            assert len(rows[0]) == len(rows[1]) > 0
+            for (d0, l0, i0), (d1, l1, i1) in zip(*rows):
+                assert d0.tobytes() == d1.tobytes()
+                assert l0.tobytes() == l1.tobytes()
+                np.testing.assert_array_equal(i0, i1)
+    with pytest.raises(ValueError, match="interleave or block"):
+        tmnist.MNISTIterator().set_param("dist_shard", "stripe")
 
 
 def test_digits_tool_writes_the_jax_tools_files(tmp_path):

@@ -393,15 +393,16 @@ def test_cli_sigterm_snapshots_and_exits_clean(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
-    # the divergence guard and the integrity plane are ported; the
-    # cross-process weight check is not
+    # the divergence guard, the integrity plane and (data parallelism)
+    # the cross-process weight check are ported; the elastic pod is not
+    LearnTask().set_param("test_on_server", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        LearnTask().set_param("test_on_server", "1")
+        LearnTask().set_param("elastic", "1")
     with pytest.raises(ValueError, match="abort or rollback"):
         NetTrainer().set_param("divergence_policy", "retry")
     tr = NetTrainer()
     tr.set_params(tcfg.parse_pairs(SMALL_CONF + "dev = gpu:0-1\n"))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="dist_num_proc"):
         tr.init_model()
     conf = tmp_path / "t.conf"
     conf.write_text(TRAIN_CONF.replace("iter = synthetic", "iter = service",

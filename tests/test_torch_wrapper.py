@@ -12,8 +12,9 @@
   trainer refuses;
 * ``extract`` / ``predict`` on an iterator trim the padded rows;
 * raw arrays go through the bucket cache and equal the trainer's rows;
-* the default device raises without a card; ``dist_num_worker > 1``
-  raises, naming item 6.
+* the default device raises without a card; ``dist_num_proc`` without
+  its coordinator is refused with the JAX package's message, and a device
+  range in one process names ``dist_num_proc``.
 
 Tolerances: predictions equal; scores, losses and weights after the
 shared steps within rtol 1e-4, atol 1e-5 (f32 in two frameworks);
@@ -318,6 +319,10 @@ def test_default_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         tw.train(NET, np.zeros((16, 8, 8, 1), np.float32), 1, {},
                  label=np.zeros(16, np.float32))
-    net = tw.Net(dev="cpu", cfg=NET + "dist_num_worker = 2\n")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
+    # once refused; now the wrapper joins the job the dist_* keys name
+    net = tw.Net(dev="cpu", cfg=NET + "dist_num_proc = 2\n")
+    with pytest.raises(ValueError, match="needs all of dist_coordinator"):
+        net.init_model()
+    net = tw.Net(dev="cpu:0-1", cfg=NET)
+    with pytest.raises(NotImplementedError, match="dist_num_proc"):
         net.init_model()

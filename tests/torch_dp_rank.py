@@ -1,0 +1,128 @@
+"""One rank of a data-parallel job of the port, for the CPU tests.
+
+Run as ``python tests/torch_dp_rank.py SPEC.json RANK``.  The spec
+names the group (``coord``, ``world``) and a list of ``runs``, each run
+a ``NetTrainer`` from a conf (``cfg`` pairs), started from a checkpoint
+(``init``) or the conf's seed, then ``steps`` updates on this rank's
+rows of the seeded global batches in ``batches`` (an npz of ``data``
+``[K, B, ...]`` and ``label`` ``[K, B, L]``; rank ``r`` takes the
+``r``-th block of ``B / world`` rows).  Each run writes this rank's
+whole params and layer state, its losses and shard bytes to
+``{out}.r{rank}.npz``, and rank 0 the checkpoint bytes to ``{out}.model``.
+A run with ``save`` also saves through ``NetTrainer.save_model`` there,
+then to a path rank 0 cannot write, and records each rank's error.
+``patch_draw`` makes every random layer's draws a function of the
+draw's shape alone (``shape_draws``), the same function the tests give
+the JAX package's dropout.  Imports no JAX.
+"""
+
+import json
+import os
+import sys
+import zlib
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def shape_draws(shape) -> np.ndarray:
+    """``U[0, 1)`` f32 draws seeded by ``shape`` alone."""
+    seed = zlib.crc32(repr(tuple(int(s) for s in shape)).encode())
+    return np.random.RandomState(seed).random_sample(
+        tuple(shape)).astype(np.float32)
+
+
+def patch_draws() -> None:
+    import torch
+
+    from cxxnet_tpu_torch.layers import elemwise
+
+    elemwise.draw = lambda shape, gen, device: torch.from_numpy(
+        shape_draws(shape)).to(device)
+
+
+def run_one(run: dict, rank: int, world: int) -> None:
+    import torch
+
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.parallel import distributed as pdist
+
+    tr = NetTrainer()
+    tr.set_params([tuple(p) for p in run["cfg"]])
+    if run.get("init"):
+        tr.load_model(run["init"])
+    else:
+        tr.init_model()
+    b = np.load(run["batches"])
+    data, label = b["data"], b["label"]
+    local = data.shape[1] // world
+    rows = slice(rank * local, (rank + 1) * local)
+    losses = []
+    pdist.reset_stats()
+    for k in range(run["steps"]):
+        tr.update(DataBatch(data=data[k, rows], label=label[k, rows]))
+        losses.append(float(tr.last_loss))
+    out = {"losses": np.asarray(losses, np.float64),
+           "calls": np.asarray(pdist.STATS["calls"])}
+    per_dev, total = tr.state_shard_bytes()
+    out["shard_bytes"] = np.asarray(sum(per_dev.values()))
+    out["total_bytes"] = np.asarray(total)
+    out["sync_dev"] = np.asarray(tr.check_weight_sync())
+    params = tr._full_params()
+    for key, tags in params.items():
+        for tag, w in tags.items():
+            out[f"p:{key}/{tag}"] = w.detach().cpu().numpy().copy()
+    for key, tags in tr.aux.items():
+        for tag, w in tags.items():
+            out[f"aux:{key}/{tag}"] = w.detach().cpu().numpy().copy()
+    blob = tr.checkpoint_bytes()
+    if run.get("perturb_rank") is not None:
+        # one rank's weight drifts: every rank's check must raise
+        key = sorted(tr.params)[0]
+        tag = sorted(tr.params[key])[0]
+        if rank == run["perturb_rank"]:
+            with torch.no_grad():
+                tr.params[key][tag].view(-1)[0] += 1e-3
+        try:
+            tr.check_weight_sync()
+            out["perturb_error"] = np.asarray("")
+        except RuntimeError as e:
+            out["perturb_error"] = np.asarray(str(e))
+    if run.get("save"):
+        # the collective save: every rank gathers, rank 0 writes; then a
+        # write that fails on rank 0 alone (the path's parent is a file)
+        # must raise on every rank, not strand rank 1 in the barrier
+        tr.save_model(run["save"], round_=0)
+        try:
+            tr.save_model(os.path.join(run["save"], "x.model"), round_=1)
+            out["save_error"] = np.asarray("")
+        except Exception as e:  # noqa: BLE001 - the test reads it
+            out["save_error"] = np.asarray(f"{type(e).__name__}: {e}")
+    np.savez(f"{run['out']}.r{rank}.npz", **out)
+    if rank == 0:
+        with open(f"{run['out']}.model", "wb") as f:
+            f.write(blob)
+
+
+def main() -> int:
+    spec = json.load(open(sys.argv[1]))
+    rank = int(sys.argv[2])
+    world = int(spec["world"])
+    if spec.get("patch_draw"):
+        patch_draws()
+    from cxxnet_tpu_torch.parallel import distributed as pdist
+
+    if world > 1:
+        pdist.init_distributed(spec["coord"], world, rank, dev="cpu",
+                               timeout_s=float(spec.get("timeout_s", 60)))
+    for run in spec["runs"]:
+        run_one(run, rank, world)
+    pdist.shutdown_distributed()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
