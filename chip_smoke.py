@@ -2473,7 +2473,7 @@ def quant_phase(tmp: str, path: str, f32_answers):
 
 def kernels_line(rows, serve_launches, train_launches, flash_rows,
                  lm_launches, gen_launches, int8_rows, quant_launches,
-                 loop_out, fleet_out, p27, p28):
+                 loop_out, fleet_out, p27, p28, p2930):
     """Per kernel: the launches of its main path (GoogLeNet training for
     K1-K8, with the serving run's for the forward kernels; the LM
     training run for K9 and K10, with the windowed generation run's; the
@@ -2482,8 +2482,9 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
     service-fed training run; phase 26's: the in-process engines of 26a
     and 26b, and 26c; phase 27's: 27a's ``remat = 1`` LM run, 27b's MoE
     LM run, 27c's ``remat = 1`` pipe steps and 27d's ``remat = 1``
-    GoogLeNet steps; phase 28's two ranks), the max error over every
-    check, and one
+    GoogLeNet steps; phase 28's two ranks; phase 29's async step and
+    phase 30's ring and all-to-all steps, the two ranks summed), the max
+    error over every check, and one
     training step's launches' times summed (GoogLeNet b128 bf16; the SGD
     kernel's f32 row covers all its launches; the LM step's 4 launches of
     K9 and of K10), or for K7 one b128 bf16 forward's 11 launches."""
@@ -2515,13 +2516,23 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
             names = ("o",) if pre == "fwd" else ("dq", "dk", "dv")
             n = step_flash["per_step"]
             b_ms, b_by = step_flash[f"{pre}_bound"]
+            hops = [{"label": r["label"], "shape": r["shape"],
+                     "offsets": r["offsets"],
+                     "launches_per_rank_step": r["per_step"],
+                     "ms": r[f"{pre}_ms"], "plain_ms": r[f"{pre}_plain_ms"],
+                     "bound_ms": r[f"{pre}_bound"][0],
+                     "bound_by": r[f"{pre}_bound"][1],
+                     "library_ms": r[f"{pre}_library_ms"]}
+                    for r in p2930["hops"]]
             out.append({
                 "name": k.name, "route": "cuda",
                 "source": os.path.relpath(k.source, REPO),
                 "replaces": k.replaces.split()[0],
                 "launches": lm_launches[k.name],
-                "max_abs_err": max(r["errors"][m][0] for r in flash_rows
+                "max_abs_err": max(r["errors"][m][0]
+                                   for r in [*flash_rows, *p2930["hops"]]
                                    for m in names),
+                "seq_parallel_calls": hops,
                 "ms": n * step_flash[f"{pre}_ms"],
                 "plain_ms": n * step_flash[f"{pre}_plain_ms"],
                 "bound_ms": n * b_ms, "bound_by": b_by,
@@ -2593,6 +2604,12 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
         # in f32 and bf16 and 28b's ResNet-50 step, each rank's own)
         row["launches_dp"] = p28["googlenet_resnet"]["launches_dp"].get(
             row["name"], 0)
+        # phases 29 and 30: the two ranks' launches summed (29's first
+        # async step; 30's ring and all-to-all steps)
+        row["launches_async"] = p2930["launches"]["async"].get(
+            row["name"], 0)
+        row["launches_seq_parallel"] = p2930["launches"][
+            "seq_parallel"].get(row["name"], 0)
     return {"kernels": out}
 
 
@@ -3158,6 +3175,18 @@ def _visible_pairs(t: int, tk: int, causal: bool, q_off: int,
     return sum(min(max(q_off + i - k_off + 1, 0), tk) for i in range(t))
 
 
+def _live_rows(t: int, tk: int, causal: bool, q_off: int,
+               k_off: int) -> tuple:
+    """(query rows that see at least one key, key rows that at least one
+    query sees): the rows whose inputs the attention must read.  A
+    query row that sees no key comes out o = 0, lse = -1e30 whatever
+    its inputs, and so does its gradient's share."""
+    if not causal:
+        return t, tk
+    return (t - min(max(k_off - q_off, 0), t),
+            min(max(q_off + t - k_off, 0), tk))
+
+
 def flash_cases():
     """(label, dtype, B, T, Tk, H, D, causal, q_off, k_off, through the
     LSE entry, q/k/v as slices of one fused (B, T, 3, H, D) tensor,
@@ -3379,21 +3408,26 @@ def int8_build_report():
     return report
 
 
-def check_flash(dev):
-    """K9 and K10 against their plain versions on every case; at the LM
-    step's shape also the times: kernel, plain, the library yardstick
-    (``scaled_dot_product_attention``, forward, and its backward through
+def check_flash(dev, cases=None, timed=False):
+    """K9 and K10 against their plain versions on every case
+    (``flash_cases``, after the build report; or ``cases``); at the LM
+    step's shape (or on every case with ``timed``) also the times:
+    kernel, plain, the library yardstick (``scaled_dot_product_attention``
+    with ``is_causal`` where the mask is the diagonal's, without a mask
+    where the offsets differ, forward, and its backward through
     autograd), and the bounds."""
     import torch
     import torch.nn.functional as F
 
     from cxxnet_tpu_torch.ops import flash
 
-    flash_build_report()
+    if cases is None:
+        flash_build_report()
+        cases = flash_cases()
     gen = torch.Generator().manual_seed(SEED + 5)
     rows = []
     for (label, dtype, b, t, tk, h, d, causal, q_off, k_off, lse_path,
-         fused, per_step) in flash_cases():
+         fused, per_step) in cases:
         if fused:  # the attention layer's layout: slices of its projection
             qkv = torch.randn(b, t, 3, h, d, generator=gen).to(dev, dtype)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -3438,15 +3472,18 @@ def check_flash(dev):
                 (lse[:, :, dead] == -1e30).all())
         esz = torch.empty((), dtype=dtype).element_size()
         pairs = _visible_pairs(t, tk, causal, q_off, k_off)
+        live_q, live_k = _live_rows(t, tk, causal, q_off, k_off)
         kind = "bf16_tensor" if dtype == torch.bfloat16 else "f32"
         bh = b * h
-        # K9 reads q, k, v and writes o and lse; two products (s, P.V)
-        fwd_work = ((2 * t + 2 * tk) * b * h * d * esz + 4 * bh * t,
+        # K9 reads the live rows of q, k, v and writes every row of o and
+        # lse; two products (s, P.V)
+        fwd_work = ((live_q + 2 * live_k + t) * b * h * d * esz + 4 * bh * t,
                     4.0 * bh * pairs * d)
-        # K10 reads q, k, v, dO, lse and dl and writes dq, dk, dv; the
-        # least work is five products (s, dO.v, dq, dk, dv)
-        bwd_work = ((3 * t + 4 * tk) * b * h * d * esz + 8 * bh * t,
-                    10.0 * bh * pairs * d)
+        # K10 reads the live rows of q, dO, lse, dl, k and v and writes
+        # every row of dq, dk, dv; the least work is five products (s,
+        # dO.v, dq, dk, dv)
+        bwd_work = ((2 * live_q + 2 * live_k + t + 2 * tk) * b * h * d * esz
+                    + 8 * bh * live_q, 10.0 * bh * pairs * d)
         fwd_bound = bound(*fwd_work, kind)
         bwd_bound = bound(*bwd_work, kind)
         row = {"label": label, "dtype": dname, "shape": (b, t, tk, h, d),
@@ -3454,12 +3491,13 @@ def check_flash(dev):
                "errors": errs, "lse_err": lse_err, "tol": tol, "ok": ok,
                "per_step": per_step, "fwd_bound": fwd_bound,
                "bwd_bound": bwd_bound}
-        if per_step:
+        if per_step or timed:
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                           for x in (q, k, v))
             gt = do.transpose(1, 2).contiguous()
+            lib_causal = causal and q_off == k_off
             lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=causal)
+                qt, kt, vt, is_causal=lib_causal)
             with torch.enable_grad():
                 lib_out = lib_fwd()
             lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
@@ -3485,7 +3523,7 @@ def check_flash(dev):
             f"max err/worst row-relative err {err_txt}; lse {lse_err:.3g} "
             f"(row-relative limits K9 {tol['o']:g}, K10 {tol['dq']:g}; "
             f"lse {LSE_ATOL:g}) {'ok' if ok else 'MISMATCH'}")
-        if per_step:
+        if per_step or timed:
             for name, (nbytes, ops) in (("K9", fwd_work), ("K10", bwd_work)):
                 log(f"flash: {name} bound: {nbytes / 1e6:.1f} MB in "
                     f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms at 3.35 TB/s, "
@@ -5733,7 +5771,7 @@ def imgbin_phase(tmp: str, card: str, synthetic_rates):
 REWRITES = {"direct": (), "conv_s2d": ("conv_s2d=1",),
             "wino_f4": ("conv_wino=1",), "wino_f2": ("conv_wino=2",)}
 REWRITE_STEPS = 3
-REWRITE_TIMED = 5  # steps a turn in the step-time turns
+REWRITE_TIMED = 3  # steps a turn in the step-time turns
 S2D_F32_REL = 1e-5
 WINO_F32_ATOL = 2e-4
 WINO_BF16_FACTOR = {1: 25.0, 2: 3.0}
@@ -6286,12 +6324,12 @@ LIB_SCAN_K = 4
 # deterministic): each tensor within LIB_SCAN_REL of its largest update,
 # the losses within LIB_SCAN_REL relatively; both are the same calls
 LIB_SCAN_REL = 1e-6
-LIB_TIMED_STEPS = 3  # steps a turn in the step-time turns
+LIB_TIMED_STEPS = 2  # steps a turn in the step-time turns
 CAPI_STEPS = 3  # CXNNetUpdateBatch steps on ResNet-50, counted
 CAPI_HOST_DEV = "gpu"  # the C host's device (argv[1])
 OBS_JSON_ROWS = (1, 7)
 OBS_BINARY_ROWS = (1, 32)
-OBS_TIMED_STEPS = 5
+OBS_TIMED_STEPS = 3
 OBS_RENDERS = 20
 
 
@@ -7016,7 +7054,7 @@ UTIL_EVAL = 128
 UTIL_ROUNDS = 2
 UTIL_PROFILE = (2, 2)  # profile_start, profile_steps: the second round
 UTIL_FAULT_SEED = 1  # device.state's draw: a mantissa bit of a weight
-UTIL_TIMED = 3  # steps a turn in the armed/unarmed turns
+UTIL_TIMED = 2  # steps a turn in the armed/unarmed turns
 UTIL_PER_LEG = PER_STEP  # a shadow leg: the step's launches but K8
 UTIL_KEYS = ("ts", "round", "steps", "batches", "elapsed_s", "lr", "eval",
              "step", "stages", "device", "integrity")
@@ -7029,7 +7067,7 @@ UTIL_SYMBOLS = {"maxpool_fwd": "maxpool_fwd_vec_kernel",
                 "lrn_bwd": "lrn_bwd_vec_kernel",
                 "conv_block_gemm": "conv_block_wgmma_kernel",
                 "sgd_update": "sgd_update_multi_kernel"}
-TUNE_TRAFFIC_S = 6.0  # 10 until PR 20 (its phase 28 needed the time)
+TUNE_TRAFFIC_S = 4.0  # each run's traffic (cut for phases 28-30's time)
 TUNE_CLIENTS = 4
 TUNE_JSON_ROWS = (1, 2)
 TUNE_BINARY_ROWS = (1, 7, 16, 32, 64)
@@ -8666,7 +8704,7 @@ FLEET_REPLICAS = 3
 FLEET_CLIENTS = 4
 FLEET_JSON_ROWS = (1, 2, 4)  # JSON /predict rows (the router re-encodes)
 FLEET_WIRE_ROWS = (1, 7, 16, 32)  # CXB1 /predict rows, relayed opaquely
-FLEET_TRAFFIC_S = 14.0  # the clients' run before round 2 is written (20 until PR 20)
+FLEET_TRAFFIC_S = 8.0  # the clients' run before round 2 is written
 FLEET_KILL_AT_S = 5.0  # SIGKILL of replica 1, this far into the traffic
 FLEET_CHECK_ROWS = (1, 8, 32)  # buckets held bit for bit, quiet fleet
 FLEET_START_S = 180.0  # the fleet must serve k/k within this
@@ -10192,8 +10230,8 @@ def moe_pipe_remat_phase(card: str):
 # phase 28: data parallelism (parallel/): two ranks on the card
 DP_RANKS = 2
 DP_DEV = "gpu:0"  # every rank's dev: the ranks share the card (gloo)
-DP_STEPS = 3  # 28a's compared steps, each rank on its 64 of 128 rows
-DP_TIMED = 3  # steps timed after them, each way
+DP_STEPS = 2  # 28a's compared steps, each rank on its 64 of 128 rows
+DP_TIMED = 2  # steps timed after them, each way
 DP_RESNET_STEPS = 1
 DP_DEADLINE_S = 420  # each rank process, start-up included
 DP_SHARD_LIMIT = 0.55  # 28b: a rank's train-state bytes / one replica
@@ -10785,7 +10823,8 @@ def dp_cli_digits_phase(tmp: str, card: str):
     gpu:0``, ``test_on_server = 1``), 1 round of GoogLeNet on
     ``DP_CLI_ROWS`` rows: both ranks print the weight-sync line and the
     ``mesh:`` line naming gloo, and rank 0 writes the checkpoints after
-    the ranks' CRCs agree.  28c: ``example/MNIST/dist.conf``
+    the ranks' CRCs agree, keeping the newest (``keep_latest = 1``).
+    28c: ``example/MNIST/dist.conf``
     (``update_on_server = 1``) with a test section on the UCI digits,
     ``DP_DIGITS_ROUNDS`` rounds, two ranks by hand (``CXN_PROC_ID``)
     against this process's one-rank run of the conf without its
@@ -10821,7 +10860,8 @@ def dp_cli_digits_phase(tmp: str, card: str):
           f"dev={DP_DEV}", "num_round=1", "max_round=1", f"seed={SEED}",
           "print_step=0", "test_on_server=1", "dist_num_proc=2",
           f"dist_proc_id={r}", f"dist_coordinator=127.0.0.1:{ports[0]}",
-          "dist_timeout_s=120", f"model_dir={tmp}/dp_cli_models"]
+          "dist_timeout_s=120", f"model_dir={tmp}/dp_cli_models",
+          "keep_latest=1"]
          for r in range(DP_RANKS)], tmp, "dp_cli")
     digits = _dp_start(
         [[sys.executable, "-m", "cxxnet_tpu_torch", two, *DP_DIGITS_KEYS,
@@ -10858,6 +10898,9 @@ def dp_cli_digits_phase(tmp: str, card: str):
                 not in o):
             raise SmokeError(f"28a CLI: rank {r} output {o[-2500:]}")
     saved = sorted(os.listdir(os.path.join(tmp, "dp_cli_models")))
+    # keep_latest = 1 (ROADMAP C7): the newest round and its manifest
+    if saved != ["0001.model", "0001.model.manifest.json"]:
+        raise SmokeError(f"28a CLI: keep_latest=1 left {saved}")
     mesh = [line for line in outs[0].splitlines() if line.startswith("mesh:")]
     log(f"28a CLI: 2 ranks, 1 round: {mesh}; saved {saved}; weight-sync ok "
         f"on both ranks ({card})")
@@ -10936,6 +10979,470 @@ def data_parallel_phase(card: str):
         (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
     out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ----------------------------------------------------------------------
+# phases 29 and 30: the async parameter-server step (k3) and the model
+# axis with sequence parallelism (k2a), on the LM at LM_* width over two
+# rank processes sharing the card (gloo), as phase 28's ranks do
+MP_STEPS = 2  # 29's compared steps a round, each rank on its 4 of 8 rows
+MP_TIMED = 4  # 29's timed steps each way, one fence after them
+# 30: the one-rank LM step against the two-rank model axis, both bf16
+# from one checkpoint on the whole batch: the loss (the ring merges its
+# hops' bf16 outputs in f32, the one-rank kernel keeps one f32 row
+# state: rounding apart; read 4.9e-6 for the ring and 0 for the
+# all-to-all on an H100 80GB HBM3 at 700 W), per tensor the lower of the cosines of m1
+# and of the resolved update (LM_UPDATE_COS, LM_UPDATE_COS_MEDIAN), and
+# per tensor the norm of m1 over the one-rank m1's: on Adam's first
+# step m1 is (1 - beta1) g, so a gradient the model axis scales by m
+# moves this ratio by m, where both cosines stay blind to a scale
+SP_LOSS_REL = 1e-4
+SP_M1_NORM_REL = 1e-2
+SP_MODES = ("ring", "alltoall")
+
+
+def ring_hop_cases():
+    """K9 and K10 in the ring's calls at the LM's width over two model
+    ranks, each a hop's (B, T/2, H, D) blocks with its offsets: the
+    diagonal (every rank's hop 0), rank 0's hop 1 (keys 1024 ahead of
+    every query: fully masked, o = 0 and lse = -1e30) and rank 1's hop
+    1 (every key visible); and the all-to-all form's local call on half
+    the heads over the whole sequence.  Each is LM_LAYERS launches a
+    rank's step."""
+    import torch
+
+    bf16, h, d, tl = torch.bfloat16, LM_HEADS, LM_DIM // LM_HEADS, LM_T // 2
+    return [
+        ("ring hop (0, 0), the diagonal", bf16, LM_BATCH, tl, tl, h, d,
+         True, 0, 0, True, False, LM_LAYERS),
+        (f"ring hop (0, {tl}), fully masked", bf16, LM_BATCH, tl, tl, h, d,
+         True, 0, tl, True, False, LM_LAYERS),
+        (f"ring hop ({tl}, 0), all visible", bf16, LM_BATCH, tl, tl, h, d,
+         True, tl, 0, True, False, LM_LAYERS),
+        ("alltoall local, half the heads", bf16, LM_BATCH, LM_T, LM_T,
+         h // 2, d, True, 0, 0, False, False, LM_LAYERS),
+    ]
+
+
+def _mp_conf(adam: bool, seq_parallel: int = 0):
+    """The LM conf pairs at LM_* width, ``attn_impl = pallas``, bf16, its
+    attention layers' ``seq_parallel``; the k3 runs take SGD (the fused
+    SGD kernel is the async apply's)."""
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.models import transformer_lm_conf
+
+    text = transformer_lm_conf(
+        seq_len=LM_T, dim=LM_DIM, nhead=LM_HEADS, nlayer=LM_LAYERS,
+        batch_size=LM_BATCH, dev=DP_DEV, compute_dtype="bfloat16",
+        attn_impl="pallas", seq_parallel=seq_parallel)
+    if not adam:
+        text = text.replace("updater = adam\n", "")
+    return cfgmod.parse_pairs(text) + [("seed", str(SEED)),
+                                       ("print_step", "0"),
+                                       ("eval_train", "0")]
+
+
+def _mp_batch(k: int):
+    """29/30's k-th global batch: LM_BATCH seeded byte windows."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 29 + k)
+    return (rng.randint(0, 256, (LM_BATCH, LM_T)).astype(np.float32),
+            rng.randint(0, 256, (LM_BATCH, LM_T)).astype(np.float32))
+
+
+def _mp_weights_crc(tr) -> int:
+    """The CRC32 of every weight's bytes, in the sorted tree's order."""
+    import zlib
+
+    crc = 0
+    for k in sorted(tr.params):
+        for t in sorted(tr.params[k]):
+            crc = zlib.crc32(tr.params[k][t].detach().cpu().numpy()
+                             .tobytes(), crc)
+    return crc
+
+
+def _mp_step(tr, k: int, rows, launches=None):
+    """One update on ``rows`` of the k-th batch; with ``launches`` the
+    step's counts (at 0 just before) are appended."""
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    x, y = _mp_batch(k)
+    if launches is not None:
+        for kern in KERNELS:
+            kern.reset_counts()
+    tr.update_all(x[rows], y[rows])
+    tr.sync()
+    if launches is not None:
+        launches.append({kern.name: kern.launches for kern in KERNELS})
+    return float(tr.last_loss)
+
+
+def _mp_timed(tr, rows) -> float:
+    """ms a step over ``MP_TIMED`` steps on one batch with one fence after
+    them (the async step's own fence is its round end)."""
+    x, y = _mp_batch(0)
+    x, y = x[rows], y[rows]
+    tr.sync()
+    t0 = time.perf_counter()
+    for _ in range(MP_TIMED):
+        tr.update_all(x, y)
+    if tr._async is not None:
+        tr.async_round_end(0)
+    tr.sync()
+    return (time.perf_counter() - t0) * 1e3 / MP_TIMED
+
+
+def _k3_runs(spec, rank: int, world: int):
+    """Phase 29 on this rank: ``det_reduce = 1``, then ``async_overlap =
+    1`` at ``staleness = 0`` over one round, from one checkpoint (their
+    weights' CRCs, launches and step times); then ``staleness = 1,
+    async_resync_period = 1`` over two rounds (finite weights, the CRC
+    after the last drain, the async block)."""
+    import math
+
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    res = {}
+    cfg = [tuple(p) for p in spec["k3_cfg"]]
+    local = LM_BATCH // world
+    rows = slice(rank * local, (rank + 1) * local)
+    for name, extra, rounds in (
+            ("det", [("det_reduce", "1")], 1),
+            ("s0", [("async_overlap", "1")], 1),
+            ("s1", [("async_overlap", "1"), ("staleness", "1"),
+                    ("async_resync_period", "1")], 2)):
+        tr = NetTrainer()
+        tr.set_params(cfg + extra)
+        tr.load_model(spec["k3_ckpt"])
+        launches, losses = [], []
+        for r in range(rounds):
+            for k in range(MP_STEPS):
+                losses.append(_mp_step(tr, k, rows, launches))
+            tr.async_round_end(r + 1)
+        out = {"crc": _mp_weights_crc(tr), "launches": launches,
+               "losses": losses, "async": tr.async_snapshot(),
+               "finite": tr.weights_finite()}
+        if name != "s1":
+            out["step_ms"] = _mp_timed(tr, rows)
+            if tr._async is not None:
+                out["overlap_fraction"] = tr._async.last_overlap_fraction
+        if not all(math.isfinite(v) for v in losses):
+            out["finite"] = False
+        res[name] = out
+        del tr
+    return res
+
+
+def _k2a_runs(spec, rank: int):
+    """Phase 30 on this rank: ``model_parallel = 2`` with ``seq_parallel
+    = ring`` then ``alltoall`` (every rank on the whole batch), one step
+    each from one checkpoint: the loss, the launches, the weights' CRC,
+    and on rank 0 each tensor's cosines and m1 norm ratio against the
+    one-rank step the parent saved (``_sp_cosines``,
+    ``_sp_m1_norm_ratios``)."""
+    import numpy as np
+
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    res = {}
+    ref = dict(np.load(spec["k2a_ref"])) if rank == 0 else None
+    for mode in SP_MODES:
+        tr = NetTrainer()
+        tr.set_params([tuple(p) for p in spec["k2a_cfgs"][mode]]
+                      + [("model_parallel", "2")])
+        tr.load_model(spec["k2a_ckpt"])
+        w0 = {f"{k}/{t}": w.detach().float().cpu().numpy().copy()
+              for k, tags in tr.params.items() for t, w in tags.items()}
+        launches = []
+        loss = _mp_step(tr, 0, slice(None), launches)
+        out = {"loss": loss, "launches": launches[0],
+               "crc": _mp_weights_crc(tr),
+               "mesh": [tr.mesh_plan.n_data, tr.mesh_plan.n_model,
+                        tr.mesh_plan.model_index]}
+        if ref is not None:
+            out["cos"] = _sp_cosines(tr, w0, ref)
+            out["m1_norm"] = _sp_m1_norm_ratios(tr, ref)
+        res[mode] = out
+        del tr
+    return res
+
+
+def _sp_cosines(tr, w0, ref):
+    """Per tensor the lower of the cosines of Adam's m1 and of the update
+    over the elements whose one-rank m1 is at least 1e-3 of its largest
+    (as ``_lm_parity``), against the one-rank step in ``ref``."""
+    import numpy as np
+
+    def cos(a, b):
+        n = np.linalg.norm(a) * np.linalg.norm(b)
+        return float((a * b).sum() / n) if n > 0 else 1.0
+
+    out = {}
+    for name, w in w0.items():
+        k, t = name.rsplit("/", 1)
+        d = tr.params[k][t].detach().float().cpu().numpy() - w
+        m1 = tr.ustates[k][t]["m1"].detach().float().cpu().numpy()
+        d_r, m1_r = ref["d:" + name], ref["m1:" + name]
+        sel = np.abs(m1_r) >= 1e-3 * np.abs(m1_r).max()
+        out[name] = min(cos(m1, m1_r), cos(d[sel], d_r[sel]))
+    return out
+
+
+def _sp_m1_norm_ratios(tr, ref):
+    """Per tensor |m1| / |m1 of the one-rank step in ``ref``| (1.0 where
+    both are 0)."""
+    import numpy as np
+
+    out = {}
+    for k, tags in tr.params.items():
+        for t in tags:
+            m1 = tr.ustates[k][t]["m1"].detach().float().cpu().numpy()
+            a, b = np.linalg.norm(m1), np.linalg.norm(ref[f"m1:{k}/{t}"])
+            out[f"{k}/{t}"] = float(a / b) if b > 0 else (
+                1.0 if a == 0 else float("inf"))
+    return out
+
+
+def mp_rank_main(spec_path: str, rank: int) -> int:
+    """One rank process of phases 29 and 30 (``python chip_smoke.py
+    --mp-rank SPEC RANK``): joins the group, takes 29's runs, then 30's,
+    writes ``<out>/rank<rank>.json``."""
+    sys.path.insert(0, REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    globals().update(spec["consts"])
+    import torch
+
+    from cxxnet_tpu_torch.parallel import distributed as pdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = spec["world"]
+    pdist.init_distributed(spec["coord"], world, rank, dev=DP_DEV,
+                           timeout_s=spec["timeout_s"])
+    t0 = time.perf_counter()
+    res = {"k3": _k3_runs(spec, rank, world)}
+    res["k3_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["k2a"] = _k2a_runs(spec, rank)
+    res["k2a_s"] = time.perf_counter() - t0
+    res["backend"] = pdist.backend()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    pdist.shutdown_distributed()
+    return 0
+
+
+def _sp_reference(cfg, ckpt: str, out: str):
+    """The one-rank bf16 LM step from ``ckpt`` on the whole first batch:
+    its loss, and per tensor the update and Adam's m1 saved to ``out``
+    (f32)."""
+    import numpy as np
+
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    tr = NetTrainer()
+    tr.set_params(cfg)
+    tr.load_model(ckpt)
+    w0 = {f"{k}/{t}": w.detach().float().cpu().numpy().copy()
+          for k, tags in tr.params.items() for t, w in tags.items()}
+    loss = _mp_step(tr, 0, slice(None))
+    arrays = {}
+    for name, w in w0.items():
+        k, t = name.rsplit("/", 1)
+        w1 = tr.params[k][t].detach().float().cpu().numpy()
+        arrays["d:" + name] = w1 - w
+        arrays["m1:" + name] = tr.ustates[k][t]["m1"].detach().float().cpu(
+        ).numpy()
+    np.savez(out, **arrays)
+    del tr
+    return loss
+
+
+def _mp_check_launches(tag, launches, want):
+    """Every step's launches equal ``want`` (a kernel absent: 0)."""
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    full = {k.name: 0 for k in KERNELS}
+    full.update(want)
+    bad = [(i, d) for i, d in enumerate(launches) if d != full]
+    if bad:
+        raise SmokeError(f"{tag}: step launches {bad[:2]}, expected {full}")
+
+
+def async_seq_parallel_phase(card: str):
+    """Phases 29 (k3) and 30 (k2a) in one job of two rank processes on
+    the card (gloo), the LM at LM_* width (``attn_impl = pallas``, bf16).
+
+    29: from one checkpoint (SGD), ``det_reduce = 1`` and ``async_overlap
+    = 1, staleness = 0`` ``MP_STEPS`` steps each: the weights' CRCs
+    equal, on each rank and across the ranks; each async step launches
+    K8 once per group and K9/K10 once per block; then ``staleness = 1,
+    async_resync_period = 1`` over two rounds: finite weights, the ranks
+    bit-equal after the round's drain, nothing pending.  The step ms of
+    ``det_reduce`` and of the async step (``MP_TIMED`` steps, one fence)
+    and ``async_overlap_fraction`` are logged.
+
+    30: ``model_parallel = 2`` with ``seq_parallel = ring`` and
+    ``alltoall`` against this process's one-rank step from one
+    checkpoint (Adam) on the whole batch: the loss within
+    ``SP_LOSS_REL``, per tensor the cosines at ``LM_UPDATE_COS``
+    (median ``LM_UPDATE_COS_MEDIAN``) and m1's norm within
+    ``SP_M1_NORM_REL`` of the one rank's, the two model ranks' weights
+    bit-equal; a ring step launches K9 and K10 twice per block (a hop
+    each), the all-to-all step once.  K9 and K10 at the ring's hop
+    shapes and offsets and at the all-to-all's local shape against their
+    plain versions, timed beside ``scaled_dot_product_attention``
+    (``ring_hop_cases``)."""
+    import statistics as stats
+
+    import torch
+
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.serve.fleet import free_port
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+        cfgs = {"k3": _mp_conf(adam=False), "k2a": _mp_conf(adam=True)}
+        ckpts = {}
+        for name, cfg in cfgs.items():
+            tr = NetTrainer()
+            tr.set_params(cfg)
+            tr.init_model()
+            ckpts[name] = os.path.join(tmp, f"{name}.model")
+            tr.save_model(ckpts[name])
+            del tr
+        ref_path = os.path.join(tmp, "k2a_ref.npz")
+        t0 = time.perf_counter()
+        for kern in KERNELS:
+            kern.reset_counts()
+        ref_loss = _sp_reference(cfgs["k2a"], ckpts["k2a"], ref_path)
+        ref_launches = {k.name: k.launches for k in KERNELS}
+        torch.cuda.empty_cache()
+        spec = {"world": DP_RANKS, "coord": f"127.0.0.1:{free_port()}",
+                "timeout_s": 120, "out": tmp,
+                "k3_cfg": cfgs["k3"], "k3_ckpt": ckpts["k3"],
+                "k2a_cfgs": {m: _mp_conf(True, i + 1)
+                             for i, m in enumerate(SP_MODES)},
+                "k2a_ckpt": ckpts["k2a"],
+                "k2a_ref": ref_path,
+                # the parent's sizes (one module, one set of constants)
+                "consts": {n: globals()[n] for n in (
+                    "MP_STEPS", "MP_TIMED", "DP_DEV", "LM_T", "LM_DIM",
+                    "LM_HEADS", "LM_LAYERS", "LM_BATCH")}}
+        spec_path = os.path.join(tmp, "mp_spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t1 = time.perf_counter()
+        codes, outs = _dp_spawn(
+            [[sys.executable, os.path.join(REPO, "chip_smoke.py"),
+              "--mp-rank", spec_path, str(r)] for r in range(DP_RANKS)],
+            tmp, "mp")
+        out["ranks_s"] = time.perf_counter() - t1
+        if any(c != 0 for c in codes):
+            raise SmokeError(f"29/30: rank exits {codes}: "
+                             + " | ".join(o[-3000:] for o in outs))
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    # 29
+    k3 = [r["k3"] for r in ranks]
+    groups = k3[0]["s0"]["async"]["groups"]
+    for r, runs in enumerate(k3):
+        _mp_check_launches(f"29 det rank {r}", runs["det"]["launches"],
+                           {"flash_fwd": LM_LAYERS, "flash_bwd": LM_LAYERS,
+                            "sgd_update": 1})
+        # staleness 1's first step applies nothing: its second applies
+        # the first's aggregate
+        for name, step in (("s0", 0), ("s1", 1)):
+            _mp_check_launches(f"29 {name} rank {r}",
+                               runs[name]["launches"][step:step + 1],
+                               {"flash_fwd": LM_LAYERS,
+                                "flash_bwd": LM_LAYERS, "sgd_update": groups})
+    crcs = {name: [runs[name]["crc"] for runs in k3]
+            for name in ("det", "s0", "s1")}
+    s1 = [runs["s1"] for runs in k3]
+    log(f"29 k3 ({card}): LM at T {LM_T}, d {LM_DIM}, {LM_HEADS} heads, "
+        f"{LM_LAYERS} blocks, {LM_BATCH // DP_RANKS} rows a rank; weight "
+        f"CRCs det_reduce {crcs['det']}, staleness 0 {crcs['s0']}, "
+        f"staleness 1 after 2 drained rounds {crcs['s1']}; {groups} groups "
+        f"(snapshot {k3[0]['s0']['async']}); step launches "
+        f"{k3[0]['s0']['launches'][0]}; step ms det_reduce "
+        f"{[runs['det']['step_ms'] for runs in k3]} async "
+        f"{[runs['s0']['step_ms'] for runs in k3]} (host clock, "
+        f"{MP_TIMED} steps, one fence); async_overlap_fraction "
+        f"{[runs['s0']['overlap_fraction'] for runs in k3]}; staleness 1 "
+        f"async block {s1[0]['async']}")
+    if not (crcs["det"] == crcs["s0"] and len(set(crcs["s0"])) == 1):
+        raise SmokeError(f"29: staleness 0 is not det_reduce's bits: {crcs}")
+    if not (len(set(crcs["s1"])) == 1 and all(x["finite"] for x in s1)
+            and all(x["async"]["pending"] == [0] * groups for x in s1)):
+        raise SmokeError(f"29: staleness 1: CRCs {crcs['s1']}, "
+                         f"{[x['async'] for x in s1]}")
+    out["k3"] = {"crcs": crcs, "groups": groups,
+                 "step_ms": {n: [runs[n]["step_ms"] for runs in k3]
+                             for n in ("det", "s0")},
+                 "overlap_fraction": [runs["s0"]["overlap_fraction"]
+                                      for runs in k3],
+                 "s1_async": s1[0]["async"], "k3_s": ranks[0]["k3_s"],
+                 "launches": {n: k3[0][n]["launches"][0]
+                              for n in ("det", "s0")}}
+    # 30
+    out["k2a"] = {"reference_loss": ref_loss,
+                  "reference_launches": ref_launches,
+                  "k2a_s": ranks[0]["k2a_s"]}
+    for mode in SP_MODES:
+        runs = [r["k2a"][mode] for r in ranks]
+        per_block = 2 if mode == "ring" else 1
+        for r, run in enumerate(runs):
+            _mp_check_launches(f"30 {mode} rank {r}", [run["launches"]],
+                               {"flash_fwd": per_block * LM_LAYERS,
+                                "flash_bwd": per_block * LM_LAYERS})
+        cos = runs[0]["cos"]
+        worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+        med = stats.median(cos.values())
+        rel = [abs(run["loss"] - ref_loss) / abs(ref_loss) for run in runs]
+        norm_dev = {n: abs(v - 1.0) for n, v in runs[0]["m1_norm"].items()}
+        norm_worst = sorted(norm_dev.items(), key=lambda kv: -kv[1])[:3]
+        log(f"30 k2a {mode} ({card}): mesh {[r['mesh'] for r in runs]}; "
+            f"loss {[run['loss'] for run in runs]} against one rank "
+            f"{ref_loss} (rel {max(rel):.3g}, limit {SP_LOSS_REL:g}); "
+            f"cosines median {med:.5f} (limit {LM_UPDATE_COS_MEDIAN:g}), "
+            f"worst 5 {[(n, round(v, 5)) for n, v in worst]} (limit "
+            f"{LM_UPDATE_COS:g}); |m1| / |m1 one rank| - 1, worst 3 "
+            f"{[(n, float(f'{v:.3g}')) for n, v in norm_worst]} (limit "
+            f"{SP_M1_NORM_REL:g}); weight CRCs {[r['crc'] for r in runs]}; "
+            f"step launches {runs[0]['launches']}")
+        bad = [n for n, v in cos.items() if not v >= LM_UPDATE_COS]
+        bad_norm = [n for n, v in norm_dev.items() if not v <= SP_M1_NORM_REL]
+        if (bad or bad_norm or not med >= LM_UPDATE_COS_MEDIAN
+                or not max(rel) <= SP_LOSS_REL
+                or len({r["crc"] for r in runs}) != 1):
+            raise SmokeError(f"30 {mode}: loss rel {rel}, cosines below "
+                             f"{LM_UPDATE_COS}: {bad[:6]}, median {med}, "
+                             f"m1 norms off by more than {SP_M1_NORM_REL}: "
+                             f"{bad_norm[:6]}, "
+                             f"CRCs {[r['crc'] for r in runs]}")
+        out["k2a"][mode] = {"loss": [run["loss"] for run in runs],
+                            "loss_rel": max(rel), "cos_worst": worst[0][1],
+                            "cos_median": med,
+                            "m1_norm_dev_worst": norm_worst[0][1],
+                            "launches": runs[0]["launches"]}
+    out["backend"] = ranks[0]["backend"]
+    out["hops"] = check_flash(torch.device("cuda:0"), ring_hop_cases(),
+                              timed=True)
+    out["launches"] = {
+        "async": {n: sum(r["k3"]["s0"]["launches"][0].get(n, 0)
+                         for r in ranks) for n in ref_launches},
+        "seq_parallel": {n: sum(r["k2a"][m]["launches"].get(n, 0)
+                                for r in ranks for m in SP_MODES)
+                         for n in ref_launches}}
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -11071,9 +11578,14 @@ def main() -> int:
         p28 = data_parallel_phase(card)
         log(json.dumps({"data_parallel": p28}))
         lap("28 data parallel")
+        p2930 = async_seq_parallel_phase(card)
+        log(json.dumps({"async_seq_parallel": {
+            k: v for k, v in p2930.items() if k != "hops"}}))
+        lap("29-30 async, seq parallel")
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
-                            quant_launches, loop_out, fleet_out, p27, p28)
+                            quant_launches, loop_out, fleet_out, p27, p28,
+                            p2930)
         log(json.dumps({"phase_s": phase_s, "total_s": round(sum(
             phase_s.values()), 1), "card": card}))
         log(card)
@@ -11091,4 +11603,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
         sys.exit(dp_rank_main(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--mp-rank":
+        sys.exit(mp_rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -14,7 +14,8 @@ rounds until ``num_round`` (at most ``max_round`` in this run).  A round
 runs one step per batch of the ``data`` section, prints ``update round
 N`` and a rate line, writes ``[N]\tname-metric:value`` evaluation lines
 (train metrics, then every ``eval`` section) to stderr, and saves
-``%04d.model`` every ``save_model`` rounds.  SIGTERM/SIGINT finish the
+``%04d.model`` every ``save_model`` rounds (``keep_latest = N`` then
+keeps the newest N and their manifests).  SIGTERM/SIGINT finish the
 current batch, snapshot and exit 0.  ``scan_steps = N`` (a device
 program of N steps in the JAX package) runs N single steps here, which
 is the same math.  ``save_ustate = 1`` writes the updater state into
@@ -239,6 +240,7 @@ class LearnTask:
         self.start_counter = 0
         self.continue_training = 0
         self.save_period = 1
+        self.keep_latest = 0  # retention: 0 keeps every checkpoint
         self.divergence_policy = ""  # "" off | abort | rollback
         self.divergence_lr_backoff = 0.5
         self.divergence_max_retries = 3
@@ -339,6 +341,8 @@ class LearnTask:
             self.continue_training = int(val)
         elif name == "save_model":
             self.save_period = int(val)
+        elif name == "keep_latest":
+            self.keep_latest = int(val)
         elif name == "print_step":
             self.print_step = int(val)
         elif name == "divergence_policy":
@@ -700,7 +704,12 @@ class LearnTask:
                     self.itr_pred = create_iterator(sec.entries)
         from .parallel.distributed import process_info
 
-        pid, nproc = process_info()
+        # the worker shards are keyed by the data index: the model ranks
+        # of one index read the same rows
+        plan = (self.net_trainer.mesh_plan if self.net_trainer is not None
+                else None)
+        pid, nproc = ((plan.data_index, plan.n_data) if plan is not None
+                      else process_info())
         for it in [self.itr_train, self.itr_pred, *self.itr_evals]:
             if it is not None:
                 for n, v in split.global_entries:
@@ -711,11 +720,12 @@ class LearnTask:
                 it.init()
 
     def _shard_iterator(self, it, pid: int, nproc: int) -> None:
-        """A data-parallel group's chain: this rank's worker shard, at
-        ``batch_size / nproc`` rows a batch (the conf's ``batch_size``
-        is global).  An eval chain that cannot shard scores the whole
-        set on every rank (the summed metric is the same); a train
-        chain that cannot is refused."""
+        """A data-parallel group's chain: this data index's worker shard,
+        at ``batch_size / nproc`` rows a batch (the conf's ``batch_size``
+        is global; ``nproc`` is the number of data indices).  An eval
+        chain that cannot shard scores the whole set on every rank (the
+        summed metric is the same); a train chain that cannot is
+        refused."""
         gbs = self.net_trainer.batch_size
         if gbs % nproc != 0:
             raise ValueError(f"batch_size={gbs} must divide by the "
@@ -768,7 +778,8 @@ class LearnTask:
         or now when ``force``) and advance the round counter.  In a
         data-parallel group every rank calls it (collective:
         ``NetTrainer.save_model`` checks the ranks' bytes agree and rank
-        0 writes)."""
+        0 writes).  After the write, ``keep_latest = N`` prunes all but
+        the newest N rounds and their manifests, on rank 0."""
         round_ = self.start_counter
         path = os.path.join(self.name_model_dir, f"{round_:04d}.model")
         self.start_counter += 1
@@ -778,6 +789,13 @@ class LearnTask:
         os.makedirs(self.name_model_dir, exist_ok=True)
         self.net_trainer.save_model(path, round_=round_,
                                     probe=self._probe_block())
+        if self.keep_latest > 0:
+            from .parallel.distributed import is_primary
+            from .utils import checkpoint as ckpt
+
+            if is_primary():
+                ckpt.apply_retention(self.name_model_dir, self.keep_latest,
+                                     silent=bool(self.silent))
         return True
 
     def task_train(self) -> None:
@@ -1007,6 +1025,10 @@ class LearnTask:
         if self.divergence_lr_backoff != 1.0:
             self._lr_scale *= self.divergence_lr_backoff
             tr.scale_learning_rate(self._lr_scale)
+        if self.net_trainer is not None:
+            # the discarded trainer's pending staleness aggregates are
+            # counted and logged as dropped
+            self.net_trainer.async_abandon(reason="rollback")
         self.net_trainer = tr
         self.start_counter = round_ + 1
         obs_emit("divergence.rollback", round=round_, path=path,
@@ -1031,6 +1053,9 @@ class LearnTask:
 
         tr = self.net_trainer
         multi = process_info()[1] > 1
+        # async data parallelism: the per-step fence moves to the round
+        # boundary (async_round_end), or the overlap is gone
+        async_on = self.test_io == 0 and tr._async_active()
         round_ = self.start_counter - 1
         if not self.silent:
             print(f"update round {round_}", flush=True)
@@ -1051,8 +1076,9 @@ class LearnTask:
                 with obs_trace.span("train.dispatch", steps=1):
                     tr.update(self.itr_train.value())
                 t0 = time.perf_counter()
-                with obs_trace.span("train.device_wait", steps=1):
-                    tr.sync()
+                if not async_on:
+                    with obs_trace.span("train.device_wait", steps=1):
+                        tr.sync()
                 now = time.perf_counter()
                 pipeline_stats().add("device_wait", now - t0,
                                      rows=tr.batch_size)
@@ -1066,6 +1092,15 @@ class LearnTask:
                       flush=True)
             if preempt.requested and not multi:
                 return False  # a group stops at the round boundary
+        if async_on:
+            # the round-boundary fence (on resync rounds the staleness
+            # buffers drain first), billed as one device_wait lap
+            t0 = time.perf_counter()
+            tr.async_round_end(self.start_counter)
+            dt = time.perf_counter() - t0
+            pipeline_stats().add("device_wait", dt,
+                                 rows=batches * tr.batch_size)
+            timer.add(dt, 0)
         stage_line = pipeline_stats().report()
         if not self.silent and stage_line:
             print(f"round {round_:8d} pipeline: " + stage_line, flush=True)
@@ -1153,6 +1188,11 @@ class LearnTask:
         }
         if self._integrity is not None:
             record["integrity"] = self._integrity.snapshot()
+        async_snap = self.net_trainer.async_snapshot()
+        if async_snap is not None:
+            # the async pipeline: pending depths, pushes, applies, drops
+            # and the round's overlap fraction
+            record["async"] = async_snap
         try:
             line = json.dumps(record, separators=(",", ":")) + "\n"
             diskio.append_bytes(self.telemetry_path, line.encode("utf-8"),

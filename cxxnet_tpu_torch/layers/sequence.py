@@ -18,8 +18,15 @@ Counterpart of ``cxxnet_tpu/layers/sequence.py``.  Sequence nodes are
   versions and ``auto`` / ``xla`` the dense ``mha``, as the JAX package
   does off a TPU.  The windowed generation path attends through the
   same rule.
-* ``seq_parallel`` — ring and all-to-all attention over a device mesh
-  are ROADMAP.md item A6; any value other than 0 raises.
+* ``seq_parallel = ring|alltoall`` (``1``/``2``; ``a2a``) — sequence
+  parallelism over the model axis (``model_parallel > 1``), the JAX
+  package's dispatch: ``alltoall`` swaps the T split for a head split
+  around the local attention (``attention_fn``); ``ring`` under
+  ``attn_impl = pallas`` runs ``ring_attention_flash`` (K9 and K10 once
+  a hop, with offsets), otherwise the streaming-softmax
+  ``ring_attention`` (``ops/attention.py``).  T must divide by the
+  model axis, and for ``alltoall`` ``nhead`` too (the JAX messages).
+  On one model rank the key changes nothing.
 * ``decode = 1`` with ``decode_window = W`` — KV-cache incremental
   decoding for generation: ``init_aux`` gives f32 key and value caches
   of W positions, and ``apply_stateful`` writes this call's keys and
@@ -47,6 +54,7 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..ops import attention as sp_attention
 from ..ops.attention import NEG_INF, mha
 from ..ops.flash import HEAD_DIMS, flash_mha
 from ..ops.pipeline import _stage_apply
@@ -73,9 +81,11 @@ class AttentionLayer(Layer):
         super().__init__()
         self.nhead = 1
         self.causal = 0
+        self.seq_parallel = 0
         self.attn_impl = "auto"
         self.decode = 0
         self.decode_window = 0
+        self.mesh_plan = None  # bound by the trainer (bind_mesh)
 
     def set_param(self, name, val):
         if name == "nhead":
@@ -92,11 +102,7 @@ class AttentionLayer(Layer):
                 raise ValueError(
                     f"seq_parallel must be one of {sorted(self._SP_MODES)},"
                     f" got {val!r}")
-            if self._SP_MODES[val]:
-                raise NotImplementedError(
-                    f"seq_parallel={val}: ring and all-to-all attention "
-                    "over a device mesh are not ported yet (ROADMAP.md "
-                    "item A6)")
+            self.seq_parallel = self._SP_MODES[val]
         elif name == "decode":
             self.decode = int(val)
         elif name == "decode_window":
@@ -111,11 +117,24 @@ class AttentionLayer(Layer):
             raise ValueError(
                 "attention: input must be a sequence node (N, T, D); set "
                 "input_layout = seq")
-        d = shape[2]
+        n, t, d = shape
         if self.nhead <= 0 or d % self.nhead != 0:
             raise ValueError(
                 f"attention: nhead={self.nhead} must divide model dim {d}")
+        if self.seq_parallel and self.mesh_plan is not None:
+            nm = self.mesh_plan.n_model
+            if nm > 1 and t % nm != 0:
+                raise ValueError(
+                    f"attention: seq_parallel needs T={t} divisible by the "
+                    f"model axis ({nm})")
+            if nm > 1 and self.seq_parallel == 2 and self.nhead % nm != 0:
+                raise ValueError(
+                    f"attention: seq_parallel=alltoall needs "
+                    f"nhead={self.nhead} divisible by the model axis ({nm})")
         return [tuple(shape)]
+
+    def bind_mesh(self, plan) -> None:
+        self.mesh_plan = plan
 
     def init_params(self, gen, in_shapes) -> Params:
         d = in_shapes[0][2]
@@ -159,13 +178,39 @@ class AttentionLayer(Layer):
     def apply(self, params, inputs, train=False, gen=None, step=None):
         x = inputs[0]
         n, t, d = x.shape
-        o = self.attend(*self._qkv(params, x)).reshape(n, t, d)
+        q, k, v = self._qkv(params, x)
+        plan = self.mesh_plan
+        if self.seq_parallel and plan is not None and plan.n_model > 1:
+            o = self._seq_parallel(q, k, v)
+        else:
+            o = self.attend(q, k, v)
+        o = o.reshape(n, t, d)
         return [F.linear(o, params["wproj"], params["bproj"])]
+
+    def _seq_parallel(self, q, k, v):
+        """The JAX package's dispatch over the model sub-group: the
+        all-to-all form around ``attention_fn``, the flash ring under
+        ``attn_impl = pallas`` (on a card only for the flash kernels'
+        head dims, as the local path), else the dense ring."""
+        group, causal = self.mesh_plan.model_group, bool(self.causal)
+        if self.seq_parallel == 2:
+            return sp_attention.a2a_self_attention(
+                q, k, v, group, causal,
+                attn_fn=self.attention_fn(q.shape[-1], q.is_cuda))
+        if self.attn_impl == "pallas":
+            self.attention_fn(q.shape[-1], q.is_cuda)  # the head-dim check
+            return sp_attention.ring_self_attention_flash(q, k, v, group,
+                                                          causal)
+        return sp_attention.ring_self_attention(q, k, v, group, causal)
 
     def init_aux(self, in_shapes, device=None):
         """KV cache state for ``decode = 1``."""
         if not self.decode:
             return {}
+        if self.seq_parallel:
+            raise ValueError(
+                "attention: decode=1 (single-token KV caching) does not "
+                "compose with seq_parallel")
         if not self.causal:
             raise ValueError(
                 "attention: decode=1 requires causal=1 — incremental "
@@ -326,9 +371,10 @@ class _PipelineStackLayer(Layer):
     ``pipeline_parallel`` and ``n_microbatch`` keys, and the stack run
     in order (``ops/pipeline.py``).  On one device the stack runs plain
     whatever ``pipeline_parallel`` says, as the JAX package does on a
-    model axis of one; more than one stage takes ``model_parallel > 1``,
-    which the trainer refuses (ROADMAP.md queue A item 6).  Subclasses
-    define ``_block(p, x)`` and their params stack."""
+    model axis of one; more than one stage (``pipeline_parallel`` on a
+    model axis of more than one rank) raises at ``bind_mesh``
+    (ROADMAP.md (k2b)).  Subclasses define ``_block(p, x)`` and their
+    params stack."""
 
     def __init__(self) -> None:
         super().__init__()
@@ -345,6 +391,16 @@ class _PipelineStackLayer(Layer):
             self.n_microbatch = int(val)
         else:
             super().set_param(name, val)
+
+    def bind_mesh(self, plan) -> None:
+        """On a model axis of more than one rank ``pipeline_parallel``
+        asks for the GPipe stages over it, which raise (ROADMAP.md
+        (k2b)); without the key the stack runs whole on every rank."""
+        if self.pipeline_parallel and plan.n_model > 1:
+            raise NotImplementedError(
+                f"{self.type_name}: pipeline_parallel over a model axis of "
+                f"{plan.n_model}: the GPipe schedule across devices is not "
+                "ported yet (ROADMAP.md queue A item 6, (k2b))")
 
     def apply(self, params, inputs, train=False, gen=None, step=None):
         return [_stage_apply(self._block, params, inputs[0])]

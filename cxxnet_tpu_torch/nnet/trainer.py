@@ -90,8 +90,23 @@ Device rule (``parallel/mesh.py``): ``dev = cpu`` runs on the CPU, and
 only when asked; every other value means the card: ``gpu``, ``cuda``,
 ``tpu`` (the default) ``cuda:0``, ``gpu:k`` ``cuda:k``, raising when
 there is no CUDA device or no card ``k``.  A device range in one process
-raises, naming ``dist_num_proc``; ``model_parallel > 1`` raises (ROADMAP.md
-item (k2)).
+raises, naming ``dist_num_proc``.
+
+The model axis (``model_parallel = m``, ``parallel/mesh.py``): the
+ranks form an ``(n_data, m)`` mesh; every collective above runs over
+the data sub-group (the model ranks of one data index feed the same
+rows and hold the same whole weights, experts and updater state: the
+JAX package shards them over the model axis, ROADMAP.md (k2c)), and the
+attention layers with ``seq_parallel`` run over the model sub-group
+(``layers/sequence.py``).  The checkpoint's CRC agreement, the
+integrity vote and the group save stay over every rank.
+
+``async_overlap = 1`` (``parallel/async_ps``): the rank's backward with
+no collective, then per group of tensors an all-gather over the data
+sub-group, the rank-order fold and the group's apply, through bounded
+staleness buffers (``staleness``, ``async_resync_period``); a
+checkpoint drains them first.  ``async_round_end``, ``async_abandon``
+and ``async_snapshot`` are the CLI's hooks.
 """
 
 from __future__ import annotations
@@ -111,7 +126,7 @@ from ..obs import device as obs_device
 from ..obs import events as obs_events
 from ..ops import kernels as _klib
 from ..parallel import distributed as pdist
-from ..parallel.mesh import MeshPlan, rank_device
+from ..parallel.mesh import MeshPlan, plan_for, rank_device
 from ..updater import Updater, apply_all, create_updater
 from ..utils import checkpoint as ckpt
 from ..utils.checkpoint import MODEL_MAGIC, DivergenceError
@@ -152,6 +167,16 @@ def params_to_numpy(params: Dict[str, Dict[str, torch.Tensor]]
             for key, tags in params.items()}
 
 
+def rank_order_fold(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``((p0 + p1) + p2) + ...``: the ranks' tensors added in rank
+    order, one fixed order whatever the backend (``det_reduce`` and the
+    async exchange, ``parallel/async_ps``)."""
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc.add_(p)
+    return acc
+
+
 class NetTrainer:
     def __init__(self) -> None:
         self.cfg: List[Tuple[str, str]] = []
@@ -178,13 +203,12 @@ class NetTrainer:
         self.update_on_server = 0
         self.zero = 0
         self.det_reduce = 0
-        # the async data-parallel keys (parallel/async_ps in the JAX
-        # package): parsed and validated; over more than one rank they
-        # raise (ROADMAP.md item (k3))
+        # async data parallelism (parallel/async_ps)
         self.async_overlap = 0
         self.async_groups = 0
         self.staleness = 0
         self.async_resync_period = 1
+        self._async = None  # the AsyncStepper, built at the first step
         # (key, tag) -> the dimension cut over the ranks (zero >= 1)
         self._dims: Dict[Tuple[str, str], int] = {}
         self._gathered: Optional[Dict[str, dict]] = None  # zero = 3
@@ -249,11 +273,6 @@ class NetTrainer:
         elif name == "model_parallel":
             if int(val) < 1:
                 raise ValueError(f"model_parallel={val} must be >= 1")
-            if int(val) > 1:
-                raise NotImplementedError(
-                    f"model_parallel={val}: model, expert and pipeline "
-                    "parallelism over a device mesh are not ported yet "
-                    "(ROADMAP.md queue A item 6, (k2))")
             self.model_parallel = int(val)
         elif name == "update_on_server":
             # the reference's SGD on the parameter server: the updater
@@ -330,15 +349,19 @@ class NetTrainer:
     # ------------------------------------------------------------------
     def _build_net(self, graph: Optional[NetGraph] = None) -> None:
         self.device = resolve_device(self.dev)
-        rank, world = pdist.process_info()
-        self.mesh_plan = MeshPlan(device=self.device, n_data=world,
-                                  rank=rank, backend=pdist.backend())
+        self.mesh_plan = plan_for(self.device, self.model_parallel)
         self._gathered = None
+        self._async = None
         if graph is None:
             graph = NetGraph()
         graph.configure(self.cfg)
         self.graph = graph
         self.net = FunctionalNet(graph)
+        # the layers that run their own collectives over the model axis
+        # (sequence-parallel attention) or refuse it (the GPipe stacks)
+        for lay in self.net.layer_objs:
+            if hasattr(lay, "bind_mesh"):
+                lay.bind_mesh(self.mesh_plan)
         if self.net.batch_size:
             self.batch_size = self.net.batch_size
         else:
@@ -434,7 +457,7 @@ class NetTrainer:
         if not slices:
             return []
         flat = torch.cat([s.reshape(-1) for s in slices])
-        parts = pdist.all_gather(flat)
+        parts = pdist.all_gather(flat, self.mesh_plan.data_group)
         out, off = [], 0
         for s, d in zip(slices, dims):
             n = s.numel()
@@ -526,19 +549,19 @@ class NetTrainer:
         return {"n_data": self.mesh_plan.n_data,
                 "n_model": self.mesh_plan.n_model,
                 "zero": self._zero_level(),
-                "processes": self.mesh_plan.n_data}
+                "processes": self.mesh_plan.n_devices}
 
     def _det_active(self) -> bool:
         """Is the rank-order gradient fold in effect?  On one rank there
         is no reduction to pin: the key is a no-op there."""
         return bool(self.det_reduce and self.mesh_plan is not None
-                    and self.mesh_plan.n_data > 1)
+                    and self.mesh_plan.n_devices > 1)
 
     def _async_active(self) -> bool:
         """``async_overlap = 1`` over more than one rank (the same
         one-rank no-op as ``det_reduce``)."""
         return bool(self.async_overlap and self.mesh_plan is not None
-                    and self.mesh_plan.n_data > 1
+                    and self.mesh_plan.n_devices > 1
                     and not self.quant_scheme)
 
     def _row_separable_problems(self) -> list:
@@ -572,9 +595,7 @@ class NetTrainer:
 
     def _validate_parallel(self) -> None:
         """The ``det_reduce`` and ``async_overlap`` constraints, checked
-        when the model is built, as the JAX package does.  The
-        overlapped exchange itself over more than one rank is ROADMAP.md
-        item (k3) and raises."""
+        when the model is built, as the JAX package does."""
         if self._det_active():
             problems = self._row_separable_problems()
             if problems:
@@ -595,10 +616,6 @@ class NetTrainer:
                 "async_overlap=1 is incompatible with: "
                 + "; ".join(problems)
                 + " (doc/parallel.md 'Async data-parallel')")
-        raise NotImplementedError(
-            "async_overlap=1 over more than one process: the overlapped "
-            "per-group exchange is not ported yet (ROADMAP.md queue A "
-            "item 6, (k3)); set async_overlap=0 for the synchronous step")
 
     def _maybe_quantize(self) -> None:
         """Apply the conf's ``quant`` scheme to freshly loaded or drawn
@@ -703,7 +720,14 @@ class NetTrainer:
         """The full checkpoint as one byte string: the f32 masters, or a
         quantized model's leaves with the ``quant`` header block and bf16
         kernels as ``~bf16`` uint16 words; then the layer state, and with
-        ``save_ustate`` the updater state."""
+        ``save_ustate`` the updater state.  In async mode every pending
+        aggregate is applied first and each group waited for, so a
+        checkpoint is always a synchronous state."""
+        if self._async is not None:
+            up = self._async.updater
+            up.drain()
+            for gid in range(len(up.groups)):
+                up.pull_wait(gid)
         header = {
             "structure": json.loads(self.graph.structure_to_json()),
             "epoch_counter": self.epoch_counter,
@@ -1095,7 +1119,7 @@ class NetTrainer:
         (0.0 on one rank); raises ``RuntimeError`` past ``tol``.
         Collective."""
         assert self.params is not None, "init_model/load_model first"
-        world = self.mesh_plan.n_data
+        world = self.mesh_plan.n_devices
         if world == 1:
             return 0.0
         names = [(k, t) for k in sorted(self.params)
@@ -1131,7 +1155,8 @@ class NetTrainer:
         world = self.mesh_plan.n_data if self.mesh_plan else 1
         if world > 1:
             # each rank feeds its own batch_size / N rows of the global
-            # batch; its iterator pads its own tail
+            # batch (N data indices: the model ranks of one data index
+            # feed the same rows); its iterator pads its own tail
             bs //= world
             if n != bs:
                 raise ValueError(
@@ -1216,9 +1241,10 @@ class NetTrainer:
         pipeline_stats().add("h2d", time.perf_counter() - t0,
                              rows=int(data.shape[0]))
         # batch norm's sums and the random layers' draws see the group's
-        # global batch; the rank-order fold keeps the JAX package's
-        # per-shard forward
-        with pdist.sharded_batch(not self._det_active()):
+        # global batch; the rank-order fold (and the async exchange that
+        # re-expresses it) keeps the JAX package's per-shard forward
+        per_shard = self._det_active() or self._async_active()
+        with pdist.sharded_batch(self.mesh_plan, not per_shard):
             params = self._full_params()
             node_cache = {}
             if self.eval_train and self.train_metric.need_nodes():
@@ -1243,6 +1269,10 @@ class NetTrainer:
         grads = [torch.zeros_like(w) if g is None else g.contiguous()
                  for (_k, _t, w), g in zip(flat, grads)]
         self.last_loss = loss.detach()
+        if self._async_active():
+            self._async_update([(k, t) for k, t, _w in flat], grads, out,
+                               node_cache, label_in, n_real)
+            return
         apply = True
         if self.update_period > 1:
             if self.divergence_policy:
@@ -1269,41 +1299,104 @@ class NetTrainer:
             # after the update, as the JAX package's fused step reads it
             self._guard_loss(self.last_loss, self.epoch_counter)
         if self.eval_train:
-            base = out.float().cpu().numpy()[:n_real]
-            cache = {None: base, **node_cache}
-            preds = ([cache[n] for n in self.train_metric.nodes]
-                     if node_cache else base)
-            label_np = (label_in.cpu().numpy()
-                        if isinstance(label_in, torch.Tensor) else label_in)
-            self.train_metric.add_eval(preds, label_np[:n_real],
-                                       self._label_ranges())
+            self._add_train_eval(out, node_cache, label_in, n_real)
         if apply:
             self.epoch_counter += 1
             obs_device.maybe_sample_step(self.epoch_counter, self.sync)
 
+    def _add_train_eval(self, out, node_cache, label_in, n_real) -> None:
+        """The train metrics of one micro-batch (``eval_train``)."""
+        base = out.float().cpu().numpy()[:n_real]
+        cache = {None: base, **node_cache}
+        preds = ([cache[n] for n in self.train_metric.nodes]
+                 if node_cache else base)
+        label_np = (label_in.cpu().numpy()
+                    if isinstance(label_in, torch.Tensor) else label_in)
+        self.train_metric.add_eval(preds, label_np[:n_real],
+                                   self._label_ranges())
+
+    def _async_update(self, names, grads, out, node_cache, label_in,
+                      n_real) -> None:
+        """The rest of an ``async_overlap = 1`` step: the per-group
+        exchange (``parallel/async_ps``), then the divergence guard and
+        the train metrics, whose fetches fence the card and are billed
+        against the round's overlap fraction (JAX ``update``)."""
+        stepper = self._async_stepper()
+        self.last_loss = stepper.step(names, grads, self.last_loss,
+                                      self.epoch_counter)
+        self._invalidate_prepared()
+        if self.divergence_policy or self.eval_train:
+            t0 = time.perf_counter()
+            if self.divergence_policy:
+                self._guard_loss(self.last_loss, self.epoch_counter)
+            if self.eval_train:
+                self._add_train_eval(out, node_cache, label_in, n_real)
+            stepper.add_blocked(time.perf_counter() - t0)
+        self.epoch_counter += 1
+        obs_device.maybe_sample_step(self.epoch_counter, self.sync)
+
+    # ------------------------------------------------------------------
+    # async data parallelism (parallel/async_ps)
+    def _async_stepper(self):
+        """The lazily built ``AsyncStepper``; dropped when the net is
+        rebuilt."""
+        if self._async is None:
+            from ..parallel.async_ps import AsyncStepper
+
+            self._async = AsyncStepper(self)
+        return self._async
+
+    def async_round_end(self, round_: int) -> bool:
+        """The round-boundary fence of async mode, and every
+        ``async_resync_period`` rounds the hard re-sync barrier (the
+        staleness buffers drained first).  A no-op when async mode is
+        off or no async step ran yet; True on a resync."""
+        if self._async is None or not self._async_active():
+            return False
+        return self._async.round_end(round_)
+
+    def async_abandon(self, generation: Optional[int] = None,
+                      reason: str = "rebuild") -> int:
+        """Discard every pending gradient aggregate and move the async
+        updater to a new generation (a rollback; the elastic rebuild of
+        ROADMAP.md (k4)).  Returns the number dropped."""
+        if self._async is None:
+            return 0
+        return self._async.updater.reset_staleness(
+            generation=generation, reason=reason)
+
+    def async_snapshot(self) -> Optional[dict]:
+        """The pipeline's telemetry block (pending depths, pushes,
+        applies, drops, the overlap fraction); None outside async
+        mode."""
+        if self._async is None:
+            return None
+        return self._async.snapshot()
+
     def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
-        """The group's loss (the sum of the ranks' shares; collective)."""
+        """The group's loss (the sum of the data indices' shares over
+        the data sub-group; collective)."""
         if self.mesh_plan.n_data == 1:
             return loss
-        return pdist.all_reduce_(loss.float().reshape(1).clone())[0]
+        return pdist.all_reduce_(loss.float().reshape(1).clone(),
+                                 self.mesh_plan.data_group)[0]
 
     def _reduce_grads(self, grads: List[torch.Tensor], loss: torch.Tensor):
-        """``(grads, loss)`` summed over the ranks: the gradients and the
-        loss packed into one flat f32 buffer and all-reduced, or under
-        ``det_reduce`` all-gathered and added in rank order (``((g0 +
-        g1) + g2) + ...``), which no backend can reorder.  A no-op on
-        one rank."""
+        """``(grads, loss)`` summed over the data sub-group (every model
+        rank of a data index holds the same whole gradients): the
+        gradients and the loss packed into one flat f32 buffer and
+        all-reduced, or under ``det_reduce`` all-gathered and added in
+        rank order (``((g0 + g1) + g2) + ...``, :func:`rank_order_fold`),
+        which no backend can reorder.  A no-op on one data index."""
         if self.mesh_plan.n_data == 1:
             return grads, loss
         buf = torch.cat([g.reshape(-1) for g in grads]
                         + [loss.float().reshape(1)])
         if self._det_active():
-            parts = pdist.all_gather(buf)
-            buf = parts[0].clone()
-            for p in parts[1:]:
-                buf.add_(p)
+            buf = rank_order_fold(
+                pdist.all_gather(buf, self.mesh_plan.data_group))
         else:
-            pdist.all_reduce_(buf)
+            pdist.all_reduce_(buf, self.mesh_plan.data_group)
         out, off = [], 0
         for g in grads:
             out.append(buf[off:off + g.numel()].view_as(g))
@@ -1311,12 +1404,14 @@ class NetTrainer:
         return out, buf[off]
 
     def _apply_updates(self, names: Sequence[Tuple[str, str]],
-                       grads: Sequence[torch.Tensor]) -> None:
-        """The updaters over the masters in place, one ``apply_all``.  A
-        tensor sharded under ``zero >= 1`` is updated on this rank's
-        slice only: its gradient's slice (contiguous, the fused SGD
-        kernel's table takes it as it is), its state slice, and the
-        master's slice (``zero = 3``: the master IS the slice) or a
+                       grads: Sequence[torch.Tensor],
+                       epoch: Optional[int] = None) -> None:
+        """The updaters over the masters in place, one ``apply_all`` at
+        the schedule position ``epoch`` (``epoch_counter`` unless the
+        async step applies an older aggregate).  A tensor sharded under
+        ``zero >= 1`` is updated on this rank's slice only: its
+        gradient's slice (contiguous, the fused SGD kernel's table takes
+        it as it is), its state slice, and the master's slice (``zero = 3``: the master IS the slice) or a
         contiguous slice of the whole master, whose ranks' slices are
         then all-gathered back into it (``zero = 1``)."""
         items, back = [], []
@@ -1336,7 +1431,7 @@ class NetTrainer:
             w_mine = master.narrow(d, start, n).contiguous()
             items.append((up, w_mine, g_mine, state))
             back.append((master, w_mine, d))
-        apply_all(items, self.epoch_counter)
+        apply_all(items, self.epoch_counter if epoch is None else epoch)
         whole = self._gather_slices([w for _m, w, _d in back],
                                     [d for _m, _w, d in back])
         for (master, _w, _d), full in zip(back, whole):
@@ -1362,6 +1457,11 @@ class NetTrainer:
                 "sync); pass sync=True or set eval_train = 0")
         if self.update_period != 1:
             raise ValueError("update_scan requires update_period == 1")
+        if self._async_active():
+            raise ValueError(
+                "update_scan is the fused multi-step program — it "
+                "cannot interleave the per-group async exchange; use "
+                "update() (scan_steps=1) with async_overlap=1")
         if self.graph.extra_data_num:
             raise ValueError(
                 "update_scan does not support extra_data nodes; use update()")
@@ -1386,8 +1486,8 @@ class NetTrainer:
             k = int(n_steps)
         world = self.mesh_plan.n_data
         if world > 1:
-            # each rank feeds its own [K, B/N, ...] rows; K must match on
-            # every rank (a mismatched tail would leave a collective
+            # each data index feeds its own [K, B/N, ...] rows; K must
+            # match on every rank (a mismatched tail would leave a collective
             # that the others never join)
             local = self.batch_size // world
             got = int(x.shape[1] if per_step else x.shape[0])
@@ -1544,7 +1644,8 @@ class NetTrainer:
         (eval forward), as ``\\tname-metric:value`` fields."""
         ret = ""
         if self.eval_train:
-            self.train_metric.reduce_across_processes()
+            self.train_metric.reduce_across_processes(
+                self.mesh_plan.data_group)
             ret += self.train_metric.print("train")
             self.train_metric.clear()
         if iter_eval is None or len(self.metric) == 0:
@@ -1558,7 +1659,7 @@ class NetTrainer:
         iter_eval.before_first()
         # in a group each rank scores its own rows (a sharded iterator)
         # and batch norm's batch statistics are the global batch's
-        with pdist.sharded_batch():
+        with pdist.sharded_batch(self.mesh_plan):
             while iter_eval.next():
                 batch = iter_eval.value()
                 n = batch.batch_size - batch.num_batch_padd
@@ -1569,6 +1670,6 @@ class NetTrainer:
                                      batch.label[:n], self._label_ranges())
         if self._gathered is not None:
             self._invalidate_prepared()  # zero = 3: drop the whole weights
-        self.metric.reduce_across_processes()
+        self.metric.reduce_across_processes(self.mesh_plan.data_group)
         ret += self.metric.print(data_name)
         return ret

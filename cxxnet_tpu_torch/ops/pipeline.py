@@ -46,5 +46,5 @@ def pipeline_apply(block_fn: Callable, params_stacked: Dict[str, torch.Tensor],
     if n_stage > 1:
         raise NotImplementedError(
             f"pipeline over {n_stage} stages: the GPipe schedule across "
-            "devices is not ported yet (ROADMAP.md queue A item 6)")
+            "devices is not ported yet (ROADMAP.md queue A item 6, (k2b))")
     return _stage_apply(block_fn, params_stacked, x)

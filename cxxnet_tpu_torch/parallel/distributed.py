@@ -38,6 +38,25 @@ through :func:`all_reduce_sum` (an all-reduce in the forward and in the
 backward), and a random layer draws the global shape's mask and takes
 its own rows (``layers/elemwise.py`` :func:`uniform`).
 
+**The model axis** (:func:`sub_groups`, ``model_parallel = m``): the
+ranks are laid out as the JAX package's ``(n_data, n_model)`` mesh,
+rank ``r`` at data index ``r // m`` and model index ``r % m``.  Each
+rank belongs to a data sub-group (the ranks of its model index: the
+gradient reduction, batch norm's sums, the ZeRO slices, the metrics)
+and a model sub-group (the ranks of its data index: sequence-parallel
+attention), both made with ``new_group`` on every rank in one order.
+A trainer's ``MeshPlan`` (``parallel/mesh.py``) carries its two
+sub-groups and hands them to every collective it runs: ``None`` is the
+whole job, :data:`SOLO` a sub-group of this rank alone.
+:func:`ppermute` and :func:`all_to_all` are the differentiable
+``lax.ppermute`` / ``lax.all_to_all`` over a sub-group.  ``ppermute``
+is an all-gather of the sub-group from which each rank takes the block
+it is owed, under either backend (gloo's ``send`` of a CUDA tensor
+aborts the process on torch 2.11; at two ranks the gather moves the
+bytes the sends would).  The all-to-all is ``all_to_all_single``, which
+gloo runs on CUDA tensors (its list form ``all_to_all`` it refuses
+there).
+
 Not ported here: the JAX package's ``_enable_cpu_collectives`` (a JAX
 CPU-backend switch; gloo is this port's CPU path), and the resilient
 coordination client and its graceful/abandoning teardown, which belong
@@ -61,12 +80,28 @@ ConfigEntry = Tuple[str, str]
 DEFAULT_TIMEOUT_S = 300.0
 
 _state: Dict[str, object] = {"initialized": False, "backend": "",
-                             "device": None}
+                             "device": None, "timeout_s": DEFAULT_TIMEOUT_S}
+
+
+class _Solo:
+    """A sub-group of this rank alone (an axis of one rank): every
+    collective over it returns its input."""
+
+    def __repr__(self) -> str:
+        return "SOLO"
+
+
+SOLO = _Solo()
+
+#: the ``(data, model)`` sub-groups of each ``n_model`` asked for, made
+#: once a job (:func:`sub_groups`)
+_groups: Dict[int, Tuple[object, object]] = {}
 #: the group's collective traffic since the last :func:`reset_stats`:
 #: calls, bytes handed to the backend, and the host seconds spent in the
 #: calls
 STATS: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0}
-_shard: List[Optional[Tuple[int, int]]] = [None]  # sharded_batch's
+#: sharded_batch's (data index, n_data, data sub-group)
+_shard: List[Optional[Tuple[int, int, object]]] = [None]
 
 
 def distributed_spec(
@@ -157,7 +192,8 @@ def init_distributed(coordinator: str, num: int, pid: int,
         torch.cuda.set_device(device)
     dist.init_process_group(backend, store=store, rank=pid, world_size=num,
                             timeout=timeout)
-    _state.update(initialized=True, backend=backend, device=device)
+    _state.update(initialized=True, backend=backend, device=device,
+                  timeout_s=timeout_s)
 
 
 def shutdown_distributed() -> bool:
@@ -168,6 +204,7 @@ def shutdown_distributed() -> bool:
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _state.update(initialized=False, backend="", device=None)
+    _groups.clear()
     return was
 
 
@@ -187,6 +224,46 @@ def process_info() -> Tuple[int, int]:
     return 0, 1
 
 
+def sub_groups(n_model: int = 1) -> Tuple[object, object]:
+    """This rank's ``(data sub-group, model sub-group)`` of the
+    ``(n_data, n_model)`` layout (see the module docstring): ``None``
+    for the whole job, :data:`SOLO` for an axis of one rank.
+    Collective the first time a job asks for a given ``n_model > 1``
+    (every rank makes every sub-group, in one order).  Raises with the
+    JAX package's message when ``n_model`` does not divide the ranks."""
+    rank, world = process_info()
+    if n_model < 1 or world % n_model != 0:
+        raise ValueError(
+            f"model_parallel={n_model} must divide the device count {world}")
+    if n_model == 1:
+        return None, SOLO
+    if n_model not in _groups:
+        timeout = datetime.timedelta(seconds=float(_state["timeout_s"]))
+        mine = {}
+        n_data = world // n_model
+        layouts = [("data", [list(range(j, world, n_model))
+                             for j in range(n_model)]),
+                   ("model", [list(range(i * n_model, (i + 1) * n_model))
+                              for i in range(n_data)])]
+        for axis, lists in layouts:
+            for ranks in lists:
+                g = (dist.new_group(ranks, timeout=timeout)
+                     if len(ranks) > 1 else SOLO)
+                if rank in ranks:
+                    mine[axis] = g
+        _groups[n_model] = (mine["data"], mine["model"])
+    return _groups[n_model]
+
+
+def _size(group) -> int:
+    """The ranks in ``group`` (``None``: the whole job)."""
+    if group is SOLO:
+        return 1
+    if group is None:
+        return process_info()[1]
+    return dist.get_world_size(group)
+
+
 def is_primary() -> bool:
     """True on the process that owns checkpoint writes (rank 0)."""
     return process_info()[0] == 0
@@ -204,28 +281,42 @@ def _account(t, t0: float) -> None:
     STATS["seconds"] += time.perf_counter() - t0
 
 
-def all_reduce_(t):
-    """Sum ``t`` over the group, in place; returns ``t``."""
-    if process_info()[1] == 1:
+def all_reduce_(t, group=None):
+    """Sum ``t`` over the job (or a sub-group), in place; returns
+    ``t``."""
+    if _size(group) == 1:
         return t
     t0 = time.perf_counter()
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     _account(t, t0)
     return t
 
 
-def all_gather(t) -> list:
-    """Every rank's ``t`` (same shape and dtype on every rank), in rank
-    order."""
-    world = process_info()[1]
-    if world == 1:
+def all_gather(t, group=None) -> list:
+    """Every rank's ``t`` (same shape and dtype on every rank) over the
+    job (or a sub-group), in rank order."""
+    if _size(group) == 1:
         return [t]
     t0 = time.perf_counter()
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(world)]
-    dist.all_gather(parts, t)
+    parts = [torch.empty_like(t) for _ in range(_size(group))]
+    dist.all_gather(parts, t, group=group)
     _account(t, t0)
     return parts
+
+
+def all_gather_async(t, group=None):
+    """Start :func:`all_gather` with ``async_op=True``: returns ``(work,
+    parts)``, ``parts`` valid once ``work.wait()`` returned (``work`` is
+    None when there is nothing to exchange)."""
+    if _size(group) == 1:
+        return None, [t]
+    t0 = time.perf_counter()
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(_size(group))]
+    work = dist.all_gather(parts, t, group=group, async_op=True)
+    _account(t, t0)
+    return work, parts
 
 
 def broadcast_(t, src: int = 0):
@@ -246,17 +337,18 @@ def _comm_device():
     return torch.device("cpu")
 
 
-def gather_host(arr: np.ndarray) -> np.ndarray:
+def gather_host(arr: np.ndarray, group=None) -> np.ndarray:
     """Every rank's numpy ``arr`` (same shape and dtype on every rank),
-    stacked in rank order: ``[world, *arr.shape]``.  Exact for any
-    dtype: the bytes travel as int64 words."""
+    stacked in rank order: ``[world, *arr.shape]`` (over a sub-group:
+    its ranks).  Exact for any dtype: the bytes travel as int64
+    words."""
     a = np.ascontiguousarray(arr)
     raw = a.view(np.uint8).reshape(-1)
     pad = (-raw.size) % 8
     if pad:
         raw = np.concatenate([raw, np.zeros(pad, np.uint8)])
     t = torch.from_numpy(raw.view(np.int64).copy()).to(_comm_device())
-    parts = all_gather(t)
+    parts = all_gather(t, group)
     out = [p.cpu().numpy().view(np.uint8)[:a.nbytes].view(a.dtype)
            .reshape(a.shape) for p in parts]
     return np.stack(out)
@@ -329,15 +421,17 @@ def global_batch_parts(n: int) -> List[int]:
 # ----------------------------------------------------------------------
 # the layers that see the whole batch
 @contextlib.contextmanager
-def sharded_batch(active: bool = True):
+def sharded_batch(plan, active: bool = True):
     """Within this block a forward's batch is this rank's rows of the
-    group's global batch: :func:`batch_shard` returns ``(rank, world)``.
-    A no-op without a group.  Process-wide, not per thread: a card's
-    backward (and a ``remat`` recompute in it) runs on autograd's
-    device thread and must see the same shard."""
+    global batch of ``plan`` (a ``MeshPlan``): :func:`batch_shard`
+    returns ``(data index, n_data)`` and :func:`all_reduce_sum` sums
+    over ``plan``'s data sub-group.  A no-op on one data index.
+    Process-wide, not per thread: a card's backward (and a ``remat``
+    recompute in it) runs on autograd's device thread and must see the
+    same shard."""
     prev = _shard[0]
-    rank, world = process_info()
-    _shard[0] = (rank, world) if active and world > 1 else None
+    _shard[0] = ((plan.data_index, plan.n_data, plan.data_group)
+                 if active and plan.n_data > 1 else None)
     try:
         yield
     finally:
@@ -345,24 +439,95 @@ def sharded_batch(active: bool = True):
 
 
 def batch_shard() -> Optional[Tuple[int, int]]:
-    """``(rank, world)`` inside :func:`sharded_batch` in a group, else
-    None."""
-    return _shard[0]
+    """``(data index, n_data)`` inside :func:`sharded_batch` over more
+    than one data index, else None."""
+    return None if _shard[0] is None else _shard[0][:2]
 
 
 def all_reduce_sum(t):
-    """The group's sum of ``t`` with a gradient: an all-reduce in the
+    """The sum of ``t`` over the data sub-group of the enclosing
+    :func:`sharded_batch`, with a gradient: an all-reduce in the
     forward, and in the backward (each rank's loss reads the sum, so
     the gradient of every rank's input is the sum of the ranks'
     gradients of the output)."""
-    return _AllReduceSum.apply(t)
+    return _AllReduceSum.apply(t, _shard[0][2])
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        return all_reduce_(x.clone())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(), group)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.contiguous().clone())
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+# ----------------------------------------------------------------------
+# the model axis: lax.ppermute and lax.all_to_all over a sub-group
+def _ppermute(t, perm: Sequence[Tuple[int, int]], group):
+    """``lax.ppermute`` over ``group``'s ranks: the result is what the
+    rank ``src`` of this rank's ``(src, me)`` pair holds, zeros where no
+    pair names this rank as a destination.  One all-gather of the
+    sub-group carries it (see the module docstring)."""
+    me = dist.get_rank(group)
+    src = next((s_ for s_, d in perm if d == me), None)
+    t = t.contiguous()
+    t0 = time.perf_counter()
+    parts = [torch.empty_like(t) for _ in range(_size(group))]
+    dist.all_gather(parts, t, group=group)
+    out = parts[src] if src is not None else torch.zeros_like(t)
+    _account(t, t0)
+    return out
+
+
+def _all_to_all(t, split_dim: int, concat_dim: int, group):
+    """Tiled ``lax.all_to_all``: ``t`` cut into ``n`` equal chunks along
+    ``split_dim``, chunk ``j`` to group rank ``j``; the chunks received
+    joined along ``concat_dim`` in group-rank order."""
+    n = _size(group)
+    t0 = time.perf_counter()
+    blocks = torch.stack(t.chunk(n, split_dim)).contiguous()  # (n, ...)
+    out = torch.empty(blocks.shape, dtype=blocks.dtype, device=blocks.device)
+    dist.all_to_all_single(out, blocks, group=group)
+    _account(blocks, t0)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.perm, ctx.group = perm, group
+        return _ppermute(x, perm, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(d, s_) for s_, d in ctx.perm]
+        return _ppermute(g, inverse, ctx.group), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(g, concat_dim, split_dim, ctx.group), None,
+                None, None)
+
+
+def ppermute(t, perm: Sequence[Tuple[int, int]], group):
+    """Differentiable ``lax.ppermute`` over ``group`` (a model
+    sub-group): ``perm`` pairs ``(src, dst)`` of group ranks; the
+    backward sends the gradient back along the inverse permutation."""
+    return _PPermute.apply(t, [tuple(p) for p in perm], group)
+
+
+def all_to_all(t, split_dim: int, concat_dim: int, group):
+    """Differentiable tiled ``lax.all_to_all`` over ``group``; the
+    backward is the inverse exchange (split and concat swapped)."""
+    return _AllToAll.apply(t, split_dim, concat_dim, group)

@@ -9,9 +9,16 @@ the CPU (never taken unless asked).
 The JAX package runs a device range as one SPMD program in one process;
 the port runs one process per device (``parallel/distributed.py``), so
 a :class:`MeshPlan` is this rank's device plus the group's shape:
-``n_data`` ranks, ``n_model = 1`` (``model_parallel > 1`` is ROADMAP.md
-item (k2)).  :func:`rank_device` maps a ``dev`` value and the rank to
-the rank's ``torch.device``: a single ordinal is every rank's (ranks
+``n_data x n_model`` ranks (``model_parallel = n_model``, which must
+divide the ranks), laid out as the JAX package's ``reshape(n_data,
+n_model)``: rank ``r`` at data index ``r // n_model`` and model index
+``r % n_model``; the plan holds this rank's data and model sub-groups,
+and everything a trainer reduces over an axis goes over its own plan's
+sub-group.  The model axis carries sequence-parallel attention;
+the weights, the experts and the updater state stay whole on every
+model rank (the JAX package shards them over it: ROADMAP.md (k2c)).
+:func:`rank_device` maps a ``dev`` value and the rank to the rank's
+``torch.device``: a single ordinal is every rank's (ranks
 may share a card), a list as long as the group gives rank ``r`` its
 ``r``-th entry, a bare platform word gives rank ``r`` the card ``r``
 modulo the cards present.  Each ordinal is checked against
@@ -22,8 +29,8 @@ process a range raises, naming ``dist_num_proc``: the CLI's
 :meth:`MeshPlan.owner_dim` is the JAX package's ``state_sharding`` /
 ``fsdp_sharding`` placement rule as an ownership rule over ranks: a
 tensor's largest dimension divisible by ``n_data`` is cut into
-``n_data`` equal slices, rank ``r`` owning the ``r``-th; a tensor with
-no such dimension stays whole on every rank.
+``n_data`` equal slices, the ranks of data index ``i`` owning the
+``i``-th; a tensor with no such dimension stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from . import distributed
 
 
 def parse_device(dev: str) -> Tuple[str, List[int]]:
@@ -96,13 +105,26 @@ def rank_device(dev: str, rank: int = 0, world: int = 1) -> torch.device:
 
 @dataclasses.dataclass
 class MeshPlan:
-    """This rank's device and the data-parallel group's shape."""
+    """This rank's device, the group's ``(n_data, n_model)`` shape,
+    this rank's place in it and its two sub-groups (as
+    ``distributed.sub_groups`` gives them: ``None`` the whole job,
+    ``distributed.SOLO`` this rank alone)."""
 
     device: torch.device
     n_data: int = 1
     n_model: int = 1
     rank: int = 0
     backend: str = ""
+    data_group: object = None
+    model_group: object = distributed.SOLO
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
 
     @property
     def n_devices(self) -> int:
@@ -123,15 +145,16 @@ class MeshPlan:
 
     def slice_bounds(self, shape: Sequence[int], dim: int,
                      rank: Optional[int] = None) -> Tuple[int, int]:
-        """``(start, length)`` of rank ``rank``'s slice along ``dim``."""
+        """``(start, length)`` of data index ``rank``'s slice along
+        ``dim`` (this rank's by default)."""
         n = int(shape[dim]) // self.n_data
-        return (self.rank if rank is None else rank) * n, n
+        return (self.data_index if rank is None else rank) * n, n
 
     def describe(self, zero: int = 0) -> str:
         """One-line layout summary shared by the CLI's train-start line
         and ``task=summary``."""
         line = (f"data={self.n_data} model={self.n_model} zero={zero} "
-                f"processes={self.n_data}")
+                f"processes={self.n_devices}")
         if self.backend:
             line += f" backend={self.backend}"
         return line
@@ -145,16 +168,21 @@ class MeshPlan:
             )
 
 
-def make_mesh(dev: str = "tpu", model_parallel: int = 1) -> MeshPlan:
-    """This rank's :class:`MeshPlan` for a ``dev=`` string, in the
-    process group when one was joined (``distributed.py``)."""
-    from . import distributed
-
-    if model_parallel != 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel}: model, expert and pipeline "
-            "parallelism over a device mesh are not ported yet "
-            "(ROADMAP.md queue A item 6, (k2))")
+def plan_for(device: torch.device, model_parallel: int = 1) -> MeshPlan:
+    """This rank's :class:`MeshPlan` on ``device``, in the process group
+    when one was joined, with its data and model sub-groups made
+    (``distributed.sub_groups``; raises with the JAX package's message
+    when ``model_parallel`` does not divide the ranks)."""
     rank, world = distributed.process_info()
-    return MeshPlan(device=rank_device(dev, rank, world), n_data=world,
-                    rank=rank, backend=distributed.backend())
+    data_group, model_group = distributed.sub_groups(model_parallel)
+    return MeshPlan(device=device, n_data=world // model_parallel,
+                    n_model=model_parallel, rank=rank,
+                    backend=distributed.backend(), data_group=data_group,
+                    model_group=model_group)
+
+
+def make_mesh(dev: str = "tpu", model_parallel: int = 1) -> MeshPlan:
+    """:func:`plan_for` the device :func:`rank_device` gives this rank
+    for a ``dev=`` string."""
+    rank, world = distributed.process_info()
+    return plan_for(rank_device(dev, rank, world), model_parallel)

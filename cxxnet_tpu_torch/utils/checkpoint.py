@@ -9,7 +9,8 @@ carries the CRC32, byte size, round and net fingerprint, so a reader
 can prove a checkpoint is intact and belongs to its net before loading
 it.  Writes are atomic (temp file, fsync, rename, directory fsync)
 and go through ``utils/diskio.py`` (site ``checkpoint.write``); the
-validation visits ``checkpoint.read``.
+validation visits ``checkpoint.read``.  ``apply_retention`` prunes all
+but the newest ``keep_latest`` rounds and their manifests.
 The publish pointer (``PUBLISHED.json``) names the round the closed
 loop (``loop/``) last published, with its gate metric, the round before
 it and the feedback lineage it was fine-tuned on; its bytes and keys are
@@ -226,6 +227,26 @@ def list_checkpoints(model_dir: str) -> List[Tuple[int, str]]:
         if r is not None:
             out.append((r, os.path.join(model_dir, n)))
     return sorted(out)
+
+
+def apply_retention(model_dir: str, keep_latest: int,
+                    silent: bool = True) -> List[str]:
+    """Prune all but the newest ``keep_latest`` checkpoints (and their
+    manifests) through ``diskio.unlink``; ``keep_latest <= 0`` keeps
+    everything.  Returns the removed model paths."""
+    if keep_latest <= 0:
+        return []
+    removed = []
+    for _, path in list_checkpoints(model_dir)[:-keep_latest]:
+        for p in (path, manifest_path(path)):
+            try:
+                diskio.unlink(p)
+            except OSError:
+                continue
+        removed.append(path)
+        if not silent:
+            print(f"retention: removed {path}", flush=True)
+    return removed
 
 
 def find_latest_valid(model_dir: str, net_fp: Optional[str] = None,

@@ -231,10 +231,12 @@ class MetricSet:
             else:
                 mt.add_eval(pred, labels[:, a:b])
 
-    def reduce_across_processes(self) -> None:
-        """Sum ``(sum_metric, cnt_inst)`` over the ranks of the process
-        group (``parallel/distributed.py``): each rank scored its own
-        rows, so the sums are the global metric's.  Collective: every
+    def reduce_across_processes(self, group=None) -> None:
+        """Sum ``(sum_metric, cnt_inst)`` over ``group``, the trainer's
+        data sub-group (``MeshPlan.data_group``; ``None`` the whole job,
+        ``parallel/distributed.py``): each data index
+        scored its own rows (the model ranks of one index score the
+        same), so the sums are the global metric's.  Collective: every
         rank calls.  A no-op on one process.  The counters travel as
         float64 words, exactly."""
         from ..parallel import distributed
@@ -243,7 +245,7 @@ class MetricSet:
             return
         rows = np.asarray([[m.sum_metric, m.cnt_inst] for m in self.metrics],
                           np.float64)
-        total = distributed.gather_host(rows).sum(axis=0)
+        total = distributed.gather_host(rows, group).sum(axis=0)
         for m, (s, c) in zip(self.metrics, total):
             m.sum_metric, m.cnt_inst = float(s), int(c)
 

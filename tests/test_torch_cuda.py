@@ -1998,3 +1998,87 @@ def test_cuda_k8_on_zero_slices_bit_equal_to_whole(cuda_device, ranks):
             assert torch.equal(mm, ref[i][2].narrow(d, start, n))
             sliced += 1
     assert sliced >= 3 * ranks  # three or more shapes cut at 2 and 3 ranks
+
+
+# ----------------------------------------------------------------------
+# the ring's calls of K9/K10 and the async step's K8 tables (k2a, k3)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_off,k_off", [(0, 0), (0, 96), (96, 0)])
+def test_cuda_flash_ring_hop_offsets_match_plain(cuda_device, dtype, q_off,
+                                                 k_off):
+    """A ring hop's blocks at two model ranks (T 96 each): the diagonal,
+    rank 0's hop 1 (every key ahead of every query: o = 0 and lse =
+    -1e30 exactly, zero gradients) and rank 1's hop 1 (every key
+    visible), with an LSE cotangent, against the plain versions."""
+    b, t, h, d = 2, 96, 2, 64
+    q, k, v, do = _flash_inputs(cuda_device, dtype, b, t, t, h, d,
+                                7 + q_off + k_off)
+    dlse = torch.randn(b, h, t, generator=torch.Generator().manual_seed(5)
+                       ).to(cuda_device)
+    o, lse = flash.flash_fwd(q, k, v, True, q_off, k_off)
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, True, q_off, k_off)
+    _close(o, o_ref, FLASH_TOL[("fwd", dtype)], "o")
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=LSE_ATOL)
+    dl = ((do.float() * o_ref.float()).sum(-1).permute(0, 2, 1)
+          - dlse).contiguous()
+    got = flash.flash_bwd(q, k, v, do, lse_ref, dl, True, q_off, k_off)
+    ref = flash.flash_bwd_plain(q, k, v, do, lse_ref, dl, True, q_off, k_off)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        _close(a, r, FLASH_TOL[("bwd", dtype)], name, BWD_ROW_FLOOR[dtype])
+    if k_off > q_off:
+        assert bool((o == 0).all()) and bool((lse == -1e30).all())
+        assert all(bool((a == 0).all()) for a in got)
+
+
+@pytest.mark.cuda
+def test_cuda_async_group_apply_is_one_k8_launch(cuda_device):
+    """The async step applies a group's aggregate through ``apply_all``
+    over that group's tensors: one K8 launch over the group's sub-table,
+    bit-equal to the plain version on the same values."""
+    from cxxnet_tpu_torch import config as tcfg
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.parallel.async_ps import AsyncStepper
+
+    conf = """netconfig = start
+layer[0->1] = fullc:fc1
+  nhidden = 64
+layer[1->1] = relu
+layer[1->2] = fullc:fc2
+  nhidden = 32
+layer[2->2] = relu
+layer[2->3] = fullc:fc3
+  nhidden = 10
+layer[3->3] = softmax
+netconfig = end
+input_shape = 1,1,48
+batch_size = 8
+eta = 0.1
+momentum = 0.9
+wd = 0.0001
+async_groups = 3
+"""
+    trs = {}
+    for dev in ("gpu", "cpu"):
+        tr = NetTrainer()
+        tr.set_params(tcfg.parse_pairs(conf + f"dev = {dev}\n"))
+        tr.init_model()
+        tr._async = AsyncStepper(tr)
+        trs[dev] = tr
+    groups = trs["gpu"]._async.groups
+    assert len(groups) == 3
+    gen = torch.Generator().manual_seed(21)
+    for gid in reversed(range(len(groups))):
+        grads = [torch.randn(trs["cpu"].params[k][t].shape, generator=gen)
+                 for k, t in groups[gid]]
+        n0 = update_step.KERNEL.launches
+        for dev, tr in trs.items():
+            up = tr._async.updater
+            up.push(gid, [g.to(tr.device) for g in grads], 0)
+            assert up.pull_req(gid) == 1
+        torch.cuda.synchronize()
+        assert update_step.KERNEL.launches == n0 + 1
+        for k, t in groups[gid]:
+            assert torch.equal(trs["gpu"].params[k][t].cpu(),
+                               trs["cpu"].params[k][t]), (k, t)

@@ -295,10 +295,14 @@ def test_attention_guards():
         lay.init_aux([(1, 1, 8)])
     with pytest.raises(ValueError, match="attn_impl"):
         lay.set_param("attn_impl", "cudnn")
-    for sp in ("ring", "1", "alltoall"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            lay.set_param("seq_parallel", sp)
-    lay.set_param("seq_parallel", "0")
+    # seq_parallel takes the JAX package's modes (the model axis itself:
+    # tests/test_torch_seq_parallel.py)
+    for sp, mode in (("ring", 1), ("1", 1), ("alltoall", 2), ("a2a", 2),
+                     ("off", 0), ("0", 0)):
+        lay.set_param("seq_parallel", sp)
+        assert lay.seq_parallel == mode
+    with pytest.raises(ValueError, match="seq_parallel must be one of"):
+        lay.set_param("seq_parallel", "tree")
 
 
 # ----------------------------------------------------------------------

@@ -435,10 +435,13 @@ def test_model_parallel_refused_where_jax_raises_on_one_device():
     pairs = PIPE_MLP_CFG + [("model_parallel", "2")]
     jt = JaxTrainer()
     jt.set_params(pairs)
-    with pytest.raises(ValueError, match="model_parallel=2 must divide"):
+    with pytest.raises(ValueError, match="model_parallel=2 must divide") as je:
         jt.init_model()
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        NetTrainer().set_params(pairs)
+    port = NetTrainer()
+    port.set_params(pairs)
+    with pytest.raises(ValueError) as te:
+        port.init_model()
+    assert str(te.value) == str(je.value)
     tr = NetTrainer()
     tr.set_params(PIPE_MLP_CFG + [("model_parallel", "1")])
     tr.init_model()

@@ -7,8 +7,8 @@ the JAX package on the CPU.
   refuse what the JAX ``NetTrainer`` does, with its messages, at
   ``set_param`` and at ``init_model`` on one device.  Over two ranks the
   port refuses ``det_reduce`` where the JAX package refuses it on two
-  devices (same message), and ``async_overlap = 1`` (ROADMAP.md item
-  (k3)).  The rank count comes from a patched ``process_info``: the
+  devices (same message), and arms ``async_overlap = 1`` (ROADMAP.md
+  item (k3)).  The rank count comes from a patched ``process_info``: the
   refusals come before any collective.
 * ``parse_device`` equals the JAX parser (ranges, lists, the messages of
   a reversed range and an empty list); ``gpu:k`` is the card ``k``, and
@@ -136,10 +136,14 @@ def test_det_reduce_refusals_over_two_ranks_are_jax_s(monkeypatch, keys):
 
 
 def test_async_overlap_over_two_ranks_is_k3(monkeypatch):
+    """(k3) is ported: over two ranks the model builds with the async
+    step armed (its refusals and steps: tests/test_torch_async_ps.py)."""
     monkeypatch.setattr(pdist, "process_info", lambda: (0, 2))
-    kind, msg = _outcome(NetTrainer, tcfg.parse_pairs(NET + "dev = cpu\n")
-                         + [("async_overlap", "1")])
-    assert kind == "NotImplementedError" and "(k3)" in msg
+    tr = NetTrainer()
+    tr.set_params(tcfg.parse_pairs(NET + "dev = cpu\n")
+                  + [("async_overlap", "1")])
+    tr.init_model()
+    assert tr._async_active()
     # one rank: the documented no-op, as in the JAX package
     monkeypatch.setattr(pdist, "process_info", lambda: (0, 1))
     assert _outcome(NetTrainer, tcfg.parse_pairs(NET + "dev = cpu\n")

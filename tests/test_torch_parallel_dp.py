@@ -120,16 +120,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(spec: dict, tmp, world: int) -> None:
-    """``world`` rank processes of ``torch_dp_rank.py`` over ``spec``;
-    all are killed past ``DEADLINE_S``."""
+def run_ranks(spec: dict, tmp, world: int,
+              script: str = "torch_dp_rank.py") -> None:
+    """``world`` rank processes of ``script`` (``torch_dp_rank.py``)
+    over ``spec``; all are killed past ``DEADLINE_S``."""
     path = os.path.join(tmp, f"spec{world}.json")
     spec = dict(spec, world=world, coord=f"127.0.0.1:{_free_port()}",
                 timeout_s=60)
     with open(path, "w") as f:
         json.dump(spec, f)
     procs = [subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "torch_dp_rank.py"), path,
+        [sys.executable, os.path.join(HERE, script), path,
          str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(world)]
     outs = []

@@ -5,9 +5,17 @@ names the group (``coord``, ``world``) and a list of ``runs``, each run
 a ``NetTrainer`` from a conf (``cfg`` pairs), started from a checkpoint
 (``init``) or the conf's seed, then ``steps`` updates on this rank's
 rows of the seeded global batches in ``batches`` (an npz of ``data``
-``[K, B, ...]`` and ``label`` ``[K, B, L]``; rank ``r`` takes the
-``r``-th block of ``B / world`` rows).  Each run writes this rank's
-whole params and layer state, its losses and shard bytes to
+``[K, B, ...]`` and ``label`` ``[K, B, L]``; the ranks of data index
+``i`` take the ``i``-th block of ``B / n_data`` rows), over ``rounds``
+rounds when given, each closed by ``async_round_end`` (the async
+step's snapshot lands in ``async``), and with ``train_metric`` the
+group's train metrics of the steps.  With ``decoy_model_parallel`` a
+second trainer of the same conf with that ``model_parallel`` is built
+after the run's own and before its steps (the run's collectives must
+keep to its own layout).  A run with ``expect_error`` only
+builds the model and records the refusal's message in ``error``.
+Each run writes this rank's whole params and layer state, its losses
+and shard bytes to
 ``{out}.r{rank}.npz``, and rank 0 the checkpoint bytes to ``{out}.model``.
 A run with ``save`` also saves through ``NetTrainer.save_model`` there,
 then to a path rank 0 cannot write, and records each rank's error.
@@ -52,21 +60,49 @@ def run_one(run: dict, rank: int, world: int) -> None:
 
     tr = NetTrainer()
     tr.set_params([tuple(p) for p in run["cfg"]])
+    if run.get("expect_error"):
+        # a refusal at build time: every rank records its message
+        try:
+            tr.init_model()
+            err = ""
+        except (ValueError, NotImplementedError) as e:
+            err = f"{type(e).__name__}: {e}"
+        np.savez(f"{run['out']}.r{rank}.npz", error=np.asarray(err))
+        return
     if run.get("init"):
         tr.load_model(run["init"])
     else:
         tr.init_model()
+    if run.get("decoy_model_parallel"):
+        decoy = NetTrainer()
+        decoy.set_params([tuple(p) for p in run["cfg"]] + [
+            ("model_parallel", str(run["decoy_model_parallel"]))])
+        decoy.init_model()
     b = np.load(run["batches"])
     data, label = b["data"], b["label"]
-    local = data.shape[1] // world
-    rows = slice(rank * local, (rank + 1) * local)
+    # the rows of this rank's data index (the model ranks of one index
+    # feed the same rows)
+    dix, n_data = tr.mesh_plan.data_index, tr.mesh_plan.n_data
+    local = data.shape[1] // n_data
+    rows = slice(dix * local, (dix + 1) * local)
     losses = []
     pdist.reset_stats()
-    for k in range(run["steps"]):
-        tr.update(DataBatch(data=data[k, rows], label=label[k, rows]))
-        losses.append(float(tr.last_loss))
+    rounds = run.get("rounds", 0)
+    for r in range(max(rounds, 1)):
+        for k in range(run["steps"]):
+            tr.update(DataBatch(data=data[k, rows], label=label[k, rows]))
+            losses.append(float(tr.last_loss))
+        if rounds:
+            tr.async_round_end(r + 1)
     out = {"losses": np.asarray(losses, np.float64),
            "calls": np.asarray(pdist.STATS["calls"])}
+    if run.get("train_metric"):
+        # the steps' train metrics over the group (collective)
+        tr.train_metric.reduce_across_processes(tr.mesh_plan.data_group)
+        out["train_metric"] = np.asarray(tr.train_metric.print("train"))
+    snap = tr.async_snapshot()
+    if snap is not None:
+        out["async"] = np.asarray(json.dumps(snap))
     per_dev, total = tr.state_shard_bytes()
     out["shard_bytes"] = np.asarray(sum(per_dev.values()))
     out["total_bytes"] = np.asarray(total)
