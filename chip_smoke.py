@@ -754,7 +754,7 @@ LR_SCALE = 0.01
 # update at which MNIST_CONV's injected faults land (60 updates a round)
 GUARD_ROWS = 1024
 GUARD_BACKOFF, GUARD_RETRIES, GUARD_RATIO = 0.1, 3, 50
-GUARD_COST_BLOCKS, GUARD_COST_STEPS = 4, 5
+GUARD_COST_BLOCKS, GUARD_COST_STEPS = 2, 5
 MNIST_GUARD_STEP = 70
 # the spike gate's ratio there: far above the real losses' spread once
 # the net has learnt (a batch at 50x the median of losses near 0.01 is
@@ -769,7 +769,7 @@ INT8_PER_FORWARD = 11
 INT8_RAGGED = (1001, 203, 77)  # M, K, O off the 64x64x32 tiles; K % 8 != 0
 QUANT_CALIB_BATCHES = 2
 QUANT_MIN_RATIO = 3.5
-RATE_WARMUP, RATE_STEPS = 3, 10
+RATE_WARMUP, RATE_STEPS = 3, 6
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -980,7 +980,7 @@ def gpu_line() -> str:
 DEVICE_SLEEP = 40_000_000
 
 
-def time_ms(fn, reps: int = 7, inner: int = 3, device: bool = False) -> float:
+def time_ms(fn, reps: int = 3, inner: int = 3, device: bool = False) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back
     calls, timed with CUDA events.  With ``device``, the card first
     sleeps ``DEVICE_SLEEP`` cycles so that the host enqueues every call
@@ -1030,15 +1030,23 @@ def bound(nbytes: float, ops: float, op_kind: str):
 # phase 2: each kernel against its plain version
 
 
-def step_calls(batch: int):
+def step_calls(batch: int, n_model: int = 1):
     """The kernel calls of one GoogLeNet training step at ``batch`` rows,
     read off the port's own shape inference and parameters:
     ``{kernel: {args: count}}``; the SGD kernel's one entry holds every
-    parameter tensor's ``(shape, lr, momentum, wd, clip)`` at step 0."""
+    parameter tensor's ``(shape, lr, momentum, wd, clip)`` at step 0.
+    Over a model axis of ``n_model`` ranks (phase 31) a rank's calls:
+    K6 on its slice of each group whose members' ``cout`` all divide
+    (``MeshPlan.model_dim``), K8 over its slices of the tensors."""
+    import torch
+
     from cxxnet_tpu_torch import config as cfgmod
     from cxxnet_tpu_torch.layers.conv import LRNLayer, MaxPoolingLayer
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     from cxxnet_tpu_torch.ops.maxpool import same_size_s1
+    from cxxnet_tpu_torch.parallel.mesh import MeshPlan
+
+    plan = MeshPlan(device=torch.device("cpu"), n_model=n_model)
 
     tr = NetTrainer()
     tr.set_params(cfgmod.parse_file(CONF) + [("dev", "cpu"),
@@ -1068,8 +1076,10 @@ def step_calls(batch: int):
             add("lrn_bwd", key)
         elif i in groups:
             n, oh, ow, _ = shapes[spec.nindex_out[0]]
-            o = sum(net.layer_objs[j].param.num_channel for j in groups[i])
-            add("conv_block_gemm", (n * oh * ow, xin[3], o))
+            couts = [net.layer_objs[j].param.num_channel for j in groups[i]]
+            if all(c % n_model == 0 for c in couts):
+                couts = [c // n_model for c in couts]
+            add("conv_block_gemm", (n * oh * ow, xin[3], sum(couts)))
     for k, n in PER_STEP.items():
         if sum(calls[k].values()) != n:
             raise SmokeError(f"GoogLeNet's training step makes "
@@ -1077,7 +1087,11 @@ def step_calls(batch: int):
     tensors = []
     for (key, tag), up in tr.updaters.items():
         pu = up.param
-        tensors.append((tuple(tr.params[key][tag].shape),
+        shape = list(tr.params[key][tag].shape)
+        d = plan.model_dim(shape)
+        if d is not None:
+            shape[d] //= n_model
+        tensors.append((tuple(shape),
                         float(pu.learning_rate(0)), float(pu.momentum_at(0)),
                         pu.wd, pu.clip_gradient))
     calls["sgd_update"] = {tuple(tensors): 1}
@@ -1091,10 +1105,12 @@ def _err(got, ref):
 
 
 def check_kernel(kernel: str, key, dtype, dev, gen,
-                 device_times: bool = False):
+                 device_times: bool = False, require_main: bool = True):
     """One kernel at one shape and dtype: agreement with its plain
     version, and the four times (with ``device_times``, in device time,
-    the calls' times beside)."""
+    the calls' times beside).  Without ``require_main`` the wrapper may
+    take either of its C entries (the row names it: ``entry``), and the
+    turns against the other entry are skipped."""
     import torch
     import torch.nn.functional as F
 
@@ -1210,8 +1226,10 @@ def check_kernel(kernel: str, key, dtype, dev, gen,
     got = run()
     ref = plain()
     torch.cuda.synchronize()
+    took = _symbol_delta(owner, symbols) if owner else {}
+    if not require_main:
+        main = None
     if main is not None:
-        took = _symbol_delta(owner, symbols)
         if took != {main: 1}:
             raise SmokeError(f"{kernel} {label} {dtype} launched {took}, "
                              f"not the main path ({main}) once")
@@ -1241,6 +1259,10 @@ def check_kernel(kernel: str, key, dtype, dev, gen,
     if device_times:
         row["call_ms"] = time_ms(run)
         row["library_call_ms"] = time_ms(library)
+    if not require_main:
+        row["entry"] = sorted(took)
+        del got, ref
+        return row
     if vector and dtype == torch.bfloat16:
         row["call_ms"], row["library_call_ms"] = row["ms"], row["library_ms"]
         row.update(_edge_turns(kernel, args, ref, run, library, rtol, atol))
@@ -2473,7 +2495,7 @@ def quant_phase(tmp: str, path: str, f32_answers):
 
 def kernels_line(rows, serve_launches, train_launches, flash_rows,
                  lm_launches, gen_launches, int8_rows, quant_launches,
-                 loop_out, fleet_out, p27, p28, p2930):
+                 loop_out, fleet_out, p27, p28, p2930, p31):
     """Per kernel: the launches of its main path (GoogLeNet training for
     K1-K8, with the serving run's for the forward kernels; the LM
     training run for K9 and K10, with the windowed generation run's; the
@@ -2483,8 +2505,10 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
     and 26b, and 26c; phase 27's: 27a's ``remat = 1`` LM run, 27b's MoE
     LM run, 27c's ``remat = 1`` pipe steps and 27d's ``remat = 1``
     GoogLeNet steps; phase 28's two ranks; phase 29's async step and
-    phase 30's ring and all-to-all steps, the two ranks summed), the max
-    error over every check, and one
+    phase 30's ring and all-to-all steps, the two ranks summed; phase
+    31's three runs on the model axis, the two ranks summed, with K6's
+    and K8's calls at a rank's sliced shapes), the max error over every
+    check, and one
     training step's launches' times summed (GoogLeNet b128 bf16; the SGD
     kernel's f32 row covers all its launches; the LM step's 4 launches of
     K9 and of K10), or for K7 one b128 bf16 forward's 11 launches."""
@@ -2551,12 +2575,13 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
         by_bytes = sum(r["per_step"] * r["bound_ms"] for r in step
                        if r["bound_by"] == "bytes")
         by_ops = total("bound_ms") - by_bytes
+        sliced = [r for r in p31["kernels"] if r["kernel"] == k.name]
         row = {
             "name": k.name, "route": "cuda",
             "source": os.path.relpath(k.source, REPO),
             "replaces": k.replaces.split()[0],
             "launches": train_launches[k.name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_abs_err": max(r["max_abs_err"] for r in mine + sliced),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -2575,6 +2600,13 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
             # "ms" and "library_ms" are device times; a call's, host
             # included, beside them
             row.update({f: total(f) for f in ("call_ms", "library_call_ms")})
+        if sliced:  # phase 31a: a rank's calls on its model slices
+            row["model_axis_calls"] = [
+                {"shape": r["shape"], "entry": r.get("entry", "main"),
+                 "launches_per_rank_step": r["per_step"],
+                 **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}}
+                for r in sliced]
         out.append(row)
     loop_runs = [*loop_out["serve_train"], loop_out["loop_fleet"]]
     for row in out:
@@ -2610,6 +2642,9 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
             row["name"], 0)
         row["launches_seq_parallel"] = p2930["launches"][
             "seq_parallel"].get(row["name"], 0)
+        # phase 31: the two ranks' launches summed (31a's GoogLeNet, 31b's
+        # pipe stages and 31c's MoE LM steps)
+        row["launches_model_axis"] = p31["launches"].get(row["name"], 0)
     return {"kernels": out}
 
 
@@ -5771,7 +5806,7 @@ def imgbin_phase(tmp: str, card: str, synthetic_rates):
 REWRITES = {"direct": (), "conv_s2d": ("conv_s2d=1",),
             "wino_f4": ("conv_wino=1",), "wino_f2": ("conv_wino=2",)}
 REWRITE_STEPS = 3
-REWRITE_TIMED = 3  # steps a turn in the step-time turns
+REWRITE_TIMED = 2  # steps a turn in the step-time turns
 S2D_F32_REL = 1e-5
 WINO_F32_ATOL = 2e-4
 WINO_BF16_FACTOR = {1: 25.0, 2: 3.0}
@@ -10555,7 +10590,9 @@ def _cos_updates(a, b, w0):
     for kt, w in w0.items():
         da, db = (a[kt] - w).ravel(), (b[kt] - w).ravel()
         n = np.linalg.norm(da) * np.linalg.norm(db)
-        out[kt] = float(da @ db / n) if n > 0 else 1.0
+        # a zero update scores 1 only against a zero reference
+        out[kt] = float(da @ db / n) if n > 0 else float(
+            not da.any() and not db.any())
     return out
 
 
@@ -11053,15 +11090,30 @@ def _mp_batch(k: int):
 
 
 def _mp_weights_crc(tr) -> int:
-    """The CRC32 of every weight's bytes, in the sorted tree's order."""
+    """The CRC32 of every whole weight's bytes (gathered over the model
+    axis: collective), in the sorted tree's order."""
     import zlib
 
     crc = 0
-    for k in sorted(tr.params):
-        for t in sorted(tr.params[k]):
-            crc = zlib.crc32(tr.params[k][t].detach().cpu().numpy()
+    params = tr._full_params()
+    for k in sorted(params):
+        for t in sorted(params[k]):
+            crc = zlib.crc32(params[k][t].detach().cpu().numpy()
                              .tobytes(), crc)
     return crc
+
+
+def _mp_whole(tr, slot: str = ""):
+    """Every whole weight as f32 numpy by ``key/tag`` (gathered over the
+    model axis: collective), or with ``slot`` that updater slot's whole
+    state."""
+    out = {}
+    params = tr._full_params()
+    for k in sorted(params):
+        for t in sorted(params[k]):
+            w = tr._full_ustate(k, t)[slot] if slot else params[k][t]
+            out[f"{k}/{t}"] = w.detach().float().cpu().numpy().copy()
+    return out
 
 
 def _mp_step(tr, k: int, rows, launches=None):
@@ -11154,55 +11206,53 @@ def _k2a_runs(spec, rank: int):
         tr.set_params([tuple(p) for p in spec["k2a_cfgs"][mode]]
                       + [("model_parallel", "2")])
         tr.load_model(spec["k2a_ckpt"])
-        w0 = {f"{k}/{t}": w.detach().float().cpu().numpy().copy()
-              for k, tags in tr.params.items() for t, w in tags.items()}
+        w0 = _mp_whole(tr)
         launches = []
         loss = _mp_step(tr, 0, slice(None), launches)
         out = {"loss": loss, "launches": launches[0],
                "crc": _mp_weights_crc(tr),
                "mesh": [tr.mesh_plan.n_data, tr.mesh_plan.n_model,
                         tr.mesh_plan.model_index]}
+        w1, m1 = _mp_whole(tr), _mp_whole(tr, "m1")
         if ref is not None:
-            out["cos"] = _sp_cosines(tr, w0, ref)
-            out["m1_norm"] = _sp_m1_norm_ratios(tr, ref)
+            out["cos"] = _sp_cosines(w1, m1, w0, ref)
+            out["m1_norm"] = _sp_m1_norm_ratios(m1, ref)
         res[mode] = out
         del tr
     return res
 
 
-def _sp_cosines(tr, w0, ref):
+def _sp_cosines(w1, m1, w0, ref):
     """Per tensor the lower of the cosines of Adam's m1 and of the update
-    over the elements whose one-rank m1 is at least 1e-3 of its largest
-    (as ``_lm_parity``), against the one-rank step in ``ref``."""
+    ``w1 - w0`` over the elements whose one-rank m1 is at least 1e-3 of
+    its largest (as ``_lm_parity``), against the one-rank steps in
+    ``ref`` (whole tensors by ``key/tag``: ``_mp_whole``)."""
     import numpy as np
 
     def cos(a, b):
         n = np.linalg.norm(a) * np.linalg.norm(b)
-        return float((a * b).sum() / n) if n > 0 else 1.0
+        return float((a * b).sum() / n) if n > 0 else float(
+            not a.any() and not b.any())
 
     out = {}
     for name, w in w0.items():
-        k, t = name.rsplit("/", 1)
-        d = tr.params[k][t].detach().float().cpu().numpy() - w
-        m1 = tr.ustates[k][t]["m1"].detach().float().cpu().numpy()
+        d = w1[name] - w
         d_r, m1_r = ref["d:" + name], ref["m1:" + name]
         sel = np.abs(m1_r) >= 1e-3 * np.abs(m1_r).max()
-        out[name] = min(cos(m1, m1_r), cos(d[sel], d_r[sel]))
+        out[name] = min(cos(m1[name], m1_r), cos(d[sel], d_r[sel]))
     return out
 
 
-def _sp_m1_norm_ratios(tr, ref):
-    """Per tensor |m1| / |m1 of the one-rank step in ``ref``| (1.0 where
+def _sp_m1_norm_ratios(m1, ref):
+    """Per tensor |m1| / |m1 of the one-rank steps in ``ref``| (1.0 where
     both are 0)."""
     import numpy as np
 
     out = {}
-    for k, tags in tr.params.items():
-        for t in tags:
-            m1 = tr.ustates[k][t]["m1"].detach().float().cpu().numpy()
-            a, b = np.linalg.norm(m1), np.linalg.norm(ref[f"m1:{k}/{t}"])
-            out[f"{k}/{t}"] = float(a / b) if b > 0 else (
-                1.0 if a == 0 else float("inf"))
+    for name, m in m1.items():
+        a, b = np.linalg.norm(m), np.linalg.norm(ref["m1:" + name])
+        out[name] = float(a / b) if b > 0 else (
+            1.0 if a == 0 else float("inf"))
     return out
 
 
@@ -11446,6 +11496,414 @@ def async_seq_parallel_phase(card: str):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 31: the rest of the model axis (k2b, k2c) at model_parallel = 2,
+# over two rank processes sharing the card (gloo), as phase 30's ranks
+# do: 31a GoogLeNet with every tensor cut over the two ranks (K6 on each
+# rank's slices of the sibling groups, K8 over its slices), 31b the pipe
+# stack as two GPipe stages, 31c the MoE LM with four experts a rank;
+# each run from one seeded checkpoint against the one-rank run on the
+# whole batch
+MA_STEPS = 2  # each run's compared steps, every rank on the whole batch
+MA_TIMED = 2  # 31b: steps timed after them, each way (31a: its second)
+MA_MICROBATCH = 4  # 31b: T + S - 1 = 5 ticks over 2 stages, bubble 0.2
+# 31a: a rank's params + updater state over one whole replica: JAX's
+# rule cuts every GoogLeNet tensor in two (0.5)
+MA_SHARD_LIMIT = 0.55
+MA_RUNS = ("gn", "pipe", "moe0", "moe32")
+# 31c runs the LM with its gates unmasked (topk = 0, "moe0") in bf16, as
+# 27b holds bf16 against f32, and top-2 in float32 ("moe32"), as 27b
+# holds top-2 card against CPU: from the random init the gates are near
+# uniform, so the second and third largest of a token's gates nearly
+# tie and a bf16 rounding apart (the ranks' partial outputs summed in
+# f32, then rounded) sends tokens of a later block to other experts.
+# bf16 top-2 read cosines 0.866-0.894 worst, 0.970-0.974 median on an
+# H100 80GB HBM3 at 700 W, f32 top-2 0.99999 worst (PERF.md)
+# the update cosines' limits (worst, median) by run; the LM rule
+# (LM_UPDATE_COS) where none is named
+MA_COS = {"gn": (UPDATE_COS, UPDATE_COS_MEDIAN), "moe32": (0.9999, 0.99999)}
+# held beside the cosines, which a gradient the model axis scaled would
+# leave as they are: every compared step's loss against the one-rank
+# run's, relative (MA_LOSS_REL), and per tensor the norm of the update
+# over the one-rank update's, and with Adam also m1's (phase 30's rule),
+# within MA_NORM_REL of 1; a zero update against a nonzero one scores
+# cosine 0.  Set from the readings on an H100 80GB HBM3 at 700 W
+# (PERF.md): second-step losses 31a 125.0695 vs 126.1741 (8.8e-3),
+# 31b 1.9e-5, 31c topk = 0 2.8e-6, f32 top-2 0; norms 31a 1.5e-2 (a
+# bias), 31b 3.3e-4, 31c topk = 0 1.1e-2 (a gate's m1: the ranks'
+# partial bf16 gate gradients summed), f32 top-2 2.6e-6; f32 top-2
+# cosines worst 0.99999.  A gradient scaled by the axis's 2 moves a
+# norm ratio by 1
+MA_LOSS_REL = {"gn": 3e-2, "pipe": 2e-4, "moe0": 1e-4, "moe32": 1e-5}
+MA_NORM_REL = {"gn": 5e-2, "pipe": 1e-2, "moe0": 5e-2, "moe32": 1e-4}
+
+
+def _ma_confs(tmp: str):
+    """Phase 31's runs: ``{name: (one-rank conf pairs, two-rank conf
+    pairs, input side or None)}``."""
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.models import transformer_conf
+
+    common = [("print_step", "0"), ("eval_train", "0"), ("seed", str(SEED))]
+    gn = cfgmod.parse_file(_train_conf(tmp)) + [
+        ("dev", DP_DEV), ("compute_dtype", "bfloat16")] + common
+    kw = dict(batch_size=LM_BATCH, seq_len=LM_T, dim=LM_DIM, nhead=LM_HEADS,
+              nlayer=LM_LAYERS, num_class=PIPE_CLASSES, causal=1, dev=DP_DEV,
+              compute_dtype="bfloat16", n_microbatch=MA_MICROBATCH)
+    pipe1 = cfgmod.parse_pairs(transformer_conf(pipeline_parallel=1, **kw))
+    pipe2 = cfgmod.parse_pairs(transformer_conf(pipeline_parallel=2, **kw))
+    corpus = _text_file(tmp, "moe31.txt", P27_WINDOWS, SEED + 31)
+    moe = cfgmod.parse_pairs(_lm_text(corpus, 0, 1, moe=True)) + [
+        ("dev", DP_DEV)] + common
+    moe0 = [(n, "0" if n == "topk" else v) for n, v in moe]
+    moe32 = [(n, "float32" if n == "compute_dtype" else v) for n, v in moe]
+    side = int(dict(gn)["input_shape"].split(",")[1])
+    mp = [("model_parallel", "2")]
+    return {"gn": (gn, gn + mp, side),
+            "pipe": (pipe1 + common, pipe2 + common, None),
+            "moe0": (moe0, moe0 + mp, None),
+            "moe32": (moe32, moe32 + mp, None)}
+
+
+def _ma_batch(name: str, k: int, side):
+    """Run ``name``'s k-th global batch: 28's images, 30's byte windows,
+    or seeded ``(LM_BATCH, LM_T, LM_DIM)`` rows for the pipe stack."""
+    import numpy as np
+
+    if name == "gn":
+        return _dp_batch(k, BATCH, side)
+    if name in ("moe0", "moe32"):
+        return _mp_batch(k)
+    rng = np.random.RandomState(SEED + 31 + k)
+    return (rng.randn(LM_BATCH, LM_T, LM_DIM).astype(np.float32),
+            rng.randint(0, PIPE_CLASSES, (LM_BATCH, 1)).astype(np.float32))
+
+
+def _ma_run(name: str, cfg, ckpt: str, side, timed: bool):
+    """One run of phase 31 in this process: ``MA_STEPS`` steps on the
+    whole batches from ``ckpt``, each step's launches (counts at 0 just
+    before, read just after) and K6's by C entry, and its loss; then
+    the train state's bytes, the whole weights (and Adam's m1) gathered
+    over the model axis, and with ``timed`` the median ms of
+    ``MA_TIMED`` steps (host clock, synchronized, the compared steps
+    their warm-up; each compared step's ms is kept too).  Returns
+    ``(readings, whole, m1)``."""
+    import torch
+
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.parallel import distributed as pdist
+
+    tr = NetTrainer()
+    tr.set_params([tuple(p) for p in cfg])
+    tr.load_model(ckpt)
+    out = {"launches": [], "paths": [], "losses": [], "collective_ms": [],
+           "steps_ms": []}
+    for k in range(MA_STEPS):
+        x, y = _ma_batch(name, k, side)
+        for kern in KERNELS:
+            kern.reset_counts()
+        paths = _by_symbol()
+        c0, t0 = pdist.STATS["seconds"], time.perf_counter()
+        tr.update_all(x, y)
+        tr.sync()
+        out["steps_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append({kern.name: kern.launches for kern in KERNELS})
+        out["paths"].append(_paths_since(paths))
+        out["collective_ms"].append((pdist.STATS["seconds"] - c0) * 1e3)
+        out["losses"].append(float(tr.last_loss))
+    per, total = tr.state_shard_bytes()
+    out.update(shard_bytes=sum(per.values()), total_bytes=total)
+    whole = _mp_whole(tr)
+    adam = any("m1" in slots for tags in tr.ustates.values()
+               for slots in tags.values())
+    m1 = _mp_whole(tr, "m1") if adam else {}
+    if timed:
+        x, y = _ma_batch(name, 0, side)
+        batch = DataBatch(data=torch.as_tensor(x, device=tr.device),
+                          label=torch.as_tensor(y, device=tr.device))
+        times = []
+        for _ in range(MA_TIMED):
+            t0 = time.perf_counter()
+            tr.update(batch)
+            tr.sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"] = statistics.median(times)
+    del tr
+    torch.cuda.empty_cache()
+    return out, whole, m1
+
+
+def ma_rank_main(spec_path: str, rank: int) -> int:
+    """One rank process of phase 31 (``python chip_smoke.py --ma-rank
+    SPEC RANK``): joins the group, takes 31a, 31b and 31c, writes
+    ``<out>/rank<rank>.json`` and, on rank 0, each run's whole weights
+    (and m1) to ``<out>/<run>.npz``."""
+    sys.path.insert(0, REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    globals().update(spec["consts"])
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch.parallel import distributed as pdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pdist.init_distributed(spec["coord"], spec["world"], rank, dev=DP_DEV,
+                           timeout_s=spec["timeout_s"])
+    res = {"backend": pdist.backend()}
+    for name in MA_RUNS:
+        t0 = time.perf_counter()
+        run, whole, m1 = _ma_run(name, spec["cfgs"][name],
+                                 spec["ckpts"][name], spec["side"],
+                                 name == "pipe")
+        run["crc"] = zlib.crc32(b"".join(whole[n].tobytes()
+                                         for n in sorted(whole)))
+        run["run_s"] = time.perf_counter() - t0
+        if rank == 0:
+            np.savez(os.path.join(spec["out"], f"{name}.npz"),
+                     **{"w:" + n: w for n, w in whole.items()},
+                     **{"m1:" + n: w for n, w in m1.items()})
+        res[name] = run
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    pdist.shutdown_distributed()
+    return 0
+
+
+def _ma_cosines(two, one, w0, m1_two=None, m1_one=None):
+    """Per tensor the cosine of the two-rank update against the one-rank
+    one; with Adam's m1 the lower of m1's cosine and the update's over
+    the elements whose one-rank m1 is at least 1e-3 of its largest
+    (``_sp_cosines``)."""
+    if m1_one:
+        ref = {**{"d:" + n: one[n] - w for n, w in w0.items()},
+               **{"m1:" + n: m for n, m in m1_one.items()}}
+        return _sp_cosines(two, m1_two, w0, ref)
+    return _cos_updates(two, one, w0)
+
+
+def _ma_norm_devs(two, one, w0, m1_two, m1_one):
+    """Per tensor ``|r - 1|`` of the ratio ``r`` of the two-rank update's
+    norm to the one-rank one's (``d:``), and of m1's (``m1:``) where
+    the runs hold Adam's m1: 0 where both are zero, inf where only the
+    one-rank one is."""
+    import numpy as np
+
+    def dev(a, b):
+        na, nb = float(np.linalg.norm(a)), float(np.linalg.norm(b))
+        return abs(na / nb - 1.0) if nb > 0 else (0.0 if na == 0
+                                                 else float("inf"))
+
+    out = {"d:" + n: dev(two[n] - w, one[n] - w) for n, w in w0.items()}
+    out.update(("m1:" + n, dev(m, m1_one[n])) for n, m in m1_two.items())
+    return out
+
+
+def model_axis_phase(card: str):
+    """Phase 31: 31a ``googlenet.conf`` b128 bf16 (rates times
+    ``LR_SCALE``) with every tensor cut over ``model_parallel = 2``,
+    31b ``transformer_conf(pipeline_parallel = 2, n_microbatch =
+    MA_MICROBATCH)`` at the LM's widths (27c's stack as two GPipe
+    stages) against the one-rank ``pipeline_parallel = 1`` stack, and
+    31c 27b's MoE LM (``remat = 0``) with ``MOE_EXPERTS / 2`` experts a
+    rank, in bf16 with its gates unmasked and top-2 in float32:
+    ``MA_STEPS`` steps each from one seeded checkpoint in two rank
+    processes sharing the card (gloo), against the one-rank run here on
+    the same batches.  Held: every step's launches on each rank (31a
+    GoogLeNet's step, K6 on its sliced groups and K8 once over the
+    slices; 31b K8 once; 31c K9 and K10 once a block), the ranks' whole
+    weights equal, each update's cosine (31a at 28's ``UPDATE_COS``,
+    31b and 31c by the LM rule, the f32 top-2 run tighter, 31c on Adam's
+    m1 too: ``MA_COS``), every step's loss (``MA_LOSS_REL``), each
+    update's norm, and 31c's m1 norms (``MA_NORM_REL``), 31a's state
+    bytes a rank at most ``MA_SHARD_LIMIT`` of a replica; K6 at the
+    sliced group shapes (either C entry) and K8 over the slices against
+    their plain versions, timed.  Returns the readings."""
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.serve.fleet import free_port
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    out = {"card": card}
+    gen = torch.Generator().manual_seed(SEED + 31)
+    rows = []
+    calls = step_calls(BATCH, n_model=2)
+    for kernel in ("conv_block_gemm", "sgd_update"):
+        dtype = torch.float32 if kernel == "sgd_update" else torch.bfloat16
+        for key, count in calls[kernel].items():
+            main = kernel == "sgd_update" or key[2] % 8 == 0
+            r = check_kernel(kernel, key, dtype, dev, gen,
+                             device_times=True, require_main=main)
+            r["per_step"] = count
+            rows.append(r)
+            log(f"31a kernel {r['kernel']:16s} {r['dtype']:8s} "
+                f"{r['shape']:34s} x{count} entry {r.get('entry', 'main')} "
+                f"abs {r['max_abs_err']:.3g} (rtol {r['rtol']:g} atol "
+                f"{r['atol']:g}) {'ok' if r['ok'] else 'MISMATCH'}  ms "
+                f"{r['ms']:.4f} plain {r['plain_ms']:.4f} library "
+                f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}); {card}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise SmokeError(f"31a: {len(bad)} kernel check(s) at the sliced "
+                         "shapes out of tolerance: " + "; ".join(
+                             f"{r['kernel']} {r['shape']}" for r in bad))
+    out["kernels"] = rows
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ma_") as tmp:
+        confs = _ma_confs(tmp)
+        side = confs["gn"][2]
+        ckpts, ref = {}, {}
+        t0 = time.perf_counter()
+        for name in MA_RUNS:
+            tr = NetTrainer()
+            tr.set_params(confs[name][0])
+            tr.init_model()
+            ckpts[name] = os.path.join(tmp, f"{name}.model")
+            tr.save_model(ckpts[name])
+            w0 = _mp_whole(tr)
+            del tr
+            run, whole, m1 = _ma_run(name, confs[name][0], ckpts[name], side,
+                                     name == "pipe")
+            ref[name] = dict(run, w0=w0, whole=whole, m1=m1)
+        out["reference_s"] = time.perf_counter() - t0
+        spec = {"world": DP_RANKS, "coord": f"127.0.0.1:{free_port()}",
+                "timeout_s": 180, "out": tmp, "side": side, "ckpts": ckpts,
+                "cfgs": {n: confs[n][1] for n in MA_RUNS},
+                "consts": {n: globals()[n] for n in (
+                    "MA_STEPS", "MA_TIMED", "DP_DEV", "LM_T", "LM_DIM",
+                    "LM_HEADS", "LM_LAYERS", "LM_BATCH", "SEED", "BATCH",
+                    "PIPE_CLASSES", "MA_RUNS")}}
+        spec_path = os.path.join(tmp, "ma_spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        codes, outs = _dp_spawn(
+            [[sys.executable, os.path.join(REPO, "chip_smoke.py"),
+              "--ma-rank", spec_path, str(r)] for r in range(DP_RANKS)],
+            tmp, "ma")
+        out["ranks_s"] = time.perf_counter() - t1
+        if any(c != 0 for c in codes):
+            raise SmokeError(f"31: rank exits {codes}: "
+                             + " | ".join(o[-3000:] for o in outs))
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        two = {}
+        for name in MA_RUNS:
+            z = np.load(os.path.join(tmp, f"{name}.npz"))
+            two[name] = ({k[2:]: z[k] for k in z.files if k.startswith("w:")},
+                         {k[3:]: z[k] for k in z.files if k.startswith("m1:")})
+    if ranks[0]["backend"] != "gloo":
+        raise SmokeError(f"31: two ranks on one card ran {ranks[0]['backend']}")
+    flash = {"flash_fwd": LM_LAYERS, "flash_bwd": LM_LAYERS}
+    want = {"gn": IMGBIN_PER_STEP, "pipe": {"sgd_update": 1},
+            "moe0": flash, "moe32": flash}
+    tags = {"gn": "31a googlenet", "pipe": "31b pipe stages",
+            "moe0": "31c moe experts, topk = 0",
+            "moe32": "31c moe experts, top-2, float32"}
+    out["launches"] = {}
+    for name in MA_RUNS:
+        runs = [r[name] for r in ranks]
+        for r, run in enumerate(runs):
+            _mp_check_launches(f"{tags[name]} rank {r}", run["launches"],
+                               want[name])
+        if len({run["crc"] for run in runs}) != 1:
+            raise SmokeError(f"{tags[name]}: the ranks' whole weights differ:"
+                             f" {[run['crc'] for run in runs]}")
+        one = ref[name]
+        _mp_check_launches(f"{tags[name]} one rank", one["launches"],
+                           want[name])
+        cos = _ma_cosines(two[name][0], one["whole"], one["w0"],
+                          two[name][1], one["m1"])
+        lim = MA_COS.get(name, (LM_UPDATE_COS, LM_UPDATE_COS_MEDIAN))
+        worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+        med = statistics.median(cos.values())
+        rels = [abs(a - b) / abs(b)
+                for a, b in zip(runs[0]["losses"], one["losses"])]
+        norm = _ma_norm_devs(two[name][0], one["whole"], one["w0"],
+                             two[name][1], one["m1"])
+        norm_worst = sorted(norm.items(), key=lambda kv: -kv[1])[:3]
+        frac = [run["shard_bytes"] / run["total_bytes"] for run in runs]
+        line = (f"{tags[name]} ({card}): update cosines 2 ranks vs 1 after "
+                f"{MA_STEPS} steps: "
+                f"median {med:.5f} (limit {lim[1]:g}), "
+                f"worst 5 {[(n, round(v, 5)) for n, v in worst]} (limit "
+                f"{lim[0]:g}); losses 2 ranks {runs[0]['losses']} 1 rank "
+                f"{one['losses']} (rel {[float(f'{v:.3g}') for v in rels]}, "
+                f"limit {MA_LOSS_REL[name]:g}); update (and m1) "
+                f"norm / one rank's - 1, worst 3 "
+                f"{[(n, float(f'{v:.3g}')) for n, v in norm_worst]} (limit "
+                f"{MA_NORM_REL[name]:g}); params+state bytes "
+                f"a rank {[run['shard_bytes'] for run in runs]} of "
+                f"{runs[0]['total_bytes']} ({[round(f, 4) for f in frac]}); "
+                f"step launches {runs[0]['launches'][0]}; collectives host "
+                f"ms a step {[[round(v, 1) for v in run['collective_ms']] for run in runs]}")
+        if "step_ms" in one:
+            line += (f"; step ms 2 ranks {[round(run['step_ms'], 1) for run in runs]}"
+                     f" vs one rank {one['step_ms']:.1f}")
+        else:
+            line += (f"; compared steps' ms 2 ranks {[[round(v, 1) for v in run['steps_ms']] for run in runs]}"
+                     f" vs one rank {[round(v, 1) for v in one['steps_ms']]}")
+        if name == "gn":
+            line += f"; K6 by C entry a step {runs[0]['paths'][0]}"
+        if name == "pipe":
+            ticks = MA_MICROBATCH + DP_RANKS - 1
+            line += (f"; {MA_MICROBATCH} microbatches over {DP_RANKS} stages:"
+                     f" {ticks} ticks, bubble {(DP_RANKS - 1) / ticks:.2f}")
+        log(line)
+        bad = [n for n, v in cos.items() if not v >= lim[0]]
+        if bad or not med >= lim[1]:
+            raise SmokeError(f"{tags[name]}: update cosines below {lim[0]:g}:"
+                             f" {bad[:6]}, median {med:.5f}")
+        bad_norm = [n for n, v in norm.items() if not v <= MA_NORM_REL[name]]
+        if bad_norm or not max(rels) <= MA_LOSS_REL[name]:
+            raise SmokeError(f"{tags[name]}: loss rel {rels} (limit "
+                             f"{MA_LOSS_REL[name]:g}), norms off by more "
+                             f"than {MA_NORM_REL[name]:g}: {bad_norm[:6]}")
+        if name == "gn" and max(frac) > MA_SHARD_LIMIT:
+            raise SmokeError(f"31a: params+state bytes a rank {frac} of a "
+                             f"replica, limit {MA_SHARD_LIMIT}")
+        out[name] = {"cos_worst": worst[0][1], "cos_median": med,
+                     "losses_2": runs[0]["losses"],
+                     "losses_1": one["losses"], "loss_rel": rels,
+                     "norm_dev_worst": norm_worst[0][1],
+                     "shard_fraction": frac,
+                     "shard_bytes": [run["shard_bytes"] for run in runs],
+                     "total_bytes": runs[0]["total_bytes"],
+                     "launches": runs[0]["launches"][0],
+                     "collective_ms": [run["collective_ms"] for run in runs],
+                     "steps_ms_2": [run["steps_ms"] for run in runs],
+                     "steps_ms_1": one["steps_ms"],
+                     "run_s": [run["run_s"] for run in runs]}
+        if "step_ms" in one:
+            out[name].update(step_ms_2=[run["step_ms"] for run in runs],
+                             step_ms_1=one["step_ms"])
+        if name == "pipe":
+            out[name].update(ticks=MA_MICROBATCH + DP_RANKS - 1,
+                             bubble=(DP_RANKS - 1)
+                             / (MA_MICROBATCH + DP_RANKS - 1))
+        for kern in KERNELS:
+            out["launches"][kern.name] = out["launches"].get(
+                kern.name, 0) + sum(sum(step.get(kern.name, 0)
+                                        for step in run["launches"])
+                                    for run in runs)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -11582,10 +12040,14 @@ def main() -> int:
         log(json.dumps({"async_seq_parallel": {
             k: v for k, v in p2930.items() if k != "hops"}}))
         lap("29-30 async, seq parallel")
+        p31 = model_axis_phase(card)
+        log(json.dumps({"model_axis": {k: v for k, v in p31.items()
+                                       if k != "kernels"}}))
+        lap("31 model axis")
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
                             quant_launches, loop_out, fleet_out, p27, p28,
-                            p2930)
+                            p2930, p31)
         log(json.dumps({"phase_s": phase_s, "total_s": round(sum(
             phase_s.values()), 1), "card": card}))
         log(card)
@@ -11605,4 +12067,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(sys.argv[2], int(sys.argv[3])))
     if len(sys.argv) == 4 and sys.argv[1] == "--mp-rank":
         sys.exit(mp_rank_main(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--ma-rank":
+        sys.exit(ma_rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -210,6 +210,7 @@ tasks other than ``train`` and ``finetune`` run on one process.
 
 from __future__ import annotations
 
+import math
 import os
 import signal
 import sys
@@ -1295,7 +1296,8 @@ class LearnTask:
             key = tr.net.param_key[i]
             n_par = 0
             if spec.type_name != "shared" and key in tr.params:
-                n_par = int(sum(w.numel() for w in tr.params[key].values()))
+                n_par = sum(math.prod(tr._whole_shape(key, t))
+                            for t in tr.params[key])
                 total += n_par
             out = shapes[spec.nindex_out[0]] if spec.nindex_out else ()
             print(f"{i:>3} {spec.name or '':22s} {spec.type_name:18s} "

@@ -15,9 +15,9 @@ one process.  In a data-parallel group the digest blocks are
 all-gathered (the JAX package's ``process_allgather``; every rank holds
 the same leaves in the same order), and every rank recomputes its
 peers' (leaf, slice) keys from the trainer's placement
-(``NetTrainer.placement``: under ``zero`` a sharded leaf is digested as
-the rank's slice), so a flipped bit on one of three replicas names its
-rank.
+(``NetTrainer.held_slice``: a leaf cut over the model ranks, or under
+``zero`` over the data ranks, is digested as the rank's slice, its own
+group), so a flipped bit on one of three replicas names its rank.
 
 The **shadow-step audit** guards compute rather than state: the
 trainer's ``shadow_step`` runs the sampled round's grad step twice on
@@ -80,32 +80,38 @@ def _leaves(trainer):
 
 def _leaf_key(trainer, name: str, shape, rank: int) -> tuple:
     """``(leaf_name, slice_key)`` of rank ``rank``'s copy of a leaf: the
-    full extent, or under ``zero`` the rank's slice of a sharded one."""
-    place = getattr(trainer, "placement", lambda _n: None)(name)
-    if place is None:
+    full extent, or the rank's slice of a leaf cut over the ranks."""
+    held = _held(trainer, name, shape, rank)
+    if held is None:
         return name, _slice_key(tuple(slice(0, s, None) for s in shape))
-    whole, dim = place
-    n = whole[dim] // trainer.mesh_plan.n_data
-    return name, _slice_key(tuple(
-        slice(rank * n, (rank + 1) * n, None) if d == dim
-        else slice(0, s, None) for d, s in enumerate(whole)))
+    return name, _slice_key(held[0])
+
+
+def _held(trainer, name: str, shape, rank: int):
+    """``(index, whole shape)`` of rank ``rank``'s slice of a cut leaf,
+    None for a whole one (``NetTrainer.held_slice``)."""
+    held = getattr(trainer, "held_slice", None)
+    return held(name, shape, rank) if held is not None else None
 
 
 def local_fingerprints(trainer, rank: int = 0
                        ) -> Tuple[List[Digest], List[tuple]]:
     """Digest every leaf on its device.  Returns (rows, keys) where
     ``keys[i] = (leaf_name, slice_key)``: the slice of the whole leaf
-    that rank ``rank`` holds."""
+    that rank ``rank`` holds.  A slice is digested at its place in the
+    whole leaf, as the JAX package digests a shard, so the digests of
+    one replica of every slice combine (``combine_digests``) into the
+    whole leaf's."""
     rows: List[Digest] = []
     keys: List[tuple] = []
     for name, arr in _leaves(trainer):
-        if hasattr(arr, "element_size"):  # a torch tensor
-            rows.append(digest_tensor(arr))
-            shape = tuple(int(s) for s in arr.shape)
-        else:
-            a = np.asarray(arr)
-            rows.append(digest_array(a))
-            shape = a.shape
+        torch_leaf = hasattr(arr, "element_size")
+        a = arr if torch_leaf else np.asarray(arr)
+        shape = tuple(int(s) for s in a.shape)
+        held = _held(trainer, name, shape, rank)
+        index, whole = held if held is not None else (None, None)
+        rows.append(digest_tensor(a, index=index, shape=whole) if torch_leaf
+                    else digest_array(a, index=index, shape=whole))
         keys.append(_leaf_key(trainer, name, shape, rank))
     return rows, keys
 

@@ -44,7 +44,12 @@ parameters in f32 under a bf16 compute dtype.
 ``pipe_transformer`` and ``pipe_mlp`` (``nblock``, ``pipeline_parallel``,
 ``n_microbatch``; the transformer also ``nhead``, ``causal``,
 ``ffn_hidden``, ``eps``) keep the JAX package's params and tags; the
-stacks run through ``ops/pipeline.py``.
+stacks run through ``ops/pipeline.py``, as GPipe stages over a model
+axis of more than one rank under ``pipeline_parallel``.  Over a model
+axis the MoE layer computes its own experts (expert parallelism) and a
+pipelined stack its own stage, each on the slices the trainer holds
+(``MeshPlan.model_dim``); the other layers here get their weights
+gathered at use (``nnet/net.py``).
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ import torch.nn.functional as F
 from ..ops import attention as sp_attention
 from ..ops.attention import NEG_INF, mha
 from ..ops.flash import HEAD_DIMS, flash_mha
-from ..ops.pipeline import _stage_apply
+from ..ops.pipeline import _stage_apply, pipeline_apply
+from ..parallel import distributed as pdist
 from .base import Layer, Params, Shape, register
 
 
@@ -313,8 +319,17 @@ class MoELayer(Layer):
     renormalised (``topk = 0`` keeps the dense soft mixture).  Every
     expert's product runs (dense dispatch), in the compute dtype; the
     gate is computed in f32 and cast to it.  Works on flat ``(N, D)``
-    and sequence ``(N, T, D)`` nodes.  The expert sharding over a model
-    axis is multi-device (ROADMAP.md queue A item 6)."""
+    and sequence ``(N, T, D)`` nodes.
+
+    Expert parallelism, as the JAX package's docstring describes it:
+    over a model axis that divides ``nexpert`` the trainer holds a
+    rank's ``E / m`` experts of ``wmat``, ``bias`` and ``wgate``; the
+    gate's ``(E, D)`` rows are gathered before the logits, so every
+    rank computes the whole gate, the one-rank product, and routing is
+    whole on every rank, ties falling as in JAX; the rank computes its
+    experts' gated share, and the shares are summed over the model
+    sub-group.  The gather moves the gate's ``E * D`` values, not one
+    logit per token and expert."""
 
     type_name = "moe"
 
@@ -322,6 +337,14 @@ class MoELayer(Layer):
         super().__init__()
         self.nexpert = 4
         self.topk = 0
+        self.mesh_plan = None  # bound by the trainer (bind_mesh)
+
+    def bind_mesh(self, plan) -> None:
+        self.mesh_plan = plan
+
+    def takes_model_slices(self) -> bool:
+        """The layer computes on its own experts' slices."""
+        return True
 
     def set_param(self, name, val):
         if name == "nexpert":
@@ -355,25 +378,38 @@ class MoELayer(Layer):
 
     def apply(self, params, inputs, train=False, gen=None, step=None):
         x = inputs[0]
-        logits = torch.einsum("...d,ed->...e", x, params["wgate"]).float()
+        e_mine = params["wmat"].shape[0]
+        group, wgate = None, params["wgate"]
+        if e_mine != self.nexpert:  # this rank's experts of the model axis
+            group = self.mesh_plan.model_group
+            x = pdist.model_input(x, group)
+            # each rank then uses its own experts' gates: the gate's
+            # gradient is summed over the ranks before each keeps its rows
+            wgate = pdist.model_input(pdist.model_gather(wgate, 0, group),
+                                      group)
+        logits = torch.einsum("...d,ed->...e", x, wgate).float()
         gate = torch.softmax(logits, dim=-1)
         if self.topk:
             gate = gate * topk_mask(gate, self.topk)
             gate = gate / torch.clamp_min(gate.sum(dim=-1, keepdim=True),
                                           1e-30)
         gate = gate.to(x.dtype)
+        if group is not None:
+            first = self.mesh_plan.model_index * e_mine
+            gate = gate.narrow(-1, first, e_mine)
         h = torch.einsum("...d,eod->...eo", x, params["wmat"]) + params["bias"]
-        return [torch.einsum("...e,...eo->...o", gate, h)]
+        y = torch.einsum("...e,...eo->...o", gate, h)
+        return [y if group is None else pdist.model_sum(y, group)]
 
 
 class _PipelineStackLayer(Layer):
     """Homogeneous block-stack layers: the ``nblock``,
-    ``pipeline_parallel`` and ``n_microbatch`` keys, and the stack run
-    in order (``ops/pipeline.py``).  On one device the stack runs plain
-    whatever ``pipeline_parallel`` says, as the JAX package does on a
-    model axis of one; more than one stage (``pipeline_parallel`` on a
-    model axis of more than one rank) raises at ``bind_mesh``
-    (ROADMAP.md (k2b)).  Subclasses define ``_block(p, x)`` and their
+    ``pipeline_parallel`` and ``n_microbatch`` keys, the JAX package's
+    stage and microbatch checks, and its dispatch (``_apply_stack``):
+    with ``pipeline_parallel`` on a model axis of more than one rank
+    the stack runs as GPipe stages over it (``ops/pipeline.py``), each
+    rank on its stage of the stacked params; otherwise it runs in
+    order, the same math.  Subclasses define ``_block(p, x)`` and their
     params stack."""
 
     def __init__(self) -> None:
@@ -381,6 +417,7 @@ class _PipelineStackLayer(Layer):
         self.nblock = 2
         self.pipeline_parallel = 0
         self.n_microbatch = 4
+        self.mesh_plan = None  # bound by the trainer (bind_mesh)
 
     def set_param(self, name, val):
         if name == "nblock":
@@ -393,17 +430,41 @@ class _PipelineStackLayer(Layer):
             super().set_param(name, val)
 
     def bind_mesh(self, plan) -> None:
-        """On a model axis of more than one rank ``pipeline_parallel``
-        asks for the GPipe stages over it, which raise (ROADMAP.md
-        (k2b)); without the key the stack runs whole on every rank."""
-        if self.pipeline_parallel and plan.n_model > 1:
-            raise NotImplementedError(
-                f"{self.type_name}: pipeline_parallel over a model axis of "
-                f"{plan.n_model}: the GPipe schedule across devices is not "
-                "ported yet (ROADMAP.md queue A item 6, (k2b))")
+        self.mesh_plan = plan
+
+    def _pipelined(self) -> bool:
+        plan = self.mesh_plan
+        return bool(self.pipeline_parallel and plan is not None
+                    and plan.n_model > 1)
+
+    def takes_model_slices(self) -> bool:
+        """Pipelined, the layer runs on its own stage of the stack; else
+        the trainer's slices are gathered at use."""
+        return self._pipelined()
+
+    def _check_pipeline_shape(self, batch: int) -> None:
+        if self.pipeline_parallel and self.mesh_plan is not None:
+            nm = self.mesh_plan.n_model
+            if nm > 1 and self.nblock % nm != 0:
+                raise ValueError(
+                    f"{self.type_name}: nblock={self.nblock} must divide "
+                    f"over the model axis ({nm} stages)")
+            if nm > 1 and batch % self.n_microbatch != 0:
+                raise ValueError(
+                    f"{self.type_name}: batch {batch} must divide into "
+                    f"{self.n_microbatch} microbatches")
+
+    def _apply_stack(self, stack, x):
+        """The stack pipelined over the model axis (when configured on
+        one of more than one rank) or run in order: the same math."""
+        if self._pipelined():
+            return pipeline_apply(self._block, stack, x, self.mesh_plan,
+                                  n_microbatch=self.n_microbatch,
+                                  n_block=self.nblock)
+        return _stage_apply(self._block, stack, x)
 
     def apply(self, params, inputs, train=False, gen=None, step=None):
-        return [_stage_apply(self._block, params, inputs[0])]
+        return [self._apply_stack(params, inputs[0])]
 
 
 @register
@@ -446,6 +507,7 @@ class PipeTransformerLayer(_PipelineStackLayer):
         if self.nhead <= 0 or d % self.nhead != 0:
             raise ValueError(
                 f"pipe_transformer: nhead={self.nhead} must divide dim {d}")
+        self._check_pipeline_shape(shape[0])
         return [tuple(shape)]
 
     def init_params(self, gen, in_shapes) -> Params:
@@ -498,6 +560,7 @@ class PipeMLPLayer(_PipelineStackLayer):
         (shape,) = in_shapes
         if len(shape) != 2:
             raise ValueError("pipe_mlp: input must be a matrix node")
+        self._check_pipeline_shape(shape[0])
         return [tuple(shape)]
 
     def init_params(self, gen, in_shapes) -> Params:

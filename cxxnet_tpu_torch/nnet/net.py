@@ -61,6 +61,21 @@ forward:
   larger products were measured to pay on the TPU's MXU only; ROADMAP.md
   section C).
 
+* the model axis (``model_parallel = m``): the trainer holds a rank's
+  slice of each tensor ``MeshPlan.model_dim`` cuts and binds the cuts
+  here (``bind_model_slices``).  A plain conv (one group) or a
+  ``fullc`` whose output dim is cut computes its own ``cout`` /
+  ``nout`` slice with its own bias slice and all-gathers the output
+  over the model sub-group (``distributed.model_input`` on its input,
+  ``model_gather`` on its output: Megatron's pair); a sibling-1x1 group
+  of such convs runs its GEMM (K6) over the concatenation of each
+  member's slice and splits the gathered output back per member, in
+  order.  A layer that computes on its own slices (``moe``, a
+  pipelined stack: ``takes_model_slices``) gets them as they are.  Any
+  other cut tensor (batch norm's and layer norm's vectors, the
+  attention and embedding weights, a group with an uncut member, the
+  members of a branch-embed group) is gathered at use, all of them in
+  one all-gather per ``prepare`` (``distributed.gather_leaves``).
 * ``remat = 1`` recomputes activations in the backward instead of
   keeping them: in training each unit the JAX package wraps in
   ``jax.checkpoint`` (a plain layer, a stateful layer, a sibling-1x1
@@ -91,6 +106,7 @@ from ..layers.structure import SplitLayer
 from ..ops import kernels as _klib
 from ..ops import quant as opsq
 from ..ops.kernels import conv_block as _kcb
+from ..parallel import distributed as pdist
 from .graph import NetGraph
 
 
@@ -131,6 +147,11 @@ class FunctionalNet:
         self._fuse_cache = None
         self.conv_branch_embed = -1  # -1 auto (off), 0 off, 1 on
         self._embed_cache = None
+        self.model_plan = None  # the trainer's MeshPlan, with cut tensors
+        #: key -> tag -> the dim cut over the model axis (None: whole),
+        #: for the keys with a cut tag (bind_model_slices)
+        self.model_dims: Dict[str, Dict[str, Optional[int]]] = {}
+        self._shard_cache = None
         self.layer_objs: List[Layer] = []
         self.param_key: List[Optional[str]] = []
         for i, spec in enumerate(graph.layers):
@@ -522,6 +543,84 @@ class FunctionalNet:
         return list(torch.split(y, grp["splits"], dim=3))
 
     # ------------------------------------------------------------------
+    # the model axis: tensor slices
+    def bind_model_slices(self, plan, dims: Dict[str, Dict[str, Optional[int]]]
+                          ) -> None:
+        """The trainer's cuts: ``dims[key][tag]`` the dimension of the
+        slice it holds (None: whole), for every key with a cut tag, and
+        its ``MeshPlan`` (the model sub-group)."""
+        self.model_plan = plan if dims else None
+        self.model_dims = dict(dims)
+        self._shard_cache = None
+
+    def _shard_plan(self):
+        """``(sliced, gathered)`` param keys: the layers that compute
+        their own output channels on their slices and gather the output
+        (a plain conv, a ``fullc``, a sibling-1x1 group of them), and
+        the keys whose cut tags are gathered at use.  A layer that
+        ``takes_model_slices`` is in neither."""
+        if self._shard_cache is not None:
+            return self._shard_cache
+        sliced, gathered = set(), set()
+        for i, key in enumerate(self.param_key):
+            dims = self.model_dims.get(key)
+            if not dims or key in sliced or key in gathered:
+                continue
+            lay = self.layer_objs[i]
+            if getattr(lay, "takes_model_slices", lambda: False)():
+                continue
+            own = ((type(lay) is ConvolutionLayer and lay.param.num_group == 1)
+                   or type(lay) is FullConnectLayer)
+            if own and all(d is not None for d in dims.values()):
+                sliced.add(key)
+            else:
+                gathered.add(key)
+        fuse = self._sibling_1x1_groups()[0] if self.fuse_1x1 else {}
+        embed = self._branch_embed_plan()[1] if self.use_branch_embed() \
+            else {}
+        for idxs in fuse.values():
+            keys = {self.param_key[j] for j in idxs}
+            if not keys <= sliced:
+                gathered |= keys & sliced
+                sliced -= keys
+        for idxs in embed.values():
+            keys = {self.param_key[j] for j in idxs}
+            gathered |= keys & sliced
+            sliced -= keys
+        self._shard_cache = (sliced, gathered)
+        return self._shard_cache
+
+    def _gather_at_use(self, params: Dict[str, dict]) -> Dict[str, dict]:
+        """``params`` with the cut tags of the gathered keys whole (one
+        all-gather of the model sub-group; each slice's gradient comes
+        back as its part of the whole's)."""
+        gathered = self._shard_plan()[1]
+        names = [(k, t) for k in sorted(gathered) if k in params
+                 for t, d in sorted(self.model_dims[k].items())
+                 if d is not None]
+        if not names:
+            return params
+        whole = pdist.gather_leaves([params[k][t] for k, t in names],
+                                    [self.model_dims[k][t] for k, t in names],
+                                    self.model_plan.model_group)
+        out = {k: dict(v) if k in gathered else v for k, v in params.items()}
+        for (k, t), w in zip(names, whole):
+            out[k][t] = w
+        return out
+
+    def _gather_parts(self, y: torch.Tensor, splits: Sequence[int]
+                      ) -> List[torch.Tensor]:
+        """A sliced sibling group's output ``y`` (each member's local
+        channels side by side) gathered over the model sub-group and
+        split back into each member's whole output, in order."""
+        g = pdist.model_gather(y.unsqueeze(0), 0, self.model_plan.model_group)
+        outs = []
+        for part in torch.split(g, list(splits), dim=-1):
+            part = part.movedim(0, -2)  # (..., ranks, local channels)
+            outs.append(part.reshape(tuple(part.shape[:-2]) + (-1,)))
+        return outs
+
+    # ------------------------------------------------------------------
     def prepare(self, params: Dict[str, dict]) -> Dict[str, object]:
         """Master params -> the forward's operands: each layer's params in
         the compute dtype and its kernel's layout (none for the members of
@@ -533,8 +632,12 @@ class FunctionalNet:
         with the group's ``(O,)`` bias (zeros for members without one;
         None when no member has one).  A group with an int8 member keeps
         ``members`` instead of a kernel and builds it per forward.  Once
-        per load for predict; per step, under autograd, for training."""
+        per load for predict; per step, under autograd, for training.
+        Over a model axis the gathered keys' cut tags are gathered first
+        (:meth:`_gather_at_use`)."""
         cdt = self.compute_dtype
+        if self.model_dims:
+            params = self._gather_at_use(params)
         fuse = self._sibling_1x1_groups()[0] if self.fuse_1x1 else {}
         embed = self._branch_embed_plan()[1] if self.use_branch_embed() \
             else {}
@@ -639,6 +742,8 @@ class FunctionalNet:
         items = (embed_items if embed_items is not None
                  else [("L", i) for i in range(len(g.layers))])
         remat = bool(self.remat and train)
+        sliced = self._shard_plan()[0] if self.model_dims else set()
+        mgroup = self.model_plan.model_group if sliced else None
 
         def unit(fn, *args):
             return _recomputed(fn, gen, *args) if remat else fn(*args)
@@ -666,12 +771,16 @@ class FunctionalNet:
                 w2d = grp["w2d"]
                 if w2d is None:
                     w2d = self._group_kernel(grp["members"], cdt)
+                cut = self.param_key[i] in sliced
+                if cut:
+                    x = pdist.model_input(x, mgroup)
                 y = unit(functools.partial(
                     _kcb.conv1x1_block,
                     stride=self.layer_objs[i].param.stride), x, w2d,
                     grp["bias"])
-                for j, part in zip(fuse_groups[i],
-                                   torch.split(y, grp["splits"], dim=3)):
+                parts = (self._gather_parts(y, grp["splits"]) if cut
+                         else torch.split(y, grp["splits"], dim=3))
+                for j, part in zip(fuse_groups[i], parts):
                     nodes[g.layers[j].nindex_out[0]] = part
                 continue
             lay = self.layer_objs[i]
@@ -703,6 +812,12 @@ class FunctionalNet:
                 outs, aux[key] = unit(functools.partial(
                     lay.apply_stateful, train=train, gen=gen, step=step),
                     lparams, aux[key], inputs)
+            elif key in sliced:  # this rank's output channels, gathered
+                outs = unit(functools.partial(
+                    lay.apply, train=train, gen=gen, step=step),
+                    lparams, [pdist.model_input(inputs[0], mgroup)])
+                outs = [pdist.model_gather(o, o.dim() - 1, mgroup)
+                        for o in outs]
             else:
                 outs = unit(functools.partial(
                     lay.apply, train=train, gen=gen, step=step),

@@ -94,12 +94,26 @@ raises, naming ``dist_num_proc``.
 
 The model axis (``model_parallel = m``, ``parallel/mesh.py``): the
 ranks form an ``(n_data, m)`` mesh; every collective above runs over
-the data sub-group (the model ranks of one data index feed the same
-rows and hold the same whole weights, experts and updater state: the
-JAX package shards them over the model axis, ROADMAP.md (k2c)), and the
-attention layers with ``seq_parallel`` run over the model sub-group
-(``layers/sequence.py``).  The checkpoint's CRC agreement, the
-integrity vote and the group save stay over every rank.
+the data sub-group, and the model ranks of one data index feed the
+same rows.  Each model rank holds only its slice of every tensor the
+JAX package's ``param_sharding`` cuts (``MeshPlan.model_dim``: a
+conv's ``cout``, a ``fullc``'s ``nout``, the per-channel vectors, the
+MoE experts, the ``L`` of the block stacks), and its updaters, their
+state and the fused SGD kernel's table run over those slices (the
+whole-tensor norms of ``lars`` and ``lamb`` summed over the model
+sub-group).  The net computes on the slices (``nnet/net.py``,
+``layers/sequence.py``: the output channels of a conv or ``fullc``,
+the MoE experts, the GPipe stages) or gathers them at use, and outside
+those collectives every model rank computes the same values, so it
+holds the same loss and the whole gradient of each of its slices:
+nothing is reduced over the model axis (sequence-parallel attention
+keeps the tokens whole outside the attention too).  ``zero`` cuts a
+model slice further over the data axis along ``MeshPlan.owner_dim``.
+Checkpoints, ``get_weight`` and ``copy_model_from`` gather whole
+tensors over the model sub-group and a load or ``set_weight`` slices
+them, so a checkpoint is the same file whatever the mesh.  The
+checkpoint's CRC agreement, the integrity vote and the group save stay
+over every rank.
 
 ``async_overlap = 1`` (``parallel/async_ps``): the rank's backward with
 no collective, then per group of tensors an all-gather over the data
@@ -209,8 +223,10 @@ class NetTrainer:
         self.staleness = 0
         self.async_resync_period = 1
         self._async = None  # the AsyncStepper, built at the first step
-        # (key, tag) -> the dimension cut over the ranks (zero >= 1)
+        # (key, tag) -> the dimension cut over the data ranks (zero >= 1)
         self._dims: Dict[Tuple[str, str], int] = {}
+        # (key, tag) -> the dimension cut over the model ranks
+        self._mdims: Dict[Tuple[str, str], int] = {}
         self._gathered: Optional[Dict[str, dict]] = None  # zero = 3
         self.metric = MetricSet()
         self.train_metric = MetricSet()
@@ -358,7 +374,7 @@ class NetTrainer:
         self.graph = graph
         self.net = FunctionalNet(graph)
         # the layers that run their own collectives over the model axis
-        # (sequence-parallel attention) or refuse it (the GPipe stacks)
+        # (sequence-parallel attention, the MoE experts, the GPipe stacks)
         for lay in self.net.layer_objs:
             if hasattr(lay, "bind_mesh"):
                 lay.bind_mesh(self.mesh_plan)
@@ -394,14 +410,20 @@ class NetTrainer:
         (the state of ``ust``, a checkpoint's ``ust:`` entries, restored
         where it fits), or with ``quant_scheme`` a quantized model's
         leaves, whose int8 codes and bf16 kernels keep their dtype, and
-        no updaters (the trainer is then inference-only).  With
-        ``place`` the state then takes its place over the ranks
+        no updaters (the trainer is then inference-only).  Over a model
+        axis only this rank's slice of each tensor it cuts
+        (:meth:`_model_cuts`) is kept, and the updater state is built
+        (and restored from ``ust``) over the slices.  With ``place`` the
+        state then takes its place over the data ranks
         (:meth:`_place_state`)."""
-        self.params = {k: {t: w.to(self.device) if w.dtype in _KEEP_DTYPES
-                           else w.to(self.device, torch.float32)
-                           for t, w in tags.items()}
-                       for k, tags in params.items()}
         self.quant_scheme, self.quant_plan = quant_scheme, quant_plan
+        self._mdims = {} if quant_scheme else self._model_cuts(params)
+        self.params = {
+            k: {t: w.to(self.device) if w.dtype in _KEEP_DTYPES
+                else self._model_slice(w, self._mdims.get((k, t))).to(
+                    self.device, torch.float32)
+                for t, w in tags.items()}
+            for k, tags in params.items()}
         self.sample_counter, self._grad_accum = 0, None
         self._invalidate_prepared()
         if quant_scheme:
@@ -410,9 +432,61 @@ class NetTrainer:
             self._build_updaters()
             if ust:
                 self._restore_ustates(ust)
+        dims: Dict[str, dict] = {}
+        for (k, t), d in self._mdims.items():
+            dims.setdefault(k, dict.fromkeys(self.params[k]))[t] = d
+        self.net.bind_model_slices(self.mesh_plan, dims)
         self._dims = {}
         if place:
             self._place_state()
+
+    # ------------------------------------------------------------------
+    # the model axis (parallel/mesh.py MeshPlan.model_dim)
+    def _model_cuts(self, params: Dict[str, dict]) -> Dict[Tuple[str, str],
+                                                           int]:
+        """``(key, tag) -> dim`` of every whole tensor of ``params`` cut
+        over the model ranks: the ``MeshPlan.model_dim`` rule."""
+        plan = self.mesh_plan
+        if plan is None or plan.n_model == 1:
+            return {}
+        cuts = {}
+        for i, spec in enumerate(self.graph.layers):
+            key = self.net.param_key[i]
+            if spec.type_name == "shared" or key not in params:
+                continue
+            for tag, w in params[key].items():
+                d = plan.model_dim(tuple(w.shape))
+                if d is not None:
+                    cuts[(key, tag)] = d
+        return cuts
+
+    def _model_slice(self, t: torch.Tensor, dim: Optional[int]
+                     ) -> torch.Tensor:
+        """This rank's model slice of the whole ``t`` along ``dim`` (a
+        contiguous copy; ``t`` itself when ``dim`` is None)."""
+        if dim is None:
+            return t
+        start, n = self.mesh_plan.slice_bounds(tuple(t.shape), dim,
+                                               axis="model")
+        return t.narrow(dim, start, n).clone(
+            memory_format=torch.contiguous_format)
+
+    def _whole_shape(self, key: str, tag: str, shape=None) -> tuple:
+        """The whole shape of ``(key, tag)`` from the shape this rank
+        holds (``shape``, its model slice, by default the master's; under
+        ``zero = 3`` the master is cut over the data ranks too)."""
+        plan = self.mesh_plan
+        if shape is None:
+            shape = self.params[key][tag].shape
+            d = self._dims.get((key, tag))
+            if self.zero >= 3 and d is not None:
+                shape = list(shape)
+                shape[d] *= plan.n_data
+        shape = list(shape)
+        d = self._mdims.get((key, tag))
+        if d is not None:
+            shape[d] *= plan.n_model
+        return tuple(shape)
 
     # ------------------------------------------------------------------
     # data parallelism over the process group (parallel/)
@@ -432,7 +506,7 @@ class NetTrainer:
             for key, tags in self.params.items():
                 for tag, w in tags.items():
                     up = self.updaters.get((key, tag))
-                    d = plan.owner_dim(tuple(w.shape))
+                    d = plan.owner_dim(self._whole_shape(key, tag, w.shape))
                     if up is None or not up.elementwise or d is None:
                         continue
                     self._dims[(key, tag)] = d
@@ -451,24 +525,35 @@ class NetTrainer:
             memory_format=torch.contiguous_format)
 
     def _gather_slices(self, slices: Sequence[torch.Tensor],
-                       dims: Sequence[int]) -> List[torch.Tensor]:
-        """The whole tensors of every rank's equal ``slices`` (cut along
-        ``dims``): one all-gather of all of them packed flat."""
-        if not slices:
-            return []
-        flat = torch.cat([s.reshape(-1) for s in slices])
-        parts = pdist.all_gather(flat, self.mesh_plan.data_group)
-        out, off = [], 0
-        for s, d in zip(slices, dims):
-            n = s.numel()
-            out.append(torch.cat([p[off:off + n].view(s.shape)
-                                  for p in parts], dim=d))
-            off += n
-        return out
+                       dims: Sequence[int], axis: str = "data"
+                       ) -> List[torch.Tensor]:
+        """The whole tensors of the ``axis`` ranks' equal ``slices`` (cut
+        along ``dims``): one all-gather of all of them packed flat over
+        the data (or model) sub-group."""
+        group = (self.mesh_plan.model_group if axis == "model"
+                 else self.mesh_plan.data_group)
+        with torch.no_grad():
+            return pdist.gather_leaves(slices, dims, group)
 
     def _full_params(self) -> Dict[str, dict]:
-        """The whole weights: ``self.params``, or under ``zero = 3`` on
-        more than one rank the slices gathered (collective; kept until
+        """The whole weights: :meth:`_compute_params` with the model
+        slices gathered over the model sub-group (collective)."""
+        params = self._compute_params()
+        if not self._mdims:
+            return params
+        names = sorted(self._mdims)
+        whole = self._gather_slices([params[k][t] for k, t in names],
+                                    [self._mdims[n] for n in names],
+                                    axis="model")
+        out = {k: dict(tags) for k, tags in params.items()}
+        for (k, t), w in zip(names, whole):
+            out[k][t] = w
+        return out
+
+    def _compute_params(self) -> Dict[str, dict]:
+        """The weights the forward runs on: ``self.params`` (this rank's
+        model slices), or under ``zero = 3`` on more than one data rank
+        the data slices gathered (collective; kept until
         :meth:`_invalidate_prepared`)."""
         if self.zero < 3 or not self._dims:
             return self.params
@@ -483,30 +568,43 @@ class NetTrainer:
         return self._gathered
 
     def _full_ustate(self, key: str, tag: str) -> dict:
-        """The updater state of ``(key, tag)``, gathered when sharded
-        (collective)."""
+        """The updater state of ``(key, tag)``, gathered over the data
+        and the model ranks where it is cut (collective)."""
         state = self.ustates[key][tag]
-        d = self._dims.get((key, tag))
-        if d is None:
-            return state
         slots = sorted(state)
-        full = self._gather_slices([state[sl] for sl in slots],
-                                   [d] * len(slots))
-        return dict(zip(slots, full))
+        for axis, d in (("data", self._dims.get((key, tag))),
+                        ("model", self._mdims.get((key, tag)))):
+            if d is not None:
+                state = dict(zip(slots, self._gather_slices(
+                    [state[sl] for sl in slots], [d] * len(slots), axis)))
+        return state
 
-    def placement(self, name: str) -> Optional[Tuple[tuple, int]]:
-        """``(whole shape, dim)`` of a sharded leaf named as the
-        integrity plane names it (``key/tag`` or ``ust:key/tag@slot``),
-        None for a whole one."""
-        base = name[4:].split("@", 1)[0] if name.startswith("ust:") else name
+    def held_slice(self, name: str, shape, rank: int
+                   ) -> Optional[Tuple[tuple, tuple]]:
+        """``(index, whole shape)``: the slices of the whole leaf that
+        rank ``rank`` holds of a leaf named as the integrity plane names
+        it (``key/tag`` or ``ust:key/tag@slot``), ``shape`` being the
+        shape each rank holds; None for a leaf every rank holds whole."""
+        ust = name.startswith("ust:")
+        base = name[4:].split("@", 1)[0] if ust else name
         key, tag = base.rsplit("/", 1)
+        plan = self.mesh_plan
+        cuts = []  # (dim, this rank's index on the axis, the axis's size)
         d = self._dims.get((key, tag))
-        if d is None or (self.zero < 3 and not name.startswith("ust:")):
+        if d is not None and (ust or self.zero >= 3):
+            cuts.append((d, rank // plan.n_model, plan.n_data))
+        d = self._mdims.get((key, tag))
+        if d is not None:
+            cuts.append((d, rank % plan.n_model, plan.n_model))
+        if not cuts:
             return None
-        shape = list(self.params[key][tag].shape)
-        if self.zero >= 3:
-            shape[d] *= self.mesh_plan.n_data
-        return tuple(shape), d
+        index = [slice(0, int(s), None) for s in shape]
+        whole = [int(s) for s in shape]
+        for d, i, parts in cuts:
+            n = int(shape[d])
+            index[d] = slice(i * n, (i + 1) * n, None)
+            whole[d] = n * parts
+        return tuple(index), tuple(whole)
 
     def state_shard_bytes(self) -> Tuple[Dict[str, int], int]:
         """``(per_device, total)``: the bytes of params + updater state
@@ -523,6 +621,8 @@ class NetTrainer:
                                 if (key, tag) in self._dims and (
                                     isinstance(leaf, dict) or self.zero >= 3)
                                 else 1)
+                        if (key, tag) in self._mdims:
+                            grow *= self.mesh_plan.n_model
                         total += int(w.nbytes) * grow
         dev = self.device
         plan = self.mesh_plan
@@ -640,9 +740,20 @@ class NetTrainer:
             self._prep_src, self._prepared = None, None
         self._gathered = None
 
+    def _new_updater(self, i: int, tag: str) -> Updater:
+        """The updater of layer ``i``'s ``tag``: the conf's global keys
+        first, then the layer's own section."""
+        up = create_updater(self.graph.updater_type, tag)
+        for n, v in self.graph.defcfg:
+            up.set_param(n, v)
+        for n, v in self.graph.layercfg[i]:
+            up.set_param(n, v)
+        return up
+
     def _build_updaters(self) -> None:
-        """One updater per ``(param key, tag)``: the conf's global keys
-        first, then the layer's own section; momentum state zeroed."""
+        """One updater per ``(param key, tag)``, momentum state zeroed
+        (over the tensor this rank holds; a model-cut tensor's norms are
+        taken over the model sub-group)."""
         self.updaters, self.ustates = {}, {}
         for i, spec in enumerate(self.graph.layers):
             key = self.net.param_key[i]
@@ -650,11 +761,9 @@ class NetTrainer:
                 continue
             self.ustates[key] = {}
             for tag, w in self.params[key].items():
-                up = create_updater(self.graph.updater_type, tag)
-                for n, v in self.graph.defcfg:
-                    up.set_param(n, v)
-                for n, v in self.graph.layercfg[i]:
-                    up.set_param(n, v)
+                up = self._new_updater(i, tag)
+                if (key, tag) in self._mdims:
+                    up.norm_group = self.mesh_plan.model_group
                 self.updaters[(key, tag)] = up
                 self.ustates[key][tag] = up.init_state(w)
 
@@ -851,16 +960,19 @@ class NetTrainer:
     def _restore_ustates(self, raw_ust: Dict[str, dict]) -> None:
         """The updater state of a ``save_ustate=1`` checkpoint, where its
         slots and shapes match the rebuilt updaters' (the rest stays
-        zero, as in the JAX package)."""
+        zero, as in the JAX package); over a model axis, this rank's
+        slices of it."""
         for key, tags in raw_ust.items():
             for tag, slots in tags.items():
                 cur = self.ustates.get(key, {}).get(tag)
+                d = self._mdims.get((key, tag))
                 if cur is None or set(slots) != set(cur) or any(
-                        tuple(slots[sl].shape) != tuple(cur[sl].shape)
-                        for sl in slots):
+                        self._whole_shape(key, tag, cur[sl].shape)
+                        != tuple(slots[sl].shape) for sl in slots):
                     continue
                 for sl, w in slots.items():
-                    cur[sl].copy_(torch.from_numpy(np.asarray(w, np.float32)))
+                    cur[sl].copy_(self._model_slice(torch.from_numpy(
+                        np.asarray(w, np.float32)), d))
 
     def copy_model_from(self, path: str) -> None:
         """Finetune: a fresh init from the conf, then the weights of every
@@ -878,12 +990,14 @@ class NetTrainer:
             if okey not in old_params or nkey not in self.params:
                 continue
             src, dst = old_params[okey], self.params[nkey]
-            if all(tag in src and tuple(np.shape(src[tag])) == tuple(w.shape)
-                   for tag, w in dst.items()):
+            if all(tag in src and tuple(np.shape(src[tag]))
+                   == self._whole_shape(nkey, tag) for tag in dst):
                 if not self.silent:
                     print(f"Copying layer {spec.name}")
                 for tag, w in dst.items():
-                    w.copy_(torch.as_tensor(np.asarray(src[tag], np.float32)))
+                    w.copy_(self._model_slice(torch.as_tensor(
+                        np.asarray(src[tag], np.float32)),
+                        self._mdims.get((nkey, tag))))
         self._invalidate_prepared()
         self.epoch_counter = 0
         self._place_state()
@@ -963,13 +1077,14 @@ class NetTrainer:
         node name) for ``batch.data`` and its ``extra_data``, as f32
         numpy."""
         f = self._forward_fn(self.resolve_feature_node(node_name))
-        return f(self._full_params(), self.aux, batch.data,
+        return f(self._compute_params(), self.aux, batch.data,
                  batch.extra_data).cpu().numpy()
 
     def predict(self, data: np.ndarray, extras: Sequence = ()) -> np.ndarray:
         """Per-instance prediction for a numpy batch (and its side
         inputs, for a net with ``extra_data`` nodes)."""
-        out = self.predict_fn()(self._full_params(), self.aux, data, extras)
+        out = self.predict_fn()(self._compute_params(), self.aux, data,
+                                extras)
         return self.predict_from_scores(out.cpu().numpy())
 
     # ------------------------------------------------------------------
@@ -1024,7 +1139,7 @@ class NetTrainer:
         masters (``forward_train`` prepares the compute-dtype operands
         afresh), a copy of the layer state (the audit keeps nothing),
         the round's generator, and the gradients of every leaf."""
-        params = self._full_params()
+        params = self._compute_params()
         flat = [(k, t, w) for k in sorted(params)
                 for t, w in sorted(params[k].items())]
         leaves = {}
@@ -1112,12 +1227,12 @@ class NetTrainer:
     def check_weight_sync(self, tol: float = 0.0) -> float:
         """The reference's ``test_on_server = 1`` discipline across the
         ranks: each rank fingerprints every weight it holds (a float64
-        sum and sum of squares per leaf; under ``zero = 3`` per slice),
-        the fingerprints are all-gathered, and every replica of a leaf
-        (or of a slice) must agree within ``tol``.  A slice held by one
-        rank only has nothing to compare.  Returns the largest deviation
-        (0.0 on one rank); raises ``RuntimeError`` past ``tol``.
-        Collective."""
+        sum and sum of squares per leaf; per slice of a leaf cut over the
+        model ranks or under ``zero = 3``), the fingerprints are
+        all-gathered, and every replica of a leaf (or of a slice) must
+        agree within ``tol``.  A slice held by one rank only has nothing
+        to compare.  Returns the largest deviation (0.0 on one rank);
+        raises ``RuntimeError`` past ``tol``.  Collective."""
         assert self.params is not None, "init_model/load_model first"
         world = self.mesh_plan.n_devices
         if world == 1:
@@ -1131,11 +1246,17 @@ class NetTrainer:
         every = pdist.gather_host(fps.cpu().numpy())  # [world, leaves, 2]
         worst, where = 0.0, None
         for i, (k, t) in enumerate(names):
-            if self.zero >= 3 and (k, t) in self._dims:
-                continue  # one replica of each slice: nothing to compare
-            d = float(np.abs(every[:, i] - every[0, i]).max())
-            if d > worst:
-                worst, where = d, f"{k}/{t}"
+            shape = tuple(self.params[k][t].shape)
+            replicas: Dict[Optional[tuple], List[int]] = {}
+            for r in range(world):
+                held = self.held_slice(f"{k}/{t}", shape, r)
+                key = None if held is None else tuple(
+                    (s_.start, s_.stop) for s_ in held[0])
+                replicas.setdefault(key, []).append(r)
+            for ranks in replicas.values():
+                d = float(np.abs(every[ranks, i] - every[ranks[0], i]).max())
+                if d > worst:
+                    worst, where = d, f"{k}/{t}"
         if worst > tol:
             raise RuntimeError(
                 f"weight-sync check failed: max fingerprint deviation "
@@ -1205,7 +1326,7 @@ class NetTrainer:
         for node in self.train_metric.nodes:
             if node is not None and node not in cache:
                 f = self._forward_fn(self.graph.node_index_of(node))
-                cache[node] = f(self._full_params(), self.aux, data,
+                cache[node] = f(self._compute_params(), self.aux, data,
                                 extras).cpu().numpy()[:n_real]
         return cache
 
@@ -1245,7 +1366,7 @@ class NetTrainer:
         # re-expresses it) keeps the JAX package's per-shard forward
         per_shard = self._det_active() or self._async_active()
         with pdist.sharded_batch(self.mesh_plan, not per_shard):
-            params = self._full_params()
+            params = self._compute_params()
             node_cache = {}
             if self.eval_train and self.train_metric.need_nodes():
                 node_cache = self._node_pred_cache(data_in, extras_in,
@@ -1592,7 +1713,12 @@ class NetTrainer:
         key = self.net.param_key[i]
         if key not in self.params or tag not in self.params[key]:
             return np.zeros((0, 0), np.float32)
-        w = self._full_params()[key][tag].detach().float().cpu().numpy()
+        w = self._compute_params()[key][tag]
+        d = self._mdims.get((key, tag))
+        if d is not None:  # the model slices gathered (collective)
+            w = self._gather_slices([w], [d], axis="model")[0]
+        # a copy: on the CPU ``numpy()`` would share the live master
+        w = w.detach().float().cpu().numpy().copy()
         return self._to_2d(w, self.graph.layers[i].type_name, tag)
 
     def set_weight(self, weight: np.ndarray, layer_name: str, tag: str) -> None:
@@ -1604,13 +1730,15 @@ class NetTrainer:
             raise ValueError("tag must be wmat or bias")
         i = self.graph.layer_index_of(layer_name)
         key = self.net.param_key[i]
-        cur = self._full_params()[key][tag]
-        new = self._from_2d(np.asarray(weight, np.float32), tuple(cur.shape),
+        cur = self.params[key][tag]
+        new = self._from_2d(np.asarray(weight, np.float32),
+                            self._whole_shape(key, tag),
                             self.graph.layers[i].type_name, tag)
-        new = torch.from_numpy(np.ascontiguousarray(new))
+        new = self._model_slice(torch.from_numpy(np.ascontiguousarray(new)),
+                                self._mdims.get((key, tag)))
         d = self._dims.get((key, tag))
         if self.zero >= 3 and d is not None:
-            new, cur = self._my_slice(new, d), self.params[key][tag]
+            new = self._my_slice(new, d)
         with torch.no_grad():
             cur.copy_(new)
         self._invalidate_prepared()
@@ -1655,7 +1783,7 @@ class NetTrainer:
                  for n in self.metric.nodes]
         fns = {n: self._forward_fn(self.net.out_node_index() if n is None
                                    else n) for n in set(nodes)}
-        params = self._full_params()
+        params = self._compute_params()
         iter_eval.before_first()
         # in a group each rank scores its own rows (a sharded iterator)
         # and batch norm's batch statistics are the global batch's

@@ -44,7 +44,8 @@ rank ``r`` at data index ``r // m`` and model index ``r % m``.  Each
 rank belongs to a data sub-group (the ranks of its model index: the
 gradient reduction, batch norm's sums, the ZeRO slices, the metrics)
 and a model sub-group (the ranks of its data index: sequence-parallel
-attention), both made with ``new_group`` on every rank in one order.
+attention, the GPipe stages, the tensor and expert slices), both made
+with ``new_group`` on every rank in one order.
 A trainer's ``MeshPlan`` (``parallel/mesh.py``) carries its two
 sub-groups and hands them to every collective it runs: ``None`` is the
 whole job, :data:`SOLO` a sub-group of this rank alone.
@@ -56,6 +57,21 @@ aborts the process on torch 2.11; at two ranks the gather moves the
 bytes the sends would).  The all-to-all is ``all_to_all_single``, which
 gloo runs on CUDA tensors (its list form ``all_to_all`` it refuses
 there).
+
+The tensor and expert sharding over the model axis (``nnet/net.py``,
+``layers/sequence.py``) runs on four differentiable collectives of the
+model sub-group, Megatron's pair and their two relatives.  Outside
+them every model rank computes the same values from the same rows, so
+each holds the same loss and the same gradient of every replicated
+value: :func:`model_input` is the identity whose backward sums the
+ranks' partial input gradients; :func:`model_gather` all-gathers the
+ranks' slices along a dimension, its backward keeping this rank's
+slice of the gradient (behind :func:`model_input`, for a gathered
+value each rank then uses differently, the ranks' gradients are summed
+first);
+:func:`model_sum` all-reduces the ranks' partial results, its backward
+the identity; :func:`gather_leaves` gathers many weight slices in one
+all-gather, each weight's backward keeping its own slice.
 
 Not ported here: the JAX package's ``_enable_cpu_collectives`` (a JAX
 CPU-backend switch; gloo is this port's CPU path), and the resilient
@@ -531,3 +547,107 @@ def all_to_all(t, split_dim: int, concat_dim: int, group):
     """Differentiable tiled ``lax.all_to_all`` over ``group``; the
     backward is the inverse exchange (split and concat swapped)."""
     return _AllToAll.apply(t, split_dim, concat_dim, group)
+
+
+# ----------------------------------------------------------------------
+# the tensor and expert slices over a model sub-group
+def _sum_f32(t, group):
+    """``t`` summed over ``group`` in f32 (a copy), in ``t``'s dtype."""
+    return all_reduce_(t.to(torch.float32, copy=True), group).to(t.dtype)
+
+
+class _ModelInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group), None
+
+
+class _ModelGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.n = x.shape[dim]
+        return torch.cat(all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        me = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, me * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLeaves(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, dims, *ts):
+        ctx.group, ctx.dims = group, dims
+        ctx.shapes = [t.shape for t in ts]
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        parts = all_gather(flat, group)
+        out, off = [], 0
+        for t, d in zip(ts, dims):
+            n = t.numel()
+            out.append(torch.cat([p[off:off + n].view(t.shape)
+                                  for p in parts], dim=d))
+            off += n
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        me = dist.get_rank(ctx.group)
+        out = []
+        for g, d, shape in zip(gs, ctx.dims, ctx.shapes):
+            n = shape[d]
+            out.append(None if g is None
+                       else g.narrow(d, me * n, n).contiguous())
+        return (None, None, *out)
+
+
+def model_input(x, group):
+    """``x``, replicated on the model ranks, as the input of a sliced
+    computation: the identity, whose backward sums the ranks' partial
+    gradients over ``group`` (in f32)."""
+    if _size(group) == 1:
+        return x
+    return _ModelInput.apply(x, group)
+
+
+def model_gather(x, dim: int, group):
+    """The model ranks' equal slices of one tensor joined along ``dim``
+    in rank order (an all-gather of ``group``); the backward keeps this
+    rank's slice of the gradient."""
+    if _size(group) == 1:
+        return x
+    return _ModelGather.apply(x, dim, group)
+
+
+def model_sum(x, group):
+    """The sum of the model ranks' partial ``x`` over ``group`` (in
+    f32, an all-reduce); the backward passes the replicated gradient to
+    every rank's part as it is."""
+    if _size(group) == 1:
+        return x
+    return _ModelSum.apply(x, group)
+
+
+def gather_leaves(ts: Sequence, dims: Sequence[int], group) -> list:
+    """Whole weights from this rank's slices ``ts`` (cut along ``dims``)
+    in one all-gather of ``group``, packed flat (every tensor one
+    dtype); each weight's backward keeps this rank's slice of its
+    gradient."""
+    if not ts or _size(group) == 1:
+        return list(ts)
+    return list(_GatherLeaves.apply(group, tuple(dims), *ts))

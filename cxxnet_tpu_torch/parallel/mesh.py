@@ -14,10 +14,9 @@ divide the ranks), laid out as the JAX package's ``reshape(n_data,
 n_model)``: rank ``r`` at data index ``r // n_model`` and model index
 ``r % n_model``; the plan holds this rank's data and model sub-groups,
 and everything a trainer reduces over an axis goes over its own plan's
-sub-group.  The model axis carries sequence-parallel attention;
-the weights, the experts and the updater state stay whole on every
-model rank (the JAX package shards them over it: ROADMAP.md (k2c)).
-:func:`rank_device` maps a ``dev`` value and the rank to the rank's
+sub-group.  The model axis carries sequence-parallel attention, the
+GPipe stages of the block stacks, and the tensor and expert sharding
+of :meth:`MeshPlan.model_dim`.  :func:`rank_device` maps a ``dev`` value and the rank to the rank's
 ``torch.device``: a single ordinal is every rank's (ranks
 may share a card), a list as long as the group gives rank ``r`` its
 ``r``-th entry, a bare platform word gives rank ``r`` the card ``r``
@@ -26,11 +25,18 @@ modulo the cards present.  Each ordinal is checked against
 process a range raises, naming ``dist_num_proc``: the CLI's
 ``task=train`` starts one rank per listed device (``cli.py``).
 
-:meth:`MeshPlan.owner_dim` is the JAX package's ``state_sharding`` /
-``fsdp_sharding`` placement rule as an ownership rule over ranks: a
-tensor's largest dimension divisible by ``n_data`` is cut into
-``n_data`` equal slices, the ranks of data index ``i`` owning the
-``i``-th; a tensor with no such dimension stays whole on every rank.
+:meth:`MeshPlan.model_dim` is the JAX package's ``param_sharding``
+rule as an ownership rule over the model ranks: dim 3 of a 4-D tensor
+(a conv's ``cout`` in HWIO), else dim 0 (a ``fullc``'s ``nout``, a
+per-channel vector, the expert dim of the MoE stacks, the ``L`` of the
+block stacks), cut into ``n_model`` equal slices when it divides, the
+rank of model index ``j`` owning the ``j``-th; otherwise the tensor
+stays whole on every model rank.  :meth:`MeshPlan.owner_dim` is
+``state_sharding`` / ``fsdp_sharding`` on top of it, over the data
+ranks: the largest dimension not already cut over the model axis whose
+whole (global) size divides by ``n_data``, the first on a tie, cut into
+``n_data`` slices, the ranks of data index ``i`` owning the ``i``-th; a
+tensor with no such dimension stays whole over the data axis.
 """
 
 from __future__ import annotations
@@ -130,25 +136,42 @@ class MeshPlan:
     def n_devices(self) -> int:
         return self.n_data * self.n_model
 
+    def model_dim(self, shape: Sequence[int]) -> Optional[int]:
+        """The dimension of a tensor of whole ``shape`` cut over the
+        model ranks (the JAX ``param_sharding`` rule: dim 3 of a 4-D
+        tensor, else dim 0, when it divides by ``n_model``), or None:
+        whole on every model rank."""
+        if self.n_model == 1 or not shape:
+            return None
+        axis = 3 if len(shape) == 4 else 0
+        return axis if int(shape[axis]) % self.n_model == 0 else None
+
     def owner_dim(self, shape: Sequence[int]) -> Optional[int]:
-        """The dimension cut over the ranks for a sharded tensor of
-        ``shape`` (the JAX ``state_sharding`` rule: the largest dim
-        divisible by ``n_data``, the first on a tie), or None: whole on
-        every rank."""
+        """The dimension cut over the data ranks for a sharded tensor of
+        whole ``shape`` (the JAX ``state_sharding`` rule: the largest
+        dim not cut by :meth:`model_dim` that divides by ``n_data``,
+        the first on a tie), or None: whole over the data axis."""
         if self.n_data == 1 or not shape:
             return None
+        skip = self.model_dim(shape)
         best, best_size = None, 0
         for d, size in enumerate(shape):
-            if size % self.n_data == 0 and size > best_size:
+            if d != skip and size % self.n_data == 0 and size > best_size:
                 best, best_size = d, size
         return best
 
     def slice_bounds(self, shape: Sequence[int], dim: int,
-                     rank: Optional[int] = None) -> Tuple[int, int]:
-        """``(start, length)`` of data index ``rank``'s slice along
-        ``dim`` (this rank's by default)."""
-        n = int(shape[dim]) // self.n_data
-        return (self.data_index if rank is None else rank) * n, n
+                     rank: Optional[int] = None,
+                     axis: str = "data") -> Tuple[int, int]:
+        """``(start, length)`` of the slice along ``dim`` of a tensor of
+        ``shape`` that index ``rank`` of ``axis`` (``"data"`` or
+        ``"model"``) owns: this rank's index by default."""
+        if axis == "model":
+            parts, mine = self.n_model, self.model_index
+        else:
+            parts, mine = self.n_data, self.data_index
+        n = int(shape[dim]) // parts
+        return (mine if rank is None else rank) * n, n
 
     def describe(self, zero: int = 0) -> str:
         """One-line layout summary shared by the CLI's train-start line

@@ -38,7 +38,9 @@ returns new arrays).  Ported:
 These five have no kernel in the JAX package either: they are plain
 PyTorch on the card, in the JAX updaters' operation order, their
 schedule scalars evaluated on the host in ``np.float32``.  The norms of
-``lars`` and ``lamb`` stay on the device (no host sync).  A global
+``lars`` and ``lamb`` stay on the device (no host sync); over a tensor
+cut on a model axis they are the whole tensor's, the squared sums added
+over the model sub-group (``norm_group``) in one all-reduce.  A global
 ``eps`` reaches every updater that takes one, and batch norm's too.
 """
 
@@ -50,6 +52,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import update_step
+from ..parallel import distributed as pdist
 from .param import UpdaterParam
 
 State = Dict[str, torch.Tensor]
@@ -66,6 +69,10 @@ class Updater:
 
     def __init__(self, tag: str) -> None:
         self.param = UpdaterParam(tag)
+        #: the model sub-group of the ranks that hold the other slices of
+        #: the tensor (None: this rank holds it whole); a rule that reads
+        #: whole-tensor norms sums their squares over it
+        self.norm_group = None
 
     def set_param(self, name: str, val: str) -> None:
         self.param.set_param(name, val)
@@ -205,8 +212,13 @@ class AdagradUpdater(Updater):
             w.sub_(lr * g / (torch.sqrt(v) + self.eps))
 
 
-def _norm(t: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt((t.float() ** 2).sum())
+def _norms(a: torch.Tensor, b: torch.Tensor, group
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``||a||`` and ``||b||`` of the whole tensors whose slices the
+    ranks of ``group`` hold (one all-reduce of the two squared sums)."""
+    sq = torch.stack([(a.float() ** 2).sum(), (b.float() ** 2).sum()])
+    n = torch.sqrt(pdist.all_reduce_(sq, group) if group is not None else sq)
+    return n[0], n[1]
 
 
 def _trust(num: torch.Tensor, den: torch.Tensor,
@@ -244,7 +256,7 @@ class LARSUpdater(Updater):
             if p.clip_gradient != 0.0:
                 g = update_step.nan_clip(g, p.clip_gradient)
             g = g + p.wd * w
-            wn, gn = _norm(w), _norm(g)
+            wn, gn = _norms(w, g, self.norm_group)
             trust = _trust(wn, gn, self.trust_coeff * wn / (gn + self.eps))
             m.copy_(mom * m - lr * trust * g)
             w.add_(m)
@@ -288,7 +300,7 @@ class LAMBUpdater(Updater):
             m2.copy_(self.beta2 * m2 + (1.0 - self.beta2) * g * g)
             u = (m1 / fix1) / (torch.sqrt(m2 / fix2) + self.eps)
             u = u + p.wd * w
-            wn, un = _norm(w), _norm(u)
+            wn, un = _norms(w, u, self.norm_group)
             trust = _trust(wn, un, wn / un)
             w.sub_(lr * trust * u)
 

@@ -20,7 +20,7 @@ packages.
   checkpoint, and ``transformer_conf(pipeline_parallel=1)`` one step,
   against the JAX ``NetTrainer`` at the JAX tests' rtol 3e-4, atol 3e-5.
 * ``pipeline_apply``'s checks message for message against the JAX
-  package's, and more than one stage refused (item A6);
+  package's (over more than one stage: ``tests/test_torch_model_axis.py``);
   ``model_parallel > 1`` refused where the JAX package, on one device,
   raises too.
 * The stacked 3-D tensors through the checkpoint both ways, f32 and as
@@ -49,6 +49,7 @@ from cxxnet_tpu_torch.layers import create_layer
 from cxxnet_tpu_torch.layers.sequence import topk_mask
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 from cxxnet_tpu_torch.ops import pipeline as tpipeline
+from cxxnet_tpu_torch.parallel import mesh as tmesh
 
 # (forward, gradients) of each tensor's largest, by compute dtype
 TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
@@ -401,7 +402,8 @@ def test_pipeline_apply_one_stage_is_the_stack():
     want = x
     for i in range(4):
         want = _mlp_block({"w": stack["w"][i], "b": stack["b"][i]}, want)
-    got = tpipeline.pipeline_apply(_mlp_block, stack, x, 1, n_microbatch=2)
+    got = tpipeline.pipeline_apply(_mlp_block, stack, x, None,
+                                   n_microbatch=2)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -419,16 +421,24 @@ def test_pipeline_apply_checks_match_jax(l, micro):
     with pytest.raises(ValueError) as te:
         tpipeline.pipeline_apply(
             _mlp_block, {t: torch.from_numpy(v) for t, v in stack.items()},
-            torch.from_numpy(x), 4, n_microbatch=micro)
+            torch.from_numpy(x), tmesh.MeshPlan(torch.device("cpu"),
+                                                n_model=4),
+            n_microbatch=micro, n_block=l)
     assert str(te.value) == str(je.value)
 
 
-def test_pipeline_over_stages_is_item_a6():
+def test_pipeline_apply_refuses_a_stack_not_cut_per_stage():
+    """A stage handed the whole stack would run every block once per
+    stage: the stage's blocks times the stages must be ``n_block``."""
     rng = np.random.RandomState(11)
-    stack = {t: torch.from_numpy(v) for t, v in _mlp_stack(rng, 4).items()}
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        tpipeline.pipeline_apply(_mlp_block, stack, torch.zeros(8, 16), 2,
-                                 n_microbatch=2)
+    stack = _mlp_stack(rng, 8)
+    with pytest.raises(ValueError, match="a stage holds 8 of 8 blocks "
+                       "over 4 stages"):
+        tpipeline.pipeline_apply(
+            _mlp_block, {t: torch.from_numpy(v) for t, v in stack.items()},
+            torch.from_numpy(rng.randn(8, 16).astype(np.float32)),
+            tmesh.MeshPlan(torch.device("cpu"), n_model=4), n_microbatch=2,
+            n_block=8)
 
 
 def test_model_parallel_refused_where_jax_raises_on_one_device():

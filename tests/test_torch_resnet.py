@@ -408,9 +408,9 @@ def test_example_resnet_confs_are_the_builders_text():
 
 def test_builders_raise_at_build_for_layers_not_ported():
     """Two pipeline stages ask for ``model_parallel = 2``: on one device
-    the build raises the JAX package's message (the GPipe stages over
-    the model axis raise, naming (k2b): test_torch_seq_parallel.py);
-    one stage builds the block stack."""
+    the build raises the JAX package's message (over two ranks the GPipe
+    stages train: test_torch_model_axis.py); one stage builds the block
+    stack."""
     conf = tmodels.transformer_conf(pipeline_parallel=2, dev="cpu")
     tr = NetTrainer()
     tr.set_params(tcfg.parse_pairs(conf))

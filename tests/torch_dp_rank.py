@@ -3,7 +3,8 @@
 Run as ``python tests/torch_dp_rank.py SPEC.json RANK``.  The spec
 names the group (``coord``, ``world``) and a list of ``runs``, each run
 a ``NetTrainer`` from a conf (``cfg`` pairs), started from a checkpoint
-(``init``) or the conf's seed, then ``steps`` updates on this rank's
+(``init``), the layers of one copied into a fresh net (``finetune``:
+``copy_model_from``) or the conf's seed, then ``steps`` updates on this rank's
 rows of the seeded global batches in ``batches`` (an npz of ``data``
 ``[K, B, ...]`` and ``label`` ``[K, B, L]``; the ranks of data index
 ``i`` take the ``i``-th block of ``B / n_data`` rows), over ``rounds``
@@ -14,9 +15,14 @@ second trainer of the same conf with that ``model_parallel`` is built
 after the run's own and before its steps (the run's collectives must
 keep to its own layout).  A run with ``expect_error`` only
 builds the model and records the refusal's message in ``error``.
-Each run writes this rank's whole params and layer state, its losses
-and shard bytes to
+Each run writes this rank's whole params (``p:``, gathered over the
+model axis) and layer state, the tensors the rank holds itself (``s:``
+params, ``u:`` updater state slots), the state digests of the integrity
+plane (``fp:`` keyed by leaf and slice), its losses and shard bytes to
 ``{out}.r{rank}.npz``, and rank 0 the checkpoint bytes to ``{out}.model``.
+A run with ``weights`` also reads ``get_weight`` of those ``(layer,
+tag)`` pairs (``gw:``), writes each back doubled with ``set_weight``
+and reads the whole params again (``sw:``).
 A run with ``save`` also saves through ``NetTrainer.save_model`` there,
 then to a path rank 0 cannot write, and records each rank's error.
 ``patch_draw`` makes every random layer's draws a function of the
@@ -69,7 +75,9 @@ def run_one(run: dict, rank: int, world: int) -> None:
             err = f"{type(e).__name__}: {e}"
         np.savez(f"{run['out']}.r{rank}.npz", error=np.asarray(err))
         return
-    if run.get("init"):
+    if run.get("finetune"):
+        tr.copy_model_from(run["finetune"])
+    elif run.get("init"):
         tr.load_model(run["init"])
     else:
         tr.init_model()
@@ -111,6 +119,15 @@ def run_one(run: dict, rank: int, world: int) -> None:
     for key, tags in params.items():
         for tag, w in tags.items():
             out[f"p:{key}/{tag}"] = w.detach().cpu().numpy().copy()
+    for key, tags in tr.params.items():
+        for tag, w in tags.items():
+            out[f"s:{key}/{tag}"] = w.detach().cpu().numpy().copy()
+            for slot, v in tr.ustates.get(key, {}).get(tag, {}).items():
+                out[f"u:{key}/{tag}@{slot}"] = v.detach().cpu().numpy().copy()
+    from cxxnet_tpu_torch.integrity.plane import local_fingerprints
+
+    for d, (name, sk) in zip(*local_fingerprints(tr, rank)):
+        out[f"fp:{name}|{sk!r}"] = np.asarray(d, np.int64)
     for key, tags in tr.aux.items():
         for tag, w in tags.items():
             out[f"aux:{key}/{tag}"] = w.detach().cpu().numpy().copy()
@@ -137,6 +154,13 @@ def run_one(run: dict, rank: int, world: int) -> None:
             out["save_error"] = np.asarray("")
         except Exception as e:  # noqa: BLE001 - the test reads it
             out["save_error"] = np.asarray(f"{type(e).__name__}: {e}")
+    for layer, tag in run.get("weights", []):
+        out[f"gw:{layer}/{tag}"] = tr.get_weight(layer, tag)
+        tr.set_weight(2 * out[f"gw:{layer}/{tag}"], layer, tag)
+    if run.get("weights"):
+        for key, tags in tr._full_params().items():
+            for tag, w in tags.items():
+                out[f"sw:{key}/{tag}"] = w.detach().cpu().numpy().copy()
     np.savez(f"{run['out']}.r{rank}.npz", **out)
     if rank == 0:
         with open(f"{run['out']}.model", "wb") as f:

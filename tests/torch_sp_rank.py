@@ -12,7 +12,14 @@ file holds the two primitives on rank ``r``'s ``x = q[r]`` with
 cotangent ``w[r]`` (reshaped to the output's shape): ``ppermute``
 over the pairs ``PERM`` and
 ``all_to_all`` from the head axis to the time axis (``prim:{name}:o``
-and ``prim:{name}:dx``).  Imports no JAX.
+and ``prim:{name}:dx``).  The spec may also name ``pipe``: an npz of a
+relu-MLP block stack ``w`` ``(L, D, D)``, ``b`` ``(L, D)``, rows ``x``
+``(B, D)`` and a cotangent ``w_out``, which every rank runs through
+``pipeline_apply`` over the stages of a model axis of
+``pipe_model_parallel`` ranks (``pipe_microbatch`` microbatches), its
+stage of the stack cut by ``MeshPlan.model_dim``, writing the output,
+the gradient of ``sum(o * w_out)`` for ``x`` and for its stage of ``w``
+and ``b`` to ``{pipe_out}.r{rank}.npz``.  Imports no JAX.
 """
 
 import json
@@ -66,6 +73,34 @@ def run_ops(spec: dict) -> dict:
     return out
 
 
+def pipe_block(p, x):
+    import torch
+
+    return torch.relu(x @ p["w"] + p["b"])
+
+
+def run_pipe(spec: dict) -> dict:
+    import torch
+
+    from cxxnet_tpu_torch.ops.pipeline import pipeline_apply
+    from cxxnet_tpu_torch.parallel.mesh import plan_for
+
+    plan = plan_for(torch.device("cpu"), int(spec["pipe_model_parallel"]))
+    z = np.load(spec["pipe"])
+    stage = {}
+    for name in ("w", "b"):
+        start, n = plan.slice_bounds(z[name].shape, 0, axis="model")
+        stage[name] = torch.from_numpy(
+            z[name][start:start + n].copy()).requires_grad_(True)
+    x = torch.from_numpy(z["x"]).requires_grad_(True)
+    o = pipeline_apply(pipe_block, stage, x, plan,
+                       n_microbatch=int(spec["pipe_microbatch"]),
+                       n_block=z["w"].shape[0])
+    (o * torch.from_numpy(z["w_out"])).sum().backward()
+    return {"o": o.detach().numpy(), "dx": x.grad.numpy(),
+            "dw": stage["w"].grad.numpy(), "db": stage["b"].grad.numpy()}
+
+
 def main() -> int:
     spec = json.load(open(sys.argv[1]))
     rank = int(sys.argv[2])
@@ -78,6 +113,8 @@ def main() -> int:
                            timeout_s=float(spec.get("timeout_s", 60)))
     if spec.get("ops"):
         np.savez(f"{spec['ops_out']}.r{rank}.npz", **run_ops(spec))
+    if spec.get("pipe"):
+        np.savez(f"{spec['pipe_out']}.r{rank}.npz", **run_pipe(spec))
     for run in spec.get("runs", []):
         run_one(run, rank, world)
     pdist.shutdown_distributed()
