@@ -318,7 +318,7 @@ Phases; any failure ends the run with a non-zero exit and no result:
    bit-equal at 1 and 4 decode workers, with and without
    ``threadbuffer`` and after a mid-epoch rewind, and a resumed round 2
    equal to the uninterrupted one.  The chain alone at 1 and 4 workers,
-   img/s (median of 3 passes, host clock).  ``task=pred_raw`` with
+   img/s (median of ``IMGBIN_PASSES`` passes, host clock).  ``task=pred_raw`` with
    ``bowl.conf``'s net and ``pred.conf``'s section (``imgbin`` +
    ``threadbuffer``, batch 64) over 200 raw 3x40x40 records from a
    seeded ``save_model`` checkpoint, float32 with TF32 off: 200 rows of
@@ -608,6 +608,26 @@ Phases; any failure ends the run with a non-zero exit and no result:
    (< ``DP_DIGITS_LEARNED``); then a bit flipped on rank 1 only: both ranks stop with
    ``INTEGRITY:`` before the round is saved.  NCCL runs where the host
    has two cards (not on one: logged).  A ``data_parallel`` JSON line.
+32. The elastic pod (``parallel/elastic.py``, ``elastic_phase``), every
+   process on the card over gloo.  32a: googlenet.conf's net at full
+   width less its dropout layer (bf16, global batch ``EL_BATCH``,
+   ``det_reduce = 1``, ``save_ustate = 1``, ``EL_ROWS`` synthetic rows
+   a rank, cuDNN deterministic) through the CLI (``python chip_smoke.py
+   --el-rank SPEC TAG``), ``EL_ROUNDS`` rounds, two runs at once: run A
+   on 3 ranks, rank 2 SIGKILLed mid-round once ``0002.model`` is
+   durable, the survivors rebuilt on 2, an ``elastic_join = 1`` process
+   admitted at the coordinator's boundary (3 again); run B the same
+   schedule planned (``elastic_drop_at``, ``elastic_join_at``), no kill.
+   Every checkpoint's CRC equal between the runs; every step of every
+   process K1-K6 and K8 on their main entries, in every generation; the
+   seconds from the kill to the survivors' ``mesh.rebuild_start``, each
+   rebuild's wall time and rank 0's img/s by round logged.  32b: 28c's
+   digits job on 3 ranks with ``elastic = 1``, ``integrity_every = 1``
+   and the flip on rank 1: exits ``[0, 41, 0]``, the survivors resumed
+   at the last verified round + 1, every later vote clean, every round
+   saved.  32a's and 32b's 11 processes run together, after phase 31
+   and beside no other phase (the parent launches no kernel for them;
+   they count their own).  An ``elastic`` JSON line.
    Then a ``phase_s`` JSON line: the seconds of every phase.
 21. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
@@ -754,7 +774,7 @@ LR_SCALE = 0.01
 # update at which MNIST_CONV's injected faults land (60 updates a round)
 GUARD_ROWS = 1024
 GUARD_BACKOFF, GUARD_RETRIES, GUARD_RATIO = 0.1, 3, 50
-GUARD_COST_BLOCKS, GUARD_COST_STEPS = 2, 5
+GUARD_COST_BLOCKS, GUARD_COST_STEPS = 2, 3
 MNIST_GUARD_STEP = 70
 # the spike gate's ratio there: far above the real losses' spread once
 # the net has learnt (a batch at 50x the median of losses near 0.01 is
@@ -936,7 +956,7 @@ IMGBIN_EVAL = 128
 IMGBIN_SIDE = 256
 IMGBIN_WORKERS = 4
 IMGBIN_PADD = 84  # the third batch of a round: 300 = 2 x 128 + 44
-IMGBIN_PASSES = 3
+IMGBIN_PASSES = 2
 IMGBIN_PER_STEP = {**PER_STEP, "sgd_update": 1}  # K8: 116 tensors, 1 launch
 BOWL_CONF = os.path.join(REPO, "example", "kaggle_bowl", "bowl.conf")
 BOWL_PRED_CONF = os.path.join(REPO, "example", "kaggle_bowl", "pred.conf")
@@ -1618,6 +1638,30 @@ def _rows(n: int, side: int, seed: int):
         np.float32)
 
 
+#: the JSON text of three values k/8 as ``json.dumps`` writes them in a
+#: list, for the 17^3 triples there are
+_TRIPLES = [f"{a}, {b}, {c}" for a in (repr(k / 8) for k in range(-8, 9))
+            for b in (repr(k / 8) for k in range(-8, 9))
+            for c in (repr(k / 8) for k in range(-8, 9))]
+
+
+def _json_body(x) -> bytes:
+    """``json.dumps({"data": x.tolist(), "raw": True}).encode()``, byte
+    for byte, for rows of ``_rows``' values, from a table of their
+    triples (a 128-row body in a quarter of ``json.dumps``'s time);
+    other arrays go through ``json.dumps``."""
+    import numpy as np
+
+    k = np.rint(x * 8).astype(np.int64) + 8
+    if (x.ndim != 2 or x.shape[1] % 3
+            or not np.array_equal((k - 8) / 8, x)):
+        return json.dumps({"data": x.tolist(), "raw": True}).encode()
+    idx = (k[:, 0::3] * 17 + k[:, 1::3]) * 17 + k[:, 2::3]
+    rows = ", ".join("[" + ", ".join(map(_TRIPLES.__getitem__, r)) + "]"
+                     for r in idx.tolist())
+    return ('{"data": [' + rows + '], "raw": true}').encode()
+
+
 def _drive_requests(port: int, bodies, per_forward, tag: str):
     """The main path of a serving run: ``POST /predict`` with each body,
     ``REPEATS`` times, the launch counts set to 0 just before and read
@@ -1628,8 +1672,7 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
 
     from cxxnet_tpu_torch.ops import KERNELS
 
-    encoded = {n: json.dumps({"data": x.tolist(), "raw": True}).encode()
-               for n, x in bodies.items()}
+    encoded = {n: _json_body(x) for n, x in bodies.items()}
     want = {**{k.name: 0 for k in KERNELS}, **per_forward}
     want_paths = _main_paths(per_forward)
     for k in KERNELS:
@@ -1773,8 +1816,7 @@ def drive_wire(port: int, eng, bodies, json_answers, per_forward, tag: str,
     lat = {}
     try:
         for n, x in rows.items():
-            sends = {"json": (json.dumps({"data": x.tolist(), "raw": True}
-                                         ).encode(), "application/json"),
+            sends = {"json": (_json_body(x), "application/json"),
                      "binary": (bytes(wire.encode_request(x, kind="scores")),
                                 wire.CONTENT_TYPE)}
             replies, times = {}, {}
@@ -2495,7 +2537,7 @@ def quant_phase(tmp: str, path: str, f32_answers):
 
 def kernels_line(rows, serve_launches, train_launches, flash_rows,
                  lm_launches, gen_launches, int8_rows, quant_launches,
-                 loop_out, fleet_out, p27, p28, p2930, p31):
+                 loop_out, fleet_out, p27, p28, p2930, p31, p32):
     """Per kernel: the launches of its main path (GoogLeNet training for
     K1-K8, with the serving run's for the forward kernels; the LM
     training run for K9 and K10, with the windowed generation run's; the
@@ -2507,7 +2549,8 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
     GoogLeNet steps; phase 28's two ranks; phase 29's async step and
     phase 30's ring and all-to-all steps, the two ranks summed; phase
     31's three runs on the model axis, the two ranks summed, with K6's
-    and K8's calls at a rank's sliced shapes), the max error over every
+    and K8's calls at a rank's sliced shapes; phase 32a's eight
+    processes, summed), the max error over every
     check, and one
     training step's launches' times summed (GoogLeNet b128 bf16; the SGD
     kernel's f32 row covers all its launches; the LM step's 4 launches of
@@ -2645,6 +2688,9 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
         # phase 31: the two ranks' launches summed (31a's GoogLeNet, 31b's
         # pipe stages and 31c's MoE LM steps)
         row["launches_model_axis"] = p31["launches"].get(row["name"], 0)
+        # phase 32: 32a's eight processes' launches summed (runs A and B,
+        # every generation, the joiners')
+        row["launches_elastic"] = p32["launches"].get(row["name"], 0)
     return {"kernels": out}
 
 
@@ -7102,7 +7148,7 @@ UTIL_SYMBOLS = {"maxpool_fwd": "maxpool_fwd_vec_kernel",
                 "lrn_bwd": "lrn_bwd_vec_kernel",
                 "conv_block_gemm": "conv_block_wgmma_kernel",
                 "sgd_update": "sgd_update_multi_kernel"}
-TUNE_TRAFFIC_S = 4.0  # each run's traffic (cut for phases 28-30's time)
+TUNE_TRAFFIC_S = 3.0  # each run's traffic (cut for phases 28-32's time)
 TUNE_CLIENTS = 4
 TUNE_JSON_ROWS = (1, 2)
 TUNE_BINARY_ROWS = (1, 7, 16, 32, 64)
@@ -11904,6 +11950,447 @@ def model_axis_phase(card: str):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 32: the elastic pod (k4), GoogLeNet on ranks that come and go
+EL_RANKS = 3
+EL_BATCH = 96  # global: 32 rows a rank on 3 ranks, 48 on 2
+EL_ROWS = 192  # each rank's synthetic rows: 6 steps a round on 3, 4 on 2
+EL_ROUNDS = 5
+EL_KILL_AFTER = 2  # run A: rank 2 SIGKILLed once 0002.model is durable
+EL_JOIN_AT = 4  # run A's joiner asks for this boundary
+# run B plans what the coordinator gives run A: the shrink at the round
+# the survivors resume (the kill's round), the grow at max(join_at, the
+# newest reported round + 2) once a loss moved it (JAX's rule)
+EL_DROP_AT = EL_KILL_AFTER + 1
+EL_GROW_AT = max(EL_JOIN_AT, EL_DROP_AT + 2)
+EL_KEYS = ("elastic=1", "elastic_min_replicas=2", "elastic_heartbeat_s=0.25",
+           "elastic_timeout_s=3", "collective_timeout_s=30",
+           "dist_timeout_s=120", "det_reduce=1", "save_ustate=1",
+           "dist_shard=block", f"num_round={EL_ROUNDS}", "print_step=0",
+           f"seed={SEED}", "telemetry=1", "event_log=events.jsonl")
+EL_DEADLINE_S = 300
+# 32b: the phase-28 digits job on 3 ranks with the flip on rank 1; a
+# global batch that divides over 3 ranks and then over 2
+EL_Q_ROUNDS = 3
+EL_Q_BATCH = 96
+
+
+def el_rank_main(spec_path: str, tag: str) -> int:
+    """One process of phase 32a: the port's CLI (``LearnTask``) on the
+    spec's argv, each step's launches (by kernel and by C entry), its
+    rank, world and round appended to the spec's ``out`` file.  cuDNN
+    deterministic, as phase 28's compared runs."""
+    sys.path.insert(0, REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    import torch
+
+    from cxxnet_tpu_torch import cli
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.parallel.distributed import process_info
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = open(spec["out"], "a")
+
+    class RecordingTrainer(NetTrainer):
+        def update(self, batch):
+            before = {k.name: k.launches for k in KERNELS}
+            paths_before = _by_symbol()
+            super().update(batch)
+            rank, world = process_info()
+            out.write(json.dumps({
+                "tag": tag, "round": self.round, "rank": rank,
+                "world": world, "device": str(self.device),
+                "launches": {k.name: k.launches - before[k.name]
+                             for k in KERNELS},
+                "paths": _paths_since(paths_before),
+                "loss": float(self.last_loss)}) + "\n")
+            out.flush()
+
+    class Task(cli.LearnTask):
+        def _create_trainer(self):
+            tr = RecordingTrainer()
+            tr.set_params(self.cfg)
+            return tr
+
+    try:
+        code = Task().run(spec["argv"])
+    except BaseException:  # noqa: BLE001 - the parent reads the log
+        traceback.print_exc()
+        code = 1
+    out.close()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)  # an elastic process ends without interpreter teardown
+
+
+def _el_conf(tmp: str) -> str:
+    """googlenet.conf's net at full width less its one dropout layer
+    (``det_reduce = 1`` refuses a stochastic layer), bf16, on the
+    phase-28 synthetic source, ``EL_ROWS`` rows a rank, global batch
+    ``EL_BATCH``, rates times ``LR_SCALE``."""
+    path = _synthetic_conf(tmp, "elastic.conf",
+                           (("data", "train", EL_ROWS, False),), LR_SCALE)
+    with open(path) as f:
+        lines = f.read().splitlines()
+    out, skip = [], False
+    for line in lines:
+        if line.replace(" ", "").endswith("=dropout"):
+            skip = True  # the layer and its threshold
+            continue
+        if skip and line.strip().startswith("threshold"):
+            continue
+        skip = False
+        out.append(line)
+    if len(out) != len(lines) - 2:
+        raise SmokeError("32: googlenet.conf's dropout layer not found")
+    out.append(f"batch_size = {EL_BATCH}")
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return path
+
+
+def _el_start(tmp, run, conf, model_dir, ranks, dist_port, el_port, extra,
+              joiner_extra, started):
+    """``ranks`` rank processes and one ``elastic_join = 1`` process of
+    run ``run`` (``python chip_smoke.py --el-rank SPEC TAG``), each in
+    ``<tmp>/<run>/<tag>`` and each appended to ``started``; returns
+    ``(procs, dirs)``."""
+    procs, dirs = [], []
+    for i, tag in enumerate([f"r{r}" for r in range(ranks)] + ["j"]):
+        d = os.path.join(tmp, run, tag)
+        os.makedirs(d)
+        argv = [conf, f"dev={DP_DEV}", f"model_dir={model_dir}", *EL_KEYS,
+                f"elastic_coordinator=127.0.0.1:{el_port}"]
+        if tag == "j":
+            argv += ["elastic_join=1", "elastic_rejoin_s=240", *joiner_extra]
+        else:
+            argv += [f"dist_num_proc={ranks}", f"dist_proc_id={i}",
+                     f"dist_coordinator=127.0.0.1:{dist_port}", *extra]
+        spec = os.path.join(d, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"argv": argv, "out": os.path.join(d, "steps.jsonl")},
+                      f)
+        with open(os.path.join(d, "out.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                 "--el-rank", spec, tag], cwd=d,
+                env=dict(os.environ, PYTHONPATH=REPO), stdout=log,
+                stderr=subprocess.STDOUT))
+        started.append(procs[-1])
+        dirs.append(d)
+    return procs, dirs
+
+
+def _el_ports(n: int) -> list:
+    """``n`` distinct free ports, bound together and then released (a
+    port drawn and closed one at a time may come back)."""
+    import socket
+
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _el_read(d: str, name: str) -> list:
+    """A process's JSON lines (``steps.jsonl``, ``events.jsonl``,
+    ``telemetry.jsonl``)."""
+    try:
+        with open(os.path.join(d, name)) as f:
+            return [json.loads(line) for line in f if line.strip()]
+    except (OSError, ValueError):
+        return []
+
+
+def _el_log(d: str) -> str:
+    with open(os.path.join(d, "out.log"), errors="replace") as f:
+        return f.read()
+
+
+def _el_wait(procs, t0, kill=()):
+    """Wait for ``procs`` until ``EL_DEADLINE_S`` after ``t0``; every
+    process still running then is killed.  Returns the exit codes."""
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + EL_DEADLINE_S - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs]
+
+
+def _el_crcs(model_dir: str) -> dict:
+    from cxxnet_tpu_torch.utils import checkpoint as ckpt
+
+    return {r: ckpt.read_manifest(p)["crc32"]
+            for r, p in ckpt.list_checkpoints(model_dir)}
+
+
+def _el_generations(steps):
+    """A process's steps cut where its (rank, world) changes: ``[(rank,
+    world, first round, last round, steps)]``."""
+    out = []
+    for s in steps:
+        key = (s["rank"], s["world"])
+        if not out or tuple(out[-1][:2]) != key:
+            out.append([*key, s["round"], s["round"], 0])
+        out[-1][3] = s["round"]
+        out[-1][4] += 1
+    return [tuple(g) for g in out]
+
+
+def elastic_googlenet_start(tmp: str, card: str, ports, started: list):
+    """32a: run A (churn) and run B (planned) started together, 4
+    processes each, all on the card (gloo), on ``ports`` (four), and a
+    thread that SIGKILLs run A's rank 2 once ``0002.model`` is durable;
+    the processes go to ``started``; returns a function that waits for
+    them and checks."""
+    from cxxnet_tpu_torch.utils import checkpoint as ckpt
+
+    conf = _el_conf(tmp)
+    models = {run: os.path.join(tmp, run, "models") for run in ("a", "b")}
+    t0 = time.perf_counter()
+    a, a_dirs = _el_start(tmp, "a", conf, models["a"], EL_RANKS, ports[0],
+                          ports[1], (), [f"elastic_join_at={EL_JOIN_AT}"],
+                          started)
+    b, b_dirs = _el_start(tmp, "b", conf, models["b"], EL_RANKS, ports[2],
+                          ports[3], [f"elastic_drop_at={EL_DROP_AT}"],
+                          [f"elastic_join_at={EL_GROW_AT}"], started)
+    want = ckpt.manifest_path(os.path.join(models["a"],
+                                           f"{EL_KILL_AFTER:04d}.model"))
+    kill = {}
+
+    def watch():
+        while time.perf_counter() - t0 < EL_DEADLINE_S:
+            if os.path.exists(want):
+                time.sleep(0.3)  # round 3 under way
+                a[EL_RANKS - 1].send_signal(signal.SIGKILL)
+                kill["ts"] = time.time()
+                return
+            if all(p.poll() is not None for p in a):
+                return
+            time.sleep(0.02)
+
+    watcher = threading.Thread(target=watch, name="chip-smoke-el-kill",
+                               daemon=True)
+    watcher.start()
+    return lambda: _el_googlenet_finish(card, t0, models, a, a_dirs, b,
+                                        b_dirs, watcher, kill)
+
+
+def _el_googlenet_finish(card, t0, models, a, a_dirs, b, b_dirs, watcher,
+                         kill):
+    """32a's holds and readings, once its processes ended."""
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    codes_a = _el_wait(a, t0)
+    codes_b = _el_wait(b, t0)
+    watcher.join()
+    wall = time.perf_counter() - t0
+    kill_ts = kill.get("ts")
+    logs = {f"a/{os.path.basename(d)}": _el_log(d) for d in a_dirs}
+    logs.update({f"b/{os.path.basename(d)}": _el_log(d) for d in b_dirs})
+    if kill_ts is None:
+        raise SmokeError(f"32a: {EL_KILL_AFTER:04d}.model never appeared: "
+                         + logs["a/r0"][-3000:])
+    expect_a = [0] * (EL_RANKS - 1) + [-signal.SIGKILL, 0]
+    if codes_a != expect_a or codes_b != [0] * (EL_RANKS + 1):
+        raise SmokeError(f"32a: exits run A {codes_a} (want {expect_a}), run "
+                         f"B {codes_b}: " + " | ".join(
+                             f"{k}: {v[-1500:]}" for k, v in logs.items()))
+
+    def resumed(log, reason):
+        return [int(m) for m in re.findall(
+            reason + r" -> rebuilding.*?\n.*?resuming at round (\d+)", log,
+            re.S)]
+
+    resume, grow = resumed(logs["a/r0"], "replica_lost"), resumed(
+        logs["a/r0"], "grow")
+    if (resume, grow) != ([EL_DROP_AT], [EL_GROW_AT]):
+        raise SmokeError(f"32a: run A resumed at {resume} and grew at {grow};"
+                         f" run B planned {EL_DROP_AT} and {EL_GROW_AT}")
+    if (f"elastic: this rank left the mesh at round {EL_DROP_AT} (planned "
+            "shrink); exiting clean") not in logs[f"b/r{EL_RANKS - 1}"]:
+        raise SmokeError("32a: run B's dropped rank: "
+                         + logs[f"b/r{EL_RANKS - 1}"][-2000:])
+    crcs = {run: _el_crcs(m) for run, m in models.items()}
+    if sorted(crcs["a"]) != list(range(EL_ROUNDS + 1)) or crcs["a"] != crcs[
+            "b"]:
+        raise SmokeError(f"32a: checkpoint CRCs run A {crcs['a']} != run B "
+                         f"{crcs['b']}")
+    # every step of every process: K1-K6 and K8 on their main entries, in
+    # each generation it lived through
+    want_paths = _main_paths(IMGBIN_PER_STEP)
+    full = {k.name: IMGBIN_PER_STEP.get(k.name, 0) for k in KERNELS}
+    want_dev = "cpu" if DP_DEV.startswith("cpu") else "cuda"
+    launches = {k.name: 0 for k in KERNELS}
+    gens = {}
+    for run, dirs in (("a", a_dirs), ("b", b_dirs)):
+        for d in dirs:
+            name = f"{run}/{os.path.basename(d)}"
+            steps = _el_read(d, "steps.jsonl")
+            for i, s in enumerate(steps):
+                if (s["launches"] != full or s["paths"] != want_paths
+                        or not s["device"].startswith(want_dev)):
+                    raise SmokeError(f"32a {name}: step {i} (round "
+                                     f"{s['round']}, world {s['world']}) "
+                                     f"launches {s['launches']}, paths "
+                                     f"{s['paths']} on {s['device']}")
+                for k, n in s["launches"].items():
+                    launches[k] += n
+            gens[name] = _el_generations(steps)
+    want_gens = {"a/r0": [3, 2, 3], "a/r1": [3, 2, 3], "a/r2": [3],
+                 "a/j": [3], "b/r0": [3, 2, 3], "b/r1": [3, 2, 3],
+                 "b/r2": [3], "b/j": [3]}
+    got_gens = {k: [g[1] for g in v] for k, v in gens.items()}
+    if got_gens != want_gens:
+        raise SmokeError(f"32a: generations by process {gens}")
+    # the readings: the kill to the survivors' rebuild_start, each
+    # rebuild's wall time, rank 0's img/s by round and world
+    ev = {k: _el_read(d, "events.jsonl") for k, d in
+          [(f"a/{os.path.basename(d)}", d) for d in a_dirs]
+          + [(f"b/{os.path.basename(d)}", d) for d in b_dirs]}
+    detect = {k: round(e["ts"] - kill_ts, 3) for k in ("a/r0", "a/r1")
+              for e in ev[k] if e["kind"] == "mesh.rebuild_start"
+              and e["reason"] == "replica_lost"}
+    rebuilds = {k: [(e["reason"], e["num"], e["wall_s"]) for e in v
+                    if e["kind"] == "mesh.rebuild_done"]
+                for k, v in ev.items() if any(
+                    e["kind"] == "mesh.rebuild_done" for e in v)}
+    rates = {run: [(t["round"], t["elastic"]["processes"],
+                    round(t["step"].get("samples_per_sec", 0.0), 1))
+                   for t in _el_read(dirs[0], "telemetry.jsonl")]
+             for run, dirs in (("a", a_dirs), ("b", b_dirs))}
+    log(f"32a elastic GoogLeNet (det_reduce, bf16, batch {EL_BATCH}): run A "
+        f"killed rank {EL_RANKS - 1} after {EL_KILL_AFTER:04d}.model, resumed"
+        f" at round {resume[0]} on 2, grew back to 3 at {grow[0]} (joiner asked"
+        f" for {EL_JOIN_AT}); run B shrank at {EL_DROP_AT}, grew at "
+        f"{EL_GROW_AT}; checkpoint CRCs equal over rounds 0-{EL_ROUNDS}: "
+        f"{ {r: hex(c) for r, c in crcs['a'].items()} }; generations "
+        f"{gens}; both runs {wall:.1f}s ({card})")
+    log(f"32a kill -> mesh.rebuild_start (s): {detect}; rebuilds (reason, "
+        f"processes, wall s): {rebuilds}; rank 0's img/s by round (round, "
+        f"processes, img/s; the card shared with 32b and the phases "
+        f"run meanwhile): "
+        f"{rates} ({card})")
+    return {"crcs": {r: hex(c) for r, c in crcs["a"].items()},
+            "resume_round": resume[0], "grow_round": grow[0],
+            "kill_to_rebuild_start_s": detect, "rebuilds": rebuilds,
+            "rates": rates, "generations": gens, "launches": launches,
+            "wall_s": wall}
+
+
+def elastic_quarantine_start(tmp: str, card: str, ports, started: list):
+    """32b: the phase-28 digits job (``dist.conf`` on the UCI digits) on 3
+    ranks with ``elastic = 1``, ``integrity_every = 1`` and ``DP_FLIP``
+    on rank 1, on ``ports`` (two), the processes appended to ``started``;
+    returns a function that waits and checks: exits ``[0, 41,
+    0]``, the survivors rebuilt onto ``last_clean_round + 1`` and
+    finished ``EL_Q_ROUNDS``, every vote after the rebuild clean (the two
+    survivors' state digests equal each round) and each round's
+    checkpoint written after the two ranks' CRCs agreed.
+    ``test_on_server = 1`` stays off here: it runs inside the round,
+    before the vote, so it would stop the flipped round itself."""
+    from cxxnet_tpu_torch.tools.make_digits_idx import write_digits_idx
+
+    d = os.path.join(tmp, "q")
+    os.makedirs(d)
+    write_digits_idx(os.path.join(d, "data"))
+    with open(DIST_CONF) as f:
+        text = f.read() + DP_DIGITS_EVAL
+    conf = os.path.join(d, "dist_eval.conf")
+    with open(conf, "w") as f:
+        f.write(text)
+    port, el_port = ports
+    t0 = time.perf_counter()
+    procs = _dp_start(
+        [[sys.executable, "-m", "cxxnet_tpu_torch", conf, *DP_DIGITS_KEYS,
+          f"num_round={EL_Q_ROUNDS}", f"batch_size={EL_Q_BATCH}",
+          "integrity_every=1", "update_on_server=0", "dist_num_proc=3",
+          f"dist_proc_id={r}", f"dist_coordinator=127.0.0.1:{port}",
+          "dist_timeout_s=120", "model_dir=mq", "elastic=1",
+          "elastic_min_replicas=2", "elastic_heartbeat_s=0.25",
+          "elastic_timeout_s=3", f"elastic_coordinator=127.0.0.1:{el_port}",
+          f"event_log=events.r{r}.jsonl",
+          *(DP_FLIP if r == 1 else ())]
+         for r in range(3)], d, "q")
+    started.extend(procs[0])
+
+    def finish():
+        codes, outs = _dp_finish(procs, t0)
+        wall = time.perf_counter() - t0
+        if codes != [0, 41, 0]:
+            raise SmokeError(f"32b: exits {codes}: "
+                             + " | ".join(o[-2000:] for o in outs))
+        out = {"codes": codes, "wall_s": wall}
+        for r in (0, 2):
+            ev = _el_read(d, f"events.r{r}.jsonl")
+            (quar,) = [e for e in ev if e["kind"] == "integrity.quarantine"]
+            (done,) = [e for e in ev if e["kind"] == "mesh.rebuild_done"]
+            clean = [e["round"] for e in ev if e["kind"] == "integrity.clean"]
+            if (quar["rank"] != 1 or done["num"] != 2
+                    or done["resume_round"] != quar["last_clean_round"] + 1
+                    or clean != list(range(EL_Q_ROUNDS))
+                    or "updating end" not in outs[r]):
+                raise SmokeError(f"32b rank {r}: quarantine {quar}, rebuild "
+                                 f"{done}, clean votes {clean}: "
+                                 + outs[r][-2000:])
+            out[f"r{r}"] = {"last_clean_round": quar["last_clean_round"],
+                            "resume_round": done["resume_round"],
+                            "rebuild_s": done["wall_s"], "clean": clean}
+        saved = sorted(n for n in os.listdir(os.path.join(d, "mq"))
+                       if n.endswith(".model"))
+        if saved != [f"{r:04d}.model" for r in range(EL_Q_ROUNDS + 1)]:
+            raise SmokeError(f"32b: saved {saved}")
+        if "self-quarantining (exit 41)" not in outs[1]:
+            raise SmokeError("32b rank 1: " + outs[1][-2000:])
+        log(f"32b quarantine: exits {codes}; the survivors "
+            f"{ {r: out[f'r{r}'] for r in (0, 2)} }; saved {saved}; "
+            f"{wall:.1f}s ({card})")
+        return out
+
+    return finish
+
+
+def elastic_phase(card: str):
+    """Phase 32: 32a's and 32b's 11 processes started together on the
+    card, waited for and checked; returns the ``elastic`` line.  A
+    process still running when a check fails is killed."""
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    t0 = time.perf_counter()
+    started = []
+    try:
+        ports = _el_ports(6)  # 32a's four, then 32b's two
+        finish_a = elastic_googlenet_start(tmp, card, ports[:4], started)
+        finish_q = elastic_quarantine_start(tmp, card, ports[4:], started)
+        try:
+            out = finish_a()
+        finally:
+            q = finish_q()
+    finally:
+        for p in started:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(quarantine=q, phase_s=time.perf_counter() - t0, card=card)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -12044,10 +12531,14 @@ def main() -> int:
         log(json.dumps({"model_axis": {k: v for k, v in p31.items()
                                        if k != "kernels"}}))
         lap("31 model axis")
+        p32 = elastic_phase(card)
+        log(json.dumps({"elastic": {k: v for k, v in p32.items()
+                                    if k not in ("launches", "generations")}}))
+        lap("32 elastic")
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
                             quant_launches, loop_out, fleet_out, p27, p28,
-                            p2930, p31)
+                            p2930, p31, p32)
         log(json.dumps({"phase_s": phase_s, "total_s": round(sum(
             phase_s.values()), 1), "card": card}))
         log(card)
@@ -12069,4 +12560,6 @@ if __name__ == "__main__":
         sys.exit(mp_rank_main(sys.argv[2], int(sys.argv[3])))
     if len(sys.argv) == 4 and sys.argv[1] == "--ma-rank":
         sys.exit(ma_rank_main(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--el-rank":
+        sys.exit(el_rank_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

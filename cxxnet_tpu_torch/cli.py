@@ -132,7 +132,8 @@ the ``pipeline:`` line a round).  ``telemetry = 1`` appends one JSON
 record a round to ``telemetry_path`` (``telemetry.jsonl``): ``ts``,
 ``round``, ``steps``, ``batches``, ``elapsed_s``, ``lr``, ``eval``,
 ``step``, ``stages``, ``device`` and, with the integrity plane,
-``integrity``; a failed write is counted and logged once, and training
+``integrity``, with the async step ``async`` and in an elastic group
+``elastic``; a failed write is counted and logged once, and training
 goes on.  ``profile = 1`` (``profile_dir``, ``profile_start``,
 ``profile_steps``) writes a ``torch.profiler`` Chrome trace of a window
 of steps.  ``compile_cache_dir`` (any task) moves the kernel and host
@@ -146,8 +147,9 @@ is not detected, as in the JAX package; there only the shadow audit can
 stop a run.  Across the ranks of a data-parallel job the digests are
 all-gathered and voted (``integrity/plane.py``): a flipped bit on one
 of three ranks is named, on one of two it is found but not named, and
-either stops the run (the quarantine of the named rank is the elastic
-pod's, ROADMAP.md item (k4)).
+either stops the run; with ``elastic = 1`` the named rank quarantines
+itself (exit 41) and the others evict it and rebuild on the last
+verified round (see below).
 ``controller = 1`` runs the tuner (``tune/``): under ``task=train`` over
 the decode pool's workers and window, under ``task=serve`` over the
 batcher's limit and window, with the bucket prewarm each tick.
@@ -203,9 +205,30 @@ rank 0 writes the checkpoints, the train and eval metrics are summed
 over the ranks, and the ``mesh:`` line states the layout, the backend
 and the state's bytes per rank.  ``test_on_server = 1`` checks after
 every round that the ranks' weights agree (``check_weight_sync``,
-``weight-sync:`` on stderr).  ``elastic`` and ``elastic_join`` (the
-elastic pod, ROADMAP.md item (k4)) raise ``NotImplementedError``; the
-tasks other than ``train`` and ``finetune`` run on one process.
+``weight-sync:`` on stderr).  The tasks other than ``train`` and
+``finetune`` run on one process.
+
+The elastic pod (``parallel/elastic.py``), as the JAX package drives it:
+with ``elastic = 1`` in a ``dist_*`` group rank 0 hosts the membership
+coordinator (``elastic_coordinator``, default the ``dist_coordinator``
+port + 1), every rank heartbeats it every ``elastic_heartbeat_s``, and
+the round, the integrity vote, the preemption sync and the checkpoint
+run under the collective deadline (``collective_timeout_s``).  A rank
+silent past ``elastic_timeout_s`` (a SIGKILLed peer's gloo error comes
+first; the monitor confirms it) makes a new generation: the survivors
+tear the group down without a collective, join the next one at the
+plan's fresh store address, reload the newest round every survivor
+holds, re-shard their iterators and go on (``elastic: rebuilt in ...;
+resuming at round R on N process(es)``), at most 5 times in a row
+without a completed round, never below ``elastic_min_replicas``.
+``elastic_drop_at = R`` plans a shrink at round R's boundary (the
+highest rank prints ``elastic: this rank left the mesh at round R
+(planned shrink); exiting clean``); a process with ``elastic_join = 1``
+and ``elastic_coordinator`` waits (``elastic_rejoin_s``) to be admitted
+at a boundary (``elastic_join_at`` pins it), joins the grown group and
+loads the consensus round.  The transitions land at the round boundary
+after the checkpoint.  A device range does not arm the pod (one line
+says so), as the JAX package's one-process range does not.
 """
 
 from __future__ import annotations
@@ -223,8 +246,6 @@ from . import config as cfgmod
 _TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "summary",
           "serve", "generate", "export_quant", "serve_train", "loop_fleet",
           "data_service")
-# train keys of planes this slice does not port: refused when switched on
-_TRAIN_LATER = ("elastic", "elastic_join")
 # the tasks a data-parallel group runs (the others are one process)
 _GROUP_TASKS = ("train", "finetune")
 
@@ -257,6 +278,19 @@ class LearnTask:
         self.controller = 0  # 1: the tuner (tune/)
         self.test_on_server = 0  # 1: the ranks' weights compared a round
         self.dist_launch_timeout_s = 7 * 86400.0  # the range launcher's
+        # the elastic pod: parsed once in run() (or task_train) from the
+        # elastic_* and collective_timeout_s keys
+        self.elastic_opts = None
+        self.elastic_member = None
+        self._elastic_joined = False
+        self._elastic_left = False
+        self._elastic_drop_done = False
+        self._elastic_rebuilds = 0
+        self._elastic_consec_recoveries = 0
+        self._elastic_attempted_gen = 0
+        self._elastic_last_rebuild_s = 0.0
+        self._elastic_dev = None  # the rank's dev, kept by every rebuild
+        self._integrity_rollback_before = None  # the quarantine's bound
         self._train_start = 0.0
         self.print_step = 100
         self.net_trainer = None
@@ -364,10 +398,6 @@ class LearnTask:
             self.telemetry = int(val)
         elif name == "telemetry_path":
             self.telemetry_path = val
-        elif name in _TRAIN_LATER and val not in ("", "0"):
-            raise NotImplementedError(
-                f"{name}={val}: the elastic pod is not ported yet "
-                "(ROADMAP.md queue A item 6, (k4))")
         elif name == "test_on_server":
             self.test_on_server = int(val)
         elif name == "dist_launch_timeout_s":
@@ -466,6 +496,13 @@ class LearnTask:
             self.set_param(name, val)
         if self.task not in _TASKS:
             raise ValueError(f"unknown task {self.task!r}")
+        from .parallel.elastic import ElasticOptions
+
+        self.elastic_opts = ElasticOptions.from_cfg(self.cfg)
+        # a joiner has no group yet: it is admitted, joins, loads and
+        # builds its iterators inside task_train (_elastic_join_setup)
+        if self.elastic_opts.join and self.task != "train":
+            raise ValueError("elastic_join=1 only supports task=train")
         launched = self._launch_device_range()
         if launched is not None:
             return launched
@@ -479,7 +516,8 @@ class LearnTask:
                 f"task={self.task} is single-process; a data-parallel "
                 f"group runs {' and '.join(_GROUP_TASKS)}")
         code = self._run_task()
-        if joined:
+        # an elastic run left its group already, without a collective
+        if joined and distributed.distributed_initialized():
             # every rank is done: leave the group together (its threads
             # torn down at interpreter exit can abort the process)
             distributed.barrier("exit")
@@ -550,6 +588,16 @@ class LearnTask:
         import socket
         import subprocess
 
+        # the JAX package runs a range as one process, where elastic = 1
+        # has nothing to watch; its ranks here end together (wait_ranks)
+        pinned = []
+        if self.elastic_opts is not None and (self.elastic_opts.elastic
+                                              or self.elastic_opts.join):
+            pinned = ["elastic=0", "elastic_join=0"]
+            print(f"elastic: not armed for the device range dev="
+                  f"{dev.strip()} (its rank processes end together, as "
+                  "the JAX package's one-process range)", flush=True)
+
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
@@ -561,7 +609,7 @@ class LearnTask:
         procs = []
         for rank, ordinal in enumerate(ids):
             argv = [sys.executable, "-m", "cxxnet_tpu_torch", self.conf_path,
-                    *self.cli_overrides, f"dev={plat}:{ordinal}",
+                    *self.cli_overrides, *pinned, f"dev={plat}:{ordinal}",
                     f"dist_num_proc={len(ids)}", f"dist_proc_id={rank}",
                     f"dist_coordinator=127.0.0.1:{port}"]
             procs.append(subprocess.Popen(argv, env=env))
@@ -607,17 +655,10 @@ class LearnTask:
         if self.task != "train":
             self.continue_training = 0
         if self.continue_training:
-            round_, path = self._locate_agreed_checkpoint()
-            if path is None:
+            if not self._sync_latest_model():
                 raise FileNotFoundError(
                     "Init: cannot find models for continue training; "
                     "specify model_in instead")
-            self.net_trainer = self._create_trainer()
-            self.net_trainer.load_model(path)
-            self.start_counter = round_ + 1
-            from .obs import emit as obs_emit
-
-            obs_emit("checkpoint.restore", round=round_, path=path)
             print(f"Init: Continue training from round {self.start_counter}")
         elif self.name_model_in == "NULL":
             self.net_trainer = self._create_trainer()
@@ -637,18 +678,20 @@ class LearnTask:
             self.start_counter += 1
         self._create_iterators()
 
-    def _locate_agreed_checkpoint(self):
+    def _locate_agreed_checkpoint(self, before=None):
         """``(round, path)`` of the newest valid checkpoint of
         ``model_dir`` that every rank holds (``agree_on_round``; ``(-1,
-        None)`` when any has none).  An agreed round older than a rank's
-        newest is validated there, and a rank that cannot use it stops
-        every rank (collective)."""
+        None)`` when any has none), older than round ``before`` when
+        given (the quarantine's rollback bound, exclusive).  An agreed
+        round older than a rank's newest is validated there, and a rank
+        that cannot use it stops every rank (collective)."""
         from .parallel.distributed import agree_on_round, any_process_flag
         from .utils import checkpoint as ckpt
 
         net_fp = self._net_fingerprint()
         found = ckpt.find_latest_valid(self.name_model_dir, net_fp=net_fp,
-                                       silent=bool(self.silent))
+                                       silent=bool(self.silent),
+                                       before=before)
         local = found[0] if found else -1
         round_ = agree_on_round(local)
         if round_ < 0:
@@ -665,6 +708,25 @@ class LearnTask:
                 f"resume: processes agreed on round {round_} but {path} is "
                 f"unusable: {reason or 'unusable on a peer process'}")
         return round_, path
+
+    def _sync_latest_model(self) -> bool:
+        """A trainer from the newest valid round every rank holds
+        (collective); the round counter after it.  False when a rank
+        holds none.  An integrity quarantine sets
+        ``_integrity_rollback_before``: the survivors resume from the
+        last fingerprint-verified round, not the newest on disk, whose
+        state the corrupt rank's gradients may have touched."""
+        bound, self._integrity_rollback_before = (
+            self._integrity_rollback_before, None)
+        round_, path = self._locate_agreed_checkpoint(before=bound)
+        if path is None:
+            return False
+        self.net_trainer = self._load_trainer(path)
+        self.start_counter = round_ + 1
+        from .obs import emit as obs_emit
+
+        obs_emit("checkpoint.restore", round=round_, path=path)
+        return True
 
     def init_model_task(self) -> None:
         """The model of ``model_in`` (``summary`` may go without one: a
@@ -807,14 +869,27 @@ class LearnTask:
         from .utils.checkpoint import DivergenceError, PreemptionHandler
         from .utils.profiler import StepTimer, TraceController
 
-        self.init_train()
+        if self.elastic_opts is None:  # task_train without run()
+            from .parallel.elastic import ElasticOptions
+
+            self.elastic_opts = ElasticOptions.from_cfg(self.cfg)
+        if self.elastic_opts.join:
+            self._elastic_join_setup()
+        else:
+            self.init_train()
+            self._elastic_setup()
         self._print_mesh_summary()
         self._train_start = time.time()
         tracer = TraceController()
         tracer.configure(self.cfg)
         try:
-            if self.continue_training == 0 and self.name_model_in == "NULL":
-                self._save_model()
+            if self._elastic_joined:
+                # the survivors are mid-loop already: an extra
+                # collective here (an evaluation, a save) would deadlock
+                pass
+            elif self.continue_training == 0 and self.name_model_in == "NULL":
+                self._elastic_guard(self._save_model,
+                                    what="initial checkpoint")
             else:
                 for it, nm in zip(self.itr_evals, self.eval_names):
                     sys.stderr.write(self.net_trainer.evaluate(it, nm))
@@ -831,7 +906,8 @@ class LearnTask:
             self._divergence_retries, self._lr_scale = 0, 1.0
             self._global_step = 0
             # the integrity plane: the state loaded or initialized before
-            # the loop is the clean baseline
+            # the loop is the clean baseline; one plane a task, over every
+            # rebuild
             if self.integrity_every > 0 and self._integrity is None:
                 from .integrity import IntegrityPlane
 
@@ -843,36 +919,64 @@ class LearnTask:
                 budget = self.max_round
                 while self.start_counter <= self.num_round and budget > 0:
                     budget -= 1
+                    if self.elastic_member is not None:
+                        self.elastic_member.report_round(self.start_counter)
                     try:
                         with obs_trace.span("train.round",
                                             round=self.start_counter):
-                            completed = self._train_one_round(
-                                preempt, timer, tracer)
+                            completed = self._elastic_guard(
+                                lambda: self._train_one_round(
+                                    preempt, timer, tracer),
+                                what=f"train round {self.start_counter}")
                     except DivergenceError as e:
                         if self._handle_divergence(e):
                             budget += 1  # the aborted attempt keeps its budget
                             continue
                         raise
+                    except Exception as e:  # noqa: BLE001 - a replica lost?
+                        if self._elastic_recover(e):
+                            budget += 1  # the aborted round runs again
+                            continue
+                        raise
                     self._divergence_retries = 0  # a round completed
+                    self._elastic_consec_recoveries = 0
                     if (completed and self._integrity is not None
                             and self._integrity.due(self.start_counter - 1)):
                         # the vote (and the shadow audit) at the round
                         # boundary, BEFORE the checkpoint: a state that
                         # failed is never saved
                         try:
-                            self._integrity.check_round(
-                                self.net_trainer, self.start_counter - 1)
+                            self._elastic_guard(
+                                lambda: self._integrity.check_round(
+                                    self.net_trainer,
+                                    self.start_counter - 1),
+                                what="integrity check")
                         except IntegrityError as e:
-                            if not self._handle_integrity(e):
-                                raise
-                    if process_info()[1] > 1:
-                        # one rank's signal stops every rank, at the
-                        # round boundary (collective)
-                        completed = completed and not any_process_flag(
-                            preempt.requested)
-                    if not completed or preempt.requested:
+                            if self._handle_integrity(e):
+                                budget += 1  # the re-run rounds keep theirs
+                                continue
+                            raise
+                        except Exception as e:  # noqa: BLE001
+                            if self._elastic_recover(e):
+                                continue  # the round completed: re-sync
+                            raise
+                    try:
+                        if process_info()[1] > 1:
+                            # one rank's signal stops every rank, at the
+                            # round boundary (collective)
+                            completed = completed and not self._elastic_guard(
+                                lambda: any_process_flag(preempt.requested),
+                                what="preemption sync")
+                        stop = not completed or preempt.requested
+                        snapshotted = self._elastic_guard(
+                            lambda: self._save_model(force=stop),
+                            what="checkpoint save")
+                    except Exception as e:  # noqa: BLE001 - a replica lost?
+                        if self._elastic_recover(e):
+                            continue  # the round completed: re-sync
+                        raise
+                    if stop:
                         last = self.start_counter - 1
-                        snapshotted = self._save_model(force=True)
                         obs_emit("train.preempted", round=last,
                                  snapshotted=snapshotted)
                         if snapshotted:
@@ -883,12 +987,33 @@ class LearnTask:
                             print("preemption: exiting (checkpointing "
                                   "disabled, save_model=0)", flush=True)
                         return
-                    self._save_model()
+                    # the planned transitions land at the boundary, once
+                    # the round's checkpoint is durable; a failed
+                    # coordinator call skips this boundary (the drop and
+                    # grow latches fire again at the next)
+                    if self.elastic_member is not None and (
+                            self.start_counter <= self.num_round):
+                        try:
+                            changed = self._elastic_boundary()
+                        except (OSError, ValueError, RuntimeError) as e:
+                            obs_emit("mesh.boundary_rpc_failed",
+                                     round=self.start_counter, error=str(e))
+                            changed = False
+                        if changed and self._elastic_left:
+                            break  # this rank left (a planned shrink)
             finally:
                 if tuner is not None:
                     tuner.stop()
                 preempt.uninstall()
                 obs_trace.tracer().flush_window(self._global_step)
+                if self.elastic_member is not None:
+                    self._elastic_quiet_teardown()
+            if self._elastic_left:
+                obs_emit("mesh.left", round=self.start_counter)
+                print(f"elastic: this rank left the mesh at round "
+                      f"{self.start_counter} (planned shrink); exiting clean",
+                      flush=True)
+                return
             obs_emit("train.end", rounds=self.start_counter - 1,
                      elapsed_s=time.time() - self._train_start)
             if not self.silent:
@@ -899,20 +1024,430 @@ class LearnTask:
             self._close_iterators()
 
     def _handle_integrity(self, e) -> bool:
-        """The response to an integrity verdict: print ``INTEGRITY: ...``.
-        On one process (or a vote that named no replica) there is no
-        healthy majority to rebuild onto: return False, so the error
-        stops the run before the round is saved.  The JAX package's
-        elastic quarantine of a named rank (evict it, rebuild on the
-        last verified round) is the elastic pod's and raises."""
-        print(f"INTEGRITY: {e}", flush=True)
+        """The response to an integrity verdict: print ``INTEGRITY:
+        ...``.  Every rank holds the same verdict (the vote ran on the
+        all-gathered digests).  With no rank named, on one process, or
+        without ``elastic = 1`` there is no healthy majority to rebuild
+        onto: False, so the error stops the run before the round is
+        saved.  In an elastic group the named rank quarantines itself
+        (``integrity.quarantine``, exit 41: it must never add another
+        gradient) and the others evict it through the coordinator and
+        rebuild on the last fingerprint-verified round; True to go on."""
+        from .obs import emit as obs_emit
         from .parallel.distributed import process_info
 
-        if e.rank is None or process_info()[1] == 1:
+        rank, num = process_info()
+        round_ = self.start_counter - 1
+        print(f"INTEGRITY: {e}", flush=True)
+        if e.rank is None or num == 1 or self.elastic_member is None:
             return False
-        raise NotImplementedError(
-            f"integrity quarantine of rank {e.rank}: the elastic rebuild is "
-            "not ported yet (ROADMAP.md queue A item 6, (k4))")
+        last_clean = self._integrity.last_clean_round
+        obs_emit("integrity.quarantine", kind=e.kind, rank=e.rank,
+                 tensor=e.tensor, round=round_,
+                 last_clean_round=last_clean, self_evict=e.rank == rank)
+        if e.rank == rank:
+            print(f"integrity: this rank ({rank}) was named corrupt — "
+                  "self-quarantining (exit 41)", flush=True)
+            self._elastic_quiet_teardown()
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(41)
+        # the rebuild rolls back past every unverified round
+        # (_sync_latest_model takes the exclusive bound)
+        self._integrity_rollback_before = (
+            None if last_clean is None else last_clean + 1)
+        try:
+            plan = self.elastic_member.plan_evict(e.rank, round_)
+        except (OSError, ValueError, RuntimeError) as err:
+            print(f"integrity: evict RPC failed: {err}", flush=True)
+            return False
+        if plan.rank is None:
+            print("integrity: eviction plan dropped this rank too — "
+                  "aborting", flush=True)
+            return False
+        self._elastic_rebuild("integrity_evict", plan=plan)
+        return True
+
+    # ------------------------------------------------------------------
+    # the elastic pod (parallel/elastic.py): survive a replica's loss
+    # and resize the group within one invocation
+    def _elastic_setup(self) -> None:
+        """Arm the liveness layer: rank 0 hosts the coordinator, every
+        rank heartbeats it.  Nothing unless ``elastic = 1`` in a group
+        of more than one rank."""
+        opts = self.elastic_opts
+        if not opts.elastic:
+            return
+        from .parallel import elastic as par_elastic
+        from .parallel.distributed import distributed_spec, process_info
+
+        spec = distributed_spec(self.cfg)
+        if spec is None or process_info()[1] == 1:
+            return  # one process: nothing to watch
+        coord, num, pid = spec
+        addr = opts.resolve_coordinator(coord)
+        self.elastic_member = par_elastic.ElasticMember(
+            addr, pid, opts, host_coordinator=(pid == 0), num=num,
+            jax_host=coord.rsplit(":", 1)[0],
+        ).start()
+        self._keep_elastic_device()
+        if not self.silent:
+            print(f"elastic: liveness monitor armed (coordinator "
+                  f"{self.elastic_member.addr}, heartbeat "
+                  f"{opts.heartbeat_s:g}s, replica timeout "
+                  f"{opts.timeout_s:g}s, collective deadline "
+                  f"{opts.collective_timeout_s:g}s)", flush=True)
+
+    def _keep_elastic_device(self) -> None:
+        """Record the device this rank joined its first generation on:
+        every rebuild joins on it again (a rank number that changes
+        must not move the process to another card, nor off the card)."""
+        from .parallel.distributed import group_device
+
+        d = group_device()
+        if d is None:
+            raise RuntimeError("elastic: no process group to take the "
+                               "rank's device from")
+        self._elastic_dev = (f"gpu:{d.index or 0}" if d.type == "cuda"
+                             else d.type)
+
+    def _join_generation(self, plan, dev: Optional[str] = None) -> None:
+        """Join ``plan``'s group at its fresh store address (the
+        rebuild's rendezvous: it blocks until every member arrives),
+        the ``dist_*`` entries (and ``dev``) rewritten to match."""
+        from .parallel.distributed import DEFAULT_TIMEOUT_S, init_distributed
+
+        updates = {"dist_coordinator": plan.jax_coordinator,
+                   "dist_num_proc": str(plan.num),
+                   "dist_proc_id": str(plan.rank)}
+        if dev is not None:
+            updates["dev"] = dev
+        self._set_cfg_entries(updates)
+        last = dict(self.cfg)
+        init_distributed(plan.jax_coordinator, plan.num, plan.rank,
+                         dev=last.get("dev", "tpu"),
+                         timeout_s=float(last.get("dist_timeout_s",
+                                                  DEFAULT_TIMEOUT_S)),
+                         resilient=True)
+
+    def _elastic_join_setup(self) -> None:
+        """``elastic_join = 1``: this process has no group yet.  Announce
+        it to the coordinator, wait for a grow generation to give it a
+        rank (``elastic_rejoin_s`` bounds the wait), join that group,
+        load the consensus round and shard the iterators; then go
+        straight into the round loop beside the survivors."""
+        opts = self.elastic_opts
+        from .parallel import elastic as par_elastic
+
+        if not opts.coordinator:
+            raise ValueError(
+                "elastic_join=1 needs elastic_coordinator=host:port "
+                "(the running job's membership coordinator)")
+        m = par_elastic.ElasticMember(opts.coordinator, -1, opts)
+        print(f"elastic: waiting to join the mesh via {opts.coordinator}"
+              f" (up to {opts.rejoin_s:g}s"
+              + (f", at round {opts.join_at}" if opts.join_at else "")
+              + ")", flush=True)
+        plan = m.join()
+        if plan.rank is None:
+            raise RuntimeError("elastic join: admitted without a rank")
+        print(f"elastic: admitted as rank {plan.rank}/{plan.num} "
+              f"(generation {plan.generation})", flush=True)
+        # the heartbeat starts BEFORE the blocking rendezvous: the
+        # coordinator registered this member at plan time, and a slow
+        # survivor teardown must not get it evicted mid-admission
+        m.rank = plan.rank
+        m.generation = plan.generation
+        m.start()
+        self._join_generation(plan)
+        self._keep_elastic_device()
+        m.ack_generation(plan, rank=plan.rank)
+        self.elastic_member = m
+        self.continue_training = 1
+        if not self._sync_latest_model():
+            raise FileNotFoundError(
+                "elastic join: no checkpoint in model_dir to sync from")
+        self._create_iterators()
+        self._elastic_joined = True
+
+    def _elastic_guard(self, fn, what: str):
+        """The collective deadline: a dead peer surfaces as
+        ``ReplicaLossError`` within ``collective_timeout_s`` instead of
+        a hang in a collective.  ``fn`` runs on a worker thread bound to
+        this rank's card and the calling thread's stream (a thread's
+        current device and stream are its own)."""
+        if self.elastic_member is None:
+            return fn()
+        from .parallel import elastic as par_elastic
+
+        tr = self.net_trainer
+        dev = tr.device if tr is not None else None
+        if dev is not None and dev.type == "cuda":
+            import torch
+
+            stream = torch.cuda.current_stream(dev)
+            call = fn
+
+            def fn():
+                torch.cuda.set_device(dev)
+                with torch.cuda.stream(stream):
+                    return call()
+
+        return par_elastic.guarded_call(
+            fn, self.elastic_member,
+            timeout_s=self.elastic_opts.collective_timeout_s, what=what)
+
+    def _elastic_recover(self, exc: BaseException) -> bool:
+        """A round's or a checkpoint's failure: a replica's loss
+        rebuilds onto the survivors and returns True (the loop goes
+        on); anything else returns False (the error is raised)."""
+        if self.elastic_member is None:
+            return False
+        from .parallel import elastic as par_elastic
+
+        loss = par_elastic.classify_failure(
+            exc, self.elastic_member,
+            confirm_s=self.elastic_opts.timeout_s + 2.0)
+        if loss is None:
+            return False
+        min_gen = 0
+        while True:
+            if loss.fatal:
+                print(f"elastic: unrecoverable replica loss: {loss}",
+                      flush=True)
+                return False
+            # a lasting error read as a loss would rebuild forever (the
+            # caller refunds the round): a completed round resets this
+            self._elastic_consec_recoveries += 1
+            if self._elastic_consec_recoveries > 5:
+                print("elastic: giving up after "
+                      f"{self._elastic_consec_recoveries - 1} "
+                      "consecutive rebuilds without completing a "
+                      "round", flush=True)
+                return False
+            print(f"elastic: replica loss detected ({loss})", flush=True)
+            try:
+                self._elastic_rebuild("replica_lost",
+                                      min_generation=min_gen)
+                return True
+            except par_elastic.ReplicaLossError as again:
+                # a second replica died in the rebuild's own collectives:
+                # wait for the next generation and try again
+                loss = again
+            except Exception as again:  # noqa: BLE001 - classify
+                loss = par_elastic.classify_failure(
+                    again, self.elastic_member,
+                    confirm_s=self.elastic_opts.timeout_s + 2.0)
+                if loss is None:
+                    raise
+            min_gen = self._elastic_attempted_gen + 1
+
+    def _elastic_boundary(self) -> bool:
+        """The planned transitions at a round boundary (its consensus
+        checkpoint is durable).  True when the group changed (rebuilt,
+        or this rank left)."""
+        m = self.elastic_member
+        opts = self.elastic_opts
+        m.poll_now()  # one beat now: every rank reads the same state
+        plan = m.pending_plan()
+        if plan is not None and plan.at_round is None:
+            # a replica died while this rank sat at the boundary (its
+            # own collectives all completed): rebuild now rather than
+            # trip over it in the next round
+            print(f"elastic: replica loss at round boundary "
+                  f"(generation {plan.generation})", flush=True)
+            self._elastic_rebuild("replica_lost", plan=plan)
+            return True
+        r = self.start_counter
+        if plan is not None and plan.at_round is not None and (
+                plan.at_round <= r):
+            # a peer reached this boundary first and minted the planned
+            # transition; once minted, a grow's round is gone from the
+            # beat, so this rank takes the plan it was handed
+            if plan.reason == "planned_shrink":
+                self._elastic_drop_done = True
+            if plan.rank is None:
+                self._elastic_left = True
+                return True
+            self._elastic_rebuild(plan.reason, plan=plan)
+            return True
+        if (opts.drop_at and r >= opts.drop_at
+                and not self._elastic_drop_done):
+            # >= and a latch: a boundary whose call failed tries again
+            # at the next round instead of skipping the drop forever
+            plan = m.plan_shrink(r)
+            self._elastic_drop_done = True
+            if plan.rank is None:
+                self._elastic_left = True
+                return True
+            self._elastic_rebuild(plan.reason, plan=plan)
+            return True
+        g = m.grow_round()
+        if g is not None and r >= g:
+            plan = m.plan_grow(r)
+            if plan is None:
+                return False  # every waiter gave up
+            self._elastic_rebuild("grow", plan=plan)
+            return True
+        return False
+
+    def _await_plan(self, min_generation: int = 0):
+        """Wait (briefly) for the coordinator's plan for a detected loss
+        to arrive over the heartbeat.  ``min_generation`` skips the
+        stale plan of a rebuild that itself failed (a second loss)."""
+        m = self.elastic_member
+        deadline = time.monotonic() + self.elastic_opts.timeout_s * 2 + 5
+        while time.monotonic() < deadline:
+            p = m.pending_plan()
+            if p is not None and p.generation >= min_generation:
+                return p
+            try:
+                m.poll_now()
+            except (OSError, ValueError, RuntimeError):
+                pass
+            time.sleep(0.1)
+        return None
+
+    def _set_cfg_entries(self, updates: dict) -> None:
+        """Rewrite config entries in place (a generation's ``dist_*``
+        identity), so anything that reads the stream again agrees with
+        the live group."""
+        out, seen = [], set()
+        for n, v in self.cfg:
+            if n in updates:
+                if n in seen:
+                    continue  # duplicates collapse to one entry
+                out.append((n, updates[n]))
+                seen.add(n)
+            else:
+                out.append((n, v))
+        for n, v in updates.items():
+            if n not in seen:
+                out.append((n, v))
+        self.cfg = out
+
+    def _elastic_rebuild(self, reason: str, plan=None,
+                         min_generation: int = 0) -> None:
+        """The consensus rebuild onto the new process set, inside this
+        invocation: tear the group down without a collective, join the
+        plan's group, reload the agreed round into a fresh trainer (its
+        ``zero`` and model slices cut for the new group) and re-shard
+        the iterators; ``start_counter`` goes back to that round + 1.
+        With ``dist_shard = block`` and ``det_reduce = 1`` the resumed
+        run is the one a planned resize gives, bit for bit."""
+        import gc
+
+        from .obs import emit as obs_emit
+        from .parallel import elastic as par_elastic
+        from .parallel import distributed
+        from .utils import checkpoint as ckpt
+
+        m = self.elastic_member
+        t0 = time.time()
+        par_elastic.set_rebuilding(True)
+        try:
+            plan = plan or self._await_plan(min_generation)
+            if plan is None:
+                raise par_elastic.ReplicaLossError(
+                    "elastic: replica loss with no generation plan "
+                    "(membership coordinator unreachable?)", fatal=True)
+            if plan.abort:
+                raise par_elastic.ReplicaLossError(
+                    f"elastic: cannot continue: {plan.abort}", fatal=True)
+            self._elastic_attempted_gen = plan.generation
+            obs_emit("mesh.rebuild_start", reason=reason,
+                     generation=plan.generation, num=plan.num,
+                     rank=plan.rank, round=self.start_counter)
+            print(f"elastic: {reason} -> rebuilding the mesh as "
+                  f"{plan.num} process(es), this rank becomes "
+                  f"{plan.rank} (generation {plan.generation})",
+                  flush=True)
+            # a guarded worker may still be inside a dead collective: a
+            # grace to error out before the group goes; one that stays
+            # keeps the group alive under it (abandoned, not destroyed)
+            t = par_elastic.guarded_call.last_thread
+            abandon = False
+            if t is not None and t.is_alive():
+                t.join(timeout=min(
+                    self.elastic_opts.collective_timeout_s, 10.0))
+                if t.is_alive():
+                    obs_emit("mesh.guard_thread_abandoned", what=reason)
+                    abandon = True
+            # drop every reference into the old group before it goes
+            self._close_iterators()
+            self.itr_train = None
+            self.itr_evals = []
+            self.eval_names = []
+            if self.net_trainer is not None:
+                # the async step's aggregates were reduced by the dead
+                # generation: stamped out, never applied (the rebuilt
+                # trainer loads a drained checkpoint anyway)
+                try:
+                    self.net_trainer.async_abandon(
+                        generation=plan.generation, reason="rebuild")
+                except Exception:  # noqa: BLE001 - teardown best-effort
+                    pass
+            self.net_trainer = None
+            gc.collect()
+            distributed.shutdown_distributed(graceful=False, abandon=abandon)
+            # the device this rank started on, on every attempt (a retry
+            # after a second loss has no trainer left to read it from)
+            self._join_generation(plan, dev=self._elastic_dev)
+            m.ack_generation(plan, rank=plan.rank)
+            # the round consensus and the reload on the new process set;
+            # the iterators re-shard for the new rank and count
+            if not self._sync_latest_model():
+                raise ckpt.CheckpointError(
+                    "elastic: no valid checkpoint any survivor can "
+                    "load — cannot rebuild")
+            self._create_iterators()
+            dt = time.time() - t0
+            self._elastic_rebuilds += 1
+            self._elastic_last_rebuild_s = dt
+            try:
+                from .obs.registry import registry as obs_registry
+
+                obs_registry().counter(
+                    "mesh_rebuilds_total",
+                    "Elastic mesh rebuilds by trigger.",
+                    labelnames=("reason",),
+                ).labels(reason=reason).inc()
+                obs_registry().gauge(
+                    "mesh_rebuild_seconds",
+                    "Wall time of the last elastic mesh rebuild.",
+                ).set(dt)
+            except Exception:  # noqa: BLE001 - telemetry never aborts
+                pass
+            obs_emit("mesh.rebuild_done", reason=reason,
+                     generation=plan.generation, num=plan.num,
+                     rank=plan.rank, wall_s=round(dt, 3),
+                     resume_round=self.start_counter)
+            self._print_mesh_summary()
+            print(f"elastic: rebuilt in {dt:.2f}s; resuming at round "
+                  f"{self.start_counter} on {plan.num} process(es)",
+                  flush=True)
+        finally:
+            par_elastic.set_rebuilding(False)
+
+    def _elastic_quiet_teardown(self) -> None:
+        """The end of an elastic run: leave the coordination plane and
+        the group without a collective (``graceful=False``); rank 0
+        lingers briefly, so that its coordinator and store outlast every
+        peer's last call."""
+        from .parallel.distributed import (distributed_initialized,
+                                           shutdown_distributed)
+
+        m, self.elastic_member = self.elastic_member, None
+        if m is None:
+            return
+        try:
+            m.close()
+        except Exception:  # noqa: BLE001 - teardown best-effort
+            pass
+        if distributed_initialized():
+            shutdown_distributed(graceful=False)
+        if m.coordinator is not None:  # this process is rank 0
+            time.sleep(2.0)
 
     # ------------------------------------------------------------------
     # the tuner (tune/): controller = 1
@@ -1189,6 +1724,17 @@ class LearnTask:
         }
         if self._integrity is not None:
             record["integrity"] = self._integrity.snapshot()
+        if self.elastic_member is not None or self._elastic_rebuilds:
+            from .parallel.distributed import process_info
+
+            record["elastic"] = {
+                "rebuilds": self._elastic_rebuilds,
+                "last_rebuild_s": round(self._elastic_last_rebuild_s, 3),
+                "processes": process_info()[1],
+                "generation": (self.elastic_member.generation
+                               if self.elastic_member is not None
+                               else None),
+            }
         async_snap = self.net_trainer.async_snapshot()
         if async_snap is not None:
             # the async pipeline: pending depths, pushes, applies, drops
@@ -1747,7 +2293,34 @@ def wait_ranks(procs, timeout_s: float) -> int:
     return code
 
 
+def _hard_exit_if_resilient(rc: int) -> None:
+    """An elastic run may hold a group abandoned under a wedged thread,
+    which the interpreter's teardown could wait on: flush and end the
+    process at once.  Everything it writes (checkpoints, manifests,
+    telemetry, events) is flushed at write time."""
+    from .parallel.distributed import resilient_client_used
+
+    if resilient_client_used():
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
-    return LearnTask().run(argv)
+    try:
+        rc = LearnTask().run(argv)
+    except SystemExit:
+        raise
+    except BaseException:
+        from .parallel.distributed import resilient_client_used
+
+        if resilient_client_used():
+            import traceback
+
+            traceback.print_exc()
+            _hard_exit_if_resilient(1)
+        raise
+    _hard_exit_if_resilient(rc)
+    return rc

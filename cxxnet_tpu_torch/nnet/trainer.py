@@ -1220,7 +1220,15 @@ class NetTrainer:
         return None
 
     def sync(self) -> None:
-        """Wait for the device's queued work (a no-op on the CPU)."""
+        """Wait for the device's queued work (on the CPU only the fault
+        site).  The ``mesh.replica`` fault site, on the CPU too, as in
+        the JAX package: ``hang`` models a peer wedged in a collective
+        (the elastic deadline must end the wait in bounded time),
+        ``ioerror`` the reset a SIGKILLed peer raises, ``latency`` a
+        straggler."""
+        from ..utils.faults import fault_point
+
+        fault_point("mesh.replica")
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -9,7 +9,9 @@ and the trainer sums the gradients over the group with an all-reduce
 ``(n_data, n_model)`` layout (``model_parallel``) and the placement
 rule of the sharded updater state (``zero = 1``) and parameters (``zero
 = 3``); :mod:`.async_ps` the async parameter-server step
-(``async_overlap = 1``).
+(``async_overlap = 1``); :mod:`.elastic` the elastic pod's membership
+and liveness (``elastic = 1``: a lost replica, a planned shrink, a
+rejoin and the integrity quarantine), whose rebuild the CLI drives.
 """
 
 from .distributed import (  # noqa: F401

@@ -73,16 +73,31 @@ first);
 the identity; :func:`gather_leaves` gathers many weight slices in one
 all-gather, each weight's backward keeping its own slice.
 
+**The elastic pod** (``parallel/elastic.py``): ``elastic = 1`` joins
+as usual (``resilient``, which only marks the process for the CLI's hard
+exit); ``elastic_join = 1`` joins nothing, since a waiting joiner has
+no group until a grow admits it.  A rebuild tears the group down with
+:func:`shutdown_distributed` ``(graceful=False)``: no barrier and no
+collective (a dead peer would never answer), the group destroyed
+locally, the sub-groups, the batch shard and :data:`STATS` cleared, and
+the old generation's ``TCPStore`` dropped with it, so rank 0's store
+server does not outlive its generation.  Then every rank joins the next
+generation's group at the plan's fresh address.  A group that a thread
+is still inside (a collective wedged on a live peer) is abandoned: its
+objects are kept referenced, so nothing frees them under the thread,
+and ``mesh.guard_thread_abandoned`` says so.  Under NCCL a dead peer
+hangs a collective rather than failing it, so the teardown aborts the
+communicator first (written, never run: one card).
+
 Not ported here: the JAX package's ``_enable_cpu_collectives`` (a JAX
-CPU-backend switch; gloo is this port's CPU path), and the resilient
-coordination client and its graceful/abandoning teardown, which belong
-to the elastic pod (``parallel/elastic.py``, ROADMAP.md item (k4)).
+CPU-backend switch; gloo is this port's CPU path).
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import gc
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -96,7 +111,12 @@ ConfigEntry = Tuple[str, str]
 DEFAULT_TIMEOUT_S = 300.0
 
 _state: Dict[str, object] = {"initialized": False, "backend": "",
-                             "device": None, "timeout_s": DEFAULT_TIMEOUT_S}
+                             "device": None, "timeout_s": DEFAULT_TIMEOUT_S,
+                             "resilient": False}
+#: groups abandoned by an elastic teardown while a thread was still
+#: inside one of their collectives: kept referenced so that nothing
+#: frees them under that thread (the process ends with a hard exit)
+_abandoned: List[object] = []
 
 
 class _Solo:
@@ -156,23 +176,22 @@ def maybe_init_distributed(cfg: Sequence[ConfigEntry]) -> bool:
     """Join the process group if the config asks for one.
 
     Idempotent; returns True when running multi-process.  Call it before
-    anything touches the card: it binds this rank's device.  ``elastic``
-    and ``elastic_join`` are the elastic pod's (ROADMAP.md item (k4))
-    and raise."""
+    anything touches the card: it binds this rank's device.  With
+    ``elastic_join = 1`` it joins nothing and returns False: a waiting
+    joiner has no group until the coordinator admits it (the CLI's
+    ``_elastic_join_setup``).  ``elastic = 1`` joins as ``resilient``."""
+    if _last(cfg, "elastic_join", "0") not in ("", "0"):
+        return False
     spec = distributed_spec(cfg)
     if spec is None:
         return False
-    for key in ("elastic", "elastic_join"):
-        if _last(cfg, key, "0") not in ("", "0"):
-            raise NotImplementedError(
-                f"{key}: the elastic pod is not ported yet (ROADMAP.md "
-                "queue A item 6, (k4))")
     if _state["initialized"]:
         return True
     coord, num, pid = spec
     init_distributed(coord, num, pid, dev=_last(cfg, "dev", "tpu"),
                      timeout_s=float(_last(cfg, "dist_timeout_s",
-                                           str(DEFAULT_TIMEOUT_S))))
+                                           str(DEFAULT_TIMEOUT_S))),
+                     resilient=_last(cfg, "elastic", "0") not in ("", "0"))
     return True
 
 
@@ -187,12 +206,15 @@ def backend_for(devices: Sequence[str]) -> str:
 
 def init_distributed(coordinator: str, num: int, pid: int,
                      dev: str = "tpu", timeout_s: float = DEFAULT_TIMEOUT_S,
-                     backend: str = "") -> None:
+                     backend: str = "", resilient: bool = False) -> None:
     """Join the group with explicit arguments: rank 0 hosts a
     ``TCPStore`` at ``coordinator``, every rank publishes its device
     there, the backend follows :func:`backend_for` (or ``backend``), and
     ``init_process_group`` runs over that store.  Every wait carries
-    ``timeout_s``."""
+    ``timeout_s``.  After :func:`shutdown_distributed` it joins again:
+    the elastic rebuild's rendezvous, which blocks until all ``num``
+    ranks arrive.  ``resilient`` marks the process as an elastic one
+    (:func:`resilient_client_used`)."""
     from .mesh import rank_device
 
     if not 0 <= pid < num:
@@ -210,22 +232,84 @@ def init_distributed(coordinator: str, num: int, pid: int,
                             timeout=timeout)
     _state.update(initialized=True, backend=backend, device=device,
                   timeout_s=timeout_s)
+    if resilient:
+        _state["resilient"] = True
+        from ..obs import emit as obs_emit
+
+        obs_emit("mesh.dist_init", coordinator=coordinator, num=num,
+                 rank=pid, resilient=True)
 
 
-def shutdown_distributed() -> bool:
-    """Leave the group (``destroy_process_group``); the next
-    :func:`maybe_init_distributed` may join again.  True when a group
-    was torn down."""
+def resilient_client_used() -> bool:
+    """Did this process ever join a group as an elastic one?  A group
+    abandoned under a wedged thread cannot be freed, so the CLI ends
+    such a process with a hard exit after a clean flush rather than
+    run the interpreter's teardown."""
+    return bool(_state["resilient"])
+
+
+def _abort_nccl(pg) -> None:
+    """Abort a NCCL group's communicators (a dead peer hangs a NCCL
+    collective instead of failing it).  Written for the API of torch
+    2.11 to 2.13; never run: the card's machine has one card."""
+    try:
+        backend_ = pg._get_backend(torch.device("cuda"))
+    except Exception:  # noqa: BLE001 - no NCCL backend on this group
+        return
+    for name in ("abort", "_abort"):
+        fn = getattr(backend_, name, None)
+        if fn is not None:
+            fn()
+            return
+
+
+def shutdown_distributed(graceful: bool = True,
+                         abandon: bool = False) -> bool:
+    """Leave the group; the next :func:`init_distributed` may join
+    again.  True when a group was torn down.
+
+    ``graceful=True``: every peer is known alive; the group is
+    destroyed.  ``graceful=False`` (the elastic rebuild): no barrier and
+    no collective, since a dead peer never answers one; under NCCL the
+    communicators are aborted first.  ``abandon=True``: a thread is
+    still inside one of the group's collectives, so the group objects
+    are kept referenced (:data:`_abandoned`) and nothing frees them
+    under it.  Either way the group is destroyed locally, the
+    sub-groups, the batch shard and :data:`STATS` are cleared, and the
+    generation's ``TCPStore`` goes with its last reference (rank 0's
+    store server with it)."""
     was = bool(_state["initialized"])
     if dist.is_available() and dist.is_initialized():
+        world = dist.group.WORLD
+        if abandon:
+            _abandoned.extend([world, *(g for pair in _groups.values()
+                                        for g in pair if g is not SOLO)])
+        if not graceful and _state["backend"] == "nccl":
+            _abort_nccl(world)
+        del world
         dist.destroy_process_group()
     _state.update(initialized=False, backend="", device=None)
     _groups.clear()
+    _shard[0] = None
+    reset_stats()
+    if not graceful:
+        from ..obs import emit as obs_emit
+
+        if was:
+            obs_emit("mesh.dist_teardown", graceful=False,
+                     abandoned=len(_abandoned))
+        gc.collect()  # the store's last reference: its server stops here
     return was
 
 
 def distributed_initialized() -> bool:
     return bool(_state["initialized"])
+
+
+def group_device():
+    """This rank's ``torch.device`` in the live group (None without
+    one)."""
+    return _state["device"]
 
 
 def backend() -> str:

@@ -750,9 +750,16 @@ class Engine:
         # compute untrusted
         # firing alert rules degrade health as an open breaker does
         firing = obs_alerts.evaluator().firing()
+        # a colocated trainer mid rebuild of its group degrades health
+        # as an open breaker does
+        from ..parallel import elastic as par_elastic
+
+        rebuilding = par_elastic.rebuild_in_progress()
         reasons: List[str] = []
         if self.reload_degraded():
             reasons.append("reload_breaker_open")
+        if rebuilding:
+            reasons.append("mesh_rebuilding")
         if self._canary_failed:
             reasons.append("integrity_failed")
         reasons.extend(f"alert:{name}" for name in firing)
@@ -769,6 +776,8 @@ class Engine:
                 "reload_breaker": self.reload_breaker.state,
                 "reasons": reasons,
             }
+        if rebuilding:
+            out["mesh"] = "rebuilding"
         if firing:
             out["alerts"] = firing
         return out

@@ -49,7 +49,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 import threading
@@ -60,6 +59,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..obs import events as obs_events
 from ..obs.registry import registry as obs_registry
+from ..parallel.elastic import free_port
 from ..utils.faults import CircuitBreaker
 
 ConfigEntry = Tuple[str, str]
@@ -84,16 +84,6 @@ __all__ = [
 STATES = ("starting", "healthy", "slow", "quarantined", "wedged",
           "gone", "backoff", "failed", "stopped")
 IN_ROTATION = ("healthy", "slow")
-
-
-def free_port() -> int:
-    """OS-assigned free TCP port (bind-0-close; the usual TOCTOU race
-    applies, so callers bind promptly)."""
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 # ----------------------------------------------------------------------

@@ -13,10 +13,11 @@ The port's copy of these pieces of ``cxxnet_tpu/utils/faults.py``:
   writers (``checkpoint.write``, ``checkpoint.read``, ``obs.append``,
   through ``utils/diskio.py``), of the server (``serve.batch``,
   ``serve.reload``), of the live train state (``device.state``), of the
-  closed loop's feedback log (``loop.append``, ``loop.commit``) and of
-  the data service's client (``dataservice.rpc``); a
-  spec naming any other site of the JAX package raises
-  ``NotImplementedError``, so nothing is armed that would never fire;
+  closed loop's feedback log (``loop.append``, ``loop.commit``), of
+  the data service's client (``dataservice.rpc``), of the serving
+  fleet's replicas (``serve.replica``) and of the group's step fence
+  (``mesh.replica``, in ``NetTrainer.sync``): every site of the JAX
+  package;
 * ``BadRecordBudget``: skip-and-quarantine accounting with its
   ``.quarantine`` sidecar (``max_bad_records`` of the imgbin chain and
   the text readers);
@@ -72,15 +73,8 @@ SITES: Dict[str, Tuple[str, ...]] = {
     "device.state": ("bitflip",),
 }
 
-#: The sites the port visits.  The others raise at ``install``, naming
-#: the ROADMAP item that brings them (``_SITE_ITEM``).
-PORTED_SITES = ("imgbin.page", "imgbin.record", "pipeline.worker",
-                "prefetch.producer", "csv.read", "csv.row", "libsvm.read",
-                "libsvm.row", "text.read", "checkpoint.write",
-                "checkpoint.read", "obs.append", "serve.batch",
-                "serve.reload", "device.state", "loop.append",
-                "loop.commit", "dataservice.rpc", "serve.replica")
-_SITE_ITEM = {"mesh.replica": "(k), multi-device"}
+#: The sites the port visits: all of :data:`SITES`.
+PORTED_SITES = tuple(SITES)
 
 
 class InjectedFault(OSError):
@@ -191,12 +185,6 @@ class FaultInjector:
         if kind not in SITES[site]:
             raise ValueError(f"fault_inject: site {site!r} supports kinds "
                              f"{SITES[site]}, not {kind!r}")
-        if site not in PORTED_SITES:
-            item = _SITE_ITEM[site]
-            raise NotImplementedError(
-                f"fault_inject: the port does not visit site {site!r} yet "
-                f"(ROADMAP.md item {item}); it injects at "
-                + ", ".join(PORTED_SITES))
         prob = float(parts[2])
         if not 0.0 <= prob <= 1.0:
             raise ValueError(f"fault_inject: prob must be in [0,1], got {prob}")

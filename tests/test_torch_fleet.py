@@ -329,6 +329,12 @@ def _port_registry_as_found():
         for name in [n for n in reg._metrics if n not in before]:
             reg._metrics.pop(name, None)
     tfleet._METRICS = None
+    # the engines' cached handles too: a serve_* family made here and
+    # popped above would otherwise take a later engine's updates out of
+    # the registry
+    from cxxnet_tpu_torch.serve import metrics as tmetrics
+
+    tmetrics._METRICS = None
     PORT.alerts.reset()
 
 

@@ -522,18 +522,16 @@ def test_injected_record_corruption_matches_jax(tmp_path, workers):
 
 
 def test_fault_sites_the_port_does_not_visit_raise():
-    # the closed loop's, the data service's and the fleet's sites are
-    # armable now
-    for spec in ("loop.append:ioerror:1", "loop.commit:enospc:1",
-                 "dataservice.rpc:hang:1", "serve.replica:hang:1"):
-        assert tfaults.install(spec).site == spec.split(":")[0]
+    # every site of the JAX package is armable now, with each of its
+    # kinds (the elastic pod brought the last, mesh.replica), so no
+    # site raises NotImplementedError any more
+    for site, kinds in jfaults.SITES.items():
+        for kind in kinds:
+            assert tfaults.install(f"{site}:{kind}:1").site == site
+            tfaults.reset()
+    tfaults.configure([("fault_inject", "mesh.replica:ioerror:1")])
+    assert [s.site for s in tfaults.injector().specs()] == ["mesh.replica"]
     tfaults.reset()
-    tfaults.configure([("fault_inject", "serve.replica:ioerror:1")])
-    tfaults.reset()
-    with pytest.raises(NotImplementedError, match=r"item \(k\)"):
-        tfaults.install("mesh.replica:hang:1")
-    with pytest.raises(NotImplementedError, match=r"item \(k\)"):
-        tfaults.configure([("fault_inject", "mesh.replica:ioerror:1")])
     with pytest.raises(ValueError, match="unknown site"):
         tfaults.install("imgbin.nope:corrupt:1")
     with pytest.raises(ValueError, match="supports kinds"):
@@ -907,9 +905,16 @@ def test_cli_arms_the_fault_sites(tmp_path):
     side = (tmp_path / "train.bin.quarantine").read_text().splitlines()
     fired = tfaults.injector().fire_counts()["imgbin.record:corrupt"]
     assert side and fired >= len(side)
-    with pytest.raises(NotImplementedError, match="the port does not visit"):
-        _run_port_cli(tmp_path, ["t.conf", "num_round=1", "model_dir=m2",
-                                 "fault_inject=mesh.replica:latency:1"])
+    # mesh.replica is visited now: a straggler's delay at every step's
+    # fence (NetTrainer.sync), on the CPU too
+    tfaults.reset()
+    _run_port_cli(tmp_path, ["t.conf", "num_round=1", "model_dir=m2",
+                             "fault_latency_ms=1",
+                             "fault_inject=mesh.replica:latency:1"])
+    fired = tfaults.injector().fire_counts()["mesh.replica:latency"]
+    assert fired >= 1
+    assert sorted(os.listdir(tmp_path / "m2"))[-2:] == [
+        "0001.model", "0001.model.manifest.json"]
 
 
 # ----------------------------------------------------------------------

@@ -22,7 +22,8 @@ processes, each with a deadline.
 * Three ranks, a bit flipped in a live weight on rank 1 only
   (``fault_inject = device.state:bitflip``): the round's vote names rank
   1 on every rank, the run stops with ``INTEGRITY:`` before the round
-  is saved (the quarantine itself is the elastic pod's).
+  is saved (without ``elastic = 1``; with it the named rank quarantines
+  itself and the others rebuild: ``tests/test_torch_elastic.py``).
 * ``python -m cxxnet_tpu_torch.tools.mesh_parity --ranks 2`` passes.
 """
 

@@ -53,3 +53,17 @@ def test_noise_alone_passes(seed):
 def test_a_cost_the_prewarm_leaves_fails(prewarmed_cost, cold_cost):
     with pytest.raises(cs.SmokeError, match="first batch after a prewarm"):
         cs.first_batch_verdict(_readings(0, prewarmed_cost, cold_cost))
+
+
+@pytest.mark.parametrize("n,side", [(1, 8), (7, 16), (3, 224)])
+def test_json_body_is_json_dumps_byte_for_byte(n, side):
+    """The serving phases' JSON bodies, built from a table of triples,
+    are the bytes ``json.dumps`` writes; other values go through it."""
+    import json
+
+    x = cs._rows(n, side, n + side)
+    want = json.dumps({"data": x.tolist(), "raw": True}).encode()
+    assert cs._json_body(x) == want
+    y = x + np.float32(0.01)
+    assert cs._json_body(y) == json.dumps(
+        {"data": y.tolist(), "raw": True}).encode()

@@ -393,11 +393,13 @@ def test_cli_sigterm_snapshots_and_exits_clean(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
-    # the divergence guard, the integrity plane and (data parallelism)
-    # the cross-process weight check are ported; the elastic pod is not
+    # the divergence guard, the integrity plane, (data parallelism) the
+    # cross-process weight check and the elastic pod are ported
     LearnTask().set_param("test_on_server", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        LearnTask().set_param("elastic", "1")
+    for key in ("elastic", "elastic_join"):
+        task = LearnTask()
+        task.set_param(key, "1")
+        assert task.cfg[-1] == (key, "1")
     with pytest.raises(ValueError, match="abort or rollback"):
         NetTrainer().set_param("divergence_policy", "retry")
     tr = NetTrainer()
