@@ -382,7 +382,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
    checkpoint (cuDNN deterministic), losses and every tensor within
    ``LIB_SCAN_REL``; the wrapper's step against the CLI's
    (``trainer.update``) in turns; the chain's img/s by reader.
-23b. ResNet-50 at full width (b128 bf16) through the port's C ABI
+23b. ResNet-50 at full width (b128 bf16; one block a stage,
+   ``_resnet_vehicle``) through the port's C ABI
    loaded by ``ctypes`` into this process: ``CXNNetCreate("gpu")``,
    init, three ``CXNNetUpdateBatch`` (each K1 1, K2 1, K6 4 on the main
    paths, K8 1), ``CXNNetPredictBatch`` bit-equal to ``Net.predict`` on
@@ -390,7 +391,7 @@ Phases; any failure ends the run with a non-zero exit and no result:
    through ``CXNGetLastError``, ``CXNNetUpdateBatch`` (a 77 MB f32
    batch marshalled) against ``trainer.update`` in turns; then the C
    host (``capi_smoke gpu``) in a subprocess: ``all checks passed``.
-23c. ResNet-50 served with ``event_log``, ``trace_dir`` and two
+23c. ResNet-50 (one block a stage) served with ``event_log``, ``trace_dir`` and two
    ``alert=`` rules on ``xla_device_memory_bytes`` (one must fire, one
    must not): JSON and ``CXB1`` requests, ``/metricsz`` parsed as
    Prometheus text, its request counters equal to the requests sent,
@@ -423,7 +424,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``IntegrityError`` (kind ``shadow``) before the round is saved.  The
    digest sweep, the shadow audit against a step and the step with the
    profiler window open against closed, in turns.
-24b. ResNet-50 served at full width (b128 bf16) with ``controller = 1``
+24b. ResNet-50 (one block a stage) served at full width (b128 bf16)
+   with ``controller = 1``
    (``tune_period_s = 0.25``), ``serve.batch`` latency and
    ``serve.reload`` I/O errors armed at low probability and a reload
    attempt every 0.25 s: ~10 s of JSON (1-2 rows) and ``CXB1`` (1-64
@@ -434,9 +436,10 @@ Phases; any failure ends the run with a non-zero exit and no result:
    live knobs; a ``tune.adjust``; every ``tune.prewarm`` naming a
    bucket; the reload breaker counting the injected failures; the
    first batch after a prewarm within 1.1x its engine's warm median
-   (the median over 20 engines at 5 buckets), and a cold first batch at
+   (the median over 8 engines at 5 buckets), and a cold first batch at
    least 1.5x as far above it (medians).
-24c. ResNet-50's checkpoint (f32 and ``ust:``) saved under
+24c. ResNet-50's checkpoint (one block a stage; f32 and ``ust:``) saved
+   under
    ``diskio.recording``: every prefix of the journal replayed in the
    ``sync`` variant loads round 0 or round 1 through
    ``find_latest_valid``, never a torn model; ``checkpoint.write``
@@ -589,16 +592,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
    layers out) twice: the same bits; then ``task=train`` through the
    CLI (``dist_num_proc = 2``, ``test_on_server = 1``, ``DP_CLI_ROWS``
    rows): both ranks' weight-sync lines, the ranks' checkpoint CRCs
-   compared before rank 0 writes.  28b: resnet50.conf (``zero = 3``,
-   ``bn_eval = running``), one step in f32 (the updates' cosines at
-   ``RESNET_F32_COS``, median ``RESNET_F32_COS_MEDIAN``, the running
-   statistics within ``DP_AUX_REL``) and one in bf16 (the loss within
-   ``DP_RN_LOSS_REL``, the classifier's update cosines at
-   ``RESNET_BF16_CLS_COS``, the running statistics within
-   ``DP_AUX_BF16_REL``, median ``DP_AUX_BF16_REL_MEDIAN``, the other
-   cosines logged), each rank's
-   train-state bytes <= ``DP_SHARD_LIMIT`` of one replica, K8 over
-   slices (fewer elements than one rank's).  28c:
+   compared before rank 0 writes.  28b (ResNet-50 under ``zero = 3``)
+   runs in phase 33a's rank job.  28c:
    ``example/MNIST/dist.conf`` (``update_on_server = 1``) with a test
    section on the UCI digits (``input_shape = 1,1,64``),
    ``DP_DIGITS_ROUNDS`` rounds, two ranks started by hand
@@ -628,6 +623,32 @@ Phases; any failure ends the run with a non-zero exit and no result:
    saved.  32a's and 32b's 11 processes run together, after phase 31
    and beside no other phase (the parent launches no kernel for them;
    they count their own).  An ``elastic`` JSON line.
+33. (k5), two rank processes sharing the card over gloo, cuDNN
+   deterministic.  33a (with 28b's checks): resnet50.conf (``bn_eval =
+   running``) b128 = 2 x 64, ``Z3_STEPS`` steps from one checkpoint,
+   ``zero = 3`` gathering each layer (each K6 group) at use: in bf16
+   bit-equal to ``zero = 0`` on the same ranks, the loss within
+   ``DP_RN_LOSS_REL`` and the classifier's update cosines at
+   ``RESNET_BF16_CLS_COS`` of one rank (the others logged), the running
+   statistics within ``DP_AUX_BF16_REL``; in f32 the updates' cosines at
+   ``RESNET_F32_COS`` and the statistics within ``DP_AUX_REL``; every
+   step K1, K2, K6 and K8 on their main entries, K8 over slices; a
+   rank's train-state bytes <= ``DP_SHARD_LIMIT`` of one replica, its
+   most whole-weight bytes alive at once (``zero_gathered_peak_bytes``)
+   <= ``Z3_PEAK_GROUPS`` x the largest group and below the whole net's,
+   the sharded gradients reduce-scattered (the all-reduce's bytes fewer
+   by twice the reduce-scatter's); ``max_memory_allocated``, the step
+   ms and the host ms in the collectives, ``zero = 3`` beside ``zero =
+   0``.  33b: ``lars`` in f32 under ``zero = 1`` against ``zero = 0``: a
+   rank's updater state <= ``Z3_STATE_LIMIT`` of a replica's, the
+   weights within ``Z3_LARS_ULPS`` units of the last place.  33c:
+   googlenet.conf (bf16, full width) through the CLI on two ranks
+   (``python chip_smoke.py --rr-rank SPEC R``): ``task = pred_raw`` on
+   ``RANGE_ROWS`` rows against one process's file, then ``task =
+   serve``: ``CXB1`` frames of ``RANGE_FRAMES`` rows (bucket 128, 64 a
+   rank) against one process's engine, both within ``BF16_LOGIT_REL``;
+   each rank launches K1, K4 and K6 on their main entries, 64 rows a
+   forward; SIGTERM to rank 0 ends both.  A ``zero_range`` JSON line.
    Then a ``phase_s`` JSON line: the seconds of every phase.
 21. A ``kernels`` JSON line (per kernel: launches on its main path's
    run — GoogLeNet training for K1-K8, with the serving run's for the
@@ -642,7 +663,9 @@ Phases; any failure ends the run with a non-zero exit and no result:
    27's, ``launches_remat_lm`` (27a's ``remat = 1`` run),
    ``launches_moe_lm`` (27b), ``launches_pipe`` (27c's ``remat = 1``
    steps) and ``launches_remat_googlenet`` (27d's ``remat = 1`` steps),
-   and phase 28's ``launches_dp`` (28a's and 28b's ranks, summed) —
+   and phase 28's ``launches_dp`` (28a's ranks, summed) and phase
+   33's ``launches_zero_range`` (33a's ``zero = 3`` steps and 33c's
+   forwards, both ranks) —
    max error,
    and the times of one training step's launches summed: GoogLeNet b128
    bf16, or the LM step's 4 launches of K9 and of K10, or K7's 11
@@ -743,6 +766,10 @@ SEED = 0
 BATCH = 128
 REQUEST_ROWS = (1, 7, 32, 128)
 REPEATS = 2  # each request size is sent this many times
+# a JSON body of this many rows or more is sent once: it is the
+# comparison's reference, and its repeat only timed the host's JSON work
+# (a 128-row body takes ~5 s of the host's JSON work a request)
+JSON_ONCE_ROWS = 32
 PER_FORWARD = {"maxpool_fwd": 13, "lrn_fwd": 2, "conv_block_gemm": 9}
 # launches of one training step; the SGD kernel's are the step's tensors
 # over the multi-tensor launch's capacity (one launch for GoogLeNet's 116)
@@ -913,7 +940,7 @@ RELOAD_TRAFFIC = (1, 32)
 # give the same probabilities)
 RELOAD_NODE = "pool"
 RELOAD_PERIOD_S, RELOAD_STEADY_S = 0.5, 1.0
-CANARY_RUNS = 20
+CANARY_RUNS = 10
 RESNET_INT8_LAYERS = 29
 RESNET_INT8_MIN_AGREE = 0.9
 WIRE_ROWS = (1, 7, 32, 64)
@@ -1664,7 +1691,8 @@ def _json_body(x) -> bytes:
 
 def _drive_requests(port: int, bodies, per_forward, tag: str):
     """The main path of a serving run: ``POST /predict`` with each body,
-    ``REPEATS`` times, the launch counts set to 0 just before and read
+    ``REPEATS`` times (once from ``JSON_ONCE_ROWS`` rows), the launch
+    counts set to 0 just before and read
     just after; every request must launch ``per_forward`` and no other
     kernel, K6 and K7 on their wgmma kernels only.  Returns the answers
     by size and the launches by kernel."""
@@ -1678,9 +1706,11 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
     for k in KERNELS:
         k.reset_counts()
     answers = {}
+    forwards = 0
     for n in bodies:
         lat = []
-        for _ in range(REPEATS):
+        for _ in range(_json_repeats(n)):
+            forwards += 1
             before = {k.name: k.launches for k in KERNELS}
             paths_before = _by_symbol()
             t0 = time.perf_counter()
@@ -1708,9 +1738,9 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
         answers[n] = scores
         log(f"{tag}: POST /predict {n:4d} rows (bucket "
             f"{1 << (n - 1).bit_length()}): latency ms cold "
-            f"{lat[0]:.1f} warm {statistics.median(lat[1:]):.1f}")
+            f"{lat[0]:.1f} warm "
+            + (f"{statistics.median(lat[1:]):.1f}" if lat[1:] else "-"))
     launches = {k.name: k.launches for k in KERNELS}
-    forwards = len(bodies) * REPEATS
     log(f"{tag}: launches {launches} over {forwards} forwards; by C "
         f"entry {_by_symbol()}")
     for name, per in want.items():
@@ -1718,6 +1748,11 @@ def _drive_requests(port: int, bodies, per_forward, tag: str):
             raise SmokeError(f"{tag}: {name}: {launches[name]} launches, "
                              f"expected {per * forwards}")
     return answers, {k: launches[k] for k in per_forward}
+
+
+def _json_repeats(n: int) -> int:
+    """How many times a JSON body of ``n`` rows is sent."""
+    return 1 if n >= JSON_ONCE_ROWS else REPEATS
 
 
 def _routed():
@@ -1776,7 +1811,9 @@ def drive_wire(port: int, eng, bodies, json_answers, per_forward, tag: str,
                side: int, card: str):
     """The binary wire beside JSON on the engine of a serving phase, on
     kept-alive connections: for each of ``WIRE_ROWS`` a ``CXB1`` scores
-    frame and the same rows as JSON, ``REPEATS`` times each, every
+    frame and the same rows as JSON, ``REPEATS`` times each (a JSON body
+    of ``JSON_ONCE_ROWS`` rows or more once, and not again where the main
+    path sent it: ``json_answers`` holds its reply), every
     request launching ``per_forward`` on the main paths and nothing
     else, the binary reply bit-equal to the JSON one; 128 rows as two
     concurrent 64-row frames on two connections (the second sent once
@@ -1819,10 +1856,14 @@ def drive_wire(port: int, eng, bodies, json_answers, per_forward, tag: str,
             sends = {"json": (_json_body(x), "application/json"),
                      "binary": (bytes(wire.encode_request(x, kind="scores")),
                                 wire.CONTENT_TYPE)}
-            replies, times = {}, {}
+            sent = n >= JSON_ONCE_ROWS and n in json_answers
+            if sent:  # the main path's one send of these rows
+                del sends["json"]
+            replies, times = {}, {"json": [None]}
             for w, (body, ctype) in sends.items():
                 times[w] = []
-                for _ in range(REPEATS):
+                for _ in range(REPEATS if w == "binary"
+                               else _json_repeats(n)):
                     (status, data), ms = checked(
                         n, lambda: _post_on(conn, "/predict", body, ctype))
                     if status != 200:
@@ -1830,17 +1871,22 @@ def drive_wire(port: int, eng, bodies, json_answers, per_forward, tag: str,
                                          f"{status} {data[:200]!r}")
                     times[w].append(ms)
                 replies[w] = data
-            j = np.asarray(json.loads(replies["json"])["scores"], np.float32)
+            j = (np.asarray(json_answers[n], np.float32) if sent else
+                 np.asarray(json.loads(replies["json"])["scores"],
+                            np.float32))
             kind, _rid, b = wire.decode_response(replies["binary"])
             if kind != "scores" or b.shape != j.shape or \
                     b.tobytes() != j.tobytes():
                 raise SmokeError(f"{tag}: {n}-row binary reply {b.shape} is "
                                  f"not bit-equal to the JSON reply {j.shape}")
-            lat[n] = {w: statistics.median(t[1:]) for w, t in times.items()}
-            log(f"{tag}: wire {n:4d} rows: warm latency ms JSON "
-                f"{lat[n]['json']:.1f} binary {lat[n]['binary']:.1f} "
-                f"(cold {times['json'][0]:.1f} / {times['binary'][0]:.1f}); "
-                f"binary bit-equal to JSON ({card})")
+            lat[n] = {w: None if sent and w == "json" else
+                      statistics.median(t[1:] or t) for w, t in times.items()}
+            j_ms = ("- (the main path's send)" if sent else
+                    f"{lat[n]['json']:.1f} (cold {times['json'][0]:.1f})")
+            log(f"{tag}: wire {n:4d} rows: warm latency ms JSON {j_ms} "
+                f"binary {lat[n]['binary']:.1f} (cold "
+                f"{times['binary'][0]:.1f}); binary bit-equal to JSON "
+                f"({card})")
         # 128 rows: two 64-row frames at once on two kept-alive sockets
         x = bodies[128]
         frames = [bytes(wire.encode_request(h, kind="scores"))
@@ -2537,7 +2583,7 @@ def quant_phase(tmp: str, path: str, f32_answers):
 
 def kernels_line(rows, serve_launches, train_launches, flash_rows,
                  lm_launches, gen_launches, int8_rows, quant_launches,
-                 loop_out, fleet_out, p27, p28, p2930, p31, p32):
+                 loop_out, fleet_out, p27, p28, p2930, p31, p32, p33):
     """Per kernel: the launches of its main path (GoogLeNet training for
     K1-K8, with the serving run's for the forward kernels; the LM
     training run for K9 and K10, with the windowed generation run's; the
@@ -2691,6 +2737,9 @@ def kernels_line(rows, serve_launches, train_launches, flash_rows,
         # phase 32: 32a's eight processes' launches summed (runs A and B,
         # every generation, the joiners')
         row["launches_elastic"] = p32["launches"].get(row["name"], 0)
+        # phase 33: 33a's zero = 3 steps and 33c's range forwards, both
+        # ranks' launches summed
+        row["launches_zero_range"] = p33["launches"].get(row["name"], 0)
     return {"kernels": out}
 
 
@@ -2704,6 +2753,48 @@ def _train_conf(tmp: str) -> str:
     return _synthetic_conf(tmp, "googlenet_synthetic.conf",
                            (("data", "train", TRAIN_ROWS, True),
                             ("eval", "val", EVAL_ROWS, False)), LR_SCALE)
+
+
+#: the smoke's synthetic draws: settings -> (data, label), the last
+#: ``_DRAWS_KEEP`` sets of this process (``_keep_synthetic_draws``)
+_DRAWS: dict = {}
+_DRAWS_KEEP = 4
+
+
+def _draw_key(it) -> tuple:
+    """The settings that shape a ``SyntheticIterator``'s draw."""
+    rank = it.dist_worker_rank if it.dist_num_worker > 1 else 0
+    return (it.seed, it.nsample, tuple(it.input_shape), it.nclass,
+            it.label_width, it.layout, rank)
+
+
+def _keep_synthetic_draws() -> None:
+    """Let this process draw each synthetic set once: the teacher of a
+    224x224x3 input and 1000 classes is 150 million normal draws, seconds
+    of host time, and the smoke's in-process tasks make the same sets
+    again and again.  ``SyntheticIterator.init`` then hands a set it
+    already drew (or one in ``_DRAWS`` from the parent, 33c's ranks) out
+    as copies: the same values, set-up the smoke does not measure."""
+    from cxxnet_tpu_torch.io.synth import SyntheticIterator
+
+    if getattr(SyntheticIterator.init, "_kept", False):
+        return
+    init = SyntheticIterator.init
+
+    def kept_init(self):
+        key = _draw_key(self)
+        if key in _DRAWS and self.batch_size > 0:
+            data, label = _DRAWS.pop(key)
+        else:
+            init(self)
+            data, label = self._data.copy(), self._label.copy()
+        _DRAWS[key] = (data, label)  # the newest last
+        while len(_DRAWS) > _DRAWS_KEEP:
+            _DRAWS.pop(next(iter(_DRAWS)))
+        self._data, self._label = data.copy(), label.copy()
+
+    kept_init._kept = True
+    SyntheticIterator.init = kept_init
 
 
 def _synthetic_conf(tmp: str, name: str, sections, lr_scale: float) -> str:
@@ -5851,7 +5942,7 @@ def imgbin_phase(tmp: str, card: str, synthetic_rates):
 # 1e-3 of max(1, that largest) (tests/test_layers.py:578)
 REWRITES = {"direct": (), "conv_s2d": ("conv_s2d=1",),
             "wino_f4": ("conv_wino=1",), "wino_f2": ("conv_wino=2",)}
-REWRITE_STEPS = 3
+REWRITE_STEPS = 2
 REWRITE_TIMED = 2  # steps a turn in the step-time turns
 S2D_F32_REL = 1e-5
 WINO_F32_ATOL = 2e-4
@@ -6411,7 +6502,7 @@ CAPI_HOST_DEV = "gpu"  # the C host's device (argv[1])
 OBS_JSON_ROWS = (1, 7)
 OBS_BINARY_ROWS = (1, 32)
 OBS_TIMED_STEPS = 3
-OBS_RENDERS = 20
+OBS_RENDERS = 10
 
 
 def _jpeg_pages(path: str, rows: int, side: int, seed: int) -> float:
@@ -6464,6 +6555,48 @@ def _data_section(shard: str, mean: str, native: int = 1) -> str:
         sec = sec.replace(old, new, 1)
     return (sec + f"\ninput_shape = 3,{CONF_SIDE},{CONF_SIDE}\n"
             f"batch_size = {BATCH}\nsilent = 1\n")
+
+
+_VEHICLE: dict = {}
+
+
+def _resnet_vehicle() -> str:
+    """resnet50.conf with one bottleneck block a stage, at the same
+    widths (written once, to a temporary file): phases 23 and 24 drive
+    host machinery on it (the C ABI, obs, the tuner, the durable path).
+    Each stage keeps its first block, whose projection shortcut and 1x1
+    reduce read one node, so a step still launches K1, K2, four K6
+    groups and K8 on the same C entries as ResNet-50's."""
+    if "path" in _VEHICLE:
+        return _VEHICLE["path"]
+    with open(RESNET_CONF) as f:
+        lines = f.read().splitlines()
+    blocks = re.findall(r"\[\S*->(s(\d)b(\d+))\]", "\n".join(lines))
+    last = {}
+    for node, st, b in blocks:
+        if node == f"s{st}b{b}":
+            last[st] = max(last.get(st, 0), int(b))
+    rename = {f"s{st}b{b}": f"s{st}b0" for st, b in last.items()}
+    out, drop = [], False
+    for line in lines:
+        m = re.match(r"layer\[(\S+)->(\S+)\]", line)
+        if m:
+            drop = re.match(r"s\d+b(\d+)", m.group(2)) is not None and \
+                re.match(r"s\d+b(\d+)", m.group(2)).group(1) != "0"
+            if not drop:
+                ins = ",".join(rename.get(n, n)
+                               for n in m.group(1).split(","))
+                line = f"layer[{ins}->{m.group(2)}]" + line[m.end():]
+        elif line.startswith("netconfig"):
+            drop = False
+        if not drop:
+            out.append(line)
+    d = tempfile.mkdtemp(prefix="chip_smoke_vehicle_")
+    _VEHICLE["dir"] = d
+    _VEHICLE["path"] = os.path.join(d, "resnet_vehicle.conf")
+    with open(_VEHICLE["path"], "w") as f:
+        f.write("\n".join(out) + "\n")
+    return _VEHICLE["path"]
 
 
 def _net_text(conf: str, lr_scale: float = 1.0) -> str:
@@ -6736,7 +6869,8 @@ def _capi(path: str):
 
 
 def capi_phase(tmp: str, card: str, builds):
-    """23b: ResNet-50 at full width through the C ABI in this process:
+    """23b: ResNet-50 at full width, one block a stage
+    (``_resnet_vehicle``), through the C ABI in this process:
     ``CXNNetCreate("gpu")``, init, three ``CXNNetUpdateBatch`` (each K1 1,
     K2 1, K6 4 on the main paths, K8 1), ``CXNNetPredictBatch`` bit-equal
     to ``Net.predict`` on the same weights, a weight round trip, the
@@ -6754,8 +6888,8 @@ def capi_phase(tmp: str, card: str, builds):
 
     lib = _capi(builds["libcxxnet_capi"])
     F = C.POINTER(C.c_float)
-    cfg = _net_text(RESNET_CONF)
-    side = int(dict(cfgmod.parse_file(RESNET_CONF))["input_shape"].split(
+    cfg = _net_text(_resnet_vehicle())
+    side = int(dict(cfgmod.parse_file(_resnet_vehicle()))["input_shape"].split(
         ",")[1])
     h = lib.CXNNetCreate(b"gpu", cfg.encode())
     if not h or lib.CXNNetSetParam(h, b"seed", str(SEED).encode()) != 0 \
@@ -6783,7 +6917,8 @@ def capi_phase(tmp: str, card: str, builds):
     torch.cuda.synchronize()
     totals = {k.name: k.launches for k in KERNELS if k.launches}
     _hold_main_steps("capi", steps, paths, RESNET_PER_STEP)
-    log(f"capi: {CAPI_STEPS} CXNNetUpdateBatch steps of ResNet-50 b"
+    log(f"capi: {CAPI_STEPS} CXNNetUpdateBatch steps of ResNet-50 "
+        "(one block a stage) b"
         f"{RESNET_BATCH} bf16 on the card; launches {totals}")
     path = os.path.join(tmp, "capi.model")
     if lib.CXNNetSaveModel(h, path.encode()) != 0:
@@ -6918,7 +7053,8 @@ def _events(path: str):
 
 
 def obs_phase(tmp: str, card: str):
-    """23c: ResNet-50 served at full width with ``event_log``,
+    """23c: ResNet-50 (one block a stage, ``_resnet_vehicle``) served at
+    full width with ``event_log``,
     ``trace_dir`` and two ``alert=`` rules on ``xla_device_memory_bytes``
     (one must fire, one must not): JSON and CXB1 requests, ``/metricsz``
     parsed and its request counters, peak memory against
@@ -6943,7 +7079,7 @@ def obs_phase(tmp: str, card: str):
              ("alert", 'hbm_full:xla_device_memory_bytes{device="cuda:0",'
                        'stat="bytes_in_use"}:>:1e15'),
              ("alert_period_s", "0.2")]
-    cfg = cfgmod.parse_file(RESNET_CONF) + [
+    cfg = cfgmod.parse_file(_resnet_vehicle()) + [
         ("dev", "gpu"), ("seed", str(SEED)), ("silent", "1"),
         ("event_log", evlog), ("trace_dir", os.path.join(tmp, "strace")),
         ("trace_steps", "1000")] + rules
@@ -7162,12 +7298,13 @@ TUNE_WARM_REPS = 9
 # buckets is host-bound, and one batch on the card's shared host spreads
 # widely against its engine's warm median (prewarmed first batches read
 # 0.67x to 1.48x theirs, sd 0.16), so the check holds the median, over
-# the 100 (engine, bucket) pairs, of the first batch over its engine's
+# the 30 (engine, bucket) pairs, of the first
+# batch over its engine's
 # warm median at that bucket: ~2 % of spread, where the fastest of 5
 # first batches against the fastest warm ones read 1.15x with no cost
 # behind it.  A prewarm that leaves a cost on most first batches still
 # shows in full.
-TUNE_FIRST_TRIALS = 20
+TUNE_FIRST_TRIALS = 6
 TUNE_COLD_EVERY = 4
 TUNE_FIRST_BUCKETS = (2, 4, 8, 16, 32)
 # that median may be at most this, and the cold engines' median ratio
@@ -7175,7 +7312,7 @@ TUNE_FIRST_BUCKETS = (2, 4, 8, 16, 32)
 # prewarm that does nothing cannot pass
 TUNE_PREWARMED_MAX = 1.1
 TUNE_COLD_MIN = 1.5
-DURABLE_TURNS = 2
+DURABLE_TURNS = 1
 
 
 def _cache_builds(cdir: str):
@@ -7535,7 +7672,7 @@ def tuner_serve_phase(tmp: str, card: str):
     from cxxnet_tpu_torch.utils import faults
 
     ev = os.path.join(tmp, "serve_events.jsonl")
-    cfg = cfgmod.parse_file(RESNET_CONF) + [
+    cfg = cfgmod.parse_file(_resnet_vehicle()) + [
         ("dev", "gpu"), ("seed", str(SEED)), ("silent", "1"),
         ("event_log", ev), ("controller", "1"), ("tune_period_s", "0.25"),
         ("fault_seed", str(SEED + 70))] + [
@@ -7662,7 +7799,8 @@ def tuner_serve_phase(tmp: str, card: str):
         raise SmokeError(f"tuner: {len(kept)} batches against "
                          f"trainer.predict at their buckets: max abs err "
                          f"{worst}")
-    log(f"tuner: {n_fwd} ResNet-50 forwards launched {per} on the main "
+    log(f"tuner: {n_fwd} ResNet-50 (one block a stage) forwards launched "
+        f"{per} on the main "
         f"paths; {len(reqs)} requests {kinds} from {TUNE_CLIENTS} clients "
         f"in {TUNE_TRAFFIC_S:g}s, every one answered with its slice of its"
         f" coalesced batch ({len(batches)} batches); {len(kept)} batches "
@@ -7841,7 +7979,7 @@ def durable_phase(tmp: str, card: str):
     from cxxnet_tpu_torch.utils import checkpoint as ckpt
     from cxxnet_tpu_torch.utils import diskio, faults
 
-    cfg = cfgmod.parse_file(RESNET_CONF) + [
+    cfg = cfgmod.parse_file(_resnet_vehicle()) + [
         ("dev", "gpu"), ("seed", str(SEED)), ("silent", "1"),
         ("save_ustate", "1")]
     tr = NetTrainer()
@@ -7890,7 +8028,8 @@ def durable_phase(tmp: str, card: str):
     ref = {r: _fingerprints_of(cfg, path) for r, path in ((0, p0), (1, p1))}
     if set(picks) != {0, 1} or any(loaded[r] != ref[r] for r in loaded):
         raise SmokeError(f"durable: crash states pick {picks}")
-    log(f"durable: ResNet-50 checkpoint {nbytes} bytes (f32 and ust:) saved"
+    log(f"durable: ResNet-50 (one block a stage) checkpoint {nbytes} "
+        "bytes (f32 and ust:) saved"
         f" in {save_s:.3f}s under diskio.recording, {len(ops)} ops; every "
         f"one of {len(ops) + 1} sync crash states loads round 0 or 1 "
         f"(picks {picks}), each equal to its round's digests")
@@ -7924,8 +8063,9 @@ def durable_phase(tmp: str, card: str):
                 turns[mode].append(time.perf_counter() - t0)
             finally:
                 ckpt.atomic_write_bytes = plain
-    log(f"durable: ResNet-50 save, s, through diskio against plain os "
-        f"calls in turns {json.dumps(turns)}; digest sweep of ResNet-50 "
+    log(f"durable: ResNet-50 (one block a stage) save, s, through diskio "
+        f"against plain os calls in turns {json.dumps(turns)}; digest "
+        "sweep of ResNet-50 "
         f"({n_leaves} leaves with ust:) {[round(x, 3) for x in sweep]} ms;"
         f" {card}")
     return {"checkpoint_bytes": nbytes, "journal_ops": len(ops),
@@ -8786,8 +8926,8 @@ FLEET_CLIENTS = 4
 FLEET_JSON_ROWS = (1, 2, 4)  # JSON /predict rows (the router re-encodes)
 FLEET_WIRE_ROWS = (1, 7, 16, 32)  # CXB1 /predict rows, relayed opaquely
 FLEET_TRAFFIC_S = 8.0  # the clients' run before round 2 is written
-FLEET_KILL_AT_S = 5.0  # SIGKILL of replica 1, this far into the traffic
-FLEET_CHECK_ROWS = (1, 8, 32)  # buckets held bit for bit, quiet fleet
+FLEET_KILL_AT_S = 3.0  # SIGKILL of replica 1, this far into the traffic
+FLEET_CHECK_ROWS = (1, 32)  # buckets held bit for bit, quiet fleet
 FLEET_START_S = 180.0  # the fleet must serve k/k within this
 FLEET_RECOVER_S = 120.0  # a killed replica must be healthy within this
 FLEET_ROLLOUT_S = 120.0  # round 2 must reach every replica within this
@@ -8796,12 +8936,12 @@ FLEET_KEYS = ("silent=1", "fleet_probe_period_s=0.25",
               f"fleet_start_timeout_s={FLEET_START_S:g}",
               "batch_timeout_ms=2")
 FLEET_DEV = "gpu"  # the fleets' (and so their replicas') dev: the card
-FLEET_PAIRS = 40  # router vs direct bucket-1 pairs (host clock)
-FLEET_RATE_S = 1.5  # each turn of the rows/s comparison
+FLEET_PAIRS = 10  # router vs direct bucket-1 pairs (host clock)
+FLEET_RATE_S = 0.5  # each turn of the rows/s comparison
 FLEET_RATE_ROWS = 32  # CXB1 frame rows of the rows/s comparison
 FLEET_PERTURB = 0.01  # round 2: each weight + 0.01 x its std x N(0, 1)
 CANARY_KEYS = ("canary=int8", "canary_replicas=1", "canary_slice=0.1",
-               "canary_sample=1.0", "canary_min_requests=32",
+               "canary_sample=1.0", "canary_min_requests=8",
                "canary_min_agreement=0.99", "canary_decision_period_s=0.5")
 CANARY_ROWS = 4  # JSON rows a canary-phase request
 CANARY_CENTRE_ROWS = 64  # rows whose mean features leave the classifier
@@ -9431,7 +9571,8 @@ def fleet_serve_phase(tmp, card, mdir, eng1, side, cfg):
         mem = _replica_memory(_statsz(port)["replicas"])
         log(f"fleet: rows/s of {FLEET_CLIENTS} clients of "
             f"{FLEET_RATE_ROWS}-row CXB1 frames, in turns: through the "
-            f"router (3 replicas) {[round(v, 1) for v in rates['router']]}, "
+            f"router ({FLEET_REPLICAS} replicas) "
+            f"{[round(v, 1) for v in rates['router']]}, "
             f"replica 0 directly "
             f"{[round(v, 1) for v in rates['replica0']]}; bucket 1 over "
             f"{FLEET_PAIRS} pairs (host clock): router {r_ms:.2f} ms, direct "
@@ -9819,7 +9960,7 @@ P27_WINDOWS = 2 * LM_BATCH
 MOE_EXPERTS, MOE_TOPK = 8, 2
 PIPE_CLASSES = 16
 REMAT_STEPS = 2
-REMAT_TIMED = 5  # steps a turn in 27a's remat 0/1 turns (2 turns each)
+REMAT_TIMED = 3  # steps a turn in 27a's remat 0/1 turns (2 turns each)
 # 27c: the pipe stack (dense mha) against the per-block net (K9) on the
 # same weights, the largest difference of the stack's output: in f32
 # (TF32 off) over the largest change the stack makes to its input (the
@@ -10312,8 +10453,7 @@ def moe_pipe_remat_phase(card: str):
 DP_RANKS = 2
 DP_DEV = "gpu:0"  # every rank's dev: the ranks share the card (gloo)
 DP_STEPS = 2  # 28a's compared steps, each rank on its 64 of 128 rows
-DP_TIMED = 2  # steps timed after them, each way
-DP_RESNET_STEPS = 1
+DP_TIMED = 1  # steps timed after them, each way
 DP_DEADLINE_S = 420  # each rank process, start-up included
 DP_SHARD_LIMIT = 0.55  # 28b: a rank's train-state bytes / one replica
 DP_DET_STEPS = 2
@@ -10472,19 +10612,14 @@ def _dp_trainer(cfg, ckpt, dtype: str, dev: str):
 
 
 def _dp_runs(spec):
-    """The runs of 28a and 28b, each ``(name, cfg, checkpoint, dtype,
-    steps, timed)``, in the order every process takes them (the NCCL
-    job: ``spec["only"]``)."""
+    """The runs of 28a, each ``(name, cfg, checkpoint, dtype, steps,
+    timed)``, in the order every process takes them (the NCCL job:
+    ``spec["only"]``).  28b's ResNet-50 ``zero = 3`` runs are phase
+    33a's rank job's (one job, not two)."""
     runs = [("gn_f32", spec["gn_cfg"], spec["gn_ckpt"], "float32",
              DP_STEPS, False),
             ("gn_bf16", spec["gn_cfg"], spec["gn_ckpt"], "bfloat16",
-             DP_STEPS, True),
-            ("rn_f32", spec["rn_cfg"] + [["zero", "3"],
-                                         ["bn_eval", "running"]],
-             spec["rn_ckpt"], "float32", DP_RESNET_STEPS, False),
-            ("rn_zero3", spec["rn_cfg"] + [["zero", "3"],
-                                           ["bn_eval", "running"]],
-             spec["rn_ckpt"], "bfloat16", DP_RESNET_STEPS, True)]
+             DP_STEPS, True)]
     return [r for r in runs if r[0] in spec.get("only", [r[0]])]
 
 
@@ -10642,12 +10777,14 @@ def _cos_updates(a, b, w0):
     return out
 
 
-def _dp_check(tag, vals, limit, median_limit, lower_is_better):
+def _dp_check(tag, vals, limit, median_limit, lower_is_better,
+              phase: str = "28"):
     """Log the worst five and fail past a limit."""
     ordered = sorted(vals.items(), key=lambda kv: kv[1],
                      reverse=lower_is_better)
     med = statistics.median(vals.values())
-    log(f"28 {tag}: worst {ordered[0][1]:.4g} at {'/'.join(ordered[0][0])} "
+    log(f"{phase} {tag}: worst {ordered[0][1]:.4g} at "
+        f"{'/'.join(ordered[0][0])} "
         f"(limit {limit:g}), median {med:.4g} (limit {median_limit:g}); "
         "worst 5: " + ", ".join(f"{'/'.join(kt)} {v:.4g}"
                                 for kt, v in ordered[:5]))
@@ -10655,7 +10792,7 @@ def _dp_check(tag, vals, limit, median_limit, lower_is_better):
              else (lambda v, lim: not v >= lim))
     bad = [kt for kt, v in vals.items() if worse(v, limit)]
     if bad or worse(med, median_limit):
-        raise SmokeError(f"28 {tag}: {len(bad)} tensor(s) past {limit:g} "
+        raise SmokeError(f"{phase} {tag}: {len(bad)} tensor(s) past {limit:g} "
                          f"{bad[:6]} or median {med:.4g}")
     return ordered[0][1], med
 
@@ -10688,11 +10825,10 @@ def _dp_reference(spec):
 
 
 def dp_googlenet_resnet_phase(tmp: str, card: str):
-    """28a (GoogLeNet, bf16 and f32) and 28b (ResNet-50, bf16, ``zero =
-    3``): the one-rank runs here, then two rank processes sharing the
-    card over gloo (``dev = gpu:0`` on both), each on its 64 of every
-    128-row global batch, from the same checkpoints; returns the
-    readings."""
+    """28a (GoogLeNet, bf16 and f32): the one-rank runs here, then two
+    rank processes sharing the card over gloo (``dev = gpu:0`` on both),
+    each on its 64 of every 128-row global batch, from the same
+    checkpoint; returns the readings."""
     import numpy as np
     import torch
 
@@ -10701,24 +10837,20 @@ def dp_googlenet_resnet_phase(tmp: str, card: str):
     from cxxnet_tpu_torch.serve.fleet import free_port
 
     gn_cfg = cfgmod.parse_file(_train_conf(tmp))
-    rn_cfg = cfgmod.parse_file(RESNET_CONF)
-    ckpts = {}
-    for name, cfg in (("gn", gn_cfg), ("rn", rn_cfg)):
-        tr = NetTrainer()
-        tr.set_params(cfg + [("dev", DP_DEV), ("seed", str(SEED))])
-        tr.init_model()
-        ckpts[name] = os.path.join(tmp, f"dp_{name}.model")
-        tr.save_model(ckpts[name])
-        del tr
+    tr = NetTrainer()
+    tr.set_params(gn_cfg + [("dev", DP_DEV), ("seed", str(SEED))])
+    tr.init_model()
+    gn_ckpt = os.path.join(tmp, "dp_gn.model")
+    tr.save_model(gn_ckpt)
+    del tr
     out_dir = os.path.join(tmp, "dp_out")
     os.makedirs(out_dir, exist_ok=True)
-    spec = {"gn_cfg": gn_cfg, "gn_ckpt": ckpts["gn"], "rn_cfg": rn_cfg,
-            "rn_ckpt": ckpts["rn"], "world": DP_RANKS,
+    spec = {"gn_cfg": gn_cfg, "gn_ckpt": gn_ckpt, "world": DP_RANKS,
             "coord": f"127.0.0.1:{free_port()}", "timeout_s": 120.0,
             "out": out_dir, "dev": DP_DEV,
             "consts": {k: globals()[k] for k in (
-                "DP_STEPS", "DP_TIMED", "DP_RESNET_STEPS", "DP_DET_STEPS",
-                "DP_DETERMINISTIC", "SEED")}}
+                "DP_STEPS", "DP_TIMED", "DP_DET_STEPS", "DP_DETERMINISTIC",
+                "SEED")}}
     t0 = time.perf_counter()
     ref = _dp_reference(spec)
     ref_s = time.perf_counter() - t0
@@ -10744,16 +10876,14 @@ def dp_googlenet_resnet_phase(tmp: str, card: str):
         raise SmokeError(f"28: two ranks on one card ran {got[0]['backend']}")
     per_rank = {}
     for name, want in (("gn_f32", IMGBIN_PER_STEP),
-                       ("gn_bf16", IMGBIN_PER_STEP),
-                       ("rn_f32", RESNET_PER_STEP),
-                       ("rn_zero3", RESNET_PER_STEP)):
+                       ("gn_bf16", IMGBIN_PER_STEP)):
         d = np.load(os.path.join(out_dir, f"{name}.npz"))
 
         def part(pre):
             return {tuple(k[2:].split("/")): d[k].astype(np.float64)
                     for k in d.files if k.startswith(pre)}
 
-        two_p, two_a, two_f = part("p:"), part("a:"), part("f:")
+        two_p, two_f = part("p:"), part("f:")
         r1 = ref[name]
         for r, g in enumerate(got):
             if g[name]["crc"] != got[0][name]["crc"]:
@@ -10775,33 +10905,9 @@ def dp_googlenet_resnet_phase(tmp: str, card: str):
             _dp_check(f"gn f32 2 ranks vs 1, {DP_STEPS} steps' update rel",
                       _rel_updates(two_p, r1["params"], r1["w0"]),
                       DP_F32_REL, DP_F32_REL_MEDIAN, True)
-        elif name == "gn_bf16":
+        else:
             _dp_check("gn bf16 2 ranks vs 1, update cosine", cos,
                       UPDATE_COS, UPDATE_COS_MEDIAN, False)
-        elif name == "rn_f32":
-            _dp_check("rn zero3 f32 2 ranks vs 1, update cosine", cos,
-                      RESNET_F32_COS, RESNET_F32_COS_MEDIAN, False)
-        else:
-            _dp_check("rn zero3 bf16 2 ranks vs 1, classifier update cosine",
-                      {kt: c for kt, c in cos.items()
-                       if kt[0].endswith("_fc1000")},
-                      RESNET_BF16_CLS_COS, RESNET_BF16_CLS_COS, False)
-            _dp_check("rn zero3 bf16 2 ranks vs 1, update cosine (logged)",
-                      cos, -1.0, -1.0, False)
-            rel = abs(got[0][name]["losses"][0] - r1["losses"][0]) / abs(
-                r1["losses"][0])
-            log(f"28b bf16 loss 2 ranks vs 1: rel {rel:.3g} (limit "
-                f"{DP_RN_LOSS_REL:g})")
-            if not rel <= DP_RN_LOSS_REL:
-                raise SmokeError(f"28b: bf16 loss rel {rel:g}")
-        if two_a:
-            aux_rel = {kt: float(np.abs(a - r1["aux"][kt]).max()
-                                 / max(np.abs(r1["aux"][kt]).max(), 1e-30))
-                       for kt, a in two_a.items()}
-            lim = ((DP_AUX_REL, DP_AUX_REL_MEDIAN) if name == "rn_f32"
-                   else (DP_AUX_BF16_REL, DP_AUX_BF16_REL_MEDIAN))
-            _dp_check(f"{name} running statistics 2 ranks vs 1, rel",
-                      aux_rel, *lim, True)
         g0 = got[0][name]
         row = {"launches_a_step": g0["launches"][0],
                "losses_2": g0["losses"], "losses_1": r1["losses"],
@@ -10828,16 +10934,6 @@ def dp_googlenet_resnet_phase(tmp: str, card: str):
             + (f"; step ms {[round(v, 1) for v in row['step_ms']]} vs "
                f"{r1['step_ms']:.1f} one rank: {row['img_s']:.0f} img/s vs "
                f"{row['img_s_1']:.0f} ({card})" if "step_ms" in row else ""))
-    rn = per_rank["rn_zero3"]
-    frac = max(rn["shard_bytes"]) / rn["total_bytes"]
-    log(f"28b: zero=3 train-state bytes a rank {rn['shard_bytes']} of "
-        f"{rn['total_bytes']} ({frac:.3f}, limit {DP_SHARD_LIMIT}); K8 on "
-        f"slices: {rn['k8_elements']} elements a rank against "
-        f"{rn['k8_elements_1']} on one")
-    if frac > DP_SHARD_LIMIT or not all(
-            e < rn["k8_elements_1"] for e in rn["k8_elements"]):
-        raise SmokeError(f"28b: zero=3 bytes {frac:.3f} or K8 elements "
-                         f"{rn['k8_elements']} of {rn['k8_elements_1']}")
     dets = [g["det_crcs"] for g in got]
     log(f"28a: det_reduce=1, dropout layers out, two runs' weight CRCs by "
         "rank "
@@ -10846,7 +10942,7 @@ def dp_googlenet_resnet_phase(tmp: str, card: str):
         raise SmokeError(f"28a: det_reduce runs differ: {dets}")
     launches_dp = {}
     for g in got:
-        for name in ("gn_f32", "gn_bf16", "rn_f32", "rn_zero3"):
+        for name in ("gn_f32", "gn_bf16"):
             for step in g[name]["launches"]:
                 for k, v in step.items():
                     launches_dp[k] = launches_dp.get(k, 0) + v
@@ -11070,7 +11166,7 @@ def data_parallel_phase(card: str):
 # axis with sequence parallelism (k2a), on the LM at LM_* width over two
 # rank processes sharing the card (gloo), as phase 28's ranks do
 MP_STEPS = 2  # 29's compared steps a round, each rank on its 4 of 8 rows
-MP_TIMED = 4  # 29's timed steps each way, one fence after them
+MP_TIMED = 2  # 29's timed steps each way, one fence after them
 # 30: the one-rank LM step against the two-rank model axis, both bf16
 # from one checkpoint on the whole batch: the loss (the ring merges its
 # hops' bf16 outputs in f32, the one-rank kernel keeps one f32 row
@@ -11550,8 +11646,8 @@ def async_seq_parallel_phase(card: str):
 # stack as two GPipe stages, 31c the MoE LM with four experts a rank;
 # each run from one seeded checkpoint against the one-rank run on the
 # whole batch
-MA_STEPS = 2  # each run's compared steps, every rank on the whole batch
-MA_TIMED = 2  # 31b: steps timed after them, each way (31a: its second)
+MA_STEPS = 1  # each run's compared steps, every rank on the whole batch
+MA_TIMED = 1  # 31b: steps timed after them, each way (31a: its second)
 MA_MICROBATCH = 4  # 31b: T + S - 1 = 5 ticks over 2 stages, bubble 0.2
 # 31a: a rank's params + updater state over one whole replica: JAX's
 # rule cuts every GoogLeNet tensor in two (0.5)
@@ -12391,6 +12487,655 @@ def elastic_phase(card: str):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 33 (k5): ZeRO-3's gather at use and the reduce-scattered
+# gradients on ResNet-50 (33a), lars's state cut under zero = 1 (33b),
+# and the predicting and serving tasks over a device range on GoogLeNet
+# (33c), each over two rank processes sharing the card (gloo)
+Z3_STEPS = 1  # 33a's compared steps, each rank on its 64 of 128 rows
+Z3_TIMED = 2  # 33a's steps timed after them, zero = 3 and zero = 0
+Z3_PEAK_GROUPS = 2.0  # the gathered peak over the largest group, at most
+# 33b: lars under zero = 1 against zero = 0 over the same two ranks, per
+# tensor the largest difference of the f32 weights in units of the last
+# place of zero = 0's largest (the trust ratio's squared norms are summed over
+# the slices, so the momentum differs by rounding, and the weight by at
+# most an ulp where w + m rounds the other way: on the CPU at 32x32 a
+# 1e-8 update rounds a 0.05 weight, so the update's relative difference
+# read 4.6e-4 where the weights were an ulp apart)
+Z3_LARS_ULPS = 2.0
+Z3_STATE_LIMIT = 0.55  # 33b: a rank's updater-state bytes / one replica's
+# 33c, both sides the same bf16 net on the same rows: the largest
+# difference over the largest magnitude.  Against one process at the
+# ranks' own batch shape (64-row blocks, the same backend flags) the
+# forwards are the same kernels on the same operands: RANGE_SAME_REL.
+# Against one process at b128 (pred_raw) cuDNN picks its algorithms for
+# another batch shape, so bf16 roundings differ: RANGE_REL, 5x pred_raw's
+# 7.9e-4 reading on the card.  The served frames against one engine at
+# bucket 128 stay at BF16_LOGIT_REL: the same batch-shape rounding
+# moves a probability by up to 3.0e-2 where two classes nearly tie in a
+# saturated softmax (largest probability 0.9999; the engine on the
+# ranks' blocks is bit-equal to the ranks, my chip runs)
+RANGE_SAME_REL = 1e-6
+RANGE_REL = 4e-3
+RANGE_ROWS = 128  # 33c's pred_raw rows: one b128 batch, 64 a rank
+RANGE_FRAMES = (80, 100)  # 33c's CXB1 frames, bucket 128 (64 a rank)
+RANGE_DEADLINE_S = 240  # each 33c rank process, start-up included
+
+
+def _z3_run(tr, side: int, rows: slice, steps: int, counted: bool):
+    """``steps`` updates of ``tr`` on its rows of phase 28's global
+    batches, each step's launches (counts at 0 just before) and routed
+    launches by C entry, its host ms inside the collectives and its
+    collectives' bytes by kind; the loss bits."""
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.ops.kernels import update_step
+    from cxxnet_tpu_torch.parallel import distributed as pdist
+
+    out = {"launches": [], "paths": [], "collective_ms": [], "by_op": [],
+           "calls": [], "losses": [], "k8_elems": []}
+    multi = update_step.sgd_update_multi
+
+    def watched(ws, *args):
+        out["k8_elems"].append(sum(w.numel() for w in ws))
+        return multi(ws, *args)
+
+    update_step.sgd_update_multi = watched
+    try:
+        for k in range(steps):
+            x, y = _dp_batch(k, tr.batch_size, side)
+            for kern in KERNELS:
+                kern.reset_counts()
+            paths0 = _by_symbol()
+            pdist.reset_stats()
+            tr.update_all(x[rows], y[rows])
+            tr.sync()
+            if counted:
+                out["launches"].append({kern.name: kern.launches
+                                        for kern in KERNELS})
+                out["paths"].append(_paths_since(paths0))
+            out["collective_ms"].append(pdist.STATS["seconds"] * 1e3)
+            out["by_op"].append(dict(pdist.STATS["by_op"]))
+            out["calls"].append(int(pdist.STATS["calls"]))
+            out["losses"].append(float(tr.last_loss))
+    finally:
+        update_step.sgd_update_multi = multi
+    return out
+
+
+def _z3_state_bytes(tr) -> int:
+    """The updater-state bytes this rank holds."""
+    return sum(int(v.nbytes) for tags in tr.ustates.values()
+               for st in tags.values() for v in st.values())
+
+
+def z3_rank_main(spec_path: str, rank: int) -> int:
+    """One rank process of phase 33a/33b (``python chip_smoke.py
+    --z3-rank SPEC RANK``): ResNet-50 in bf16 under ``zero = 0`` and
+    ``3``, ``zero = 3`` gathering the whole net at a step's start (the
+    path the trainer keeps for a model axis, here made to run without
+    one: ``z3_start``, for its memory), in f32 under ``zero = 3``, and in
+    f32 under ``lars`` at ``zero = 0`` and ``1``, from one checkpoint;
+    writes ``<out>/rank<rank>.json``."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    globals().update(spec["consts"])
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.parallel import distributed as pdist
+
+    world = spec["world"]
+    pdist.init_distributed(spec["coord"], world, rank, dev=spec["dev"],
+                           timeout_s=spec["timeout_s"])
+    jit_gather = NetTrainer._jit_gather
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = DP_DETERMINISTIC
+    res = {"backend": pdist.backend()}
+    base = [tuple(p) for p in spec["rn_cfg"]] + [("bn_eval", "running")]
+    card = torch.cuda.is_available()  # False only in a CPU rehearsal
+    for name, extra, dtype in (
+            ("z0", [], "bfloat16"), ("z3", [("zero", "3")], "bfloat16"),
+            ("z3_start", [("zero", "3")], "bfloat16"),
+            ("z3_f32", [("zero", "3")], "float32"),
+            ("lars0", [("updater", "lars")], "float32"),
+            ("lars1", [("updater", "lars"), ("zero", "1")], "float32")):
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        NetTrainer._jit_gather = ((lambda self: False)
+                                  if name == "z3_start" else jit_gather)
+        tr = _dp_trainer(base + extra, spec["rn_ckpt"], dtype, spec["dev"])
+        side = int(dict(base)["input_shape"].split(",")[1])
+        local = tr.batch_size // world
+        rows = slice(rank * local, (rank + 1) * local)
+        r = _z3_run(tr, side, rows, Z3_STEPS,
+                    counted=name in ("z0", "z3", "z3_f32"))
+        r["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                     if card else 0)
+        r["state_bytes"] = _z3_state_bytes(tr)
+        per, r["total_bytes"] = tr.state_shard_bytes()
+        r["shard_bytes"] = sum(per.values())
+        r["zero"] = tr.zero_snapshot()
+        params, aux = _dp_params(tr)
+        r["crc"] = zlib.crc32(b"".join(w.astype(np.float32).tobytes()
+                                       for _kt, w in sorted(params.items())))
+        if rank == 0 and name not in ("z0", "z3_start"):  # CRC enough
+            np.savez(os.path.join(spec["out"], f"{name}.npz"),
+                     **{"p:" + "/".join(kt): w.astype(np.float32)
+                        for kt, w in params.items()},
+                     **{"a:" + "/".join(kt): a.astype(np.float32)
+                        for kt, a in aux.items()})
+        del params, aux
+        if name in ("z0", "z3", "z3_start"):
+            r["step_ms"], r["timed_collective_ms"] = _dp_time(tr, rows, side)
+        del tr
+        NetTrainer._jit_gather = jit_gather
+        res[name] = r
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    pdist.shutdown_distributed()
+    return 0
+
+
+def rr_rank_main(spec_path: str, rank: int) -> int:
+    """One rank process of phase 33c (``python chip_smoke.py --rr-rank
+    SPEC RANK``): the synthetic draws the parent saved kept first
+    (``_keep_synthetic_draws``: the parent drew the same rows), then
+    the port's CLI (``LearnTask``) on each of the spec's runs in turn,
+    with this rank's ``dist_proc_id``, and after each its launches by
+    kernel and, for the routed kernels, by C entry, to
+    ``<out>/<tag>.rank<rank>.json``."""
+    sys.path.insert(0, REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    import numpy as np
+    import torch
+
+    from cxxnet_tpu_torch.cli import LearnTask
+    from cxxnet_tpu_torch.ops import KERNELS
+
+    _set_flags(torch, spec["flags"])
+    _keep_synthetic_draws()
+    with np.load(spec["draws"]) as d:
+        for i in range(int(d["n"])):
+            key = tuple(tuple(k) if isinstance(k, list) else k
+                        for k in json.loads(str(d[f"k{i}"])))
+            _DRAWS[key] = (d[f"d{i}"], d[f"l{i}"])
+    code = 0
+    for run in spec["runs"]:
+        for k in KERNELS:
+            k.reset_counts()
+        paths0 = _by_symbol()
+        code = LearnTask().run(run["argv"] + [f"dist_proc_id={rank}"])
+        with open(os.path.join(spec["out"],
+                               f"{run['tag']}.rank{rank}.json"), "w") as f:
+            json.dump({"code": code,
+                       "launches": {k.name: k.launches for k in KERNELS},
+                       "paths": _paths_since(paths0)}, f)
+        if code:
+            break
+    return code
+
+
+def _z3_phase(tmp: str, card: str) -> dict:
+    """33a (with 28b's checks) and 33b: the rank job of
+    :func:`z3_rank_main`, 33a's one-rank references (bf16 and f32) here
+    first."""
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve.fleet import free_port
+
+    rn_cfg = cfgmod.parse_file(RESNET_CONF)
+    tr = NetTrainer()
+    tr.set_params(rn_cfg + [("dev", DP_DEV), ("seed", str(SEED))])
+    tr.init_model()
+    ckpt = os.path.join(tmp, "z3_rn.model")
+    tr.save_model(ckpt)
+    whole_bytes = sum(int(w.nbytes) for tags in tr.params.values()
+                      for w in tags.values())
+    del tr
+    # the one-rank reference of 33a (phase 28's way): bf16, zero = 0
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = DP_DETERMINISTIC
+    cfg1 = rn_cfg + [("bn_eval", "running")]
+    side = int(dict(cfg1)["input_shape"].split(",")[1])
+    ones = {}
+    for name, dtype in (("z3", "bfloat16"), ("z3_f32", "float32")):
+        tr = _dp_trainer(cfg1, ckpt, dtype, DP_DEV)
+        w0 = _dp_params(tr)[0]
+        r = _z3_run(tr, side, slice(None), Z3_STEPS, counted=False)
+        r["params"], r["aux"] = _dp_params(tr)
+        ones[name] = r
+        del tr
+        torch.cuda.empty_cache()
+    one = ones["z3"]
+    out_dir = os.path.join(tmp, "z3_out")
+    os.makedirs(out_dir)
+    spec = {"rn_cfg": rn_cfg, "rn_ckpt": ckpt, "world": DP_RANKS,
+            "coord": f"127.0.0.1:{free_port()}", "timeout_s": 120.0,
+            "out": out_dir, "dev": DP_DEV,
+            "consts": {k: globals()[k] for k in (
+                "Z3_STEPS", "DP_TIMED", "DP_DETERMINISTIC", "SEED")}}
+    path = os.path.join(tmp, "z3_spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    codes, outs = _dp_spawn(
+        [[sys.executable, os.path.abspath(__file__), "--z3-rank", path,
+          str(r)] for r in range(DP_RANKS)], tmp, "z3_rank")
+    ranks_s = time.perf_counter() - t0
+    if any(c != 0 for c in codes):
+        raise SmokeError(f"33a/b: rank exits {codes}: "
+                         + " | ".join(o[-2500:] for o in outs))
+    got = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    if got[0]["backend"] != "gloo":
+        raise SmokeError(f"33: two ranks on one card ran {got[0]['backend']}")
+    res = {"ranks_s": ranks_s}
+    # 33a: every step of zero = 3 launches K1, K2, K6 and K8, in bf16 on
+    # their main entries (f32 has its own entries)
+    for r, g in enumerate(got):
+        for name in ("z3", "z3_f32"):
+            for s, (launches, paths) in enumerate(zip(g[name]["launches"],
+                                                      g[name]["paths"])):
+                if any(launches.get(k, 0) != v
+                       for k, v in RESNET_PER_STEP.items()) or (
+                        name == "z3"
+                        and paths != _main_paths(RESNET_PER_STEP)):
+                    raise SmokeError(f"33a {name}: rank {r} step {s} "
+                                     f"launched {launches} by C entry "
+                                     f"{paths}, want {RESNET_PER_STEP} on "
+                                     "the main entries")
+    # bit-equal to zero = 0 over the same two ranks, and the ranks agree
+    runs = ("z0", "z3", "z3_start")
+    crcs = {n: [g[n]["crc"] for g in got] for n in runs}
+    losses = {n: [g[n]["losses"] for g in got] for n in runs}
+    log(f"33a: weight CRCs {crcs}; losses {losses}")
+    if len({c for n in runs for c in crcs[n]}) != 1 or any(
+            losses[n] != losses["z0"] for n in runs):
+        raise SmokeError(f"33a: zero=3 is not bit-equal to zero=0: {crcs} "
+                         f"{losses}")
+    for name in ("z3", "z3_f32"):
+        d = np.load(os.path.join(out_dir, f"{name}.npz"))
+
+        def part(pre, d=d):
+            return {tuple(k[2:].split("/")): d[k].astype(np.float64)
+                    for k in d.files if k.startswith(pre)}
+
+        cos = _cos_updates(part("p:"), ones[name]["params"], w0)
+        if name == "z3_f32":
+            _dp_check("rn zero3 f32 2 ranks vs 1, update cosine", cos,
+                      RESNET_F32_COS, RESNET_F32_COS_MEDIAN, False,
+                      phase="33a")
+        else:
+            _dp_check("rn zero3 bf16 2 ranks vs 1, classifier update "
+                      "cosine", {kt: c for kt, c in cos.items()
+                                 if kt[0].endswith("_fc1000")},
+                      RESNET_BF16_CLS_COS, RESNET_BF16_CLS_COS, False,
+                      phase="33a")
+            _dp_check("rn zero3 bf16 2 ranks vs 1, update cosine "
+                      "(logged)", cos, -1.0, -1.0, False, phase="33a")
+        ref_aux = ones[name]["aux"]
+        aux_rel = {kt: float(np.abs(a - ref_aux[kt]).max()
+                             / max(np.abs(ref_aux[kt]).max(), 1e-30))
+                   for kt, a in part("a:").items()}
+        lim = ((DP_AUX_REL, DP_AUX_REL_MEDIAN) if name == "z3_f32"
+               else (DP_AUX_BF16_REL, DP_AUX_BF16_REL_MEDIAN))
+        _dp_check(f"{name} running statistics 2 ranks vs 1, rel",
+                  aux_rel, *lim, True, phase="33a")
+    frac = max(g["z3"]["shard_bytes"] for g in got) / got[0]["z3"][
+        "total_bytes"]
+    k8 = [g["z3"]["k8_elems"][0] for g in got]
+    k8_1 = sum(int(w.size) for w in w0.values())
+    log(f"33a: zero=3 train-state bytes a rank "
+        f"{[g['z3']['shard_bytes'] for g in got]} of "
+        f"{got[0]['z3']['total_bytes']} ({frac:.3f}, limit "
+        f"{DP_SHARD_LIMIT}); K8 on slices: {k8} elements a rank against "
+        f"{k8_1} on one")
+    if frac > DP_SHARD_LIMIT or not all(e < k8_1 for e in k8):
+        raise SmokeError(f"33a: zero=3 bytes {frac:.3f} or K8 elements {k8} "
+                         f"of {k8_1}")
+    rel = abs(losses["z3"][0][0] - one["losses"][0]) / abs(one["losses"][0])
+    log(f"33a bf16 loss 2 ranks vs 1: rel {rel:.3g} (limit "
+        f"{DP_RN_LOSS_REL:g})")
+    if not rel <= DP_RN_LOSS_REL:
+        raise SmokeError(f"33a: bf16 loss rel {rel:g}")
+    # the gathered peak, the card's memory, the step and its collectives
+    zs = [g["z3"]["zero"] for g in got]
+    peak = max(z["zero_gathered_peak_bytes"] for z in zs)
+    group = zs[0]["largest_group_bytes"]
+    rs = [g["z3"]["by_op"][0].get("reduce_scatter", 0) for g in got]
+    ar0 = [g["z0"]["by_op"][0].get("all_reduce", 0) for g in got]
+    ar3 = [g["z3"]["by_op"][0].get("all_reduce", 0) for g in got]
+    res["z3"] = {
+        "gathered_peak_bytes": [z["zero_gathered_peak_bytes"] for z in zs],
+        "largest_group_bytes": group,
+        "whole_weight_bytes": zs[0]["whole_weight_bytes"],
+        "f32_master_bytes_one_replica": whole_bytes,
+        "max_memory_allocated": {n: [g[n]["max_memory_allocated"]
+                                     for g in got] for n in runs},
+        "step_ms": {n: [g[n]["step_ms"] for g in got] for n in runs},
+        "collective_ms": {n: [g[n]["timed_collective_ms"] for g in got]
+                          for n in runs},
+        "collective_calls_a_step": {n: [g[n]["calls"][0] for g in got]
+                                    for n in runs},
+        "bytes_by_op_a_step": {n: [g[n]["by_op"][0] for g in got]
+                               for n in runs},
+        "launches_a_step": got[0]["z3"]["launches"][0],
+        "losses": losses["z3"], "loss_1": one["losses"]}
+    log(f"33a: zero=3 gathered peak a rank "
+        f"{res['z3']['gathered_peak_bytes']} bytes against the whole net's "
+        f"{zs[0]['whole_weight_bytes']} and the largest group's {group} "
+        f"(limit {Z3_PEAK_GROUPS:g}x); by run (z3_start: the whole net "
+        f"gathered at the step's start) max_memory_allocated a rank "
+        f"{res['z3']['max_memory_allocated']}; step ms "
+        f"{res['z3']['step_ms']}, host ms in the collectives "
+        f"{res['z3']['collective_ms']}, collective calls a step "
+        f"{res['z3']['collective_calls_a_step']}; a step's bytes to the "
+        f"backend by kind {res['z3']['bytes_by_op_a_step']} ({card})")
+    if not 0 < peak <= Z3_PEAK_GROUPS * group or \
+            peak >= zs[0]["whole_weight_bytes"]:
+        raise SmokeError(f"33a: gathered peak {peak} against the largest "
+                         f"group {group} and the whole net "
+                         f"{zs[0]['whole_weight_bytes']}")
+    mem = res["z3"]["max_memory_allocated"]
+    if not all(a < b for a, b in zip(mem["z3"], mem["z3_start"])):
+        raise SmokeError(f"33a: the gather at use held no less of the card "
+                         f"than the step-start gather: {mem}")
+    if not all(a0 - a3 == 2 * b for a0, a3, b in zip(ar0, ar3, rs)) or \
+            not all(rs):
+        raise SmokeError(f"33a: the sharded gradients were not "
+                         f"reduce-scattered: all-reduce bytes zero=0 {ar0}, "
+                         f"zero=3 {ar3}, reduce-scatter {rs}")
+    # 33b: lars's state cut under zero = 1, its update against zero = 0
+    whole_state = got[0]["lars0"]["state_bytes"]
+    frac = [g["lars1"]["state_bytes"] / whole_state for g in got]
+    d0 = np.load(os.path.join(out_dir, "lars0.npz"))
+    d1 = np.load(os.path.join(out_dir, "lars1.npz"))
+    ulps = {}
+    leaves = [k for k in d0.files if k.startswith("p:")]
+    for k in leaves:
+        a, b = d1[k].astype(np.float32), d0[k].astype(np.float32)
+        ulps[tuple(k[2:].split("/"))] = float(
+            np.abs(a - b).max() / np.spacing(np.abs(b).max()))
+    moved = sum(int((d0[k] != w0[tuple(k[2:].split("/"))]).any())
+                for k in leaves)
+    worst, med = _dp_check("lars zero=1 vs zero=0 2 ranks, f32 weights in "
+                           "ulps", ulps, Z3_LARS_ULPS, Z3_LARS_ULPS, True,
+                           phase="33b")
+    if moved < len(leaves) // 2:
+        raise SmokeError(f"33b: lars moved {moved} of {len(leaves)} "
+                         "tensors")
+    held = [g["lars1"]["state_bytes"] for g in got]
+    log(f"33b: lars updater-state bytes a rank {held} of one replica's "
+        f"{whole_state} ({[round(f, 4) for f in frac]}, limit "
+        f"{Z3_STATE_LIMIT}); weight CRCs zero=1 "
+        f"{[g['lars1']['crc'] for g in got]} ({card})")
+    if max(frac) > Z3_STATE_LIMIT or got[0]["lars1"]["crc"] != \
+            got[1]["lars1"]["crc"]:
+        raise SmokeError(f"33b: lars state {frac} of a replica, or the ranks "
+                         "differ")
+    res["lars"] = {"state_bytes": [g["lars1"]["state_bytes"] for g in got],
+                   "state_bytes_one_replica": whole_state,
+                   "weights_ulps_worst": worst, "weights_ulps_median": med}
+    launches = {}
+    for g in got:
+        for step in g["z3"]["launches"] + g["z3_f32"]["launches"]:
+            for k, v in step.items():
+                launches[k] = launches.get(k, 0) + v
+    res["launches"] = launches
+    return res
+
+
+def _flags(torch) -> list:
+    """The backend flags that pick the card's algorithms: cuDNN's
+    ``deterministic``, ``benchmark`` and ``allow_tf32``, and the
+    matmuls' ``allow_tf32``."""
+    return [torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32]
+
+
+def _set_flags(torch, flags) -> None:
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+     torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = (bool(f) for f in flags)
+
+
+def _rr_start(tmp: str, runs, draws: str):
+    """Two 33c rank processes of :func:`rr_rank_main` over ``runs``
+    (``(tag, argv)``, each with a fresh coordinator), the draws of
+    ``draws`` kept first and this process's backend flags set."""
+    import torch
+
+    from cxxnet_tpu_torch.serve.fleet import free_port
+
+    spec = {"runs": [{"tag": tag, "argv": list(argv) + [
+        f"dist_coordinator=127.0.0.1:{free_port()}",
+        f"dist_num_proc={DP_RANKS}", "dist_timeout_s=120", f"dev={DP_DEV}"]}
+        for tag, argv in runs], "out": tmp, "draws": draws,
+        "flags": _flags(torch)}
+    path = os.path.join(tmp, "rr_spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return _dp_start([[sys.executable, os.path.abspath(__file__),
+                       "--rr-rank", path, str(r)] for r in range(DP_RANKS)],
+                     tmp, "rr")
+
+
+def _rr_counts(tmp: str, tag: str, forwards: int):
+    """Each 33c rank's launches: ``forwards`` forwards of GoogLeNet's
+    K1, K4 and K6 on their main entries and nothing else."""
+    want = {k: v * forwards for k, v in PER_FORWARD.items()}
+    got = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(tmp, f"{tag}.rank{r}.json")) as f:
+            d = json.load(f)
+        launches = {k: v for k, v in d["launches"].items() if v}
+        if launches != want or d["paths"] != _main_paths(want):
+            raise SmokeError(f"33c {tag}: rank {r} launched {launches} by C "
+                             f"entry {d['paths']}, want {want} on the main "
+                             "entries")
+        got.append(launches)
+    return got
+
+
+def _rr_close(one, two, what: str, limit: float) -> dict:
+    """The largest difference of two score arrays over the largest
+    magnitude (``rel``, held at ``limit``), the difference itself and
+    that magnitude."""
+    import numpy as np
+
+    one, two = np.asarray(one, np.float64), np.asarray(two, np.float64)
+    if one.shape != two.shape or not np.isfinite(two).all():
+        raise SmokeError(f"33c {what}: shape {two.shape} vs {one.shape} or "
+                         "values not finite")
+    diff, top = float(np.abs(one - two).max()), float(np.abs(one).max())
+    rel = diff / max(top, 1e-30)
+    if not rel <= limit:
+        raise SmokeError(f"33c {what}: two ranks vs one process rel "
+                         f"{rel:g} (max abs {diff:g} of {top:g}; limit "
+                         f"{limit})")
+    return {"rel": rel, "max_abs": diff, "max_one": top}
+
+
+def _blocks_forward(tr, x, ranks: int):
+    """``x``'s scores as a serving range of ``ranks`` computes them, on
+    one process: the request padded to its bucket, cut into one block of
+    rows a rank, each block's forward at the block's rows (the ranks'
+    batch shape), the blocks joined and trimmed."""
+    import numpy as np
+
+    from cxxnet_tpu_torch.serve.cache import bucket_size
+
+    n = x.shape[0]
+    per = bucket_size(n) // ranks
+    x = x.reshape((n,) + tr.net.input_node_shape(1)[1:])
+    f = tr.predict_fn()
+    return np.concatenate([f(tr.params, tr.aux, x[lo:min(lo + per, n)], (),
+                             pad_to=per).cpu().numpy()
+                           for lo in range(0, per * ranks, per)])[:n]
+
+
+def _range_phase(tmp: str, card: str) -> dict:
+    """33c: GoogLeNet (googlenet.conf, bf16, full width) over two ranks
+    sharing the card, one job: ``task = pred_raw`` on one b128 batch
+    against one process's file, then ``task = serve``: ``CXB1`` frames at
+    bucket 128 against one process's engine; each rank's launches."""
+    import http.client
+
+    import numpy as np
+
+    from cxxnet_tpu_torch import config as cfgmod
+    from cxxnet_tpu_torch.cli import LearnTask
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import Engine
+
+    conf = _synthetic_conf(tmp, "range.conf",
+                           (("pred", "range_raw.txt", RANGE_ROWS, False),),
+                           1.0)
+    cfg = cfgmod.parse_file(conf)
+    tr = NetTrainer()
+    tr.set_params(cfg + [("dev", "gpu"), ("seed", str(SEED + 33))])
+    tr.init_model()
+    model = os.path.join(tmp, "range.model")
+    tr.save_model(model)
+    del tr
+    res = {}
+    # pred_raw on one process here; its rows go to the ranks
+    one_dir, two_dir = os.path.join(tmp, "one"), os.path.join(tmp, "two")
+    for d in (one_dir, two_dir):
+        os.makedirs(d)
+    argv = [conf, f"model_in={model}", "silent=1"]
+    cwd = os.getcwd()
+    os.chdir(one_dir)
+    try:
+        t0 = time.perf_counter()
+        LearnTask().run(argv + ["task=pred_raw", "dev=gpu"])
+        one_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    kept = [(k, v) for k, v in _DRAWS.items() if k[1] == RANGE_ROWS]
+    draws = os.path.join(tmp, "draws.npz")
+    np.savez(draws, n=len(kept), **{
+        f"{c}{i}": v for i, (k, (d, lab)) in enumerate(kept)
+        for c, v in (("k", json.dumps(k)), ("d", d), ("l", lab))})
+    # the two ranks: pred_raw, then serve until SIGTERM to rank 0
+    t0 = time.perf_counter()
+    job = _rr_start(two_dir, [("pred_raw", argv + ["task=pred_raw"]),
+                              ("serve", argv + ["task=serve", "serve_port=0",
+                                                "silent=0"])], draws)
+    procs, logs = job
+    try:
+        port, deadline = None, time.perf_counter() + RANGE_DEADLINE_S
+        while port is None and time.perf_counter() < deadline:
+            if procs[0].poll() is not None:
+                break
+            with open(logs[0], errors="replace") as f:
+                m = re.search(r"serving model .* at http://[^:]+:(\d+)",
+                              f.read())
+            port = int(m.group(1)) if m else None
+            time.sleep(0.1)
+        if port is None:
+            raise SmokeError("33c: rank 0 never served")
+        xs = [_rows(n, CONF_SIDE, SEED + 330 + n) for n in RANGE_FRAMES]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            got = [_wire_scores(conn, x) for x in xs]
+        finally:
+            conn.close()
+    finally:
+        if procs[0].poll() is None:
+            procs[0].send_signal(signal.SIGTERM)
+        codes, outs = _dp_finish(job, t0)
+    two_s = time.perf_counter() - t0
+    if any(c != 0 for c in codes):
+        raise SmokeError(f"33c: rank exits {codes}: "
+                         + " | ".join(o[-2500:] for o in outs))
+    a = np.loadtxt(os.path.join(one_dir, "range_raw.txt"), ndmin=2)
+    b = np.loadtxt(os.path.join(two_dir, "range_raw.txt"), ndmin=2)
+    if a.shape != (RANGE_ROWS, 1000):
+        raise SmokeError(f"33c pred_raw: one process wrote {a.shape}")
+    close = _rr_close(a, b, "pred_raw", RANGE_REL)
+    counts = _rr_counts(two_dir, "pred_raw", 1)
+    res["pred_raw"] = {"rows": RANGE_ROWS, **close, "one_s": one_s,
+                       "launches_a_rank": counts}
+    log(f"33c pred_raw: {RANGE_ROWS} rows over 2 ranks (64 a rank) against "
+        f"one process (b{RANGE_ROWS}): {close} (limit {RANGE_REL}); per "
+        f"rank {counts[0]} on the main entries ({card})")
+    m = re.search(r"serving range: rank 1 stopped after (\d+) forward",
+                  outs[1])
+    if m is None or int(m.group(1)) != len(RANGE_FRAMES):
+        raise SmokeError(f"33c serve: the follower's forwards: "
+                         f"{outs[1][-1500:]}")
+    counts = _rr_counts(two_dir, "serve", len(RANGE_FRAMES))
+    with Engine(cfg=cfg + [("dev", "gpu")], model_in=model,
+                silent=True) as eng:
+        ref = [eng.scores(x) for x in xs]
+        blocks = [_blocks_forward(eng.trainer, x, DP_RANKS) for x in xs]
+    same = [_rr_close(r1, r2, f"serve {x.shape[0]} rows, one process on "
+                      "the ranks' blocks", RANGE_SAME_REL)
+            for r1, r2, x in zip(blocks, got, xs)]
+    whole = [_rr_close(r1, r2, f"serve {x.shape[0]} rows, one engine at "
+                       "bucket 128", BF16_LOGIT_REL)
+             for r1, r2, x in zip(ref, got, xs)]
+    res["serve"] = {"frames": list(RANGE_FRAMES), "same_shape": same,
+                    "one_engine": whole, "launches_a_rank": counts,
+                    "two_ranks_s": two_s}
+    log(f"33c serve: CXB1 frames of {list(RANGE_FRAMES)} rows at bucket 128 "
+        f"over 2 ranks against one process on the same 64-row blocks "
+        f"{same} (limit {RANGE_SAME_REL}) and against one engine at bucket "
+        f"128 {whole} (limit {BF16_LOGIT_REL}); per rank {counts[0]} on the main "
+        f"entries; SIGTERM to rank 0 ended both; the two ranks' job "
+        f"{two_s:.1f}s, one process's pred_raw {one_s:.1f}s ({card})")
+    launches = {}
+    for c in counts + res["pred_raw"]["launches_a_rank"]:
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+    res["launches"] = launches
+    return res
+
+
+def zero_range_phase(card: str) -> dict:
+    """Phase 33: 33a and 33b (one rank job), then 33c."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        for name, fn in (("zero", _z3_phase), ("range", _range_phase)):
+            t1 = time.perf_counter()
+            with tempfile.TemporaryDirectory(
+                    prefix=f"chip_smoke_33_{name}_") as tmp:
+                out[name] = fn(tmp, card)
+            torch.cuda.empty_cache()
+            out[name]["phase_s"] = time.perf_counter() - t1
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    out["launches"] = {k: out["zero"]["launches"].get(k, 0)
+                       + out["range"]["launches"].get(k, 0)
+                       for k in set(out["zero"]["launches"])
+                       | set(out["range"]["launches"])}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -12412,6 +13157,7 @@ def main() -> int:
               "example/kaggle_bowl/{bowl,pred}.conf)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    _keep_synthetic_draws()
     phase_s, mark = {}, [time.perf_counter()]
 
     def lap(name):
@@ -12535,10 +13281,13 @@ def main() -> int:
         log(json.dumps({"elastic": {k: v for k, v in p32.items()
                                     if k not in ("launches", "generations")}}))
         lap("32 elastic")
+        p33 = zero_range_phase(card)
+        log(json.dumps({"zero_range": p33}))
+        lap("33 zero, range")
         line = kernels_line(rows, serve_launches, train_launches, flash_rows,
                             lm_launches, gen_launches, int8_rows,
                             quant_launches, loop_out, fleet_out, p27, p28,
-                            p2930, p31, p32)
+                            p2930, p31, p32, p33)
         log(json.dumps({"phase_s": phase_s, "total_s": round(sum(
             phase_s.values()), 1), "card": card}))
         log(card)
@@ -12562,4 +13311,8 @@ if __name__ == "__main__":
         sys.exit(ma_rank_main(sys.argv[2], int(sys.argv[3])))
     if len(sys.argv) == 4 and sys.argv[1] == "--el-rank":
         sys.exit(el_rank_main(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--z3-rank":
+        sys.exit(z3_rank_main(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--rr-rank":
+        sys.exit(rr_rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

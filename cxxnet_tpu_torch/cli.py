@@ -205,8 +205,14 @@ rank 0 writes the checkpoints, the train and eval metrics are summed
 over the ranks, and the ``mesh:`` line states the layout, the backend
 and the state's bytes per rank.  ``test_on_server = 1`` checks after
 every round that the ranks' weights agree (``check_weight_sync``,
-``weight-sync:`` on stderr).  The tasks other than ``train`` and
-``finetune`` run on one process.
+``weight-sync:`` on stderr).  ``task=pred``, ``pred_raw`` and
+``extract`` over a range read the whole pred set on every rank; each
+rank runs its block of every batch (a batch padded to a multiple of the
+ranks, ``NetTrainer.run_sharded``) and rank 0 writes the rows in order.
+``task=serve`` over a range serves from rank 0 and splits each batch's
+forward over the ranks (``serve/range.py``).  The other tasks (and the
+serving fleet, ``replicas > 1``) run on one process and refuse a range,
+naming themselves.
 
 The elastic pod (``parallel/elastic.py``), as the JAX package drives it:
 with ``elastic = 1`` in a ``dist_*`` group rank 0 hosts the membership
@@ -247,7 +253,7 @@ _TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "summary",
           "serve", "generate", "export_quant", "serve_train", "loop_fleet",
           "data_service")
 # the tasks a data-parallel group runs (the others are one process)
-_GROUP_TASKS = ("train", "finetune")
+_GROUP_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "serve")
 
 
 class LearnTask:
@@ -511,10 +517,8 @@ class LearnTask:
         from .parallel import distributed
 
         joined = distributed.maybe_init_distributed(self.cfg)
-        if joined and self.task not in _GROUP_TASKS:
-            raise ValueError(
-                f"task={self.task} is single-process; a data-parallel "
-                f"group runs {' and '.join(_GROUP_TASKS)}")
+        if joined:
+            self._check_group_task()
         code = self._run_task()
         # an elastic run left its group already, without a collective
         if joined and distributed.distributed_initialized():
@@ -523,6 +527,20 @@ class LearnTask:
             distributed.barrier("exit")
             distributed.shutdown_distributed()
         return code
+
+    def _task_name(self) -> str:
+        if self.task == "serve" and self.replicas > 1:
+            return f"task=serve with replicas={self.replicas} (the fleet)"
+        return f"task={self.task}"
+
+    def _check_group_task(self) -> None:
+        """A data-parallel group runs the tasks of ``_GROUP_TASKS`` (the
+        serving fleet is a group of its own); refuse the others."""
+        if self.task not in _GROUP_TASKS or (self.task == "serve"
+                                             and self.replicas > 1):
+            raise ValueError(
+                f"{self._task_name()} is single-process; a data-parallel "
+                f"group runs {_group_task_list()}")
 
     def _run_task(self) -> int:
         from . import obs
@@ -578,10 +596,11 @@ class LearnTask:
         plat, ids = mesh.parse_device(dev.strip().lower())
         if len(ids) < 2:
             return None
-        if self.task not in _GROUP_TASKS:
+        if self.task not in _GROUP_TASKS or (self.task == "serve"
+                                             and self.replicas > 1):
             raise NotImplementedError(
-                f"dev={dev.strip()}: task={self.task} runs on one device; "
-                f"a device range runs {' and '.join(_GROUP_TASKS)}, one "
+                f"dev={dev.strip()}: {self._task_name()} runs on one "
+                f"device; a device range runs {_group_task_list()}, one "
                 "process per device")
         if plat != "cpu":
             mesh.check_ordinals(dev, ids)
@@ -1765,7 +1784,7 @@ class LearnTask:
         t0 = time.perf_counter()
         nrow = 0
         try:
-            with open(self.name_pred, "w", encoding="utf-8") as fo:
+            with open(self._pred_path(), "w", encoding="utf-8") as fo:
                 self.itr_pred.before_first()
                 while self.itr_pred.next():
                     batch = self.itr_pred.value()
@@ -1790,6 +1809,14 @@ class LearnTask:
         print(f"finished prediction, write into {self.name_pred} "
               f"({nrow} rows, {nrow / dt if dt > 0 else 0.0:.1f} rows/sec)")
 
+    def _pred_path(self, suffix: str = "") -> str:
+        """Where a predicting task writes: ``name_pred`` (+ ``suffix``)
+        on rank 0; a device range's other ranks compute their block of
+        every batch (``NetTrainer.run_sharded``) and write nothing."""
+        from .parallel.distributed import is_primary
+
+        return self.name_pred + suffix if is_primary() else os.devnull
+
     def task_extract(self) -> None:
         """``task=extract``: the features of node ``extract_node_name``
         for every row of the pred iterator, as ``<f4`` binary or txt
@@ -1803,7 +1830,7 @@ class LearnTask:
         print("start predicting...")
         nrow, dshape = 0, None
         try:
-            with open(self.name_pred,
+            with open(self._pred_path(),
                       "w" if self.output_format else "wb") as fo:
                 self.itr_pred.before_first()
                 while self.itr_pred.next():
@@ -1824,7 +1851,7 @@ class LearnTask:
             self._close_iterators()
         shp = list(dshape) if dshape else []
         shp += [1] * (3 - len(shp))
-        with open(self.name_pred + ".meta", "w", encoding="utf-8") as fm:
+        with open(self._pred_path(".meta"), "w", encoding="utf-8") as fm:
             fm.write(f"{nrow},{shp[0]},{shp[1]},{shp[2]}\n")
         print(f"finished prediction, write into {self.name_pred}")
 
@@ -1964,6 +1991,30 @@ class LearnTask:
         ``replicas >= 2`` runs :meth:`task_serve_fleet` instead."""
         if self.replicas > 1:
             return self.task_serve_fleet()
+        from .parallel import distributed
+
+        rank, world = distributed.process_info()
+        if rank > 0:
+            return self._serve_follower(rank)
+        leader = None
+        if world > 1:
+            from .serve import range as serve_range
+
+            leader = serve_range.start_leader(world)
+        try:
+            self._serve_engine()
+        finally:
+            if leader is not None:
+                serve_range.end_leader()
+
+    def _serve_follower(self, rank: int) -> None:
+        """A serving range's rank > 0: compute its block of every batch
+        the leader's engine forms, on the checkpoint each names."""
+        from .serve import range as serve_range
+
+        serve_range.follow(self._load_trainer, rank, silent=bool(self.silent))
+
+    def _serve_engine(self) -> None:
         model_in = (None if self.name_model_in == "NULL"
                     else self.name_model_in)
         engine = self._engine(self.cfg,
@@ -2240,6 +2291,10 @@ class LearnTask:
                 signal.signal(s, p)
             server.close()
         print("data_service: shutdown complete", flush=True)
+
+
+def _group_task_list() -> str:
+    return ", ".join(_GROUP_TASKS[:-1]) + f" and {_GROUP_TASKS[-1]}"
 
 
 def wait_ranks(procs, timeout_s: float) -> int:

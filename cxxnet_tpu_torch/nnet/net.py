@@ -76,6 +76,16 @@ forward:
   attention and embedding weights, a group with an uncut member, the
   members of a branch-embed group) is gathered at use, all of them in
   one all-gather per ``prepare`` (``distributed.gather_leaves``).
+* ``zero = 3`` (``bind_data_slices``): the trainer holds a rank's data
+  slice of each cut tensor, and ``prepare`` builds each layer's (each
+  sibling-1x1 or branch-embed group's) operands at its lookup in
+  ``_run`` from its weights gathered whole (``distributed.gather_slices``:
+  one all-gather, whose backward reduce-scatters the gradient into the
+  slice), keeping none of them past the layer; a layer whose cut tensors
+  are all vectors (batch norm's gamma and beta) comes in the all-gather
+  of the layer before it (``_zero_plan``).  The training forward runs
+  under ``distributed.saved_whole_hooks``, so what autograd saves of a
+  whole matrix is its recipe, gathered again in the backward.
 * ``remat = 1`` recomputes activations in the backward instead of
   keeping them: in training each unit the JAX package wraps in
   ``jax.checkpoint`` (a plain layer, a stateful layer, a sibling-1x1
@@ -91,7 +101,9 @@ forward:
 
 from __future__ import annotations
 
+import contextlib
 import functools
+from collections.abc import Mapping
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -134,6 +146,23 @@ def _recomputed(fn, gen: Optional[torch.Generator], *args):
     return checkpoint(run, *args, use_reentrant=False)
 
 
+class _AtUse(Mapping):
+    """A mapping whose values are built anew at each lookup (``zero =
+    3``'s prepared operands: nothing whole is kept between two uses)."""
+
+    def __init__(self, builders: dict) -> None:
+        self._builders = builders
+
+    def __getitem__(self, key):
+        return self._builders[key]()
+
+    def __iter__(self):
+        return iter(self._builders)
+
+    def __len__(self) -> int:
+        return len(self._builders)
+
+
 class FunctionalNet:
     """Executable (eval) form of a NetGraph."""
 
@@ -152,6 +181,12 @@ class FunctionalNet:
         #: for the keys with a cut tag (bind_model_slices)
         self.model_dims: Dict[str, Dict[str, Optional[int]]] = {}
         self._shard_cache = None
+        #: ZeRO-3 (bind_data_slices): key -> tag -> the dim cut over the
+        #: data ranks, the data sub-group, and the rank-order fold flag
+        self.zero_dims: Dict[str, Dict[str, int]] = {}
+        self.zero_group = None
+        self.zero_det = False
+        self.zero_vectors: set = set()
         self.layer_objs: List[Layer] = []
         self.param_key: List[Optional[str]] = []
         for i, spec in enumerate(graph.layers):
@@ -621,6 +656,142 @@ class FunctionalNet:
         return outs
 
     # ------------------------------------------------------------------
+    # ZeRO-3: the data slices gathered at use
+    def bind_data_slices(self, group, dims: Dict[str, Dict[str, int]],
+                         det: bool = False, vectors=()) -> None:
+        """The trainer's ``zero = 3`` cuts: ``dims[key][tag]`` the
+        dimension of the data slice it holds, ``group`` the data
+        sub-group, ``det`` the rank-order fold of the gradients
+        (``det_reduce``), ``vectors`` the keys whose cut tensors are all
+        vectors (gathered with the layer before them, :meth:`_zero_plan`).
+        Empty ``dims``: the weights are whole."""
+        self.zero_dims = {k: dict(v) for k, v in dims.items()}
+        self.zero_group = group if dims else None
+        self.zero_det = bool(det)
+        self.zero_vectors = set(vectors) & set(dims)
+
+    def _zero_plan(self) -> List[tuple]:
+        """``zero = 3``'s gathers, in the order :meth:`_run` looks the
+        operands up: ``(map, name, keys, riders)`` for each lookup that
+        holds a cut tensor (``map`` ``layers`` / ``groups`` / ``embed``
+        of :meth:`prepare`, ``name`` its key there).  ``riders``: the
+        keys of the vector-only layers after it (batch norm's gamma and
+        beta, a bias) up to the next lookup with a cut matrix, gathered
+        in its one all-gather and kept for their own lookup, so a vector
+        costs no collective of its own.  A vector key looked up more
+        than once, or before any matrix, gathers alone."""
+        fuse, member = (self._sibling_1x1_groups() if self.fuse_1x1
+                        else ({}, {}))
+        items, embed = (self._branch_embed_plan() if self.use_branch_embed()
+                        else (None, {}))
+        if items is None:
+            items = [("L", i) for i in range(len(self.graph.layers))]
+        looks = []
+        for kind, i in items:
+            if kind == "E":
+                looks.append(("embed", i, [self.param_key[j]
+                                           for j in embed[i]]))
+            elif i not in member:
+                looks.append(("layers", self.param_key[i],
+                              [self.param_key[i]]))
+            elif member[i] == i:
+                looks.append(("groups", i, [self.param_key[j]
+                                            for j in fuse[i]]))
+        looks = [(m, n, [k for k in dict.fromkeys(keys)
+                         if k in self.zero_dims]) for m, n, keys in looks]
+        looks = [lk for lk in looks if lk[2]]
+        seen: Dict[str, int] = {}
+        for _m, _n, keys in looks:
+            for k in keys:
+                seen[k] = seen.get(k, 0) + 1
+        plan, host = [], None
+        for m, n, keys in looks:
+            if (host is not None and len(keys) == 1 and m == "layers"
+                    and keys[0] in self.zero_vectors and seen[keys[0]] == 1):
+                host[3].append(keys[0])
+                continue
+            entry = (m, n, keys, [])
+            plan.append(entry)
+            if not all(k in self.zero_vectors for k in keys):
+                host = entry
+        return plan
+
+    def zero_units(self) -> List[List[str]]:
+        """The keys gathered together under ``zero = 3``: one list per
+        all-gather of :meth:`_zero_plan` (a layer or a sibling-1x1 or
+        branch-embed group, with the vectors that ride with it)."""
+        return [keys + riders for _m, _n, keys, riders in self._zero_plan()]
+
+    def zero_saved_hooks(self):
+        """The training forward's saved-tensor hooks under ``zero = 3``
+        (``distributed.saved_whole_hooks``), else a no-op context."""
+        if not self.zero_dims:
+            return contextlib.nullcontext()
+        return pdist.saved_whole_hooks()
+
+    def _zero_whole(self, params: Dict[str, dict], keys: Sequence[str]
+                    ) -> Dict[str, dict]:
+        """``params`` of ``keys`` with their cut tags whole: one
+        ``distributed.gather_slices`` of all of them over the data
+        sub-group (the backward: one reduce-scatter)."""
+        out = {k: dict(params[k]) for k in keys if k in params}
+        names = [(k, t) for k in out for t in sorted(self.zero_dims.get(k, {}))
+                 if t in out[k]]
+        whole = pdist.gather_slices([out[k][t] for k, t in names],
+                                    [self.zero_dims[k][t] for k, t in names],
+                                    self.zero_group, self.zero_det)
+        for (k, t), w in zip(names, whole):
+            out[k][t] = w
+        return out
+
+    def _at_use(self, keys: Sequence[str], params: Dict[str, dict], build,
+                riders: Sequence[str] = (), stash: Optional[dict] = None):
+        """``build(whole)`` over the keys' weights gathered whole, every
+        tensor it returns (and every gathered one) registered with its
+        recipe (``distributed.register_regen``: gather and build again)
+        and counted while it lives (``distributed.track_gathered``).
+        ``build`` returns a dict of tensors (or of None / lists).  The
+        ``riders``' weights come in the same all-gather and wait in
+        ``stash`` for their own lookup (:meth:`_ridden`)."""
+        def make(extra=()):
+            whole = self._zero_whole(params, [*keys, *extra])
+            for k in extra:
+                stash[k] = whole.pop(k)
+            return whole, build(whole)
+
+        whole, out = make(riders)
+        fresh = {w.untyped_storage().data_ptr() for tags in whole.values()
+                 for w in tags.values()}
+        for k, tags in whole.items():
+            for t, w in tags.items():
+                pdist.register_regen(
+                    w, lambda k=k, t=t: self._zero_whole(params, [k])[k][t])
+        for name, v in out.items():
+            if not isinstance(v, torch.Tensor):
+                continue
+            if v.untyped_storage().data_ptr() not in fresh:
+                pdist.track_gathered(v)
+            pdist.register_regen(v, lambda name=name: make()[1][name])
+        return out
+
+    def _ridden(self, key: str, params: Dict[str, dict], stash: dict,
+                build):
+        """``build(whole)`` of a rider (:meth:`_zero_plan`): its weights
+        from ``stash``, where its host's gather left them (or gathered
+        now, should the host not have run).  A vector is small, so what
+        autograd saves of it is kept as it is (no recipe); it is counted
+        while it lives."""
+        whole = ({key: stash.pop(key)} if key in stash
+                 else self._zero_whole(params, [key]))
+        out = build(whole)
+        fresh = {w.untyped_storage().data_ptr() for w in whole[key].values()}
+        for v in out.values():
+            if (isinstance(v, torch.Tensor) and v.numel()
+                    and v.untyped_storage().data_ptr() not in fresh):
+                pdist.track_gathered(v)
+        return out
+
+    # ------------------------------------------------------------------
     def prepare(self, params: Dict[str, dict]) -> Dict[str, object]:
         """Master params -> the forward's operands: each layer's params in
         the compute dtype and its kernel's layout (none for the members of
@@ -634,7 +805,9 @@ class FunctionalNet:
         ``members`` instead of a kernel and builds it per forward.  Once
         per load for predict; per step, under autograd, for training.
         Over a model axis the gathered keys' cut tags are gathered first
-        (:meth:`_gather_at_use`)."""
+        (:meth:`_gather_at_use`).  Under ``zero = 3`` the three maps
+        build an entry of cut weights anew at each lookup, from the
+        weights gathered then (:meth:`_at_use`)."""
         cdt = self.compute_dtype
         if self.model_dims:
             params = self._gather_at_use(params)
@@ -643,14 +816,30 @@ class FunctionalNet:
             else {}
         member = {j for idxs in (*fuse.values(), *embed.values())
                   for j in idxs}
-        layers: Dict[str, dict] = {}
+        zero = self.zero_dims
+        riders = ({(m, n): r for m, n, _k, r in self._zero_plan()} if zero
+                  else {})
+        rides = {k for r in riders.values() for k in r}
+        stash: dict = {}  # zero = 3: the riders' gathered weights
+        layers: Dict[str, object] = {}
         for i, key in enumerate(self.param_key):
             if key in params and key not in layers and i not in member:
+                if key in rides:
+                    layers[key] = functools.partial(
+                        self._ridden, key, params, stash,
+                        functools.partial(self._prepare_one, i, key, cdt))
+                    continue
+                if key in zero:
+                    layers[key] = functools.partial(
+                        self._at_use, [key], params,
+                        functools.partial(self._prepare_one, i, key, cdt),
+                        riders.get(("layers", key), ()), stash)
+                    continue
                 layers[key] = (opsq.prepare_q(params[key])
                                if opsq.is_quantized(params[key]) else
                                self.layer_objs[i].prepare(params[key], cdt))
 
-        def group(idxs, build, key):
+        def group(idxs, build, key, params=params):
             ps = [params[self.param_key[j]] for j in idxs]
             splits = [(p[opsq.QKEY] if opsq.is_quantized(p)
                        else p["wmat"]).shape[3] for p in ps]
@@ -665,11 +854,34 @@ class FunctionalNet:
                     "members": ps if quant else None,
                     "bias": bias, "splits": splits}
 
-        return {"layers": layers,
-                "groups": {leader: group(idxs, self._group_kernel, "w2d")
-                           for leader, idxs in fuse.items()},
-                "embed": {leader: group(idxs, self._embed_kernel, "wk")
-                          for leader, idxs in embed.items()}}
+        if not zero:
+            return {"layers": layers,
+                    "groups": {leader: group(idxs, self._group_kernel, "w2d")
+                               for leader, idxs in fuse.items()},
+                    "embed": {leader: group(idxs, self._embed_kernel, "wk")
+                              for leader, idxs in embed.items()}}
+        # zero = 3: each layer's (each group's) operands are built from
+        # its gathered weights at each lookup and kept by nobody
+        def lazy_group(idxs, build, key, at):
+            keys = list(dict.fromkeys(self.param_key[j] for j in idxs))
+            return functools.partial(
+                self._at_use, keys, params,
+                lambda whole: group(idxs, build, key, params=whole),
+                riders.get(at, ()), stash)
+
+        return {"layers": _AtUse({k: v if callable(v) else (lambda v=v: v)
+                                  for k, v in layers.items()}),
+                "groups": _AtUse({leader: lazy_group(
+                    idxs, self._group_kernel, "w2d", ("groups", leader))
+                    for leader, idxs in fuse.items()}),
+                "embed": _AtUse({leader: lazy_group(
+                    idxs, self._embed_kernel, "wk", ("embed", leader))
+                    for leader, idxs in embed.items()})}
+
+    def _prepare_one(self, i: int, key: str, cdt: torch.dtype,
+                     whole: Dict[str, dict]) -> dict:
+        """Layer ``i``'s operands from ``whole``, its weights gathered."""
+        return self.layer_objs[i].prepare(whole[key], cdt)
 
     @staticmethod
     def _group_kernel(ps: List[dict], cdt: torch.dtype) -> torch.Tensor:
@@ -780,6 +992,7 @@ class FunctionalNet:
                     grp["bias"])
                 parts = (self._gather_parts(y, grp["splits"]) if cut
                          else torch.split(y, grp["splits"], dim=3))
+                grp = w2d = None  # zero = 3: nothing whole outlives its use
                 for j, part in zip(fuse_groups[i], parts):
                     nodes[g.layers[j].nindex_out[0]] = part
                 continue
@@ -822,6 +1035,7 @@ class FunctionalNet:
                 outs = unit(functools.partial(
                     lay.apply, train=train, gen=gen, step=step),
                     lparams, inputs)
+            lparams = None  # zero = 3: nothing whole outlives its use
             for n, v in zip(spec.nindex_out, outs):
                 nodes[n] = v
         return nodes, loss

@@ -42,9 +42,20 @@ batch's and a random layer's mask is drawn for the global shape.
 rank's slice of the updater state only (``MeshPlan.owner_dim``): each
 rank updates its slice of every weight (the fused SGD kernel over the
 slices) and the ranks all-gather the weights; ``zero = 3`` (``fsdp``)
-keeps the weights as slices too, gathered at a step's start and dropped
-at its end.  A tensor with no dimension divisible by N, or whose
-updater reads whole-tensor norms (``lars``, ``lamb``), stays whole.
+keeps the weights as slices too, gathered layer by layer at use
+(``FunctionalNet.bind_data_slices``: one all-gather per layer or
+sibling-1x1 group in the forward, batch norm's vectors in the layer's
+before them, again in the backward where autograd needs a matrix, and
+a reduce-scatter of the gradients into the slices),
+so no step holds the whole net; ``zero_gathered_peak_bytes`` is the most
+whole-weight bytes a rank held at once.  Under ``zero >= 1`` the sharded
+tensors' gradients are reduce-scattered to each rank's slice (under
+``zero = 3`` inside the backward) and only the whole tensors and the
+loss are all-reduced.  ``lars`` and ``lamb`` state is cut too: their
+trust ratio's squared norms are summed over the data sub-group (and the
+model sub-group where the tensor is cut there as well).  A tensor with
+no dimension divisible by N stays whole.  Under ``model_parallel > 1``
+``zero = 3`` gathers the data slices at a step's start, as before.
 ``det_reduce = 1`` all-gathers the ranks' gradients and adds them in
 rank order, so the sum's bits do not depend on the backend.
 Checkpoints hold gathered full arrays (every rank calls
@@ -125,6 +136,7 @@ and ``async_snapshot`` are the CLI's hooks.
 
 from __future__ import annotations
 
+import contextlib
 import io as _io
 import json
 import struct
@@ -140,6 +152,7 @@ from ..obs import device as obs_device
 from ..obs import events as obs_events
 from ..ops import kernels as _klib
 from ..parallel import distributed as pdist
+from ..parallel.distributed import rank_order_fold
 from ..parallel.mesh import MeshPlan, plan_for, rank_device
 from ..updater import Updater, apply_all, create_updater
 from ..utils import checkpoint as ckpt
@@ -179,16 +192,6 @@ def params_to_numpy(params: Dict[str, Dict[str, torch.Tensor]]
     """The inverse of :func:`params_from_numpy`."""
     return {key: {tag: w.detach().cpu().numpy() for tag, w in tags.items()}
             for key, tags in params.items()}
-
-
-def rank_order_fold(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``((p0 + p1) + p2) + ...``: the ranks' tensors added in rank
-    order, one fixed order whatever the backend (``det_reduce`` and the
-    async exchange, ``parallel/async_ps``)."""
-    acc = parts[0].clone()
-    for p in parts[1:]:
-        acc.add_(p)
-    return acc
 
 
 class NetTrainer:
@@ -243,6 +246,7 @@ class NetTrainer:
         self.inject_spike_step = -1  # fault injection (tests): spike once
         self.inject_shadow_mismatch = 0  # one-shot shadow-audit hook
         self._loss_window: List[float] = []  # recent finite losses
+        self.model_path: Optional[str] = None  # the checkpoint loaded
 
     # ------------------------------------------------------------------
     def set_param(self, name: str, val: str) -> None:
@@ -507,15 +511,61 @@ class NetTrainer:
                 for tag, w in tags.items():
                     up = self.updaters.get((key, tag))
                     d = plan.owner_dim(self._whole_shape(key, tag, w.shape))
-                    if up is None or not up.elementwise or d is None:
+                    if up is None or d is None:
                         continue
                     self._dims[(key, tag)] = d
+                    if not up.elementwise:
+                        # the trust ratio's norms: summed over the data
+                        # ranks' slices (and the model ranks')
+                        up.norm_groups = tuple(up.norm_groups) + (
+                            plan.data_group,)
                     state = self.ustates[key][tag]
                     for slot, v in state.items():
                         state[slot] = self._my_slice(v, d)
                     if self.zero >= 3:
                         tags[tag] = self._my_slice(w, d)
+        self._bind_zero()
         self._export_state_bytes()
+
+    def _jit_gather(self) -> bool:
+        """Does ``zero = 3`` gather each layer's weights at use?  (Over a
+        model axis the data slices are gathered at a step's start.)"""
+        return bool(self.zero >= 3 and self._dims
+                    and self.mesh_plan.n_model == 1)
+
+    def _bind_zero(self) -> None:
+        """Hand the net the data cuts it gathers at use (``zero = 3``,
+        no model axis), or none."""
+        dims: Dict[str, Dict[str, int]] = {}
+        if self._jit_gather():
+            for (k, t), d in self._dims.items():
+                dims.setdefault(k, {})[t] = d
+        vectors = {k for k, tags in dims.items()
+                   if all(self.params[k][t].dim() == 1 for t in tags)}
+        self.net.bind_data_slices(self.mesh_plan.data_group, dims,
+                                  det=self._det_active(), vectors=vectors)
+
+    def zero_snapshot(self) -> Optional[dict]:
+        """``zero = 3``'s gather at use: the most whole-weight bytes this
+        rank held at once since the process began
+        (``zero_gathered_peak_bytes``), the largest group gathered at
+        once, and the whole net's weight bytes; None when the weights
+        are not gathered at use."""
+        if not self._jit_gather():
+            return None
+        whole = {k: {t: self._whole_shape(k, t) for t in tags}
+                 for k, tags in self.params.items()}
+
+        def nbytes(key, only_cut=True):
+            return sum(4 * int(np.prod(shape))
+                       for t, shape in whole[key].items()
+                       if not only_cut or (key, t) in self._dims)
+
+        return {"zero_gathered_peak_bytes": int(pdist.GATHERED["peak"]),
+                "largest_group_bytes": max(
+                    sum(nbytes(k) for k in unit)
+                    for unit in self.net.zero_units()),
+                "whole_weight_bytes": sum(nbytes(k, False) for k in whole)}
 
     def _my_slice(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """A contiguous copy of this rank's slice of ``t`` along ``dim``
@@ -536,9 +586,9 @@ class NetTrainer:
             return pdist.gather_leaves(slices, dims, group)
 
     def _full_params(self) -> Dict[str, dict]:
-        """The whole weights: :meth:`_compute_params` with the model
+        """The whole weights: :meth:`_data_whole_params` with the model
         slices gathered over the model sub-group (collective)."""
-        params = self._compute_params()
+        params = self._data_whole_params()
         if not self._mdims:
             return params
         names = sorted(self._mdims)
@@ -552,9 +602,17 @@ class NetTrainer:
 
     def _compute_params(self) -> Dict[str, dict]:
         """The weights the forward runs on: ``self.params`` (this rank's
-        model slices), or under ``zero = 3`` on more than one data rank
-        the data slices gathered (collective; kept until
-        :meth:`_invalidate_prepared`)."""
+        model slices; under ``zero = 3`` its data slices, which the net
+        gathers layer by layer), or under ``zero = 3`` over a model axis
+        the data slices gathered (:meth:`_data_whole_params`)."""
+        if self._jit_gather():
+            return self.params
+        return self._data_whole_params()
+
+    def _data_whole_params(self) -> Dict[str, dict]:
+        """``self.params`` with the data slices of ``zero = 3`` gathered
+        whole (collective; kept until :meth:`_invalidate_prepared`): the
+        checkpoints, ``get_weight`` and the integrity plane's legs."""
         if self.zero < 3 or not self._dims:
             return self.params
         if self._gathered is None:
@@ -763,7 +821,7 @@ class NetTrainer:
             for tag, w in self.params[key].items():
                 up = self._new_updater(i, tag)
                 if (key, tag) in self._mdims:
-                    up.norm_group = self.mesh_plan.model_group
+                    up.norm_groups = (self.mesh_plan.model_group,)
                 self.updaters[(key, tag)] = up
                 self.ustates[key][tag] = up.init_state(w)
 
@@ -937,6 +995,7 @@ class NetTrainer:
         header, raw, raw_aux, raw_ust = self._read_model_file(path)
         graph = NetGraph.structure_from_json(json.dumps(header["structure"]))
         self._build_net(graph)
+        self.model_path = path
         self.epoch_counter = int(header["epoch_counter"])
         q = header.get("quant")
         if q:  # an exported artifact: its leaves ARE the serving params
@@ -1046,9 +1105,47 @@ class NetTrainer:
         tensor on the trainer's device) with eval forward semantics;
         ``pad_to`` zero-pads ``data`` (not ``extras``) to that many rows
         on the device.  ``node_id`` selects a feature node
-        (``resolve_feature_node``); ``None`` is the final output."""
-        return self._forward_fn(self.net.out_node_index()
-                                if node_id is None else node_id)
+        (``resolve_feature_node``); ``None`` is the final output.  Over
+        more than one data rank the rows are split over the ranks
+        (:meth:`run_sharded`, collective)."""
+        node = self.net.out_node_index() if node_id is None else node_id
+        if self.mesh_plan is None or self.mesh_plan.n_data == 1:
+            return self._forward_fn(node)
+
+        def sharded(params, aux, data, extras=(), pad_to=None):
+            return self.run_sharded(node, data, extras, pad_to)
+
+        return sharded
+
+    def run_sharded(self, node_id: int, data: np.ndarray, extras=(),
+                    pad_to: Optional[int] = None) -> torch.Tensor:
+        """The eval forward of node ``node_id`` over the data ranks, as
+        the JAX package's ``_run_sharded`` runs a device range: the
+        batch (zero-padded to ``pad_to`` rows, then to a multiple of the
+        ranks) cut into one block of rows per data index, each rank's
+        forward on its block (batch norm's batch statistics the whole
+        padded batch's, ``distributed.sharded_batch``), the blocks
+        all-gathered in rank order and trimmed to the batch's rows.
+        Collective: every rank calls it with the same ``data``."""
+        plan = self.mesh_plan
+        n = int(data.shape[0])
+        total = max(n, int(pad_to or 0))
+        total += (-total) % plan.n_data
+        per = total // plan.n_data
+        lo = plan.data_index * per
+        rows = data[lo:min(lo + per, n)]
+        ex = []
+        for e in extras:
+            e = np.asarray(e)
+            block = np.zeros((per,) + e.shape[1:], e.dtype)
+            part = e[lo:min(lo + per, n)]
+            block[:len(part)] = part
+            ex.append(block)
+        f = self._forward_fn(node_id)
+        with pdist.sharded_batch(plan):
+            out = f(self._compute_params(), self.aux, rows, ex, pad_to=per)
+            parts = pdist.all_gather(out.contiguous(), plan.data_group)
+        return torch.cat(parts)[:n]
 
     def resolve_feature_node(self, node_name: str) -> int:
         """``top[-k]`` / node-name -> node index (ExtractFeature rules)."""
@@ -1076,16 +1173,25 @@ class NetTrainer:
         """The eval-forward value of node ``node_name`` (``top[-k]`` or a
         node name) for ``batch.data`` and its ``extra_data``, as f32
         numpy."""
-        f = self._forward_fn(self.resolve_feature_node(node_name))
-        return f(self._compute_params(), self.aux, batch.data,
-                 batch.extra_data).cpu().numpy()
+        node = self.resolve_feature_node(node_name)
+        return self._node_rows(node, batch.data, batch.extra_data)
 
     def predict(self, data: np.ndarray, extras: Sequence = ()) -> np.ndarray:
         """Per-instance prediction for a numpy batch (and its side
         inputs, for a net with ``extra_data`` nodes)."""
-        out = self.predict_fn()(self._compute_params(), self.aux, data,
-                                extras)
-        return self.predict_from_scores(out.cpu().numpy())
+        out = self._node_rows(self.net.out_node_index(), data, extras)
+        return self.predict_from_scores(out)
+
+    def _node_rows(self, node_id: int, data, extras) -> np.ndarray:
+        """Node ``node_id``'s eval-forward rows as f32 numpy: over more
+        than one data rank split over the ranks (:meth:`run_sharded`,
+        collective), else one forward."""
+        if self.mesh_plan is not None and self.mesh_plan.n_data > 1:
+            return self.run_sharded(node_id, np.asarray(data),
+                                    extras).cpu().numpy()
+        f = self._forward_fn(node_id)
+        return f(self._compute_params(), self.aux, data,
+                 extras).cpu().numpy()
 
     # ------------------------------------------------------------------
     # training
@@ -1138,8 +1244,23 @@ class NetTrainer:
         """One leg of the shadow audit: the train forward from the f32
         masters (``forward_train`` prepares the compute-dtype operands
         afresh), a copy of the layer state (the audit keeps nothing),
-        the round's generator, and the gradients of every leaf."""
-        params = self._compute_params()
+        the round's generator, and the gradients of every leaf (under
+        ``zero = 3`` of the whole weights, gathered first)."""
+        params = self._data_whole_params()
+        with self._whole_forward():
+            return self._shadow_grads(params, data, labels, mask, round_)
+
+    @contextlib.contextmanager
+    def _whole_forward(self):
+        """The net runs on whole weights inside this block (no gather at
+        use), as the integrity plane's legs do under ``zero = 3``."""
+        dims, self.net.zero_dims = self.net.zero_dims, {}
+        try:
+            yield
+        finally:
+            self.net.zero_dims = dims
+
+    def _shadow_grads(self, params, data, labels, mask, round_: int):
         flat = [(k, t, w) for k in sorted(params)
                 for t, w in sorted(params[k].items())]
         leaves = {}
@@ -1385,7 +1506,7 @@ class NetTrainer:
             for key, tag, w in flat:
                 leaves.setdefault(key, {})[tag] = (
                     w.detach().requires_grad_(True))
-            with torch.enable_grad():
+            with torch.enable_grad(), self.net.zero_saved_hooks():
                 nodes, loss = self.net.forward_train(
                     leaves, data, labels, mask, self._step_generator(),
                     aux=self.aux, step=self.epoch_counter, extras=extras)
@@ -1419,9 +1540,11 @@ class NetTrainer:
             apply = self.sample_counter >= self.update_period
             grads = self._grad_accum
         if apply:
-            grads, self.last_loss = self._reduce_grads(grads, self.last_loss)
+            names = [(k, t) for k, t, _w in flat]
+            grads, self.last_loss = self._reduce_grads(grads, self.last_loss,
+                                                       names)
             with torch.no_grad():
-                self._apply_updates([(k, t) for k, t, _w in flat], grads)
+                self._apply_updates(names, grads)
             self._invalidate_prepared()
             self._grad_accum, self.sample_counter = None, 0
         if self.update_period == 1 and self.divergence_policy:
@@ -1510,26 +1633,47 @@ class NetTrainer:
         return pdist.all_reduce_(loss.float().reshape(1).clone(),
                                  self.mesh_plan.data_group)[0]
 
-    def _reduce_grads(self, grads: List[torch.Tensor], loss: torch.Tensor):
+    def _reduce_grads(self, grads: List[torch.Tensor], loss: torch.Tensor,
+                      names: Sequence[Tuple[str, str]]):
         """``(grads, loss)`` summed over the data sub-group (every model
-        rank of a data index holds the same whole gradients): the
-        gradients and the loss packed into one flat f32 buffer and
-        all-reduced, or under ``det_reduce`` all-gathered and added in
-        rank order (``((g0 + g1) + g2) + ...``, :func:`rank_order_fold`),
-        which no backend can reorder.  A no-op on one data index."""
+        rank of a data index holds the same whole gradients).  The
+        whole tensors' gradients and the loss: packed into one flat f32
+        buffer and all-reduced, or under ``det_reduce`` all-gathered and
+        added in rank order (``((g0 + g1) + g2) + ...``,
+        :func:`rank_order_fold`), which no backend can reorder.  Under
+        ``zero >= 1`` the gradients of the tensors cut over the data
+        ranks (``names`` in ``_dims``) come back as this rank's slices of
+        the sum: reduce-scattered here in one flat buffer, or already
+        reduce-scattered by the backward when ``zero = 3`` gathers at
+        use.  A no-op on one data index."""
         if self.mesh_plan.n_data == 1:
             return grads, loss
-        buf = torch.cat([g.reshape(-1) for g in grads]
+        group, det = self.mesh_plan.data_group, self._det_active()
+        cut = [i for i, n in enumerate(names) if n in self._dims]
+        out = list(grads)
+        if cut and not self._jit_gather():
+            dims = [self._dims[names[i]] for i in cut]
+            shapes = []
+            for i, d in zip(cut, dims):
+                shape = list(grads[i].shape)
+                shape[d] //= self.mesh_plan.n_data
+                shapes.append(shape)
+            mine = pdist.reduce_scatter(
+                pdist.pack_by_rank([grads[i] for i in cut], dims,
+                                   self.mesh_plan.n_data), group, det=det)
+            for i, g in zip(cut, pdist.unpack_slices(mine, shapes)):
+                out[i] = g
+        whole = sorted(set(range(len(grads))) - set(cut))
+        buf = torch.cat([grads[i].reshape(-1) for i in whole]
                         + [loss.float().reshape(1)])
-        if self._det_active():
-            buf = rank_order_fold(
-                pdist.all_gather(buf, self.mesh_plan.data_group))
+        if det:
+            buf = rank_order_fold(pdist.all_gather(buf, group))
         else:
-            pdist.all_reduce_(buf, self.mesh_plan.data_group)
-        out, off = [], 0
-        for g in grads:
-            out.append(buf[off:off + g.numel()].view_as(g))
-            off += g.numel()
+            pdist.all_reduce_(buf, group)
+        off = 0
+        for i in whole:
+            out[i] = buf[off:off + grads[i].numel()].view_as(grads[i])
+            off += grads[i].numel()
         return out, buf[off]
 
     def _apply_updates(self, names: Sequence[Tuple[str, str]],
@@ -1539,26 +1683,24 @@ class NetTrainer:
         the schedule position ``epoch`` (``epoch_counter`` unless the
         async step applies an older aggregate).  A tensor sharded under
         ``zero >= 1`` is updated on this rank's slice only: its
-        gradient's slice (contiguous, the fused SGD kernel's table takes
-        it as it is), its state slice, and the master's slice (``zero = 3``: the master IS the slice) or a
-        contiguous slice of the whole master, whose ranks' slices are
-        then all-gathered back into it (``zero = 1``)."""
+        gradient, which :meth:`_reduce_grads` left as this rank's slice
+        (contiguous, the fused SGD kernel's table takes it as it is),
+        its state slice, and the master's slice (``zero = 3``: the
+        master IS the slice) or a contiguous slice of the whole master,
+        whose ranks' slices are then all-gathered back into it (``zero
+        = 1``)."""
         items, back = [], []
         plan = self.mesh_plan
         for (key, tag), g in zip(names, grads):
             up, state = self.updaters[(key, tag)], self.ustates[key][tag]
             master = self.params[key][tag]
             d = self._dims.get((key, tag))
-            if d is None:
+            if d is None or self.zero >= 3:
                 items.append((up, master, g, state))
                 continue
-            start, n = plan.slice_bounds(tuple(g.shape), d)
-            g_mine = g.narrow(d, start, n).contiguous()
-            if self.zero >= 3:
-                items.append((up, master, g_mine, state))
-                continue
+            start, n = plan.slice_bounds(tuple(master.shape), d)
             w_mine = master.narrow(d, start, n).contiguous()
-            items.append((up, w_mine, g_mine, state))
+            items.append((up, w_mine, g, state))
             back.append((master, w_mine, d))
         apply_all(items, self.epoch_counter if epoch is None else epoch)
         whole = self._gather_slices([w for _m, w, _d in back],
@@ -1721,7 +1863,7 @@ class NetTrainer:
         key = self.net.param_key[i]
         if key not in self.params or tag not in self.params[key]:
             return np.zeros((0, 0), np.float32)
-        w = self._compute_params()[key][tag]
+        w = self._data_whole_params()[key][tag]
         d = self._mdims.get((key, tag))
         if d is not None:  # the model slices gathered (collective)
             w = self._gather_slices([w], [d], axis="model")[0]

@@ -26,10 +26,22 @@ no-op.
 the CPU or when two ranks share a card (NCCL refuses two ranks on one
 device), ``nccl`` when every rank has a card of its own.  Neither gives
 way to the other: an ``init_process_group`` or collective failure
-raises.  Gloo takes CUDA tensors for the three collectives this port
-uses (:func:`all_reduce_`, :func:`all_gather`, :func:`broadcast_`), so
-the tensors stay on the card and go to the backend as they are; a
-collective gloo cannot run on them raises.
+raises.  Gloo takes CUDA tensors for the collectives this port uses
+(:func:`all_reduce_`, :func:`all_gather`, :func:`broadcast_`,
+:func:`reduce_scatter`: torch 2.11's gloo runs ``reduce_scatter_tensor``
+on them too), so the tensors stay on the card and go to the backend as
+they are; a collective gloo cannot run on them raises.  :data:`STATS`
+counts every call, its bytes (``by_op``: by collective) and its host
+seconds.
+
+ZeRO over the data sub-group: :func:`reduce_scatter` leaves each rank
+its slice of a packed gradient buffer (:func:`pack_by_rank`), and
+:func:`gather_slices` (``GatherSlice``) gathers a layer's weights at use,
+its backward the reduce-scatter of their gradient; under
+:func:`saved_whole_hooks` what autograd saves of such a whole weight is
+a recipe (:func:`register_regen`), gathered again when the backward
+needs it.  :data:`GATHERED` is the most whole-weight bytes alive at
+once.
 
 Under :func:`sharded_batch` (the trainer's training and evaluation
 forwards in a group) the layers that see the whole batch see the
@@ -135,7 +147,8 @@ _groups: Dict[int, Tuple[object, object]] = {}
 #: the group's collective traffic since the last :func:`reset_stats`:
 #: calls, bytes handed to the backend, and the host seconds spent in the
 #: calls
-STATS: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0}
+STATS: Dict[str, object] = {"calls": 0, "bytes": 0, "seconds": 0.0,
+                             "by_op": {}}
 #: sharded_batch's (data index, n_data, data sub-group)
 _shard: List[Optional[Tuple[int, int, object]]] = [None]
 
@@ -231,7 +244,7 @@ def init_distributed(coordinator: str, num: int, pid: int,
     dist.init_process_group(backend, store=store, rank=pid, world_size=num,
                             timeout=timeout)
     _state.update(initialized=True, backend=backend, device=device,
-                  timeout_s=timeout_s)
+                  timeout_s=timeout_s, store=store)
     if resilient:
         _state["resilient"] = True
         from ..obs import emit as obs_emit
@@ -288,7 +301,7 @@ def shutdown_distributed(graceful: bool = True,
             _abort_nccl(world)
         del world
         dist.destroy_process_group()
-    _state.update(initialized=False, backend="", device=None)
+    _state.update(initialized=False, backend="", device=None, store=None)
     _groups.clear()
     _shard[0] = None
     reset_stats()
@@ -310,6 +323,12 @@ def group_device():
     """This rank's ``torch.device`` in the live group (None without
     one)."""
     return _state["device"]
+
+
+def store():
+    """The live group's ``TCPStore`` (rank 0 hosts it; None without a
+    group): the serving range's control channel (``serve/range.py``)."""
+    return _state.get("store")
 
 
 def backend() -> str:
@@ -370,15 +389,21 @@ def is_primary() -> bool:
 
 
 def reset_stats() -> None:
-    STATS.update(calls=0, bytes=0, seconds=0.0)
+    STATS.update(calls=0, bytes=0, seconds=0.0, by_op={})
 
 
 # ----------------------------------------------------------------------
-# the collectives: every call of the port goes through these three
-def _account(t, t0: float) -> None:
+# the collectives: every call of the port goes through these
+def _account(t, t0: float, op: str) -> None:
+    """Count one collective: ``t`` is what this rank hands the backend
+    (a reduce-scatter counts the rank's share of its input, as an
+    all-gather counts its input), also by ``op`` in ``by_op``."""
+    nbytes = t.numel() * t.element_size()
     STATS["calls"] += 1
-    STATS["bytes"] += t.numel() * t.element_size()
+    STATS["bytes"] += nbytes
     STATS["seconds"] += time.perf_counter() - t0
+    by_op = STATS["by_op"]
+    by_op[op] = by_op.get(op, 0) + nbytes
 
 
 def all_reduce_(t, group=None):
@@ -388,7 +413,7 @@ def all_reduce_(t, group=None):
         return t
     t0 = time.perf_counter()
     dist.all_reduce(t, group=group)
-    _account(t, t0)
+    _account(t, t0, "all_reduce")
     return t
 
 
@@ -401,7 +426,7 @@ def all_gather(t, group=None) -> list:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(_size(group))]
     dist.all_gather(parts, t, group=group)
-    _account(t, t0)
+    _account(t, t0, "all_gather")
     return parts
 
 
@@ -415,7 +440,7 @@ def all_gather_async(t, group=None):
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(_size(group))]
     work = dist.all_gather(parts, t, group=group, async_op=True)
-    _account(t, t0)
+    _account(t, t0, "all_gather")
     return work, parts
 
 
@@ -425,8 +450,215 @@ def broadcast_(t, src: int = 0):
         return t
     t0 = time.perf_counter()
     dist.broadcast(t, src)
-    _account(t, t0)
+    _account(t, t0, "broadcast")
     return t
+
+
+def rank_order_fold(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``((p0 + p1) + p2) + ...``: the ranks' tensors added in rank
+    order, one fixed order whatever the backend (``det_reduce`` and the
+    async exchange, ``parallel/async_ps``)."""
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc.add_(p)
+    return acc
+
+
+def reduce_scatter(buf, group=None, det: bool = False):
+    """This rank's share of the sum of ``buf`` over the job (or a
+    sub-group): ``buf`` (1-D, its length a multiple of the ranks) cut
+    into one equal chunk per rank, rank ``i`` keeping the sum of every
+    rank's ``i``-th chunk (``reduce_scatter_tensor``; gloo and NCCL both
+    run it on CPU and CUDA tensors).  ``det``: all-gather the buffers
+    and add them in rank order (:func:`rank_order_fold`), then slice,
+    so the bits do not depend on the backend."""
+    n = _size(group)
+    if n == 1:
+        return buf
+    chunk = buf.numel() // n
+    if det:
+        return rank_order_fold(all_gather(buf, group)).narrow(
+            0, _group_rank(group) * chunk, chunk)
+    t0 = time.perf_counter()
+    buf = buf.contiguous()
+    out = torch.empty(chunk, dtype=buf.dtype, device=buf.device)
+    dist.reduce_scatter_tensor(out, buf, group=group)
+    _account(out, t0, "reduce_scatter")
+    return out
+
+
+def _group_rank(group) -> int:
+    """This rank's index in ``group`` (``None``: the whole job)."""
+    if group is SOLO:
+        return 0
+    return dist.get_rank(group) if group is not None else dist.get_rank()
+
+
+def pack_by_rank(ts: Sequence[torch.Tensor], dims: Sequence[int],
+                 n: int) -> torch.Tensor:
+    """The flat buffer whose ``i``-th of ``n`` equal chunks holds, for
+    every whole tensor of ``ts`` in order, its ``i``-th slice along its
+    dim of ``dims``: what :func:`reduce_scatter` cuts so that each rank
+    keeps its slice of each tensor."""
+    return torch.cat([t.narrow(d, r * (t.shape[d] // n),
+                               t.shape[d] // n).reshape(-1)
+                      for r in range(n) for t, d in zip(ts, dims)])
+
+
+def unpack_slices(flat: torch.Tensor, shapes: Sequence[Sequence[int]]
+                  ) -> List[torch.Tensor]:
+    """``flat`` (one rank's chunk of :func:`pack_by_rank`) as views of
+    the slices' ``shapes``, in order."""
+    out, off = [], 0
+    for shape in shapes:
+        k = int(np.prod(shape))
+        out.append(flat[off:off + k].view(tuple(shape)))
+        off += k
+    return out
+
+
+#: the ZeRO-3 gather's watermark: the bytes of whole weights (gathered
+#: from slices, or derived from gathered ones) alive at once, and the
+#: most seen since :func:`reset_gathered_peak`
+GATHERED = {"live": 0, "peak": 0}
+
+
+def track_gathered(t) -> None:
+    """Count ``t``'s bytes in :data:`GATHERED` until ``t`` is freed."""
+    import weakref
+
+    nbytes = t.numel() * t.element_size()
+    GATHERED["live"] += nbytes
+    GATHERED["peak"] = max(GATHERED["peak"], GATHERED["live"])
+    weakref.finalize(t, _untrack, nbytes)
+
+
+def _untrack(nbytes: int) -> None:
+    GATHERED["live"] -= nbytes
+
+
+def reset_gathered_peak() -> None:
+    GATHERED["peak"] = GATHERED["live"]
+
+
+#: storage address -> how to make that storage's whole weight again:
+#: ``(regen, dtype)`` for every whole weight alive that was gathered at
+#: use (or derived from one), so that autograd keeps a recipe, not the
+#: tensor (:func:`saved_whole_hooks`)
+_REGEN: Dict[int, tuple] = {}
+
+
+def register_regen(t, regen) -> None:
+    """Let :func:`saved_whole_hooks` save ``t`` (a whole weight made at
+    use, a fresh tensor) as ``regen``, a callable that makes it again
+    (collective), for as long as ``t`` lives."""
+    import weakref
+
+    if t.numel() == 0 or t.storage_offset() != 0 or t._base is not None:
+        return
+    ptr = t.untyped_storage().data_ptr()
+    if ptr in _REGEN:
+        return
+    _REGEN[ptr] = (regen, t.dtype)
+    weakref.finalize(t, _REGEN.pop, ptr, None)
+
+
+class _Regen:
+    """A saved tensor stood in for by its recipe: a view of the whole
+    weight that ``regen`` makes again."""
+
+    __slots__ = ("regen", "size", "stride", "offset")
+
+    def __init__(self, regen, t) -> None:
+        self.regen = regen
+        self.size, self.stride = tuple(t.shape), tuple(t.stride())
+        self.offset = t.storage_offset()
+
+
+def _pack(t):
+    if t.numel() == 0:
+        return t
+    entry = _REGEN.get(t.untyped_storage().data_ptr())
+    if entry is None or entry[1] != t.dtype:
+        return t
+    return _Regen(entry[0], t)
+
+
+def _unpack(p):
+    if not isinstance(p, _Regen):
+        return p
+    return p.regen().as_strided(p.size, p.stride, p.offset)
+
+
+def saved_whole_hooks():
+    """The ``saved_tensors_hooks`` pair of a ZeRO-3 forward: a tensor
+    autograd saves that is (a view of) a whole weight made at use is
+    kept as its recipe, and the backward gathers it again when it needs
+    it, so the backward holds no whole weight from the forward.  Every
+    rank unpacks in one order (the graphs are the same), which the
+    gathers need."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
+
+
+class GatherSlice(torch.autograd.Function):
+    """Whole tensors from the ranks' equal slices (one all-gather of the
+    slices packed flat); the backward hands each slice the rank's share
+    of the summed gradient (one reduce-scatter, or under ``det`` the
+    rank-order fold)."""
+
+    @staticmethod
+    def forward(ctx, group, dims, det, *ts):
+        ctx.group, ctx.dims, ctx.det = group, dims, det
+        ctx.shapes = [tuple(t.shape) for t in ts]
+        ctx.device = ts[0].device
+        return tuple(_gather_whole(ts, dims, group))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = _size(ctx.group)
+        whole = []
+        for g, d, shape in zip(gs, ctx.dims, ctx.shapes):
+            if g is None:
+                full = list(shape)
+                full[d] *= n
+                g = torch.zeros(full, dtype=torch.float32,
+                                device=ctx.device)
+            whole.append(g)
+        buf = pack_by_rank(whole, ctx.dims, n)
+        mine = reduce_scatter(buf, ctx.group, det=ctx.det)
+        return (None, None, None, *unpack_slices(mine, ctx.shapes))
+
+
+def _gather_whole(ts: Sequence, dims: Sequence[int], group,
+                  track: bool = True) -> list:
+    """The whole tensors of the ranks' slices ``ts`` (one all-gather of
+    them packed flat), with ``track`` each counted in :data:`GATHERED`."""
+    flat = torch.cat([t.reshape(-1) for t in ts])
+    parts = all_gather(flat, group)
+    out, off = [], 0
+    for t, d in zip(ts, dims):
+        k = t.numel()
+        w = torch.cat([p[off:off + k].view(t.shape) for p in parts], dim=d)
+        if track:
+            track_gathered(w)
+        out.append(w)
+        off += k
+    return out
+
+
+def gather_slices(ts: Sequence, dims: Sequence[int], group,
+                  det: bool = False) -> list:
+    """ZeRO-3's gather at use: the whole weights of this rank's slices
+    ``ts`` (cut along ``dims`` over the data sub-group ``group``), in
+    one all-gather; their backward is the reduce-scatter that leaves
+    each slice this rank's share of the gradient summed over the group
+    (``det``: the rank-order fold).  Without autograd it is the gather
+    alone."""
+    if not ts or _size(group) == 1:
+        return list(ts)
+    if not torch.is_grad_enabled() or not any(t.requires_grad for t in ts):
+        return _gather_whole(ts, dims, group)
+    return list(GatherSlice.apply(group, tuple(dims), bool(det), *ts))
 
 
 def _comm_device():
@@ -578,7 +810,7 @@ def _ppermute(t, perm: Sequence[Tuple[int, int]], group):
     parts = [torch.empty_like(t) for _ in range(_size(group))]
     dist.all_gather(parts, t, group=group)
     out = parts[src] if src is not None else torch.zeros_like(t)
-    _account(t, t0)
+    _account(t, t0, "all_gather")
     return out
 
 
@@ -591,7 +823,7 @@ def _all_to_all(t, split_dim: int, concat_dim: int, group):
     blocks = torch.stack(t.chunk(n, split_dim)).contiguous()  # (n, ...)
     out = torch.empty(blocks.shape, dtype=blocks.dtype, device=blocks.device)
     dist.all_to_all_single(out, blocks, group=group)
-    _account(blocks, t0)
+    _account(blocks, t0, "all_to_all")
     return torch.cat(out.unbind(0), dim=concat_dim)
 
 
@@ -679,15 +911,7 @@ class _GatherLeaves(torch.autograd.Function):
     def forward(ctx, group, dims, *ts):
         ctx.group, ctx.dims = group, dims
         ctx.shapes = [t.shape for t in ts]
-        flat = torch.cat([t.reshape(-1) for t in ts])
-        parts = all_gather(flat, group)
-        out, off = [], 0
-        for t, d in zip(ts, dims):
-            n = t.numel()
-            out.append(torch.cat([p[off:off + n].view(t.shape)
-                                  for p in parts], dim=d))
-            off += n
-        return tuple(out)
+        return tuple(_gather_whole(ts, dims, group, track=False))
 
     @staticmethod
     def backward(ctx, *gs):

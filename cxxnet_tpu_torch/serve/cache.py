@@ -3,7 +3,8 @@
 Counterpart of ``cxxnet_tpu/serve/cache.py``.  A request of ``n`` rows
 is zero-padded up to the next power-of-two bucket, runs through the
 trainer's predict function at that bucket, and the padded rows are
-trimmed off the result.  PyTorch runs eagerly and compiles nothing, but
+trimmed off the result (on a serving range's leader the followers are
+told of the batch first, ``serve/range.py``).  PyTorch runs eagerly and compiles nothing, but
 the buckets still bound the set of batch shapes the device sees (cuDNN
 picks its algorithms per shape, and a later CUDA-graph capture will be
 one graph per bucket), and they keep the served answers equal to the
@@ -21,6 +22,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..ops import quant as opsq
+from . import range as serve_range
 
 __all__ = ["bucket_size", "ShapeBucketCache"]
 
@@ -85,8 +87,8 @@ class ShapeBucketCache:
             data = data.copy()
         # a flat (N, D) request is the wrapper spelling of the native row
         data = data.reshape((n,) + tr.net.input_node_shape(1)[1:])
-        out = tr.predict_fn(node_id)(tr.params, tr.aux, data, (),
-                                     pad_to=bucket)
+        out = serve_range.forward_of(tr, node_id)(tr.params, tr.aux, data,
+                                                  (), pad_to=bucket)
         return out.cpu().numpy()[:n]
 
     def scores(self, data: np.ndarray) -> np.ndarray:

@@ -762,6 +762,10 @@ class Engine:
             reasons.append("mesh_rebuilding")
         if self._canary_failed:
             reasons.append("integrity_failed")
+        # a serving range's leader whose follower went silent
+        from . import range as serve_range
+
+        reasons.extend(serve_range.health_reasons())
         reasons.extend(f"alert:{name}" for name in firing)
         with self._model_lock:
             out = {

@@ -3,9 +3,10 @@
 The port's ``tools/mesh_parity.py``.  It trains the MNIST MLP conf the
 JAX lane trains (16 pixels, 2 classes, 128 seeded images, ``dist_shard =
 block``, ``shard_weight_update = 1``, 2 rounds) through the CLI, once as
-``--ranks`` gloo rank processes on the CPU (``dev = cpu:0-{N-1}``: the
-CLI starts one process per listed device) and once as one process, and
-holds them to:
+``--ranks`` rank processes (``tools/_ranks.py``: ``dev`` and the
+``dist_*`` keys on each) and once as one process, and
+holds them to (every rank on ``--dev``: ``gpu:0`` by default, the ranks
+sharing the card over gloo; ``--dev cpu`` on the CPU):
 
 * **the ranks agree**: in a group every checkpoint's bytes are compared
   across the ranks before rank 0 writes it (``cli.py``; a difference
@@ -20,7 +21,8 @@ holds them to:
 
 Usage::
 
-    python -m cxxnet_tpu_torch.tools.mesh_parity --out /tmp/_mesh [--ranks 4]
+    python -m cxxnet_tpu_torch.tools.mesh_parity --out /tmp/_mesh \
+        [--ranks 4] [--dev gpu:0|cpu]
 
 Prints one JSON verdict (also ``<out>/mesh_parity.json``); exit 0 when
 both hold, 1 otherwise.
@@ -31,7 +33,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -81,7 +82,6 @@ layer[+0] = softmax
 netconfig=end
 input_shape = 1,1,16
 batch_size = {GLOBAL_BATCH}
-dev = cpu
 num_round = {NUM_ROUND}
 eval_train = 0
 eta = 0.1
@@ -94,21 +94,19 @@ silent = 1
     return conf
 
 
-def run_job(conf: str, workdir: str, ranks: int, timeout: float) -> str:
-    """One side through the CLI; returns its output."""
+def run_job(conf: str, workdir: str, ranks: int, dev: str,
+            timeout: float) -> None:
+    """One side through the CLI, its checkpoints in
+    ``<workdir>/models``."""
+    from ._ranks import run_ranks
+
     os.makedirs(workdir, exist_ok=True)
-    over = [f"model_dir={workdir}/models"]
-    if ranks > 1:
-        over += [f"dev=cpu:0-{ranks - 1}", f"dist_launch_timeout_s={timeout}"]
-    env = dict(os.environ, PYTHONPATH=REPO)
-    r = subprocess.run([sys.executable, "-m", "cxxnet_tpu_torch", conf]
-                       + over, cwd=workdir, env=env, capture_output=True,
-                       text=True, timeout=timeout + 30)
-    out = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"mesh_parity: {ranks}-rank run failed "
-                           f"(rc={r.returncode}):\n{out[-4000:]}")
-    return out
+    try:
+        run_ranks(conf, workdir, [f"model_dir={workdir}/models"], ranks,
+                  dev, timeout)
+    except RuntimeError as e:
+        raise RuntimeError(f"mesh_parity: {ranks}-rank run failed: "
+                           f"{e}") from None
 
 
 def read_rounds(workdir: str) -> dict:
@@ -127,26 +125,33 @@ def read_rounds(workdir: str) -> dict:
     return out
 
 
-def main() -> int:
-    import numpy as np
-
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="mesh_parity_out",
                     help="scratch and verdict directory")
     ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--dev", default="gpu:0",
+                    help="every rank's dev (cpu: the ranks on the CPU)")
     ap.add_argument("--tol", type=float, default=TOL)
     ap.add_argument("--timeout", type=float, default=240.0,
                     help="each side's wall-clock budget (seconds)")
-    args = ap.parse_args()
+    return ap
+
+
+def main() -> int:
+    import numpy as np
+
+    args = build_parser().parse_args()
     out = os.path.abspath(args.out)
     os.makedirs(out, exist_ok=True)
     make_data(out)
     conf = make_conf(out)
     t0 = time.time()
-    run_job(conf, os.path.join(out, "multi"), args.ranks, args.timeout)
+    run_job(conf, os.path.join(out, "multi"), args.ranks, args.dev,
+            args.timeout)
     multi_s = time.time() - t0
     t1 = time.time()
-    run_job(conf, os.path.join(out, "single"), 1, args.timeout)
+    run_job(conf, os.path.join(out, "single"), 1, args.dev, args.timeout)
     single_s = time.time() - t1
     multi = read_rounds(os.path.join(out, "multi"))
     single = read_rounds(os.path.join(out, "single"))
@@ -165,7 +170,8 @@ def main() -> int:
         problems.append(f"{args.ranks} ranks vs one: max |dw| {worst:g} > "
                         f"{args.tol:g}")
     doc = {
-        "bench": "mesh_parity", "ranks": args.ranks, "rounds": NUM_ROUND,
+        "bench": "mesh_parity", "ranks": args.ranks, "dev": args.dev,
+        "rounds": NUM_ROUND,
         "global_batch": GLOBAL_BATCH, "max_abs_dw": worst, "tol": args.tol,
         "bit_equal": equal,
         "crcs": {str(k): f"{v[0]:#010x}" for k, v in sorted(multi.items())},

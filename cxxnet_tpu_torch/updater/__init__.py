@@ -39,8 +39,9 @@ These five have no kernel in the JAX package either: they are plain
 PyTorch on the card, in the JAX updaters' operation order, their
 schedule scalars evaluated on the host in ``np.float32``.  The norms of
 ``lars`` and ``lamb`` stay on the device (no host sync); over a tensor
-cut on a model axis they are the whole tensor's, the squared sums added
-over the model sub-group (``norm_group``) in one all-reduce.  A global
+cut on a model axis, or on the data axis under ``zero``, they are the
+whole tensor's, the squared sums added over each sub-group that holds
+the other slices (``norm_groups``), one all-reduce each.  A global
 ``eps`` reaches every updater that takes one, and batch norm's too.
 """
 
@@ -63,16 +64,16 @@ class Updater:
 
     type_name = ""
     #: the rule reads each element of (w, grad, state) alone, so a slice
-    #: of the tensor updates as the whole would (ZeRO's sharded update);
-    #: False for the rules that read whole-tensor norms
+    #: of the tensor updates as the whole would; False for the rules that
+    #: read whole-tensor norms, whose slices sum them over ``norm_groups``
     elementwise = True
 
     def __init__(self, tag: str) -> None:
         self.param = UpdaterParam(tag)
-        #: the model sub-group of the ranks that hold the other slices of
-        #: the tensor (None: this rank holds it whole); a rule that reads
-        #: whole-tensor norms sums their squares over it
-        self.norm_group = None
+        #: the sub-groups (model, data) of the ranks that hold the other
+        #: slices of the tensor (empty: this rank holds it whole); a rule
+        #: that reads whole-tensor norms sums their squares over each
+        self.norm_groups: tuple = ()
 
     def set_param(self, name: str, val: str) -> None:
         self.param.set_param(name, val)
@@ -212,12 +213,15 @@ class AdagradUpdater(Updater):
             w.sub_(lr * g / (torch.sqrt(v) + self.eps))
 
 
-def _norms(a: torch.Tensor, b: torch.Tensor, group
+def _norms(a: torch.Tensor, b: torch.Tensor, groups
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``||a||`` and ``||b||`` of the whole tensors whose slices the
-    ranks of ``group`` hold (one all-reduce of the two squared sums)."""
+    ranks of ``groups`` hold (one all-reduce of the two squared sums
+    over each group: the model axis, then the data axis)."""
     sq = torch.stack([(a.float() ** 2).sum(), (b.float() ** 2).sum()])
-    n = torch.sqrt(pdist.all_reduce_(sq, group) if group is not None else sq)
+    for group in groups:
+        sq = pdist.all_reduce_(sq, group)
+    n = torch.sqrt(sq)
     return n[0], n[1]
 
 
@@ -256,7 +260,7 @@ class LARSUpdater(Updater):
             if p.clip_gradient != 0.0:
                 g = update_step.nan_clip(g, p.clip_gradient)
             g = g + p.wd * w
-            wn, gn = _norms(w, g, self.norm_group)
+            wn, gn = _norms(w, g, self.norm_groups)
             trust = _trust(wn, gn, self.trust_coeff * wn / (gn + self.eps))
             m.copy_(mom * m - lr * trust * g)
             w.add_(m)
@@ -300,7 +304,7 @@ class LAMBUpdater(Updater):
             m2.copy_(self.beta2 * m2 + (1.0 - self.beta2) * g * g)
             u = (m1 / fix1) / (torch.sqrt(m2 / fix2) + self.eps)
             u = u + p.wd * w
-            wn, un = _norms(w, u, self.norm_group)
+            wn, un = _norms(w, u, self.norm_groups)
             trust = _trust(wn, un, wn / un)
             w.sub_(lr * trust * u)
 

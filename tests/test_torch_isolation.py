@@ -64,7 +64,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "cxxnet_tpu_torch.io.dataservice.client, "
         "cxxnet_tpu_torch.parallel, cxxnet_tpu_torch.parallel.mesh, "
         "cxxnet_tpu_torch.parallel.distributed, "
-        "cxxnet_tpu_torch.tools.mesh_parity\n"
+        "cxxnet_tpu_torch.tools.mesh_parity, "
+        "cxxnet_tpu_torch.tools.async_ab, cxxnet_tpu_torch.tools._ranks, "
+        "cxxnet_tpu_torch.serve.range\n"
         "from cxxnet_tpu_torch.layers import create_layer\n"
         "create_layer('torch'); create_layer('pairtest-conv-conv')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
@@ -123,6 +125,9 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
             "cxxnet_tpu_torch/parallel/mesh.py",
             "cxxnet_tpu_torch/parallel/distributed.py",
             "cxxnet_tpu_torch/tools/mesh_parity.py",
+            "cxxnet_tpu_torch/tools/async_ab.py",
+            "cxxnet_tpu_torch/tools/_ranks.py",
+            "cxxnet_tpu_torch/serve/range.py",
             *(f"cxxnet_tpu_torch/{m}" for m in _LOOP_AND_SERVICE)} <= names
     bad = {f: sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}

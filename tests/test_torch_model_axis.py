@@ -20,8 +20,8 @@ stages):
   a plain conv, batch norm's vectors gathered at use, a cut ``fullc``),
   the MoE net (two experts a rank), ``pipe_mlp`` and
   ``transformer_conf(pipeline_parallel = 2)`` on both meshes, and the
-  conv + batch norm + ``fullc`` net under ``zero = 1`` on the ``2 x
-  2`` mesh.  The updaters that read whole-tensor norms on cut tensors,
+  conv + batch norm + ``fullc`` net under ``zero = 1`` and ``3`` on the
+  ``2 x 2`` mesh.  The updaters that read whole-tensor norms on cut tensors,
   on the ``1 x 2`` mesh: the transformer's stages under ``lars`` and
   the MoE net under ``lamb`` (a stage that ran every block, or a norm
   of a rank's slice only, fails these).  Each rank's tensors (``s:``) have the JAX package's shard
@@ -103,6 +103,9 @@ WEIGHTS = [("fc", "wmat"), ("c3", "wmat"), ("bn", "wmat"), ("p2", "bias")]
 ZERO_CFG = tcfg.parse_pairs(
     BN_NET.replace("layer[4->4] = dropout\n  threshold = 0.3\n", "")
     + "dev = cpu\n") + [("zero", "1")]
+# zero = 3 over the model axis: the data slices gathered at a step's
+# start (the gather at use runs without a model axis)
+ZERO3_CFG = ZERO_CFG[:-1] + [("zero", "3")]
 
 
 def tf_pairs(batch):
@@ -120,6 +123,7 @@ NETS = {
     "pipe": (PIPE_MLP_CFG, (16,), 4, "port"),
     "tf": (None, (8, 16), 4, "port"),
     "zero": (ZERO_CFG, (8, 8, 3), 4, "port"),
+    "zero3": (ZERO3_CFG, (8, 8, 3), 4, "port"),
     "tf_lars": (None, (8, 16), 4, "port"),
     "moe_lamb": (MOE_CFG, (10,), 4, "port"),
 }
@@ -222,7 +226,7 @@ def job2(tmp_path_factory):
 @pytest.fixture(scope="module")
 def job4(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("mp4"))
-    return _job(tmp, 4, ["zero", "tf", "pipe", "moe"], 16, 4, 2)
+    return _job(tmp, 4, ["zero", "zero3", "tf", "pipe", "moe"], 16, 4, 2)
 
 
 def _load(job, name):
@@ -332,9 +336,11 @@ def test_whole_norm_updaters_on_one_by_two_match_jax(job2, name):
     assert got[0][cut].shape[0] == 2  # one stage, or two experts, a rank
 
 
-@pytest.mark.parametrize("name", ["zero", "tf", "pipe", "moe"])
+@pytest.mark.parametrize("name", ["zero", "zero3", "tf", "pipe", "moe"])
 def test_nets_on_two_by_two_match_jax(job4, name):
     _jt, got = _check_net(job4, name)
+    if name == "zero3":  # the data indices hold other slices
+        return
     for r in range(2, 4):  # each slice against its replica on data index 0
         for key, w in got[r].items():
             if key.startswith("s:"):

@@ -186,7 +186,8 @@ def test_integrity_vote_names_the_flipped_rank(digits, tmp_path):
 def test_mesh_parity_tool(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "cxxnet_tpu_torch.tools.mesh_parity",
-         "--out", str(tmp_path), "--ranks", "2", "--timeout", "90"],
+         "--out", str(tmp_path), "--ranks", "2", "--dev", "cpu",
+         "--timeout", "90"],
         env=_env(), capture_output=True, text=True, timeout=DEADLINE_S * 2)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert '"verdict": "ok"' in r.stdout

@@ -153,6 +153,30 @@ def _synth_batch(shape, nclass, rows, seed=0):
     return ours.data, ours.label
 
 
+@pytest.mark.parametrize("workers,rank", [(1, 0), (2, 1)])
+def test_synthetic_draws_match_jax_draws(workers, rank):
+    """Two iterators of the same settings draw the JAX package's rows
+    and labels, worker shards too, each in arrays of its own."""
+    def made(cls):
+        it = cls()
+        for k, v in (("nsample", "6"), ("input_shape", "3,5,5"),
+                     ("nclass", "4"), ("batch_size", "6"),
+                     ("seed_data", "3"), ("dist_num_worker", str(workers)),
+                     ("dist_worker_rank", str(rank))):
+            it.set_param(k, v)
+        it.init()
+        it.before_first()
+        assert it.next()
+        return it
+
+    ref = made(JaxSynth).value()
+    first, again = made(SyntheticIterator), made(SyntheticIterator)
+    for it in (first, again):
+        np.testing.assert_array_equal(it.value().data, ref.data)
+        np.testing.assert_array_equal(it.value().label, ref.label)
+    assert not np.shares_memory(first._data, again._data)
+
+
 def _snapshot(params):
     return {k: {t: np.array(v, dtype=np.float32, copy=True)
                 for t, v in tags.items()} for k, tags in params.items()}

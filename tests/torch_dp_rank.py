@@ -16,7 +16,8 @@ after the run's own and before its steps (the run's collectives must
 keep to its own layout).  A run with ``expect_error`` only
 builds the model and records the refusal's message in ``error``.
 Each run writes this rank's whole params (``p:``, gathered over the
-model axis) and layer state, the tensors the rank holds itself (``s:``
+model axis) and layer state, the collectives' bytes by kind (``by_op``),
+``zero = 3``'s gather watermark (``zero``, ``NetTrainer.zero_snapshot``), the tensors the rank holds itself (``s:``
 params, ``u:`` updater state slots), the state digests of the integrity
 plane (``fp:`` keyed by leaf and slice), its losses and shard bytes to
 ``{out}.r{rank}.npz``, and rank 0 the checkpoint bytes to ``{out}.model``.
@@ -103,7 +104,11 @@ def run_one(run: dict, rank: int, world: int) -> None:
         if rounds:
             tr.async_round_end(r + 1)
     out = {"losses": np.asarray(losses, np.float64),
-           "calls": np.asarray(pdist.STATS["calls"])}
+           "calls": np.asarray(pdist.STATS["calls"]),
+           "by_op": np.asarray(json.dumps(pdist.STATS["by_op"]))}
+    zero = tr.zero_snapshot()
+    if zero is not None:
+        out["zero"] = np.asarray(json.dumps(zero))
     if run.get("train_metric"):
         # the steps' train metrics over the group (collective)
         tr.train_metric.reduce_across_processes(tr.mesh_plan.data_group)
